@@ -1,0 +1,241 @@
+"""Configuration of the port (the main-path subset).
+
+Counterpart of ``neuronx_distributed_inference_tpu/config.py``:
+:class:`Config` is the port's ``TpuConfig`` and :class:`InferenceConfig`
+wraps it with the HF model attributes. Field names and validation follow
+the reference for every field kept here. Settings the port does not run
+yet raise ``NotImplementedError`` naming their ROADMAP item instead of being
+silently ignored.
+
+One field is new: ``device`` (default ``"cuda"``). Asking for ``"cuda"``
+without a card raises ``RuntimeError``; tests pass ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+_DTYPES = {
+    "float32": torch.float32,
+    "fp32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "bf16": torch.bfloat16,
+    "float16": torch.float16,
+    "fp16": torch.float16,
+}
+
+#: accepted kv_cache_dtype names (reference KV_CACHE_DTYPES); the quantized
+#: ones are validated as known and then refused as not yet ported
+KV_CACHE_DTYPES = (
+    "bfloat16", "bf16", "float16", "fp16", "float32", "fp32",
+    "int8", "fp8", "float8_e4m3", "float8_e5m2",
+)
+KV_QUANT_DTYPE_NAMES = ("int8", "fp8", "float8_e4m3", "float8_e5m2")
+
+
+def to_dtype(name_or_dtype) -> torch.dtype:
+    """Resolve a dtype name (or torch dtype) to a torch dtype."""
+    if isinstance(name_or_dtype, torch.dtype):
+        return name_or_dtype
+    key = str(name_or_dtype).replace("torch.", "")
+    if key not in _DTYPES:
+        raise ValueError(f"Unknown dtype name: {name_or_dtype}")
+    return _DTYPES[key]
+
+
+def resolve_device(device) -> torch.device:
+    """The device a config names. ``cuda`` without a card raises: the port
+    never carries on quietly on the CPU."""
+    dev = torch.device(device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} was asked for but torch sees no CUDA device; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+@dataclass
+class OnDeviceSamplingConfig:
+    """Sampler settings (reference OnDeviceSamplingConfig). Only greedy
+    decoding is ported: ``do_sample=True`` is refused at validation."""
+
+    do_sample: bool = False
+    top_k: int = 1
+    top_p: float = 1.0
+    temperature: float = 1.0
+
+
+#: settings outside the ported slice -> (inert value, ROADMAP item)
+_NOT_PORTED: Dict[str, Tuple[Any, str]] = {
+    "tp_degree": (1, "A10 (parallelism)"),
+    "quantized": (False, "A6 (quantization)"),
+    "is_block_kv_layout": (False, "A4 (paged cache and serving)"),
+    "is_continuous_batching": (False, "A4 (paged cache and serving)"),
+    "serving_ragged": (False, "A5 (ragged mixed step)"),
+    "speculation_length": (0, "A7 (speculation)"),
+    "enable_fused_speculation": (False, "A7 (speculation)"),
+    "lora_config": (None, "A9 (LoRA and other model families)"),
+    "sliding_window": (None, "A9 (sliding-window attention)"),
+    "attention_chunk_size": (None, "A9 (chunked attention)"),
+}
+
+
+@dataclass
+class Config:
+    """Flat runtime config of the port (counterpart of ``TpuConfig``)."""
+
+    # --- core shapes -----------------------------------------------------
+    batch_size: int = 1
+    max_batch_size: Optional[int] = None
+    ctx_batch_size: Optional[int] = None
+    tkg_batch_size: Optional[int] = None
+    seq_len: int = 128
+    max_context_length: Optional[int] = None
+    max_length: Optional[int] = None
+
+    # --- dtypes ----------------------------------------------------------
+    dtype: str = "bfloat16"
+    cast_logits_fp32: bool = True
+    attention_softmax_fp32: bool = True
+
+    # --- bucketing -------------------------------------------------------
+    enable_bucketing: bool = True
+    context_encoding_buckets: Optional[List[int]] = None
+    token_generation_buckets: Optional[List[int]] = None
+
+    # --- batching / sampling ---------------------------------------------
+    padding_side: str = "right"
+    on_device_sampling_config: Optional[OnDeviceSamplingConfig] = None
+    max_topk: int = 256
+    output_logits: bool = False
+
+    # --- KV cache / attention ---------------------------------------------
+    kv_cache_dtype: Optional[str] = None
+    fused_qkv: bool = False
+    # kernel tri-states: None and True both mean "the CUDA kernel on CUDA
+    # tensors"; False means the plain PyTorch path. The TPU's shape guards
+    # (seq % 128, kv_width >= 512, on_tpu) are Mosaic tile rules and do not
+    # carry over: the Hopper kernels mask their ragged edges themselves.
+    attn_kernel_enabled: Optional[bool] = None
+    attn_block_tkg_kernel_enabled: Optional[bool] = None
+
+    # --- weights ---------------------------------------------------------
+    weight_dtype: str = "bfloat16"
+
+    # --- not ported yet (validated, then refused) --------------------------
+    tp_degree: int = 1
+    quantized: bool = False
+    is_block_kv_layout: bool = False
+    is_continuous_batching: bool = False
+    serving_ragged: bool = False
+    speculation_length: int = 0
+    enable_fused_speculation: bool = False
+    lora_config: Optional[Any] = None
+    sliding_window: Optional[int] = None
+    attention_chunk_size: Optional[int] = None
+
+    # --- misc ------------------------------------------------------------
+    seed: int = 0
+    # True: generate() chains prefill -> decode chunks with device-resident
+    # tokens and fetches once at the end; False: synchronize at every chunk
+    async_mode: bool = True
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.max_batch_size is None:
+            self.max_batch_size = self.batch_size
+        if self.ctx_batch_size is None:
+            self.ctx_batch_size = self.max_batch_size
+        if self.tkg_batch_size is None:
+            self.tkg_batch_size = self.max_batch_size
+        if self.max_context_length is None:
+            self.max_context_length = self.seq_len
+        if self.max_length is None:
+            self.max_length = self.seq_len
+        if self.weight_dtype == "bf16":
+            self.weight_dtype = "bfloat16"
+        if isinstance(self.on_device_sampling_config, dict):
+            self.on_device_sampling_config = OnDeviceSamplingConfig(
+                **self.on_device_sampling_config
+            )
+        self.validate()
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return to_dtype(self.dtype)
+
+    @property
+    def kv_dtype(self) -> torch.dtype:
+        return to_dtype(self.kv_cache_dtype) if self.kv_cache_dtype else self.torch_dtype
+
+    def validate(self):
+        """The reference's checks for the kept fields, then the refusals,
+        then the device (``cuda`` without a card raises RuntimeError)."""
+        to_dtype(self.dtype)
+        if self.kv_cache_dtype is not None and self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(
+                f"unknown kv_cache_dtype {self.kv_cache_dtype!r}; supported: "
+                f"{KV_CACHE_DTYPES} (int8/fp8 build the quantized cache)"
+            )
+        if self.padding_side not in ("right", "left"):
+            raise ValueError("padding_side must be 'right' or 'left'")
+        if self.weight_dtype not in ("bfloat16", "int8", "int4"):
+            raise ValueError(
+                f"unknown weight_dtype {self.weight_dtype!r}; supported: "
+                "bfloat16 (no conversion), int8 (per-channel quantize-at-"
+                "load), int4 (grouped fused-dequant streaming)"
+            )
+        if self.batch_size < 1 or self.seq_len < 1:
+            raise ValueError("batch_size and seq_len must be >= 1")
+        for name, (inert, item) in _NOT_PORTED.items():
+            if getattr(self, name) != inert:
+                raise NotImplementedError(
+                    f"Config.{name}={getattr(self, name)!r} is not ported to "
+                    f"PyTorch yet (ROADMAP {item})"
+                )
+        if self.weight_dtype != "bfloat16":
+            raise NotImplementedError(
+                f"weight_dtype={self.weight_dtype!r} is not ported to PyTorch "
+                "yet (ROADMAP A6 (quantization))"
+            )
+        if self.kv_cache_dtype in KV_QUANT_DTYPE_NAMES:
+            raise NotImplementedError(
+                f"kv_cache_dtype={self.kv_cache_dtype!r} (quantized KV cache) is "
+                "not ported to PyTorch yet (ROADMAP A6 (quantization), kernel "
+                "B1 int8/fp8 mode)"
+            )
+        if self.padding_side != "right":
+            raise NotImplementedError(
+                "padding_side='left' is not ported to PyTorch yet (ROADMAP A3b)"
+            )
+        ods = self.on_device_sampling_config
+        if ods is not None and ods.do_sample:
+            raise NotImplementedError(
+                "do_sample=True (multinomial sampling) is not ported to "
+                "PyTorch yet (ROADMAP A3b); the port decodes greedily"
+            )
+        resolve_device(self.device)
+
+
+class InferenceConfig:
+    """Config plus HF model attributes (counterpart of the reference's
+    ``InferenceConfig``). ``load_config`` is a callable that sets the HF
+    attributes on the instance, as in the reference."""
+
+    _REQUIRED_ATTRS: Tuple[str, ...] = ()
+
+    def __init__(self, torch_config: Config, load_config=None, **kwargs):
+        self.torch_config = torch_config
+        if load_config is not None:
+            load_config(self)
+        for k, v in kwargs.items():
+            setattr(self, k, v)
+        missing = [a for a in self._REQUIRED_ATTRS if not hasattr(self, a)]
+        if missing:
+            raise ValueError(f"Config missing required attributes: {missing}")

@@ -1,0 +1,149 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled on its own by ``nvcc`` for ``sm_90a``
+into ``build/torch_kernels/<name>-<hash>/lib<name>.so`` (the hash covers the
+sources and the flags, so an edit rebuilds) and loaded with ``ctypes``. The
+sources expose a plain ``extern "C"`` interface: every pointer and the
+stream are ``c_void_p``, every int ``c_int``, and each entry returns
+``cudaGetLastError()`` after its launch. Nothing here includes PyTorch's
+headers, so a build takes seconds, not minutes.
+
+Building happens at first use — never at import — so the CPU tests can
+import every module on a host without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Sequence
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+KERNEL_SOURCES = ("flash_attention", "decode_attention")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[tuple, object] = {}
+
+#: kernel launches per kernel name: each wrapper adds one where it launches
+#: its CUDA kernel, and nowhere else (the plain versions never count)
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def nvcc() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else the toolkit's default install location."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _lib_dir(name: str) -> Path:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / f"{name}-{h.hexdigest()[:16]}"
+
+
+def lib_path(name: str) -> Path:
+    return _lib_dir(name) / f"lib{name}.so"
+
+
+def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, str]:
+    """Compile every named source that is not built yet, one ``nvcc`` per
+    source, all started together. Returns {name: ptxas report} (registers,
+    shared memory and spills per kernel, from ``-Xptxas -v``); raises with
+    the compiler's output if a build fails."""
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".so.tmp{os.getpid()}")
+        cmd = [nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        (out.parent / "nvcc.log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode}) ---\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return {name: ptxas_report(name) for name in names}
+
+
+def ptxas_report(name: str) -> str:
+    """The ``ptxas`` lines (registers, shared memory, stack and spills per
+    kernel) of the build that produced ``name``'s library."""
+    log = lib_path(name).parent / "nvcc.log"
+    if not log.exists():
+        return ""
+    return "\n".join(
+        line for line in log.read_text().splitlines() if "ptxas" in line or "spill" in line
+    )
+
+
+def function(name: str, symbol: str, argtypes: Sequence):
+    """The ctypes function ``symbol`` of kernel library ``name``, built and
+    loaded on first use; returns a C int (a ``cudaError_t``)."""
+    key = (name, symbol)
+    fn = _fns.get(key)
+    if fn is not None:
+        return fn
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = _libs[name] = ctypes.CDLL(str(lib_path(name)))
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _fns[key] = fn
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a kernel entry returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(device) -> int:
+    """The current CUDA stream of ``device`` as a pointer-sized int."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

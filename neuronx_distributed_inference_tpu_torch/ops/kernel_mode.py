@@ -1,0 +1,37 @@
+"""Kernel dispatch of the port (counterpart of the reference's
+``ops/kernel_mode.py``).
+
+The reference's gates are Mosaic tile rules (seq a multiple of 128,
+``kv_width >= 512``) plus an ``on_tpu()`` auto condition; none of them
+carries over. Here the config tri-states decide alone:
+
+- ``None`` or ``True``: the CUDA kernel. Its wrapper launches it for a CUDA
+  tensor (or raises on a shape it does not take) and uses the plain version
+  only for a tensor that lies on the CPU.
+- ``False``: the plain PyTorch path, and only because the caller set it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def use_flash(spec) -> bool:
+    """Prefill attention through the B2 flash kernel's wrapper."""
+    return spec.use_flash_kernel is not False
+
+
+def use_tkg(spec) -> bool:
+    """Decode attention through the B1 kernel's wrapper."""
+    return spec.use_tkg_kernel is not False
+
+
+def launches_kernel(*tensors: torch.Tensor) -> bool:
+    """True when a wrapper must launch its CUDA kernel, False when its
+    inputs lie on the CPU (plain version). Mixed or other devices raise."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"kernel inputs must all be on CUDA or all on the CPU, got {sorted(kinds)}")

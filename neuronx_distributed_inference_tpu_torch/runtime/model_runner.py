@@ -1,0 +1,167 @@
+"""Per-sub-model runner: bucket dispatch and host padding (counterpart of
+the reference's ``runtime/model_runner.py::SubModelRunner``).
+
+The reference holds one jitted program per (bucket, batch); the port runs
+eagerly, so a runner pads its inputs to the compiled batch and the bucket
+and calls :func:`models.base.forward` / :func:`models.base.decode_steps`.
+CUDA graphs per bucket are a later step (ROADMAP A3).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from neuronx_distributed_inference_tpu_torch.models.base import (
+    PHASE_CONTEXT_ENCODING,
+    ModelSpec,
+    StepInputs,
+    StepOutput,
+    decode_steps,
+    forward,
+)
+from neuronx_distributed_inference_tpu_torch.modules.autobucketing import get_target_bucket
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import KVCache
+from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
+
+TAG_CONTEXT_ENCODING = "context_encoding_model"
+TAG_TOKEN_GENERATION = "token_generation_model"
+
+
+class SubModelRunner:
+    def __init__(
+        self,
+        tag: str,
+        phase: str,
+        spec: ModelSpec,
+        buckets: List[int],
+        batch_size: int,
+        device: torch.device,
+        mlp_fn: Callable,
+    ):
+        self.tag = tag
+        self.phase = phase
+        self.spec = spec
+        self.buckets = sorted(buckets)
+        self.batch_size = batch_size
+        self.device = device
+        self.mlp_fn = mlp_fn
+
+    # ---- host-side padding ------------------------------------------------
+
+    def _pad_batch(self, arrs: Dict[str, object], batch: int) -> Dict[str, torch.Tensor]:
+        """Pad every array's batch dim to ``batch`` (seq_ids pad with -1 so
+        padded rows write to the garbage line, the rest with 0) and move it
+        to the device. A tensor already on the device (a previous chunk's
+        tokens) is padded there, without a host round trip."""
+        out = {}
+        for name, a in arrs.items():
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+            t = t.to(self.device)
+            pad = batch - t.shape[0]
+            if pad < 0:
+                raise ValueError(f"{self.tag}: input batch {t.shape[0]} > compiled batch {batch}")
+            if pad:
+                fill = -1 if name == "seq_ids" else 0
+                t = torch.cat([t, torch.full((pad,) + tuple(t.shape[1:]), fill, dtype=t.dtype, device=self.device)])
+            out[name] = t
+        return out
+
+    def prepare(
+        self,
+        input_ids: np.ndarray,
+        attention_mask: np.ndarray,
+        position_ids: np.ndarray,
+        seq_ids: np.ndarray,
+        sampling_params: Optional[np.ndarray] = None,
+    ) -> Tuple[StepInputs, int]:
+        """Pad to (compiled batch, bucket) and build StepInputs."""
+        B, S = input_ids.shape
+        if self.phase == PHASE_CONTEXT_ENCODING:
+            bucket = get_target_bucket(self.buckets, S)
+            pad_s = bucket - S
+            if pad_s:
+                input_ids = np.pad(input_ids, ((0, 0), (0, pad_s)))
+                attention_mask = np.pad(attention_mask, ((0, 0), (0, pad_s)))
+                # pad positions continue the sequence so padded K/V lands in
+                # the masked tail, not on real slots
+                tail = position_ids[:, -1:] + 1 + np.arange(pad_s)[None, :]
+                position_ids = np.concatenate([position_ids, tail], axis=1)
+        else:
+            bucket = get_target_bucket(self.buckets, attention_mask.shape[1])
+            pad_s = bucket - attention_mask.shape[1]
+            if pad_s:
+                attention_mask = np.pad(attention_mask, ((0, 0), (0, pad_s)))
+        if sampling_params is None:
+            sampling_params = prepare_sampling_params(B)
+        arrs = self._pad_batch(
+            {
+                "input_ids": np.asarray(input_ids, np.int64),
+                "attention_mask": np.asarray(attention_mask, np.int32),
+                "position_ids": np.asarray(position_ids, np.int32),
+                "seq_ids": np.asarray(seq_ids, np.int32),
+                "sampling_params": np.asarray(sampling_params, np.float32),
+            },
+            self.batch_size,
+        )
+        return StepInputs(**arrs), B
+
+    @torch.no_grad()
+    def __call__(self, params, cache: KVCache, inputs: StepInputs) -> StepOutput:
+        """Run one step; the cache is updated in place."""
+        return forward(params, cache, inputs, spec=self.spec, phase=self.phase, mlp_fn=self.mlp_fn)
+
+    @torch.no_grad()
+    def decode_chunk(
+        self,
+        params,
+        cache: KVCache,
+        last,  # (B, 1) np array or device tensor
+        pos: np.ndarray,  # (B, 1)
+        seq_ids: np.ndarray,
+        sampling_params: np.ndarray,
+        num_steps: int,
+        bucket: int,
+    ):
+        """``num_steps`` decode steps with device-resident tokens.
+        Returns (tokens (Bc, num_steps), logits | None, cache)."""
+        arrs = self._pad_batch(
+            {
+                "last": last,
+                "pos": np.asarray(pos, np.int32),
+                "seq_ids": np.asarray(seq_ids, np.int32),
+                "sampling_params": np.asarray(sampling_params, np.float32),
+            },
+            self.batch_size,
+        )
+        return decode_steps(
+            params, cache, arrs["last"], arrs["pos"], arrs["seq_ids"], arrs["sampling_params"],
+            spec=self.spec, num_steps=num_steps, bucket=bucket, mlp_fn=self.mlp_fn,
+        )
+
+    # ---- warmup ----------------------------------------------------------
+
+    def example_inputs(self, bucket: int) -> StepInputs:
+        B = self.batch_size
+        S = bucket if self.phase == PHASE_CONTEXT_ENCODING else 1
+        arrs = self._pad_batch(
+            {
+                "input_ids": np.zeros((B, S), np.int64),
+                "attention_mask": np.ones((B, bucket), np.int32),
+                "position_ids": np.tile(np.arange(S, dtype=np.int32), (B, 1)),
+                "seq_ids": np.arange(B, dtype=np.int32),
+                "sampling_params": prepare_sampling_params(B),
+            },
+            B,
+        )
+        return StepInputs(**arrs)
+
+    def warmup(self, params, cache: KVCache) -> KVCache:
+        """Run every bucket once: builds the kernels and touches every shape
+        before the first request (the reference compiles here)."""
+        for bucket in self.buckets:
+            out = self(params, cache, self.example_inputs(bucket))
+            cache = out.cache
+        return cache

@@ -1,0 +1,155 @@
+"""Guards of the PyTorch port: it imports neither jax nor the JAX package,
+its entry points default to the card and refuse to fall back to the CPU,
+settings outside the ported slice raise NotImplementedError naming their
+ROADMAP item, and the kernel wrappers take their plain versions only for
+CPU tensors."""
+
+import ast
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from neuronx_distributed_inference_tpu.runtime.application import _pick_chunk as jax_pick_chunk
+from neuronx_distributed_inference_tpu_torch import config as tconfig
+from neuronx_distributed_inference_tpu_torch.config import Config
+from neuronx_distributed_inference_tpu_torch.ops import kernel_mode
+from neuronx_distributed_inference_tpu_torch.runtime.application import _pick_chunk
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "neuronx_distributed_inference_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "neuronx_distributed_inference_tpu")
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                yield node.args[0].value
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [
+        (str(f.relative_to(REPO)), mod)
+        for f in files
+        for mod in _imported_modules(f)
+        if mod.split(".")[0] in FORBIDDEN
+    ]
+    assert bad == []
+
+
+def test_port_imports_with_jax_blocked():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts).replace(".__init__", "")
+        for p in PORT.rglob("*.py")
+    )
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['neuronx_distributed_inference_tpu'] = None\n"
+        f"import importlib\nfor m in {modules!r}:\n    importlib.import_module(m)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_default_device_is_cuda_and_cuda_without_a_card_raises(monkeypatch):
+    assert {f.name: f.default for f in dataclasses.fields(Config)}["device"] == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Config(device="cuda:0")
+    assert Config(device="cpu").device == "cpu"
+    with pytest.raises(ValueError):
+        Config(device="mps")
+
+
+@pytest.mark.parametrize(
+    "kw, item",
+    [
+        (dict(tp_degree=2), "A10"),
+        (dict(quantized=True), "A6"),
+        (dict(weight_dtype="int4"), "A6"),
+        (dict(kv_cache_dtype="int8"), "A6"),
+        (dict(kv_cache_dtype="fp8"), "A6"),
+        (dict(is_block_kv_layout=True), "A4"),
+        (dict(serving_ragged=True), "A5"),
+        (dict(speculation_length=4), "A7"),
+        (dict(lora_config={"max_loras": 1}), "A9"),
+        (dict(sliding_window=128), "A9"),
+        (dict(padding_side="left"), "A3b"),
+        (dict(on_device_sampling_config={"do_sample": True}), "A3b"),
+    ],
+)
+def test_settings_outside_the_slice_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        Config(device="cpu", **kw)
+
+
+def test_config_validation_matches_reference():
+    with pytest.raises(ValueError):
+        Config(device="cpu", kv_cache_dtype="int3")
+    with pytest.raises(ValueError):
+        Config(device="cpu", padding_side="middle")
+    with pytest.raises(ValueError):
+        Config(device="cpu", dtype="float64")
+    c = Config(device="cpu", batch_size=3, seq_len=512)
+    assert (c.max_batch_size, c.ctx_batch_size, c.tkg_batch_size) == (3, 3, 3)
+    assert (c.max_context_length, c.max_length) == (512, 512)
+    assert tconfig.to_dtype("bf16") is torch.bfloat16
+
+
+def test_windowed_prefill_raises():
+    from neuronx_distributed_inference_tpu_torch.models.llama import LlamaInferenceConfig
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    hf = dict(model_type="llama", hidden_size=64, intermediate_size=128, num_attention_heads=2,
+              num_key_value_heads=1, num_hidden_layers=1, vocab_size=64, rms_norm_eps=1e-5)
+    cfg = LlamaInferenceConfig(
+        Config(device="cpu", seq_len=256, max_context_length=128, dtype="float32"),
+        load_config=lambda c: [setattr(c, k, v) for k, v in hf.items()],
+    )
+    app = ModelForCausalLM(None, cfg).load(random_weights=True)
+    with pytest.raises(NotImplementedError, match="A3b"):
+        app.generate(np.ones((1, 129), np.int64), max_new_tokens=2)
+
+
+def test_pick_chunk_matches_reference():
+    for remaining in (1, 7, 8, 9, 100, 255, 256, 1000):
+        for has_eos in (False, True):
+            for headroom in (1, 5, 8, 64, 300, 4096):
+                assert _pick_chunk(remaining, has_eos, headroom) == jax_pick_chunk(
+                    remaining, has_eos, headroom
+                )
+
+
+def test_kernel_gates_follow_the_tri_states_only():
+    from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec
+
+    for flag in (None, True):
+        spec = AttnSpec(num_heads=4, num_kv_heads=2, head_dim=64, use_flash_kernel=flag, use_tkg_kernel=flag)
+        assert kernel_mode.use_flash(spec) and kernel_mode.use_tkg(spec)
+    off = AttnSpec(num_heads=4, num_kv_heads=2, head_dim=64, use_flash_kernel=False, use_tkg_kernel=False)
+    assert not kernel_mode.use_flash(off) and not kernel_mode.use_tkg(off)
+    assert kernel_mode.launches_kernel(torch.zeros(1), torch.zeros(2)) is False
+    with pytest.raises(ValueError, match="all be on CUDA or all on the CPU"):
+        kernel_mode.launches_kernel(torch.zeros(1), torch.zeros(1, device="meta"))
