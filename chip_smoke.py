@@ -6,10 +6,12 @@ Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit, torch, compute capability 9.0;
   2. build: both CUDA kernels with nvcc from the package's csrc/ (ptxas report);
   3. each kernel against its plain PyTorch version on the card, over shapes,
-     dtypes, masks and modes, with the tolerance printed beside the error;
-  4. kernel times at the main path's shapes (CUDA events, L2 flushed before
-     each launch) beside the plain version, one PyTorch library call, and
-     the card's bound for the same work;
+     dtypes, masks and modes, the main path's shapes and fused-QKV layout
+     among them, with the tolerance printed beside the error;
+  4. kernel times at the main path's shapes and layout (CUDA events, L2
+     flushed before each launch), each held to its plain version first,
+     beside the plain version, one PyTorch library call, and the card's
+     bound for the same work;
   5. the main path at full width: Llama-3.2-1B shapes with seeded random
      weights, bf16, greedy generate() of 256 tokens after a 128-token prompt
      at batch 1 (launch counts asserted), a right-padded batch-2 call, a
@@ -114,6 +116,57 @@ def decode_work(q, k_cache, mask):
 # 3. kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+M_TOL = 1e-3  # flash row max, absolute
+
+
+def flash_tolerances(torch, dtype, softmax_bf16):
+    """(out, l relative) tolerances of one flash case; m is held to M_TOL."""
+    if softmax_bf16:
+        return 3e-2, 2e-2
+    return (1.5e-2 if dtype == torch.bfloat16 else 1e-4), 1e-4
+
+
+def check_flash(torch, fa, q, k, v, key_valid, kw, case):
+    """One flash case, kernel against plain on the same inputs: out on the
+    rows that have a valid key, and the row stats m and l. Returns the out
+    error; exits past a tolerance."""
+    out, m, l = fa.flash_attention_fwd(q, k, v, key_valid, **kw)
+    ref, m_ref, l_ref = fa.flash_attention_plain(q, k, v, key_valid, **kw)
+    torch.cuda.synchronize()
+    rows = fa.prefill_mask(key_valid, kw["causal"], kw["window"], kw["chunk"])[:, 0].any(dim=-1)
+    err = (out.float() - ref.float()).abs().amax(dim=(2, 3))[rows].max().item()
+    m_err = (m - m_ref).abs().transpose(1, 2)[rows].max().item()
+    l_rel = ((l - l_ref).abs() / l_ref.clamp(min=1e-30)).transpose(1, 2)[rows].max().item()
+    tol, l_tol = flash_tolerances(torch, q.dtype, kw["softmax_bf16"])
+    ok = err <= tol and m_err <= M_TOL and l_rel <= l_tol
+    log(
+        f"  flash {case}: out err {err:.3e} (tol {tol:.1e}), m err {m_err:.1e} (tol {M_TOL:.0e}), "
+        f"l rel err {l_rel:.1e} (tol {l_tol:.1e}) {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise SystemExit(f"flash_attention disagrees with its plain version: {case}")
+    return err
+
+
+def fused_qkv_inputs(torch, rng, B, S, Hq, Hkv, D, dtype, hidden=2048):
+    """q, k, v as the main path hands them to the flash kernel: qkv_project
+    over one fused (hidden, (Hq + 2 Hkv) D) weight, so v is a split view
+    with token stride (Hq + 2 Hkv) D and q, k carry RoPE."""
+    from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec, qkv_project
+    from neuronx_distributed_inference_tpu_torch.modules.rope import default_inv_freq, rope_cos_sin
+
+    x = torch.from_numpy(rng.randn(B, S, hidden).astype(np.float32)).to("cuda", dtype)
+    w = torch.from_numpy(
+        rng.randn(hidden, (Hq + 2 * Hkv) * D).astype(np.float32) * (0.5 / hidden ** 0.5)
+    ).to("cuda", dtype)  # q, k, v entries of std ~0.5
+    pos = torch.arange(S, device="cuda")[None, :].expand(B, S)
+    cos, sin = rope_cos_sin(pos, default_inv_freq(D, 500000.0).cuda())
+    spec = AttnSpec(num_heads=Hq, num_kv_heads=Hkv, head_dim=D)
+    q, k, v = qkv_project({"qkv_proj": {"weight": w}}, x, cos, sin, spec)
+    if v.stride(1) != (Hq + 2 * Hkv) * D:
+        raise SystemExit(f"v is not the fused projection's split view: strides {v.stride()}")
+    return q, k, v
+
 
 def phase_flash_parity(torch, fa):
     rng = np.random.RandomState(0)
@@ -140,32 +193,44 @@ def phase_flash_parity(torch, fa):
                                 window=100 if flavor == "window" else None,
                                 chunk=96 if flavor == "chunk" else None,
                             )
-                            out, m, l = fa.flash_attention_fwd(q, k, v, key_valid, **kw)
-                            ref, m_ref, l_ref = fa.flash_attention_plain(q, k, v, key_valid, **kw)
-                            torch.cuda.synchronize()
-                            rows = fa.prefill_mask(
-                                key_valid, True, kw["window"], kw["chunk"]
-                            )[:, 0].any(dim=-1)  # (B, S) rows with a valid key
-                            err = (out.float() - ref.float()).abs().amax(dim=(2, 3))[rows].max().item()
-                            m_err = (m - m_ref).abs().transpose(1, 2)[rows].max().item()
-                            l_rel = ((l - l_ref).abs() / l_ref.clamp(min=1e-30)).transpose(1, 2)[rows].max().item()
-                            tol = 3e-2 if softmax_bf16 else (1.5e-2 if dtype == torch.bfloat16 else 1e-4)
-                            l_tol = 2e-2 if softmax_bf16 else 1e-4
                             case = f"D={D} n_rep={n_rep} {str(dtype)[6:]} S={S} {flavor} softmax_bf16={softmax_bf16}"
-                            ok = err <= tol and m_err <= 1e-3 and l_rel <= l_tol
-                            log(
-                                f"  flash {case}: out err {err:.3e} (tol {tol:.1e}), m err {m_err:.1e} "
-                                f"(tol 1e-3), l rel err {l_rel:.1e} (tol {l_tol:.1e}) {'ok' if ok else 'FAIL'}"
-                            )
-                            if not ok:
-                                raise SystemExit(f"flash_attention disagrees with its plain version: {case}")
-                            worst = max(worst, err)
+                            worst = max(worst, check_flash(torch, fa, q, k, v, key_valid, kw, case))
                             n += 1
+    # the main path's shapes and layout: 32 q / 8 kv heads, D=64, the CTE
+    # buckets, q/k/v straight out of the fused projection; batch 2 has a
+    # right-padded row as the batch-2 generate() call does
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in (128, 512):
+            for B in (1, 2):
+                for softmax_bf16 in (False, True):
+                    q, k, v = fused_qkv_inputs(torch, rng, B, S, 32, 8, 64, dtype)
+                    kv = np.ones((B, S), np.int32)
+                    if B == 2:
+                        kv[1, int(S * 0.6):] = 0
+                    key_valid = torch.from_numpy(kv).cuda()
+                    kw = dict(scale=0.125, causal=True, softmax_bf16=softmax_bf16, window=None, chunk=None)
+                    case = (
+                        f"main-path layout B={B} S={S} Hq=32 Hkv=8 D=64 {str(dtype)[6:]} "
+                        f"softmax_bf16={softmax_bf16} v strides {v.stride()}"
+                    )
+                    worst = max(worst, check_flash(torch, fa, q, k, v, key_valid, kw, case))
+                    n += 1
     log(f"flash_attention: {n} cases agree with the plain version (largest out err {worst:.3e})")
 
 
+# Decode: the queries are scaled so that the scores have a standard deviation
+# of about 3, which puts most of each row's softmax weight on a few positions:
+# a skipped or doubled tile then moves the output by far more than the
+# tolerance. The plain version runs in fp32 on the same (bf16-valued) inputs.
+# The kernel computes in fp32 and rounds once to the output dtype, so a bf16
+# output may sit up to half a bf16 ulp, at most 2^-8 of its value, from it.
+DECODE_Q_STD = 6.0
+DECODE_ATOL = 1e-4
+DECODE_RTOL_BF16 = 2.0 ** -8
+
+
 def _decode_inputs(torch, rng, B, K, Hq, Hkv, D, L, S_max, bucket, dtype, valid, window=None):
-    q = torch.from_numpy(rng.randn(B, K, Hq, D).astype(np.float32) * 0.5).to("cuda", dtype)
+    q = torch.from_numpy(rng.randn(B, K, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", dtype)
     kc = torch.from_numpy(rng.randn(L, B + 1, S_max, Hkv, D).astype(np.float32) * 0.5).to("cuda", dtype)
     vc = torch.from_numpy(rng.randn(L, B + 1, S_max, Hkv, D).astype(np.float32) * 0.5).to("cuda", dtype)
     pos = np.stack([np.arange(valid[b] - K, valid[b]) for b in range(B)])  # (B, K)
@@ -174,6 +239,28 @@ def _decode_inputs(torch, rng, B, K, Hq, Hkv, D, L, S_max, bucket, dtype, valid,
     if window is not None:
         mask &= cols > pos[:, :, None] - window
     return q, kc, vc, torch.from_numpy(mask[:, None]).cuda()
+
+
+def check_decode(torch, da, q, kc, vc, layer, mask, sink, kw, case):
+    """One decode case, kernel against the plain version in fp32 on the
+    same input values. Returns the max abs error; exits past the bound
+    DECODE_ATOL + rtol * |plain| (rtol 2^-8 for a bf16 output, else 0)."""
+    out = da.tkg_decode_attention(q, kc, vc, layer, mask, sink, **kw)
+    ref = da.tkg_decode_attention_plain(q.float(), kc.float(), vc.float(), layer, mask, sink, **kw)
+    torch.cuda.synchronize()
+    rtol = DECODE_RTOL_BF16 if q.dtype == torch.bfloat16 else 0.0
+    diff = (out.float() - ref).abs()
+    err = diff.max().item()
+    use = (diff / (DECODE_ATOL + rtol * ref.abs())).max().item()  # 1.0 = at the bound
+    ok = use <= 1.0
+    log(
+        f"  decode {case}: max abs err {err:.3e}, largest share of the bound "
+        f"(atol {DECODE_ATOL:.0e} + rtol {rtol:.2e} x |plain|) {use:.3f}, |plain| up to "
+        f"{ref.abs().max().item():.3f} {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise SystemExit(f"tkg_decode_attention disagrees with its plain version: {case}")
+    return err
 
 
 def phase_decode_parity(torch, da):
@@ -194,19 +281,10 @@ def phase_decode_parity(torch, da):
                             )
                             sk = torch.from_numpy(rng.randn(Hq).astype(np.float32)).cuda() if sink else None
                             kw = dict(scale=D ** -0.5, n_kv=Hkv)
-                            out = da.tkg_decode_attention(q, kc, vc, 1, mask, sk, **kw)
-                            ref = da.tkg_decode_attention_plain(q, kc, vc, 1, mask, sk, **kw)
-                            torch.cuda.synchronize()
-                            err = (out.float() - ref.float()).abs().max().item()
-                            tol = 1.5e-2 if dtype == torch.bfloat16 else 1e-4
                             case = f"D={D} {str(dtype)[6:]} K={K} bucket={bucket} sink={sink} window={window}"
-                            ok = err <= tol
-                            log(f"  decode {case}: err {err:.3e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}")
-                            if not ok:
-                                raise SystemExit(f"tkg_decode_attention disagrees with its plain version: {case}")
-                            worst = max(worst, err)
+                            worst = max(worst, check_decode(torch, da, q, kc, vc, 1, mask, sk, kw, case))
                             n += 1
-    log(f"tkg_decode_attention: {n} cases agree with the plain version (largest err {worst:.3e})")
+    log(f"tkg_decode_attention: {n} cases agree with the plain version (largest abs err {worst:.3e})")
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +293,11 @@ def phase_decode_parity(torch, da):
 
 
 def phase_times(torch, fa, da):
+    """Each kernel at the main path's shapes and layout, held to its plain
+    version with the parity phases' tolerances, then timed."""
     import torch.nn.functional as F
+
+    from neuronx_distributed_inference_tpu_torch.modules.masks import token_gen_mask
 
     rows = {}
     rng = np.random.RandomState(2)
@@ -223,15 +305,10 @@ def phase_times(torch, fa, da):
     # the main path's two CTE buckets at head_dim 64 (the reference's packed
     # kernel), and the head_dim-128 instance (its unpacked kernel) at 512
     for S, D in ((128, 64), (512, 64), (512, 128)):
-        q, k, v = (
-            torch.from_numpy(rng.randn(B, S, h, D).astype(np.float32) * 0.5).to("cuda", torch.bfloat16)
-            for h in (Hq, Hkv, Hkv)
-        )
+        q, k, v = fused_qkv_inputs(torch, rng, B, S, Hq, Hkv, D, torch.bfloat16)
         key_valid = torch.ones((B, S), dtype=torch.int32, device="cuda")
-        kw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False)
-        out, _, _ = fa.flash_attention_fwd(q, k, v, key_valid, **kw)
-        ref, _, _ = fa.flash_attention_plain(q, k, v, key_valid, **kw)
-        err = (out.float() - ref.float()).abs().max().item()
+        kw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=None, chunk=None)
+        err = check_flash(torch, fa, q, k, v, key_valid, kw, f"timed B=1 S={S} Hq=32 Hkv=8 D={D} bf16")
         qt = q.transpose(1, 2)
         kt = k.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
         vt = v.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
@@ -249,9 +326,13 @@ def phase_times(torch, fa, da):
         )
     L, S_max, D = 16, 1024, 64
     for bucket in (512, 1024):
-        q, kc, vc, mask = _decode_inputs(
-            torch, rng, B, 1, Hq, Hkv, D, L, S_max, bucket, torch.bfloat16, [bucket - 100]
+        valid = bucket - 100
+        q, kc, vc, _ = _decode_inputs(
+            torch, rng, B, 1, Hq, Hkv, D, L, S_max, bucket, torch.bfloat16, [valid]
         )
+        # the main path's decode mask: token_gen_mask's broadcast view
+        cols = torch.arange(bucket, device="cuda")[None, :]
+        mask = token_gen_mask((cols < valid).to(torch.int32), 1)
         kw = dict(scale=D ** -0.5, n_kv=Hkv)
         state = {"layer": 0}
 
@@ -259,9 +340,9 @@ def phase_times(torch, fa, da):
             state["layer"] = (state["layer"] + 1) % L
             return state["layer"]
 
-        out = da.tkg_decode_attention(q, kc, vc, 0, mask, None, **kw)
-        ref = da.tkg_decode_attention_plain(q, kc, vc, 0, mask, None, **kw)
-        err = (out.float() - ref.float()).abs().max().item()
+        err = check_decode(
+            torch, da, q, kc, vc, 0, mask, None, kw, f"timed B=1 K=1 bucket={bucket} valid={valid} D=64 bf16"
+        )
         qt = q.transpose(1, 2)
         kt = kc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
         vt = vc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
@@ -274,7 +355,7 @@ def phase_times(torch, fa, da):
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
         )
         log(
-            f"tkg_decode_attention B=1 K=1 bucket={bucket} valid={bucket - 100} Hq=32 Hkv=8 D=64 bf16: "
+            f"tkg_decode_attention B=1 K=1 bucket={bucket} valid={valid} Hq=32 Hkv=8 D=64 bf16: "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
             f"err vs plain {err:.3e}"
         )
@@ -416,16 +497,20 @@ def _forced_logits(torch, cfg, params, seq, prompt_len):
     return np.concatenate(steps, axis=0)  # (positions, V)
 
 
+#: how much farther from fp32 the kernel path may sit than the plain path
+FORCED_RATIO = 1.25
+
+
 def teacher_forced(torch, app, seq, prompt_len):
     """The kernel path against the plain path (both tri-states False) on the
-    same bf16 weights, teacher-forced over the kernel path's own tokens.
+    same bf16 weights, teacher-forced over the kernel path's own tokens,
+    with an fp32 run of the plain path on the same weights as the reference.
 
-    The tolerance is the plain bf16 path's own distance from an fp32 run of
-    the same weights (measured here, also teacher-forced): two bf16 paths
-    that round at different places may each sit that far from fp32, so they
-    may differ from each other by up to twice it. The kernel path must also
-    sit no farther from fp32 than twice the plain path does, and the greedy
-    argmax must match wherever the top-2 margin exceeds the tolerance."""
+    Two bf16 paths that round at different places each sit some distance
+    from fp32; the kernel path is right when it sits no farther from fp32
+    than FORCED_RATIO times the plain path does, by the largest and by the
+    root-mean-square logit error. Its greedy argmax must also equal fp32's
+    wherever fp32's top-2 margin exceeds twice its own largest error."""
     off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
     k = _forced_logits(torch, _config(1, output_logits=True), app.params, seq, prompt_len)
     pl = _forced_logits(torch, _config(1, output_logits=True, **off), app.params, seq, prompt_len)
@@ -437,21 +522,30 @@ def teacher_forced(torch, app, seq, prompt_len):
     if not (np.isfinite(k).all() and np.isfinite(pl).all()):
         raise SystemExit("non-finite logits on the main path")
     err = float(np.abs(k - pl).max())
-    err_k32 = float(np.abs(k - f32).max())
-    err_p32 = float(np.abs(pl - f32).max())
-    tol = 2 * err_p32
-    top2 = np.sort(pl, axis=-1)[:, -2:]
-    decided = (top2[:, 1] - top2[:, 0]) > tol
-    agree = (k.argmax(-1) == pl.argmax(-1))[decided]
+    max_k32, max_p32 = float(np.abs(k - f32).max()), float(np.abs(pl - f32).max())
+    rms_k32 = float(np.sqrt(np.mean((k - f32) ** 2)))
+    rms_p32 = float(np.sqrt(np.mean((pl - f32) ** 2)))
+    top2 = np.sort(f32, axis=-1)[:, -2:]
+    decided = (top2[:, 1] - top2[:, 0]) > 2 * max_k32
+    ref_arg = f32.argmax(-1)
+    agree = (k.argmax(-1) == ref_arg)[decided]
     log(
         f"teacher-forced logits over {k.shape[0]} positions (scale: max |logit| {np.abs(f32).max():.3f}): "
-        f"kernel vs plain max abs err {err:.4f} (tol {tol:.4f} = 2 x plain-vs-fp32 {err_p32:.4f}); "
-        f"kernel vs fp32 {err_k32:.4f}; argmax agrees at {int(agree.sum())}/{int(decided.sum())} "
-        f"positions whose margin > tol, {int((k.argmax(-1) == pl.argmax(-1)).sum())}/{k.shape[0]} overall"
+        f"kernel vs fp32 max {max_k32:.4f} rms {rms_k32:.5f}; plain vs fp32 max {max_p32:.4f} "
+        f"rms {rms_p32:.5f}; ratios max {max_k32 / max_p32:.3f} rms {rms_k32 / rms_p32:.3f} "
+        f"(limit {FORCED_RATIO}); kernel vs plain max {err:.4f}"
     )
-    if err > tol or err_k32 > tol or not agree.all():
-        raise SystemExit("kernel path disagrees with the plain path")
-    return dict(kernel_vs_plain=err, kernel_vs_fp32=err_k32, plain_vs_fp32=err_p32)
+    log(
+        f"  greedy argmax equal to fp32's at {int(agree.sum())}/{int(decided.sum())} positions whose fp32 "
+        f"margin > 2 x {max_k32:.4f}; overall kernel {int((k.argmax(-1) == ref_arg).sum())}, "
+        f"plain {int((pl.argmax(-1) == ref_arg).sum())} of {k.shape[0]}"
+    )
+    if max_k32 > FORCED_RATIO * max_p32 or rms_k32 > FORCED_RATIO * rms_p32 or not agree.all():
+        raise SystemExit("kernel path sits farther from fp32 than the plain path allows")
+    return dict(
+        kernel_vs_plain=err, kernel_vs_fp32=max_k32, plain_vs_fp32=max_p32,
+        kernel_vs_fp32_rms=rms_k32, plain_vs_fp32_rms=rms_p32,
+    )
 
 
 def _map_tree(tree, fn):

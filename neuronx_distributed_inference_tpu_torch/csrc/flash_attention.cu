@@ -14,11 +14,13 @@
 // softmax stats (m, l) for the sink fold outside the kernel.
 //
 // What bounds it on an H100: at the main path's shapes (S = 128..512,
-// D = 64) the work is ~S^2 * D * 4 FLOP per head, a few GFLOP, against a
-// few MB of q/k/v traffic, so the tensor-core rate bounds it. This first
-// version does its products with fp32 FMAs on the CUDA cores (about 1/15 of
-// the bf16 tensor-core rate) and is therefore compute bound well above that
-// bound; mma.sync / wgmma tiles are a later step. What the design does
+// D = 64, 32 q heads) the causal work is ~2 * S^2 * D FLOP per head, 0.07
+// to 1.1 GFLOP, against 1.3 to 5.2 MB of q/k/v/out traffic: under the
+// card's ~295 FLOP/byte ridge, so at the roofline memory bounds it, with
+// the tensor-core rate close behind at S = 512. This first version does its
+// products with fp32 FMAs on the CUDA cores (about 1/15 of the bf16
+// tensor-core rate) and so is compute bound far above that bound;
+// mma.sync / wgmma tiles are a later step. What the design does
 // about the bound: K/V tiles are staged once per block in shared memory and
 // reused by all 64 query rows of the tile, the TPU's sequential kv grid axis
 // becomes a loop inside the block that stops at the causal / window /

@@ -43,7 +43,7 @@ from neuronx_distributed_inference_tpu_torch.modules.sampling import (
     mask_padded_logits,
     sample_tokens,
 )
-from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import use_tkg
+from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import use_flash, use_tkg
 
 PHASE_CONTEXT_ENCODING = "context_encoding"
 PHASE_TOKEN_GENERATION = "token_generation"
@@ -145,7 +145,7 @@ def decoder_layer(
     k_cache: torch.Tensor,
     v_cache: torch.Tensor,
     layer_idx: int,
-    mask: torch.Tensor,
+    mask: Optional[torch.Tensor],
     slot_ids: torch.Tensor,
     positions: torch.Tensor,
     spec: ModelSpec,
@@ -257,8 +257,11 @@ def run_decoder_layers(
     cos, sin = rope_cos_sin(inputs.position_ids, params["rope"]["inv_freq"], spec.attention_scaling)
     slot_ids = slot_ids_from_seq_ids(inputs.seq_ids, kv_batch_size(cache))
     positions = inputs.position_ids
-    mask = build_mask(inputs, spec, phase)
     key_valid = inputs.attention_mask if phase == PHASE_CONTEXT_ENCODING else None
+    # the flash kernel masks from key_valid itself: only the plain prefill
+    # path needs the dense (B, 1, S, S) mask
+    flash = key_valid is not None and use_flash(spec.attn)
+    mask = None if flash else build_mask(inputs, spec, phase)
     layers: Union[Dict, List[Dict]] = params["layers"]
     if isinstance(layers, dict):
         layers = unstack_layers(layers)

@@ -117,7 +117,7 @@ def attention_prefill(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    mask: torch.Tensor,
+    mask: Optional[torch.Tensor],
     spec: AttnSpec,
     sink: Optional[torch.Tensor] = None,
     causal: bool = True,
@@ -127,8 +127,9 @@ def attention_prefill(
 ) -> torch.Tensor:
     """Context-encoding attention. With ``key_valid`` (B, S) the B2 flash
     kernel's wrapper runs on the UN-repeated K/V (the kernel reads kv head
-    ``h // n_rep`` itself); ``use_flash_kernel=False`` takes the plain
-    masked softmax over ``mask``."""
+    ``h // n_rep`` itself and masks from ``key_valid``, so ``mask`` may be
+    None); ``use_flash_kernel=False`` takes the plain masked softmax over
+    the dense (B, 1, S, S) ``mask``."""
     if key_valid is not None and causal and use_flash(spec):
         from neuronx_distributed_inference_tpu_torch.ops.flash_attention import (
             flash_attention,
@@ -137,6 +138,8 @@ def attention_prefill(
         return flash_attention(
             q, k, v, key_valid, spec, causal=True, window=window, chunk=chunk, sink=sink
         )
+    if mask is None:
+        raise ValueError("attention_prefill: the plain path needs the dense mask")
     n_rep = spec.num_heads // spec.num_kv_heads
     return _masked_softmax_attention(q, repeat_kv(k, n_rep), repeat_kv(v, n_rep), mask, spec, sink)
 

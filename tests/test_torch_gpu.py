@@ -1,11 +1,17 @@
-"""The port's kernels against their plain versions on a CUDA card. The file
-imports neither jax nor the JAX package, so it runs on a host with the card
-and no jax: ``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
+"""The port's kernels against their plain versions on a CUDA card, through
+the same phases ``chip_smoke.py`` runs (one place holds the cases and the
+tolerances). The file imports neither jax nor the JAX package, so it runs on
+a host with the card and no jax:
+``python -m pytest --noconftest -m gpu tests/test_torch_gpu.py``.
 Without a card each test skips."""
 
-import numpy as np
+import os
+import sys
+
 import pytest
 import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -17,21 +23,14 @@ def cuda_card():
 
 @pytest.mark.gpu
 def test_kernels_match_plain_on_the_card(cuda_card):
+    sys.path.insert(0, REPO)
+    import chip_smoke
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
 
-    rng = np.random.RandomState(0)
-    q, k, v = (torch.from_numpy(rng.randn(1, 200, h, 64).astype(np.float32)).to(cuda_card) for h in (8, 2, 2))
-    key_valid = torch.ones((1, 200), dtype=torch.int32, device=cuda_card)
     _cuda.reset_launch_counts()
-    out, m, l = fa.flash_attention_fwd(q, k, v, key_valid, scale=0.125)
-    ref, m_ref, l_ref = fa.flash_attention_plain(q, k, v, key_valid, scale=0.125)
-    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
-    kc, vc = (torch.from_numpy(rng.randn(2, 2, 256, 2, 64).astype(np.float32)).to(cuda_card) for _ in range(2))
-    qd = q[:, :1].contiguous()
-    mask = (torch.arange(256, device=cuda_card) < 150)[None, None, None, :]
-    got = da.tkg_decode_attention(qd, kc, vc, 1, mask, scale=0.125, n_kv=2)
-    want = da.tkg_decode_attention_plain(qd, kc, vc, 1, mask, scale=0.125, n_kv=2)
-    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
-    assert _cuda.launch_counts() == {"flash_attention": 1, "decode_attention": 1}
+    chip_smoke.phase_flash_parity(torch, fa)
+    chip_smoke.phase_decode_parity(torch, da)
+    counts = _cuda.launch_counts()
+    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0, counts
