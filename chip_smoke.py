@@ -4,19 +4,28 @@
 
 Phases, in order; any failure exits non-zero:
   1. device: the card's name and power limit, torch, compute capability 9.0;
-  2. build: both CUDA kernels with nvcc from the package's csrc/ (ptxas report);
+  2. build: every CUDA kernel source with nvcc from the package's csrc/, one
+     nvcc per source, all started together (ptxas report);
   3. each kernel against its plain PyTorch version on the card, over shapes,
-     dtypes, masks and modes, the main path's shapes and fused-QKV layout
-     among them, with the tolerance printed beside the error;
-  4. kernel times at the main path's shapes and layout (CUDA events, L2
+     dtypes, masks and modes, the main paths' shapes and layouts among them,
+     with the tolerance printed beside the error: prefill flash (B2), decode
+     (B1), paged decode (B4) and paged flash prefill (B5), the paged ones
+     with NaN in the garbage block 0, zero-table tails and inactive rows;
+  4. kernel times at the main paths' shapes and layouts (CUDA events, L2
      flushed before each launch), each held to its plain version first,
      beside the plain version, one PyTorch library call, and the card's
      bound for the same work;
-  5. the main path at full width: Llama-3.2-1B shapes with seeded random
-     weights, bf16, greedy generate() of 256 tokens after a 128-token prompt
-     at batch 1 (launch counts asserted), a right-padded batch-2 call, a
-     profiler trace of one decode chunk, and a teacher-forced comparison of
-     the kernel path's logits with the plain path's and with fp32.
+  5. the generate() path at full width: Llama-3.2-1B shapes with seeded
+     random weights, bf16, greedy generate() of 256 tokens after a 128-token
+     prompt at batch 1 (launch counts asserted), a right-padded batch-2
+     call, a profiler trace of one decode chunk, and a teacher-forced
+     comparison of the kernel path's logits with the plain path's and with
+     fp32;
+  6. the serving path at full width: a ServingSession over the paged cache
+     with chunked prefill (8 slots, 512 blocks of 32, 8 staggered requests
+     of 128 + 128 tokens; launch counts asserted from the session's own
+     dispatch count), a short paged run admitting through the context
+     encoding program, and a teacher-forced check of the paged path.
 The last line of standard output is {"ok": true, "device": {...}}.
 """
 
@@ -30,8 +39,6 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core peak
 REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "neuronx_distributed_inference_tpu_torch"
 
@@ -84,10 +91,11 @@ def time_ms(torch, fn, iters=40, warmup=5):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
-def bound(nbytes, flops, flop_rate):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound(nbytes, flops):
+    """The card's least time for bf16 work (ops/roofline.py)."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import bound_ms
+
+    return bound_ms(nbytes, flops)
 
 
 def flash_work(q, k, key_valid, mask):
@@ -241,26 +249,38 @@ def _decode_inputs(torch, rng, B, K, Hq, Hkv, D, L, S_max, bucket, dtype, valid,
     return q, kc, vc, torch.from_numpy(mask[:, None]).cuda()
 
 
+def check_close(torch, out, ref, case, what, rows=None):
+    """Kernel output against the plain version in fp32 on the same input
+    values, within one rounding of the output dtype: the bound is
+    DECODE_ATOL + rtol * |plain| with rtol 2^-8 for bf16 (half a bf16 ulp),
+    0 for fp32. ``rows`` (a bool mask over dim 0 and 1) limits the check to
+    rows that have a valid key. Returns the max abs error; exits past it."""
+    rtol = DECODE_RTOL_BF16 if out.dtype == torch.bfloat16 else 0.0
+    o, r = out.float(), ref.float()
+    if not torch.isfinite(o).all():
+        raise SystemExit(f"{what} returned non-finite values: {case}")
+    if rows is not None:
+        o, r = o[rows], r[rows]
+    diff = (o - r).abs()
+    err = diff.max().item()
+    use = (diff / (DECODE_ATOL + rtol * r.abs())).max().item()
+    ok = use <= 1.0
+    log(
+        f"  {what} {case}: max abs err {err:.3e}, largest share of the bound (atol {DECODE_ATOL:.0e} "
+        f"+ rtol {rtol:.2e} x |plain|) {use:.3f}, |plain| up to {r.abs().max().item():.3f} {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise SystemExit(f"{what} disagrees with its plain version: {case}")
+    return err
+
+
 def check_decode(torch, da, q, kc, vc, layer, mask, sink, kw, case):
     """One decode case, kernel against the plain version in fp32 on the
-    same input values. Returns the max abs error; exits past the bound
-    DECODE_ATOL + rtol * |plain| (rtol 2^-8 for a bf16 output, else 0)."""
+    same input values, within check_close's one-rounding bound."""
     out = da.tkg_decode_attention(q, kc, vc, layer, mask, sink, **kw)
     ref = da.tkg_decode_attention_plain(q.float(), kc.float(), vc.float(), layer, mask, sink, **kw)
     torch.cuda.synchronize()
-    rtol = DECODE_RTOL_BF16 if q.dtype == torch.bfloat16 else 0.0
-    diff = (out.float() - ref).abs()
-    err = diff.max().item()
-    use = (diff / (DECODE_ATOL + rtol * ref.abs())).max().item()  # 1.0 = at the bound
-    ok = use <= 1.0
-    log(
-        f"  decode {case}: max abs err {err:.3e}, largest share of the bound "
-        f"(atol {DECODE_ATOL:.0e} + rtol {rtol:.2e} x |plain|) {use:.3f}, |plain| up to "
-        f"{ref.abs().max().item():.3f} {'ok' if ok else 'FAIL'}"
-    )
-    if not ok:
-        raise SystemExit(f"tkg_decode_attention disagrees with its plain version: {case}")
-    return err
+    return check_close(torch, out, ref, case, "tkg_decode_attention")
 
 
 def phase_decode_parity(torch, da):
@@ -316,7 +336,7 @@ def phase_times(torch, fa, da):
         plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, key_valid, **kw))
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
         nbytes, flops = flash_work(q, k, key_valid, fa.prefill_mask(key_valid))
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        b_ms, b_by = bound(nbytes, flops)
         rows[("flash_attention", S, D)] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
         )
@@ -350,7 +370,7 @@ def phase_times(torch, fa, da):
         plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_layer(), mask, None, **kw))
         lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
         nbytes, flops = decode_work(q, kc, mask)
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOP_PER_S)
+        b_ms, b_by = bound(nbytes, flops)
         rows[("decode_attention", bucket)] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
         )
@@ -359,6 +379,222 @@ def phase_times(torch, fa, da):
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
             f"err vs plain {err:.3e}"
         )
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 3b. the paged kernels (B4, B5) against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def paged_pool(torch, rng, L, NB, Hkv, bs, D, dtype):
+    """A head-major pool (L, NB+1, Hkv, bs, D) with NaN in garbage block 0."""
+    k = torch.from_numpy(rng.randn(L, NB + 1, Hkv, bs, D).astype(np.float32) * 0.5)
+    v = torch.from_numpy(rng.randn(L, NB + 1, Hkv, bs, D).astype(np.float32) * 0.5)
+    k[:, 0] = float("nan")
+    v[:, 0] = float("nan")
+    return k.to("cuda", dtype), v.to("cuda", dtype)
+
+
+def paged_tables(rng, lens, MB, bs, NB):
+    """(B, MB) tables: distinct random blocks covering each row's length,
+    zero tails (block 0) past it; a row of length 0 is all zeros."""
+    table = np.zeros((len(lens), MB), np.int32)
+    free = rng.permutation(np.arange(1, NB + 1))
+    used = 0
+    for b, n in enumerate(lens):
+        nb = -(-int(n) // bs)
+        table[b, :nb] = free[used : used + nb]
+        used += nb
+    return table
+
+
+def phase_paged_decode_parity(torch, da):
+    """B4 at batch 1 and 8, block size 16 and 32, D 64 and 128, Hq 32 / Hkv 8,
+    bf16 and fp32, q_len 1 and (through the routing rule) 4: every case has
+    NaN in block 0, zero-table tails, lengths that are not block multiples
+    and, at batch 8, inactive rows (zero table, mask true only at position
+    0, as the session's decode pass builds them)."""
+    from neuronx_distributed_inference_tpu_torch.models.base import paged_attend
+    from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec
+    from neuronx_distributed_inference_tpu_torch.modules.masks import spec_token_gen_mask
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    rng = np.random.RandomState(3)
+    worst, n = 0.0, 0
+    Hq, Hkv, L, MB = 32, 8, 2, 24
+    for D in (64, 128):
+        for bs in (16, 32):
+            for dtype in (torch.bfloat16, torch.float32):
+                for B in (1, 8):
+                    for K in (1, 4):
+                        NB = MB * B + 4
+                        lens = [MB * bs - 5, 3 * bs + 7, 0, bs, 0, 5 * bs - 1, 11, 0][:B]
+                        table = paged_tables(rng, lens, MB, bs, NB)
+                        k, v = paged_pool(torch, rng, L, NB, Hkv, bs, D, dtype)
+                        q = torch.from_numpy(rng.randn(B, K, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", dtype)
+                        act = np.array(lens) > 0
+                        pos = np.where(act[:, None], np.array(lens)[:, None] - K + np.arange(K)[None, :], 0)
+                        attn = (np.arange(MB * bs)[None, :] < np.maximum(np.array(lens), 1)[:, None]).astype(np.int32)
+                        mask = spec_token_gen_mask(torch.from_numpy(attn).cuda(), torch.from_numpy(pos).cuda())
+                        bt = torch.from_numpy(table).cuda()
+                        kw = dict(scale=D ** -0.5, n_kv=Hkv)
+                        case = f"B={B} K={K} bs={bs} D={D} {str(dtype)[6:]}"
+                        before = _cuda.launch_counts()["paged_decode_attention"]
+                        if K == 1:
+                            out = da.paged_tkg_decode_attention(q, k, v, 1, bt, mask, None, **kw)
+                        else:
+                            # q_len 4 < 8: the routing rule sends it to B4
+                            spec = AttnSpec(num_heads=Hq, num_kv_heads=Hkv, head_dim=D)
+                            out = paged_attend(
+                                q, k, v, 1, mask, torch.from_numpy(pos).cuda(), bt,
+                                torch.from_numpy(np.array(lens, np.int32)).cuda(), spec,
+                            )
+                        torch.cuda.synchronize()
+                        if _cuda.launch_counts()["paged_decode_attention"] != before + 1:
+                            raise SystemExit(f"paged decode case did not launch B4: {case}")
+                        ref = da.paged_tkg_decode_attention_plain(q.float(), k.float(), v.float(), 1, bt, mask, None, **kw)
+                        rows = torch.from_numpy(act).cuda()
+                        worst = max(worst, check_close(torch, out, ref, case, "paged_tkg_decode_attention", rows))
+                        n += 1
+    log(f"paged_tkg_decode_attention: {n} cases agree with the plain version (largest abs err {worst:.3e})")
+
+
+def phase_paged_flash_parity(torch, pf):
+    """B5 at batch 1 and 8, block size 16 and 32, D 64 and 128, Hq 32 / Hkv 8,
+    bf16 and fp32, Sq 128 (the serving row's chunk): prefix + causal, a
+    kv_limit that is not a block multiple, zero-table tails, NaN in block 0
+    and, at batch 8, kv_limit 0 rows, which must be exactly zero."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    rng = np.random.RandomState(4)
+    worst, n = 0.0, 0
+    Hq, Hkv, MB, Sq = 32, 8, 16, 128
+    for D in (64, 128):
+        for bs in (16, 32):
+            for dtype in (torch.bfloat16, torch.float32):
+                for B in (1, 8):
+                    NB = MB * B + 4
+                    starts = np.array([70, 0, 0, 200, 0, 3, 300, 0][:B])
+                    news = np.array([Sq, Sq, 0, 41, 0, Sq - 9, 77, 0][:B])  # new tokens; 0 = inactive
+                    limits = np.where(news > 0, starts + news, 0)
+                    if (limits > MB * bs).any():
+                        limits = np.minimum(limits, MB * bs)
+                        starts = np.minimum(starts, np.maximum(limits - news, 0))
+                    table = paged_tables(rng, limits, MB, bs, NB)
+                    k, v = paged_pool(torch, rng, 1, NB, Hkv, bs, D, dtype)
+                    k, v = k[0], v[0]
+                    q = torch.from_numpy(rng.randn(B, Sq, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", dtype)
+                    pos = torch.from_numpy((starts[:, None] + np.arange(Sq)[None, :]).astype(np.int32)).cuda()
+                    lim = torch.from_numpy(limits.astype(np.int32)).cuda()
+                    bt = torch.from_numpy(table).cuda()
+                    kw = dict(scale=D ** -0.5, n_rep=Hq // Hkv)
+                    case = f"B={B} Sq={Sq} bs={bs} D={D} {str(dtype)[6:]} kv_limit {limits.tolist()}"
+                    before = _cuda.launch_counts()["paged_flash_attention"]
+                    out = pf.paged_flash_attention(q, k, v, bt, pos, lim, **kw)
+                    torch.cuda.synchronize()
+                    if _cuda.launch_counts()["paged_flash_attention"] != before + 1:
+                        raise SystemExit(f"paged flash case did not launch B5: {case}")
+                    ref = pf.paged_flash_attention_plain(q.float(), k.float(), v.float(), bt, pos, lim, **kw)
+                    if (out[torch.from_numpy(limits == 0).cuda()] != 0).any():
+                        raise SystemExit(f"paged_flash_attention: a kv_limit-0 row is not zero: {case}")
+                    # a query row has a valid key when its position and the limit allow one
+                    rows = (pos >= 0) & (lim[:, None] > 0)
+                    worst = max(worst, check_close(torch, out, ref, case, "paged_flash_attention", rows))
+                    n += 1
+    log(f"paged_flash_attention: {n} cases agree with the plain version (largest abs err {worst:.3e})")
+
+
+def serving_decode_inputs(torch, rng, ctx, B=8, Hq=32, Hkv=8, D=64, bs=32, width=1024, L=16):
+    """The serving row's decode step: B rows of ctx tokens each in a bs-block
+    pool over a width-token bucket, q_len 1, bf16."""
+    MB = width // bs
+    NB = 512
+    table = paged_tables(rng, [ctx] * B, MB, bs, NB)
+    k = torch.from_numpy(rng.randn(L, NB + 1, Hkv, bs, D).astype(np.float32) * 0.5).to("cuda", torch.bfloat16)
+    v = torch.from_numpy(rng.randn(L, NB + 1, Hkv, bs, D).astype(np.float32) * 0.5).to("cuda", torch.bfloat16)
+    q = torch.from_numpy(rng.randn(B, 1, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", torch.bfloat16)
+    from neuronx_distributed_inference_tpu_torch.modules.masks import token_gen_mask
+
+    attn = (torch.arange(width, device="cuda")[None, :] < ctx).to(torch.int32).expand(B, width)
+    return q, k, v, torch.from_numpy(table).cuda(), token_gen_mask(attn, 1)
+
+
+def phase_paged_times(torch, da, pf):
+    """B4 and B5 at the serving row's shapes, each held to its plain version
+    first, beside the plain version, F.scaled_dot_product_attention on K/V
+    gathered beforehand (the gather not timed; a yardstick only), and the
+    bound for the same work."""
+    import torch.nn.functional as F
+
+    from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
+
+    rows = {}
+    rng = np.random.RandomState(5)
+    Hq, Hkv, D = 32, 8, 64
+    # decode: 8 rows, mid-stream at 128 prompt + 64 generated tokens
+    ctx = 192
+    q, k, v, bt, mask = serving_decode_inputs(torch, rng, ctx)
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    out = da.paged_tkg_decode_attention(q, k, v, 0, bt, mask, None, **kw)
+    ref = da.paged_tkg_decode_attention_plain(q.float(), k.float(), v.float(), 0, bt, mask, None, **kw)
+    err = check_close(torch, out, ref, f"timed B=8 ctx={ctx} bs=32 bucket=1024 D=64 bf16", "paged_tkg_decode_attention")
+    state = {"layer": 0}
+
+    def next_layer():
+        state["layer"] = (state["layer"] + 1) % k.shape[0]
+        return state["layer"]
+
+    k_r, v_r = read_block_cache_at_layer(k, v, 0, bt)
+    kt = k_r.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    vt = v_r.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    qt = q.transpose(1, 2)
+    ms = time_ms(torch, lambda: da.paged_tkg_decode_attention(q, k, v, next_layer(), bt, mask, None, **kw))
+    plain_ms = time_ms(torch, lambda: da.paged_tkg_decode_attention_plain(q, k, v, next_layer(), bt, mask, None, **kw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    B = q.shape[0]
+    nbytes = 2 * B * ctx * Hkv * D * k.element_size() + 2 * q.numel() * q.element_size() + mask.numel() + bt.numel() * 4
+    flops = 4 * D * Hq * int(mask.sum().item())
+    b_ms, b_by = bound(nbytes, flops)
+    rows["paged_decode_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    log(
+        f"paged_tkg_decode_attention B=8 ctx={ctx} bs=32 bucket=1024 Hq=32 Hkv=8 D=64 bf16: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}"
+    )
+    del k, v, k_r, v_r, kt, vt
+
+    # chunk pass: 8 rows each prefilling a 128-token prompt (start 0,
+    # kv_limit 128), the serving row's admission chunks, bucket 1024
+    B, Sq, bs, width, NB = 8, 128, 32, 1024, 512
+    MB = width // bs
+    table = paged_tables(rng, [Sq] * B, MB, bs, NB)
+    k = torch.from_numpy(rng.randn(NB + 1, Hkv, bs, D).astype(np.float32) * 0.5).to("cuda", torch.bfloat16)
+    v = torch.from_numpy(rng.randn(NB + 1, Hkv, bs, D).astype(np.float32) * 0.5).to("cuda", torch.bfloat16)
+    q = torch.from_numpy(rng.randn(B, Sq, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", torch.bfloat16)
+    bt = torch.from_numpy(table).cuda()
+    pos = torch.arange(Sq, device="cuda", dtype=torch.int32)[None, :].expand(B, Sq).contiguous()
+    lim = torch.full((B,), Sq, device="cuda", dtype=torch.int32)
+    kw = dict(scale=D ** -0.5, n_rep=Hq // Hkv)
+    out = pf.paged_flash_attention(q, k, v, bt, pos, lim, **kw)
+    ref = pf.paged_flash_attention_plain(q.float(), k.float(), v.float(), bt, pos, lim, **kw)
+    err = check_close(torch, out, ref, "timed B=8 Sq=128 kv_limit=128 bs=32 bucket=1024 D=64 bf16", "paged_flash_attention")
+    k_r, v_r = read_block_cache_at_layer(k[None], v[None], 0, bt)
+    kt = k_r.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    vt = v_r.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    qt = q.transpose(1, 2)
+    cols = torch.arange(width, device="cuda")[None, None, None, :]
+    smask = (cols <= pos[:, None, :, None]) & (cols < lim[:, None, None, None])
+    ms = time_ms(torch, lambda: pf.paged_flash_attention(q, k, v, bt, pos, lim, **kw))
+    plain_ms = time_ms(torch, lambda: pf.paged_flash_attention_plain(q, k, v, bt, pos, lim, **kw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=smask))
+    nbytes = (2 * q.numel() + 2 * B * Sq * Hkv * D) * q.element_size() + (pos.numel() + lim.numel() + bt.numel()) * 4
+    flops = 4 * D * Hq * int(smask.sum().item())
+    b_ms, b_by = bound(nbytes, flops)
+    rows["paged_flash_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    log(
+        f"paged_flash_attention B=8 Sq=128 kv_limit=128 bs=32 bucket=1024 Hq=32 Hkv=8 D=64 bf16: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}"
+    )
     return rows
 
 
@@ -411,7 +647,10 @@ def phase_main_path(torch):
     )
     log(f"main path launches: {launches}")
     # 255 remaining tokens run as one 256-step pow2 chunk in bucket 512
-    want = {"flash_attention": n_layers, "decode_attention": n_layers * 256}
+    want = {
+        "flash_attention": n_layers, "decode_attention": n_layers * 256,
+        "paged_decode_attention": 0, "paged_flash_attention": 0,
+    }
     if launches != want:
         raise SystemExit(f"launch counts {launches} != expected {want}")
     gen = out.sequences[:, prompt_len:]
@@ -435,28 +674,36 @@ def phase_main_path(torch):
 
     profile = phase_profile(torch, app, out.sequences[0], prompt_len)
     forced = teacher_forced(torch, app, out.sequences[0], prompt_len)
-    return dict(**profile, ttft_ms=ttft_ms, decode_tok_s=decode_tok_s, peak_bytes=peak, launches=launches, **forced)
+    return dict(
+        **profile, ttft_ms=ttft_ms, decode_tok_s=decode_tok_s, peak_bytes=peak, launches=launches,
+        params=app.params, **forced,
+    )
 
 
 def phase_profile(torch, app, seq, prompt_len, steps=16):
     """Where a decode step's time goes: one ``steps``-step decode chunk in
-    bucket 512, timed on the host clock without the profiler, then traced
-    with torch.profiler for the device's busy time and the kernels by
-    name. (It re-decodes from the first generated token, rewriting cache
-    positions the main path already wrote with the same tokens.)"""
-    from torch.profiler import ProfilerActivity, profile
-
+    bucket 512 (it re-decodes from the first generated token, rewriting
+    cache positions the main path already wrote with the same tokens)."""
     from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
 
-    runner = app.token_generation_model
     args = (
         np.array([[seq[prompt_len]]]), np.array([[prompt_len + 1]]), np.zeros(1, np.int32),
         prepare_sampling_params(1),
     )
 
     def chunk():
-        runner.decode_chunk(app.params, app.kv_cache, *args, num_steps=steps, bucket=512)
+        app.token_generation_model.decode_chunk(app.params, app.kv_cache, *args, num_steps=steps, bucket=512)
         torch.cuda.synchronize()
+
+    return profile_chunk(torch, chunk, steps, "decode step (batch 1, bucket 512)")
+
+
+def profile_chunk(torch, chunk, steps, label):
+    """Run ``chunk`` (``steps`` decode steps ending in a synchronize) once
+    to warm, once timed on the host clock without the profiler, then once
+    traced with torch.profiler for the device's busy time and the kernels
+    by name."""
+    from torch.profiler import ProfilerActivity, profile
 
     chunk()
     t0 = time.perf_counter()
@@ -472,7 +719,7 @@ def phase_profile(torch, app, seq, prompt_len, steps=16):
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     log(
-        f"decode step (batch 1, bucket 512): {step_ms:.3f} ms on the host clock; traced chunk "
+        f"{label}: {step_ms:.3f} ms on the host clock; traced chunk "
         f"{traced_ms:.1f} ms for {steps} steps, device busy {busy_ms:.2f} ms "
         f"({busy_ms / traced_ms:.3f} of the traced wall time), {len(kernels) / steps:.0f} kernels per step"
     )
@@ -482,6 +729,30 @@ def phase_profile(torch, app, seq, prompt_len, steps=16):
         decode_step_ms=step_ms, device_busy_frac=busy_ms / traced_ms,
         kernels_per_step=len(kernels) / steps,
     )
+
+
+def phase_serving_profile(torch, app, ctx=192, steps=16):
+    """Where a serving decode step's time goes: a ``steps``-step decode
+    chunk over the paged cache at the session's 8 rows, each ``ctx`` tokens
+    deep (random tokens; the cache holds whatever the serving run left)."""
+    from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
+
+    s = SERVING
+    B, bs, width = s["slots"], s["block_size"], s["seq"]
+    per_row = width // bs
+    table = np.arange(1, B * per_row + 1, dtype=np.int32).reshape(B, per_row)
+    rng = np.random.RandomState(6)
+    last = rng.randint(0, app.spec.vocab_size, size=(B, 1))
+    pos = np.full((B, 1), ctx, np.int32)
+
+    def chunk():
+        app.token_generation_model.decode_chunk(
+            app.params, app.kv_cache, last, pos, np.arange(B, dtype=np.int32),
+            prepare_sampling_params(B), num_steps=steps, bucket=width, block_table=table,
+        )
+        torch.cuda.synchronize()
+
+    return profile_chunk(torch, chunk, steps, f"serving decode step (8 rows, {ctx} deep, paged bucket {width})")
 
 
 def _forced_logits(torch, cfg, params, seq, prompt_len):
@@ -519,6 +790,12 @@ def teacher_forced(torch, app, seq, prompt_len):
         torch, _config(1, output_logits=True, dtype="float32", **off), params32, seq, prompt_len
     )
     del params32
+    return _forced_gate(k, pl, f32, "teacher-forced logits")
+
+
+def _forced_gate(k, pl, f32, what):
+    """Gate the kernel path's logits ``k`` against the plain path's ``pl``,
+    both against fp32 ``f32`` (see teacher_forced)."""
     if not (np.isfinite(k).all() and np.isfinite(pl).all()):
         raise SystemExit("non-finite logits on the main path")
     err = float(np.abs(k - pl).max())
@@ -530,7 +807,7 @@ def teacher_forced(torch, app, seq, prompt_len):
     ref_arg = f32.argmax(-1)
     agree = (k.argmax(-1) == ref_arg)[decided]
     log(
-        f"teacher-forced logits over {k.shape[0]} positions (scale: max |logit| {np.abs(f32).max():.3f}): "
+        f"{what} over {k.shape[0]} positions (scale: max |logit| {np.abs(f32).max():.3f}): "
         f"kernel vs fp32 max {max_k32:.4f} rms {rms_k32:.5f}; plain vs fp32 max {max_p32:.4f} "
         f"rms {rms_p32:.5f}; ratios max {max_k32 / max_p32:.3f} rms {rms_k32 / rms_p32:.3f} "
         f"(limit {FORCED_RATIO}); kernel vs plain max {err:.4f}"
@@ -546,6 +823,203 @@ def teacher_forced(torch, app, seq, prompt_len):
         kernel_vs_plain=err, kernel_vs_fp32=max_k32, plain_vs_fp32=max_p32,
         kernel_vs_fp32_rms=rms_k32, plain_vs_fp32_rms=rms_p32,
     )
+
+
+# ---------------------------------------------------------------------------
+# 6. the serving path
+# ---------------------------------------------------------------------------
+
+SERVING = dict(n_requests=8, prompt=128, gen=128, slots=8, blocks=512, block_size=32, seq=1024)
+
+
+def _serving_config(chunked=True, **kw):
+    """The serving_1b_int8 row's configuration in bf16 (bench.py:990-991,
+    1472-1485 with build_app(block_kv=...) at bench.py:160-174): Llama-3.2-1B
+    shapes, 8 slots, seq 1024, CTE and TKG buckets [1024], a paged pool of
+    512 blocks of 32, chunked prefill of up to 8 rows in 128-token tiles."""
+    from neuronx_distributed_inference_tpu_torch.config import ChunkedPrefillConfig
+
+    s = SERVING
+    extra = dict(
+        is_continuous_batching=True, ctx_batch_size=1, is_block_kv_layout=True,
+        pa_num_blocks=s["blocks"], pa_block_size=s["block_size"],
+        context_encoding_buckets=[s["seq"]], token_generation_buckets=[s["seq"]],
+    )
+    if chunked:
+        extra.update(
+            is_chunked_prefill=True,
+            chunked_prefill_config=ChunkedPrefillConfig(max_num_seqs=s["slots"], kernel_q_tile_size=128),
+        )
+    return _config(s["slots"], **{**extra, **kw})
+
+
+def _serve(torch, app, prompts, gen, telemetry):
+    """bench.py's serving traffic (measure_serving): two requests up front,
+    one more per step() while slots are free, then run_to_completion in
+    16-step chunks once every request is producing. Returns (session,
+    seconds)."""
+    from neuronx_distributed_inference_tpu_torch.runtime.serving import ServingSession
+
+    app.init_kv_cache()
+    sess = ServingSession(app, telemetry=telemetry)
+    t0 = time.perf_counter()
+    nxt, produced = 0, set()
+    for _ in range(2):
+        if not sess.add_request(str(nxt), prompts[nxt], max_new_tokens=gen):
+            raise SystemExit(f"serving: request {nxt} refused")
+        nxt += 1
+    while True:
+        produced.update(sess.step())
+        if nxt < len(prompts) and sess.free_slots:
+            if not sess.add_request(str(nxt), prompts[nxt], max_new_tokens=gen):
+                raise SystemExit(f"serving: request {nxt} refused")
+            nxt += 1
+        if nxt >= len(prompts):
+            if not sess.active:
+                break
+            if len(produced) >= len(prompts):
+                sess.run_to_completion(decode_chunk_size=16)
+                break
+    torch.cuda.synchronize()
+    return sess, time.perf_counter() - t0
+
+
+def phase_serving(torch, params):
+    """The serving path at full width, on the generate() path's weights."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    s = SERVING
+    t0 = time.perf_counter()
+    app = ModelForCausalLM(None, _serving_config()).load(params=params).warmup()
+    torch.cuda.synchronize()
+    n_layers = app.spec.num_layers
+    vocab = app.spec.vocab_size
+    log(f"serving: load + warmup {time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, vocab - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    _serve(torch, app, prompts, s["gen"], TelemetrySession())  # warm pass: first-call costs
+
+    tel = TelemetrySession()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    sess, total_s = _serve(torch, app, prompts, s["gen"], tel)
+    launches = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    counts = {rid: len(r.generated) for rid, r in sess.requests.items()}
+    ttft = [t * 1e3 for t in tel.ttft_values_s()]
+    itl = [t * 1e3 for t in tel.itl_values_s()]
+    pct = tel.percentile
+    tok_s = sum(counts.values()) / total_s
+    faults = dict(
+        rejected=sum(tel.rejected.values()), quarantined=tel.counters["quarantined"],
+        preempted=tel.counters["preempted"],
+    )
+    log(
+        f"serving (bf16, 8 slots, 512 blocks x 32, chunked prefill 8 x 128, {s['n_requests']} requests of "
+        f"{s['prompt']} + {s['gen']} tokens, staggered): {total_s * 1e3:.1f} ms, aggregate {tok_s:.1f} tok/s, "
+        f"TTFT p50 {pct(ttft, 0.5):.2f} ms p99 {pct(ttft, 0.99):.2f} ms, ITL p50 {pct(itl, 0.5):.3f} ms "
+        f"p99 {pct(itl, 0.99):.3f} ms, peak memory {peak / 2**30:.3f} GiB, {faults}"
+    )
+    log(f"serving dispatches {dict(sess.dispatches)}, launches {launches}")
+    if sorted(counts.values()) != [s["gen"]] * s["n_requests"] or len(counts) != s["n_requests"]:
+        raise SystemExit(f"serving: not every request completed: {counts}")
+    if any(faults.values()) or any(r.status != "finished" for r in sess.requests.values()):
+        raise SystemExit(f"serving: faults on clean traffic: {faults}")
+    want = {
+        "flash_attention": 0, "decode_attention": 0,
+        "paged_flash_attention": sess.dispatches["prefill_chunk"] * n_layers,
+        "paged_decode_attention": sess.dispatches["decode_steps"] * n_layers,
+    }
+    if launches != want or not want["paged_flash_attention"] or not want["paged_decode_attention"]:
+        raise SystemExit(f"serving launch counts {launches} != expected {want}")
+    for rid, r in sess.requests.items():
+        if min(r.generated) < 0 or max(r.generated) >= vocab:
+            raise SystemExit(f"serving: request {rid} has tokens outside the vocab")
+
+    # a short paged run admitting through the context-encoding program (B2)
+    app2 = ModelForCausalLM(None, _serving_config(chunked=False)).load(params=params).warmup()
+    _cuda.reset_launch_counts()
+    sess2, s2 = _serve(torch, app2, prompts[:4], 32, TelemetrySession())
+    launches2 = _cuda.launch_counts()
+    counts2 = [len(r.generated) for r in sess2.requests.values()]
+    log(f"paged without chunked prefill (4 x 32 tokens): {s2 * 1e3:.1f} ms, dispatches {dict(sess2.dispatches)}, launches {launches2}")
+    want2 = {
+        "flash_attention": sess2.dispatches["prefill"] * n_layers, "decode_attention": 0,
+        "paged_flash_attention": 0, "paged_decode_attention": sess2.dispatches["decode_steps"] * n_layers,
+    }
+    if counts2 != [32] * 4 or sess2.dispatches["prefill"] != 4 or launches2 != want2:
+        raise SystemExit(f"paged CTE admission run: tokens {counts2}, launches {launches2} != {want2}")
+    del app2, sess2
+
+    profile = phase_serving_profile(torch, app)
+    forced = paged_teacher_forced(torch, params, prompts[0] + sess.requests["0"].generated)
+    return dict(
+        **{f"serving_{k}": v for k, v in profile.items()},
+        launches=launches, tok_s=tok_s, total_ms=total_s * 1e3, peak_bytes=peak,
+        ttft_p50_ms=pct(ttft, 0.5), ttft_p99_ms=pct(ttft, 0.99), itl_p50_ms=pct(itl, 0.5),
+        itl_p99_ms=pct(itl, 0.99), **faults, **forced,
+    )
+
+
+def _paged_forced_logits(torch, cfg, params, seq, prompt_len):
+    """Logits of one 128-token chunk pass over an empty paged cache (B5's
+    route) and of every later position as a single-token step (B4's
+    route), each fed the recorded token, through forward(slot_mapping=,
+    block_table=). Request 0 sits in row 0 of the 8-row runner."""
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    a = ModelForCausalLM(None, cfg).load(params=params)
+    bs, width = SERVING["block_size"], SERVING["seq"]
+    blocks = np.arange(1, width // bs + 1, dtype=np.int32)
+    table = blocks[None, :]
+    seq_ids = np.zeros(1, np.int32)
+
+    def mask(upto):
+        m = np.zeros((1, width), np.int32)
+        m[0, :upto] = 1
+        return m
+
+    pos = np.arange(prompt_len, dtype=np.int32)[None, :]
+    slots = (blocks[pos // bs] * bs + pos % bs).astype(np.int32)
+    _, lg = a.forward(
+        np.asarray(seq[:prompt_len])[None, :], pos, seq_ids, attention_mask=mask(prompt_len),
+        slot_mapping=slots, block_table=table, phase="tkg",
+    )
+    steps = [lg[0]]
+    for p in range(prompt_len, len(seq) - 1):
+        _, lg = a.forward(
+            np.array([[seq[p]]]), np.array([[p]], np.int32), seq_ids, attention_mask=mask(p + 1),
+            block_table=table, phase="tkg",
+        )
+        steps.append(lg[0])
+    del a
+    return np.concatenate(steps, axis=0)  # (positions, V)
+
+
+def paged_teacher_forced(torch, params, seq, prompt_len=128):
+    """The paged kernel path (B5 for the chunk, B4 for the steps) against the
+    plain paged path on the same bf16 weights and an fp32 run of the plain
+    path, teacher-forced over request 0's served tokens; the gate of the
+    generate() path's check (FORCED_RATIO by max and RMS, argmax on decided
+    positions)."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
+    _cuda.reset_launch_counts()
+    k = _paged_forced_logits(torch, _serving_config(output_logits=True), params, seq, prompt_len)
+    kl = _cuda.launch_counts()
+    n_layers = len(params["layers"])
+    if kl["paged_flash_attention"] != n_layers or kl["paged_decode_attention"] != n_layers * (len(seq) - 1 - prompt_len):
+        raise SystemExit(f"paged teacher-forced run did not take B5 then B4: {kl}")
+    pl = _paged_forced_logits(torch, _serving_config(output_logits=True, **off), params, seq, prompt_len)
+    params32 = _map_tree(params, lambda t: t.float())
+    f32 = _paged_forced_logits(
+        torch, _serving_config(output_logits=True, dtype="float32", **off), params32, seq, prompt_len
+    )
+    del params32
+    return _forced_gate(k, pl, f32, "paged teacher-forced logits (one 128-token chunk through B5, then B4 steps)")
 
 
 def _map_tree(tree, fn):
@@ -564,6 +1038,7 @@ def main():
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
 
     t0 = time.perf_counter()
     reports = _cuda.build()
@@ -573,21 +1048,31 @@ def main():
 
     phase_flash_parity(torch, fa)
     phase_decode_parity(torch, da)
+    phase_paged_decode_parity(torch, da)
+    phase_paged_flash_parity(torch, pf)
     times = phase_times(torch, fa, da)
+    times.update(phase_paged_times(torch, da, pf))
     main_path = phase_main_path(torch)
+    serving = phase_serving(torch, main_path.pop("params"))
 
     entries = []
-    for name, key, source, replaces in (
+    for name, key, source, replaces, launches in (
         # the main path's head_dim 64 takes the reference's packed kernel
         ("flash_attention", ("flash_attention", 128, 64), "csrc/flash_attention.cu",
-         "neuronx_distributed_inference_tpu/ops/flash_attention.py:335"),
+         "neuronx_distributed_inference_tpu/ops/flash_attention.py:335", main_path["launches"]),
         ("decode_attention", ("decode_attention", 512), "csrc/decode_attention.cu",
-         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195"),
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", main_path["launches"]),
+        # B4 is paged_tkg_decode_attention (:284), which reaches the same
+        # _common_call pallas_call as B1
+        ("paged_decode_attention", "paged_decode_attention", "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:284", serving["launches"]),
+        ("paged_flash_attention", "paged_flash_attention", "csrc/paged_flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/paged_flash_attention.py:200", serving["launches"]),
     ):
         t = times[key]
         entries.append({
             "name": name, "route": "cuda", "source": f"{PKG}/{source}", "replaces": replaces,
-            "launches": main_path["launches"][name], "max_abs_err": t["max_abs_err"],
+            "launches": launches[name], "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })

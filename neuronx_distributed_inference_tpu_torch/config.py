@@ -71,12 +71,20 @@ class OnDeviceSamplingConfig:
     temperature: float = 1.0
 
 
+@dataclass
+class ChunkedPrefillConfig:
+    """Chunked prefill settings (reference ChunkedPrefillConfig): up to
+    ``max_num_seqs`` requests advance by ``kernel_q_tile_size`` prompt
+    tokens per serving step."""
+
+    max_num_seqs: int = 8
+    kernel_q_tile_size: int = 128
+
+
 #: settings outside the ported slice -> (inert value, ROADMAP item)
 _NOT_PORTED: Dict[str, Tuple[Any, str]] = {
     "tp_degree": (1, "A10 (parallelism)"),
     "quantized": (False, "A6 (quantization)"),
-    "is_block_kv_layout": (False, "A4 (paged cache and serving)"),
-    "is_continuous_batching": (False, "A4 (paged cache and serving)"),
     "serving_ragged": (False, "A5 (ragged mixed step)"),
     "speculation_length": (0, "A7 (speculation)"),
     "enable_fused_speculation": (False, "A7 (speculation)"),
@@ -128,11 +136,33 @@ class Config:
     # --- weights ---------------------------------------------------------
     weight_dtype: str = "bfloat16"
 
+    # --- serving: paged cache, continuous batching ------------------------
+    is_continuous_batching: bool = False
+    is_block_kv_layout: bool = False  # paged KV cache
+    pa_num_blocks: Optional[int] = None
+    pa_block_size: int = 16
+    # size the block pool by bytes instead of a count: the application
+    # derives pa_num_blocks = pa_pool_bytes // the per-block cost in the
+    # cache dtype (block_kvcache.kv_block_bytes)
+    pa_pool_bytes: Optional[int] = None
+    is_prefix_caching: bool = False
+    is_chunked_prefill: bool = False
+    chunked_prefill_config: Optional[ChunkedPrefillConfig] = None
+    kv_cache_batch_size: Optional[int] = None
+
+    # --- serving fault containment (runtime/serving.py, runtime/faults.py)
+    # malformed requests get a typed terminal REJECTED verdict at admission
+    admission_validation: bool = True
+    # wall-clock TTL per request in seconds (None = no deadline)
+    request_deadline_s: Optional[float] = None
+    # transient dispatch errors retry with capped backoff this many times
+    dispatch_max_retries: int = 2
+    # consecutive zero-progress steps before the watchdog preempts (0 = off)
+    watchdog_no_progress_steps: int = 256
+
     # --- not ported yet (validated, then refused) --------------------------
     tp_degree: int = 1
     quantized: bool = False
-    is_block_kv_layout: bool = False
-    is_continuous_batching: bool = False
     serving_ragged: bool = False
     speculation_length: int = 0
     enable_fused_speculation: bool = False
@@ -164,6 +194,8 @@ class Config:
             self.on_device_sampling_config = OnDeviceSamplingConfig(
                 **self.on_device_sampling_config
             )
+        if isinstance(self.chunked_prefill_config, dict):
+            self.chunked_prefill_config = ChunkedPrefillConfig(**self.chunked_prefill_config)
         self.validate()
 
     @property
@@ -193,6 +225,7 @@ class Config:
             )
         if self.batch_size < 1 or self.seq_len < 1:
             raise ValueError("batch_size and seq_len must be >= 1")
+        self._validate_serving()
         for name, (inert, item) in _NOT_PORTED.items():
             if getattr(self, name) != inert:
                 raise NotImplementedError(
@@ -221,6 +254,50 @@ class Config:
                 "PyTorch yet (ROADMAP A3b); the port decodes greedily"
             )
         resolve_device(self.device)
+
+    def _validate_serving(self):
+        """The reference's serving checks (config.py:614-635, 720-728,
+        789-796), in its order, then its default pool size."""
+        if self.pa_pool_bytes is not None:
+            if not self.is_block_kv_layout:
+                raise ValueError("pa_pool_bytes requires is_block_kv_layout")
+            if self.pa_num_blocks is not None:
+                raise ValueError(
+                    "set pa_num_blocks OR pa_pool_bytes, not both (the pool "
+                    "byte budget derives the block count from the cache dtype)"
+                )
+        if self.request_deadline_s is not None and not self.request_deadline_s > 0:
+            raise ValueError(
+                "request_deadline_s must be > 0 seconds (None disables "
+                "per-request deadlines)"
+            )
+        if self.dispatch_max_retries < 0:
+            raise ValueError(
+                "dispatch_max_retries must be >= 0 (0 = fail in-flight rows "
+                "on the first transient dispatch error)"
+            )
+        if self.watchdog_no_progress_steps < 0:
+            raise ValueError(
+                "watchdog_no_progress_steps must be >= 0 (0 disables the "
+                "no-progress watchdog)"
+            )
+        if self.is_chunked_prefill and not self.is_block_kv_layout:
+            raise ValueError("chunked prefill requires block KV layout")
+        if self.is_chunked_prefill and self.chunked_prefill_config is None:
+            self.chunked_prefill_config = ChunkedPrefillConfig()
+        if self.is_chunked_prefill and not self.is_continuous_batching:
+            raise ValueError("chunked prefill runs through the serving session: "
+                             "set is_continuous_batching=True")
+        if self.is_prefix_caching and not self.is_block_kv_layout:
+            raise ValueError("prefix caching requires block KV layout")
+        if (
+            self.is_block_kv_layout
+            and self.pa_num_blocks is None
+            and self.pa_pool_bytes is None
+        ):
+            self.pa_num_blocks = max(
+                1, (self.max_batch_size * self.seq_len + self.pa_block_size - 1) // self.pa_block_size
+            )
 
 
 class InferenceConfig:

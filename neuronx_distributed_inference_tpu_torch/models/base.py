@@ -1,5 +1,5 @@
 """The decoder core (counterpart of the reference's ``models/base.py``; the
-contiguous-cache, uniform-stack, greedy subset).
+uniform-stack, greedy subset over the contiguous and the paged cache).
 
     forward(params, cache, inputs) -> StepOutput(tokens, logits?, cache)
 
@@ -8,10 +8,13 @@ the port runs it eagerly, the layers and the decode steps as Python loops.
 The cache is updated IN PLACE (``update_cache_at_layer``); the returned
 ``StepOutput.cache`` is the same object that was passed in.
 
-Two kernels carry the path: prefill attention goes through the B2 flash
-kernel (``modules/attention.attention_prefill``) and decode attention
-through the B1 kernel (:func:`contiguous_decode_attend`), unless the config
-tri-states turn them off.
+Prefill attention goes through the B2 flash kernel
+(``modules/attention.attention_prefill``). Decode attention goes through the
+B1 kernel over the contiguous cache (:func:`contiguous_decode_attend`) and,
+over the paged cache (:func:`paged_attend`), multi-token passes of 8 tokens
+or more (chunked and prefix prefill) through the B5 paged flash kernel and
+shorter ones through the B4 paged decode kernel. The config tri-states turn
+the kernels off.
 """
 
 from __future__ import annotations
@@ -23,6 +26,12 @@ import torch
 import torch.nn.functional as F
 
 from neuronx_distributed_inference_tpu_torch.modules import masks
+from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import (
+    BlockKVCache,
+    read_block_cache_at_layer,
+    slot_mapping_from_block_table,
+    update_block_cache_at_layer,
+)
 from neuronx_distributed_inference_tpu_torch.modules.attention import (
     AttnSpec,
     attention_decode,
@@ -43,7 +52,11 @@ from neuronx_distributed_inference_tpu_torch.modules.sampling import (
     mask_padded_logits,
     sample_tokens,
 )
-from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import use_flash, use_tkg
+from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import (
+    use_flash,
+    use_paged_flash,
+    use_tkg,
+)
 
 PHASE_CONTEXT_ENCODING = "context_encoding"
 PHASE_TOKEN_GENERATION = "token_generation"
@@ -74,13 +87,18 @@ class StepInputs:
     position_ids: torch.Tensor  # (B, S) int
     seq_ids: torch.Tensor  # (B,) cache-line ids (invalid -> garbage line)
     sampling_params: torch.Tensor  # (B, 3) float32
+    slot_mapping: Optional[torch.Tensor] = None  # (B, S) paged-cache flat write slots
+    block_table: Optional[torch.Tensor] = None  # (B, MB) paged-cache block ids
+
+
+Cache = Union[KVCache, BlockKVCache]
 
 
 @dataclass
 class StepOutput:
     tokens: torch.Tensor  # (B, K) int32
     logits: Optional[torch.Tensor]  # (B, K, V) or None
-    cache: KVCache
+    cache: Cache
 
 
 #: token emitted in place of the argmax when a position's logits are not
@@ -137,6 +155,51 @@ def contiguous_decode_attend(
     return attention_decode(q, k_r, v_r, mask, aspec, sink=sink)
 
 
+def paged_attend(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    layer_idx: int,
+    mask: Optional[torch.Tensor],
+    positions: torch.Tensor,
+    block_table: torch.Tensor,
+    kv_limit: torch.Tensor,
+    aspec: AttnSpec,
+    sink: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention of a token-generation pass over one layer of the paged
+    cache (the reference's ``decoder_layer`` block branch, ``base.py:619-703``):
+    passes of 8 tokens or more go to the B5 paged flash kernel's wrapper,
+    shorter ones to the B4 paged decode kernel's wrapper; with both
+    tri-states off, the plain block gather and masked softmax."""
+    Sq = q.shape[1]
+    if use_paged_flash(aspec, Sq):
+        if sink is not None:
+            raise NotImplementedError(
+                "learned attention sinks in a multi-token pass over the paged cache "
+                "are not ported to PyTorch yet (ROADMAP A9 (sinks))"
+            )
+        from neuronx_distributed_inference_tpu_torch.ops.paged_flash_attention import (
+            paged_flash_attention,
+        )
+
+        return paged_flash_attention(
+            q, k_cache[layer_idx], v_cache[layer_idx], block_table, positions, kv_limit,
+            scale=aspec.softmax_scale, n_rep=aspec.num_heads // aspec.num_kv_heads,
+        )
+    if use_tkg(aspec):
+        from neuronx_distributed_inference_tpu_torch.ops.decode_attention import (
+            paged_tkg_decode_attention,
+        )
+
+        return paged_tkg_decode_attention(
+            q, k_cache, v_cache, layer_idx, block_table, mask, sink,
+            scale=aspec.softmax_scale, n_kv=aspec.num_kv_heads,
+        )
+    k_r, v_r = read_block_cache_at_layer(k_cache, v_cache, layer_idx, block_table)
+    return attention_decode(q, k_r, v_r, mask, aspec, sink=sink)
+
+
 def decoder_layer(
     layer_params: dict,
     hidden: torch.Tensor,
@@ -152,22 +215,36 @@ def decoder_layer(
     phase: str,
     mlp_fn: Callable = gated_mlp,
     key_valid: Optional[torch.Tensor] = None,
+    # (slot_mapping (B, S), block_table (B, MB) | None, kv_limit (B,) | None)
+    # on the paged cache
+    block_inputs: Optional[Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder layer, write-then-attend: this layer's new K/V go into the
-    full stacked cache first (in place), then prefill attends the in-flight
-    K/V and decode attends the cache. Returns (hidden, k_cache, v_cache)."""
+    full stacked cache first (in place; through ``slot_mapping`` on the
+    paged cache), then prefill attends the in-flight K/V and decode attends
+    the cache. Returns (hidden, k_cache, v_cache)."""
     aspec = spec.attn
     residual = hidden
     hidden = apply_norm(
         hidden, layer_params["input_layernorm"]["weight"], spec.rms_eps, spec.norm_type
     )
     q, k, v = qkv_project(layer_params["self_attn"], hidden, cos, sin, aspec)
-    k_cache, v_cache = update_cache_at_layer(
-        k_cache, v_cache, k, v, layer_idx, slot_ids, positions
-    )
+    if block_inputs is not None:
+        k_cache, v_cache = update_block_cache_at_layer(
+            k_cache, v_cache, k, v, layer_idx, block_inputs[0]
+        )
+    else:
+        k_cache, v_cache = update_cache_at_layer(
+            k_cache, v_cache, k, v, layer_idx, slot_ids, positions
+        )
     sink = layer_params["self_attn"].get("sink", {}).get("weight") if aspec.has_sink else None
     if phase == PHASE_CONTEXT_ENCODING:
         attn_out = attention_prefill(q, k, v, mask, aspec, sink=sink, key_valid=key_valid)
+    elif block_inputs is not None:
+        _, block_table, kv_limit = block_inputs
+        attn_out = paged_attend(
+            q, k_cache, v_cache, layer_idx, mask, positions, block_table, kv_limit, aspec, sink
+        )
     else:
         attn_out = contiguous_decode_attend(
             q, k_cache, v_cache, layer_idx, mask, spec, aspec, sink
@@ -181,15 +258,14 @@ def decoder_layer(
 
 
 def build_mask(inputs: StepInputs, spec: ModelSpec, phase: str) -> torch.Tensor:
-    """Causal mask for prefill, cache-validity mask for single-token decode."""
+    """Causal mask for prefill; for token generation the cache-validity
+    mask, per token (causal among the new tokens) when a pass carries more
+    than one (chunked or prefix prefill on the paged cache)."""
     n_active = inputs.input_ids.shape[1]
     if phase == PHASE_CONTEXT_ENCODING:
         return masks.causal_mask(inputs.attention_mask)
     if n_active > 1:
-        raise NotImplementedError(
-            "multi-token decode (speculation, windowed prefill) is not ported to "
-            "PyTorch yet (ROADMAP A7)"
-        )
+        return masks.spec_token_gen_mask(inputs.attention_mask, inputs.position_ids)
     return masks.token_gen_mask(inputs.attention_mask, n_active)
 
 
@@ -245,23 +321,42 @@ def prepare_params(params: Dict) -> Dict:
 def run_decoder_layers(
     params: dict,
     hidden: torch.Tensor,
-    cache: KVCache,
+    cache: Cache,
     inputs: StepInputs,
     *,
     spec: ModelSpec,
     phase: str,
     mlp_fn: Callable = gated_mlp,
-) -> Tuple[torch.Tensor, KVCache]:
+) -> Tuple[torch.Tensor, Cache]:
     """Layer stack + final norm over an embedded hidden state (uniform stack:
     one Python loop over the layers, the cache updated in place)."""
     cos, sin = rope_cos_sin(inputs.position_ids, params["rope"]["inv_freq"], spec.attention_scaling)
-    slot_ids = slot_ids_from_seq_ids(inputs.seq_ids, kv_batch_size(cache))
     positions = inputs.position_ids
+    is_block = inputs.slot_mapping is not None or inputs.block_table is not None
+    block_inputs = None
+    slot_ids = None
+    if is_block:
+        slot_mapping = inputs.slot_mapping
+        if slot_mapping is None:
+            # decode writes: slots from the block table, on the device (the
+            # host sends tables only)
+            slot_mapping = slot_mapping_from_block_table(
+                inputs.block_table, positions, cache.block_size
+            )
+        # valid cache length per row, for the paged flash kernel's bounds
+        kv_limit = inputs.attention_mask.to(torch.int32).sum(dim=-1, dtype=torch.int32)
+        block_inputs = (slot_mapping, inputs.block_table, kv_limit)
+    else:
+        slot_ids = slot_ids_from_seq_ids(inputs.seq_ids, kv_batch_size(cache))
     key_valid = inputs.attention_mask if phase == PHASE_CONTEXT_ENCODING else None
-    # the flash kernel masks from key_valid itself: only the plain prefill
-    # path needs the dense (B, 1, S, S) mask
+    # the flash kernels mask from key_valid / kv_limit themselves: only the
+    # plain paths need the dense masks
     flash = key_valid is not None and use_flash(spec.attn)
-    mask = None if flash else build_mask(inputs, spec, phase)
+    paged_flash = (
+        is_block and phase != PHASE_CONTEXT_ENCODING
+        and use_paged_flash(spec.attn, inputs.input_ids.shape[1])
+    )
+    mask = None if (flash or paged_flash) else build_mask(inputs, spec, phase)
     layers: Union[Dict, List[Dict]] = params["layers"]
     if isinstance(layers, dict):
         layers = unstack_layers(layers)
@@ -269,21 +364,21 @@ def run_decoder_layers(
     for li, layer_params in enumerate(layers):
         hidden, k_cache, v_cache = decoder_layer(
             layer_params, hidden, cos, sin, k_cache, v_cache, li, mask, slot_ids,
-            positions, spec, phase, mlp_fn, key_valid=key_valid,
+            positions, spec, phase, mlp_fn, key_valid=key_valid, block_inputs=block_inputs,
         )
     hidden = apply_norm(hidden, params["norm"]["weight"], spec.rms_eps, spec.norm_type)
-    return hidden, KVCache(k=k_cache, v=v_cache)
+    return hidden, type(cache)(k=k_cache, v=v_cache)
 
 
 def model_logits(
     params: dict,
-    cache: KVCache,
+    cache: Cache,
     inputs: StepInputs,
     *,
     spec: ModelSpec,
     phase: str,
     mlp_fn: Callable = gated_mlp,
-) -> Tuple[torch.Tensor, KVCache]:
+) -> Tuple[torch.Tensor, Cache]:
     """Backbone + lm head, no sampling: (logits (B, K, V), cache)."""
     hidden = embed(params, inputs.input_ids)
     hidden, new_cache = run_decoder_layers(
@@ -302,7 +397,7 @@ def _next_tokens(logits: torch.Tensor, sampling_params: torch.Tensor) -> torch.T
 
 def decode_steps(
     params: dict,
-    cache: KVCache,
+    cache: Cache,
     last_tokens: torch.Tensor,  # (B, 1) int
     positions: torch.Tensor,  # (B, 1) int write position of last_tokens
     seq_ids: torch.Tensor,  # (B,)
@@ -312,9 +407,16 @@ def decode_steps(
     num_steps: int,
     bucket: int,
     mlp_fn: Callable = gated_mlp,
+    block_table: Optional[torch.Tensor] = None,
 ):
     """``num_steps`` whole decode iterations, tokens kept on the device (the
     reference runs them as one ``lax.scan`` program; here a Python loop).
+
+    ``block_table`` (B, MB) runs the chunk over the PAGED cache: each step
+    derives its write slots on the device from the table and the advancing
+    position, so the caller must have allocated blocks covering positions up
+    to pos + num_steps, and ``bucket`` must equal MB * block_size.
+
     Returns (tokens (B, num_steps), logits (B, num_steps, V) | None, cache)."""
     cols = torch.arange(bucket, dtype=torch.int32, device=last_tokens.device)[None, :]
     last = last_tokens.to(torch.int32)
@@ -327,6 +429,7 @@ def decode_steps(
             position_ids=pos,
             seq_ids=seq_ids,
             sampling_params=sampling_params,
+            block_table=block_table,
         )
         logits, cache = model_logits(
             params, cache, inputs, spec=spec, phase=PHASE_TOKEN_GENERATION, mlp_fn=mlp_fn
@@ -343,7 +446,7 @@ def decode_steps(
 
 def forward(
     params: dict,
-    cache: KVCache,
+    cache: Cache,
     inputs: StepInputs,
     *,
     spec: ModelSpec,

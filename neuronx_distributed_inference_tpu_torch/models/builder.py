@@ -11,7 +11,7 @@ weights ``(L, ...)`` in (in, out) orientation, ``qkv_proj`` fused as
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -19,6 +19,11 @@ import torch
 from neuronx_distributed_inference_tpu_torch.config import InferenceConfig, resolve_device, to_dtype
 from neuronx_distributed_inference_tpu_torch.models.base import ModelSpec, gated_mlp
 from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec
+from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import (
+    BlockKVCache,
+    init_block_cache,
+    kv_block_bytes,
+)
 from neuronx_distributed_inference_tpu_torch.modules.kvcache import KVCache, init_cache
 from neuronx_distributed_inference_tpu_torch.modules.rope import (
     compute_inv_freq,
@@ -232,8 +237,30 @@ class DecoderModelBuilder:
     def mlp_fn(self):
         return gated_mlp
 
-    def init_kv_cache(self) -> KVCache:
+    def init_kv_cache(self) -> Union[KVCache, BlockKVCache]:
+        """The contiguous cache, or the paged block pool when
+        ``is_block_kv_layout``. A byte-budgeted pool (``pa_pool_bytes``)
+        resolves ``pa_num_blocks`` here from the per-block cost in the cache
+        dtype, as the reference's ``init_kv_cache`` does."""
         tc = self.config.torch_config
+        if tc.is_block_kv_layout:
+            if tc.pa_num_blocks is None and tc.pa_pool_bytes is not None:
+                tc.pa_num_blocks = max(
+                    1,
+                    tc.pa_pool_bytes // kv_block_bytes(
+                        self.config.num_hidden_layers, tc.pa_block_size,
+                        self.num_kv_heads, self.head_dim, tc.kv_dtype,
+                    ),
+                )
+            return init_block_cache(
+                self.config.num_hidden_layers,
+                tc.pa_num_blocks,
+                tc.pa_block_size,
+                self.num_kv_heads,
+                self.head_dim,
+                dtype=tc.kv_dtype,
+                device=self.device,
+            )
         return init_cache(
             self.config.num_hidden_layers,
             tc.max_batch_size,

@@ -38,8 +38,11 @@ def init_cache(
     num_kv_heads: int,
     head_dim: int,
     dtype=torch.bfloat16,
-    device="cpu",
+    *,
+    device,
 ) -> KVCache:
+    """Zeroed stacked caches on ``device`` (no default: the caller names the
+    card or the CPU)."""
     rows = batch_size + GARBAGE_LINES
     shape = (num_layers, rows, max_len, num_kv_heads, head_dim)
     return KVCache(

@@ -25,7 +25,10 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("flash_attention", "decode_attention")
+KERNEL_SOURCES = ("flash_attention", "decode_attention", "paged_flash_attention")
+#: the kernels whose launches are counted, by name: B4 (paged decode) is the
+#: paged address mode of decode_attention.cu, counted apart from B1
+KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "paged_flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -38,7 +41,7 @@ _fns: Dict[tuple, object] = {}
 
 #: kernel launches per kernel name: each wrapper adds one where it launches
 #: its CUDA kernel, and nowhere else (the plain versions never count)
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNEL_SOURCES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def reset_launch_counts() -> None:

@@ -1,6 +1,8 @@
-"""Decode (token-generation) attention over the contiguous cache: kernel B1
-(counterpart of the reference's ``ops/decode_attention.py::
-tkg_decode_attention``).
+"""Decode (token-generation) attention: kernel B1 over the contiguous cache
+and kernel B4 over the paged cache (counterparts of the reference's
+``ops/decode_attention.py::tkg_decode_attention`` and
+``::paged_tkg_decode_attention``). Both are one CUDA C++ kernel template in
+``csrc/decode_attention.cu``, in two address modes.
 
 The CUDA C++ kernel (``csrc/decode_attention.cu``) reads the FULL stacked
 cache ``(L, R, S_max, Hkv, D)`` at ``layer_idx`` (batch row b reads cache
@@ -10,9 +12,14 @@ query rows, grouped rep-major as the reference's ``_prep_q`` groups them,
 over kv tiles; tiles whose mask is all false are skipped, and a learned sink
 joins the denominator at finalize (the reference's ``_finalize``).
 
-:func:`tkg_decode_attention` launches the kernel for CUDA tensors and runs
-:func:`tkg_decode_attention_plain` only for tensors on the CPU. The
-reference's int8/fp8 ``QuantizedKV`` mode is not ported yet (ROADMAP A6).
+B4 reads the head-major paged cache ``(L, NB+1, Hkv, bs, D)`` at
+``layer_idx`` through the ``(B, MB)`` block table, one kv tile per block,
+and reads the garbage block 0 as zeros (the reference's read scrub).
+
+:func:`tkg_decode_attention` and :func:`paged_tkg_decode_attention` launch
+the kernel for CUDA tensors and run their plain versions only for tensors
+on the CPU. The reference's int8/fp8 ``QuantizedKV`` mode is not ported
+yet (ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -26,7 +33,9 @@ from neuronx_distributed_inference_tpu_torch.ops import _cuda
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import launches_kernel
 
 KERNEL = "decode_attention"
+PAGED_KERNEL = "paged_decode_attention"
 HEAD_DIMS = (64, 128)
+BLOCK_SIZES = (16, 32)  # paged-mode kv tiles: one block each
 MAX_ROWS = 64  # n_rep * K query rows one block holds
 MAX_Q_LEN = 16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -57,46 +66,58 @@ def tkg_decode_attention_plain(
     return attention_decode(q, k_r, v_r, mask, spec, sink)
 
 
-def _check(q, k_cache, v_cache, layer_idx, mask, sink, n_kv):
+def _check_shared(name, q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink):
+    """The checks B1 and B4 share: the caches' last dim is D, the query
+    rows fit one block, the layer exists, head_dim, dtypes and the sink."""
     B, K, Hq, D = q.shape
-    L, R, S_max, Hkv, Dc = k_cache.shape
-    if v_cache.shape != k_cache.shape or Dc != D or Hkv != n_kv:
+    L = k_cache.shape[0]
+    if v_cache.shape != k_cache.shape or k_cache.shape[-1] != D or Hkv != n_kv:
         raise ValueError(
-            f"tkg_decode_attention: q {tuple(q.shape)}, caches {tuple(k_cache.shape)}/"
-            f"{tuple(v_cache.shape)}, n_kv {n_kv}"
+            f"{name}: q {tuple(q.shape)}, caches {tuple(k_cache.shape)}/{tuple(v_cache.shape)}, n_kv {n_kv}"
         )
     if Hq % Hkv or (Hq // Hkv) * K > MAX_ROWS or K > MAX_Q_LEN:
         raise ValueError(
-            f"tkg_decode_attention: n_rep*K = {(Hq // max(Hkv, 1)) * K} rows (max {MAX_ROWS}), "
-            f"K = {K} (max {MAX_Q_LEN})"
+            f"{name}: n_rep*K = {(Hq // max(Hkv, 1)) * K} rows (max {MAX_ROWS}), K = {K} (max {MAX_Q_LEN})"
         )
     if mask.dim() != 4 or mask.shape[:3] != (B, 1, K) or mask.dtype != torch.bool:
-        raise ValueError(f"tkg_decode_attention: mask {tuple(mask.shape)} {mask.dtype} != bool {(B, 1, K, '*')}")
-    if mask.shape[-1] > S_max or B > R or not 0 <= int(layer_idx) < L:
-        raise ValueError(
-            f"tkg_decode_attention: bucket {mask.shape[-1]} / batch {B} / layer {layer_idx} "
-            f"outside the cache {tuple(k_cache.shape)}"
-        )
+        raise ValueError(f"{name}: mask {tuple(mask.shape)} {mask.dtype} != bool {(B, 1, K, '*')}")
+    if not 0 <= int(layer_idx) < L:
+        raise ValueError(f"{name}: layer {layer_idx} outside the cache's {L} layers")
     if D not in HEAD_DIMS:
-        raise ValueError(f"tkg_decode_attention: head_dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
-        raise ValueError(
-            f"tkg_decode_attention: dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype} (bf16 or fp32, all equal)"
-        )
+        raise ValueError(f"{name}: dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype} (bf16 or fp32, all equal)")
     if sink is not None and tuple(sink.shape) != (Hq,):
-        raise ValueError(f"tkg_decode_attention: sink {tuple(sink.shape)} != {(Hq,)}")
+        raise ValueError(f"{name}: sink {tuple(sink.shape)} != {(Hq,)}")
+
+
+def _check(q, k_cache, v_cache, layer_idx, mask, sink, n_kv):
+    L, R, S_max, Hkv, _ = k_cache.shape
+    _check_shared("tkg_decode_attention", q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink)
+    if mask.shape[-1] > S_max or q.shape[0] > R:
+        raise ValueError(
+            f"tkg_decode_attention: bucket {mask.shape[-1]} / batch {q.shape[0]} outside the cache "
+            f"{tuple(k_cache.shape)}"
+        )
+
+
+def _launch_inputs(name, q, k_cache, v_cache, mask, sink):
+    """What both kernels need of their inputs beyond the shapes (contiguous
+    q and caches, a unit position stride in the mask), and the fp32 sink and
+    the output they are handed."""
+    for arg, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if mask.stride(3) != 1:
+        raise ValueError(f"{name}: mask needs a unit position stride, got {mask.stride()}")
+    sink_f = sink.float().contiguous() if sink is not None else None
+    return sink_f, torch.empty_like(q)
 
 
 def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv):
     B, K, Hq, D = q.shape
     L, R, S_max, Hkv, _ = k_cache.shape
-    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if not x.is_contiguous():
-            raise ValueError(f"tkg_decode_attention: {name} must be contiguous")
-    if mask.stride(3) != 1:
-        raise ValueError(f"tkg_decode_attention: mask needs a unit position stride, got {mask.stride()}")
-    sink_f = sink.float().contiguous() if sink is not None else None
-    out = torch.empty_like(q)
+    sink_f, out = _launch_inputs("tkg_decode_attention", q, k_cache, v_cache, mask, sink)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _cuda.function(
         KERNEL, "nxdi_tkg_decode_attention",
@@ -141,3 +162,102 @@ def tkg_decode_attention(
             q, k_cache, v_cache, layer_idx, mask, sink, scale=scale, n_kv=n_kv
         )
     return _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv)
+
+
+# ---------------------------------------------------------------------------
+# B4: paged decode attention
+# ---------------------------------------------------------------------------
+
+
+def paged_tkg_decode_attention_plain(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    layer_idx: int,
+    block_table: torch.Tensor,
+    mask: torch.Tensor,
+    sink: Optional[torch.Tensor] = None,
+    *,
+    scale: float,
+    n_kv: int,
+) -> torch.Tensor:
+    """Plain version: the reference's native paged decode path — the
+    block-table gather with the garbage-block scrub
+    (``read_block_cache_at_layer``), ``repeat_kv`` and the masked softmax."""
+    from neuronx_distributed_inference_tpu_torch.modules.attention import (
+        AttnSpec,
+        attention_decode,
+    )
+    from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import (
+        read_block_cache_at_layer,
+    )
+
+    B, K, Hq, D = q.shape
+    spec = AttnSpec(num_heads=Hq, num_kv_heads=n_kv, head_dim=D, scale=scale)
+    k_r, v_r = read_block_cache_at_layer(k_cache, v_cache, layer_idx, block_table)
+    return attention_decode(q, k_r, v_r, mask, spec, sink)
+
+
+def _check_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, n_kv):
+    name = "paged_tkg_decode_attention"
+    B = q.shape[0]
+    L, NB1, Hkv, bs, _ = k_cache.shape
+    _check_shared(name, q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink)
+    if block_table.dim() != 2 or block_table.shape[0] != B or block_table.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{name}: block_table {tuple(block_table.shape)} {block_table.dtype} != int {(B, '*')}")
+    width = block_table.shape[1] * bs
+    if mask.shape[-1] != width:
+        raise ValueError(f"{name}: mask width {mask.shape[-1]} != {width} (MB * block size)")
+
+
+def _launch_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, scale, n_kv):
+    B, K, Hq, D = q.shape
+    L, NB1, Hkv, bs, _ = k_cache.shape
+    if bs not in BLOCK_SIZES:
+        raise ValueError(f"paged_tkg_decode_attention: block size {bs} not in {BLOCK_SIZES}")
+    sink_f, out = _launch_inputs("paged_tkg_decode_attention", q, k_cache, v_cache, mask, sink)
+    table = block_table.to(torch.int32).contiguous()
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _cuda.function(
+        KERNEL, "nxdi_paged_decode_attention",
+        [P] * 7 + [I] * 12 + [ctypes.c_float, I, P],
+    )
+    err = fn(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), mask.data_ptr(),
+        sink_f.data_ptr() if sink_f is not None else None, table.data_ptr(), out.data_ptr(),
+        B, K, Hq, Hkv, D, L, NB1, bs, table.shape[1], int(layer_idx),
+        mask.stride(0), mask.stride(2),
+        float(scale), _DTYPE_CODES[q.dtype],
+        _cuda.stream_ptr(q.device),
+    )
+    _cuda.check(err, PAGED_KERNEL)
+    _cuda.LAUNCHES[PAGED_KERNEL] += 1
+    return out
+
+
+def paged_tkg_decode_attention(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    layer_idx: int,
+    block_table: torch.Tensor,
+    mask: torch.Tensor,
+    sink: Optional[torch.Tensor] = None,
+    *,
+    scale: float,
+    n_kv: int,
+) -> torch.Tensor:
+    """Decode attention straight off the paged cache through the block
+    table (no gather copy).
+
+    q (B, K, Hq, D); k/v cache (L, NB+1, Hkv, bs, D) head-major;
+    block_table (B, MB) int; mask (B, 1, K, MB * bs) bool; sink (Hq,) or
+    None. Returns (B, K, Hq, D). CUDA tensors launch the kernel (or raise on
+    what it does not take); CPU tensors take the plain version."""
+    _check_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, n_kv)
+    tensors = [q, k_cache, v_cache, block_table, mask] + ([sink] if sink is not None else [])
+    if not launches_kernel(*tensors):
+        return paged_tkg_decode_attention_plain(
+            q, k_cache, v_cache, layer_idx, block_table, mask, sink, scale=scale, n_kv=n_kv
+        )
+    return _launch_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, scale, n_kv)

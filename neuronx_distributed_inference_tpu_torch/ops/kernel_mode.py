@@ -22,8 +22,22 @@ def use_flash(spec) -> bool:
 
 
 def use_tkg(spec) -> bool:
-    """Decode attention through the B1 kernel's wrapper."""
+    """Decode attention through the B1 (contiguous) or B4 (paged) kernel's
+    wrapper."""
     return spec.use_tkg_kernel is not False
+
+
+#: shortest multi-token pass the paged flash kernel (B5) takes; shorter
+#: passes on the paged cache (decode, speculation) go to B4
+PAGED_FLASH_MIN_Q = 8
+
+
+def use_paged_flash(spec, q_len: int) -> bool:
+    """Attention over the paged cache through the B5 paged flash kernel's
+    wrapper: the reference's routing rule (``ops/kernel_mode.py:162-172``)
+    without its tile gates — q_len >= 8 goes to B5, shorter passes to B4,
+    and ``use_flash_kernel=False`` turns B5 off."""
+    return spec.use_flash_kernel is not False and q_len >= PAGED_FLASH_MIN_Q
 
 
 def launches_kernel(*tensors: torch.Tensor) -> bool:

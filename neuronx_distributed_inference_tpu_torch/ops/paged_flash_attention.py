@@ -1,0 +1,139 @@
+"""Paged flash attention for chunked and prefix prefill: kernel B5
+(counterpart of the reference's ``ops/paged_flash_attention.py::
+paged_flash_attention``).
+
+Query token t of row b attends the row's paged cache at positions
+``p <= positions[b, t]`` with ``p < kv_limit[b]``: the prior context plus
+causal attention among the new tokens, whose K/V are already written
+(write-then-attend). The CUDA C++ kernel (``csrc/paged_flash_attention.cu``)
+reads the cache blocks through the block table, shares each K/V tile among
+the n_rep q heads of a kv head, and stops its kv loop at the block's causal
+frontier or ``kv_limit``. Its q tile is 64 query rows (64 / n_rep positions
+of the n_rep heads of one kv head); the source says why.
+
+:func:`paged_flash_attention` launches the kernel for CUDA tensors and runs
+:func:`paged_flash_attention_plain` only for tensors on the CPU. The
+reference's int8/fp8 ``k_scale``/``v_scale`` mode waits for ROADMAP A6.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from neuronx_distributed_inference_tpu_torch.ops import _cuda
+from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import launches_kernel
+
+NEG_INF = -1e30
+KERNEL = "paged_flash_attention"
+HEAD_DIMS = (64, 128)
+Q_ROWS = 64  # query rows per kernel block: n_rep must divide it
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def paged_flash_attention_plain(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_table: torch.Tensor,
+    positions: torch.Tensor,
+    kv_limit: torch.Tensor,
+    *,
+    scale: float,
+    n_rep: int,
+) -> torch.Tensor:
+    """Plain version: gather the row's blocks (garbage block 0 read as
+    zeros), then a masked softmax with ``kv_pos <= q_pos & kv_pos <
+    kv_limit``, computed as the kernel's finalize does (masked probabilities
+    exactly 0, ``out = acc / max(l, 1e-30)``), so a row with no valid key is
+    zeros. Returns (B, Sq, Hq, D) in q's dtype."""
+    from neuronx_distributed_inference_tpu_torch.modules.attention import repeat_kv
+    from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import (
+        read_block_cache_at_layer,
+    )
+
+    k_r, v_r = read_block_cache_at_layer(k_cache[None], v_cache[None], 0, block_table)
+    kf = repeat_kv(k_r, n_rep).float()
+    vf = repeat_kv(v_r, n_rep).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    kv_pos = torch.arange(kf.shape[1], device=q.device)[None, None, None, :]
+    q_pos = positions.to(torch.int64)[:, None, :, None]
+    mask = (kv_pos <= q_pos) & (kv_pos < kv_limit.to(torch.int64)[:, None, None, None])
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhqk,bkhd->bqhd", p / torch.clamp(l, min=1e-30), vf)
+    return out.to(q.dtype)
+
+
+def _check(q, k_cache, v_cache, block_table, positions, kv_limit, n_rep):
+    B, Sq, Hq, D = q.shape
+    name = "paged_flash_attention"
+    if k_cache.dim() != 4 or v_cache.shape != k_cache.shape or k_cache.shape[3] != D:
+        raise ValueError(f"{name}: q {tuple(q.shape)} vs one layer's cache {tuple(k_cache.shape)}/{tuple(v_cache.shape)}")
+    Hkv = k_cache.shape[1]
+    if Hq != Hkv * n_rep:
+        raise ValueError(f"{name}: {Hq} q heads != {Hkv} kv heads x n_rep {n_rep}")
+    if block_table.dim() != 2 or block_table.shape[0] != B:
+        raise ValueError(f"{name}: block_table {tuple(block_table.shape)} != {(B, '*')}")
+    if tuple(positions.shape) != (B, Sq) or tuple(kv_limit.shape) != (B,):
+        raise ValueError(f"{name}: positions {tuple(positions.shape)} / kv_limit {tuple(kv_limit.shape)} != {(B, Sq)} / {(B,)}")
+    for t, nm in ((block_table, "block_table"), (positions, "positions"), (kv_limit, "kv_limit")):
+        if t.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"{name}: {nm} must be an int tensor, got {t.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
+    if q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype} (bf16 or fp32, all equal)")
+
+
+def _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep):
+    B, Sq, Hq, D = q.shape
+    NB1, Hkv, bs, _ = k_cache.shape
+    if Q_ROWS % n_rep:
+        raise ValueError(f"paged_flash_attention: n_rep {n_rep} does not divide the kernel's {Q_ROWS} query rows")
+    if q.shape[0] > 65535 or Hkv > 65535:
+        raise ValueError(f"paged_flash_attention: grid too large for q {tuple(q.shape)}")
+    for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if not x.is_contiguous():
+            raise ValueError(f"paged_flash_attention: {name} must be contiguous")
+    table = block_table.to(torch.int32).contiguous()
+    pos = positions.to(torch.int32).contiguous()
+    limit = kv_limit.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _cuda.function(KERNEL, "nxdi_paged_flash_attention", [P] * 7 + [I] * 8 + [ctypes.c_float, I, P])
+    err = fn(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), table.data_ptr(),
+        pos.data_ptr(), limit.data_ptr(), out.data_ptr(),
+        B, Sq, Hq, Hkv, D, NB1, bs, table.shape[1],
+        float(scale), _DTYPE_CODES[q.dtype],
+        _cuda.stream_ptr(q.device),
+    )
+    _cuda.check(err, KERNEL)
+    _cuda.LAUNCHES[KERNEL] += 1
+    return out
+
+
+def paged_flash_attention(
+    q: torch.Tensor,  # (B, Sq, Hq, D)
+    k_cache: torch.Tensor,  # (NB+1, Hkv, bs, D) one layer's head-major paged cache
+    v_cache: torch.Tensor,
+    block_table: torch.Tensor,  # (B, MB) int
+    positions: torch.Tensor,  # (B, Sq) int query positions
+    kv_limit: torch.Tensor,  # (B,) int valid cache length per row
+    *,
+    scale: float,
+    n_rep: int,
+) -> torch.Tensor:
+    """Prefix/chunked-prefill attention straight off the paged cache.
+    Returns (B, Sq, Hq, D). CUDA tensors launch the kernel (or raise on what
+    it does not take); CPU tensors take the plain version."""
+    _check(q, k_cache, v_cache, block_table, positions, kv_limit, n_rep)
+    if not launches_kernel(q, k_cache, v_cache, block_table, positions, kv_limit):
+        return paged_flash_attention_plain(
+            q, k_cache, v_cache, block_table, positions, kv_limit, scale=scale, n_rep=n_rep
+        )
+    return _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep)

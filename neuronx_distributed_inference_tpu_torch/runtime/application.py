@@ -2,18 +2,20 @@
 the reference's ``runtime/application.py``).
 
 :class:`ModelForCausalLM` is the port's ``TpuModelForCausalLM``: one
-context-encoding runner and one token-generation runner over a contiguous
-KV cache on the config's device (``"cuda"`` unless the caller asks for the
-CPU). ``generate`` keeps the reference's host loop: one prefill, then
-decode chunks sized by :func:`_pick_chunk`, with tokens kept on the device
-and fetched once at the end when no EOS is given, and fetched once per
-chunk to test for EOS otherwise.
+context-encoding runner and one token-generation runner over a KV cache on
+the config's device (``"cuda"`` unless the caller asks for the CPU). The
+cache is contiguous, or the paged block pool with ``is_block_kv_layout``.
+``generate`` keeps the reference's host loop over the contiguous cache: one
+prefill, then decode chunks sized by :func:`_pick_chunk`, with tokens kept
+on the device and fetched once at the end when no EOS is given, and fetched
+once per chunk to test for EOS otherwise. The paged cache is driven through
+``runtime/serving.py::ServingSession`` or :meth:`ModelForCausalLM.forward`.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -26,6 +28,7 @@ from neuronx_distributed_inference_tpu_torch.models.base import (
     prepare_params,
 )
 from neuronx_distributed_inference_tpu_torch.modules import autobucketing
+from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import BlockKVCache
 from neuronx_distributed_inference_tpu_torch.modules.kvcache import KVCache
 from neuronx_distributed_inference_tpu_torch.modules.sampling import (
     prepare_sampling_params,
@@ -79,17 +82,23 @@ class ModelForCausalLM:
         self.spec = self.builder.model_spec()
         self.device = self.builder.device
         self.params = None
-        self.kv_cache: Optional[KVCache] = None
+        self.kv_cache: Optional[Union[KVCache, BlockKVCache]] = None
         mlp_fn = self.builder.mlp_fn()
+        tkg_buckets = autobucketing.generate_token_generation_buckets(tc)
+        if tc.is_block_kv_layout:
+            # block-table reads need bucket % block_size == 0
+            tkg_buckets = sorted(
+                {autobucketing.round_up(b, tc.pa_block_size) for b in tkg_buckets}
+            )
+        block_kwargs = dict(block_kv=tc.is_block_kv_layout, block_size=tc.pa_block_size)
         self.context_encoding_model = SubModelRunner(
             TAG_CONTEXT_ENCODING, PHASE_CONTEXT_ENCODING, self.spec,
             autobucketing.generate_context_encoding_buckets(tc),
-            tc.ctx_batch_size, self.device, mlp_fn,
+            tc.ctx_batch_size, self.device, mlp_fn, **block_kwargs,
         )
         self.token_generation_model = SubModelRunner(
             TAG_TOKEN_GENERATION, PHASE_TOKEN_GENERATION, self.spec,
-            autobucketing.generate_token_generation_buckets(tc),
-            tc.tkg_batch_size, self.device, mlp_fn,
+            tkg_buckets, tc.tkg_batch_size, self.device, mlp_fn, **block_kwargs,
         )
         self.runners = [self.context_encoding_model, self.token_generation_model]
 
@@ -117,12 +126,21 @@ class ModelForCausalLM:
         return self
 
     def init_kv_cache(self):
+        """A fresh (zeroed) cache: contiguous, or the paged block pool."""
         self.kv_cache = self.builder.init_kv_cache()
 
     def warmup(self):
-        """Run every bucket of both runners once (kernel builds included)."""
+        """Run every bucket of both runners once, and with chunked or prefix
+        prefill every chunk q length (kernel builds included)."""
+        tc = self.config.torch_config
+        chunk_q = None
+        if tc.is_chunked_prefill or tc.is_prefix_caching:
+            chunk_q = autobucketing.generate_chunk_q_buckets(tc)
         for runner in self.runners:
-            self.kv_cache = runner.warmup(self.params, self.kv_cache)
+            self.kv_cache = runner.warmup(
+                self.params, self.kv_cache,
+                chunk_q_lens=chunk_q if runner is self.token_generation_model else None,
+            )
         return self
 
     # ---- one step ----------------------------------------------------------
@@ -135,11 +153,22 @@ class ModelForCausalLM:
         *,
         attention_mask: Optional[np.ndarray] = None,
         sampling_params: Optional[np.ndarray] = None,
+        slot_mapping: Optional[np.ndarray] = None,
+        block_table: Optional[np.ndarray] = None,
         phase: Optional[str] = None,
     ):
-        """One model pass with caller-provided cache placement. ``phase``
-        "cte"/"tkg" (S > 1 means "cte" when omitted). Returns (tokens (B, K),
-        logits (B, K, V) or None) as numpy; updates the cache in place."""
+        """One model pass with caller-provided cache placement: the entry an
+        external scheduler drives when it owns the slot and block tables.
+
+        ``seq_ids`` (B,) cache lines (-1 = inactive row). On the paged cache,
+        ``slot_mapping`` (B, S) carries a prefill's flat write slots (-1
+        drops the write into the garbage block), and a decode step derives
+        its slots on the device from ``block_table`` (B, max_blocks); a
+        chunked/prefix prefill pass carries both with ``phase="tkg"``.
+        ``attention_mask`` (B, width) is the cache occupancy, by default
+        everything up to the largest position. ``phase`` "cte"/"tkg" (S > 1
+        means "cte" when omitted). Returns (tokens (B, K), logits (B, K, V)
+        or None) as numpy; updates the cache in place."""
         input_ids = np.asarray(input_ids)
         position_ids = np.asarray(position_ids)
         seq_ids = np.asarray(seq_ids, np.int32)
@@ -162,6 +191,7 @@ class ModelForCausalLM:
         inputs, _ = runner.prepare(
             input_ids, np.asarray(attention_mask), position_ids, seq_ids,
             np.asarray(sampling_params, np.float32),
+            slot_mapping=slot_mapping, block_table=block_table,
         )
         out = runner(self.params, self.kv_cache, inputs)
         self.kv_cache = out.cache
@@ -191,6 +221,11 @@ class ModelForCausalLM:
         """Greedy generation. input_ids (B, S) RIGHT-padded; attention_mask
         (B, S) 1 = valid."""
         tc = self.config.torch_config
+        if tc.is_block_kv_layout:
+            raise NotImplementedError(
+                "block-KV layout generation runs through ServingSession "
+                "(runtime/serving.py) or the low-level forward API"
+            )
         input_ids = np.asarray(input_ids)
         B, S_in = input_ids.shape
         attention_mask = np.ones_like(input_ids) if attention_mask is None else np.asarray(attention_mask)

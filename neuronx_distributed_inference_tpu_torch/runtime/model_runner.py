@@ -4,7 +4,13 @@ the reference's ``runtime/model_runner.py::SubModelRunner``).
 The reference holds one jitted program per (bucket, batch); the port runs
 eagerly, so a runner pads its inputs to the compiled batch and the bucket
 and calls :func:`models.base.forward` / :func:`models.base.decode_steps`.
-CUDA graphs per bucket are a later step (ROADMAP A3).
+CUDA graphs per bucket are a later step (ROADMAP A3b).
+
+On the paged cache (``block_kv``) a prefill carries a host ``slot_mapping``
+(padded with -1, the garbage slot), a decode step carries only a
+``block_table`` (its write slots are derived on the device), and a chunked
+or prefix prefill pass — a multi-token token-generation pass — carries
+both.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch
 
 from neuronx_distributed_inference_tpu_torch.models.base import (
     PHASE_CONTEXT_ENCODING,
+    Cache,
     ModelSpec,
     StepInputs,
     StepOutput,
@@ -23,7 +30,6 @@ from neuronx_distributed_inference_tpu_torch.models.base import (
     forward,
 )
 from neuronx_distributed_inference_tpu_torch.modules.autobucketing import get_target_bucket
-from neuronx_distributed_inference_tpu_torch.modules.kvcache import KVCache
 from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
 
 TAG_CONTEXT_ENCODING = "context_encoding_model"
@@ -40,6 +46,8 @@ class SubModelRunner:
         batch_size: int,
         device: torch.device,
         mlp_fn: Callable,
+        block_kv: bool = False,
+        block_size: int = 16,
     ):
         self.tag = tag
         self.phase = phase
@@ -48,14 +56,20 @@ class SubModelRunner:
         self.batch_size = batch_size
         self.device = device
         self.mlp_fn = mlp_fn
+        self.block_kv = block_kv
+        self.block_size = block_size
+        # the bucket the last prepare()/decode_chunk resolved to (the serving
+        # session's bucket census reads it)
+        self.last_bucket: Optional[int] = None
 
     # ---- host-side padding ------------------------------------------------
 
     def _pad_batch(self, arrs: Dict[str, object], batch: int) -> Dict[str, torch.Tensor]:
-        """Pad every array's batch dim to ``batch`` (seq_ids pad with -1 so
-        padded rows write to the garbage line, the rest with 0) and move it
-        to the device. A tensor already on the device (a previous chunk's
-        tokens) is padded there, without a host round trip."""
+        """Pad every array's batch dim to ``batch`` (seq_ids and slot_mapping
+        pad with -1 so padded rows write to the garbage line or block, the
+        rest with 0) and move it to the device. A tensor already on the
+        device (a previous chunk's tokens) is padded there, without a host
+        round trip."""
         out = {}
         for name, a in arrs.items():
             t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
@@ -64,7 +78,7 @@ class SubModelRunner:
             if pad < 0:
                 raise ValueError(f"{self.tag}: input batch {t.shape[0]} > compiled batch {batch}")
             if pad:
-                fill = -1 if name == "seq_ids" else 0
+                fill = -1 if name in ("seq_ids", "slot_mapping") else 0
                 t = torch.cat([t, torch.full((pad,) + tuple(t.shape[1:]), fill, dtype=t.dtype, device=self.device)])
             out[name] = t
         return out
@@ -76,8 +90,12 @@ class SubModelRunner:
         position_ids: np.ndarray,
         seq_ids: np.ndarray,
         sampling_params: Optional[np.ndarray] = None,
+        slot_mapping: Optional[np.ndarray] = None,
+        block_table: Optional[np.ndarray] = None,
     ) -> Tuple[StepInputs, int]:
-        """Pad to (compiled batch, bucket) and build StepInputs."""
+        """Pad to (compiled batch, bucket) and build StepInputs.
+        ``input_ids`` may be a device tensor (an async decode step chained
+        on the previous step's tokens)."""
         B, S = input_ids.shape
         if self.phase == PHASE_CONTEXT_ENCODING:
             bucket = get_target_bucket(self.buckets, S)
@@ -89,27 +107,34 @@ class SubModelRunner:
                 # the masked tail, not on real slots
                 tail = position_ids[:, -1:] + 1 + np.arange(pad_s)[None, :]
                 position_ids = np.concatenate([position_ids, tail], axis=1)
+                if slot_mapping is not None:
+                    # padded tokens write to the garbage block
+                    slot_mapping = np.pad(slot_mapping, ((0, 0), (0, pad_s)), constant_values=-1)
         else:
+            # token generation (one token, or a multi-token chunked/prefix
+            # prefill pass): bucket over the cache width
             bucket = get_target_bucket(self.buckets, attention_mask.shape[1])
             pad_s = bucket - attention_mask.shape[1]
             if pad_s:
                 attention_mask = np.pad(attention_mask, ((0, 0), (0, pad_s)))
+        self.last_bucket = bucket
         if sampling_params is None:
             sampling_params = prepare_sampling_params(B)
-        arrs = self._pad_batch(
-            {
-                "input_ids": np.asarray(input_ids, np.int64),
-                "attention_mask": np.asarray(attention_mask, np.int32),
-                "position_ids": np.asarray(position_ids, np.int32),
-                "seq_ids": np.asarray(seq_ids, np.int32),
-                "sampling_params": np.asarray(sampling_params, np.float32),
-            },
-            self.batch_size,
-        )
-        return StepInputs(**arrs), B
+        arrs = {
+            "input_ids": input_ids if isinstance(input_ids, torch.Tensor) else np.asarray(input_ids, np.int64),
+            "attention_mask": np.asarray(attention_mask, np.int32),
+            "position_ids": np.asarray(position_ids, np.int32),
+            "seq_ids": np.asarray(seq_ids, np.int32),
+            "sampling_params": np.asarray(sampling_params, np.float32),
+        }
+        if slot_mapping is not None:
+            arrs["slot_mapping"] = np.asarray(slot_mapping, np.int32)
+        if block_table is not None:
+            arrs["block_table"] = np.asarray(block_table, np.int32)
+        return StepInputs(**self._pad_batch(arrs, self.batch_size)), B
 
     @torch.no_grad()
-    def __call__(self, params, cache: KVCache, inputs: StepInputs) -> StepOutput:
+    def __call__(self, params, cache: Cache, inputs: StepInputs) -> StepOutput:
         """Run one step; the cache is updated in place."""
         return forward(params, cache, inputs, spec=self.spec, phase=self.phase, mlp_fn=self.mlp_fn)
 
@@ -117,51 +142,72 @@ class SubModelRunner:
     def decode_chunk(
         self,
         params,
-        cache: KVCache,
+        cache: Cache,
         last,  # (B, 1) np array or device tensor
         pos: np.ndarray,  # (B, 1)
         seq_ids: np.ndarray,
         sampling_params: np.ndarray,
         num_steps: int,
         bucket: int,
+        block_table: Optional[np.ndarray] = None,
     ):
         """``num_steps`` decode steps with device-resident tokens.
+        ``block_table`` (B, bucket // block_size) runs the chunk over the
+        PAGED cache; blocks must be allocated for pos + num_steps.
         Returns (tokens (Bc, num_steps), logits | None, cache)."""
-        arrs = self._pad_batch(
-            {
-                "last": last,
-                "pos": np.asarray(pos, np.int32),
-                "seq_ids": np.asarray(seq_ids, np.int32),
-                "sampling_params": np.asarray(sampling_params, np.float32),
-            },
-            self.batch_size,
-        )
+        self.last_bucket = bucket
+        arrs = {
+            "last": last,
+            "pos": np.asarray(pos, np.int32),
+            "seq_ids": np.asarray(seq_ids, np.int32),
+            "sampling_params": np.asarray(sampling_params, np.float32),
+        }
+        if block_table is not None:
+            arrs["block_table"] = np.asarray(block_table, np.int32)
+        arrs = self._pad_batch(arrs, self.batch_size)
         return decode_steps(
             params, cache, arrs["last"], arrs["pos"], arrs["seq_ids"], arrs["sampling_params"],
             spec=self.spec, num_steps=num_steps, bucket=bucket, mlp_fn=self.mlp_fn,
+            block_table=arrs.get("block_table"),
         )
 
     # ---- warmup ----------------------------------------------------------
 
-    def example_inputs(self, bucket: int) -> StepInputs:
+    def example_inputs(self, bucket: int, q_len: Optional[int] = None) -> StepInputs:
+        """A warmup step at one bucket. ``q_len`` builds a chunked/prefix
+        prefill pass (multi-token token generation with both slot_mapping
+        and block_table). On the paged cache the warmup writes go to the
+        garbage block and the table reads block 0, with the same fields a
+        real serving call carries (CTE: slot mapping; decode: block table;
+        chunk pass: both)."""
         B = self.batch_size
-        S = bucket if self.phase == PHASE_CONTEXT_ENCODING else 1
-        arrs = self._pad_batch(
-            {
-                "input_ids": np.zeros((B, S), np.int64),
-                "attention_mask": np.ones((B, bucket), np.int32),
-                "position_ids": np.tile(np.arange(S, dtype=np.int32), (B, 1)),
-                "seq_ids": np.arange(B, dtype=np.int32),
-                "sampling_params": prepare_sampling_params(B),
-            },
-            B,
-        )
-        return StepInputs(**arrs)
+        if self.phase == PHASE_CONTEXT_ENCODING:
+            S = bucket
+        else:
+            S = q_len or 1
+        arrs = {
+            "input_ids": np.zeros((B, S), np.int64),
+            "attention_mask": np.ones((B, bucket), np.int32),
+            "position_ids": np.tile(np.arange(S, dtype=np.int32), (B, 1)),
+            "seq_ids": np.arange(B, dtype=np.int32),
+            "sampling_params": prepare_sampling_params(B),
+        }
+        if self.block_kv:
+            if self.phase == PHASE_CONTEXT_ENCODING or q_len:
+                arrs["slot_mapping"] = np.full((B, S), -1, np.int32)
+            if self.phase != PHASE_CONTEXT_ENCODING:
+                arrs["block_table"] = np.zeros((B, max(1, bucket // self.block_size)), np.int32)
+        return StepInputs(**self._pad_batch(arrs, B))
 
-    def warmup(self, params, cache: KVCache) -> KVCache:
-        """Run every bucket once: builds the kernels and touches every shape
-        before the first request (the reference compiles here)."""
+    def warmup(self, params, cache: Cache, chunk_q_lens: Optional[List[int]] = None) -> Cache:
+        """Run every bucket once, and each chunked-prefill q length at the
+        largest bucket: builds the kernels and touches every shape before
+        the first request (the reference compiles here; the port has no
+        compile)."""
         for bucket in self.buckets:
             out = self(params, cache, self.example_inputs(bucket))
+            cache = out.cache
+        for q in chunk_q_lens or ():
+            out = self(params, cache, self.example_inputs(self.buckets[-1], q_len=q))
             cache = out.cache
         return cache

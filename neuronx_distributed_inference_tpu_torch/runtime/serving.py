@@ -1,0 +1,1132 @@
+"""Continuous-batching serving session, split dispatch (counterpart of the
+reference's ``runtime/serving.py::ServingSession`` on its split path).
+
+A :class:`ServingSession` owns the KV slot table of an application built
+with ``is_continuous_batching``:
+
+- ``add_request`` validates a request, assigns a free slot and prefills it
+  (the whole prompt through the context-encoding runner, only the uncached
+  suffix on a prefix-cache hit, or nothing yet under chunked prefill);
+- ``step`` runs one batched PREFILL-CHUNK pass for requests with prompt
+  tokens pending (chunked prefill), then one decode pass for every decoding
+  request — synchronously, or 1-ahead (``async_mode``): step k+1 is
+  dispatched on step k's tokens still on the device before step k is
+  fetched;
+- ``run_to_completion`` drains the session, in multi-step device chunks
+  once every live request is decoding.
+
+It runs over the paged cache (chunk passes through the B5 paged flash
+kernel, decode through B4, admission without chunking through B2) and over
+the contiguous cache (B2 and B1). Fault containment follows the reference:
+typed admission verdicts, preemption on pool exhaustion with re-admission
+ahead of new arrivals, deadlines, bounded dispatch retry, row quarantine
+with a KV scrub, and a no-progress watchdog.
+
+The port updates the cache in place where the reference rebinds a new one.
+Outside this slice, and raising ``NotImplementedError`` with their ROADMAP
+item: the ragged mixed step (A5), the speculative session (A7), admission
+of a request prefilled elsewhere (A8) and windowed admission of prompts
+longer than the largest context bucket (A3b).
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from collections import Counter, deque
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from neuronx_distributed_inference_tpu_torch.modules.autobucketing import (
+    get_target_bucket,
+    pow2_bucket,
+)
+from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
+from neuronx_distributed_inference_tpu_torch.runtime.faults import (
+    RETRYABLE_DISPATCH_ERRORS,
+    WatchdogError,
+    fill_kv_rows,
+)
+from neuronx_distributed_inference_tpu_torch.telemetry.tracing import default_session
+
+#: request lifecycle statuses. ACTIVE = holds a slot; WAITING = preempted and
+#: queued for re-admission (ahead of new arrivals); the rest are terminal.
+STATUS_ACTIVE = "active"
+STATUS_WAITING = "waiting"
+STATUS_FINISHED = "finished"
+STATUS_FAILED = "failed"
+STATUS_REJECTED = "rejected"
+
+#: finish reasons that mark a request FAILED rather than FINISHED
+FAILURE_REASONS = frozenset({"non_finite", "dispatch_error", "deadline_exceeded", "preempted"})
+
+#: capped exponential backoff for transient dispatch retries
+DISPATCH_BACKOFF_BASE_S = 0.02
+DISPATCH_BACKOFF_CAP_S = 0.5
+
+#: ``session.rejected`` keeps this many recent REJECTED requests (rejection
+#: volume is caller-controlled, so the record must stay bounded)
+REJECTED_HISTORY_MAX = 1024
+
+
+@dataclass(frozen=True)
+class AdmissionResult:
+    """Typed verdict from :meth:`ServingSession.add_request`; truthy when
+    admitted, falsy with a ``reason`` otherwise (``no_slot`` / ``kv_blocks``
+    / ``backlog`` for capacity, or a validation reason — then the request
+    is terminal REJECTED and queryable via ``session.rejected``)."""
+
+    admitted: bool
+    reason: Optional[str] = None
+
+    def __bool__(self) -> bool:
+        return self.admitted
+
+
+ADMITTED = AdmissionResult(True)
+
+
+@dataclass(eq=False)  # identity: the readmit queue removes by identity
+class Request:
+    req_id: str
+    input_ids: np.ndarray  # (S,) effective prompt (re-admission folds
+    # previously generated tokens in; `absorbed` counts them)
+    max_new_tokens: int = 64
+    eos_token_id: Optional[int] = None
+    slot: int = -1
+    pos: int = 0  # next write position
+    prefill_pos: int = 0  # prompt tokens already in the KV cache
+    generated: List[int] = field(default_factory=list)
+    finished: bool = False
+    preempted: bool = False  # currently evicted (queued for re-admission)
+    status: str = STATUS_ACTIVE
+    fail_reason: Optional[str] = None  # set when status == failed/rejected
+    deadline_s: Optional[float] = None  # wall-clock TTL from submission
+    t_submit: float = 0.0  # session-clock submission time
+    preemptions: int = 0  # pool-exhaustion evictions survived
+    absorbed: int = 0  # generated tokens folded into input_ids (re-admission)
+    epoch: int = 0  # bumped per eviction: stale in-flight rows are discarded
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.input_ids.shape[0])
+
+    @property
+    def prefilling(self) -> bool:
+        return not self.finished and self.prefill_pos < self.prompt_len
+
+    @property
+    def last_token(self) -> int:
+        return self.generated[-1] if self.generated else int(self.input_ids[-1])
+
+
+class ServingSession:
+    def __init__(
+        self,
+        app,
+        telemetry=None,
+        fault_injector=None,
+        clock: Optional[Callable[[], float]] = None,
+        sleep_fn: Optional[Callable[[float], None]] = None,
+    ):
+        """``telemetry``: a :class:`~..telemetry.TelemetrySession` (default:
+        the inert process default). ``fault_injector``: a
+        :class:`~.faults.FaultInjector` whose armed faults fire at this
+        session's host boundaries (tests). ``clock``/``sleep_fn``: the
+        wall-clock source for deadlines and backoff (default
+        ``time.monotonic`` / ``time.sleep``)."""
+        self.app = app
+        self.tel = telemetry if telemetry is not None else default_session()
+        tc = app.config.torch_config
+        self.faults = fault_injector
+        self._clock = clock if clock is not None else time.monotonic
+        self._sleep = sleep_fn if sleep_fn is not None else time.sleep
+        self.admission_validation = bool(tc.admission_validation)
+        self.deadline_s = tc.request_deadline_s
+        self.max_dispatch_retries = int(tc.dispatch_max_retries)
+        self.watchdog_steps = int(tc.watchdog_no_progress_steps)
+        self.rejected: Dict[str, Request] = {}  # terminal REJECTED requests
+        self._readmit: deque = deque()  # preempted, aged ahead of arrivals
+        self._step_index = 0
+        self._no_progress = 0
+        self._watchdog_fired = False
+        self._prefilled_total = 0  # monotone: prompt tokens written
+        self._committed_total = 0  # monotone: tokens committed to requests
+        self._terminal_total = 0  # monotone: requests reaching a terminal state
+        self._last_dispatch_error: Optional[str] = None
+        #: device passes this session ran, by kind: "prefill" (context
+        #: encoding), "prefill_chunk" (chunked/prefix prefill passes) and
+        #: "decode_steps" (decode iterations, one per layer stack, chunked
+        #: drains counted per step they ran)
+        self.dispatches: Counter = Counter()
+        if not tc.is_continuous_batching:
+            raise ValueError("ServingSession requires is_continuous_batching=True")
+        self.num_slots = tc.kv_cache_batch_size or tc.max_batch_size
+        self.slots: List[Optional[Request]] = [None] * self.num_slots
+        self.requests: Dict[str, Request] = {}
+        self.block_mode = tc.is_block_kv_layout
+        self.prefix_caching = tc.is_prefix_caching
+        self.chunked = tc.is_chunked_prefill
+        cpc = tc.chunked_prefill_config
+        self.chunk_size = cpc.kernel_q_tile_size if cpc else 128
+        self.max_prefill_seqs = cpc.max_num_seqs if cpc else 8
+        self.allocator = None
+        self.block_bytes = 0
+        if self.block_mode:
+            from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import (
+                BlockAllocator,
+                PrefixCachingAllocator,
+                kv_block_bytes,
+            )
+
+            if tc.pa_num_blocks is None:
+                raise RuntimeError(
+                    "pa_num_blocks is unresolved — load the application "
+                    "(init_kv_cache sizes the pool from pa_pool_bytes and "
+                    "the cache dtype) before creating a ServingSession"
+                )
+            cls = PrefixCachingAllocator if self.prefix_caching else BlockAllocator
+            self.allocator = cls(tc.pa_num_blocks, tc.pa_block_size)
+            self.block_bytes = kv_block_bytes(
+                app.spec.num_layers, tc.pa_block_size, app.spec.attn.num_kv_heads,
+                app.spec.attn.head_dim, tc.kv_dtype,
+            )
+        # async 1-ahead decode: the decode step dispatched last step(), not
+        # yet fetched — (device tokens (B, 1), [(req, pos, slot, epoch), ...])
+        self._pending = None
+        self.async_decode = bool(tc.async_mode)
+        self._sampling_cache: Optional[np.ndarray] = None
+        self.tel.pool_gauges(0, self.kv_pool_bytes, self.kv_free_bytes)
+
+    @property
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slots) if r is None]
+
+    @property
+    def kv_pool_bytes(self) -> int:
+        """Total block-pool bytes in the cache dtype (0 off block mode)."""
+        if not self.block_mode:
+            return 0
+        return self.allocator.num_blocks * self.block_bytes
+
+    @property
+    def kv_free_bytes(self) -> int:
+        """Free pool capacity in bytes; prefix-caching pools count their
+        evictable blocks too (allocation evicts them on demand)."""
+        if not self.block_mode:
+            return 0
+        reclaimable = len(getattr(self.allocator, "evictable", ()))
+        return (len(self.allocator.free) + reclaimable) * self.block_bytes
+
+    # ---- admission -------------------------------------------------------
+
+    def add_request(
+        self,
+        req_id: str,
+        input_ids: np.ndarray,
+        max_new_tokens: int = 64,
+        eos_token_id: Optional[int] = None,
+        deadline_s: Optional[float] = None,
+    ) -> AdmissionResult:
+        """Admit one request into a free slot. Malformed requests get a
+        terminal REJECTED verdict instead of raising mid-batch;
+        ``deadline_s`` overrides the config's ``request_deadline_s``."""
+        req = self._new_request(req_id, input_ids, max_new_tokens, eos_token_id, deadline_s)
+        bounce = self._front_door(req)
+        if bounce is not None:
+            return bounce
+        return self._admit(req, self.free_slots[0])
+
+    def add_prefilled_request(self, *args, **kwargs) -> AdmissionResult:
+        raise NotImplementedError(
+            "admission of a request prefilled on another replica (the "
+            "disaggregated KV hand-off) is not ported to PyTorch yet (ROADMAP A8)"
+        )
+
+    def _new_request(self, req_id, input_ids, max_new_tokens, eos_token_id, deadline_s) -> Request:
+        self.tel.request_submitted(req_id)
+        return Request(
+            req_id=req_id,
+            input_ids=np.asarray(input_ids, np.int32).reshape(-1),
+            max_new_tokens=max_new_tokens,
+            eos_token_id=eos_token_id,
+            deadline_s=deadline_s if deadline_s is not None else self.deadline_s,
+            t_submit=self._clock(),
+        )
+
+    def _front_door(self, req: Request) -> Optional[AdmissionResult]:
+        """Typed validation, then re-admission aging (preempted requests
+        re-enter AHEAD of new arrivals), then capacity. Returns a falsy
+        verdict to bounce the request, or None when a slot is free."""
+        if self.admission_validation:
+            reason = self._validate_request(req)
+            if reason is not None:
+                return self._reject(req, reason)
+        self._readmit_preempted()
+        if self._readmit:
+            self.tel.request_dropped(req.req_id, "backlog")
+            return AdmissionResult(False, "backlog")
+        if not self.free_slots:
+            self.tel.request_dropped(req.req_id, "no_slot")
+            return AdmissionResult(False, "no_slot")
+        return None
+
+    def _validate_request(self, req: Request) -> Optional[str]:
+        if req.prompt_len == 0:
+            return "empty_prompt"
+        if req.max_new_tokens < 1:
+            return "invalid_max_new_tokens"
+        ids = req.input_ids
+        vocab = int(self.app.config.vocab_size)
+        if int(ids.min()) < 0 or int(ids.max()) >= vocab:
+            return "token_id_out_of_range"
+        if req.prompt_len > self._max_admissible_prompt():
+            return "prompt_too_long"
+        return None
+
+    def _max_admissible_prompt(self) -> int:
+        """Longest prompt admissible without raising mid-batch: one position
+        must remain for the first generated token, and a paged cache without
+        chunked prefill admits through a single context program."""
+        limit = self.app._pos_limit() - 1
+        if self.block_mode and not self.chunked:
+            limit = min(limit, self.app.context_encoding_model.buckets[-1])
+        return limit
+
+    def _reject(self, req: Request, reason: str) -> AdmissionResult:
+        req.finished = True
+        req.status = STATUS_REJECTED
+        req.fail_reason = reason
+        self.rejected[req.req_id] = req
+        while len(self.rejected) > REJECTED_HISTORY_MAX:
+            self.rejected.pop(next(iter(self.rejected)))
+        self.tel.request_rejected(req.req_id, reason)
+        return AdmissionResult(False, reason)
+
+    def _admit(self, req: Request, slot: int, fresh: bool = True) -> AdmissionResult:
+        """Bind ``req`` to ``slot`` and run its admission prefill.
+        ``fresh=False`` is re-admission: a capacity failure re-queues."""
+        req.slot = slot
+        req.status = STATUS_ACTIVE
+        req.preempted = False
+        req.prefill_pos = 0
+        req.pos = 0
+        if self.prefix_caching:
+            req.prefill_pos = self.allocator.match_prefix(slot, req.input_ids)
+            req.pos = req.prefill_pos
+        self.slots[slot] = req
+        self.requests[req.req_id] = req
+        self.tel.request_admitted(req.req_id, cached_prefix_tokens=req.prefill_pos)
+
+        if self.chunked:
+            return ADMITTED  # the prompt runs in chunks inside step()
+        if req.prefill_pos > 0:
+            # prefix hit: only the uncached suffix runs (prior-KV prefill)
+            ok = self._prefill_chunks([req], req.prompt_len - req.prefill_pos)
+        else:
+            ok = self._full_prefill(req)
+        if ok:
+            return ADMITTED
+        self._release_slot(req)
+        if fresh:
+            self.requests.pop(req.req_id, None)
+            self.tel.request_dropped(req.req_id, "kv_blocks")
+        return AdmissionResult(False, "kv_blocks")
+
+    # ---- containment: release/scrub, preempt/re-admit, deadlines, --------
+    # ---- watchdog, bounded dispatch retry ---------------------------------
+
+    def _release_slot(self, req: Request, scrub: bool = False):
+        """Free a request's KV line/blocks and slot; ``scrub=True`` zeroes
+        the released KV first (quarantine), so a poisoned row's NaN cannot
+        reach a later request through recycled blocks."""
+        if req.slot < 0:
+            return
+        if self.block_mode:
+            if scrub:
+                blocks = self.allocator.quarantine_seq(req.slot)
+                if blocks:
+                    self.app.kv_cache = fill_kv_rows(self.app.kv_cache, blocks, 0.0)
+            else:
+                self.allocator.free_seq(req.slot)
+        elif scrub:
+            # one model-parallel shard: slot s owns contiguous cache line s
+            self.app.kv_cache = fill_kv_rows(self.app.kv_cache, [req.slot], 0.0)
+        self.slots[req.slot] = None
+        req.slot = -1
+
+    def _alloc(self, slot: int, num_tokens: int):
+        """Allocator gateway: the fault injector forces pool exhaustion here
+        without shrinking the real pool."""
+        if self.faults is not None and self.faults.pool_exhausted(self):
+            raise RuntimeError("out of KV blocks (injected fault)")
+        return self.allocator.alloc_seq(slot, num_tokens)
+
+    def _session_sampling_params(self) -> np.ndarray:
+        sp = self._sampling_cache
+        if sp is None or sp.shape[0] != self.num_slots:
+            sp = prepare_sampling_params(self.num_slots)
+            self._sampling_cache = sp
+        return sp
+
+    def _preempt(self, req: Request):
+        """Non-terminal pool-exhaustion eviction: roll back to the committed
+        host state (in-flight device steps are discarded; greedy decode
+        regenerates them identically), free the slot, and queue for
+        re-admission ahead of new arrivals."""
+        if req.finished or req.preempted:
+            return
+        req.preempted = True
+        req.preemptions += 1
+        req.epoch += 1
+        req.status = STATUS_WAITING
+        self._release_slot(req)
+        self._readmit.append(req)
+        self.tel.request_preempted(req.req_id)
+
+    def _readmit_preempted(self) -> int:
+        """Re-admit evicted requests (oldest first) into free capacity, the
+        committed tokens folded into the prompt. Stops at the first request
+        that still cannot fit (FIFO order is the aging guarantee)."""
+        n = 0
+        while self._readmit and self.free_slots:
+            req = self._readmit[0]
+            new = req.generated[req.absorbed:]
+            if new:
+                req.input_ids = np.concatenate([req.input_ids, np.asarray(new, np.int32)])
+                req.absorbed += len(new)
+            never_fits = req.prompt_len > self._max_admissible_prompt() or (
+                self.block_mode
+                and -(-req.prompt_len // self.allocator.block_size) > self.allocator.num_blocks
+            )
+            if never_fits or len(req.generated) >= req.max_new_tokens:
+                self._readmit.popleft()
+                self._finish(req, "preempted" if len(req.generated) < req.max_new_tokens else None)
+                continue
+            self._readmit.popleft()
+            if not self._admit(req, self.free_slots[0], fresh=False):
+                req.preempted = True
+                req.status = STATUS_WAITING
+                if not self.active:
+                    # nothing live will ever free more capacity: terminal
+                    self._finish(req, "preempted")
+                    continue
+                self._readmit.appendleft(req)
+                break
+            n += 1
+        return n
+
+    def _expire_deadlines(self):
+        """Drop every live request past its wall-clock TTL (terminal
+        ``deadline_exceeded``), checked at step boundaries."""
+        now = self._clock()
+        live = [r for r in self.slots if r is not None] + list(self._readmit)
+        for req in live:
+            if req.finished or req.deadline_s is None:
+                continue
+            overrun = now - (req.t_submit + req.deadline_s)
+            if overrun <= 0:
+                continue
+            if req in self._readmit:
+                self._readmit.remove(req)
+            self.tel.deadline_exceeded(req.req_id, overrun)
+            self._finish(req, "deadline_exceeded")
+
+    def _progress_signature(self):
+        return (len(self.requests), self._committed_total, self._terminal_total, self._prefilled_total)
+
+    def _watchdog_tick(self, progressed: bool):
+        """After ``watchdog_no_progress_steps`` zero-progress steps with
+        live work, preempt the largest request; a second full window with
+        still no progress raises WatchdogError with a snapshot."""
+        if self.watchdog_steps <= 0:
+            return
+        if progressed or not (self.active or self._readmit):
+            self._no_progress = 0
+            self._watchdog_fired = False
+            return
+        self._no_progress += 1
+        if self._no_progress < self.watchdog_steps:
+            return
+        window = self._no_progress
+        self._no_progress = 0
+        victim = None
+        if not self._watchdog_fired:
+            victim = max(self.active, key=lambda r: max(r.pos, r.prefill_pos), default=None)
+        if victim is not None:
+            self._watchdog_fired = True
+            self.tel.watchdog_preempted(victim.req_id)
+            self._preempt(victim)
+            return
+        self.tel.watchdog_tripped(window)
+        snap = self.diagnostic_snapshot()
+        raise WatchdogError(
+            f"serving session made no forward progress for {window} consecutive "
+            f"steps (zero committed tokens, zero prefill advance, zero "
+            f"admissions) after a watchdog preemption already fired. "
+            f"Diagnostic snapshot: {json.dumps(snap, default=str)}",
+            snapshot=snap,
+        )
+
+    def diagnostic_snapshot(self) -> dict:
+        return {
+            "step_index": self._step_index,
+            "watchdog_window": self.watchdog_steps,
+            "active": [
+                {
+                    "req_id": r.req_id, "slot": r.slot, "status": r.status, "pos": r.pos,
+                    "prefill_pos": r.prefill_pos, "generated": len(r.generated),
+                    "preemptions": r.preemptions,
+                }
+                for r in self.active
+            ],
+            "waiting": [r.req_id for r in self._readmit],
+            "free_slots": self.free_slots,
+            "kv_pool_bytes": self.kv_pool_bytes,
+            "kv_free_bytes": self.kv_free_bytes,
+            "free_blocks": len(self.allocator.free) if self.block_mode else None,
+            "last_dispatch_error": self._last_dispatch_error,
+        }
+
+    def _guarded_dispatch(self, label: str, reqs: List[Request], fn):
+        """Run one device dispatch with bounded-backoff retry. Transient
+        errors retry up to ``dispatch_max_retries`` times; exhaustion
+        terminally FAILs only the in-flight ``reqs`` and returns None.
+        Anything else propagates."""
+        attempt = 0
+        while True:
+            try:
+                if self.faults is not None:
+                    self.faults.on_dispatch(self, label)
+                return fn()
+            except RETRYABLE_DISPATCH_ERRORS as e:
+                attempt += 1
+                if attempt > self.max_dispatch_retries:
+                    self._last_dispatch_error = repr(e)
+                    if self.faults is not None:
+                        self.faults.dispatch_gave_up(self)
+                    for r in reqs:
+                        if not r.finished:
+                            self._finish(r, "dispatch_error")
+                    return None
+                self.tel.dispatch_retry(label)
+                self._sleep(min(DISPATCH_BACKOFF_CAP_S, DISPATCH_BACKOFF_BASE_S * (2 ** (attempt - 1))))
+
+    def _quarantine(self, req: Request):
+        """FAILED(non_finite): only this row dies, its KV scrubbed on
+        release."""
+        if req.finished:
+            return
+        self.tel.row_quarantined(req.req_id)
+        self._finish(req, "non_finite", scrub=True)
+
+    def _note_prefill(self, req: Request, n: int):
+        self._prefilled_total += n
+        self.tel.prefill_dispatch(req.req_id, n)
+
+    def _commit_tokens(self, req: Request, n: int):
+        self._committed_total += n
+        self.tel.request_tokens(req.req_id, n)
+
+    # ---- prefill -----------------------------------------------------------
+
+    def _full_prefill(self, req: Request) -> bool:
+        """Whole-prompt context encoding. Other live rows are untouched:
+        padded rows carry seq_id -1 / slot -1 (the garbage line or block)."""
+        S = req.prompt_len
+        cte_max = self.app.context_encoding_model.buckets[-1]
+        if S > cte_max and self.block_mode:
+            raise ValueError(
+                f"prompt of {S} tokens exceeds the largest context program "
+                f"({cte_max}) on a paged cache: enable chunked prefill "
+                "(is_chunked_prefill) to admit long prompts"
+            )
+        if S > cte_max:
+            raise NotImplementedError(
+                "windowed admission of prompts longer than the largest context "
+                "bucket is not ported to PyTorch yet (ROADMAP A3b)"
+            )
+        ids = req.input_ids[None, :]
+        mask = np.ones((1, S), np.int32)
+        pos = np.arange(S, dtype=np.int32)[None, :]
+        seq_ids = np.array([req.slot], np.int32)
+        slot_mapping = None
+        if self.block_mode:
+            try:
+                self._alloc(req.slot, S)
+            except RuntimeError:
+                return False  # out of KV blocks
+            slot_mapping = self.allocator.slot_mapping(req.slot, np.arange(S))[None, :]
+        cte = self.app.context_encoding_model
+
+        def dispatch():
+            with self.tel.span("serving.prefill", req_id=req.req_id, tokens=S):
+                inputs, _ = cte.prepare(ids, mask, pos, seq_ids, slot_mapping=slot_mapping)
+                return cte(self.app.params, self.app.kv_cache, inputs)
+
+        out = self._guarded_dispatch("prefill", [req], dispatch)
+        if out is None:
+            return True  # terminal FAILED(dispatch_error); slot released
+        self.app.kv_cache = out.cache
+        self.dispatches["prefill"] += 1
+        self.tel.step("prefill")
+        self.tel.bucket_dispatch(cte.tag, cte.last_bucket)
+        self._note_prefill(req, S)
+        self.tel.pool_gauges(len(self.active), self.kv_pool_bytes, self.kv_free_bytes)
+        first = int(out.tokens[0, -1].item())
+        req.prefill_pos = S
+        self._finish_prefill(req, first)
+        return True
+
+    def _finish_prefill(self, req: Request, first_token: int):
+        if first_token < 0:
+            # the non-finite sentinel: quarantine instead of committing
+            req.pos = req.prompt_len
+            self._quarantine(req)
+            return
+        req.pos = req.prompt_len
+        req.generated.append(first_token)
+        self._committed_total += 1
+        self.tel.request_first_token(req.req_id)
+        if self.prefix_caching:
+            self.allocator.commit_seq(req.slot, req.input_ids)
+        if (req.eos_token_id is not None and first_token == req.eos_token_id) or (
+            len(req.generated) >= req.max_new_tokens
+        ):
+            self._finish(req)
+
+    def _prefill_chunks(self, reqs: List[Request], chunk_size: int, preempt: bool = False) -> bool:
+        """One batched prior-KV prefill pass: each request advances by up to
+        ``chunk_size`` prompt tokens. The pass runs at the session's full
+        batch, row == slot; inactive rows carry slot -1 and a zero table. A
+        request that cannot get KV blocks is preempted when ``preempt``
+        (step()-driven chunked serving); otherwise the pass returns False
+        and the caller drops the request (admission-time prefill)."""
+        rows = []
+        for req in reqs:
+            n = min(chunk_size, req.prompt_len - req.prefill_pos)
+            if n <= 0:
+                continue
+            try:
+                self._alloc(req.slot, req.prefill_pos + n)
+            except RuntimeError:
+                if not preempt:
+                    return False
+                self._preempt(req)
+                continue
+            rows.append((req, n))
+        if not rows:
+            return True
+
+        B = self.num_slots
+        qb = pow2_bucket(max(n for _, n in rows))
+        bs = self.allocator.block_size
+        max_pos = max(r.prefill_pos + n for r, n in rows)
+        width = get_target_bucket(self.app.token_generation_model.buckets, max_pos)
+        mb = width // bs
+
+        ids = np.zeros((B, qb), np.int32)
+        positions = np.zeros((B, qb), np.int32)
+        mask = np.zeros((B, width), np.int32)
+        slot_mapping = np.full((B, qb), -1, np.int32)
+        block_table = np.zeros((B, mb), np.int32)
+        seq_ids = np.full((B,), -1, np.int32)
+        for req, n in rows:
+            s = req.slot
+            start = req.prefill_pos
+            ids[s, :n] = req.input_ids[start : start + n]
+            # padded tail positions continue, so their garbage writes and
+            # reads stay in the masked region
+            positions[s] = start + np.arange(qb, dtype=np.int32)
+            mask[s, : start + n] = 1
+            slot_mapping[s, :n] = self.allocator.slot_mapping(s, np.arange(start, start + n))
+            block_table[s] = self.allocator.block_table(s, mb)
+            seq_ids[s] = s
+
+        tkg = self.app.token_generation_model
+
+        def dispatch():
+            with self.tel.span("serving.prefill_chunk", rows=len(rows)):
+                inputs, _ = tkg.prepare(
+                    ids, mask, positions, seq_ids, self._session_sampling_params(),
+                    slot_mapping=slot_mapping, block_table=block_table,
+                )
+                return tkg(self.app.params, self.app.kv_cache, inputs)
+
+        out = self._guarded_dispatch("prefill_chunk", [r for r, _ in rows], dispatch)
+        if out is None:
+            return True  # in-flight rows terminally FAILED(dispatch_error)
+        self.app.kv_cache = out.cache
+        self.dispatches["prefill_chunk"] += 1
+        self.tel.step("prefill")
+        self.tel.bucket_dispatch(tkg.tag, tkg.last_bucket)
+        for req, n in rows:
+            self._note_prefill(req, n)
+        self.tel.pool_gauges(len(self.active), self.kv_pool_bytes, self.kv_free_bytes)
+        tokens = out.tokens.cpu().numpy()
+
+        for req, n in rows:
+            req.prefill_pos += n
+            if req.prefill_pos >= req.prompt_len:
+                # the last prompt token's output IS the first generated token
+                self._finish_prefill(req, int(tokens[req.slot, n - 1]))
+        return True
+
+    def _finish(self, req: Request, reason: Optional[str] = None, scrub: bool = False):
+        # may run twice for one request (a 1-ahead row consumed a step late
+        # can hit a termination condition again): count the first only
+        already_finished = req.finished
+        req.finished = True
+        if not already_finished:
+            self._terminal_total += 1
+            if reason is None:
+                reason = (
+                    "eos"
+                    if (req.eos_token_id is not None and req.generated and req.generated[-1] == req.eos_token_id)
+                    else "length"
+                )
+            if reason in FAILURE_REASONS:
+                req.status = STATUS_FAILED
+                req.fail_reason = reason
+            else:
+                req.status = STATUS_FINISHED
+            self.tel.request_finished(req.req_id, reason)
+        self._release_slot(req, scrub=scrub)
+
+    @property
+    def active(self) -> List[Request]:
+        return [r for r in self.slots if r is not None]
+
+    @property
+    def decoding(self) -> List[Request]:
+        return [r for r in self.slots if r is not None and not r.prefilling]
+
+    @property
+    def prefilling(self) -> List[Request]:
+        return [r for r in self.slots if r is not None and r.prefilling]
+
+    def _is_done(self, req: Request, tok: int) -> bool:
+        """Request-termination predicate shared by every consume path."""
+        return (
+            (req.eos_token_id is not None and tok == req.eos_token_id)
+            or len(req.generated) >= req.max_new_tokens
+            or req.pos + 1 >= self.app.config.torch_config.seq_len
+        )
+
+    # ---- step --------------------------------------------------------------
+
+    def step(self) -> Dict[str, int]:
+        """Advance the session: one chunked-prefill pass (if pending) and one
+        decode step for every decoding request. Returns {req_id: token} for
+        tokens produced this step. Each step also expires deadlines,
+        re-admits preempted requests, fires armed faults and feeds the
+        watchdog.
+
+        With ``async_mode`` (the default) decode results are consumed one
+        step() late: a request's first decode token appears on the step()
+        after the one that dispatched it, and each terminating request runs
+        one extra device step whose writes land in masked slots and whose
+        token is discarded."""
+        self._step_index += 1
+        # progress baseline BEFORE re-admission: a re-admission commits real
+        # tokens, which count as progress
+        before = self._progress_signature()
+        if self.faults is not None:
+            self.faults.on_step_begin(self)
+        self._expire_deadlines()
+        self._readmit_preempted()
+        if self.faults is not None and self.faults.stalled(self):
+            results: Dict[str, int] = {}
+        else:
+            results = self._step_inner()
+        progressed = bool(results) or self._progress_signature() != before
+        self._watchdog_tick(progressed)
+        return results
+
+    def _step_inner(self) -> Dict[str, int]:
+        results: Dict[str, int] = {}
+        prefill_finished: set = set()
+        if self.chunked and self.prefilling:
+            batch = self.prefilling[: self.max_prefill_seqs]
+            before = {r.req_id: len(r.generated) for r in batch}
+            self._prefill_chunks(batch, self.chunk_size, preempt=True)
+            for r in batch:
+                if len(r.generated) > before.get(r.req_id, 0):
+                    results[r.req_id] = r.generated[-1]
+                    prefill_finished.add(r.req_id)
+
+        # requests that finished prefill THIS step start decoding next step,
+        # so their first token isn't overwritten in results
+        active = [r for r in self.decoding if r.req_id not in prefill_finished]
+
+        if not self.async_decode:
+            if active:
+                out, snap = self._dispatch_decode([(r, r.pos) for r in active])
+                if out is not None:
+                    self._consume((out.tokens[:, -1:], snap), results)
+            return results
+
+        # async 1-ahead: dispatch step k+1 CHAINED on step k's tokens still
+        # on the device BEFORE fetching step k
+        pend = self._pending
+        self._pending = None
+        # chain only rows whose pending entry is still current (a row
+        # preempted or quarantined since carries a stale epoch)
+        pend_pos = (
+            {
+                id(req): p
+                for req, p, _s, e in pend[1]
+                if e == req.epoch and not req.finished and not req.preempted
+            }
+            if pend
+            else {}
+        )
+        rows: List = []
+        chained_slots: List[int] = []
+        for r in active:
+            if id(r) in pend_pos:
+                rows.append((r, pend_pos[id(r)] + 1))
+                chained_slots.append(r.slot)
+            else:
+                rows.append((r, r.pos))
+        if rows:
+            last_override = (pend[0], chained_slots) if chained_slots else None
+            out2, snap2 = self._dispatch_decode(rows, last_override)
+            if out2 is not None:
+                self._pending = (out2.tokens[:, -1:], snap2)
+        if pend is not None:
+            self._consume(pend, results)
+        return results
+
+    def _dispatch_decode(self, rows, last_override=None):
+        """Dispatch ONE batched decode pass for ``rows`` = [(req, pos), ...]
+        without waiting for its result. ``last_override``: (device tokens
+        (B, 1) of the pending step, chained slots) — those rows' input
+        tokens come from the device, without a host round trip. Returns
+        (StepOutput, snapshot rows); StepOutput.tokens is not fetched."""
+        B = self.num_slots
+        last = np.zeros((B, 1), np.int32)
+        pos = np.zeros((B, 1), np.int32)
+        seq_ids = np.full((B,), -1, np.int32)
+        for r, p in rows:
+            last[r.slot, 0] = r.last_token
+            pos[r.slot, 0] = p
+            seq_ids[r.slot] = r.slot
+        block_table = None
+        if self.block_mode:
+            bs = self.allocator.block_size
+            width = get_target_bucket(self.app.token_generation_model.buckets, int(pos.max()) + 1)
+            mb = width // bs
+            block_table = np.zeros((B, mb), np.int32)
+            for r, p in list(rows):
+                try:
+                    self._alloc(r.slot, p + 1)
+                except RuntimeError:
+                    # pool exhausted mid-decode: preempt this request so the
+                    # others keep running; it resumes byte-identically
+                    self._preempt(r)
+                    rows.remove((r, p))
+                    continue
+                block_table[r.slot] = self.allocator.block_table(r.slot, mb)
+            if not rows:
+                return None, []
+        else:
+            width = int(pos.max()) + 1
+        mask = (np.arange(width)[None, :] <= pos).astype(np.int32)
+        last_arr = last
+        if last_override is not None:
+            pend_tokens, chained = last_override
+            ch = np.zeros((B, 1), bool)
+            ch[np.asarray(chained, np.int64)] = True
+            dev = pend_tokens.device
+            last_arr = torch.where(
+                torch.from_numpy(ch).to(dev),
+                pend_tokens.to(torch.int64),
+                torch.from_numpy(last).to(dev, torch.int64),
+            )
+        tkg = self.app.token_generation_model
+
+        def dispatch():
+            with self.tel.span("serving.decode", rows=len(rows)):
+                inputs, _ = tkg.prepare(
+                    last_arr, mask, pos, seq_ids, self._session_sampling_params(),
+                    block_table=block_table,
+                )
+                return tkg(self.app.params, self.app.kv_cache, inputs)
+
+        out = self._guarded_dispatch("decode", [r for r, _ in rows], dispatch)
+        if out is None:
+            return None, []  # in-flight rows terminally FAILED(dispatch_error)
+        self.app.kv_cache = out.cache
+        self.dispatches["decode_steps"] += 1
+        self.tel.step("decode")
+        self.tel.bucket_dispatch(tkg.tag, tkg.last_bucket)
+        self.tel.pool_gauges(len(rows), self.kv_pool_bytes, self.kv_free_bytes)
+        return out, [(r, p, r.slot, r.epoch) for r, p in rows]
+
+    def _consume(self, pend, results: Dict[str, int]):
+        """Fetch a dispatched decode step and apply termination bookkeeping.
+        Rows finished or evicted since the dispatch are discarded; rows
+        carrying the non-finite sentinel are quarantined."""
+        tokens = pend[0].cpu().numpy()[:, -1]  # the only device sync per step
+        if self.faults is not None:
+            tokens = self.faults.corrupt_tokens(self, tokens)
+        for req, p, slot, epoch in pend[1]:
+            if req.finished or req.preempted or req.epoch != epoch:
+                continue
+            tok = int(tokens[slot])
+            if tok < 0:
+                self._quarantine(req)
+                continue
+            req.generated.append(tok)
+            self._commit_tokens(req, 1)
+            req.pos = p + 1
+            results[req.req_id] = tok
+            if self._is_done(req, tok):
+                self._finish(req)
+
+    # ---- drain ---------------------------------------------------------------
+
+    def run_to_completion(self, decode_chunk_size: int = 16) -> Dict[str, List[int]]:
+        """Drain the session. When every live request is decoding, decode
+        runs in MULTI-STEP device chunks (one host sync per
+        ``decode_chunk_size`` tokens, or one for the whole drain when no
+        request has an EOS), on the contiguous and the paged cache. Requests
+        that hit EOS mid-chunk overshoot by up to a chunk of discarded
+        tokens."""
+        while self.active or self._readmit:
+            self._expire_deadlines()
+            if not self.active:
+                self.step()  # only evicted requests remain: step() re-admits
+                continue
+            if self.prefilling or decode_chunk_size <= 1 or not self.decoding:
+                self.step()
+                continue
+            if all(r.eos_token_id is None for r in self.decoding):
+                self._decode_drain()
+            else:
+                self._decode_chunk_pass(decode_chunk_size)
+        return {rid: r.generated for rid, r in self.requests.items()}
+
+    def _chunk_block_table(self, rows, chunk: int, bucket: int):
+        """Paged-cache chunk prep: allocate blocks for every row's next
+        NEEDED positions (lockstep surplus steps of rows that finish early
+        write to table-zero entries, the garbage block) and build the
+        (B, bucket // bs) table. Returns None when the pool is exhausted
+        (the per-step path preempts). ``rows`` = [(slot, pos, remaining)]."""
+        mb = bucket // self.allocator.block_size  # TKG buckets are block multiples
+        table = np.zeros((self.num_slots, mb), np.int32)
+        for slot, pos, remaining in rows:
+            try:
+                self.allocator.alloc_seq(slot, pos + min(chunk, remaining))
+            except RuntimeError:
+                return None
+            table[slot] = self.allocator.block_table(slot, mb)
+        return table
+
+    def _decode_drain(self):
+        """Drain every decoding request (no EOS) in chained multi-step
+        chunks with ONE host sync at the end: rows that finish early keep
+        computing masked, discarded tokens."""
+        if self._pending is not None:
+            self._consume(self._pending, {})
+            self._pending = None
+        active = self.decoding
+        if not active:
+            return
+        B = self.num_slots
+        last = np.zeros((B, 1), np.int32)
+        pos0 = np.zeros((B, 1), np.int32)
+        seq_ids = np.full((B,), -1, np.int32)
+        pos_limit = self.app._pos_limit()
+        need = {}
+        for r in list(active):
+            n = min(r.max_new_tokens - len(r.generated), pos_limit - 1 - r.pos)
+            if n < 1:
+                self._finish(r)  # at the sequence/length bound already
+                active.remove(r)
+                continue
+            last[r.slot, 0] = r.last_token
+            pos0[r.slot, 0] = r.pos
+            seq_ids[r.slot] = r.slot
+            need[r.slot] = n
+        if not active:
+            return
+        total = max(need.values())
+        last_dev = torch.from_numpy(last).to(self.app.device)
+        pos = pos0.copy()
+        chunks = []
+        done = 0
+        runner = self.app.token_generation_model
+        while done < total:
+            headroom = pos_limit - 1 - int(pos.max())
+            chunk = pow2_bucket(min(total - done, 32))
+            if chunk > headroom:
+                chunk = min(total - done, headroom)
+            if chunk < 1:
+                break
+            bucket = self.app._decode_bucket(int(pos.max()) + chunk)
+            block_table = None
+            if self.block_mode:
+                block_table = self._chunk_block_table(
+                    [(r.slot, int(pos[r.slot, 0]), need[r.slot] - done) for r in active],
+                    chunk, bucket,
+                )
+                if block_table is None:
+                    # pool exhausted mid-drain: consume what ran; with no
+                    # progress at all, one per-step pass preempts a request
+                    if not chunks:
+                        self.step()
+                        return
+                    break
+
+            def dispatch(last_dev=last_dev, pos=pos, chunk=chunk, bucket=bucket, block_table=block_table):
+                with self.tel.span("serving.decode_chunk", steps=chunk):
+                    return runner.decode_chunk(
+                        self.app.params, self.app.kv_cache, last_dev, pos, seq_ids,
+                        self._session_sampling_params(), num_steps=chunk, bucket=bucket,
+                        block_table=block_table,
+                    )
+
+            res = self._guarded_dispatch("decode_chunk", active, dispatch)
+            if res is None:
+                if not chunks:
+                    return
+                break
+            tokens_c, _, cache = res
+            self.app.kv_cache = cache
+            self.dispatches["decode_steps"] += chunk
+            self.tel.step("decode")
+            self.tel.bucket_dispatch(runner.tag, bucket)
+            take = min(chunk, total - done)
+            chunks.append(tokens_c[:, :take])
+            last_dev = tokens_c[:, take - 1 : take]
+            pos = pos + take
+            done += take
+        toks = torch.cat(chunks, dim=1).cpu().numpy()  # ONE sync
+        if self.faults is not None:
+            toks = self.faults.corrupt_tokens(self, toks)
+        done = toks.shape[1]
+        # rows advance in lockstep, so the highest-position row's headroom
+        # caps this pass; rows needing more loop back through
+        # run_to_completion
+        for r in active:
+            if r.finished or r.preempted:
+                continue
+            n = min(need[r.slot], done)
+            row_toks = toks[r.slot, :n]
+            neg = np.flatnonzero(row_toks < 0)
+            if neg.size:
+                # non-finite sentinel mid-chunk: commit the finite prefix and
+                # quarantine the row
+                m = int(neg[0])
+                r.generated.extend(int(t) for t in row_toks[:m])
+                self._commit_tokens(r, m)
+                r.pos += m
+                self._quarantine(r)
+                continue
+            r.generated.extend(int(t) for t in row_toks)
+            self._commit_tokens(r, n)
+            r.pos += n
+            if len(r.generated) >= r.max_new_tokens:
+                self._finish(r)
+        self.tel.pool_gauges(len(self.active), self.kv_pool_bytes, self.kv_free_bytes)
+
+    def _decode_chunk_pass(self, chunk: int):
+        """One multi-step decode dispatch for every decoding request (EOS
+        observed per chunk). The pending 1-ahead step is consumed first."""
+        if self._pending is not None:
+            self._consume(self._pending, {})
+            self._pending = None
+        active = self.decoding
+        if not active:
+            return
+        pos_limit = self.app._pos_limit()
+        max_pos = max(r.pos for r in active)
+        take = min(
+            chunk,
+            min(r.max_new_tokens - len(r.generated) for r in active),
+            pos_limit - 1 - max_pos,
+        )
+        if take < 1:
+            self.step()
+            return
+        # round the step count up to a power of two and discard the surplus
+        # on the host (generate()'s chunk-reuse rule)
+        chunk = pow2_bucket(take)
+        if chunk > pos_limit - 1 - max_pos:
+            chunk = take
+        B = self.num_slots
+        last = np.zeros((B, 1), np.int32)
+        pos = np.zeros((B, 1), np.int32)
+        seq_ids = np.full((B,), -1, np.int32)
+        for r in active:
+            last[r.slot, 0] = r.last_token
+            pos[r.slot, 0] = r.pos
+            seq_ids[r.slot] = r.slot
+        bucket = self.app._decode_bucket(int(pos.max()) + chunk)
+        block_table = None
+        if self.block_mode:
+            block_table = self._chunk_block_table(
+                [(r.slot, r.pos, r.max_new_tokens - len(r.generated)) for r in active],
+                chunk, bucket,
+            )
+            if block_table is None:
+                self.step()  # pool exhausted: the per-step path preempts
+                return
+        runner = self.app.token_generation_model
+
+        def dispatch():
+            with self.tel.span("serving.decode_chunk", steps=chunk):
+                return runner.decode_chunk(
+                    self.app.params, self.app.kv_cache, last, pos, seq_ids,
+                    self._session_sampling_params(), num_steps=chunk, bucket=bucket,
+                    block_table=block_table,
+                )
+
+        res = self._guarded_dispatch("decode_chunk", active, dispatch)
+        if res is None:
+            return
+        tokens_c, _, cache = res
+        self.app.kv_cache = cache
+        self.dispatches["decode_steps"] += chunk
+        self.tel.step("decode")
+        self.tel.bucket_dispatch(runner.tag, bucket)
+        toks = tokens_c.cpu().numpy()  # ONE sync per chunk
+        if self.faults is not None:
+            toks = self.faults.corrupt_tokens(self, toks)
+        for r in active:
+            n_obs = 0
+            finished = False
+            quarantined = False
+            for j in range(take):
+                tok = int(toks[r.slot, j])
+                if tok < 0:
+                    quarantined = True
+                    break
+                r.generated.append(tok)
+                n_obs += 1
+                r.pos += 1
+                if self._is_done(r, tok):
+                    finished = True
+                    break
+            self._commit_tokens(r, n_obs)
+            if quarantined:
+                self._quarantine(r)
+            elif finished:
+                self._finish(r)
+        self.tel.pool_gauges(len(self.active), self.kv_pool_bytes, self.kv_free_bytes)
+
+
+class SpeculativeServingSession(ServingSession):
+    """Draft-assisted continuous batching (reference
+    ``SpeculativeServingSession``): not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "SpeculativeServingSession (draft-assisted serving) is not ported to "
+            "PyTorch yet (ROADMAP A7 (speculation))"
+        )

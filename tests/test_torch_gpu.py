@@ -28,9 +28,12 @@ def test_kernels_match_plain_on_the_card(cuda_card):
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
 
     _cuda.reset_launch_counts()
     chip_smoke.phase_flash_parity(torch, fa)
     chip_smoke.phase_decode_parity(torch, da)
+    chip_smoke.phase_paged_decode_parity(torch, da)
+    chip_smoke.phase_paged_flash_parity(torch, pf)
     counts = _cuda.launch_counts()
-    assert counts["flash_attention"] > 0 and counts["decode_attention"] > 0, counts
+    assert all(counts[name] > 0 for name in _cuda.KERNELS), counts

@@ -91,7 +91,7 @@ def test_default_device_is_cuda_and_cuda_without_a_card_raises(monkeypatch):
         (dict(weight_dtype="int4"), "A6"),
         (dict(kv_cache_dtype="int8"), "A6"),
         (dict(kv_cache_dtype="fp8"), "A6"),
-        (dict(is_block_kv_layout=True), "A4"),
+        (dict(is_block_kv_layout=True, kv_cache_dtype="int8"), "A6"),
         (dict(serving_ragged=True), "A5"),
         (dict(speculation_length=4), "A7"),
         (dict(lora_config={"max_loras": 1}), "A9"),
@@ -153,3 +153,79 @@ def test_kernel_gates_follow_the_tri_states_only():
     assert kernel_mode.launches_kernel(torch.zeros(1), torch.zeros(2)) is False
     with pytest.raises(ValueError, match="all be on CUDA or all on the CPU"):
         kernel_mode.launches_kernel(torch.zeros(1), torch.zeros(1, device="meta"))
+
+
+def _serving_app(**tc):
+    from neuronx_distributed_inference_tpu_torch.models.llama import LlamaInferenceConfig
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    hf = dict(model_type="llama", hidden_size=128, intermediate_size=128, num_attention_heads=2,
+              num_key_value_heads=1, num_hidden_layers=1, vocab_size=64, rms_norm_eps=1e-5)
+    cfg = LlamaInferenceConfig(
+        Config(device="cpu", dtype="float32", is_continuous_batching=True, batch_size=2,
+               ctx_batch_size=1, seq_len=256, **tc),
+        load_config=lambda c: [setattr(c, k, v) for k, v in hf.items()],
+    )
+    return ModelForCausalLM(None, cfg).load(random_weights=True)
+
+
+def test_serving_settings_outside_the_slice_raise():
+    """The serving surface outside this slice names its ROADMAP item: the
+    ragged mixed step (A5), the speculative session (A7), the
+    disaggregated hand-off (A8) and windowed admission (A3b)."""
+    from neuronx_distributed_inference_tpu_torch.runtime.serving import (
+        ServingSession,
+        SpeculativeServingSession,
+    )
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+        Config(device="cpu", is_continuous_batching=True, is_block_kv_layout=True, serving_ragged=True)
+    app = _serving_app(context_encoding_buckets=[128], max_context_length=128)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        SpeculativeServingSession(app, app)
+    sess = ServingSession(app)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        sess.add_prefilled_request("h", [1, 2, 3], {}, first_token=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
+        sess.add_request("long", list(range(1, 60)) * 3, max_new_tokens=2)
+
+
+def test_serving_config_validation_matches_reference():
+    """The reference's serving checks and its default pool size."""
+    from neuronx_distributed_inference_tpu.config import TpuConfig
+
+    bad = [
+        dict(pa_pool_bytes=1 << 20),
+        dict(is_block_kv_layout=True, pa_pool_bytes=1 << 20, pa_num_blocks=4),
+        dict(request_deadline_s=0.0),
+        dict(dispatch_max_retries=-1),
+        dict(watchdog_no_progress_steps=-1),
+        dict(is_chunked_prefill=True),
+        dict(is_chunked_prefill=True, is_block_kv_layout=True),
+        dict(is_prefix_caching=True),
+    ]
+    for kw in bad:
+        with pytest.raises(ValueError):
+            TpuConfig(**kw)
+        with pytest.raises(ValueError):
+            Config(device="cpu", **kw)
+    kw = dict(batch_size=3, seq_len=100, is_block_kv_layout=True, pa_block_size=32,
+              is_continuous_batching=True, is_chunked_prefill=True)
+    ref, port = TpuConfig(**kw), Config(device="cpu", **kw)
+    assert port.pa_num_blocks == ref.pa_num_blocks == 10
+    assert port.chunked_prefill_config.kernel_q_tile_size == ref.chunked_prefill_config.kernel_q_tile_size
+    assert port.chunked_prefill_config.max_num_seqs == ref.chunked_prefill_config.max_num_seqs
+    for name in ("admission_validation", "request_deadline_s", "dispatch_max_retries",
+                 "watchdog_no_progress_steps", "kv_cache_batch_size", "pa_block_size"):
+        assert getattr(port, name) == getattr(ref, name), name
+
+
+def test_pool_bytes_size_the_paged_pool():
+    from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import kv_block_bytes
+
+    per_block = kv_block_bytes(1, 16, 1, 64, torch.float32)
+    app = _serving_app(is_block_kv_layout=True, pa_pool_bytes=10 * per_block + 5)
+    assert app.config.torch_config.pa_num_blocks == 10
+    assert app.kv_cache.num_blocks == 10 and tuple(app.kv_cache.k.shape) == (1, 11, 1, 16, 64)
+    with pytest.raises(NotImplementedError, match="ServingSession"):
+        app.generate(np.ones((1, 4), np.int64), max_new_tokens=2)

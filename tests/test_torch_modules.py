@@ -122,7 +122,7 @@ def test_kvcache_update_and_read():
     L, B, S_max, H, D = 2, 3, 16, 2, 4
     rng = np.random.RandomState(2)
     jc = jkv.init_cache(L, B, S_max, H, D, dtype=jnp.float32)
-    tc = tkv.init_cache(L, B, S_max, H, D, dtype=torch.float32)
+    tc = tkv.init_cache(L, B, S_max, H, D, dtype=torch.float32, device="cpu")
     assert tuple(tc.k.shape) == jc.k.shape == (L, B + 1, S_max, H, D)
     assert tkv.kv_batch_size(tc) == jkv.kv_batch_size(jc) == B
     seq_ids = np.array([2, -1, 0], np.int32)

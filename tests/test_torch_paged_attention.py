@@ -1,0 +1,157 @@
+"""The plain versions of the port's paged attention kernels — B4
+(``paged_tkg_decode_attention``) and B5 (``paged_flash_attention``) — held
+against the JAX package's Pallas kernels in interpret mode, on the same
+inputs made by numpy from a seed, in fp32 within 2e-5 (summation order
+differs between the two).
+
+Every case has GQA and zero-table tails, and block 0 (the garbage block)
+filled with NaN: the outputs must be finite and agree. B5's cases include
+a row with ``kv_limit`` 0 (an inactive slot of a chunk pass), which both
+write as zeros. The wrappers, given CPU tensors, take the plain versions
+and launch nothing."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from neuronx_distributed_inference_tpu.ops.decode_attention import (
+    paged_tkg_decode_attention as jax_paged_decode,
+)
+from neuronx_distributed_inference_tpu.ops.paged_flash_attention import (
+    paged_flash_attention as jax_paged_flash,
+)
+from neuronx_distributed_inference_tpu_torch.modules import masks as tmasks
+from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec
+from neuronx_distributed_inference_tpu_torch.ops import _cuda, kernel_mode
+from neuronx_distributed_inference_tpu_torch.ops import decode_attention as tda
+from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as tpf
+
+ATOL = 2e-5
+HQ, HKV, D = 4, 2, 64
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _pool(rng, L, NB, bs):
+    """Head-major pool (L, NB+1, Hkv, bs, D) with NaN in garbage block 0."""
+    k = (rng.randn(L, NB + 1, HKV, bs, D) * 0.5).astype(np.float32)
+    v = (rng.randn(L, NB + 1, HKV, bs, D) * 0.5).astype(np.float32)
+    k[:, 0] = np.nan
+    v[:, 0] = np.nan
+    return k, v
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("sink", [False, True])
+def test_paged_decode_plain_matches_jax_kernel(K, bs, sink):
+    rng = np.random.RandomState(K * 10 + bs + int(sink))
+    L, NB, MB, B = 2, 10, 4, 3
+    k, v = _pool(rng, L, NB, bs)
+    q = rng.randn(B, K, HQ, D).astype(np.float32)
+    # rows of different lengths; unused table tails point at block 0
+    lens = np.array([MB * bs, bs + 3, 2 * bs])
+    bt = np.zeros((B, MB), np.int32)
+    bt[0] = [4, 9, 2, 7]
+    bt[1, :2] = [10, 1]
+    bt[2, :2] = [3, 5]
+    pos = lens[:, None] - K + np.arange(K)[None, :]  # the K newest positions
+    attn = (np.arange(MB * bs)[None, :] < lens[:, None]).astype(np.int32)
+    mask = np.asarray(tmasks.spec_token_gen_mask(_t(attn), _t(pos)))
+    sk = rng.randn(HQ).astype(np.float32) if sink else None
+    kw = dict(scale=D ** -0.5, n_kv=HKV)
+    ref = jax_paged_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(1), jnp.asarray(bt),
+        jnp.asarray(mask), None if sk is None else jnp.asarray(sk), interpret=True, **kw,
+    )
+    _cuda.reset_launch_counts()
+    out = tda.paged_tkg_decode_attention(
+        _t(q), _t(k), _t(v), 1, _t(bt), _t(mask), None if sk is None else _t(sk), **kw
+    )
+    assert _cuda.launch_counts()["paged_decode_attention"] == 0
+    assert np.isfinite(out.numpy()).all()
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("Sq", [16, 24])
+def test_paged_flash_plain_matches_jax_kernel(bs, Sq):
+    """Prefix + causal among the new tokens, a kv_limit that is not a
+    multiple of the block size, zero tails, NaN block 0, a kv_limit-0 row."""
+    rng = np.random.RandomState(bs + Sq)
+    NB, MB, B = 14, 6, 3
+    k, v = _pool(rng, 1, NB, bs)
+    k, v = k[0], v[0]  # one layer
+    q = rng.randn(B, Sq, HQ, D).astype(np.float32) * 0.5
+    starts = np.array([bs + 5, 3, 0])
+    positions = starts[:, None] + np.arange(Sq)[None, :]
+    kv_limit = np.array([starts[0] + Sq, starts[1] + Sq - 2, 0])  # row 2 inactive
+    bt = np.zeros((B, MB), np.int32)
+    n0 = -(-int(kv_limit[0]) // bs)
+    n1 = -(-int(kv_limit[1]) // bs)
+    bt[0, :n0] = rng.permutation(np.arange(1, NB + 1))[:n0]
+    bt[1, :n1] = rng.permutation(np.arange(1, NB + 1))[:n1]
+    kw = dict(scale=D ** -0.5, n_rep=HQ // HKV)
+    ref = jax_paged_flash(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bt),
+        jnp.asarray(positions), jnp.asarray(kv_limit), tq=8, interpret=True, **kw,
+    )
+    _cuda.reset_launch_counts()
+    out = tpf.paged_flash_attention(_t(q), _t(k), _t(v), _t(bt), _t(positions), _t(kv_limit), **kw)
+    assert _cuda.launch_counts()["paged_flash_attention"] == 0
+    out = out.numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_array_equal(out[2], 0.0)  # no valid key: zeros
+    np.testing.assert_allclose(out, np.asarray(ref), atol=ATOL, rtol=0)
+
+
+def test_paged_flash_plain_equals_paged_decode_plain_on_valid_rows():
+    """The two plain versions compute one function where both apply: B5's
+    mask (kv_pos <= q_pos, < kv_limit) is B4's spec_token_gen_mask over
+    the cache occupancy."""
+    rng = np.random.RandomState(7)
+    bs, NB, MB, B, Sq = 16, 8, 3, 2, 4
+    k, v = _pool(rng, 1, NB, bs)
+    q = rng.randn(B, Sq, HQ, D).astype(np.float32)
+    bt = np.array([[2, 5, 0], [7, 1, 3]], np.int32)
+    limit = np.array([20, 40])
+    pos = limit[:, None] - Sq + np.arange(Sq)[None, :]
+    attn = (np.arange(MB * bs)[None, :] < limit[:, None]).astype(np.int32)
+    mask = tmasks.spec_token_gen_mask(_t(attn), _t(pos))
+    a = tpf.paged_flash_attention_plain(
+        _t(q), _t(k[0]), _t(v[0]), _t(bt), _t(pos), _t(limit), scale=0.125, n_rep=2
+    )
+    b = tda.paged_tkg_decode_attention_plain(_t(q), _t(k), _t(v), 0, _t(bt), mask, scale=0.125, n_kv=HKV)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL, rtol=0)
+
+
+def test_routing_rule_follows_the_reference():
+    """q_len < 8 goes to B4, q_len >= 8 to B5 (reference kernel_mode.py:
+    162-172, without its tile gates); attn_kernel_enabled=False turns B5
+    off, and the tri-states decide nothing else."""
+    for flag in (None, True):
+        spec = AttnSpec(num_heads=HQ, num_kv_heads=HKV, head_dim=D, use_flash_kernel=flag)
+        assert [kernel_mode.use_paged_flash(spec, n) for n in (1, 4, 7, 8, 128)] == [
+            False, False, False, True, True,
+        ]
+    off = AttnSpec(num_heads=HQ, num_kv_heads=HKV, head_dim=D, use_flash_kernel=False)
+    assert not kernel_mode.use_paged_flash(off, 128)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    rng = np.random.RandomState(3)
+    k, v = _pool(rng, 1, 4, 16)
+    q = _t(rng.randn(1, 1, HQ, D).astype(np.float32))
+    bt = torch.zeros((1, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="MB \\* block size"):
+        tda.paged_tkg_decode_attention(
+            q, _t(k), _t(v), 0, bt, torch.ones((1, 1, 1, 48), dtype=torch.bool), scale=0.1, n_kv=HKV
+        )
+    with pytest.raises(ValueError, match="n_rep"):
+        tpf.paged_flash_attention(
+            _t(rng.randn(1, 8, HQ, D).astype(np.float32)), _t(k[0]), _t(v[0]), bt,
+            torch.zeros((1, 8), dtype=torch.int32), torch.zeros(1, dtype=torch.int32), scale=0.1, n_rep=3,
+        )
