@@ -9,8 +9,9 @@ Phases, in order; any failure exits non-zero:
   3. each kernel against its plain PyTorch version on the card, over shapes,
      dtypes, masks and modes, the main paths' shapes and layouts among them,
      with the tolerance printed beside the error: prefill flash (B2), decode
-     (B1), paged decode (B4) and paged flash prefill (B5), the paged ones
-     with NaN in the garbage block 0, zero-table tails and inactive rows;
+     (B1), paged decode (B4), paged flash prefill (B5) and ragged paged
+     attention (B3), the paged ones with NaN in the garbage block 0,
+     zero-table tails and inactive rows;
   4. kernel times at the main paths' shapes and layouts (CUDA events, L2
      flushed before each launch), each held to its plain version first,
      beside the plain version, one PyTorch library call, and the card's
@@ -25,8 +26,15 @@ Phases, in order; any failure exits non-zero:
      with chunked prefill (8 slots, 512 blocks of 32, 8 staggered requests
      of 128 + 128 tokens; launch counts asserted from the session's own
      dispatch count), a short paged run admitting through the context
-     encoding program, and a teacher-forced check of the paged path.
-The last line of standard output is {"ok": true, "device": {...}}.
+     encoding program, and a teacher-forced check of the paged path;
+  7. the ragged mixed-step serving path at full width: the same traffic
+     through ServingSession(serving_ragged=True), synchronous and 1-ahead
+     (launch counts asserted: B3 16 times per mixed dispatch, nothing else),
+     a short run admitting through the context program, a teacher-forced
+     check of mixed_forward, and a profile of 16 steady-state steps.
+Each phase prints its seconds. The line before the card's name lists every
+kernel with its launches, times and bound; the last line of standard output
+is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -45,6 +53,27 @@ PKG = "neuronx_distributed_inference_tpu_torch"
 
 def log(*args):
     print(*args, flush=True)
+
+
+def expect_launches(**nonzero):
+    """The launch counts a run must show: ``nonzero`` by kernel name, every
+    other kernel of ops/_cuda.py 0."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    return {**{name: 0 for name in _cuda.KERNELS}, **nonzero}
+
+
+def plain_run(what, fn, *args):
+    """``fn(*args)`` with every launch count read around it: a plain-path
+    run must launch no kernel, or a check against it would compare a kernel
+    with itself."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    _cuda.reset_launch_counts()
+    out = fn(*args)
+    if _cuda.launch_counts() != expect_launches():
+        raise SystemExit(f"{what}: the plain run launched kernels: {_cuda.launch_counts()}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -249,11 +278,11 @@ def _decode_inputs(torch, rng, B, K, Hq, Hkv, D, L, S_max, bucket, dtype, valid,
     return q, kc, vc, torch.from_numpy(mask[:, None]).cuda()
 
 
-def check_close(torch, out, ref, case, what, rows=None):
+def check_close(torch, out, ref, case, what, rows=None, atol=DECODE_ATOL):
     """Kernel output against the plain version in fp32 on the same input
     values, within one rounding of the output dtype: the bound is
-    DECODE_ATOL + rtol * |plain| with rtol 2^-8 for bf16 (half a bf16 ulp),
-    0 for fp32. ``rows`` (a bool mask over dim 0 and 1) limits the check to
+    atol + rtol * |plain| with rtol 2^-8 for bf16 (half a bf16 ulp), 0 for
+    fp32. ``rows`` (a bool mask over the leading dims) limits the check to
     rows that have a valid key. Returns the max abs error; exits past it."""
     rtol = DECODE_RTOL_BF16 if out.dtype == torch.bfloat16 else 0.0
     o, r = out.float(), ref.float()
@@ -263,10 +292,10 @@ def check_close(torch, out, ref, case, what, rows=None):
         o, r = o[rows], r[rows]
     diff = (o - r).abs()
     err = diff.max().item()
-    use = (diff / (DECODE_ATOL + rtol * r.abs())).max().item()
+    use = (diff / (atol + rtol * r.abs())).max().item()
     ok = use <= 1.0
     log(
-        f"  {what} {case}: max abs err {err:.3e}, largest share of the bound (atol {DECODE_ATOL:.0e} "
+        f"  {what} {case}: max abs err {err:.3e}, largest share of the bound (atol {atol:.0e} "
         f"+ rtol {rtol:.2e} x |plain|) {use:.3f}, |plain| up to {r.abs().max().item():.3f} {'ok' if ok else 'FAIL'}"
     )
     if not ok:
@@ -599,6 +628,147 @@ def phase_paged_times(torch, da, pf):
 
 
 # ---------------------------------------------------------------------------
+# 3c. the ragged kernel (B3) against its plain version
+# ---------------------------------------------------------------------------
+
+RAGGED_FP32_ATOL = 1e-5
+
+
+def ragged_case(torch, rng, row_len, ctx_len, Hq, Hkv, D, bs, MB, dtype, NB=None):
+    """One ragged launch's inputs: rows of ``row_len`` new tokens over
+    ``ctx_len`` positions packed in 16-aligned segments (an inactive row
+    starts at 0 when it is the first, past the packed end otherwise), a
+    one-layer pool with NaN in block 0, tables covering each row's context
+    (zero tails), q with sharpened scores. Returns (q, k, v, table,
+    row_start, row_len, ctx_len, valid slots), on the card."""
+    from neuronx_distributed_inference_tpu_torch.ops.ragged_paged_attention import (
+        RAGGED_Q_TILE,
+        packed_positions,
+    )
+
+    starts, cur = [], 0
+    for n in row_len:
+        starts.append(cur)
+        cur += -(-n // RAGGED_Q_TILE) * RAGGED_Q_TILE
+    T = max(cur, RAGGED_Q_TILE)
+    starts = [s if n or r == 0 else T for r, (s, n) in enumerate(zip(starts, row_len))]
+    NB = NB or sum(-(-c // bs) for c in ctx_len) + 4
+    table = torch.from_numpy(paged_tables(rng, ctx_len, MB, bs, NB)).cuda()
+    k, v = paged_pool(torch, rng, 1, NB, Hkv, bs, D, dtype)
+    q = torch.from_numpy(rng.randn(T, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", dtype)
+    desc = [torch.tensor(a, dtype=torch.int32, device="cuda") for a in (starts, row_len, ctx_len)]
+    pos, _ = packed_positions(T, *desc)
+    return (q, k[0], v[0], table, *desc, pos >= 0)
+
+
+def check_ragged(torch, rp, case_inputs, case, atol):
+    """One B3 launch against the plain version in fp32 on the same values
+    (check_close on the valid slots); the padded slots must be exact
+    zeros. Returns the max abs error."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    q, k, v, table, rs, rl, cl, valid = case_inputs
+    kw = dict(scale=q.shape[-1] ** -0.5, n_rep=q.shape[1] // k.shape[1])
+    before = _cuda.launch_counts()["ragged_paged_attention"]
+    out = rp.ragged_paged_attention(q, k, v, table, rs, rl, cl, **kw)
+    torch.cuda.synchronize()
+    if _cuda.launch_counts()["ragged_paged_attention"] != before + 1:
+        raise SystemExit(f"ragged case did not launch B3: {case}")
+    if (out[~valid] != 0).any():
+        raise SystemExit(f"ragged_paged_attention: a padded slot is not exact zeros: {case}")
+    ref = rp.ragged_paged_attention_plain(q.float(), k.float(), v.float(), table, rs, rl, cl, **kw)
+    return check_close(torch, out, ref, case, "ragged_paged_attention", valid, atol=atol)
+
+
+def phase_ragged_parity(torch, rp):
+    """B3 at D 64 and 128, block size 16 and 32, bf16 and fp32, n_rep 1, 4
+    and 8 (8 kv heads): a chunk that starts mid-context, a chunk from 0 of a
+    non-16 length, decode rows, inactive rows (row_len 0 starting at 0 and
+    past the packed end), NaN in block 0 and zero-table tails; then the
+    serving row's two timed points (roofline.RAGGED_POINTS) at their shapes.
+    Tolerances: one bf16 rounding (check_close), 1e-5 at fp32."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import RAGGED_POINTS
+
+    rng = np.random.RandomState(7)
+    worst, n = 0.0, 0
+    Hkv, MB = 8, 12
+    row_len = [0, 41, 1, 16, 1, 3, 0, 1]
+    for D in (64, 128):
+        for bs in (16, 32):
+            for dtype in (torch.bfloat16, torch.float32):
+                for n_rep in (1, 4, 8):
+                    ctx_len = [0, 41 + 70, min(150, MB * bs), 16, 9, 3 + 100, 0, 1]
+                    inputs = ragged_case(torch, rng, row_len, ctx_len, Hkv * n_rep, Hkv, D, bs, MB, dtype)
+                    case = f"D={D} bs={bs} {str(dtype)[6:]} n_rep={n_rep} row_len {row_len} ctx_len {ctx_len}"
+                    atol = DECODE_ATOL if dtype == torch.bfloat16 else RAGGED_FP32_ATOL
+                    worst = max(worst, check_ragged(torch, rp, inputs, case, atol))
+                    n += 1
+    for name, pt in RAGGED_POINTS.items():
+        bs = pt["block_size"]
+        inputs = ragged_case(
+            torch, rng, list(pt["row_len"]), list(pt["ctx_len"]), 32, 8, 64, bs, pt["width"] // bs,
+            torch.bfloat16, NB=512,
+        )
+        worst = max(worst, check_ragged(torch, rp, inputs, f"serving {name} point, bf16", DECODE_ATOL))
+        n += 1
+    log(f"ragged_paged_attention: {n} cases agree with the plain version (largest abs err {worst:.3e})")
+
+
+def phase_ragged_times(torch, rp):
+    """B3 at the serving row's two points (roofline.RAGGED_POINTS), held to
+    its plain version first, beside the plain version, the bound for this
+    run's inputs, and a library yardstick: F.scaled_dot_product_attention
+    per active row on K/V gathered beforehand with a mask built beforehand
+    (neither timed)."""
+    import torch.nn.functional as F
+
+    from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import RAGGED_POINTS, ragged_work
+
+    rows = {}
+    rng = np.random.RandomState(8)
+    for name, pt in RAGGED_POINTS.items():
+        bs, width = pt["block_size"], pt["width"]
+        inputs = ragged_case(
+            torch, rng, list(pt["row_len"]), list(pt["ctx_len"]), 32, 8, 64, bs, width // bs, torch.bfloat16,
+            NB=512,
+        )
+        q, k, v, table, rs, rl, cl, _ = inputs
+        err = check_ragged(torch, rp, inputs, f"timed serving {name} point, bf16", DECODE_ATOL)
+        kw = dict(scale=0.125, n_rep=4)
+        k_r, v_r = read_block_cache_at_layer(k[None], v[None], 0, table)
+        cols = torch.arange(width, device="cuda")
+        per_row = []
+        for r, (s0, n, c) in enumerate(zip(rs.tolist(), rl.tolist(), cl.tolist())):
+            if n == 0:
+                continue
+            qpos = torch.arange(c - n, c, device="cuda")
+            per_row.append((
+                q[s0 : s0 + n].transpose(0, 1)[None],
+                k_r[r].transpose(0, 1).repeat_interleave(4, dim=0)[None],
+                v_r[r].transpose(0, 1).repeat_interleave(4, dim=0)[None],
+                ((cols[None, :] <= qpos[:, None]) & (cols[None, :] < c))[None, None],
+            ))
+        ms = time_ms(torch, lambda: rp.ragged_paged_attention(q, k, v, table, rs, rl, cl, **kw))
+        plain_ms = time_ms(torch, lambda: rp.ragged_paged_attention_plain(q, k, v, table, rs, rl, cl, **kw))
+        lib_ms = time_ms(torch, lambda: [F.scaled_dot_product_attention(a, b, c, attn_mask=m) for a, b, c, m in per_row])
+        nbytes, flops = ragged_work(
+            rl.tolist(), cl.tolist(), width, bs, dict(Hq=q.shape[1], Hkv=k.shape[1], D=q.shape[2]), q.element_size()
+        )
+        b_ms, b_by = bound(nbytes, flops)
+        rows[("ragged_paged_attention", name)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+        )
+        log(
+            f"ragged_paged_attention {name} point (row_len {list(pt['row_len'])}, ctx_len {list(pt['ctx_len'])}, "
+            f"bs={bs} width={width} Hq=32 Hkv=8 D=64 bf16): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa per row {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}"
+        )
+        del k_r, v_r, per_row
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # 5. the main path
 # ---------------------------------------------------------------------------
 
@@ -647,10 +817,7 @@ def phase_main_path(torch):
     )
     log(f"main path launches: {launches}")
     # 255 remaining tokens run as one 256-step pow2 chunk in bucket 512
-    want = {
-        "flash_attention": n_layers, "decode_attention": n_layers * 256,
-        "paged_decode_attention": 0, "paged_flash_attention": 0,
-    }
+    want = expect_launches(flash_attention=n_layers, decode_attention=n_layers * 256)
     if launches != want:
         raise SystemExit(f"launch counts {launches} != expected {want}")
     gen = out.sequences[:, prompt_len:]
@@ -701,8 +868,8 @@ def phase_profile(torch, app, seq, prompt_len, steps=16):
 def profile_chunk(torch, chunk, steps, label):
     """Run ``chunk`` (``steps`` decode steps ending in a synchronize) once
     to warm, once timed on the host clock without the profiler, then once
-    traced with torch.profiler for the device's busy time and the kernels
-    by name."""
+    traced with torch.profiler for the device's busy time, the kernels by
+    name and the host-side operators by their own (self) CPU time."""
     from torch.profiler import ProfilerActivity, profile
 
     chunk()
@@ -725,9 +892,13 @@ def profile_chunk(torch, chunk, steps, label):
     )
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {ms / steps:8.4f} ms/step  {name[:110]}")
+    host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    for e in host_ops:
+        log(f"  host {e.self_cpu_time_total / 1e3 / steps:8.4f} ms/step, {e.count / steps:6.1f} calls/step  {e.key[:90]}")
     return dict(
         decode_step_ms=step_ms, device_busy_frac=busy_ms / traced_ms,
         kernels_per_step=len(kernels) / steps,
+        kernel_ms_per_step={name: ms / steps for name, ms in by_name.items()},
     )
 
 
@@ -784,10 +955,14 @@ def teacher_forced(torch, app, seq, prompt_len):
     wherever fp32's top-2 margin exceeds twice its own largest error."""
     off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
     k = _forced_logits(torch, _config(1, output_logits=True), app.params, seq, prompt_len)
-    pl = _forced_logits(torch, _config(1, output_logits=True, **off), app.params, seq, prompt_len)
+    pl = plain_run(
+        "teacher-forced bf16", _forced_logits, torch, _config(1, output_logits=True, **off), app.params, seq,
+        prompt_len,
+    )
     params32 = _map_tree(app.params, lambda t: t.float())
-    f32 = _forced_logits(
-        torch, _config(1, output_logits=True, dtype="float32", **off), params32, seq, prompt_len
+    f32 = plain_run(
+        "teacher-forced fp32", _forced_logits, torch, _config(1, output_logits=True, dtype="float32", **off),
+        params32, seq, prompt_len,
     )
     del params32
     return _forced_gate(k, pl, f32, "teacher-forced logits")
@@ -927,11 +1102,10 @@ def phase_serving(torch, params):
         raise SystemExit(f"serving: not every request completed: {counts}")
     if any(faults.values()) or any(r.status != "finished" for r in sess.requests.values()):
         raise SystemExit(f"serving: faults on clean traffic: {faults}")
-    want = {
-        "flash_attention": 0, "decode_attention": 0,
-        "paged_flash_attention": sess.dispatches["prefill_chunk"] * n_layers,
-        "paged_decode_attention": sess.dispatches["decode_steps"] * n_layers,
-    }
+    want = expect_launches(
+        paged_flash_attention=sess.dispatches["prefill_chunk"] * n_layers,
+        paged_decode_attention=sess.dispatches["decode_steps"] * n_layers,
+    )
     if launches != want or not want["paged_flash_attention"] or not want["paged_decode_attention"]:
         raise SystemExit(f"serving launch counts {launches} != expected {want}")
     for rid, r in sess.requests.items():
@@ -945,10 +1119,10 @@ def phase_serving(torch, params):
     launches2 = _cuda.launch_counts()
     counts2 = [len(r.generated) for r in sess2.requests.values()]
     log(f"paged without chunked prefill (4 x 32 tokens): {s2 * 1e3:.1f} ms, dispatches {dict(sess2.dispatches)}, launches {launches2}")
-    want2 = {
-        "flash_attention": sess2.dispatches["prefill"] * n_layers, "decode_attention": 0,
-        "paged_flash_attention": 0, "paged_decode_attention": sess2.dispatches["decode_steps"] * n_layers,
-    }
+    want2 = expect_launches(
+        flash_attention=sess2.dispatches["prefill"] * n_layers,
+        paged_decode_attention=sess2.dispatches["decode_steps"] * n_layers,
+    )
     if counts2 != [32] * 4 or sess2.dispatches["prefill"] != 4 or launches2 != want2:
         raise SystemExit(f"paged CTE admission run: tokens {counts2}, launches {launches2} != {want2}")
     del app2, sess2
@@ -957,6 +1131,7 @@ def phase_serving(torch, params):
     forced = paged_teacher_forced(torch, params, prompts[0] + sess.requests["0"].generated)
     return dict(
         **{f"serving_{k}": v for k, v in profile.items()},
+        tokens={rid: list(r.generated) for rid, r in sess.requests.items()},
         launches=launches, tok_s=tok_s, total_ms=total_s * 1e3, peak_bytes=peak,
         ttft_p50_ms=pct(ttft, 0.5), ttft_p99_ms=pct(ttft, 0.99), itl_p50_ms=pct(itl, 0.5),
         itl_p99_ms=pct(itl, 0.99), **faults, **forced,
@@ -1013,13 +1188,226 @@ def paged_teacher_forced(torch, params, seq, prompt_len=128):
     n_layers = len(params["layers"])
     if kl["paged_flash_attention"] != n_layers or kl["paged_decode_attention"] != n_layers * (len(seq) - 1 - prompt_len):
         raise SystemExit(f"paged teacher-forced run did not take B5 then B4: {kl}")
-    pl = _paged_forced_logits(torch, _serving_config(output_logits=True, **off), params, seq, prompt_len)
+    pl = plain_run(
+        "paged teacher-forced bf16", _paged_forced_logits, torch, _serving_config(output_logits=True, **off),
+        params, seq, prompt_len,
+    )
     params32 = _map_tree(params, lambda t: t.float())
-    f32 = _paged_forced_logits(
-        torch, _serving_config(output_logits=True, dtype="float32", **off), params32, seq, prompt_len
+    f32 = plain_run(
+        "paged teacher-forced fp32", _paged_forced_logits, torch,
+        _serving_config(output_logits=True, dtype="float32", **off), params32, seq, prompt_len,
     )
     del params32
     return _forced_gate(k, pl, f32, "paged teacher-forced logits (one 128-token chunk through B5, then B4 steps)")
+
+
+# ---------------------------------------------------------------------------
+# 7. the ragged mixed-step serving path
+# ---------------------------------------------------------------------------
+
+
+def _ragged_run(torch, app, prompts, gen, split_tokens, label):
+    """One ragged drain of _serve's traffic with the launch counts read
+    around it: every request complete, no fault, B3 launched 16 times per
+    mixed dispatch and no other kernel. Returns its metrics."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    n_layers = app.spec.num_layers
+    vocab = app.spec.vocab_size
+    tel = TelemetrySession()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    sess, total_s = _serve(torch, app, prompts, gen, tel)
+    launches = _cuda.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    counts = {rid: len(r.generated) for rid, r in sess.requests.items()}
+    ttft = [t * 1e3 for t in tel.ttft_values_s()]
+    itl = [t * 1e3 for t in tel.itl_values_s()]
+    pct = tel.percentile
+    tok_s = sum(counts.values()) / total_s
+    faults = dict(
+        rejected=sum(tel.rejected.values()), quarantined=tel.counters["quarantined"],
+        preempted=tel.counters["preempted"],
+    )
+    padded, real = sum(tel.mixed_steps["padded_slots"]), sum(tel.mixed_steps["query_tokens"])
+    log(
+        f"ragged serving {label} (bf16, 8 slots, 512 blocks x 32, {len(prompts)} requests of "
+        f"{len(prompts[0])} + {gen} tokens, staggered): {total_s * 1e3:.1f} ms, aggregate {tok_s:.1f} tok/s, "
+        f"TTFT p50 {pct(ttft, 0.5):.2f} ms p99 {pct(ttft, 0.99):.2f} ms, ITL p50 {pct(itl, 0.5):.3f} ms "
+        f"p99 {pct(itl, 0.99):.3f} ms, padded-slot share {padded / (padded + real):.3f}, "
+        f"peak memory {peak / 2**30:.3f} GiB, {faults}"
+    )
+    host = np.array(tel.step_host_ms)
+    wait = np.array(tel.step_fetch_wait_ms)
+    host_share = np.clip(host, 0, None).sum() / (np.clip(host, 0, None).sum() + np.clip(wait, 0, None).sum())
+    log(
+        f"  {len(host)} steps: host ms/step mean {host.mean():.3f} p50 {np.median(host):.3f} max {host.max():.3f}; "
+        f"fetch wait ms/step mean {wait.mean():.3f} max {wait.max():.3f}; host share {host_share:.3f}"
+    )
+    log(f"  dispatches {dict(sess.dispatches)}, launches {launches}")
+    if sorted(counts.values()) != [gen] * len(prompts):
+        raise SystemExit(f"ragged serving {label}: not every request completed: {counts}")
+    if any(faults.values()) or any(r.status != "finished" for r in sess.requests.values()):
+        raise SystemExit(f"ragged serving {label}: faults on clean traffic: {faults}")
+    for rid, r in sess.requests.items():
+        if min(r.generated) < 0 or max(r.generated) >= vocab:
+            raise SystemExit(f"ragged serving {label}: request {rid} has tokens outside the vocab")
+    if split_tokens is not None:
+        same = sum(
+            sum(a == b for a, b in zip(r.generated, split_tokens[rid])) for rid, r in sess.requests.items()
+        )
+        log(f"  tokens equal to the split run's at {same} of {sum(counts.values())} positions (not a gate)")
+    return dict(
+        sess=sess, launches=launches, tok_s=tok_s, peak_bytes=peak, itl_p50_ms=pct(itl, 0.5),
+        itl_p99_ms=pct(itl, 0.99), ttft_p50_ms=pct(ttft, 0.5), ttft_p99_ms=pct(ttft, 0.99),
+    )
+
+
+def phase_ragged_serving(torch, params, split_tokens):
+    """The serving_1b_int8_ragged row's configuration in bf16 (int8 weights
+    wait for A6): _serving_config with serving_ragged, on _serve's traffic,
+    synchronous (the row pins serving_ragged_async=False) and 1-ahead, each
+    warmed by one pass, then measured in turns (sync, 1-ahead, 1-ahead,
+    sync: host-clock metrics drift on a shared host); a short run without
+    chunked prefill; the ragged teacher-forced check and a profile of 16
+    steady-state steps."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    s = SERVING
+    t0 = time.perf_counter()
+    apps = {
+        label: ModelForCausalLM(None, _serving_config(serving_ragged=True, serving_ragged_async=ragged_async))
+        .load(params=params).warmup()
+        for label, ragged_async in (("sync", False), ("1-ahead", True))
+    }
+    torch.cuda.synchronize()
+    app = apps["1-ahead"]
+    n_layers = app.spec.num_layers
+    log(f"ragged serving: load + warmup of both apps {time.perf_counter() - t0:.2f} s, mixed buckets {app.mixed_step_model.buckets}")
+    rng = np.random.RandomState(0)  # phase_serving's prompts
+    prompts = [rng.randint(0, app.spec.vocab_size - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    for a in apps.values():
+        _serve(torch, a, prompts, s["gen"], TelemetrySession())  # warm pass: first-call costs
+    runs = {}
+    for turn, label in enumerate(("sync", "1-ahead", "1-ahead", "sync")):
+        run = _ragged_run(torch, apps[label], prompts, s["gen"], split_tokens, f"{label} (turn {turn + 1})")
+        sess = run.pop("sess")
+        want = expect_launches(ragged_paged_attention=sess.dispatches["mixed_step"] * n_layers)
+        if run["launches"] != want or not want["ragged_paged_attention"] or set(sess.dispatches) != {"mixed_step"}:
+            raise SystemExit(f"ragged serving {label}: launches {run['launches']} != {want}, dispatches {dict(sess.dispatches)}")
+        run["tokens0"] = list(sess.requests["0"].generated)
+        runs.setdefault(label, run)
+
+    # without chunked prefill: admission through the context program (B2),
+    # then mixed decode steps (B3)
+    app3 = ModelForCausalLM(None, _serving_config(chunked=False, serving_ragged=True)).load(params=params).warmup()
+    _cuda.reset_launch_counts()
+    sess3, s3 = _serve(torch, app3, prompts[:4], 32, TelemetrySession())
+    launches3 = _cuda.launch_counts()
+    counts3 = [len(r.generated) for r in sess3.requests.values()]
+    log(f"ragged without chunked prefill (4 x 32 tokens): {s3 * 1e3:.1f} ms, dispatches {dict(sess3.dispatches)}, launches {launches3}")
+    want3 = expect_launches(
+        flash_attention=4 * n_layers, ragged_paged_attention=sess3.dispatches["mixed_step"] * n_layers
+    )
+    if counts3 != [32] * 4 or sess3.dispatches["prefill"] != 4 or launches3 != want3:
+        raise SystemExit(f"ragged CTE admission run: tokens {counts3}, launches {launches3} != {want3}")
+    del app3, sess3
+
+    profile = {label: phase_ragged_profile(torch, a, prompts, label) for label, a in apps.items()}
+    del apps, app
+    forced = ragged_teacher_forced(torch, params, prompts[0] + runs["sync"]["tokens0"])
+    return dict(runs=runs, profile=profile, forced=forced)
+
+
+def phase_ragged_profile(torch, app, prompts, label, steps=16):
+    """Where a steady-state ragged step's time goes: 8 requests decoding,
+    ``steps`` step() calls per traced chunk, on the app of one form (sync
+    or 1-ahead)."""
+    from neuronx_distributed_inference_tpu_torch.runtime.serving import ServingSession
+
+    app.init_kv_cache()
+    sess = ServingSession(app)
+    for i, p in enumerate(prompts):
+        if not sess.add_request(f"p{i}", p, max_new_tokens=4 * steps + 16):
+            raise SystemExit(f"ragged profile: request {i} refused")
+    for _ in range(64):  # into steady decode (1-ahead: with a step in flight)
+        if not (sess.prefilling or (sess.ragged_async and sess._pending is None)):
+            break
+        sess.step()
+    else:
+        raise SystemExit(f"ragged profile ({label}): the session did not reach steady decode")
+
+    def chunk():
+        for _ in range(steps):
+            sess.step()
+        torch.cuda.synchronize()
+
+    prof = profile_chunk(torch, chunk, steps, f"ragged serving step (8 rows decoding, {label}, {steps} steps)")
+    b3 = sum(ms for name, ms in prof["kernel_ms_per_step"].items() if "ragged_paged_kernel" in name)
+    log(f"  B3 (ragged_paged_kernel) {b3:.4f} ms/step")
+    sess.run_to_completion()
+    return dict(prof, b3_ms_per_step=b3)
+
+
+def _ragged_forced_logits(torch, cfg, params, seq, prompt_len):
+    """Logits of one ``prompt_len``-token chunk row from position 0 and of
+    every later position as a single-token row, each fed the recorded token,
+    through the mixed-step runner (mixed_forward) with request 0 in row 0 of
+    the 8 rows."""
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    a = ModelForCausalLM(None, cfg).load(params=params)
+    mr = a.mixed_step_model
+    bs, width = SERVING["block_size"], SERVING["seq"]
+    R = mr.num_rows
+    table = np.zeros((R, width // bs), np.int32)
+    table[0] = np.arange(1, width // bs + 1)
+    steps = []
+    for lo, hi in [(0, prompt_len)] + [(p, p + 1) for p in range(prompt_len, len(seq) - 1)]:
+        pos = np.arange(lo, hi, dtype=np.int32)
+        row_len = np.zeros(R, np.int32)
+        ctx_len = np.zeros(R, np.int32)
+        row_len[0], ctx_len[0] = hi - lo, hi
+        inputs, _ = mr.prepare(
+            np.asarray(seq[lo:hi], np.int32), pos, (table[0, pos // bs] * bs + pos % bs).astype(np.int32),
+            np.zeros(R, np.int32), row_len, ctx_len, table, width,
+        )
+        out = mr(a.params, a.kv_cache, inputs)
+        a.kv_cache = out.cache
+        steps.append(out.logits[0].float().cpu().numpy())
+    del a
+    return np.concatenate(steps, axis=0)  # (positions, V)
+
+
+def ragged_teacher_forced(torch, params, seq, prompt_len=128):
+    """mixed_forward with B3 against the plain path on the same bf16 weights
+    and an fp32 run of the plain path, teacher-forced over request 0's
+    served tokens; the gate of the other teacher-forced checks."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
+    _cuda.reset_launch_counts()
+    k = _ragged_forced_logits(torch, _serving_config(serving_ragged=True, output_logits=True), params, seq, prompt_len)
+    kl = _cuda.launch_counts()
+    n_layers = len(params["layers"])
+    want = expect_launches(ragged_paged_attention=n_layers * (len(seq) - prompt_len))
+    if kl != want:
+        raise SystemExit(f"ragged teacher-forced run: launches {kl} != {want}")
+    pl = plain_run(
+        "ragged teacher-forced bf16", _ragged_forced_logits, torch,
+        _serving_config(serving_ragged=True, output_logits=True, **off), params, seq, prompt_len,
+    )
+    params32 = _map_tree(params, lambda t: t.float())
+    f32 = plain_run(
+        "ragged teacher-forced fp32", _ragged_forced_logits, torch,
+        _serving_config(serving_ragged=True, output_logits=True, dtype="float32", **off), params32, seq,
+        prompt_len,
+    )
+    del params32
+    return _forced_gate(k, pl, f32, "ragged teacher-forced logits (one 128-token chunk row, then single-token rows, through B3)")
 
 
 def _map_tree(tree, fn):
@@ -1028,6 +1416,14 @@ def _map_tree(tree, fn):
     if isinstance(tree, list):
         return [_map_tree(v, fn) for v in tree]
     return fn(tree)
+
+
+def timed(name, fn, *args):
+    """Run one phase and print its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main():
@@ -1039,21 +1435,24 @@ def main():
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
     from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
+    from neuronx_distributed_inference_tpu_torch.ops import ragged_paged_attention as rp
 
-    t0 = time.perf_counter()
-    reports = _cuda.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s")
-    for name, rep in reports.items():
-        log(f"--- {name} ptxas ---\n{rep}")
+    reports = timed("build", _cuda.build)
+    for name, rep_ in reports.items():
+        log(f"--- {name} ptxas ---\n{rep_}")
 
-    phase_flash_parity(torch, fa)
-    phase_decode_parity(torch, da)
-    phase_paged_decode_parity(torch, da)
-    phase_paged_flash_parity(torch, pf)
-    times = phase_times(torch, fa, da)
-    times.update(phase_paged_times(torch, da, pf))
-    main_path = phase_main_path(torch)
-    serving = phase_serving(torch, main_path.pop("params"))
+    timed("flash parity", phase_flash_parity, torch, fa)
+    timed("decode parity", phase_decode_parity, torch, da)
+    timed("paged decode parity", phase_paged_decode_parity, torch, da)
+    timed("paged flash parity", phase_paged_flash_parity, torch, pf)
+    timed("ragged parity", phase_ragged_parity, torch, rp)
+    times = timed("times", phase_times, torch, fa, da)
+    times.update(timed("paged times", phase_paged_times, torch, da, pf))
+    times.update(timed("ragged times", phase_ragged_times, torch, rp))
+    main_path = timed("main path", phase_main_path, torch)
+    params = main_path.pop("params")
+    serving = timed("serving", phase_serving, torch, params)
+    ragged = timed("ragged serving", phase_ragged_serving, torch, params, serving["tokens"])
 
     entries = []
     for name, key, source, replaces, launches in (
@@ -1068,6 +1467,10 @@ def main():
          "neuronx_distributed_inference_tpu/ops/decode_attention.py:284", serving["launches"]),
         ("paged_flash_attention", "paged_flash_attention", "csrc/paged_flash_attention.cu",
          "neuronx_distributed_inference_tpu/ops/paged_flash_attention.py:200", serving["launches"]),
+        # B3 at the serving row's mixed step; launches of the synchronous
+        # ragged drain
+        ("ragged_paged_attention", ("ragged_paged_attention", "mixed"), "csrc/ragged_paged_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/ragged_paged_attention.py:267", ragged["runs"]["sync"]["launches"]),
     ):
         t = times[key]
         entries.append({

@@ -85,7 +85,7 @@ class ChunkedPrefillConfig:
 _NOT_PORTED: Dict[str, Tuple[Any, str]] = {
     "tp_degree": (1, "A10 (parallelism)"),
     "quantized": (False, "A6 (quantization)"),
-    "serving_ragged": (False, "A5 (ragged mixed step)"),
+    "serving_spec_ragged": (False, "A7 (speculation)"),
     "speculation_length": (0, "A7 (speculation)"),
     "enable_fused_speculation": (False, "A7 (speculation)"),
     "lora_config": (None, "A9 (LoRA and other model families)"),
@@ -149,6 +149,11 @@ class Config:
     is_chunked_prefill: bool = False
     chunked_prefill_config: Optional[ChunkedPrefillConfig] = None
     kv_cache_batch_size: Optional[int] = None
+    # ragged mixed step: one dispatch per step() packs prefill chunks and
+    # decode rows (runtime/serving.py::_ragged_step); its 1-ahead pipelining
+    # follows async_mode when serving_ragged_async is None
+    serving_ragged: bool = False
+    serving_ragged_async: Optional[bool] = None
 
     # --- serving fault containment (runtime/serving.py, runtime/faults.py)
     # malformed requests get a typed terminal REJECTED verdict at admission
@@ -163,7 +168,7 @@ class Config:
     # --- not ported yet (validated, then refused) --------------------------
     tp_degree: int = 1
     quantized: bool = False
-    serving_ragged: bool = False
+    serving_spec_ragged: bool = False
     speculation_length: int = 0
     enable_fused_speculation: bool = False
     lora_config: Optional[Any] = None
@@ -256,7 +261,7 @@ class Config:
         resolve_device(self.device)
 
     def _validate_serving(self):
-        """The reference's serving checks (config.py:614-635, 720-728,
+        """The reference's serving checks (config.py:614-635, 720-759,
         789-796), in its order, then its default pool size."""
         if self.pa_pool_bytes is not None:
             if not self.is_block_kv_layout:
@@ -290,6 +295,29 @@ class Config:
                              "set is_continuous_batching=True")
         if self.is_prefix_caching and not self.is_block_kv_layout:
             raise ValueError("prefix caching requires block KV layout")
+        if self.serving_ragged:
+            if not self.is_block_kv_layout:
+                raise ValueError(
+                    "serving_ragged requires the paged cache "
+                    "(is_block_kv_layout=True): the ragged kernel addresses "
+                    "rows through block tables"
+                )
+            if not self.is_continuous_batching:
+                raise ValueError(
+                    "serving_ragged runs through the serving session: set "
+                    "is_continuous_batching=True"
+                )
+            if self.sliding_window or self.attention_chunk_size:
+                raise NotImplementedError(
+                    "serving_ragged implements the plain causal+prefix mask "
+                    "only (no sliding-window/chunked attention)"
+                )
+        if self.serving_ragged_async and not self.serving_ragged:
+            raise ValueError(
+                "serving_ragged_async=True pipelines the RAGGED mixed-step "
+                "dispatch: set serving_ragged=True (the legacy split path "
+                "already pipelines via async_mode)"
+            )
         if (
             self.is_block_kv_layout
             and self.pa_num_blocks is None

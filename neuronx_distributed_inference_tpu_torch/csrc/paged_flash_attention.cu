@@ -13,7 +13,8 @@
 // zeroed; out = acc / max(l, 1e-30), so a row with no valid key writes
 // zeros, as the reference's finalize does.
 //
-// Design:
+// Design (the kv loop itself lives in paged_attention_tile.cuh, shared with
+// the ragged kernel B3):
 // - The TPU grid (B, Hq, q_tiles, MB) ran its kv axis in order; here the kv
 //   loop lives inside the block. One block per (q tile, kv head, row): its
 //   64 query rows are the n_rep q heads of kv head g times 64 / n_rep query
@@ -52,21 +53,15 @@
 // contiguous; block_table (B, MB) int32; positions (B, Sq) int32;
 // kv_limit (B,) int32; out (B, Sq, Hq, D) contiguous.
 
-#include "common.cuh"
+#include "paged_attention_tile.cuh"
 
 namespace nxdi {
 namespace {
 
-constexpr int BQ = 64;       // query rows per block (n_rep heads x BQ / n_rep positions)
-constexpr int BKV = 64;      // kv positions per tile
-constexpr int THREADS = 128;
-// thread (r, c) = (tid / 8, tid % 8) owns query rows r + 16 * i (i < 4)
-// and score columns c + 8 * j (j < 8) of the 64 x 64 score tile, and
-// output columns c + 8 * j (j < D / 8) of its rows
-constexpr int RG = 16;
-constexpr int CG = 8;
-constexpr int ROWS_T = BQ / RG;
-constexpr int COLS_T = BKV / CG;
+using paged::BQ;
+using paged::RG;
+using paged::ROWS_T;
+using paged::THREADS;
 
 struct PagedFlashParams {
   const void* q;
@@ -80,29 +75,13 @@ struct PagedFlashParams {
   float scale;
 };
 
-template <int D>
-constexpr size_t smem_bytes() {
-  // Q and K tiles padded to D + 1 floats a row (conflict-free column reads),
-  // V tile, probability tile padded to BKV + 1, query positions
-  return sizeof(float) * (size_t)(BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1)) +
-         sizeof(int) * BQ;
-}
-
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS) paged_flash_kernel(const PagedFlashParams p) {
   constexpr int LD = D + 1;
-  constexpr int PLD = BKV + 1;
-  constexpr int DT = D / CG;  // output columns per thread and row
   extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + BQ * LD;
-  float* Vs = Ks + BKV * LD;
-  float* Ps = Vs + BKV * D;
-  int* pos_s = reinterpret_cast<int*>(Ps + BQ * PLD);
+  const paged::Smem<D> sm(smem);
 
   const int tid = threadIdx.x;
-  const int r = tid / CG;
-  const int c = tid % CG;
   const int iq = blockIdx.x;
   const int g = blockIdx.y;
   const int b = blockIdx.z;
@@ -110,146 +89,45 @@ __global__ void __launch_bounds__(THREADS) paged_flash_kernel(const PagedFlashPa
   const int tqp = BQ / n_rep;  // query positions per block
   // a row's table covers MB * bs positions: nothing past them exists
   const int limit = min(p.kv_limit[b], p.MB * p.bs);
-
   const T* qp = static_cast<const T*>(p.q);
   T* op = static_cast<T*>(p.out);
-  const T* kc = static_cast<const T*>(p.k);
-  const T* vc = static_cast<const T*>(p.v);
-  const int* bt_row = p.block_table + (long long)b * p.MB;
 
   // query row -> (position index t, head h); rows past Sq carry position -1
   for (int row = tid; row < BQ; row += THREADS) {
     const int t = iq * tqp + row % tqp;
-    pos_s[row] = t < p.Sq ? p.positions[(long long)b * p.Sq + t] : -1;
+    sm.pos[row] = t < p.Sq ? p.positions[(long long)b * p.Sq + t] : -1;
   }
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int row = idx / D, d = idx % D;
     const int t = iq * tqp + row % tqp;
     const int h = g * n_rep + row / tqp;
-    Qs[row * LD + d] = t < p.Sq ? to_float(qp[(((long long)b * p.Sq + t) * p.Hq + h) * D + d]) : 0.f;
+    sm.Qs[row * LD + d] = t < p.Sq ? to_float(qp[(((long long)b * p.Sq + t) * p.Hq + h) * D + d]) : 0.f;
   }
   __syncthreads();
 
-  // the last kv position any row of this block may attend
-  int last = -1;
-  for (int row = 0; row < BQ; ++row) last = max(last, pos_s[row]);
-  last = min(last, limit - 1);
+  float l_i[ROWS_T], acc[ROWS_T][D / paged::CG];
+  paged::attend<T, D>(sm, static_cast<const T*>(p.k), static_cast<const T*>(p.v),
+                      p.block_table + (long long)b * p.MB, g, p.Hkv, p.bs, p.NB1, limit, p.scale,
+                      l_i, acc);
 
-  float m_i[ROWS_T], l_i[ROWS_T], acc[ROWS_T][DT];
-#pragma unroll
-  for (int i = 0; i < ROWS_T; ++i) {
-    m_i[i] = NEG_INF;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) acc[i][j] = 0.f;
-  }
-
-  const int n_tiles = last < 0 ? 0 : last / BKV + 1;  // 0 when kv_limit == 0
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int kv_start = jt * BKV;
-    __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BKV * D; idx += THREADS) {
-      const int col = idx / D, d = idx % D;
-      const int s = kv_start + col;
-      float kv = 0.f, vv = 0.f;
-      if (s < limit) {
-        const int blk = bt_row[s / p.bs];
-        if (blk > 0 && blk < p.NB1) {
-          const long long a = (((long long)blk * p.Hkv + g) * p.bs + s % p.bs) * D + d;
-          kv = to_float(kc[a]);
-          vv = to_float(vc[a]);
-        }
-      }
-      Ks[col * LD + d] = kv;
-      Vs[col * D + d] = vv;
-    }
-    __syncthreads();
-
-    float sc[ROWS_T][COLS_T];
-#pragma unroll
-    for (int i = 0; i < ROWS_T; ++i)
-#pragma unroll
-      for (int j = 0; j < COLS_T; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[ROWS_T], kv[COLS_T];
-#pragma unroll
-      for (int i = 0; i < ROWS_T; ++i) qv[i] = Qs[(r + RG * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < COLS_T; ++j) kv[j] = Ks[(c + CG * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < ROWS_T; ++i)
-#pragma unroll
-        for (int j = 0; j < COLS_T; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < ROWS_T; ++i) {
-      const int lrow = r + RG * i;
-      const int qpos = pos_s[lrow];
-      bool ok[COLS_T];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < COLS_T; ++j) {
-        const int s = kv_start + c + CG * j;
-        ok[j] = s <= qpos && s < limit;
-        sc[i][j] = ok[j] ? sc[i][j] * p.scale : NEG_INF;
-        mx = fmaxf(mx, sc[i][j]);
-      }
-      mx = group_max<CG>(mx);
-      const float m_new = fmaxf(m_i[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < COLS_T; ++j) {
-        const float pv = ok[j] ? expf(sc[i][j] - m_new) : 0.f;
-        Ps[lrow * PLD + c + CG * j] = pv;
-        sum += pv;
-      }
-      sum = group_sum<CG>(sum);
-      const float alpha = expf(m_i[i] - m_new);
-      l_i[i] = l_i[i] * alpha + sum;
-      m_i[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DT; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 2
-    for (int kk = 0; kk < BKV; ++kk) {
-      float pr[ROWS_T];
-#pragma unroll
-      for (int i = 0; i < ROWS_T; ++i) pr[i] = Ps[(r + RG * i) * PLD + kk];
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        const float vv = Vs[kk * D + c + CG * j];
-#pragma unroll
-        for (int i = 0; i < ROWS_T; ++i) acc[i][j] = fmaf(pr[i], vv, acc[i][j]);
-      }
-    }
-  }
-
+  const int r = tid / paged::CG;
 #pragma unroll
   for (int i = 0; i < ROWS_T; ++i) {
     const int lrow = r + RG * i;
     const int t = iq * tqp + lrow % tqp;
     if (t >= p.Sq) continue;
     const int h = g * n_rep + lrow / tqp;
-    const float denom = fmaxf(l_i[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-      op[(((long long)b * p.Sq + t) * p.Hq + h) * D + c + CG * j] = from_float<T>(acc[i][j] / denom);
+    paged::finalize_row<T, D>(op + (((long long)b * p.Sq + t) * p.Hq + h) * D, l_i[i], acc[i]);
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const PagedFlashParams& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = paged::allow_smem<D>(paged_flash_kernel<T, D>);
   if (err != cudaSuccess) return err;
   const int tqp = BQ / (p.Hq / p.Hkv);
   const dim3 grid((p.Sq + tqp - 1) / tqp, p.Hkv, B);
-  paged_flash_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  paged_flash_kernel<T, D><<<grid, THREADS, paged::smem_bytes<D>(), stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -13,8 +13,10 @@ Prefill attention goes through the B2 flash kernel
 B1 kernel over the contiguous cache (:func:`contiguous_decode_attend`) and,
 over the paged cache (:func:`paged_attend`), multi-token passes of 8 tokens
 or more (chunked and prefix prefill) through the B5 paged flash kernel and
-shorter ones through the B4 paged decode kernel. The config tri-states turn
-the kernels off.
+shorter ones through the B4 paged decode kernel. The ragged mixed serving
+step (:func:`mixed_forward`) packs prefill chunks and decode rows on one
+token axis and runs its attention through the B3 ragged kernel. The config
+tri-states turn the kernels off.
 """
 
 from __future__ import annotations
@@ -60,6 +62,7 @@ from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import (
 
 PHASE_CONTEXT_ENCODING = "context_encoding"
 PHASE_TOKEN_GENERATION = "token_generation"
+PHASE_MIXED = "mixed"
 
 
 @dataclass(frozen=True)
@@ -89,6 +92,35 @@ class StepInputs:
     sampling_params: torch.Tensor  # (B, 3) float32
     slot_mapping: Optional[torch.Tensor] = None  # (B, S) paged-cache flat write slots
     block_table: Optional[torch.Tensor] = None  # (B, MB) paged-cache block ids
+
+
+@dataclass
+class MixedStepInputs:
+    """Device inputs of ONE ragged mixed prefill+decode step
+    (:func:`mixed_forward`; the reference's ``MixedStepInputs``).
+
+    All rows' query tokens are packed along one axis of length T (the
+    total-query-token bucket): row r owns packed slots ``[row_start[r],
+    row_start[r] + row_len[r])``; slots between segments are padding
+    (position and slot -1). Row index == serving slot == block-table row,
+    so R is the session's slot count."""
+
+    input_ids: torch.Tensor  # (1, T) int packed tokens
+    position_ids: torch.Tensor  # (1, T) int absolute positions; -1 = padded
+    slot_mapping: torch.Tensor  # (1, T) int flat paged write slots; -1 = garbage block
+    block_table: torch.Tensor  # (R, MB) int
+    row_start: torch.Tensor  # (R,) int packed offset per row
+    row_len: torch.Tensor  # (R,) int query tokens per row; 0 = inactive
+    ctx_len: torch.Tensor  # (R,) int total kv length per row (incl. new)
+    sampling_params: torch.Tensor  # (R, 3) float32
+    # 1-ahead chaining (serving_ragged_async): chain_src[t] names the row
+    # whose PREVIOUS-step token supplies packed slot t's input id (-1 = take
+    # input_ids[t] as the host wrote it); chain_tokens is the previous mixed
+    # step's (R, 1) token output, still on the device, so a chained decode
+    # row's input never round-trips the host. The synchronous path passes
+    # inert values (all -1 / zeros); None skips the gather.
+    chain_src: Optional[torch.Tensor] = None  # (1, T) int; -1 = host id
+    chain_tokens: Optional[torch.Tensor] = None  # (R, 1) int
 
 
 Cache = Union[KVCache, BlockKVCache]
@@ -218,6 +250,8 @@ def decoder_layer(
     # (slot_mapping (B, S), block_table (B, MB) | None, kv_limit (B,) | None)
     # on the paged cache
     block_inputs: Optional[Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]] = None,
+    # (row_start, row_len, ctx_len) (R,) of the ragged mixed step
+    ragged_rows: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder layer, write-then-attend: this layer's new K/V go into the
     full stacked cache first (in place; through ``slot_mapping`` on the
@@ -240,6 +274,17 @@ def decoder_layer(
     sink = layer_params["self_attn"].get("sink", {}).get("weight") if aspec.has_sink else None
     if phase == PHASE_CONTEXT_ENCODING:
         attn_out = attention_prefill(q, k, v, mask, aspec, sink=sink, key_valid=key_valid)
+    elif ragged_rows is not None:
+        # ragged mixed step: prefill-chunk AND decode rows in ONE attention
+        # launch off the paged cache, the masks derived from the descriptors
+        from neuronx_distributed_inference_tpu_torch.ops.ragged_paged_attention import (
+            ragged_attention,
+        )
+
+        rs, rl, cl = ragged_rows
+        attn_out = ragged_attention(
+            q, k_cache, v_cache, layer_idx, block_inputs[1], positions, rs, rl, cl, aspec
+        )
     elif block_inputs is not None:
         _, block_table, kv_limit = block_inputs
         attn_out = paged_attend(
@@ -442,6 +487,84 @@ def decode_steps(
     tokens = torch.stack(toks, dim=1)
     out_logits = torch.stack(outs, dim=1) if spec.output_logits else None
     return tokens, out_logits, cache
+
+
+def mixed_forward(
+    params: dict,
+    cache: BlockKVCache,
+    inputs: MixedStepInputs,
+    *,
+    spec: ModelSpec,
+    mlp_fn: Callable = gated_mlp,
+    spec_width: int = 1,
+) -> StepOutput:
+    """One ragged mixed prefill+decode serving step (the reference's
+    ``mixed_forward``): the batch axis is the packed query-token axis, the
+    cache writes scatter through the packed ``slot_mapping`` (in place), and
+    attention runs the B3 ragged kernel (ops/ragged_paged_attention.py).
+    Emits one next token per row, from each row's LAST packed query position
+    (a prefill chunk that completes its prompt emits the first generated
+    token, a decode row its next token), so one dispatch replaces the
+    context/decode pair of the split path.
+
+    Returns StepOutput with tokens (R, 1); inactive rows (row_len 0) carry
+    tokens the host ignores."""
+    if spec_width > 1:
+        raise NotImplementedError(
+            "speculative verification inside the mixed step (spec_width > 1) "
+            "is not ported to PyTorch yet (ROADMAP A7 (speculation))"
+        )
+    if (
+        getattr(spec, "layer_groups", None) is not None
+        or getattr(spec, "bounded_window", None)
+        or getattr(spec, "ring_window", None)
+    ):
+        raise NotImplementedError(
+            "the ragged mixed step supports uniform full-length layer stacks "
+            "only (no ring-bounded/interleaved caches or layer groups)"
+        )
+    if getattr(spec, "sliding_window", None) or getattr(spec, "attention_chunk_size", None) or spec.attn.has_sink:
+        raise NotImplementedError(
+            "the ragged paged kernel implements the plain causal+prefix mask "
+            "only (no sliding-window/chunked attention, no sinks)"
+        )
+
+    input_ids = inputs.input_ids
+    if inputs.chain_tokens is not None and inputs.chain_src is not None:
+        # device-side chained-id gather: packed slots whose chain_src names a
+        # row take that row's previous-step token straight off the device. A
+        # previous-step NON_FINITE sentinel (-1) clamps to token 0: the
+        # poisoned row computes finite garbage this step and is quarantined
+        # when the host consumes it.
+        R = inputs.chain_tokens.shape[0]
+        src = inputs.chain_src.to(torch.int64)
+        chained = torch.clamp(inputs.chain_tokens[:, 0], min=0)[torch.clamp(src, 0, R - 1)]
+        input_ids = torch.where(src >= 0, chained.to(input_ids.dtype), input_ids)
+    hidden = embed(params, input_ids)  # (1, T, H)
+    positions = inputs.position_ids
+    cos, sin = rope_cos_sin(positions, params["rope"]["inv_freq"], spec.attention_scaling)
+    block_inputs = (inputs.slot_mapping, inputs.block_table, inputs.ctx_len)
+    ragged = (inputs.row_start, inputs.row_len, inputs.ctx_len)
+    layers = params["layers"]
+    if isinstance(layers, dict):
+        layers = unstack_layers(layers)
+    k_cache, v_cache = cache.k, cache.v
+    for li, layer_params in enumerate(layers):
+        hidden, k_cache, v_cache = decoder_layer(
+            layer_params, hidden, cos, sin, k_cache, v_cache, li, None, None, positions, spec,
+            PHASE_MIXED, mlp_fn, block_inputs=block_inputs, ragged_rows=ragged,
+        )
+    hidden = apply_norm(hidden, params["norm"]["weight"], spec.rms_eps, spec.norm_type)
+    T = hidden.shape[1]
+    # per-row last-token gather off the packed axis; inactive rows clamp to
+    # slot 0, which the host never reads
+    last_idx = torch.clamp(inputs.row_start.to(torch.int64) + inputs.row_len.to(torch.int64) - 1, 0, T - 1)
+    rows_h = hidden[0][last_idx][:, None, :]  # (R, 1, H)
+    logits = lm_head(params, rows_h, spec)[..., : spec.vocab_size]  # (R, 1, V)
+    tokens = _next_tokens(logits, inputs.sampling_params)
+    return StepOutput(
+        tokens=tokens, logits=logits if spec.output_logits else None, cache=type(cache)(k=k_cache, v=v_cache)
+    )
 
 
 def forward(

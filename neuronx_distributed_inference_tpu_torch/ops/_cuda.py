@@ -25,10 +25,13 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("flash_attention", "decode_attention", "paged_flash_attention")
+KERNEL_SOURCES = ("flash_attention", "decode_attention", "paged_flash_attention", "ragged_paged_attention")
 #: the kernels whose launches are counted, by name: B4 (paged decode) is the
 #: paged address mode of decode_attention.cu, counted apart from B1
-KERNELS = ("flash_attention", "decode_attention", "paged_decode_attention", "paged_flash_attention")
+KERNELS = (
+    "flash_attention", "decode_attention", "paged_decode_attention", "paged_flash_attention",
+    "ragged_paged_attention",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -40,6 +40,16 @@ def use_paged_flash(spec, q_len: int) -> bool:
     return spec.use_flash_kernel is not False and q_len >= PAGED_FLASH_MIN_Q
 
 
+def use_ragged(spec) -> bool:
+    """Mixed-step attention through the B3 ragged kernel's wrapper
+    (reference ``ops/kernel_mode.py:208-232``). Its head_dim, tile-alignment
+    and model-parallel gates do not carry over: the wrapper raises on a
+    packed length that is not a multiple of 16 and on a head_dim the kernel
+    does not take, and only ``use_flash_kernel=False`` selects the plain
+    path."""
+    return spec.use_flash_kernel is not False
+
+
 def launches_kernel(*tensors: torch.Tensor) -> bool:
     """True when a wrapper must launch its CUDA kernel, False when its
     inputs lie on the CPU (plain version). Mixed or other devices raise."""

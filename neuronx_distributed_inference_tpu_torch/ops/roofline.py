@@ -4,13 +4,14 @@ not ported yet.
 
     python -m neuronx_distributed_inference_tpu_torch.ops.roofline
 
-prints the paper bounds of B3 and B6–B9, each at the shapes of the bench
-row that would run it. The bound is the larger of two times: the bytes the
+prints the paper bounds of B6–B9, each at the shapes of the bench row that
+would run it, and the bounds of B3's two timed points. The bound is the larger of two times: the bytes the
 function must move (each input read once, each output written once) over
 the card's memory rate, and its operations over the card's peak rate for
 their type. The rates are NVIDIA's published figures for one H100 SXM at
 its 700 W limit (dense, no sparsity). ``chip_smoke.py`` computes the bounds
-of the ported kernels from its own inputs with :func:`bound_ms`.
+of the ported kernels from its own inputs with :func:`bound_ms` (B3's with
+:func:`ragged_work`, at the points of :data:`RAGGED_POINTS`).
 """
 
 from __future__ import annotations
@@ -48,18 +49,37 @@ def attention_work(q_tokens: int, kv_positions: int, pairs: int, m: Dict[str, in
     return nbytes, 4 * m["D"] * m["Hq"] * pairs
 
 
-def ragged_mixed_step() -> Tuple[int, int]:
-    """B3 on the serving_1b_int8_ragged row's mixed step: one 128-token
-    prefill chunk from position 0 (causal) and 7 decode rows 192 tokens
-    deep, with the (row_start, row_len, ctx_len) descriptors and the 8 rows'
-    block tables of 1024 / 32 entries."""
-    m = MODEL_1B
-    chunk, rows, ctx = 128, 7, 192
-    q_tokens = chunk + rows
-    kv_positions = chunk + rows * ctx
-    pairs = chunk * (chunk + 1) // 2 + rows * ctx
-    nbytes, flops = attention_work(q_tokens, kv_positions, pairs, m)
-    return nbytes + 8 * 3 * I32 + 8 * (1024 // 32) * I32, flops
+RAGGED_Q_TILE = 16  # packed slots per q tile (ops/ragged_paged_attention.py)
+
+#: B3's timed points on the serving_1b_int8_ragged row (8 slots, a kv width
+#: of 1024 in blocks of 32), as each row's new tokens and context length
+#: (new tokens included): the mixed step (one 128-token chunk from position
+#: 0 and 7 decode rows 192 deep) and a decode-only step (8 rows 192 deep,
+#: each one token in its own tile of 16). chip_smoke.py times B3 at both.
+RAGGED_POINTS = {
+    "mixed": dict(row_len=(128,) + (1,) * 7, ctx_len=(128,) + (192,) * 7, width=1024, block_size=32),
+    "decode": dict(row_len=(1,) * 8, ctx_len=(192,) * 8, width=1024, block_size=32),
+}
+
+
+def ragged_work(row_len, ctx_len, width: int, block_size: int, m: Dict[str, int] = MODEL_1B,
+                elt: int = BF16) -> Tuple[int, int]:
+    """B3's bytes and FLOPs for one launch: q read over the rows' real
+    tokens only (a padded slot's output is zeros whatever its q holds), out
+    written over all T packed slots (each row's segment rounded up to 16;
+    every element is written), K and V read once per context position of
+    each row, the (row_start, row_len, ctx_len) descriptors and the block
+    tables (int32); 4 * D FLOPs per allowed (query, key) pair per q head,
+    where a row of n new tokens over a context of c has
+    n (c - n) + n (n + 1) / 2 pairs."""
+    T = sum(-(-int(n) // RAGGED_Q_TILE) * RAGGED_Q_TILE for n in row_len)
+    R = len(row_len)
+    q_tokens = sum(int(n) for n in row_len)
+    kv_positions = sum(int(c) for n, c in zip(row_len, ctx_len) if n > 0)
+    pairs = sum(int(n) * (int(c) - int(n)) + int(n) * (int(n) + 1) // 2 for n, c in zip(row_len, ctx_len))
+    nbytes = (q_tokens + T) * m["Hq"] * m["D"] * elt + 2 * kv_positions * m["Hkv"] * m["D"] * elt
+    nbytes += 3 * R * I32 + R * (width // block_size) * I32
+    return nbytes, 4 * m["D"] * m["Hq"] * pairs
 
 
 def int4_matmul(tokens: int, K: int, N: int) -> Tuple[int, int]:
@@ -103,9 +123,6 @@ def paper_bounds() -> List[dict]:
     """One row per kernel still to port: where its shapes come from, its
     bytes and FLOPs, and its bound on one H100."""
     cases = [
-        ("B3", "ragged_paged_attention", "serving_1b_int8_ragged",
-         "mixed step: one 128-token chunk from 0 + 7 decode rows 192 deep; Hq 32, Hkv 8, D 64, bf16 KV",
-         ragged_mixed_step()),
         ("B6", "quant_matmul", "bf16_8b_int4",
          "decode at batch 1, the 8B up projection K 4096 x N 14336, int4 codes, f32 scales per 128 rows",
          int4_matmul(1, MODEL_8B["H"], MODEL_8B["I"])),
@@ -134,6 +151,13 @@ def main() -> None:
         print(
             f"| {r['tag']} | `{r['name']}` | {r['bench_row']} | {r['shape']} | {r['bytes']:,} | "
             f"{r['flops']:,} | {r['bound_ms']:.5f} ({r['bound_by']}) |"
+        )
+    for name, pt in RAGGED_POINTS.items():
+        nbytes, flops = ragged_work(**pt)
+        ms, by = bound_ms(nbytes, flops)
+        print(
+            f"| B3 | `ragged_paged_attention` | serving_1b_int8_ragged | {name} point: row_len "
+            f"{list(pt['row_len'])}, ctx_len {list(pt['ctx_len'])}, bf16 | {nbytes:,} | {flops:,} | {ms:.5f} ({by}) |"
         )
 
 

@@ -5,6 +5,8 @@ the reference's ``runtime/application.py``).
 context-encoding runner and one token-generation runner over a KV cache on
 the config's device (``"cuda"`` unless the caller asks for the CPU). The
 cache is contiguous, or the paged block pool with ``is_block_kv_layout``.
+With ``serving_ragged`` it also carries ``mixed_step_model``, the ragged
+mixed-step runner the serving session dispatches once per step.
 ``generate`` keeps the reference's host loop over the contiguous cache: one
 prefill, then decode chunks sized by :func:`_pick_chunk`, with tokens kept
 on the device and fetched once at the end when no EOS is given, and fetched
@@ -37,6 +39,7 @@ from neuronx_distributed_inference_tpu_torch.modules.sampling import (
 from neuronx_distributed_inference_tpu_torch.runtime.model_runner import (
     TAG_CONTEXT_ENCODING,
     TAG_TOKEN_GENERATION,
+    MixedStepRunner,
     SubModelRunner,
 )
 
@@ -101,6 +104,29 @@ class ModelForCausalLM:
             tkg_buckets, tc.tkg_batch_size, self.device, mlp_fn, **block_kwargs,
         )
         self.runners = [self.context_encoding_model, self.token_generation_model]
+        # ragged mixed-step family (serving_ragged): ONE dispatch per serving
+        # step covers prefill chunks AND decode rows; its bucket axis is the
+        # TOTAL packed query-token count, not a per-phase shape
+        self.mixed_step_model = None
+        if tc.serving_ragged:
+            from neuronx_distributed_inference_tpu_torch.ops.ragged_paged_attention import RAGGED_Q_TILE
+
+            cpc = tc.chunked_prefill_config
+            chunk = cpc.kernel_q_tile_size if cpc else 128
+            max_seqs = cpc.max_num_seqs if cpc else 8
+            num_rows = tc.kv_cache_batch_size or tc.max_batch_size
+            # worst-case packed step: max_seqs tile-aligned prefill chunks
+            # plus every slot decoding (one q tile each)
+            top = autobucketing.round_up(chunk, RAGGED_Q_TILE) * max_seqs + num_rows * RAGGED_Q_TILE
+            mixed_buckets = []
+            b = RAGGED_Q_TILE
+            while b < top:
+                mixed_buckets.append(b)
+                b *= 2
+            mixed_buckets.append(b)
+            self.mixed_step_model = MixedStepRunner(
+                self.spec, mixed_buckets, num_rows, self.device, mlp_fn, tc.pa_block_size, tkg_buckets,
+            )
 
     # ---- weights / cache -------------------------------------------------
 
@@ -130,8 +156,9 @@ class ModelForCausalLM:
         self.kv_cache = self.builder.init_kv_cache()
 
     def warmup(self):
-        """Run every bucket of both runners once, and with chunked or prefix
-        prefill every chunk q length (kernel builds included)."""
+        """Run every bucket of both runners once, with chunked or prefix
+        prefill every chunk q length, and every total-token bucket of the
+        mixed-step runner (kernel builds included)."""
         tc = self.config.torch_config
         chunk_q = None
         if tc.is_chunked_prefill or tc.is_prefix_caching:
@@ -141,6 +168,8 @@ class ModelForCausalLM:
                 self.params, self.kv_cache,
                 chunk_q_lens=chunk_q if runner is self.token_generation_model else None,
             )
+        if self.mixed_step_model is not None:
+            self.kv_cache = self.mixed_step_model.warmup(self.params, self.kv_cache)
         return self
 
     # ---- one step ----------------------------------------------------------

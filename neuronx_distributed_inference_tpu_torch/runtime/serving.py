@@ -1,5 +1,6 @@
-"""Continuous-batching serving session, split dispatch (counterpart of the
-reference's ``runtime/serving.py::ServingSession`` on its split path).
+"""Continuous-batching serving session (counterpart of the reference's
+``runtime/serving.py::ServingSession``), on the split path and the ragged
+mixed-step path.
 
 A :class:`ServingSession` owns the KV slot table of an application built
 with ``is_continuous_batching``:
@@ -15,18 +16,23 @@ with ``is_continuous_batching``:
 - ``run_to_completion`` drains the session, in multi-step device chunks
   once every live request is decoding.
 
-It runs over the paged cache (chunk passes through the B5 paged flash
-kernel, decode through B4, admission without chunking through B2) and over
-the contiguous cache (B2 and B1). Fault containment follows the reference:
+With ``serving_ragged`` each ``step`` is instead ONE mixed dispatch
+(:meth:`ServingSession._ragged_step`): the admitted prefill chunks and every
+decoding row pack on one query axis and run one ragged paged attention
+launch (B3) per layer, synchronously or 1-ahead (``serving_ragged_async``).
+
+The split path runs over the paged cache (chunk passes through the B5 paged
+flash kernel, decode through B4, admission without chunking through B2) and
+over the contiguous cache (B2 and B1). Fault containment follows the reference:
 typed admission verdicts, preemption on pool exhaustion with re-admission
 ahead of new arrivals, deadlines, bounded dispatch retry, row quarantine
 with a KV scrub, and a no-progress watchdog.
 
 The port updates the cache in place where the reference rebinds a new one.
 Outside this slice, and raising ``NotImplementedError`` with their ROADMAP
-item: the ragged mixed step (A5), the speculative session (A7), admission
-of a request prefilled elsewhere (A8) and windowed admission of prompts
-longer than the largest context bucket (A3b).
+item: the speculative session and speculation inside the mixed step (A7),
+admission of a request prefilled elsewhere (A8) and windowed admission of
+prompts longer than the largest context bucket (A3b).
 """
 
 from __future__ import annotations
@@ -158,9 +164,10 @@ class ServingSession:
         self._terminal_total = 0  # monotone: requests reaching a terminal state
         self._last_dispatch_error: Optional[str] = None
         #: device passes this session ran, by kind: "prefill" (context
-        #: encoding), "prefill_chunk" (chunked/prefix prefill passes) and
+        #: encoding), "prefill_chunk" (chunked/prefix prefill passes),
         #: "decode_steps" (decode iterations, one per layer stack, chunked
-        #: drains counted per step they ran)
+        #: drains counted per step they ran) and "mixed_step" (ragged mixed
+        #: dispatches)
         self.dispatches: Counter = Counter()
         if not tc.is_continuous_batching:
             raise ValueError("ServingSession requires is_continuous_batching=True")
@@ -199,6 +206,40 @@ class ServingSession:
         self._pending = None
         self.async_decode = bool(tc.async_mode)
         self._sampling_cache: Optional[np.ndarray] = None
+        # ragged mixed-step dispatch (serving_ragged): step() packs admitted
+        # prefill chunks AND decoding rows into ONE dispatch of the
+        # mixed-step runner. Its 1-ahead form (serving_ragged_async, default
+        # async_mode) chains step k+1's decode rows on step k's tokens still
+        # on the device and consumes step k one step() late
+        self.ragged = bool(tc.serving_ragged)
+        self.mixed_runner = None
+        self.ragged_async = False
+        # per-slot block-table rows ((R, MB_max) matrix + per-slot block
+        # counts), refreshed on every allocator mutation: the per-step
+        # descriptor build reads it instead of walking the allocator
+        self._bt_matrix: Optional[np.ndarray] = None
+        self._bt_count: Optional[np.ndarray] = None
+        # blocking-fetch wait inside the current _ragged_step (the step's
+        # wall time minus this is host time)
+        self._step_fetch_wait_s = 0.0
+        if self.ragged:
+            self.mixed_runner = getattr(app, "mixed_step_model", None)
+            if self.mixed_runner is None:
+                raise ValueError(
+                    "serving_ragged=True but the application carries no "
+                    "mixed_step program family (build the app with the same "
+                    "config that constructs this session)"
+                )
+            # the split path's 1-ahead decode stays off: the ragged pipeline
+            # has its own pending-step consume (_consume_ragged)
+            self.async_decode = False
+            ra = tc.serving_ragged_async
+            self.ragged_async = bool(tc.async_mode) if ra is None else bool(ra)
+            mb_max = max(
+                1, -(-max(app.token_generation_model.buckets[-1], tc.seq_len) // tc.pa_block_size)
+            )
+            self._bt_matrix = np.zeros((self.num_slots, mb_max), np.int32)
+            self._bt_count = np.zeros(self.num_slots, np.int64)
         self.tel.pool_gauges(0, self.kv_pool_bytes, self.kv_free_bytes)
 
     @property
@@ -317,6 +358,7 @@ class ServingSession:
         if self.prefix_caching:
             req.prefill_pos = self.allocator.match_prefix(slot, req.input_ids)
             req.pos = req.prefill_pos
+            self._bt_sync(slot)
         self.slots[slot] = req
         self.requests[req.req_id] = req
         self.tel.request_admitted(req.req_id, cached_prefix_tokens=req.prefill_pos)
@@ -352,6 +394,7 @@ class ServingSession:
                     self.app.kv_cache = fill_kv_rows(self.app.kv_cache, blocks, 0.0)
             else:
                 self.allocator.free_seq(req.slot)
+            self._bt_sync(req.slot)
         elif scrub:
             # one model-parallel shard: slot s owns contiguous cache line s
             self.app.kv_cache = fill_kv_rows(self.app.kv_cache, [req.slot], 0.0)
@@ -363,7 +406,28 @@ class ServingSession:
         without shrinking the real pool."""
         if self.faults is not None and self.faults.pool_exhausted(self):
             raise RuntimeError("out of KV blocks (injected fault)")
-        return self.allocator.alloc_seq(slot, num_tokens)
+        blocks = self.allocator.alloc_seq(slot, num_tokens)
+        self._bt_sync(slot)
+        return blocks
+
+    def _bt_sync(self, slot: int):
+        """Refresh the cached block-table row of ``slot`` from the allocator
+        (a no-op unless its block list changed: the steady-state decode step
+        allocates nothing and pays one length compare). Called at every
+        block-list mutation: alloc, release (free, preempt, quarantine) and
+        prefix attach."""
+        if self._bt_matrix is None:
+            return
+        blocks = self.allocator.seq_blocks.get(slot)
+        n = len(blocks) if blocks else 0
+        if n == int(self._bt_count[slot]):
+            return
+        row = self._bt_matrix[slot]
+        row[:] = 0
+        if n:
+            m = min(n, row.shape[0])
+            row[:m] = blocks[:m]
+        self._bt_count[slot] = n
 
     def _session_sampling_params(self) -> np.ndarray:
         sp = self._sampling_cache
@@ -491,11 +555,14 @@ class ServingSession:
             "last_dispatch_error": self._last_dispatch_error,
         }
 
-    def _guarded_dispatch(self, label: str, reqs: List[Request], fn):
+    def _guarded_dispatch(self, label: str, reqs: List[Request], fn, on_give_up=None):
         """Run one device dispatch with bounded-backoff retry. Transient
         errors retry up to ``dispatch_max_retries`` times; exhaustion
         terminally FAILs only the in-flight ``reqs`` and returns None.
-        Anything else propagates."""
+        Anything else propagates. ``on_give_up`` runs BEFORE the in-flight
+        rows fail: the pipelined ragged path consumes the already-executed
+        previous step there, so a request failing at step k+1 keeps its
+        step-k token (the order the synchronous path commits in)."""
         attempt = 0
         while True:
             try:
@@ -508,6 +575,8 @@ class ServingSession:
                     self._last_dispatch_error = repr(e)
                     if self.faults is not None:
                         self.faults.dispatch_gave_up(self)
+                    if on_give_up is not None:
+                        on_give_up()
                     for r in reqs:
                         if not r.finished:
                             self._finish(r, "dispatch_error")
@@ -747,6 +816,8 @@ class ServingSession:
         return results
 
     def _step_inner(self) -> Dict[str, int]:
+        if self.ragged:
+            return self._ragged_step()
         results: Dict[str, int] = {}
         prefill_finished: set = set()
         if self.chunked and self.prefilling:
@@ -888,6 +959,263 @@ class ServingSession:
             if self._is_done(req, tok):
                 self._finish(req)
 
+    # ---- ragged mixed step ---------------------------------------------------
+
+    def _ragged_step(self) -> Dict[str, int]:
+        """One RAGGED mixed dispatch: admitted prefill chunks (up to
+        ``max_prefill_seqs``, ``chunk_size`` tokens each) and every decoding
+        row pack into ONE call of the mixed-step runner, one ragged attention
+        launch per layer. Row index == slot; segments are q-tile aligned;
+        one consumed host fetch per step. Returns {req_id: token} like the
+        split step().
+
+        Pipelined (``ragged_async``): step k+1 is scheduled from each row's
+        EFFECTIVE state (its in-flight step counted as done), chained decode
+        rows take their input id from step k's tokens on the device, step
+        k's device-to-host copy was started at its dispatch, and step k is
+        consumed AFTER step k+1 is dispatched, so the host bookkeeping here
+        overlaps the device running k+1. Rows preempted or quarantined since
+        their dispatch carry a stale epoch: their in-flight token is
+        discarded and (greedy) regenerated identically after re-admission."""
+        results: Dict[str, int] = {}
+        t_step0 = self.tel.clock()
+        self._step_fetch_wait_s = 0.0
+        pend = self._pending
+        self._pending = None
+        pend_map: Dict[int, tuple] = {}
+        if pend is not None:
+            for ent in pend[1]:
+                req = ent[0]
+                if ent[5] == req.epoch and not req.finished and not req.preempted:
+                    pend_map[id(req)] = ent
+
+        rows = self._schedule_mixed(pend_map)
+        if not rows:
+            if pend is not None:
+                self._consume_ragged(pend, results)
+            self._note_step_timing(t_step0)
+            return results
+
+        mr = self.mixed_runner
+        d = self._build_mixed_descriptors(rows)
+        chain_tokens = pend[0] if (pend is not None and d["chained"]) else None
+
+        def dispatch():
+            with self.tel.span("serving.mixed_step", rows=len(rows), tokens=d["T"]):
+                inputs, _ = mr.prepare(
+                    d["ids"], d["positions"], d["slot_mapping"], d["row_start"], d["row_len"],
+                    d["ctx_len"], d["block_table"], d["width"], self._session_sampling_params(),
+                    chain_src=d["chain_src"], chain_tokens=chain_tokens,
+                )
+                return mr(self.app.params, self.app.kv_cache, inputs)
+
+        consumed = [False]
+
+        def give_up():
+            # the previous step already ran on the device: commit it BEFORE
+            # the in-flight rows fail, so a request failing at step k+1 keeps
+            # its step-k token (the synchronous commit order)
+            if pend is not None and not consumed[0]:
+                consumed[0] = True
+                self._consume_ragged(pend, results)
+
+        out = self._guarded_dispatch("mixed_step", [t[0] for t in rows], dispatch, on_give_up=give_up)
+        if out is None:
+            # in-flight rows terminally FAILED(dispatch_error); give_up
+            # consumed the previous step
+            self._note_step_timing(t_step0)
+            return results
+        self.app.kv_cache = out.cache
+        self.dispatches["mixed_step"] += 1
+        self.tel.step("mixed")
+        self.tel.bucket_dispatch(mr.tag, mr.last_bucket)
+        n_prefill = sum(1 for t in rows if t[1] == "prefill")
+        real_tokens = int(sum(t[2] for t in rows))
+        self.tel.mixed_step(
+            prefill_rows=n_prefill, decode_rows=len(rows) - n_prefill,
+            padded_slots=mr.last_bucket - real_tokens, query_tokens=real_tokens,
+        )
+        for req, kind, n, _p0, _c in rows:
+            if kind == "prefill":
+                self._note_prefill(req, n)
+        self.tel.pool_gauges(len(self.active), self.kv_pool_bytes, self.kv_free_bytes)
+        snap = [(req, kind, n, p0, req.slot, req.epoch) for req, kind, n, p0, _c in rows]
+        step = (out.tokens, snap, _TokenFetch(out.tokens))
+        if self.ragged_async:
+            self._pending = step
+            if pend is not None:
+                self._consume_ragged(pend, results)
+        else:
+            self._consume_ragged(step, results)
+        self._note_step_timing(t_step0)
+        return results
+
+    def _schedule_mixed(self, pend_map: Dict[int, tuple]) -> List[tuple]:
+        """This step's rows [(req, kind, n, p0, chained), ...] from each
+        row's EFFECTIVE state: a row with a current pending entry
+        (``pend_map``, epoch-matched) is scheduled as if that step had
+        committed: its prefill cursor advanced, its decode position + 1, its
+        next input id chained from the tokens on the device. With
+        pipelining off ``pend_map`` is empty and this is the synchronous
+        schedule."""
+        rows: List[tuple] = []
+        seq_len = self.app.config.torch_config.seq_len
+        if self.chunked:
+            pref = []
+            for r in self.slots:
+                if r is None or r.finished:
+                    continue
+                e = pend_map.get(id(r))
+                eff = e[3] + e[2] if (e is not None and e[1] == "prefill") else r.prefill_pos
+                if eff < r.prompt_len:
+                    pref.append((r, eff))
+            for req, eff in pref[: self.max_prefill_seqs]:
+                n = min(self.chunk_size, req.prompt_len - eff)
+                try:
+                    self._alloc(req.slot, eff + n)
+                except RuntimeError:
+                    # pool exhausted: preempt (re-queued ahead of arrivals)
+                    self._preempt(req)
+                    continue
+                rows.append((req, "prefill", n, eff, False))
+        scheduled = {id(t[0]) for t in rows}
+        for r in list(self.slots):
+            if r is None or r.finished or id(r) in scheduled:
+                continue
+            e = pend_map.get(id(r))
+            if e is not None and e[1] == "prefill":
+                eff = e[3] + e[2]
+                if eff < r.prompt_len:
+                    continue  # still mid-prompt (or waiting for a chunk slot)
+                # completed its prompt in flight: its first generated token
+                # is on the device; chained decode at position prompt_len
+                p0, chained, committed_after = eff, True, len(r.generated) + 1
+            elif e is not None:
+                p0, chained, committed_after = e[3] + 1, True, len(r.generated) + 1
+            else:
+                if r.prefilling:
+                    continue  # beyond max_prefill_seqs this step
+                p0, chained, committed_after = r.pos, False, len(r.generated)
+            if chained and (
+                committed_after >= r.max_new_tokens or (e[1] == "decode" and e[3] + 2 >= seq_len)
+            ):
+                # the pending token predictably ends this request (budget or
+                # position limit): no speculative row for it. EOS is not
+                # predictable: such rows run one extra step whose token is
+                # discarded, as on the split path
+                continue
+            try:
+                self._alloc(r.slot, p0 + 1)
+            except RuntimeError:
+                self._preempt(r)
+                continue
+            rows.append((r, "decode", 1, p0, chained))
+        return rows
+
+    def _build_mixed_descriptors(self, rows: List[tuple]) -> Dict:
+        """The packed arrays of one mixed step, vectorized: decode rows (the
+        steady-state bulk) with whole-array numpy ops off the cached
+        block-table matrix, prefill chunks (at most ``max_prefill_seqs``)
+        with one slice write each. Element for element the per-row build
+        (pinned by the tests)."""
+        rows.sort(key=lambda t: t[0].slot)
+        tq = self.mixed_runner.q_tile
+        R = self.num_slots
+        bs = self.allocator.block_size
+        k = len(rows)
+        slots = np.fromiter((t[0].slot for t in rows), np.int64, k)
+        ns = np.fromiter((t[2] for t in rows), np.int64, k)
+        p0s = np.fromiter((t[3] for t in rows), np.int64, k)
+        dec = np.fromiter((t[1] == "decode" for t in rows), np.bool_, k)
+        chain = np.fromiter((t[4] for t in rows), np.bool_, k)
+        seg = -(-ns // tq) * tq  # q-tile-aligned segment sizes
+        starts = np.zeros(k, np.int64)
+        np.cumsum(seg[:-1], out=starts[1:])
+        T = int(seg.sum())
+        row_start = np.zeros(R, np.int32)
+        row_len = np.zeros(R, np.int32)
+        ctx_len = np.zeros(R, np.int32)
+        row_start[slots] = starts
+        row_len[slots] = ns
+        ctx_len[slots] = p0s + ns
+        ids = np.zeros(T, np.int32)
+        positions = np.full(T, -1, np.int32)
+        slot_mapping = np.full(T, -1, np.int32)
+        chain_src = np.full(T, -1, np.int32)
+        if dec.any():
+            dst = starts[dec]
+            dslot = slots[dec]
+            dpos = p0s[dec]
+            # a chained row's host id is a placeholder the device gather replaces
+            ids[dst] = np.fromiter((t[0].last_token for t in rows if t[1] == "decode"), np.int64, int(dec.sum()))
+            positions[dst] = dpos
+            slot_mapping[dst] = self._bt_matrix[dslot, dpos // bs] * bs + dpos % bs
+            dchain = chain[dec]
+            chain_src[dst[dchain]] = dslot[dchain]
+        for i in np.flatnonzero(~dec):
+            req, _kind, n, p0, _c = rows[i]
+            s0 = int(starts[i])
+            pr = np.arange(p0, p0 + n)
+            positions[s0 : s0 + n] = pr
+            slot_mapping[s0 : s0 + n] = self._bt_matrix[req.slot, pr // bs] * bs + pr % bs
+            ids[s0 : s0 + n] = req.input_ids[p0 : p0 + n]
+        width = get_target_bucket(self.app.token_generation_model.buckets, int((p0s + ns).max()))
+        mb = max(1, width // bs)
+        block_table = np.zeros((R, mb), np.int32)
+        take = min(mb, self._bt_matrix.shape[1])
+        block_table[:, :take] = self._bt_matrix[:, :take]
+        return {
+            "T": T, "ids": ids, "positions": positions, "slot_mapping": slot_mapping,
+            "row_start": row_start, "row_len": row_len, "ctx_len": ctx_len,
+            "block_table": block_table, "width": width, "chain_src": chain_src,
+            "chained": bool(chain.any()),
+        }
+
+    def _consume_ragged(self, pend, results: Dict[str, int]):
+        """Fetch one dispatched mixed step (its copy started at dispatch, so
+        the wait is only what the overlap did not cover) and apply the
+        commit and termination bookkeeping. Rows whose request finished or
+        was evicted since the dispatch (stale epoch) are discarded; rows
+        carrying the non-finite sentinel are quarantined."""
+        t0 = self.tel.clock()
+        tokens = pend[2].wait()  # (R, 1)
+        self._step_fetch_wait_s += self.tel.clock() - t0
+        if self.faults is not None:
+            tokens = self.faults.corrupt_tokens(self, tokens)
+        for req, kind, n, p0, slot, epoch in pend[1]:
+            if req.finished or req.preempted or req.epoch != epoch:
+                continue
+            tok = int(tokens[slot, 0])
+            if kind == "prefill":
+                req.prefill_pos = p0 + n
+                if req.prefill_pos >= req.prompt_len:
+                    # the last prompt token's output IS the first generated
+                    # token (as in _prefill_chunks)
+                    self._finish_prefill(req, tok)
+                    if req.status != STATUS_FAILED:  # not quarantined
+                        results[req.req_id] = tok
+                continue
+            if tok < 0:
+                # non-finite sentinel: only this row dies
+                self._quarantine(req)
+                continue
+            req.generated.append(tok)
+            self._commit_tokens(req, 1)
+            req.pos = p0 + 1
+            results[req.req_id] = tok
+            if self._is_done(req, tok):
+                self._finish(req)
+
+    def _note_step_timing(self, t_step0: float):
+        """Host-vs-device split of this ragged step: everything but the
+        blocking part of the token fetch is host bookkeeping (descriptor
+        build, admission, commits, telemetry)."""
+        if not self.tel.enabled:
+            return
+        total_s = self.tel.clock() - t_step0
+        wait_s = min(self._step_fetch_wait_s, total_s)
+        self.tel.step_timing((total_s - wait_s) * 1e3, wait_s * 1e3)
+
     # ---- drain ---------------------------------------------------------------
 
     def run_to_completion(self, decode_chunk_size: int = 16) -> Dict[str, List[int]]:
@@ -896,7 +1224,12 @@ class ServingSession:
         ``decode_chunk_size`` tokens, or one for the whole drain when no
         request has an EOS), on the contiguous and the paged cache. Requests
         that hit EOS mid-chunk overshoot by up to a chunk of discarded
-        tokens."""
+        tokens. On the ragged path every step is one mixed dispatch: the
+        multi-step decode chunks would bring back the split."""
+        if self.ragged:
+            while self.active or self._readmit:
+                self.step()
+            return {rid: r.generated for rid, r in self.requests.items()}
         while self.active or self._readmit:
             self._expire_deadlines()
             if not self.active:
@@ -1119,6 +1452,29 @@ class ServingSession:
             elif finished:
                 self._finish(r)
         self.tel.pool_gauges(len(self.active), self.kv_pool_bytes, self.kv_free_bytes)
+
+
+class _TokenFetch:
+    """The device-to-host copy of one mixed step's tokens, started when the
+    step is dispatched: on a card a non-blocking copy into pinned host
+    memory and an event after it; :meth:`wait` blocks on that event only
+    (reading the pinned buffer before it completes would read stale
+    tokens). CPU tokens are already on the host."""
+
+    def __init__(self, tokens: torch.Tensor):
+        self.event = None
+        if tokens.is_cuda:
+            self.host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+            self.host.copy_(tokens, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        else:
+            self.host = tokens
+
+    def wait(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
 
 
 class SpeculativeServingSession(ServingSession):

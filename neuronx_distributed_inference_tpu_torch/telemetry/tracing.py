@@ -9,7 +9,10 @@ later token, finish), from which TTFT and ITL come
 :meth:`~TelemetrySession.percentile`), and keeps plain counters: requests
 submitted, admitted, dropped, rejected, preempted, quarantined and finished
 (by reason), dispatch retries, deadline overruns, watchdog preemptions and
-trips, model steps by kind and the bucket census. Every hook the session
+trips, model steps by kind and the bucket census, and for the ragged mixed
+step its composition (:meth:`TelemetrySession.mixed_step`) and the host /
+fetch-wait split of each step (:meth:`~TelemetrySession.step_timing`), as
+plain lists. Every hook the session
 calls exists here with the reference's name and semantics, so the
 observation counts match the reference session's on the same traffic.
 
@@ -75,7 +78,14 @@ class TelemetrySession:
         self.finished: Counter = Counter()  # by reason
         self.steps: Counter = Counter()  # model dispatches by kind
         self.buckets: Counter = Counter()  # (model tag, bucket) census
-        self.gauges: Dict[str, int] = {}
+        self.gauges: Dict[str, float] = {}
+        # ragged mixed step: one entry per dispatch under each label
+        # (prefill_rows, decode_rows, padded_slots, query_tokens)
+        self.mixed_steps: Dict[str, List[int]] = {}
+        # per ragged step: host ms (wall minus the blocking fetch) and the
+        # fetch wait ms
+        self.step_host_ms: List[float] = []
+        self.step_fetch_wait_ms: List[float] = []
 
     # ---- spans -----------------------------------------------------------
 
@@ -232,6 +242,35 @@ class TelemetrySession:
         if not self.enabled:
             return
         self.gauges.update(occupancy=occupancy, kv_pool_bytes=kv_pool_bytes, kv_free_bytes=kv_free_bytes)
+
+    def step_timing(self, host_ms: float, fetch_wait_ms: float) -> None:
+        """Host-vs-device split of ONE serving step on the host clock:
+        ``host_ms`` is the step's wall time minus the blocking token fetch,
+        ``fetch_wait_ms`` that wait."""
+        if not self.enabled:
+            return
+        self.step_host_ms.append(host_ms)
+        self.step_fetch_wait_ms.append(fetch_wait_ms)
+
+    def mixed_step(
+        self,
+        prefill_rows: int,
+        decode_rows: int,
+        padded_slots: int,
+        query_tokens: int,
+    ) -> None:
+        """Composition of ONE ragged mixed dispatch: rows serving prefill
+        chunks and decode, padded packed slots and real query tokens in the
+        dispatched total-token bucket. Each label's entry count equals the
+        number of mixed dispatches; padded_slots / (padded_slots +
+        query_tokens) is the padded share."""
+        if not self.enabled:
+            return
+        for label, v in (
+            ("prefill_rows", prefill_rows), ("decode_rows", decode_rows), ("padded_slots", padded_slots),
+            ("query_tokens", query_tokens),
+        ):
+            self.mixed_steps.setdefault(label, []).append(int(v))
 
     # ---- summaries ---------------------------------------------------------
 

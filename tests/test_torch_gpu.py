@@ -29,11 +29,13 @@ def test_kernels_match_plain_on_the_card(cuda_card):
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
     from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
+    from neuronx_distributed_inference_tpu_torch.ops import ragged_paged_attention as rp
 
     _cuda.reset_launch_counts()
     chip_smoke.phase_flash_parity(torch, fa)
     chip_smoke.phase_decode_parity(torch, da)
     chip_smoke.phase_paged_decode_parity(torch, da)
     chip_smoke.phase_paged_flash_parity(torch, pf)
+    chip_smoke.phase_ragged_parity(torch, rp)
     counts = _cuda.launch_counts()
     assert all(counts[name] > 0 for name in _cuda.KERNELS), counts

@@ -92,7 +92,7 @@ def test_default_device_is_cuda_and_cuda_without_a_card_raises(monkeypatch):
         (dict(kv_cache_dtype="int8"), "A6"),
         (dict(kv_cache_dtype="fp8"), "A6"),
         (dict(is_block_kv_layout=True, kv_cache_dtype="int8"), "A6"),
-        (dict(serving_ragged=True), "A5"),
+        (dict(serving_spec_ragged=True), "A7"),
         (dict(speculation_length=4), "A7"),
         (dict(lora_config={"max_loras": 1}), "A9"),
         (dict(sliding_window=128), "A9"),
@@ -170,16 +170,19 @@ def _serving_app(**tc):
 
 
 def test_serving_settings_outside_the_slice_raise():
-    """The serving surface outside this slice names its ROADMAP item: the
-    ragged mixed step (A5), the speculative session (A7), the
-    disaggregated hand-off (A8) and windowed admission (A3b)."""
+    """The serving surface outside this slice names its ROADMAP item:
+    speculation inside the mixed step and the speculative session (A7),
+    the disaggregated hand-off (A8) and windowed admission (A3b)."""
     from neuronx_distributed_inference_tpu_torch.runtime.serving import (
         ServingSession,
         SpeculativeServingSession,
     )
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        Config(device="cpu", is_continuous_batching=True, is_block_kv_layout=True, serving_ragged=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        Config(
+            device="cpu", is_continuous_batching=True, is_block_kv_layout=True, serving_ragged=True,
+            serving_spec_ragged=True,
+        )
     app = _serving_app(context_encoding_buckets=[128], max_context_length=128)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         SpeculativeServingSession(app, app)
@@ -203,6 +206,7 @@ def test_serving_config_validation_matches_reference():
         dict(is_chunked_prefill=True),
         dict(is_chunked_prefill=True, is_block_kv_layout=True),
         dict(is_prefix_caching=True),
+        dict(is_continuous_batching=True, serving_ragged=True),
     ]
     for kw in bad:
         with pytest.raises(ValueError):
