@@ -55,24 +55,34 @@ def log(*args):
     print(*args, flush=True)
 
 
-def expect_launches(**nonzero):
-    """The launch counts a run must show: ``nonzero`` by kernel name, every
-    other kernel of ops/_cuda.py 0."""
+def all_counts():
+    """Every kernel's launch count and the int4 dense route's call count
+    (ops/_cuda.py)."""
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
 
-    return {**{name: 0 for name in _cuda.KERNELS}, **nonzero}
+    return {**_cuda.launch_counts(), **_cuda.route_counts()}
+
+
+def expect_launches(**nonzero):
+    """The counts a run must show: ``nonzero`` by kernel (or route) name,
+    every other kernel and route of ops/_cuda.py 0."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    return {**{name: 0 for name in (*_cuda.KERNELS, *_cuda.ROUTES)}, **nonzero}
 
 
 def plain_run(what, fn, *args):
-    """``fn(*args)`` with every launch count read around it: a plain-path
-    run must launch no kernel, or a check against it would compare a kernel
-    with itself."""
+    """``fn(*args)`` with every count read around it, B6 turned off: a
+    plain-path run must launch no kernel and take no dense int4 route, or a
+    check against it would compare a kernel with itself."""
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import quant_matmul_mode
 
     _cuda.reset_launch_counts()
-    out = fn(*args)
-    if _cuda.launch_counts() != expect_launches():
-        raise SystemExit(f"{what}: the plain run launched kernels: {_cuda.launch_counts()}")
+    with quant_matmul_mode(False):
+        out = fn(*args)
+    if all_counts() != expect_launches():
+        raise SystemExit(f"{what}: the plain run launched kernels: {all_counts()}")
     return out
 
 
@@ -102,10 +112,17 @@ def phase_device(torch):
 # ---------------------------------------------------------------------------
 
 
+#: cycles of the spin kernel queued before each timed launch (~0.5 ms)
+SPIN_CYCLES = 1_000_000
+
+
 def time_ms(torch, fn, iters=40, warmup=5):
     """Mean device time of ``fn`` over ``iters`` launches, each timed by its
     own CUDA events after a 64 MiB write that evicts the 50 MB L2 (on the
-    main path, each attention call follows ~100 MB of weight traffic)."""
+    main path, each attention call follows ~100 MB of weight traffic). A
+    spin kernel queued before the start event keeps the card busy while the
+    host runs the wrapper and enqueues the launch, so the events time the
+    device's work and not the host's launch cost."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -113,6 +130,7 @@ def time_ms(torch, fn, iters=40, warmup=5):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for i in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
@@ -769,11 +787,128 @@ def phase_ragged_times(torch, rp):
 
 
 # ---------------------------------------------------------------------------
+# 3d. the int4 fused-dequant matmul (B6) against its plain version
+# ---------------------------------------------------------------------------
+
+QMM_FP32_RTOL = 1e-5  # of max |plain|
+QMM_BF16_RTOL = 2.0 ** -8  # one bf16 rounding of |plain in fp32|
+
+
+def qmm_shapes():
+    """(label, K, N): every int4 projection of the 8B and 1B rows
+    (ops/roofline.py), and a padded K with an N that is not a multiple of
+    128 or of 4."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_1B, MODEL_8B, int4_projections
+
+    shapes = []
+    for label, m in (("8b", MODEL_8B), ("1b", MODEL_1B)):
+        shapes += [(f"{label} {name}", K, N) for name, (K, N) in int4_projections(m).items()]
+    return shapes + [("padded", 1000, 200), ("padded odd", 1000, 203)]
+
+
+def qmm_inputs(torch, gen, K, N):
+    """Random codes over all 256 byte values and a distinct random scale per
+    (group, column), between 0.5 and 1.5 times 0.01, so a wrong group or
+    plane moves the output far past the tolerance."""
+    kp = -(-K // 256) * 256
+    packed = torch.randint(0, 256, (kp // 2, N), generator=gen, device="cuda", dtype=torch.uint8)
+    scale = (torch.rand((kp // 128, N), generator=gen, device="cuda") + 0.5) * 0.01
+    return packed, scale
+
+
+def check_qmm(torch, qmm, x, packed, scale, case):
+    """One B6 launch against the plain version: fp32 within QMM_FP32_RTOL of
+    max |plain|; bf16 within one bf16 rounding of the plain version's fp32
+    result (the same inputs, upcast) plus QMM_FP32_RTOL of its max. Returns
+    the max abs error."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    before = _cuda.launch_counts()["quant_matmul"]
+    out = qmm.quant_matmul(x, packed, scale)
+    torch.cuda.synchronize()
+    if _cuda.launch_counts()["quant_matmul"] != before + 1:
+        raise SystemExit(f"quant_matmul case did not launch B6: {case}")
+    ref = qmm.quant_matmul_plain(x.float(), packed, scale)
+    o = out.float()
+    if not torch.isfinite(o).all():
+        raise SystemExit(f"quant_matmul returned non-finite values: {case}")
+    atol = QMM_FP32_RTOL * ref.abs().max().item()
+    rtol = QMM_BF16_RTOL if x.dtype == torch.bfloat16 else 0.0
+    diff = (o - ref).abs()
+    err = diff.max().item()
+    use = (diff / (atol + rtol * ref.abs())).max().item()
+    ok = use <= 1.0
+    log(
+        f"  quant_matmul {case}: max abs err {err:.3e}, largest share of the bound (atol {atol:.1e} "
+        f"+ rtol {rtol:.2e} x |plain|) {use:.3f}, |plain| up to {ref.abs().max().item():.3f} {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise SystemExit(f"quant_matmul disagrees with its plain version: {case}")
+    return err
+
+
+def phase_quant_matmul_parity(torch, qmm):
+    """B6 at rows 1, 2, 8, 16 and 64, bf16 and fp32, over every shape of
+    qmm_shapes()."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(9)
+    worst, n = 0.0, 0
+    for label, K, N in qmm_shapes():
+        packed, scale = qmm_inputs(torch, gen, K, N)
+        for rows in (1, 2, 8, 16, 64):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((rows, K), generator=gen, device="cuda").to(dtype)
+                case = f"{label} rows={rows} K={K} N={N} {str(dtype)[6:]}"
+                worst = max(worst, check_qmm(torch, qmm, x, packed, scale, case))
+                n += 1
+        del packed, scale
+    log(f"quant_matmul: {n} cases agree with the plain version (largest abs err {worst:.3e})")
+
+
+def phase_quant_matmul_times(torch, qmm):
+    """B6 at the 8B row's projections at 1 row and the 1B row's at 8 rows
+    (ops/roofline.QMM_POINTS), bf16, held to its plain version first, beside
+    the plain version, torch.matmul of x by the weight dequantized to bf16
+    beforehand (not timed; the cost the int4 format is meant to beat), and
+    the bound of ops/roofline.int4_matmul."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import QMM_POINTS, int4_matmul, int4_projections
+
+    rows_out = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(10)
+    for label, pt in QMM_POINTS.items():
+        rows = pt["rows"]
+        for name, (K, N) in int4_projections(pt["m"]).items():
+            packed, scale = qmm_inputs(torch, gen, K, N)
+            x = torch.randn((rows, K), generator=gen, device="cuda").to(torch.bfloat16)
+            case = f"timed {label} {name} rows={rows} K={K} N={N} bf16"
+            err = check_qmm(torch, qmm, x, packed, scale, case)
+            w = qmm.dequantize_int4(packed, scale, K, torch.bfloat16)
+            ms = time_ms(torch, lambda: qmm.quant_matmul(x, packed, scale))
+            plain_ms = time_ms(torch, lambda: qmm.quant_matmul_plain(x, packed, scale), iters=10)
+            lib_ms = time_ms(torch, lambda: torch.matmul(x, w))
+            b_ms, b_by = bound(*int4_matmul(rows, K, N))
+            rows_out[("quant_matmul", label, name)] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            )
+            log(
+                f"quant_matmul {label} {name} rows={rows} K={K} N={N} bf16 ({-(-N // 128) * -(-rows // 8)} "
+                f"blocks): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, matmul on the bf16 weight {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                f"{b_ms / ms:.3f} of the bound, err vs plain {err:.3e}"
+            )
+            del packed, scale, w
+    return rows_out
+
+
+# ---------------------------------------------------------------------------
 # 5. the main path
 # ---------------------------------------------------------------------------
 
 
-def _config(batch_size, **kw):
+def _config(batch_size, model=None, **kw):
+    """The bf16_1b_bs1 row's configuration (Llama-3.2-1B shapes unless
+    ``model`` gives others), ``kw`` overriding its Config fields."""
     from neuronx_distributed_inference_tpu_torch.config import Config
     from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_1B, LlamaInferenceConfig
 
@@ -783,7 +918,8 @@ def _config(batch_size, **kw):
         fused_qkv=True, seed=0, device="cuda",
     )
     tc = Config(**{**base, **kw})
-    return LlamaInferenceConfig(tc, load_config=lambda c: [setattr(c, k, v) for k, v in LLAMA_1B.items()])
+    attrs = model or LLAMA_1B
+    return LlamaInferenceConfig(tc, load_config=lambda c: [setattr(c, k, v) for k, v in attrs.items()])
 
 
 def phase_main_path(torch):
@@ -808,7 +944,7 @@ def phase_main_path(torch):
     t0 = time.perf_counter()
     out = app.generate(prompt, max_new_tokens=n_new)
     total_s = time.perf_counter() - t0
-    launches = _cuda.launch_counts()
+    launches = all_counts()
     peak = torch.cuda.max_memory_allocated()
     decode_tok_s = (n_new - 1) / (total_s - ttft_ms / 1e3)
     log(
@@ -1080,7 +1216,7 @@ def phase_serving(torch, params):
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     sess, total_s = _serve(torch, app, prompts, s["gen"], tel)
-    launches = _cuda.launch_counts()
+    launches = all_counts()
     peak = torch.cuda.max_memory_allocated()
     counts = {rid: len(r.generated) for rid, r in sess.requests.items()}
     ttft = [t * 1e3 for t in tel.ttft_values_s()]
@@ -1116,7 +1252,7 @@ def phase_serving(torch, params):
     app2 = ModelForCausalLM(None, _serving_config(chunked=False)).load(params=params).warmup()
     _cuda.reset_launch_counts()
     sess2, s2 = _serve(torch, app2, prompts[:4], 32, TelemetrySession())
-    launches2 = _cuda.launch_counts()
+    launches2 = all_counts()
     counts2 = [len(r.generated) for r in sess2.requests.values()]
     log(f"paged without chunked prefill (4 x 32 tokens): {s2 * 1e3:.1f} ms, dispatches {dict(sess2.dispatches)}, launches {launches2}")
     want2 = expect_launches(
@@ -1184,7 +1320,7 @@ def paged_teacher_forced(torch, params, seq, prompt_len=128):
     off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
     _cuda.reset_launch_counts()
     k = _paged_forced_logits(torch, _serving_config(output_logits=True), params, seq, prompt_len)
-    kl = _cuda.launch_counts()
+    kl = all_counts()
     n_layers = len(params["layers"])
     if kl["paged_flash_attention"] != n_layers or kl["paged_decode_attention"] != n_layers * (len(seq) - 1 - prompt_len):
         raise SystemExit(f"paged teacher-forced run did not take B5 then B4: {kl}")
@@ -1219,7 +1355,7 @@ def _ragged_run(torch, app, prompts, gen, split_tokens, label):
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_launch_counts()
     sess, total_s = _serve(torch, app, prompts, gen, tel)
-    launches = _cuda.launch_counts()
+    launches = all_counts()
     peak = torch.cuda.max_memory_allocated()
     counts = {rid: len(r.generated) for rid, r in sess.requests.items()}
     ttft = [t * 1e3 for t in tel.ttft_values_s()]
@@ -1261,6 +1397,7 @@ def _ragged_run(torch, app, prompts, gen, split_tokens, label):
     return dict(
         sess=sess, launches=launches, tok_s=tok_s, peak_bytes=peak, itl_p50_ms=pct(itl, 0.5),
         itl_p99_ms=pct(itl, 0.99), ttft_p50_ms=pct(ttft, 0.5), ttft_p99_ms=pct(ttft, 0.99),
+        buckets=dict(tel.buckets),
     )
 
 
@@ -1306,7 +1443,7 @@ def phase_ragged_serving(torch, params, split_tokens):
     app3 = ModelForCausalLM(None, _serving_config(chunked=False, serving_ragged=True)).load(params=params).warmup()
     _cuda.reset_launch_counts()
     sess3, s3 = _serve(torch, app3, prompts[:4], 32, TelemetrySession())
-    launches3 = _cuda.launch_counts()
+    launches3 = all_counts()
     counts3 = [len(r.generated) for r in sess3.requests.values()]
     log(f"ragged without chunked prefill (4 x 32 tokens): {s3 * 1e3:.1f} ms, dispatches {dict(sess3.dispatches)}, launches {launches3}")
     want3 = expect_launches(
@@ -1391,7 +1528,7 @@ def ragged_teacher_forced(torch, params, seq, prompt_len=128):
     off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
     _cuda.reset_launch_counts()
     k = _ragged_forced_logits(torch, _serving_config(serving_ragged=True, output_logits=True), params, seq, prompt_len)
-    kl = _cuda.launch_counts()
+    kl = all_counts()
     n_layers = len(params["layers"])
     want = expect_launches(ragged_paged_attention=n_layers * (len(seq) - prompt_len))
     if kl != want:
@@ -1408,6 +1545,255 @@ def ragged_teacher_forced(torch, params, seq, prompt_len=128):
     )
     del params32
     return _forced_gate(k, pl, f32, "ragged teacher-forced logits (one 128-token chunk row, then single-token rows, through B3)")
+
+
+# ---------------------------------------------------------------------------
+# 8. the quantized paths
+# ---------------------------------------------------------------------------
+
+#: bf16_8b_int4's teacher-forced gate runs the first layers of the 8B model:
+#: an fp32 copy of all 32 (~32 GB) would crowd the 80 GB card
+INT4_8B_FORCED_LAYERS = 8
+#: int4 projections per layer: fused QKV, o, gate, up, down
+INT4_PROJ_PER_LAYER = 5
+
+
+def _config_8b_int4(model=None, **kw):
+    """The bf16_8b_int4 row's configuration (bench.py:1218-1223): Llama-3.1-8B
+    shapes, grouped int4 weights, bf16, batch 1, seq 1024, CTE bucket [128],
+    TKG bucket [512], fused QKV."""
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_8B
+
+    return _config(
+        1, model=model or LLAMA_8B, weight_dtype="int4", context_encoding_buckets=[128],
+        token_generation_buckets=[512], **kw,
+    )
+
+
+def _config_1b_int8(**kw):
+    """The int8_1b_bs1 row's configuration (bench.py:1034-1038, built with
+    fused_qkv = not quantized at bench.py:182-185): Llama-3.2-1B shapes,
+    int8 per-channel weights, lm head included, CTE bucket [128], TKG [512]."""
+    return _config(
+        1, weight_dtype="int8", fused_qkv=False, context_encoding_buckets=[128],
+        token_generation_buckets=[512], **kw,
+    )
+
+
+def _dequantized(tree, dtype):
+    """The params with every quantized entry replaced by its dequantized
+    weight (int4: codes x group scales; int8: codes x channel scales) and
+    every other float leaf in ``dtype``."""
+    import torch
+
+    from neuronx_distributed_inference_tpu_torch.ops import quant_matmul as qmm
+
+    if isinstance(tree, list):
+        return [_dequantized(v, dtype) for v in tree]
+    if isinstance(tree, dict) and "scale" in tree:
+        w, sc = tree["weight"], tree["scale"]
+        if w.dtype == torch.uint8:
+            return {"weight": qmm.dequantize_int4(w, sc, None, dtype)}
+        return {"weight": (w.float() * sc[..., None, :]).to(dtype)}
+    if isinstance(tree, dict):
+        return {k: _dequantized(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def quantized_teacher_forced(torch, cfg_fn, params, seq, prompt_len, want, label):
+    """The kernel path on the quantized weights against the plain path
+    (attention kernels and B6 off) on the same weights and an fp32 run of
+    the plain path on the dequantized weights, teacher-forced over ``seq``
+    through forward(); the kernel run's counts must equal ``want``. The gate
+    of the other teacher-forced checks (FORCED_RATIO by max and RMS, argmax
+    on decided positions)."""
+    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    _cuda.reset_launch_counts()
+    k = _forced_logits(torch, cfg_fn(output_logits=True), params, seq, prompt_len)
+    if all_counts() != want:
+        raise SystemExit(f"{label}: kernel run counts {all_counts()} != {want}")
+    pl = plain_run(f"{label} bf16", _forced_logits, torch, cfg_fn(output_logits=True, **off), params, seq, prompt_len)
+    params32 = _dequantized(params, torch.float32)
+    f32 = plain_run(
+        f"{label} fp32", _forced_logits, torch, cfg_fn(output_logits=True, dtype="float32", **off), params32, seq,
+        prompt_len,
+    )
+    del params32
+    torch.cuda.empty_cache()
+    return _forced_gate(k, pl, f32, label)
+
+
+def _generate_run(torch, app, prompt_len, n_new, label):
+    """TTFT (a one-token generate()), then a timed ``n_new``-token generate()
+    with the counts read around it, from a seeded prompt. Returns
+    (output, metrics)."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    vocab = app.spec.vocab_size
+    prompt = np.random.RandomState(0).randint(0, vocab, size=(1, prompt_len))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = app.generate(prompt, max_new_tokens=1)
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = app.generate(prompt, max_new_tokens=n_new)
+    total_s = time.perf_counter() - t0
+    launches = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    decode_tok_s = (n_new - 1) / (total_s - ttft_ms / 1e3)
+    log(
+        f"{label} (batch 1, prompt {prompt_len}, {n_new} new tokens): TTFT {ttft_ms:.2f} ms, generate "
+        f"{total_s * 1e3:.1f} ms, decode {decode_tok_s:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB"
+    )
+    log(f"{label} launches: {launches}")
+    gen = out.sequences[:, prompt_len:]
+    if gen.shape != (1, n_new) or gen.min() < 0 or gen.max() >= vocab:
+        raise SystemExit(f"{label}: bad generated tokens: shape {gen.shape}, range [{gen.min()}, {gen.max()}]")
+    if first.sequences[0, prompt_len] != out.sequences[0, prompt_len]:
+        raise SystemExit(f"{label}: first token differs between two generate() calls")
+    return out, dict(ttft_ms=ttft_ms, decode_tok_s=decode_tok_s, peak_bytes=peak, launches=launches)
+
+
+def phase_int4_8b(torch):
+    """The bf16_8b_int4 row at full width and depth: seeded random bf16
+    weights quantized to int4 at load on the card, greedy generate() of 256
+    tokens after a 128-token prompt with exact counts, a profile of one
+    16-step decode chunk, and the teacher-forced gate on the first
+    INT4_8B_FORCED_LAYERS layers."""
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_8B
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_8B, bound_ms, int4_step_bytes
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    prompt_len, n_new = 128, 256
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    app = ModelForCausalLM(None, _config_8b_int4()).load(random_weights=True)
+    torch.cuda.synchronize()
+    load_s, load_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    app.warmup()
+    torch.cuda.synchronize()
+    log(
+        f"int4 8B: load (random bf16 weights, int4 at load) {load_s:.2f} s, peak {load_peak / 2**30:.3f} GiB; "
+        f"warmup {time.perf_counter() - t0:.2f} s; params {_tree_bytes(app.params) / 2**30:.3f} GiB"
+    )
+    L = app.spec.num_layers
+    out, run = _generate_run(torch, app, prompt_len, n_new, "int4 8B generate()")
+    # the prefill's projections have 128 rows (dense route), its lm head one
+    # (B6); each of the 256 decode steps runs every projection and the lm
+    # head at one row (B6)
+    per_step = INT4_PROJ_PER_LAYER * L + 1
+    want = expect_launches(
+        quant_matmul=1 + 256 * per_step, int4_dense=INT4_PROJ_PER_LAYER * L,
+        flash_attention=L, decode_attention=L * 256,
+    )
+    if run["launches"] != want:
+        raise SystemExit(f"int4 8B launch counts {run['launches']} != expected {want}")
+    profile = phase_profile(torch, app, out.sequences[0], prompt_len)
+    b6 = sum(ms for name, ms in profile["kernel_ms_per_step"].items() if "qmm_kernel" in name)
+    busy = sum(profile["kernel_ms_per_step"].values())
+    step_bound = bound_ms(int4_step_bytes(MODEL_8B), 0)[0]
+    log(
+        f"  B6 (qmm_kernel) {b6:.4f} ms/step, {b6 / busy:.3f} of the device's busy time ({busy:.3f} ms/step); "
+        f"weight bound of the step {step_bound:.4f} ms ({step_bound / b6:.3f} of B6's time); host clock "
+        f"{profile['decode_step_ms']:.3f} ms/step"
+    )
+    n = INT4_8B_FORCED_LAYERS
+    params = dict(app.params, layers=app.params["layers"][:n])
+    steps = len(out.sequences[0]) - 1 - prompt_len
+    forced = quantized_teacher_forced(
+        torch, lambda **kw: _config_8b_int4(model={**LLAMA_8B, "num_hidden_layers": n}, **kw), params,
+        out.sequences[0], prompt_len,
+        expect_launches(
+            quant_matmul=1 + steps * (INT4_PROJ_PER_LAYER * n + 1), int4_dense=INT4_PROJ_PER_LAYER * n,
+            flash_attention=n, decode_attention=n * steps,
+        ),
+        f"int4 8B teacher-forced logits (first {n} of {L} layers)",
+    )
+    del app, params
+    torch.cuda.empty_cache()
+    return dict(run, **profile, b6_ms_per_step=b6, b6_busy_share=b6 / busy, step_bound_ms=step_bound, **forced)
+
+
+def _tree_bytes(tree):
+    if isinstance(tree, list):
+        return sum(_tree_bytes(v) for v in tree)
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def phase_int8_1b(torch):
+    """The int8_1b_bs1 row at full width and depth: the main path's seeded
+    random weights quantized to int8 at load, greedy generate() of 256
+    tokens after a 128-token prompt (B2 at D=64 and B1; int8 products are
+    plain PyTorch, so no B6), and the teacher-forced gate."""
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    prompt_len, n_new = 128, 256
+    t0 = time.perf_counter()
+    app = ModelForCausalLM(None, _config_1b_int8()).load(random_weights=True).warmup()
+    torch.cuda.synchronize()
+    log(f"int8 1B: load (int8 at load) + warmup {time.perf_counter() - t0:.2f} s, params "
+        f"{_tree_bytes(app.params) / 2**30:.3f} GiB")
+    L = app.spec.num_layers
+    out, run = _generate_run(torch, app, prompt_len, n_new, "int8 1B generate()")
+    want = expect_launches(flash_attention=L, decode_attention=L * 256)
+    if run["launches"] != want:
+        raise SystemExit(f"int8 1B launch counts {run['launches']} != expected {want}")
+    steps = len(out.sequences[0]) - 1 - prompt_len
+    forced = quantized_teacher_forced(
+        torch, _config_1b_int8, app.params, out.sequences[0], prompt_len,
+        expect_launches(flash_attention=L, decode_attention=L * steps), "int8 1B teacher-forced logits",
+    )
+    del app
+    torch.cuda.empty_cache()
+    return dict(run, **forced)
+
+
+def phase_int4_ragged(torch):
+    """The serving_1b_int4_ragged row (bench.py:1063-1068): the ragged
+    phase's configuration and traffic, synchronous, with the main path's
+    seeded random weights quantized to int4 at load. Counts from the route
+    rule and the session's own record: every mixed dispatch launches B3
+    once per layer and the lm head's B6 once (its 8 gathered rows); its
+    projections go to B6 when the dispatch packs at most 64 tokens, to the
+    dense route otherwise."""
+    from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import QMM_MAX_ROWS
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.runtime.model_runner import TAG_MIXED_STEP
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    s = SERVING
+    t0 = time.perf_counter()
+    app = ModelForCausalLM(
+        None, _serving_config(serving_ragged=True, serving_ragged_async=False, weight_dtype="int4"),
+    ).load(random_weights=True).warmup()
+    torch.cuda.synchronize()
+    L = app.spec.num_layers
+    log(f"int4 ragged serving: load (int4 at load) + warmup {time.perf_counter() - t0:.2f} s")
+    rng = np.random.RandomState(0)  # phase_serving's prompts
+    prompts = [rng.randint(0, app.spec.vocab_size - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    _serve(torch, app, prompts, s["gen"], TelemetrySession())  # warm pass
+    run = _ragged_run(torch, app, prompts, s["gen"], None, "int4 sync")
+    sess = run.pop("sess")
+    mixed = sess.dispatches["mixed_step"]
+    narrow = sum(n for (tag, b), n in run["buckets"].items() if tag == TAG_MIXED_STEP and b <= QMM_MAX_ROWS)
+    wide = sum(n for (tag, b), n in run["buckets"].items() if tag == TAG_MIXED_STEP and b > QMM_MAX_ROWS)
+    want = expect_launches(
+        ragged_paged_attention=mixed * L,
+        quant_matmul=narrow * INT4_PROJ_PER_LAYER * L + mixed,
+        int4_dense=wide * INT4_PROJ_PER_LAYER * L,
+    )
+    log(f"  mixed dispatches {mixed}: {narrow} packing <= {QMM_MAX_ROWS} tokens, {wide} more; buckets {run['buckets']}")
+    if run["launches"] != want or narrow + wide != mixed or set(sess.dispatches) != {"mixed_step"}:
+        raise SystemExit(f"int4 ragged serving: counts {run['launches']} != {want}, dispatches {dict(sess.dispatches)}")
+    del app, sess
+    torch.cuda.empty_cache()
+    return dict(run, mixed=mixed, narrow=narrow, wide=wide)
 
 
 def _map_tree(tree, fn):
@@ -1435,6 +1821,7 @@ def main():
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
     from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
+    from neuronx_distributed_inference_tpu_torch.ops import quant_matmul as qmm
     from neuronx_distributed_inference_tpu_torch.ops import ragged_paged_attention as rp
 
     reports = timed("build", _cuda.build)
@@ -1449,10 +1836,17 @@ def main():
     times = timed("times", phase_times, torch, fa, da)
     times.update(timed("paged times", phase_paged_times, torch, da, pf))
     times.update(timed("ragged times", phase_ragged_times, torch, rp))
+    timed("quant_matmul parity", phase_quant_matmul_parity, torch, qmm)
+    times.update(timed("quant_matmul times", phase_quant_matmul_times, torch, qmm))
     main_path = timed("main path", phase_main_path, torch)
     params = main_path.pop("params")
     serving = timed("serving", phase_serving, torch, params)
     ragged = timed("ragged serving", phase_ragged_serving, torch, params, serving["tokens"])
+    del params
+    torch.cuda.empty_cache()
+    int4_8b = timed("int4 8B generate", phase_int4_8b, torch)
+    timed("int8 1B generate", phase_int8_1b, torch)
+    timed("int4 ragged serving", phase_int4_ragged, torch)
 
     entries = []
     for name, key, source, replaces, launches in (
@@ -1471,6 +1865,10 @@ def main():
         # ragged drain
         ("ragged_paged_attention", ("ragged_paged_attention", "mixed"), "csrc/ragged_paged_attention.cu",
          "neuronx_distributed_inference_tpu/ops/ragged_paged_attention.py:267", ragged["runs"]["sync"]["launches"]),
+        # B6 at the 8B up projection, one row; launches of the int4 8B
+        # generate()
+        ("quant_matmul", ("quant_matmul", "8b", "up"), "csrc/quant_matmul.cu",
+         "neuronx_distributed_inference_tpu/ops/quant_matmul.py:231", int4_8b["launches"]),
     ):
         t = times[key]
         entries.append({

@@ -84,7 +84,7 @@ class ChunkedPrefillConfig:
 #: settings outside the ported slice -> (inert value, ROADMAP item)
 _NOT_PORTED: Dict[str, Tuple[Any, str]] = {
     "tp_degree": (1, "A10 (parallelism)"),
-    "quantized": (False, "A6 (quantization)"),
+    "quantized_checkpoints_path": (None, "A11 (quantized checkpoint artifacts)"),
     "serving_spec_ragged": (False, "A7 (speculation)"),
     "speculation_length": (0, "A7 (speculation)"),
     "enable_fused_speculation": (False, "A7 (speculation)"),
@@ -133,7 +133,16 @@ class Config:
     attn_kernel_enabled: Optional[bool] = None
     attn_block_tkg_kernel_enabled: Optional[bool] = None
 
-    # --- weights ---------------------------------------------------------
+    # --- quantization (reference config.py:489-505) -----------------------
+    quantized: bool = False
+    quantization_type: str = "per_channel_symmetric"  # or per_tensor_symmetric, blockwise
+    quantization_dtype: str = "int8"  # or fp8, float8_e4m3, float8_e5m2
+    modules_to_not_convert: Optional[List[str]] = None
+    # input-axis block size for quantization_type="blockwise"
+    blockwise_matmul_block_size: int = 128
+    # decode weight-storage dtype: "bfloat16" keeps weights in the compute
+    # dtype; "int8" is an alias of quantized=True (per-channel int8); "int4"
+    # packs grouped codes at load, streamed by the B6 fused-dequant kernel
     weight_dtype: str = "bfloat16"
 
     # --- serving: paged cache, continuous batching ------------------------
@@ -167,7 +176,7 @@ class Config:
 
     # --- not ported yet (validated, then refused) --------------------------
     tp_degree: int = 1
-    quantized: bool = False
+    quantized_checkpoints_path: Optional[str] = None
     serving_spec_ragged: bool = False
     speculation_length: int = 0
     enable_fused_speculation: bool = False
@@ -195,6 +204,10 @@ class Config:
             self.max_length = self.seq_len
         if self.weight_dtype == "bf16":
             self.weight_dtype = "bfloat16"
+        if self.weight_dtype == "int8" and not self.quantized:
+            # the weight_dtype spelling of int8 is an alias of the
+            # quantize-at-load path (reference config.py:573-577)
+            self.quantized = True
         if isinstance(self.on_device_sampling_config, dict):
             self.on_device_sampling_config = OnDeviceSamplingConfig(
                 **self.on_device_sampling_config
@@ -211,6 +224,11 @@ class Config:
     def kv_dtype(self) -> torch.dtype:
         return to_dtype(self.kv_cache_dtype) if self.kv_cache_dtype else self.torch_dtype
 
+    @property
+    def weight_int4(self) -> bool:
+        """True when weights pack to grouped int4 at load (ops/quant_matmul)."""
+        return self.weight_dtype == "int4"
+
     def validate(self):
         """The reference's checks for the kept fields, then the refusals,
         then the device (``cuda`` without a card raises RuntimeError)."""
@@ -222,12 +240,7 @@ class Config:
             )
         if self.padding_side not in ("right", "left"):
             raise ValueError("padding_side must be 'right' or 'left'")
-        if self.weight_dtype not in ("bfloat16", "int8", "int4"):
-            raise ValueError(
-                f"unknown weight_dtype {self.weight_dtype!r}; supported: "
-                "bfloat16 (no conversion), int8 (per-channel quantize-at-"
-                "load), int4 (grouped fused-dequant streaming)"
-            )
+        self._validate_quantization()
         if self.batch_size < 1 or self.seq_len < 1:
             raise ValueError("batch_size and seq_len must be >= 1")
         self._validate_serving()
@@ -237,11 +250,6 @@ class Config:
                     f"Config.{name}={getattr(self, name)!r} is not ported to "
                     f"PyTorch yet (ROADMAP {item})"
                 )
-        if self.weight_dtype != "bfloat16":
-            raise NotImplementedError(
-                f"weight_dtype={self.weight_dtype!r} is not ported to PyTorch "
-                "yet (ROADMAP A6 (quantization))"
-            )
         if self.kv_cache_dtype in KV_QUANT_DTYPE_NAMES:
             raise NotImplementedError(
                 f"kv_cache_dtype={self.kv_cache_dtype!r} (quantized KV cache) is "
@@ -259,6 +267,27 @@ class Config:
                 "PyTorch yet (ROADMAP A3b); the port decodes greedily"
             )
         resolve_device(self.device)
+
+    def _validate_quantization(self):
+        """The reference's weight-quantization checks (config.py:811-835)."""
+        if self.quantization_type not in (
+            "per_channel_symmetric",
+            "per_tensor_symmetric",
+            "blockwise",
+        ):
+            raise ValueError(f"unknown quantization_type {self.quantization_type}")
+        if self.weight_dtype not in ("bfloat16", "int8", "int4"):
+            raise ValueError(
+                f"unknown weight_dtype {self.weight_dtype!r}; supported: "
+                "bfloat16 (no conversion), int8 (per-channel quantize-at-"
+                "load), int4 (grouped fused-dequant streaming)"
+            )
+        if self.weight_dtype == "int4" and self.quantized:
+            raise ValueError(
+                "weight_dtype='int4' and quantized=True are two different "
+                "weight-conversion recipes applied to the same leaves; "
+                "pick one (int8 via weight_dtype='int8' IS quantized=True)"
+            )
 
     def _validate_serving(self):
         """The reference's serving checks (config.py:614-635, 720-759,

@@ -59,6 +59,7 @@ from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import (
     use_paged_flash,
     use_tkg,
 )
+from neuronx_distributed_inference_tpu_torch.ops.quant import linear
 
 PHASE_CONTEXT_ENCODING = "context_encoding"
 PHASE_TOKEN_GENERATION = "token_generation"
@@ -154,10 +155,10 @@ def act_fn(name: str) -> Callable:
 
 
 def gated_mlp(params: dict, hidden: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
-    """SwiGLU MLP."""
-    gate = act_fn(spec.act)(hidden @ params["gate_proj"]["weight"])
-    up = hidden @ params["up_proj"]["weight"]
-    return (gate * up) @ params["down_proj"]["weight"]
+    """SwiGLU MLP, each projection through ``ops/quant.linear``."""
+    gate = act_fn(spec.act)(linear(params["gate_proj"], hidden))
+    up = linear(params["up_proj"], hidden)
+    return linear(params["down_proj"], gate * up)
 
 
 def contiguous_decode_attend(
@@ -320,9 +321,11 @@ def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
 
 def lm_head(params: dict, hidden: torch.Tensor, spec: ModelSpec) -> torch.Tensor:
     """(B, K, H) -> (B, K, Vpad): the (H, Vpad) head (a materialized
-    transposed copy of the embedding for tied models), fp32 cast, padded
-    vocab tail filled with the dtype's most negative value."""
-    logits = hidden @ params["lm_head"]["weight"]
+    transposed copy of the embedding for tied models, quantized like any
+    other linear while the embedding stays in the compute dtype) through
+    ``ops/quant.linear``, fp32 cast, padded vocab tail filled with the
+    dtype's most negative value."""
+    logits = linear(params["lm_head"], hidden)
     if spec.cast_logits_fp32:
         logits = logits.float()
     return mask_padded_logits(logits, spec.vocab_size)

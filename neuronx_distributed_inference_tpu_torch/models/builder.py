@@ -45,16 +45,31 @@ def _to_torch(x, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
+#: quantized codes that cross from the JAX package as they are
+_CODE_DTYPES = {
+    "int8": torch.int8, "uint8": torch.uint8,
+    "float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2,
+}
+
+
 def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
     """The JAX package's param pytree, fetched as numpy arrays, as the
-    port's params: the layouts are the same, so this only converts leaves
-    (``rope.inv_freq`` stays fp32, every other leaf takes ``dtype``)."""
+    port's params: the layouts are the same, so this only converts leaves.
+    Quantized entries cross unchanged: int8, uint8 (packed int4) and fp8
+    codes keep their bytes and ``scale`` leaves stay fp32, as does
+    ``rope.inv_freq``; every other leaf takes ``dtype``."""
 
     def conv(t, path):
         if isinstance(t, dict):
             return {k: conv(v, path + (k,)) for k, v in t.items()}
-        leaf_dtype = torch.float32 if path == ("rope", "inv_freq") else dtype
-        return _to_torch(t, leaf_dtype, device)
+        a = np.asarray(t)
+        code = _CODE_DTYPES.get(a.dtype.name)
+        if code is not None:
+            # every code dtype is one byte; fp8 has no numpy dtype torch
+            # reads, so all of them cross as bytes and are viewed back
+            return torch.from_numpy(np.array(a).view(np.uint8)).view(code).to(device)
+        fp32 = path == ("rope", "inv_freq") or path[-1] == "scale"
+        return _to_torch(a, torch.float32 if fp32 else dtype, device)
 
     return conv(tree, ())
 

@@ -26,6 +26,24 @@ LLAMA_1B = dict(
     head_dim=64,
 )
 
+#: Llama-3.1-8B shapes (copied from the reference's analysis/device_model.py
+#: LLAMA_8B, the shape of the bench rows int8_8b_bs1 and bf16_8b_int4)
+LLAMA_8B = dict(
+    model_type="llama",
+    hidden_size=4096,
+    intermediate_size=14336,
+    num_attention_heads=32,
+    num_key_value_heads=8,
+    num_hidden_layers=32,
+    vocab_size=128256,
+    rms_norm_eps=1e-5,
+    rope_theta=500000.0,
+    max_position_embeddings=2048,
+    hidden_act="silu",
+    tie_word_embeddings=False,
+    head_dim=128,
+)
+
 
 class LlamaInferenceConfig(InferenceConfig):
     """Counterpart of the reference ``LlamaInferenceConfig``."""

@@ -1,7 +1,8 @@
 """Functional attention core (counterpart of the reference's
 ``modules/attention.py``; the main-path subset).
 
-- :func:`qkv_project` / :func:`o_project` — projections with RoPE applied.
+- :func:`qkv_project` / :func:`o_project` — projections with RoPE applied,
+  through ``ops/quant.linear`` (plain, int8/fp8 or packed int4 weights).
 - :func:`attention_prefill` — context-encoding attention: the B2 flash
   kernel (``ops/flash_attention.py``) unless ``use_flash_kernel`` is
   False, then the plain masked softmax.
@@ -19,6 +20,7 @@ import torch
 
 from neuronx_distributed_inference_tpu_torch.modules.rope import apply_rope
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import use_flash
+from neuronx_distributed_inference_tpu_torch.ops.quant import linear
 
 
 @dataclass(frozen=True)
@@ -66,12 +68,12 @@ def qkv_project(
     q_sz = spec.num_heads * spec.head_dim
     kv_sz = spec.num_kv_heads * spec.head_dim
     if "qkv_proj" in params:
-        fused = hidden @ params["qkv_proj"]["weight"]
+        fused = linear(params["qkv_proj"], hidden)
         q, k, v = torch.split(fused, [q_sz, kv_sz, kv_sz], dim=-1)
     else:
-        q = hidden @ params["q_proj"]["weight"]
-        k = hidden @ params["k_proj"]["weight"]
-        v = hidden @ params["v_proj"]["weight"]
+        q = linear(params["q_proj"], hidden)
+        k = linear(params["k_proj"], hidden)
+        v = linear(params["v_proj"], hidden)
     q = q.reshape(B, S, spec.num_heads, spec.head_dim)
     k = k.reshape(B, S, spec.num_kv_heads, spec.head_dim)
     v = v.reshape(B, S, spec.num_kv_heads, spec.head_dim)
@@ -81,7 +83,7 @@ def qkv_project(
 def o_project(params: dict, attn_out: torch.Tensor) -> torch.Tensor:
     """(B,S,Hq,D) -> (B,S,H)."""
     B, S, Hq, D = attn_out.shape
-    return attn_out.reshape(B, S, Hq * D) @ params["o_proj"]["weight"]
+    return linear(params["o_proj"], attn_out.reshape(B, S, Hq * D))
 
 
 def _masked_softmax_attention(

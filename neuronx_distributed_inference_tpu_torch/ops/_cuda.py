@@ -25,12 +25,14 @@ from typing import Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-KERNEL_SOURCES = ("flash_attention", "decode_attention", "paged_flash_attention", "ragged_paged_attention")
+KERNEL_SOURCES = (
+    "flash_attention", "decode_attention", "paged_flash_attention", "ragged_paged_attention", "quant_matmul",
+)
 #: the kernels whose launches are counted, by name: B4 (paged decode) is the
 #: paged address mode of decode_attention.cu, counted apart from B1
 KERNELS = (
     "flash_attention", "decode_attention", "paged_decode_attention", "paged_flash_attention",
-    "ragged_paged_attention",
+    "ragged_paged_attention", "quant_matmul",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -46,14 +48,25 @@ _fns: Dict[tuple, object] = {}
 #: its CUDA kernel, and nowhere else (the plain versions never count)
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
+#: calls per route that is not a kernel of the port: ``int4_dense`` counts
+#: the int4 projections with more rows than B6 takes, run on a card as a
+#: dequantized weight and one torch.matmul (ops/quant_matmul.py)
+ROUTES: Dict[str, int] = {"int4_dense": 0}
+
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero every kernel's launch count and every route's call count."""
+    for counts in (LAUNCHES, ROUTES):
+        for name in counts:
+            counts[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
     return dict(LAUNCHES)
+
+
+def route_counts() -> Dict[str, int]:
+    return dict(ROUTES)
 
 
 def nvcc() -> str:

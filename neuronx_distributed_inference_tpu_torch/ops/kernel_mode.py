@@ -9,9 +9,16 @@ carries over. Here the config tri-states decide alone:
   tensor (or raises on a shape it does not take) and uses the plain version
   only for a tensor that lies on the CPU.
 - ``False``: the plain PyTorch path, and only because the caller set it.
+
+int4 projections route by their row count (:func:`use_quant_matmul`): at
+most :data:`QMM_MAX_ROWS` rows go to the B6 kernel's wrapper, more to the
+dense route; ``quant_matmul_mode(False)`` (the reference's mode knob) sends
+every call to the plain version.
 """
 
 from __future__ import annotations
+
+from contextlib import contextmanager
 
 import torch
 
@@ -48,6 +55,52 @@ def use_ragged(spec) -> bool:
     does not take, and only ``use_flash_kernel=False`` selects the plain
     path."""
     return spec.use_flash_kernel is not False
+
+
+# int4 fused-dequant matmul (B6) dispatch mode: a stack whose last entry
+# rules, [base, *context overrides] (the reference's _QMM_MODE). "auto" and
+# True take the kernel; False the plain version, on any device.
+_QMM_MODE: list = ["auto"]
+
+#: the largest row count B6 takes (the reference's decode-sized gate)
+QMM_MAX_ROWS = 64
+
+
+def _check_qmm_mode(mode) -> None:
+    if mode not in ("auto", True, False):
+        raise ValueError(f"quant matmul mode must be 'auto'/True/False, got {mode!r}")
+
+
+def set_quant_matmul_mode(mode) -> None:
+    """Set the process-level base mode: "auto" | True | False."""
+    _check_qmm_mode(mode)
+    _QMM_MODE[0] = mode
+
+
+@contextmanager
+def quant_matmul_mode(mode):
+    """Temporarily override the quant-matmul dispatch mode."""
+    _check_qmm_mode(mode)
+    _QMM_MODE.append(mode)
+    try:
+        yield
+    finally:
+        _QMM_MODE.pop()
+
+
+def quant_matmul_off() -> bool:
+    """True when the caller turned B6 off: every int4 call then takes the
+    plain version (the reference's native path), on any device."""
+    return _QMM_MODE[-1] is False
+
+
+def use_quant_matmul(rows: int) -> bool:
+    """The reference's routing rule for int4 projections
+    (``ops/kernel_mode.py:275-307``) without its TPU gates (lane-aligned N,
+    ``k >= 2 * group``, unsharded mesh, ``on_tpu``): a call with at most
+    :data:`QMM_MAX_ROWS` rows goes to B6's wrapper, which masks any N and K
+    itself. Larger calls (prefill, wide mixed steps) take the dense route."""
+    return not quant_matmul_off() and rows <= QMM_MAX_ROWS
 
 
 def launches_kernel(*tensors: torch.Tensor) -> bool:

@@ -4,8 +4,10 @@ not ported yet.
 
     python -m neuronx_distributed_inference_tpu_torch.ops.roofline
 
-prints the paper bounds of B6–B9, each at the shapes of the bench row that
-would run it, and the bounds of B3's two timed points. The bound is the larger of two times: the bytes the
+prints the paper bounds of B7–B9, each at the shapes of the bench row that
+would run it, the bounds of B3's two timed points, and B6's bound at every
+projection of the int4 rows (:data:`QMM_POINTS`) with the whole decode
+step's weight bytes. The bound is the larger of two times: the bytes the
 function must move (each input read once, each output written once) over
 the card's memory rate, and its operations over the card's peak rate for
 their type. The rates are NVIDIA's published figures for one H100 SXM at
@@ -82,11 +84,41 @@ def ragged_work(row_len, ctx_len, width: int, block_size: int, m: Dict[str, int]
     return nbytes, 4 * m["D"] * m["Hq"] * pairs
 
 
-def int4_matmul(tokens: int, K: int, N: int) -> Tuple[int, int]:
-    """B6: x (tokens, K) bf16 against packed int4 codes (K/2, N) u8 with f32
-    scales (K/128, N), out (tokens, N) bf16."""
-    nbytes = tokens * K * BF16 + (K // 2) * N + (K // INT4_GROUP) * N * F32 + tokens * N * BF16
+def int4_matmul(tokens: int, K: int, N: int, elt: int = BF16) -> Tuple[int, int]:
+    """B6: x (tokens, K) read once, packed int4 codes (Kp/2, N) u8 with f32
+    scales (Kp/128, N), out (tokens, N) written once, x and out ``elt``
+    bytes each (Kp: K rounded up to 256); 2 FLOPs per (token, k, n)."""
+    kp = -(-K // (2 * INT4_GROUP)) * 2 * INT4_GROUP
+    nbytes = tokens * K * elt + (kp // 2) * N + (kp // INT4_GROUP) * N * F32 + tokens * N * elt
     return nbytes, 2 * tokens * K * N
+
+
+def int4_projections(m: Dict[str, int], vocab: int = 128256) -> Dict[str, Tuple[int, int]]:
+    """(K, N) of every int4 projection of a decode step with fused QKV:
+    qkv, o, gate, up and down per layer, and the lm head."""
+    H, I, D = m["H"], m["I"], m["D"]
+    return {
+        "qkv": (H, (m["Hq"] + 2 * m["Hkv"]) * D), "o": (m["Hq"] * D, H),
+        "gate": (H, I), "up": (H, I), "down": (I, H), "lm_head": (H, vocab),
+    }
+
+
+#: B6's timed points: each projection of the bf16_8b_int4 row at one row
+#: (batch-1 decode) and of the serving_1b_int4_ragged row at 8 rows (the
+#: 8-slot split decode step and the ragged step's lm head)
+QMM_POINTS = {
+    "8b": dict(m=MODEL_8B, rows=1),
+    "1b": dict(m=MODEL_1B, rows=8),
+}
+
+
+def int4_step_bytes(m: Dict[str, int], rows: int = 1) -> int:
+    """B6's bytes over one whole decode step: every layer's projections and
+    the lm head, at ``rows`` rows."""
+    total = 0
+    for name, (K, N) in int4_projections(m).items():
+        total += int4_matmul(rows, K, N)[0] * (1 if name == "lm_head" else m["L"])
+    return total
 
 
 def moe_decode(tokens: int, top_k: int, distinct_experts: int) -> Tuple[int, int]:
@@ -123,9 +155,6 @@ def paper_bounds() -> List[dict]:
     """One row per kernel still to port: where its shapes come from, its
     bytes and FLOPs, and its bound on one H100."""
     cases = [
-        ("B6", "quant_matmul", "bf16_8b_int4",
-         "decode at batch 1, the 8B up projection K 4096 x N 14336, int4 codes, f32 scales per 128 rows",
-         int4_matmul(1, MODEL_8B["H"], MODEL_8B["I"])),
         ("B7", "fused_moe_decode", "none (off by default; no MoE bench row)",
          "the kernel registry's case: 4 tokens, top-2 of 8 experts at 1B widths, all 8 experts chosen",
          moe_decode(4, 2, 8)),
@@ -152,6 +181,17 @@ def main() -> None:
             f"| {r['tag']} | `{r['name']}` | {r['bench_row']} | {r['shape']} | {r['bytes']:,} | "
             f"{r['flops']:,} | {r['bound_ms']:.5f} ({r['bound_by']}) |"
         )
+    for label, pt in QMM_POINTS.items():
+        for name, (K, N) in int4_projections(pt["m"]).items():
+            nbytes, flops = int4_matmul(pt["rows"], K, N)
+            ms, by = bound_ms(nbytes, flops)
+            print(
+                f"| B6 | `quant_matmul` | {label} {name}, {pt['rows']} row(s) | K {K} x N {N}, int4 codes, "
+                f"f32 scales per 128 rows, bf16 x | {nbytes:,} | {flops:,} | {ms:.5f} ({by}) |"
+            )
+        step = int4_step_bytes(pt["m"], pt["rows"])
+        print(f"| B6 | `quant_matmul` | {label} whole decode step | every layer and the lm head | {step:,} | "
+              f"| {bound_ms(step, 0)[0]:.5f} (bytes) |")
     for name, pt in RAGGED_POINTS.items():
         nbytes, flops = ragged_work(**pt)
         ms, by = bound_ms(nbytes, flops)

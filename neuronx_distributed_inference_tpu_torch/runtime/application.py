@@ -36,6 +36,7 @@ from neuronx_distributed_inference_tpu_torch.modules.sampling import (
     prepare_sampling_params,
     validate_sampling_params,
 )
+from neuronx_distributed_inference_tpu_torch.ops.quant import prepare_int4_params, prepare_quantized_params
 from neuronx_distributed_inference_tpu_torch.runtime.model_runner import (
     TAG_CONTEXT_ENCODING,
     TAG_TOKEN_GENERATION,
@@ -134,10 +135,14 @@ class ModelForCausalLM:
         """Put weights on the device and allocate the KV cache.
 
         ``state_dict``: an HF-layout state dict (numpy or torch leaves);
-        ``random_weights``: seeded random weights made on the device;
-        ``params``: ready params in the port's layout (for example from
-        ``models.builder.params_from_jax``)."""
+        ``random_weights``: seeded random weights made on the device. Both
+        quantize at load, on the device, when the config asks for it
+        (``quantized`` / ``weight_dtype``), as the reference's load does.
+        ``params``: ready params in the port's layout, taken as they are,
+        quantized or not (for example from ``models.builder.params_from_jax``
+        or another app's ``params``)."""
         if params is None:
+            tc = self.config.torch_config
             if random_weights:
                 params = self.builder.random_params()
             elif state_dict is not None:
@@ -147,6 +152,10 @@ class ModelForCausalLM:
                     "loading a checkpoint from a path is not ported to PyTorch yet "
                     "(ROADMAP A11); pass state_dict=, params= or random_weights=True"
                 )
+            if tc.quantized:
+                params = prepare_quantized_params(params, tc)
+            elif tc.weight_int4:
+                params = prepare_int4_params(params, tc)
         self.params = prepare_params(params)
         self.init_kv_cache()
         return self

@@ -38,4 +38,19 @@ def test_kernels_match_plain_on_the_card(cuda_card):
     chip_smoke.phase_paged_flash_parity(torch, pf)
     chip_smoke.phase_ragged_parity(torch, rp)
     counts = _cuda.launch_counts()
-    assert all(counts[name] > 0 for name in _cuda.KERNELS), counts
+    attention = [name for name in _cuda.KERNELS if name != "quant_matmul"]
+    assert all(counts[name] > 0 for name in attention), counts
+
+
+@pytest.mark.gpu
+def test_quant_matmul_matches_plain_on_the_card(cuda_card):
+    """B6 against its plain version at rows 1 to 64, bf16 and fp32, every
+    int4 projection of the 8B and 1B rows and a padded K with a ragged N."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops import quant_matmul as qmm
+
+    _cuda.reset_launch_counts()
+    chip_smoke.phase_quant_matmul_parity(torch, qmm)
+    assert _cuda.launch_counts()["quant_matmul"] == 5 * 2 * len(chip_smoke.qmm_shapes())

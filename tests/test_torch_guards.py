@@ -87,8 +87,8 @@ def test_default_device_is_cuda_and_cuda_without_a_card_raises(monkeypatch):
     "kw, item",
     [
         (dict(tp_degree=2), "A10"),
-        (dict(quantized=True), "A6"),
-        (dict(weight_dtype="int4"), "A6"),
+        (dict(quantized_checkpoints_path="ckpt"), "A11"),
+        (dict(quantized=True, quantized_checkpoints_path="ckpt"), "A11"),
         (dict(kv_cache_dtype="int8"), "A6"),
         (dict(kv_cache_dtype="fp8"), "A6"),
         (dict(is_block_kv_layout=True, kv_cache_dtype="int8"), "A6"),
