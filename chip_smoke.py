@@ -31,7 +31,19 @@ Phases, in order; any failure exits non-zero:
      through ServingSession(serving_ragged=True), synchronous and 1-ahead
      (launch counts asserted: B3 16 times per mixed dispatch, nothing else),
      a short run admitting through the context program, a teacher-forced
-     check of mixed_forward, and a profile of 16 steady-state steps.
+     check of mixed_forward, and a profile of 16 steady-state steps;
+  8. the quantized paths: B6 (int4 fused-dequant matmul) against its plain
+     version and timed, then the bf16_8b_int4, int8_1b_bs1 and
+     serving_1b_int4_ragged rows (exact B6 / int4_dense counts);
+  9. the MoE path: B7 (selected-experts MoE decode) against its plain
+     version at Qwen3-30B-A3B and Mixtral-8x7B widths and widths no tile
+     divides, timed at one layer beside the dense all-experts route, then
+     Qwen3-30B-A3B at full width and depth (48 layers, 128 experts, top-8,
+     57 GiB of seeded random bf16 weights made on the card): generate() at
+     batch 1 with exact B2 / B1 / B7 / moe_grouped counts and no dense MoE
+     call, a batch-8 generate() (64 rows for B7), a profile, and the
+     teacher-forced gate on its first 4 layers with the router's top-k flips
+     counted. B1 and B2 also run at its GQA 8:1 shape in phases 3 and 4.
 Each phase prints its seconds. The line before the card's name lists every
 kernel with its launches, times and bound; the last line of standard output
 is {"ok": true, "device": {...}}.
@@ -74,15 +86,17 @@ def expect_launches(**nonzero):
 def plain_run(what, fn, *args):
     """``fn(*args)`` with every count read around it, B6 turned off: a
     plain-path run must launch no kernel and take no dense int4 route, or a
-    check against it would compare a kernel with itself."""
+    check against it would compare a kernel with itself. The MoE routes
+    (``moe_dense``, ``moe_grouped``) are plain PyTorch and may be taken."""
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import quant_matmul_mode
 
     _cuda.reset_launch_counts()
     with quant_matmul_mode(False):
         out = fn(*args)
-    if all_counts() != expect_launches():
-        raise SystemExit(f"{what}: the plain run launched kernels: {all_counts()}")
+    counts = all_counts()
+    if any(counts[name] for name in (*_cuda.KERNELS, "int4_dense")):
+        raise SystemExit(f"{what}: the plain run launched kernels: {counts}")
     return out
 
 
@@ -203,10 +217,11 @@ def check_flash(torch, fa, q, k, v, key_valid, kw, case):
     return err
 
 
-def fused_qkv_inputs(torch, rng, B, S, Hq, Hkv, D, dtype, hidden=2048):
+def fused_qkv_inputs(torch, rng, B, S, Hq, Hkv, D, dtype, hidden=2048, qk_norm=False, theta=500000.0):
     """q, k, v as the main path hands them to the flash kernel: qkv_project
     over one fused (hidden, (Hq + 2 Hkv) D) weight, so v is a split view
-    with token stride (Hq + 2 Hkv) D and q, k carry RoPE."""
+    with token stride (Hq + 2 Hkv) D and q, k carry RoPE (after Qwen3's
+    per-head RMSNorm with ``qk_norm``, norm weights drawn around 1)."""
     from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec, qkv_project
     from neuronx_distributed_inference_tpu_torch.modules.rope import default_inv_freq, rope_cos_sin
 
@@ -215,9 +230,13 @@ def fused_qkv_inputs(torch, rng, B, S, Hq, Hkv, D, dtype, hidden=2048):
         rng.randn(hidden, (Hq + 2 * Hkv) * D).astype(np.float32) * (0.5 / hidden ** 0.5)
     ).to("cuda", dtype)  # q, k, v entries of std ~0.5
     pos = torch.arange(S, device="cuda")[None, :].expand(B, S)
-    cos, sin = rope_cos_sin(pos, default_inv_freq(D, 500000.0).cuda())
-    spec = AttnSpec(num_heads=Hq, num_kv_heads=Hkv, head_dim=D)
-    q, k, v = qkv_project({"qkv_proj": {"weight": w}}, x, cos, sin, spec)
+    cos, sin = rope_cos_sin(pos, default_inv_freq(D, theta).cuda())
+    spec = AttnSpec(num_heads=Hq, num_kv_heads=Hkv, head_dim=D, qk_norm=qk_norm)
+    params = {"qkv_proj": {"weight": w}}
+    if qk_norm:
+        for name in ("q_norm", "k_norm"):
+            params[name] = {"weight": torch.from_numpy(1 + 0.1 * rng.randn(D).astype(np.float32)).to("cuda", dtype)}
+    q, k, v = qkv_project(params, x, cos, sin, spec)
     if v.stride(1) != (Hq + 2 * Hkv) * D:
         raise SystemExit(f"v is not the fused projection's split view: strides {v.stride()}")
     return q, k, v
@@ -270,6 +289,20 @@ def phase_flash_parity(torch, fa):
                     )
                     worst = max(worst, check_flash(torch, fa, q, k, v, key_valid, kw, case))
                     n += 1
+    # Qwen3-30B-A3B's prefill: GQA 8:1 (32 q over 4 kv heads), D=128, q and
+    # k through the per-head RMSNorm, the CTE bucket 128 (and 512)
+    for dtype in (torch.bfloat16, torch.float32):
+        for S in (128, 512):
+            for B in (1, 2):
+                q, k, v = fused_qkv_inputs(torch, rng, B, S, 32, 4, 128, dtype, qk_norm=True, theta=1e6)
+                kv = np.ones((B, S), np.int32)
+                if B == 2:
+                    kv[1, int(S * 0.6):] = 0
+                key_valid = torch.from_numpy(kv).cuda()
+                kw = dict(scale=128 ** -0.5, causal=True, softmax_bf16=False, window=None, chunk=None)
+                case = f"qwen3 layout B={B} S={S} Hq=32 Hkv=4 D=128 qk-norm {str(dtype)[6:]}"
+                worst = max(worst, check_flash(torch, fa, q, k, v, key_valid, kw, case))
+                n += 1
     log(f"flash_attention: {n} cases agree with the plain version (largest out err {worst:.3e})")
 
 
@@ -351,6 +384,17 @@ def phase_decode_parity(torch, da):
                             case = f"D={D} {str(dtype)[6:]} K={K} bucket={bucket} sink={sink} window={window}"
                             worst = max(worst, check_decode(torch, da, q, kc, vc, 1, mask, sk, kw, case))
                             n += 1
+    # Qwen3-30B-A3B's decode: GQA 8:1 (32 q over 4 kv heads), D=128, the TKG
+    # bucket 512, batch 1 and 8 (one row shallow: dead tiles)
+    for dtype in (torch.bfloat16, torch.float32):
+        for B in (1, 8):
+            for K in (1, 4):
+                valid = [505, 90, 300, 128, 512, 17, 400, 256][:B]
+                q, kc, vc, mask = _decode_inputs(torch, rng, B, K, 32, 4, 128, 3, 1024, 512, dtype, valid)
+                kw = dict(scale=128 ** -0.5, n_kv=4)
+                case = f"qwen3 B={B} Hq=32 Hkv=4 D=128 {str(dtype)[6:]} K={K} bucket=512"
+                worst = max(worst, check_decode(torch, da, q, kc, vc, 1, mask, None, kw, case))
+                n += 1
     log(f"tkg_decode_attention: {n} cases agree with the plain version (largest abs err {worst:.3e})")
 
 
@@ -426,6 +470,35 @@ def phase_times(torch, fa, da):
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
             f"err vs plain {err:.3e}"
         )
+    # Qwen3-30B-A3B's decode step: 32 q over 4 kv heads, D=128, bucket 512
+    L, bucket, Hkv, D = 48, 512, 4, 128
+    valid = bucket - 100
+    q, kc, vc, _ = _decode_inputs(torch, rng, B, 1, Hq, Hkv, D, L, S_max, bucket, torch.bfloat16, [valid])
+    cols = torch.arange(bucket, device="cuda")[None, :]
+    mask = token_gen_mask((cols < valid).to(torch.int32), 1)
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    layer = {"i": 0}
+
+    def next_l():
+        layer["i"] = (layer["i"] + 1) % L
+        return layer["i"]
+
+    err = check_decode(torch, da, q, kc, vc, 0, mask, None, kw, f"timed qwen3 B=1 K=1 bucket={bucket} valid={valid}")
+    qt = q.transpose(1, 2)
+    kt = kc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    vt = vc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kc, vc, next_l(), mask, None, **kw))
+    plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_l(), mask, None, **kw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    b_ms, b_by = bound(*decode_work(q, kc, mask))
+    rows[("decode_attention", bucket, "qwen3")] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )
+    log(
+        f"tkg_decode_attention qwen3 B=1 K=1 bucket={bucket} valid={valid} Hq=32 Hkv=4 D=128 bf16: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}"
+    )
+    del kc, vc
     return rows
 
 
@@ -1104,9 +1177,10 @@ def teacher_forced(torch, app, seq, prompt_len):
     return _forced_gate(k, pl, f32, "teacher-forced logits")
 
 
-def _forced_gate(k, pl, f32, what):
+def _forced_gate(k, pl, f32, what, exit_on_fail=True):
     """Gate the kernel path's logits ``k`` against the plain path's ``pl``,
-    both against fp32 ``f32`` (see teacher_forced)."""
+    both against fp32 ``f32`` (see teacher_forced). With ``exit_on_fail``
+    False a failure is returned (``passed`` False) instead of exiting."""
     if not (np.isfinite(k).all() and np.isfinite(pl).all()):
         raise SystemExit("non-finite logits on the main path")
     err = float(np.abs(k - pl).max())
@@ -1128,11 +1202,12 @@ def _forced_gate(k, pl, f32, what):
         f"margin > 2 x {max_k32:.4f}; overall kernel {int((k.argmax(-1) == ref_arg).sum())}, "
         f"plain {int((pl.argmax(-1) == ref_arg).sum())} of {k.shape[0]}"
     )
-    if max_k32 > FORCED_RATIO * max_p32 or rms_k32 > FORCED_RATIO * rms_p32 or not agree.all():
+    passed = not (max_k32 > FORCED_RATIO * max_p32 or rms_k32 > FORCED_RATIO * rms_p32 or not agree.all())
+    if not passed and exit_on_fail:
         raise SystemExit("kernel path sits farther from fp32 than the plain path allows")
     return dict(
         kernel_vs_plain=err, kernel_vs_fp32=max_k32, plain_vs_fp32=max_p32,
-        kernel_vs_fp32_rms=rms_k32, plain_vs_fp32_rms=rms_p32,
+        kernel_vs_fp32_rms=rms_k32, plain_vs_fp32_rms=rms_p32, passed=passed,
     )
 
 
@@ -1795,6 +1870,404 @@ def phase_int4_ragged(torch):
     torch.cuda.empty_cache()
     return dict(run, mixed=mixed, narrow=narrow, wide=wide)
 
+# ---------------------------------------------------------------------------
+# B7: selected-experts MoE decode, and the Qwen3-30B-A3B generate() path
+# ---------------------------------------------------------------------------
+
+#: fp32 summation-order allowance of B7's check, relative to the largest
+#: sum_j |w_j| |y_j| of the case (as QMM_FP32_RTOL for B6)
+MOE_FP32_RTOL = 1e-5
+#: one bf16 rounding step, relative: two fp32 values a few ulps apart round
+#: to bf16 values at most one step (2^-7 of the value) apart
+MOE_BF16_STEP = 2.0 ** -7
+#: GLU variants of the parity cases: silu, and GPT-OSS's clamped swiglu
+MOE_GLUS = {
+    "silu": dict(act="silu"),
+    "swiglu": dict(act="silu", act_scale=1.702, act_bias=1.0, swiglu_limit=7.0),
+}
+
+
+def moe_inputs(torch, gen, T, k, E, H, I, dtype, pool=None):
+    """x (T, H), weights with gate/up entries of std ~2 / sqrt(H) so gate
+    values reach past the swiglu limit, down std 1 / sqrt(I), and top-k ids
+    drawn without repeats per token from ``pool`` experts (all E when None;
+    a small pool makes tokens share experts), with softmax weights."""
+    x = torch.randn((T, H), generator=gen, device="cuda").to(dtype)
+    wg = (torch.randn((E, H, I), generator=gen, device="cuda") * (2.0 / H ** 0.5)).to(dtype)
+    wu = (torch.randn((E, H, I), generator=gen, device="cuda") * (2.0 / H ** 0.5)).to(dtype)
+    wd = (torch.randn((E, I, H), generator=gen, device="cuda") * (1.0 / I ** 0.5)).to(dtype)
+    n = pool or E
+    keys = torch.rand((T, n), generator=gen, device="cuda")
+    idx = keys.argsort(dim=1)[:, :k].to(torch.int32)  # k distinct of the pool per token
+    w = torch.softmax(torch.randn((T, k), generator=gen, device="cuda"), dim=-1)
+    return x, idx, w, wg, wu, wd
+
+
+def check_moe(torch, md, args, glu, case):
+    """One B7 launch against the plain version on the same inputs. The
+    bound per element is MOE_BF16_STEP x (sum_j |w_j| |y_j| + |out|) for bf16
+    (each selection's output and the combine may each land one bf16 step
+    away) plus MOE_FP32_RTOL of the case's largest sum_j |w_j| |y_j|; fp32
+    has the second term only. Returns the max abs error."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    x, idx, w, wg, wu, wd = args
+    before = _cuda.launch_counts()["moe_decode"]
+    out = md.fused_moe_decode(x, idx, w, wg, wu, wd, **glu)
+    torch.cuda.synchronize()
+    if _cuda.launch_counts()["moe_decode"] != before + 1:
+        raise SystemExit(f"fused_moe_decode case did not launch B7: {case}")
+    ref = plain_run(f"moe {case}", lambda: md.fused_moe_decode_plain(x, idx, w, wg, wu, wd, **glu)).float()
+    y = md.selection_outputs_plain(x, idx, wg, wu, wd, **glu).float()  # (T, k, H)
+    mag = torch.einsum("tk,tkh->th", w.abs(), y.abs())
+    o = out.float()
+    if not torch.isfinite(o).all():
+        raise SystemExit(f"fused_moe_decode returned non-finite values: {case}")
+    step = MOE_BF16_STEP if x.dtype == torch.bfloat16 else 0.0
+    atol = MOE_FP32_RTOL * mag.max().item()
+    diff = (o - ref).abs()
+    err = diff.max().item()
+    use = (diff / (atol + step * (mag + ref.abs()))).max().item()
+    ok = use <= 1.0
+    log(
+        f"  fused_moe_decode {case}: max abs err {err:.3e}, largest share of the bound (atol {atol:.1e} + "
+        f"{step:.2e} x (sum|w||y| + |plain|)) {use:.3f}, |plain| up to {ref.abs().max().item():.3f} "
+        f"{'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise SystemExit(f"fused_moe_decode disagrees with its plain version: {case}")
+    return err
+
+
+def moe_cases():
+    """(label, T, k, E, H, I, pool): Qwen3-30B-A3B widths at 1, 2 and 8
+    tokens (8 x 8 = 64 rows; 2 and 8 tokens drawn from 16 experts, so they
+    share), Mixtral-8x7B widths at 1 and 4 tokens, and widths no tile
+    divides (I 333 and H 1001 take the element loads; I 332 and H 1000
+    the 4-wide loads with a ragged last tile)."""
+    return [
+        ("qwen3", 1, 8, 128, 2048, 768, None),
+        ("qwen3 shared", 2, 8, 128, 2048, 768, 16),
+        ("qwen3 64 rows", 8, 8, 128, 2048, 768, 16),
+        ("mixtral", 1, 2, 8, 4096, 14336, None),
+        ("mixtral", 4, 2, 8, 4096, 14336, None),
+        ("odd", 3, 4, 6, 1001, 333, None),
+        ("ragged tile", 5, 3, 7, 1000, 332, None),
+    ]
+
+
+def phase_moe_parity(torch, md):
+    """B7 against its plain version over moe_cases(), bf16 and fp32, silu
+    and the clamped swiglu. Returns the number of cases."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    worst, n = 0.0, 0
+    for label, T, k, E, H, I, pool in moe_cases():
+        for dtype in (torch.bfloat16, torch.float32):
+            args = moe_inputs(torch, gen, T, k, E, H, I, dtype, pool)
+            for gname, glu in MOE_GLUS.items():
+                case = f"{label} T={T} k={k} E={E} H={H} I={I} {str(dtype)[6:]} {gname}"
+                worst = max(worst, check_moe(torch, md, args, glu, case))
+                n += 1
+            del args
+            torch.cuda.empty_cache()
+    log(f"fused_moe_decode: {n} cases agree with the plain version (largest abs err {worst:.3e})")
+    return n
+
+
+def phase_moe_times(torch, md):
+    """B7 over one layer at the points of ops/roofline.MOE_POINTS (Qwen3 at
+    batch 1 and 8 with each token's experts drawn from all 128, Mixtral at
+    batch 1), bf16, held to its plain version first, beside the plain
+    version and the dense all-experts route the reference takes by default
+    (modules/moe.expert_mlps_dense on the same x and routing). No single
+    PyTorch call computes an MoE layer: no library time. The bound counts
+    the distinct experts this run's routing chose."""
+    from neuronx_distributed_inference_tpu_torch.modules.moe import MoESpec, expert_mlps_dense
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MOE_POINTS, moe_decode
+
+    rows = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    for label, pt in MOE_POINTS.items():
+        m, T = pt["m"], pt["tokens"]
+        args = moe_inputs(torch, gen, T, m["k"], m["E"], m["H"], m["I"], torch.bfloat16)
+        x, idx, w, wg, wu, wd = args
+        err = check_moe(torch, md, args, {}, f"timed {label}")
+        distinct = int(torch.unique(idx).numel())
+        aff = torch.zeros((T, m["E"]), device="cuda").scatter(1, idx.long(), w)
+        experts = {"gate_proj": {"weight": wg}, "up_proj": {"weight": wu}, "down_proj": {"weight": wd}}
+        spec = MoESpec(num_experts=m["E"], top_k=m["k"])
+        ms = time_ms(torch, lambda: md.fused_moe_decode(x, idx, w, wg, wu, wd))
+        plain_ms = time_ms(torch, lambda: md.fused_moe_decode_plain(x, idx, w, wg, wu, wd), iters=10)
+        dense_ms = time_ms(torch, lambda: expert_mlps_dense(experts, x, aff, spec), iters=20)
+        b_ms, b_by = bound(*moe_decode(m, T, distinct))
+        rows[("moe_decode", label)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            dense_ms=dense_ms, distinct=distinct,
+        )
+        R = T * m["k"]
+        blocks = -(-m["I"] // 64) * R + -(-m["H"] // 128) * R + -(-m["H"] // 256) * T
+        log(
+            f"fused_moe_decode {label} (one layer, T={T}, top-{m['k']} of {m['E']}, {distinct} distinct experts, "
+            f"H {m['H']}, I {m['I']}, bf16, {blocks} blocks): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, dense "
+            f"all-experts route {dense_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), {b_ms / ms:.3f} of the bound, "
+            f"err vs plain {err:.3e}"
+        )
+        del args, x, idx, w, wg, wu, wd, experts
+        torch.cuda.empty_cache()
+    return rows
+
+
+#: Qwen3-30B-A3B layers the teacher-forced gate runs: an fp32 copy of 4 of
+#: the 48 layers (with the embedding and lm head) is ~12 GB beside the 57
+#: GiB of bf16 params
+QWEN3_FORCED_LAYERS = 4
+
+
+def _config_qwen3(batch_size=1, model=None, **kw):
+    """Qwen3-30B-A3B (models/mixtral.QWEN3_30B_A3B) at full width and
+    depth: bf16, seq_len 1024, CTE bucket [128], TKG bucket [512], fused
+    QKV, contiguous cache; ``kw`` overrides MoEConfig fields."""
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+    from neuronx_distributed_inference_tpu_torch.models.mixtral import QWEN3_30B_A3B, MoEInferenceConfig
+
+    base = dict(
+        batch_size=batch_size, seq_len=1024, dtype="bfloat16", context_encoding_buckets=[128],
+        token_generation_buckets=[512], fused_qkv=True, seed=0, device="cuda",
+    )
+    attrs = model or QWEN3_30B_A3B
+    return MoEInferenceConfig(MoEConfig(**{**base, **kw}), load_config=lambda c: [setattr(c, k, v) for k, v in attrs.items()])
+
+
+class _Recorder:
+    """Wraps a function of modules/moe for the length of a ``with`` block
+    and keeps what ``keep`` takes from each call (on the device)."""
+
+    def __init__(self, name, keep):
+        self.name, self.keep, self.calls = name, keep, []
+
+    def __enter__(self):
+        from neuronx_distributed_inference_tpu_torch.modules import moe
+
+        self.real = getattr(moe, self.name)
+
+        def wrapped(*args, **kw):
+            out = self.real(*args, **kw)
+            self.calls.append(self.keep(args, out))
+            return out
+
+        setattr(moe, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        from neuronx_distributed_inference_tpu_torch.modules import moe
+
+        setattr(moe, self.name, self.real)
+
+
+def _selections(torch, cfg, params, seq, prompt_len, plain=False):
+    """Teacher-forced logits over ``seq`` and the router's top-k selection
+    of each call: (logits, [(T, E) bool per call, prefill first, in layer
+    order])."""
+    fn = (lambda *a: plain_run("qwen3 teacher-forced plain", _forced_logits, *a)) if plain else \
+        (lambda *a: _forced_logits(*a))
+    with _Recorder("router_top_k", lambda args, out: out[1].clone()) as rec:
+        logits = fn(torch, cfg, params, seq, prompt_len)
+    return logits, rec.calls
+
+
+def _flipped_positions(a, b, n_layers):
+    """Per logits row (the prefill's last token, then each decode step),
+    whether any layer's top-k selection differs between call lists a, b;
+    and the number of (position, layer) pairs that differ."""
+    rows, pairs = [], 0
+    for i in range(0, len(a), n_layers):
+        diff = [bool((x[-1] != y[-1]).any()) for x, y in zip(a[i : i + n_layers], b[i : i + n_layers])]
+        rows.append(any(diff))
+        pairs += sum(diff)
+    return np.array(rows), pairs
+
+
+class _PinnedRouting:
+    """Replays recorded top-k selections in modules/moe.router_top_k for
+    the length of a ``with`` block: each call takes the next recorded (T, E)
+    selection and weighs it by this run's own softmax scores, renormalized
+    over the selection (the Qwen3-MoE router: softmax, norm_topk_prob)."""
+
+    def __init__(self, selections):
+        self.selections, self.i = selections, 0
+
+    def route(self, router_logits, spec, correction_bias=None):
+        import torch
+
+        if spec.scoring_func != "softmax" or not spec.normalize_top_k_affinities or correction_bias is not None:
+            raise SystemExit("pinned routing replays the softmax router with renormalized weights only")
+        sel = self.selections[self.i].to(router_logits.device)
+        self.i += 1
+        w = torch.where(sel, torch.softmax(router_logits, dim=-1), torch.zeros_like(router_logits))
+        return w / (w.sum(dim=-1, keepdim=True) + 1e-20) * spec.routed_scaling_factor, sel
+
+    def __enter__(self):
+        from neuronx_distributed_inference_tpu_torch.modules import moe
+
+        self.real = moe.router_top_k
+        moe.router_top_k = self.route
+        return self
+
+    def __exit__(self, *exc):
+        from neuronx_distributed_inference_tpu_torch.modules import moe
+
+        moe.router_top_k = self.real
+
+
+def qwen3_teacher_forced(torch, params, seq, prompt_len, L):
+    """The teacher-forced gate on the first QWEN3_FORCED_LAYERS layers: the
+    kernel path (B2, B1, B7, the grouped prefill) against the plain path
+    (attention kernels off, moe_fused_kernel_enabled False: the dense
+    all-experts decode) on the same bf16 weights, and an fp32 run of the
+    plain path. A near-flat random router lets a top-k set flip between two
+    paths on a near-tie; a flip moves that position's logits, and through
+    the cache later ones, far more than bf16 rounding does. The flips of
+    each pair of runs are counted and printed, and a failure of the gate
+    with each run routing on its own passes only where such flips exist.
+    Then the kernel and plain paths run again with every call routed as the
+    fp32 run routed (each run weighing those experts by its own scores):
+    that gate sees the paths' arithmetic alone, and its failure fails the
+    phase."""
+    from neuronx_distributed_inference_tpu_torch.models.mixtral import QWEN3_30B_A3B
+
+    n = QWEN3_FORCED_LAYERS
+    model = {**QWEN3_30B_A3B, "num_hidden_layers": n}
+    sub = dict(params, layers=params["layers"][:n])
+    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False, moe_fused_kernel_enabled=False)
+    cfg_k = _config_qwen3(model=model, output_logits=True)
+    cfg_p = _config_qwen3(model=model, output_logits=True, **off)
+    k, sel_k = _selections(torch, cfg_k, sub, seq, prompt_len)
+    pl, sel_p = _selections(torch, cfg_p, sub, seq, prompt_len, True)
+    sub32 = _map_tree(sub, lambda t: t.float())
+    f32, sel_f = _selections(
+        torch, _config_qwen3(model=model, output_logits=True, dtype="float32", **off), sub32, seq, prompt_len, True
+    )
+    del sub32
+    torch.cuda.empty_cache()
+    kp_rows, kp = _flipped_positions(sel_k, sel_p, n)
+    kf_rows, kf = _flipped_positions(sel_k, sel_f, n)
+    pf_rows, pf = _flipped_positions(sel_p, sel_f, n)
+    label = f"qwen3 teacher-forced logits (first {n} of {L} layers)"
+    log(
+        f"{label}: top-k sets differ at {kp} (position, layer) pairs of {len(kp_rows) * n} between the kernel "
+        f"and the plain bf16 paths ({int(kp_rows.sum())} positions); kernel vs fp32 {kf} ({int(kf_rows.sum())}), "
+        f"plain vs fp32 {pf} ({int(pf_rows.sum())})"
+    )
+    forced = _forced_gate(k, pl, f32, label, exit_on_fail=False)
+    forced.update(flips_kernel_plain=kp, flips_kernel_fp32=kf, flips_plain_fp32=pf)
+    if not forced["passed"] and kf + pf == 0:
+        raise SystemExit(f"{label}: the gate failed with no top-k flip to explain it")
+    if not forced["passed"]:
+        log("  the gate failed with each run routing on its own, and the runs' top-k sets differ (above)")
+    # every run routed as the fp32 run routed: no discontinuity left, so the
+    # gate compares the paths' arithmetic alone, and must pass
+    with _PinnedRouting(sel_f):
+        k_pin = _forced_logits(torch, cfg_k, sub, seq, prompt_len)
+    with _PinnedRouting(sel_f):
+        pl_pin = plain_run("qwen3 teacher-forced plain, pinned routing", _forced_logits, torch, cfg_p, sub, seq,
+                           prompt_len)
+    forced["pinned"] = _forced_gate(k_pin, pl_pin, f32, f"{label}, routing pinned to the fp32 run's")
+    return forced
+
+
+def phase_qwen3_moe(torch):
+    """Qwen3-30B-A3B at full width and depth with seeded random bf16
+    weights made on the card: load (time, peak, params bytes), greedy
+    generate() of 256 tokens after a 128-token prompt at batch 1 with exact
+    counts (B2 once per layer; B1 and B7 once per layer and decode step;
+    the 128-token prefill through the grouped route; no dense MoE call), a
+    batch-8 generate() (64 rows for B7) with its distinct experts per layer,
+    a profile of 16 decode steps, and the teacher-forced gate."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_QWEN3_MOE, bound_ms, moe_decode
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    prompt_len, n_new = 128, 256
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    app = ModelForCausalLM(None, _config_qwen3()).load(random_weights=True)
+    torch.cuda.synchronize()
+    load_s, load_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    params_bytes = _tree_bytes(app.params)
+    t0 = time.perf_counter()
+    app.warmup()
+    torch.cuda.synchronize()
+    log(
+        f"qwen3-30b-a3b: load (random bf16 weights on the card) {load_s:.2f} s, peak {load_peak / 2**30:.3f} GiB, "
+        f"params {params_bytes / 2**30:.3f} GiB; warmup {time.perf_counter() - t0:.2f} s"
+    )
+    L = app.spec.num_layers
+    out, run = _generate_run(torch, app, prompt_len, n_new, "qwen3-30b-a3b generate()")
+    # 255 remaining tokens run as one 256-step chunk in bucket 512
+    want = expect_launches(
+        flash_attention=L, decode_attention=L * 256, moe_decode=L * 256, moe_grouped=L,
+    )
+    if run["launches"] != want:
+        raise SystemExit(f"qwen3 launch counts {run['launches']} != expected {want}")
+
+    # batch 8: 8 seeded prompts, 64 new tokens; B7 takes 8 x 8 = 64 rows
+    app8 = ModelForCausalLM(None, _config_qwen3(8)).load(params=app.params)
+    ids8 = np.random.RandomState(3).randint(0, app.spec.vocab_size, size=(8, prompt_len))
+    app8.generate(ids8, max_new_tokens=1)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    app8.generate(ids8, max_new_tokens=1)
+    ttft8 = time.perf_counter() - t0
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out8 = app8.generate(ids8, max_new_tokens=64)
+    total8 = time.perf_counter() - t0
+    counts8 = all_counts()
+    tok_s8 = 8 * 63 / (total8 - ttft8)
+    want8 = expect_launches(flash_attention=L, decode_attention=L * 64, moe_decode=L * 64, moe_grouped=L)
+    gen8 = out8.sequences[:, prompt_len:]
+    log(
+        f"qwen3-30b-a3b generate() batch 8 (prompt {prompt_len}, 64 new tokens): TTFT {ttft8 * 1e3:.2f} ms, "
+        f"generate {total8 * 1e3:.1f} ms, decode {tok_s8:.1f} tok/s; launches {counts8}"
+    )
+    if counts8 != want8:
+        raise SystemExit(f"qwen3 batch-8 counts {counts8} != expected {want8}")
+    if gen8.shape != (8, 64) or gen8.min() < 0 or gen8.max() >= app.spec.vocab_size:
+        raise SystemExit(f"qwen3 batch 8: bad tokens, shape {gen8.shape}")
+    with _Recorder("fused_moe_decode", lambda args, out: args[1].clone()) as rec:
+        app8.generate(ids8, max_new_tokens=8)
+    distinct = np.array([int(torch.unique(ids).numel()) for ids in rec.calls if ids.shape[0] == 8])
+    b8 = [bound_ms(*moe_decode(MODEL_QWEN3_MOE, 8, int(d)))[0] for d in distinct]
+    log(
+        f"  batch-8 decode: distinct experts per layer and step over {len(distinct)} B7 calls: mean "
+        f"{distinct.mean():.2f}, min {distinct.min()}, max {distinct.max()} of 64 selections (bound per layer "
+        f"{np.mean(b8):.5f} ms on average)"
+    )
+    del app8
+    torch.cuda.empty_cache()
+
+    profile = phase_profile(torch, app, out.sequences[0], prompt_len)
+    b7 = sum(ms for name, ms in profile["kernel_ms_per_step"].items() if "moe_" in name)
+    busy = sum(profile["kernel_ms_per_step"].values())
+    b7_bound = L * bound_ms(*moe_decode(MODEL_QWEN3_MOE, 1, 8))[0]
+    log(
+        f"  B7 (its gate/up, down and combine kernels) {b7:.4f} ms/step against its {b7_bound:.4f} ms step bound "
+        f"({b7_bound / b7:.3f} of it), {b7 / busy:.3f} of the device's busy time ({busy:.3f} ms/step); "
+        f"{profile['kernels_per_step']:.0f} kernels per step; host clock {profile['decode_step_ms']:.3f} ms/step"
+    )
+    forced = qwen3_teacher_forced(torch, app.params, out.sequences[0], prompt_len, L)
+    del app
+    torch.cuda.empty_cache()
+    return dict(
+        run, **profile, load_s=load_s, load_peak=load_peak, params_bytes=params_bytes, ttft8_ms=ttft8 * 1e3,
+        decode_tok_s8=tok_s8, distinct_mean=float(distinct.mean()), b7_ms_per_step=b7, b7_busy_share=b7 / busy,
+        b7_step_bound_ms=b7_bound, **forced,
+    )
+
+
 
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
@@ -1820,6 +2293,7 @@ def main():
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_inference_tpu_torch.ops import moe_decode as md
     from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
     from neuronx_distributed_inference_tpu_torch.ops import quant_matmul as qmm
     from neuronx_distributed_inference_tpu_torch.ops import ragged_paged_attention as rp
@@ -1838,6 +2312,8 @@ def main():
     times.update(timed("ragged times", phase_ragged_times, torch, rp))
     timed("quant_matmul parity", phase_quant_matmul_parity, torch, qmm)
     times.update(timed("quant_matmul times", phase_quant_matmul_times, torch, qmm))
+    timed("moe_decode parity", phase_moe_parity, torch, md)
+    times.update(timed("moe_decode times", phase_moe_times, torch, md))
     main_path = timed("main path", phase_main_path, torch)
     params = main_path.pop("params")
     serving = timed("serving", phase_serving, torch, params)
@@ -1847,6 +2323,7 @@ def main():
     int4_8b = timed("int4 8B generate", phase_int4_8b, torch)
     timed("int8 1B generate", phase_int8_1b, torch)
     timed("int4 ragged serving", phase_int4_ragged, torch)
+    qwen3 = timed("qwen3-30b-a3b generate", phase_qwen3_moe, torch)
 
     entries = []
     for name, key, source, replaces, launches in (
@@ -1869,6 +2346,10 @@ def main():
         # generate()
         ("quant_matmul", ("quant_matmul", "8b", "up"), "csrc/quant_matmul.cu",
          "neuronx_distributed_inference_tpu/ops/quant_matmul.py:231", int4_8b["launches"]),
+        # B7 at one Qwen3-30B-A3B layer, batch 1; launches of the Qwen3
+        # generate()
+        ("moe_decode", ("moe_decode", "qwen3 bs1"), "csrc/moe_decode.cu",
+         "neuronx_distributed_inference_tpu/ops/moe_decode.py:159", qwen3["launches"]),
     ):
         t = times[key]
         entries.append({

@@ -84,6 +84,7 @@ class ChunkedPrefillConfig:
 #: settings outside the ported slice -> (inert value, ROADMAP item)
 _NOT_PORTED: Dict[str, Tuple[Any, str]] = {
     "tp_degree": (1, "A10 (parallelism)"),
+    "ep_degree": (1, "A10 (parallelism: expert parallelism)"),
     "quantized_checkpoints_path": (None, "A11 (quantized checkpoint artifacts)"),
     "serving_spec_ragged": (False, "A7 (speculation)"),
     "speculation_length": (0, "A7 (speculation)"),
@@ -176,6 +177,7 @@ class Config:
 
     # --- not ported yet (validated, then refused) --------------------------
     tp_degree: int = 1
+    ep_degree: int = 1
     quantized_checkpoints_path: Optional[str] = None
     serving_spec_ragged: bool = False
     speculation_length: int = 0
@@ -354,6 +356,46 @@ class Config:
         ):
             self.pa_num_blocks = max(
                 1, (self.max_batch_size * self.seq_len + self.pa_block_size - 1) // self.pa_block_size
+            )
+
+
+@dataclass
+class MoEConfig(Config):
+    """MoE extras (counterpart of the reference's ``MoETpuConfig``,
+    ``config.py:909-969``): the same names, defaults and validation, less
+    its ``normalize_top_k_affinities``, which nothing reads (the models
+    read ``norm_topk_prob``). ``moe_fused_kernel_enabled`` follows the
+    port's tri-state: None and True send decode-sized calls to the B7
+    kernel (``ops/moe_decode.py``), False to the dense all-experts route."""
+
+    capacity_factor: Optional[float] = None  # None = dropless
+    glu_mlp: bool = True
+    glu_type: str = "glu"
+    hidden_act_scaling_factor: float = 1.0
+    hidden_act_bias: float = 0.0
+    early_expert_affinity_modulation: bool = False
+    fused_shared_experts: bool = False
+    router_dtype: str = "float32"
+    moe_fused_kernel_enabled: Optional[bool] = None
+    hybrid_sharding_config: Optional[dict] = None
+
+    def validate(self):
+        super().validate()
+        if not self.glu_mlp or self.glu_type != "glu":
+            raise NotImplementedError(
+                "non-GLU expert MLPs are not implemented (experts are "
+                "gate/up/down GLU, modules/moe.py)"
+            )
+        to_dtype(self.router_dtype)
+        if self.hybrid_sharding_config is not None:
+            raise NotImplementedError(
+                "hybrid_sharding_config (per-phase expert sharding) is not "
+                "ported to PyTorch yet (ROADMAP A10 (parallelism))"
+            )
+        if self.fused_shared_experts:
+            raise NotImplementedError(
+                "fused_shared_experts (shared experts) is not ported to "
+                "PyTorch yet (ROADMAP A9 (shared experts))"
             )
 
 

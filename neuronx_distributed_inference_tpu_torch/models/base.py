@@ -146,9 +146,11 @@ def mark_non_finite_tokens(tokens: torch.Tensor, logits: torch.Tensor) -> torch.
 
 
 def act_fn(name: str) -> Callable:
+    """The reference's activations; its "gelu" is ``jax.nn.gelu``, whose
+    default is the tanh approximation."""
     return {
         "silu": F.silu,
-        "gelu": F.gelu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),
         "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
         "relu": F.relu,
     }[name]

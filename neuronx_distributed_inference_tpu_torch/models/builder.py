@@ -4,8 +4,9 @@ shard, so the reference's GQA padding/replication is the identity here).
 
 Params are a nested dict with the reference's pytree layout: stacked layer
 weights ``(L, ...)`` in (in, out) orientation, ``qkv_proj`` fused as
-``[q|k|v]`` when ``fused_qkv`` is set, a padded vocab, and a materialized
-``(H, Vpad)`` lm head for tied embeddings.
+``[q|k|v]`` when ``fused_qkv`` is set, per-head ``q_norm``/``k_norm``
+weights ``(L, D)`` for qk-norm models (Qwen3), a padded vocab, and a
+materialized ``(H, Vpad)`` lm head for tied embeddings.
 """
 
 from __future__ import annotations
@@ -45,6 +46,16 @@ def _to_torch(x, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
 
+def hf_array(sd: Dict, name: str) -> np.ndarray:
+    """One HF checkpoint tensor (numpy or torch) as an fp32 numpy array."""
+    if name not in sd:
+        raise KeyError(f"missing HF weight {name}; have e.g. {list(sd)[:5]}")
+    x = sd[name]
+    if isinstance(x, torch.Tensor):
+        x = x.detach().float().cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
 #: quantized codes that cross from the JAX package as they are
 _CODE_DTYPES = {
     "int8": torch.int8, "uint8": torch.uint8,
@@ -74,10 +85,18 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
     return conv(tree, ())
 
 
+#: param-tree keys of norm weights: random weights set them to ones
+NORM_KEYS = ("input_layernorm", "post_attention_layernorm", "norm", "q_norm", "k_norm")
+
+
 class DecoderModelBuilder:
     """Builder for llama-family decoder-only models."""
 
+    qk_norm = False
     norm_type = "rmsnorm"
+    #: True for the MoE builders (models/mixtral.py); the serving paths
+    #: refuse them
+    is_moe = False
 
     def __init__(self, config: InferenceConfig):
         self.config = config
@@ -98,8 +117,10 @@ class DecoderModelBuilder:
             num_kv_heads=self.num_kv_heads,
             head_dim=self.head_dim,
             scale=getattr(self.config, "attention_scale", None),
+            qk_norm=self.qk_norm,
             softmax_fp32=tc.attention_softmax_fp32,
             has_sink=bool(getattr(self.config, "attention_sink", False)),
+            rms_norm_eps=getattr(self.config, "rms_norm_eps", 1e-6),
             use_flash_kernel=tc.attn_kernel_enabled,
             use_tkg_kernel=tc.attn_block_tkg_kernel_enabled,
         )
@@ -151,6 +172,9 @@ class DecoderModelBuilder:
             },
             "norm": {"weight": (H,)},
         }
+        if self.qk_norm:
+            attn["q_norm"] = {"weight": (L, D)}
+            attn["k_norm"] = {"weight": (L, D)}
         if not getattr(cfg, "tie_word_embeddings", False):
             shapes["lm_head"] = {"weight": (H, V)}
         return shapes
@@ -160,21 +184,32 @@ class DecoderModelBuilder:
     def random_params(self, std: float = 0.02) -> Dict:
         """Random weights generated on the target device from a
         ``torch.Generator`` seeded with the config's ``seed`` (std 0.02,
-        norms 1, like the reference; the numbers differ from JAX's)."""
+        norms 1, like the reference; the numbers differ from JAX's).
+
+        Each leaf is allocated once in the target dtype and filled in place,
+        a stacked ``(L, ...)`` leaf one layer's slice at a time, so the fp32
+        transient is one layer's slice and the load's peak stays near the
+        params' own bytes (Qwen3-30B-A3B's expert leaf is 19.3 GB in bf16,
+        38.7 GB as a whole fp32 tensor)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.config.torch_config.seed)
 
-        def rand(tree):
-            if isinstance(tree, dict):
-                return {k: rand(v) for k, v in tree.items()}
-            x = torch.randn(tree, generator=gen, device=self.device, dtype=torch.float32)
-            return x.mul_(std).to(self.dtype)
+        def fill(shape, key, stacked):
+            if key in NORM_KEYS:
+                return torch.ones(shape, dtype=self.dtype, device=self.device)
+            out = torch.empty(shape, dtype=self.dtype, device=self.device)
+            for part in (out if stacked else out[None]):
+                x = torch.randn(part.shape, generator=gen, device=self.device, dtype=torch.float32)
+                part.copy_(x.mul_(std))
+                del x
+            return out
 
-        params = rand(self.param_shapes())
-        layers = params["layers"]
-        for name in ("input_layernorm", "post_attention_layernorm"):
-            layers[name]["weight"] = torch.ones_like(layers[name]["weight"])
-        params["norm"]["weight"] = torch.ones_like(params["norm"]["weight"])
+        def rand(tree, key, stacked):
+            if isinstance(tree, dict):
+                return {k: rand(v, k if k != "weight" else key, stacked or k == "layers") for k, v in tree.items()}
+            return fill(tree, key, stacked)
+
+        params = rand(self.param_shapes(), None, False)
         params["rope"] = {"inv_freq": compute_inv_freq(self.config).to(self.device)}
         if getattr(self.config, "tie_word_embeddings", False):
             # tied models carry a materialized transposed (H, V) copy, as the
@@ -196,12 +231,7 @@ class DecoderModelBuilder:
         L = cfg.num_hidden_layers
 
         def get(name):
-            if name not in sd:
-                raise KeyError(f"missing HF weight {name}; have e.g. {list(sd)[:5]}")
-            x = sd[name]
-            if isinstance(x, torch.Tensor):
-                x = x.detach().float().cpu().numpy()
-            return np.asarray(x, dtype=np.float32)
+            return hf_array(sd, name)
 
         def stack(suffix, transpose=True):
             arrs = [get(self.HF_LAYER_PREFIX.format(i=i) + suffix) for i in range(L)]
@@ -229,6 +259,9 @@ class DecoderModelBuilder:
             },
             "norm": {"weight": _to_torch(get(self.HF_NORM), dtype, self.device)},
         }
+        if self.qk_norm:
+            for p in ("q_norm", "k_norm"):
+                params["layers"]["self_attn"][p] = {"weight": stack(f"self_attn.{p}.weight", False)}
         if getattr(cfg, "tie_word_embeddings", False):
             params["lm_head"] = {"weight": params["embed_tokens"]["weight"].t().contiguous()}
         else:

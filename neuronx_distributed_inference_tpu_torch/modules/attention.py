@@ -2,7 +2,8 @@
 ``modules/attention.py``; the main-path subset).
 
 - :func:`qkv_project` / :func:`o_project` — projections with RoPE applied,
-  through ``ops/quant.linear`` (plain, int8/fp8 or packed int4 weights).
+  through ``ops/quant.linear`` (plain, int8/fp8 or packed int4 weights),
+  with the per-head q/k RMSNorm of Qwen3 (``AttnSpec.qk_norm``) before RoPE.
 - :func:`attention_prefill` — context-encoding attention: the B2 flash
   kernel (``ops/flash_attention.py``) unless ``use_flash_kernel`` is
   False, then the plain masked softmax.
@@ -18,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from neuronx_distributed_inference_tpu_torch.modules.norm import rms_norm
 from neuronx_distributed_inference_tpu_torch.modules.rope import apply_rope
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import use_flash
 from neuronx_distributed_inference_tpu_torch.ops.quant import linear
@@ -31,8 +33,10 @@ class AttnSpec:
     num_kv_heads: int
     head_dim: int
     scale: Optional[float] = None
+    qk_norm: bool = False  # rmsnorm on per-head q/k before rope (qwen3)
     softmax_fp32: bool = True
     has_sink: bool = False
+    rms_norm_eps: float = 1e-6
     # kernel tri-states (config attn_kernel_enabled /
     # attn_block_tkg_kernel_enabled): None and True take the CUDA kernel
     # (its wrapper uses the plain version on CPU tensors), False the plain
@@ -63,7 +67,9 @@ def qkv_project(
     """hidden (B,S,H) -> q (B,S,Hq,D), k,v (B,S,Hkv,D), with RoPE applied.
 
     ``qkv_proj`` (fused_qkv) is one matmul split after: with one shard the
-    reference's rank-interleaved layout is a plain [q|k|v] split."""
+    reference's rank-interleaved layout is a plain [q|k|v] split. With
+    ``spec.qk_norm`` q and k take a per-head RMSNorm (weights ``q_norm`` /
+    ``k_norm``, shape (D,)) before RoPE, on either layout."""
     B, S, _ = hidden.shape
     q_sz = spec.num_heads * spec.head_dim
     kv_sz = spec.num_kv_heads * spec.head_dim
@@ -77,6 +83,9 @@ def qkv_project(
     q = q.reshape(B, S, spec.num_heads, spec.head_dim)
     k = k.reshape(B, S, spec.num_kv_heads, spec.head_dim)
     v = v.reshape(B, S, spec.num_kv_heads, spec.head_dim)
+    if spec.qk_norm:
+        q = rms_norm(q, params["q_norm"]["weight"], spec.rms_norm_eps)
+        k = rms_norm(k, params["k_norm"]["weight"], spec.rms_norm_eps)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 

@@ -27,12 +27,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES = (
     "flash_attention", "decode_attention", "paged_flash_attention", "ragged_paged_attention", "quant_matmul",
+    "moe_decode",
 )
 #: the kernels whose launches are counted, by name: B4 (paged decode) is the
 #: paged address mode of decode_attention.cu, counted apart from B1
 KERNELS = (
     "flash_attention", "decode_attention", "paged_decode_attention", "paged_flash_attention",
-    "ragged_paged_attention", "quant_matmul",
+    "ragged_paged_attention", "quant_matmul", "moe_decode",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -50,8 +51,12 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 #: calls per route that is not a kernel of the port: ``int4_dense`` counts
 #: the int4 projections with more rows than B6 takes, run on a card as a
-#: dequantized weight and one torch.matmul (ops/quant_matmul.py)
-ROUTES: Dict[str, int] = {"int4_dense": 0}
+#: dequantized weight and one torch.matmul (ops/quant_matmul.py), and only
+#: on a card. The MoE routes of ``modules/moe.moe_layer`` count on every
+#: device: ``moe_dense`` (all experts, every token), ``moe_grouped``
+#: (expert-sorted rows, prefill) and ``moe_capacity`` (the dropping
+#: dispatch, prefill); a call that B7 takes counts as its launch.
+ROUTES: Dict[str, int] = {"int4_dense": 0, "moe_dense": 0, "moe_grouped": 0, "moe_capacity": 0}
 
 
 def reset_launch_counts() -> None:

@@ -14,6 +14,11 @@ int4 projections route by their row count (:func:`use_quant_matmul`): at
 most :data:`QMM_MAX_ROWS` rows go to the B6 kernel's wrapper, more to the
 dense route; ``quant_matmul_mode(False)`` (the reference's mode knob) sends
 every call to the plain version.
+
+MoE decode routes by :func:`use_moe_tkg`: the B7 kernel's wrapper for plain
+experts and at most :data:`MOE_TKG_MAX_ROWS` (token, selection) rows. Here
+``moe_fused_kernel_enabled=None`` means the kernel; in the reference it
+means off (its kernel lost to XLA on the TPU at batch 1).
 """
 
 from __future__ import annotations
@@ -101,6 +106,37 @@ def use_quant_matmul(rows: int) -> bool:
     :data:`QMM_MAX_ROWS` rows goes to B6's wrapper, which masks any N and K
     itself. Larger calls (prefill, wide mixed steps) take the dense route."""
     return not quant_matmul_off() and rows <= QMM_MAX_ROWS
+
+
+#: the largest (token, selection) row count B7 takes (the reference's
+#: decode-sized gate, ``T * k <= 64``)
+MOE_TKG_MAX_ROWS = 64
+
+
+def use_moe_tkg(spec, params: dict, n_tokens: int) -> bool:
+    """Decode-sized MoE calls through the B7 kernel's wrapper (the
+    reference's ``ops/kernel_mode.py:175-205``; ``spec`` is a MoESpec,
+    ``params`` the experts' entries). The structural conditions hold:
+    plain bias-free unquantized gate/up/down weights, ``n_tokens * top_k <=
+    MOE_TKG_MAX_ROWS``, one expert-parallel rank, no early affinity
+    modulation. Its model-parallel condition is the port's single shard.
+    ``moe_fused_kernel=False`` takes the dense route; None and True take the
+    kernel where the conditions hold, the dense route where they do not."""
+    if spec.moe_fused_kernel is False:
+        return False
+    plain = all(
+        isinstance(params.get(k), dict)
+        and "weight" in params[k]
+        and "scale" not in params[k]
+        and "bias" not in params[k]
+        for k in ("gate_proj", "up_proj", "down_proj")
+    )
+    return (
+        plain
+        and n_tokens * spec.top_k <= MOE_TKG_MAX_ROWS
+        and spec.ep_degree == 1
+        and not spec.early_affinity_modulation
+    )
 
 
 def launches_kernel(*tensors: torch.Tensor) -> bool:

@@ -4,10 +4,11 @@ not ported yet.
 
     python -m neuronx_distributed_inference_tpu_torch.ops.roofline
 
-prints the paper bounds of B7–B9, each at the shapes of the bench row that
-would run it, the bounds of B3's two timed points, and B6's bound at every
+prints the paper bounds of B8 and B9, each at the shapes of the bench row
+that would run it, the bounds of B3's two timed points, B6's bound at every
 projection of the int4 rows (:data:`QMM_POINTS`) with the whole decode
-step's weight bytes. The bound is the larger of two times: the bytes the
+step's weight bytes, and B7's bound at its timed points
+(:data:`MOE_POINTS`) with the Qwen3-30B-A3B decode step's weight bytes. The bound is the larger of two times: the bytes the
 function must move (each input read once, each output written once) over
 the card's memory rate, and its operations over the card's peak rate for
 their type. The rates are NVIDIA's published figures for one H100 SXM at
@@ -31,6 +32,11 @@ I32 = 4
 #: analysis/device_model.py LLAMA_1B / LLAMA_8B)
 MODEL_1B = dict(H=2048, I=8192, Hq=32, Hkv=8, D=64, L=16)
 MODEL_8B = dict(H=4096, I=14336, Hq=32, Hkv=8, D=128, L=32)
+
+#: the MoE widths (models/mixtral.py QWEN3_30B_A3B, MIXTRAL_8X7B): E
+#: experts, k selected per token, I the expert intermediate size, V the vocab
+MODEL_QWEN3_MOE = dict(H=2048, I=768, Hq=32, Hkv=4, D=128, L=48, E=128, k=8, V=151936)
+MODEL_MIXTRAL = dict(H=4096, I=14336, Hq=32, Hkv=8, D=128, L=32, E=8, k=2, V=32000)
 
 INT4_GROUP = 128  # rows of K per scale (the reference's quant_matmul.INT4_GROUP)
 
@@ -121,13 +127,45 @@ def int4_step_bytes(m: Dict[str, int], rows: int = 1) -> int:
     return total
 
 
-def moe_decode(tokens: int, top_k: int, distinct_experts: int) -> Tuple[int, int]:
-    """B7: the selected experts' gate, up and down weights (each read once
-    however many tokens chose it), x and out, GLU FLOPs per selection."""
-    m = MODEL_1B
-    expert = 3 * m["H"] * m["I"] * BF16
-    nbytes = distinct_experts * expert + 2 * tokens * m["H"] * BF16 + tokens * top_k * F32
-    return nbytes, tokens * top_k * 3 * 2 * m["H"] * m["I"]
+def moe_decode(m: Dict[str, int], tokens: int, distinct_experts: int) -> Tuple[int, int]:
+    """B7 at the widths ``m``: the selected experts' gate, up and down
+    weights (each distinct expert read once however many tokens chose it),
+    x and out in bf16, the (tokens, k) int32 ids and fp32 weights; GLU
+    FLOPs per (token, selection) row."""
+    H, I, k = m["H"], m["I"], m["k"]
+    nbytes = distinct_experts * 3 * H * I * BF16 + 2 * tokens * H * BF16 + tokens * k * (I32 + F32)
+    return nbytes, tokens * k * 3 * 2 * H * I
+
+
+#: B7's timed points: one layer of Qwen3-30B-A3B at batch 1 (8 experts) and
+#: batch 8 (64 selections; ``distinct`` is the most they can touch), and of
+#: Mixtral-8x7B at batch 1 (2 of 8 experts)
+MOE_POINTS = {
+    "qwen3 bs1": dict(m=MODEL_QWEN3_MOE, tokens=1, distinct=8),
+    "qwen3 bs8": dict(m=MODEL_QWEN3_MOE, tokens=8, distinct=64),
+    "mixtral bs1": dict(m=MODEL_MIXTRAL, tokens=1, distinct=2),
+}
+
+
+def moe_dense_bytes(m: Dict[str, int], tokens: int) -> int:
+    """The dense all-experts route B7 replaces: every expert's weights, x
+    and out, once."""
+    return m["E"] * 3 * m["H"] * m["I"] * BF16 + 2 * tokens * m["H"] * BF16
+
+
+def moe_step_bytes(m: Dict[str, int], rows: int = 1, distinct: int = None) -> int:
+    """The weight bytes of one MoE decode step at ``rows`` tokens in bf16
+    (the KV cache, which depends on the context, left out): per layer the
+    attention projections, the q/k norms and the two layer norms, the router
+    and B7's bytes with ``distinct`` experts (by default the most ``rows``
+    tokens can touch); then the final norm and the untied lm head."""
+    H, D, E, k = m["H"], m["D"], m["E"], m["k"]
+    if distinct is None:
+        distinct = min(E, rows * k)
+    attn = (H * (m["Hq"] + 2 * m["Hkv"]) * D + m["Hq"] * D * H + 2 * D + 2 * H) * BF16
+    router = H * E * BF16
+    layer = attn + router + moe_decode(m, rows, distinct)[0]
+    return m["L"] * layer + (H + H * m["V"]) * BF16
 
 
 def attn_block(batch: int, ctx: int) -> Tuple[int, int]:
@@ -155,9 +193,6 @@ def paper_bounds() -> List[dict]:
     """One row per kernel still to port: where its shapes come from, its
     bytes and FLOPs, and its bound on one H100."""
     cases = [
-        ("B7", "fused_moe_decode", "none (off by default; no MoE bench row)",
-         "the kernel registry's case: 4 tokens, top-2 of 8 experts at 1B widths, all 8 experts chosen",
-         moe_decode(4, 2, 8)),
         ("B8", "fused_attn_block", "bf16_1b_bs4 (when enabled; off by default)",
          "one decode layer at batch 4, 256 cached positions per row, bf16",
          attn_block(4, 256)),
@@ -192,6 +227,19 @@ def main() -> None:
         step = int4_step_bytes(pt["m"], pt["rows"])
         print(f"| B6 | `quant_matmul` | {label} whole decode step | every layer and the lm head | {step:,} | "
               f"| {bound_ms(step, 0)[0]:.5f} (bytes) |")
+    for label, pt in MOE_POINTS.items():
+        m = pt["m"]
+        nbytes, flops = moe_decode(m, pt["tokens"], pt["distinct"])
+        ms, by = bound_ms(nbytes, flops)
+        dense = bound_ms(moe_dense_bytes(m, pt["tokens"]), 0)[0]
+        print(
+            f"| B7 | `fused_moe_decode` | {label}, one layer | H {m['H']}, I {m['I']}, top-{m['k']} of {m['E']}, "
+            f"{pt['distinct']} distinct experts, bf16 | {nbytes:,} | {flops:,} | {ms:.5f} ({by}); dense route "
+            f"{dense:.5f} |"
+        )
+    step = moe_step_bytes(MODEL_QWEN3_MOE)
+    print(f"| B7 | `fused_moe_decode` | qwen3 whole decode step, batch 1 | every layer and the lm head | {step:,} | "
+          f"| {bound_ms(step, 0)[0]:.5f} (bytes) |")
     for name, pt in RAGGED_POINTS.items():
         nbytes, flops = ragged_work(**pt)
         ms, by = bound_ms(nbytes, flops)

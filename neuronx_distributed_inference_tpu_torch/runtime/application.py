@@ -1,7 +1,9 @@
 """Application layer: load / warmup / forward / generate (counterpart of
 the reference's ``runtime/application.py``).
 
-:class:`ModelForCausalLM` is the port's ``TpuModelForCausalLM``: one
+:class:`ModelForCausalLM` is the port's ``TpuModelForCausalLM`` for every
+registered builder (llama, qwen3, mixtral, qwen3_moe; the MoE models run
+``generate()`` and ``forward()``, not the serving session yet): one
 context-encoding runner and one token-generation runner over a KV cache on
 the config's device (``"cuda"`` unless the caller asks for the CPU). The
 cache is contiguous, or the paged block pool with ``is_block_kv_layout``.
@@ -109,6 +111,11 @@ class ModelForCausalLM:
         # step covers prefill chunks AND decode rows; its bucket axis is the
         # TOTAL packed query-token count, not a per-phase shape
         self.mixed_step_model = None
+        if tc.serving_ragged and self.builder.is_moe:
+            raise NotImplementedError(
+                "the ragged mixed step (MixedStepRunner) of an MoE model is not ported "
+                "to PyTorch yet (ROADMAP A9: MoE serving); use generate()"
+            )
         if tc.serving_ragged:
             from neuronx_distributed_inference_tpu_torch.ops.ragged_paged_attention import RAGGED_Q_TILE
 

@@ -144,6 +144,11 @@ class ServingSession:
         session's host boundaries (tests). ``clock``/``sleep_fn``: the
         wall-clock source for deadlines and backoff (default
         ``time.monotonic`` / ``time.sleep``)."""
+        if app.builder.is_moe:
+            raise NotImplementedError(
+                "serving an MoE model (ServingSession, split or ragged) is not ported "
+                "to PyTorch yet (ROADMAP A9: MoE serving); use generate()"
+            )
         self.app = app
         self.tel = telemetry if telemetry is not None else default_session()
         tc = app.config.torch_config

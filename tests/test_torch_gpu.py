@@ -38,7 +38,7 @@ def test_kernels_match_plain_on_the_card(cuda_card):
     chip_smoke.phase_paged_flash_parity(torch, pf)
     chip_smoke.phase_ragged_parity(torch, rp)
     counts = _cuda.launch_counts()
-    attention = [name for name in _cuda.KERNELS if name != "quant_matmul"]
+    attention = [name for name in _cuda.KERNELS if name not in ("quant_matmul", "moe_decode")]
     assert all(counts[name] > 0 for name in attention), counts
 
 
@@ -54,3 +54,17 @@ def test_quant_matmul_matches_plain_on_the_card(cuda_card):
     _cuda.reset_launch_counts()
     chip_smoke.phase_quant_matmul_parity(torch, qmm)
     assert _cuda.launch_counts()["quant_matmul"] == 5 * 2 * len(chip_smoke.qmm_shapes())
+
+
+@pytest.mark.gpu
+def test_moe_decode_matches_plain_on_the_card(cuda_card):
+    """B7 against its plain version: Qwen3-30B-A3B widths at 1, 2 and 8
+    tokens (64 rows), Mixtral-8x7B widths at 1 and 4, widths no tile
+    divides, bf16 and fp32, silu and the clamped swiglu. Each case checks
+    that B7 launched once (its plain runs reset the counts)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import moe_decode as md
+
+    n = chip_smoke.phase_moe_parity(torch, md)
+    assert n == 2 * len(chip_smoke.MOE_GLUS) * len(chip_smoke.moe_cases())

@@ -233,3 +233,77 @@ def test_pool_bytes_size_the_paged_pool():
     assert app.kv_cache.num_blocks == 10 and tuple(app.kv_cache.k.shape) == (1, 11, 1, 16, 64)
     with pytest.raises(NotImplementedError, match="ServingSession"):
         app.generate(np.ones((1, 4), np.int64), max_new_tokens=2)
+
+
+def _moe_app(tc_cls=None, **tc):
+    """A tiny Qwen3-MoE app on the CPU (32 experts of width 64, top-2)."""
+    from neuronx_distributed_inference_tpu_torch.config import InferenceConfig, MoEConfig
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    hf = dict(model_type="qwen3_moe", hidden_size=128, moe_intermediate_size=64, num_attention_heads=2,
+              num_key_value_heads=1, head_dim=64, num_hidden_layers=1, vocab_size=64, num_experts=32,
+              num_experts_per_tok=2, rms_norm_eps=1e-6)
+    cfg = InferenceConfig(
+        (tc_cls or MoEConfig)(device="cpu", dtype="float32", seq_len=128, **tc),
+        load_config=lambda c: [setattr(c, k, v) for k, v in hf.items()],
+    )
+    return ModelForCausalLM(None, cfg)
+
+
+@pytest.mark.parametrize(
+    "kw, item",
+    [
+        (dict(ep_degree=2), "A10"),
+        (dict(hybrid_sharding_config=dict(moe_cte_tp_degree=1, moe_cte_ep_degree=1)), "A10"),
+        (dict(fused_shared_experts=True), "A9"),
+    ],
+)
+def test_moe_settings_outside_the_slice_raise(kw, item):
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        MoEConfig(device="cpu", **kw)
+
+
+def test_moe_config_matches_reference():
+    """MoEConfig keeps MoETpuConfig's field names, defaults and checks."""
+    from neuronx_distributed_inference_tpu.config import MoETpuConfig
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+
+    ref, port = MoETpuConfig(), MoEConfig(device="cpu")
+    for name in ("capacity_factor", "glu_mlp", "glu_type", "hidden_act_scaling_factor", "hidden_act_bias",
+                 "early_expert_affinity_modulation", "fused_shared_experts",
+                 "router_dtype", "moe_fused_kernel_enabled", "hybrid_sharding_config", "ep_degree"):
+        assert getattr(port, name) == getattr(ref, name), name
+    for kw in (dict(glu_mlp=False), dict(glu_type="swiglu")):
+        with pytest.raises(NotImplementedError):
+            MoETpuConfig(**kw)
+        with pytest.raises(NotImplementedError):
+            MoEConfig(device="cpu", **kw)
+    with pytest.raises(ValueError):
+        MoEConfig(device="cpu", router_dtype="float64")
+
+
+@pytest.mark.parametrize("kw", [dict(weight_dtype="int8"), dict(quantized=True), dict(weight_dtype="int4")])
+def test_quantized_moe_raises_naming_a9(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        _moe_app(**kw)
+    from neuronx_distributed_inference_tpu_torch.config import Config
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        _moe_app(Config, **kw)
+
+
+def test_serving_an_moe_model_raises_naming_a9():
+    """generate() runs an MoE model; the serving session (split) and the
+    ragged mixed-step runner refuse it."""
+    from neuronx_distributed_inference_tpu_torch.runtime.serving import ServingSession
+
+    serve = dict(is_continuous_batching=True, batch_size=2, ctx_batch_size=1, is_block_kv_layout=True)
+    app = _moe_app(**serve).load(random_weights=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        ServingSession(app)
+    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        _moe_app(**serve, serving_ragged=True)
+    out = _moe_app().load(random_weights=True).generate(np.array([[1, 2, 3]]), max_new_tokens=3)
+    assert out.sequences.shape == (1, 6)

@@ -281,7 +281,7 @@ def test_route_by_rows_matches_the_reference_rule(rows):
     x = torch.from_numpy(np.random.RandomState(rows).randn(rows, 512).astype(np.float32))
     _cuda.reset_launch_counts()
     out = tq.linear(entry, x)
-    assert _cuda.launch_counts()["quant_matmul"] == 0 and _cuda.route_counts() == {"int4_dense": 0}
+    assert _cuda.launch_counts()["quant_matmul"] == 0 and _cuda.route_counts() == {n: 0 for n in _cuda.ROUTES}
     torch.testing.assert_close(out, tqm.quant_matmul_plain(x, entry["weight"], entry["scale"]), rtol=0, atol=0)
     torch.testing.assert_close(
         tqm.int4_matmul_dense(x, entry["weight"], entry["scale"]), out, rtol=0, atol=0

@@ -56,7 +56,7 @@ def sd():
 
 
 def _counts_zero():
-    return _cuda.launch_counts() == {n: 0 for n in _cuda.KERNELS} and _cuda.route_counts() == {"int4_dense": 0}
+    return _cuda.launch_counts() == {n: 0 for n in _cuda.KERNELS} and _cuda.route_counts() == {n: 0 for n in _cuda.ROUTES}
 
 
 @pytest.mark.parametrize("batch", [1, 2])

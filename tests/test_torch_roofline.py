@@ -57,7 +57,7 @@ def test_int4_step_bytes_cover_every_projection():
 
 def test_paper_bounds_cover_the_kernels_still_to_port():
     rows = {r["tag"]: r for r in roofline.paper_bounds()}
-    assert sorted(rows) == ["B7", "B8", "B9"]
+    assert sorted(rows) == ["B8", "B9"]
     for r in rows.values():
         assert r["bytes"] > 0 and r["flops"] > 0 and r["bound_ms"] > 0
     # B9 streams the MLP's three bf16 weight matrices once
@@ -82,3 +82,39 @@ def test_ragged_points_count_the_packed_work(point):
     assert nbytes == (q_tokens + T) * m["Hq"] * m["D"] * 2 + 2 * kv * m["Hkv"] * m["D"] * 2 + tables
     assert flops == 4 * m["D"] * m["Hq"] * pairs
     assert roofline.bound_ms(nbytes, flops)[1] == "bytes"
+
+
+@pytest.mark.parametrize(
+    "point, want_ms",
+    [("qwen3 bs1", 0.02254), ("qwen3 bs8", 0.1803), ("mixtral bs1", 0.2103)],
+)
+def test_moe_decode_bounds(point, want_ms):
+    """B7 reads each distinct selected expert's gate, up and down weights
+    once (Qwen3-30B-A3B: 3 x 2048 x 768 bf16 = 9.44 MB an expert; Mixtral:
+    3 x 4096 x 14336 = 352 MB), x and out in bf16, and the (tokens, k) ids
+    and weights."""
+    pt = roofline.MOE_POINTS[point]
+    m, T = pt["m"], pt["tokens"]
+    nbytes, flops = roofline.moe_decode(m, T, pt["distinct"])
+    expert = 3 * m["H"] * m["I"] * 2
+    assert nbytes == pt["distinct"] * expert + 2 * T * m["H"] * 2 + T * m["k"] * 8
+    assert flops == T * m["k"] * 6 * m["H"] * m["I"]
+    ms, by = roofline.bound_ms(nbytes, flops)
+    assert by == "bytes" and ms == pytest.approx(want_ms, abs=5e-5)
+
+
+def test_moe_step_bytes_and_the_dense_route():
+    """A Qwen3-30B-A3B decode step at batch 1 reads 6.08 GB of weights
+    (1.816 ms at 3.35 TB/s), B7's 8 experts a layer 60% of it; the dense
+    all-experts route B7 replaces reads 1.21 GB a layer (0.3606 ms)."""
+    m = roofline.MODEL_QWEN3_MOE
+    step = roofline.moe_step_bytes(m)
+    assert roofline.bound_ms(step, 0)[0] == pytest.approx(1.816, abs=5e-4)
+    b7 = m["L"] * roofline.moe_decode(m, 1, 8)[0]
+    assert b7 / step == pytest.approx(0.60, abs=0.01)
+    assert roofline.bound_ms(b7, 0)[0] == pytest.approx(1.082, abs=5e-4)
+    dense = roofline.moe_dense_bytes(m, 1)
+    assert dense == pytest.approx(1.21e9, rel=0.01)
+    assert roofline.bound_ms(dense, 0)[0] == pytest.approx(0.3606, abs=5e-4)
+    # batch 8 touches at most 64 experts a layer
+    assert roofline.moe_step_bytes(m, 8) == roofline.moe_step_bytes(m, 8, 64) > step
