@@ -43,7 +43,15 @@ Phases, in order; any failure exits non-zero:
      batch 1 with exact B2 / B1 / B7 / moe_grouped counts and no dense MoE
      call, a batch-8 generate() (64 rows for B7), a profile, and the
      teacher-forced gate on its first 4 layers with the router's top-k flips
-     counted. B1 and B2 also run at its GQA 8:1 shape in phases 3 and 4.
+     counted. B1 and B2 also run at its GQA 8:1 shape in phases 3 and 4;
+ 10. the fused decode layer: B8 (the attention block) and B9 (the MLP
+     block) against their plain versions (D 64 and 128, GQA 4:1 and 8:1,
+     batch 1 and 4, K 1 and 4, buckets 512 and 1024, rows on the garbage
+     line, silu and the tanh gelu, widths no tile divides), timed at the 1B
+     decode layer at batch 1 and 4 beside the unfused layer, then
+     Llama-3.2-1B generate() at batch 4 (bf16_1b_bs4) and batch 1 with the
+     fused layer on and off in turn (exact counts, tok/s, TTFT, profiles)
+     and its teacher-forced gate.
 Each phase prints its seconds. The line before the card's name lists every
 kernel with its launches, times and bound; the last line of standard output
 is {"ok": true, "device": {...}}.
@@ -130,13 +138,14 @@ def phase_device(torch):
 SPIN_CYCLES = 1_000_000
 
 
-def time_ms(torch, fn, iters=40, warmup=5):
+def time_ms(torch, fn, iters=40, warmup=5, spin=SPIN_CYCLES):
     """Mean device time of ``fn`` over ``iters`` launches, each timed by its
     own CUDA events after a 64 MiB write that evicts the 50 MB L2 (on the
     main path, each attention call follows ~100 MB of weight traffic). A
-    spin kernel queued before the start event keeps the card busy while the
-    host runs the wrapper and enqueues the launch, so the events time the
-    device's work and not the host's launch cost."""
+    spin kernel of ``spin`` cycles queued before the start event keeps the
+    card busy while the host runs the wrapper and enqueues the launch, so
+    the events time the device's work and not the host's launch cost (an
+    eager layer of many kernels needs a longer spin)."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -144,7 +153,7 @@ def time_ms(torch, fn, iters=40, warmup=5):
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for i in range(iters):
         flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
+        torch.cuda._sleep(spin)
         starts[i].record()
         fn()
         ends[i].record()
@@ -1056,22 +1065,25 @@ def phase_main_path(torch):
     )
 
 
-def phase_profile(torch, app, seq, prompt_len, steps=16):
+def phase_profile(torch, app, seq, prompt_len, steps=16, label="decode step"):
     """Where a decode step's time goes: one ``steps``-step decode chunk in
-    bucket 512 (it re-decodes from the first generated token, rewriting
-    cache positions the main path already wrote with the same tokens)."""
+    bucket 512 over every row of ``seq`` ((S,) or (B, S) tokens; it
+    re-decodes from the first generated token, rewriting cache positions
+    the generate() run already wrote)."""
     from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
 
+    seq = np.atleast_2d(seq)
+    B = seq.shape[0]
     args = (
-        np.array([[seq[prompt_len]]]), np.array([[prompt_len + 1]]), np.zeros(1, np.int32),
-        prepare_sampling_params(1),
+        seq[:, prompt_len : prompt_len + 1], np.full((B, 1), prompt_len + 1), np.arange(B, dtype=np.int32),
+        prepare_sampling_params(B),
     )
 
     def chunk():
         app.token_generation_model.decode_chunk(app.params, app.kv_cache, *args, num_steps=steps, bucket=512)
         torch.cuda.synchronize()
 
-    return profile_chunk(torch, chunk, steps, "decode step (batch 1, bucket 512)")
+    return profile_chunk(torch, chunk, steps, f"{label} (batch {B}, bucket 512)")
 
 
 def profile_chunk(torch, chunk, steps, label):
@@ -1105,7 +1117,7 @@ def profile_chunk(torch, chunk, steps, label):
     for e in host_ops:
         log(f"  host {e.self_cpu_time_total / 1e3 / steps:8.4f} ms/step, {e.count / steps:6.1f} calls/step  {e.key[:90]}")
     return dict(
-        decode_step_ms=step_ms, device_busy_frac=busy_ms / traced_ms,
+        decode_step_ms=step_ms, device_busy_frac=busy_ms / traced_ms, device_busy_ms=busy_ms / steps,
         kernels_per_step=len(kernels) / steps,
         kernel_ms_per_step={name: ms / steps for name, ms in by_name.items()},
     )
@@ -1174,7 +1186,9 @@ def teacher_forced(torch, app, seq, prompt_len):
         params32, seq, prompt_len,
     )
     del params32
-    return _forced_gate(k, pl, f32, "teacher-forced logits")
+    gate = _forced_gate(k, pl, f32, "teacher-forced logits")
+    # the fused layer's gate (phase_fused_1b) reuses the same references
+    return dict(gate, forced_seq=seq, plain_logits=pl, fp32_logits=f32)
 
 
 def _forced_gate(k, pl, f32, what, exit_on_fail=True):
@@ -1700,14 +1714,14 @@ def quantized_teacher_forced(torch, cfg_fn, params, seq, prompt_len, want, label
     return _forced_gate(k, pl, f32, label)
 
 
-def _generate_run(torch, app, prompt_len, n_new, label):
+def _generate_run(torch, app, prompt_len, n_new, label, batch=1):
     """TTFT (a one-token generate()), then a timed ``n_new``-token generate()
-    with the counts read around it, from a seeded prompt. Returns
-    (output, metrics)."""
+    with the counts read around it, from a seeded prompt of ``batch`` rows.
+    Returns (output, metrics); tok/s counts every row's tokens."""
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
 
     vocab = app.spec.vocab_size
-    prompt = np.random.RandomState(0).randint(0, vocab, size=(1, prompt_len))
+    prompt = np.random.RandomState(0).randint(0, vocab, size=(batch, prompt_len))
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     first = app.generate(prompt, max_new_tokens=1)
@@ -1718,16 +1732,16 @@ def _generate_run(torch, app, prompt_len, n_new, label):
     total_s = time.perf_counter() - t0
     launches = all_counts()
     peak = torch.cuda.max_memory_allocated()
-    decode_tok_s = (n_new - 1) / (total_s - ttft_ms / 1e3)
+    decode_tok_s = batch * (n_new - 1) / (total_s - ttft_ms / 1e3)
     log(
-        f"{label} (batch 1, prompt {prompt_len}, {n_new} new tokens): TTFT {ttft_ms:.2f} ms, generate "
+        f"{label} (batch {batch}, prompt {prompt_len}, {n_new} new tokens): TTFT {ttft_ms:.2f} ms, generate "
         f"{total_s * 1e3:.1f} ms, decode {decode_tok_s:.1f} tok/s, peak memory {peak / 2**30:.3f} GiB"
     )
     log(f"{label} launches: {launches}")
     gen = out.sequences[:, prompt_len:]
-    if gen.shape != (1, n_new) or gen.min() < 0 or gen.max() >= vocab:
+    if gen.shape != (batch, n_new) or gen.min() < 0 or gen.max() >= vocab:
         raise SystemExit(f"{label}: bad generated tokens: shape {gen.shape}, range [{gen.min()}, {gen.max()}]")
-    if first.sequences[0, prompt_len] != out.sequences[0, prompt_len]:
+    if (first.sequences[:, prompt_len] != out.sequences[:, prompt_len]).any():
         raise SystemExit(f"{label}: first token differs between two generate() calls")
     return out, dict(ttft_ms=ttft_ms, decode_tok_s=decode_tok_s, peak_bytes=peak, launches=launches)
 
@@ -2269,6 +2283,410 @@ def phase_qwen3_moe(torch):
 
 
 
+# ---------------------------------------------------------------------------
+# B8 / B9: the fused decode layer, and Llama-3.2-1B generate() through it
+# ---------------------------------------------------------------------------
+
+#: fp32 summation-order allowance of B8's and B9's checks, relative to the
+#: case's largest magnitude of the sums behind an output (as MOE_FP32_RTOL)
+FUSED_FP32_RTOL = 1e-5
+FUSED_EPS = 1e-5
+#: the device of the fused phases' inputs (a CPU rehearsal sets "cpu")
+DEV = "cuda"
+#: Llama-3.2-1B's rope_theta
+ROPE_THETA = 500000.0
+#: (label, H, Hq, Hkv, D) of B8's parity cases: D 64 and 128 at GQA 4:1 and
+#: 8:1, Llama-3.2-1B's layer first and Qwen3-30B-A3B's attention widths last
+FUSED_ATTN_SHAPES = [
+    ("1b", 2048, 32, 8, 64),
+    ("gqa8 d64", 1024, 16, 2, 64),
+    ("d128", 1024, 16, 4, 128),
+    ("qwen3 widths", 2048, 32, 4, 128),
+]
+#: (label, H, I) of B9's parity cases: Llama-3.2-1B's MLP, widths no 64-wide
+#: tile divides, and an odd I (element loads)
+FUSED_MLP_SHAPES = [("1b", 2048, 8192), ("ragged tile", 1000, 1500), ("odd", 512, 333)]
+
+
+def check_fused(torch, out, ref, mag, case, what):
+    """One output of B8 or B9 against its plain version on the same inputs.
+    Both round at the same places, so for bf16 the bound is MOE_BF16_STEP x
+    (mag + |plain|): a value a few fp32 ulps away may round one bf16 step
+    away, and so may each term that enters the last sum rounded; mag is the
+    sum of the absolute terms behind each element. Both dtypes add
+    FUSED_FP32_RTOL x the case's largest mag for the fp32 summation order.
+    Returns the max abs error; exits past the bound."""
+    step = MOE_BF16_STEP if out.dtype == torch.bfloat16 else 0.0
+    o, r = out.float(), ref.float()
+    if not torch.isfinite(o).all():
+        raise SystemExit(f"{what} returned non-finite values: {case}")
+    atol = FUSED_FP32_RTOL * mag.max().item()
+    diff = (o - r).abs()
+    err = diff.max().item()
+    use = (diff / (atol + step * (mag + r.abs()))).max().item()
+    ok = use <= 1.0
+    log(
+        f"  {what} {case}: max abs err {err:.3e}, largest share of the bound (atol {atol:.1e} + {step:.2e} x "
+        f"(mag + |plain|)) {use:.3f}, |plain| up to {r.abs().max().item():.3f} {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise SystemExit(f"{what} disagrees with its plain version: {case}")
+    return err
+
+
+def _rope_tables(torch, pos, D):
+    from neuronx_distributed_inference_tpu_torch.modules.rope import default_inv_freq, rope_cos_sin
+
+    return rope_cos_sin(pos, default_inv_freq(D, ROPE_THETA).to(pos.device))
+
+
+def fused_attn_inputs(torch, gen, B, K, H, Hq, Hkv, D, bucket, dtype, garbage_row=False, L=2, S_max=1024):
+    """One B8 call's arguments on the card: x of std 1, gamma around 1,
+    weights of std 1 / sqrt(fan-in) (q, k, v and the output near 1), both
+    caches of std 1 in every line (the garbage line too). Row 0 sits near
+    the bucket's end with positions 64 to 191 masked out (two whole tiles
+    to skip), the others shallower (partial last tiles); the mask is each
+    token's causal decode mask, this step's slots included. With
+    ``garbage_row`` the last row writes to the garbage line with an
+    all-false mask: it attends its own tokens only."""
+    def rn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=DEV) * std
+
+    x = rn(B, K, H).to(dtype)
+    gamma = (1 + 0.1 * rn(H)).to(dtype)
+    wqkv = rn(H, (Hq + 2 * Hkv) * D, std=H ** -0.5).to(dtype)
+    wout = rn(Hq * D, H, std=(Hq * D) ** -0.5).to(dtype)
+    kc, vc = rn(L, B + 1, S_max, Hkv, D).to(dtype), rn(L, B + 1, S_max, Hkv, D).to(dtype)
+    p0 = [bucket - K - 5, 77, 200, 3][:B]
+    pos = torch.tensor([[p + t for t in range(K)] for p in p0], dtype=torch.int32, device=DEV)
+    cols = torch.arange(bucket, device=DEV)
+    mask = (cols[None, None, :] <= pos[:, :, None])[:, None].contiguous()
+    mask[0, :, :, 64:192] = False
+    slots = torch.arange(B, dtype=torch.int32, device=DEV)
+    if garbage_row:
+        slots[-1] = B
+        mask[-1] = False
+    cos, sin = _rope_tables(torch, pos, D)
+    return (x, gamma, wqkv, wout, cos, sin, kc, vc, 1, slots, mask, pos)
+
+
+def check_fused_attn(torch, db, args, case):
+    """One B8 launch (exactly one count) against its plain version: the
+    hidden output (mag: |x| + |attention rows| @ |Wout|), k_new (mag: the
+    QKV terms of each k column and of its RoPE partner) and v_new (its QKV
+    terms). Returns the max abs error."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    x, gamma, wqkv, wout, cos, sin, kc, vc, li, slots, mask, pos = args
+    B, K, H = x.shape
+    D = kc.shape[-1]
+    Hkv = kc.shape[3]
+    Hq = wqkv.shape[1] // D - 2 * Hkv
+    kw = dict(scale=D ** -0.5, eps=FUSED_EPS, n_kv=Hkv)
+    before = _cuda.launch_counts()["fused_attn_block"]
+    out, k_new, v_new = db.fused_attn_block(*args, **kw)
+    torch.cuda.synchronize()
+    if _cuda.launch_counts()["fused_attn_block"] != before + 1:
+        raise SystemExit(f"fused_attn_block case did not launch B8 once: {case}")
+    ref, rk, rv = plain_run(f"fused_attn_block {case}", lambda: db.fused_attn_block_plain(*args, **kw))
+    normed, _, _, attn = db.attn_rows_plain(x, gamma, wqkv, cos, sin, kc, vc, li, slots, mask, pos, **kw)
+    mag = normed.abs() @ wqkv.float().abs()
+    mk = mag[..., Hq * D : (Hq + Hkv) * D].reshape(B, K, Hkv, D)
+    mk = mk + torch.cat([mk[..., D // 2 :], mk[..., : D // 2]], dim=-1)
+    mv = mag[..., (Hq + Hkv) * D :].reshape(B, K, Hkv, D)
+    mo = x.float().abs() + attn.abs().to(wout.dtype).float() @ wout.float().abs()
+    return max(
+        check_fused(torch, out, ref, mo, case, "fused_attn_block out"),
+        check_fused(torch, k_new, rk, mk, case, "fused_attn_block k_new"),
+        check_fused(torch, v_new, rv, mv, case, "fused_attn_block v_new"),
+    )
+
+
+def fused_mlp_inputs(torch, gen, B, K, H, I, dtype):
+    """x of std 1, gamma around 1, gate / up of std 1 / sqrt(H), down of std
+    1 / sqrt(I)."""
+    def rn(*shape, std=1.0):
+        return torch.randn(shape, generator=gen, device=DEV) * std
+
+    return (rn(B, K, H).to(dtype), (1 + 0.1 * rn(H)).to(dtype), rn(H, I, std=H ** -0.5).to(dtype),
+            rn(H, I, std=H ** -0.5).to(dtype), rn(I, H, std=I ** -0.5).to(dtype))
+
+
+def check_fused_mlp(torch, db, args, act, case):
+    """One B9 launch (exactly one count) against its plain version (mag:
+    |x| + |act(g) u| @ |Wd|). Returns the max abs error."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    x, gamma, wg, wu, wd = args
+    before = _cuda.launch_counts()["fused_mlp_block"]
+    out = db.fused_mlp_block(*args, eps=FUSED_EPS, act=act)
+    torch.cuda.synchronize()
+    if _cuda.launch_counts()["fused_mlp_block"] != before + 1:
+        raise SystemExit(f"fused_mlp_block case did not launch B9 once: {case}")
+    ref = plain_run(f"fused_mlp_block {case}", lambda: db.fused_mlp_block_plain(*args, eps=FUSED_EPS, act=act))
+    a = db.glu_rows_plain(x, gamma, wg, wu, eps=FUSED_EPS, act=act).to(wd.dtype).float()
+    mag = x.float().abs() + a.abs() @ wd.float().abs()
+    return check_fused(torch, out, ref, mag, case, "fused_mlp_block")
+
+
+def phase_fused_parity(torch, db):
+    """B8 over FUSED_ATTN_SHAPES at batch 1 and 4, K 1 and 4, buckets 512
+    and 1024, bf16 and fp32, plus rows on the garbage line with an all-false
+    mask; B9 over FUSED_MLP_SHAPES at batch 1 and 4, K 1 and 4, silu and the
+    tanh gelu, bf16 and fp32. Returns (B8 cases, B9 cases)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(13)
+    n_attn = n_mlp = 0
+    worst_attn = worst_mlp = 0.0
+    for label, H, Hq, Hkv, D in FUSED_ATTN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for B in (1, 4):
+                for K in (1, 4):
+                    for bucket in (512, 1024):
+                        args = fused_attn_inputs(torch, gen, B, K, H, Hq, Hkv, D, bucket, dtype)
+                        case = f"{label} H={H} Hq={Hq} Hkv={Hkv} D={D} {str(dtype)[6:]} B={B} K={K} bucket={bucket}"
+                        worst_attn = max(worst_attn, check_fused_attn(torch, db, args, case))
+                        n_attn += 1
+    label, H, Hq, Hkv, D = FUSED_ATTN_SHAPES[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        for K in (1, 4):
+            args = fused_attn_inputs(torch, gen, 4, K, H, Hq, Hkv, D, 512, dtype, garbage_row=True)
+            case = f"{label} garbage row {str(dtype)[6:]} B=4 K={K} bucket=512"
+            worst_attn = max(worst_attn, check_fused_attn(torch, db, args, case))
+            n_attn += 1
+    torch.cuda.empty_cache()
+    for label, H, I in FUSED_MLP_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for B in (1, 4):
+                for K in (1, 4):
+                    args = fused_mlp_inputs(torch, gen, B, K, H, I, dtype)
+                    for act in ("silu", "gelu_pytorch_tanh"):
+                        case = f"{label} H={H} I={I} {str(dtype)[6:]} B={B} K={K} {act}"
+                        worst_mlp = max(worst_mlp, check_fused_mlp(torch, db, args, act, case))
+                        n_mlp += 1
+    log(f"fused_attn_block: {n_attn} cases agree with the plain version (largest abs err {worst_attn:.3e})")
+    log(f"fused_mlp_block: {n_mlp} cases agree with the plain version (largest abs err {worst_mlp:.3e})")
+    return n_attn, n_mlp
+
+
+#: the 1B decode step the fused layer is timed at: bucket 512, every row's
+#: new token at position FUSED_TIMED_CTX - 1 (the middle of the 128 + 256
+#: token generate())
+FUSED_TIMED_CTX = 256
+#: the spin before an eager unfused half-layer (~40 launches from the host)
+UNFUSED_SPIN = 8 * SPIN_CYCLES
+
+
+def phase_fused_times(torch, db):
+    """B8 and B9 at Llama-3.2-1B's decode shapes (bf16, K=1, bucket 512,
+    every row FUSED_TIMED_CTX deep, one layer's weights of std 0.02), at
+    batch 1 and 4: each held to its plain version first, then timed beside
+    its plain version, its bound, and the unfused route over the same
+    inputs, the port's eager path with B1: the attention half (rmsnorm,
+    fused QKV, RoPE, the cache scatter, B1, o-proj, residual) and the MLP
+    half (rmsnorm, gated_mlp, residual), and the whole layer each way (B8,
+    the scatter and B9 against the two unfused halves). No single PyTorch
+    call computes either block: no library time."""
+    from neuronx_distributed_inference_tpu_torch.models.base import ModelSpec, gated_mlp
+    from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec, o_project, qkv_project
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import update_cache_at_layer
+    from neuronx_distributed_inference_tpu_torch.modules.masks import token_gen_mask
+    from neuronx_distributed_inference_tpu_torch.modules.norm import rms_norm
+    from neuronx_distributed_inference_tpu_torch.ops.decode_attention import tkg_decode_attention
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_1B, attn_block, mlp_block
+
+    m = MODEL_1B
+    H, Hq, Hkv, D, I = m["H"], m["Hq"], m["Hkv"], m["D"], m["I"]
+    bucket, ctx, bf16 = 512, FUSED_TIMED_CTX, torch.bfloat16
+    aspec = AttnSpec(num_heads=Hq, num_kv_heads=Hkv, head_dim=D)
+    spec = ModelSpec(num_layers=m["L"], vocab_size=8, attn=aspec, rms_eps=FUSED_EPS)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+    rows = {}
+    for B in (1, 4):
+        def rn(*shape, std=1.0):
+            return (torch.randn(shape, generator=gen, device=DEV) * std).to(bf16)
+
+        x, g1, g2 = rn(B, 1, H), 1 + rn(H, std=0.1), 1 + rn(H, std=0.1)
+        wqkv, wout = rn(H, (Hq + 2 * Hkv) * D, std=0.02), rn(Hq * D, H, std=0.02)
+        wg, wu, wd = rn(H, I, std=0.02), rn(H, I, std=0.02), rn(I, H, std=0.02)
+        kc, vc = rn(m["L"], B + 1, 1024, Hkv, D), rn(m["L"], B + 1, 1024, Hkv, D)
+        pos = torch.full((B, 1), ctx - 1, dtype=torch.int32, device=DEV)
+        cols = torch.arange(bucket, device=DEV)[None, :]
+        mask = token_gen_mask((cols < ctx).to(torch.int32).expand(B, bucket), 1)  # the main path's view
+        slots = torch.arange(B, dtype=torch.int32, device=DEV)
+        cos, sin = _rope_tables(torch, pos, D)
+        attn_args = (x, g1, wqkv, wout, cos, sin, kc, vc, 1, slots, mask, pos)
+        mlp_args = (x, g2, wg, wu, wd)
+        kw = dict(scale=D ** -0.5, eps=FUSED_EPS, n_kv=Hkv)
+        err_a = check_fused_attn(torch, db, attn_args, f"timed 1b B={B} K=1 bucket={bucket} ctx={ctx} bf16")
+        err_m = check_fused_mlp(torch, db, mlp_args, "silu", f"timed 1b B={B} K=1 bf16 silu")
+        attn_p = {"qkv_proj": {"weight": wqkv}, "o_proj": {"weight": wout}}
+        mlp_p = {"gate_proj": {"weight": wg}, "up_proj": {"weight": wu}, "down_proj": {"weight": wd}}
+
+        def unfused_attn(h):
+            q, k, v = qkv_project(attn_p, rms_norm(h, g1, FUSED_EPS), cos, sin, aspec)
+            update_cache_at_layer(kc, vc, k, v, 1, slots, pos)
+            a = tkg_decode_attention(q, kc, vc, 1, mask, None, scale=D ** -0.5, n_kv=Hkv)
+            return h + o_project(attn_p, a)
+
+        def unfused_mlp(h):
+            return h + gated_mlp(mlp_p, rms_norm(h, g2, FUSED_EPS), spec)
+
+        def fused_layer():
+            h, k_new, v_new = db.fused_attn_block(*attn_args, **kw)
+            update_cache_at_layer(kc, vc, k_new, v_new, 1, slots, pos)
+            return db.fused_mlp_block(h, g2, wg, wu, wd, eps=FUSED_EPS)
+
+        t = dict(
+            attn=time_ms(torch, lambda: db.fused_attn_block(*attn_args, **kw)),
+            attn_plain=time_ms(torch, lambda: db.fused_attn_block_plain(*attn_args, **kw), iters=10),
+            mlp=time_ms(torch, lambda: db.fused_mlp_block(*mlp_args, eps=FUSED_EPS)),
+            mlp_plain=time_ms(torch, lambda: db.fused_mlp_block_plain(*mlp_args, eps=FUSED_EPS), iters=10),
+            unfused_attn=time_ms(torch, lambda: unfused_attn(x), spin=UNFUSED_SPIN),
+            unfused_mlp=time_ms(torch, lambda: unfused_mlp(x), spin=UNFUSED_SPIN),
+            fused_layer=time_ms(torch, fused_layer, spin=UNFUSED_SPIN),
+            unfused_layer=time_ms(torch, lambda: unfused_mlp(unfused_attn(x)), spin=UNFUSED_SPIN),
+        )
+        b8 = launch_breakdown(torch, lambda: db.fused_attn_block(*attn_args, **kw), B8_LAUNCHES)
+        b9 = launch_breakdown(torch, lambda: db.fused_mlp_block(*mlp_args, eps=FUSED_EPS), B9_LAUNCHES)
+        parts = {**{f"B8 {k}": v for k, v in b8.items()}, **{f"B9 {k}": v for k, v in b9.items()}}
+        log(f"  launches inside B8 and B9 at B={B}, device us: " + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+        prior = int(db.prior_mask(mask, pos)[:, 0].any(dim=1).sum().item())  # (row, position) pairs read
+        ba, ba_by = bound(*attn_block(m, B, 1, prior, bucket))
+        bm, bm_by = bound(*mlp_block(m, B))
+        rows[("fused_attn_block", B)] = dict(
+            ms=t["attn"], plain_ms=t["attn_plain"], library_ms=None, bound_ms=ba, bound_by=ba_by, max_abs_err=err_a,
+            unfused_ms=t["unfused_attn"],
+        )
+        rows[("fused_mlp_block", B)] = dict(
+            ms=t["mlp"], plain_ms=t["mlp_plain"], library_ms=None, bound_ms=bm, bound_by=bm_by, max_abs_err=err_m,
+            unfused_ms=t["unfused_mlp"],
+        )
+        rows[("fused_layer", B)] = dict(fused_ms=t["fused_layer"], unfused_ms=t["unfused_layer"], launches_us=parts)
+        log(
+            f"fused_attn_block 1b B={B} K=1 bucket={bucket} {prior} cached positions read, bf16: kernel "
+            f"{t['attn']:.4f} ms, plain {t['attn_plain']:.4f} ms, unfused attention half (B1) "
+            f"{t['unfused_attn']:.4f} ms, bound {ba:.5f} ms ({ba_by}), {ba / t['attn']:.3f} of the bound"
+        )
+        log(
+            f"fused_mlp_block 1b B={B} K=1 H={H} I={I} bf16: kernel {t['mlp']:.4f} ms, plain "
+            f"{t['mlp_plain']:.4f} ms, unfused MLP half {t['unfused_mlp']:.4f} ms, bound {bm:.5f} ms ({bm_by}), "
+            f"{bm / t['mlp']:.3f} of the bound"
+        )
+        log(
+            f"decode layer 1b B={B}: fused (B8, scatter, B9) {t['fused_layer']:.4f} ms, unfused "
+            f"{t['unfused_layer']:.4f} ms (device time)"
+        )
+        del kc, vc, wqkv, wout, wg, wu, wd
+        torch.cuda.empty_cache()
+    return rows
+
+
+#: the grid launches of one B8 and one B9 call, in launch order
+B8_LAUNCHES = ("rmsnorm", "QKV", "attention", "combine", "o-proj", "residual")
+B9_LAUNCHES = ("rmsnorm", "gate/up", "down", "residual")
+
+
+def launch_breakdown(torch, fn, labels, n=10):
+    """Device time in us of each grid launch inside one call of ``fn``
+    (``labels`` names them in launch order): torch.profiler over ``n``
+    calls, the L2 evicted before each (as in time_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    ours = sorted(
+        (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "nxdi" in e.name),
+        key=lambda e: e.time_range.start,
+    )
+    if len(ours) != n * len(labels):
+        raise SystemExit(f"launch breakdown: {len(ours)} kernels for {n} calls of {labels}")
+    by = {label: 0.0 for label in labels}
+    for i, e in enumerate(ours):
+        by[labels[i % len(labels)]] += e.time_range.elapsed_us() / n
+    return by
+
+
+def _config_fused(batch_size, fused, **kw):
+    """Llama-3.2-1B generate() with the fused decode layer on (both flags
+    True) or off (both False): batch 4 is the bf16_1b_bs4 row
+    (bench.py:1029-1033: CTE [128], TKG [512]); batch 1 the main path's
+    bf16_1b_bs1 configuration."""
+    flags = dict(fused_attn_block_kernel_enabled=fused, fused_mlp_kernel_enabled=fused)
+    if batch_size == 4:
+        flags.update(context_encoding_buckets=[128], token_generation_buckets=[512])
+    return _config(batch_size, **flags, **kw)
+
+
+def fused_teacher_forced(torch, params, ref, n_layers, prompt_len=128):
+    """The fused path's teacher-forced logits over the main path's tokens,
+    gated against the main path's plain bf16 and fp32 logits (the rules of
+    teacher_forced). Every decode step's layers must take B8 and B9."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    seq = ref["forced_seq"]
+    _cuda.reset_launch_counts()
+    k = _forced_logits(torch, _config_fused(1, True, output_logits=True), params, seq, prompt_len)
+    counts = all_counts()
+    steps = n_layers * (len(seq) - 1 - prompt_len)
+    want = expect_launches(flash_attention=n_layers, fused_attn_block=steps, fused_mlp_block=steps)
+    if counts != want:
+        raise SystemExit(f"fused teacher-forced run: counts {counts} != {want}")
+    return _forced_gate(k, ref["plain_logits"], ref["fp32_logits"], "fused teacher-forced logits")
+
+
+def phase_fused_1b(torch, params, ref):
+    """Llama-3.2-1B generate() at batch 4 (bf16_1b_bs4) and batch 1, each
+    with the fused decode layer on and off, all in this call, on the main
+    path's weights (128-token seeded prompts, 256 greedy tokens): exact
+    counts (with it on, B8 = B9 = the B1 count of the run with it off, B1 =
+    0, B2 = 16), tok/s, TTFT and a profile of one 16-step decode chunk
+    each; then the fused path's teacher-forced gate. Batch 4 runs on first,
+    batch 1 off first."""
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    prompt_len, n_new = 128, 256
+    runs = {}
+    for batch, order in ((4, (True, False)), (1, (False, True))):
+        for fused in order:
+            label = f"1B generate, fused layer {'on' if fused else 'off'}"
+            app = ModelForCausalLM(None, _config_fused(batch, fused)).load(params=params).warmup()
+            n_layers = app.spec.num_layers
+            out, run = _generate_run(torch, app, prompt_len, n_new, label, batch=batch)
+            run.update(phase_profile(torch, app, out.sequences, prompt_len, label=label))
+            run["tokens"] = out.sequences[:, prompt_len:]
+            runs[(batch, fused)] = run
+            del app
+            torch.cuda.empty_cache()
+        on, off = runs[(batch, True)], runs[(batch, False)]
+        b1 = off["launches"]["decode_attention"]
+        # the 255 tokens after the first run as one 256-step chunk in bucket 512
+        want_off = expect_launches(flash_attention=n_layers, decode_attention=n_layers * 256)
+        want_on = expect_launches(flash_attention=n_layers, fused_attn_block=b1, fused_mlp_block=b1)
+        if off["launches"] != want_off or on["launches"] != want_on:
+            raise SystemExit(
+                f"fused 1B batch {batch}: counts on {on['launches']} != {want_on} or off {off['launches']} != {want_off}"
+            )
+        same = float((on["tokens"] == off["tokens"]).mean())
+        log(
+            f"fused layer at batch {batch}, on vs off: decode {on['decode_tok_s']:.1f} vs {off['decode_tok_s']:.1f} "
+            f"tok/s, TTFT {on['ttft_ms']:.2f} vs {off['ttft_ms']:.2f} ms, host {on['decode_step_ms']:.3f} vs "
+            f"{off['decode_step_ms']:.3f} ms/step, device busy {on['device_busy_ms']:.3f} vs "
+            f"{off['device_busy_ms']:.3f} ms/step (share {on['device_busy_frac']:.3f} vs "
+            f"{off['device_busy_frac']:.3f}), {on['kernels_per_step']:.0f} vs {off['kernels_per_step']:.0f} kernels per "
+            f"step; greedy tokens equal at {same:.3f} of positions"
+        )
+    forced = fused_teacher_forced(torch, params, ref, n_layers)
+    return dict(runs=runs, forced=forced, launches=runs[(4, True)]["launches"])
+
+
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
@@ -2292,6 +2710,7 @@ def main():
     smi = phase_device(torch)
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
+    from neuronx_distributed_inference_tpu_torch.ops import decode_block as db
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
     from neuronx_distributed_inference_tpu_torch.ops import moe_decode as md
     from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
@@ -2314,10 +2733,15 @@ def main():
     times.update(timed("quant_matmul times", phase_quant_matmul_times, torch, qmm))
     timed("moe_decode parity", phase_moe_parity, torch, md)
     times.update(timed("moe_decode times", phase_moe_times, torch, md))
+    timed("fused block parity", phase_fused_parity, torch, db)
+    times.update(timed("fused block times", phase_fused_times, torch, db))
     main_path = timed("main path", phase_main_path, torch)
     params = main_path.pop("params")
     serving = timed("serving", phase_serving, torch, params)
     ragged = timed("ragged serving", phase_ragged_serving, torch, params, serving["tokens"])
+    fused = timed("fused 1B generate", phase_fused_1b, torch, params, main_path)
+    for key in ("forced_seq", "plain_logits", "fp32_logits"):
+        main_path.pop(key)
     del params
     torch.cuda.empty_cache()
     int4_8b = timed("int4 8B generate", phase_int4_8b, torch)
@@ -2350,6 +2774,12 @@ def main():
         # generate()
         ("moe_decode", ("moe_decode", "qwen3 bs1"), "csrc/moe_decode.cu",
          "neuronx_distributed_inference_tpu/ops/moe_decode.py:159", qwen3["launches"]),
+        # B8 and B9 at one Llama-3.2-1B decode layer, batch 4 (bf16_1b_bs4);
+        # launches of the batch-4 generate() with the fused layer on
+        ("fused_attn_block", ("fused_attn_block", 4), "csrc/fused_attn_block.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_block.py:397", fused["launches"]),
+        ("fused_mlp_block", ("fused_mlp_block", 4), "csrc/fused_mlp_block.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_block.py:504", fused["launches"]),
     ):
         t = times[key]
         entries.append({

@@ -133,6 +133,12 @@ class Config:
     # carry over: the Hopper kernels mask their ragged edges themselves.
     attn_kernel_enabled: Optional[bool] = None
     attn_block_tkg_kernel_enabled: Optional[bool] = None
+    # fused decode-layer kernels (ops/decode_block.py): the attention block
+    # B8 (rmsnorm + fused QKV + RoPE + attention + o-proj + residual; needs
+    # fused_qkv) and the gated-MLP block B9. Unlike the tri-states above,
+    # None means off, as in the reference: only True takes the kernels.
+    fused_attn_block_kernel_enabled: Optional[bool] = None
+    fused_mlp_kernel_enabled: Optional[bool] = None
 
     # --- quantization (reference config.py:489-505) -----------------------
     quantized: bool = False

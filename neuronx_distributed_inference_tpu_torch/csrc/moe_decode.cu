@@ -67,28 +67,6 @@ constexpr int DOWN_COLS = 128;  // down columns per block: 32 lanes x 4
 constexpr int MOE_MAX_ROWS = 64;
 constexpr int INFLIGHT = 16;  // weight rows a lane loads before using them
 
-enum Act : int { kSilu = 0, kGeluTanh = 1, kSwiglu = 2 };
-
-struct Glu {
-  int act;
-  float scale, bias, limit;
-  int has_limit;
-};
-
-__device__ __forceinline__ float glu(float g, float u, const Glu& p) {
-  if (p.act == kSwiglu) {
-    if (p.has_limit) {
-      g = fminf(g, p.limit);
-      u = fminf(fmaxf(u, -p.limit), p.limit);
-    }
-    return g * (1.f / (1.f + expf(-p.scale * g))) * (u + p.bias);
-  }
-  if (p.act == kSilu) return g / (1.f + expf(-g)) * u;
-  // gelu, tanh approximation (the TPU kernel's jax.nn.gelu(approximate=True))
-  const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-  return 0.5f * g * (1.f + tanhf(c * (g + 0.044715f * g * g * g))) * u;
-}
-
 // Raw wide loads of 2 or 4 consecutive elements, kept as loaded so a lane
 // can have many in flight; unpacked to floats only when used. bf16 bits b
 // are the float bits b << 16, the lower address in the low half.
@@ -117,8 +95,6 @@ template <> struct Wide<__nv_bfloat16> {
     unpack(r.y, v + 2);
   }
 };
-
-__device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7FC00000); }
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(MOE_THREADS)

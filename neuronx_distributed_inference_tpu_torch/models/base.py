@@ -10,10 +10,13 @@ The cache is updated IN PLACE (``update_cache_at_layer``); the returned
 
 Prefill attention goes through the B2 flash kernel
 (``modules/attention.attention_prefill``). Decode attention goes through the
-B1 kernel over the contiguous cache (:func:`contiguous_decode_attend`) and,
-over the paged cache (:func:`paged_attend`), multi-token passes of 8 tokens
-or more (chunked and prefix prefill) through the B5 paged flash kernel and
-shorter ones through the B4 paged decode kernel. The ragged mixed serving
+B1 kernel over the contiguous cache (:func:`contiguous_decode_attend`) or,
+with ``fused_attn_block_kernel_enabled`` / ``fused_mlp_kernel_enabled``
+set True, each half of a decode layer through the fused blocks B8 / B9
+(``ops/decode_block.py``). Over the paged cache (:func:`paged_attend`),
+multi-token passes of 8 tokens or more (chunked and prefix prefill) go
+through the B5 paged flash kernel and shorter ones through the B4 paged
+decode kernel. The ragged mixed serving
 step (:func:`mixed_forward`) packs prefill chunks and decode rows on one
 token axis and runs its attention through the B3 ragged kernel. The config
 tri-states turn the kernels off.
@@ -56,6 +59,8 @@ from neuronx_distributed_inference_tpu_torch.modules.sampling import (
 )
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import (
     use_flash,
+    use_fused_attn_block,
+    use_fused_mlp,
     use_paged_flash,
     use_tkg,
 )
@@ -80,6 +85,9 @@ class ModelSpec:
     cast_logits_fp32: bool = True
     attention_scaling: float = 1.0
     norm_type: str = "rmsnorm"
+    # fused decode MLP block B9 (config fused_mlp_kernel_enabled): only
+    # True takes it
+    use_fused_mlp: Optional[bool] = None
 
 
 @dataclass
@@ -235,6 +243,59 @@ def paged_attend(
     return attention_decode(q, k_r, v_r, mask, aspec, sink=sink)
 
 
+def _plain_weight(entry) -> bool:
+    """True when a projection entry is a plain unquantized, bias-free
+    weight the fused kernels can stream directly."""
+    return (
+        isinstance(entry, dict)
+        and "weight" in entry
+        and "scale" not in entry
+        and "bias" not in entry
+    )
+
+
+def _fused_attn_eligible(layer_params: dict, mask, spec: ModelSpec, cos) -> bool:
+    """The layer-level conditions of the fused attention block B8 (the
+    reference's ``_fused_attn_eligible``; the step-level ones, the
+    contiguous cache among them, come from :func:`run_decoder_layers`):
+    rmsnorm, a plain fused ``qkv_proj`` and ``o_proj``, full rotary, and the
+    gate of ``kernel_mode.use_fused_attn_block``."""
+    sa = layer_params.get("self_attn", {})
+    return (
+        spec.norm_type == "rmsnorm"
+        and "qkv_proj" in sa
+        and _plain_weight(sa["qkv_proj"])
+        and _plain_weight(sa.get("o_proj"))
+        and cos.shape[-1] * 2 == spec.attn.head_dim
+        and use_fused_attn_block(spec.attn, mask.shape[-2])
+    )
+
+
+def _decoder_layer_mlp(layer_params: dict, hidden, spec: ModelSpec, mlp_fn: Callable, fused_ok: bool):
+    """Post-attention norm, MLP and residual; through the fused MLP block B9
+    when the step, the MLP (a gated MLP of plain weights) and
+    ``kernel_mode.use_fused_mlp`` allow it (the reference's
+    ``_decoder_layer_mlp``)."""
+    mp = layer_params["mlp"]
+    if (
+        fused_ok
+        and mlp_fn is gated_mlp
+        and use_fused_mlp(spec)
+        and all(_plain_weight(mp.get(k)) for k in ("gate_proj", "up_proj", "down_proj"))
+    ):
+        from neuronx_distributed_inference_tpu_torch.ops.decode_block import fused_mlp_block
+
+        return fused_mlp_block(
+            hidden, layer_params["post_attention_layernorm"]["weight"], mp["gate_proj"]["weight"],
+            mp["up_proj"]["weight"], mp["down_proj"]["weight"], eps=spec.rms_eps, act=spec.act,
+        )
+    residual = hidden
+    hidden = apply_norm(
+        hidden, layer_params["post_attention_layernorm"]["weight"], spec.rms_eps, spec.norm_type
+    )
+    return residual + mlp_fn(mp, hidden, spec)
+
+
 def decoder_layer(
     layer_params: dict,
     hidden: torch.Tensor,
@@ -255,12 +316,32 @@ def decoder_layer(
     block_inputs: Optional[Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]] = None,
     # (row_start, row_len, ctx_len) (R,) of the ragged mixed step
     ragged_rows: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    # run_decoder_layers certifies the step-level conditions of the fused
+    # decode kernels (decode over the contiguous cache)
+    fused_ok: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder layer, write-then-attend: this layer's new K/V go into the
     full stacked cache first (in place; through ``slot_mapping`` on the
     paged cache), then prefill attends the in-flight K/V and decode attends
-    the cache. Returns (hidden, k_cache, v_cache)."""
+    the cache. Returns (hidden, k_cache, v_cache).
+
+    A decode step that qualifies runs the attention half as the fused block
+    B8, which returns the new K/V for the scatter after it, and the MLP half
+    as the fused block B9 (:func:`_decoder_layer_mlp`)."""
     aspec = spec.attn
+    if fused_ok and _fused_attn_eligible(layer_params, mask, spec, cos):
+        from neuronx_distributed_inference_tpu_torch.ops.decode_block import fused_attn_block
+
+        sa = layer_params["self_attn"]
+        hidden, k_new, v_new = fused_attn_block(
+            hidden, layer_params["input_layernorm"]["weight"], sa["qkv_proj"]["weight"],
+            sa["o_proj"]["weight"], cos, sin, k_cache, v_cache, layer_idx, slot_ids, mask, positions,
+            scale=aspec.softmax_scale, eps=spec.rms_eps, n_kv=aspec.num_kv_heads,
+        )
+        k_cache, v_cache = update_cache_at_layer(
+            k_cache, v_cache, k_new, v_new, layer_idx, slot_ids, positions
+        )
+        return _decoder_layer_mlp(layer_params, hidden, spec, mlp_fn, fused_ok), k_cache, v_cache
     residual = hidden
     hidden = apply_norm(
         hidden, layer_params["input_layernorm"]["weight"], spec.rms_eps, spec.norm_type
@@ -298,11 +379,7 @@ def decoder_layer(
             q, k_cache, v_cache, layer_idx, mask, spec, aspec, sink
         )
     hidden = residual + o_project(layer_params["self_attn"], attn_out)
-    residual = hidden
-    hidden = apply_norm(
-        hidden, layer_params["post_attention_layernorm"]["weight"], spec.rms_eps, spec.norm_type
-    )
-    return residual + mlp_fn(layer_params["mlp"], hidden, spec), k_cache, v_cache
+    return _decoder_layer_mlp(layer_params, hidden, spec, mlp_fn, fused_ok), k_cache, v_cache
 
 
 def build_mask(inputs: StepInputs, spec: ModelSpec, phase: str) -> torch.Tensor:
@@ -407,6 +484,10 @@ def run_decoder_layers(
         and use_paged_flash(spec.attn, inputs.input_ids.shape[1])
     )
     mask = None if (flash or paged_flash) else build_mask(inputs, spec, phase)
+    # the step-level conditions of the fused decode kernels (the reference's
+    # fused_eligible): decode over the contiguous cache; the mixed step
+    # (mixed_forward) never reaches here
+    fused_ok = phase != PHASE_CONTEXT_ENCODING and not is_block
     layers: Union[Dict, List[Dict]] = params["layers"]
     if isinstance(layers, dict):
         layers = unstack_layers(layers)
@@ -415,6 +496,7 @@ def run_decoder_layers(
         hidden, k_cache, v_cache = decoder_layer(
             layer_params, hidden, cos, sin, k_cache, v_cache, li, mask, slot_ids,
             positions, spec, phase, mlp_fn, key_valid=key_valid, block_inputs=block_inputs,
+            fused_ok=fused_ok,
         )
     hidden = apply_norm(hidden, params["norm"]["weight"], spec.rms_eps, spec.norm_type)
     return hidden, type(cache)(k=k_cache, v=v_cache)

@@ -123,6 +123,7 @@ class DecoderModelBuilder:
             rms_norm_eps=getattr(self.config, "rms_norm_eps", 1e-6),
             use_flash_kernel=tc.attn_kernel_enabled,
             use_tkg_kernel=tc.attn_block_tkg_kernel_enabled,
+            use_fused_block=tc.fused_attn_block_kernel_enabled,
         )
 
     def model_spec(self) -> ModelSpec:
@@ -138,6 +139,7 @@ class DecoderModelBuilder:
             cast_logits_fp32=tc.cast_logits_fp32,
             attention_scaling=rope_attention_scaling(cfg),
             norm_type=self.norm_type,
+            use_fused_mlp=tc.fused_mlp_kernel_enabled,
         )
 
     # ---- param pytree ----------------------------------------------------

@@ -43,6 +43,9 @@ class AttnSpec:
     # PyTorch path
     use_flash_kernel: Optional[bool] = None
     use_tkg_kernel: Optional[bool] = None
+    # fused decode attention block B8 (config
+    # fused_attn_block_kernel_enabled): only True takes it
+    use_fused_block: Optional[bool] = None
 
     @property
     def softmax_scale(self) -> float:

@@ -27,13 +27,14 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNEL_SOURCES = (
     "flash_attention", "decode_attention", "paged_flash_attention", "ragged_paged_attention", "quant_matmul",
-    "moe_decode",
+    "moe_decode", "fused_attn_block", "fused_mlp_block",
 )
 #: the kernels whose launches are counted, by name: B4 (paged decode) is the
-#: paged address mode of decode_attention.cu, counted apart from B1
+#: paged address mode of decode_attention.cu, counted apart from B1. An
+#: entry that makes several grid launches (B7, B8, B9) counts one.
 KERNELS = (
     "flash_attention", "decode_attention", "paged_decode_attention", "paged_flash_attention",
-    "ragged_paged_attention", "quant_matmul", "moe_decode",
+    "ragged_paged_attention", "quant_matmul", "moe_decode", "fused_attn_block", "fused_mlp_block",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -19,6 +19,12 @@ MoE decode routes by :func:`use_moe_tkg`: the B7 kernel's wrapper for plain
 experts and at most :data:`MOE_TKG_MAX_ROWS` (token, selection) rows. Here
 ``moe_fused_kernel_enabled=None`` means the kernel; in the reference it
 means off (its kernel lost to XLA on the TPU at batch 1).
+
+The fused decode layer routes by :func:`use_fused_attn_block` (B8) and
+:func:`use_fused_mlp` (B9). For these two, unlike B1-B7, only ``True``
+means the kernel: ``None`` and ``False`` mean off, as in the reference
+(its ``None`` is "auto", which is off). Keeping them off by default leaves
+every other path's kernel launches as they were.
 """
 
 from __future__ import annotations
@@ -137,6 +143,39 @@ def use_moe_tkg(spec, params: dict, n_tokens: int) -> bool:
         and spec.ep_degree == 1
         and not spec.early_affinity_modulation
     )
+
+
+#: the most new tokens per row the fused attention block takes (the
+#: reference's q_len gate)
+FUSED_BLOCK_MAX_Q = 16
+
+
+def use_fused_attn_block(spec, q_len: int) -> bool:
+    """The fused decode attention block B8 (``spec`` is an AttnSpec): the
+    reference's structural conditions (``ops/decode_block.py:60-86``) of
+    at most :data:`FUSED_BLOCK_MAX_Q` new tokens, no qk-norm and no sinks
+    (its qkv/o bias and qkv clip, which the port does not build, are
+    refused where the weights are checked, ``models/base._plain_weight``).
+    Its TPU tile conditions on the kv width do not carry over: the wrapper
+    masks the ragged edge and raises on a head_dim it does not take. Only
+    ``use_fused_block=True`` turns it on."""
+    return (
+        spec.use_fused_block is True
+        and q_len <= FUSED_BLOCK_MAX_Q
+        and not spec.qk_norm
+        and not spec.has_sink
+    )
+
+
+#: activations of the fused MLP block (every one but silu is the tanh gelu)
+FUSED_MLP_ACTS = ("silu", "gelu", "gelu_pytorch_tanh")
+
+
+def use_fused_mlp(spec) -> bool:
+    """The fused decode MLP block B9 (``spec`` is a ModelSpec): rmsnorm and
+    an activation the kernel computes; only ``use_fused_mlp=True`` turns
+    it on."""
+    return spec.use_fused_mlp is True and spec.norm_type == "rmsnorm" and spec.act in FUSED_MLP_ACTS
 
 
 def launches_kernel(*tensors: torch.Tensor) -> bool:

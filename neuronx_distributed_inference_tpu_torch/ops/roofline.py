@@ -1,11 +1,10 @@
 """The least time one H100 could take for a kernel's work (its roofline
-bound), and that bound worked out on paper for the TPU kernels the port has
-not ported yet.
+bound).
 
     python -m neuronx_distributed_inference_tpu_torch.ops.roofline
 
-prints the paper bounds of B8 and B9, each at the shapes of the bench row
-that would run it, the bounds of B3's two timed points, B6's bound at every
+prints the bounds of B8 and B9 at their timed points (:data:`FUSED_POINTS`),
+the bounds of B3's two timed points, B6's bound at every
 projection of the int4 rows (:data:`QMM_POINTS`) with the whole decode
 step's weight bytes, and B7's bound at its timed points
 (:data:`MOE_POINTS`) with the Qwen3-30B-A3B decode step's weight bytes. The bound is the larger of two times: the bytes the
@@ -13,8 +12,9 @@ function must move (each input read once, each output written once) over
 the card's memory rate, and its operations over the card's peak rate for
 their type. The rates are NVIDIA's published figures for one H100 SXM at
 its 700 W limit (dense, no sparsity). ``chip_smoke.py`` computes the bounds
-of the ported kernels from its own inputs with :func:`bound_ms` (B3's with
-:func:`ragged_work`, at the points of :data:`RAGGED_POINTS`).
+of the kernels from its own inputs with :func:`bound_ms` (B3's with
+:func:`ragged_work`, B8's and B9's with :func:`attn_block` and
+:func:`mlp_block`).
 """
 
 from __future__ import annotations
@@ -168,54 +168,48 @@ def moe_step_bytes(m: Dict[str, int], rows: int = 1, distinct: int = None) -> in
     return m["L"] * layer + (H + H * m["V"]) * BF16
 
 
-def attn_block(batch: int, ctx: int) -> Tuple[int, int]:
-    """B8: norm, fused QKV, RoPE, attention over ``ctx`` cached positions
-    per row, o-proj and residual, for one decode token per row; k_new/v_new
-    written for the cache scatter outside the kernel."""
-    m = MODEL_1B
-    n3 = (m["Hq"] + 2 * m["Hkv"]) * m["D"]
-    weights = (m["H"] * n3 + m["Hq"] * m["D"] * m["H"] + m["H"]) * BF16
-    cache = 2 * batch * ctx * m["Hkv"] * m["D"] * BF16
-    acts = 2 * batch * m["H"] * BF16 + 2 * batch * m["Hkv"] * m["D"] * BF16 + 2 * batch * (m["D"] // 2) * F32
-    flops = 2 * batch * m["H"] * n3 + 2 * batch * m["Hq"] * m["D"] * m["H"] + 4 * m["D"] * m["Hq"] * batch * ctx
-    return weights + cache + acts, flops
+def attn_block(m: Dict[str, int], batch: int, K: int, prior: int, bucket: int, elt: int = BF16) -> Tuple[int, int]:
+    """B8 over one decode layer at the widths ``m``: Wqkv, Wout and gamma
+    read once, x read and out written, k_new / v_new written, fp32 cos /
+    sin, the mask bytes, slot ids and positions read, and K and V read once
+    at each of the ``prior`` (row, cached position) pairs the pruned mask
+    allows. FLOPs: the two products, and 4 D per allowed (query, key) pair
+    per q head, each of a row's K tokens over the prior positions and the
+    new tokens causally."""
+    H, Hq, Hkv, D = m["H"], m["Hq"], m["Hkv"], m["D"]
+    n3 = (Hq + 2 * Hkv) * D
+    rows = batch * K
+    nbytes = (H * n3 + Hq * D * H + H) * elt + 2 * rows * H * elt + 2 * rows * Hkv * D * elt
+    nbytes += 2 * rows * (D // 2) * F32 + rows * bucket + batch * I32 + rows * I32 + 2 * prior * Hkv * D * elt
+    pairs = K * prior + batch * K * (K + 1) // 2
+    return nbytes, 2 * rows * H * n3 + 2 * rows * Hq * D * H + 4 * D * Hq * pairs
 
 
-def mlp_block(batch: int) -> Tuple[int, int]:
-    """B9: norm, gate/up GLU, down-projection and residual, one decode token
-    per row."""
-    m = MODEL_1B
-    weights = (3 * m["H"] * m["I"] + m["H"]) * BF16
-    return weights + 2 * batch * m["H"] * BF16, 3 * 2 * batch * m["H"] * m["I"]
+def mlp_block(m: Dict[str, int], rows: int, elt: int = BF16) -> Tuple[int, int]:
+    """B9 over one decode layer's MLP at the widths ``m``: the gate, up and
+    down weights and gamma read once, x read and out written for ``rows``
+    tokens; 6 H I FLOPs a token."""
+    H, I = m["H"], m["I"]
+    return (3 * H * I + H) * elt + 2 * rows * H * elt, 6 * rows * H * I
 
 
-def paper_bounds() -> List[dict]:
-    """One row per kernel still to port: where its shapes come from, its
-    bytes and FLOPs, and its bound on one H100."""
-    cases = [
-        ("B8", "fused_attn_block", "bf16_1b_bs4 (when enabled; off by default)",
-         "one decode layer at batch 4, 256 cached positions per row, bf16",
-         attn_block(4, 256)),
-        ("B9", "fused_mlp_block", "bf16_1b_bs4 (when enabled; off by default)",
-         "one decode layer's MLP at batch 4, H 2048, I 8192, bf16",
-         mlp_block(4)),
-    ]
-    rows = []
-    for tag, name, bench_row, shape, (nbytes, flops) in cases:
-        ms, by = bound_ms(nbytes, flops)
-        rows.append(dict(tag=tag, name=name, bench_row=bench_row, shape=shape,
-                         bytes=nbytes, flops=flops, bound_ms=ms, bound_by=by))
-    return rows
+#: B8's and B9's timed points (chip_smoke.phase_fused_times): one
+#: Llama-3.2-1B decode layer, K = 1, bucket 512, each row's new token at
+#: position 255 (255 cached positions read per row)
+FUSED_POINTS = {"bs1": dict(batch=1, prior=255), "bs4": dict(batch=4, prior=4 * 255)}
 
 
 def main() -> None:
-    print("| # | kernel | bench row | shapes | bytes | FLOPs | bound ms (by) |")
+    print("| # | kernel | point | shapes | bytes | FLOPs | bound ms (by) |")
     print("|---|---|---|---|---|---|---|")
-    for r in paper_bounds():
-        print(
-            f"| {r['tag']} | `{r['name']}` | {r['bench_row']} | {r['shape']} | {r['bytes']:,} | "
-            f"{r['flops']:,} | {r['bound_ms']:.5f} ({r['bound_by']}) |"
-        )
+    for label, pt in FUSED_POINTS.items():
+        for tag, name, shapes, (nbytes, flops) in (
+            ("B8", "fused_attn_block", f"K=1, bucket 512, {pt['prior']} cached positions read, bf16",
+             attn_block(MODEL_1B, pt["batch"], 1, pt["prior"], 512)),
+            ("B9", "fused_mlp_block", "K=1, H 2048, I 8192, bf16", mlp_block(MODEL_1B, pt["batch"])),
+        ):
+            ms, by = bound_ms(nbytes, flops)
+            print(f"| {tag} | `{name}` | 1B decode layer, {label} | {shapes} | {nbytes:,} | {flops:,} | {ms:.5f} ({by}) |")
     for label, pt in QMM_POINTS.items():
         for name, (K, N) in int4_projections(pt["m"]).items():
             nbytes, flops = int4_matmul(pt["rows"], K, N)

@@ -1,6 +1,6 @@
 """The port's roofline bounds (``ops/roofline.py``): the bound is the larger
-of the bytes time and the operations time, and the paper bounds of the
-kernels still to port count the bytes the reference's own formats hold."""
+of the bytes time and the operations time, and each kernel's bytes count
+what its inputs and outputs hold, in the reference's own formats."""
 
 import numpy as np
 import pytest
@@ -55,14 +55,35 @@ def test_int4_step_bytes_cover_every_projection():
     assert roofline.bound_ms(step, 0)[0] == pytest.approx(1.19, abs=0.01)
 
 
-def test_paper_bounds_cover_the_kernels_still_to_port():
-    rows = {r["tag"]: r for r in roofline.paper_bounds()}
-    assert sorted(rows) == ["B8", "B9"]
-    for r in rows.values():
-        assert r["bytes"] > 0 and r["flops"] > 0 and r["bound_ms"] > 0
-    # B9 streams the MLP's three bf16 weight matrices once
+@pytest.mark.parametrize("point, want_ms", [("bs1", 0.00642), ("bs4", 0.00690)])
+def test_attn_block_bounds(point, want_ms):
+    """B8 over one Llama-3.2-1B decode layer: Wqkv (2048 x 3072), Wout
+    (2048 x 2048) and gamma in bf16, x and out, k_new and v_new, fp32
+    cos / sin, the mask bytes (bucket 512), slot ids and positions, and K
+    and V at every cached position read (255 a row)."""
     m = roofline.MODEL_1B
-    assert rows["B9"]["bytes"] >= 3 * m["H"] * m["I"] * roofline.BF16
+    pt = roofline.FUSED_POINTS[point]
+    B = pt["batch"]
+    nbytes, flops = roofline.attn_block(m, B, 1, pt["prior"], 512)
+    weights = (2048 * 3072 + 2048 * 2048 + 2048) * 2
+    acts = B * (2 * 2048 * 2 + 2 * 8 * 64 * 2 + 2 * 32 * 4 + 512 + 2 * 4)
+    assert pt["prior"] == 255 * B
+    assert nbytes == weights + acts + 2 * pt["prior"] * 8 * 64 * 2
+    assert flops == B * 2 * 2048 * (3072 + 2048) + 4 * 64 * 32 * (pt["prior"] + B)
+    ms, by = roofline.bound_ms(nbytes, flops)
+    assert by == "bytes" and ms == pytest.approx(want_ms, abs=5e-6)
+
+
+@pytest.mark.parametrize("rows", [1, 4])
+def test_mlp_block_bounds(rows):
+    """B9 streams the MLP's three bf16 weight matrices and gamma once (100.7
+    MB at Llama-3.2-1B, 0.030 ms at 3.35 TB/s) and reads x, writes out."""
+    m = roofline.MODEL_1B
+    nbytes, flops = roofline.mlp_block(m, rows)
+    assert nbytes == (3 * 2048 * 8192 + 2048) * 2 + 2 * rows * 2048 * 2
+    assert flops == 6 * rows * 2048 * 8192
+    ms, by = roofline.bound_ms(nbytes, flops)
+    assert by == "bytes" and ms == pytest.approx(0.0300, abs=1e-4)
 
 
 @pytest.mark.parametrize("point", ["mixed", "decode"])
