@@ -11,11 +11,14 @@ Phases, in order; any failure exits non-zero:
      with the tolerance printed beside the error: prefill flash (B2), decode
      (B1), paged decode (B4), paged flash prefill (B5) and ragged paged
      attention (B3), the paged ones with NaN in the garbage block 0,
-     zero-table tails and inactive rows;
+     zero-table tails and inactive rows; B1's kv split (the 64-row group,
+     one split, rows with no valid key, batch 8 at bucket 1024) and B2 at
+     lengths no block divides and on D=128 fused-QKV views, each launched
+     twice and required bit-identical;
   4. kernel times at the main paths' shapes and layouts (CUDA events, L2
      flushed before each launch), each held to its plain version first,
      beside the plain version, one PyTorch library call, and the card's
-     bound for the same work;
+     bound for the same work (B1 with its split count and grid);
   5. the generate() path at full width: Llama-3.2-1B shapes with seeded
      random weights, bf16, greedy generate() of 256 tokens after a 128-token
      prompt at batch 1 (launch counts asserted), a right-padded batch-2
@@ -407,9 +410,120 @@ def phase_decode_parity(torch, da):
     log(f"tkg_decode_attention: {n} cases agree with the plain version (largest abs err {worst:.3e})")
 
 
+def check_repeat(torch, what, fn, case):
+    """Run ``fn`` twice on the same inputs: the outputs must be equal bit for
+    bit (every sum in a fixed order, no atomics)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise SystemExit(f"{what} is not bit-identical across two launches: {case}")
+    log(f"  {what} {case}: two launches bit-identical")
+
+
+def phase_decode_split_parity(torch, da):
+    """B1's kv split against the plain version: the 64-row group
+    (K = 16, n_rep 4), one split (the (row, kv head) pairs fill the card:
+    eight tiles through the two-stage pipeline), rows with no valid key (all
+    splits dead) with and without a sink, batch 8 at bucket 1024, a bucket
+    no split divides, a 4096 bucket (two tiles a split); each case launched
+    twice, bit-identical."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    rng = np.random.RandomState(11)
+    sms = _cuda.sm_count(torch.device("cuda"))
+    n = 0
+    for D in (64, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            for B, K, Hkv, bucket, valid, dead, sink in (
+                (2, 16, 8, 512, [500, 90], None, False),  # 64 rows a group
+                (20, 1, 8, 512, [512 - 13 * i for i in range(20)], None, True),  # one split
+                (3, 1, 8, 512, [400, 300, 200], 1, True),  # a row with no valid key, a sink
+                (3, 4, 4, 512, [512, 260, 100], 2, False),  # ... without a sink
+                (8, 1, 8, 1024, [1024, 1000, 900, 700, 513, 300, 64, 17], None, False),  # batch 8
+                (2, 1, 8, 1000, [1000, 333], None, True),  # the last split shorter
+                (1, 1, 8, 4096, [4000], None, False),  # 32 splits of two tiles
+            ):
+                Hq = 32
+                q, kc, vc, mask = _decode_inputs(
+                    torch, rng, B, K, Hq, Hkv, D, 2, max(1024, bucket), bucket, dtype, valid
+                )
+                if dead is not None:
+                    mask[dead] = False
+                sk = torch.from_numpy(rng.randn(Hq).astype(np.float32)).cuda() if sink else None
+                kw = dict(scale=D ** -0.5, n_kv=Hkv)
+                splits, per = da.decode_kv_split(bucket, B * Hkv, sms)
+                case = (f"D={D} {str(dtype)[6:]} B={B} K={K} Hkv={Hkv} bucket={bucket} sink={sink} "
+                        f"dead row={dead} splits={splits}x{per}")
+                out = da.tkg_decode_attention(q, kc, vc, 1, mask, sk, **kw)
+                ref = da.tkg_decode_attention_plain(q.float(), kc.float(), vc.float(), 1, mask, sk, **kw)
+                torch.cuda.synchronize()
+                rows = mask[:, 0].any(dim=-1)  # (B, K): rows with a valid key
+                if sink:
+                    rows = torch.ones_like(rows)  # the plain version is exactly zero there too
+                check_close(torch, out, ref, case, "tkg_decode_attention", rows=rows)
+                if dead is not None and not (out[dead] == 0).all():
+                    raise SystemExit(f"tkg_decode_attention: a row with no valid key is not exactly zero: {case}")
+                check_repeat(torch, "tkg_decode_attention", lambda: da.tkg_decode_attention(q, kc, vc, 1, mask, sk, **kw), case)
+                n += 1
+    log(f"tkg_decode_attention split cases: {n} agree with the plain version, each bit-identical twice")
+    return n
+
+
+def phase_flash_layout_parity(torch, fa):
+    """B2 at sequence lengths no 64-row block divides and on the fused
+    QKV projection's strided views at D = 128 (Llama-3-8B's layout: token
+    stride (32 + 16) * 128), both dtypes and softmax modes; each case
+    launched twice, bit-identical."""
+    rng = np.random.RandomState(12)
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for S, D, B in ((77, 64, 2), (200, 64, 1), (200, 128, 2), (128, 128, 1), (512, 128, 2)):
+            for softmax_bf16 in ((False, True) if D == 64 else (False,)):
+                q, k, v = fused_qkv_inputs(torch, rng, B, S, 32, 8, D, dtype, hidden=1024)
+                kv = np.ones((B, S), np.int32)
+                if B == 2:
+                    kv[1, int(S * 0.6):] = 0
+                key_valid = torch.from_numpy(kv).cuda()
+                kw = dict(scale=D ** -0.5, causal=True, softmax_bf16=softmax_bf16, window=None, chunk=None)
+                case = (f"B={B} S={S} Hq=32 Hkv=8 D={D} {str(dtype)[6:]} softmax_bf16={softmax_bf16} "
+                        f"v strides {v.stride()}")
+                check_flash(torch, fa, q, k, v, key_valid, kw, case)
+                check_repeat(torch, "flash_attention", lambda: fa.flash_attention_fwd(q, k, v, key_valid, **kw), case)
+                n += 1
+    log(f"flash_attention layout cases: {n} agree with the plain version, each bit-identical twice")
+    return n
+
+
+def ptxas_summary(report):
+    """{kernel: "N registers, S bytes spill stores, L bytes spill loads"} from a ptxas report
+    (kernel names without the namespace's mangled prefix)."""
+    import re
+
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = re.sub(r"^.*_cu_[0-9a-f]{8}\d+", "", line.split("'")[1])
+        elif name and "spill stores" in line:
+            stores, loads = line.split(",")[1:3]
+            out[name] = f"{stores.strip()}, {loads.strip()}"
+        elif name and "registers" in line:
+            out[name] = f"{line.split('Used')[1].split(',')[0].strip()}, " + out.get(name, "")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # 4. kernel times at the main path's shapes
 # ---------------------------------------------------------------------------
+
+
+def log_split(torch, da, B, Hkv, bucket):
+    """B1's kv split and grid at one shape (ops/decode_attention.py)."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    splits, per = da.decode_kv_split(bucket, B * Hkv, _cuda.sm_count(torch.device("cuda")))
+    log(f"  B1 at B={B} Hkv={Hkv} bucket={bucket}: {splits} splits of {per} positions, grid "
+        f"({Hkv}, {B}, {splits}) = {Hkv * B * splits} blocks{' + the combine launch' if splits > 1 else ''}")
 
 
 def phase_times(torch, fa, da):
@@ -463,6 +577,7 @@ def phase_times(torch, fa, da):
         err = check_decode(
             torch, da, q, kc, vc, 0, mask, None, kw, f"timed B=1 K=1 bucket={bucket} valid={valid} D=64 bf16"
         )
+        log_split(torch, da, B, Hkv, bucket)
         qt = q.transpose(1, 2)
         kt = kc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
         vt = vc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
@@ -493,6 +608,7 @@ def phase_times(torch, fa, da):
         return layer["i"]
 
     err = check_decode(torch, da, q, kc, vc, 0, mask, None, kw, f"timed qwen3 B=1 K=1 bucket={bucket} valid={valid}")
+    log_split(torch, da, B, Hkv, bucket)
     qt = q.transpose(1, 2)
     kt = kc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
     vt = vc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
@@ -1086,6 +1202,15 @@ def phase_profile(torch, app, seq, prompt_len, steps=16, label="decode step"):
     return profile_chunk(torch, chunk, steps, f"{label} (batch {B}, bucket 512)")
 
 
+def port_kernel_name(name):
+    """A port kernel's profiler name without its namespace and arguments:
+    ``split_kernel<__nv_bfloat16, 64, 2>``."""
+    import re
+
+    m = re.search(r"nxdi::(?:\(anonymous namespace\)::)?(\w+(?:<[^()]*>)?)", name)
+    return m.group(1) if m else name[:60]
+
+
 def profile_chunk(torch, chunk, steps, label):
     """Run ``chunk`` (``steps`` decode steps ending in a synchronize) once
     to warm, once timed on the host clock without the profiler, then once
@@ -1113,6 +1238,9 @@ def profile_chunk(torch, chunk, steps, label):
     )
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         log(f"  {ms / steps:8.4f} ms/step  {name[:110]}")
+    port = sorted(((port_kernel_name(n), ms) for n, ms in by_name.items() if "nxdi::" in n), key=lambda kv: -kv[1])
+    if port:
+        log("  port kernels, ms/step: " + ", ".join(f"{n} {ms / steps:.4f}" for n, ms in port))
     host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
     for e in host_ops:
         log(f"  host {e.self_cpu_time_total / 1e3 / steps:8.4f} ms/step, {e.count / steps:6.1f} calls/step  {e.key[:90]}")
@@ -2720,9 +2848,14 @@ def main():
     reports = timed("build", _cuda.build)
     for name, rep_ in reports.items():
         log(f"--- {name} ptxas ---\n{rep_}")
+    for name in ("flash_attention", "decode_attention"):  # B2, B1 (and B4)
+        for kernel, regs in ptxas_summary(reports[name]).items():
+            log(f"registers {name}: {kernel}: {regs}")
 
     timed("flash parity", phase_flash_parity, torch, fa)
     timed("decode parity", phase_decode_parity, torch, da)
+    timed("decode split parity", phase_decode_split_parity, torch, da)
+    timed("flash layout parity", phase_flash_layout_parity, torch, fa)
     timed("paged decode parity", phase_paged_decode_parity, torch, da)
     timed("paged flash parity", phase_paged_flash_parity, torch, pf)
     timed("ragged parity", phase_ragged_parity, torch, rp)

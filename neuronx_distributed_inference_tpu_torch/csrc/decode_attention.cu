@@ -1,53 +1,74 @@
 // Decode (token-generation) attention for Hopper (sm_90a), over the
 // contiguous KV cache (kernel B1 of the port) and over the paged block
-// cache (kernel B4). One kernel template serves both: its PAGED parameter
-// selects how a (batch row, kv tile) maps to cache addresses.
+// cache (kernel B4).
 //
 // Replaces the TPU kernels neuronx_distributed_inference_tpu/ops/
 // decode_attention.py::tkg_decode_attention (B1) and
 // ::paged_tkg_decode_attention (B4) (both _common_call -> _tkg_kernel,
 // _body, _finalize) for bf16/fp32 caches.
 //
-// What it computes: for batch row b and kv head g, the n_rep * K query rows
-// of that group (row hl * K + t is local q head hl = h - g * n_rep at token
-// t, the reference's rep-major _prep_q order, so GQA needs no repeat_kv)
-// attend the row's cache over positions [0, S_kv) under the (B, 1, K, S_kv)
-// boolean decode mask, with an online softmax over kv tiles. Tiles whose
-// mask is all false for the batch row are skipped. Without a sink,
-// out = acc / max(l, 1e-30); with one, the sink logit joins the denominator
-// after both are renormalized to max(m, sink).
-//
-// Address modes:
-//   contiguous (B1): tiles of 64 positions of cache line b of `layer` in the
-//     (L, R, S_max, Hkv, D) cache; position s of head g at
-//     ((layer * R + b) * S_max + s) * Hkv * D + g * D.
-//   paged (B4): one tile per block-table entry j, TILE = block size. The
-//     kernel reads block_table[b, j] itself (the TPU kernel had it as scalar
-//     prefetch) and addresses the head-major (L, NB+1, Hkv, bs, D) cache:
-//     block blk of head g is the contiguous (bs, D) tile at
-//     ((layer * (NB+1) + blk) * Hkv + g) * bs * D, so its loads are unit
-//     stride. Block 0 is the garbage block, where invalid writes land and
-//     where the fault tests write NaN: its tiles (and any id outside
-//     [1, NB]) load as zeros, the reference's read scrub
-//     (block_kvcache.py::read_block_cache_at_layer). A masked probability is
-//     exactly 0, but 0 * NaN is NaN, so a tile that holds both a valid
-//     position and a block-0 value must never multiply one by the other:
-//     the zero load and the all-false tile skip together rule that out.
+// What both compute: for batch row b and kv head g, the n_rep * K query
+// rows of that group (row hl * K + t is local q head hl = h - g * n_rep at
+// token t, the reference's rep-major _prep_q order, so GQA needs no
+// repeat_kv) attend the row's cache over positions [0, S_kv) under the
+// (B, 1, K, S_kv) boolean decode mask, with an online softmax over kv
+// tiles. Tiles whose mask is all false for the batch row are skipped.
+// Without a sink, out = acc / max(l, 1e-30); with one, the sink logit joins
+// the denominator after both are renormalized to max(m, sink). A row with
+// no valid key comes out as exact zeros.
 //
 // What bounds it on an H100: decode reads each layer's live cache once
 // (2 * S_kv * Hkv * D * bytes) for ~4 * n_rep * K * S_kv * Hkv * D FLOP, an
 // arithmetic intensity of about n_rep * K FLOP per byte, far below the
-// card's ~295 FLOP/byte ridge: memory bandwidth bounds it. The design reads
-// every live cache tile once, straight out of the full stacked cache (no
-// bucket slice, no block gather, no repeat_kv broadcast) and shares it among
-// all the group's query rows. One block per (batch row, kv head) gives
-// B * Hkv blocks (64 at the serving batch of 8 for Llama-3.2-1B) on 132
-// SMs; splitting the kv axis over more blocks is a later step.
+// card's ~295 FLOP/byte ridge: memory bandwidth bounds it. At batch 1 the
+// live cache is well under a MB a layer (0.2 us at 3.35 TB/s), so what a
+// call costs in practice is its chain of dependent round trips to memory.
 //
-// Layout: q (B, K, Hq, D) contiguous; caches contiguous as above;
-// block_table (B, MB) int32 contiguous (paged); mask bytes addressed as
-// b * mask_sb + t * mask_st + s; sink (Hq,) fp32 or null; out (B, K, Hq, D)
-// contiguous.
+// B1, contiguous (split_kernel + split_combine_kernel; flash-decoding):
+//   - Grid (kv head, batch row, split): split z takes positions
+//     [z * per, (z + 1) * per), per a multiple of 16. The wrapper picks the
+//     split from the shapes alone (ops/decode_attention.py::
+//     decode_kv_split): at least one block per SM, one 64-position tile a
+//     split where at most MAX_SPLITS allow it (32 splits of 16 positions at
+//     Llama-3.2-1B's 8 kv heads, batch 1, bucket 512; 8 of 64 at batch 8),
+//     one split once the (row, kv head) pairs fill the card. One block per
+//     (row, kv head) alone would be 8 blocks at 1B, 4 at Qwen3, on 132 SMs.
+//   - A block issues its q rows' 16-byte copies, reads its split's mask
+//     bytes once (which 64-position tiles hold an allowed position), and
+//     loads nothing more when none does. Live tiles arrive by 16-byte
+//     cp.async into two shared-memory stages, the next tile in flight while
+//     this one is computed; one barrier a tile.
+//   - Warp w owns query rows w, w + 4, ...: their scores (lane c at
+//     positions c and c + 32), online softmax (warp shuffles) and fp32
+//     accumulators (lane c at dims c D/32 ...) live in its registers; the
+//     probabilities go through a per-warp shared row. Products are fp32
+//     FMAs: at n_rep * K FLOP a byte the tensor cores would buy nothing.
+//   - Each split writes its fp32 (m, l, acc) per (row, q head) to scratch
+//     the wrapper allocates; a second launch from the same entry combines
+//     the splits in split order (M = max m_z, weights e^(m_z - M)) and
+//     applies the sink once, after the combine. A split with no live tile
+//     writes (NEG_INF, 0, 0), so a row with no valid key combines to exact
+//     zeros, with or without a sink. One split finalizes in place.
+//   - The cache is read straight out of the full stacked cache (no bucket
+//     slice, no repeat_kv); no atomics, so results repeat bit for bit.
+// B4, paged (paged_decode_kernel): one block per (kv head, batch row), one
+//   tile per block-table entry j, TILE = block size. The kernel reads
+//   block_table[b, j] itself (the TPU kernel had it as scalar prefetch) and
+//   addresses the head-major (L, NB+1, Hkv, bs, D) cache: block blk of head
+//   g is the contiguous (bs, D) tile at ((layer * (NB+1) + blk) * Hkv + g)
+//   * bs * D, so its loads are unit stride. Block 0 is the garbage block,
+//   where invalid writes land and where the fault tests write NaN: its
+//   tiles (and any id outside [1, NB]) load as zeros, the reference's read
+//   scrub (block_kvcache.py::read_block_cache_at_layer). A masked
+//   probability is exactly 0, but 0 * NaN is NaN, so a tile that holds both
+//   a valid position and a block-0 value must never multiply one by the
+//   other: the zero load and the all-false tile skip together rule that
+//   out. B4's redesign (a split of its own) is a later step.
+//
+// Layout: q (B, K, Hq, D) contiguous; caches contiguous (B1: (L, R, S_max,
+// Hkv, D), 16-byte aligned); block_table (B, MB) int32 contiguous (paged);
+// mask bytes addressed as b * mask_sb + t * mask_st + s; sink (Hq,) fp32 or
+// null; out (B, K, Hq, D) contiguous.
 
 #include "common.cuh"
 
@@ -57,7 +78,6 @@ namespace {
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_ROWS = 64;  // n_rep * K
-constexpr int CONTIG_TILE = 64;  // kv positions per tile, contiguous mode
 
 struct DecodeParams {
   const void* q;
@@ -65,10 +85,10 @@ struct DecodeParams {
   const void* v_cache;
   const unsigned char* mask;
   const float* sink;
-  const int* block_table;  // paged mode only
+  const int* block_table;
   void* out;
-  int K, Hq, Hkv, R, S_max, S_kv, layer;
-  int NB1, MB;  // paged mode: blocks (garbage block included), table width
+  int K, Hq, Hkv, S_kv, layer;
+  int NB1, MB;  // blocks (garbage block included), table width
   long long mask_sb, mask_st;
   float scale;
 };
@@ -82,8 +102,8 @@ __host__ __device__ constexpr size_t smem_bytes(int rows) {
          (size_t)rows * TILE;
 }
 
-template <typename T, int D, int TILE, bool PAGED>
-__global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeParams p) {
+template <typename T, int D, int TILE>
+__global__ void __launch_bounds__(THREADS) paged_decode_kernel(const DecodeParams p) {
   constexpr int LD = D + 1;
   constexpr int SLD = TILE + 1;
   constexpr int NACC = MAX_ROWS * D / THREADS;  // (row, d) outputs per thread, at most
@@ -137,15 +157,9 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeParams p) {
     // base address of the tile's first position for kv head g, and the
     // stride between positions; a null base loads zeros
     long long base = -1;
-    long long pos_stride;
-    if (PAGED) {
-      const int blk = p.block_table[(long long)b * p.MB + jt];
-      if (blk > 0 && blk < p.NB1) base = (((long long)p.layer * p.NB1 + blk) * p.Hkv + g) * TILE * D;
-      pos_stride = D;
-    } else {
-      base = ((((long long)p.layer * p.R + b) * p.S_max + s0) * p.Hkv + g) * D;
-      pos_stride = (long long)p.Hkv * D;
-    }
+    const long long pos_stride = D;
+    const int blk = p.block_table[(long long)b * p.MB + jt];
+    if (blk > 0 && blk < p.NB1) base = (((long long)p.layer * p.NB1 + blk) * p.Hkv + g) * TILE * D;
     for (int idx = tid; idx < TILE * D; idx += THREADS) {
       const int c = idx / D, d = idx % D;
       float kv = 0.f, vv = 0.f;
@@ -242,43 +256,342 @@ __global__ void __launch_bounds__(THREADS) decode_kernel(const DecodeParams p) {
   }
 }
 
-template <typename T, int D, int TILE, bool PAGED>
-cudaError_t launch(const DecodeParams& p, int B, cudaStream_t stream) {
+template <typename T, int D, int TILE>
+cudaError_t paged_launch(const DecodeParams& p, int B, cudaStream_t stream) {
   const int rows = (p.Hq / p.Hkv) * p.K;
-  cudaError_t err = cudaFuncSetAttribute(decode_kernel<T, D, TILE, PAGED>,
+  cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T, D, TILE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_bytes<D, TILE>(MAX_ROWS));
   if (err != cudaSuccess) return err;
   const dim3 grid(p.Hkv, B);
-  decode_kernel<T, D, TILE, PAGED><<<grid, THREADS, smem_bytes<D, TILE>(rows), stream>>>(p);
+  paged_decode_kernel<T, D, TILE><<<grid, THREADS, smem_bytes<D, TILE>(rows), stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int TILE, bool PAGED>
-cudaError_t dispatch(const DecodeParams& p, int B, int D, int dtype, cudaStream_t st) {
-  if (dtype == kFloat32 && D == 64) return launch<float, 64, TILE, PAGED>(p, B, st);
-  if (dtype == kFloat32 && D == 128) return launch<float, 128, TILE, PAGED>(p, B, st);
-  if (dtype == kBFloat16 && D == 64) return launch<__nv_bfloat16, 64, TILE, PAGED>(p, B, st);
-  if (dtype == kBFloat16 && D == 128) return launch<__nv_bfloat16, 128, TILE, PAGED>(p, B, st);
+template <int TILE>
+cudaError_t paged_dispatch(const DecodeParams& p, int B, int D, int dtype, cudaStream_t st) {
+  if (dtype == kFloat32 && D == 64) return paged_launch<float, 64, TILE>(p, B, st);
+  if (dtype == kFloat32 && D == 128) return paged_launch<float, 128, TILE>(p, B, st);
+  if (dtype == kBFloat16 && D == 64) return paged_launch<__nv_bfloat16, 64, TILE>(p, B, st);
+  if (dtype == kBFloat16 && D == 128) return paged_launch<__nv_bfloat16, 128, TILE>(p, B, st);
   return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// B1: the contiguous cache, kv axis split over blocks
+// ---------------------------------------------------------------------------
+
+constexpr int SP_THREADS = 128;
+constexpr int SP_WARPS = SP_THREADS / 32;
+constexpr int SP_TILE = 64;     // positions per staged tile
+constexpr int MAX_SPLITS = 32;  // kv splits per (batch row, kv head)
+
+struct SplitParams {
+  const void* q;
+  const void* k_cache;
+  const void* v_cache;
+  const unsigned char* mask;
+  const float* sink;
+  void* out;
+  float* m_part;    // (splits, B K, Hq)
+  float* l_part;
+  float* acc_part;  // (splits, B K, Hq, D)
+  int B, K, Hq, Hkv, R, S_max, S_kv, layer, splits, per;
+  long long mask_sb, mask_st;
+  float scale;
+};
+
+template <typename T, int D>
+struct SplitTile {
+  static constexpr int LD = D + 16 / (int)sizeof(T);  // staged row: 16 bytes of padding
+  static constexpr int KV = SP_TILE * LD;             // one K or V tile
+  // q rows, two stages of (K, V), a probability row per (warp, row), the
+  // live-tile bits per (32 tiles, warp)
+  static size_t smem(int rows, int rw, int per) {
+    const int groups = ((per + SP_TILE - 1) / SP_TILE + 31) / 32;
+    return sizeof(T) * ((size_t)rows * D + 4 * KV) + sizeof(float) * SP_WARPS * rw * SP_TILE +
+           sizeof(unsigned) * SP_WARPS * groups;
+  }
+};
+
+// the reference's _finalize for one output value
+__device__ __forceinline__ float finalize(float acc, float m, float l, const float* sink, int h) {
+  if (sink != nullptr) {
+    // renormalize to m2 = max(m, sink) so rows that saw no valid key stay
+    // finite (and zero)
+    const float sk = sink[h];
+    const float m2 = fmaxf(m, sk);
+    const float alpha = expf(m - m2);
+    const float denom = l * alpha + expf(sk - m2);
+    return acc * alpha / denom;
+  }
+  return acc / fmaxf(l, 1e-30f);
+}
+
+// RW: the most query rows one warp owns (rows w, w + 4, ... of the group)
+template <typename T, int D, int RW>
+__global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) {
+  using Tile = SplitTile<T, D>;
+  constexpr int LD = Tile::LD;
+  constexpr int EV = Vec16<T>::N;  // elements per 16 bytes
+  constexpr int VPR = D / EV;      // 16-byte vectors per position
+  constexpr int DPL = D / 32;      // output dims per lane
+  extern __shared__ __align__(16) unsigned char sp_smem[];
+  const int n_rep = p.Hq / p.Hkv;
+  const int K = p.K;
+  const int rows = n_rep * K;
+  T* Qs = reinterpret_cast<T*>(sp_smem);
+  T* KVs = Qs + rows * D;  // stage s: K at KVs + 2 s KV, V right after
+  float* Pw = reinterpret_cast<float*>(KVs + 4 * Tile::KV) + (threadIdx.x / 32) * RW * SP_TILE;
+  unsigned* bits_s = reinterpret_cast<unsigned*>(reinterpret_cast<float*>(KVs + 4 * Tile::KV) +
+                                                 SP_WARPS * RW * SP_TILE);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int lo = z * p.per, hi = min(lo + p.per, p.S_kv);
+  const int nt = (hi - lo + SP_TILE - 1) / SP_TILE;
+  const unsigned char* mrow = p.mask + (long long)b * p.mask_sb;
+
+  // the group's q rows, in flight while the mask is read
+  const T* q = static_cast<const T*>(p.q);
+  for (int i = tid; i < rows * VPR; i += SP_THREADS) {
+    const int r = i / VPR, e = (i % VPR) * EV;
+    const int hl = r / K, t = r % K;
+    cp_async16(Qs + r * D + e, q + (((long long)b * K + t) * p.Hq + g * n_rep + hl) * D + e, true);
+  }
+  cp_async_commit();
+
+  // which of the split's tiles hold an allowed position: one pass over its
+  // mask bytes, 32 tiles a word, a word per warp
+  for (int w0 = 0; w0 * 32 < nt; ++w0) {
+    const int s_lo = lo + w0 * 32 * SP_TILE;
+    const int span = min(hi, s_lo + 32 * SP_TILE) - s_lo;
+    unsigned bits = 0;
+    for (int idx = tid; idx < K * span; idx += SP_THREADS) {
+      const int t = idx / span, s = idx % span;
+      if (mrow[t * p.mask_st + s_lo + s]) bits |= 1u << (s / SP_TILE);
+    }
+    bits = __reduce_or_sync(0xffffffffu, bits);
+    if (lane == 0) bits_s[w0 * SP_WARPS + warp] = bits;
+  }
+  __syncthreads();
+  auto next_live = [&](int j) {
+    for (; j < nt; ++j) {
+      const unsigned* w = bits_s + (j / 32) * SP_WARPS;
+      if (((w[0] | w[1] | w[2] | w[3]) >> (j % 32)) & 1u) break;
+    }
+    return j;
+  };
+
+  const T* kc = static_cast<const T*>(p.k_cache);
+  const T* vc = static_cast<const T*>(p.v_cache);
+  const long long line = ((long long)p.layer * p.R + b) * p.S_max;
+  const long long pos_stride = (long long)p.Hkv * D;
+  auto load_tile = [&](int j, int stage) {
+    const int s0 = lo + j * SP_TILE, n = min(SP_TILE, hi - s0);
+    T* Ks = KVs + 2 * stage * Tile::KV;
+    T* Vs = Ks + Tile::KV;
+    for (int i = tid; i < n * VPR; i += SP_THREADS) {
+      const int c = i / VPR, e = (i % VPR) * EV;
+      const long long off = (line + s0 + c) * pos_stride + (long long)g * D + e;
+      cp_async16(Ks + c * LD + e, kc + off, true);
+      cp_async16(Vs + c * LD + e, vc + off, true);
+    }
+    cp_async_commit();
+  };
+
+  const int nrw = (rows - warp + SP_WARPS - 1) / SP_WARPS;  // rows this warp owns
+  float m_r[RW], l_r[RW], acc[RW][DPL];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    m_r[i] = NEG_INF;
+    l_r[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < DPL; ++k) acc[i][k] = 0.f;
+  }
+
+  int j = next_live(0);
+  if (j < nt) load_tile(j, 0);
+  for (int stage = 0; j < nt; stage ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j landed for every thread; every warp is done with the other stage
+    const int jn = next_live(j + 1);
+    if (jn < nt) load_tile(jn, stage ^ 1);
+
+    const int s0 = lo + j * SP_TILE, n = min(SP_TILE, hi - s0);
+    const T* Ks = KVs + 2 * stage * Tile::KV;
+    const T* Vs = Ks + Tile::KV;
+    const bool two = n > 32;  // positions lane + 32 in use (warp-uniform)
+    float dot[RW][2];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) dot[i][0] = dot[i][1] = 0.f;
+#pragma unroll 2
+    for (int e = 0; e < D; e += EV) {
+      float k0[EV], k1[EV];
+      Vec16<T>::unpack(*reinterpret_cast<const uint4*>(Ks + lane * LD + e), k0);
+      Vec16<T>::unpack(*reinterpret_cast<const uint4*>(Ks + (two ? lane + 32 : lane) * LD + e), k1);
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        if (i < nrw) {
+          float qv[EV];
+          Vec16<T>::unpack(*reinterpret_cast<const uint4*>(Qs + (warp + SP_WARPS * i) * D + e), qv);
+#pragma unroll
+          for (int u = 0; u < EV; ++u) {
+            dot[i][0] = fmaf(qv[u], k0[u], dot[i][0]);
+            dot[i][1] = fmaf(qv[u], k1[u], dot[i][1]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < RW; ++i) {
+      if (i < nrw) {
+        const int t = (warp + SP_WARPS * i) % K;
+        const unsigned char* mt = mrow + t * p.mask_st + s0;
+        const bool ok0 = lane < n && mt[lane];
+        const bool ok1 = lane + 32 < n && mt[lane + 32];
+        const float sa = ok0 ? dot[i][0] * p.scale : NEG_INF;
+        const float sb = ok1 ? dot[i][1] * p.scale : NEG_INF;
+        const float m_new = fmaxf(m_r[i], group_max<32>(fmaxf(sa, sb)));
+        const float pa = ok0 ? expf(sa - m_new) : 0.f;
+        const float pb = ok1 ? expf(sb - m_new) : 0.f;
+        const float alpha = expf(m_r[i] - m_new);
+        l_r[i] = l_r[i] * alpha + group_sum<32>(pa + pb);
+        m_r[i] = m_new;
+#pragma unroll
+        for (int k = 0; k < DPL; ++k) acc[i][k] *= alpha;
+        Pw[i * SP_TILE + lane] = pa;
+        Pw[i * SP_TILE + lane + 32] = pb;
+      }
+    }
+    __syncwarp();
+#pragma unroll 4
+    for (int c = 0; c < n; ++c) {
+      float vv[DPL];
+#pragma unroll
+      for (int k = 0; k < DPL; ++k) vv[k] = to_float(Vs[c * LD + lane * DPL + k]);
+#pragma unroll
+      for (int i = 0; i < RW; ++i) {
+        if (i < nrw) {
+          const float pr = Pw[i * SP_TILE + c];
+#pragma unroll
+          for (int k = 0; k < DPL; ++k) acc[i][k] = fmaf(pr, vv[k], acc[i][k]);
+        }
+      }
+    }
+    j = jn;
+  }
+  cp_async_wait<0>();  // (no live tile: the q copies)
+
+  T* out = static_cast<T*>(p.out);
+  const long long BKH = (long long)p.B * K * p.Hq;
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    if (i >= nrw) continue;
+    const int r = warp + SP_WARPS * i;
+    const int h = g * n_rep + r / K;
+    const long long rh = ((long long)b * K + r % K) * p.Hq + h;  // (row, q head)
+    if (p.splits == 1) {
+#pragma unroll
+      for (int k = 0; k < DPL; ++k)
+        out[rh * D + lane * DPL + k] = from_float<T>(finalize(acc[i][k], m_r[i], l_r[i], p.sink, h));
+    } else {
+      const long long o = (long long)z * BKH + rh;
+      if (lane == 0) {
+        p.m_part[o] = m_r[i];
+        p.l_part[o] = l_r[i];
+      }
+#pragma unroll
+      for (int k = 0; k < DPL; ++k) p.acc_part[o * D + lane * DPL + k] = acc[i][k];
+    }
+  }
+}
+
+// One warp per (row, q head), lane c over dims c D/32 ...: the splits'
+// (m, l, acc) combined in split order, sum_z acc_z e^(m_z - M) and
+// sum_z l_z e^(m_z - M) with M the splits' maximum, then the reference's
+// _finalize once. Lane z loads split z's (m, l) and takes its weight; every
+// split's load is issued before the sums.
+template <typename T, int D>
+__global__ void split_combine_kernel(const SplitParams p) {
+  constexpr int DPL = D / 32;
+  const long long BKH = (long long)p.B * p.K * p.Hq;
+  const long long rh = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (rh >= BKH) return;
+  const float mz = lane < p.splits ? p.m_part[lane * BKH + rh] : NEG_INF;
+  const float lz = lane < p.splits ? p.l_part[lane * BKH + rh] : 0.f;
+  float az[MAX_SPLITS][DPL];
+#pragma unroll
+  for (int z = 0; z < MAX_SPLITS; ++z)
+#pragma unroll
+    for (int k = 0; k < DPL; ++k) az[z][k] = z < p.splits ? p.acc_part[(z * BKH + rh) * D + lane * DPL + k] : 0.f;
+  const float mx = group_max<32>(mz);
+  const float w = expf(mz - mx);
+  float num[DPL] = {}, den = 0.f;
+#pragma unroll
+  for (int z = 0; z < MAX_SPLITS; ++z) {
+    if (z < p.splits) {
+      const float wz = __shfl_sync(0xffffffffu, w, z);
+      den = fmaf(__shfl_sync(0xffffffffu, lz, z), wz, den);
+#pragma unroll
+      for (int k = 0; k < DPL; ++k) num[k] = fmaf(az[z][k], wz, num[k]);
+    }
+  }
+  T* out = static_cast<T*>(p.out) + rh * D + lane * DPL;
+  const int h = (int)(rh % p.Hq);
+#pragma unroll
+  for (int k = 0; k < DPL; ++k) out[k] = from_float<T>(finalize(num[k], mx, den, p.sink, h));
+}
+
+template <typename T, int D, int RW>
+cudaError_t split_launch(const SplitParams& p, cudaStream_t st) {
+  const int rows = (p.Hq / p.Hkv) * p.K;
+  const size_t smem = SplitTile<T, D>::smem(rows, RW, p.per);
+  cudaError_t err = cudaFuncSetAttribute(split_kernel<T, D, RW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  split_kernel<T, D, RW><<<dim3(p.Hkv, p.B, p.splits), SP_THREADS, smem, st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  constexpr int PAIRS = 2;  // (row, q head) pairs per combine block, a warp each
+  split_combine_kernel<T, D><<<(unsigned)((p.B * p.K * p.Hq + PAIRS - 1) / PAIRS), PAIRS * 32, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t split_dispatch(const SplitParams& p, cudaStream_t st) {
+  const int per_warp = ((p.Hq / p.Hkv) * p.K + SP_WARPS - 1) / SP_WARPS;
+  return per_warp <= 2 ? split_launch<T, D, 2>(p, st) : split_launch<T, D, MAX_ROWS / SP_WARPS>(p, st);
 }
 
 }  // namespace
 }  // namespace nxdi
 
+// splits, per: the wrapper's kv split (ops/decode_attention.py::
+// decode_kv_split); m_part / l_part / acc_part: fp32 scratch of
+// splits * B * K * Hq (* D) values, unused (may be null) for one split.
 extern "C" int nxdi_tkg_decode_attention(
     const void* q, const void* k_cache, const void* v_cache, const void* mask,
-    const float* sink, void* out,
+    const float* sink, void* out, float* m_part, float* l_part, float* acc_part,
     int B, int K, int Hq, int Hkv, int D, int L, int R, int S_max, int S_kv, int layer,
-    int mask_sb, int mask_st,
+    int mask_sb, int mask_st, int splits, int per,
     float scale, int dtype, void* stream) {
   using namespace nxdi;
   if (B <= 0 || K <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * K > MAX_ROWS ||
       S_kv <= 0 || S_kv > S_max || B > R || layer < 0 || layer >= L)
     return (int)cudaErrorInvalidValue;
-  DecodeParams p{q, k_cache, v_cache, static_cast<const unsigned char*>(mask), sink, nullptr, out,
-                 K, Hq, Hkv, R, S_max, S_kv, layer, 0, 0, mask_sb, mask_st, scale};
-  return (int)dispatch<CONTIG_TILE, false>(p, B, D, dtype, static_cast<cudaStream_t>(stream));
+  if (splits < 1 || splits > MAX_SPLITS || per <= 0 || (long long)(splits - 1) * per >= S_kv ||
+      (long long)splits * per < S_kv || (splits > 1 && (!m_part || !l_part || !acc_part)))
+    return (int)cudaErrorInvalidValue;
+  SplitParams p{q, k_cache, v_cache, static_cast<const unsigned char*>(mask), sink, out, m_part, l_part, acc_part,
+                B, K, Hq, Hkv, R, S_max, S_kv, layer, splits, per, mask_sb, mask_st, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32 && D == 64) return (int)split_dispatch<float, 64>(p, st);
+  if (dtype == kFloat32 && D == 128) return (int)split_dispatch<float, 128>(p, st);
+  if (dtype == kBFloat16 && D == 64) return (int)split_dispatch<__nv_bfloat16, 64>(p, st);
+  if (dtype == kBFloat16 && D == 128) return (int)split_dispatch<__nv_bfloat16, 128>(p, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int nxdi_paged_decode_attention(
@@ -292,9 +605,9 @@ extern "C" int nxdi_paged_decode_attention(
       MB <= 0 || NB1 <= 0 || layer < 0 || layer >= L)
     return (int)cudaErrorInvalidValue;
   DecodeParams p{q, k_cache, v_cache, static_cast<const unsigned char*>(mask), sink, block_table, out,
-                 K, Hq, Hkv, 0, 0, MB * bs, layer, NB1, MB, mask_sb, mask_st, scale};
+                 K, Hq, Hkv, MB * bs, layer, NB1, MB, mask_sb, mask_st, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bs == 16) return (int)dispatch<16, true>(p, B, D, dtype, st);
-  if (bs == 32) return (int)dispatch<32, true>(p, B, D, dtype, st);
+  if (bs == 16) return (int)paged_dispatch<16>(p, B, D, dtype, st);
+  if (bs == 32) return (int)paged_dispatch<32>(p, B, D, dtype, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -43,30 +43,6 @@ constexpr int GV_MAX_ROWS = 4;
 constexpr int GV_CHUNK = 2048;
 constexpr int GV_MAX_SPLITS = 16;
 
-// 16 raw bytes as floats: 8 bf16 or 4 fp32 (bf16 bits b are the float bits
-// b << 16, the lower address in the low half)
-template <typename T> struct Vec16;
-template <> struct Vec16<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void unpack(uint4 r, float* v) {
-    v[0] = __uint_as_float(r.x);
-    v[1] = __uint_as_float(r.y);
-    v[2] = __uint_as_float(r.z);
-    v[3] = __uint_as_float(r.w);
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void unpack(uint4 r, float* v) {
-    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      v[2 * i] = __uint_as_float(w[i] << 16);
-      v[2 * i + 1] = __uint_as_float(w[i] & 0xFFFF0000u);
-    }
-  }
-};
-
 // round an fp32 value to T's precision and back
 template <typename T>
 __device__ __forceinline__ float round_to(float v) {

@@ -15,6 +15,7 @@ import every module on a host without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -165,6 +166,21 @@ def check(err: int, what: str) -> None:
     """Raise if a kernel entry returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """The SM count of CUDA ``device``, read once per device and cached."""
+    import torch
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _sm_count(index)
 
 
 def stream_ptr(device) -> int:

@@ -4,13 +4,17 @@ and kernel B4 over the paged cache (counterparts of the reference's
 ``::paged_tkg_decode_attention``). Both are one CUDA C++ kernel template in
 ``csrc/decode_attention.cu``, in two address modes.
 
-The CUDA C++ kernel (``csrc/decode_attention.cu``) reads the FULL stacked
-cache ``(L, R, S_max, Hkv, D)`` at ``layer_idx`` (batch row b reads cache
-line b) and never materializes a bucket slice or a ``repeat_kv`` copy. Each
-(batch row, kv head) block runs the online softmax for its ``n_rep * K``
-query rows, grouped rep-major as the reference's ``_prep_q`` groups them,
-over kv tiles; tiles whose mask is all false are skipped, and a learned sink
-joins the denominator at finalize (the reference's ``_finalize``).
+B1 reads the FULL stacked cache ``(L, R, S_max, Hkv, D)`` at
+``layer_idx`` (batch row b reads cache line b) and never materializes a
+bucket slice or a ``repeat_kv`` copy. Its kv axis is split over blocks
+(flash-decoding): each (kv head, batch row, split) block runs the online
+softmax for its ``n_rep * K`` query rows, grouped rep-major as the
+reference's ``_prep_q`` groups them, over its split's live tiles (tiles
+whose mask is all false are skipped), and a second launch from the same
+call combines the splits in split order and folds a learned sink into the
+denominator once (the reference's ``_finalize``). :func:`decode_kv_split`
+picks the split from the shapes and the card's SM count alone, so a call
+reads nothing of the device back to the host.
 
 B4 reads the head-major paged cache ``(L, NB+1, Hkv, bs, D)`` at
 ``layer_idx`` through the ``(B, MB)`` block table, one kv tile per block,
@@ -38,7 +42,34 @@ HEAD_DIMS = (64, 128)
 BLOCK_SIZES = (16, 32)  # paged-mode kv tiles: one block each
 MAX_ROWS = 64  # n_rep * K query rows one block holds
 MAX_Q_LEN = 16
+MAX_KV_SPLITS = 32  # B1: kv splits per (batch row, kv head)
+SPLIT_ALIGN = 16  # B1: positions per split are a multiple of this
+KV_TILE = 64  # B1: positions per staged tile
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def decode_kv_split(S_kv: int, blocks: int, sms: int):
+    """(splits, positions per split) of B1's kv axis for ``blocks`` (batch
+    row, kv head) pairs over a mask ``S_kv`` wide on a card of ``sms`` SMs:
+    enough splits for at least one block per SM, each a multiple of
+    SPLIT_ALIGN positions and at most one KV_TILE where that leaves at most
+    MAX_KV_SPLITS; one split once the pairs alone fill the card. Split z
+    covers positions [z * per, (z + 1) * per) of [0, S_kv). A function of
+    the shapes only, so the summation order (and the result) repeats from
+    call to call."""
+    want = -(-sms // max(blocks, 1))
+    if want <= 1:
+        return 1, _round_up(S_kv, SPLIT_ALIGN)
+    per = max(
+        SPLIT_ALIGN,
+        min(S_kv // want // SPLIT_ALIGN * SPLIT_ALIGN, KV_TILE),  # >= `want` splits, one tile each
+        _round_up(-(-S_kv // MAX_KV_SPLITS), SPLIT_ALIGN),  # at most MAX_KV_SPLITS
+    )
+    return -(-S_kv // per), per
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
 
 def tkg_decode_attention_plain(
@@ -117,19 +148,30 @@ def _launch_inputs(name, q, k_cache, v_cache, mask, sink):
 def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv):
     B, K, Hq, D = q.shape
     L, R, S_max, Hkv, _ = k_cache.shape
+    S_kv = mask.shape[-1]
     sink_f, out = _launch_inputs("tkg_decode_attention", q, k_cache, v_cache, mask, sink)
+    for arg, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"tkg_decode_attention: {arg} needs a 16-byte aligned base")
+    splits, per = decode_kv_split(S_kv, B * Hkv, _cuda.sm_count(q.device))
+    parts = [None] * 3
+    if splits > 1:
+        # each split's (m, l, acc) per (row, q head), combined in the kernel
+        n = splits * B * K * Hq
+        scratch = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
+        parts = [scratch[:n].data_ptr(), scratch[n:2 * n].data_ptr(), scratch[2 * n:].data_ptr()]
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _cuda.function(
         KERNEL, "nxdi_tkg_decode_attention",
-        [P, P, P, P, P, P] + [I] * 12 + [ctypes.c_float, I, P],
+        [P] * 9 + [I] * 14 + [ctypes.c_float, I, P],
     )
     # the decode mask is usually a broadcast view (stride 0 over K): the
     # kernel reads it through its batch and token strides, without a copy
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), mask.data_ptr(),
-        sink_f.data_ptr() if sink_f is not None else None, out.data_ptr(),
-        B, K, Hq, Hkv, D, L, R, S_max, mask.shape[-1], int(layer_idx),
-        mask.stride(0), mask.stride(2),
+        sink_f.data_ptr() if sink_f is not None else None, out.data_ptr(), *parts,
+        B, K, Hq, Hkv, D, L, R, S_max, S_kv, int(layer_idx),
+        mask.stride(0), mask.stride(2), splits, per,
         float(scale), _DTYPE_CODES[q.dtype],
         _cuda.stream_ptr(q.device),
     )

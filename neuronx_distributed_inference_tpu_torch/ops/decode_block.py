@@ -224,11 +224,6 @@ def _same_dtype(name, x, **tensors):
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def gemv_split(n_cols: int, rows: int, kdim: int, sms: int) -> int:
     """How many blocks share one output tile's reduction: enough for about
     two blocks per SM, each over at least GEMV_MIN_K of the K axis, at most
@@ -270,7 +265,7 @@ def _launch_attn(x, gamma, wqkv, wout, cos, sin, k_cache, v_cache, layer_idx, sl
     Hq = N3 // D - 2 * Hkv
     BK, S_kv = B * K, mask.shape[-1]
     dev = x.device
-    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    sms = _cuda.sm_count(dev)
     s_qkv = gemv_split(N3, BK, H, sms)
     s_kv, tiles_per = kv_split(S_kv, B * Hkv, sms)
     s_o = gemv_split(H, BK, Hq * D, sms)
@@ -316,7 +311,7 @@ def _launch_mlp(x, gamma, w_gate, w_up, w_down, eps, act):
     I = w_gate.shape[1]
     BK = B * K
     dev = x.device
-    sms = _sm_count(dev.index if dev.index is not None else torch.cuda.current_device())
+    sms = _cuda.sm_count(dev)
     s_down = gemv_split(H, BK, I, sms)
     x = x.contiguous()
     normed = torch.empty((BK, H), dtype=x.dtype, device=dev)

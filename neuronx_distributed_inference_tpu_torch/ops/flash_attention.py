@@ -13,6 +13,15 @@ sinks in with. ``softmax_bf16`` reproduces the packed kernel's bf16 mode
 (exp input, probabilities and the PV operand rounded to bf16; stats and
 accumulator stay fp32).
 
+In bf16 the kernel runs both products on the tensor cores and rounds the
+probabilities to bf16 for the P.V product (l sums them in fp32 first), as
+the TPU's MXU does at default precision; fp32 keeps fp32 FMAs throughout.
+Its bf16 instance stages q/k/v tiles with 16-byte asynchronous copies, so
+the wrapper takes, in either dtype, only 16-byte aligned bases and token
+and batch strides that are multiples of 8 elements (:func:`_check_launch`);
+the fused QKV projection's split views of every model the port runs meet
+that.
+
 :func:`flash_attention_fwd` launches the kernel for CUDA tensors and runs
 :func:`flash_attention_plain` only for tensors on the CPU.
 """
@@ -118,9 +127,22 @@ def _check(q, k, v, key_valid):
             raise ValueError(f"flash_attention: {name} needs unit element and head stride D, got {x.stride()}")
 
 
+def _check_launch(q, k, v):
+    """What the kernel's 16-byte asynchronous copies need of q, k and v:
+    16-byte aligned bases, token and batch strides that are multiples of 8
+    elements. Raises on anything else."""
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16 or (x.shape[0] > 1 and x.stride(0) % 8) or x.stride(1) % 8:
+            raise ValueError(
+                f"flash_attention: {name} needs a 16-byte aligned base and batch / token strides that are "
+                f"multiples of 8 elements, got offset {x.data_ptr() % 16} and strides {x.stride()}"
+            )
+
+
 def _launch(q, k, v, key_valid, scale, causal, window, chunk, softmax_bf16):
     B, S, Hq, D = q.shape
     Hkv = k.shape[2]
+    _check_launch(q, k, v)
     valid = key_valid.to(torch.int32).contiguous()
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     m = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)

@@ -5,7 +5,10 @@ the unpacked ``_flash_kernel`` and the head-pair packed
 sink fold through both wrappers.
 
 Tolerances: fp32 atol 2e-5 on rows with at least one valid key (rows with
-none are garbage in both). The packed bf16-softmax mode rounds the exp
+none are garbage in both). The CUDA kernel's bf16 instance rounds the
+probabilities to bf16 for the P.V product: a test-local plain flash that
+does the same is held within the card check's bf16 tolerance (1.5e-2) of
+``flash_attention_plain`` at the timed shapes. The packed bf16-softmax mode rounds the exp
 input, the probabilities and the PV operand to bf16 in both; the sums run
 in other orders, so out within atol 2e-3 and l within rtol 1e-2."""
 
@@ -128,3 +131,56 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         tfa.flash_attention_fwd(q[:, :, :1].repeat(1, 1, 3, 1), k, v, key_valid, scale=1.0)
     with pytest.raises(ValueError, match="dtypes"):
         tfa.flash_attention_fwd(q.half(), k.half(), v.half(), key_valid, scale=1.0)
+
+
+def _plain_bf16_p(q, k, v, key_valid, scale):
+    """flash_attention_plain (causal) with the probabilities rounded to
+    bf16 before P.V, as the kernel's tensor-core product takes them; l sums
+    them in fp32 before the rounding."""
+    n_rep = q.shape[2] // k.shape[2]
+    kf = k.float().repeat_interleave(n_rep, dim=2)
+    vf = v.float().repeat_interleave(n_rep, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    mask = tfa.prefill_mask(key_valid, True)
+    s = torch.where(mask, s, torch.full_like(s, tfa.NEG_INF))
+    p = torch.where(mask, torch.exp(s - s.amax(dim=-1, keepdim=True)), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(torch.bfloat16).float(), vf)
+    return (out / torch.clamp(l, min=1e-30).transpose(1, 2)[..., None]).to(q.dtype)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_bf16_probabilities_within_card_tolerance(D):
+    """S = 512, causal, bf16 inputs of std 0.5 (chip_smoke's parity inputs),
+    GQA 4:1, a right-padded row: one bf16 rounding of P moves the output by
+    far less than the card check's 1.5e-2."""
+    rng = np.random.RandomState(7 + D)
+    Bs, Ss, Hkv, n_rep = 2, 512, 2, 4
+    q, k, v = (
+        torch.from_numpy(rng.randn(Bs, Ss, h, D).astype(np.float32) * 0.5).to(torch.bfloat16)
+        for h in (Hkv * n_rep, Hkv, Hkv)
+    )
+    kv = np.ones((Bs, Ss), np.int32)
+    kv[1, 300:] = 0
+    key_valid = torch.from_numpy(kv)
+    ref = tfa.flash_attention_plain(q, k, v, key_valid, scale=D**-0.5, causal=True)[0]
+    out = _plain_bf16_p(q, k, v, key_valid, D**-0.5)
+    rows = _valid_rows(kv)
+    err = (out.float() - ref.float()).abs().amax(dim=(2, 3))[torch.from_numpy(rows)].max().item()
+    assert err <= 1.5e-2, err
+
+
+def test_launch_check_takes_only_what_the_async_copies_need():
+    """The kernel's 16-byte copies: aligned bases, batch and token strides
+    that are multiples of 8 elements (the fused QKV views of the port's
+    models pass)."""
+    qkv = torch.zeros(2, 16, (4 + 2 * 2) * 64, dtype=torch.bfloat16)
+    q = qkv[..., : 4 * 64].unflatten(-1, (4, 64))
+    k = qkv[..., 4 * 64 : 6 * 64].unflatten(-1, (2, 64))
+    v = qkv[..., 6 * 64 :].unflatten(-1, (2, 64))
+    tfa._check_launch(q, k, v)
+    odd = torch.zeros(2 * 16 * 132 + 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tfa._check_launch(odd.as_strided((2, 16, 2, 64), (16 * 132, 132, 64, 1)), k, v)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa._check_launch(q, odd.as_strided((2, 16, 2, 64), (16 * 128, 128, 64, 1), 1), v)

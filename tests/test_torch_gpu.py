@@ -34,6 +34,8 @@ def test_kernels_match_plain_on_the_card(cuda_card):
     _cuda.reset_launch_counts()
     chip_smoke.phase_flash_parity(torch, fa)
     chip_smoke.phase_decode_parity(torch, da)
+    chip_smoke.phase_decode_split_parity(torch, da)  # B1's kv split, bit-identical twice
+    chip_smoke.phase_flash_layout_parity(torch, fa)  # B2: odd lengths, D=128 fused-QKV views
     chip_smoke.phase_paged_decode_parity(torch, da)
     chip_smoke.phase_paged_flash_parity(torch, pf)
     chip_smoke.phase_ragged_parity(torch, rp)
