@@ -12,9 +12,10 @@ Phases, in order; any failure exits non-zero:
      (B1), paged decode (B4), paged flash prefill (B5) and ragged paged
      attention (B3), the paged ones with NaN in the garbage block 0,
      zero-table tails and inactive rows; B1's kv split (the 64-row group,
-     one split, rows with no valid key, batch 8 at bucket 1024) and B2 at
-     lengths no block divides and on D=128 fused-QKV views, each launched
-     twice and required bit-identical;
+     one split, rows with no valid key, batch 8 at bucket 1024), B2 at
+     lengths no block divides and on D=128 fused-QKV views, and every B5
+     case (bf16 held also to a plain version that rounds P to bf16), each
+     launched twice and required bit-identical;
   4. kernel times at the main paths' shapes and layouts (CUDA events, L2
      flushed before each launch), each held to its plain version first,
      beside the plain version, one PyTorch library call, and the card's
@@ -36,8 +37,10 @@ Phases, in order; any failure exits non-zero:
      a short run admitting through the context program, a teacher-forced
      check of mixed_forward, and a profile of 16 steady-state steps;
   8. the quantized paths: B6 (int4 fused-dequant matmul) against its plain
-     version and timed, then the bf16_8b_int4, int8_1b_bs1 and
-     serving_1b_int4_ragged rows (exact B6 / int4_dense counts);
+     version at rows 1 to 64 (each case launched twice, bit-identical, with
+     its split-K count and grid printed) and timed, then the bf16_8b_int4,
+     int8_1b_bs1 and serving_1b_int4_ragged rows (exact B6 / int4_dense
+     counts; profiles of the 8B decode step and the int4 ragged step);
   9. the MoE path: B7 (selected-experts MoE decode) against its plain
      version at Qwen3-30B-A3B and Mixtral-8x7B widths and widths no tile
      divides, timed at one layer beside the dense all-experts route, then
@@ -705,11 +708,130 @@ def phase_paged_decode_parity(torch, da):
     log(f"paged_tkg_decode_attention: {n} cases agree with the plain version (largest abs err {worst:.3e})")
 
 
+#: kv positions per tile of B5's online softmax (paged::BKV)
+B5_KV_TILE = 64
+#: a probability within this many fp32 ulps (2^-16 of it) of a bf16
+#: rounding midpoint may round either way when the kernel's scores differ
+#: from the plain version's in the last bits (summation order)
+P_FLIP_ULPS = 128
+
+
+def paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, *, scale, n_rep, tile):
+    """paged_flash_attention_plain in fp32 with the probabilities rounded
+    to bf16 before P.V (the kernel's one extra rounding, and the TPU MXU's
+    at default precision), computed as B5's online softmax computes them:
+    over kv tiles of ``tile`` positions, each row keeps its running max m
+    (of the scaled scores), takes p = 2^(s scale log2e - m log2e) with one
+    rounding of the argument (the kernel's FFMA), sums the fp32 p into l
+    and shrinks l and the accumulator by 2^((m_old - m_new) log2e) at each
+    tile. So p is rounded to bf16 relative to the running max, not the
+    final one. With ``tile`` at least the context, m is the final max, as
+    in the plain version. Returns (out, flip), both (B, Sq, Hq, D) fp32:
+    ``flip`` is what the output moves by if every probability within
+    P_FLIP_ULPS of a bf16 rounding midpoint rounds the other way (one bf16
+    ulp each, shrunk and normalized as its term of the output)."""
+    from neuronx_distributed_inference_tpu_torch.modules.attention import repeat_kv
+    from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
+
+    k_r, v_r = read_block_cache_at_layer(k[None].float(), v[None].float(), 0, bt)
+    kf, vt = repeat_kv(k_r, n_rep), repeat_kv(v_r, n_rep).transpose(1, 2)  # vt: (B, Hq, S, D)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf)  # raw scores, as the kernel's Q.K^T
+    kv_pos = torch.arange(kf.shape[1], device=q.device)[None, None, None, :]
+    mask = (kv_pos <= pos.to(torch.int64)[:, None, :, None]) & (kv_pos < lim.to(torch.int64)[:, None, None, None])
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32, device=q.device)
+    scale_t = torch.tensor(scale, dtype=torch.float32, device=q.device)
+    scale2 = (scale_t * log2e).double()
+    m = torch.full(s.shape[:-1], pf.NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((*s.shape[:-1], vt.shape[-1]), dtype=torch.float32, device=q.device)
+    flip = torch.zeros_like(acc)
+    for t0 in range(0, s.shape[-1], tile):
+        st, mt, vs = s[..., t0:t0 + tile], mask[..., t0:t0 + tile], vt[..., t0:t0 + tile, :]
+        mx = torch.where(mt, st, pf.NEG_INF).amax(dim=-1)
+        m_new = torch.maximum(m, torch.where(mx > pf.NEG_INF, mx * scale_t, pf.NEG_INF))
+        alpha = torch.exp2((m - m_new) * log2e)
+        # s * scale2 - m_new log2e rounded once: the fp32 product is exact in fp64
+        arg = (st.double() * scale2 - (m_new * log2e).double()[..., None]).float()
+        p = torch.where(mt, torch.exp2(arg), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p.to(torch.bfloat16).float() @ vs
+        # the low 16 bits of an fp32 p decide its bf16 rounding: 0x8000 is the midpoint
+        near = mt & ((p.view(torch.int32) & 0xFFFF) - 0x8000).abs().lt(P_FLIP_ULPS) & (p > 0)
+        ulp = torch.ldexp(torch.ones_like(p), torch.frexp(p).exponent - 8)  # a bf16 ulp of p
+        flip = flip * alpha[..., None] + torch.where(near, ulp, 0.0) @ vs.abs()
+        m = m_new
+    denom = torch.clamp(l, min=1e-30)[..., None]
+    return (acc / denom).transpose(1, 2), (flip / denom).transpose(1, 2)
+
+
+def exact_score_inputs(torch, q, k):
+    """q rounded to quarters (|q| <= 12) and k to eighths (|k| <= 3), NaN
+    kept in block 0: every product is a multiple of 2^-5 and every Q.K^T sum
+    stays below 2^24 of them, so the scores are exact in fp32 in any
+    summation order, the kernel's and the plain version's alike."""
+    qq = (q.float() * 4).round().clamp(-48, 48).div(4).to(q.dtype)
+    kq = (k.float() * 8).round().clamp(-24, 24).div(8).to(k.dtype)
+    kq[0] = float("nan")
+    return qq, kq
+
+
+def check_paged_flash(torch, pf, q, k, v, bt, pos, lim, kw, case, exact_scores=False):
+    """One B5 launch against its plain versions on the same inputs. fp32:
+    within check_close's bound of paged_flash_attention_plain. bf16, two
+    parts: (1) against the plain version that rounds P to bf16 at P.V as
+    the kernel does, relative to the running max of its kv tiles
+    (paged_flash_plain_bf16_p at B5_KV_TILE): within check_close's
+    one-rounding bound alone on ``exact_scores`` inputs (exact_score_inputs:
+    the two compute the same scores bit for bit); on other inputs, whose
+    scores differ in the last bits, within that bound plus one bf16 ulp of
+    each probability within P_FLIP_ULPS of a rounding midpoint (check_close's
+    share alone, and against the plain at one tile, P rounded relative to
+    the final max, printed beside it); (2) within B2's bf16 tolerance
+    (flash_tolerances) of the unchanged plain version. Only rows with a
+    valid key are compared; kv_limit-0 rows must be exactly zero. Returns
+    the max abs error against the unchanged plain version."""
+    out = pf.paged_flash_attention(q, k, v, bt, pos, lim, **kw)
+    ref = pf.paged_flash_attention_plain(q.float(), k.float(), v.float(), bt, pos, lim, **kw)
+    torch.cuda.synchronize()
+    if (out[lim == 0] != 0).any():
+        raise SystemExit(f"paged_flash_attention: a kv_limit-0 row is not zero: {case}")
+    # a query row has a valid key when its position and the limit allow one
+    rows = (pos >= 0) & (lim[:, None] > 0)
+    if q.dtype != torch.bfloat16:
+        return check_close(torch, out, ref, case, "paged_flash_attention", rows)
+    if not torch.isfinite(out.float()).all():
+        raise SystemExit(f"paged_flash_attention returned non-finite values: {case}")
+    o = out.float()[rows]
+    r, flip = (t[rows] for t in paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, **kw, tile=B5_KV_TILE))
+    diff = (o - r).abs()
+    one = DECODE_ATOL + DECODE_RTOL_BF16 * r.abs()
+    share_one = (diff / one).max().item()
+    use = share_one if exact_scores else (diff / (one + flip)).max().item()
+    r_final = paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, **kw, tile=k.shape[2] * bt.shape[1])[0]
+    share_final = ((o - r_final[rows]).abs() / one).max().item()
+    err = (out.float() - ref.float()).abs()[rows].max().item()
+    tol = flash_tolerances(torch, q.dtype, False)[0]
+    ok = use <= 1.0 and err <= tol
+    bound = "" if exact_scores else f" + the flips of the p within {P_FLIP_ULPS} fp32 ulps of a bf16 midpoint"
+    log(
+        f"  paged_flash_attention {case}: vs plain with bf16 P (running max, {B5_KV_TILE}-position tiles) max abs "
+        f"err {diff.max().item():.3e}, share of (atol {DECODE_ATOL:.0e} + rtol {DECODE_RTOL_BF16:.2e} x |plain|{bound}) "
+        f"{use:.3f} (check_close's alone {share_one:.3f}; P rounded against the final max: {share_final:.3f}); "
+        f"vs plain max abs err {err:.3e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}"
+    )
+    if not ok:
+        raise SystemExit(f"paged_flash_attention disagrees with its plain version: {case}")
+    return err
+
+
 def phase_paged_flash_parity(torch, pf):
     """B5 at batch 1 and 8, block size 16 and 32, D 64 and 128, Hq 32 / Hkv 8,
     bf16 and fp32, Sq 128 (the serving row's chunk): prefix + causal, a
     kv_limit that is not a block multiple, zero-table tails, NaN in block 0
-    and, at batch 8, kv_limit 0 rows, which must be exactly zero."""
+    and, at batch 8, kv_limit 0 rows, which must be exactly zero; bf16
+    checked in two parts (check_paged_flash), on the random inputs and
+    again on exact-score inputs (exact_score_inputs); each case launched
+    twice, bit-identical."""
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
 
     rng = np.random.RandomState(4)
@@ -735,19 +857,18 @@ def phase_paged_flash_parity(torch, pf):
                     bt = torch.from_numpy(table).cuda()
                     kw = dict(scale=D ** -0.5, n_rep=Hq // Hkv)
                     case = f"B={B} Sq={Sq} bs={bs} D={D} {str(dtype)[6:]} kv_limit {limits.tolist()}"
-                    before = _cuda.launch_counts()["paged_flash_attention"]
-                    out = pf.paged_flash_attention(q, k, v, bt, pos, lim, **kw)
-                    torch.cuda.synchronize()
-                    if _cuda.launch_counts()["paged_flash_attention"] != before + 1:
-                        raise SystemExit(f"paged flash case did not launch B5: {case}")
-                    ref = pf.paged_flash_attention_plain(q.float(), k.float(), v.float(), bt, pos, lim, **kw)
-                    if (out[torch.from_numpy(limits == 0).cuda()] != 0).any():
-                        raise SystemExit(f"paged_flash_attention: a kv_limit-0 row is not zero: {case}")
-                    # a query row has a valid key when its position and the limit allow one
-                    rows = (pos >= 0) & (lim[:, None] > 0)
-                    worst = max(worst, check_close(torch, out, ref, case, "paged_flash_attention", rows))
-                    n += 1
-    log(f"paged_flash_attention: {n} cases agree with the plain version (largest abs err {worst:.3e})")
+                    for exact in (False, True) if dtype == torch.bfloat16 else (False,):
+                        qc, kc = exact_score_inputs(torch, q, k) if exact else (q, k)
+                        what = f"{case}{', exact scores' if exact else ''}"
+                        before = _cuda.launch_counts()["paged_flash_attention"]
+                        worst = max(worst, check_paged_flash(torch, pf, qc, kc, v, bt, pos, lim, kw, what, exact))
+                        if _cuda.launch_counts()["paged_flash_attention"] != before + 1:
+                            raise SystemExit(f"paged flash case did not launch B5: {what}")
+                        check_repeat(torch, "paged_flash_attention",
+                                     lambda: pf.paged_flash_attention(qc, kc, v, bt, pos, lim, **kw), what)
+                        n += 1
+    log(f"paged_flash_attention: {n} cases agree with the plain version, each bit-identical twice "
+        f"(largest abs err {worst:.3e})")
 
 
 def serving_decode_inputs(torch, rng, ctx, B=8, Hq=32, Hkv=8, D=64, bs=32, width=1024, L=16):
@@ -820,9 +941,7 @@ def phase_paged_times(torch, da, pf):
     pos = torch.arange(Sq, device="cuda", dtype=torch.int32)[None, :].expand(B, Sq).contiguous()
     lim = torch.full((B,), Sq, device="cuda", dtype=torch.int32)
     kw = dict(scale=D ** -0.5, n_rep=Hq // Hkv)
-    out = pf.paged_flash_attention(q, k, v, bt, pos, lim, **kw)
-    ref = pf.paged_flash_attention_plain(q.float(), k.float(), v.float(), bt, pos, lim, **kw)
-    err = check_close(torch, out, ref, "timed B=8 Sq=128 kv_limit=128 bs=32 bucket=1024 D=64 bf16", "paged_flash_attention")
+    err = check_paged_flash(torch, pf, q, k, v, bt, pos, lim, kw, "timed B=8 Sq=128 kv_limit=128 bs=32 bucket=1024 D=64 bf16")
     k_r, v_r = read_block_cache_at_layer(k[None], v[None], 0, bt)
     kt = k_r.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
     vt = v_r.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
@@ -1045,22 +1164,39 @@ def check_qmm(torch, qmm, x, packed, scale, case):
     return err
 
 
+#: B6's parity row counts: 1, 2, 8, 16 and 64, and 3, 5, 24 and 40, row
+#: tiles that pad the tensor cores' m16 tile
+QMM_PARITY_ROWS = (1, 2, 3, 5, 8, 16, 24, 40, 64)
+
+
+def qmm_grid_text(torch, qmm, rows, K, N, dtype):
+    """B6's split count and grid at one shape (ops/quant_matmul.py)."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    kp = -(-K // 256) * 256
+    cols, row_tiles, splits, per = qmm.qmm_grid(rows, kp // 2, N, dtype, _cuda.sm_count(torch.device("cuda")))
+    return (f"{splits} splits of {per} pairs, grid ({cols}, {row_tiles}, {splits}) = {cols * row_tiles * splits} "
+            f"blocks{' + the combine launch' if splits > 1 else ''}")
+
+
 def phase_quant_matmul_parity(torch, qmm):
-    """B6 at rows 1, 2, 8, 16 and 64, bf16 and fp32, over every shape of
-    qmm_shapes()."""
+    """B6 at rows QMM_PARITY_ROWS, bf16 and fp32, over every shape of
+    qmm_shapes(), each case launched twice, bit-identical."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(9)
     worst, n = 0.0, 0
     for label, K, N in qmm_shapes():
         packed, scale = qmm_inputs(torch, gen, K, N)
-        for rows in (1, 2, 8, 16, 64):
+        for rows in QMM_PARITY_ROWS:
             for dtype in (torch.bfloat16, torch.float32):
                 x = torch.randn((rows, K), generator=gen, device="cuda").to(dtype)
-                case = f"{label} rows={rows} K={K} N={N} {str(dtype)[6:]}"
+                case = f"{label} rows={rows} K={K} N={N} {str(dtype)[6:]}: {qmm_grid_text(torch, qmm, rows, K, N, dtype)}"
                 worst = max(worst, check_qmm(torch, qmm, x, packed, scale, case))
+                check_repeat(torch, "quant_matmul", lambda: qmm.quant_matmul(x, packed, scale), case)
                 n += 1
         del packed, scale
-    log(f"quant_matmul: {n} cases agree with the plain version (largest abs err {worst:.3e})")
+    log(f"quant_matmul: {n} cases agree with the plain version, each bit-identical twice (largest abs err {worst:.3e})")
+    return n
 
 
 def phase_quant_matmul_times(torch, qmm):
@@ -1090,8 +1226,8 @@ def phase_quant_matmul_times(torch, qmm):
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
             )
             log(
-                f"quant_matmul {label} {name} rows={rows} K={K} N={N} bf16 ({-(-N // 128) * -(-rows // 8)} "
-                f"blocks): kernel {ms:.4f} ms, plain "
+                f"quant_matmul {label} {name} rows={rows} K={K} N={N} bf16 "
+                f"({qmm_grid_text(torch, qmm, rows, K, N, torch.bfloat16)}): kernel {ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, matmul on the bf16 weight {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
                 f"{b_ms / ms:.3f} of the bound, err vs plain {err:.3e}"
             )
@@ -1228,9 +1364,10 @@ def profile_chunk(torch, chunk, steps, label):
         traced_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    by_name = {}
+    by_name, calls = {}, {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        calls[e.name] = calls.get(e.name, 0) + 1
     log(
         f"{label}: {step_ms:.3f} ms on the host clock; traced chunk "
         f"{traced_ms:.1f} ms for {steps} steps, device busy {busy_ms:.2f} ms "
@@ -1248,7 +1385,22 @@ def profile_chunk(torch, chunk, steps, label):
         decode_step_ms=step_ms, device_busy_frac=busy_ms / traced_ms, device_busy_ms=busy_ms / steps,
         kernels_per_step=len(kernels) / steps,
         kernel_ms_per_step={name: ms / steps for name, ms in by_name.items()},
+        kernel_calls_per_step={name: n / steps for name, n in calls.items()},
     )
+
+
+def b6_per_step(profile):
+    """B6's device ms and kernels per step in a profile (its tensor-core or
+    FMA launch and, where K is split, its combine launch)."""
+    ms = calls = combine = 0.0
+    for name, t in profile["kernel_ms_per_step"].items():
+        short = port_kernel_name(name)
+        if short.startswith("qmm_"):
+            ms += t
+            calls += profile["kernel_calls_per_step"][name]
+            if short.startswith("qmm_combine"):
+                combine += profile["kernel_calls_per_step"][name]
+    return ms, calls, combine
 
 
 def phase_serving_profile(torch, app, ctx=192, steps=16):
@@ -1910,11 +2062,12 @@ def phase_int4_8b(torch):
     if run["launches"] != want:
         raise SystemExit(f"int4 8B launch counts {run['launches']} != expected {want}")
     profile = phase_profile(torch, app, out.sequences[0], prompt_len)
-    b6 = sum(ms for name, ms in profile["kernel_ms_per_step"].items() if "qmm_kernel" in name)
+    b6, b6_calls, b6_combine = b6_per_step(profile)
     busy = sum(profile["kernel_ms_per_step"].values())
     step_bound = bound_ms(int4_step_bytes(MODEL_8B), 0)[0]
     log(
-        f"  B6 (qmm_kernel) {b6:.4f} ms/step, {b6 / busy:.3f} of the device's busy time ({busy:.3f} ms/step); "
+        f"  B6 {b6:.4f} ms/step in {b6_calls:.0f} kernels a step ({b6_combine:.0f} of them split-K combines), "
+        f"{b6 / busy:.3f} of the device's busy time ({busy:.3f} ms/step); "
         f"weight bound of the step {step_bound:.4f} ms ({step_bound / b6:.3f} of B6's time); host clock "
         f"{profile['decode_step_ms']:.3f} ms/step"
     )
@@ -2008,9 +2161,13 @@ def phase_int4_ragged(torch):
     log(f"  mixed dispatches {mixed}: {narrow} packing <= {QMM_MAX_ROWS} tokens, {wide} more; buckets {run['buckets']}")
     if run["launches"] != want or narrow + wide != mixed or set(sess.dispatches) != {"mixed_step"}:
         raise SystemExit(f"int4 ragged serving: counts {run['launches']} != {want}, dispatches {dict(sess.dispatches)}")
-    del app, sess
+    del sess
+    profile = phase_ragged_profile(torch, app, prompts, "int4 sync")
+    b6, b6_calls, b6_combine = b6_per_step(profile)
+    log(f"  B6 {b6:.4f} ms/step in {b6_calls:.0f} kernels a step ({b6_combine:.0f} of them split-K combines)")
+    del app
     torch.cuda.empty_cache()
-    return dict(run, mixed=mixed, narrow=narrow, wide=wide)
+    return dict(run, mixed=mixed, narrow=narrow, wide=wide, profile=profile, b6_ms_per_step=b6)
 
 # ---------------------------------------------------------------------------
 # B7: selected-experts MoE decode, and the Qwen3-30B-A3B generate() path
@@ -2848,7 +3005,7 @@ def main():
     reports = timed("build", _cuda.build)
     for name, rep_ in reports.items():
         log(f"--- {name} ptxas ---\n{rep_}")
-    for name in ("flash_attention", "decode_attention"):  # B2, B1 (and B4)
+    for name in ("flash_attention", "decode_attention", "paged_flash_attention", "quant_matmul"):  # B2, B1/B4, B5, B6
         for kernel, regs in ptxas_summary(reports[name]).items():
             log(f"registers {name}: {kernel}: {regs}")
 

@@ -9,7 +9,10 @@ causal attention among the new tokens, whose K/V are already written
 reads the cache blocks through the block table, shares each K/V tile among
 the n_rep q heads of a kv head, and stops its kv loop at the block's causal
 frontier or ``kv_limit``. Its q tile is 64 query rows (64 / n_rep positions
-of the n_rep heads of one kv head); the source says why.
+of the n_rep heads of one kv head). In bf16 both products run on the tensor
+cores, with K/V tiles copied by 16-byte ``cp.async`` (16-byte aligned
+bases, which the wrapper checks) and the probabilities rounded to bf16 as
+the P.V operand; fp32 keeps the FMA loop. The source says why.
 
 :func:`paged_flash_attention` launches the kernel for CUDA tensors and runs
 :func:`paged_flash_attention_plain` only for tensors on the CPU. The
@@ -99,6 +102,8 @@ def _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep)
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not x.is_contiguous():
             raise ValueError(f"paged_flash_attention: {name} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"paged_flash_attention: {name} must be 16-byte aligned (the kernel's 16-byte copies)")
     table = block_table.to(torch.int32).contiguous()
     pos = positions.to(torch.int32).contiguous()
     limit = kv_limit.to(torch.int32).contiguous()

@@ -30,11 +30,20 @@ the reference's ``int4_matmul_native``. Calls with more than
 :data:`QMM_MAX_ROWS` rows (prefill) take :func:`int4_matmul_dense`: on a
 card, the weight dequantized to the activation dtype and one ``torch.matmul``,
 counted apart as ``int4_dense`` (``ops/_cuda.py``).
+
+The kernel splits the group-pair axis over blocks by
+:func:`quant_matmul_split` (from the shapes and the SM count only, so the
+summation order repeats from call to call): each split writes an fp32
+partial to scratch this wrapper keeps, one buffer per device and stream
+grown to the largest call, and a second launch from the same entry sums the
+partials in split order. One call counts one launch. The launch plan (row
+tile, splits) is worked out once per shape.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -50,6 +59,44 @@ INT4_GROUP = 128
 INT4_QMAX = 7.0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: B6's block tile: 128 columns by :func:`qmm_row_tile` rows
+QMM_COLS = 128
+#: blocks per SM that the split rule aims for (2 ran faster than 1, 4 or 8
+#: at most timed shapes: scripts/torch_attention_variants.py)
+QMM_BLOCKS_PER_SM = 2
+
+
+def quant_matmul_split(pairs: int, col_tiles: int, row_tiles: int, sms: int):
+    """(splits, pairs per split) of B6's group-pair axis (byte rows
+    ``[128 g, 128 g + 128)``) for a grid of ``col_tiles`` x ``row_tiles``
+    blocks on a card of ``sms`` SMs: one split once the tiles alone fill the
+    card, else enough contiguous splits for about QMM_BLOCKS_PER_SM blocks
+    an SM, as far as there are pairs. Split z covers pairs ``[z * per,
+    min((z + 1) * per, pairs))``; none is empty."""
+    blocks = col_tiles * row_tiles
+    if blocks >= sms:
+        return 1, pairs
+    want = -(-QMM_BLOCKS_PER_SM * sms // blocks)
+    per = -(-pairs // want)
+    return -(-pairs // per), per
+
+
+def qmm_row_tile(rows: int, dtype: torch.dtype) -> int:
+    """The rows one B6 block takes, which also picks its body in
+    ``csrc/quant_matmul.cu``: 16 or 32 for bf16 (the tensor cores' m16
+    tiles), the smallest power of two >= rows up to 8 for fp32 (the FMA
+    body)."""
+    if dtype == torch.bfloat16:
+        return 16 if rows <= 16 else 32
+    return min(8, 1 << (rows - 1).bit_length())
+
+
+def qmm_grid(rows: int, K2: int, N: int, dtype: torch.dtype, sms: int):
+    """(col_tiles, row_tiles, splits, pairs per split) of one B6 launch over
+    ``rows`` rows of a packed (K2, N) weight."""
+    col_tiles, row_tiles = -(-N // QMM_COLS), -(-rows // qmm_row_tile(rows, dtype))
+    return (col_tiles, row_tiles, *quant_matmul_split(K2 // INT4_GROUP, col_tiles, row_tiles, sms))
 
 
 def quantize_tensor_int4(w: torch.Tensor, group_size: int = INT4_GROUP) -> dict:
@@ -164,6 +211,26 @@ def _check(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> None:
         raise ValueError(f"quant_matmul: x dtype {x.dtype} (bf16 or fp32)")
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(rows: int, K2: int, N: int, dtype: torch.dtype, device: int):
+    """(row tile, splits, pairs per split) of a launch, once per shape."""
+    _, _, splits, per = qmm_grid(rows, K2, N, dtype, _cuda.sm_count(torch.device("cuda", device)))
+    return qmm_row_tile(rows, dtype), splits, per
+
+
+#: (device, stream) -> the fp32 scratch of split partials, grown to the
+#: largest call; reuse is safe because one stream runs its launches in order
+_SCRATCH = {}
+
+
+def _scratch(numel: int, device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _SCRATCH[key] = torch.empty(numel, dtype=torch.float32, device=device)
+    return buf
+
+
 def _launch(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     k = x.shape[-1]
     lead = x.shape[:-1]
@@ -177,14 +244,14 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch
     if len({x.device, packed.device, scale.device}) != 1:
         raise ValueError(f"quant_matmul: inputs on {x.device}, {packed.device}, {scale.device}")
     out = torch.empty((*lead, n), dtype=x.dtype, device=x.device)
+    row_tile, splits, per = _plan(rows, k2, n, x.dtype, x.device.index)
+    stream = _cuda.stream_ptr(x.device)
+    partial = _scratch(splits * rows * n, x.device, stream).data_ptr() if splits > 1 else None
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function(KERNEL, "nxdi_quant_matmul", [P, P, P, P] + [I] * 6 + [P])
-    # 4-byte code loads need N % 4 == 0 and an aligned base; the kernel reads
-    # byte by byte otherwise
-    vec = int(n % 4 == 0 and packed.data_ptr() % 4 == 0)
+    fn = _cuda.function(KERNEL, "nxdi_quant_matmul", [P] * 5 + [I] * 8 + [P])
     err = fn(
-        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        rows, k, k2, n, _DTYPE_CODES[x.dtype], vec, _cuda.stream_ptr(x.device),
+        x.data_ptr(), packed.data_ptr(), scale.data_ptr(), out.data_ptr(), partial,
+        rows, k, k2, n, splits, per, row_tile, _DTYPE_CODES[x.dtype], stream,
     )
     _cuda.check(err, KERNEL)
     _cuda.LAUNCHES[KERNEL] += 1

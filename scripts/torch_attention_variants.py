@@ -1,8 +1,11 @@
 """Time design alternatives of the PyTorch/CUDA port's attention kernels B1
 (decode, ``csrc/decode_attention.cu``) and B2 (prefill flash,
-``csrc/flash_attention.cu``) on one H100, beside the kernels as built.
+``csrc/flash_attention.cu``), and of the int4 matmul B6
+(``csrc/quant_matmul.cu``), on one H100, beside the kernels as built.
 
-    python3 scripts/torch_attention_variants.py
+    python3 scripts/torch_attention_variants.py [b2] [b1] [b6] [b6host]
+
+(no argument: b2, b1 and b6)
 
 Each alternative is the kernel's own source with one decision changed,
 compiled with the port's nvcc flags (``ops/_cuda.py``) into
@@ -25,6 +28,24 @@ B1, at batch 1 (Llama-3.2-1B's 8 kv heads, Qwen3-30B-A3B's 4), 4 and 8:
   thread-combine  the combine with one thread per (row, head, dim), each
              loading every split's (m, l), against one warp per (row,
              head).
+B6, bf16, at the 8B row's o, down and gate projections at 1 row and the
+1B row's qkv, o and down at 8 rows:
+  built      the tensor-core body at every row count, split K by
+             ``ops/quant_matmul.py::quant_matmul_split``;
+  fma-rows2  bf16 calls of at most 2 rows on the FMA body (the first
+             version's, under the same split, with row tiles of 1 or 2);
+  stages2/4  2 or 4 group pairs in shared memory instead of 3;
+  stages2-min4, stages3-min3  registers capped for 4 (3) blocks an SM
+             (__launch_bounds__), with 2 (3) stages, so that many fit;
+  and the built kernel under other split rules: no split, and the rule
+  aiming at 1, 4 or 8 blocks an SM instead of QMM_BLOCKS_PER_SM.
+b6host: B6's host cost, the wrapper's microseconds per call enqueued back
+  to back at the 8B o and down shapes (1 row; the least and the median of 7
+  runs of 200 calls), and the int4 8B generate() (bf16_8b_int4, 256
+  tokens) twice, decode tok/s. It uses
+  only what earlier trees also have, so a copy of this script placed in a
+  parent checkout times the parent's wrapper: run parent, change, change,
+  parent in one call.
 Needs one CUDA card; exits non-zero without one.
 """
 
@@ -111,10 +132,14 @@ def build_variants(_cuda, kernel, variants):
         cmd = [_cuda.nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o", str(paths[name]),
                str(d / f"{kernel}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    import chip_smoke
+
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"{kernel} variant {name} does not build:\n{log}")
+        for fn, regs in chip_smoke.ptxas_summary(log).items():
+            print(f"{kernel} {name}: {fn}: {regs}", flush=True)
     return paths
 
 
@@ -200,6 +225,101 @@ def decode_times(torch, chip_smoke, _cuda, da):
         da.decode_kv_split = rule
 
 
+QMM_TC_BOUNDS = "__launch_bounds__(TC_THREADS) qmm_tc_kernel"
+QMM_VARIANTS = {
+    "built": [],
+    "fma-rows2": [("    if (row_tile == 16) err = tc_launch<1>",
+                   "    if (row_tile <= 2) err = fma_dispatch<__nv_bfloat16>(p, row_tile, "
+                   "N % 4 == 0 && aligned(packed, 4), st);\n    else if (row_tile == 16) err = tc_launch<1>")],
+    "stages2": [("constexpr int QMM_STAGES = 3;", "constexpr int QMM_STAGES = 2;")],
+    "stages4": [("constexpr int QMM_STAGES = 3;", "constexpr int QMM_STAGES = 4;")],
+    "stages2-min4": [("constexpr int QMM_STAGES = 3;", "constexpr int QMM_STAGES = 2;"),
+                     (QMM_TC_BOUNDS, QMM_TC_BOUNDS.replace("TC_THREADS", "TC_THREADS, 4"))],
+    "stages3-min3": [(QMM_TC_BOUNDS, QMM_TC_BOUNDS.replace("TC_THREADS", "TC_THREADS, 3"))],
+}
+
+
+def fma_row_tile(rule):
+    """The row-tile rule of the fma-rows2 variant: bf16 calls of at most 2
+    rows in FMA row tiles, the rest as ``rule``."""
+    import torch
+
+    return lambda rows, dtype: rows if dtype == torch.bfloat16 and rows <= 2 else rule(rows, dtype)
+
+
+def qmm_times(torch, chip_smoke, _cuda, qmm):
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import QMM_POINTS, int4_projections
+
+    paths = build_variants(_cuda, "quant_matmul", QMM_VARIANTS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    rule, target, row_tile = qmm.quant_matmul_split, qmm.QMM_BLOCKS_PER_SM, qmm.qmm_row_tile
+    runs = [(name, None, None) for name in paths]
+    runs += [(name, "4 blocks an SM", 4) for name in paths if name.endswith("min4")]
+    runs += [("built", "no split", lambda pairs, c, r, s: (1, pairs))]
+    runs += [("built", f"{t} blocks an SM", t) for t in (1, 4, 8) if t != target]
+    try:
+        for label, names in (("8b", ("o", "down", "gate")), ("1b", ("qkv", "o", "down"))):
+            pt = QMM_POINTS[label]
+            rows = pt["rows"]
+            for name in names:
+                K, N = int4_projections(pt["m"])[name]
+                packed, scale = chip_smoke.qmm_inputs(torch, gen, K, N)
+                x = torch.randn((rows, K), generator=gen, device="cuda").to(torch.bfloat16)
+                w = qmm.dequantize_int4(packed, scale, K, torch.bfloat16)
+                lib = chip_smoke.time_ms(torch, lambda: torch.matmul(x, w))
+                for variant, split, how in runs:
+                    use(_cuda, "quant_matmul", paths[variant])
+                    qmm.quant_matmul_split, qmm.QMM_BLOCKS_PER_SM = rule, target
+                    qmm.qmm_row_tile = fma_row_tile(row_tile) if variant == "fma-rows2" else row_tile
+                    if callable(how):
+                        qmm.quant_matmul_split = how
+                    elif how is not None:
+                        qmm.QMM_BLOCKS_PER_SM = how
+                    qmm._plan.cache_clear()
+                    grid = chip_smoke.qmm_grid_text(torch, qmm, rows, K, N, torch.bfloat16)
+                    case = f"{label} {name} rows={rows} {variant}, {split or 'the rule'}: {grid}"
+                    chip_smoke.check_qmm(torch, qmm, x, packed, scale, case)
+
+                    def f():
+                        return qmm.quant_matmul(x, packed, scale)
+
+                    ms = chip_smoke.time_ms(torch, f)
+                    print(f"B6 {case}: {ms:.4f} ms (matmul on the bf16 weight {lib:.4f}); device us per "
+                          f"launch: {launch_us(torch, chip_smoke, f)}", flush=True)
+                del packed, scale, w
+    finally:
+        qmm.quant_matmul_split, qmm.QMM_BLOCKS_PER_SM, qmm.qmm_row_tile = rule, target, row_tile
+        qmm._plan.cache_clear()
+
+
+def b6_host(torch, chip_smoke, qmm):
+    import time
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    for K, N in ((4096, 4096), (14336, 4096)):
+        packed, scale = chip_smoke.qmm_inputs(torch, gen, K, N)
+        x = torch.randn((1, K), generator=gen, device="cuda").to(torch.bfloat16)
+        for _ in range(50):
+            qmm.quant_matmul(x, packed, scale)
+        runs = []
+        for _ in range(7):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                qmm.quant_matmul(x, packed, scale)
+            runs.append((time.perf_counter() - t0) / 200 * 1e6)
+        runs.sort()
+        print(f"B6 host K={K} N={N} 1 row: us per call enqueued, least {runs[0]:.2f}, median {runs[3]:.2f}",
+              flush=True)
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    app = ModelForCausalLM(None, chip_smoke._config_8b_int4()).load(random_weights=True).warmup()
+    for i in range(2):
+        chip_smoke._generate_run(torch, app, 128, 256, f"B6 host int4 8B generate() #{i}")
+
+
 def main():
     sys.path.insert(0, REPO)
     import torch
@@ -211,14 +331,23 @@ def main():
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_inference_tpu_torch.ops import quant_matmul as qmm
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
-    flash_times(torch, chip_smoke, _cuda, fa)
-    decode_times(torch, chip_smoke, _cuda, da)
+    parts = set(sys.argv[1:]) or {"b2", "b1", "b6"}
+    print(f"tree: {REPO}", flush=True)
+    if "b2" in parts:
+        flash_times(torch, chip_smoke, _cuda, fa)
+    if "b1" in parts:
+        decode_times(torch, chip_smoke, _cuda, da)
+    if "b6" in parts:
+        qmm_times(torch, chip_smoke, _cuda, qmm)
+    if "b6host" in parts:
+        b6_host(torch, chip_smoke, qmm)
 
 
 if __name__ == "__main__":

@@ -47,16 +47,19 @@ def test_kernels_match_plain_on_the_card(cuda_card):
 
 @pytest.mark.gpu
 def test_quant_matmul_matches_plain_on_the_card(cuda_card):
-    """B6 against its plain version at rows 1 to 64, bf16 and fp32, every
-    int4 projection of the 8B and 1B rows and a padded K with a ragged N."""
+    """B6 against its plain version at rows 1 to 64 (chip_smoke.QMM_PARITY_ROWS),
+    bf16 and fp32, every int4 projection of the 8B and 1B rows and a padded
+    K with a ragged N; each case launches once for the check and twice for
+    the bit-identical repeat."""
     sys.path.insert(0, REPO)
     import chip_smoke
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops import quant_matmul as qmm
 
     _cuda.reset_launch_counts()
-    chip_smoke.phase_quant_matmul_parity(torch, qmm)
-    assert _cuda.launch_counts()["quant_matmul"] == 5 * 2 * len(chip_smoke.qmm_shapes())
+    n = chip_smoke.phase_quant_matmul_parity(torch, qmm)
+    assert n == len(chip_smoke.QMM_PARITY_ROWS) * 2 * len(chip_smoke.qmm_shapes())
+    assert _cuda.launch_counts()["quant_matmul"] == 3 * n
 
 
 @pytest.mark.gpu

@@ -3,7 +3,12 @@ numpy inputs: int8 / fp8 codes and scales per channel, per tensor and
 blockwise, the packed int4 format and its dequantization (byte-identical),
 ``linear`` for every entry kind, the set of leaves ``quantize_params``
 converts, B6's plain version against the JAX kernel in interpret mode and
-its native path, the route by row count, and ``params_from_jax``.
+its native path, the route by row count, and ``params_from_jax``. B6's
+split-K rule (``quant_matmul_split``: every group pair in one split, in
+order, one split once the tiles fill the card, the timed shapes' counts)
+and its split-K algorithm, run in PyTorch with that rule (partials per
+pair range summed in split order), against the JAX kernel in interpret
+mode and the plain version.
 
 On CPU tensors B6's wrapper takes its plain version, so nothing launches."""
 
@@ -26,6 +31,8 @@ from neuronx_distributed_inference_tpu_torch.ops import quant as tq
 from neuronx_distributed_inference_tpu_torch.ops import quant_matmul as tqm
 from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
 from tests.conftest import make_random_hf_state_dict
+
+H100_SMS = 132
 
 def _weights(shape, seed=0, qmax=127.0):
     """Weights with a spread of magnitudes below ``qmax``, and column 0 made
@@ -265,6 +272,132 @@ def test_quant_matmul_plain_matches_jax_kernel_and_native(rows, K, N, dtype):
     if dtype == "bfloat16":
         for ref in jax_paths(xj):
             np.testing.assert_allclose(out, ref, rtol=2.0 ** -7, atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize(
+    "pairs, col_tiles, row_tiles, sms",
+    [
+        (56, 32, 1, H100_SMS),  # 8B down, 1 row
+        (16, 32, 1, H100_SMS),  # 8B o
+        (16, 48, 1, H100_SMS),  # 8B qkv
+        (16, 112, 1, H100_SMS),  # 8B gate / up
+        (16, 1002, 1, H100_SMS),  # the lm head: the column tiles fill the card
+        (32, 16, 1, H100_SMS),  # 1B down, 8 rows
+        (8, 16, 1, H100_SMS),  # 1B o
+        (16, 112, 2, H100_SMS),  # 8B gate at 64 rows
+        (16, 48, 2, H100_SMS),  # 8B qkv at 64 rows: a short last split
+        (4, 2, 1, H100_SMS),  # the padded K = 1000
+        (4, 2, 5, H100_SMS),
+        (1, 1, 1, H100_SMS),
+        (56, 132, 1, H100_SMS),  # exactly one block an SM
+        (56, 131, 1, H100_SMS),
+        (37, 3, 1, 16),
+        (7, 1, 1, 1),
+    ],
+)
+def test_quant_matmul_split_covers_every_pair_once(pairs, col_tiles, row_tiles, sms):
+    splits, per = tqm.quant_matmul_split(pairs, col_tiles, row_tiles, sms)
+    assert splits >= 1 and per >= 1
+    ranges = [range(z * per, min((z + 1) * per, pairs)) for z in range(splits)]
+    assert all(len(r) > 0 for r in ranges)  # no split is empty
+    assert [g for r in ranges for g in r] == list(range(pairs))  # in order, each pair once
+    if col_tiles * row_tiles >= sms:
+        assert splits == 1  # the tiles alone fill the card: no combine launch
+
+
+def test_quant_matmul_split_at_the_timed_shapes():
+    """On 132 SMs, bf16 (row tiles of 16, then 32 rows), aiming at 2 blocks
+    an SM: the 8B row's projections at 1 row and the 1B row's at 8 rows
+    (8B down's 56 pairs in 8 ranges of 7); the lm heads (1002 column tiles)
+    take one split; at 64 rows 8B down's 56 pairs and 8B qkv's 16 take
+    ranges of 12 and of 6, the last one shorter; the padded K = 1000 (4
+    pairs) takes 4 splits of one pair, and
+    fp32 (row tiles of up to 8) counts its own row tiles."""
+    bf16 = torch.bfloat16
+
+    def grid(rows, K, N, dtype=bf16):
+        kp = -(-K // 256) * 256
+        return tqm.qmm_grid(rows, kp // 2, N, dtype, H100_SMS)
+
+    assert grid(1, 14336, 4096) == (32, 1, 8, 7)  # 8B down
+    assert grid(1, 4096, 4096) == (32, 1, 8, 2)  # 8B o
+    assert grid(1, 4096, 6144) == (48, 1, 6, 3)  # 8B qkv
+    assert grid(1, 4096, 14336) == (112, 1, 3, 6)  # 8B gate / up
+    assert grid(1, 4096, 128256) == (1002, 1, 1, 16)  # 8B lm head
+    assert grid(8, 8192, 2048) == (16, 1, 16, 2)  # 1B down
+    assert grid(8, 2048, 2048) == (16, 1, 8, 1)  # 1B o
+    assert grid(8, 2048, 3072) == (24, 1, 8, 1)  # 1B qkv
+    assert grid(8, 2048, 8192) == (64, 1, 4, 2)  # 1B gate / up
+    assert grid(8, 2048, 128256) == (1002, 1, 1, 8)  # 1B lm head
+    assert grid(64, 14336, 4096) == (32, 2, 5, 12)  # 12, 12, 12, 12, 8 pairs
+    assert grid(64, 4096, 6144) == (48, 2, 3, 6)  # 6, 6, 4 pairs
+    assert grid(24, 1000, 200) == (2, 1, 4, 1)
+    assert grid(40, 1000, 203) == (2, 2, 4, 1)
+    assert grid(40, 1000, 203, torch.float32) == (2, 5, 4, 1)
+    assert grid(3, 4096, 4096, torch.float32) == (32, 1, 8, 2)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 5, 8, 16, 17, 24, 40, 64])
+def test_qmm_row_tile_is_a_body_the_kernel_has(rows):
+    """The row tile that picks B6's body and counts its blocks: bf16 takes
+    the tensor cores' 16- or 32-row tiles, fp32 the FMA body's 1, 2, 4 or 8
+    (the smallest power of two >= rows, capped at 8)."""
+    bf16_tile = tqm.qmm_row_tile(rows, torch.bfloat16)
+    assert bf16_tile == (16 if rows <= 16 else 32)
+    fp32_tile = tqm.qmm_row_tile(rows, torch.float32)
+    assert fp32_tile in (1, 2, 4, 8) and (fp32_tile >= rows or fp32_tile == 8)
+    assert fp32_tile == 1 or fp32_tile // 2 < rows
+
+
+def _split_k(x, packed, scale, splits, per):
+    """B6's split-K algorithm in PyTorch, in fp32: split z's partial sums
+    its pairs' two groups in order, each group's dot on the codes times the
+    group's scale after the dot; the partials are summed in split order."""
+    k = x.shape[-1]
+    k2, n = packed.shape
+    pairs = k2 // tqm.INT4_GROUP
+    g_ = tqm.INT4_GROUP
+    xf = torch.nn.functional.pad(x.float(), (0, 2 * k2 - k))
+    codes = tqm._codes(packed)  # (Kp, N): the low plane, then the high plane
+    partials = []
+    for z in range(splits):
+        acc = torch.zeros(x.shape[0], n)
+        for g in range(z * per, min((z + 1) * per, pairs)):
+            lo = xf[:, g * g_ : (g + 1) * g_] @ codes[g * g_ : (g + 1) * g_]
+            hi = xf[:, k2 + g * g_ : k2 + (g + 1) * g_] @ codes[k2 + g * g_ : k2 + (g + 1) * g_]
+            acc = acc + lo * scale[g] + hi * scale[pairs + g]
+        partials.append(acc)
+    out = torch.zeros(x.shape[0], n)
+    for part in partials:
+        out = out + part
+    return out
+
+
+@pytest.mark.parametrize(
+    "rows, K, N, sms",
+    [(1, 14336 // 4, 256, H100_SMS), (8, 2048, 384, H100_SMS), (3, 1000, 203, H100_SMS), (40, 1024, 256, 4),
+     (64, 512, 384, 1)],
+)
+def test_split_k_matches_jax_kernel_and_plain(rows, K, N, sms):
+    """The split-K algorithm with the rule's split count, on random codes
+    with a distinct random scale per (group, column), against
+    quant_matmul_plain and (at widths the JAX kernel takes, multiples of
+    128) the JAX kernel in interpret mode, in fp32 within 1e-5 of max |ref|
+    (the sums run in other orders)."""
+    rng = np.random.RandomState(rows + K + N)
+    kp = -(-K // 256) * 256
+    packed = rng.randint(0, 256, size=(kp // 2, N)).astype(np.uint8)
+    scale = (rng.uniform(0.5, 1.5, size=(kp // 128, N)) * 0.02).astype(np.float32)
+    x = rng.randn(rows, K).astype(np.float32)
+    _, _, splits, per = tqm.qmm_grid(rows, kp // 2, N, torch.float32, sms)
+    out = _split_k(torch.from_numpy(x), torch.from_numpy(packed), torch.from_numpy(scale), splits, per).numpy()
+    refs = [tqm.quant_matmul_plain(torch.from_numpy(x), torch.from_numpy(packed), torch.from_numpy(scale)).numpy()]
+    if N % 128 == 0:  # the JAX kernel takes lane-aligned widths only
+        refs.append(np.asarray(jqm.quant_matmul(jnp.asarray(x), jnp.asarray(packed), jnp.asarray(scale), interpret=True)))
+    for ref in refs:
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    if sms == H100_SMS and rows <= 8:
+        assert splits > 1  # the case runs the combine
 
 
 @pytest.mark.parametrize("rows", [1, 64, 65, 200])
