@@ -12,14 +12,17 @@ Phases, in order; any failure exits non-zero:
      (B1), paged decode (B4), paged flash prefill (B5) and ragged paged
      attention (B3), the paged ones with NaN in the garbage block 0,
      zero-table tails and inactive rows; B1's kv split (the 64-row group,
-     one split, rows with no valid key, batch 8 at bucket 1024), B2 at
+     one split, rows with no valid key, batch 8 at bucket 1024), B4's (the
+     same split over the block table: widths no tile divides, a zero table
+     entry inside a row, the serving decode shape), B2 at
      lengths no block divides and on D=128 fused-QKV views, and every B5
      case (bf16 held also to a plain version that rounds P to bf16), each
      launched twice and required bit-identical;
   4. kernel times at the main paths' shapes and layouts (CUDA events, L2
      flushed before each launch), each held to its plain version first,
      beside the plain version, one PyTorch library call, and the card's
-     bound for the same work (B1 with its split count and grid);
+     bound for the same work (B1 and B4 with their split counts and grids,
+     B7 with its grids and each of its launches' device time);
   5. the generate() path at full width: Llama-3.2-1B shapes with seeded
      random weights, bf16, greedy generate() of 256 tokens after a 128-token
      prompt at batch 1 (launch counts asserted), a right-padded batch-2
@@ -662,7 +665,9 @@ def phase_paged_decode_parity(torch, da):
     bf16 and fp32, q_len 1 and (through the routing rule) 4: every case has
     NaN in block 0, zero-table tails, lengths that are not block multiples
     and, at batch 8, inactive rows (zero table, mask true only at position
-    0, as the session's decode pass builds them)."""
+    0, as the session's decode pass builds them). Then the split cases
+    (phase_paged_decode_split_parity). Returns the number of cases of each
+    part: each launches B4 once, each split case twice more."""
     from neuronx_distributed_inference_tpu_torch.models.base import paged_attend
     from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec
     from neuronx_distributed_inference_tpu_torch.modules.masks import spec_token_gen_mask
@@ -706,6 +711,61 @@ def phase_paged_decode_parity(torch, da):
                         worst = max(worst, check_close(torch, out, ref, case, "paged_tkg_decode_attention", rows))
                         n += 1
     log(f"paged_tkg_decode_attention: {n} cases agree with the plain version (largest abs err {worst:.3e})")
+    return n, phase_paged_decode_split_parity(torch, da)
+
+
+def phase_paged_decode_split_parity(torch, da):
+    """B4's kv split (B1's rule over the table's MB * bs positions) against
+    the plain version on every row, inactive ones included: widths that are
+    no multiple of 64 (MB 27: splits that start inside a block), a zero
+    entry inside a row's valid range with the mask true there (a block-0
+    chunk beside valid positions in a live tile: both read zeros, never the
+    NaN), a sink, the serving row's decode shape (16 splits of one tile),
+    and batch 20 (one split: every tile through the two-stage pipeline);
+    each case launched twice, bit-identical. Returns the number of cases."""
+    from neuronx_distributed_inference_tpu_torch.modules.masks import spec_token_gen_mask
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    rng = np.random.RandomState(13)
+    sms = _cuda.sm_count(torch.device("cuda"))
+    Hq, Hkv, L, n = 32, 8, 2, 0
+    for D in (64, 128):
+        for dtype in (torch.bfloat16, torch.float32):
+            for B, K, bs, MB, lens, hole, sink in (
+                (1, 1, 32, 27, [800], False, False),  # 864 wide
+                (3, 4, 16, 27, [430, 100, 0], True, True),  # 432 wide, a hole in row 0, an inactive row
+                (8, 1, 32, 32, [192, 1000, 0, 33, 192, 64, 511, 1], True, False),  # the serving decode shape
+                (20, 1, 16, 24, [384 - 17 * i for i in range(20)], False, False),  # one split
+            ):
+                NB = MB * B + 4
+                table = paged_tables(rng, lens, MB, bs, NB)
+                if hole:
+                    table[0, 5] = 0  # inside row 0's valid range
+                k, v = paged_pool(torch, rng, L, NB, Hkv, bs, D, dtype)
+                q = torch.from_numpy(rng.randn(B, K, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", dtype)
+                lens_a = np.array(lens)
+                pos = np.where(lens_a[:, None] > 0, lens_a[:, None] - K + np.arange(K)[None, :], 0)
+                attn = (np.arange(MB * bs)[None, :] < np.maximum(lens_a, 1)[:, None]).astype(np.int32)
+                mask = spec_token_gen_mask(torch.from_numpy(attn).cuda(), torch.from_numpy(pos).cuda())
+                bt = torch.from_numpy(table).cuda()
+                sk = torch.from_numpy(rng.randn(Hq).astype(np.float32)).cuda() if sink else None
+                kw = dict(scale=D ** -0.5, n_kv=Hkv)
+                splits, per = da.decode_kv_split(MB * bs, B * Hkv, sms)
+                case = (f"B={B} K={K} bs={bs} MB={MB} D={D} {str(dtype)[6:]} hole={hole} sink={sink} "
+                        f"splits={splits}x{per}")
+                before = _cuda.launch_counts()["paged_decode_attention"]
+                out = da.paged_tkg_decode_attention(q, k, v, 1, bt, mask, sk, **kw)
+                torch.cuda.synchronize()
+                if _cuda.launch_counts()["paged_decode_attention"] != before + 1:
+                    raise SystemExit(f"paged decode split case did not launch B4 once: {case}")
+                ref = da.paged_tkg_decode_attention_plain(q.float(), k.float(), v.float(), 1, bt, mask, sk, **kw)
+                check_close(torch, out, ref, case, "paged_tkg_decode_attention")
+                check_repeat(torch, "paged_tkg_decode_attention",
+                             lambda: da.paged_tkg_decode_attention(q, k, v, 1, bt, mask, sk, **kw), case)
+                n += 1
+    log(f"paged_tkg_decode_attention split cases: {n} agree with the plain version on every row, each "
+        "bit-identical twice")
+    return n
 
 
 #: kv positions per tile of B5's online softmax (paged::BKV)
@@ -894,6 +954,7 @@ def phase_paged_times(torch, da, pf):
     import torch.nn.functional as F
 
     from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
 
     rows = {}
     rng = np.random.RandomState(5)
@@ -923,9 +984,14 @@ def phase_paged_times(torch, da, pf):
     flops = 4 * D * Hq * int(mask.sum().item())
     b_ms, b_by = bound(nbytes, flops)
     rows["paged_decode_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    splits, per = da.decode_kv_split(bt.shape[1] * k.shape[3], B * Hkv, _cuda.sm_count(q.device))
+    parts = launch_breakdown(torch, lambda: da.paged_tkg_decode_attention(q, k, v, 0, bt, mask, None, **kw),
+                             ("split", "combine") if splits > 1 else ("split",))
     log(
         f"paged_tkg_decode_attention B=8 ctx={ctx} bs=32 bucket=1024 Hq=32 Hkv=8 D=64 bf16: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}"
+        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}; "
+        f"{splits} splits of {per} positions, grid ({Hkv}, {B}, {splits}) = {Hkv * B * splits} blocks; device us "
+        "per launch: " + ", ".join(f"{name} {us:.2f}" for name, us in parts.items())
     )
     del k, v, k_r, v_r, kt, vt
 
@@ -1347,11 +1413,26 @@ def port_kernel_name(name):
     return m.group(1) if m else name[:60]
 
 
+def union_ms(intervals):
+    """The length in ms of the union of (start, end) intervals in us: the
+    device time while any of them ran. Launches that overlap (B7's down and
+    combine start while the launch before them drains, and wait inside)
+    count once; summing their durations would count the wait too."""
+    total, covered = 0.0, float("-inf")
+    for start, end in sorted(intervals):
+        start = max(start, covered)
+        if end > start:
+            total += end - start
+            covered = end
+    return total / 1e3
+
+
 def profile_chunk(torch, chunk, steps, label):
     """Run ``chunk`` (``steps`` decode steps ending in a synchronize) once
     to warm, once timed on the host clock without the profiler, then once
-    traced with torch.profiler for the device's busy time, the kernels by
-    name and the host-side operators by their own (self) CPU time."""
+    traced with torch.profiler for the device's busy time (the union of the
+    kernels' intervals), the kernels by name (their summed durations) and
+    the host-side operators by their own (self) CPU time."""
     from torch.profiler import ProfilerActivity, profile
 
     chunk()
@@ -1363,7 +1444,8 @@ def profile_chunk(torch, chunk, steps, label):
         chunk()
         traced_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    intervals = [(e.name, e.time_range.start, e.time_range.end) for e in kernels]
+    busy_ms = union_ms((start, end) for _, start, end in intervals)
     by_name, calls = {}, {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
@@ -1386,6 +1468,7 @@ def profile_chunk(torch, chunk, steps, label):
         kernels_per_step=len(kernels) / steps,
         kernel_ms_per_step={name: ms / steps for name, ms in by_name.items()},
         kernel_calls_per_step={name: n / steps for name, n in calls.items()},
+        busy_ms_per_step=lambda keep: union_ms((a, b) for n, a, b in intervals if keep(n)) / steps,
     )
 
 
@@ -2241,9 +2324,11 @@ def check_moe(torch, md, args, glu, case):
 def moe_cases():
     """(label, T, k, E, H, I, pool): Qwen3-30B-A3B widths at 1, 2 and 8
     tokens (8 x 8 = 64 rows; 2 and 8 tokens drawn from 16 experts, so they
-    share), Mixtral-8x7B widths at 1 and 4 tokens, and widths no tile
-    divides (I 333 and H 1001 take the element loads; I 332 and H 1000
-    the 4-wide loads with a ragged last tile)."""
+    share; 3, 2 and 1 splits of H), Mixtral-8x7B widths at 1 and 4 tokens,
+    and widths no tile divides, each with a ragged last column tile and a
+    ragged last split of H: I 333 and H 1001 take the element loads; I 332
+    the element loads in bf16 (664-byte rows) and the 16-byte copies in
+    fp32; I 328 and H 1000 the 16-byte copies in both."""
     return [
         ("qwen3", 1, 8, 128, 2048, 768, None),
         ("qwen3 shared", 2, 8, 128, 2048, 768, 16),
@@ -2252,6 +2337,7 @@ def moe_cases():
         ("mixtral", 4, 2, 8, 4096, 14336, None),
         ("odd", 3, 4, 6, 1001, 333, None),
         ("ragged tile", 5, 3, 7, 1000, 332, None),
+        ("ragged tile, 16-byte rows", 5, 3, 7, 1000, 328, None),
     ]
 
 
@@ -2301,17 +2387,17 @@ def phase_moe_times(torch, md):
         plain_ms = time_ms(torch, lambda: md.fused_moe_decode_plain(x, idx, w, wg, wu, wd), iters=10)
         dense_ms = time_ms(torch, lambda: expert_mlps_dense(experts, x, aff, spec), iters=20)
         b_ms, b_by = bound(*moe_decode(m, T, distinct))
+        parts = launch_breakdown(torch, lambda: md.fused_moe_decode(x, idx, w, wg, wu, wd), B7_LAUNCHES)
         rows[("moe_decode", label)] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-            dense_ms=dense_ms, distinct=distinct,
+            dense_ms=dense_ms, distinct=distinct, launches_us=parts,
         )
-        R = T * m["k"]
-        blocks = -(-m["I"] // 64) * R + -(-m["H"] // 128) * R + -(-m["H"] // 256) * T
         log(
             f"fused_moe_decode {label} (one layer, T={T}, top-{m['k']} of {m['E']}, {distinct} distinct experts, "
-            f"H {m['H']}, I {m['I']}, bf16, {blocks} blocks): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, dense "
-            f"all-experts route {dense_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), {b_ms / ms:.3f} of the bound, "
-            f"err vs plain {err:.3e}"
+            f"H {m['H']}, I {m['I']}, bf16, {md.moe_grid_text(T, m['k'], m['H'], m['I'], x.dtype, x.device)}): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, dense all-experts route {dense_ms:.4f} ms, bound {b_ms:.5f} ms "
+            f"({b_by}), {b_ms / ms:.3f} of the bound, err vs plain {err:.3e}; device us per launch: "
+            + ", ".join(f"{name} {us:.2f}" for name, us in parts.items())
         )
         del args, x, idx, w, wg, wu, wd, experts
         torch.cuda.empty_cache()
@@ -2549,11 +2635,12 @@ def phase_qwen3_moe(torch):
     torch.cuda.empty_cache()
 
     profile = phase_profile(torch, app, out.sequences[0], prompt_len)
-    b7 = sum(ms for name, ms in profile["kernel_ms_per_step"].items() if "moe_" in name)
-    busy = sum(profile["kernel_ms_per_step"].values())
+    b7 = profile["busy_ms_per_step"](lambda name: "moe_" in name)
+    busy = profile["device_busy_ms"]
     b7_bound = L * bound_ms(*moe_decode(MODEL_QWEN3_MOE, 1, 8))[0]
     log(
-        f"  B7 (its gate/up, down and combine kernels) {b7:.4f} ms/step against its {b7_bound:.4f} ms step bound "
+        f"  B7 (the union of its gate/up, down and combine kernels' intervals) {b7:.4f} ms/step against its "
+        f"{b7_bound:.4f} ms step bound "
         f"({b7_bound / b7:.3f} of it), {b7 / busy:.3f} of the device's busy time ({busy:.3f} ms/step); "
         f"{profile['kernels_per_step']:.0f} kernels per step; host clock {profile['decode_step_ms']:.3f} ms/step"
     )
@@ -2868,7 +2955,8 @@ def phase_fused_times(torch, db):
     return rows
 
 
-#: the grid launches of one B8 and one B9 call, in launch order
+#: the grid launches of one B7, one B8 and one B9 call, in launch order
+B7_LAUNCHES = ("gate/up", "down", "combine")
 B8_LAUNCHES = ("rmsnorm", "QKV", "attention", "combine", "o-proj", "residual")
 B9_LAUNCHES = ("rmsnorm", "gate/up", "down", "residual")
 
@@ -2882,15 +2970,18 @@ def launch_breakdown(torch, fn, labels, n=10):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            flush.zero_()
-            fn()
-        torch.cuda.synchronize()
-    ours = sorted(
-        (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "nxdi" in e.name),
-        key=lambda e: e.time_range.start,
-    )
+    for _ in range(2):  # a second trace if the first came back with no kernel at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        ours = sorted(
+            (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "nxdi" in e.name),
+            key=lambda e: e.time_range.start,
+        )
+        if ours:
+            break
     if len(ours) != n * len(labels):
         raise SystemExit(f"launch breakdown: {len(ours)} kernels for {n} calls of {labels}")
     by = {label: 0.0 for label in labels}

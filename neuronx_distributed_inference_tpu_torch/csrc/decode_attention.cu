@@ -51,19 +51,28 @@
 //     zeros, with or without a sink. One split finalizes in place.
 //   - The cache is read straight out of the full stacked cache (no bucket
 //     slice, no repeat_kv); no atomics, so results repeat bit for bit.
-// B4, paged (paged_decode_kernel): one block per (kv head, batch row), one
-//   tile per block-table entry j, TILE = block size. The kernel reads
-//   block_table[b, j] itself (the TPU kernel had it as scalar prefetch) and
-//   addresses the head-major (L, NB+1, Hkv, bs, D) cache: block blk of head
-//   g is the contiguous (bs, D) tile at ((layer * (NB+1) + blk) * Hkv + g)
-//   * bs * D, so its loads are unit stride. Block 0 is the garbage block,
-//   where invalid writes land and where the fault tests write NaN: its
-//   tiles (and any id outside [1, NB]) load as zeros, the reference's read
-//   scrub (block_kvcache.py::read_block_cache_at_layer). A masked
-//   probability is exactly 0, but 0 * NaN is NaN, so a tile that holds both
-//   a valid position and a block-0 value must never multiply one by the
-//   other: the zero load and the all-false tile skip together rule that
-//   out. B4's redesign (a split of its own) is a later step.
+// B4, paged (the same split_kernel + split_combine_kernel, PAGED = true):
+//   - The kernel reads block_table[b, s / bs] itself (the TPU kernel had it
+//     as scalar prefetch): a block stages its split's entries in shared
+//     memory while it reads the mask, so no tile load waits on a table
+//     read. Each 16-byte chunk of a staged 64-position tile is fetched from
+//     the head-major (L, NB+1, Hkv, bs, D) cache: position s of head g is
+//     ((layer * (NB+1) + blk) * Hkv + g) * bs * D + (s % bs) * D. A tile
+//     spans 2 blocks (bs 32) or 4 (bs 16), and a split of 16 positions may
+//     start a tile in the middle of a block.
+//   - Block 0 is the garbage block, where invalid writes land and where the
+//     fault tests write NaN: its chunks (and those of any id outside
+//     [1, NB]) are cp.async's zero fill, nothing read, the reference's read
+//     scrub (block_kvcache.py::read_block_cache_at_layer). A masked
+//     probability is exactly 0, but 0 * NaN is NaN, and a live tile may
+//     hold a block-0 chunk beside valid positions (a zero-table tail inside
+//     the tile, an inactive row's position 0), so a NaN must never reach
+//     shared memory: the zero fill rules that out.
+//   - The split is B1's rule over the table's MB * bs positions
+//     (decode_kv_split(MB * bs, B * Hkv, sms)): at the serving row's decode
+//     step (8 rows, width 1024, 8 kv heads) 16 splits of one 64-position
+//     tile, 1024 blocks, of which those past a row's length read only
+//     their mask bytes and write (NEG_INF, 0, 0).
 //
 // Layout: q (B, K, Hq, D) contiguous; caches contiguous (B1: (L, R, S_max,
 // Hkv, D), 16-byte aligned); block_table (B, MB) int32 contiguous (paged);
@@ -75,210 +84,10 @@
 namespace nxdi {
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
 constexpr int MAX_ROWS = 64;  // n_rep * K
 
-struct DecodeParams {
-  const void* q;
-  const void* k_cache;
-  const void* v_cache;
-  const unsigned char* mask;
-  const float* sink;
-  const int* block_table;
-  void* out;
-  int K, Hq, Hkv, S_kv, layer;
-  int NB1, MB;  // blocks (garbage block included), table width
-  long long mask_sb, mask_st;
-  float scale;
-};
-
-template <int D, int TILE>
-__host__ __device__ constexpr size_t smem_bytes(int rows) {
-  // Q rows and the K tile padded to D + 1 floats (conflict-free column
-  // reads), V tile, score / probability tile padded to TILE + 1, per-row
-  // (m, l, alpha), per-score mask bytes
-  return sizeof(float) * (size_t)(rows * (D + 1) + TILE * (D + 1) + TILE * D + rows * (TILE + 1) + 3 * rows) +
-         (size_t)rows * TILE;
-}
-
-template <typename T, int D, int TILE>
-__global__ void __launch_bounds__(THREADS) paged_decode_kernel(const DecodeParams p) {
-  constexpr int LD = D + 1;
-  constexpr int SLD = TILE + 1;
-  constexpr int NACC = MAX_ROWS * D / THREADS;  // (row, d) outputs per thread, at most
-  constexpr int PER_LANE = (TILE + 31) / 32;  // scores per lane in the softmax update
-  extern __shared__ float smem[];
-  const int n_rep = p.Hq / p.Hkv;
-  const int rows = n_rep * p.K;
-  float* Qs = smem;
-  float* Ks = Qs + rows * LD;
-  float* Vs = Ks + TILE * LD;
-  float* Ss = Vs + TILE * D;
-  float* m_s = Ss + rows * SLD;
-  float* l_s = m_s + rows;
-  float* alpha_s = l_s + rows;
-  unsigned char* ok_s = reinterpret_cast<unsigned char*>(alpha_s + rows);
-
-  const int tid = threadIdx.x;
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
-  const T* q = static_cast<const T*>(p.q);
-  const T* kc = static_cast<const T*>(p.k_cache);
-  const T* vc = static_cast<const T*>(p.v_cache);
-  const unsigned char* mrow = p.mask + (long long)b * p.mask_sb;
-
-  for (int idx = tid; idx < rows * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
-    const int hl = r / p.K, t = r % p.K;
-    const int h = g * n_rep + hl;
-    Qs[r * LD + d] = to_float(q[(((long long)b * p.K + t) * p.Hq + h) * D + d]);
-  }
-  for (int r = tid; r < rows; r += THREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-  }
-  float acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-  const int n_pairs = rows * D;
-
-  const int n_tiles = (p.S_kv + TILE - 1) / TILE;
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int s0 = jt * TILE;
-    int any = 0;
-    for (int idx = tid; idx < p.K * TILE; idx += THREADS) {
-      const int t = idx / TILE, s = s0 + idx % TILE;
-      if (s < p.S_kv && mrow[t * p.mask_st + s]) any = 1;
-    }
-    // also the barrier after the previous tile's readers of Ks / Vs / Ss
-    if (!__syncthreads_or(any)) continue;
-
-    // base address of the tile's first position for kv head g, and the
-    // stride between positions; a null base loads zeros
-    long long base = -1;
-    const long long pos_stride = D;
-    const int blk = p.block_table[(long long)b * p.MB + jt];
-    if (blk > 0 && blk < p.NB1) base = (((long long)p.layer * p.NB1 + blk) * p.Hkv + g) * TILE * D;
-    for (int idx = tid; idx < TILE * D; idx += THREADS) {
-      const int c = idx / D, d = idx % D;
-      float kv = 0.f, vv = 0.f;
-      if (base >= 0 && s0 + c < p.S_kv) {
-        kv = to_float(kc[base + c * pos_stride + d]);
-        vv = to_float(vc[base + c * pos_stride + d]);
-      }
-      Ks[c * LD + d] = kv;
-      Vs[c * D + d] = vv;
-    }
-    __syncthreads();
-
-    for (int idx = tid; idx < rows * TILE; idx += THREADS) {
-      const int r = idx / TILE, c = idx % TILE;
-      const int t = r % p.K, s = s0 + c;
-      const bool ok = s < p.S_kv && mrow[t * p.mask_st + s];
-      float dot = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) dot = fmaf(Qs[r * LD + d], Ks[c * LD + d], dot);
-      Ss[r * SLD + c] = ok ? dot * p.scale : NEG_INF;
-      ok_s[r * TILE + c] = ok ? 1 : 0;
-    }
-    __syncthreads();
-
-    // online-softmax update, one warp per row
-    const int warp = tid / 32, lane = tid % 32;
-    for (int r = warp; r < rows; r += WARPS) {
-      float sv[PER_LANE];
-      bool okv[PER_LANE];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int i = 0; i < PER_LANE; ++i) {
-        const int c = lane + 32 * i;
-        sv[i] = c < TILE ? Ss[r * SLD + c] : NEG_INF;
-        okv[i] = c < TILE && ok_s[r * TILE + c];
-        mx = fmaxf(mx, sv[i]);
-      }
-      mx = group_max<32>(mx);
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < PER_LANE; ++i) {
-        const int c = lane + 32 * i;
-        const float pr = okv[i] ? expf(sv[i] - m_new) : 0.f;
-        if (c < TILE) Ss[r * SLD + c] = pr;
-        sum += pr;
-      }
-      sum = group_sum<32>(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[r] = alpha;
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-      const int idx = tid + THREADS * i;
-      if (idx < n_pairs) {
-        const int r = idx / D, d = idx % D;
-        float a = acc[i] * alpha_s[r];
-#pragma unroll 8
-        for (int c = 0; c < TILE; ++c) a = fmaf(Ss[r * SLD + c], Vs[c * D + d], a);
-        acc[i] = a;
-      }
-    }
-  }
-  __syncthreads();
-
-  T* out = static_cast<T*>(p.out);
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) {
-    const int idx = tid + THREADS * i;
-    if (idx >= n_pairs) continue;
-    const int r = idx / D, d = idx % D;
-    const int hl = r / p.K, t = r % p.K;
-    const int h = g * n_rep + hl;
-    float o;
-    if (p.sink != nullptr) {
-      // reference _finalize: renormalize to m2 = max(m, sink) so rows that
-      // saw no valid key stay finite
-      const float sk = p.sink[h];
-      const float m2 = fmaxf(m_s[r], sk);
-      const float alpha = expf(m_s[r] - m2);
-      const float denom = l_s[r] * alpha + expf(sk - m2);
-      o = acc[i] * alpha / denom;
-    } else {
-      o = acc[i] / fmaxf(l_s[r], 1e-30f);
-    }
-    out[(((long long)b * p.K + t) * p.Hq + h) * D + d] = from_float<T>(o);
-  }
-}
-
-template <typename T, int D, int TILE>
-cudaError_t paged_launch(const DecodeParams& p, int B, cudaStream_t stream) {
-  const int rows = (p.Hq / p.Hkv) * p.K;
-  cudaError_t err = cudaFuncSetAttribute(paged_decode_kernel<T, D, TILE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem_bytes<D, TILE>(MAX_ROWS));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(p.Hkv, B);
-  paged_decode_kernel<T, D, TILE><<<grid, THREADS, smem_bytes<D, TILE>(rows), stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <int TILE>
-cudaError_t paged_dispatch(const DecodeParams& p, int B, int D, int dtype, cudaStream_t st) {
-  if (dtype == kFloat32 && D == 64) return paged_launch<float, 64, TILE>(p, B, st);
-  if (dtype == kFloat32 && D == 128) return paged_launch<float, 128, TILE>(p, B, st);
-  if (dtype == kBFloat16 && D == 64) return paged_launch<__nv_bfloat16, 64, TILE>(p, B, st);
-  if (dtype == kBFloat16 && D == 128) return paged_launch<__nv_bfloat16, 128, TILE>(p, B, st);
-  return cudaErrorInvalidValue;
-}
-
 // ---------------------------------------------------------------------------
-// B1: the contiguous cache, kv axis split over blocks
+// B1 and B4: the kv axis split over blocks
 // ---------------------------------------------------------------------------
 
 constexpr int SP_THREADS = 128;
@@ -296,7 +105,10 @@ struct SplitParams {
   float* m_part;    // (splits, B K, Hq)
   float* l_part;
   float* acc_part;  // (splits, B K, Hq, D)
-  int B, K, Hq, Hkv, R, S_max, S_kv, layer, splits, per;
+  const int* block_table;  // B4: (B, MB)
+  int B, K, Hq, Hkv, S_kv, layer, splits, per;
+  int R, S_max;        // B1: cache lines, positions per line
+  int NB1, MB, bs_lg;  // B4: blocks (garbage block included), table width, log2 block size
   long long mask_sb, mask_st;
   float scale;
 };
@@ -306,11 +118,12 @@ struct SplitTile {
   static constexpr int LD = D + 16 / (int)sizeof(T);  // staged row: 16 bytes of padding
   static constexpr int KV = SP_TILE * LD;             // one K or V tile
   // q rows, two stages of (K, V), a probability row per (warp, row), the
-  // live-tile bits per (32 tiles, warp)
-  static size_t smem(int rows, int rw, int per) {
-    const int groups = ((per + SP_TILE - 1) / SP_TILE + 31) / 32;
+  // live-tile bits per (32 tiles, warp), B4's table entries of the split
+  static __host__ __device__ int groups(int per) { return ((per + SP_TILE - 1) / SP_TILE + 31) / 32; }
+  static int table_entries(int per) { return per / 16 + 2; }  // blocks of >= 16 positions
+  static size_t smem(int rows, int rw, int per, bool paged) {
     return sizeof(T) * ((size_t)rows * D + 4 * KV) + sizeof(float) * SP_WARPS * rw * SP_TILE +
-           sizeof(unsigned) * SP_WARPS * groups;
+           sizeof(unsigned) * SP_WARPS * groups(per) + (paged ? sizeof(int) * table_entries(per) : 0);
   }
 };
 
@@ -328,8 +141,9 @@ __device__ __forceinline__ float finalize(float acc, float m, float l, const flo
   return acc / fmaxf(l, 1e-30f);
 }
 
-// RW: the most query rows one warp owns (rows w, w + 4, ... of the group)
-template <typename T, int D, int RW>
+// RW: the most query rows one warp owns (rows w, w + 4, ... of the group);
+// PAGED: B4's address mode (the block table), else B1's (the cache line)
+template <typename T, int D, int RW, bool PAGED>
 __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) {
   using Tile = SplitTile<T, D>;
   constexpr int LD = Tile::LD;
@@ -345,6 +159,7 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
   float* Pw = reinterpret_cast<float*>(KVs + 4 * Tile::KV) + (threadIdx.x / 32) * RW * SP_TILE;
   unsigned* bits_s = reinterpret_cast<unsigned*>(reinterpret_cast<float*>(KVs + 4 * Tile::KV) +
                                                  SP_WARPS * RW * SP_TILE);
+  int* table_s = reinterpret_cast<int*>(bits_s + SP_WARPS * Tile::groups(p.per));
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
@@ -360,6 +175,17 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
     cp_async16(Qs + r * D + e, q + (((long long)b * K + t) * p.Hq + g * n_rep + hl) * D + e, true);
   }
   cp_async_commit();
+
+  // B4: the split's table entries, block ids outside [1, NB] as 0 (zero
+  // fill), read beside the mask
+  const int blk0 = lo >> p.bs_lg;
+  if (PAGED) {
+    const int* row = p.block_table + (long long)b * p.MB;
+    for (int i = tid; i <= ((hi - 1) >> p.bs_lg) - blk0; i += SP_THREADS) {
+      const int blk = row[blk0 + i];
+      table_s[i] = blk > 0 && blk < p.NB1 ? blk : 0;
+    }
+  }
 
   // which of the split's tiles hold an allowed position: one pass over its
   // mask bytes, 32 tiles a word, a word per warp
@@ -385,17 +211,28 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
 
   const T* kc = static_cast<const T*>(p.k_cache);
   const T* vc = static_cast<const T*>(p.v_cache);
-  const long long line = ((long long)p.layer * p.R + b) * p.S_max;
+  const long long line = PAGED ? 0 : ((long long)p.layer * p.R + b) * p.S_max;
   const long long pos_stride = (long long)p.Hkv * D;
+  const int bs_mask = (1 << p.bs_lg) - 1;
   auto load_tile = [&](int j, int stage) {
     const int s0 = lo + j * SP_TILE, n = min(SP_TILE, hi - s0);
     T* Ks = KVs + 2 * stage * Tile::KV;
     T* Vs = Ks + Tile::KV;
     for (int i = tid; i < n * VPR; i += SP_THREADS) {
       const int c = i / VPR, e = (i % VPR) * EV;
-      const long long off = (line + s0 + c) * pos_stride + (long long)g * D + e;
-      cp_async16(Ks + c * LD + e, kc + off, true);
-      cp_async16(Vs + c * LD + e, vc + off, true);
+      long long off;
+      bool full = true;
+      if (PAGED) {
+        // position s of head g in block blk; block 0 reads nothing
+        const int s = s0 + c;
+        const int blk = table_s[(s >> p.bs_lg) - blk0];
+        full = blk != 0;
+        off = full ? ((((long long)p.layer * p.NB1 + blk) * p.Hkv + g) << p.bs_lg) * D + (s & bs_mask) * D + e : 0;
+      } else {
+        off = (line + s0 + c) * pos_stride + (long long)g * D + e;
+      }
+      cp_async16(Ks + c * LD + e, kc + off, full);
+      cp_async16(Vs + c * LD + e, vc + off, full);
     }
     cp_async_commit();
   };
@@ -544,25 +381,39 @@ __global__ void split_combine_kernel(const SplitParams p) {
   for (int k = 0; k < DPL; ++k) out[k] = from_float<T>(finalize(num[k], mx, den, p.sink, h));
 }
 
-template <typename T, int D, int RW>
+template <typename T, int D, int RW, bool PAGED>
 cudaError_t split_launch(const SplitParams& p, cudaStream_t st) {
   const int rows = (p.Hq / p.Hkv) * p.K;
-  const size_t smem = SplitTile<T, D>::smem(rows, RW, p.per);
-  cudaError_t err = cudaFuncSetAttribute(split_kernel<T, D, RW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  split_kernel<T, D, RW><<<dim3(p.Hkv, p.B, p.splits), SP_THREADS, smem, st>>>(p);
-  err = cudaGetLastError();
+  const size_t smem = SplitTile<T, D>::smem(rows, RW, p.per, PAGED);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(split_kernel<T, D, RW, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  split_kernel<T, D, RW, PAGED><<<dim3(p.Hkv, p.B, p.splits), SP_THREADS, smem, st>>>(p);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
   constexpr int PAIRS = 2;  // (row, q head) pairs per combine block, a warp each
   split_combine_kernel<T, D><<<(unsigned)((p.B * p.K * p.Hq + PAIRS - 1) / PAIRS), PAIRS * 32, 0, st>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAGED>
 cudaError_t split_dispatch(const SplitParams& p, cudaStream_t st) {
   const int per_warp = ((p.Hq / p.Hkv) * p.K + SP_WARPS - 1) / SP_WARPS;
-  return per_warp <= 2 ? split_launch<T, D, 2>(p, st) : split_launch<T, D, MAX_ROWS / SP_WARPS>(p, st);
+  return per_warp <= 2 ? split_launch<T, D, 2, PAGED>(p, st) : split_launch<T, D, MAX_ROWS / SP_WARPS, PAGED>(p, st);
+}
+
+template <bool PAGED>
+cudaError_t split_entry(const SplitParams& p, int D, int dtype, cudaStream_t st) {
+  if (p.splits < 1 || p.splits > MAX_SPLITS || p.per <= 0 || p.per % 16 || (long long)(p.splits - 1) * p.per >= p.S_kv ||
+      (long long)p.splits * p.per < p.S_kv || (p.splits > 1 && (!p.m_part || !p.l_part || !p.acc_part)))
+    return cudaErrorInvalidValue;
+  if (dtype == kFloat32 && D == 64) return split_dispatch<float, 64, PAGED>(p, st);
+  if (dtype == kFloat32 && D == 128) return split_dispatch<float, 128, PAGED>(p, st);
+  if (dtype == kBFloat16 && D == 64) return split_dispatch<__nv_bfloat16, 64, PAGED>(p, st);
+  if (dtype == kBFloat16 && D == 128) return split_dispatch<__nv_bfloat16, 128, PAGED>(p, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -581,33 +432,25 @@ extern "C" int nxdi_tkg_decode_attention(
   if (B <= 0 || K <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * K > MAX_ROWS ||
       S_kv <= 0 || S_kv > S_max || B > R || layer < 0 || layer >= L)
     return (int)cudaErrorInvalidValue;
-  if (splits < 1 || splits > MAX_SPLITS || per <= 0 || (long long)(splits - 1) * per >= S_kv ||
-      (long long)splits * per < S_kv || (splits > 1 && (!m_part || !l_part || !acc_part)))
-    return (int)cudaErrorInvalidValue;
   SplitParams p{q, k_cache, v_cache, static_cast<const unsigned char*>(mask), sink, out, m_part, l_part, acc_part,
-                B, K, Hq, Hkv, R, S_max, S_kv, layer, splits, per, mask_sb, mask_st, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32 && D == 64) return (int)split_dispatch<float, 64>(p, st);
-  if (dtype == kFloat32 && D == 128) return (int)split_dispatch<float, 128>(p, st);
-  if (dtype == kBFloat16 && D == 64) return (int)split_dispatch<__nv_bfloat16, 64>(p, st);
-  if (dtype == kBFloat16 && D == 128) return (int)split_dispatch<__nv_bfloat16, 128>(p, st);
-  return (int)cudaErrorInvalidValue;
+                nullptr, B, K, Hq, Hkv, S_kv, layer, splits, per, R, S_max, 0, 0, 0, mask_sb, mask_st, scale};
+  return (int)split_entry<false>(p, D, dtype, static_cast<cudaStream_t>(stream));
 }
 
+// B4: the same split over the table's MB * bs positions, bs 16 or 32; the
+// cache (L, NB1, Hkv, bs, D) head-major.
 extern "C" int nxdi_paged_decode_attention(
     const void* q, const void* k_cache, const void* v_cache, const void* mask,
-    const float* sink, const int* block_table, void* out,
+    const float* sink, const int* block_table, void* out, float* m_part, float* l_part, float* acc_part,
     int B, int K, int Hq, int Hkv, int D, int L, int NB1, int bs, int MB, int layer,
-    int mask_sb, int mask_st,
+    int mask_sb, int mask_st, int splits, int per,
     float scale, int dtype, void* stream) {
   using namespace nxdi;
   if (B <= 0 || K <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * K > MAX_ROWS ||
-      MB <= 0 || NB1 <= 0 || layer < 0 || layer >= L)
+      MB <= 0 || NB1 <= 0 || layer < 0 || layer >= L || (bs != 16 && bs != 32))
     return (int)cudaErrorInvalidValue;
-  DecodeParams p{q, k_cache, v_cache, static_cast<const unsigned char*>(mask), sink, block_table, out,
-                 K, Hq, Hkv, MB * bs, layer, NB1, MB, mask_sb, mask_st, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bs == 16) return (int)paged_dispatch<16>(p, B, D, dtype, st);
-  if (bs == 32) return (int)paged_dispatch<32>(p, B, D, dtype, st);
-  return (int)cudaErrorInvalidValue;
+  SplitParams p{q, k_cache, v_cache, static_cast<const unsigned char*>(mask), sink, out, m_part, l_part, acc_part,
+                block_table, B, K, Hq, Hkv, MB * bs, layer, splits, per, 0, 0, NB1, MB, bs == 16 ? 4 : 5,
+                mask_sb, mask_st, scale};
+  return (int)split_entry<true>(p, D, dtype, static_cast<cudaStream_t>(stream));
 }

@@ -183,6 +183,26 @@ def sm_count(device) -> int:
     return _sm_count(index)
 
 
+#: (device index, stream) -> one fp32 scratch buffer, grown to the largest
+#: call: the split partials of B1, B4 and B6 and B7's partial sums. One
+#: stream runs its launches in order, so a call may reuse what the previous
+#: call on that stream left there.
+_SCRATCH: Dict[tuple, object] = {}
+
+
+def scratch(numel: int, device, stream: int):
+    """At least ``numel`` fp32 values of scratch on CUDA ``device`` for
+    ``stream`` (:func:`stream_ptr`; contents undefined), allocated once and
+    grown as needed, never per call."""
+    import torch
+
+    key = (device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _SCRATCH[key] = torch.empty(numel, dtype=torch.float32, device=device)
+    return buf
+
+
 def stream_ptr(device) -> int:
     """The current CUDA stream of ``device`` as a pointer-sized int."""
     import torch

@@ -16,9 +16,15 @@ denominator once (the reference's ``_finalize``). :func:`decode_kv_split`
 picks the split from the shapes and the card's SM count alone, so a call
 reads nothing of the device back to the host.
 
-B4 reads the head-major paged cache ``(L, NB+1, Hkv, bs, D)`` at
-``layer_idx`` through the ``(B, MB)`` block table, one kv tile per block,
-and reads the garbage block 0 as zeros (the reference's read scrub).
+B4 is the same kernel in its paged address mode: it reads the head-major
+paged cache ``(L, NB+1, Hkv, bs, D)`` at ``layer_idx`` through the
+``(B, MB)`` block table (each 16-byte chunk of a staged tile through its
+block's entry), splits the table's ``MB * bs`` positions by the same rule,
+and reads the garbage block 0 (and any id outside ``[1, NB]``) as zeros
+without loading it (the reference's read scrub).
+
+Both take the split's fp32 partials from one scratch buffer per device and
+stream (``_cuda.scratch``), so a call allocates only its output.
 
 :func:`tkg_decode_attention` and :func:`paged_tkg_decode_attention` launch
 the kernel for CUDA tensors and run their plain versions only for tensors
@@ -29,6 +35,7 @@ yet (ROADMAP A6).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -39,21 +46,22 @@ from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import launches_ker
 KERNEL = "decode_attention"
 PAGED_KERNEL = "paged_decode_attention"
 HEAD_DIMS = (64, 128)
-BLOCK_SIZES = (16, 32)  # paged-mode kv tiles: one block each
+BLOCK_SIZES = (16, 32)  # B4: cache block sizes
 MAX_ROWS = 64  # n_rep * K query rows one block holds
 MAX_Q_LEN = 16
-MAX_KV_SPLITS = 32  # B1: kv splits per (batch row, kv head)
-SPLIT_ALIGN = 16  # B1: positions per split are a multiple of this
-KV_TILE = 64  # B1: positions per staged tile
+MAX_KV_SPLITS = 32  # kv splits per (batch row, kv head)
+SPLIT_ALIGN = 16  # positions per split are a multiple of this
+KV_TILE = 64  # positions per staged tile
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def decode_kv_split(S_kv: int, blocks: int, sms: int):
-    """(splits, positions per split) of B1's kv axis for ``blocks`` (batch
-    row, kv head) pairs over a mask ``S_kv`` wide on a card of ``sms`` SMs:
-    enough splits for at least one block per SM, each a multiple of
-    SPLIT_ALIGN positions and at most one KV_TILE where that leaves at most
-    MAX_KV_SPLITS; one split once the pairs alone fill the card. Split z
+    """(splits, positions per split) of B1's and B4's kv axis for
+    ``blocks`` (batch row, kv head) pairs over a mask ``S_kv`` wide on a
+    card of ``sms`` SMs: enough splits for at least one block per SM, each
+    a multiple of SPLIT_ALIGN positions and at most one KV_TILE where that
+    leaves at most MAX_KV_SPLITS; one split once the pairs alone fill the
+    card. Split z
     covers positions [z * per, (z + 1) * per) of [0, S_kv). A function of
     the shapes only, so the summation order (and the result) repeats from
     call to call."""
@@ -134,15 +142,36 @@ def _check(q, k_cache, v_cache, layer_idx, mask, sink, n_kv):
 
 def _launch_inputs(name, q, k_cache, v_cache, mask, sink):
     """What both kernels need of their inputs beyond the shapes (contiguous
-    q and caches, a unit position stride in the mask), and the fp32 sink and
-    the output they are handed."""
+    q and caches at 16-byte aligned bases, a unit position stride in the
+    mask), and the fp32 sink and the output they are handed."""
     for arg, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not x.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} needs a 16-byte aligned base")
     if mask.stride(3) != 1:
         raise ValueError(f"{name}: mask needs a unit position stride, got {mask.stride()}")
     sink_f = sink.float().contiguous() if sink is not None else None
     return sink_f, torch.empty_like(q)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_plan(S_kv: int, blocks: int, device: int):
+    """decode_kv_split of a launch, once per shape and device."""
+    return decode_kv_split(S_kv, blocks, _cuda.sm_count(torch.device("cuda", device)))
+
+
+def _split_parts(q, S_kv, Hkv, stream):
+    """The kv split of a call and the three fp32 partial arrays the kernel
+    combines, (m, l, acc) per split and (row, q head), as pointers into the
+    stream's scratch; None for one split."""
+    B, K, Hq, D = q.shape
+    splits, per = _split_plan(S_kv, B * Hkv, q.device.index)
+    if splits == 1:
+        return splits, per, [None] * 3
+    n = splits * B * K * Hq
+    base = _cuda.scratch(n * (D + 2), q.device, stream).data_ptr()
+    return splits, per, [base, base + 4 * n, base + 8 * n]
 
 
 def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv):
@@ -150,16 +179,8 @@ def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv):
     L, R, S_max, Hkv, _ = k_cache.shape
     S_kv = mask.shape[-1]
     sink_f, out = _launch_inputs("tkg_decode_attention", q, k_cache, v_cache, mask, sink)
-    for arg, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"tkg_decode_attention: {arg} needs a 16-byte aligned base")
-    splits, per = decode_kv_split(S_kv, B * Hkv, _cuda.sm_count(q.device))
-    parts = [None] * 3
-    if splits > 1:
-        # each split's (m, l, acc) per (row, q head), combined in the kernel
-        n = splits * B * K * Hq
-        scratch = torch.empty(n * (D + 2), dtype=torch.float32, device=q.device)
-        parts = [scratch[:n].data_ptr(), scratch[n:2 * n].data_ptr(), scratch[2 * n:].data_ptr()]
+    stream = _cuda.stream_ptr(q.device)
+    splits, per, parts = _split_parts(q, S_kv, Hkv, stream)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _cuda.function(
         KERNEL, "nxdi_tkg_decode_attention",
@@ -173,7 +194,7 @@ def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv):
         B, K, Hq, Hkv, D, L, R, S_max, S_kv, int(layer_idx),
         mask.stride(0), mask.stride(2), splits, per,
         float(scale), _DTYPE_CODES[q.dtype],
-        _cuda.stream_ptr(q.device),
+        stream,
     )
     _cuda.check(err, KERNEL)
     _cuda.LAUNCHES[KERNEL] += 1
@@ -259,18 +280,21 @@ def _launch_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, scale
         raise ValueError(f"paged_tkg_decode_attention: block size {bs} not in {BLOCK_SIZES}")
     sink_f, out = _launch_inputs("paged_tkg_decode_attention", q, k_cache, v_cache, mask, sink)
     table = block_table.to(torch.int32).contiguous()
+    MB = table.shape[1]
+    stream = _cuda.stream_ptr(q.device)
+    splits, per, parts = _split_parts(q, MB * bs, Hkv, stream)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _cuda.function(
         KERNEL, "nxdi_paged_decode_attention",
-        [P] * 7 + [I] * 12 + [ctypes.c_float, I, P],
+        [P] * 10 + [I] * 14 + [ctypes.c_float, I, P],
     )
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), mask.data_ptr(),
-        sink_f.data_ptr() if sink_f is not None else None, table.data_ptr(), out.data_ptr(),
-        B, K, Hq, Hkv, D, L, NB1, bs, table.shape[1], int(layer_idx),
-        mask.stride(0), mask.stride(2),
+        sink_f.data_ptr() if sink_f is not None else None, table.data_ptr(), out.data_ptr(), *parts,
+        B, K, Hq, Hkv, D, L, NB1, bs, MB, int(layer_idx),
+        mask.stride(0), mask.stride(2), splits, per,
         float(scale), _DTYPE_CODES[q.dtype],
-        _cuda.stream_ptr(q.device),
+        stream,
     )
     _cuda.check(err, PAGED_KERNEL)
     _cuda.LAUNCHES[PAGED_KERNEL] += 1

@@ -13,11 +13,19 @@ row, the selected expert's GLU MLP with every dot in fp32, the activation
 rounded to the weight dtype before the down product, each selection's
 output rounded to ``x``'s dtype, and the combine with the routing weights in
 fp32, rounded once to ``x``'s dtype.
+
+The kernel sums the gate/up dots over H in :func:`moe_h_split`'s splits,
+each split's fp32 partial sums to scratch, and the down launch adds the
+splits in split order before the GLU (a function of the shapes and the SM
+count alone, so the result repeats from call to call). Its scratch (the
+partial sums and the selections' outputs) is one buffer per device and
+stream (``_cuda.scratch``): a call allocates only its output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -27,6 +35,22 @@ from neuronx_distributed_inference_tpu_torch.ops import _cuda
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import MOE_TKG_MAX_ROWS, launches_kernel
 
 KERNEL = "moe_decode"
+MOE_COLS = 64  # columns per block of the gate/up and down launches
+MOE_SPLIT_ROWS = 32  # rows of H per gate/up tile: a split holds whole tiles
+MOE_MAX_SPLITS = 16
+#: gate/up blocks an SM that moe_h_split aims at
+MOE_BLOCKS_PER_SM = 2
+MOE_THREADS = 256
+#: weight tiles a block of either launch may keep in shared memory
+MOE_STAGES = (2, 3, 4, 6, 8)
+#: weight bytes in flight on each SM that moe_stages aims at, per launch:
+#: on one H100 the gate/up launch ran fastest at 50-65 KB and the down
+#: launch, whose blocks stream 4 to 28 times fewer tiles, at 55-110 KB
+#: (stage counts 2 to 8 at the three timed points,
+#: scripts/torch_attention_variants.py b7)
+MOE_GATE_INFLIGHT_BYTES = 56 << 10
+MOE_DOWN_INFLIGHT_BYTES = 96 << 10
+SM_SMEM_BYTES = 228 << 10  # shared memory of one SM, 1 KB of it reserved per block
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -91,6 +115,70 @@ def fused_moe_decode_plain(
     return torch.einsum("tk,tkh->th", topk_w.float(), y.float()).to(x.dtype)
 
 
+def moe_h_split(H: int, I: int, rows: int, sms: int):
+    """(splits, rows of H per split) of B7's gate/up launch for ``rows``
+    (token, selection) rows on a card of ``sms`` SMs: enough splits that
+    the (column tile, split, row) blocks reach MOE_BLOCKS_PER_SM an SM, each
+    a multiple of MOE_SPLIT_ROWS rows, at most MOE_MAX_SPLITS; one split
+    once the column tiles and rows alone reach it. Split z sums rows
+    [z * per, (z + 1) * per) of H; the down launch adds the splits in
+    order."""
+    blocks = -(-I // MOE_COLS) * rows
+    want = max(1, min(-(-MOE_BLOCKS_PER_SM * sms // blocks), MOE_MAX_SPLITS, -(-H // MOE_SPLIT_ROWS)))
+    per = -(-H // want)
+    per = -(-per // MOE_SPLIT_ROWS) * MOE_SPLIT_ROWS
+    return -(-H // per), per
+
+
+def moe_stages(blocks: int, sms: int, stage_bytes: int, fixed_bytes: int, target: int) -> int:
+    """Weight tiles in shared memory per block for a launch of ``blocks``
+    blocks, each holding ``stage_bytes`` a stage beside ``fixed_bytes``:
+    the count of MOE_STAGES whose blocks keep closest to ``target`` bytes
+    in flight on each SM (all stages but the one in use), with the blocks
+    an SM holds at once limited by its threads and shared memory. Fewer
+    stages where many blocks share an SM, more where one block has an SM
+    to itself."""
+    best = None
+    for n in MOE_STAGES:
+        smem = n * stage_bytes + fixed_bytes
+        if smem > SM_SMEM_BYTES - 1024:
+            break
+        resident = min(2048 // MOE_THREADS, SM_SMEM_BYTES // (smem + 1024))
+        miss = abs(min(blocks / sms, resident) * (n - 1) * stage_bytes - target)
+        if best is None or miss < best[0]:
+            best = (miss, n)
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(rows: int, H: int, I: int, elt: int, device: int):
+    """(splits, rows of H per split, gate/up stages, down stages) of a
+    launch, once per shape and device."""
+    sms = _cuda.sm_count(torch.device("cuda", device))
+    splits, per = moe_h_split(H, I, rows, sms)
+    warps = MOE_THREADS // 32
+    # the kernel's shared memory (csrc/moe_decode.cu, gate_up() and down()):
+    # a gate/up stage holds 32 rows of Wg and Wu and 16 bytes of x a warp, a
+    # down stage 64 rows of Wd; beside them the warps' sums and (down) each
+    # warp's activations, its I / 8 rows rounded up to 8
+    gate = moe_stages(-(-I // MOE_COLS) * splits * rows, sms, elt * 2 * MOE_SPLIT_ROWS * MOE_COLS + 16 * warps,
+                      4 * 2 * warps * MOE_COLS, MOE_GATE_INFLIGHT_BYTES)
+    cw = -(-I // warps)
+    cwp = -(-cw // 8) * 8
+    down = moe_stages(-(-H // MOE_COLS) * rows, sms, elt * 64 * MOE_COLS, 4 * (warps * MOE_COLS + warps * cwp),
+                      MOE_DOWN_INFLIGHT_BYTES)
+    return splits, per, gate, down
+
+
+def moe_grid_text(T: int, k: int, H: int, I: int, dtype: torch.dtype, device: torch.device) -> str:
+    """B7's three grids and stage counts at one shape, for logs."""
+    R = T * k
+    splits, per, gs, ds = _plan(R, H, I, dtype.itemsize, device.index)
+    ci, ch, cc = -(-I // MOE_COLS), -(-H // MOE_COLS), -(-H // 256)
+    return (f"gate/up ({ci}, {splits}, {R}) = {ci * splits * R} blocks ({splits} splits of {per} rows of H, "
+            f"{gs} stages), down ({ch}, {R}) = {ch * R} ({ds} stages), combine ({cc}, {T}) = {cc * T}")
+
+
 def _check(x, topk_idx, topk_w, w_gate, w_up, w_down) -> None:
     """What B7 takes: x (T, H), topk_idx / topk_w (T, k), T * k <= 64,
     w_gate / w_up (E, H, I), w_down (E, I, H), every float in one dtype,
@@ -133,19 +221,26 @@ def _launch(x, topk_idx, topk_w, w_gate, w_up, w_down, act, act_scale, act_bias,
     x = x.contiguous()
     idx = topk_idx.to(torch.int32).contiguous()
     w = topk_w.to(torch.float32).contiguous()
-    # scratch: the activations and the per-selection outputs
-    act_buf = torch.empty((T * k, I), dtype=x.dtype, device=x.device)
-    ysel = torch.empty((T * k, H), dtype=x.dtype, device=x.device)
     out = torch.empty((T, H), dtype=x.dtype, device=x.device)
-    # wide loads need rows of a multiple of 4 elements and 16-byte aligned bases
-    vec = int(I % 4 == 0 and H % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (w_gate, w_up, w_down)))
+    R = T * k
+    splits, per, gate_stages, down_stages = _plan(R, H, I, x.element_size(), x.device.index)
+    # scratch: the gate/up partial sums (splits, R, 2, I) in fp32, then the
+    # selections' outputs (R, H) in x's dtype, each at a 16-byte boundary
+    n_part = -(-splits * R * 2 * I // 4) * 4
+    n_ysel = -(-R * H * x.element_size() // 16) * 4
+    stream = _cuda.stream_ptr(x.device)
+    part = _cuda.scratch(n_part + n_ysel, x.device, stream).data_ptr()
+    # 16-byte copies need rows of a multiple of 16 bytes and aligned bases
+    row_ok = (I * x.element_size()) % 16 == 0 and (H * x.element_size()) % 16 == 0
+    vec = int(row_ok and all(t.data_ptr() % 16 == 0 for t in (x, w_gate, w_up, w_down)))
     P, Ci, Cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _cuda.function(KERNEL, "nxdi_moe_decode", [P] * 9 + [Ci] * 7 + [Cf] * 3 + [Ci, Ci, P])
+    fn = _cuda.function(KERNEL, "nxdi_moe_decode", [P] * 9 + [Ci] * 11 + [Cf] * 3 + [Ci, Ci, P])
     err = fn(
         x.data_ptr(), idx.data_ptr(), w.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        act_buf.data_ptr(), ysel.data_ptr(), out.data_ptr(), T, k, E, H, I, _DTYPE_CODES[x.dtype], code,
+        part, part + 4 * n_part, out.data_ptr(), T, k, E, H, I, splits, per, gate_stages, down_stages,
+        _DTYPE_CODES[x.dtype], code,
         float(act_scale), float(act_bias), float(swiglu_limit or 0.0), int(swiglu_limit is not None), vec,
-        _cuda.stream_ptr(x.device),
+        stream,
     )
     _cuda.check(err, KERNEL)
     _cuda.LAUNCHES[KERNEL] += 1

@@ -218,19 +218,6 @@ def _plan(rows: int, K2: int, N: int, dtype: torch.dtype, device: int):
     return qmm_row_tile(rows, dtype), splits, per
 
 
-#: (device, stream) -> the fp32 scratch of split partials, grown to the
-#: largest call; reuse is safe because one stream runs its launches in order
-_SCRATCH = {}
-
-
-def _scratch(numel: int, device: torch.device, stream: int) -> torch.Tensor:
-    key = (device.index, stream)
-    buf = _SCRATCH.get(key)
-    if buf is None or buf.numel() < numel:
-        buf = _SCRATCH[key] = torch.empty(numel, dtype=torch.float32, device=device)
-    return buf
-
-
 def _launch(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     k = x.shape[-1]
     lead = x.shape[:-1]
@@ -246,7 +233,7 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch
     out = torch.empty((*lead, n), dtype=x.dtype, device=x.device)
     row_tile, splits, per = _plan(rows, k2, n, x.dtype, x.device.index)
     stream = _cuda.stream_ptr(x.device)
-    partial = _scratch(splits * rows * n, x.device, stream).data_ptr() if splits > 1 else None
+    partial = _cuda.scratch(splits * rows * n, x.device, stream).data_ptr() if splits > 1 else None
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _cuda.function(KERNEL, "nxdi_quant_matmul", [P] * 5 + [I] * 8 + [P])
     err = fn(

@@ -1,11 +1,13 @@
 """Time design alternatives of the PyTorch/CUDA port's attention kernels B1
-(decode, ``csrc/decode_attention.cu``) and B2 (prefill flash,
-``csrc/flash_attention.cu``), and of the int4 matmul B6
-(``csrc/quant_matmul.cu``), on one H100, beside the kernels as built.
+and B4 (decode over the contiguous and the paged cache,
+``csrc/decode_attention.cu``) and B2 (prefill flash,
+``csrc/flash_attention.cu``), of the int4 matmul B6
+(``csrc/quant_matmul.cu``) and of the MoE decode B7
+(``csrc/moe_decode.cu``), on one H100, beside the kernels as built.
 
-    python3 scripts/torch_attention_variants.py [b2] [b1] [b6] [b6host]
+    python3 scripts/torch_attention_variants.py [b2] [b1] [b4] [b6] [b7] [b6host] [host] [tok]
 
-(no argument: b2, b1 and b6)
+(no argument: b2, b1, b4, b6 and b7)
 
 Each alternative is the kernel's own source with one decision changed,
 compiled with the port's nvcc flags (``ops/_cuda.py``) into
@@ -39,6 +41,33 @@ B6, bf16, at the 8B row's o, down and gate projections at 1 row and the
              (__launch_bounds__), with 2 (3) stages, so that many fit;
   and the built kernel under other split rules: no split, and the rule
   aiming at 1, 4 or 8 blocks an SM instead of QMM_BLOCKS_PER_SM.
+B4, bf16, at the serving row's decode step (8 rows, 8 kv heads, D 64,
+a 1024-wide table of blocks of 32, 192 deep), the same at blocks of 16,
+960 deep, and one row 960 deep: the split rule (``decode_kv_split`` over
+the table's positions) against fixed split lengths of 16 to 256
+positions (at most 32 splits) and one split.
+B7, bf16, at Qwen3-30B-A3B's batch 1 and 8 and Mixtral-8x7B's batch 1
+(``ops/roofline.MOE_POINTS``):
+  built      H split by ``ops/moe_decode.py::moe_h_split``, the weight
+             tiles in shared memory by ``moe_stages``, the down and
+             combine launches started early (programmatic dependent
+             launch);
+  no-pdl     each launch waits for the one before it to end;
+  l2-128/256 the weight copies with an L2 fetch-size hint of 128 or 256
+             bytes (a 64-column bf16 tile row is 128);
+  and the built kernel with each launch's stage count fixed at 2 to 8,
+  and with 1 to 11 splits of H instead of the rule's; device us per
+  launch with the L2 flushed (``chip_smoke.launch_breakdown``).
+host: B4's and B7's host cost, the wrapper's microseconds per call
+  enqueued back to back (least and median of 7 runs of 200) at B4's timed
+  shape and B7's Qwen3 batch 1, and B7's device time and us per launch
+  at its three timed points.
+tok: the split serving drain (8 staggered requests of 128 + 128 tokens,
+  Llama-3.2-1B shapes, bf16, random weights: aggregate tok/s) twice and
+  Qwen3-30B-A3B generate() (batch 1, 128 + 256 tokens, random weights at
+  full depth: decode tok/s) twice.
+host and tok, like b6host, use only what earlier trees also have: run
+  parent, change, change, parent in one call.
 b6host: B6's host cost, the wrapper's microseconds per call enqueued back
   to back at the 8B o and down shapes (1 row; the least and the median of 7
   runs of 200 calls), and the int4 8B generate() (bf16_8b_int4, 256
@@ -212,6 +241,7 @@ def decode_times(torch, chip_smoke, _cuda, da):
             for name, per in splits:
                 use(_cuda, "decode_attention", paths[name])
                 da.decode_kv_split = rule if per is None else (lambda S, b, s, per=per: (-(-S // per), per))
+                da._split_plan.cache_clear()
                 split = da.decode_kv_split(bucket, B * Hkv, _cuda.sm_count(q.device))
                 label = f"{name} {'rule' if per is None else 'fixed'} split {split[0]} x {split[1]}"
                 chip_smoke.check_decode(torch, da, q, kc, vc, 3, mask, None, kw, f"B={B} Hkv={Hkv} {label}")
@@ -223,6 +253,7 @@ def decode_times(torch, chip_smoke, _cuda, da):
                       f"device us per launch: {launch_us(torch, chip_smoke, f)}", flush=True)
     finally:
         da.decode_kv_split = rule
+        da._split_plan.cache_clear()
 
 
 QMM_TC_BOUNDS = "__launch_bounds__(TC_THREADS) qmm_tc_kernel"
@@ -293,6 +324,178 @@ def qmm_times(torch, chip_smoke, _cuda, qmm):
         qmm._plan.cache_clear()
 
 
+def paged_times(torch, chip_smoke, _cuda, da):
+    """B4 under its split rule and under fixed split lengths."""
+    rule = da.decode_kv_split
+    rng = np.random.RandomState(4)
+    try:
+        for B, ctx, bs in ((8, 192, 32), (8, 192, 16), (8, 960, 32), (1, 960, 32)):
+            q, k, v, bt, mask = chip_smoke.serving_decode_inputs(torch, rng, ctx, B=B, bs=bs)
+            Hkv, D = k.shape[2], q.shape[3]
+            kw = dict(scale=D ** -0.5, n_kv=Hkv)
+            ref = da.paged_tkg_decode_attention_plain(q.float(), k.float(), v.float(), 0, bt, mask, None, **kw)
+            S = bt.shape[1] * bs
+            for per in [None] + [n for n in (16, 32, 64, 128, 256, S) if -(-S // n) <= da.MAX_KV_SPLITS]:
+                da.decode_kv_split = rule if per is None else (lambda S, b, s, per=per: (-(-S // per), per))
+                da._split_plan.cache_clear()
+                split = da.decode_kv_split(S, B * Hkv, _cuda.sm_count(q.device))
+                label = f"{'rule' if per is None else 'fixed'} split {split[0]} x {split[1]}"
+                case = f"B={B} ctx={ctx} bs={bs} {label}"
+                out = da.paged_tkg_decode_attention(q, k, v, 0, bt, mask, None, **kw)
+                chip_smoke.check_close(torch, out, ref, case, "paged_tkg_decode_attention")
+
+                def f():
+                    return da.paged_tkg_decode_attention(q, k, v, 0, bt, mask, None, **kw)
+
+                ms = chip_smoke.time_ms(torch, f)
+                print(f"B4 {case}: {ms:.4f} ms; device us per launch: {launch_us(torch, chip_smoke, f)}", flush=True)
+            del q, k, v
+    finally:
+        da.decode_kv_split = rule
+        da._split_plan.cache_clear()
+
+
+MOE_STAGE_COPY = "cp_async16(dst + rr * MOE_COLS + c, ok ? w + (size_t)(row0 + rr) * ld + c0 + c : w, ok);"
+
+
+def l2_hint(size):
+    """The weight copies with an L2 fetch-size hint of ``size`` bytes."""
+    return MOE_STAGE_COPY.replace("cp_async16(", "cp_async16_l2_%d(" % size), f"""
+__device__ __forceinline__ void cp_async16_l2_{size}(void* dst, const void* src, bool full) {{
+  asm volatile("cp.async.cg.shared.global.L2::{size}B [%0], [%1], 16, %2;\\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(full ? 16 : 0));
+}}
+"""
+
+
+MOE_VARIANTS = {
+    "built": [],
+    "no-pdl": [("  cfg.numAttrs = after ? 1 : 0;", "  cfg.numAttrs = 0;")],
+}
+for _size in (128, 256):
+    _copy, _helper = l2_hint(_size)
+    MOE_VARIANTS[f"l2-{_size}"] = [(MOE_STAGE_COPY, _copy),
+                                   ("// two consecutive elements of a staged tile", _helper + "\n// two consecutive elements of a staged tile")]
+
+
+def moe_times(torch, chip_smoke, _cuda, md):
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MOE_POINTS
+
+    paths = build_variants(_cuda, "moe_decode", MOE_VARIANTS)
+    split_rule, stage_rule = md.moe_h_split, md.moe_stages
+    runs = [(name, None) for name in paths]
+    runs += [("built", ("gate stages", n)) for n in md.MOE_STAGES]
+    runs += [("built", ("down stages", n)) for n in md.MOE_STAGES]
+    runs += [("built", ("splits", n)) for n in (1, 2, 3, 4, 6, 8, 11)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    try:
+        for label, pt in MOE_POINTS.items():
+            m, T = pt["m"], pt["tokens"]
+            args = chip_smoke.moe_inputs(torch, gen, T, m["k"], m["E"], m["H"], m["I"], torch.bfloat16)
+            for variant, how in runs:
+                use(_cuda, "moe_decode", paths[variant])
+                md.moe_h_split, md.moe_stages = split_rule, stage_rule
+                what, n = how or ("the rules", None)
+                if what == "splits":
+                    def fixed_split(H, I, rows, sms, n=n):
+                        per = -(-(-(-H // n)) // md.MOE_SPLIT_ROWS) * md.MOE_SPLIT_ROWS
+                        return -(-H // per), per
+
+                    md.moe_h_split = fixed_split
+                elif what in ("gate stages", "down stages"):
+                    calls = []  # the plan asks for the gate/up launch's stages first
+
+                    def fixed(blocks, sms, stage_bytes, fixed_bytes, target, which=what, n=n, calls=calls):
+                        calls.append(1)
+                        mine = (len(calls) == 1) == (which == "gate stages")
+                        return n if mine else stage_rule(blocks, sms, stage_bytes, fixed_bytes, target)
+
+                    md.moe_stages = fixed
+                md._plan.cache_clear()
+                grid = md.moe_grid_text(T, m["k"], m["H"], m["I"], torch.bfloat16, args[0].device)
+                case = f"{label} {variant}, {what}{'' if n is None else f' {n}'}: {grid}"
+                chip_smoke.check_moe(torch, md, args, {}, case)
+
+                def f():
+                    return md.fused_moe_decode(*args)
+
+                ms = chip_smoke.time_ms(torch, f)
+                parts = chip_smoke.launch_breakdown(torch, f, chip_smoke.B7_LAUNCHES)
+                print(f"B7 {case}: {ms:.4f} ms; device us per launch (L2 flushed): "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()), flush=True)
+            del args
+            torch.cuda.empty_cache()
+    finally:
+        md.moe_h_split, md.moe_stages = split_rule, stage_rule
+        md._plan.cache_clear()
+
+
+def host_us(torch, fn, label):
+    """The least and the median of 7 runs of 200 calls enqueued back to
+    back, host microseconds per call."""
+    import time
+
+    for _ in range(50):
+        fn()
+    runs = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            fn()
+        runs.append((time.perf_counter() - t0) / 200 * 1e6)
+    runs.sort()
+    print(f"{label}: us per call enqueued, least {runs[0]:.2f}, median {runs[3]:.2f}", flush=True)
+
+
+def host(torch, chip_smoke, da, md):
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MOE_POINTS
+
+    q, k, v, bt, mask = chip_smoke.serving_decode_inputs(torch, np.random.RandomState(5), 192)
+    kw = dict(scale=q.shape[3] ** -0.5, n_kv=k.shape[2])
+    host_us(torch, lambda: da.paged_tkg_decode_attention(q, k, v, 0, bt, mask, None, **kw),
+            "B4 host B=8 ctx=192 bs=32 width=1024")
+    del q, k, v
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    for label, pt in MOE_POINTS.items():
+        m, T = pt["m"], pt["tokens"]
+        args = chip_smoke.moe_inputs(torch, gen, T, m["k"], m["E"], m["H"], m["I"], torch.bfloat16)
+        if label == "qwen3 bs1":
+            host_us(torch, lambda: md.fused_moe_decode(*args), f"B7 host {label}")
+        ms = chip_smoke.time_ms(torch, lambda: md.fused_moe_decode(*args))
+        print(f"B7 {label}: {ms:.4f} ms; device us per launch: "
+              f"{launch_us(torch, chip_smoke, lambda: md.fused_moe_decode(*args))}", flush=True)
+        del args
+        torch.cuda.empty_cache()
+
+
+def tok(torch, chip_smoke):
+    import time
+
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    s = chip_smoke.SERVING
+    app = ModelForCausalLM(None, chip_smoke._serving_config()).load(random_weights=True).warmup()
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, app.spec.vocab_size - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    chip_smoke._serve(torch, app, prompts, s["gen"], TelemetrySession())  # warm pass
+    for i in range(2):
+        sess, total_s = chip_smoke._serve(torch, app, prompts, s["gen"], TelemetrySession())
+        tokens = sum(len(r.generated) for r in sess.requests.values())
+        print(f"tok split serving drain #{i}: {total_s * 1e3:.1f} ms, aggregate {tokens / total_s:.1f} tok/s",
+              flush=True)
+    del app, sess
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    app = ModelForCausalLM(None, chip_smoke._config_qwen3()).load(random_weights=True).warmup()
+    print(f"tok qwen3-30b-a3b load + warmup {time.perf_counter() - t0:.1f} s", flush=True)
+    for i in range(2):
+        chip_smoke._generate_run(torch, app, 128, 256, f"tok qwen3-30b-a3b generate() #{i}")
+
+
 def b6_host(torch, chip_smoke, qmm):
     import time
 
@@ -331,6 +534,7 @@ def main():
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_inference_tpu_torch.ops import moe_decode as md
     from neuronx_distributed_inference_tpu_torch.ops import quant_matmul as qmm
 
     smi = subprocess.run(
@@ -338,7 +542,7 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
-    parts = set(sys.argv[1:]) or {"b2", "b1", "b6"}
+    parts = set(sys.argv[1:]) or {"b2", "b1", "b4", "b6", "b7"}
     print(f"tree: {REPO}", flush=True)
     if "b2" in parts:
         flash_times(torch, chip_smoke, _cuda, fa)
@@ -346,8 +550,16 @@ def main():
         decode_times(torch, chip_smoke, _cuda, da)
     if "b6" in parts:
         qmm_times(torch, chip_smoke, _cuda, qmm)
+    if "b4" in parts:
+        paged_times(torch, chip_smoke, _cuda, da)
+    if "b7" in parts:
+        moe_times(torch, chip_smoke, _cuda, md)
     if "b6host" in parts:
         b6_host(torch, chip_smoke, qmm)
+    if "host" in parts:
+        host(torch, chip_smoke, da, md)
+    if "tok" in parts:
+        tok(torch, chip_smoke)
 
 
 if __name__ == "__main__":

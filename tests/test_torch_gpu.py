@@ -36,10 +36,11 @@ def test_kernels_match_plain_on_the_card(cuda_card):
     chip_smoke.phase_decode_parity(torch, da)
     chip_smoke.phase_decode_split_parity(torch, da)  # B1's kv split, bit-identical twice
     chip_smoke.phase_flash_layout_parity(torch, fa)  # B2: odd lengths, D=128 fused-QKV views
-    chip_smoke.phase_paged_decode_parity(torch, da)
+    n_paged, n_paged_split = chip_smoke.phase_paged_decode_parity(torch, da)  # B4, its split bit-identical twice
     chip_smoke.phase_paged_flash_parity(torch, pf)
     chip_smoke.phase_ragged_parity(torch, rp)
     counts = _cuda.launch_counts()
+    assert counts["paged_decode_attention"] == n_paged + 3 * n_paged_split, counts
     attention = ("flash_attention", "decode_attention", "paged_decode_attention", "paged_flash_attention",
                  "ragged_paged_attention")
     assert all(counts[name] > 0 for name in attention), counts

@@ -249,6 +249,111 @@ def test_b7_plain_matches_the_jax_kernel(glu, T, k, E):
     np.testing.assert_allclose(_np(out), _np(td), atol=ATOL, rtol=ATOL)
 
 
+H100_SMS = 132
+
+
+@pytest.mark.parametrize(
+    "H_, I_, rows",
+    [(2048, 768, 8), (2048, 768, 64), (2048, 768, 16), (4096, 14336, 2), (1001, 333, 12), (1000, 332, 15),
+     (256, 48, 8), (32, 48, 1)],
+)
+def test_moe_h_split_covers_every_row_once(H_, I_, rows):
+    """B7's gate/up split of H: each row of H in one split, in order, none
+    empty, whole 32-row tiles a split, at most 16 splits."""
+    splits, per = tmd.moe_h_split(H_, I_, rows, H100_SMS)
+    assert 1 <= splits <= tmd.MOE_MAX_SPLITS and per % tmd.MOE_SPLIT_ROWS == 0
+    ranges = [range(z * per, min((z + 1) * per, H_)) for z in range(splits)]
+    assert all(len(r) > 0 for r in ranges)
+    assert [h for r in ranges for h in r] == list(range(H_))
+
+
+def test_moe_h_split_at_the_timed_shapes():
+    """Qwen3-30B-A3B at batch 1 (8 rows: 12 column tiles x 8 = 96 blocks)
+    takes 3 splits of 704 rows, 288 blocks on 132 SMs; at batch 8 (64
+    rows) and Mixtral-8x7B at batch 1 (224 x 2 = 448 blocks) one split."""
+    assert tmd.moe_h_split(2048, 768, 8, H100_SMS) == (3, 704)
+    assert tmd.moe_h_split(2048, 768, 64, H100_SMS) == (1, 2048)
+    assert tmd.moe_h_split(4096, 14336, 2, H100_SMS) == (1, 4096)
+
+
+def test_moe_plan_at_the_timed_shapes(monkeypatch):
+    """B7's launch plan (splits of H, rows a split, gate/up and down stage
+    counts) on 132 SMs in bf16: 4 and 8 stages at Qwen3-30B-A3B's batch 1;
+    2 and 3 at its batch 8, where many blocks share an SM; 3 and 8 at
+    Mixtral-8x7B's batch 1, where each down block has an SM to itself."""
+    monkeypatch.setattr(tmd._cuda, "sm_count", lambda device: H100_SMS)
+    tmd._plan.cache_clear()
+    try:
+        assert tmd._plan(8, 2048, 768, 2, 0) == (3, 704, 4, 8)
+        assert tmd._plan(64, 2048, 768, 2, 0) == (1, 2048, 2, 3)
+        assert tmd._plan(2, 4096, 14336, 2, 0) == (1, 4096, 3, 8)
+    finally:
+        tmd._plan.cache_clear()
+
+
+def _split_h_moe(x, idx, w, wg, wu, wd, **glu):
+    """B7's CUDA algorithm in PyTorch: each selection's gate/up dots summed
+    over H in moe_h_split's splits, each split in fp32, the splits added in
+    split order, the GLU, the activation rounded to the weight dtype, the
+    full I sum rounded to x's dtype, then the combine in fp32 over j in
+    order, rounded once; an expert id outside [0, E) gives NaN for its
+    selection."""
+    T, Hh = x.shape
+    k = idx.shape[1]
+    E, _, Ii = wg.shape
+    splits, per = tmd.moe_h_split(Hh, Ii, T * k, H100_SMS)
+    y = torch.empty((T, k, Hh), dtype=x.dtype)
+    for t in range(T):
+        for j in range(k):
+            e = int(idx[t, j])
+            if not 0 <= e < E:
+                y[t, j] = float("nan")
+                continue
+            g = torch.zeros(Ii)
+            u = torch.zeros(Ii)
+            for z in range(splits):  # split order
+                h = slice(z * per, min((z + 1) * per, Hh))
+                g = g + x[t, h].float() @ wg[e, h].float()
+                u = u + x[t, h].float() @ wu[e, h].float()
+            a = tmd.glu_plain(g, u, **glu).to(wd.dtype).float()
+            y[t, j] = (a @ wd[e].float()).to(x.dtype)
+    out = torch.zeros((T, Hh))
+    for j in range(k):
+        out = out + w[:, j:j + 1].float() * y[:, j].float()
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("glu", ["silu", "gpt-oss"])
+@pytest.mark.parametrize("bad_id", [False, True])
+def test_b7_split_h_order_matches_the_jax_kernel(glu, bad_id):
+    """The kernel's summation order (8 splits of 32 rows over H 256 at 4
+    tokens x top-2) against the JAX Pallas kernel in interpret mode at fp32
+    within 2e-5. With an expert id past E in token 2, that token comes out
+    NaN (the JAX kernel's index map clamps the id to the last expert
+    instead), and the other tokens still agree."""
+    rng = np.random.RandomState(9)
+    T, k, E, Hh, Ii = 4, 2, 8, 256, 48
+    x = rng.randn(T, Hh).astype(np.float32) * 0.3
+    wg = rng.randn(E, Hh, Ii).astype(np.float32) * 0.1
+    wu = rng.randn(E, Hh, Ii).astype(np.float32) * 0.1
+    wd = rng.randn(E, Ii, Hh).astype(np.float32) * 0.1
+    idx = np.stack([rng.permutation(E)[:k] for _ in range(T)]).astype(np.int32)
+    w = rng.dirichlet(np.ones(k), size=T).astype(np.float32)
+    if bad_id:
+        idx[2, 1] = E + 3
+    assert tmd.moe_h_split(Hh, Ii, T * k, H100_SMS)[0] == 8
+    kw = GLUS[glu]
+    ref = np.asarray(jax_fused_moe_decode(
+        jnp.asarray(x), jnp.asarray(idx), jnp.asarray(w), jnp.asarray(wg), jnp.asarray(wu), jnp.asarray(wd),
+        interpret=True, **kw,
+    ))
+    out = _np(_split_h_moe(_t(x), _t(idx), _t(w), _t(wg), _t(wu), _t(wd), **kw))
+    good = [t for t in range(T) if not (bad_id and t == 2)]
+    np.testing.assert_allclose(out[good], ref[good], atol=ATOL, rtol=ATOL)
+    if bad_id:
+        assert np.isnan(out[2]).all()
+
+
 def test_b7_plain_matches_the_jax_kernel_in_bf16():
     """In bf16 both round the activation and each selection's output where
     the Pallas kernel does; the fp32 dots may differ in their last bits, so

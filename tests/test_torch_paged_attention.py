@@ -10,7 +10,15 @@ a row with ``kv_limit`` 0 (an inactive slot of a chunk pass), which both
 write as zeros. The wrappers, given CPU tensors, take the plain versions
 and launch nothing. A test-local plain B5 that rounds P to bf16 before P.V
 (the tensor-core kernel's one extra rounding) stays within 1.5e-2 of the
-plain version and of the JAX kernel at the serving row's widths."""
+plain version and of the JAX kernel at the serving row's widths.
+
+B4's CUDA kernel is B1's split kernel in its paged address mode: the
+table's ``MB * bs`` positions split by ``decode_kv_split`` (held here to
+cover every position once, at bs 16 and 32 and widths that are not
+multiples of 64, and pinned at the serving row's decode shape), block 0
+read as zeros, the splits' softmax states combined in split order. That
+algorithm, run in PyTorch at fp32, is held against the JAX kernel within
+2e-5 (as B1's)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +36,7 @@ from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec
 from neuronx_distributed_inference_tpu_torch.ops import _cuda, kernel_mode
 from neuronx_distributed_inference_tpu_torch.ops import decode_attention as tda
 from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as tpf
+from tests.test_torch_decode_attention import H100_SMS, _split_combine
 
 ATOL = 2e-5
 HQ, HKV, D = 4, 2, 64
@@ -76,6 +85,110 @@ def test_paged_decode_plain_matches_jax_kernel(K, bs, sink):
     assert _cuda.launch_counts()["paged_decode_attention"] == 0
     assert np.isfinite(out.numpy()).all()
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize(
+    "MB, bs, blocks",
+    [
+        (32, 32, 64),  # the serving row's decode step: 8 rows x 8 kv heads, width 1024
+        (32, 32, 8),  # one row
+        (24, 16, 8),
+        (27, 16, 8),  # a width of 432: no multiple of 64
+        (27, 32, 64),  # 864
+        (5, 32, 6),  # splits of 16 start inside a block of 32
+        (256, 16, 2),  # 4096 positions: capped at 32 splits
+        (40, 32, 160),  # the (row, kv head) pairs fill the card: one split
+    ],
+)
+def test_paged_decode_kv_split_covers_every_position_once(MB, bs, blocks):
+    """B4 splits the table's MB * bs positions by B1's rule: each position
+    in one split, in order, none empty, and a split's positions touch at
+    most per / 16 + 2 table entries (the kernel's staged table)."""
+    S = MB * bs
+    splits, per = tda.decode_kv_split(S, blocks, H100_SMS)
+    assert 1 <= splits <= tda.MAX_KV_SPLITS and per % tda.SPLIT_ALIGN == 0
+    ranges = [range(z * per, min((z + 1) * per, S)) for z in range(splits)]
+    assert all(len(r) > 0 for r in ranges)
+    assert [s for r in ranges for s in r] == list(range(S))
+    assert all((r[-1] // bs) - (r[0] // bs) + 1 <= per // 16 + 2 for r in ranges)
+    if blocks >= H100_SMS:
+        assert splits == 1
+
+
+def test_paged_decode_kv_split_at_the_timed_shape():
+    """The serving row's decode step (8 rows, 8 kv heads, 32 blocks of 32)
+    takes 16 splits of one 64-position tile: 1024 blocks on 132 SMs, of
+    which those past a row's 192 positions read only their mask bytes."""
+    assert tda.decode_kv_split(32 * 32, 8 * 8, H100_SMS) == (16, 64)
+
+
+def _paged_split_combine(q, k, v, layer, bt, mask, sink, *, scale, n_kv):
+    """B4's algorithm in PyTorch: each row's positions through its table,
+    block 0 and ids outside [1, NB] as zeros (the kernel's zero fill; the
+    NaN there is never read), then B1's split and combine over the
+    table's MB * bs positions."""
+    B, MB = bt.shape
+    NB1, bs = k.shape[1], k.shape[3]
+    ok = ((bt > 0) & (bt < NB1))[:, :, None, None, None]
+    idx = torch.where(bt > 0, bt, 0).clamp(max=NB1 - 1).long()
+
+    def line(c):  # (1, B, MB * bs, Hkv, D): one cache line a row
+        blocks = torch.where(ok, c[layer][idx], torch.zeros(()))  # (B, MB, Hkv, bs, D)
+        return blocks.permute(0, 1, 3, 2, 4).reshape(1, B, MB * bs, n_kv, -1)
+
+    return _split_combine(q, line(k), line(v), 0, mask, sink, scale=scale, n_kv=n_kv)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("bs", [16, 32])
+@pytest.mark.parametrize("sink", [False, True])
+def test_paged_split_combine_matches_jax_kernel(K, bs, sink):
+    """Row 0 runs the table's full width less 5; row 1 ends 7 positions
+    into a block, the rest of its table zeros, so its last live 64-position
+    tile holds block-0 chunks beside valid positions; row 2 is inactive
+    (zero table, mask true only at position 0, as the session builds it).
+    Block 0 holds NaN; the width (6 or 5 blocks) is no multiple of 64 at
+    bs 16 and 32 (96, 160). The JAX kernel reads the NaN wherever the mask
+    allows a block-0 position (the inactive row; the session drops its
+    output), so it is the reference for the active rows. The port's plain
+    version scrubs block 0 to zeros, as the kernel's zero fill does: it is
+    the reference for every row, also once row 3 gets a zero entry inside
+    its valid range."""
+    rng = np.random.RandomState(40 + K * 10 + bs + int(sink))
+    L, B = 2, 4
+    MB = 6 if bs == 16 else 5
+    NB = B * MB + 2
+    k, v = _pool(rng, L, NB, bs)
+    q = rng.randn(B, K, HQ, D).astype(np.float32)
+    lens = np.array([MB * bs - 5, bs + 7, 0, 3 * bs])
+    bt = np.zeros((B, MB), np.int32)
+    free = rng.permutation(np.arange(1, NB + 1))
+    bt[0] = free[:MB]
+    bt[1, :2] = free[MB:MB + 2]
+    bt[3, :3] = free[MB + 2:MB + 5]
+    act = lens > 0
+    pos = np.where(act[:, None], lens[:, None] - K + np.arange(K)[None, :], 0)
+    attn = (np.arange(MB * bs)[None, :] < np.maximum(lens, 1)[:, None]).astype(np.int32)
+    mask = np.asarray(tmasks.spec_token_gen_mask(_t(attn), _t(pos)))
+    sk = rng.randn(HQ).astype(np.float32) if sink else None
+    kw = dict(scale=D ** -0.5, n_kv=HKV)
+    splits, per = tda.decode_kv_split(MB * bs, B * HKV, H100_SMS)
+    assert splits > 1 and per < bs * 2  # splits that start inside blocks, tiles that span them
+    ref = np.asarray(jax_paged_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(1), jnp.asarray(bt),
+        jnp.asarray(mask), None if sk is None else jnp.asarray(sk), interpret=True, **kw,
+    ))
+    for hole in (False, True):
+        if hole:
+            bt[3, 1] = 0  # a zero entry inside row 3's valid range
+        args = (_t(q), _t(k), _t(v), 1, _t(bt), _t(mask), None if sk is None else _t(sk))
+        port = _paged_split_combine(*args, **kw).numpy()
+        assert np.isfinite(port).all()
+        plain = tda.paged_tkg_decode_attention_plain(*args, **kw).numpy()
+        np.testing.assert_allclose(port, plain, atol=ATOL, rtol=0)
+        if not hole:
+            assert np.isfinite(ref[act]).all()
+            np.testing.assert_allclose(port[act], ref[act], atol=ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("bs", [8, 16])

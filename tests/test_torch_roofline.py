@@ -139,3 +139,27 @@ def test_moe_step_bytes_and_the_dense_route():
     assert roofline.bound_ms(dense, 0)[0] == pytest.approx(0.3606, abs=5e-4)
     # batch 8 touches at most 64 experts a layer
     assert roofline.moe_step_bytes(m, 8) == roofline.moe_step_bytes(m, 8, 64) > step
+
+
+@pytest.mark.parametrize(
+    "intervals, want",
+    [
+        ([], 0.0),
+        ([(0.0, 1000.0)], 1.0),
+        ([(0.0, 10.0), (5.0, 20.0), (30.0, 40.0)], 0.03),  # a launch that starts before the last ends
+        ([(30.0, 40.0), (0.0, 10.0), (0.0, 25.0)], 0.035),  # any order; one inside another
+        ([(0.0, 10.0), (10.0, 20.0)], 0.02),
+    ],
+)
+def test_device_busy_counts_overlapping_launches_once(intervals, want):
+    """chip_smoke's device busy time is the union of the kernels' (start,
+    end) intervals in us, in ms: B7's down and combine launches start while
+    the launch before them drains and wait inside, so summing durations
+    would count their wait as work."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    assert chip_smoke.union_ms(intervals) == pytest.approx(want)
