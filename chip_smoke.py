@@ -1062,10 +1062,41 @@ def ragged_case(torch, rng, row_len, ctx_len, Hq, Hkv, D, bs, MB, dtype, NB=None
     return (q, k[0], v[0], table, *desc, pos >= 0)
 
 
-def check_ragged(torch, rp, case_inputs, case, atol):
-    """One B3 launch against the plain version in fp32 on the same values
-    (check_close on the valid slots); the padded slots must be exact
-    zeros. Returns the max abs error."""
+def ragged_plain_bf16_p(torch, rp, q, k, v, table, rs, rl, cl, *, scale, n_rep):
+    """B3's plain version for the slots of its tensor-core tiles (bf16 rows
+    of more than one new token, ops/ragged_paged_attention.py::tile_route):
+    B5's paged_flash_plain_bf16_p on each such row (its segment's queries at
+    their positions over its table row, ctx_len the limit), P rounded to
+    bf16 relative to the running max of B5_KV_TILE-position tiles as the
+    kernel rounds it. Returns (out, flip), (T, Hq, D) fp32, zero on other
+    slots."""
+    from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
+
+    positions, _ = rp.packed_positions(q.shape[0], rs, rl, cl)
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    flip = torch.zeros_like(out)
+    for r, (s0, n) in enumerate(zip(rs.tolist(), rl.tolist())):
+        if rp.tile_route(n, q.dtype) != "prefill":
+            continue
+        o, f = paged_flash_plain_bf16_p(
+            torch, pf, q[s0 : s0 + n][None], k, v, table[r : r + 1], positions[s0 : s0 + n][None], cl[r : r + 1],
+            scale=scale, n_rep=n_rep, tile=B5_KV_TILE,
+        )
+        out[s0 : s0 + n], flip[s0 : s0 + n] = o[0], f[0]
+    return out, flip
+
+
+def check_ragged(torch, rp, case_inputs, case, atol, exact_scores=False):
+    """One B3 launch against its plain versions on the same values, then two
+    more launches that must be bit-identical. The padded slots must be exact
+    zeros. Slots of fp32 launches and of decode tiles (tile_route): within
+    check_close's one-rounding bound of the plain version in fp32. Slots of
+    bf16 tensor-core tiles, as B5's (check_paged_flash): within that bound
+    of ragged_plain_bf16_p, which rounds P as the kernel does, alone on
+    ``exact_scores`` inputs (exact_score_inputs) and plus the flips of the
+    probabilities within P_FLIP_ULPS of a bf16 midpoint on others; and
+    within B2's bf16 tolerance (flash_tolerances) of the plain version.
+    Returns the max abs error against the plain version."""
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
 
     q, k, v, table, rs, rl, cl, valid = case_inputs
@@ -1078,41 +1109,101 @@ def check_ragged(torch, rp, case_inputs, case, atol):
     if (out[~valid] != 0).any():
         raise SystemExit(f"ragged_paged_attention: a padded slot is not exact zeros: {case}")
     ref = rp.ragged_paged_attention_plain(q.float(), k.float(), v.float(), table, rs, rl, cl, **kw)
-    return check_close(torch, out, ref, case, "ragged_paged_attention", valid, atol=atol)
+    _, row_id = rp.packed_positions(q.shape[0], rs, rl, cl)
+    mma = valid & torch.tensor(
+        [rp.tile_route(n, q.dtype) == "prefill" for n in rl.tolist()], device=q.device
+    )[row_id]
+    err = 0.0
+    if (valid & ~mma).any():
+        err = check_close(torch, out, ref, f"{case}, fp32 FMA slots", "ragged_paged_attention", valid & ~mma, atol=atol)
+    if mma.any():
+        if not torch.isfinite(out.float()).all():
+            raise SystemExit(f"ragged_paged_attention returned non-finite values: {case}")
+        o = out.float()[mma]
+        r, flip = (t[mma] for t in ragged_plain_bf16_p(torch, rp, q, k, v, table, rs, rl, cl, **kw))
+        diff = (o - r).abs()
+        one = atol + DECODE_RTOL_BF16 * r.abs()
+        share_one = (diff / one).max().item()
+        use = share_one if exact_scores else (diff / (one + flip)).max().item()
+        err_mma = (out.float() - ref.float()).abs()[mma].max().item()
+        tol = flash_tolerances(torch, q.dtype, False)[0]
+        ok = use <= 1.0 and err_mma <= tol
+        extra = "" if exact_scores else f" + the flips of the p within {P_FLIP_ULPS} fp32 ulps of a bf16 midpoint"
+        log(
+            f"  ragged_paged_attention {case}, tensor-core slots: vs plain with bf16 P ({B5_KV_TILE}-position tiles) "
+            f"max abs err {diff.max().item():.3e}, share of (atol {atol:.0e} + rtol {DECODE_RTOL_BF16:.2e} x "
+            f"|plain|{extra}) {use:.3f} (check_close's alone {share_one:.3f}); vs plain max abs err {err_mma:.3e} "
+            f"(tol {tol:.1e}) {'ok' if ok else 'FAIL'}"
+        )
+        if not ok:
+            raise SystemExit(f"ragged_paged_attention disagrees with its plain version: {case}")
+        err = max(err, err_mma)
+    check_repeat(torch, "ragged_paged_attention", lambda: rp.ragged_paged_attention(q, k, v, table, rs, rl, cl, **kw),
+                 case)
+    return err
+
+
+#: B3's split cases: a chunk that starts mid-context beside decode rows 1,
+#: 63, 64, 65 and 1000 deep and one at the table's full width (1024), in one
+#: launch: (row_len, ctx_len)
+RAGGED_SPLIT_ROWS = ([37, 1, 1, 1, 1, 1, 1], [37 + 250, 1, 63, 64, 65, 1000, 1024])
 
 
 def phase_ragged_parity(torch, rp):
     """B3 at D 64 and 128, block size 16 and 32, bf16 and fp32, n_rep 1, 4
     and 8 (8 kv heads): a chunk that starts mid-context, a chunk from 0 of a
     non-16 length, decode rows, inactive rows (row_len 0 starting at 0 and
-    past the packed end), NaN in block 0 and zero-table tails; then the
-    serving row's two timed points (roofline.RAGGED_POINTS) at their shapes.
-    Tolerances: one bf16 rounding (check_close), 1e-5 at fp32."""
+    past the packed end), NaN in block 0 and zero-table tails; then
+    RAGGED_SPLIT_ROWS at a table 1024 wide (decode rows whose kv axis splits
+    over the grid, each split count printed); then the serving row's two
+    timed points (roofline.RAGGED_POINTS) at their shapes. Every bf16 case
+    runs again on exact-score inputs (exact_score_inputs). Tolerances:
+    check_ragged (one bf16 rounding, 1e-5 at fp32; B5's P-rounding
+    reference for tensor-core tiles); every case bit-identical twice."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops.roofline import RAGGED_POINTS
 
     rng = np.random.RandomState(7)
     worst, n = 0.0, 0
+
+    def run(inputs, case, atol):
+        nonlocal worst, n
+        bf16 = inputs[0].dtype == torch.bfloat16
+        for exact in (False, True) if bf16 else (False,):
+            q, k = exact_score_inputs(torch, inputs[0], inputs[1]) if exact else inputs[:2]
+            what = f"{case}{', exact scores' if exact else ''}"
+            worst = max(worst, check_ragged(torch, rp, (q, k, *inputs[2:]), what, atol, exact))
+            n += 1
+
     Hkv, MB = 8, 12
     row_len = [0, 41, 1, 16, 1, 3, 0, 1]
     for D in (64, 128):
         for bs in (16, 32):
             for dtype in (torch.bfloat16, torch.float32):
+                atol = DECODE_ATOL if dtype == torch.bfloat16 else RAGGED_FP32_ATOL
                 for n_rep in (1, 4, 8):
                     ctx_len = [0, 41 + 70, min(150, MB * bs), 16, 9, 3 + 100, 0, 1]
                     inputs = ragged_case(torch, rng, row_len, ctx_len, Hkv * n_rep, Hkv, D, bs, MB, dtype)
-                    case = f"D={D} bs={bs} {str(dtype)[6:]} n_rep={n_rep} row_len {row_len} ctx_len {ctx_len}"
-                    atol = DECODE_ATOL if dtype == torch.bfloat16 else RAGGED_FP32_ATOL
-                    worst = max(worst, check_ragged(torch, rp, inputs, case, atol))
-                    n += 1
+                    run(inputs, f"D={D} bs={bs} {str(dtype)[6:]} n_rep={n_rep} row_len {row_len} ctx_len {ctx_len}", atol)
+                for n_rep in (1, 4, 8):
+                    width = 1024
+                    split_len, split_ctx = (list(a) for a in RAGGED_SPLIT_ROWS)
+                    inputs = ragged_case(torch, rng, split_len, split_ctx, Hkv * n_rep, Hkv, D, bs, width // bs, dtype)
+                    T = inputs[0].shape[0]
+                    splits, per = (rp.ragged_decode_split(T, width, Hkv, n_rep, _cuda.sm_count(inputs[0].device))
+                                   if dtype == torch.bfloat16 else (1, width))
+                    run(inputs, f"split D={D} bs={bs} {str(dtype)[6:]} n_rep={n_rep} row_len {split_len} ctx_len "
+                        f"{split_ctx} width {width} ({splits} splits of {per})", atol)
     for name, pt in RAGGED_POINTS.items():
         bs = pt["block_size"]
         inputs = ragged_case(
             torch, rng, list(pt["row_len"]), list(pt["ctx_len"]), 32, 8, 64, bs, pt["width"] // bs,
             torch.bfloat16, NB=512,
         )
-        worst = max(worst, check_ragged(torch, rp, inputs, f"serving {name} point, bf16", DECODE_ATOL))
-        n += 1
-    log(f"ragged_paged_attention: {n} cases agree with the plain version (largest abs err {worst:.3e})")
+        run(inputs, f"serving {name} point, bf16", DECODE_ATOL)
+    log(f"ragged_paged_attention: {n} cases agree with the plain version, each bit-identical twice "
+        f"(largest abs err {worst:.3e})")
+    return n
 
 
 def phase_ragged_times(torch, rp):
@@ -1124,6 +1215,7 @@ def phase_ragged_times(torch, rp):
     import torch.nn.functional as F
 
     from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops.roofline import RAGGED_POINTS, ragged_work
 
     rows = {}
@@ -1160,9 +1252,11 @@ def phase_ragged_times(torch, rp):
         rows[("ragged_paged_attention", name)] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
         )
+        splits, per = rp.ragged_decode_split(q.shape[0], width, k.shape[1], 4, _cuda.sm_count(q.device))
         log(
             f"ragged_paged_attention {name} point (row_len {list(pt['row_len'])}, ctx_len {list(pt['ctx_len'])}, "
-            f"bs={bs} width={width} Hq=32 Hkv=8 D=64 bf16): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bs={bs} width={width} Hq=32 Hkv=8 D=64 bf16; decode tiles in {splits} splits of {per}): "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa per row {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}"
         )
         del k_r, v_r, per_row
@@ -2801,15 +2895,31 @@ def check_fused_mlp(torch, db, args, act, case):
     return check_fused(torch, out, ref, mag, case, "fused_mlp_block")
 
 
+#: B8's cases of n_rep * K = 64 query rows a block, at D 128: (label of
+#: FUSED_ATTN_SHAPES, K)
+FUSED_FULL_ROWS = [("d128", 16), ("qwen3 widths", 8)]
+
+
 def phase_fused_parity(torch, db):
     """B8 over FUSED_ATTN_SHAPES at batch 1 and 4, K 1 and 4, buckets 512
     and 1024, bf16 and fp32, plus rows on the garbage line with an all-false
-    mask; B9 over FUSED_MLP_SHAPES at batch 1 and 4, K 1 and 4, silu and the
-    tanh gelu, bf16 and fp32. Returns (B8 cases, B9 cases)."""
+    mask and the 64-row blocks of FUSED_FULL_ROWS (K 16 and 8 at D 128);
+    each B8 case launched twice more on the same scratch and counters and
+    required bit-identical (its completion counters reset themselves); B9
+    over FUSED_MLP_SHAPES at batch 1 and 4, K 1 and 4, silu and the tanh
+    gelu, bf16 and fp32. Returns (B8 cases, B9 cases)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(13)
     n_attn = n_mlp = 0
     worst_attn = worst_mlp = 0.0
+    shapes = {label: (H, Hq, Hkv, D) for label, H, Hq, Hkv, D in FUSED_ATTN_SHAPES}
+
+    def attn_case(args, case):
+        kw = dict(scale=args[6].shape[-1] ** -0.5, eps=FUSED_EPS, n_kv=args[6].shape[3])
+        err = check_fused_attn(torch, db, args, case)
+        check_repeat(torch, "fused_attn_block", lambda: db.fused_attn_block(*args, **kw), case)
+        return err
+
     for label, H, Hq, Hkv, D in FUSED_ATTN_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             for B in (1, 4):
@@ -2817,15 +2927,23 @@ def phase_fused_parity(torch, db):
                     for bucket in (512, 1024):
                         args = fused_attn_inputs(torch, gen, B, K, H, Hq, Hkv, D, bucket, dtype)
                         case = f"{label} H={H} Hq={Hq} Hkv={Hkv} D={D} {str(dtype)[6:]} B={B} K={K} bucket={bucket}"
-                        worst_attn = max(worst_attn, check_fused_attn(torch, db, args, case))
+                        worst_attn = max(worst_attn, attn_case(args, case))
                         n_attn += 1
     label, H, Hq, Hkv, D = FUSED_ATTN_SHAPES[0]
     for dtype in (torch.bfloat16, torch.float32):
         for K in (1, 4):
             args = fused_attn_inputs(torch, gen, 4, K, H, Hq, Hkv, D, 512, dtype, garbage_row=True)
             case = f"{label} garbage row {str(dtype)[6:]} B=4 K={K} bucket=512"
-            worst_attn = max(worst_attn, check_fused_attn(torch, db, args, case))
+            worst_attn = max(worst_attn, attn_case(args, case))
             n_attn += 1
+    for label, K in FUSED_FULL_ROWS:
+        H, Hq, Hkv, D = shapes[label]
+        for dtype in (torch.bfloat16, torch.float32):
+            for B in (1, 4):
+                args = fused_attn_inputs(torch, gen, B, K, H, Hq, Hkv, D, 512, dtype)
+                case = f"{label} H={H} Hq={Hq} Hkv={Hkv} D={D} {str(dtype)[6:]} B={B} K={K} ({Hq // Hkv * K} rows) bucket=512"
+                worst_attn = max(worst_attn, attn_case(args, case))
+                n_attn += 1
     torch.cuda.empty_cache()
     for label, H, I in FUSED_MLP_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
@@ -2849,6 +2967,32 @@ FUSED_TIMED_CTX = 256
 UNFUSED_SPIN = 8 * SPIN_CYCLES
 
 
+def fused_timed_inputs(torch, gen, B):
+    """B8's and B9's arguments at the 1B decode step they are timed at
+    (bf16, K=1, bucket 512, every row FUSED_TIMED_CTX deep, one layer's
+    weights of std 0.02): (attention args, MLP args), both on x."""
+    from neuronx_distributed_inference_tpu_torch.modules.masks import token_gen_mask
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_1B
+
+    m = MODEL_1B
+    H, Hq, Hkv, D, I = m["H"], m["Hq"], m["Hkv"], m["D"], m["I"]
+    bucket, ctx, bf16 = 512, FUSED_TIMED_CTX, torch.bfloat16
+
+    def rn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=DEV) * std).to(bf16)
+
+    x, g1, g2 = rn(B, 1, H), 1 + rn(H, std=0.1), 1 + rn(H, std=0.1)
+    wqkv, wout = rn(H, (Hq + 2 * Hkv) * D, std=0.02), rn(Hq * D, H, std=0.02)
+    wg, wu, wd = rn(H, I, std=0.02), rn(H, I, std=0.02), rn(I, H, std=0.02)
+    kc, vc = rn(m["L"], B + 1, 1024, Hkv, D), rn(m["L"], B + 1, 1024, Hkv, D)
+    pos = torch.full((B, 1), ctx - 1, dtype=torch.int32, device=DEV)
+    cols = torch.arange(bucket, device=DEV)[None, :]
+    mask = token_gen_mask((cols < ctx).to(torch.int32).expand(B, bucket), 1)  # the main path's view
+    slots = torch.arange(B, dtype=torch.int32, device=DEV)
+    cos, sin = _rope_tables(torch, pos, D)
+    return (x, g1, wqkv, wout, cos, sin, kc, vc, 1, slots, mask, pos), (x, g2, wg, wu, wd)
+
+
 def phase_fused_times(torch, db):
     """B8 and B9 at Llama-3.2-1B's decode shapes (bf16, K=1, bucket 512,
     every row FUSED_TIMED_CTX deep, one layer's weights of std 0.02), at
@@ -2862,34 +3006,22 @@ def phase_fused_times(torch, db):
     from neuronx_distributed_inference_tpu_torch.models.base import ModelSpec, gated_mlp
     from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec, o_project, qkv_project
     from neuronx_distributed_inference_tpu_torch.modules.kvcache import update_cache_at_layer
-    from neuronx_distributed_inference_tpu_torch.modules.masks import token_gen_mask
     from neuronx_distributed_inference_tpu_torch.modules.norm import rms_norm
     from neuronx_distributed_inference_tpu_torch.ops.decode_attention import tkg_decode_attention
     from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_1B, attn_block, mlp_block
 
     m = MODEL_1B
     H, Hq, Hkv, D, I = m["H"], m["Hq"], m["Hkv"], m["D"], m["I"]
-    bucket, ctx, bf16 = 512, FUSED_TIMED_CTX, torch.bfloat16
+    bucket, ctx = 512, FUSED_TIMED_CTX
     aspec = AttnSpec(num_heads=Hq, num_kv_heads=Hkv, head_dim=D)
     spec = ModelSpec(num_layers=m["L"], vocab_size=8, attn=aspec, rms_eps=FUSED_EPS)
     gen = torch.Generator(device=DEV)
     gen.manual_seed(14)
     rows = {}
     for B in (1, 4):
-        def rn(*shape, std=1.0):
-            return (torch.randn(shape, generator=gen, device=DEV) * std).to(bf16)
-
-        x, g1, g2 = rn(B, 1, H), 1 + rn(H, std=0.1), 1 + rn(H, std=0.1)
-        wqkv, wout = rn(H, (Hq + 2 * Hkv) * D, std=0.02), rn(Hq * D, H, std=0.02)
-        wg, wu, wd = rn(H, I, std=0.02), rn(H, I, std=0.02), rn(I, H, std=0.02)
-        kc, vc = rn(m["L"], B + 1, 1024, Hkv, D), rn(m["L"], B + 1, 1024, Hkv, D)
-        pos = torch.full((B, 1), ctx - 1, dtype=torch.int32, device=DEV)
-        cols = torch.arange(bucket, device=DEV)[None, :]
-        mask = token_gen_mask((cols < ctx).to(torch.int32).expand(B, bucket), 1)  # the main path's view
-        slots = torch.arange(B, dtype=torch.int32, device=DEV)
-        cos, sin = _rope_tables(torch, pos, D)
-        attn_args = (x, g1, wqkv, wout, cos, sin, kc, vc, 1, slots, mask, pos)
-        mlp_args = (x, g2, wg, wu, wd)
+        attn_args, mlp_args = fused_timed_inputs(torch, gen, B)
+        x, g1, wqkv, wout, cos, sin, kc, vc, _, slots, mask, pos = attn_args
+        g2, wg, wu, wd = mlp_args[1:]
         kw = dict(scale=D ** -0.5, eps=FUSED_EPS, n_kv=Hkv)
         err_a = check_fused_attn(torch, db, attn_args, f"timed 1b B={B} K=1 bucket={bucket} ctx={ctx} bf16")
         err_m = check_fused_mlp(torch, db, mlp_args, "silu", f"timed 1b B={B} K=1 bf16 silu")
@@ -2957,14 +3089,19 @@ def phase_fused_times(torch, db):
 
 #: the grid launches of one B7, one B8 and one B9 call, in launch order
 B7_LAUNCHES = ("gate/up", "down", "combine")
-B8_LAUNCHES = ("rmsnorm", "QKV", "attention", "combine", "o-proj", "residual")
+B8_LAUNCHES = ("QKV", "attention", "o-proj")
 B9_LAUNCHES = ("rmsnorm", "gate/up", "down", "residual")
 
 
 def launch_breakdown(torch, fn, labels, n=10):
     """Device time in us of each grid launch inside one call of ``fn``
     (``labels`` names them in launch order): torch.profiler over ``n``
-    calls, the L2 evicted before each (as in time_ms)."""
+    calls, the L2 evicted and a spin queued before each (as in time_ms, so
+    the call's launches are queued before the card reaches them). A
+    programmatic dependent launch starts before the one before it ends and
+    waits inside, so each later launch also gets "<label> past <previous>":
+    from the later of its start and the previous launch's end to its own
+    end, the time the call spends on it alone."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
@@ -2974,6 +3111,7 @@ def launch_breakdown(torch, fn, labels, n=10):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 flush.zero_()
+                torch.cuda._sleep(SPIN_CYCLES)
                 fn()
             torch.cuda.synchronize()
         ours = sorted(
@@ -2985,8 +3123,14 @@ def launch_breakdown(torch, fn, labels, n=10):
     if len(ours) != n * len(labels):
         raise SystemExit(f"launch breakdown: {len(ours)} kernels for {n} calls of {labels}")
     by = {label: 0.0 for label in labels}
+    by.update({f"{b} past {a}": 0.0 for a, b in zip(labels, labels[1:])})
     for i, e in enumerate(ours):
-        by[labels[i % len(labels)]] += e.time_range.elapsed_us() / n
+        k = i % len(labels)
+        by[labels[k]] += e.time_range.elapsed_us() / n
+        if k:
+            prev = ours[i - 1].time_range
+            past = e.time_range.end - max(e.time_range.start, prev.end)
+            by[f"{labels[k]} past {labels[k - 1]}"] += past / n
     return by
 
 

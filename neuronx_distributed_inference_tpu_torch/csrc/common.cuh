@@ -82,6 +82,61 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Programmatic dependent launch: a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization (launch_ex's `after`)
+// may start once every block of the launch before it has called
+// pdl_launch_dependents (or exited), and pdl_wait returns once that launch
+// has completed and its writes are visible. Without the attribute both are
+// no-ops.
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
+__device__ __forceinline__ void pdl_launch_dependents() { asm volatile("griddepcontrol.launch_dependents;"); }
+
+// A launch on `st`; `after` lets it start while the launch before it on the
+// stream still runs (the kernel then calls pdl_wait before it reads what
+// that launch writes). Dynamic shared memory above 48 KB is opted into.
+template <typename... Params, typename... Args>
+cudaError_t launch_ex(void (*kernel)(Params...), dim3 grid, dim3 block, size_t smem, cudaStream_t st, bool after,
+                      Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = after ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
+// The last of `total` blocks that share a completion counter: each block
+// calls this once, after every thread has written what the last one will
+// read; it returns true in exactly one block, the last to arrive, which
+// then reads the others' writes (with __ldcg, past L1) and has already
+// reset the counter to 0 for the next launch. The counter decides only who
+// finishes, never an order of summation. Every thread of the block must
+// call it. The barrier orders the block's writes before thread 0's
+// acquire-release count at gpu scope (release: they are visible before the
+// count; acquire: the last block's later reads see every other block's),
+// the pattern of a serial split-K semaphore; one thread fences, not each.
+__device__ __forceinline__ bool last_block(unsigned* counter, unsigned total) {
+  __shared__ int last_s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned prev;
+    asm volatile("atom.add.acq_rel.gpu.u32 %0, [%1], 1;" : "=r"(prev) : "l"(counter) : "memory");
+    last_s = prev == total - 1;
+    if (last_s) *counter = 0u;
+  }
+  __syncthreads();
+  return last_s;
+}
+
 // max / sum over aligned groups of `Width` lanes (Width a power of two <= 32);
 // every lane of the warp must take part
 template <int Width>

@@ -24,11 +24,14 @@
 //   sink(split, row, n, v)    v[m] = the sum over this block's range of K
 //                             for weight m (NMAT = 2 reads two weights of
 //                             one shape at once: gate and up).
+// and, after the last column, sink.finish(r0, rt) runs in every thread.
 // A column past N and a K range past K are masked: any N and K work, with
 // 16-byte loads where N is a multiple of 16 bytes and the weights 16-byte
 // aligned (vec), element loads otherwise and at the ragged column edge.
 // rmsnorm_rows writes the normed input the Pallas kernels feed their
-// products, and residual_sum adds the split partial sums to x.
+// products, and residual_sum adds the split partial sums to x (B9's
+// launches). B8 folds both into its GEMVs: GV_NORM stages the normed input
+// itself, and ResidualSink's last split block adds the residual.
 
 #pragma once
 
@@ -49,10 +52,28 @@ __device__ __forceinline__ float round_to(float v) {
   return to_float(from_float<T>(v));
 }
 
-template <typename T, int NMAT, int RT, class Sink>
+// The A operand's prologue and the launch's place in a chain of
+// programmatic dependent launches (common.cuh), as template flags:
+//   GV_NORM     stage rmsnorm(A) * gamma, rounded to T, in place of A: each
+//               block computes its rows' rsqrt(mean(x^2) + eps) itself in
+//               rmsnorm_rows's order (the block's threads as that kernel's,
+//               an xor tree in each warp, then warp by warp), so the staged
+//               values are rmsnorm_rows's normed input bit for bit;
+//   GV_WAIT     A is the output of the launch before this one: the block
+//               waits for it (pdl_wait) before it stages A;
+//   GV_PREFETCH with GV_WAIT: before it waits, the block prefetches its
+//               weight tile into L2, so the wait overlaps the weight reads;
+//   GV_TRIGGER  the launch after this one may start at once.
+enum : int { GV_NORM = 1, GV_WAIT = 2, GV_TRIGGER = 4, GV_PREFETCH = 8 };
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+template <typename T, int NMAT, int RT, class Sink, int FLAGS>
 __global__ void __launch_bounds__(GV_THREADS)
 gemv_kernel(const T* __restrict__ A, const T* __restrict__ w0, const T* __restrict__ w1, int K, int N, int rows,
-            int k_per_split, int vec, Sink sink) {
+            int k_per_split, int vec, Sink sink, const T* __restrict__ gamma, float eps) {
   constexpr int V = Vec16<T>::N;      // columns a lane loads at once (16 bytes)
   constexpr int LPR = GV_COLS / V;    // lanes that share one weight row
   constexpr int RPW = 32 / LPR;       // weight rows one warp load covers
@@ -70,6 +91,50 @@ gemv_kernel(const T* __restrict__ A, const T* __restrict__ w0, const T* __restri
   const int split = blockIdx.z;
   const int k0 = split * k_per_split;
   const int k1 = min(K, k0 + k_per_split);
+
+  if (FLAGS & GV_TRIGGER) pdl_launch_dependents();
+  if (FLAGS & GV_PREFETCH) {
+    // rows [k0, k1) of the block's columns, 32 bytes a prefetch
+    const int per_row = (min(GV_COLS, N - (int)blockIdx.x * GV_COLS) * (int)sizeof(T) + 31) / 32;
+    for (int i = threadIdx.x; i < (k1 - k0) * per_row; i += GV_THREADS) {
+      const size_t off = (size_t)(k0 + i / per_row) * N + blockIdx.x * GV_COLS;
+      const int byte = (i % per_row) * 32;
+      prefetch_l2(reinterpret_cast<const char*>(w0 + off) + byte);
+      if (NMAT == 2) prefetch_l2(reinterpret_cast<const char*>(w1 + off) + byte);
+    }
+  }
+  if (FLAGS & GV_WAIT) pdl_wait();
+  float inv[RT];  // GV_NORM: each row's rsqrt(mean(x^2) + eps)
+  if (FLAGS & GV_NORM) {
+    __shared__ float part[RT][GV_WARPS];
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      float s = 0.f;
+      if (r < rt) {
+        const T* row = A + (size_t)(r0 + r) * K;
+#pragma unroll 4
+        for (int h = threadIdx.x; h < K; h += GV_THREADS) {
+          const float v = to_float(row[h]);
+          s = fmaf(v, v, s);
+        }
+      }
+      s = group_sum<32>(s);
+      if (lane == 0) part[r][warp] = s;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < RT; ++r) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < GV_WARPS; ++w) t += part[r][w];
+      inv[r] = rsqrtf(t / K + eps);
+    }
+  }
+  // A[r][k] as staged: as stored, or its normed value rounded to T
+  auto a_val = [&](int r, int k) {
+    const float a = to_float(A[(size_t)(r0 + r) * K + k]);
+    return (FLAGS & GV_NORM) ? round_to<T>(a * inv[r] * to_float(gamma[k])) : a;
+  };
 
   const int col = blockIdx.x * GV_COLS + (lane % LPR) * V;
   const T* w[2] = {w0 + col, (NMAT == 2 ? w1 : w0) + col};
@@ -91,7 +156,7 @@ gemv_kernel(const T* __restrict__ A, const T* __restrict__ w0, const T* __restri
         const int kk = kb + j * GV_THREADS;
         if (kk < kn) {
 #pragma unroll
-          for (int r = 0; r < RT; ++r) As[r * GV_CHUNK + kk] = r < rt ? to_float(A[(size_t)(r0 + r) * K + kc + kk]) : 0.f;
+          for (int r = 0; r < RT; ++r) As[r * GV_CHUNK + kk] = r < rt ? a_val(r, kc + kk) : 0.f;
         }
       }
     }
@@ -177,6 +242,7 @@ gemv_kernel(const T* __restrict__ A, const T* __restrict__ w0, const T* __restri
     }
     sink(split, r0 + r, n, v);
   }
+  sink.finish(r0, rt);
 }
 
 template <int RT, int NMAT>
@@ -184,27 +250,34 @@ constexpr size_t gemv_smem() {
   return sizeof(float) * ((size_t)RT * GV_CHUNK + (size_t)NMAT * GV_WARPS * RT * GV_COLS);
 }
 
-template <typename T, int NMAT, int RT, class Sink>
+template <typename T, int NMAT, int RT, int FLAGS, class Sink>
 cudaError_t gemv_launch_rt(const T* A, const T* w0, const T* w1, int K, int N, int rows, int splits,
-                           int k_per_split, int vec, Sink sink, cudaStream_t stream) {
-  constexpr size_t smem = gemv_smem<RT, NMAT>();
-  cudaError_t err = cudaFuncSetAttribute(gemv_kernel<T, NMAT, RT, Sink>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
+                           int k_per_split, int vec, Sink sink, cudaStream_t stream, const T* gamma, float eps) {
   const dim3 grid((N + GV_COLS - 1) / GV_COLS, (rows + RT - 1) / RT, splits);
-  gemv_kernel<T, NMAT, RT, Sink><<<grid, GV_THREADS, smem, stream>>>(A, w0, w1, K, N, rows, k_per_split, vec, sink);
-  return cudaGetLastError();
+  if (FLAGS & GV_TRIGGER) {
+    // the launch after this one starts while this one runs: its blocks need
+    // room beside these, so the SMs keep their most shared memory (not L1)
+    const cudaError_t err = cudaFuncSetAttribute(gemv_kernel<T, NMAT, RT, Sink, FLAGS>,
+                                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
+  return launch_ex(gemv_kernel<T, NMAT, RT, Sink, FLAGS>, grid, dim3(GV_THREADS), gemv_smem<RT, NMAT>(), stream,
+                   (FLAGS & GV_WAIT) != 0, A, w0, w1, K, N, rows, k_per_split, vec, sink, gamma, eps);
 }
 
 // Y = A W (and A W1 for NMAT = 2) over A's `rows` rows, the rows per block
-// the least power of two that holds them (at most GV_MAX_ROWS)
-template <typename T, int NMAT, class Sink>
+// the least power of two that holds them (at most GV_MAX_ROWS); FLAGS and
+// gamma / eps: the prologue and the launch chain (gemv_kernel)
+template <typename T, int NMAT, class Sink, int FLAGS = 0>
 cudaError_t gemv_launch(const T* A, const T* w0, const T* w1, int K, int N, int rows, int splits, int k_per_split,
-                        int vec, Sink sink, cudaStream_t st) {
+                        int vec, Sink sink, cudaStream_t st, const T* gamma = nullptr, float eps = 0.f) {
   if (splits < 1 || splits > GV_MAX_SPLITS) return cudaErrorInvalidValue;
-  if (rows <= 1) return gemv_launch_rt<T, NMAT, 1>(A, w0, w1, K, N, rows, splits, k_per_split, vec, sink, st);
-  if (rows <= 2) return gemv_launch_rt<T, NMAT, 2>(A, w0, w1, K, N, rows, splits, k_per_split, vec, sink, st);
-  return gemv_launch_rt<T, NMAT, 4>(A, w0, w1, K, N, rows, splits, k_per_split, vec, sink, st);
+  if (rows <= 1)
+    return gemv_launch_rt<T, NMAT, 1, FLAGS>(A, w0, w1, K, N, rows, splits, k_per_split, vec, sink, st, gamma, eps);
+  if (rows <= 2)
+    return gemv_launch_rt<T, NMAT, 2, FLAGS>(A, w0, w1, K, N, rows, splits, k_per_split, vec, sink, st, gamma, eps);
+  return gemv_launch_rt<T, NMAT, 4, FLAGS>(A, w0, w1, K, N, rows, splits, k_per_split, vec, sink, st, gamma, eps);
 }
 
 // ---- the normed input ------------------------------------------------------
@@ -251,6 +324,7 @@ struct PartialSink {
   __device__ void operator()(int split, int row, int n, const float* v) const {
     part[((size_t)split * rows + row) * N + n] = v[0];
   }
+  __device__ void finish(int, int) const {}
 };
 
 // the gated activation of gate (v[0]) and up (v[1]), rounded to T
@@ -262,6 +336,41 @@ struct GluSink {
 
   __device__ void operator()(int, int row, int n, const float* v) const {
     act[(size_t)row * N + n] = from_float<T>(glu(v[0], v[1], glu_kind));
+  }
+  __device__ void finish(int, int) const {}
+};
+
+// out = x + the sum over the K splits (the grid's z axis), in split order,
+// rounded once to T: residual_sum's arithmetic, without its launch. Each
+// block stores its fp32 partial sums (splits, rows, N); the last of a
+// column tile's split blocks (a completion counter per tile, last_block)
+// adds them. With one split the block writes out itself.
+template <typename T>
+struct ResidualSink {
+  float* part;
+  const T* x;
+  T* out;
+  unsigned* counter;  // one per (row tile, column tile), 0 between launches
+  int rows, N;
+
+  __device__ void operator()(int split, int row, int n, const float* v) const {
+    if (gridDim.z == 1) {
+      float s = 0.f;
+      s += v[0];
+      out[(size_t)row * N + n] = from_float<T>(to_float(x[(size_t)row * N + n]) + s);
+    } else {
+      part[((size_t)split * rows + row) * N + n] = v[0];
+    }
+  }
+  __device__ void finish(int r0, int rt) const {
+    if (gridDim.z == 1 || !last_block(counter + blockIdx.y * gridDim.x + blockIdx.x, gridDim.z)) return;
+    for (int i = threadIdx.x; i < rt * GV_COLS; i += GV_THREADS) {
+      const int row = r0 + i / GV_COLS, n = blockIdx.x * GV_COLS + i % GV_COLS;
+      if (n >= N) continue;
+      float s = 0.f;
+      for (int z = 0; z < (int)gridDim.z; ++z) s += __ldcg(part + ((size_t)z * rows + row) * N + n);
+      out[(size_t)row * N + n] = from_float<T>(to_float(x[(size_t)row * N + n]) + s);
+    }
   }
 };
 

@@ -84,12 +84,8 @@ constexpr int GU_ROWS = 32;   // rows of H per gate/up tile: 4 of each warp's ch
 constexpr int DN_ROWS = 64;   // rows of I per down tile: 8 of each warp's chunk
 constexpr int MOE_MAX_ROWS = 64;
 constexpr int MOE_MAX_SPLITS = 16;
-// Programmatic dependent launch: a kernel launched with `after` (below) may
-// start once every block of the launch before it has called
-// pdl_launch_dependents, and pdl_wait returns once that launch has
-// completed and its writes are visible. Without `after` both are no-ops.
-__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;" ::: "memory"); }
-__device__ __forceinline__ void pdl_launch_dependents() { asm volatile("griddepcontrol.launch_dependents;"); }
+// pdl_wait / pdl_launch_dependents and launch_ex: common.cuh (programmatic
+// dependent launch).
 
 // two consecutive elements of a staged tile as floats
 __device__ __forceinline__ void load_pair(const float* p, float v[2]) {
@@ -314,33 +310,13 @@ moe_combine_kernel(const T* __restrict__ ysel, const float* __restrict__ topk_w,
   out[(size_t)t * H + h] = from_float<T>(s);
 }
 
-// a launch of MOE_THREADS threads; `after` lets it start while the launch
-// before it on the stream runs (it waits in the kernel, pdl_wait)
-template <typename... Params, typename... Args>
-cudaError_t launch(void (*kernel)(Params...), dim3 grid, size_t smem, cudaStream_t st, bool after, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(MOE_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = after ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
-}
-
 template <typename T, bool VEC, int STAGES>
 cudaError_t gate_up(const void* x, const int* idx, const void* wg, const void* wu, float* part, int R, int k, int E,
                     int H, int I, int splits, int per, cudaStream_t st) {
   const size_t smem = STAGES * (sizeof(T) * 2 * GU_ROWS * MOE_COLS + 16 * MOE_WARPS) +
                       sizeof(float) * 2 * MOE_WARPS * MOE_COLS;
-  return launch(moe_gate_up_kernel<T, VEC, STAGES>, dim3((I + MOE_COLS - 1) / MOE_COLS, splits, R), smem, st, false,
+  return launch_ex(moe_gate_up_kernel<T, VEC, STAGES>, dim3((I + MOE_COLS - 1) / MOE_COLS, splits, R),
+                   dim3(MOE_THREADS), smem, st, false,
                 static_cast<const T*>(x), idx, static_cast<const T*>(wg), static_cast<const T*>(wu), part, k, E, H, I,
                 per);
 }
@@ -352,7 +328,8 @@ cudaError_t down(const float* part, const int* idx, const void* wd, void* ysel, 
   const int cwp = ((I + MOE_WARPS - 1) / MOE_WARPS + RPW - 1) / RPW * RPW;  // a warp's activations
   const size_t smem = sizeof(T) * STAGES * DN_ROWS * MOE_COLS +
                       sizeof(float) * (MOE_WARPS * MOE_COLS + (size_t)MOE_WARPS * cwp);
-  return launch(moe_down_kernel<T, VEC, STAGES>, dim3((H + MOE_COLS - 1) / MOE_COLS, R), smem, st, true, part, idx,
+  return launch_ex(moe_down_kernel<T, VEC, STAGES>, dim3((H + MOE_COLS - 1) / MOE_COLS, R), dim3(MOE_THREADS), smem,
+                   st, true, part, idx,
                 static_cast<const T*>(wd), static_cast<T*>(ysel), E, H, I, splits, p);
 }
 
@@ -381,7 +358,7 @@ cudaError_t moe_launch(const void* x, const int* idx, const float* topk_w, const
     case 8: err = down<T, VEC, 8>(part, idx, wd, ysel, R, E, H, I, splits, p, st); break;
   }
   if (err != cudaSuccess) return err;
-  return launch(moe_combine_kernel<T>, dim3((H + MOE_THREADS - 1) / MOE_THREADS, T_), 0, st, true,
+  return launch_ex(moe_combine_kernel<T>, dim3((H + MOE_THREADS - 1) / MOE_THREADS, T_), dim3(MOE_THREADS), 0, st, true,
                 static_cast<const T*>(ysel), topk_w, static_cast<T*>(out), k, H);
 }
 

@@ -1,6 +1,8 @@
-// The paged kv loop shared by the paged flash prefill kernel (B5,
+// The paged kv loops shared by the paged flash prefill kernel (B5,
 // paged_flash_attention.cu) and the ragged paged attention kernel (B3,
-// ragged_paged_attention.cu).
+// ragged_paged_attention.cu): attend(), the fp32 FMA loop both run at fp32,
+// and flash_mma(), the bf16 tensor-core body of B5 and of B3's prefill
+// tiles (below).
 //
 // A block of THREADS threads holds BQ query rows in shared memory, each with
 // its absolute position (-1 = no query), all of one kv head g and one row of
@@ -18,7 +20,7 @@
 // repeat_kv: a block holds several q heads of one kv head.
 #pragma once
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace nxdi {
 namespace paged {
@@ -180,6 +182,193 @@ __device__ __forceinline__ void finalize_row(T* dst, float l, const float (&acc_
   const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
   for (int j = 0; j < D / CG; ++j) dst[c + CG * j] = from_float<T>(acc_row[j] / denom);
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (B5, and B3's prefill tiles)
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct MmaTile {
+  static constexpr int LD = D + 8;     // bf16 per shared row: 16 bytes of padding
+  static constexpr int KV = BKV * LD;  // one K or V tile
+  // Q, then two stages of (K, V), then the query positions
+  static constexpr size_t smem = sizeof(__nv_bfloat16) * (size_t)(BQ * LD + 4 * KV) + sizeof(int) * BQ;
+};
+
+// The bf16 tensor-core body of B5 (paged_flash_mma) and of B3's prefill
+// tiles (ragged_paged_attention.cu): the block's BQ query rows, 16 a warp,
+// over one block-table row of kv head hk, up to min(the rows' largest
+// position, limit - 1). row_off(r): the element offset of query row r in
+// q and out, or -1 for a row that is neither read nor written; row_pos(r):
+// its position (-1: no valid key; the row is written as zeros). The design
+// is paged_flash_attention.cu's (mma.sync m16n8k16, P in registers, K / V by
+// 16-byte cp.async through the table into two padded stages, the zero rule
+// as cp.async's zero fill). smem_raw: MmaTile<D>::smem bytes, 16-byte
+// aligned.
+template <int D, class RowOff, class RowPos>
+__device__ __forceinline__ void flash_mma(unsigned char* smem_raw, const __nv_bfloat16* qp, __nv_bfloat16* op,
+                                          RowOff row_off, RowPos row_pos, const __nv_bfloat16* k_layer,
+                                          const __nv_bfloat16* v_layer, const int* bt_row, int hk, int Hkv, int bs,
+                                          int NB1, int limit, float scale) {
+  using Tile = MmaTile<D>;
+  using bf16 = __nv_bfloat16;
+  constexpr int LD = Tile::LD;
+  constexpr int CH = D / 8;               // 16-byte chunks per row
+  constexpr int ROW_STEP = THREADS / CH;  // rows between one thread's chunks
+  constexpr int KS = D / 16;              // k steps of Q K^T
+  constexpr int NT = BKV / 8;             // n tiles of the score tile
+  constexpr int DT = D / 8;               // n tiles of the output
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* KVs = Qs + BQ * LD;  // stage s: K at KVs + 2 s KV, V right after
+  int* pos_s = reinterpret_cast<int*>(KVs + 4 * Tile::KV);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // thread tid copies chunk tid % CH of rows tid / CH + ROW_STEP u
+  const int cr = tid / CH, cc = (tid % CH) * 8;
+
+  if (limit <= 0) {  // an inactive row: zeros, no cache read
+    for (int r = cr; r < BQ; r += ROW_STEP) {
+      const long long o = row_off(r);
+      if (o >= 0) *reinterpret_cast<uint4*>(op + o + cc) = make_uint4(0u, 0u, 0u, 0u);
+    }
+    return;
+  }
+
+  for (int r = cr; r < BQ; r += ROW_STEP) {
+    const long long o = row_off(r);
+    cp_async16(Qs + r * LD + cc, qp + (o >= 0 ? o : 0) + cc, o >= 0);
+  }
+  cp_async_commit();
+  if (tid < BQ) pos_s[tid] = row_off(tid) >= 0 ? row_pos(tid) : -1;
+  __syncthreads();
+
+  // the last kv position any row of this block may attend
+  int last = -1;
+  for (int r = 0; r < BQ; ++r) last = max(last, pos_s[r]);
+  last = min(last, limit - 1);
+  const int n_tiles = last < 0 ? 0 : last / BKV + 1;
+
+  const bf16* kp = k_layer + cc;
+  const bf16* vp = v_layer + cc;
+  auto load_tile = [&](int j, int stage) {
+    const int kv0 = j * BKV;
+    bf16* Ks = KVs + 2 * stage * Tile::KV + cc;
+    bf16* Vs = Ks + Tile::KV;
+#pragma unroll
+    for (int r = cr; r < BKV; r += ROW_STEP) {
+      const int s = kv0 + r;
+      const int blk = s < limit ? __ldg(bt_row + s / bs) : 0;
+      // the zero rule: past kv_limit, block 0 and ids outside [1, NB] are
+      // zero-filled, never read
+      const bool ok = s < limit && blk > 0 && blk < NB1;
+      const long long a = ok ? (((long long)blk * Hkv + hk) * bs + s % bs) * D : 0;
+      cp_async16(Ks + r * LD, kp + a, ok);
+      cp_async16(Vs + r * LD, vp + a, ok);
+    }
+    cp_async_commit();
+  };
+
+  // lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8 of the warp's
+  // 16: score / output columns 8 n + 2 t and 8 n + 2 t + 1 of each n tile
+  const int g = lane / 4, t4 = lane % 4;
+  const int row0 = warp * 16 + g;
+  // each row's allowed columns: [0, min(pos, kv_limit - 1)] (empty for a row
+  // with no query)
+  const int col_hi[2] = {min(pos_s[row0], limit - 1), min(pos_s[row0 + 8], limit - 1)};
+  float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};
+  float o[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  uint32_t qf[KS][4];
+
+  if (n_tiles > 0) load_tile(0, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int stage = j & 1;
+    if (j + 1 < n_tiles) {
+      load_tile(j + 1, stage ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (j == 0) {
+      // A fragments of the warp's 16 Q rows: matrices (rows 0-7 | 8-15) x
+      // (cols 0-7 | 8-15) of each k step
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        ldmatrix_x4(qf[ks], Qs + (warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * LD + ks * 16 + 8 * (lane / 16));
+    }
+    const bf16* Ks = KVs + 2 * stage * Tile::KV;
+    const bf16* Vs = Ks + Tile::KV;
+    const int kv0 = j * BKV;
+
+    // S = Q K^T: K rows are the B operand's columns as stored (no transpose)
+    float s[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int pp = 0; pp < NT / 2; ++pp) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, Ks + (pp * 16 + (lane % 8) + 8 * (lane / 16)) * LD + ks * 16 + 8 * ((lane / 8) % 2));
+        mma_bf16(s[2 * pp], qf[ks], kb[0], kb[1]);
+        mma_bf16(s[2 * pp + 1], qf[ks], kb[2], kb[3]);
+      }
+    }
+
+    // the mask: a tile that every row of the warp sees whole takes no
+    // per-element predicate
+    float alpha[2];
+    if (__all_sync(0xffffffffu, col_hi[0] >= kv0 + BKV - 1 && col_hi[1] >= kv0 + BKV - 1)) {
+      softmax_step<false, false>(s, 0u, scale, m_i, l_i, alpha);
+    } else {
+      uint32_t ok_bits = 0;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ok_bits |= (kv0 + n * 8 + 2 * t4 + (e & 1) <= col_hi[e >> 1] ? 1u : 0u) << (n * 4 + e);
+      softmax_step<true, false>(s, ok_bits, scale, m_i, l_i, alpha);
+    }
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // O += P V: P's two n tiles per k16 step are the A fragment; V through
+    // ldmatrix.trans is the B operand
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int qq = 0; qq < D / 16; ++qq) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, Vs + (kk * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * LD + qq * 16 + 8 * (lane / 16));
+        mma_bf16(o[2 * qq], a, vb[0], vb[1]);
+        mma_bf16(o[2 * qq + 1], a, vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+  cp_async_wait<0>();  // (no tile: the Q copy)
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const long long off = row_off(row0 + 8 * rr);
+    if (off < 0) continue;
+    const float denom = fmaxf(l_i[rr], 1e-30f);
+    __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(op + off);
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+      orow[(n * 8 + 2 * t4) / 2] = __floats2bfloat162_rn(o[n][2 * rr] / denom, o[n][2 * rr + 1] / denom);
+  }
 }
 
 // Opt the kernel into its dynamic shared memory (above 48 KB at D = 64).

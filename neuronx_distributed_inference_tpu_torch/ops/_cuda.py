@@ -203,6 +203,26 @@ def scratch(numel: int, device, stream: int):
     return buf
 
 
+#: (device index, stream) -> one int32 buffer of completion counters (the
+#: last of a group of blocks to finish combines their partial results: B3's
+#: decode splits, B8's kv splits and o-proj splits). Every counter is 0
+#: between launches: the block that finishes resets it, so a buffer is
+#: zeroed once, when it is made, and launches on one stream may share it.
+_COUNTERS: Dict[tuple, object] = {}
+
+
+def counters(numel: int, device, stream: int):
+    """At least ``numel`` completion counters (int32, all 0) on CUDA
+    ``device`` for ``stream``, allocated once and grown as needed."""
+    import torch
+
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < numel:
+        buf = _COUNTERS[key] = torch.zeros(max(numel, 1024), dtype=torch.int32, device=device)
+    return buf
+
+
 def stream_ptr(device) -> int:
     """The current CUDA stream of ``device`` as a pointer-sized int."""
     import torch

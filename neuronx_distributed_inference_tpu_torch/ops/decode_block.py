@@ -59,8 +59,9 @@ GEMV_COLS = 32  # output columns per block
 GEMV_ROWS = 4  # rows per block
 GEMV_MIN_K = 256  # the shortest reduction range one block takes when K is split
 GEMV_MAX_SPLITS = 16  # the most blocks that share one output tile's reduction
-ATTN_TILE = 64  # cache positions per attention tile
-MAX_KV_SPLITS = 16  # the most blocks that share one (row, kv head)
+ATTN_TILE = 64  # cache positions per staged attention tile
+MAX_KV_SPLITS = 32  # the most blocks that share one (row, kv head)
+KV_BLOCKS_PER_SM = 4  # the attention grid's most blocks an SM before a split takes two tiles
 
 
 def _rms(xf: torch.Tensor, gamma: torch.Tensor, eps: float) -> torch.Tensor:
@@ -235,10 +236,16 @@ def gemv_split(n_cols: int, rows: int, kdim: int, sms: int) -> int:
 
 def kv_split(S_kv: int, blocks: int, sms: int):
     """(splits, tiles per split) of the prior cache's tiles over the
-    blocks of one (row, kv head): enough for about one block per SM, at
-    most MAX_KV_SPLITS."""
+    ``blocks`` (row, kv head) pairs: one ATTN_TILE tile a split while the
+    grid stays within KV_BLOCKS_PER_SM blocks an SM, at most MAX_KV_SPLITS,
+    else the fewest tiles a split that keep it there. A split of one tile
+    waits on one round trip to memory; a second tile in series costs ~3.5
+    us at the 1B layer (scripts/torch_attention_variants.py b8). A
+    function of the shapes and the card only, so the combine's order (and
+    the result) repeats from run to run. The kernel takes the split as
+    ``tiles * ATTN_TILE`` positions (:func:`_kv_plan`)."""
     n_tiles = -(-S_kv // ATTN_TILE)
-    want = min(n_tiles, MAX_KV_SPLITS, -(-sms // blocks))
+    want = max(1, min(n_tiles, MAX_KV_SPLITS, KV_BLOCKS_PER_SM * sms // blocks))
     per = -(-n_tiles // want)
     return -(-n_tiles // per), per
 
@@ -247,6 +254,13 @@ def _vec(n: int, *weights) -> int:
     """1 where the GEMV kernels may load 16 bytes of a weight row at once:
     rows a multiple of 16 bytes wide and 16-byte aligned bases."""
     return int((n * weights[0].element_size()) % 16 == 0 and all(w.data_ptr() % 16 == 0 for w in weights))
+
+
+def _kv_plan(S_kv: int, blocks: int, sms: int):
+    """(splits, positions per split) of B8's attention launch: kv_split's
+    tiles of ATTN_TILE positions."""
+    splits, tiles = kv_split(S_kv, blocks, sms)
+    return splits, tiles * ATTN_TILE
 
 
 def _launch_attn(x, gamma, wqkv, wout, cos, sin, k_cache, v_cache, layer_idx, slot_ids, mask, positions,
@@ -267,35 +281,38 @@ def _launch_attn(x, gamma, wqkv, wout, cos, sin, k_cache, v_cache, layer_idx, sl
     dev = x.device
     sms = _cuda.sm_count(dev)
     s_qkv = gemv_split(N3, BK, H, sms)
-    s_kv, tiles_per = kv_split(S_kv, B * Hkv, sms)
+    s_kv, per = _kv_plan(S_kv, B * Hkv, sms)
     s_o = gemv_split(H, BK, Hq * D, sms)
-    f32 = dict(dtype=torch.float32, device=dev)
+    stream = _cuda.stream_ptr(dev)
     x = x.contiguous()
     cos, sin = cos.float().contiguous(), sin.float().contiguous()
     slots = slot_ids.to(torch.int32).contiguous()
     pos = positions.to(torch.int32).contiguous()
-    normed = torch.empty((BK, H), dtype=x.dtype, device=dev)
-    qkv_part = torch.empty((s_qkv, BK, N3), **f32)
-    m_part = torch.empty((s_kv, BK, Hq), **f32)
-    l_part = torch.empty((s_kv, BK, Hq), **f32)
-    acc_part = torch.empty((s_kv, BK, Hq * D), **f32)
+    # fp32 scratch: the QKV partials, the kv splits' (m, l, acc), the o-proj partials
+    sizes = (s_qkv * BK * N3, s_kv * BK * Hq, s_kv * BK * Hq, s_kv * BK * Hq * D, s_o * BK * H)
+    base = _cuda.scratch(sum(sizes), dev, stream).data_ptr()
+    parts = []
+    for n in sizes:
+        parts.append(base)
+        base += 4 * n
+    o_tiles = -(-H // GEMV_COLS) * -(-BK // GEMV_ROWS)
+    counters = _cuda.counters(B * Hkv + o_tiles, dev, stream)
     attn = torch.empty((BK, Hq * D), dtype=x.dtype, device=dev)
-    o_part = torch.empty((s_o, BK, H), **f32)
     out = torch.empty_like(x)
     k_new = torch.empty((B, K, Hkv, D), dtype=x.dtype, device=dev)
     v_new = torch.empty_like(k_new)
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = _cuda.function(ATTN_KERNEL, "nxdi_fused_attn_block", [P] * 21 + [I] * 21 + [Fl, Fl, P])
+    qkv_part, m_part, l_part, acc_part, o_part = parts
     err = fn(
         x.data_ptr(), gamma.data_ptr(), wqkv.data_ptr(), wout.data_ptr(), cos.data_ptr(), sin.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), slots.data_ptr(), mask.data_ptr(), pos.data_ptr(),
-        normed.data_ptr(), qkv_part.data_ptr(), m_part.data_ptr(), l_part.data_ptr(), acc_part.data_ptr(), attn.data_ptr(),
-        o_part.data_ptr(),
+        qkv_part, m_part, l_part, acc_part, attn.data_ptr(), o_part, counters.data_ptr(),
         out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         B, K, H, Hq, Hkv, D, L, R, S_max, S_kv, int(layer_idx), mask.stride(0), mask.stride(2),
-        s_qkv, -(-H // s_qkv), s_kv, tiles_per, s_o, -(-(Hq * D) // s_o),
+        s_qkv, -(-H // s_qkv), s_kv, per, s_o, -(-(Hq * D) // s_o),
         _DTYPE_CODES[x.dtype], min(_vec(N3, wqkv), _vec(H, wout)),
-        float(scale), float(eps), _cuda.stream_ptr(dev),
+        float(scale), float(eps), stream,
     )
     _cuda.check(err, ATTN_KERNEL)
     _cuda.LAUNCHES[ATTN_KERNEL] += 1

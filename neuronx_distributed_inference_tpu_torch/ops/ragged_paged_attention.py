@@ -17,7 +17,11 @@ by ``(row_start, row_len, ctx_len)``. Packing contract (the session's
 :func:`ragged_paged_attention` launches the CUDA C++ kernel
 (``csrc/ragged_paged_attention.cu``) for CUDA tensors and takes the plain
 version, :func:`ragged_paged_attention_plain` (the reference's
-:func:`ragged_attention_native` on one layer), only for CPU tensors.
+:func:`ragged_attention_native` on one layer), only for CPU tensors. In
+bf16 the kernel routes each 16-slot tile by its row (:func:`tile_route`):
+a prefill tile runs on the tensor cores, rounding the probabilities to bf16
+for P.V as B5 does; a decode tile splits the row's kv axis over the grid
+(:func:`ragged_decode_split`) and combines the splits in the same launch.
 :func:`ragged_attention` is the decoder layer's dispatch. Not ported here:
 the int8/fp8 code mode (``k_scale``/``v_scale``, ROADMAP A6) and the tp>1
 ``shard_map`` dispatch (``_dispatch_ragged_kernel``, ROADMAP A10).
@@ -30,6 +34,7 @@ import ctypes
 import torch
 
 from neuronx_distributed_inference_tpu_torch.ops import _cuda
+from neuronx_distributed_inference_tpu_torch.ops.decode_attention import decode_kv_split
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import launches_kernel, use_ragged
 
 #: q-tile granularity of the packed layout: row starts align to it
@@ -132,6 +137,30 @@ def block_heads(n_rep: int) -> int:
     return next(h for h in range(_BLOCK_HEADS, 0, -1) if n_rep % h == 0)
 
 
+def tile_route(row_len: int, dtype: torch.dtype) -> str:
+    """The kernel's route for a 16-slot tile whose row has ``row_len`` new
+    tokens (0: the tile is no row's): "zeros" for no row, "attend" (the
+    fp32 FMA loop) at fp32, else "decode" (the kv split, fp32 FMAs) for
+    one new token and "prefill" (tensor cores, P rounded to bf16 for P.V)
+    for more."""
+    if row_len <= 0:
+        return "zeros"
+    if dtype != torch.bfloat16:
+        return "attend"
+    return "decode" if row_len == 1 else "prefill"
+
+
+def ragged_decode_split(T: int, width: int, Hkv: int, n_rep: int, sms: int):
+    """(splits, positions per split) of a bf16 launch's decode tiles: B4's
+    rule (decode_kv_split) over the table's ``width`` = MB * bs positions
+    for the grid's T / 16 * Hkv * head-group blocks. A function of the
+    shapes and the card only, so the combine's order (and the result)
+    repeats from call to call. Split z covers positions [z * per, (z + 1) *
+    per); a decode row's splits past its context exit at once, and the
+    others are combined in split order in the same launch."""
+    return decode_kv_split(width, (T // RAGGED_Q_TILE) * Hkv * (n_rep // block_heads(n_rep)), sms)
+
+
 def _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale, n_rep):
     T, Hq, D = q.shape
     NB1, Hkv, bs, _ = k_layer.shape
@@ -144,16 +173,30 @@ def _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale
     for name, x in (("q", q), ("k_layer", k_layer), ("v_layer", v_layer)):
         if not x.is_contiguous():
             raise ValueError(f"{KERNEL}: {name} must be contiguous")
+    if q.dtype == torch.bfloat16 and (k_layer.data_ptr() % 16 or v_layer.data_ptr() % 16 or q.data_ptr() % 16):
+        raise ValueError(f"{KERNEL}: q and the cache layers must start on 16-byte boundaries")
     table = block_table.to(torch.int32).contiguous()
     rs, rl, cl = (t.to(torch.int32).contiguous() for t in (row_start, row_len, ctx_len))
+    MB = table.shape[1]
+    stream = _cuda.stream_ptr(q.device)
+    splits, per = 1, MB * bs
+    if q.dtype == torch.bfloat16:
+        splits, per = ragged_decode_split(T, MB * bs, Hkv, n_rep, _cuda.sm_count(q.device))
+    parts, counters = [None] * 3, None
+    if splits > 1:
+        n = splits * (T // RAGGED_Q_TILE) * Hq
+        base = _cuda.scratch(n * (D + 2), q.device, stream).data_ptr()
+        parts = [base, base + 4 * n, base + 8 * n]
+        tiles = (T // RAGGED_Q_TILE) * Hkv * (n_rep // block_heads(n_rep))
+        counters = _cuda.counters(tiles, q.device, stream).data_ptr()
     out = torch.empty_like(q)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function(KERNEL, "nxdi_ragged_paged_attention", [P] * 8 + [I] * 9 + [ctypes.c_float, I, P])
+    fn = _cuda.function(KERNEL, "nxdi_ragged_paged_attention", [P] * 12 + [I] * 11 + [ctypes.c_float, I, P])
     err = fn(
         q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), table.data_ptr(),
-        rs.data_ptr(), rl.data_ptr(), cl.data_ptr(), out.data_ptr(),
-        T, rs.shape[0], Hq, Hkv, block_heads(n_rep), D, NB1, bs, table.shape[1],
-        float(scale), _DTYPE_CODES[q.dtype], _cuda.stream_ptr(q.device),
+        rs.data_ptr(), rl.data_ptr(), cl.data_ptr(), out.data_ptr(), *parts, counters,
+        T, rs.shape[0], Hq, Hkv, block_heads(n_rep), D, NB1, bs, MB, splits, per,
+        float(scale), _DTYPE_CODES[q.dtype], stream,
     )
     _cuda.check(err, KERNEL)
     _cuda.LAUNCHES[KERNEL] += 1

@@ -5,9 +5,9 @@ and B4 (decode over the contiguous and the paged cache,
 (``csrc/quant_matmul.cu``) and of the MoE decode B7
 (``csrc/moe_decode.cu``), on one H100, beside the kernels as built.
 
-    python3 scripts/torch_attention_variants.py [b2] [b1] [b4] [b6] [b7] [b6host] [host] [tok]
+    python3 scripts/torch_attention_variants.py [b2] [b1] [b4] [b6] [b7] [b8] [b3] [b6host] [host] [tok]
 
-(no argument: b2, b1, b4, b6 and b7)
+(no argument: b2, b1, b4, b6, b7, b8 and b3)
 
 Each alternative is the kernel's own source with one decision changed,
 compiled with the port's nvcc flags (``ops/_cuda.py``) into
@@ -58,15 +58,38 @@ B7, bf16, at Qwen3-30B-A3B's batch 1 and 8 and Mixtral-8x7B's batch 1
   and the built kernel with each launch's stage count fixed at 2 to 8,
   and with 1 to 11 splits of H instead of the rule's; device us per
   launch with the L2 flushed (``chip_smoke.launch_breakdown``).
+B8, bf16, at the 1B decode layer it is timed at (batch 1 and 4, bucket
+512, 255 deep; chip_smoke.fused_timed_inputs), device ms and us per launch
+(chip_smoke.launch_breakdown, with each launch's time past the one before):
+  built      QKV -> attention -> o-proj as programmatic dependent launches,
+             the o-proj prefetching its weight tile into L2 before it waits,
+             the attention launch letting the o-proj start after its own
+             wait;
+  no-prefetch  the o-proj waits without prefetching;
+  late-trigger the attention launch lets the o-proj start only once its
+             splits are stored;
+  no-pdl     each launch waits for the one before it to end;
+  spec-tile  the split's first tile copied before its mask bits are known;
+  and the built kernel under other kv splits than ``ops/decode_block.py::
+  kv_split`` (``_kv_plan``): B1's ``decode_kv_split``, the first kv_split
+  (about one block an SM), 128 positions a split, one split.
+b8timeline: the built attention launch and no-pdl with a globaltimer stamp
+  from each block at eight points (B8_TIMELINE), us after the first entry.
+B3, bf16, at the serving row's two points (``ops/roofline.RAGGED_POINTS``)
+and 8 decode rows 1000 deep (a 1024-wide table of blocks of 32): the decode
+tiles' split rule (``ops/ragged_paged_attention.py::ragged_decode_split``)
+against fixed splits of 64, 128 and 256 positions and no split.
 host: B4's and B7's host cost, the wrapper's microseconds per call
   enqueued back to back (least and median of 7 runs of 200) at B4's timed
   shape and B7's Qwen3 batch 1, and B7's device time and us per launch
   at its three timed points.
+tok10: the sync ragged drain's tok/s and the 1B generate() at batch 4
+  with the fused layer on (tok/s), twice each.
 tok: the split serving drain (8 staggered requests of 128 + 128 tokens,
   Llama-3.2-1B shapes, bf16, random weights: aggregate tok/s) twice and
   Qwen3-30B-A3B generate() (batch 1, 128 + 256 tokens, random weights at
   full depth: decode tok/s) twice.
-host and tok, like b6host, use only what earlier trees also have: run
+host, tok and tok10, like b6host, use only what earlier trees also have: run
   parent, change, change, parent in one call.
 b6host: B6's host cost, the wrapper's microseconds per call enqueued back
   to back at the 8B o and down shapes (1 row; the least and the median of 7
@@ -370,7 +393,8 @@ __device__ __forceinline__ void cp_async16_l2_{size}(void* dst, const void* src,
 
 MOE_VARIANTS = {
     "built": [],
-    "no-pdl": [("  cfg.numAttrs = after ? 1 : 0;", "  cfg.numAttrs = 0;")],
+    "no-pdl": [("st, true, part, idx,", "st, false, part, idx,"),
+               ("dim3(MOE_THREADS), 0, st, true,", "dim3(MOE_THREADS), 0, st, false,")],
 }
 for _size in (128, 256):
     _copy, _helper = l2_hint(_size)
@@ -429,6 +453,200 @@ def moe_times(torch, chip_smoke, _cuda, md):
     finally:
         md.moe_h_split, md.moe_stages = split_rule, stage_rule
         md._plan.cache_clear()
+
+
+B8_VARIANTS = {
+    "built": [],
+    "no-prefetch": [("GV_WAIT | GV_PREFETCH>(", "GV_WAIT>(")],
+    "late-trigger": [
+        ("  pdl_launch_dependents();  // the o-proj launch may start prefetching its weights\n", ""),
+        ("  // the attention rows (row b K + t", "  pdl_launch_dependents();\n  // the attention rows (row b K + t"),
+    ],
+    "no-pdl": [("smem, st, true, p);", "smem, st, false, p);"), ("GV_WAIT | GV_PREFETCH>(", "0>(")],
+    "active-first": [("  const int act = p.splits - 1;", "  const int act = 0;")],
+    "qkv-ldcg": [("? src[(z0 + w) * zstride] : 0.f;", "? __ldcg(src + (z0 + w) * zstride) : 0.f;")],
+    "spec-tile": [
+        ("    cp_async_commit();\n  };\n  // the row's K tokens' cos / sin",
+         "    cp_async_commit();\n  };\n  if (slot_ok && nt > 0) load_tile(0, 0);  // before the mask says it lives\n"
+         "  // the row's K tokens' cos / sin"),
+        ("  int j = next_live(0);\n  if (j < nt) load_tile(j, 0);\n",
+         "  int j = next_live(0);\n  if (j != 0 && j < nt) {\n    cp_async_wait<0>();\n    load_tile(j, 0);\n  }\n"),
+    ],
+}
+
+
+#: B8's attention launch with a globaltimer stamp (ns) from thread 0 of each
+#: block at ten points (B8_STAMPS): entry, before and after its wait for the
+#: QKV launch, after its QKV partial loads, after RoPE, at the prior tiles'
+#: start, after them, at the completion count, the combine's start and end
+#: (the last two in the last block only)
+B8_STAMPS = ("entry", "wait", "waited", "qkv", "rope", "tiles", "softmax", "tiled", "counting", "combine", "end",
+             "qkv once")
+B8_TIMELINE = [
+    ("namespace nxdi {\nnamespace {\n",
+     "__device__ unsigned long long nxdi_tl[16384];\n#define TL(k) do { if (threadIdx.x == 0) { unsigned long long t_; "
+     "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t_)); nxdi_tl[((blockIdx.z * gridDim.y + blockIdx.y) * "
+     "gridDim.x + blockIdx.x) * 16 + (k)] = t_; } } while (0)\nnamespace nxdi {\nnamespace {\n"),
+    ("  const int g = blockIdx.x, b = blockIdx.y, z = blockIdx.z;\n",
+     "  const int g = blockIdx.x, b = blockIdx.y, z = blockIdx.z;\n  TL(0);\n"),
+    ("  if (!idle) pdl_wait();  // the QKV partial sums are complete and visible\n",
+     "  TL(1);\n  if (!idle) pdl_wait();  // the QKV partial sums are complete and visible\n  TL(2);\n"),
+    ("      Qs[rr * LQ + d] = sum;  // Kn and Vn follow Qs row for row\n    }\n",
+     "      Qs[rr * LQ + d] = sum;  // Kn and Vn follow Qs row for row\n    }\n"
+     "    TL(3);\n"),
+    ("    if (z == act) {\n      // k_new / v_new", "    TL(4);\n    if (z == act) {\n      // k_new / v_new"),
+    ("    // the prior cache: the split's live tiles, two stages\n",
+     "    TL(5);\n    // the prior cache: the split's live tiles, two stages\n"),
+    ("      __syncwarp();\n", "      TL(6);\n      __syncwarp();\n"),
+    ("  // the attention rows (row b K + t", "  TL(7);\n  // the attention rows (row b K + t"),
+    ("  if (p.splits == 1 || !last_block(", "  TL(8);\n  if (p.splits == 1 || !last_block("),
+    ("  constexpr int ZB = 8;\n", "  TL(9);\n  constexpr int ZB = 8;\n"),
+    ("num[k] / fmaxf(den, 1e-30f));\n  }\n}\n", "num[k] / fmaxf(den, 1e-30f));\n  }\n  TL(10);\n}\n"),
+    ("  return (int)cudaErrorInvalidValue;\n}\n",
+     "  return (int)cudaErrorInvalidValue;\n}\nextern \"C\" int nxdi_tl_read(void* dst) {\n"
+     "  return (int)cudaMemcpyFromSymbol(dst, nxdi_tl, sizeof(nxdi_tl));\n}\nextern \"C\" int nxdi_tl_clear() {\n"
+     "  static unsigned long long z[16384];\n  return (int)cudaMemcpyToSymbol(nxdi_tl, z, sizeof(nxdi_tl));\n}\n"),
+]
+#: diagnostic: the QKV partial loads run twice (same results), stamp 11
+#: ("qkv once") after the first pass
+B8_QKV_TWICE = [("    const int n_el = (rows + 2 * nk) * D;\n",
+                 "    const int n_el = (rows + 2 * nk) * D;\n    for (int pass = 0; pass < 2; ++pass) {\n    if (pass) TL(11);\n"),
+                ("      Qs[rr * LQ + d] = sum;  // Kn and Vn follow Qs row for row\n    }\n",
+                 "      Qs[rr * LQ + d] = sum;  // Kn and Vn follow Qs row for row\n    }\n"
+                 "    }\n")]
+#: diagnostic only (the results are wrong): the QKV partial sums read as 0
+B8_NO_QKV = [("v[w] = z0 + w < p.s_qkv ? src[(z0 + w) * zstride] : 0.f;", "v[w] = 0.f;")]
+
+
+def fused_attn_timeline(torch, chip_smoke, _cuda, db):
+    """Where B8's attention launch spends its time: the timeline variant of
+    the built kernel and of no-pdl at the timed 1B layer, each call after an
+    L2 flush and a spin (as chip_smoke.time_ms); per stamp, the blocks'
+    least / median / largest us after the first block's entry."""
+    variants = {f"timeline {name}": B8_TIMELINE + B8_VARIANTS[name]
+                for name in ("built", "no-pdl", "qkv-ldcg")}
+    variants["timeline qkv twice"] = B8_TIMELINE + B8_QKV_TWICE
+    variants["timeline no-qkv-loads (wrong results)"] = B8_TIMELINE + B8_NO_QKV
+    paths = build_variants(_cuda, "fused_attn_block", variants)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    try:
+        for B in (1, 4):
+            args, _ = chip_smoke.fused_timed_inputs(torch, gen, B)
+            D, Hkv = args[6].shape[-1], args[6].shape[3]
+            kw = dict(scale=D ** -0.5, eps=chip_smoke.FUSED_EPS, n_kv=Hkv)
+            for name, path in paths.items():
+                use(_cuda, "fused_attn_block", path)
+                lib = _cuda._libs["fused_attn_block"]
+                rows = []
+                for _ in range(5):
+                    db.fused_attn_block(*args, **kw)
+                    torch.cuda.synchronize()
+                    lib.nxdi_tl_clear()
+                    flush.zero_()
+                    torch.cuda._sleep(chip_smoke.SPIN_CYCLES)
+                    db.fused_attn_block(*args, **kw)
+                    torch.cuda.synchronize()
+                    buf = (ctypes.c_ulonglong * 16384)()
+                    lib.nxdi_tl_read(buf)
+                    t = np.array(buf, dtype=np.float64).reshape(-1, 16)[:, : len(B8_STAMPS)]
+                    t = t[t[:, 0] > 0]
+                    rows.append((t - t[:, 0].min()) / 1e3)
+                t = np.concatenate(rows)
+                parts = []
+                for k, stamp in enumerate(B8_STAMPS):
+                    col = t[:, k][t[:, k] >= 0]
+                    if len(col):
+                        parts.append(f"{stamp} {col.min():.2f}/{np.median(col):.2f}/{col.max():.2f}")
+                print(f"B8 B={B} {name}: {len(t) // 5} blocks, us after the first entry (least/median/largest): "
+                      + ", ".join(parts), flush=True)
+                z = (np.arange(len(t)) % (len(t) // 5)) // (B * Hkv)  # each block's kv split
+                k, kt = B8_STAMPS.index("counting"), B8_STAMPS.index("tiles")
+                print(f"  by kv split, median us at counting (and at tiles): " + ", ".join(
+                    f"{zz}: {np.median(t[z == zz, k]):.2f} ({np.median(t[z == zz, kt]):.2f})"
+                    for zz in range(z.max() + 1)), flush=True)
+            del args
+    finally:
+        _cuda._libs.pop("fused_attn_block", None)
+        for key in [k for k in _cuda._fns if k[0] == "fused_attn_block"]:
+            del _cuda._fns[key]
+
+
+def fused_attn_times(torch, chip_smoke, _cuda, db):
+    """B8's variants and kv splits at the timed 1B decode layer."""
+    from neuronx_distributed_inference_tpu_torch.ops.decode_attention import decode_kv_split
+
+    paths = build_variants(_cuda, "fused_attn_block", B8_VARIANTS)
+    plan = db._kv_plan
+    def first_rule(S, blocks, sms):  # the first kv_split: about one block per SM, at most 16 splits
+        n = -(-S // 64)
+        per = -(-n // min(n, 16, -(-sms // blocks)))
+        return -(-n // per), per * 64
+
+    rules = {
+        "decode_kv_split": decode_kv_split,
+        "first kv_split": first_rule,
+        "per 128": lambda S, b, s: (-(-S // 128), 128),
+        "one split": lambda S, b, s: (1, -(-S // 16) * 16),
+    }
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    try:
+        for B in (1, 4):
+            args, _ = chip_smoke.fused_timed_inputs(torch, gen, B)
+            D, Hkv = args[6].shape[-1], args[6].shape[3]
+            kw = dict(scale=D ** -0.5, eps=chip_smoke.FUSED_EPS, n_kv=Hkv)
+            runs = [(name, path, None) for name, path in paths.items()]
+            runs += [(f"built, {label}", paths["built"], rule) for label, rule in rules.items()]
+            for name, path, rule in runs:
+                use(_cuda, "fused_attn_block", path)
+                db._kv_plan = plan if rule is None else rule
+                split = db._kv_plan(args[10].shape[-1], B * Hkv, _cuda.sm_count(args[0].device))
+                case = f"B={B} {name} ({split[0]} splits of {split[1]})"
+                chip_smoke.check_fused_attn(torch, db, args, case)
+
+                def f():
+                    return db.fused_attn_block(*args, **kw)
+
+                ms = chip_smoke.time_ms(torch, f)
+                us = chip_smoke.launch_breakdown(torch, f, chip_smoke.B8_LAUNCHES)
+                print(f"B8 {case}: {ms:.4f} ms; device us per launch: "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in us.items()), flush=True)
+            del args
+    finally:
+        db._kv_plan = plan
+        _cuda._libs.pop("fused_attn_block", None)  # the next call loads the kernel as built
+        for key in [k for k in _cuda._fns if k[0] == "fused_attn_block"]:
+            del _cuda._fns[key]
+
+
+def ragged_times(torch, chip_smoke, _cuda, rp):
+    """B3's decode-tile split rule against fixed splits and no split."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import RAGGED_POINTS
+
+    rule = rp.ragged_decode_split
+    points = dict(RAGGED_POINTS)
+    points["decode 1000 deep"] = dict(row_len=(1,) * 8, ctx_len=(1000,) * 8, width=1024, block_size=32)
+    rng = np.random.RandomState(8)
+    try:
+        for name, pt in points.items():
+            bs, width = pt["block_size"], pt["width"]
+            inputs = chip_smoke.ragged_case(
+                torch, rng, list(pt["row_len"]), list(pt["ctx_len"]), 32, 8, 64, bs, width // bs, torch.bfloat16,
+                NB=512,
+            )
+            q, k, v, table, rs, rl, cl, _ = inputs
+            kw = dict(scale=0.125, n_rep=4)
+            for per in (None, 64, 128, 256, width):
+                rp.ragged_decode_split = rule if per is None else (lambda T, w, h, n, s, per=per: (-(-w // per), per))
+                split = rp.ragged_decode_split(q.shape[0], width, 8, 4, _cuda.sm_count(q.device))
+                case = f"{name} point, {'rule' if per is None else 'fixed'} {split[0]} splits of {split[1]}"
+                chip_smoke.check_ragged(torch, rp, inputs, case, chip_smoke.DECODE_ATOL)
+                ms = chip_smoke.time_ms(torch, lambda: rp.ragged_paged_attention(q, k, v, table, rs, rl, cl, **kw))
+                print(f"B3 {case}: {ms:.4f} ms", flush=True)
+    finally:
+        rp.ragged_decode_split = rule
 
 
 def host_us(torch, fn, label):
@@ -496,6 +714,33 @@ def tok(torch, chip_smoke):
         chip_smoke._generate_run(torch, app, 128, 256, f"tok qwen3-30b-a3b generate() #{i}")
 
 
+def tok_ragged_fused(torch, chip_smoke):
+    """The sync ragged drain's aggregate tok/s (B3 on every layer of every
+    step) twice, and Llama-3.2-1B generate() at batch 4 with the fused
+    decode layer on (B8 and B9 on every decode layer) twice, random weights
+    from seed 0. Uses only what earlier trees also have: run parent,
+    change, change, parent in one call."""
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    s = chip_smoke.SERVING
+    cfg = chip_smoke._serving_config(serving_ragged=True, serving_ragged_async=False)
+    app = ModelForCausalLM(None, cfg).load(random_weights=True).warmup()
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, app.spec.vocab_size - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    chip_smoke._serve(torch, app, prompts, s["gen"], TelemetrySession())  # warm pass
+    for i in range(2):
+        sess, total_s = chip_smoke._serve(torch, app, prompts, s["gen"], TelemetrySession())
+        tokens = sum(len(r.generated) for r in sess.requests.values())
+        print(f"tok sync ragged drain #{i}: {total_s * 1e3:.1f} ms, aggregate {tokens / total_s:.1f} tok/s",
+              flush=True)
+    del app, sess
+    torch.cuda.empty_cache()
+    app = ModelForCausalLM(None, chip_smoke._config_fused(4, True)).load(random_weights=True).warmup()
+    for i in range(2):
+        chip_smoke._generate_run(torch, app, 128, 256, f"tok 1b fused generate() #{i}", batch=4)
+
+
 def b6_host(torch, chip_smoke, qmm):
     import time
 
@@ -536,13 +781,15 @@ def main():
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
     from neuronx_distributed_inference_tpu_torch.ops import moe_decode as md
     from neuronx_distributed_inference_tpu_torch.ops import quant_matmul as qmm
+    from neuronx_distributed_inference_tpu_torch.ops import ragged_paged_attention as rp
+    from neuronx_distributed_inference_tpu_torch.ops import decode_block as db
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
-    parts = set(sys.argv[1:]) or {"b2", "b1", "b4", "b6", "b7"}
+    parts = set(sys.argv[1:]) or {"b2", "b1", "b4", "b6", "b7", "b8", "b3"}
     print(f"tree: {REPO}", flush=True)
     if "b2" in parts:
         flash_times(torch, chip_smoke, _cuda, fa)
@@ -554,12 +801,20 @@ def main():
         paged_times(torch, chip_smoke, _cuda, da)
     if "b7" in parts:
         moe_times(torch, chip_smoke, _cuda, md)
+    if "b8" in parts:
+        fused_attn_times(torch, chip_smoke, _cuda, db)
+    if "b8timeline" in parts:
+        fused_attn_timeline(torch, chip_smoke, _cuda, db)
+    if "b3" in parts:
+        ragged_times(torch, chip_smoke, _cuda, rp)
     if "b6host" in parts:
         b6_host(torch, chip_smoke, qmm)
     if "host" in parts:
         host(torch, chip_smoke, da, md)
     if "tok" in parts:
         tok(torch, chip_smoke)
+    if "tok10" in parts:
+        tok_ragged_fused(torch, chip_smoke)
 
 
 if __name__ == "__main__":

@@ -241,13 +241,93 @@ def test_gemv_split(n_cols, rows, kdim, want):
 
 @pytest.mark.parametrize(
     "S_kv, blocks, want",
-    [(512, 8, (8, 1)), (512, 32, (4, 2)), (1024, 32, (4, 4)), (100, 8, (2, 1)), (512, 256, (1, 8)),
-     (2048, 8, (16, 2))],
+    [(512, 8, (8, 1)), (512, 32, (8, 1)), (1024, 32, (16, 1)), (100, 8, (2, 1)), (512, 256, (2, 4)),
+     (2048, 8, (32, 1)), (4096, 8, (32, 2)), (512, 1024, (1, 8))],
 )
 def test_kv_split(S_kv, blocks, want):
-    """Tiles of 64 positions over about one block per SM; every split
-    non-empty."""
+    """Tiles of 64 positions, one a split while the grid stays within 4
+    blocks an SM (the 1B layer at batch 1 and 4: 8 splits), at most 32
+    splits; every split non-empty."""
     splits, per = tdb.kv_split(S_kv, blocks, sms=132)
     assert (splits, per) == want
     n_tiles = -(-S_kv // tdb.ATTN_TILE)
     assert (splits - 1) * per < n_tiles <= splits * per
+
+
+H100_SMS = 132
+
+
+@pytest.mark.parametrize(
+    "S_kv, blocks", [(512, 8), (512, 32), (1024, 32), (100, 8), (512, 256), (2048, 8), (4096, 4)]
+)
+def test_kv_plan_covers_the_mask_in_tiles(S_kv, blocks):
+    """The attention launch's split in positions: kv_split's tiles of 64,
+    a multiple of 16, every position in one split, no split empty."""
+    splits, per = tdb._kv_plan(S_kv, blocks, sms=H100_SMS)
+    assert (splits, per // tdb.ATTN_TILE) == tdb.kv_split(S_kv, blocks, sms=H100_SMS)
+    assert per % 16 == 0 and splits <= tdb.MAX_KV_SPLITS
+    assert (splits - 1) * per < S_kv <= splits * per
+
+
+def _attn_split_model(inp):
+    """B8's attention launch in PyTorch, fp32: the q rows and the new k / v
+    from the normed input's QKV product with RoPE; split z of _kv_plan's
+    splits scores the prior positions [z per, (z + 1) per) under the prior
+    mask, and split 0 also the row's new tokens (causal); each split's
+    (m, l, acc), combined in split order (M = max m_z, weights e^(m_z - M)),
+    out = num / max(den, 1e-30); then x + attn @ Wout. Returns (out,
+    splits)."""
+    t = {k: torch.from_numpy(np.array(v)) if k != "layer_idx" else v for k, v in inp.items()}
+    x, wqkv, wout = t["x"], t["wqkv"], t["wout"]
+    Bq, K, _ = x.shape
+    S = t["mask"].shape[-1]
+    n_rep = Hq // Hkv
+    normed = tdb._rms(x, t["gamma"], EPS)
+    qkv = normed @ wqkv
+    q = tdb._rope(qkv[..., : Hq * D].reshape(Bq, K, Hq, D), t["cos"], t["sin"])
+    k = tdb._rope(qkv[..., Hq * D : (Hq + Hkv) * D].reshape(Bq, K, Hkv, D), t["cos"], t["sin"])
+    v = qkv[..., (Hq + Hkv) * D :].reshape(Bq, K, Hkv, D)
+    lines = t["slot_ids"].long()
+    kp = t["k_cache"][t["layer_idx"]][lines, :S].repeat_interleave(n_rep, dim=2)  # (B, S, Hq, D)
+    vp = t["v_cache"][t["layer_idx"]][lines, :S].repeat_interleave(n_rep, dim=2)
+    kn, vn = k.repeat_interleave(n_rep, dim=2), v.repeat_interleave(n_rep, dim=2)
+    prior = tdb.prior_mask(t["mask"], t["positions"])[:, 0][:, None]  # (B, 1, K, S)
+    causal = torch.ones(K, K, dtype=torch.bool).tril()[None, None]
+    s_pri = torch.einsum("bthd,bshd->bhts", q, kp) * (D ** -0.5)
+    s_act = torch.einsum("bthd,bshd->bhts", q, kn) * (D ** -0.5)
+    splits, per = tdb._kv_plan(S, Bq * Hkv, H100_SMS)
+    parts = []
+    for z in range(splits):
+        sl = slice(z * per, min((z + 1) * per, S))
+        sc, ok, vals = s_pri[..., sl], prior[..., sl].expand_as(s_pri[..., sl]), vp[:, sl]
+        if z == 0:
+            sc = torch.cat([s_act, sc], dim=-1)
+            ok = torch.cat([causal.expand_as(s_act), ok], dim=-1)
+            vals = torch.cat([vn, vals], dim=1)
+        sz = torch.where(ok, sc, tdb.NEG_INF)
+        mz = sz.amax(dim=-1)
+        pz = torch.where(ok, torch.exp(sz - mz[..., None]), 0.0)
+        parts.append((mz, pz.sum(dim=-1), torch.einsum("bhts,bshd->bhtd", pz, vals)))
+    M = torch.stack([mz for mz, _, _ in parts]).amax(dim=0)
+    den = torch.zeros_like(M)
+    num = torch.zeros_like(parts[0][2])
+    for mz, lz, az in parts:  # split order
+        w = torch.exp(mz - M)
+        den = den + lz * w
+        num = num + az * w[..., None]
+    attn = (num / torch.clamp(den, min=1e-30)[..., None]).permute(0, 2, 1, 3).reshape(Bq, K, Hq * D)
+    return x + attn @ wout, splits
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_attn_split_algorithm_matches_jax_kernel(K):
+    """B8's split-and-combine algorithm (_attn_split_model: the prior cache
+    over _kv_plan's splits, the active part in split 0) against the JAX
+    kernel in interpret mode, rows deep enough to span several splits:
+    fp32 within 2e-5 plus 1e-5 of |out| (outputs reach ~15 here, and the
+    split sums run in another order than the kernel's sequential grid)."""
+    inp = _attn_inputs(K, seed=29, starts=(300, 70))
+    ref = _np(_jax_attn(inp)[0])
+    out, splits = _attn_split_model(inp)
+    assert splits > 1
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATTN_ATOL, rtol=1e-5)

@@ -80,13 +80,15 @@ def test_moe_decode_matches_plain_on_the_card(cuda_card):
 @pytest.mark.gpu
 def test_fused_blocks_match_plain_on_the_card(cuda_card):
     """B8 against its plain version at D 64 and 128, GQA 4:1 and 8:1, batch
-    1 and 4, K 1 and 4, buckets 512 and 1024, bf16 and fp32, and rows on the
-    garbage line; B9 at Llama-3.2-1B's MLP and widths no tile divides, silu
-    and the tanh gelu. Each case checks that its kernel launched once."""
+    1 and 4, K 1 and 4, buckets 512 and 1024, bf16 and fp32, rows on the
+    garbage line and blocks of 64 query rows (K 16 and 8 at D 128), each
+    case bit-identical over two more launches; B9 at Llama-3.2-1B's MLP and
+    widths no tile divides, silu and the tanh gelu. Each case checks that
+    its kernel launched once."""
     sys.path.insert(0, REPO)
     import chip_smoke
     from neuronx_distributed_inference_tpu_torch.ops import decode_block as db
 
     n_attn, n_mlp = chip_smoke.phase_fused_parity(torch, db)
-    assert n_attn == 2 * 2 * 2 * 2 * len(chip_smoke.FUSED_ATTN_SHAPES) + 4
+    assert n_attn == 2 * 2 * 2 * 2 * len(chip_smoke.FUSED_ATTN_SHAPES) + 4 + 2 * 2 * len(chip_smoke.FUSED_FULL_ROWS)
     assert n_mlp == 2 * 2 * 2 * 2 * len(chip_smoke.FUSED_MLP_SHAPES)
