@@ -54,10 +54,12 @@ Phases, in order; any failure exits non-zero:
      teacher-forced gate on its first 4 layers with the router's top-k flips
      counted. B1 and B2 also run at its GQA 8:1 shape in phases 3 and 4;
  10. the fused decode layer: B8 (the attention block) and B9 (the MLP
-     block) against their plain versions (D 64 and 128, GQA 4:1 and 8:1,
-     batch 1 and 4, K 1 and 4, buckets 512 and 1024, rows on the garbage
-     line, silu and the tanh gelu, widths no tile divides), timed at the 1B
-     decode layer at batch 1 and 4 beside the unfused layer, then
+     block) against their plain versions (B8: D 64 and 128, GQA 4:1 and
+     8:1, batch 1 and 4, K 1 and 4, buckets 512 and 1024, rows on the
+     garbage line; B9: 1 to 80 rows, silu and the tanh gelu, widths no tile
+     divides), each case launched twice more, bit-identical; timed at the
+     1B decode layer at batch 1 and 4 beside the unfused layer (B9 also at
+     16 rows and at Llama-3.1-8B's MLP width), then
      Llama-3.2-1B generate() at batch 4 (bf16_1b_bs4) and batch 1 with the
      fused layer on and off in turn (exact counts, tok/s, TTFT, profiles)
      and its teacher-forced gate.
@@ -1503,7 +1505,7 @@ def port_kernel_name(name):
     ``split_kernel<__nv_bfloat16, 64, 2>``."""
     import re
 
-    m = re.search(r"nxdi::(?:\(anonymous namespace\)::)?(\w+(?:<[^()]*>)?)", name)
+    m = re.search(r"nxdi::(?:\(anonymous namespace\)::)?(\w+(?:<(?:[^()]|\(anonymous namespace\))*>)?)", name)
     return m.group(1) if m else name[:60]
 
 
@@ -2005,6 +2007,11 @@ def phase_ragged_serving(torch, params, split_tokens):
     return dict(runs=runs, profile=profile, forced=forced)
 
 
+#: B3's kernels by profiler name: the fp32 launch and the bf16 one (tensor-core
+#: prefill tiles and split decode tiles)
+B3_KERNELS = ("ragged_paged_kernel", "ragged_bf16_kernel")
+
+
 def phase_ragged_profile(torch, app, prompts, label, steps=16):
     """Where a steady-state ragged step's time goes: 8 requests decoding,
     ``steps`` step() calls per traced chunk, on the app of one form (sync
@@ -2029,8 +2036,8 @@ def phase_ragged_profile(torch, app, prompts, label, steps=16):
         torch.cuda.synchronize()
 
     prof = profile_chunk(torch, chunk, steps, f"ragged serving step (8 rows decoding, {label}, {steps} steps)")
-    b3 = sum(ms for name, ms in prof["kernel_ms_per_step"].items() if "ragged_paged_kernel" in name)
-    log(f"  B3 (ragged_paged_kernel) {b3:.4f} ms/step")
+    b3 = sum(ms for name, ms in prof["kernel_ms_per_step"].items() if any(k in name for k in B3_KERNELS))
+    log(f"  B3 ({' + '.join(B3_KERNELS)}) {b3:.4f} ms/step")
     sess.run_to_completion()
     return dict(prof, b3_ms_per_step=b3)
 
@@ -2772,6 +2779,10 @@ FUSED_ATTN_SHAPES = [
 #: (label, H, I) of B9's parity cases: Llama-3.2-1B's MLP, widths no 64-wide
 #: tile divides, and an odd I (element loads)
 FUSED_MLP_SHAPES = [("1b", 2048, 8192), ("ragged tile", 1000, 1500), ("odd", 512, 333)]
+#: (B, K) of B9's parity cases: 1, 2, 3 rows (the FMA body's row tiles), 5
+#: to 64 (the tensor-core body's 16 to 64 rows, every weight read once) and
+#: 80 (two passes of 64 rows)
+FUSED_MLP_ROWS = [(1, 1), (2, 1), (3, 1), (5, 1), (2, 4), (4, 4), (3, 8), (5, 8), (4, 16), (5, 16)]
 
 
 def check_fused(torch, out, ref, mag, case, what):
@@ -2878,12 +2889,25 @@ def fused_mlp_inputs(torch, gen, B, K, H, I, dtype):
             rn(H, I, std=H ** -0.5).to(dtype), rn(I, H, std=I ** -0.5).to(dtype))
 
 
+def mlp_plan_text(torch, db, x, I):
+    """B9's two grids at x's rows, as the wrapper plans them."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    B, K, H = x.shape
+    (s_gu, k_gu), (s_d, k_d), _, _ = db.mlp_plan(H, I, B * K, x.element_size(), _cuda.sm_count(x.device))
+    cols = db.GEMV_COLS
+    return (f"gate/up {-(-I // cols)} tiles x {s_gu} splits of {k_gu}, down {-(-H // cols)} tiles x {s_d} "
+            f"splits of {k_d}")
+
+
 def check_fused_mlp(torch, db, args, act, case):
     """One B9 launch (exactly one count) against its plain version (mag:
     |x| + |act(g) u| @ |Wd|). Returns the max abs error."""
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
 
     x, gamma, wg, wu, wd = args
+    if DEV != "cpu":
+        case = f"{case} ({mlp_plan_text(torch, db, x, wg.shape[1])})"
     before = _cuda.launch_counts()["fused_mlp_block"]
     out = db.fused_mlp_block(*args, eps=FUSED_EPS, act=act)
     torch.cuda.synchronize()
@@ -2906,8 +2930,9 @@ def phase_fused_parity(torch, db):
     mask and the 64-row blocks of FUSED_FULL_ROWS (K 16 and 8 at D 128);
     each B8 case launched twice more on the same scratch and counters and
     required bit-identical (its completion counters reset themselves); B9
-    over FUSED_MLP_SHAPES at batch 1 and 4, K 1 and 4, silu and the tanh
-    gelu, bf16 and fp32. Returns (B8 cases, B9 cases)."""
+    over FUSED_MLP_SHAPES at the (B, K) of FUSED_MLP_ROWS (1 to 80 rows),
+    silu and the tanh gelu, bf16 and fp32, each case launched twice more
+    and required bit-identical. Returns (B8 cases, B9 cases)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(13)
     n_attn = n_mlp = 0
@@ -2947,13 +2972,16 @@ def phase_fused_parity(torch, db):
     torch.cuda.empty_cache()
     for label, H, I in FUSED_MLP_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            for B in (1, 4):
-                for K in (1, 4):
-                    args = fused_mlp_inputs(torch, gen, B, K, H, I, dtype)
-                    for act in ("silu", "gelu_pytorch_tanh"):
-                        case = f"{label} H={H} I={I} {str(dtype)[6:]} B={B} K={K} {act}"
-                        worst_mlp = max(worst_mlp, check_fused_mlp(torch, db, args, act, case))
-                        n_mlp += 1
+            for B, K in FUSED_MLP_ROWS:
+                args = fused_mlp_inputs(torch, gen, B, K, H, I, dtype)
+                for act in ("silu", "gelu_pytorch_tanh"):
+                    case = f"{label} H={H} I={I} {str(dtype)[6:]} B={B} K={K} ({B * K} rows) {act}"
+                    worst_mlp = max(worst_mlp, check_fused_mlp(torch, db, args, act, case))
+                    check_repeat(torch, "fused_mlp_block",
+                                 lambda: db.fused_mlp_block(*args, eps=FUSED_EPS, act=act), case)
+                    n_mlp += 1
+                del args
+            torch.cuda.empty_cache()
     log(f"fused_attn_block: {n_attn} cases agree with the plain version (largest abs err {worst_attn:.3e})")
     log(f"fused_mlp_block: {n_mlp} cases agree with the plain version (largest abs err {worst_mlp:.3e})")
     return n_attn, n_mlp
@@ -3001,14 +3029,15 @@ def phase_fused_times(torch, db):
     inputs, the port's eager path with B1: the attention half (rmsnorm,
     fused QKV, RoPE, the cache scatter, B1, o-proj, residual) and the MLP
     half (rmsnorm, gated_mlp, residual), and the whole layer each way (B8,
-    the scatter and B9 against the two unfused halves). No single PyTorch
-    call computes either block: no library time."""
+    the scatter and B9 against the two unfused halves); then B9 alone at
+    the other FUSED_POINTS (16 rows of the 1B MLP, the 8B MLP at batch 1).
+    No single PyTorch call computes either block: no library time."""
     from neuronx_distributed_inference_tpu_torch.models.base import ModelSpec, gated_mlp
     from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec, o_project, qkv_project
     from neuronx_distributed_inference_tpu_torch.modules.kvcache import update_cache_at_layer
     from neuronx_distributed_inference_tpu_torch.modules.norm import rms_norm
     from neuronx_distributed_inference_tpu_torch.ops.decode_attention import tkg_decode_attention
-    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_1B, attn_block, mlp_block
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import FUSED_POINTS, MODEL_1B, attn_block, mlp_block
 
     m = MODEL_1B
     H, Hq, Hkv, D, I = m["H"], m["Hq"], m["Hkv"], m["D"], m["I"]
@@ -3084,30 +3113,81 @@ def phase_fused_times(torch, db):
         )
         del kc, vc, wqkv, wout, wg, wu, wd
         torch.cuda.empty_cache()
+    for label, pt in FUSED_POINTS.items():
+        if pt["prior"] is None:  # B9 alone: 16 rows of the 1B MLP, the 8B MLP at batch 1
+            rows[("fused_mlp_block", label)] = time_mlp_point(torch, db, gen, label, pt["m"], pt["batch"])
     return rows
+
+
+def mlp_timed_inputs(torch, gen, m, B):
+    """B9's arguments at one decode step of the widths ``m`` (bf16, K=1,
+    ``B`` rows, weights of std 0.02, as fused_timed_inputs)."""
+    def rn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device=DEV) * std).to(torch.bfloat16)
+
+    H, I = m["H"], m["I"]
+    return (rn(B, 1, H), 1 + rn(H, std=0.1), rn(H, I, std=0.02), rn(H, I, std=0.02), rn(I, H, std=0.02))
+
+
+def time_mlp_point(torch, db, gen, label, m, B):
+    """B9 alone at one timed point: held to its plain version, then timed
+    beside it, its bound and the unfused MLP half (rmsnorm, gated_mlp,
+    residual), with its device us per launch."""
+    from neuronx_distributed_inference_tpu_torch.models.base import ModelSpec, gated_mlp
+    from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec
+    from neuronx_distributed_inference_tpu_torch.modules.norm import rms_norm
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import mlp_block
+
+    args = mlp_timed_inputs(torch, gen, m, B)
+    x, g2, wg, wu, wd = args
+    H, I = m["H"], m["I"]
+    err = check_fused_mlp(torch, db, args, "silu", f"timed {label} B={B} K=1 H={H} I={I} bf16 silu")
+    spec = ModelSpec(num_layers=m["L"], vocab_size=8, rms_eps=FUSED_EPS,
+                     attn=AttnSpec(num_heads=m["Hq"], num_kv_heads=m["Hkv"], head_dim=m["D"]))
+    mlp_p = {"gate_proj": {"weight": wg}, "up_proj": {"weight": wu}, "down_proj": {"weight": wd}}
+    ms = time_ms(torch, lambda: db.fused_mlp_block(*args, eps=FUSED_EPS))
+    plain_ms = time_ms(torch, lambda: db.fused_mlp_block_plain(*args, eps=FUSED_EPS), iters=10)
+    unfused_ms = time_ms(torch, lambda: x + gated_mlp(mlp_p, rms_norm(x, g2, FUSED_EPS), spec), spin=UNFUSED_SPIN)
+    us = launch_breakdown(torch, lambda: db.fused_mlp_block(*args, eps=FUSED_EPS), B9_LAUNCHES)
+    bm, bm_by = bound(*mlp_block(m, B))
+    log(f"  launches inside B9 at {label}, device us: " + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
+    log(
+        f"fused_mlp_block {label} B={B} K=1 H={H} I={I} bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"unfused MLP half {unfused_ms:.4f} ms, bound {bm:.5f} ms ({bm_by}), {bm / ms:.3f} of the bound"
+    )
+    del args, x, wg, wu, wd
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bm, bound_by=bm_by, max_abs_err=err,
+                unfused_ms=unfused_ms, launches_us=us)
 
 
 #: the grid launches of one B7, one B8 and one B9 call, in launch order
 B7_LAUNCHES = ("gate/up", "down", "combine")
 B8_LAUNCHES = ("QKV", "attention", "o-proj")
-B9_LAUNCHES = ("rmsnorm", "gate/up", "down", "residual")
+B9_LAUNCHES = ("gate/up", "down")
 
 
 def launch_breakdown(torch, fn, labels, n=10):
     """Device time in us of each grid launch inside one call of ``fn``
-    (``labels`` names them in launch order): torch.profiler over ``n``
-    calls, the L2 evicted and a spin queued before each (as in time_ms, so
-    the call's launches are queued before the card reaches them). A
-    programmatic dependent launch starts before the one before it ends and
-    waits inside, so each later launch also gets "<label> past <previous>":
-    from the later of its start and the previous launch's end to its own
-    end, the time the call spends on it alone."""
+    (``labels`` names them in launch order; each is a kernel of its own
+    name): torch.profiler over ``n`` calls, the L2 evicted and a spin queued
+    before each (as in time_ms, so the call's launches are queued before
+    the card reaches them). A programmatic dependent launch starts before
+    the one before it ends and waits inside, so each later launch also gets
+    "<label> past <previous>": from the later of its start and the previous
+    launch's end to its own end, the time the call spends on it alone. A
+    trace may drop a launch (most often its first), so the launches are
+    grouped into calls by the spin's gap, the labels follow the name order
+    of the calls that hold every launch, and the averages are over those
+    calls; a trace with fewer than half of them is taken again (twice at
+    most), then fails."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):  # a second trace if the first came back with no kernel at all
+    calls = []
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 flush.zero_()
@@ -3118,19 +3198,22 @@ def launch_breakdown(torch, fn, labels, n=10):
             (e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and "nxdi" in e.name),
             key=lambda e: e.time_range.start,
         )
-        if ours:
+        groups = []
+        for e in ours:  # a new call after a gap of more than 100 us (the spin is ~500 us)
+            if not groups or e.time_range.start - groups[-1][-1].time_range.end > 100:
+                groups.append([])
+            groups[-1].append(e)
+        calls = [g for g in groups if len(g) == len(labels) and len({e.name for e in g}) == len(labels)]
+        if len(calls) >= n // 2:
             break
-    if len(ours) != n * len(labels):
-        raise SystemExit(f"launch breakdown: {len(ours)} kernels for {n} calls of {labels}")
-    by = {label: 0.0 for label in labels}
-    by.update({f"{b} past {a}": 0.0 for a, b in zip(labels, labels[1:])})
-    for i, e in enumerate(ours):
-        k = i % len(labels)
-        by[labels[k]] += e.time_range.elapsed_us() / n
-        if k:
-            prev = ours[i - 1].time_range
-            past = e.time_range.end - max(e.time_range.start, prev.end)
-            by[f"{labels[k]} past {labels[k - 1]}"] += past / n
+    else:
+        raise SystemExit(f"launch breakdown: {len(calls)} whole calls of {labels} in {n}")
+    order = max({tuple(e.name for e in g) for g in calls}, key=lambda o: sum(tuple(e.name for e in g) == o for g in calls))
+    calls = [g for g in calls if tuple(e.name for e in g) == order]
+    by = {label: sum(g[k].time_range.elapsed_us() for g in calls) / len(calls) for k, label in enumerate(labels)}
+    for k in range(1, len(labels)):
+        past = [g[k].time_range.end - max(g[k].time_range.start, g[k - 1].time_range.end) for g in calls]
+        by[f"{labels[k]} past {labels[k - 1]}"] = sum(past) / len(past)
     return by
 
 

@@ -34,16 +34,19 @@
 // tiles, then RoPE and the active part, then the cache tiles, then o-proj
 // tiles) with fp32 scratch carried from step to step. Blocks on Hopper run
 // in no order and carry nothing, so this is three grid launches from one
-// entry (one B8 launch), joined by programmatic dependent launch
-// (common.cuh): each starts while the one before runs and waits for it
-// (griddepcontrol) only where it reads that launch's output.
-//   a. QKV (csrc/decode_gemv.cuh, GV_NORM | GV_TRIGGER): one block per 32
-//      columns of Wqkv and up to 4 rows, H split over the grid's z axis
-//      where the column tiles alone do not fill the card. Each block
-//      computes its rows' rmsnorm itself, in the order of the separate
-//      rmsnorm launch it replaces, and stages the normed input rounded to
-//      the weight dtype: the same values bit for bit. fp32 partial sums. It
-//      lets (b) start at once and keeps the SMs' shared memory for it.
+// entry (one B8 launch). The o-proj is a programmatic dependent launch
+// (common.cuh) of the attention launch: it starts while (b) runs and waits
+// for it (griddepcontrol) where it reads its output. The attention launch
+// waits for the QKV launch to end: the product loop's blocks fill the SMs,
+// so an attention block started early only lands where a QKV block has
+// left, crowded, and ran the launch slower than one started after it
+// (scripts/torch_attention_variants.py b8, "attn-pdl").
+//   a. QKV (csrc/decode_gemv.cuh, GV_NORM): one block per 128 columns of
+//      Wqkv holding every row, H split over the grid's z axis where the
+//      column tiles alone do not fill the card (24 tiles x 11 splits at
+//      1B). Each block computes its rows' rmsnorm itself, in the order of
+//      a one-block-per-row rmsnorm, and stages the normed input rounded to
+//      the weight dtype. fp32 partial sums.
 //   b. attention, on B1's split template (csrc/decode_attention.cu
 //      split_kernel): one block of 4 warps per (kv head, batch row, kv
 //      split of `per` positions: one 64-position tile a split while the
@@ -51,15 +54,14 @@
 //      warp w owns query rows w, w + 4, ... (row hl K + t is local q head hl
 //      at token t, rep-major, so GQA needs no repeat_kv), their scores,
 //      online softmax (warp shuffles) and fp32 accumulators in registers,
-//      the probabilities through a per-warp shared row. While (a) runs the
-//      block reads its split's mask bytes once into a bit per (token,
-//      position) in shared memory (the prior mask: this step's slots out,
-//      positions past S_kv out), so no mask byte is read in the score loop
-//      and dead 64-position tiles are skipped; it issues its first live
-//      tile's 16-byte cp.async and stages its tokens' cos / sin. A split
-//      with no live tile stores (NEG_INF, 0, 0) without waiting for (a).
-//      After the wait the others add the QKV partials in split order and
-//      apply RoPE in fp32 to their q rows; the last split (at a decode
+//      the probabilities through a per-warp shared row. The block reads
+//      its split's mask bytes once into a bit per (token, position) in
+//      shared memory (the prior mask: this step's slots out, positions past
+//      S_kv out), so no mask byte is read in the score loop and dead
+//      64-position tiles are skipped; it issues its first live tile's
+//      16-byte cp.async and stages its tokens' cos / sin. A split with no
+//      live tile stores (NEG_INF, 0, 0). The others add the QKV partials in
+//      split order and apply RoPE in fp32 to their q rows; the last split (at a decode
 //      step's usual depth the one with the fewest live tiles) also ropes
 //      the new keys, writes k_new / v_new and runs the active part over the
 //      K new columns alone (causal). The live tiles stream through two
@@ -69,11 +71,10 @@
 //      kv head) to finish (a completion counter, common.cuh last_block)
 //      combines all splits in split order and writes the attention rows
 //      rounded to the o-proj weight's dtype. One split finalizes in place.
-//   c. o-proj (the GEMV with ResidualSink, GV_WAIT | GV_PREFETCH): fp32
-//      partial sums over a split of Hq D; each block prefetches its weight
-//      tile into L2 while (b) runs, then waits for it. The last split block
-//      of a column tile adds x and the partials in split order and rounds
-//      once.
+//   c. o-proj (the GEMV with ResidualSink, GV_WAIT): fp32 partial sums
+//      over a split of Hq D; each block issues its first weight stages
+//      while (b) runs, then waits for it. The last split block of a column
+//      tile adds x and the partials in split order and rounds once.
 // The counters return to 0 in the block that finishes, so a call needs no
 // host reset. No atomics in any sum: every sum runs in a fixed order, so
 // greedy tokens repeat.
@@ -229,16 +230,15 @@ __global__ void __launch_bounds__(AT_THREADS) attn_kernel(const AttnParams p) {
     for (int k = 0; k < DPL; ++k) acc[i][k] = 0.f;
   }
   // a split with no live tile (and not the active part's) stores (NEG_INF,
-  // 0, 0) without waiting: it reads nothing the QKV launch writes
+  // 0, 0): it reads nothing the QKV launch writes
   const bool idle = j >= nt && z != act;
-  if (!idle) pdl_wait();  // the QKV partial sums are complete and visible
-  pdl_launch_dependents();  // the o-proj launch may start prefetching its weights
+  pdl_launch_dependents();  // the o-proj launch may start issuing its weight stages
   if (!idle) {
 
     // the q rows and, in the last split, the new tokens' k and v: the QKV
     // partial sums added in split order, ZQ splits' loads issued before
     // their adds
-    constexpr int ZQ = 4;
+    constexpr int ZQ = 8;
     const int n_el = (rows + 2 * nk) * D;
     const size_t zstride = (size_t)BK * p.N3;
     for (int idx = tid; idx < n_el; idx += AT_THREADS) {
@@ -468,7 +468,7 @@ template <typename T, int D, int RW>
 cudaError_t attn_launch(const AttnParams& p, cudaStream_t st) {
   const int rows = (p.Hq / p.Hkv) * p.K;
   const size_t smem = AttnTile<T, D>::smem(rows, p.K, RW, p.per);
-  return launch_ex(attn_kernel<T, D, RW>, dim3(p.Hkv, p.B, p.splits), dim3(AT_THREADS), smem, st, true, p);
+  return launch_ex(attn_kernel<T, D, RW>, dim3(p.Hkv, p.B, p.splits), dim3(AT_THREADS), smem, st, false, p);
 }
 
 template <typename T, int D>
@@ -479,19 +479,19 @@ cudaError_t attn_dispatch(const AttnParams& p, cudaStream_t st) {
 
 template <typename T>
 cudaError_t block_launch(const T* x, const T* gamma, const T* wqkv, const T* wout, AttnParams p, float* o_part,
-                         unsigned* o_counter, T* out, int H, int D, int s_o, int kps_qkv, int kps_o, int vec,
-                         float eps, cudaStream_t st) {
+                         unsigned* o_counter, T* out, int H, int D, int s_o, int kps_qkv, int kps_o, float eps,
+                         cudaStream_t st) {
   const int BK = p.B * p.K;
   const int HqD = p.Hq * D;
-  cudaError_t err = gemv_launch<T, 1, PartialSink, GV_NORM | GV_TRIGGER>(
-      x, wqkv, (const T*)nullptr, H, p.N3, BK, p.s_qkv, kps_qkv, vec,
-      PartialSink{const_cast<float*>(p.qkv_part), BK, p.N3}, st, gamma, eps);
+  const GemvArgs<T> qkv{x, wqkv, nullptr, gamma, eps, H, p.N3, BK, kps_qkv, 0, 0, 0};
+  cudaError_t err = gemv_launch<T, 1, PartialSink, GV_NORM>(
+      qkv, p.s_qkv, PartialSink{const_cast<float*>(p.qkv_part), BK, p.N3}, st);
   if (err != cudaSuccess) return err;
   err = D == 64 ? attn_dispatch<T, 64>(p, st) : attn_dispatch<T, 128>(p, st);
   if (err != cudaSuccess) return err;
-  return gemv_launch<T, 1, ResidualSink<T>, GV_WAIT | GV_PREFETCH>(
-      static_cast<const T*>(p.attn), wout, (const T*)nullptr, HqD, H, BK, s_o, kps_o, vec,
-      ResidualSink<T>{o_part, x, out, o_counter, BK, H}, st);
+  const GemvArgs<T> o{static_cast<const T*>(p.attn), wout, nullptr, nullptr, 0.f, HqD, H, BK, kps_o, 0, 0, 0};
+  return gemv_launch<T, 1, ResidualSink<T>, GV_WAIT>(
+      o, s_o, ResidualSink<T>{o_part, x, out, o_counter, BK, H}, st);
 }
 
 }  // namespace
@@ -504,11 +504,11 @@ cudaError_t block_launch(const T* x, const T* gamma, const T* wqkv, const T* wou
 // t * mask_st + s, S_kv <= S_max wide. Scratch: qkv_part (s_qkv, B K, N3),
 // m_part / l_part (s_kv, B K, Hq), acc_part (s_kv, B K, Hq D) and o_part
 // (s_o, B K, H), fp32; attn (B K, Hq D) in x's dtype; counters: B Hkv for
-// the attention launch, then one per o-proj (row tile, column tile), zero
-// on entry and left zero. Outputs: out (B, K, H), k_new / v_new (B, K,
+// the attention launch, then one per 128 o-proj columns, zero on entry and
+// left zero. Outputs: out (B, K, H), k_new / v_new (B, K,
 // Hkv, D). The QKV product splits H s_qkv ways (kps_qkv each), the prior
 // cache splits s_kv ways (per positions each, a multiple of 16), the o-proj
-// splits Hq D s_o ways (kps_o each). vec = 1 allows 16-byte weight loads.
+// splits Hq D s_o ways (kps_o each), both a multiple of 64.
 // Three launches on the stream, one B8 launch.
 extern "C" int nxdi_fused_attn_block(
     const void* x, const void* gamma, const void* wqkv, const void* wout, const void* cos, const void* sin,
@@ -516,7 +516,7 @@ extern "C" int nxdi_fused_attn_block(
     void* qkv_part, void* m_part, void* l_part, void* acc_part, void* attn, void* o_part, void* counters, void* out,
     void* k_new, void* v_new,
     int B, int K, int H, int Hq, int Hkv, int D, int L, int R, int S_max, int S_kv, int layer, int mask_sb,
-    int mask_st, int s_qkv, int kps_qkv, int s_kv, int per, int s_o, int kps_o, int dtype, int vec,
+    int mask_st, int s_qkv, int kps_qkv, int s_kv, int per, int s_o, int kps_o, int dtype,
     float scale, float eps, void* stream) {
   using namespace nxdi;
   if (B < 1 || K < 1 || K > 16 || Hkv < 1 || Hq % Hkv != 0 || (Hq / Hkv) * K > AT_MAX_ROWS ||
@@ -537,12 +537,12 @@ extern "C" int nxdi_fused_attn_block(
   if (dtype == kFloat32)
     return (int)block_launch<float>(static_cast<const float*>(x), static_cast<const float*>(gamma),
                                     static_cast<const float*>(wqkv), static_cast<const float*>(wout), p, op, o_cnt,
-                                    static_cast<float*>(out), H, D, s_o, kps_qkv, kps_o, vec, eps, st);
+                                    static_cast<float*>(out), H, D, s_o, kps_qkv, kps_o, eps, st);
   if (dtype == kBFloat16) {
     using Bf = __nv_bfloat16;
     return (int)block_launch<Bf>(static_cast<const Bf*>(x), static_cast<const Bf*>(gamma),
                                  static_cast<const Bf*>(wqkv), static_cast<const Bf*>(wout), p, op, o_cnt,
-                                 static_cast<Bf*>(out), H, D, s_o, kps_qkv, kps_o, vec, eps, st);
+                                 static_cast<Bf*>(out), H, D, s_o, kps_qkv, kps_o, eps, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -184,7 +184,8 @@ def sm_count(device) -> int:
 
 
 #: (device index, stream) -> one fp32 scratch buffer, grown to the largest
-#: call: the split partials of B1, B4 and B6 and B7's partial sums. One
+#: call: the split partials of B1, B4, B6, B8 and B9, B7's partial sums and
+#: B9's act rows. One
 #: stream runs its launches in order, so a call may reuse what the previous
 #: call on that stream left there.
 _SCRATCH: Dict[tuple, object] = {}
@@ -205,7 +206,8 @@ def scratch(numel: int, device, stream: int):
 
 #: (device index, stream) -> one int32 buffer of completion counters (the
 #: last of a group of blocks to finish combines their partial results: B3's
-#: decode splits, B8's kv splits and o-proj splits). Every counter is 0
+#: decode splits, B8's kv splits and o-proj splits, B9's gate/up and down
+#: splits). Every counter is 0
 #: between launches: the block that finishes resets it, so a buffer is
 #: zeroed once, when it is made, and launches on one stream may share it.
 _COUNTERS: Dict[tuple, object] = {}

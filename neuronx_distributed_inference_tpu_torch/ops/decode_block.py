@@ -55,10 +55,11 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODES = {"silu": 0, "gelu": 1, "gelu_pytorch_tanh": 1}
 
 # the launch geometry of csrc/decode_gemv.cuh and csrc/fused_attn_block.cu
-GEMV_COLS = 32  # output columns per block
-GEMV_ROWS = 4  # rows per block
-GEMV_MIN_K = 256  # the shortest reduction range one block takes when K is split
+GEMV_COLS = 128  # output columns per block (a block holds every row)
+GEMV_MIN_K = 128  # the shortest reduction range one block takes when K is split
+GEMV_K_ALIGN = 64  # a split's reduction range is a multiple of this (whole weight stages)
 GEMV_MAX_SPLITS = 16  # the most blocks that share one output tile's reduction
+GEMV_BLOCKS_PER_SM = 2  # the grid the split aims at
 ATTN_TILE = 64  # cache positions per staged attention tile
 MAX_KV_SPLITS = 32  # the most blocks that share one (row, kv head)
 KV_BLOCKS_PER_SM = 4  # the attention grid's most blocks an SM before a split takes two tiles
@@ -225,13 +226,20 @@ def _same_dtype(name, x, **tensors):
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def gemv_split(n_cols: int, rows: int, kdim: int, sms: int) -> int:
-    """How many blocks share one output tile's reduction: enough for about
-    two blocks per SM, each over at least GEMV_MIN_K of the K axis, at most
-    GEMV_MAX_SPLITS. A function of the shapes and the card only, so the
-    summation order (and the result) repeats from run to run."""
-    tiles = -(-n_cols // GEMV_COLS) * -(-rows // GEMV_ROWS)
-    return max(1, min((2 * sms) // tiles, kdim // GEMV_MIN_K, GEMV_MAX_SPLITS))
+def gemv_split(n_cols: int, kdim: int, sms: int):
+    """(splits, rows of K per split) of one product of csrc/decode_gemv.cuh
+    over ``n_cols`` output columns and a reduction of ``kdim``: enough
+    splits for about GEMV_BLOCKS_PER_SM blocks an SM over the column tiles,
+    each over at least GEMV_MIN_K of K, at most GEMV_MAX_SPLITS; each
+    split's range a multiple of GEMV_K_ALIGN, and as many splits as that
+    leaves non-empty. Rows are not on the grid (a block holds them all), so
+    the count does not depend on them. A function of the shapes and the card
+    only, so the summation order (and the result) repeats from run to run."""
+    tiles = -(-n_cols // GEMV_COLS)
+    want = max(1, min(GEMV_BLOCKS_PER_SM * sms // tiles, kdim // GEMV_MIN_K, GEMV_MAX_SPLITS))
+    per = -(-kdim // want)
+    per = -(-per // GEMV_K_ALIGN) * GEMV_K_ALIGN
+    return -(-kdim // per), per
 
 
 def kv_split(S_kv: int, blocks: int, sms: int):
@@ -248,12 +256,6 @@ def kv_split(S_kv: int, blocks: int, sms: int):
     want = max(1, min(n_tiles, MAX_KV_SPLITS, KV_BLOCKS_PER_SM * sms // blocks))
     per = -(-n_tiles // want)
     return -(-n_tiles // per), per
-
-
-def _vec(n: int, *weights) -> int:
-    """1 where the GEMV kernels may load 16 bytes of a weight row at once:
-    rows a multiple of 16 bytes wide and 16-byte aligned bases."""
-    return int((n * weights[0].element_size()) % 16 == 0 and all(w.data_ptr() % 16 == 0 for w in weights))
 
 
 def _kv_plan(S_kv: int, blocks: int, sms: int):
@@ -280,9 +282,9 @@ def _launch_attn(x, gamma, wqkv, wout, cos, sin, k_cache, v_cache, layer_idx, sl
     BK, S_kv = B * K, mask.shape[-1]
     dev = x.device
     sms = _cuda.sm_count(dev)
-    s_qkv = gemv_split(N3, BK, H, sms)
+    s_qkv, kps_qkv = gemv_split(N3, H, sms)
     s_kv, per = _kv_plan(S_kv, B * Hkv, sms)
-    s_o = gemv_split(H, BK, Hq * D, sms)
+    s_o, kps_o = gemv_split(H, Hq * D, sms)
     stream = _cuda.stream_ptr(dev)
     x = x.contiguous()
     cos, sin = cos.float().contiguous(), sin.float().contiguous()
@@ -295,14 +297,13 @@ def _launch_attn(x, gamma, wqkv, wout, cos, sin, k_cache, v_cache, layer_idx, sl
     for n in sizes:
         parts.append(base)
         base += 4 * n
-    o_tiles = -(-H // GEMV_COLS) * -(-BK // GEMV_ROWS)
-    counters = _cuda.counters(B * Hkv + o_tiles, dev, stream)
+    counters = _cuda.counters(B * Hkv + -(-H // GEMV_COLS), dev, stream)
     attn = torch.empty((BK, Hq * D), dtype=x.dtype, device=dev)
     out = torch.empty_like(x)
     k_new = torch.empty((B, K, Hkv, D), dtype=x.dtype, device=dev)
     v_new = torch.empty_like(k_new)
     P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = _cuda.function(ATTN_KERNEL, "nxdi_fused_attn_block", [P] * 21 + [I] * 21 + [Fl, Fl, P])
+    fn = _cuda.function(ATTN_KERNEL, "nxdi_fused_attn_block", [P] * 21 + [I] * 20 + [Fl, Fl, P])
     qkv_part, m_part, l_part, acc_part, o_part = parts
     err = fn(
         x.data_ptr(), gamma.data_ptr(), wqkv.data_ptr(), wout.data_ptr(), cos.data_ptr(), sin.data_ptr(),
@@ -310,13 +311,27 @@ def _launch_attn(x, gamma, wqkv, wout, cos, sin, k_cache, v_cache, layer_idx, sl
         qkv_part, m_part, l_part, acc_part, attn.data_ptr(), o_part, counters.data_ptr(),
         out.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         B, K, H, Hq, Hkv, D, L, R, S_max, S_kv, int(layer_idx), mask.stride(0), mask.stride(2),
-        s_qkv, -(-H // s_qkv), s_kv, per, s_o, -(-(Hq * D) // s_o),
-        _DTYPE_CODES[x.dtype], min(_vec(N3, wqkv), _vec(H, wout)),
+        s_qkv, kps_qkv, s_kv, per, s_o, kps_o, _DTYPE_CODES[x.dtype],
         float(scale), float(eps), stream,
     )
     _cuda.check(err, ATTN_KERNEL)
     _cuda.LAUNCHES[ATTN_KERNEL] += 1
     return out, k_new, v_new
+
+
+def mlp_plan(H: int, I: int, rows: int, elt: int, sms: int):
+    """B9's launch plan: ((gate/up splits, rows of H each), (down splits,
+    rows of I each), the fp32 scratch sizes in values (the gate and up
+    partials, act (rows, I) in ``elt``-byte values, the down partials;
+    each a whole number of 16 bytes), the completion counters (one per
+    GEMV_COLS columns of I, then of H))."""
+    gu, dn = gemv_split(I, H, sms), gemv_split(H, I, sms)
+
+    def whole16(n):  # fp32 values, rounded up to 16 bytes
+        return -(-n // 4) * 4
+
+    sizes = (whole16(2 * gu[0] * rows * I), whole16(-(-rows * I * elt // 4)), whole16(dn[0] * rows * H))
+    return gu, dn, sizes, -(-I // GEMV_COLS) + -(-H // GEMV_COLS)
 
 
 def _launch_mlp(x, gamma, w_gate, w_up, w_down, eps, act):
@@ -328,21 +343,21 @@ def _launch_mlp(x, gamma, w_gate, w_up, w_down, eps, act):
     I = w_gate.shape[1]
     BK = B * K
     dev = x.device
-    sms = _cuda.sm_count(dev)
-    s_down = gemv_split(H, BK, I, sms)
+    (s_gu, kps_gu), (s_d, kps_d), sizes, n_counters = mlp_plan(H, I, BK, x.element_size(), _cuda.sm_count(dev))
+    stream = _cuda.stream_ptr(dev)
     x = x.contiguous()
-    normed = torch.empty((BK, H), dtype=x.dtype, device=dev)
-    act_buf = torch.empty((BK, I), dtype=x.dtype, device=dev)
-    d_part = torch.empty((s_down, BK, H), dtype=torch.float32, device=dev)
+    # scratch and counters held by _cuda per stream, never allocated per call
+    base = _cuda.scratch(sum(sizes), dev, stream).data_ptr()
+    gu_part, act_buf, d_part = base, base + 4 * sizes[0], base + 4 * (sizes[0] + sizes[1])
+    counters = _cuda.counters(n_counters, dev, stream)
     out = torch.empty_like(x)
     P, Ci = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function(MLP_KERNEL, "nxdi_fused_mlp_block", [P] * 9 + [Ci] * 8 + [ctypes.c_float, P])
+    fn = _cuda.function(MLP_KERNEL, "nxdi_fused_mlp_block", [P] * 10 + [Ci] * 9 + [ctypes.c_float, P])
     err = fn(
         x.data_ptr(), gamma.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        normed.data_ptr(), act_buf.data_ptr(), d_part.data_ptr(), out.data_ptr(),
-        BK, H, I, s_down, -(-I // s_down), _DTYPE_CODES[x.dtype], _ACT_CODES[act],
-        min(_vec(I, w_gate, w_up), _vec(H, w_down)),
-        float(eps), _cuda.stream_ptr(dev),
+        gu_part, act_buf, d_part, counters.data_ptr(), out.data_ptr(),
+        BK, H, I, s_gu, kps_gu, s_d, kps_d, _DTYPE_CODES[x.dtype], _ACT_CODES[act],
+        float(eps), stream,
     )
     _cuda.check(err, MLP_KERNEL)
     _cuda.LAUNCHES[MLP_KERNEL] += 1

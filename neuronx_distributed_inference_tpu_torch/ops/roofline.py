@@ -193,23 +193,33 @@ def mlp_block(m: Dict[str, int], rows: int, elt: int = BF16) -> Tuple[int, int]:
     return (3 * H * I + H) * elt + 2 * rows * H * elt, 6 * rows * H * I
 
 
-#: B8's and B9's timed points (chip_smoke.phase_fused_times): one
-#: Llama-3.2-1B decode layer, K = 1, bucket 512, each row's new token at
-#: position 255 (255 cached positions read per row)
-FUSED_POINTS = {"bs1": dict(batch=1, prior=255), "bs4": dict(batch=4, prior=4 * 255)}
+#: B8's and B9's timed points (chip_smoke.phase_fused_times): one decode
+#: layer at the widths ``m``, K = 1, ``batch`` rows. B8 and B9 at
+#: Llama-3.2-1B's batch 1 and 4, bucket 512, each row's new token at
+#: position 255 (``prior``: 255 cached positions read per row); B9 alone
+#: (``prior`` None) at 16 rows, where the weights are still read once, and
+#: at Llama-3.1-8B's MLP width.
+FUSED_POINTS = {
+    "bs1": dict(m=MODEL_1B, batch=1, prior=255),
+    "bs4": dict(m=MODEL_1B, batch=4, prior=4 * 255),
+    "rows16": dict(m=MODEL_1B, batch=16, prior=None),
+    "8b bs1": dict(m=MODEL_8B, batch=1, prior=None),
+}
 
 
 def main() -> None:
     print("| # | kernel | point | shapes | bytes | FLOPs | bound ms (by) |")
     print("|---|---|---|---|---|---|---|")
     for label, pt in FUSED_POINTS.items():
-        for tag, name, shapes, (nbytes, flops) in (
-            ("B8", "fused_attn_block", f"K=1, bucket 512, {pt['prior']} cached positions read, bf16",
-             attn_block(MODEL_1B, pt["batch"], 1, pt["prior"], 512)),
-            ("B9", "fused_mlp_block", "K=1, H 2048, I 8192, bf16", mlp_block(MODEL_1B, pt["batch"])),
-        ):
+        m, B = pt["m"], pt["batch"]
+        work = [("B9", "fused_mlp_block", f"K=1, H {m['H']}, I {m['I']}, bf16", mlp_block(m, B))]
+        if pt["prior"] is not None:
+            work.insert(0, ("B8", "fused_attn_block", f"K=1, bucket 512, {pt['prior']} cached positions read, bf16",
+                            attn_block(m, B, 1, pt["prior"], 512)))
+        for tag, name, shapes, (nbytes, flops) in work:
             ms, by = bound_ms(nbytes, flops)
-            print(f"| {tag} | `{name}` | 1B decode layer, {label} | {shapes} | {nbytes:,} | {flops:,} | {ms:.5f} ({by}) |")
+            print(f"| {tag} | `{name}` | decode layer, {label} ({B} rows) | {shapes} | {nbytes:,} | {flops:,} | "
+                  f"{ms:.5f} ({by}) |")
     for label, pt in QMM_POINTS.items():
         for name, (K, N) in int4_projections(pt["m"]).items():
             nbytes, flops = int4_matmul(pt["rows"], K, N)

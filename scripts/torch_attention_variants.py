@@ -2,12 +2,13 @@
 and B4 (decode over the contiguous and the paged cache,
 ``csrc/decode_attention.cu``) and B2 (prefill flash,
 ``csrc/flash_attention.cu``), of the int4 matmul B6
-(``csrc/quant_matmul.cu``) and of the MoE decode B7
-(``csrc/moe_decode.cu``), on one H100, beside the kernels as built.
+(``csrc/quant_matmul.cu``), of the MoE decode B7 (``csrc/moe_decode.cu``)
+and of the fused decode blocks B8 and B9 (``csrc/fused_attn_block.cu``,
+``csrc/fused_mlp_block.cu``), on one H100, beside the kernels as built.
 
-    python3 scripts/torch_attention_variants.py [b2] [b1] [b4] [b6] [b7] [b8] [b3] [b6host] [host] [tok]
+    python3 scripts/torch_attention_variants.py [b2] [b1] [b4] [b6] [b7] [b8] [b9] [b3] [points] [b6host] [host] [tok]
 
-(no argument: b2, b1, b4, b6, b7, b8 and b3)
+(no argument: b2, b1, b4, b6, b7, b8, b9 and b3)
 
 Each alternative is the kernel's own source with one decision changed,
 compiled with the port's nvcc flags (``ops/_cuda.py``) into
@@ -59,20 +60,47 @@ B7, bf16, at Qwen3-30B-A3B's batch 1 and 8 and Mixtral-8x7B's batch 1
   and with 1 to 11 splits of H instead of the rule's; device us per
   launch with the L2 flushed (``chip_smoke.launch_breakdown``).
 B8, bf16, at the 1B decode layer it is timed at (batch 1 and 4, bucket
-512, 255 deep; chip_smoke.fused_timed_inputs), device ms and us per launch
+512, 255 deep; chip_smoke.fused_timed_inputs), device ms, the same with the
+L2 evicted by a read (clean L2, ``time_clean``), and us per launch
 (chip_smoke.launch_breakdown, with each launch's time past the one before):
-  built      QKV -> attention -> o-proj as programmatic dependent launches,
-             the o-proj prefetching its weight tile into L2 before it waits,
-             the attention launch letting the o-proj start after its own
-             wait;
-  no-prefetch  the o-proj waits without prefetching;
+  built      QKV, then attention (after QKV ends), then the o-proj as a
+             programmatic dependent launch of the attention (its first
+             weight stages in flight before it waits), QKV partials added
+             8 splits' loads at a time;
+  attn-pdl   the attention also started early, as a programmatic
+             dependent launch of QKV that waits inside;
   late-trigger the attention launch lets the o-proj start only once its
              splits are stored;
   no-pdl     each launch waits for the one before it to end;
-  spec-tile  the split's first tile copied before its mask bits are known;
+  zq4/zq16   the QKV partials' loads 4 or 16 splits at a time;
+  stages4, no-xs, lb3  the product loop's knobs (LB3 .. MMA_ALL below);
+  active-first, qkv-ldcg, spec-tile  the attention's active part in split
+             0, the QKV partials read past L1, the split's first tile
+             copied before its mask bits are known;
   and the built kernel under other kv splits than ``ops/decode_block.py::
   kv_split`` (``_kv_plan``): B1's ``decode_kv_split``, the first kv_split
   (about one block an SM), 128 positions a split, one split.
+B9, bf16, at the 1B MLP with 1, 4, 16 and 64 rows and the 8B MLP with 1 row
+(b9_points), device ms, clean-L2 ms and us per launch:
+  built      gate/up -> down as programmatic dependent launches on the
+             product loop of csrc/decode_gemv.cuh (128 columns a block, 3
+             weight stages of 16 KB, x and gamma staged ahead of them for
+             the norm where they fit, FMAs up to 2 bf16 rows, the tensor
+             cores past that), the split rule aiming at 2 blocks an SM;
+  stages4    4 weight stages in the ring;
+  no-xs      x read by loads for the norm, behind the weight stages;
+  fma4, mma-all  FMAs up to 4 bf16 rows, or the tensor cores at every row
+             count;
+  no-pdl     down waits for gate/up to end;
+  cols64     64 columns and 4 warps a block, 8 KB stages;
+  lb3        registers capped for 3 blocks an SM;
+  and the built kernel (and cols64) under other split targets of
+  ``ops/decode_block.py::gemv_split`` (GEMV_BLOCKS_PER_SM 1, 3, 4).
+b9timeline: the built kernel with a globaltimer stamp from each block of
+  both launches at ten points (B9_STAMPS), us after the first gate/up
+  block's entry.
+points: B9 as built at b9_points and B8 at its two timed points, using
+  only what earlier trees also have: run parent, change, change, parent.
 b8timeline: the built attention launch and no-pdl with a globaltimer stamp
   from each block at eight points (B8_TIMELINE), us after the first entry.
 B3, bf16, at the serving row's two points (``ops/roofline.RAGGED_POINTS``)
@@ -168,18 +196,27 @@ def decode_variants(src):
 
 def build_variants(_cuda, kernel, variants):
     """{name: library path}: the source with each variant's replacements
-    (each must match), one nvcc per variant, all started together."""
-    src = (_cuda.CSRC / f"{kernel}.cu").read_text()
+    (each must match), one nvcc per variant, all started together. A
+    replacement (header, old, new) patches a header the source includes:
+    the patched copy is written beside the variant's source, which finds it
+    there before the package's."""
     procs, paths = {}, {}
     for name, patches in variants.items():
-        text = src
-        for old, new in patches:
+        files = {}
+        for patch in patches:
+            file, old, new = patch if len(patch) == 3 else (f"{kernel}.cu", *patch)
+            text = files.get(file) or (_cuda.CSRC / file).read_text()
             if old not in text:
-                raise SystemExit(f"{kernel} variant {name}: the source no longer holds {old[:60]!r}")
-            text = text.replace(old, new)
+                raise SystemExit(f"{kernel} variant {name}: {file} no longer holds {old[:60]!r}")
+            files[file] = text.replace(old, new)
         d = _cuda.BUILD_ROOT / "variants" / kernel / name
+        if d.exists():
+            for stale in d.glob("*.cuh"):
+                stale.unlink()
         d.mkdir(parents=True, exist_ok=True)
-        (d / f"{kernel}.cu").write_text(text)
+        files.setdefault(f"{kernel}.cu", (_cuda.CSRC / f"{kernel}.cu").read_text())
+        for file, text in files.items():
+            (d / file).write_text(text)
         paths[name] = d / f"lib{kernel}.so"
         cmd = [_cuda.nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o", str(paths[name]),
                str(d / f"{kernel}.cu")]
@@ -455,14 +492,39 @@ def moe_times(torch, chip_smoke, _cuda, md):
         md._plan.cache_clear()
 
 
+#: knobs of the product loop of B8 and B9 (csrc/decode_gemv.cuh), as
+#: patches of the header: registers capped for 3 blocks an SM (80), so that
+#: a dependent launch's blocks fit beside 2 of its blocks; 4 ring stages
+#: instead of 3; no whole staging of x and gamma ahead of the weights for
+#: the norm; the FMA body up to 4 bf16 rows, or none
+GV = "decode_gemv.cuh"
+LB3 = (GV, "__launch_bounds__(GV_THREADS, 2) gemv_kernel", "__launch_bounds__(GV_THREADS, 3) gemv_kernel")
+STAGES4 = (GV, "constexpr int GV_STAGES = 3;", "constexpr int GV_STAGES = 4;")
+NO_XS = (GV, "constexpr int GV_XS_BYTES = 24576;", "constexpr int GV_XS_BYTES = 0;")
+FMA4 = (GV, "constexpr int GV_FMA_ROWS = 2;", "constexpr int GV_FMA_ROWS = 4;")
+MMA_ALL = (GV, "constexpr int GV_FMA_ROWS = 2;", "constexpr int GV_FMA_ROWS = 0;")
+#: B8's attention launch started early, as a programmatic dependent launch
+#: of the QKV launch, and waiting for it inside
+ATTN_PDL = [
+    ("smem, st, false, p);", "smem, st, true, p);"),
+    ("  pdl_launch_dependents();  // the o-proj launch may start issuing its weight stages\n",
+     "  if (!idle) pdl_wait();\n  pdl_launch_dependents();  // the o-proj launch may start issuing its weight stages\n"),
+    ("gemv_launch<T, 1, PartialSink, GV_NORM>(", "gemv_launch<T, 1, PartialSink, GV_NORM | GV_TRIGGER>("),
+]
+
 B8_VARIANTS = {
     "built": [],
-    "no-prefetch": [("GV_WAIT | GV_PREFETCH>(", "GV_WAIT>(")],
+    "attn-pdl": ATTN_PDL,
     "late-trigger": [
-        ("  pdl_launch_dependents();  // the o-proj launch may start prefetching its weights\n", ""),
+        ("  pdl_launch_dependents();  // the o-proj launch may start issuing its weight stages\n", ""),
         ("  // the attention rows (row b K + t", "  pdl_launch_dependents();\n  // the attention rows (row b K + t"),
     ],
-    "no-pdl": [("smem, st, true, p);", "smem, st, false, p);"), ("GV_WAIT | GV_PREFETCH>(", "0>(")],
+    "no-pdl": [("GV_WAIT>(", "0>(")],
+    "zq4": [("    constexpr int ZQ = 8;\n", "    constexpr int ZQ = 4;\n")],
+    "zq16": [("    constexpr int ZQ = 8;\n", "    constexpr int ZQ = 16;\n")],
+    "stages4": [STAGES4],
+    "no-xs": [NO_XS],
+    "lb3": [LB3],
     "active-first": [("  const int act = p.splits - 1;", "  const int act = 0;")],
     "qkv-ldcg": [("? src[(z0 + w) * zstride] : 0.f;", "? __ldcg(src + (z0 + w) * zstride) : 0.f;")],
     "spec-tile": [
@@ -489,8 +551,8 @@ B8_TIMELINE = [
      "gridDim.x + blockIdx.x) * 16 + (k)] = t_; } } while (0)\nnamespace nxdi {\nnamespace {\n"),
     ("  const int g = blockIdx.x, b = blockIdx.y, z = blockIdx.z;\n",
      "  const int g = blockIdx.x, b = blockIdx.y, z = blockIdx.z;\n  TL(0);\n"),
-    ("  if (!idle) pdl_wait();  // the QKV partial sums are complete and visible\n",
-     "  TL(1);\n  if (!idle) pdl_wait();  // the QKV partial sums are complete and visible\n  TL(2);\n"),
+    ("  pdl_launch_dependents();  // the o-proj launch may start issuing its weight stages\n",
+     "  TL(1);\n  TL(2);\n  pdl_launch_dependents();  // the o-proj launch may start issuing its weight stages\n"),
     ("      Qs[rr * LQ + d] = sum;  // Kn and Vn follow Qs row for row\n    }\n",
      "      Qs[rr * LQ + d] = sum;  // Kn and Vn follow Qs row for row\n    }\n"
      "    TL(3);\n"),
@@ -609,9 +671,9 @@ def fused_attn_times(torch, chip_smoke, _cuda, db):
                 def f():
                     return db.fused_attn_block(*args, **kw)
 
-                ms = chip_smoke.time_ms(torch, f)
+                ms, clean = chip_smoke.time_ms(torch, f), time_clean(torch, f)
                 us = chip_smoke.launch_breakdown(torch, f, chip_smoke.B8_LAUNCHES)
-                print(f"B8 {case}: {ms:.4f} ms; device us per launch: "
+                print(f"B8 {case}: {ms:.4f} ms (clean L2 {clean:.4f}); device us per launch: "
                       + ", ".join(f"{k} {v:.2f}" for k, v in us.items()), flush=True)
             del args
     finally:
@@ -619,6 +681,221 @@ def fused_attn_times(torch, chip_smoke, _cuda, db):
         _cuda._libs.pop("fused_attn_block", None)  # the next call loads the kernel as built
         for key in [k for k in _cuda._fns if k[0] == "fused_attn_block"]:
             del _cuda._fns[key]
+
+
+#: B9 design alternatives: patches of csrc/fused_mlp_block.cu, or
+#: (header, old, new) of the product loop it includes
+B9_VARIANTS = {
+    "built": [],
+    "stages4": [STAGES4],
+    "no-xs": [NO_XS],
+    "fma4": [FMA4],
+    "mma-all": [MMA_ALL],
+    "no-pdl": [("GV_WAIT>(", "0>(")],
+    "cols64": [
+        (GV, "constexpr int GV_THREADS = 256;", "constexpr int GV_THREADS = 128;"),
+        (GV, "constexpr int GV_COLS = 128;", "constexpr int GV_COLS = 64;"),
+        (GV, "constexpr int GV_STAGE_BYTES = 16384;", "constexpr int GV_STAGE_BYTES = 8192;"),
+    ],
+    "lb3": [LB3],
+}
+#: the variants' columns a block (the wrapper's split rule and counters
+#: follow it)
+B9_VARIANT_COLS = {"cols64": 64}
+
+
+#: the product loop (csrc/decode_gemv.cuh) with a globaltimer stamp (ns)
+#: from thread 0 of each block at B9_STAMPS; gate/up blocks (two weights)
+#: at slots 0..511, down blocks at 512..1023
+#: the variants B9's timeline runs
+B9_TIMELINE_OF = ("built",)
+B9_STAMPS = ("entry", "issued", "waited", "normed", "slab", "stage 0", "stage n/2", "loop end", "sunk", "end")
+B9_TIMELINE = [
+    ("decode_gemv.cuh", '#include "mma.cuh"\n',
+     '#include "mma.cuh"\n__device__ unsigned long long nxdi_tl[16384];\n#define TL(k) do { if (threadIdx.x == 0) { '
+     'unsigned long long t_; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); nxdi_tl[((NMAT == 1 ? 512 : 0) + '
+     'blockIdx.z * gridDim.x + blockIdx.x) * 16 + (k)] = t_; } } while (0)\n'),
+    ("decode_gemv.cuh", "  if (FLAGS & GV_TRIGGER) pdl_launch_dependents();\n\n",
+     "  TL(0);\n  if (FLAGS & GV_TRIGGER) pdl_launch_dependents();\n\n"),
+    ("decode_gemv.cuh", "  if (FLAGS & GV_WAIT) pdl_wait();\n", "  TL(1);\n  if (FLAGS & GV_WAIT) pdl_wait();\n  TL(2);\n"),
+    ("decode_gemv.cuh", "      norm_from_xs(rt);\n", "      norm_from_xs(rt);\n      TL(3);\n"),
+    ("decode_gemv.cuh", "      if (FLAGS & GV_NORM) row_norms(r0, rt);\n      stage_slab(r0, rt, k0);\n",
+     "      if (FLAGS & GV_NORM) row_norms(r0, rt);\n      TL(3);\n      stage_slab(r0, rt, k0);\n"),
+    ("decode_gemv.cuh", "      stage_slab(r0, rt, k0);\n    }\n    __syncthreads();\n",
+     "      stage_slab(r0, rt, k0);\n    }\n    __syncthreads();\n    TL(4);\n"),
+    ("decode_gemv.cuh", "    else cp_async_commit();\n    if (s > 0 && (s * KS) % ach == 0) {\n",
+     "    else cp_async_commit();\n    if (s == 0) TL(5);\n    if (s == n_st / 2) TL(6);\n"
+     "    if (s > 0 && (s * KS) % ach == 0) {\n"),
+    ("decode_gemv.cuh", "      cp_async_wait<0>();  // (the empty groups)\n", "      cp_async_wait<0>();  // (the empty groups)\n      TL(7);\n"),
+    ("decode_gemv.cuh", "      cp_async_wait<0>();\n      // the lanes", "      cp_async_wait<0>();\n      TL(7);\n      // the lanes"),
+    ("decode_gemv.cuh", "  sink.finish(p.rows);\n}\n", "  TL(8);\n  sink.finish(p.rows);\n  TL(9);\n}\n"),
+    ("  return (int)cudaErrorInvalidValue;\n}\n",
+     "  return (int)cudaErrorInvalidValue;\n}\nextern \"C\" int nxdi_tl_read(void* dst) {\n"
+     "  return (int)cudaMemcpyFromSymbol(dst, nxdi_tl, sizeof(nxdi_tl));\n}\nextern \"C\" int nxdi_tl_clear() {\n"
+     "  static unsigned long long z[16384];\n  return (int)cudaMemcpyToSymbol(nxdi_tl, z, sizeof(nxdi_tl));\n}\n"),
+]
+
+
+def fused_mlp_timeline(torch, chip_smoke, _cuda, db):
+    """Where B9's two launches spend their time: timeline variants
+    (B9_TIMELINE_OF) at the 1B MLP with 1 and 16 rows and the 8B MLP with 1
+    row, each call after an L2 flush and a spin (as chip_smoke.time_ms);
+    per stamp and launch, the blocks' least / median / largest us after the
+    first gate/up block's entry."""
+    paths = build_variants(_cuda, "fused_mlp_block", {f"timeline {name}": B9_TIMELINE + B9_VARIANTS[name]
+                                                       for name in B9_TIMELINE_OF})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(16)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    points = [p for p in b9_points() if p[0] in ("1b bs1", "1b rows16", "8b bs1")]
+    try:
+        for (variant, path), (label, m, rows) in ((v, p) for v in paths.items() for p in points):
+            use(_cuda, "fused_mlp_block", path)
+            lib = _cuda._libs["fused_mlp_block"]
+            args = b9_inputs(torch, gen, m, rows)
+            label = f"{variant} {label}"
+            chip_smoke.check_fused_mlp(torch, db, args, "silu", label)
+            runs = []
+            for _ in range(5):
+                db.fused_mlp_block(*args, eps=chip_smoke.FUSED_EPS)
+                torch.cuda.synchronize()
+                lib.nxdi_tl_clear()
+                flush.zero_()
+                torch.cuda._sleep(chip_smoke.SPIN_CYCLES)
+                db.fused_mlp_block(*args, eps=chip_smoke.FUSED_EPS)
+                torch.cuda.synchronize()
+                buf = (ctypes.c_ulonglong * 16384)()
+                lib.nxdi_tl_read(buf)
+                t = np.array(buf, dtype=np.float64).reshape(-1, 16)[:, : len(B9_STAMPS)]
+                t0 = t[:512, 0][t[:512, 0] > 0].min()
+                runs.append((t[:512], t[512:], t0))
+            for which, k in (("gate/up", 0), ("down", 1)):
+                blocks = np.concatenate([(r[k][r[k][:, 0] > 0] - r[2]) / 1e3 for r in runs])
+                parts = []
+                for j, stamp in enumerate(B9_STAMPS):
+                    col = blocks[:, j][blocks[:, j] > -1e6]
+                    if len(col):
+                        parts.append(f"{stamp} {col.min():.2f}/{np.median(col):.2f}/{col.max():.2f}")
+                print(f"B9 timeline {label} {which}: {len(blocks) // 5} blocks, us after the first gate/up entry "
+                      f"(least/median/largest): " + ", ".join(parts), flush=True)
+            del args
+            torch.cuda.empty_cache()
+    finally:
+        _cuda._libs.pop("fused_mlp_block", None)
+        for key in [k for k in _cuda._fns if k[0] == "fused_mlp_block"]:
+            del _cuda._fns[key]
+
+
+def time_clean(torch, fn, iters=40, warmup=5):
+    """chip_smoke.time_ms with the L2 evicted by a 64 MiB read instead of a
+    write: the lines left in L2 are clean, so a kernel that reads its
+    weights does not also write back the flush's dirty lines (as on the
+    main path, where the kernels before it mostly read)."""
+    import chip_smoke
+
+    flush = torch.ones(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for i in range(iters):
+        flush.max()
+        torch.cuda._sleep(chip_smoke.SPIN_CYCLES)
+        starts[i].record()
+        fn()
+        ends[i].record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
+
+
+def b9_points():
+    """(label, widths, rows) of B9's timed points: the 1B MLP at 1, 4, 16
+    and 64 rows and the 8B MLP at 1 row (ops/roofline.FUSED_POINTS and the
+    64-row point)."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_1B, MODEL_8B
+
+    return [("1b bs1", MODEL_1B, 1), ("1b bs4", MODEL_1B, 4), ("1b rows16", MODEL_1B, 16),
+            ("1b rows64", MODEL_1B, 64), ("8b bs1", MODEL_8B, 1)]
+
+
+def b9_inputs(torch, gen, m, rows):
+    """B9's arguments at one decode step (bf16, K=1, weights of std 0.02)."""
+    def rn(*shape, std=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std).to(torch.bfloat16)
+
+    H, I = m["H"], m["I"]
+    return (rn(rows, 1, H), 1 + rn(H, std=0.1), rn(H, I, std=0.02), rn(H, I, std=0.02), rn(I, H, std=0.02))
+
+
+def fused_mlp_times(torch, chip_smoke, _cuda, db):
+    """B9's variants, and the built kernel under other split targets
+    (GEMV_BLOCKS_PER_SM), at b9_points: device ms and us per launch."""
+    paths = build_variants(_cuda, "fused_mlp_block", B9_VARIANTS)
+    cols, target = db.GEMV_COLS, db.GEMV_BLOCKS_PER_SM
+    runs = [(name, None) for name in paths]
+    runs += [("built", t) for t in (1, 3, 4) if t != target] + [("cols64", 4)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    try:
+        for label, m, rows in b9_points():
+            args = b9_inputs(torch, gen, m, rows)
+            for name, blocks in runs:
+                use(_cuda, "fused_mlp_block", paths[name])
+                db.GEMV_COLS = B9_VARIANT_COLS.get(name, cols)
+                db.GEMV_BLOCKS_PER_SM = blocks or target
+                case = f"{label} {name}, {db.GEMV_BLOCKS_PER_SM} blocks an SM"
+                chip_smoke.check_fused_mlp(torch, db, args, "silu", case)
+
+                def f():
+                    return db.fused_mlp_block(*args, eps=chip_smoke.FUSED_EPS)
+
+                ms = chip_smoke.time_ms(torch, f)
+                clean = time_clean(torch, f)
+                us = chip_smoke.launch_breakdown(torch, f, chip_smoke.B9_LAUNCHES)
+                print(f"B9 {case}: {ms:.4f} ms (clean L2 {clean:.4f}); device us per launch: "
+                      + ", ".join(f"{k} {v:.2f}" for k, v in us.items()), flush=True)
+            del args
+            torch.cuda.empty_cache()
+    finally:
+        db.GEMV_COLS, db.GEMV_BLOCKS_PER_SM = cols, target
+        _cuda._libs.pop("fused_mlp_block", None)  # the next call loads the kernel as built
+        for key in [k for k in _cuda._fns if k[0] == "fused_mlp_block"]:
+            del _cuda._fns[key]
+
+
+def fused_points(torch, chip_smoke, db):
+    """B9 as built at b9_points and B8 at the 1B layer's batch 1 and 4
+    (chip_smoke.fused_timed_inputs): device ms and us per launch. Uses only
+    what earlier trees also have: copy this script into a parent checkout
+    and run parent, change, change, parent in one call."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(14)
+    for B in (1, 4):
+        args, _ = chip_smoke.fused_timed_inputs(torch, gen, B)
+        kw = dict(scale=args[6].shape[-1] ** -0.5, eps=chip_smoke.FUSED_EPS, n_kv=args[6].shape[3])
+        chip_smoke.check_fused_attn(torch, db, args, f"points B8 B={B}")
+
+        def f():
+            return db.fused_attn_block(*args, **kw)
+
+        ms, clean = chip_smoke.time_ms(torch, f), time_clean(torch, f)
+        us = chip_smoke.launch_breakdown(torch, f, chip_smoke.B8_LAUNCHES)
+        print(f"points B8 1b B={B}: {ms:.4f} ms (clean L2 {clean:.4f}); device us per launch: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in us.items()), flush=True)
+        del args
+    for label, m, rows in b9_points():
+        args = b9_inputs(torch, gen, m, rows)
+        chip_smoke.check_fused_mlp(torch, db, args, "silu", f"points B9 {label}")
+
+        def g():
+            return db.fused_mlp_block(*args, eps=chip_smoke.FUSED_EPS)
+
+        ms, clean = chip_smoke.time_ms(torch, g), time_clean(torch, g)
+        us = chip_smoke.launch_breakdown(torch, g, chip_smoke.B9_LAUNCHES)
+        print(f"points B9 {label}: {ms:.4f} ms (clean L2 {clean:.4f}); device us per launch: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in us.items()), flush=True)
+        del args
+        torch.cuda.empty_cache()
 
 
 def ragged_times(torch, chip_smoke, _cuda, rp):
@@ -789,7 +1066,7 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
-    parts = set(sys.argv[1:]) or {"b2", "b1", "b4", "b6", "b7", "b8", "b3"}
+    parts = set(sys.argv[1:]) or {"b2", "b1", "b4", "b6", "b7", "b8", "b9", "b3"}
     print(f"tree: {REPO}", flush=True)
     if "b2" in parts:
         flash_times(torch, chip_smoke, _cuda, fa)
@@ -803,6 +1080,12 @@ def main():
         moe_times(torch, chip_smoke, _cuda, md)
     if "b8" in parts:
         fused_attn_times(torch, chip_smoke, _cuda, db)
+    if "b9" in parts:
+        fused_mlp_times(torch, chip_smoke, _cuda, db)
+    if "b9timeline" in parts:
+        fused_mlp_timeline(torch, chip_smoke, _cuda, db)
+    if "points" in parts:
+        fused_points(torch, chip_smoke, db)
     if "b8timeline" in parts:
         fused_attn_timeline(torch, chip_smoke, _cuda, db)
     if "b3" in parts:

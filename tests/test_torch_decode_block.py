@@ -225,18 +225,43 @@ def test_fused_mlp_block_refuses_an_activation_it_does_not_compute():
 
 
 @pytest.mark.parametrize(
-    "n_cols, rows, kdim, want",
+    "n_cols, kdim, want",
     [
-        (3072, 4, 2048, 2),  # the 1B QKV product: 96 tiles of 32 columns
-        (2048, 1, 8192, 4),  # the 1B down projection: 64 tiles, 4 x 2048 rows of I
-        (2048, 16, 2048, 1),  # 4 row groups of 4: 256 tiles fill the card
-        (8192, 4, 2048, 1),  # 256 tiles
-        (64, 1, 300, 1),  # too short a K to split
-        (64, 1, 8192, 16),  # two tiles: at most 16 splits
+        (3072, 2048, (11, 192)),  # the 1B QKV product: 24 tiles of 128 columns
+        (2048, 2048, (16, 128)),  # the 1B o-proj: 16 tiles, at most 16 splits
+        (8192, 2048, (4, 512)),  # the 1B gate/up: 64 tiles x 4 splits, 256 blocks
+        (2048, 8192, (16, 512)),  # the 1B down projection
+        (14336, 4096, (2, 2048)),  # the 8B gate/up: 112 tiles
+        (4096, 14336, (8, 1792)),  # the 8B down projection: 32 tiles
+        (333, 512, (4, 128)),  # an odd width: 3 tiles, K / GEMV_MIN_K splits
+        (64, 300, (2, 192)),  # a range rounded up to 64 leaves 2 splits of 3
+        (64, 100, (1, 128)),  # too short a K to split
     ],
 )
-def test_gemv_split(n_cols, rows, kdim, want):
-    assert tdb.gemv_split(n_cols, rows, kdim, sms=132) == want
+def test_gemv_split(n_cols, kdim, want):
+    """The split of the fused layer's products (csrc/decode_gemv.cuh) at
+    the timed shapes: about two blocks an SM over the column tiles, each
+    split's range a multiple of 64 and at least 128, at most 16 splits,
+    every split non-empty and every row of K in one; rows are not on the
+    grid, so the split is the same at every row count."""
+    splits, per = tdb.gemv_split(n_cols, kdim, sms=132)
+    assert (splits, per) == want
+    assert per % tdb.GEMV_K_ALIGN == 0 and 1 <= splits <= tdb.GEMV_MAX_SPLITS
+    assert (splits - 1) * per < kdim <= splits * per
+    tiles = -(-n_cols // tdb.GEMV_COLS)
+    assert splits == 1 or tiles * splits <= tdb.GEMV_BLOCKS_PER_SM * 132
+
+
+def test_mlp_plan_sizes_scratch_and_counters():
+    """B9's scratch at the 1B MLP, batch 4: gate and up partials (2 x 4
+    splits x 4 rows x 8192), act in bf16 (4 x 8192 x 2 bytes as fp32
+    values), the down partials (16 splits x 4 rows x 2048); one counter per
+    128 columns of I and of H."""
+    gu, dn, sizes, n_counters = tdb.mlp_plan(2048, 8192, 4, 2, sms=132)
+    assert (gu, dn) == ((4, 512), (16, 512))
+    assert sizes == (2 * 4 * 4 * 8192, 4 * 8192 // 2, 16 * 4 * 2048)
+    assert n_counters == 8192 // 128 + 2048 // 128
+    assert all(n % 4 == 0 for n in tdb.mlp_plan(1000, 333, 3, 2, sms=132)[2])  # 16-byte slices
 
 
 @pytest.mark.parametrize(
@@ -331,3 +356,47 @@ def test_attn_split_algorithm_matches_jax_kernel(K):
     out, splits = _attn_split_model(inp)
     assert splits > 1
     np.testing.assert_allclose(out.numpy(), ref, atol=ATTN_ATOL, rtol=1e-5)
+
+
+def _mlp_split_model(x, gamma, wg, wu, wd, act):
+    """B9's algorithm in PyTorch, fp32 (csrc/fused_mlp_block.cu): the
+    normed input; gate's and up's partial sums over gemv_split's splits of
+    H, each added in split order from zero; the activation of the two sums;
+    the down product's partial sums over the splits of I, added in split
+    order from zero; then x plus that sum. Returns (out, gate/up splits,
+    down splits)."""
+    H, I = wg.shape
+    (s_gu, k_gu), (s_d, k_d) = tdb.gemv_split(I, H, H100_SMS), tdb.gemv_split(H, I, H100_SMS)
+    n = tdb._rms(x, gamma, EPS)
+    g = u = torch.zeros(x.shape[:-1] + (I,))
+    for z in range(s_gu):
+        sl = slice(z * k_gu, min((z + 1) * k_gu, H))
+        g = g + n[..., sl] @ wg[sl]
+        u = u + n[..., sl] @ wu[sl]
+    a = tdb._act(act)(g) * u
+    d = torch.zeros_like(x)
+    for z in range(s_d):
+        sl = slice(z * k_d, min((z + 1) * k_d, I))
+        d = d + a[..., sl] @ wd[sl]
+    return x + d, s_gu, s_d
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("act", ["silu", "gelu_pytorch_tanh"])
+def test_mlp_split_algorithm_matches_jax_kernel(act, K):
+    """B9's split algorithm (_mlp_split_model: gate and up summed over the
+    splits of H, the activation, down summed over the splits of I, the
+    residual) against the JAX kernel in interpret mode, fp32: within 2e-5
+    plus 1e-5 of each output's magnitude |x| + |act(g) u| @ |Wd|, the sum of
+    the absolute terms behind it (the splits' sums run in another order
+    than the kernel's sequential grid over I tiles, and their rounding
+    scales with the terms, not with an output they cancel to; outputs reach
+    ~60 here)."""
+    inp = _mlp_inputs(K, seed=31)
+    want = _np(jdb.fused_mlp_block(*map(jnp.asarray, inp), eps=EPS, act=act, interpret=True))
+    x, gamma, wg, wu, wd = map(torch.from_numpy, inp)
+    out, s_gu, s_d = _mlp_split_model(x, gamma, wg, wu, wd, act)
+    assert s_gu > 1 and s_d > 1
+    mag = x.abs() + tdb.glu_rows_plain(x, gamma, wg, wu, eps=EPS, act=act).abs() @ wd.abs()
+    err = np.abs(out.numpy() - want)
+    assert (err <= ATTN_ATOL + 1e-5 * mag.numpy()).all(), err.max()

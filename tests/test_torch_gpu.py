@@ -83,12 +83,13 @@ def test_fused_blocks_match_plain_on_the_card(cuda_card):
     1 and 4, K 1 and 4, buckets 512 and 1024, bf16 and fp32, rows on the
     garbage line and blocks of 64 query rows (K 16 and 8 at D 128), each
     case bit-identical over two more launches; B9 at Llama-3.2-1B's MLP and
-    widths no tile divides, silu and the tanh gelu. Each case checks that
-    its kernel launched once."""
+    widths no tile divides, 1 to 80 rows, silu and the tanh gelu, bf16 and
+    fp32, each case bit-identical over two more launches. Each case checks
+    that its kernel launched once."""
     sys.path.insert(0, REPO)
     import chip_smoke
     from neuronx_distributed_inference_tpu_torch.ops import decode_block as db
 
     n_attn, n_mlp = chip_smoke.phase_fused_parity(torch, db)
     assert n_attn == 2 * 2 * 2 * 2 * len(chip_smoke.FUSED_ATTN_SHAPES) + 4 + 2 * 2 * len(chip_smoke.FUSED_FULL_ROWS)
-    assert n_mlp == 2 * 2 * 2 * 2 * len(chip_smoke.FUSED_MLP_SHAPES)
+    assert n_mlp == 2 * 2 * len(chip_smoke.FUSED_MLP_ROWS) * len(chip_smoke.FUSED_MLP_SHAPES)

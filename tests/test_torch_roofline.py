@@ -86,6 +86,25 @@ def test_mlp_block_bounds(rows):
     assert by == "bytes" and ms == pytest.approx(0.0300, abs=1e-4)
 
 
+@pytest.mark.parametrize(
+    "point, rows, H, I, want_ms",
+    [("bs1", 1, 2048, 8192, 0.03005), ("bs4", 4, 2048, 8192, 0.03006), ("rows16", 16, 2048, 8192, 0.03009),
+     ("8b bs1", 1, 4096, 14336, 0.10518)],
+)
+def test_fused_points_mlp_bytes_counted_by_hand(point, rows, H, I, want_ms):
+    """B9 at each timed point: the three bf16 weights and gamma once (352.3
+    MB at Llama-3.1-8B's MLP), x read and out written for every row; B8
+    only where the point reads a cache (prior)."""
+    pt = roofline.FUSED_POINTS[point]
+    assert pt["batch"] == rows and (pt["m"]["H"], pt["m"]["I"]) == (H, I)
+    assert (pt["prior"] is None) == (point in ("rows16", "8b bs1"))
+    nbytes, flops = roofline.mlp_block(pt["m"], rows)
+    assert nbytes == 3 * H * I * 2 + H * 2 + rows * H * 2 * 2
+    assert flops == rows * 6 * H * I
+    ms, by = roofline.bound_ms(nbytes, flops)
+    assert by == "bytes" and ms == pytest.approx(want_ms, abs=5e-6)
+
+
 @pytest.mark.parametrize("point", ["mixed", "decode"])
 def test_ragged_points_count_the_packed_work(point):
     """B3's timed points: q over the real tokens, out over the 16-aligned
