@@ -62,7 +62,19 @@ Phases, in order; any failure exits non-zero:
      16 rows and at Llama-3.1-8B's MLP width), then
      Llama-3.2-1B generate() at batch 4 (bf16_1b_bs4) and batch 1 with the
      fused layer on and off in turn (exact counts, tok/s, TTFT, profiles)
-     and its teacher-forced gate.
+     and its teacher-forced gate;
+ 11. CUDA graphs: every runner above captures one graph per key (the
+     default, cuda_graphs=True); the graph phase runs each main path with
+     graphs on and off in turns, on the same weights: 1B generate() with the
+     fused layer off and on at batch 1 and 4, the split and ragged serving
+     drains sync and 1-ahead (and, inside phases 8 and 9, int4 8B and
+     Qwen3-30B-A3B generate() beside an eager twin), requiring identical
+     greedy tokens, equal launch counts and no capture after warmup and the
+     seal (RetraceGuard), with host ms, device busy, kernels and launch
+     calls per step and peak memory of both; then 1B sampled generate()
+     through the graphs against warped_probs on the card (chi-square), and
+     whether B8's and B9's programmatic dependent launches still start early
+     when replayed from a graph.
 Each phase prints its seconds. The line before the card's name lists every
 kernel with its launches, times and bound; the last line of standard output
 is {"ok": true, "device": {...}}.
@@ -70,6 +82,7 @@ is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1556,10 +1569,27 @@ def profile_chunk(torch, chunk, steps, label):
     port = sorted(((port_kernel_name(n), ms) for n, ms in by_name.items() if "nxdi::" in n), key=lambda kv: -kv[1])
     if port:
         log("  port kernels, ms/step: " + ", ".join(f"{n} {ms / steps:.4f}" for n, ms in port))
-    host_ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    averages = prof.key_averages()
+    host_ops = sorted(averages, key=lambda e: -e.self_cpu_time_total)[:8]
     for e in host_ops:
         log(f"  host {e.self_cpu_time_total / 1e3 / steps:8.4f} ms/step, {e.count / steps:6.1f} calls/step  {e.key[:90]}")
+    # the launch calls of the CUDA runtime: kernels one by one (cudaLaunchKernel,
+    # and cudaLaunchKernelExC for the programmatic dependent launches) or a
+    # whole captured graph at once (cudaGraphLaunch)
+    launch_api = {
+        name: (sum(e.self_cpu_time_total for e in averages if e.key.startswith(name)) / 1e3 / steps,
+               sum(e.count for e in averages if e.key.startswith(name)) / steps)
+        for name in ("cudaLaunchKernelEx", "cudaGraphLaunch")
+    }
+    launch_api["cudaLaunchKernel"] = (
+        sum(e.self_cpu_time_total for e in averages if e.key == "cudaLaunchKernel") / 1e3 / steps,
+        sum(e.count for e in averages if e.key == "cudaLaunchKernel") / steps,
+    )
+    log("  launch calls, host ms/step (calls/step): " + ", ".join(
+        f"{name} {ms:.3f} ({n:.1f})" for name, (ms, n) in launch_api.items()
+    ))
     return dict(
+        launch_api=launch_api,
         decode_step_ms=step_ms, device_busy_frac=busy_ms / traced_ms, device_busy_ms=busy_ms / steps,
         kernels_per_step=len(kernels) / steps,
         kernel_ms_per_step={name: ms / steps for name, ms in by_name.items()},
@@ -2216,6 +2246,7 @@ def phase_int4_8b(torch):
     tokens after a 128-token prompt with exact counts, a profile of one
     16-step decode chunk, and the teacher-forced gate on the first
     INT4_8B_FORCED_LAYERS layers."""
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
     from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_8B
     from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_8B, bound_ms, int4_step_bytes
     from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
@@ -2223,7 +2254,7 @@ def phase_int4_8b(torch):
     prompt_len, n_new = 128, 256
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    app = ModelForCausalLM(None, _config_8b_int4()).load(random_weights=True)
+    app = ModelForCausalLM(None, _config_8b_int4(retrace_guard=True)).load(random_weights=True)
     torch.cuda.synchronize()
     load_s, load_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
@@ -2234,7 +2265,8 @@ def phase_int4_8b(torch):
         f"warmup {time.perf_counter() - t0:.2f} s; params {_tree_bytes(app.params) / 2**30:.3f} GiB"
     )
     L = app.spec.num_layers
-    out, run = _generate_run(torch, app, prompt_len, n_new, "int4 8B generate()")
+    with RetraceGuard():  # warmed and sealed: nothing is captured
+        out, run = _generate_run(torch, app, prompt_len, n_new, "int4 8B generate()")
     # the prefill's projections have 128 rows (dense route), its lm head one
     # (B6); each of the 256 decode steps runs every projection and the lm
     # head at one row (B6)
@@ -2246,6 +2278,7 @@ def phase_int4_8b(torch):
     if run["launches"] != want:
         raise SystemExit(f"int4 8B launch counts {run['launches']} != expected {want}")
     profile = phase_profile(torch, app, out.sequences[0], prompt_len)
+    eager = eager_twin(torch, "int4 8B generate()", _config_8b_int4(cuda_graphs=False), app, out, run, prompt_len, n_new)
     b6, b6_calls, b6_combine = b6_per_step(profile)
     busy = sum(profile["kernel_ms_per_step"].values())
     step_bound = bound_ms(int4_step_bytes(MODEL_8B), 0)[0]
@@ -2269,7 +2302,9 @@ def phase_int4_8b(torch):
     )
     del app, params
     torch.cuda.empty_cache()
-    return dict(run, **profile, b6_ms_per_step=b6, b6_busy_share=b6 / busy, step_bound_ms=step_bound, **forced)
+    return dict(
+        run, **profile, b6_ms_per_step=b6, b6_busy_share=b6 / busy, step_bound_ms=step_bound, eager=eager, **forced
+    )
 
 
 def _tree_bytes(tree):
@@ -2626,8 +2661,13 @@ def qwen3_teacher_forced(torch, params, seq, prompt_len, L):
     n = QWEN3_FORCED_LAYERS
     model = {**QWEN3_30B_A3B, "num_hidden_layers": n}
     sub = dict(params, layers=params["layers"][:n])
-    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False, moe_fused_kernel_enabled=False)
-    cfg_k = _config_qwen3(model=model, output_logits=True)
+    # eager programs: the router's selections are recorded and pinned per
+    # call in Python, which a graph's replay never enters
+    off = dict(
+        attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False, moe_fused_kernel_enabled=False,
+        cuda_graphs=False,
+    )
+    cfg_k = _config_qwen3(model=model, output_logits=True, cuda_graphs=False)
     cfg_p = _config_qwen3(model=model, output_logits=True, **off)
     k, sel_k = _selections(torch, cfg_k, sub, seq, prompt_len)
     pl, sel_p = _selections(torch, cfg_p, sub, seq, prompt_len, True)
@@ -2671,6 +2711,7 @@ def phase_qwen3_moe(torch):
     the 128-token prefill through the grouped route; no dense MoE call), a
     batch-8 generate() (64 rows for B7) with its distinct experts per layer,
     a profile of 16 decode steps, and the teacher-forced gate."""
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_QWEN3_MOE, bound_ms, moe_decode
     from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
@@ -2679,7 +2720,7 @@ def phase_qwen3_moe(torch):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    app = ModelForCausalLM(None, _config_qwen3()).load(random_weights=True)
+    app = ModelForCausalLM(None, _config_qwen3(retrace_guard=True)).load(random_weights=True)
     torch.cuda.synchronize()
     load_s, load_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
     params_bytes = _tree_bytes(app.params)
@@ -2691,7 +2732,8 @@ def phase_qwen3_moe(torch):
         f"params {params_bytes / 2**30:.3f} GiB; warmup {time.perf_counter() - t0:.2f} s"
     )
     L = app.spec.num_layers
-    out, run = _generate_run(torch, app, prompt_len, n_new, "qwen3-30b-a3b generate()")
+    with RetraceGuard():  # warmed and sealed: nothing is captured
+        out, run = _generate_run(torch, app, prompt_len, n_new, "qwen3-30b-a3b generate()")
     # 255 remaining tokens run as one 256-step chunk in bucket 512
     want = expect_launches(
         flash_attention=L, decode_attention=L * 256, moe_decode=L * 256, moe_grouped=L,
@@ -2723,8 +2765,12 @@ def phase_qwen3_moe(torch):
         raise SystemExit(f"qwen3 batch-8 counts {counts8} != expected {want8}")
     if gen8.shape != (8, 64) or gen8.min() < 0 or gen8.max() >= app.spec.vocab_size:
         raise SystemExit(f"qwen3 batch 8: bad tokens, shape {gen8.shape}")
+    # the expert census records each B7 call in Python: an eager twin (a
+    # replay enters no Python)
+    app8e = ModelForCausalLM(None, _config_qwen3(8, cuda_graphs=False)).load(params=app.params)
     with _Recorder("fused_moe_decode", lambda args, out: args[1].clone()) as rec:
-        app8.generate(ids8, max_new_tokens=8)
+        app8e.generate(ids8, max_new_tokens=8)
+    del app8e
     distinct = np.array([int(torch.unique(ids).numel()) for ids in rec.calls if ids.shape[0] == 8])
     b8 = [bound_ms(*moe_decode(MODEL_QWEN3_MOE, 8, int(d)))[0] for d in distinct]
     log(
@@ -2745,13 +2791,16 @@ def phase_qwen3_moe(torch):
         f"({b7_bound / b7:.3f} of it), {b7 / busy:.3f} of the device's busy time ({busy:.3f} ms/step); "
         f"{profile['kernels_per_step']:.0f} kernels per step; host clock {profile['decode_step_ms']:.3f} ms/step"
     )
+    eager = eager_twin(
+        torch, "qwen3-30b-a3b generate()", _config_qwen3(cuda_graphs=False), app, out, run, prompt_len, n_new
+    )
     forced = qwen3_teacher_forced(torch, app.params, out.sequences[0], prompt_len, L)
     del app
     torch.cuda.empty_cache()
     return dict(
         run, **profile, load_s=load_s, load_peak=load_peak, params_bytes=params_bytes, ttft8_ms=ttft8 * 1e3,
         decode_tok_s8=tok_s8, distinct_mean=float(distinct.mean()), b7_ms_per_step=b7, b7_busy_share=b7 / busy,
-        b7_step_bound_ms=b7_bound, **forced,
+        b7_step_bound_ms=b7_bound, eager=eager, **forced,
     )
 
 
@@ -3214,6 +3263,9 @@ def launch_breakdown(torch, fn, labels, n=10):
     for k in range(1, len(labels)):
         past = [g[k].time_range.end - max(g[k].time_range.start, g[k - 1].time_range.end) for g in calls]
         by[f"{labels[k]} past {labels[k - 1]}"] = sum(past) / len(past)
+        # > 0: the launch started that many us before the one ahead of it ended
+        early = [g[k - 1].time_range.end - g[k].time_range.start for g in calls]
+        by[f"{labels[k]} early"] = sum(early) / len(early)
     return by
 
 
@@ -3290,6 +3342,278 @@ def phase_fused_1b(torch, params, ref):
     return dict(runs=runs, forced=forced, launches=runs[(4, True)]["launches"])
 
 
+# ---------------------------------------------------------------------------
+# 11. CUDA graphs: every main path with graphs on and off in this call
+# ---------------------------------------------------------------------------
+
+
+def _same_tokens(a, b):
+    if isinstance(a, dict):
+        return a == b
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def graph_pair(torch, label, make_app, run, profile=None, warm_pass=False):
+    """One workload with the runners' programs run eagerly
+    (``cuda_graphs=False``) and through captured graphs, on apps that
+    ``make_app(cuda_graphs)`` builds and warms over the same weights. With
+    ``warm_pass`` the graph app runs the workload once first and every
+    runner is sealed after it (configs that warmup() leaves unsealed). Its
+    measured run sits inside a RetraceGuard: after warmup and the seal, a
+    steady-state run captures nothing. Requires byte-identical greedy tokens and equal
+    launch counts (the graphs' census added per replay); prints the
+    profile's host ms, device busy, kernels and launch calls per step and
+    the peak memory (allocated, and reserved: the graphs' pool holds
+    freed blocks) of both."""
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    res = {}
+    for graphs in (False, True):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        app = make_app(graphs)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        if warm_pass and graphs:
+            run(app)
+            for runner in app._all_runners():
+                runner.seal()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        with RetraceGuard(fail=graphs):
+            tokens = run(app)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = all_counts()
+        peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+        prof = {}
+        if profile is not None:
+            # the profile may reach keys the run did not (a fresh session's
+            # packing): lift the seal for it
+            with contextlib.ExitStack() as stack:
+                for runner in app._all_runners():
+                    stack.enter_context(runner.seal_suspended())
+                prof = profile(app, tokens)
+        res[graphs] = dict(
+            tokens=tokens, counts=counts, peak_bytes=peak, reserved_bytes=reserved, warm_s=warm_s, run_s=run_s,
+            captures=app.graphs.captures, **{k: v for k, v in prof.items() if k != "busy_ms_per_step"},
+        )
+        del app
+    off, on = res[False], res[True]
+    if not _same_tokens(off["tokens"], on["tokens"]):
+        raise SystemExit(f"graphs, {label}: the greedy tokens differ between graphs on and off")
+    if off["counts"] != on["counts"] or not sum(on["counts"].values()):
+        raise SystemExit(f"graphs, {label}: launch counts on {on['counts']} != off {off['counts']}")
+    if off["captures"] or not on["captures"]:
+        raise SystemExit(f"graphs, {label}: captures off {off['captures']}, on {on['captures']}")
+    line = (
+        f"graphs on vs off, {label}: tokens identical, launch counts equal; {on['captures']} graphs captured at "
+        f"warmup (and first use), none after; warmup {on['warm_s']:.2f} vs {off['warm_s']:.2f} s, run "
+        f"{on['run_s'] * 1e3:.1f} vs {off['run_s'] * 1e3:.1f} ms; peak memory allocated {on['peak_bytes'] / 2**30:.3f} "
+        f"vs {off['peak_bytes'] / 2**30:.3f} GiB, reserved {on['reserved_bytes'] / 2**30:.3f} vs "
+        f"{off['reserved_bytes'] / 2**30:.3f} GiB"
+    )
+    if profile is not None:
+        api = lambda r, n: r["launch_api"][n][0]  # noqa: E731
+        line += (
+            f"; host {on['decode_step_ms']:.3f} vs {off['decode_step_ms']:.3f} ms/step, device busy "
+            f"{on['device_busy_ms']:.3f} vs {off['device_busy_ms']:.3f} ms/step (share {on['device_busy_frac']:.3f} vs "
+            f"{off['device_busy_frac']:.3f}), {on['kernels_per_step']:.0f} vs {off['kernels_per_step']:.0f} kernels per "
+            f"step; cudaLaunchKernel {api(on, 'cudaLaunchKernel'):.3f} vs {api(off, 'cudaLaunchKernel'):.3f} ms/step, "
+            f"cudaLaunchKernelEx {api(on, 'cudaLaunchKernelEx'):.3f} vs {api(off, 'cudaLaunchKernelEx'):.3f}, "
+            f"cudaGraphLaunch {api(on, 'cudaGraphLaunch'):.3f} vs {api(off, 'cudaGraphLaunch'):.3f}"
+        )
+    log(line)
+    for r in res.values():
+        r.pop("tokens")
+    return res
+
+
+def phase_graphs(torch, params):
+    """Graphs on and off, in turns, on the 1B weights: generate() with the
+    fused decode layer off and on at batch 1 and 4 (sealed by warmup), and
+    the split and ragged serving drains of _serve's traffic, synchronous and
+    1-ahead (sealed after a warm pass), each through graph_pair."""
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_1B
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    prompt_len, n_new = 128, 256
+    vocab = LLAMA_1B["vocab_size"]
+    out = {}
+    for batch in (1, 4):
+        prompt = np.random.RandomState(0).randint(0, vocab, size=(batch, prompt_len))
+        for fused in (False, True):
+            label = f"1B generate, batch {batch}, fused layer {'on' if fused else 'off'}"
+
+            def make(graphs, batch=batch, fused=fused):
+                cfg = _config_fused(batch, fused, cuda_graphs=graphs, retrace_guard=True)
+                return ModelForCausalLM(None, cfg).load(params=params).warmup()
+
+            def run(app, prompt=prompt):
+                return app.generate(prompt, max_new_tokens=n_new).sequences
+
+            def prof(app, seq, label=label):
+                return phase_profile(torch, app, seq, prompt_len, label=label)
+
+            out[("generate", batch, fused)] = graph_pair(torch, label, make, run, prof)
+
+    s = SERVING
+    rng = np.random.RandomState(0)  # phase_serving's prompts
+    prompts = [rng.randint(0, vocab - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    for kind in ("split", "ragged"):
+        for one_ahead in (False, True):
+            label = f"{kind} serving drain, {'1-ahead' if one_ahead else 'sync'}"
+            kw = dict(async_mode=one_ahead)
+            if kind == "ragged":
+                kw = dict(serving_ragged=True, serving_ragged_async=one_ahead)
+
+            def make(graphs, kw=kw):
+                return ModelForCausalLM(None, _serving_config(cuda_graphs=graphs, **kw)).load(params=params).warmup()
+
+            def run(app):
+                sess, _ = _serve(torch, app, prompts, s["gen"], TelemetrySession())
+                if any(r.status != "finished" for r in sess.requests.values()):
+                    raise SystemExit(f"graphs, {label}: a request did not finish")
+                return {rid: list(r.generated) for rid, r in sess.requests.items()}
+
+            prof = None
+            if kind == "ragged":
+                def prof(app, _tokens, label=label):
+                    return phase_ragged_profile(torch, app, prompts, label)
+            elif not one_ahead:
+                def prof(app, _tokens):
+                    return phase_serving_profile(torch, app)
+            out[(kind, one_ahead)] = graph_pair(torch, label, make, run, prof, warm_pass=True)
+    return out
+
+
+def eager_twin(torch, label, cfg, app, out, run, prompt_len, n_new):
+    """The generate() ``out``/``run`` of ``app`` (graphs, sealed) against an
+    eager twin (``cfg``, cuda_graphs=False) over the same params: identical
+    greedy tokens and launch counts; the twin's profile and peak memory
+    printed beside the graph run's."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    twin = ModelForCausalLM(None, cfg).load(params=app.params).warmup()
+    prompt = np.random.RandomState(0).randint(0, app.spec.vocab_size, size=(1, prompt_len))
+    _cuda.reset_launch_counts()
+    got = twin.generate(prompt, max_new_tokens=n_new)
+    counts = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if not np.array_equal(got.sequences, out.sequences) or counts != run["launches"]:
+        raise SystemExit(f"{label}: eager twin tokens or counts differ (counts {counts} vs {run['launches']})")
+    prof = phase_profile(torch, twin, got.sequences[0], prompt_len, label=f"{label}, graphs off")
+    del twin
+    torch.cuda.empty_cache()
+    log(f"graphs on vs off, {label}: tokens identical, launch counts equal; peak memory {run['peak_bytes'] / 2**30:.3f} vs {peak / 2**30:.3f} GiB")
+    return {k: v for k, v in prof.items() if k != "busy_ms_per_step"}
+
+
+#: the sampled phase: draws per row set, and the warping it samples with
+SAMPLED_ROWS, SAMPLED_CALLS = 64, 40
+SAMPLED_PARAMS = dict(top_k=50, top_p=0.9, temperature=0.8)
+
+
+def phase_sampled(torch, params):
+    """Multinomial sampling through the captured graphs at 1B: 64 rows of
+    one seeded prompt generate 8 tokens with do_sample, 40 calls (each call
+    reseeds the generator): the first tokens (the context program's draws,
+    2560 of one distribution) against warped_probs of the run's own
+    first-step logits on the card, by a chi-square test (p > 1e-3; bins
+    below 5 expected draws merged); every decode step's draw inside its own
+    step's warped window; two calls differ."""
+    from scipy import stats
+
+    from neuronx_distributed_inference_tpu_torch.config import OnDeviceSamplingConfig
+    from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params, warped_probs
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    B, prompt_len = SAMPLED_ROWS, 128
+    cfg = _config(
+        B, seq_len=256, context_encoding_buckets=[128], token_generation_buckets=[256], output_logits=True,
+        on_device_sampling_config=OnDeviceSamplingConfig(do_sample=True, top_k=50),
+    )
+    app = ModelForCausalLM(None, cfg).load(params=params).warmup()
+    prompt = np.tile(np.random.RandomState(4).randint(0, app.spec.vocab_size, size=(1, prompt_len)), (B, 1))
+    firsts, seqs = [], []
+    sp = torch.from_numpy(prepare_sampling_params(B, **SAMPLED_PARAMS)).to(DEV)
+    outside = 0
+    for _ in range(SAMPLED_CALLS):
+        out = app.generate(prompt, max_new_tokens=8, **SAMPLED_PARAMS)
+        gen = out.sequences[:, prompt_len:]
+        firsts.append(gen[:, 0])
+        seqs.append(gen)
+        logits = torch.from_numpy(out.logits).to(DEV)  # (B, 8, V)
+        for j in range(gen.shape[1]):
+            probs = warped_probs(logits[:, j], sp, app.spec.max_topk)
+            chosen = probs[torch.arange(B, device=DEV), torch.from_numpy(gen[:, j]).to(DEV)]
+            outside += int((chosen <= 0).sum())
+    p0 = warped_probs(torch.from_numpy(out.logits[:1, 0]).to(DEV), sp[:1], app.spec.max_topk)[0].cpu().numpy()
+    draws = np.concatenate(firsts)
+    n = draws.size
+    kept = np.flatnonzero(p0 > 0)
+    expected = p0[kept].astype(np.float64) / p0[kept].sum() * n
+    counts = np.bincount(draws, minlength=p0.size)[kept]
+    big = expected >= 5
+    obs = np.append(counts[big], counts[~big].sum())
+    exp = np.append(expected[big], expected[~big].sum())
+    if exp[-1] == 0:
+        obs, exp = obs[:-1], exp[:-1]
+    outside += n - int(obs.sum())  # first tokens outside the window
+    chi2, p = stats.chisquare(obs, exp * (obs.sum() / exp.sum()))
+    distinct_calls = len({tuple(g[0]) for g in seqs})
+    log(
+        f"sampled 1B generate (graphs, top_k 50, top_p 0.9, temperature 0.8): {n} first-token draws over "
+        f"{kept.size} kept tokens ({int(big.sum())} bins of >= 5 expected, the rest merged): chi-square {chi2:.2f}, "
+        f"p {p:.4f}; decode draws outside their step's window: {outside} of {SAMPLED_CALLS * B * 8}; "
+        f"{distinct_calls} distinct row-0 continuations in {SAMPLED_CALLS} calls"
+    )
+    if p <= 1e-3 or outside or distinct_calls < 2:
+        raise SystemExit("sampled phase: the draws do not follow warped_probs")
+    del app
+    torch.cuda.empty_cache()
+    return dict(chi2=chi2, p=p, draws=n)
+
+
+def phase_pdl_graphs(torch, db):
+    """Does programmatic dependent launch survive graph capture? B8's three
+    and B9's two launches at the 1B decode step, batch 1 (fused_timed_inputs),
+    profiled eagerly and as the replay of one captured graph of the call:
+    each later launch's start before the launch ahead of it ends ("early",
+    us) and its time past it."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_1B
+    from neuronx_distributed_inference_tpu_torch.runtime.graphs import GraphSet
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(14)
+    attn_args, mlp_args = fused_timed_inputs(torch, gen, 1)
+    D, Hkv = MODEL_1B["D"], MODEL_1B["Hkv"]
+    calls = {
+        "B8": (lambda: db.fused_attn_block(*attn_args, scale=D ** -0.5, eps=FUSED_EPS, n_kv=Hkv), B8_LAUNCHES),
+        "B9": (lambda: db.fused_mlp_block(*mlp_args, eps=FUSED_EPS), B9_LAUNCHES),
+    }
+    gs = GraphSet(torch.device("cuda"), True)
+    out = {}
+    for name, (fn, labels) in calls.items():
+        scope = gs.scope("pdl", name)
+        gs.eager(scope, fn)
+        g = gs.capture(scope, fn, ())
+        eager, graph = launch_breakdown(torch, fn, labels), launch_breakdown(torch, g.replay, labels)
+        out[name] = dict(eager=eager, graph=graph)
+        log(f"PDL under graphs, {name} (1B, batch 1), us: " + "; ".join(
+            f"{k} {graph[k]:.2f} (eager {eager[k]:.2f})" for k in eager
+        ))
+    gs.close()
+    return out
+
+
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
@@ -3348,6 +3672,9 @@ def main():
     serving = timed("serving", phase_serving, torch, params)
     ragged = timed("ragged serving", phase_ragged_serving, torch, params, serving["tokens"])
     fused = timed("fused 1B generate", phase_fused_1b, torch, params, main_path)
+    graphs = timed("graphs on and off", phase_graphs, torch, params)
+    timed("sampled 1B generate", phase_sampled, torch, params)
+    timed("pdl under graphs", phase_pdl_graphs, torch, db)
     for key in ("forced_seq", "plain_logits", "fp32_logits"):
         main_path.pop(key)
     del params

@@ -7,8 +7,12 @@ the reference for every field kept here. Settings the port does not run
 yet raise ``NotImplementedError`` naming their ROADMAP item instead of being
 silently ignored.
 
-One field is new: ``device`` (default ``"cuda"``). Asking for ``"cuda"``
-without a card raises ``RuntimeError``; tests pass ``device="cpu"``.
+Two fields are new: ``device`` (default ``"cuda"``; asking for
+``"cuda"`` without a card raises ``RuntimeError``, tests pass
+``device="cpu"``) and ``cuda_graphs`` (default True: each runner captures
+one CUDA graph per key and replays it, ``runtime/graphs.py``; False runs
+the same programs eagerly, for debugging and for the eager vs graph
+comparison). On the CPU the runners run eagerly whatever it says.
 """
 
 from __future__ import annotations
@@ -62,8 +66,10 @@ def resolve_device(device) -> torch.device:
 
 @dataclass
 class OnDeviceSamplingConfig:
-    """Sampler settings (reference OnDeviceSamplingConfig). Only greedy
-    decoding is ported: ``do_sample=True`` is refused at validation."""
+    """Sampler settings (reference OnDeviceSamplingConfig). ``do_sample``
+    draws from the temperature / top-k / top-p warped distribution
+    (``modules/sampling.py``) with the application's generator, seeded
+    from ``Config.seed``; False decodes greedily."""
 
     do_sample: bool = False
     top_k: int = 1
@@ -193,6 +199,13 @@ class Config:
     attention_chunk_size: Optional[int] = None
 
     # --- misc ------------------------------------------------------------
+    # seal the warmed programs after warmup(): a later graph capture raises
+    # RetraceError (analysis/retrace_guard.py). Env override:
+    # NXDI_TPU_RETRACE_GUARD=1.
+    retrace_guard: bool = False
+    # one captured CUDA graph per runner key, replayed (runtime/graphs.py);
+    # False runs the same programs eagerly on a card
+    cuda_graphs: bool = True
     seed: int = 0
     # True: generate() chains prefill -> decode chunks with device-resident
     # tokens and fetches once at the end; False: synchronize at every chunk
@@ -263,16 +276,6 @@ class Config:
                 f"kv_cache_dtype={self.kv_cache_dtype!r} (quantized KV cache) is "
                 "not ported to PyTorch yet (ROADMAP A6 (quantization), kernel "
                 "B1 int8/fp8 mode)"
-            )
-        if self.padding_side != "right":
-            raise NotImplementedError(
-                "padding_side='left' is not ported to PyTorch yet (ROADMAP A3b)"
-            )
-        ods = self.on_device_sampling_config
-        if ods is not None and ods.do_sample:
-            raise NotImplementedError(
-                "do_sample=True (multinomial sampling) is not ported to "
-                "PyTorch yet (ROADMAP A3b); the port decodes greedily"
             )
         resolve_device(self.device)
 

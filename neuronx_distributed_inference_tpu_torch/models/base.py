@@ -4,7 +4,8 @@ uniform-stack, greedy subset over the contiguous and the paged cache).
     forward(params, cache, inputs) -> StepOutput(tokens, logits?, cache)
 
 The reference traces this under ``jit`` with the layers in a ``lax.scan``;
-the port runs it eagerly, the layers and the decode steps as Python loops.
+the port writes it as eager PyTorch, the layers and the decode steps as
+Python loops, and the runners capture each step as a CUDA graph.
 The cache is updated IN PLACE (``update_cache_at_layer``); the returned
 ``StepOutput.cache`` is the same object that was passed in.
 
@@ -88,6 +89,11 @@ class ModelSpec:
     # fused decode MLP block B9 (config fused_mlp_kernel_enabled): only
     # True takes it
     use_fused_mlp: Optional[bool] = None
+    # multinomial sampling (on_device_sampling_config.do_sample) over a
+    # top-k window of at most max_topk tokens; a step samples only when it
+    # is also handed a generator (the serving session's steps are greedy)
+    do_sample: bool = False
+    max_topk: int = 256
 
 
 @dataclass
@@ -183,9 +189,13 @@ def contiguous_decode_attend(
 ) -> torch.Tensor:
     """Token-gen attention over one layer of the stacked contiguous cache:
     the B1 kernel's wrapper reads the FULL stacked cache at ``layer_idx``
-    (no bucket-slice copy); ``use_tkg_kernel=False`` takes the bucket slice
-    and the plain masked softmax."""
-    if use_tkg(aspec):
+    (no bucket-slice copy). A pass of more than ``MAX_Q_LEN`` tokens (a
+    window of a windowed prefill) and ``use_tkg_kernel=False`` take the
+    bucket slice and the plain masked softmax, as the reference's gate
+    sends them to its native path."""
+    from neuronx_distributed_inference_tpu_torch.ops.decode_attention import MAX_Q_LEN
+
+    if use_tkg(aspec) and q.shape[1] <= MAX_Q_LEN:
         from neuronx_distributed_inference_tpu_torch.ops.decode_attention import (
             tkg_decode_attention,
         )
@@ -522,58 +532,58 @@ def model_logits(
     return logits, new_cache
 
 
-def _next_tokens(logits: torch.Tensor, sampling_params: torch.Tensor) -> torch.Tensor:
-    """Greedy tokens (the only sampler ported), non-finite rows marked."""
-    return mark_non_finite_tokens(sample_tokens(logits, sampling_params), logits)
+def _next_tokens(
+    logits: torch.Tensor, sampling_params: torch.Tensor, spec: ModelSpec, generator=None
+) -> torch.Tensor:
+    """Next tokens (greedy, or drawn with ``generator`` when the spec
+    samples), non-finite rows marked."""
+    tokens = sample_tokens(logits, sampling_params, generator, spec.max_topk, spec.do_sample)
+    return mark_non_finite_tokens(tokens, logits)
 
 
-def decode_steps(
+@dataclass
+class DecodeState:
+    """The device state one decode step reads and advances in place: the
+    inputs of :func:`decode_step`. A captured step reads these buffers at
+    fixed addresses; the runner refills them before a chunk
+    (``runtime/model_runner.SubModelRunner.decode_chunk``, whose loop over
+    the steps is the reference's ``decode_steps`` scan)."""
+
+    last: torch.Tensor  # (B, 1) int32 token to feed
+    pos: torch.Tensor  # (B, 1) int32 its write position
+    seq_ids: torch.Tensor  # (B,)
+    sampling_params: torch.Tensor  # (B, 3) float32
+    cols: torch.Tensor  # (1, bucket) int32 arange: the mask is cols <= pos
+    block_table: Optional[torch.Tensor] = None  # (B, MB) on the paged cache
+
+
+def decode_step(
     params: dict,
     cache: Cache,
-    last_tokens: torch.Tensor,  # (B, 1) int
-    positions: torch.Tensor,  # (B, 1) int write position of last_tokens
-    seq_ids: torch.Tensor,  # (B,)
-    sampling_params: torch.Tensor,  # (B, 3)
+    st: DecodeState,
     *,
     spec: ModelSpec,
-    num_steps: int,
-    bucket: int,
     mlp_fn: Callable = gated_mlp,
-    block_table: Optional[torch.Tensor] = None,
+    generator=None,
 ):
-    """``num_steps`` whole decode iterations, tokens kept on the device (the
-    reference runs them as one ``lax.scan`` program; here a Python loop).
-
-    ``block_table`` (B, MB) runs the chunk over the PAGED cache: each step
-    derives its write slots on the device from the table and the advancing
-    position, so the caller must have allocated blocks covering positions up
-    to pos + num_steps, and ``bucket`` must equal MB * block_size.
-
-    Returns (tokens (B, num_steps), logits (B, num_steps, V) | None, cache)."""
-    cols = torch.arange(bucket, dtype=torch.int32, device=last_tokens.device)[None, :]
-    last = last_tokens.to(torch.int32)
-    pos = positions.to(torch.int32)
-    toks, outs = [], []
-    for _ in range(num_steps):
-        inputs = StepInputs(
-            input_ids=last,
-            attention_mask=(cols <= pos).to(torch.int32),
-            position_ids=pos,
-            seq_ids=seq_ids,
-            sampling_params=sampling_params,
-            block_table=block_table,
-        )
-        logits, cache = model_logits(
-            params, cache, inputs, spec=spec, phase=PHASE_TOKEN_GENERATION, mlp_fn=mlp_fn
-        )
-        tok = _next_tokens(logits, sampling_params)
-        toks.append(tok[:, 0])
-        if spec.output_logits:
-            outs.append(logits[:, 0])
-        last, pos = tok, pos + 1
-    tokens = torch.stack(toks, dim=1)
-    out_logits = torch.stack(outs, dim=1) if spec.output_logits else None
-    return tokens, out_logits, cache
+    """One whole decode iteration with no host read: the mask is built on
+    the device from ``cols <= pos``, and ``st.last`` / ``st.pos`` advance in
+    place to the new token and the next position, so the same step runs
+    again (eagerly, or as a replay of its captured graph) without the host.
+    Returns (tokens (B,), logits (B, V) | None)."""
+    inputs = StepInputs(
+        input_ids=st.last,
+        attention_mask=(st.cols <= st.pos).to(torch.int32),
+        position_ids=st.pos,
+        seq_ids=st.seq_ids,
+        sampling_params=st.sampling_params,
+        block_table=st.block_table,
+    )
+    logits, _ = model_logits(params, cache, inputs, spec=spec, phase=PHASE_TOKEN_GENERATION, mlp_fn=mlp_fn)
+    tok = _next_tokens(logits, st.sampling_params, spec, generator)
+    st.last.copy_(tok)
+    st.pos.add_(1)
+    return tok[:, 0], (logits[:, 0] if spec.output_logits else None)
 
 
 def mixed_forward(
@@ -648,7 +658,7 @@ def mixed_forward(
     last_idx = torch.clamp(inputs.row_start.to(torch.int64) + inputs.row_len.to(torch.int64) - 1, 0, T - 1)
     rows_h = hidden[0][last_idx][:, None, :]  # (R, 1, H)
     logits = lm_head(params, rows_h, spec)[..., : spec.vocab_size]  # (R, 1, V)
-    tokens = _next_tokens(logits, inputs.sampling_params)
+    tokens = _next_tokens(logits, inputs.sampling_params, spec)
     return StepOutput(
         tokens=tokens, logits=logits if spec.output_logits else None, cache=type(cache)(k=k_cache, v=v_cache)
     )
@@ -662,10 +672,12 @@ def forward(
     spec: ModelSpec,
     phase: str,
     mlp_fn: Callable = gated_mlp,
+    generator=None,
 ) -> StepOutput:
-    """One step (counterpart of the reference ``forward``)."""
+    """One step (counterpart of the reference ``forward``); ``generator``
+    draws the tokens when the spec samples."""
     logits, new_cache = model_logits(params, cache, inputs, spec=spec, phase=phase, mlp_fn=mlp_fn)
-    tokens = _next_tokens(logits, inputs.sampling_params)
+    tokens = _next_tokens(logits, inputs.sampling_params, spec, generator)
     return StepOutput(
         tokens=tokens, logits=logits if spec.output_logits else None, cache=new_cache
     )

@@ -140,7 +140,15 @@ class DecoderModelBuilder:
             attention_scaling=rope_attention_scaling(cfg),
             norm_type=self.norm_type,
             use_fused_mlp=tc.fused_mlp_kernel_enabled,
+            do_sample=bool(tc.on_device_sampling_config and tc.on_device_sampling_config.do_sample),
+            max_topk=tc.max_topk,
         )
+
+    def host_read_tokens(self) -> Optional[int]:
+        """The fewest tokens per row at which a step of this model reads on
+        the host (none for dense models): such a step cannot be captured
+        as a CUDA graph and runs eagerly (``runtime/model_runner.py``)."""
+        return None
 
     # ---- param pytree ----------------------------------------------------
 

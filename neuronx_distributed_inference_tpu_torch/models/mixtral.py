@@ -11,7 +11,7 @@ import numpy as np
 from neuronx_distributed_inference_tpu_torch.config import InferenceConfig
 from neuronx_distributed_inference_tpu_torch.models.builder import DecoderModelBuilder, _to_torch, hf_array
 from neuronx_distributed_inference_tpu_torch.models.registry import register_model
-from neuronx_distributed_inference_tpu_torch.modules.moe import MoESpec, moe_layer
+from neuronx_distributed_inference_tpu_torch.modules.moe import MoESpec, grouped_route_tokens, moe_layer
 
 #: Qwen3-30B-A3B (the public ``Qwen/Qwen3-30B-A3B`` config.json): 30.53 B
 #: parameters, 61.06 GB in bf16, the MoE model of the family that fits one
@@ -191,6 +191,11 @@ class MoEDecoderModelBuilder(DecoderModelBuilder):
             },
         }
         return params
+
+    def host_read_tokens(self):
+        """Prefill-sized steps of this model may take the grouped MoE route,
+        which reads its group sizes on the host (``modules/moe.py``)."""
+        return grouped_route_tokens(self.moe_spec())
 
     def mlp_fn(self):
         mspec = self.moe_spec()

@@ -17,6 +17,10 @@ import torch
 
 GARBAGE_LINES = 1  # padding-zone lines for invalid seq_id writes
 
+#: position of a padded token in a prefill window: its write drops into the
+#: garbage line and every causal bound masks it
+PAD_POSITION_SENTINEL = -(1 << 30)
+
 
 @dataclass
 class KVCache:

@@ -173,6 +173,12 @@ def _plain_entry(entry: dict) -> dict:
 def _sorted_dispatch(affinities: torch.Tensor, k: int):
     """(T, E) affinities -> token-replica rows sorted by expert (stable):
     (row_token (T*k,), row_expert, row_weight, group_sizes (E,))."""
+    return _sorted_dispatch_order(affinities, k)[:4]
+
+
+def _sorted_dispatch_order(affinities: torch.Tensor, k: int):
+    """:func:`_sorted_dispatch` plus what :func:`_sum_per_token` needs: the
+    sort order of the flat (token, selection) rows and the (T, k) ids."""
     T, E = affinities.shape
     w_topk, e_topk = _top_k(affinities, k)
     flat_e = e_topk.reshape(T * k)
@@ -180,7 +186,26 @@ def _sorted_dispatch(affinities: torch.Tensor, k: int):
     flat_w = w_topk.reshape(T * k)
     order = torch.argsort(flat_e, stable=True)
     group_sizes = torch.bincount(flat_e, minlength=E)
-    return flat_t[order], flat_e[order], flat_w[order], group_sizes
+    return flat_t[order], flat_e[order], flat_w[order], group_sizes, order, e_topk
+
+
+def _sum_per_token(rows: torch.Tensor, order: torch.Tensor, e_topk: torch.Tensor) -> torch.Tensor:
+    """The reference's scatter-add of expert-sorted rows into their tokens
+    (``zeros.at[row_token].add(rows)``) in one fixed order: each token's k
+    rows added to zero one at a time in increasing expert id, rounding in
+    the rows' dtype at each add (in fp32 the sums of the CPU's sequential
+    ``index_add_``). On a card ``index_add_`` adds in the order its atomics
+    land, which changes from run to run, and so did the greedy tokens of a
+    prefill that takes this route."""
+    T, k = e_topk.shape
+    flat = torch.empty_like(rows)
+    flat[order] = rows
+    by_expert = torch.argsort(e_topk, dim=1, stable=True)
+    per_token = torch.take_along_dim(flat.view(T, k, -1), by_expert[:, :, None], dim=1)
+    acc = torch.zeros_like(per_token[:, 0])
+    for j in range(k):
+        acc = acc + per_token[:, j]
+    return acc
 
 
 def _grouped_mm(entry: dict, x_rows: torch.Tensor, row_expert: torch.Tensor, group_sizes) -> torch.Tensor:
@@ -205,7 +230,7 @@ def expert_mlps_grouped(params: dict, x: torch.Tensor, affinities: torch.Tensor,
     """Dropless sorted-token grouped route: T*k rows of expert work instead
     of the dense route's E*T."""
     glu = _glu_fn(spec)
-    st, se, sw, group_sizes = _sorted_dispatch(affinities, spec.top_k)
+    st, se, sw, group_sizes, order, e_topk = _sorted_dispatch_order(affinities, spec.top_k)
     sizes = group_sizes.tolist()  # the one host read of the layer
     xs = x[st]
     sww = sw.to(x.dtype)[:, None]
@@ -216,7 +241,7 @@ def expert_mlps_grouped(params: dict, x: torch.Tensor, affinities: torch.Tensor,
     y = _grouped_mm(params["down_proj"], glu(g, u), se, sizes)
     if not spec.early_affinity_modulation:
         y = y * sww
-    return torch.zeros_like(x).index_add_(0, st, y)
+    return _sum_per_token(y, order, e_topk)
 
 
 def expert_mlps_capacity(params: dict, x: torch.Tensor, affinities: torch.Tensor, spec: MoESpec) -> torch.Tensor:
@@ -227,7 +252,7 @@ def expert_mlps_capacity(params: dict, x: torch.Tensor, affinities: torch.Tensor
     E, k = spec.num_experts, spec.top_k
     C = max(1, math.ceil(T * k / E * spec.capacity_factor))
     glu = _glu_fn(spec)
-    st, se, sw, group_sizes = _sorted_dispatch(affinities, k)
+    st, se, sw, group_sizes, order, e_topk = _sorted_dispatch_order(affinities, k)
     R = st.shape[0]
     starts = torch.cumsum(group_sizes, dim=0) - group_sizes
     pos = torch.arange(R, device=x.device) - starts[se]
@@ -258,7 +283,7 @@ def expert_mlps_capacity(params: dict, x: torch.Tensor, affinities: torch.Tensor
     contrib = torch.where(keep[:, None], rows, torch.zeros_like(rows))
     if not spec.early_affinity_modulation:
         contrib = contrib * sww
-    return torch.zeros_like(x).index_add_(0, st, contrib)
+    return _sum_per_token(contrib, order, e_topk)
 
 
 def expert_mlps_dense(
@@ -293,6 +318,21 @@ def expert_mlps_dense(
     u = expert_mm(params["up_proj"], x, "th,ehi->eti")
     y = expert_mm(params["down_proj"], glu(g, u), "eti,eih->eth")  # (E, T, H)
     return torch.einsum("te,eth->th", aff, y)
+
+
+def grouped_route_tokens(spec: MoESpec) -> Optional[int]:
+    """The fewest tokens per row at which :func:`moe_layer` takes the
+    grouped route, whose group sizes it reads on the host once a layer (so
+    a step that reaches it cannot be captured as a CUDA graph), or None
+    when this spec never takes it."""
+    if (
+        spec.capacity_factor is None
+        and spec.num_experts >= 16 * spec.top_k
+        and spec.ep_degree == 1
+        and spec.top_k < spec.num_experts
+    ):
+        return spec.sparse_dispatch_threshold
+    return None
 
 
 def moe_layer(params: dict, hidden: torch.Tensor, spec: MoESpec) -> torch.Tensor:

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
 
@@ -66,6 +67,32 @@ def reset_launch_counts() -> None:
     for counts in (LAUNCHES, ROUTES):
         for name in counts:
             counts[name] = 0
+
+
+@contextmanager
+def census():
+    """Record the kernel launches and route calls that the wrappers count
+    inside, and take them back out of the counts: a CUDA graph capture
+    enqueues nothing. Yields the dict {name: count} it fills on exit; each
+    replay of the graph adds it back (:func:`add_counts`), so a graphed run
+    counts what the same run counts eagerly."""
+    before = {**LAUNCHES, **ROUTES}
+    recorded: Dict[str, int] = {}
+    try:
+        yield recorded
+    finally:
+        for counts in (LAUNCHES, ROUTES):
+            for name in counts:
+                n = counts[name] - before[name]
+                if n:
+                    recorded[name] = n
+                counts[name] = before[name]
+
+
+def add_counts(recorded: Dict[str, int], times: int = 1) -> None:
+    """Add a recorded census ``times`` times (a graph's replays)."""
+    for name, n in recorded.items():
+        (LAUNCHES if name in LAUNCHES else ROUTES)[name] += n * times
 
 
 def launch_counts() -> Dict[str, int]:
@@ -183,46 +210,105 @@ def sm_count(device) -> int:
     return _sm_count(index)
 
 
-#: (device index, stream) -> one fp32 scratch buffer, grown to the largest
-#: call: the split partials of B1, B4, B6, B8 and B9, B7's partial sums and
-#: B9's act rows. One
-#: stream runs its launches in order, so a call may reuse what the previous
-#: call on that stream left there.
+#: pool key -> one fp32 scratch buffer, grown to the largest call: the
+#: split partials of B1, B4, B6, B8 and B9, B7's partial sums and B9's act
+#: rows. A pool key is (device index, stream): one stream runs its launches
+#: in order, so a call may reuse what the previous call on that stream left
+#: there. Inside :func:`pool_scope` it is (device index, scope) instead: a
+#: captured CUDA graph owns the pools of its scope (runtime/graphs.py).
 _SCRATCH: Dict[tuple, object] = {}
+
+#: pool key -> one int32 buffer of completion counters (the last of a group
+#: of blocks to finish combines their partial results: B3's decode splits,
+#: B8's kv splits and o-proj splits, B9's gate/up and down splits). Every
+#: counter is 0 between launches: the block that finishes resets it, so a
+#: buffer is zeroed once, when it is made, and launches that run in order
+#: may share it (graph replays included).
+_COUNTERS: Dict[tuple, object] = {}
+
+#: pool keys a live CUDA graph points into: asking one of them to grow
+#: raises (:class:`PoolPinnedError`), since a graph keeps the old pointer
+_PINNED: Dict[tuple, int] = {}
+
+_SCOPE = threading.local()
+
+
+class PoolPinnedError(RuntimeError):
+    """A scratch or counter pool that a live CUDA graph uses was asked to
+    grow; reallocating it would leave the graph writing freed memory."""
+
+
+@contextmanager
+def pool_scope(scope):
+    """Key the scratch and counter pools of the calls inside by ``scope``
+    instead of by their stream (a captured graph's pools: sized by its
+    eager run, then pinned by :func:`pin_pools` while the graph lives)."""
+    prev = getattr(_SCOPE, "key", None)
+    _SCOPE.key = scope
+    try:
+        yield
+    finally:
+        _SCOPE.key = prev
+
+
+def _pool_key(device, stream: int) -> tuple:
+    scope = getattr(_SCOPE, "key", None)
+    return (device.index, stream if scope is None else scope)
+
+
+def pin_pools(key: tuple) -> None:
+    """Pin the pools of ``key`` ((device index, scope)): from now on a call
+    that needs more than they hold raises instead of reallocating."""
+    _PINNED[key] = _PINNED.get(key, 0) + 1
+
+
+def release_pools(key: tuple) -> None:
+    """Unpin the pools of ``key`` (its graph is gone) and free them."""
+    n = _PINNED.pop(key, 0) - 1
+    if n > 0:
+        _PINNED[key] = n
+        return
+    _SCRATCH.pop(key, None)
+    _COUNTERS.pop(key, None)
+
+
+def _pool(pools: Dict[tuple, object], what: str, numel: int, device, stream: int, make):
+    key = _pool_key(device, stream)
+    buf = pools.get(key)
+    if buf is None or buf.numel() < numel:
+        if key in _PINNED:
+            raise PoolPinnedError(
+                f"the {what} pool {key} is pinned by a captured CUDA graph and holds "
+                f"{0 if buf is None else buf.numel()} elements; a call asked for {numel}. "
+                "A graph's pools are sized by its eager run before capture and never "
+                "reallocated while it lives"
+            )
+        buf = pools[key] = make()
+    return buf
 
 
 def scratch(numel: int, device, stream: int):
     """At least ``numel`` fp32 values of scratch on CUDA ``device`` for
     ``stream`` (:func:`stream_ptr`; contents undefined), allocated once and
-    grown as needed, never per call."""
+    grown as needed, never per call (raises if the pool is pinned)."""
     import torch
 
-    key = (device.index, stream)
-    buf = _SCRATCH.get(key)
-    if buf is None or buf.numel() < numel:
-        buf = _SCRATCH[key] = torch.empty(numel, dtype=torch.float32, device=device)
-    return buf
-
-
-#: (device index, stream) -> one int32 buffer of completion counters (the
-#: last of a group of blocks to finish combines their partial results: B3's
-#: decode splits, B8's kv splits and o-proj splits, B9's gate/up and down
-#: splits). Every counter is 0
-#: between launches: the block that finishes resets it, so a buffer is
-#: zeroed once, when it is made, and launches on one stream may share it.
-_COUNTERS: Dict[tuple, object] = {}
+    return _pool(
+        _SCRATCH, "scratch", numel, device, stream,
+        lambda: torch.empty(numel, dtype=torch.float32, device=device),
+    )
 
 
 def counters(numel: int, device, stream: int):
     """At least ``numel`` completion counters (int32, all 0) on CUDA
-    ``device`` for ``stream``, allocated once and grown as needed."""
+    ``device`` for ``stream``, allocated once and grown as needed (raises
+    if the pool is pinned)."""
     import torch
 
-    key = (device.index, stream)
-    buf = _COUNTERS.get(key)
-    if buf is None or buf.numel() < numel:
-        buf = _COUNTERS[key] = torch.zeros(max(numel, 1024), dtype=torch.int32, device=device)
-    return buf
+    return _pool(
+        _COUNTERS, "counter", numel, device, stream,
+        lambda: torch.zeros(max(numel, 1024), dtype=torch.int32, device=device),
+    )
 
 
 def stream_ptr(device) -> int:

@@ -10,10 +10,17 @@ cache is contiguous, or the paged block pool with ``is_block_kv_layout``.
 With ``serving_ragged`` it also carries ``mixed_step_model``, the ragged
 mixed-step runner the serving session dispatches once per step.
 ``generate`` keeps the reference's host loop over the contiguous cache: one
-prefill, then decode chunks sized by :func:`_pick_chunk`, with tokens kept
-on the device and fetched once at the end when no EOS is given, and fetched
-once per chunk to test for EOS otherwise. The paged cache is driven through
+prefill (in windows when the prompt is longer than ``max_context_length``),
+then decode chunks sized by :func:`_pick_chunk`, with tokens kept on the
+device and fetched once at the end when no EOS is given, and fetched once
+per chunk to test for EOS otherwise. The paged cache is driven through
 ``runtime/serving.py::ServingSession`` or :meth:`ModelForCausalLM.forward`.
+
+``load()`` gives the runners one :class:`~.graphs.GraphSet`: each runner
+key's program is captured as a CUDA graph at first use (``warmup()``
+captures every bucket) and replayed after; ``cuda_graphs=False`` runs them
+eagerly. Sampling (``do_sample``) draws from the app's ``torch.Generator``,
+seeded from ``Config.seed`` and advanced once per ``generate()`` call.
 """
 
 from __future__ import annotations
@@ -32,13 +39,15 @@ from neuronx_distributed_inference_tpu_torch.models.base import (
     prepare_params,
 )
 from neuronx_distributed_inference_tpu_torch.modules import autobucketing
+from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import guard_enabled
 from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import BlockKVCache
-from neuronx_distributed_inference_tpu_torch.modules.kvcache import KVCache
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import PAD_POSITION_SENTINEL, KVCache
 from neuronx_distributed_inference_tpu_torch.modules.sampling import (
     prepare_sampling_params,
     validate_sampling_params,
 )
 from neuronx_distributed_inference_tpu_torch.ops.quant import prepare_int4_params, prepare_quantized_params
+from neuronx_distributed_inference_tpu_torch.runtime.graphs import GraphSet
 from neuronx_distributed_inference_tpu_torch.runtime.model_runner import (
     TAG_CONTEXT_ENCODING,
     TAG_TOKEN_GENERATION,
@@ -96,7 +105,10 @@ class ModelForCausalLM:
             tkg_buckets = sorted(
                 {autobucketing.round_up(b, tc.pa_block_size) for b in tkg_buckets}
             )
-        block_kwargs = dict(block_kv=tc.is_block_kv_layout, block_size=tc.pa_block_size)
+        block_kwargs = dict(
+            block_kv=tc.is_block_kv_layout, block_size=tc.pa_block_size,
+            host_read_tokens=self.builder.host_read_tokens(),
+        )
         self.context_encoding_model = SubModelRunner(
             TAG_CONTEXT_ENCODING, PHASE_CONTEXT_ENCODING, self.spec,
             autobucketing.generate_context_encoding_buckets(tc),
@@ -135,6 +147,11 @@ class ModelForCausalLM:
             self.mixed_step_model = MixedStepRunner(
                 self.spec, mixed_buckets, num_rows, self.device, mlp_fn, tc.pa_block_size, tkg_buckets,
             )
+        # the programs' CUDA graphs (bound at load) and the sampler's
+        # generator, reseeded once per generate() call (_advance_rng)
+        self.graphs: Optional[GraphSet] = None
+        self._rng = torch.Generator(device=self.device)
+        self._rng_calls = 0
 
     # ---- weights / cache -------------------------------------------------
 
@@ -164,28 +181,58 @@ class ModelForCausalLM:
             elif tc.weight_int4:
                 params = prepare_int4_params(params, tc)
         self.params = prepare_params(params)
+        self.kv_cache = None
         self.init_kv_cache()
+        # new params: every program is captured anew, against them
+        if self.graphs is not None:
+            self.graphs.close()
+        self.graphs = GraphSet(self.device, self.config.torch_config.cuda_graphs)
+        for runner in self._all_runners():
+            runner.bind_graphs(self.graphs)
         return self
 
+    def _all_runners(self):
+        return self.runners + ([self.mixed_step_model] if self.mixed_step_model is not None else [])
+
     def init_kv_cache(self):
-        """A fresh (zeroed) cache: contiguous, or the paged block pool."""
+        """A zeroed cache: contiguous, or the paged block pool. An existing
+        cache is zeroed in place, so the graphs captured against it stay
+        valid."""
+        if self.kv_cache is not None:
+            self.kv_cache.k.zero_()
+            self.kv_cache.v.zero_()
+            return
         self.kv_cache = self.builder.init_kv_cache()
 
     def warmup(self):
-        """Run every bucket of both runners once, with chunked or prefix
-        prefill every chunk q length, and every total-token bucket of the
-        mixed-step runner (kernel builds included)."""
+        """Run, and so capture, every bucket of both runners (the decode
+        runner's one-step decode programs too), each chunked/prefix prefill
+        pass length (or the prefill window) at the largest bucket, and every
+        total-token bucket of the mixed-step runner at its largest kv width.
+        Then, under ``retrace_guard`` (or ``NXDI_TPU_RETRACE_GUARD=1``), seal
+        the runners: a later new key raises RetraceError. As in the
+        reference, a config with multi-token passes stays unsealed (their
+        smaller-width programs are built at first use), and so does the
+        mixed-step runner (callers that pin zero captures warm their mix and
+        seal it)."""
         tc = self.config.torch_config
         chunk_q = None
         if tc.is_chunked_prefill or tc.is_prefix_caching:
             chunk_q = autobucketing.generate_chunk_q_buckets(tc)
+        elif tc.max_context_length < tc.seq_len:
+            # windowed prefill passes one window length
+            chunk_q = [self.context_encoding_model.buckets[-1]]
         for runner in self.runners:
             self.kv_cache = runner.warmup(
                 self.params, self.kv_cache,
                 chunk_q_lens=chunk_q if runner is self.token_generation_model else None,
+                generator=self._rng,
             )
         if self.mixed_step_model is not None:
             self.kv_cache = self.mixed_step_model.warmup(self.params, self.kv_cache)
+        if guard_enabled(tc) and chunk_q is None:
+            for runner in self.runners:
+                runner.seal()
         return self
 
     # ---- one step ----------------------------------------------------------
@@ -250,6 +297,86 @@ class ModelForCausalLM:
     def _decode_bucket(self, needed: int) -> int:
         return autobucketing.get_target_bucket(self.token_generation_model.buckets, needed)
 
+    def _advance_rng(self):
+        """Reseed the sampler's generator for the next generate() call: the
+        k-th call of an app draws from seed (Config.seed, k), so successive
+        calls draw differently and an app built with the same seed repeats
+        them (the reference's per-call key split)."""
+        seed = np.random.SeedSequence([self.config.torch_config.seed, self._rng_calls]).generate_state(1)[0]
+        self._rng.manual_seed(int(seed))
+        self._rng_calls += 1
+
+    def validate_prefill_length(self, S: int) -> bool:
+        """The checks every prompt prefill shares (the reference's rule);
+        returns True when the prompt prefills in windows."""
+        tc = self.config.torch_config
+        if S > tc.seq_len:
+            raise ValueError(f"prompt length {S} exceeds seq_len {tc.seq_len}")
+        windowed = S > tc.max_context_length
+        if windowed and S > self.token_generation_model.buckets[-1]:
+            raise ValueError(
+                f"prompt length {S} exceeds the largest token-generation "
+                f"bucket ({self.token_generation_model.buckets[-1]}) needed "
+                f"for windowed prefill; raise token_generation_buckets/seq_len"
+            )
+        return windowed
+
+    def _windowed_prefill(self, input_ids, attention_mask, seq_ids, sampling_params):
+        """Prefill a prompt LONGER than one context program in windows (the
+        reference's ``_windowed_prefill``): window 0 through the context
+        program, every later window as a multi-token token-generation pass
+        attending the cache written so far (plain attention over the
+        contiguous cache: longer than B1's 16 query tokens). Every window is
+        padded to the same length C, so one program per kv bucket; padded
+        tokens carry sentinel positions that drop their writes and mask
+        their reads. Returns (first tokens (B, 1) int32 on the device, first
+        logits (B, 1, V) | None)."""
+        B, S_in = input_ids.shape
+        C = self.context_encoding_model.buckets[-1]
+        ctx_lens = attention_mask.sum(axis=1).astype(np.int64)
+        first_tok = np.zeros((B,), np.int64)
+        first_logits = np.zeros((B, 1, self.spec.vocab_size), np.float32) if self.spec.output_logits else None
+
+        n0 = min(C, S_in)
+        pos0 = np.tile(np.arange(n0, dtype=np.int32), (B, 1))
+        inputs, _ = self.context_encoding_model.prepare(
+            input_ids[:, :n0], attention_mask[:, :n0], pos0, seq_ids, sampling_params
+        )
+        out = self.context_encoding_model(self.params, self.kv_cache, inputs, self._rng)
+        rows = ctx_lens <= n0
+        if rows.any():
+            first_tok[rows] = out.tokens[:B].cpu().numpy()[rows, -1]
+            if first_logits is not None:
+                first_logits[rows, 0] = out.logits[:B].float().cpu().numpy()[rows, -1]
+
+        tkg = self.token_generation_model
+        start = n0
+        while start < S_in:
+            end = min(start + C, S_in)
+            n = end - start
+            ids = np.zeros((B, C), input_ids.dtype)
+            ids[:, :n] = input_ids[:, start:end]
+            pos = np.full((B, C), PAD_POSITION_SENTINEL, np.int32)
+            pos[:, :n] = np.arange(start, end, dtype=np.int32)
+            pos = np.where(pos < ctx_lens[:, None], pos, PAD_POSITION_SENTINEL)
+            # full-width carrier: the per-token causal bounds keep valid
+            # queries off the junk columns
+            width = autobucketing.get_target_bucket(tkg.buckets, end)
+            mask = np.ones((B, width), np.int32)
+            inputs, _ = tkg.prepare(ids, mask, pos, seq_ids, sampling_params)
+            out = tkg(self.params, self.kv_cache, inputs, self._rng)
+            rows = (ctx_lens > start) & (ctx_lens <= end)
+            if rows.any():
+                toks = out.tokens[:B].cpu().numpy()
+                idx = np.clip(ctx_lens - 1 - start, 0, n - 1)
+                first_tok[rows] = toks[rows, idx[rows]]
+                if first_logits is not None:
+                    first_logits[rows, 0] = out.logits[:B].float().cpu().numpy()[rows, idx[rows]]
+            start = end
+        first = torch.from_numpy(first_tok[:, None].astype(np.int32)).to(self.device)
+        fl = torch.from_numpy(first_logits).to(self.device) if first_logits is not None else None
+        return first, fl
+
     # ---- generation loop -------------------------------------------------
 
     def generate(
@@ -263,14 +390,17 @@ class ModelForCausalLM:
         temperature=None,
         seq_ids: Optional[np.ndarray] = None,
     ) -> GenerationOutput:
-        """Greedy generation. input_ids (B, S) RIGHT-padded; attention_mask
-        (B, S) 1 = valid."""
+        """Greedy or sampled generation. input_ids (B, S); attention_mask
+        (B, S) 1 = valid (the prompt is read through it, right- or
+        left-padded alike, as in the reference)."""
         tc = self.config.torch_config
         if tc.is_block_kv_layout:
             raise NotImplementedError(
                 "block-KV layout generation runs through ServingSession "
                 "(runtime/serving.py) or the low-level forward API"
             )
+        self._advance_rng()
+        gen_rng = self._rng
         input_ids = np.asarray(input_ids)
         B, S_in = input_ids.shape
         attention_mask = np.ones_like(input_ids) if attention_mask is None else np.asarray(attention_mask)
@@ -278,28 +408,24 @@ class ModelForCausalLM:
             seq_ids = np.arange(B, dtype=np.int32)
         sampling_params = prepare_sampling_params(B, top_k, top_p, temperature)
         validate_sampling_params(sampling_params, tc.max_topk)
-        if S_in > tc.seq_len:
-            raise ValueError(f"prompt length {S_in} exceeds seq_len {tc.seq_len}")
-        if S_in > tc.max_context_length:
-            raise NotImplementedError(
-                "windowed prefill (prompts longer than max_context_length) is not "
-                "ported to PyTorch yet (ROADMAP A3b)"
-            )
+        windowed = self.validate_prefill_length(S_in)
         n_new = min(tc.seq_len, S_in + max_new_tokens) - S_in
         if n_new <= 0:
             return GenerationOutput(sequences=input_ids, num_generated=0)
         ctx_lens = attention_mask.sum(axis=1).astype(np.int32)
 
-        # prefill: positions are slot indices [0, S); padded slots write into
-        # the masked tail
-        position_ids = np.tile(np.arange(S_in, dtype=np.int32), (B, 1))
-        inputs, _ = self.context_encoding_model.prepare(
-            input_ids, attention_mask, position_ids, seq_ids, sampling_params
-        )
-        out = self.context_encoding_model(self.params, self.kv_cache, inputs)
-        self.kv_cache = out.cache
-        first_tokens = out.tokens[:B]  # device (B, 1)
-        first_logits = out.logits[:B] if self.spec.output_logits else None
+        if windowed:
+            first_tokens, first_logits = self._windowed_prefill(input_ids, attention_mask, seq_ids, sampling_params)
+        else:
+            # prefill: positions are slot indices [0, S); padded slots write
+            # into the masked tail
+            position_ids = np.tile(np.arange(S_in, dtype=np.int32), (B, 1))
+            inputs, _ = self.context_encoding_model.prepare(
+                input_ids, attention_mask, position_ids, seq_ids, sampling_params
+            )
+            out = self.context_encoding_model(self.params, self.kv_cache, inputs, gen_rng)
+            first_tokens = out.tokens[:B]  # device (B, 1)
+            first_logits = out.logits[:B] if self.spec.output_logits else None
         pos = ctx_lens.copy()  # next write position per row
         remaining = n_new - 1
         pos_limit = self._pos_limit()
@@ -323,7 +449,7 @@ class ModelForCausalLM:
                 chunk, take, bucket = next_chunk(False)
                 tokens_c, logits_c, self.kv_cache = self.token_generation_model.decode_chunk(
                     self.params, self.kv_cache, last, pos[:, None], seq_ids, sampling_params,
-                    num_steps=chunk, bucket=bucket,
+                    num_steps=chunk, bucket=bucket, generator=gen_rng,
                 )
                 token_chunks.append(tokens_c[:B, :take])
                 if self.spec.output_logits:
@@ -352,7 +478,7 @@ class ModelForCausalLM:
             chunk, take, bucket = next_chunk(True)
             tokens_c, logits_c, self.kv_cache = self.token_generation_model.decode_chunk(
                 self.params, self.kv_cache, last, pos[:, None], seq_ids, sampling_params,
-                num_steps=chunk, bucket=bucket,
+                num_steps=chunk, bucket=bucket, generator=gen_rng,
             )
             # one fetch per chunk: the EOS test needs the tokens on the host
             tokens_c = tokens_c[:B].cpu().numpy()

@@ -1,46 +1,230 @@
-"""Per-sub-model runners: bucket dispatch and host padding (counterpart of
-the reference's ``runtime/model_runner.py``: ``SubModelRunner`` and the
-ragged ``MixedStepRunner``).
+"""Per-sub-model runners: bucket dispatch, host padding and one CUDA graph
+per key (counterpart of the reference's ``runtime/model_runner.py``:
+``SubModelRunner`` and the ragged ``MixedStepRunner``).
 
-The reference holds one jitted program per (bucket, batch); the port runs
-eagerly, so a runner pads its inputs to the compiled batch and the bucket
-and calls :func:`models.base.forward` / :func:`models.base.decode_steps`.
-CUDA graphs per bucket are a later step (ROADMAP A3b).
+The reference holds one jitted program per key and compiles it at first
+use; the port captures each key's program as one CUDA graph at first use
+and replays it after (``runtime/graphs.py``). The keys:
+
+- (phase, compiled batch, bucket) of a context-encoding step and of a
+  one-token decode step;
+- (pass length, bucket) of a multi-token pass: a chunked or prefix prefill
+  pass on the paged cache, or one window of a windowed prefill (every
+  window is padded to the same length);
+- (bucket) of the one-step decode program that :meth:`decode_chunk`
+  replays once per step;
+- (total-token bucket, kv width) of the ragged mixed step.
+
+A program samples (a separate key) only when it is handed the app's
+generator and the spec samples. Each key's inputs live in static device
+buffers, filled from ONE host buffer a call; the outputs of a replay are
+copied out of the graph's buffers before the call returns, since the next
+replay overwrites them.
+
+**What stays eager.** A step whose MoE layers take the grouped route reads
+the experts' group sizes on the host once a layer (``modules/moe.py``), so
+it cannot be captured: the programs of ``host_read_tokens`` tokens or more
+per row (Qwen3-MoE's and Mixtral's context encoding and long windows) run
+eagerly on every call, and the runner logs that once. Their decode steps
+(B7, no host read) are captured. With ``cuda_graphs=False``, and always on
+the CPU, every program runs eagerly; the runners still record their keys,
+so the seal behaves the same.
+
+**The seal** (``seal()``; the application seals after ``warmup()`` when
+``retrace_guard`` or ``NXDI_TPU_RETRACE_GUARD=1`` asks): once sealed, the
+first use of a new step key raises ``RetraceError`` before any capture. A
+decode program's first capture is still allowed, as the reference allows
+one compile per multi-step key.
 
 On the paged cache (``block_kv``) a prefill carries a host ``slot_mapping``
 (padded with -1, the garbage slot), a decode step carries only a
 ``block_table`` (its write slots are derived on the device), and a chunked
-or prefix prefill pass — a multi-token token-generation pass — carries
-both.
+or prefix prefill pass carries both.
 """
 
 from __future__ import annotations
 
+import logging
+from contextlib import contextmanager
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import note_trace
 from neuronx_distributed_inference_tpu_torch.models.base import (
     PHASE_CONTEXT_ENCODING,
     Cache,
+    DecodeState,
     MixedStepInputs,
     ModelSpec,
     StepInputs,
     StepOutput,
-    decode_steps,
+    decode_step,
     forward,
     mixed_forward,
 )
 from neuronx_distributed_inference_tpu_torch.modules.autobucketing import get_target_bucket
 from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
+from neuronx_distributed_inference_tpu_torch.runtime.graphs import GraphSet, binding
 
 TAG_CONTEXT_ENCODING = "context_encoding_model"
 TAG_TOKEN_GENERATION = "token_generation_model"
 TAG_MIXED_STEP = "mixed_step_model"
 
+log = logging.getLogger(__name__)
 
-class SubModelRunner:
+#: StepInputs fields a step may carry beside the five every step has
+_OPTIONAL_FIELDS = ("slot_mapping", "block_table")
+#: batch rows past the caller's pad with -1 here (the garbage line / slot)
+_PAD_MINUS_ONE = ("seq_ids", "slot_mapping")
+
+
+class _Statics:
+    """The fixed-address device inputs of one key: one int32 buffer (float
+    fields ride in it as float32 bits), filled from one host buffer a call
+    (pinned on a card, so the copy does not wait for the step in flight)."""
+
+    def __init__(self, fields: List[Tuple[str, tuple, bool]], device: torch.device):
+        self.spans: Dict[str, Tuple[int, tuple, bool]] = {}
+        off = 0
+        for name, shape, is_float in fields:
+            self.spans[name] = (off, shape, is_float)
+            off += int(np.prod(shape))
+        self.flat = torch.zeros(off, dtype=torch.int32, device=device)
+        self.t: Dict[str, torch.Tensor] = {}
+        for name, (o, shape, is_float) in self.spans.items():
+            v = self.flat[o : o + int(np.prod(shape))]
+            self.t[name] = (v.view(torch.float32) if is_float else v).view(shape)
+
+    def host(self) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
+        """A zeroed host buffer laid out like :attr:`flat`, and its views."""
+        buf = np.zeros(self.flat.numel(), np.int32)
+        views = {}
+        for name, (o, shape, is_float) in self.spans.items():
+            seg = buf[o : o + int(np.prod(shape))]
+            views[name] = (seg.view(np.float32) if is_float else seg).reshape(shape)
+        return buf, views
+
+    def fill(self, arrs: Dict[str, object]) -> None:
+        """Write ``arrs`` (numpy arrays, or device tensors for the token
+        input) into the buffers, each padded along the batch axis (-1 for
+        seq_ids and slot_mapping, 0 for the rest) and along the others
+        with zeros."""
+        buf, views = self.host()
+        dev = {}
+        for name, a in arrs.items():
+            v = views[name]
+            if not isinstance(a, torch.Tensor):
+                a = np.asarray(a)
+            n = a.shape[0]
+            if n > v.shape[0]:
+                raise ValueError(f"input batch {n} > compiled batch {v.shape[0]}")
+            if isinstance(a, torch.Tensor):
+                dev[name] = a
+            else:
+                v[(slice(0, n),) + tuple(slice(0, s) for s in a.shape[1:])] = a
+            if name in _PAD_MINUS_ONE:
+                v[n:] = -1
+        t = torch.from_numpy(buf)
+        if self.flat.is_cuda:
+            self.flat.copy_(t.pin_memory(), non_blocking=True)
+        else:
+            self.flat.copy_(t)
+        for name, a in dev.items():
+            self.t[name][: a.shape[0]].copy_(a)
+
+    def load(self, tensors: Dict[str, torch.Tensor]) -> None:
+        """Copy device tensors of the full shapes (inputs built outside
+        :meth:`fill`) into the buffers."""
+        for name, a in tensors.items():
+            if a.data_ptr() != self.t[name].data_ptr():
+                self.t[name].copy_(a)
+
+
+class _Programs:
+    """A runner's programs: their static inputs by shape key, their graphs
+    by program key, the keys seen (the traces), and the seal."""
+
+    def __init__(self, tag: str, host_read_tokens: Optional[int] = None):
+        self.tag = tag
+        self.host_read_tokens = host_read_tokens
+        self.graphs: Optional[GraphSet] = None
+        self.statics: Dict[tuple, object] = {}
+        self.captured: Dict[tuple, object] = {}
+        self.seen = set()
+        self.sealed = False
+        self._said_eager = False
+
+    def bind(self, graphs: Optional[GraphSet]) -> None:
+        """Take a new graph set (a new load): every program is built anew,
+        and the seal waits for the next warmup()."""
+        self.graphs = graphs
+        self.statics.clear()
+        self.captured.clear()
+        self.seen.clear()
+        self.sealed = False
+
+    def eager_only(self, tokens_per_row: int) -> bool:
+        return self.host_read_tokens is not None and tokens_per_row >= self.host_read_tokens
+
+    def run(self, pkey: tuple, body: Callable, bind: tuple, tokens_per_row: int,
+            generator=None, allow_sealed: bool = False):
+        """Run program ``pkey``: replay its graph; or, at first use, note
+        the trace (raises when sealed), run ``body`` eagerly and capture it.
+        Returns (outputs, replayed): a replay's outputs are the graph's
+        buffers, which the caller copies out."""
+        g = self.captured.get(pkey)
+        if g is not None:
+            g.check_binding(bind, self.tag)
+            g.replay()
+            return g.outputs, True
+        if pkey not in self.seen:
+            note_trace(self.tag, sealed=self.sealed and not allow_sealed)
+            self.seen.add(pkey)
+        gs = self.graphs
+        if gs is None or not gs.enabled:
+            return body(), False
+        if self.eager_only(tokens_per_row):
+            if not self._said_eager:
+                self._said_eager = True
+                log.info(
+                    "%s: programs of %d or more tokens per row run eagerly: the MoE grouped "
+                    "route reads its group sizes on the host", self.tag, self.host_read_tokens,
+                )
+            return body(), False
+        scope = gs.scope(self.tag, pkey)
+        out = gs.eager(scope, body)
+        self.captured[pkey] = gs.capture(scope, body, bind, generator)
+        return out, False
+
+
+class _SealMixin:
+    def seal(self):
+        """Arm the retrace guard: a later first use of a new step key raises
+        RetraceError (decode programs may still capture once). Call after
+        warmup() has run every key this runner will serve."""
+        self._prog.sealed = True
+
+    @contextmanager
+    def seal_suspended(self):
+        """Lift the seal while more programs are built after warmup; the
+        previous state is restored even on failure."""
+        was, self._prog.sealed = self._prog.sealed, False
+        try:
+            yield self
+        finally:
+            self._prog.sealed = was
+
+    @property
+    def sealed(self) -> bool:
+        return self._prog.sealed
+
+    def bind_graphs(self, graphs: Optional[GraphSet]) -> None:
+        self._prog.bind(graphs)
+
+
+class SubModelRunner(_SealMixin):
     def __init__(
         self,
         tag: str,
@@ -52,6 +236,7 @@ class SubModelRunner:
         mlp_fn: Callable,
         block_kv: bool = False,
         block_size: int = 16,
+        host_read_tokens: Optional[int] = None,
     ):
         self.tag = tag
         self.phase = phase
@@ -65,27 +250,62 @@ class SubModelRunner:
         # the bucket the last prepare()/decode_chunk resolved to (the serving
         # session's bucket census reads it)
         self.last_bucket: Optional[int] = None
+        self._prog = _Programs(tag, host_read_tokens)
+
+    # ---- static inputs ----------------------------------------------------
+
+    def _step_statics(self, q: int, width: int, fields: Tuple[str, ...]) -> _Statics:
+        skey = ("step", q, width, fields)
+        st = self._prog.statics.get(skey)
+        if st is None:
+            B = self.batch_size
+            layout = [
+                ("input_ids", (B, q), False), ("attention_mask", (B, width), False),
+                ("position_ids", (B, q), False), ("seq_ids", (B,), False),
+                ("sampling_params", (B, 3), True),
+            ]
+            if "slot_mapping" in fields:
+                layout.append(("slot_mapping", (B, q), False))
+            if "block_table" in fields:
+                layout.append(("block_table", (B, max(1, width // self.block_size)), False))
+            st = self._prog.statics[skey] = _Statics(layout, self.device)
+        return st
+
+    def _decode_statics(self, bucket: int, paged: bool) -> Tuple[_Statics, DecodeState]:
+        skey = ("decode", bucket, paged)
+        ent = self._prog.statics.get(skey)
+        if ent is None:
+            B = self.batch_size
+            layout = [
+                ("last", (B, 1), False), ("pos", (B, 1), False), ("seq_ids", (B,), False),
+                ("sampling_params", (B, 3), True),
+            ]
+            if paged:
+                layout.append(("block_table", (B, bucket // self.block_size), False))
+            st = _Statics(layout, self.device)
+            state = DecodeState(
+                last=st.t["last"], pos=st.t["pos"], seq_ids=st.t["seq_ids"],
+                sampling_params=st.t["sampling_params"],
+                cols=torch.arange(bucket, dtype=torch.int32, device=self.device)[None, :],
+                block_table=st.t.get("block_table"),
+            )
+            ent = self._prog.statics[skey] = (st, state)
+        return ent
+
+    @staticmethod
+    def _step_key(inputs: StepInputs) -> Tuple[int, int, Tuple[str, ...]]:
+        fields = tuple(f for f in _OPTIONAL_FIELDS if getattr(inputs, f) is not None)
+        return inputs.input_ids.shape[1], inputs.attention_mask.shape[1], fields
+
+    def _inputs_of(self, st: _Statics) -> StepInputs:
+        t = st.t
+        return StepInputs(
+            input_ids=t["input_ids"], attention_mask=t["attention_mask"], position_ids=t["position_ids"],
+            seq_ids=t["seq_ids"], sampling_params=t["sampling_params"],
+            slot_mapping=t.get("slot_mapping"), block_table=t.get("block_table"),
+        )
 
     # ---- host-side padding ------------------------------------------------
-
-    def _pad_batch(self, arrs: Dict[str, object], batch: int) -> Dict[str, torch.Tensor]:
-        """Pad every array's batch dim to ``batch`` (seq_ids and slot_mapping
-        pad with -1 so padded rows write to the garbage line or block, the
-        rest with 0) and move it to the device. A tensor already on the
-        device (a previous chunk's tokens) is padded there, without a host
-        round trip."""
-        out = {}
-        for name, a in arrs.items():
-            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-            t = t.to(self.device)
-            pad = batch - t.shape[0]
-            if pad < 0:
-                raise ValueError(f"{self.tag}: input batch {t.shape[0]} > compiled batch {batch}")
-            if pad:
-                fill = -1 if name in ("seq_ids", "slot_mapping") else 0
-                t = torch.cat([t, torch.full((pad,) + tuple(t.shape[1:]), fill, dtype=t.dtype, device=self.device)])
-            out[name] = t
-        return out
 
     def prepare(
         self,
@@ -97,9 +317,9 @@ class SubModelRunner:
         slot_mapping: Optional[np.ndarray] = None,
         block_table: Optional[np.ndarray] = None,
     ) -> Tuple[StepInputs, int]:
-        """Pad to (compiled batch, bucket) and build StepInputs.
-        ``input_ids`` may be a device tensor (an async decode step chained
-        on the previous step's tokens)."""
+        """Pad to (compiled batch, bucket) into the key's static buffers and
+        return them as StepInputs. ``input_ids`` may be a device tensor (an
+        async decode step chained on the previous step's tokens)."""
         B, S = input_ids.shape
         if self.phase == PHASE_CONTEXT_ENCODING:
             bucket = get_target_bucket(self.buckets, S)
@@ -116,7 +336,7 @@ class SubModelRunner:
                     slot_mapping = np.pad(slot_mapping, ((0, 0), (0, pad_s)), constant_values=-1)
         else:
             # token generation (one token, or a multi-token chunked/prefix
-            # prefill pass): bucket over the cache width
+            # prefill pass or prefill window): bucket over the cache width
             bucket = get_target_bucket(self.buckets, attention_mask.shape[1])
             pad_s = bucket - attention_mask.shape[1]
             if pad_s:
@@ -124,23 +344,46 @@ class SubModelRunner:
         self.last_bucket = bucket
         if sampling_params is None:
             sampling_params = prepare_sampling_params(B)
+        fields = tuple(
+            f for f, a in (("slot_mapping", slot_mapping), ("block_table", block_table)) if a is not None
+        )
+        st = self._step_statics(input_ids.shape[1], bucket, fields)
         arrs = {
-            "input_ids": input_ids if isinstance(input_ids, torch.Tensor) else np.asarray(input_ids, np.int64),
-            "attention_mask": np.asarray(attention_mask, np.int32),
-            "position_ids": np.asarray(position_ids, np.int32),
-            "seq_ids": np.asarray(seq_ids, np.int32),
-            "sampling_params": np.asarray(sampling_params, np.float32),
+            "input_ids": input_ids, "attention_mask": attention_mask, "position_ids": position_ids,
+            "seq_ids": seq_ids, "sampling_params": sampling_params,
         }
         if slot_mapping is not None:
-            arrs["slot_mapping"] = np.asarray(slot_mapping, np.int32)
+            arrs["slot_mapping"] = slot_mapping
         if block_table is not None:
-            arrs["block_table"] = np.asarray(block_table, np.int32)
-        return StepInputs(**self._pad_batch(arrs, self.batch_size)), B
+            arrs["block_table"] = block_table
+        st.fill(arrs)
+        return self._inputs_of(st), B
 
     @torch.no_grad()
-    def __call__(self, params, cache: Cache, inputs: StepInputs) -> StepOutput:
-        """Run one step; the cache is updated in place."""
-        return forward(params, cache, inputs, spec=self.spec, phase=self.phase, mlp_fn=self.mlp_fn)
+    def __call__(self, params, cache: Cache, inputs: StepInputs, generator=None) -> StepOutput:
+        """Run one step (its graph's replay, or its first, eager run); the
+        cache is updated in place. ``generator`` draws the tokens when the
+        spec samples."""
+        q, width, fields = self._step_key(inputs)
+        st = self._step_statics(q, width, fields)
+        st.load({
+            name: getattr(inputs, name)
+            for name in ("input_ids", "attention_mask", "position_ids", "seq_ids", "sampling_params", *fields)
+        })
+        sampled = bool(self.spec.do_sample and generator is not None)
+        gen = generator if sampled else None
+        step_inputs = self._inputs_of(st)
+
+        def body():
+            out = forward(params, cache, step_inputs, spec=self.spec, phase=self.phase, mlp_fn=self.mlp_fn, generator=gen)
+            return out.tokens, out.logits
+
+        pkey = (self.phase, self.batch_size, q, width, fields, sampled)
+        (tokens, logits), replayed = self._prog.run(pkey, body, binding(params, cache), q, gen)
+        if replayed:
+            tokens = tokens.clone()
+            logits = logits.clone() if logits is not None else None
+        return StepOutput(tokens=tokens, logits=logits, cache=cache)
 
     @torch.no_grad()
     def decode_chunk(
@@ -154,84 +397,108 @@ class SubModelRunner:
         num_steps: int,
         bucket: int,
         block_table: Optional[np.ndarray] = None,
+        generator=None,
     ):
-        """``num_steps`` decode steps with device-resident tokens.
-        ``block_table`` (B, bucket // block_size) runs the chunk over the
-        PAGED cache; blocks must be allocated for pos + num_steps.
+        """``num_steps`` decode steps with device-resident tokens: the
+        bucket's one-step program (``models.base.decode_step``), replayed
+        once a step, each step's tokens (and logits) copied into the chunk's
+        buffers. ``block_table`` (B, bucket // block_size) runs the chunk
+        over the PAGED cache; blocks must be allocated for pos + num_steps.
         Returns (tokens (Bc, num_steps), logits | None, cache)."""
         self.last_bucket = bucket
-        arrs = {
-            "last": last,
-            "pos": np.asarray(pos, np.int32),
-            "seq_ids": np.asarray(seq_ids, np.int32),
-            "sampling_params": np.asarray(sampling_params, np.float32),
-        }
-        if block_table is not None:
-            arrs["block_table"] = np.asarray(block_table, np.int32)
-        arrs = self._pad_batch(arrs, self.batch_size)
-        return decode_steps(
-            params, cache, arrs["last"], arrs["pos"], arrs["seq_ids"], arrs["sampling_params"],
-            spec=self.spec, num_steps=num_steps, bucket=bucket, mlp_fn=self.mlp_fn,
-            block_table=arrs.get("block_table"),
-        )
+        paged = block_table is not None
+        st, state = self._decode_statics(bucket, paged)
+        arrs = {"last": last, "pos": pos, "seq_ids": seq_ids, "sampling_params": sampling_params}
+        if paged:
+            arrs["block_table"] = block_table
+        st.fill(arrs)
+        sampled = bool(self.spec.do_sample and generator is not None)
+        gen = generator if sampled else None
+
+        def body():
+            return decode_step(params, cache, state, spec=self.spec, mlp_fn=self.mlp_fn, generator=gen)
+
+        B = self.batch_size
+        tokens = torch.empty((B, num_steps), dtype=torch.int32, device=self.device)
+        logits = None
+        pkey = ("decode", B, bucket, paged, sampled)
+        bind = binding(params, cache)
+        for j in range(num_steps):
+            (tok, lg), _ = self._prog.run(pkey, body, bind, 1, gen, allow_sealed=True)
+            tokens[:, j].copy_(tok)
+            if lg is not None:
+                if logits is None:
+                    logits = torch.empty((B, num_steps, lg.shape[-1]), dtype=lg.dtype, device=self.device)
+                logits[:, j].copy_(lg)
+        return tokens, logits, cache
 
     # ---- warmup ----------------------------------------------------------
 
     def example_inputs(self, bucket: int, q_len: Optional[int] = None) -> StepInputs:
-        """A warmup step at one bucket. ``q_len`` builds a chunked/prefix
-        prefill pass (multi-token token generation with both slot_mapping
-        and block_table). On the paged cache the warmup writes go to the
+        """A warmup step at one bucket. ``q_len`` builds a multi-token
+        token-generation pass (a chunked/prefix prefill pass with both
+        slot_mapping and block_table on the paged cache, a prefill window on
+        the contiguous one). On the paged cache the warmup writes go to the
         garbage block and the table reads block 0, with the same fields a
         real serving call carries (CTE: slot mapping; decode: block table;
         chunk pass: both)."""
         B = self.batch_size
-        if self.phase == PHASE_CONTEXT_ENCODING:
-            S = bucket
-        else:
-            S = q_len or 1
-        arrs = {
-            "input_ids": np.zeros((B, S), np.int64),
-            "attention_mask": np.ones((B, bucket), np.int32),
-            "position_ids": np.tile(np.arange(S, dtype=np.int32), (B, 1)),
-            "seq_ids": np.arange(B, dtype=np.int32),
-            "sampling_params": prepare_sampling_params(B),
-        }
+        S = bucket if self.phase == PHASE_CONTEXT_ENCODING else (q_len or 1)
+        kw = {}
         if self.block_kv:
             if self.phase == PHASE_CONTEXT_ENCODING or q_len:
-                arrs["slot_mapping"] = np.full((B, S), -1, np.int32)
+                kw["slot_mapping"] = np.full((B, S), -1, np.int32)
             if self.phase != PHASE_CONTEXT_ENCODING:
-                arrs["block_table"] = np.zeros((B, max(1, bucket // self.block_size)), np.int32)
-        return StepInputs(**self._pad_batch(arrs, B))
+                kw["block_table"] = np.zeros((B, max(1, bucket // self.block_size)), np.int32)
+        inputs, _ = self.prepare(
+            np.zeros((B, S), np.int32), np.ones((B, bucket), np.int32),
+            np.tile(np.arange(S, dtype=np.int32), (B, 1)), np.arange(B, dtype=np.int32),
+            prepare_sampling_params(B), **kw,
+        )
+        return inputs
 
-    def warmup(self, params, cache: Cache, chunk_q_lens: Optional[List[int]] = None) -> Cache:
-        """Run every bucket once, and each chunked-prefill q length at the
-        largest bucket: builds the kernels and touches every shape before
-        the first request (the reference compiles here; the port has no
-        compile)."""
-        for bucket in self.buckets:
-            out = self(params, cache, self.example_inputs(bucket))
-            cache = out.cache
+    def _warm_decode(self, params, cache: Cache, bucket: int, generator=None) -> None:
+        B = self.batch_size
+        table = np.zeros((B, bucket // self.block_size), np.int32) if self.block_kv else None
+        self.decode_chunk(
+            params, cache, np.zeros((B, 1), np.int32), np.zeros((B, 1), np.int32), np.arange(B, dtype=np.int32),
+            prepare_sampling_params(B), num_steps=1, bucket=bucket, block_table=table, generator=generator,
+        )
+
+    def warmup(self, params, cache: Cache, chunk_q_lens: Optional[List[int]] = None, generator=None) -> Cache:
+        """Run, and so capture, every bucket's step program (and, for token
+        generation, its one-step decode program), then each multi-token pass
+        length at the largest bucket, before the first request (the
+        reference compiles here). ``generator`` (a sampling spec) also builds
+        the sampling programs ``generate()`` runs."""
+        gens = [None] + ([generator] if generator is not None and self.spec.do_sample else [])
+        for gen in gens:
+            for bucket in self.buckets:
+                if gen is None or self.phase == PHASE_CONTEXT_ENCODING:
+                    cache = self(params, cache, self.example_inputs(bucket), gen).cache
+                if self.phase != PHASE_CONTEXT_ENCODING:
+                    self._warm_decode(params, cache, bucket, gen)
         for q in chunk_q_lens or ():
-            out = self(params, cache, self.example_inputs(self.buckets[-1], q_len=q))
-            cache = out.cache
+            cache = self(params, cache, self.example_inputs(self.buckets[-1], q_len=q)).cache
         return cache
 
 
-class MixedStepRunner:
+class MixedStepRunner(_SealMixin):
     """Runner of the ragged mixed prefill+decode serving step (the
     reference's ``MixedStepRunner``).
 
     Its bucket axis is the TOTAL packed query-token count of one serving
     step (prefill chunks and decode rows share it), crossed with the kv-width
-    ladder the block table covers. One ``step()`` dispatch replaces the
-    context/decode pair of the split path.
+    ladder the block table covers: one graph per (total-token bucket, kv
+    width). One ``step()`` dispatch replaces the context/decode pair of the
+    split path.
 
     Packing contract: row r's segment starts at ``row_start[r]``, a multiple
     of :attr:`q_tile`, and row index == serving slot == block-table row.
     :meth:`prepare` pads the packed axis to the bucket and the block table
-    to the kv width, and moves every int32 descriptor to the device in ONE
-    copy (from pinned memory on a card, so the copy does not wait for the
-    step in flight)."""
+    to the kv width and writes every descriptor into the key's static
+    buffers in ONE copy (from pinned memory on a card, so the copy does not
+    wait for the step in flight)."""
 
     def __init__(
         self,
@@ -255,6 +522,30 @@ class MixedStepRunner:
         self.kv_buckets = sorted(kv_buckets)
         self.q_tile = RAGGED_Q_TILE
         self.last_bucket: Optional[int] = None
+        self._prog = _Programs(self.tag)
+
+    def _statics(self, bucket: int, mb: int) -> _Statics:
+        skey = (bucket, mb)
+        st = self._prog.statics.get(skey)
+        if st is None:
+            R = self.num_rows
+            st = self._prog.statics[skey] = _Statics(
+                [
+                    ("packed", (4, 1, bucket), False), ("block_table", (R, mb), False),
+                    ("rows", (3, R), False), ("sampling_params", (R, 3), True),
+                    ("chain_tokens", (R, 1), False),
+                ],
+                self.device,
+            )
+        return st
+
+    def _inputs_of(self, st: _Statics) -> MixedStepInputs:
+        t = st.t
+        return MixedStepInputs(
+            input_ids=t["packed"][0], position_ids=t["packed"][1], slot_mapping=t["packed"][2],
+            block_table=t["block_table"], row_start=t["rows"][0], row_len=t["rows"][1], ctx_len=t["rows"][2],
+            sampling_params=t["sampling_params"], chain_src=t["packed"][3], chain_tokens=t["chain_tokens"],
+        )
 
     def prepare(
         self,
@@ -271,10 +562,10 @@ class MixedStepRunner:
         chain_tokens: Optional[torch.Tensor] = None,  # (R, 1) device tokens of the previous step
     ) -> Tuple[MixedStepInputs, int]:
         """Pad the packed axis to its total-token bucket and the block table
-        to ``width // block_size`` columns; build MixedStepInputs. Returns
-        (inputs, T_real). Without ``chain_src``/``chain_tokens`` inert
-        values (all -1 / zeros) go in, so the synchronous and the pipelined
-        step run the same program."""
+        to ``width // block_size`` columns, into the key's static buffers.
+        Returns (inputs, T_real). Without ``chain_src`` the chain sources
+        are all -1 (every id as the host wrote it), so the synchronous and
+        the pipelined step run the same program."""
         T = int(input_ids.shape[0])
         bucket = get_target_bucket(self.buckets, max(T, self.q_tile))
         R = self.num_rows
@@ -288,43 +579,56 @@ class MixedStepRunner:
             )
         if chain_src is None:
             chain_src = np.full(T, -1, np.int32)
-        # one int32 buffer: [ids, positions, slots, chain_src] (bucket each),
-        # then the table (R, mb), row_start, row_len, ctx_len (R each)
-        buf = np.zeros(4 * bucket + R * (mb + 3), np.int32)
-        packed = buf[: 4 * bucket].reshape(4, bucket)
+        if sampling_params is None:
+            sampling_params = prepare_sampling_params(R)
+        st = self._statics(bucket, mb)
+        buf, v = st.host()
+        packed = v["packed"][:, 0]
         packed[1:, T:] = -1
         for i, a in enumerate((input_ids, positions, slot_mapping, chain_src)):
             packed[i, :T] = a
-        table = buf[4 * bucket : 4 * bucket + R * mb].reshape(R, mb)
-        table[:, : block_table.shape[1]] = block_table
-        rows = buf[4 * bucket + R * mb :].reshape(3, R)
-        rows[0], rows[1], rows[2] = row_start, row_len, ctx_len
-        dev = _to_device(buf, self.device)
-        packed_d = dev[: 4 * bucket].view(4, 1, bucket)
-        rows_d = dev[4 * bucket + R * mb :].view(3, R)
-        if chain_tokens is None:
-            chain_tokens = torch.zeros((R, 1), dtype=torch.int32, device=self.device)
-        if sampling_params is None:
-            sampling_params = prepare_sampling_params(R)
+        v["block_table"][:, : block_table.shape[1]] = block_table
+        v["rows"][0], v["rows"][1], v["rows"][2] = row_start, row_len, ctx_len
+        v["sampling_params"][:] = sampling_params
+        t = torch.from_numpy(buf)
+        if st.flat.is_cuda:
+            st.flat.copy_(t.pin_memory(), non_blocking=True)
+        else:
+            st.flat.copy_(t)
+        if chain_tokens is not None:
+            st.t["chain_tokens"].copy_(chain_tokens)
         self.last_bucket = bucket
-        inputs = MixedStepInputs(
-            input_ids=packed_d[0],
-            position_ids=packed_d[1],
-            slot_mapping=packed_d[2],
-            block_table=dev[4 * bucket : 4 * bucket + R * mb].view(R, mb),
-            row_start=rows_d[0],
-            row_len=rows_d[1],
-            ctx_len=rows_d[2],
-            sampling_params=_to_device(np.asarray(sampling_params, np.float32), self.device),
-            chain_src=packed_d[3],
-            chain_tokens=chain_tokens,
-        )
-        return inputs, T
+        return self._inputs_of(st), T
 
     @torch.no_grad()
     def __call__(self, params, cache: Cache, inputs: MixedStepInputs) -> StepOutput:
-        """Run one mixed step; the cache is updated in place."""
-        return mixed_forward(params, cache, inputs, spec=self.spec, mlp_fn=self.mlp_fn)
+        """Run one mixed step (its graph's replay, or its first, eager run);
+        the cache is updated in place."""
+        bucket, mb = inputs.input_ids.shape[1], inputs.block_table.shape[1]
+        st = self._statics(bucket, mb)
+        if inputs.input_ids.data_ptr() != st.t["packed"].data_ptr():
+            # inputs built outside prepare(): copy them into the key's buffers
+            src = inputs.chain_src if inputs.chain_src is not None else torch.full_like(inputs.input_ids, -1)
+            fields = {
+                "packed": torch.stack([inputs.input_ids, inputs.position_ids, inputs.slot_mapping, src]).to(torch.int32),
+                "block_table": inputs.block_table,
+                "rows": torch.stack([inputs.row_start, inputs.row_len, inputs.ctx_len]).to(torch.int32),
+                "sampling_params": inputs.sampling_params,
+            }
+            if inputs.chain_tokens is not None:
+                fields["chain_tokens"] = inputs.chain_tokens
+            st.load(fields)
+        step_inputs = self._inputs_of(st)
+
+        def body():
+            out = mixed_forward(params, cache, step_inputs, spec=self.spec, mlp_fn=self.mlp_fn)
+            return out.tokens, out.logits
+
+        (tokens, logits), replayed = self._prog.run(("mixed", bucket, mb), body, binding(params, cache), 1)
+        if replayed:
+            tokens = tokens.clone()
+            logits = logits.clone() if logits is not None else None
+        return StepOutput(tokens=tokens, logits=logits, cache=cache)
 
     # ---- warmup ----------------------------------------------------------
 
@@ -351,19 +655,9 @@ class MixedStepRunner:
         return inputs
 
     def warmup(self, params, cache: Cache) -> Cache:
-        """Run every total-token bucket once at the largest kv width
-        (kernel builds included)."""
+        """Run, and so capture, every total-token bucket at the largest kv
+        width (kernel builds included); smaller widths are captured at first
+        use, as the reference compiles them."""
         for bucket in self.buckets:
             cache = self(params, cache, self.example_inputs(bucket)).cache
         return cache
-
-
-def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``. To a card it goes from pinned memory
-    without blocking: PyTorch's pinned-memory allocator keeps the buffer
-    until the copy has run, and the copy is ordered on the current stream
-    before the kernels that read it."""
-    t = torch.from_numpy(a)
-    if device.type != "cuda":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)

@@ -30,9 +30,14 @@ with a KV scrub, and a no-progress watchdog.
 
 The port updates the cache in place where the reference rebinds a new one.
 Outside this slice, and raising ``NotImplementedError`` with their ROADMAP
-item: the speculative session and speculation inside the mixed step (A7),
-admission of a request prefilled elsewhere (A8) and windowed admission of
-prompts longer than the largest context bucket (A3b).
+item: the speculative session and speculation inside the mixed step (A7)
+and admission of a request prefilled elsewhere (A8). A prompt longer than
+the largest context bucket is admitted on the contiguous cache in windows
+(:meth:`ServingSession._windowed_admit`).
+
+The runners replay captured CUDA graphs (``runtime/model_runner.py``);
+every step's tokens are copied out of the graph's buffers when it returns,
+so a 1-ahead step's pending tokens are never overwritten by the next replay.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from neuronx_distributed_inference_tpu_torch.modules.autobucketing import (
     get_target_bucket,
     pow2_bucket,
 )
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import PAD_POSITION_SENTINEL
 from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
 from neuronx_distributed_inference_tpu_torch.runtime.faults import (
     RETRYABLE_DISPATCH_ERRORS,
@@ -619,10 +625,8 @@ class ServingSession:
                 "(is_chunked_prefill) to admit long prompts"
             )
         if S > cte_max:
-            raise NotImplementedError(
-                "windowed admission of prompts longer than the largest context "
-                "bucket is not ported to PyTorch yet (ROADMAP A3b)"
-            )
+            self.app.validate_prefill_length(S)
+            return self._windowed_admit(req)
         ids = req.input_ids[None, :]
         mask = np.ones((1, S), np.int32)
         pos = np.arange(S, dtype=np.int32)[None, :]
@@ -651,6 +655,75 @@ class ServingSession:
         self._note_prefill(req, S)
         self.tel.pool_gauges(len(self.active), self.kv_pool_bytes, self.kv_free_bytes)
         first = int(out.tokens[0, -1].item())
+        req.prefill_pos = S
+        self._finish_prefill(req, first)
+        return True
+
+    def _windowed_admit(self, req: Request) -> bool:
+        """Admit a prompt longer than one context program in windows, like
+        the app's ``_windowed_prefill`` but SLOT-ALIGNED (the reference's
+        ``_windowed_admit``): window 0 through the context program (B=1,
+        writing line ``slot``), every later window as a multi-token pass at
+        the session's full batch with the request in row == slot, since a
+        token-generation pass reads cache line b for row b. Windows are
+        padded to the same length with sentinel positions; one host fetch,
+        of the last window's token."""
+        app = self.app
+        S = req.prompt_len
+        s = req.slot
+        C = app.context_encoding_model.buckets[-1]
+        n0 = min(C, S)
+        ids0 = req.input_ids[None, :n0]
+        pos0 = np.arange(n0, dtype=np.int32)[None, :]
+        cte = app.context_encoding_model
+
+        def dispatch_cte():
+            with self.tel.span("serving.prefill_windowed", req_id=req.req_id, tokens=n0):
+                inputs, _ = cte.prepare(
+                    ids0, np.ones((1, n0), np.int32), pos0, np.array([s], np.int32), prepare_sampling_params(1)
+                )
+                return cte(app.params, app.kv_cache, inputs)
+
+        out = self._guarded_dispatch("prefill_windowed", [req], dispatch_cte)
+        if out is None:
+            return True  # terminal FAILED(dispatch_error); slot released
+        app.kv_cache = out.cache
+        self.dispatches["prefill"] += 1
+        self.tel.step("prefill")
+        self.tel.bucket_dispatch(cte.tag, cte.last_bucket)
+        self._note_prefill(req, n0)
+
+        B = self.num_slots
+        tkg = app.token_generation_model
+        start = n0
+        n = 0
+        while start < S:
+            end = min(start + C, S)
+            n = end - start
+            ids = np.zeros((B, C), np.int32)
+            ids[s, :n] = req.input_ids[start:end]
+            pos = np.full((B, C), PAD_POSITION_SENTINEL, np.int32)
+            pos[s, :n] = np.arange(start, end, dtype=np.int32)
+            width = get_target_bucket(tkg.buckets, end)
+            mask = np.ones((B, width), np.int32)
+            seq_ids = np.full((B,), -1, np.int32)
+            seq_ids[s] = s
+
+            def dispatch_chunk(ids=ids, mask=mask, pos=pos, seq_ids=seq_ids, n=n):
+                with self.tel.span("serving.prefill_windowed", req_id=req.req_id, tokens=n):
+                    inputs, _ = tkg.prepare(ids, mask, pos, seq_ids, prepare_sampling_params(B))
+                    return tkg(app.params, app.kv_cache, inputs)
+
+            out = self._guarded_dispatch("prefill_windowed", [req], dispatch_chunk)
+            if out is None:
+                return True  # terminal FAILED(dispatch_error); slot released
+            app.kv_cache = out.cache
+            self.dispatches["prefill_chunk"] += 1
+            self.tel.step("prefill")
+            self.tel.bucket_dispatch(tkg.tag, tkg.last_bucket)
+            self._note_prefill(req, n)
+            start = end
+        first = int(out.tokens[s, n - 1].item())
         req.prefill_pos = S
         self._finish_prefill(req, first)
         return True

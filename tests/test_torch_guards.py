@@ -96,13 +96,23 @@ def test_default_device_is_cuda_and_cuda_without_a_card_raises(monkeypatch):
         (dict(speculation_length=4), "A7"),
         (dict(lora_config={"max_loras": 1}), "A9"),
         (dict(sliding_window=128), "A9"),
-        (dict(padding_side="left"), "A3b"),
-        (dict(on_device_sampling_config={"do_sample": True}), "A3b"),
     ],
 )
 def test_settings_outside_the_slice_raise(kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Config(device="cpu", **kw)
+
+
+@pytest.mark.parametrize(
+    "kw", [dict(padding_side="left"), dict(on_device_sampling_config={"do_sample": True, "top_k": 5})]
+)
+def test_a3b_settings_are_accepted(kw):
+    """Left padding and multinomial sampling are ported (they were refused
+    naming A3b until it landed)."""
+    c = Config(device="cpu", **kw)
+    for name, value in kw.items():
+        got = getattr(c, name)
+        assert (got.do_sample and got.top_k == 5) if name == "on_device_sampling_config" else got == value
 
 
 def test_config_validation_matches_reference():
@@ -119,18 +129,25 @@ def test_config_validation_matches_reference():
 
 
 def test_windowed_prefill_raises():
+    """Windowed prefill raises where the reference's rule does: a prompt
+    past the largest token-generation bucket, which its windows need (and
+    past seq_len); a prompt within them prefills in windows."""
     from neuronx_distributed_inference_tpu_torch.models.llama import LlamaInferenceConfig
     from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
 
-    hf = dict(model_type="llama", hidden_size=64, intermediate_size=128, num_attention_heads=2,
+    hf = dict(model_type="llama", hidden_size=128, intermediate_size=128, num_attention_heads=2,
               num_key_value_heads=1, num_hidden_layers=1, vocab_size=64, rms_norm_eps=1e-5)
     cfg = LlamaInferenceConfig(
-        Config(device="cpu", seq_len=256, max_context_length=128, dtype="float32"),
+        Config(device="cpu", seq_len=256, max_context_length=128, dtype="float32",
+               token_generation_buckets=[192]),
         load_config=lambda c: [setattr(c, k, v) for k, v in hf.items()],
     )
     app = ModelForCausalLM(None, cfg).load(random_weights=True)
-    with pytest.raises(NotImplementedError, match="A3b"):
-        app.generate(np.ones((1, 129), np.int64), max_new_tokens=2)
+    with pytest.raises(ValueError, match="largest token-generation bucket"):
+        app.generate(np.ones((1, 193), np.int64), max_new_tokens=2)
+    with pytest.raises(ValueError, match="exceeds seq_len"):
+        app.generate(np.ones((1, 257), np.int64), max_new_tokens=2)
+    assert app.generate(np.ones((1, 129), np.int64), max_new_tokens=2).sequences.shape == (1, 131)
 
 
 def test_pick_chunk_matches_reference():
@@ -172,7 +189,9 @@ def _serving_app(**tc):
 def test_serving_settings_outside_the_slice_raise():
     """The serving surface outside this slice names its ROADMAP item:
     speculation inside the mixed step and the speculative session (A7),
-    the disaggregated hand-off (A8) and windowed admission (A3b)."""
+    the disaggregated hand-off (A8); windowed admission (ported with A3b)
+    admits a prompt longer than the context bucket on the contiguous
+    cache."""
     from neuronx_distributed_inference_tpu_torch.runtime.serving import (
         ServingSession,
         SpeculativeServingSession,
@@ -189,8 +208,7 @@ def test_serving_settings_outside_the_slice_raise():
     sess = ServingSession(app)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         sess.add_prefilled_request("h", [1, 2, 3], {}, first_token=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3b"):
-        sess.add_request("long", list(range(1, 60)) * 3, max_new_tokens=2)
+    assert sess.add_request("long", list(range(1, 60)) * 3, max_new_tokens=2)
 
 
 def test_serving_config_validation_matches_reference():

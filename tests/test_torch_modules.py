@@ -169,8 +169,12 @@ def test_sampling_greedy_and_padded_logits():
         tsamp.sample_tokens(out, None).numpy(),
         np.asarray(jsamp.sample_tokens(jnp.asarray(ref), jnp.zeros((3, 3)), None, 256, False)),
     )
-    with pytest.raises(NotImplementedError, match="A3b"):
-        tsamp.sample_tokens(out, None, do_sample=True)
+    # without a generator a sampling call decodes greedily, as the
+    # reference's does without a key
+    np.testing.assert_array_equal(
+        tsamp.sample_tokens(out, _t(np.ones((3, 3), np.float32)), None, do_sample=True).numpy(),
+        np.asarray(jsamp.sample_tokens(jnp.asarray(ref), jnp.ones((3, 3)), None, 256, True)),
+    )
 
 
 def test_sampling_params():

@@ -124,6 +124,29 @@ def test_grouped_route_matches_jax(bias, early, ties):
         np.testing.assert_array_equal(_np(a), np.asarray(b))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_routes_sum_each_token_in_a_fixed_order(dtype):
+    """The grouped and capacity routes add each token's k expert rows in
+    increasing expert id, one add at a time in the rows' dtype (a CUDA
+    index_add_ would add them in the order its atomics land): in fp32 the
+    sums of the CPU's sequential index_add_, in bf16 a loop in that order."""
+    g = torch.Generator().manual_seed(3)
+    T, E, k, H = 37, 64, 8, 48
+    aff = torch.softmax(torch.randn(T, E, generator=g), -1)
+    st, _, _, _, order, e_topk = tmoe._sorted_dispatch_order(aff, k)
+    rows = torch.randn(T * k, H, generator=g).to(dtype)
+    out = tmoe._sum_per_token(rows, order, e_topk)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, torch.zeros(T, H).index_add_(0, st, rows), rtol=0, atol=0)
+    want = torch.zeros(T, H, dtype=dtype)
+    flat = torch.empty_like(rows)
+    flat[order] = rows
+    for t in range(T):
+        for j in sorted(range(k), key=lambda j: int(e_topk[t, j])):
+            want[t] = want[t] + flat[t * k + j]
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("capacity_factor", [0.25, 1.0, 8.0])
 @pytest.mark.parametrize("early", [False, True])
 def test_capacity_route_matches_jax(capacity_factor, early):
