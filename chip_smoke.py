@@ -74,7 +74,24 @@ Phases, in order; any failure exits non-zero:
      calls per step and peak memory of both; then 1B sampled generate()
      through the graphs against warped_probs on the card (chi-square), and
      whether B8's and B9's programmatic dependent launches still start early
-     when replayed from a graph.
+     when replayed from a graph;
+ 12. the quantized KV cache (phase_kv_quant): the int8 / fp8 e4m3 / e5m2
+     code modes of B1, B4, B5 and B3 against their plain versions (B1 at
+     the 1B shape, buckets 512 and 8704, batch 1 and 4, q_len 1 and 4, at
+     16896 batch 1, and Qwen3's; B4 at blocks of 32 and 16; B1 and B4 with
+     an fp32 q; B5 after a prefix; B3 at both RAGGED_POINTS; each
+     bit-identical twice); the bf16 twins' B1 at 8704 and 16896 and B2 at
+     the 8192- and 16384-token prompts against their plain versions; the
+     code modes timed beside the bf16 mode with their bounds at code bytes
+     and SDPA on K/V dequantized beforehand; the long-context rows
+     bf16_1b_8k_kvq8 and bf16_1b_16k_kvq8 at full width and depth with
+     graphs on and off (equal tokens, bit-identical final scales, the
+     graphed decode step profiled) beside their bf16 twins with graphs on
+     (and the 8k row with fp8 codes): tokens, B1 launches equal to the
+     twin's, cache bytes, peak memory, decode ms per token; the kv-int8
+     teacher-forced gate; and the split and ragged drains, sync and
+     1-ahead, with an int8 cache, graphs on and off (code-mode launches, no
+     fault, equal tokens).
 Each phase prints its seconds. The line before the card's name lists every
 kernel with its launches, times and bound; the last line of standard output
 is {"ok": true, "device": {...}}.
@@ -1492,9 +1509,9 @@ def phase_main_path(torch):
     )
 
 
-def phase_profile(torch, app, seq, prompt_len, steps=16, label="decode step"):
+def phase_profile(torch, app, seq, prompt_len, steps=16, label="decode step", bucket=512):
     """Where a decode step's time goes: one ``steps``-step decode chunk in
-    bucket 512 over every row of ``seq`` ((S,) or (B, S) tokens; it
+    ``bucket`` over every row of ``seq`` ((S,) or (B, S) tokens; it
     re-decodes from the first generated token, rewriting cache positions
     the generate() run already wrote)."""
     from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
@@ -1507,10 +1524,10 @@ def phase_profile(torch, app, seq, prompt_len, steps=16, label="decode step"):
     )
 
     def chunk():
-        app.token_generation_model.decode_chunk(app.params, app.kv_cache, *args, num_steps=steps, bucket=512)
+        app.token_generation_model.decode_chunk(app.params, app.kv_cache, *args, num_steps=steps, bucket=bucket)
         torch.cuda.synchronize()
 
-    return profile_chunk(torch, chunk, steps, f"{label} (batch {B}, bucket 512)")
+    return profile_chunk(torch, chunk, steps, f"{label} (batch {B}, bucket {bucket})")
 
 
 def port_kernel_name(name):
@@ -3353,55 +3370,61 @@ def _same_tokens(a, b):
     return np.array_equal(np.asarray(a), np.asarray(b))
 
 
-def graph_pair(torch, label, make_app, run, profile=None, warm_pass=False):
-    """One workload with the runners' programs run eagerly
-    (``cuda_graphs=False``) and through captured graphs, on apps that
-    ``make_app(cuda_graphs)`` builds and warms over the same weights. With
-    ``warm_pass`` the graph app runs the workload once first and every
-    runner is sealed after it (configs that warmup() leaves unsealed). Its
-    measured run sits inside a RetraceGuard: after warmup and the seal, a
-    steady-state run captures nothing. Requires byte-identical greedy tokens and equal
-    launch counts (the graphs' census added per replay); prints the
-    profile's host ms, device busy, kernels and launch calls per step and
-    the peak memory (allocated, and reserved: the graphs' pool holds
-    freed blocks) of both."""
+def graph_run(torch, make_app, run, graphs, profile=None, warm_pass=False):
+    """One workload on an app that ``make_app(graphs)`` builds and warms:
+    with ``warm_pass`` (and graphs) the workload runs once first and every
+    runner is sealed after it (configs that warmup() leaves unsealed). The
+    measured run sits inside a RetraceGuard that fails with graphs on:
+    after warmup and the seal, a steady-state run captures nothing. Returns
+    the tokens, launch counts, peak memory (allocated, and reserved: the
+    graphs' pool holds freed blocks), warmup and run seconds, captures and
+    ``profile(app, tokens)``'s numbers."""
     from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
 
-    res = {}
-    for graphs in (False, True):
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        app = make_app(graphs)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        if warm_pass and graphs:
-            run(app)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    app = make_app(graphs)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    if warm_pass and graphs:
+        run(app)
+        for runner in app._all_runners():
+            runner.seal()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    with RetraceGuard(fail=graphs):
+        tokens = run(app)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = all_counts()
+    peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
+    prof = {}
+    if profile is not None:
+        # the profile may reach keys the run did not (a fresh session's
+        # packing): lift the seal for it
+        with contextlib.ExitStack() as stack:
             for runner in app._all_runners():
-                runner.seal()
-        _cuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        with RetraceGuard(fail=graphs):
-            tokens = run(app)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        counts = all_counts()
-        peak, reserved = torch.cuda.max_memory_allocated(), torch.cuda.max_memory_reserved()
-        prof = {}
-        if profile is not None:
-            # the profile may reach keys the run did not (a fresh session's
-            # packing): lift the seal for it
-            with contextlib.ExitStack() as stack:
-                for runner in app._all_runners():
-                    stack.enter_context(runner.seal_suspended())
-                prof = profile(app, tokens)
-        res[graphs] = dict(
-            tokens=tokens, counts=counts, peak_bytes=peak, reserved_bytes=reserved, warm_s=warm_s, run_s=run_s,
-            captures=app.graphs.captures, **{k: v for k, v in prof.items() if k != "busy_ms_per_step"},
-        )
-        del app
+                stack.enter_context(runner.seal_suspended())
+            prof = profile(app, tokens)
+    return dict(
+        tokens=tokens, counts=counts, peak_bytes=peak, reserved_bytes=reserved, warm_s=warm_s, run_s=run_s,
+        captures=app.graphs.captures, **{k: v for k, v in prof.items() if k != "busy_ms_per_step"},
+    )
+
+
+def graph_pair(torch, label, make_app, run, profile=None, warm_pass=False, profile_off=True):
+    """One workload with the runners' programs run eagerly
+    (``cuda_graphs=False``) and through captured graphs (graph_run each).
+    Requires byte-identical greedy tokens and equal launch counts (the
+    graphs' census added per replay), and no capture after the graph app's
+    warmup and seal; prints the profile's host ms, device busy, kernels and
+    launch calls per step (both runs', or with ``profile_off=False`` the
+    graphed run's only) and the peak memory of both."""
+    res = {graphs: graph_run(torch, make_app, run, graphs, profile if graphs or profile_off else None, warm_pass)
+           for graphs in (False, True)}
     off, on = res[False], res[True]
     if not _same_tokens(off["tokens"], on["tokens"]):
         raise SystemExit(f"graphs, {label}: the greedy tokens differ between graphs on and off")
@@ -3416,7 +3439,10 @@ def graph_pair(torch, label, make_app, run, profile=None, warm_pass=False):
         f"vs {off['peak_bytes'] / 2**30:.3f} GiB, reserved {on['reserved_bytes'] / 2**30:.3f} vs "
         f"{off['reserved_bytes'] / 2**30:.3f} GiB"
     )
-    if profile is not None:
+    if profile is not None and not profile_off:
+        line += (f"; graphed run: host {on['decode_step_ms']:.3f} ms/step, device busy {on['device_busy_ms']:.3f} "
+                 f"ms/step (share {on['device_busy_frac']:.3f}), {on['kernels_per_step']:.0f} kernels per step")
+    elif profile is not None:
         api = lambda r, n: r["launch_api"][n][0]  # noqa: E731
         line += (
             f"; host {on['decode_step_ms']:.3f} vs {off['decode_step_ms']:.3f} ms/step, device busy "
@@ -3614,6 +3640,584 @@ def phase_pdl_graphs(torch, db):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 12. the quantized KV cache: the code modes of B1, B4, B5 and B3, and the
+#     long-context rows
+# ---------------------------------------------------------------------------
+
+#: the int8/fp8 code types of a quantized KV cache (Config.kv_cache_dtype
+#: int8, fp8 = float8_e4m3, float8_e5m2)
+KV_CODES = ("int8", "float8_e4m3fn", "float8_e5m2")
+#: the counters of the code modes (ops/_cuda.py KERNELS)
+CODE_COUNTERS = {
+    "decode_attention": "decode_attention_codes", "paged_decode_attention": "paged_decode_attention_codes",
+    "paged_flash_attention": "paged_flash_attention_codes", "ragged_paged_attention": "ragged_paged_attention_codes",
+}
+
+
+def code_stream(torch, rng, shape, L, H, code, garbage_block=False):
+    """A QuantizedKV stream on the card: random codes over the code type's
+    range (normal, a quarter of qmax wide, clipped; drawn on the card from a
+    seed of ``rng``) and (L, H) scales in [0.5, 2). With ``garbage_block``
+    block 0 of the head-major paged layout holds byte 0x7F (NaN for fp8, 127
+    for int8): the kernels must not read it."""
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import QuantizedKV, kv_qmax
+
+    dt = getattr(torch, code)
+    qmax = kv_qmax(dt)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.randint(1 << 31)))
+    x = torch.clamp(torch.randn(shape, generator=gen, device="cuda") * (qmax / 4), -qmax, qmax)
+    data = (torch.round(x) if dt == torch.int8 else x).to(dt)
+    if garbage_block:
+        data.view(torch.uint8)[:, 0] = 0x7F
+    scale = torch.from_numpy(rng.uniform(0.5, 2.0, (L, H)).astype(np.float32)).cuda()
+    return QuantizedKV(data, scale)
+
+
+def _code_launch(torch, counter, fn):
+    """``fn()`` (one wrapper call) must launch the code mode once and
+    nothing else."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    before = all_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = all_counts()
+    moved = {n: after[n] - before[n] for n in after if after[n] != before[n]}
+    if moved != {counter: 1}:
+        raise SystemExit(f"{counter}: a code-mode call launched {moved}")
+    return out
+
+
+def check_codes(torch, what, counter, kernel, plain, case, rows=None):
+    """The code mode (bf16 or fp32 q, 1-byte codes) against its plain
+    version in fp32 on the same codes and scales (dequantized after the gather),
+    within check_close's one-rounding bound, then launched twice more,
+    bit-identical."""
+    out = _code_launch(torch, counter, kernel)
+    ref = plain()
+    err = check_close(torch, out, ref, case, what, rows)
+    check_repeat(torch, what, kernel, case)
+    return err
+
+
+def kvq_decode_case(torch, rng, code, B, K, Hq, Hkv, D, bucket, L=2, q_dtype=None):
+    """B1's inputs over a quantized contiguous cache (L, B+1, bucket, Hkv,
+    D): rows of lengths bucket - 7 and shorter, q_len K, q in ``q_dtype``
+    (bf16 by default)."""
+    kq = code_stream(torch, rng, (L, B + 1, bucket, Hkv, D), L, Hkv, code)
+    vq = code_stream(torch, rng, (L, B + 1, bucket, Hkv, D), L, Hkv, code)
+    valid = [bucket - 7, 90, bucket // 2, 300][:B]
+    pos = np.stack([np.arange(valid[b] - K, valid[b]) for b in range(B)])
+    mask = torch.from_numpy((np.arange(bucket)[None, None, :] <= pos[:, :, None])[:, None]).cuda()
+    q = torch.from_numpy(rng.randn(B, K, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", q_dtype or torch.bfloat16)
+    return q, kq, vq, mask
+
+
+def kvq_paged_decode_case(torch, rng, code, bs, ctx=192, B=8, Hq=32, Hkv=8, D=64, width=1024, L=2, NB=512, K=1,
+                          q_dtype=None):
+    """B4's inputs: the serving row's decode step (B rows ctx deep, q_len K,
+    q in ``q_dtype``, bf16 by default) over a quantized paged pool with 0x7F
+    in block 0."""
+    from neuronx_distributed_inference_tpu_torch.modules.masks import token_gen_mask
+
+    MB = width // bs
+    table = torch.from_numpy(paged_tables(rng, [ctx] * B, MB, bs, NB)).cuda()
+    kq = code_stream(torch, rng, (L, NB + 1, Hkv, bs, D), L, Hkv, code, garbage_block=True)
+    vq = code_stream(torch, rng, (L, NB + 1, Hkv, bs, D), L, Hkv, code, garbage_block=True)
+    q = torch.from_numpy(rng.randn(B, K, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", q_dtype or torch.bfloat16)
+    attn = (torch.arange(width, device="cuda")[None, :] < ctx).to(torch.int32).expand(B, width)
+    return q, kq, vq, table, token_gen_mask(attn, K)
+
+
+def kvq_chunk_case(torch, rng, code, prefix=64, Sq=128, B=8, Hq=32, Hkv=8, D=64, bs=32, width=1024, NB=512):
+    """B5's inputs: B rows prefilling Sq new tokens after a ``prefix``-token
+    prefix (positions prefix .. prefix + Sq - 1, kv_limit prefix + Sq), one
+    layer of a quantized pool with 0x7F in block 0 and its factors."""
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import layer_dequant_factors
+
+    MB = width // bs
+    table = torch.from_numpy(paged_tables(rng, [prefix + Sq] * B, MB, bs, NB)).cuda()
+    kq = code_stream(torch, rng, (1, NB + 1, Hkv, bs, D), 1, Hkv, code, garbage_block=True)
+    vq = code_stream(torch, rng, (1, NB + 1, Hkv, bs, D), 1, Hkv, code, garbage_block=True)
+    q = torch.from_numpy(rng.randn(B, Sq, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", torch.bfloat16)
+    pos = (prefix + torch.arange(Sq, device="cuda", dtype=torch.int32))[None, :].expand(B, Sq).contiguous()
+    lim = torch.full((B,), prefix + Sq, device="cuda", dtype=torch.int32)
+    return q, kq.data[0], vq.data[0], table, pos, lim, layer_dequant_factors(kq, 0), layer_dequant_factors(vq, 0)
+
+
+def kvq_ragged_case(torch, rng, code, row_len, ctx_len, bs, width, Hq=32, Hkv=8, D=64, NB=512):
+    """B3's inputs: ragged_case's packing over one layer of a quantized pool
+    with 0x7F in block 0, and its factors; bf16 q."""
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import layer_dequant_factors
+
+    q, _, _, table, rs, rl, cl, valid = ragged_case(
+        torch, rng, list(row_len), list(ctx_len), Hq, Hkv, D, bs, width // bs, torch.float32, NB=NB
+    )
+    kq = code_stream(torch, rng, (1, NB + 1, Hkv, bs, D), 1, Hkv, code, garbage_block=True)
+    vq = code_stream(torch, rng, (1, NB + 1, Hkv, bs, D), 1, Hkv, code, garbage_block=True)
+    return (q.to(torch.bfloat16), kq.data[0], vq.data[0], table, rs, rl, cl, valid,
+            layer_dequant_factors(kq, 0), layer_dequant_factors(vq, 0))
+
+
+#: fp32 q over a code cache (an fp32 model with an int8/fp8 KV cache): B1
+#: and B4 cases (Hq, Hkv, D, B, K) that reach each of the kernel's fp32-q
+#: instances, D 64 and 128 by rows a warp holds (n_rep * K up to 8, and more)
+KVQ_FP32_CASES = ((32, 8, 64, 1, 1), (32, 8, 64, 4, 4), (32, 4, 128, 1, 1), (32, 4, 128, 2, 4))
+
+
+def phase_kvq_parity(torch, da, pf, rp):
+    """Each code mode (int8, e4m3, e5m2) against its plain version on the
+    card, each case launched twice more, bit-identical: B1 at Llama-3.2-1B's
+    shape (Hq 32, Hkv 8, D 64) at buckets 512 and 8704, batch 1 and 4, q_len
+    1 and 4, at 16896 (the 16k row's decode: batch 1, q_len 1), and at
+    Qwen3's (Hkv 4, D 128) at 512; B4 at 8 rows 192 deep, blocks of 32 and
+    16; B1 and B4 with an fp32 q at KVQ_FP32_CASES; B5 at 8 x 128 new tokens
+    after a 64-token prefix; B3 at roofline.RAGGED_POINTS (mixed and
+    decode)."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import RAGGED_POINTS
+
+    rng = np.random.RandomState(12)
+    n, worst = 0, 0.0
+    bf16 = torch.bfloat16
+    for code in KV_CODES:
+        shapes = [(32, 8, 64, bucket, B, K, bf16) for bucket in (512, 8704) for B in (1, 4) for K in (1, 4)]
+        shapes += [(32, 8, 64, 16896, 1, 1, bf16), (32, 4, 128, 512, 1, 1, bf16)]
+        shapes += [(Hq, Hkv, D, 512, B, K, torch.float32) for Hq, Hkv, D, B, K in KVQ_FP32_CASES]
+        for Hq, Hkv, D, bucket, B, K, dt in shapes:
+            q, kq, vq, mask = kvq_decode_case(torch, rng, code, B, K, Hq, Hkv, D, bucket, q_dtype=dt)
+            kw = dict(scale=D ** -0.5, n_kv=Hkv)
+            case = f"{code} B={B} K={K} Hq={Hq} Hkv={Hkv} D={D} bucket={bucket} q {str(dt)[6:]}"
+            worst = max(worst, check_codes(
+                torch, "tkg_decode_attention", "decode_attention_codes",
+                lambda: da.tkg_decode_attention(q, kq, vq, 1, mask, None, **kw),
+                lambda: da.tkg_decode_attention_plain(q.float(), kq, vq, 1, mask, None, **kw), case,
+            ))
+            n += 1
+            del kq, vq
+        paged = [(32, 8, 64, 8, 1, bs, bf16) for bs in (32, 16)]
+        paged += [(Hq, Hkv, D, B, K, bs, torch.float32)
+                  for (Hq, Hkv, D, B, K), bs in zip(KVQ_FP32_CASES, (32, 16, 32, 16))]
+        for Hq, Hkv, D, B, K, bs, dt in paged:
+            q, kq, vq, bt, mask = kvq_paged_decode_case(torch, rng, code, bs, B=B, Hq=Hq, Hkv=Hkv, D=D, K=K,
+                                                        q_dtype=dt)
+            kw = dict(scale=D ** -0.5, n_kv=Hkv)
+            worst = max(worst, check_codes(
+                torch, "paged_tkg_decode_attention", "paged_decode_attention_codes",
+                lambda: da.paged_tkg_decode_attention(q, kq, vq, 1, bt, mask, None, **kw),
+                lambda: da.paged_tkg_decode_attention_plain(q.float(), kq, vq, 1, bt, mask, None, **kw),
+                f"{code} B={B} K={K} Hq={Hq} Hkv={Hkv} D={D} ctx=192 bs={bs} width=1024 q {str(dt)[6:]}",
+            ))
+            n += 1
+        q, kc, vc, bt, pos, lim, ks, vs = kvq_chunk_case(torch, rng, code)
+        kw = dict(scale=0.125, n_rep=4, k_scale=ks, v_scale=vs)
+        worst = max(worst, check_codes(
+            torch, "paged_flash_attention", "paged_flash_attention_codes",
+            lambda: pf.paged_flash_attention(q, kc, vc, bt, pos, lim, **kw),
+            lambda: pf.paged_flash_attention_plain(q.float(), kc, vc, bt, pos, lim, **kw),
+            f"{code} B=8 Sq=128 after a 64-token prefix, bs=32 width=1024",
+        ))
+        n += 1
+        for name, pt in RAGGED_POINTS.items():
+            q, kc, vc, bt, rs, rl, cl, valid, ks, vs = kvq_ragged_case(
+                torch, rng, code, pt["row_len"], pt["ctx_len"], pt["block_size"], pt["width"]
+            )
+            kw = dict(scale=0.125, n_rep=4, k_scale=ks, v_scale=vs)
+            out = _code_launch(torch, "ragged_paged_attention_codes",
+                               lambda: rp.ragged_paged_attention(q, kc, vc, bt, rs, rl, cl, **kw))
+            if (out[~valid] != 0).any():
+                raise SystemExit(f"ragged_paged_attention code mode: a padded slot is not exact zeros: {code} {name}")
+            worst = max(worst, check_codes(
+                torch, "ragged_paged_attention", "ragged_paged_attention_codes",
+                lambda: rp.ragged_paged_attention(q, kc, vc, bt, rs, rl, cl, **kw),
+                lambda: rp.ragged_paged_attention_plain(q.float(), kc, vc, bt, rs, rl, cl, **kw),
+                f"{code} {name} point", rows=valid,
+            ))
+            n += 1
+    log(f"code modes: {n} cases agree with their plain versions, each bit-identical twice (largest abs err {worst:.3e})")
+    return n
+
+
+def phase_long_context_parity(torch, da, fa):
+    """The bf16 twins' kernels at the long-context rows' shapes, against
+    their plain versions: B1's bf16 mode at buckets 8704 and 16896 (batch
+    1, q_len 1, Hq 32, Hkv 8, D 64; check_close's bound, two more launches
+    bit-identical) and B2 at the 8192- and 16384-token prompts (batch 1,
+    the fused projection's layout, the main path's fp32 softmax; check_flash's
+    bounds). The plain B2 runs one kv head's group of q heads at a time: a
+    whole (32, S, S) fp32 score tensor would not fit the card."""
+    rng = np.random.RandomState(14)
+    for bucket in (8704, 16896):
+        q, kc, vc, mask = _decode_inputs(torch, rng, 1, 1, 32, 8, 64, 2, bucket, bucket, torch.bfloat16,
+                                         [bucket - 7])
+        kw = dict(scale=0.125, n_kv=8)
+        case = f"bf16 B=1 K=1 Hq=32 Hkv=8 D=64 bucket={bucket}"
+        check_codes(torch, "tkg_decode_attention", "decode_attention",
+                    lambda: da.tkg_decode_attention(q, kc, vc, 1, mask, None, **kw),
+                    lambda: da.tkg_decode_attention_plain(q.float(), kc.float(), vc.float(), 1, mask, None, **kw),
+                    case)
+        del q, kc, vc, mask
+    for S in (8192, 16384):
+        q, k, v = fused_qkv_inputs(torch, rng, 1, S, 32, 8, 64, torch.bfloat16)
+        key_valid = torch.ones((1, S), dtype=torch.int32, device="cuda")
+        kw = dict(scale=0.125, causal=True, softmax_bf16=False, window=None, chunk=None)
+        out, m, l = _code_launch(torch, "flash_attention", lambda: fa.flash_attention_fwd(q, k, v, key_valid, **kw))
+        err = m_err = l_rel = 0.0
+        for h in range(8):
+            g = slice(4 * h, 4 * h + 4)
+            ref, m_ref, l_ref = fa.flash_attention_plain(q[:, :, g], k[:, :, h : h + 1], v[:, :, h : h + 1],
+                                                         key_valid, **kw)
+            err = max(err, (out[:, :, g].float() - ref.float()).abs().max().item())
+            m_err = max(m_err, (m[:, g] - m_ref).abs().max().item())
+            l_rel = max(l_rel, ((l[:, g] - l_ref).abs() / l_ref.clamp(min=1e-30)).max().item())
+            del ref, m_ref, l_ref
+            torch.cuda.empty_cache()
+        tol, l_tol = flash_tolerances(torch, q.dtype, False)
+        ok = err <= tol and m_err <= M_TOL and l_rel <= l_tol
+        case = f"main-path layout B=1 S={S} Hq=32 Hkv=8 D=64 bfloat16 softmax_bf16=False"
+        log(f"  flash {case}: out err {err:.3e} (tol {tol:.1e}), m err {m_err:.1e} (tol {M_TOL:.0e}), "
+            f"l rel err {l_rel:.1e} (tol {l_tol:.1e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"flash_attention disagrees with its plain version: {case}")
+        check_repeat(torch, "flash_attention", lambda: fa.flash_attention_fwd(q, k, v, key_valid, **kw), case)
+        del q, k, v, out, m, l
+        torch.cuda.empty_cache()
+    log("long-context shapes: B1's bf16 mode at 8704 and 16896 and B2 at 8192 and 16384 agree with their plain "
+        "versions, each bit-identical twice")
+    return 4
+
+
+def _sdpa_rows(torch, q, k_r, v_r, mask, n_rep):
+    """SDPA's operands from q (B, K, Hq, D) and dequantized (B, S, Hkv, D)
+    K/V in q's dtype: the library yardstick."""
+    return (q.transpose(1, 2), k_r.to(q.dtype).permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1),
+            v_r.to(q.dtype).permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1), mask)
+
+
+def phase_kvq_times(torch, da, pf, rp):
+    """Each code mode at the parity phase's points (B1 at buckets 512 and
+    8704 batch 1, B4 at blocks of 32, B5, B3 mixed and decode), beside the
+    bf16 mode at the same point, in this call: kernel ms (L2 flushed) per
+    code type, the int8 plain version's ms, SDPA on K/V dequantized
+    beforehand (the dequantization not timed), and the bound at code bytes
+    (ops/roofline.py, each input read once: codes, the (Hkv,) factors, bf16
+    q and out)."""
+    import torch.nn.functional as F
+
+    from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import QuantizedKV, dequantize_kv, read_cache_at_layer
+    from neuronx_distributed_inference_tpu_torch.modules.masks import token_gen_mask
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import CODE, RAGGED_POINTS, ragged_work
+
+    rng = np.random.RandomState(13)
+    rows = {}
+
+    def record(key, label, ms_by_code, bf16_ms, plain_ms, lib_ms, nbytes, flops, err):
+        b_ms, b_by = bound(nbytes, flops)
+        rows[key] = dict(ms=ms_by_code["int8"], plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=err, by_code=ms_by_code, bf16_ms=bf16_ms)
+        log(f"{label}: code mode " + ", ".join(f"{c} {ms:.4f}" for c, ms in ms_by_code.items())
+            + f" ms; bf16 mode {bf16_ms:.4f} ms; int8 plain {plain_ms:.4f} ms, sdpa on dequantized K/V {lib_ms:.4f} ms, "
+            f"bound at code bytes {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+
+    # B1, the long-context rows' decode at batch 1 (and the main path's 512)
+    Hq, Hkv, D, L = 32, 8, 64, 4
+    for bucket in (512, 8704):
+        valid = bucket - 100
+        cols = torch.arange(bucket, device="cuda")[None, :]
+        mask = token_gen_mask((cols < valid).to(torch.int32), 1)
+        q = torch.from_numpy(rng.randn(1, 1, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", torch.bfloat16)
+        kw = dict(scale=D ** -0.5, n_kv=Hkv)
+        state = {"layer": 0}
+
+        def nxt():
+            state["layer"] = (state["layer"] + 1) % L
+            return state["layer"]
+
+        ms_by, err = {}, 0.0
+        for code in KV_CODES:
+            kq = code_stream(torch, rng, (L, 2, bucket, Hkv, D), L, Hkv, code)
+            vq = code_stream(torch, rng, (L, 2, bucket, Hkv, D), L, Hkv, code)
+            e = check_close(torch, da.tkg_decode_attention(q, kq, vq, 0, mask, None, **kw),
+                            da.tkg_decode_attention_plain(q.float(), kq, vq, 0, mask, None, **kw),
+                            f"timed {code} B=1 bucket={bucket}", "tkg_decode_attention")
+            ms_by[code] = time_ms(torch, lambda: da.tkg_decode_attention(q, kq, vq, nxt(), mask, None, **kw))
+            if code == "int8":
+                err = e
+                plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kq, vq, nxt(), mask, None, **kw))
+                k_r, v_r = read_cache_at_layer(kq, vq, 0, 1, bucket)
+                sd = _sdpa_rows(torch, q, k_r, v_r, mask, Hq // Hkv)
+                lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(sd[0], sd[1], sd[2], attn_mask=sd[3]))
+                kb, vb = kq.data.to(torch.bfloat16), vq.data.to(torch.bfloat16)
+                bf16_ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kb, vb, nxt(), mask, None, **kw))
+                nbytes, flops = decode_work(q, kq.data, mask)
+                nbytes += 2 * Hkv * 4  # the layer's K and V factors
+                del k_r, v_r, sd, kb, vb
+            del kq, vq
+        record(("decode_attention_codes", bucket), f"tkg_decode_attention code mode B=1 K=1 bucket={bucket} "
+               f"valid={valid} Hq=32 Hkv=8 D=64", ms_by, bf16_ms, plain_ms, lib_ms, nbytes, flops, err)
+
+    # B4, the serving row's decode step (8 rows 192 deep, blocks of 32)
+    ms_by, ctx = {}, 192
+    for code in KV_CODES:
+        q, kq, vq, bt, mask = kvq_paged_decode_case(torch, rng, code, 32, L=L)
+        kw = dict(scale=0.125, n_kv=Hkv)
+        e = check_close(torch, da.paged_tkg_decode_attention(q, kq, vq, 0, bt, mask, None, **kw),
+                        da.paged_tkg_decode_attention_plain(q.float(), kq, vq, 0, bt, mask, None, **kw),
+                        f"timed {code} B=8 ctx=192 bs=32", "paged_tkg_decode_attention")
+        ms_by[code] = time_ms(torch, lambda: da.paged_tkg_decode_attention(q, kq, vq, nxt(), bt, mask, None, **kw))
+        if code == "int8":
+            err = e
+            plain_ms = time_ms(torch, lambda: da.paged_tkg_decode_attention_plain(q, kq, vq, nxt(), bt, mask, None, **kw))
+            k_r, v_r = read_block_cache_at_layer(kq, vq, 0, bt)
+            sd = _sdpa_rows(torch, q, k_r, v_r, mask, Hq // Hkv)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(sd[0], sd[1], sd[2], attn_mask=sd[3]))
+            kb, vb = kq.data.to(torch.bfloat16), vq.data.to(torch.bfloat16)
+            bf16_ms = time_ms(torch, lambda: da.paged_tkg_decode_attention(q, kb, vb, nxt(), bt, mask, None, **kw))
+            B = q.shape[0]
+            nbytes = 2 * B * ctx * Hkv * D * CODE + 2 * q.numel() * 2 + mask.numel() + bt.numel() * 4 + 2 * Hkv * 4
+            flops = 4 * D * Hq * int(mask.sum().item())
+            del k_r, v_r, sd, kb, vb
+    record("paged_decode_attention_codes", "paged_tkg_decode_attention code mode B=8 ctx=192 bs=32 bucket=1024",
+           ms_by, bf16_ms, plain_ms, lib_ms, nbytes, flops, err)
+
+    # B5, 8 rows x 128 new tokens after a 64-token prefix
+    ms_by = {}
+    for code in KV_CODES:
+        q, kc, vc, bt, pos, lim, ks, vs = kvq_chunk_case(torch, rng, code)
+        kw = dict(scale=0.125, n_rep=4)
+        e = check_close(torch, pf.paged_flash_attention(q, kc, vc, bt, pos, lim, k_scale=ks, v_scale=vs, **kw),
+                        pf.paged_flash_attention_plain(q.float(), kc, vc, bt, pos, lim, k_scale=ks, v_scale=vs, **kw),
+                        f"timed {code} B=8 Sq=128 prefix 64", "paged_flash_attention")
+        ms_by[code] = time_ms(torch, lambda: pf.paged_flash_attention(q, kc, vc, bt, pos, lim, k_scale=ks, v_scale=vs, **kw))
+        if code == "int8":
+            err = e
+            plain_ms = time_ms(torch, lambda: pf.paged_flash_attention_plain(q, kc, vc, bt, pos, lim, k_scale=ks,
+                                                                               v_scale=vs, **kw))
+            k_r, v_r = read_block_cache_at_layer(kc[None], vc[None], 0, bt)
+            k_r, v_r = k_r.float() * ks[:, None], v_r.float() * vs[:, None]
+            cols = torch.arange(k_r.shape[1], device="cuda")[None, None, None, :]
+            smask = (cols <= pos[:, None, :, None]) & (cols < lim[:, None, None, None])
+            sd = _sdpa_rows(torch, q, k_r, v_r, smask, 4)
+            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(sd[0], sd[1], sd[2], attn_mask=sd[3]))
+            kb, vb = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+            bf16_ms = time_ms(torch, lambda: pf.paged_flash_attention(q, kb, vb, bt, pos, lim, **kw))
+            B, Sq = pos.shape
+            nbytes = 2 * q.numel() * 2 + 2 * B * int(lim[0]) * Hkv * D * CODE + (pos.numel() + lim.numel() + bt.numel()) * 4
+            nbytes += 2 * Hkv * 4
+            flops = 4 * D * Hq * int(smask.sum().item())
+            del k_r, v_r, sd, kb, vb
+    record("paged_flash_attention_codes", "paged_flash_attention code mode B=8 Sq=128 after a 64-token prefix, bs=32",
+           ms_by, bf16_ms, plain_ms, lib_ms, nbytes, flops, err)
+
+    # B3 at the serving row's two points
+    for name, pt in RAGGED_POINTS.items():
+        ms_by = {}
+        for code in KV_CODES:
+            q, kc, vc, bt, rs, rl, cl, valid, ks, vs = kvq_ragged_case(
+                torch, rng, code, pt["row_len"], pt["ctx_len"], pt["block_size"], pt["width"]
+            )
+            kw = dict(scale=0.125, n_rep=4)
+            e = check_close(torch, rp.ragged_paged_attention(q, kc, vc, bt, rs, rl, cl, k_scale=ks, v_scale=vs, **kw),
+                            rp.ragged_paged_attention_plain(q.float(), kc, vc, bt, rs, rl, cl, k_scale=ks, v_scale=vs,
+                                                            **kw),
+                            f"timed {code} {name} point", "ragged_paged_attention", valid)
+            ms_by[code] = time_ms(torch, lambda: rp.ragged_paged_attention(q, kc, vc, bt, rs, rl, cl, k_scale=ks,
+                                                                           v_scale=vs, **kw))
+            if code == "int8":
+                err = e
+                plain_ms = time_ms(torch, lambda: rp.ragged_paged_attention_plain(q, kc, vc, bt, rs, rl, cl, k_scale=ks,
+                                                                                  v_scale=vs, **kw))
+                k_r, v_r = read_block_cache_at_layer(kc[None], vc[None], 0, bt)
+                k_r, v_r = (k_r.float() * ks[:, None]).to(q.dtype), (v_r.float() * vs[:, None]).to(q.dtype)
+                cols = torch.arange(pt["width"], device="cuda")
+                per_row = []
+                for r, (s0, nn, c) in enumerate(zip(rs.tolist(), rl.tolist(), cl.tolist())):
+                    if nn:
+                        qpos = torch.arange(c - nn, c, device="cuda")
+                        per_row.append((
+                            q[s0 : s0 + nn].transpose(0, 1)[None],
+                            k_r[r].transpose(0, 1).repeat_interleave(4, dim=0)[None],
+                            v_r[r].transpose(0, 1).repeat_interleave(4, dim=0)[None],
+                            ((cols[None, :] <= qpos[:, None]) & (cols[None, :] < c))[None, None],
+                        ))
+                lib_ms = time_ms(torch, lambda: [F.scaled_dot_product_attention(a, b, c, attn_mask=m)
+                                                 for a, b, c, m in per_row])
+                kb, vb = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+                bf16_ms = time_ms(torch, lambda: rp.ragged_paged_attention(q, kb, vb, bt, rs, rl, cl, **kw))
+                nbytes, flops = ragged_work(rl.tolist(), cl.tolist(), pt["width"], pt["block_size"],
+                                            dict(Hq=Hq, Hkv=Hkv, D=D), 2, kv_elt=CODE)
+                del k_r, v_r, per_row, kb, vb
+        record(("ragged_paged_attention_codes", name), f"ragged_paged_attention code mode {name} point",
+               ms_by, bf16_ms, plain_ms, lib_ms, nbytes, flops, err)
+    return rows
+
+
+#: the long-context rows (bench.py:1001-1002, 1234-1253): Llama-3.2-1B,
+#: batch 1, an 8192- or 16384-token prompt, 32 new tokens, one CTE bucket
+#: at the prompt and one TKG bucket at 8704 / 16896 positions
+KVQ_ROWS = {"8k": dict(prompt=8192, seq=8704), "16k": dict(prompt=16384, seq=16896)}
+KVQ_NEW = 32
+
+
+def _config_kvq(row, **kw):
+    r = KVQ_ROWS[row]
+    return _config(1, seq_len=r["seq"], context_encoding_buckets=[r["prompt"]],
+                   token_generation_buckets=[r["seq"]], **kw)
+
+
+def _kvq_generate(torch, app, row, label):
+    """One long-context generate() on a warmed app: TTFT and a timed 32-token
+    generate() (_generate_run), B2 launched once a layer and B1 (its code
+    mode on a quantized cache) as the only other kernel; prints tokens, B1
+    launches, cache bytes, peak memory and decode ms per token."""
+    kv = app.config.torch_config.kv_quantized
+    out, run = _generate_run(torch, app, KVQ_ROWS[row]["prompt"], KVQ_NEW, label)
+    b1 = run["launches"]["decode_attention_codes" if kv else "decode_attention"]
+    L = app.spec.num_layers
+    want = expect_launches(flash_attention=L, **{("decode_attention_codes" if kv else "decode_attention"): b1})
+    if run["launches"] != want or not b1:
+        raise SystemExit(f"{label}: launches {run['launches']}, expected B2 {L} and B1 only")
+    nbytes = app.kv_cache_nbytes
+    log(f"{label}: {KVQ_NEW} tokens {out.sequences[0, -KVQ_NEW:].tolist()[:8]}...; B1 launches {b1}; KV cache "
+        f"{nbytes / 2**20:.1f} MiB; peak {run['peak_bytes'] / 2**30:.3f} GiB; decode "
+        f"{1e3 / run['decode_tok_s']:.3f} ms/token ({run['decode_tok_s']:.1f} tok/s), TTFT {run['ttft_ms']:.1f} ms")
+    return out, dict(run, b1=b1, cache_bytes=nbytes, tokens=out.sequences[0, -KVQ_NEW:].tolist())
+
+
+def kvq_teacher_forced(torch, params, seq, prompt_len):
+    """The kv-int8 kernel route and the kv-int8 plain route (attention
+    kernels off: B2's plain prefill, the dequantizing decode read), each
+    teacher-forced over ``seq`` against an fp32 run of the plain route with
+    the int8 cache on the same weights: the kernel route sits no farther
+    from fp32 than FORCED_RATIO times the plain route (max and RMS)."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
+    _cuda.reset_launch_counts()
+    k = _forced_logits(torch, _config(1, output_logits=True, kv_cache_dtype="int8"), params, seq, prompt_len)
+    steps = len(seq) - 1 - prompt_len
+    L = 16
+    want = expect_launches(flash_attention=L, decode_attention_codes=L * steps)
+    if all_counts() != want:
+        raise SystemExit(f"kv-int8 teacher-forced: kernel run counts {all_counts()} != {want}")
+    pl = plain_run("kv-int8 teacher-forced bf16", _forced_logits, torch,
+                   _config(1, output_logits=True, kv_cache_dtype="int8", **off), params, seq, prompt_len)
+    params32 = _map_tree(params, lambda t: t.float())
+    f32 = plain_run("kv-int8 teacher-forced fp32", _forced_logits, torch,
+                    _config(1, output_logits=True, dtype="float32", kv_cache_dtype="int8", **off), params32, seq,
+                    prompt_len)
+    del params32
+    torch.cuda.empty_cache()
+    return _forced_gate(k, pl, f32, "kv-int8 teacher-forced logits")
+
+
+def phase_kv_quant(torch, da, pf, rp, fa, params, forced_seq):
+    """The quantized KV cache on every path: the code modes' parity and
+    times; the bf16 twins' kernels at the long-context shapes; the
+    long-context rows bf16_1b_8k_kvq8 and bf16_1b_16k_kvq8 at full width
+    and depth with graphs on and off (identical tokens, bit-identical final
+    scales, nothing captured after the seal; the graphed decode step
+    profiled) beside their bf16 twins run once with graphs on (and the 8k
+    row once more with fp8 codes), B1's code mode launched as often as the
+    twin's bf16 mode; the kv-int8 teacher-forced gate; the split and ragged
+    serving drains, sync and 1-ahead, with an int8 cache through graph_pair
+    (code launches of B4, B5, B3 > 0, no fault, tokens equal with graphs on
+    and off)."""
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_1B
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    n_cases = timed("kv code-mode parity", phase_kvq_parity, torch, da, pf, rp)
+    n_cases += timed("long-context shapes parity", phase_long_context_parity, torch, da, fa)
+    times = timed("kv code-mode times", phase_kvq_times, torch, da, pf, rp)
+    vocab = LLAMA_1B["vocab_size"]
+    # each long-context row with graphs on and off (graph_pair), its bf16
+    # twin with graphs on; the metrics are the graphed runs'
+    runs, graphs = {}, {}
+    for row, r in KVQ_ROWS.items():
+        for kv in (None, "int8"):
+            name = f"bf16_1b_{row}{'_kvq8' if kv else ''}"
+
+            def make(graphs_on, row=row, kv=kv):
+                cfg = _config_kvq(row, kv_cache_dtype=kv, cuda_graphs=graphs_on, retrace_guard=True)
+                return ModelForCausalLM(None, cfg).load(params=params).warmup()
+
+            def run(app, row=row, kv=kv, name=name):
+                on = app.graphs.enabled
+                out, m = _kvq_generate(torch, app, row, f"{name}, graphs {'on' if on else 'off'}")
+                if on:
+                    runs[(row, kv)] = m
+                res = dict(tokens=out.sequences[0].tolist())
+                if kv:
+                    res.update(k_scale=app.kv_cache.k.scale.cpu().numpy().tobytes(),
+                               v_scale=app.kv_cache.v.scale.cpu().numpy().tobytes())
+                return res
+
+            def prof(app, out, r=r, name=name):
+                return phase_profile(torch, app, np.asarray(out["tokens"]), r["prompt"],
+                                     label=f"{name} decode step, graphs on", bucket=r["seq"])
+
+            if kv:
+                graphs[(row, kv)] = graph_pair(torch, f"{name} generate (tokens and final scales)", make, run, prof,
+                                               profile_off=False)
+                log(f"{name}: final (L, Hkv) K and V scales bit-identical with graphs on and off")
+            else:
+                res = graph_run(torch, make, run, True, prof)
+                if not res["captures"]:
+                    raise SystemExit(f"{name}: no graph captured with graphs on")
+                res.pop("tokens")
+                graphs[(row, kv)] = {True: res}
+        twin, q8 = runs[(row, None)], runs[(row, "int8")]
+        if q8["b1"] != twin["b1"]:
+            raise SystemExit(f"bf16_1b_{row}_kvq8: B1 code launches {q8['b1']} != the twin's {twin['b1']}")
+        same = sum(a == b for a, b in zip(q8["tokens"], twin["tokens"]))
+        log(f"bf16_1b_{row}_kvq8 vs bf16_1b_{row} (graphs on): cache {q8['cache_bytes'] / twin['cache_bytes']:.4f} of "
+            f"the bf16 bytes, decode {1e3 / q8['decode_tok_s']:.3f} vs {1e3 / twin['decode_tok_s']:.3f} ms/token, "
+            f"tokens equal at {same} of {KVQ_NEW} (not a gate: random weights, quantized cache)")
+    app = ModelForCausalLM(None, _config_kvq("8k", kv_cache_dtype="fp8")).load(params=params).warmup()
+    runs[("8k", "fp8")] = _kvq_generate(torch, app, "8k", "bf16_1b_8k (kv fp8)")[1]
+    del app
+    torch.cuda.empty_cache()
+    forced = kvq_teacher_forced(torch, params, forced_seq[: 128 + 64], 128)
+
+    s = SERVING
+    rng = np.random.RandomState(0)  # phase_serving's prompts
+    prompts = [rng.randint(0, vocab - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    serving = {}
+    for kind in ("split", "ragged"):
+        for one_ahead in (False, True):
+            label = f"kv-int8 {kind} serving drain, {'1-ahead' if one_ahead else 'sync'}"
+            kw = dict(async_mode=one_ahead, kv_cache_dtype="int8")
+            if kind == "ragged":
+                kw = dict(serving_ragged=True, serving_ragged_async=one_ahead, kv_cache_dtype="int8")
+
+            def make(graphs, kw=kw):
+                return ModelForCausalLM(None, _serving_config(cuda_graphs=graphs, **kw)).load(params=params).warmup()
+
+            def run(app, label=label):
+                tel = TelemetrySession()
+                sess, _ = _serve(torch, app, prompts, s["gen"], tel)
+                faults = sum(tel.rejected.values()) + tel.counters["quarantined"] + tel.counters["preempted"]
+                if faults or any(r.status != "finished" for r in sess.requests.values()):
+                    raise SystemExit(f"{label}: faults on clean traffic ({faults}) or an unfinished request")
+                return {rid: list(r.generated) for rid, r in sess.requests.items()}
+
+            res = graph_pair(torch, label, make, run, warm_pass=True)
+            counts = res[True]["counts"]
+            need = ("ragged_paged_attention_codes",) if kind == "ragged" else (
+                "paged_decode_attention_codes", "paged_flash_attention_codes")
+            plain = [n for n in ("paged_decode_attention", "paged_flash_attention", "ragged_paged_attention")
+                     if counts[n]]
+            if not all(counts[n] for n in need) or plain:
+                raise SystemExit(f"{label}: code-mode launches {counts}")
+            log(f"{label}: launches {{{', '.join(f'{n}: {counts[n]}' for n in need)}}}, 0 rejected or quarantined")
+            serving[(kind, one_ahead)] = counts
+
+    return dict(cases=n_cases, times=times, runs=runs, forced=forced, serving=serving, graphs=graphs)
+
+
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
@@ -3675,6 +4279,8 @@ def main():
     graphs = timed("graphs on and off", phase_graphs, torch, params)
     timed("sampled 1B generate", phase_sampled, torch, params)
     timed("pdl under graphs", phase_pdl_graphs, torch, db)
+    kvq = timed("kv quant", phase_kv_quant, torch, da, pf, rp, fa, params, main_path["forced_seq"])
+    times.update(kvq["times"])
     for key in ("forced_seq", "plain_logits", "fp32_logits"):
         main_path.pop(key)
     del params
@@ -3715,6 +4321,19 @@ def main():
          "neuronx_distributed_inference_tpu/ops/decode_block.py:397", fused["launches"]),
         ("fused_mlp_block", ("fused_mlp_block", 4), "csrc/fused_mlp_block.cu",
          "neuronx_distributed_inference_tpu/ops/decode_block.py:504", fused["launches"]),
+        # the int8/fp8 code modes (a quantized KV cache): B1 at the 8k
+        # row's bucket 8704, batch 1, launches of bf16_1b_8k_kvq8's
+        # generate(); B4 and B5 at the serving row's points, launches of the
+        # kv-int8 split drain (sync, graphs on); B3 at the mixed point,
+        # launches of the kv-int8 ragged drain (sync, graphs on)
+        ("decode_attention_codes", ("decode_attention_codes", 8704), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", kvq["runs"][("8k", "int8")]["launches"]),
+        ("paged_decode_attention_codes", "paged_decode_attention_codes", "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:284", kvq["serving"][("split", False)]),
+        ("paged_flash_attention_codes", "paged_flash_attention_codes", "csrc/paged_flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/paged_flash_attention.py:200", kvq["serving"][("split", False)]),
+        ("ragged_paged_attention_codes", ("ragged_paged_attention_codes", "mixed"), "csrc/ragged_paged_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/ragged_paged_attention.py:267", kvq["serving"][("ragged", False)]),
     ):
         t = times[key]
         entries.append({

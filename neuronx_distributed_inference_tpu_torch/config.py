@@ -29,10 +29,15 @@ _DTYPES = {
     "bf16": torch.bfloat16,
     "float16": torch.float16,
     "fp16": torch.float16,
+    "int8": torch.int8,
+    "fp8": torch.float8_e4m3fn,
+    "float8_e4m3": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
 }
 
 #: accepted kv_cache_dtype names (reference KV_CACHE_DTYPES); the quantized
-#: ones are validated as known and then refused as not yet ported
+#: ones build QuantizedKV streams of codes and per-(layer, head) scales
+#: (modules/kvcache.py)
 KV_CACHE_DTYPES = (
     "bfloat16", "bf16", "float16", "fp16", "float32", "fp32",
     "int8", "fp8", "float8_e4m3", "float8_e5m2",
@@ -246,6 +251,11 @@ class Config:
         return to_dtype(self.kv_cache_dtype) if self.kv_cache_dtype else self.torch_dtype
 
     @property
+    def kv_quantized(self) -> bool:
+        """True when the KV cache stores int8/fp8 codes + scales."""
+        return self.kv_cache_dtype in KV_QUANT_DTYPE_NAMES
+
+    @property
     def weight_int4(self) -> bool:
         """True when weights pack to grouped int4 at load (ops/quant_matmul)."""
         return self.weight_dtype == "int4"
@@ -271,12 +281,6 @@ class Config:
                     f"Config.{name}={getattr(self, name)!r} is not ported to "
                     f"PyTorch yet (ROADMAP {item})"
                 )
-        if self.kv_cache_dtype in KV_QUANT_DTYPE_NAMES:
-            raise NotImplementedError(
-                f"kv_cache_dtype={self.kv_cache_dtype!r} (quantized KV cache) is "
-                "not ported to PyTorch yet (ROADMAP A6 (quantization), kernel "
-                "B1 int8/fp8 mode)"
-            )
         resolve_device(self.device)
 
     def _validate_quantization(self):

@@ -2,6 +2,8 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -11,11 +13,25 @@ namespace nxdi {
 // finite, so exp(NEG_INF - NEG_INF) == 1 and the mask, not an inf, zeroes p.
 constexpr float NEG_INF = -1e30f;
 
-// dtype codes passed from Python
-enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+// dtype codes passed from Python; the last three are the 1-byte codes of a
+// quantized KV cache (ops/decode_attention.py _CODE_DTYPES)
+enum DType : int { kFloat32 = 0, kBFloat16 = 1, kInt8 = 2, kFp8E4M3 = 3, kFp8E5M2 = 4 };
+
+// 1-byte fp8 KV codes (torch.float8_e4m3fn / float8_e5m2): the raw byte,
+// converted to float through half precision, which holds every value of
+// both formats exactly
+struct Fp8E4M3 { uint8_t x; };
+struct Fp8E5M2 { uint8_t x; };
+
+__device__ __forceinline__ float fp8_to_float(uint8_t b, __nv_fp8_interpretation_t kind) {
+  return __half2float(__half(__nv_cvt_fp8_to_halfraw(static_cast<__nv_fp8_storage_t>(b), kind)));
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_float(Fp8E4M3 x) { return fp8_to_float(x.x, __NV_E4M3); }
+__device__ __forceinline__ float to_float(Fp8E5M2 x) { return fp8_to_float(x.x, __NV_E5M2); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -56,6 +72,47 @@ template <> struct Vec16<__nv_bfloat16> {
     }
   }
 };
+// 16 KV codes (the lower address in the low byte)
+template <> struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  static __device__ __forceinline__ void unpack(uint4 r, float* v) {
+    const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) v[4 * i + k] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * k)));
+  }
+};
+__device__ __forceinline__ void unpack_fp8x16(uint4 r, __nv_fp8_interpretation_t kind, float* v) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const __half2 pair(__nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(w[i] >> (16 * h)), kind));
+      const float2 f = __half22float2(pair);
+      v[4 * i + 2 * h] = f.x;
+      v[4 * i + 2 * h + 1] = f.y;
+    }
+}
+template <> struct Vec16<Fp8E4M3> {
+  static constexpr int N = 16;
+  static __device__ __forceinline__ void unpack(uint4 r, float* v) { unpack_fp8x16(r, __NV_E4M3, v); }
+};
+template <> struct Vec16<Fp8E5M2> {
+  static constexpr int N = 16;
+  static __device__ __forceinline__ void unpack(uint4 r, float* v) { unpack_fp8x16(r, __NV_E5M2, v); }
+};
+
+// N consecutive values from 16-byte aligned shared or global memory as
+// floats (N a multiple of the 16 bytes' element count)
+template <typename T, int N>
+__device__ __forceinline__ void load_floats(const T* p, float* v) {
+  constexpr int E = Vec16<T>::N;
+  static_assert(N % E == 0, "whole 16-byte vectors");
+#pragma unroll
+  for (int i = 0; i < N / E; ++i) Vec16<T>::unpack(*reinterpret_cast<const uint4*>(p + i * E), v + i * E);
+}
 
 // Asynchronous copies from device memory into shared memory (sm_80+): one
 // 16-byte (or 4-byte) copy per call; with `full` false nothing is read and

@@ -5,7 +5,8 @@
 // Replaces the TPU kernels neuronx_distributed_inference_tpu/ops/
 // decode_attention.py::tkg_decode_attention (B1) and
 // ::paged_tkg_decode_attention (B4) (both _common_call -> _tkg_kernel,
-// _body, _finalize) for bf16/fp32 caches.
+// _body, _finalize) for bf16/fp32 caches and, in code mode, for int8/fp8
+// (e4m3, e5m2) QuantizedKV caches.
 //
 // What both compute: for batch row b and kv head g, the n_rep * K query
 // rows of that group (row hl * K + t is local q head hl = h - g * n_rep at
@@ -74,6 +75,24 @@
 //     tile, 1024 blocks, of which those past a row's length read only
 //     their mask bytes and write (NEG_INF, 0, 0).
 //
+// Code mode (a cache type C of 1-byte codes beside the q and output type T):
+//   - The kernel reads the layer's (Hkv,) running scales itself and takes
+//     each head's dequant factors scale / qmax: K's multiplies the score
+//     scale (the reference's _fold_k_dequant folds it into q; a per-head
+//     constant, so the same product up to fp32 rounding), V's the finalized
+//     output before its one rounding to T (_apply_v_dequant). So a call is
+//     one launch (and the combine), with no fold or rescale pass around it,
+//     and the scales are read on the device at launch (a captured graph
+//     sees each step's).
+//   - K and V tiles are staged as codes, one position's D bytes a row
+//     padded by 16 bytes (lane rows 80 or 144 bytes apart: the 16-byte reads
+//     of a quarter warp hit distinct banks). A 16-byte chunk is 16 codes of
+//     one position, so B4 still fetches each chunk through its block's
+//     entry and zero-fills block 0's. The codes become fp32 in registers
+//     (int8 exactly; e4m3 / e5m2 through half precision, also exactly);
+//     statistics and accumulators stay fp32. No dequantized cache is
+//     written anywhere, and a decode step reads half the bf16 bytes.
+//
 // Layout: q (B, K, Hq, D) contiguous; caches contiguous (B1: (L, R, S_max,
 // Hkv, D), 16-byte aligned); block_table (B, MB) int32 contiguous (paged);
 // mask bytes addressed as b * mask_sb + t * mask_st + s; sink (Hq,) fp32 or
@@ -111,18 +130,29 @@ struct SplitParams {
   int NB1, MB, bs_lg;  // B4: blocks (garbage block included), table width, log2 block size
   long long mask_sb, mask_st;
   float scale;
+  // code mode: the caches' (L, Hkv) fp32 running scales and the code type's
+  // qmax (null for a plain cache)
+  const float* k_scale;
+  const float* v_scale;
+  float qmax;
 };
 
-template <typename T, int D>
+// the layer's dequant factor scale / qmax of kv head g (1 for a plain cache)
+__device__ __forceinline__ float dequant_factor(const float* scale, const SplitParams& p, int g) {
+  return scale != nullptr ? scale[p.layer * p.Hkv + g] / p.qmax : 1.f;
+}
+
+// T: q and out; C: the cache (T, or 1-byte codes)
+template <typename T, typename C, int D>
 struct SplitTile {
-  static constexpr int LD = D + 16 / (int)sizeof(T);  // staged row: 16 bytes of padding
+  static constexpr int LD = D + 16 / (int)sizeof(C);  // staged row: 16 bytes of padding
   static constexpr int KV = SP_TILE * LD;             // one K or V tile
   // q rows, two stages of (K, V), a probability row per (warp, row), the
   // live-tile bits per (32 tiles, warp), B4's table entries of the split
   static __host__ __device__ int groups(int per) { return ((per + SP_TILE - 1) / SP_TILE + 31) / 32; }
   static int table_entries(int per) { return per / 16 + 2; }  // blocks of >= 16 positions
   static size_t smem(int rows, int rw, int per, bool paged) {
-    return sizeof(T) * ((size_t)rows * D + 4 * KV) + sizeof(float) * SP_WARPS * rw * SP_TILE +
+    return sizeof(T) * (size_t)rows * D + sizeof(C) * 4 * (size_t)KV + sizeof(float) * SP_WARPS * rw * SP_TILE +
            sizeof(unsigned) * SP_WARPS * groups(per) + (paged ? sizeof(int) * table_entries(per) : 0);
   }
 };
@@ -142,12 +172,15 @@ __device__ __forceinline__ float finalize(float acc, float m, float l, const flo
 }
 
 // RW: the most query rows one warp owns (rows w, w + 4, ... of the group);
-// PAGED: B4's address mode (the block table), else B1's (the cache line)
-template <typename T, int D, int RW, bool PAGED>
+// PAGED: B4's address mode (the block table), else B1's (the cache line);
+// C: the cache's element type (T, or 1-byte codes in code mode)
+template <typename T, typename C, int D, int RW, bool PAGED>
 __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) {
-  using Tile = SplitTile<T, D>;
+  using Tile = SplitTile<T, C, D>;
   constexpr int LD = Tile::LD;
-  constexpr int EV = Vec16<T>::N;  // elements per 16 bytes
+  constexpr int EQ = Vec16<T>::N;  // q elements per 16 bytes
+  constexpr int QPR = D / EQ;      // 16-byte vectors per q row
+  constexpr int EV = Vec16<C>::N;  // cache elements per 16 bytes
   constexpr int VPR = D / EV;      // 16-byte vectors per position
   constexpr int DPL = D / 32;      // output dims per lane
   extern __shared__ __align__(16) unsigned char sp_smem[];
@@ -155,7 +188,7 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
   const int K = p.K;
   const int rows = n_rep * K;
   T* Qs = reinterpret_cast<T*>(sp_smem);
-  T* KVs = Qs + rows * D;  // stage s: K at KVs + 2 s KV, V right after
+  C* KVs = reinterpret_cast<C*>(Qs + rows * D);  // stage s: K at KVs + 2 s KV, V right after
   float* Pw = reinterpret_cast<float*>(KVs + 4 * Tile::KV) + (threadIdx.x / 32) * RW * SP_TILE;
   unsigned* bits_s = reinterpret_cast<unsigned*>(reinterpret_cast<float*>(KVs + 4 * Tile::KV) +
                                                  SP_WARPS * RW * SP_TILE);
@@ -164,13 +197,14 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
   const int lo = z * p.per, hi = min(lo + p.per, p.S_kv);
+  const float score_scale = p.scale * dequant_factor(p.k_scale, p, g);
   const int nt = (hi - lo + SP_TILE - 1) / SP_TILE;
   const unsigned char* mrow = p.mask + (long long)b * p.mask_sb;
 
   // the group's q rows, in flight while the mask is read
   const T* q = static_cast<const T*>(p.q);
-  for (int i = tid; i < rows * VPR; i += SP_THREADS) {
-    const int r = i / VPR, e = (i % VPR) * EV;
+  for (int i = tid; i < rows * QPR; i += SP_THREADS) {
+    const int r = i / QPR, e = (i % QPR) * EQ;
     const int hl = r / K, t = r % K;
     cp_async16(Qs + r * D + e, q + (((long long)b * K + t) * p.Hq + g * n_rep + hl) * D + e, true);
   }
@@ -209,15 +243,15 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
     return j;
   };
 
-  const T* kc = static_cast<const T*>(p.k_cache);
-  const T* vc = static_cast<const T*>(p.v_cache);
+  const C* kc = static_cast<const C*>(p.k_cache);
+  const C* vc = static_cast<const C*>(p.v_cache);
   const long long line = PAGED ? 0 : ((long long)p.layer * p.R + b) * p.S_max;
   const long long pos_stride = (long long)p.Hkv * D;
   const int bs_mask = (1 << p.bs_lg) - 1;
   auto load_tile = [&](int j, int stage) {
     const int s0 = lo + j * SP_TILE, n = min(SP_TILE, hi - s0);
-    T* Ks = KVs + 2 * stage * Tile::KV;
-    T* Vs = Ks + Tile::KV;
+    C* Ks = KVs + 2 * stage * Tile::KV;
+    C* Vs = Ks + Tile::KV;
     for (int i = tid; i < n * VPR; i += SP_THREADS) {
       const int c = i / VPR, e = (i % VPR) * EV;
       long long off;
@@ -256,8 +290,8 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
     if (jn < nt) load_tile(jn, stage ^ 1);
 
     const int s0 = lo + j * SP_TILE, n = min(SP_TILE, hi - s0);
-    const T* Ks = KVs + 2 * stage * Tile::KV;
-    const T* Vs = Ks + Tile::KV;
+    const C* Ks = KVs + 2 * stage * Tile::KV;
+    const C* Vs = Ks + Tile::KV;
     const bool two = n > 32;  // positions lane + 32 in use (warp-uniform)
     float dot[RW][2];
 #pragma unroll
@@ -265,13 +299,13 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
 #pragma unroll 2
     for (int e = 0; e < D; e += EV) {
       float k0[EV], k1[EV];
-      Vec16<T>::unpack(*reinterpret_cast<const uint4*>(Ks + lane * LD + e), k0);
-      Vec16<T>::unpack(*reinterpret_cast<const uint4*>(Ks + (two ? lane + 32 : lane) * LD + e), k1);
+      Vec16<C>::unpack(*reinterpret_cast<const uint4*>(Ks + lane * LD + e), k0);
+      Vec16<C>::unpack(*reinterpret_cast<const uint4*>(Ks + (two ? lane + 32 : lane) * LD + e), k1);
 #pragma unroll
       for (int i = 0; i < RW; ++i) {
         if (i < nrw) {
           float qv[EV];
-          Vec16<T>::unpack(*reinterpret_cast<const uint4*>(Qs + (warp + SP_WARPS * i) * D + e), qv);
+          load_floats<T, EV>(Qs + (warp + SP_WARPS * i) * D + e, qv);
 #pragma unroll
           for (int u = 0; u < EV; ++u) {
             dot[i][0] = fmaf(qv[u], k0[u], dot[i][0]);
@@ -287,8 +321,8 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
         const unsigned char* mt = mrow + t * p.mask_st + s0;
         const bool ok0 = lane < n && mt[lane];
         const bool ok1 = lane + 32 < n && mt[lane + 32];
-        const float sa = ok0 ? dot[i][0] * p.scale : NEG_INF;
-        const float sb = ok1 ? dot[i][1] * p.scale : NEG_INF;
+        const float sa = ok0 ? dot[i][0] * score_scale : NEG_INF;
+        const float sb = ok1 ? dot[i][1] * score_scale : NEG_INF;
         const float m_new = fmaxf(m_r[i], group_max<32>(fmaxf(sa, sb)));
         const float pa = ok0 ? expf(sa - m_new) : 0.f;
         const float pb = ok1 ? expf(sb - m_new) : 0.f;
@@ -329,9 +363,10 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
     const int h = g * n_rep + r / K;
     const long long rh = ((long long)b * K + r % K) * p.Hq + h;  // (row, q head)
     if (p.splits == 1) {
+      const float vf = dequant_factor(p.v_scale, p, g);
 #pragma unroll
       for (int k = 0; k < DPL; ++k)
-        out[rh * D + lane * DPL + k] = from_float<T>(finalize(acc[i][k], m_r[i], l_r[i], p.sink, h));
+        out[rh * D + lane * DPL + k] = from_float<T>(finalize(acc[i][k], m_r[i], l_r[i], p.sink, h) * vf);
     } else {
       const long long o = (long long)z * BKH + rh;
       if (lane == 0) {
@@ -377,20 +412,21 @@ __global__ void split_combine_kernel(const SplitParams p) {
   }
   T* out = static_cast<T*>(p.out) + rh * D + lane * DPL;
   const int h = (int)(rh % p.Hq);
+  const float vf = dequant_factor(p.v_scale, p, h / (p.Hq / p.Hkv));
 #pragma unroll
-  for (int k = 0; k < DPL; ++k) out[k] = from_float<T>(finalize(num[k], mx, den, p.sink, h));
+  for (int k = 0; k < DPL; ++k) out[k] = from_float<T>(finalize(num[k], mx, den, p.sink, h) * vf);
 }
 
-template <typename T, int D, int RW, bool PAGED>
+template <typename T, typename C, int D, int RW, bool PAGED>
 cudaError_t split_launch(const SplitParams& p, cudaStream_t st) {
   const int rows = (p.Hq / p.Hkv) * p.K;
-  const size_t smem = SplitTile<T, D>::smem(rows, RW, p.per, PAGED);
+  const size_t smem = SplitTile<T, C, D>::smem(rows, RW, p.per, PAGED);
   if (smem > 48 * 1024) {
     const cudaError_t err =
-        cudaFuncSetAttribute(split_kernel<T, D, RW, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        cudaFuncSetAttribute(split_kernel<T, C, D, RW, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  split_kernel<T, D, RW, PAGED><<<dim3(p.Hkv, p.B, p.splits), SP_THREADS, smem, st>>>(p);
+  split_kernel<T, C, D, RW, PAGED><<<dim3(p.Hkv, p.B, p.splits), SP_THREADS, smem, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
   constexpr int PAIRS = 2;  // (row, q head) pairs per combine block, a warp each
@@ -398,21 +434,40 @@ cudaError_t split_launch(const SplitParams& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool PAGED>
+template <typename T, typename C, int D, bool PAGED>
 cudaError_t split_dispatch(const SplitParams& p, cudaStream_t st) {
   const int per_warp = ((p.Hq / p.Hkv) * p.K + SP_WARPS - 1) / SP_WARPS;
-  return per_warp <= 2 ? split_launch<T, D, 2, PAGED>(p, st) : split_launch<T, D, MAX_ROWS / SP_WARPS, PAGED>(p, st);
+  return per_warp <= 2 ? split_launch<T, C, D, 2, PAGED>(p, st)
+                       : split_launch<T, C, D, MAX_ROWS / SP_WARPS, PAGED>(p, st);
 }
 
+template <typename C, bool PAGED>
+cudaError_t code_dispatch(const SplitParams& p, int D, int dtype, cudaStream_t st) {
+  if (!p.k_scale || !p.v_scale || !(p.qmax > 0.f)) return cudaErrorInvalidValue;
+  if (dtype == kFloat32 && D == 64) return split_dispatch<float, C, 64, PAGED>(p, st);
+  if (dtype == kFloat32 && D == 128) return split_dispatch<float, C, 128, PAGED>(p, st);
+  if (dtype == kBFloat16 && D == 64) return split_dispatch<__nv_bfloat16, C, 64, PAGED>(p, st);
+  if (dtype == kBFloat16 && D == 128) return split_dispatch<__nv_bfloat16, C, 128, PAGED>(p, st);
+  return cudaErrorInvalidValue;
+}
+
+// dtype: q's and out's; cache_dtype: the caches' (equal, or 1-byte codes
+// with their scales: the code mode)
 template <bool PAGED>
-cudaError_t split_entry(const SplitParams& p, int D, int dtype, cudaStream_t st) {
+cudaError_t split_entry(const SplitParams& p, int D, int dtype, int cache_dtype, cudaStream_t st) {
   if (p.splits < 1 || p.splits > MAX_SPLITS || p.per <= 0 || p.per % 16 || (long long)(p.splits - 1) * p.per >= p.S_kv ||
       (long long)p.splits * p.per < p.S_kv || (p.splits > 1 && (!p.m_part || !p.l_part || !p.acc_part)))
     return cudaErrorInvalidValue;
-  if (dtype == kFloat32 && D == 64) return split_dispatch<float, 64, PAGED>(p, st);
-  if (dtype == kFloat32 && D == 128) return split_dispatch<float, 128, PAGED>(p, st);
-  if (dtype == kBFloat16 && D == 64) return split_dispatch<__nv_bfloat16, 64, PAGED>(p, st);
-  if (dtype == kBFloat16 && D == 128) return split_dispatch<__nv_bfloat16, 128, PAGED>(p, st);
+  if (cache_dtype == dtype) {
+    if (dtype == kFloat32 && D == 64) return split_dispatch<float, float, 64, PAGED>(p, st);
+    if (dtype == kFloat32 && D == 128) return split_dispatch<float, float, 128, PAGED>(p, st);
+    if (dtype == kBFloat16 && D == 64) return split_dispatch<__nv_bfloat16, __nv_bfloat16, 64, PAGED>(p, st);
+    if (dtype == kBFloat16 && D == 128) return split_dispatch<__nv_bfloat16, __nv_bfloat16, 128, PAGED>(p, st);
+    return cudaErrorInvalidValue;
+  }
+  if (cache_dtype == kInt8) return code_dispatch<int8_t, PAGED>(p, D, dtype, st);
+  if (cache_dtype == kFp8E4M3) return code_dispatch<Fp8E4M3, PAGED>(p, D, dtype, st);
+  if (cache_dtype == kFp8E5M2) return code_dispatch<Fp8E5M2, PAGED>(p, D, dtype, st);
   return cudaErrorInvalidValue;
 }
 
@@ -421,20 +476,25 @@ cudaError_t split_entry(const SplitParams& p, int D, int dtype, cudaStream_t st)
 
 // splits, per: the wrapper's kv split (ops/decode_attention.py::
 // decode_kv_split); m_part / l_part / acc_part: fp32 scratch of
-// splits * B * K * Hq (* D) values, unused (may be null) for one split.
+// splits * B * K * Hq (* D) values, unused (may be null) for one split;
+// cache_dtype: dtype, or an int8/fp8 code type, whose (L, Hkv) fp32
+// running scales k_scale / v_scale and qmax come with it (null and 0 for a
+// plain cache).
 extern "C" int nxdi_tkg_decode_attention(
     const void* q, const void* k_cache, const void* v_cache, const void* mask,
     const float* sink, void* out, float* m_part, float* l_part, float* acc_part,
     int B, int K, int Hq, int Hkv, int D, int L, int R, int S_max, int S_kv, int layer,
     int mask_sb, int mask_st, int splits, int per,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int cache_dtype, const float* k_scale, const float* v_scale, float qmax,
+    void* stream) {
   using namespace nxdi;
   if (B <= 0 || K <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * K > MAX_ROWS ||
       S_kv <= 0 || S_kv > S_max || B > R || layer < 0 || layer >= L)
     return (int)cudaErrorInvalidValue;
   SplitParams p{q, k_cache, v_cache, static_cast<const unsigned char*>(mask), sink, out, m_part, l_part, acc_part,
-                nullptr, B, K, Hq, Hkv, S_kv, layer, splits, per, R, S_max, 0, 0, 0, mask_sb, mask_st, scale};
-  return (int)split_entry<false>(p, D, dtype, static_cast<cudaStream_t>(stream));
+                nullptr, B, K, Hq, Hkv, S_kv, layer, splits, per, R, S_max, 0, 0, 0, mask_sb, mask_st, scale,
+                k_scale, v_scale, qmax};
+  return (int)split_entry<false>(p, D, dtype, cache_dtype, static_cast<cudaStream_t>(stream));
 }
 
 // B4: the same split over the table's MB * bs positions, bs 16 or 32; the
@@ -444,13 +504,14 @@ extern "C" int nxdi_paged_decode_attention(
     const float* sink, const int* block_table, void* out, float* m_part, float* l_part, float* acc_part,
     int B, int K, int Hq, int Hkv, int D, int L, int NB1, int bs, int MB, int layer,
     int mask_sb, int mask_st, int splits, int per,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int cache_dtype, const float* k_scale, const float* v_scale, float qmax,
+    void* stream) {
   using namespace nxdi;
   if (B <= 0 || K <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * K > MAX_ROWS ||
       MB <= 0 || NB1 <= 0 || layer < 0 || layer >= L || (bs != 16 && bs != 32))
     return (int)cudaErrorInvalidValue;
   SplitParams p{q, k_cache, v_cache, static_cast<const unsigned char*>(mask), sink, out, m_part, l_part, acc_part,
                 block_table, B, K, Hq, Hkv, MB * bs, layer, splits, per, 0, 0, NB1, MB, bs == 16 ? 4 : 5,
-                mask_sb, mask_st, scale};
-  return (int)split_entry<true>(p, D, dtype, static_cast<cudaStream_t>(stream));
+                mask_sb, mask_st, scale, k_scale, v_scale, qmax};
+  return (int)split_entry<true>(p, D, dtype, cache_dtype, static_cast<cudaStream_t>(stream));
 }

@@ -60,8 +60,10 @@ struct Smem {
         pos(reinterpret_cast<int*>(smem + BQ * (D + 1) + BKV * (D + 1) + BKV * D + BQ * (BKV + 1))) {}
 };
 
-// Attention of the block's BQ query rows over one block-table row. The
-// caller has filled sm.Qs and sm.pos and synchronised. On return thread
+// Attention of the block's BQ query rows over one block-table row, the
+// cache of element type T (bf16, fp32, or 1-byte int8/fp8 KV codes, each
+// converted to fp32 as it is loaded). The caller has filled sm.Qs and
+// sm.pos and synchronised. On return thread
 // (r, c) holds l_i[i] and acc[i][j] for query row r + RG * i, output column
 // c + CG * j.
 template <typename T, int D>

@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel neuronx_distributed_inference_tpu/ops/
 // paged_flash_attention.py::paged_flash_attention (_paged_kernel) for
-// bf16/fp32 caches.
+// bf16/fp32 caches and, in code mode, int8/fp8 code blocks with the
+// reference's k_scale / v_scale.
 //
 // What it computes: query token t of row b (position positions[b, t])
 // attends the row's paged cache at positions p <= positions[b, t] with
@@ -67,6 +68,14 @@
 // paged::attend of paged_attention_tile.cuh that the ragged kernel B3
 // shares; fp32 runs only in the parity checks, and TF32 products would
 // break their bound.
+//
+// Code mode (int8 / fp8 e4m3 / e5m2 code blocks): the wrapper folds the
+// layer's K factor scale / qmax into q in fp32 (the reference's k_scale)
+// and multiplies the fp32 output by the V factor (v_scale), so the kernel
+// is the fp32 path (paged_flash_kernel, paged::attend) over an fp32 q with
+// the cache read as 1-byte codes, each converted to fp32 in registers as
+// it is loaded into the block's fp32 K / V tile (exactly: int8 directly,
+// fp8 through half precision). No dequantized cache is written.
 //
 // No atomics: every sum runs in a fixed order, so results repeat bit for bit.
 //
@@ -138,7 +147,8 @@ cudaError_t launch_mma(const PagedFlashParams& p, int B, cudaStream_t stream) {
 // fp32: FMAs on the CUDA cores
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+// T: q and out; C: the cache (T, or 1-byte codes with T = float)
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(THREADS) paged_flash_kernel(const PagedFlashParams p) {
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
@@ -169,7 +179,7 @@ __global__ void __launch_bounds__(THREADS) paged_flash_kernel(const PagedFlashPa
   __syncthreads();
 
   float l_i[ROWS_T], acc[ROWS_T][D / paged::CG];
-  paged::attend<T, D>(sm, static_cast<const T*>(p.k), static_cast<const T*>(p.v),
+  paged::attend<C, D>(sm, static_cast<const C*>(p.k), static_cast<const C*>(p.v),
                       p.block_table + (long long)b * p.MB, g, p.Hkv, p.bs, p.NB1, limit, p.scale,
                       l_i, acc);
 
@@ -184,14 +194,21 @@ __global__ void __launch_bounds__(THREADS) paged_flash_kernel(const PagedFlashPa
   }
 }
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 cudaError_t launch(const PagedFlashParams& p, int B, cudaStream_t stream) {
-  cudaError_t err = paged::allow_smem<D>(paged_flash_kernel<T, D>);
+  cudaError_t err = paged::allow_smem<D>(paged_flash_kernel<T, C, D>);
   if (err != cudaSuccess) return err;
   const int tqp = BQ / (p.Hq / p.Hkv);
   const dim3 grid((p.Sq + tqp - 1) / tqp, p.Hkv, B);
-  paged_flash_kernel<T, D><<<grid, THREADS, paged::smem_bytes<D>(), stream>>>(p);
+  paged_flash_kernel<T, C, D><<<grid, THREADS, paged::smem_bytes<D>(), stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename C>
+cudaError_t launch_codes(const PagedFlashParams& p, int B, int D, cudaStream_t stream) {
+  if (D == 64) return launch<float, C, 64>(p, B, stream);
+  if (D == 128) return launch<float, C, 128>(p, B, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -201,7 +218,7 @@ extern "C" int nxdi_paged_flash_attention(
     const void* q, const void* k, const void* v, const int* block_table,
     const int* positions, const int* kv_limit, void* out,
     int B, int Sq, int Hq, int Hkv, int D, int NB1, int bs, int MB,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int cache_dtype, void* stream) {
   using namespace nxdi;
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || BQ % (Hq / Hkv) != 0 ||
       NB1 <= 0 || bs <= 0 || MB <= 0)
@@ -210,8 +227,14 @@ extern "C" int nxdi_paged_flash_attention(
                      Sq, Hq, Hkv, NB1, bs, MB, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == kFloat32 && D == 64) err = launch<float, 64>(p, B, st);
-  else if (dtype == kFloat32 && D == 128) err = launch<float, 128>(p, B, st);
+  if (cache_dtype != dtype) {
+    // code mode: an fp32 (folded) q over 1-byte code blocks
+    if (dtype != kFloat32) err = cudaErrorInvalidValue;
+    else if (cache_dtype == kInt8) err = launch_codes<int8_t>(p, B, D, st);
+    else if (cache_dtype == kFp8E4M3) err = launch_codes<Fp8E4M3>(p, B, D, st);
+    else if (cache_dtype == kFp8E5M2) err = launch_codes<Fp8E5M2>(p, B, D, st);
+  } else if (dtype == kFloat32 && D == 64) err = launch<float, float, 64>(p, B, st);
+  else if (dtype == kFloat32 && D == 128) err = launch<float, float, 128>(p, B, st);
   else if (dtype == kBFloat16 && D == 64) err = launch_mma<64>(p, B, st);
   else if (dtype == kBFloat16 && D == 128) err = launch_mma<128>(p, B, st);
   return (int)err;

@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel neuronx_distributed_inference_tpu/ops/
 // ragged_paged_attention.py::ragged_paged_attention (_ragged_kernel) for
-// bf16/fp32 caches.
+// bf16/fp32 caches and, in code mode, int8/fp8 code blocks with the
+// reference's k_scale / v_scale.
 //
 // What it computes: one launch for a serving step's prefill chunks AND
 // decode rows, their query tokens packed on one axis of T slots (T a
@@ -49,6 +50,12 @@
 //   head, head group) blocks: a function of the shapes and the card only.
 // - fp32 (parity checks only): the first version's FMA loop,
 //   paged_attention_tile.cuh attend (B5's fp32 path too), no split.
+// - Code mode (int8 / fp8 e4m3 / e5m2 code blocks): the wrapper folds the
+//   layer's K factor scale / qmax into q in fp32 (the reference's k_scale)
+//   and multiplies the fp32 output by the V factor (v_scale); the kernel is
+//   the fp32 route over that q with the cache read as 1-byte codes, each
+//   converted to fp32 in registers as attend() loads it into the block's
+//   fp32 K / V tile. No split, no dequantized cache written.
 // - A tile of no row writes zeros; so does a prefill tile's slot past its
 //   row's row_len. Block 0, any id outside [1, NB] and any position >=
 //   ctx_len[r] load as zeros (cp.async's zero fill in bf16): the fault
@@ -115,7 +122,8 @@ __device__ __forceinline__ int tile_owner(const RaggedParams& p, int t0) {
   return owner;
 }
 
-template <typename T, int D>
+// T: q and out; C: the cache (T, or 1-byte codes with T = float)
+template <typename T, typename C, int D>
 __global__ void __launch_bounds__(THREADS) ragged_paged_kernel(const RaggedParams p) {
   constexpr int LD = D + 1;
   extern __shared__ float smem[];
@@ -151,7 +159,7 @@ __global__ void __launch_bounds__(THREADS) ragged_paged_kernel(const RaggedParam
   __syncthreads();
 
   float l_i[ROWS_T], acc[ROWS_T][D / paged::CG];
-  paged::attend<T, D>(sm, static_cast<const T*>(p.k), static_cast<const T*>(p.v),
+  paged::attend<C, D>(sm, static_cast<const C*>(p.k), static_cast<const C*>(p.v),
                       p.block_table + (long long)(has ? row : 0) * p.MB, g, p.Hkv, p.bs, p.NB1,
                       limit, p.scale, l_i, acc);
 
@@ -390,13 +398,20 @@ __global__ void __launch_bounds__(THREADS) ragged_bf16_kernel(const RaggedParams
                       p.block_table + (long long)(has ? row : 0) * p.MB, g, p.Hkv, p.bs, p.NB1, limit, p.scale);
 }
 
-template <typename T, int D>
+template <typename T, typename C, int D>
 cudaError_t launch(const RaggedParams& p, cudaStream_t stream) {
-  cudaError_t err = paged::allow_smem<D>(ragged_paged_kernel<T, D>);
+  cudaError_t err = paged::allow_smem<D>(ragged_paged_kernel<T, C, D>);
   if (err != cudaSuccess) return err;
   const dim3 grid(p.tiles, p.Hkv, (p.Hq / p.Hkv) / p.HG);
-  ragged_paged_kernel<T, D><<<grid, THREADS, paged::smem_bytes<D>(), stream>>>(p);
+  ragged_paged_kernel<T, C, D><<<grid, THREADS, paged::smem_bytes<D>(), stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename C>
+cudaError_t launch_codes(const RaggedParams& p, int D, cudaStream_t stream) {
+  if (D == 64) return launch<float, C, 64>(p, stream);
+  if (D == 128) return launch<float, C, 128>(p, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <int D>
@@ -413,13 +428,14 @@ cudaError_t launch_bf16(const RaggedParams& p, cudaStream_t stream) {
 // ragged_decode_split; bf16 only, fp32 takes 1); m_part / l_part /
 // acc_part: fp32 scratch of splits * T / 16 * Hq (* D) values, counters:
 // T / 16 * Hkv * (n_rep / HG) completion counters, zero on entry and left
-// zero; both unused (may be null) for one split.
+// zero; both unused (may be null) for one split. cache_dtype: dtype, or an
+// int8/fp8 code type with an fp32 (folded) q and one split.
 extern "C" int nxdi_ragged_paged_attention(
     const void* q, const void* k, const void* v, const int* block_table,
     const int* row_start, const int* row_len, const int* ctx_len, void* out,
     float* m_part, float* l_part, float* acc_part, void* counters,
     int T, int R, int Hq, int Hkv, int HG, int D, int NB1, int bs, int MB, int splits, int per,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int cache_dtype, void* stream) {
   using namespace nxdi;
   if (T <= 0 || T % Q_TILE != 0 || R <= 0 || Hkv <= 0 || Hq % Hkv != 0 || HG <= 0 ||
       (Hq / Hkv) % HG != 0 || HG * Q_TILE > BQ || NB1 <= 0 || bs <= 0 || MB <= 0 || splits < 1 ||
@@ -430,8 +446,16 @@ extern "C" int nxdi_ragged_paged_attention(
   RaggedParams p{q, k, v, block_table, row_start, row_len, ctx_len, out, m_part, l_part, acc_part,
                  static_cast<unsigned*>(counters), R, Hq, Hkv, HG, NB1, bs, MB, splits, per, T / Q_TILE, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kFloat32 && splits == 1 && D == 64) return (int)launch<float, 64>(p, st);
-  if (dtype == kFloat32 && splits == 1 && D == 128) return (int)launch<float, 128>(p, st);
+  if (cache_dtype != dtype) {
+    // code mode: an fp32 (folded) q over 1-byte code blocks, one split
+    if (dtype != kFloat32 || splits != 1) return (int)cudaErrorInvalidValue;
+    if (cache_dtype == kInt8) return (int)launch_codes<int8_t>(p, D, st);
+    if (cache_dtype == kFp8E4M3) return (int)launch_codes<Fp8E4M3>(p, D, st);
+    if (cache_dtype == kFp8E5M2) return (int)launch_codes<Fp8E5M2>(p, D, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (dtype == kFloat32 && splits == 1 && D == 64) return (int)launch<float, float, 64>(p, st);
+  if (dtype == kFloat32 && splits == 1 && D == 128) return (int)launch<float, float, 128>(p, st);
   if (dtype == kBFloat16 && D == 64) return (int)launch_bf16<64>(p, st);
   if (dtype == kBFloat16 && D == 128) return (int)launch_bf16<128>(p, st);
   return (int)cudaErrorInvalidValue;

@@ -21,6 +21,12 @@ decode kernel. The ragged mixed serving
 step (:func:`mixed_forward`) packs prefill chunks and decode rows on one
 token axis and runs its attention through the B3 ragged kernel. The config
 tri-states turn the kernels off.
+
+An int8/fp8 ``kv_cache_dtype`` makes the cache's streams ``QuantizedKV``:
+the writes quantize in place, B1, B4, B5 and B3 run their code modes on
+the codes and the layer's scales, and B8 is not taken (it streams the cache
+in its storage dtype; B9 still is). Prefill attention (B2) attends the
+in-flight K/V and does not change.
 """
 
 from __future__ import annotations
@@ -47,7 +53,9 @@ from neuronx_distributed_inference_tpu_torch.modules.attention import (
 )
 from neuronx_distributed_inference_tpu_torch.modules.kvcache import (
     KVCache,
+    QuantizedKV,
     kv_batch_size,
+    layer_streams,
     read_cache_at_layer,
     slot_ids_from_seq_ids,
     update_cache_at_layer,
@@ -236,9 +244,13 @@ def paged_attend(
             paged_flash_attention,
         )
 
+        # a quantized cache hands the kernel this layer's code blocks and
+        # per-head factors (the reference's base.py:642-661)
+        k_l, v_l, ks, vs = layer_streams(k_cache, v_cache, layer_idx)
         return paged_flash_attention(
-            q, k_cache[layer_idx], v_cache[layer_idx], block_table, positions, kv_limit,
+            q, k_l, v_l, block_table, positions, kv_limit,
             scale=aspec.softmax_scale, n_rep=aspec.num_heads // aspec.num_kv_heads,
+            k_scale=ks, v_scale=vs,
         )
     if use_tkg(aspec):
         from neuronx_distributed_inference_tpu_torch.ops.decode_attention import (
@@ -264,15 +276,18 @@ def _plain_weight(entry) -> bool:
     )
 
 
-def _fused_attn_eligible(layer_params: dict, mask, spec: ModelSpec, cos) -> bool:
+def _fused_attn_eligible(layer_params: dict, mask, spec: ModelSpec, cos, k_cache) -> bool:
     """The layer-level conditions of the fused attention block B8 (the
     reference's ``_fused_attn_eligible``; the step-level ones, the
-    contiguous cache among them, come from :func:`run_decoder_layers`):
-    rmsnorm, a plain fused ``qkv_proj`` and ``o_proj``, full rotary, and the
-    gate of ``kernel_mode.use_fused_attn_block``."""
+    contiguous cache among them, come from :func:`run_decoder_layers`): a
+    plain cache (a quantized one takes B1's code mode: B8 streams the cache
+    in its storage dtype), rmsnorm, a plain fused ``qkv_proj`` and
+    ``o_proj``, full rotary, and the gate of
+    ``kernel_mode.use_fused_attn_block``."""
     sa = layer_params.get("self_attn", {})
     return (
-        spec.norm_type == "rmsnorm"
+        not isinstance(k_cache, QuantizedKV)
+        and spec.norm_type == "rmsnorm"
         and "qkv_proj" in sa
         and _plain_weight(sa["qkv_proj"])
         and _plain_weight(sa.get("o_proj"))
@@ -339,7 +354,7 @@ def decoder_layer(
     B8, which returns the new K/V for the scatter after it, and the MLP half
     as the fused block B9 (:func:`_decoder_layer_mlp`)."""
     aspec = spec.attn
-    if fused_ok and _fused_attn_eligible(layer_params, mask, spec, cos):
+    if fused_ok and _fused_attn_eligible(layer_params, mask, spec, cos, k_cache):
         from neuronx_distributed_inference_tpu_torch.ops.decode_block import fused_attn_block
 
         sa = layer_params["self_attn"]

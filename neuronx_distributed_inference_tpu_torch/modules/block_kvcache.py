@@ -1,6 +1,7 @@
 """Paged (block) KV cache and its host-side block allocator (counterpart of
-the reference's ``modules/block_kvcache.py``; the plain, unquantized layout
-only — int8/fp8 code blocks wait for ROADMAP A6).
+the reference's ``modules/block_kvcache.py``), plain or int8/fp8 code
+blocks (:class:`~modules.kvcache.QuantizedKV` streams whose (L, H_kv) scales
+are shared by the whole pool).
 
 Layout is HEAD-MAJOR ``(L, num_blocks+1, H_kv, block_size, D)``, as in the
 reference: one head's block is a contiguous ``(block_size, D)`` tile, which
@@ -12,7 +13,7 @@ Device side:
   block_size + offset), IN PLACE (the reference returns a new array);
 - reads gather a row's blocks through its ``block_table`` into a contiguous
   ``(B, MB * block_size, H_kv, D)`` view, with the gathered garbage blocks
-  zeroed (the NaN scrub).
+  zeroed (the NaN scrub); code blocks dequantize after the gather, to fp32.
 
 Host side: :class:`BlockAllocator` and :class:`PrefixCachingAllocator`
 manage the free pool, build slot mappings and block tables, and address
@@ -29,6 +30,14 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import (
+    QuantizedKV,
+    Stream,
+    _quantized_update,
+    dequantize_kv,
+    new_stream,
+)
 
 GARBAGE_BLOCK = 0  # block id 0 reserved for invalid-slot writes
 
@@ -47,10 +56,11 @@ def prefix_chain_keys(tokens: np.ndarray, block_size: int) -> List[bytes]:
 
 @dataclass
 class BlockKVCache:
-    """k/v: (L, num_blocks+1, H_kv, block_size, D) — head-major blocks."""
+    """k/v: (L, num_blocks+1, H_kv, block_size, D) — head-major blocks
+    (tensors, or QuantizedKV streams of that layout)."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: Stream
+    v: Stream
 
     @property
     def num_layers(self) -> int:
@@ -76,14 +86,15 @@ def init_block_cache(
 ) -> BlockKVCache:
     shape = (num_layers, num_blocks + 1, num_kv_heads, block_size, head_dim)
     return BlockKVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=new_stream(shape, dtype, device, num_layers, num_kv_heads),
+        v=new_stream(shape, dtype, device, num_layers, num_kv_heads),
     )
 
 
 def kv_block_bytes(num_layers: int, block_size: int, num_kv_heads: int, head_dim: int, dtype) -> int:
     """Bytes of K+V for ONE block across all layers, in the cache dtype —
-    what sizes the serving block pool."""
+    what sizes the serving block pool (an int8/fp8 pool of the same bytes
+    holds twice the bf16 blocks; the (L, H) scales are left out)."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     return int(2 * num_layers * num_kv_heads * block_size * head_dim * itemsize)
 
@@ -103,7 +114,11 @@ def update_block_cache_at_layer(
     here they are written to offset 0 of the garbage block 0 instead. Every
     read scrubs block 0 to zeros (:func:`read_block_cache_at_layer`, and the
     paged kernels), so what lands there is never read as valid — the same
-    design as the contiguous cache's garbage line."""
+    design as the contiguous cache's garbage line.
+
+    QuantizedKV streams quantize in this write; writes to a negative slot
+    or into the garbage block (an idle row's all-zero table) stay out of
+    the pool-wide scale."""
     bs = k_cache.shape[3]
     B, S = slot_mapping.shape
     slots = slot_mapping.reshape(B * S).to(torch.int64)
@@ -111,6 +126,12 @@ def update_block_cache_at_layer(
     blocks = torch.where(ok, slots // bs, GARBAGE_BLOCK)
     offs = torch.where(ok, slots % bs, 0)
     H, D = k_new.shape[2], k_new.shape[3]
+    if isinstance(k_cache, QuantizedKV):
+        valid = (slot_mapping >= 0) & (torch.div(slot_mapping, bs, rounding_mode="floor") != GARBAGE_BLOCK)
+        k_codes, v_codes = _quantized_update(k_cache, v_cache, k_new, v_new, layer_idx, valid)
+        k_cache.data[layer_idx][blocks, :, offs] = k_codes.reshape(B * S, H, D)
+        v_cache.data[layer_idx][blocks, :, offs] = v_codes.reshape(B * S, H, D)
+        return k_cache, v_cache
     # k_cache[layer] is (NB+1, H, bs, D); the two index tensors around the
     # head slice give one (B*S, H, D) scatter
     k_cache[layer_idx][blocks, :, offs] = k_new.reshape(B * S, H, D).to(k_cache.dtype)
@@ -143,7 +164,14 @@ def read_block_cache_at_layer(
     block 0, whose contents are whatever invalid-slot writes last put there,
     NaN from a poisoned co-batched row included. A masked probability is
     exactly 0, but 0 * NaN = NaN in the P·V product, so without the scrub
-    one row's NaN would reach every row through the shared block."""
+    one row's NaN would reach every row through the shared block. Code
+    blocks dequantize after the gather, to fp32."""
+    if isinstance(k_cache, QuantizedKV):
+        k_r, v_r = read_block_cache_at_layer(k_cache.data, v_cache.data, layer_idx, block_table)
+        return (
+            dequantize_kv(k_r, k_cache.scale[layer_idx]),
+            dequantize_kv(v_r, v_cache.scale[layer_idx]),
+        )
     B, MB = block_table.shape
     H, bs, D = k_cache.shape[2:]
     idx = block_table.to(torch.int64)

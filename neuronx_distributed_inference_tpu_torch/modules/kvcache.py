@@ -1,17 +1,27 @@
-"""Contiguous KV cache (counterpart of the reference's ``modules/kvcache.py``;
-the plain, unquantized layout only — ``QuantizedKV`` waits for ROADMAP A6).
+"""Contiguous KV cache (counterpart of the reference's ``modules/kvcache.py``).
 
 The cache is two stacked tensors ``k, v: (L, B+1, S_max, H_kv, D)``. Batch
 row ``b`` owns cache line ``b``; the extra line ``B`` is the garbage line
 that writes of invalid rows (seq_id -1, padded batch rows) land in, so they
 never touch live state. Unlike the reference's donated JAX arrays, the port
 updates the cache IN PLACE (``Tensor.__setitem__``).
+
+An int8/fp8 ``kv_cache_dtype`` makes each stream a :class:`QuantizedKV`:
+codes in the same layout plus an ``(L, H_kv)`` fp32 running absmax per
+(layer, kv head). A write bumps the layer's scale by the valid new values
+and quantizes them with the updated scale (:func:`_quantized_update`), so a
+decode step never re-reads the cache to rescale; earlier codes keep
+dequantizing as ``codes * scale / qmax`` with the grown scale. Codes AND
+scales are updated in place: a captured CUDA graph holds both addresses.
+Reads either dequantize after the slice (the plain paths) or hand the codes
+and the layer's factors to the decode kernels, which convert the codes in
+registers (``ops/decode_attention.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -22,12 +32,153 @@ GARBAGE_LINES = 1  # padding-zone lines for invalid seq_id writes
 PAD_POSITION_SENTINEL = -(1 << 30)
 
 
+_KV_QUANT_DTYPES = (torch.int8, torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def is_kv_quant_dtype(dtype) -> bool:
+    """True for cache storage dtypes that need codes + scales."""
+    return dtype in _KV_QUANT_DTYPES
+
+
+def kv_qmax(dtype) -> float:
+    """Largest magnitude of the code dtype: codes span [-qmax, qmax] and
+    dequantize as ``codes * scale / qmax`` (127, 448 or 57344)."""
+    if dtype == torch.int8:
+        return 127.0
+    return float(torch.finfo(dtype).max)
+
+
+@dataclass
+class QuantizedKV:
+    """One quantized cache stream: ``data`` holds int8/fp8 codes in the
+    layout the plain cache would use; ``scale`` is the (L, H_kv) fp32
+    running absmax per (layer, kv head) (x ~ codes * scale / qmax). Shape,
+    dtype and device proxy to ``data``, so layout code works on either."""
+
+    data: torch.Tensor
+    scale: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.data.shape
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def ndim(self) -> int:
+        return self.data.ndim
+
+    @property
+    def device(self):
+        return self.data.device
+
+
+Stream = Union[torch.Tensor, QuantizedKV]
+
+
+def quantize_kv_codes(x: torch.Tensor, scale: torch.Tensor, code_dtype) -> torch.Tensor:
+    """Quantize ``x`` (..., H, D) with the per-head absmax ``scale`` (H,):
+    symmetric, codes = clip(x * qmax / max(scale, 1e-8)), rounded half to
+    even for int8 and by the fp8 cast for fp8."""
+    qmax = kv_qmax(code_dtype)
+    s = torch.clamp(scale.float(), min=1e-8)
+    y = x.float() * (qmax / s)[..., :, None]
+    if code_dtype == torch.int8:
+        y = torch.round(y)
+    return torch.clamp(y, -qmax, qmax).to(code_dtype)
+
+
+def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Codes (..., H, D) with the per-head absmax ``scale`` (H,) -> fp32."""
+    factor = scale.float() / kv_qmax(codes.dtype)
+    return codes.float() * factor[..., :, None]
+
+
+def layer_dequant_factors(stream: QuantizedKV, layer_idx: int) -> torch.Tensor:
+    """Per-head factors scale / qmax (H,) of one layer: what the kernels
+    fold into q (K stream) and the output (V stream)."""
+    return stream.scale[layer_idx] / kv_qmax(stream.data.dtype)
+
+
+def layer_streams(k_cache: Stream, v_cache: Stream, layer_idx: int):
+    """One layer of both streams as the paged kernels take it: (k layer,
+    v layer, K factors, V factors), the factors (H,) scale / qmax for a
+    quantized cache and None for a plain one."""
+    if isinstance(k_cache, QuantizedKV):
+        return (k_cache.data[layer_idx], v_cache.data[layer_idx],
+                layer_dequant_factors(k_cache, layer_idx), layer_dequant_factors(v_cache, layer_idx))
+    return k_cache[layer_idx], v_cache[layer_idx], None, None
+
+
+def _quantized_update(k_stream: QuantizedKV, v_stream: QuantizedKV, k_new: torch.Tensor, v_new: torch.Tensor,
+                      layer_idx: int, valid: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Running-absmax scale update and quantization of one layer's K and V
+    writes (the reference's ``_quantized_update`` on each stream).
+
+    ``k_new`` / ``v_new`` (B, S, H, D) are the values about to be written;
+    ``valid`` (B, S) marks the writes that may raise the scale. Padded and
+    garbage writes and non-finite elements stay out of it: the scale is
+    shared by every row of the (layer, head) and only grows, so one
+    poisoned row's NaN would otherwise reach every row. Both streams go
+    through each step at once (stacked), which halves the step's kernels;
+    each keeps its own scale. ``scale[layer_idx]`` of each stream is updated
+    IN PLACE; returns the K and V codes, quantized with the updated scales."""
+    x = torch.stack([k_new, v_new]).float()  # (2, B, S, H, D)
+    # |x| over the valid, finite elements: masked and non-finite ones read 0
+    kept = torch.nan_to_num(x * valid[None, :, :, None, None], nan=0.0, posinf=0.0, neginf=0.0)
+    amax_new = torch.linalg.vector_norm(kept, ord=float("inf"), dim=(1, 2, 4))  # (2, H)
+    s = torch.maximum(torch.stack([k_stream.scale[layer_idx], v_stream.scale[layer_idx]]), amax_new)
+    codes = quantize_kv_codes(x, s[:, None, None], k_stream.data.dtype)
+    k_stream.scale[layer_idx].copy_(s[0])
+    v_stream.scale[layer_idx].copy_(s[1])
+    return codes[0], codes[1]
+
+
+def cache_nbytes(cache) -> int:
+    """Bytes of a cache's streams, codes plus scales for a quantized one."""
+    total = 0
+    for stream in (cache.k, cache.v):
+        for t in (stream.data, stream.scale) if isinstance(stream, QuantizedKV) else (stream,):
+            total += t.numel() * t.element_size()
+    return int(total)
+
+
+def zero_stream(stream: Stream) -> None:
+    """Zero a stream in place (codes and scales of a quantized one)."""
+    if isinstance(stream, QuantizedKV):
+        stream.data.zero_()
+        stream.scale.zero_()
+    else:
+        stream.zero_()
+
+
+def stream_ptrs(stream: Stream) -> tuple:
+    """The device addresses a stream lives at (a graph's binding)."""
+    if isinstance(stream, QuantizedKV):
+        return (stream.data.data_ptr(), stream.scale.data_ptr())
+    return (stream.data_ptr(),)
+
+
+def new_stream(shape, dtype, device, num_layers: int, num_heads: int) -> Stream:
+    """A zeroed stream: a QuantizedKV of codes and (L, H) fp32 scales for a
+    quantized dtype, else a plain tensor."""
+    if is_kv_quant_dtype(dtype):
+        return QuantizedKV(
+            data=torch.zeros(shape, dtype=dtype, device=device),
+            scale=torch.zeros((num_layers, num_heads), dtype=torch.float32, device=device),
+        )
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
 @dataclass
 class KVCache:
-    """Stacked per-layer KV buffers, k/v: (L, B+1, S_max, H_kv, D)."""
+    """Stacked per-layer KV buffers, k/v: (L, B+1, S_max, H_kv, D) tensors
+    or :class:`QuantizedKV` streams of that layout."""
 
-    k: torch.Tensor
-    v: torch.Tensor
+    k: Stream
+    v: Stream
 
 
 def kv_batch_size(cache: KVCache) -> int:
@@ -46,12 +197,13 @@ def init_cache(
     device,
 ) -> KVCache:
     """Zeroed stacked caches on ``device`` (no default: the caller names the
-    card or the CPU)."""
+    card or the CPU); a quantized ``dtype`` builds QuantizedKV streams with
+    zero scales."""
     rows = batch_size + GARBAGE_LINES
     shape = (num_layers, rows, max_len, num_kv_heads, head_dim)
     return KVCache(
-        k=torch.zeros(shape, dtype=dtype, device=device),
-        v=torch.zeros(shape, dtype=dtype, device=device),
+        k=new_stream(shape, dtype, device, num_layers, num_kv_heads),
+        v=new_stream(shape, dtype, device, num_layers, num_kv_heads),
     )
 
 
@@ -81,12 +233,22 @@ def update_cache_at_layer(
     index instead, so those writes are redirected here to position 0 of
     the garbage line, which no real row ever reads — the same effect,
     without a host sync on a data-dependent mask.
+
+    QuantizedKV streams quantize in this write: the scale's valid mask is
+    taken from the ORIGINAL positions and slots (in range, not the garbage
+    line), before the redirect, so padded writes never raise the scale.
     """
     garbage = k_cache.shape[1] - 1
     s_max = k_cache.shape[2]
     ok = (positions >= 0) & (positions < s_max)
     rows = torch.where(ok, slot_ids[:, None].expand_as(positions), garbage)
     pos = torch.where(ok, positions, 0)
+    if isinstance(k_cache, QuantizedKV):
+        valid = ok & (slot_ids != garbage)[:, None]
+        k_codes, v_codes = _quantized_update(k_cache, v_cache, k_new, v_new, layer_idx, valid)
+        k_cache.data[layer_idx, rows, pos] = k_codes
+        v_cache.data[layer_idx, rows, pos] = v_codes
+        return k_cache, v_cache
     k_cache[layer_idx, rows, pos] = k_new.to(k_cache.dtype)
     v_cache[layer_idx, rows, pos] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
@@ -99,7 +261,14 @@ def read_cache_at_layer(
     batch_size: int,
     bucket_len: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer's cache sliced to (batch, bucket): views, no copy."""
+    """One layer's cache sliced to (batch, bucket): views, no copy. A
+    quantized cache dequantizes after the slice, to fp32."""
+    if isinstance(k_cache, QuantizedKV):
+        k_r, v_r = read_cache_at_layer(k_cache.data, v_cache.data, layer_idx, batch_size, bucket_len)
+        return (
+            dequantize_kv(k_r, k_cache.scale[layer_idx]),
+            dequantize_kv(v_r, v_cache.scale[layer_idx]),
+        )
     return (
         k_cache[layer_idx, :batch_size, :bucket_len],
         v_cache[layer_idx, :batch_size, :bucket_len],

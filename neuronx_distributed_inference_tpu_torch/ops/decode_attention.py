@@ -28,8 +28,17 @@ stream (``_cuda.scratch``), so a call allocates only its output.
 
 :func:`tkg_decode_attention` and :func:`paged_tkg_decode_attention` launch
 the kernel for CUDA tensors and run their plain versions only for tensors
-on the CPU. The reference's int8/fp8 ``QuantizedKV`` mode is not ported
-yet (ROADMAP A6).
+on the CPU.
+
+Both take ``QuantizedKV`` streams (an int8/fp8 cache) as the reference's
+do, in the kernel's code mode: the kernel reads the 1-byte code tiles and
+converts them in registers, and reads the layer's running scales itself:
+each kv head's K factor ``scale / qmax`` multiplies its score scale (the
+reference folds it into q) and its V factor the finalized output, before
+the one rounding to q's dtype. A call stays one launch (and the combine).
+Code-mode launches count under :data:`CODE_KERNEL` and
+:data:`PAGED_CODE_KERNEL`. The plain versions dequantize after the slice
+or gather (``read_cache_at_layer`` / ``read_block_cache_at_layer``).
 """
 
 from __future__ import annotations
@@ -40,11 +49,14 @@ from typing import Optional
 
 import torch
 
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import QuantizedKV, kv_qmax
 from neuronx_distributed_inference_tpu_torch.ops import _cuda
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import launches_kernel
 
 KERNEL = "decode_attention"
 PAGED_KERNEL = "paged_decode_attention"
+CODE_KERNEL = "decode_attention_codes"  # B1 over an int8/fp8 cache
+PAGED_CODE_KERNEL = "paged_decode_attention_codes"  # B4 over int8/fp8 code blocks
 HEAD_DIMS = (64, 128)
 BLOCK_SIZES = (16, 32)  # B4: cache block sizes
 MAX_ROWS = 64  # n_rep * K query rows one block holds
@@ -53,6 +65,8 @@ MAX_KV_SPLITS = 32  # kv splits per (batch row, kv head)
 SPLIT_ALIGN = 16  # positions per split are a multiple of this
 KV_TILE = 64  # positions per staged tile
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the 1-byte KV code types (csrc/common.cuh DType)
+CODE_DTYPES = {torch.int8: 2, torch.float8_e4m3fn: 3, torch.float8_e5m2: 4}
 
 
 def decode_kv_split(S_kv: int, blocks: int, sms: int):
@@ -80,6 +94,19 @@ def _round_up(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
+def _code_streams(name: str, k_cache, v_cache):
+    """(k data, v data, quantized) of a call's caches; both streams must be
+    QuantizedKV of one code dtype, or both plain tensors."""
+    qk, qv = isinstance(k_cache, QuantizedKV), isinstance(v_cache, QuantizedKV)
+    if qk != qv:
+        raise ValueError(f"{name}: one QuantizedKV stream and one plain cache")
+    if not qk:
+        return k_cache, v_cache, False
+    if k_cache.dtype != v_cache.dtype or k_cache.dtype not in CODE_DTYPES:
+        raise ValueError(f"{name}: code dtypes {k_cache.dtype}/{v_cache.dtype} (int8 or fp8, both equal)")
+    return k_cache.data, v_cache.data, True
+
+
 def tkg_decode_attention_plain(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -92,7 +119,8 @@ def tkg_decode_attention_plain(
     n_kv: int,
 ) -> torch.Tensor:
     """Plain version: the bucket slice of the reference's native decode path
-    (``read_cache_at_layer``), ``repeat_kv`` and the masked softmax."""
+    (``read_cache_at_layer``, which dequantizes a QuantizedKV cache to
+    fp32), ``repeat_kv`` and the masked softmax."""
     from neuronx_distributed_inference_tpu_torch.modules.attention import (
         AttnSpec,
         attention_decode,
@@ -105,9 +133,10 @@ def tkg_decode_attention_plain(
     return attention_decode(q, k_r, v_r, mask, spec, sink)
 
 
-def _check_shared(name, q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink):
+def _check_shared(name, q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink, codes=False):
     """The checks B1 and B4 share: the caches' last dim is D, the query
-    rows fit one block, the layer exists, head_dim, dtypes and the sink."""
+    rows fit one block, the layer exists, head_dim, dtypes (the caches'
+    equal to q's, or ``codes``) and the sink."""
     B, K, Hq, D = q.shape
     L = k_cache.shape[0]
     if v_cache.shape != k_cache.shape or k_cache.shape[-1] != D or Hkv != n_kv:
@@ -124,15 +153,15 @@ def _check_shared(name, q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink):
         raise ValueError(f"{name}: layer {layer_idx} outside the cache's {L} layers")
     if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+    if q.dtype not in _DTYPE_CODES or (not codes and (k_cache.dtype != q.dtype or v_cache.dtype != q.dtype)):
         raise ValueError(f"{name}: dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype} (bf16 or fp32, all equal)")
     if sink is not None and tuple(sink.shape) != (Hq,):
         raise ValueError(f"{name}: sink {tuple(sink.shape)} != {(Hq,)}")
 
 
-def _check(q, k_cache, v_cache, layer_idx, mask, sink, n_kv):
+def _check(q, k_cache, v_cache, layer_idx, mask, sink, n_kv, codes):
     L, R, S_max, Hkv, _ = k_cache.shape
-    _check_shared("tkg_decode_attention", q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink)
+    _check_shared("tkg_decode_attention", q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink, codes)
     if mask.shape[-1] > S_max or q.shape[0] > R:
         raise ValueError(
             f"tkg_decode_attention: bucket {mask.shape[-1]} / batch {q.shape[0]} outside the cache "
@@ -174,7 +203,21 @@ def _split_parts(q, S_kv, Hkv, stream):
     return splits, per, [base, base + 4 * n, base + 8 * n]
 
 
-def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv):
+def _code_args(name, streams, Hkv):
+    """The C entry's code-mode arguments: the K and V streams' (L, Hkv)
+    fp32 running scales and the code type's qmax (none for a plain cache)."""
+    if streams is None:
+        return [None, None, 0.0]
+    k, v = streams
+    for x in (k.scale, v.scale):
+        if x.dtype != torch.float32 or not x.is_contiguous() or tuple(x.shape) != (k.shape[0], Hkv):
+            raise ValueError(f"{name}: scales {tuple(x.shape)} {x.dtype} != contiguous fp32 {(k.shape[0], Hkv)}")
+    return [k.scale.data_ptr(), v.scale.data_ptr(), kv_qmax(k.dtype)]
+
+
+def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv, streams=None):
+    """One launch over plain caches of q's dtype, or, with ``streams`` (the
+    two QuantizedKV), over their 1-byte codes ``k_cache`` / ``v_cache``."""
     B, K, Hq, D = q.shape
     L, R, S_max, Hkv, _ = k_cache.shape
     S_kv = mask.shape[-1]
@@ -184,7 +227,7 @@ def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv):
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _cuda.function(
         KERNEL, "nxdi_tkg_decode_attention",
-        [P] * 9 + [I] * 14 + [ctypes.c_float, I, P],
+        [P] * 9 + [I] * 14 + [ctypes.c_float, I, I, P, P, ctypes.c_float, P],
     )
     # the decode mask is usually a broadcast view (stride 0 over K): the
     # kernel reads it through its batch and token strides, without a copy
@@ -193,12 +236,19 @@ def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv):
         sink_f.data_ptr() if sink_f is not None else None, out.data_ptr(), *parts,
         B, K, Hq, Hkv, D, L, R, S_max, S_kv, int(layer_idx),
         mask.stride(0), mask.stride(2), splits, per,
-        float(scale), _DTYPE_CODES[q.dtype],
+        float(scale), _DTYPE_CODES[q.dtype], dtype_code(k_cache.dtype),
+        *_code_args("tkg_decode_attention", streams, Hkv),
         stream,
     )
-    _cuda.check(err, KERNEL)
-    _cuda.LAUNCHES[KERNEL] += 1
+    counter = KERNEL if streams is None else CODE_KERNEL
+    _cuda.check(err, counter)
+    _cuda.LAUNCHES[counter] += 1
     return out
+
+
+def dtype_code(dtype: torch.dtype) -> int:
+    """The C entries' code of a cache or q dtype (csrc/common.cuh DType)."""
+    return CODE_DTYPES[dtype] if dtype in CODE_DTYPES else _DTYPE_CODES[dtype]
 
 
 def tkg_decode_attention(
@@ -214,17 +264,19 @@ def tkg_decode_attention(
 ) -> torch.Tensor:
     """Decode attention straight off the stacked contiguous cache.
 
-    q (B, K, Hq, D); k/v cache (L, R, S_max, Hkv, D); mask (B, 1, K, S_kv)
-    bool with S_kv <= S_max; sink (Hq,) or None. Returns (B, K, Hq, D).
-    CUDA tensors launch the kernel (or raise on what it does not take); CPU
+    q (B, K, Hq, D); k/v cache (L, R, S_max, Hkv, D), plain or QuantizedKV
+    streams; mask (B, 1, K, S_kv) bool with S_kv <= S_max; sink (Hq,) or
+    None. Returns (B, K, Hq, D) in q's dtype. CUDA tensors launch the kernel
+    (its code mode for QuantizedKV) or raise on what it does not take; CPU
     tensors take the plain version."""
-    _check(q, k_cache, v_cache, layer_idx, mask, sink, n_kv)
-    tensors = [q, k_cache, v_cache, mask] + ([sink] if sink is not None else [])
+    k_t, v_t, codes = _code_streams("tkg_decode_attention", k_cache, v_cache)
+    _check(q, k_t, v_t, layer_idx, mask, sink, n_kv, codes)
+    tensors = [q, k_t, v_t, mask] + ([sink] if sink is not None else [])
     if not launches_kernel(*tensors):
         return tkg_decode_attention_plain(
             q, k_cache, v_cache, layer_idx, mask, sink, scale=scale, n_kv=n_kv
         )
-    return _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv)
+    return _launch(q, k_t, v_t, layer_idx, mask, sink, scale, n_kv, (k_cache, v_cache) if codes else None)
 
 
 # ---------------------------------------------------------------------------
@@ -246,7 +298,8 @@ def paged_tkg_decode_attention_plain(
 ) -> torch.Tensor:
     """Plain version: the reference's native paged decode path — the
     block-table gather with the garbage-block scrub
-    (``read_block_cache_at_layer``), ``repeat_kv`` and the masked softmax."""
+    (``read_block_cache_at_layer``, which dequantizes code blocks to fp32),
+    ``repeat_kv`` and the masked softmax."""
     from neuronx_distributed_inference_tpu_torch.modules.attention import (
         AttnSpec,
         attention_decode,
@@ -261,11 +314,11 @@ def paged_tkg_decode_attention_plain(
     return attention_decode(q, k_r, v_r, mask, spec, sink)
 
 
-def _check_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, n_kv):
+def _check_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, n_kv, codes):
     name = "paged_tkg_decode_attention"
     B = q.shape[0]
     L, NB1, Hkv, bs, _ = k_cache.shape
-    _check_shared(name, q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink)
+    _check_shared(name, q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink, codes)
     if block_table.dim() != 2 or block_table.shape[0] != B or block_table.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"{name}: block_table {tuple(block_table.shape)} {block_table.dtype} != int {(B, '*')}")
     width = block_table.shape[1] * bs
@@ -273,7 +326,7 @@ def _check_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, n_kv):
         raise ValueError(f"{name}: mask width {mask.shape[-1]} != {width} (MB * block size)")
 
 
-def _launch_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, scale, n_kv):
+def _launch_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, scale, n_kv, streams=None):
     B, K, Hq, D = q.shape
     L, NB1, Hkv, bs, _ = k_cache.shape
     if bs not in BLOCK_SIZES:
@@ -286,18 +339,20 @@ def _launch_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, scale
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _cuda.function(
         KERNEL, "nxdi_paged_decode_attention",
-        [P] * 10 + [I] * 14 + [ctypes.c_float, I, P],
+        [P] * 10 + [I] * 14 + [ctypes.c_float, I, I, P, P, ctypes.c_float, P],
     )
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), mask.data_ptr(),
         sink_f.data_ptr() if sink_f is not None else None, table.data_ptr(), out.data_ptr(), *parts,
         B, K, Hq, Hkv, D, L, NB1, bs, MB, int(layer_idx),
         mask.stride(0), mask.stride(2), splits, per,
-        float(scale), _DTYPE_CODES[q.dtype],
+        float(scale), _DTYPE_CODES[q.dtype], dtype_code(k_cache.dtype),
+        *_code_args("paged_tkg_decode_attention", streams, Hkv),
         stream,
     )
-    _cuda.check(err, PAGED_KERNEL)
-    _cuda.LAUNCHES[PAGED_KERNEL] += 1
+    counter = PAGED_KERNEL if streams is None else PAGED_CODE_KERNEL
+    _cuda.check(err, counter)
+    _cuda.LAUNCHES[counter] += 1
     return out
 
 
@@ -316,14 +371,18 @@ def paged_tkg_decode_attention(
     """Decode attention straight off the paged cache through the block
     table (no gather copy).
 
-    q (B, K, Hq, D); k/v cache (L, NB+1, Hkv, bs, D) head-major;
-    block_table (B, MB) int; mask (B, 1, K, MB * bs) bool; sink (Hq,) or
-    None. Returns (B, K, Hq, D). CUDA tensors launch the kernel (or raise on
-    what it does not take); CPU tensors take the plain version."""
-    _check_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, n_kv)
-    tensors = [q, k_cache, v_cache, block_table, mask] + ([sink] if sink is not None else [])
+    q (B, K, Hq, D); k/v cache (L, NB+1, Hkv, bs, D) head-major, plain or
+    QuantizedKV streams; block_table (B, MB) int; mask (B, 1, K, MB * bs)
+    bool; sink (Hq,) or None. Returns (B, K, Hq, D) in q's dtype. CUDA
+    tensors launch the kernel (its code mode for QuantizedKV) or raise on
+    what it does not take; CPU tensors take the plain version."""
+    k_t, v_t, codes = _code_streams("paged_tkg_decode_attention", k_cache, v_cache)
+    _check_paged(q, k_t, v_t, layer_idx, block_table, mask, sink, n_kv, codes)
+    tensors = [q, k_t, v_t, block_table, mask] + ([sink] if sink is not None else [])
     if not launches_kernel(*tensors):
         return paged_tkg_decode_attention_plain(
             q, k_cache, v_cache, layer_idx, block_table, mask, sink, scale=scale, n_kv=n_kv
         )
-    return _launch_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, scale, n_kv)
+    return _launch_paged(
+        q, k_t, v_t, layer_idx, block_table, mask, sink, scale, n_kv, (k_cache, v_cache) if codes else None
+    )

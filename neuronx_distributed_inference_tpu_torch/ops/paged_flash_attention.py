@@ -15,21 +15,31 @@ bases, which the wrapper checks) and the probabilities rounded to bf16 as
 the P.V operand; fp32 keeps the FMA loop. The source says why.
 
 :func:`paged_flash_attention` launches the kernel for CUDA tensors and runs
-:func:`paged_flash_attention_plain` only for tensors on the CPU. The
-reference's int8/fp8 ``k_scale``/``v_scale`` mode waits for ROADMAP A6.
+:func:`paged_flash_attention_plain` only for tensors on the CPU.
+
+An int8/fp8 cache layer comes with the layer's per-head factors
+``k_scale`` / ``v_scale`` (scale / qmax, (Hkv,)), as in the reference: the
+kernel's code mode takes q folded with ``k_scale`` in fp32, reads the
+1-byte code blocks and converts them in registers (its fp32 path), and
+``v_scale`` multiplies its fp32 output before the cast to q's dtype;
+launches count under :data:`CODE_KERNEL`. The plain version dequantizes
+after the gather.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from neuronx_distributed_inference_tpu_torch.ops import _cuda
+from neuronx_distributed_inference_tpu_torch.ops.decode_attention import CODE_DTYPES, dtype_code
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import launches_kernel
 
 NEG_INF = -1e30
 KERNEL = "paged_flash_attention"
+CODE_KERNEL = "paged_flash_attention_codes"  # over int8/fp8 code blocks
 HEAD_DIMS = (64, 128)
 Q_ROWS = 64  # query rows per kernel block: n_rep must divide it
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -45,18 +55,24 @@ def paged_flash_attention_plain(
     *,
     scale: float,
     n_rep: int,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version: gather the row's blocks (garbage block 0 read as
-    zeros), then a masked softmax with ``kv_pos <= q_pos & kv_pos <
-    kv_limit``, computed as the kernel's finalize does (masked probabilities
-    exactly 0, ``out = acc / max(l, 1e-30)``), so a row with no valid key is
-    zeros. Returns (B, Sq, Hq, D) in q's dtype."""
+    zeros; code blocks then dequantized with ``k_scale`` / ``v_scale``),
+    then a masked softmax with ``kv_pos <= q_pos & kv_pos < kv_limit``,
+    computed as the kernel's finalize does (masked probabilities exactly 0,
+    ``out = acc / max(l, 1e-30)``), so a row with no valid key is zeros.
+    Returns (B, Sq, Hq, D) in q's dtype."""
     from neuronx_distributed_inference_tpu_torch.modules.attention import repeat_kv
     from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import (
         read_block_cache_at_layer,
     )
 
     k_r, v_r = read_block_cache_at_layer(k_cache[None], v_cache[None], 0, block_table)
+    if k_scale is not None:
+        k_r = k_r.float() * k_scale.float()[:, None]
+        v_r = v_r.float() * v_scale.float()[:, None]
     kf = repeat_kv(k_r, n_rep).float()
     vf = repeat_kv(v_r, n_rep).float()
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
@@ -71,7 +87,7 @@ def paged_flash_attention_plain(
     return out.to(q.dtype)
 
 
-def _check(q, k_cache, v_cache, block_table, positions, kv_limit, n_rep):
+def _check(q, k_cache, v_cache, block_table, positions, kv_limit, n_rep, k_scale, v_scale):
     B, Sq, Hq, D = q.shape
     name = "paged_flash_attention"
     if k_cache.dim() != 4 or v_cache.shape != k_cache.shape or k_cache.shape[3] != D:
@@ -88,11 +104,20 @@ def _check(q, k_cache, v_cache, block_table, positions, kv_limit, n_rep):
             raise ValueError(f"{name}: {nm} must be an int tensor, got {t.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim {D} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: k_scale and v_scale come together")
+    if k_scale is not None:
+        if k_cache.dtype not in CODE_DTYPES or v_cache.dtype != k_cache.dtype or q.dtype not in _DTYPE_CODES:
+            raise ValueError(f"{name}: k_scale/v_scale need int8/fp8 code caches, got {k_cache.dtype}/{v_cache.dtype}")
+        if tuple(k_scale.shape) != (Hkv,) or tuple(v_scale.shape) != (Hkv,):
+            raise ValueError(f"{name}: k_scale/v_scale {tuple(k_scale.shape)}/{tuple(v_scale.shape)} != {(Hkv,)}")
+    elif q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise ValueError(f"{name}: dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype} (bf16 or fp32, all equal)")
 
 
-def _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep):
+def _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep, counter=KERNEL):
+    """One launch over plain cache blocks of q's dtype, or, with ``counter``
+    = CODE_KERNEL, over 1-byte code blocks with an fp32 (folded) q."""
     B, Sq, Hq, D = q.shape
     NB1, Hkv, bs, _ = k_cache.shape
     if Q_ROWS % n_rep:
@@ -109,16 +134,16 @@ def _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep)
     limit = kv_limit.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function(KERNEL, "nxdi_paged_flash_attention", [P] * 7 + [I] * 8 + [ctypes.c_float, I, P])
+    fn = _cuda.function(KERNEL, "nxdi_paged_flash_attention", [P] * 7 + [I] * 8 + [ctypes.c_float, I, I, P])
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), table.data_ptr(),
         pos.data_ptr(), limit.data_ptr(), out.data_ptr(),
         B, Sq, Hq, Hkv, D, NB1, bs, table.shape[1],
-        float(scale), _DTYPE_CODES[q.dtype],
+        float(scale), _DTYPE_CODES[q.dtype], dtype_code(k_cache.dtype),
         _cuda.stream_ptr(q.device),
     )
-    _cuda.check(err, KERNEL)
-    _cuda.LAUNCHES[KERNEL] += 1
+    _cuda.check(err, counter)
+    _cuda.LAUNCHES[counter] += 1
     return out
 
 
@@ -132,13 +157,22 @@ def paged_flash_attention(
     *,
     scale: float,
     n_rep: int,
+    k_scale: Optional[torch.Tensor] = None,  # (Hkv,) the layer's K factors scale / qmax
+    v_scale: Optional[torch.Tensor] = None,  # for int8/fp8 code blocks; None = plain cache
 ) -> torch.Tensor:
     """Prefix/chunked-prefill attention straight off the paged cache.
-    Returns (B, Sq, Hq, D). CUDA tensors launch the kernel (or raise on what
-    it does not take); CPU tensors take the plain version."""
-    _check(q, k_cache, v_cache, block_table, positions, kv_limit, n_rep)
-    if not launches_kernel(q, k_cache, v_cache, block_table, positions, kv_limit):
+    Returns (B, Sq, Hq, D) in q's dtype. CUDA tensors launch the kernel (its
+    code mode with ``k_scale``/``v_scale``) or raise on what it does not
+    take; CPU tensors take the plain version."""
+    _check(q, k_cache, v_cache, block_table, positions, kv_limit, n_rep, k_scale, v_scale)
+    scales = [k_scale, v_scale] if k_scale is not None else []
+    if not launches_kernel(q, k_cache, v_cache, block_table, positions, kv_limit, *scales):
         return paged_flash_attention_plain(
-            q, k_cache, v_cache, block_table, positions, kv_limit, scale=scale, n_rep=n_rep
+            q, k_cache, v_cache, block_table, positions, kv_limit, scale=scale, n_rep=n_rep,
+            k_scale=k_scale, v_scale=v_scale,
         )
-    return _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep)
+    if k_scale is None:
+        return _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep)
+    qf = (q.float() * k_scale.float().repeat_interleave(n_rep)[:, None]).contiguous()
+    out = _launch(qf, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep, CODE_KERNEL)
+    return (out * v_scale.float().repeat_interleave(n_rep)[:, None]).to(q.dtype)

@@ -22,24 +22,35 @@ bf16 the kernel routes each 16-slot tile by its row (:func:`tile_route`):
 a prefill tile runs on the tensor cores, rounding the probabilities to bf16
 for P.V as B5 does; a decode tile splits the row's kv axis over the grid
 (:func:`ragged_decode_split`) and combines the splits in the same launch.
-:func:`ragged_attention` is the decoder layer's dispatch. Not ported here:
-the int8/fp8 code mode (``k_scale``/``v_scale``, ROADMAP A6) and the tp>1
-``shard_map`` dispatch (``_dispatch_ragged_kernel``, ROADMAP A10).
+:func:`ragged_attention` is the decoder layer's dispatch.
+
+An int8/fp8 cache layer comes with the layer's per-head factors
+``k_scale`` / ``v_scale`` (scale / qmax, (Hkv,)), as in the reference: the
+kernel's code mode takes q folded with ``k_scale`` in fp32 and runs its
+fp32 route over the 1-byte code blocks (every tile through ``attend``, no
+split), converting the codes in registers; ``v_scale`` multiplies its fp32
+output before the cast to q's dtype. Launches count under
+:data:`CODE_KERNEL`. The plain version dequantizes after the gather. Not
+ported here: the tp>1 ``shard_map`` dispatch (``_dispatch_ragged_kernel``,
+ROADMAP A10).
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import layer_streams
 from neuronx_distributed_inference_tpu_torch.ops import _cuda
-from neuronx_distributed_inference_tpu_torch.ops.decode_attention import decode_kv_split
+from neuronx_distributed_inference_tpu_torch.ops.decode_attention import CODE_DTYPES, decode_kv_split, dtype_code
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import launches_kernel, use_ragged
 
 #: q-tile granularity of the packed layout: row starts align to it
 RAGGED_Q_TILE = 16
 KERNEL = "ragged_paged_attention"
+CODE_KERNEL = "ragged_paged_attention_codes"  # over int8/fp8 code blocks
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _BLOCK_HEADS = 4  # q heads of one kv head per kernel block (64 query rows / 16 slots)
@@ -72,17 +83,25 @@ def ragged_attention_native(
     aspec,
 ) -> torch.Tensor:
     """Plain version: gather each row's blocks into a contiguous view (block
-    0 read as zeros), route each packed token to its row, and run the plain
-    masked-softmax decode attention with the token axis as the batch — the
-    math of the split path's plain attention. A padded slot is a uniform
-    average over its row's (finite) gathered values. Returns (T, Hq, D)."""
-    from neuronx_distributed_inference_tpu_torch.modules.attention import attention_decode
+    0 read as zeros; QuantizedKV code blocks dequantized after the gather),
+    route each packed token to its row, and run the plain masked-softmax
+    decode attention with the token axis as the batch — the math of the
+    split path's plain attention. A padded slot is a uniform average over
+    its row's (finite) gathered values. Returns (T, Hq, D)."""
     from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import (
         read_block_cache_at_layer,
     )
 
-    T = q.shape[0]
     k_r, v_r = read_block_cache_at_layer(k_cache, v_cache, layer_idx, block_table)
+    return _attend_rows(q, k_r, v_r, positions, row_start, row_len, ctx_len, aspec)
+
+
+def _attend_rows(q, k_r, v_r, positions, row_start, row_len, ctx_len, aspec):
+    """The plain attention of the packed tokens over their rows' gathered
+    (R, W, Hkv, D) K/V. Returns (T, Hq, D)."""
+    from neuronx_distributed_inference_tpu_torch.modules.attention import attention_decode
+
+    T = q.shape[0]
     W = k_r.shape[1]
     _, row_id = packed_positions(T, row_start, row_len, ctx_len)
     k_tok = k_r[row_id]  # (T, W, Hkv, D)
@@ -94,19 +113,27 @@ def ragged_attention_native(
 
 
 def ragged_paged_attention_plain(
-    q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, *, scale: float, n_rep: int
+    q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, *, scale: float, n_rep: int,
+    k_scale=None, v_scale=None,
 ) -> torch.Tensor:
     """The kernel's plain version, with its arguments: the packed positions
-    from the descriptors, then :func:`ragged_attention_native` on this one
-    layer with an fp32 softmax. Returns (T, Hq, D)."""
+    from the descriptors, then :func:`ragged_attention_native`'s gather and
+    attention on this one layer with an fp32 softmax; code blocks are
+    dequantized after the gather with the factors ``k_scale`` /
+    ``v_scale``. Returns (T, Hq, D)."""
     from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec
+    from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import (
+        read_block_cache_at_layer,
+    )
 
     T, Hq, D = q.shape
     positions, _ = packed_positions(T, row_start, row_len, ctx_len)
     spec = AttnSpec(num_heads=Hq, num_kv_heads=Hq // n_rep, head_dim=D, scale=scale)
-    return ragged_attention_native(
-        q, k_layer[None], v_layer[None], 0, block_table, positions, row_start, row_len, ctx_len, spec
-    )
+    k_r, v_r = read_block_cache_at_layer(k_layer[None], v_layer[None], 0, block_table)
+    if k_scale is not None:
+        k_r = k_r.float() * k_scale.float()[:, None]
+        v_r = v_r.float() * v_scale.float()[:, None]
+    return _attend_rows(q, k_r, v_r, positions, row_start, row_len, ctx_len, spec)
 
 
 def _check(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, n_rep):
@@ -161,12 +188,18 @@ def ragged_decode_split(T: int, width: int, Hkv: int, n_rep: int, sms: int):
     return decode_kv_split(width, (T // RAGGED_Q_TILE) * Hkv * (n_rep // block_heads(n_rep)), sms)
 
 
-def _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale, n_rep):
+def _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale, n_rep, counter=KERNEL):
+    """One launch over plain cache blocks of q's dtype, or, with ``counter``
+    = CODE_KERNEL, over 1-byte code blocks with an fp32 (folded) q."""
     T, Hq, D = q.shape
     NB1, Hkv, bs, _ = k_layer.shape
+    codes = counter == CODE_KERNEL
     if D not in HEAD_DIMS:
         raise ValueError(f"{KERNEL}: head_dim {D} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODES or k_layer.dtype != q.dtype or v_layer.dtype != q.dtype:
+    if codes:
+        if q.dtype != torch.float32 or k_layer.dtype not in CODE_DTYPES or v_layer.dtype != k_layer.dtype:
+            raise ValueError(f"{KERNEL}: code mode dtypes {q.dtype}/{k_layer.dtype}/{v_layer.dtype}")
+    elif q.dtype not in _DTYPE_CODES or k_layer.dtype != q.dtype or v_layer.dtype != q.dtype:
         raise ValueError(f"{KERNEL}: dtypes {q.dtype}/{k_layer.dtype}/{v_layer.dtype} (bf16 or fp32, all equal)")
     if Hkv > 65535 or n_rep // block_heads(n_rep) > 65535:
         raise ValueError(f"{KERNEL}: grid too large for {Hkv} kv heads, n_rep {n_rep}")
@@ -191,15 +224,15 @@ def _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale
         counters = _cuda.counters(tiles, q.device, stream).data_ptr()
     out = torch.empty_like(q)
     P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function(KERNEL, "nxdi_ragged_paged_attention", [P] * 12 + [I] * 11 + [ctypes.c_float, I, P])
+    fn = _cuda.function(KERNEL, "nxdi_ragged_paged_attention", [P] * 12 + [I] * 11 + [ctypes.c_float, I, I, P])
     err = fn(
         q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), table.data_ptr(),
         rs.data_ptr(), rl.data_ptr(), cl.data_ptr(), out.data_ptr(), *parts, counters,
         T, rs.shape[0], Hq, Hkv, block_heads(n_rep), D, NB1, bs, MB, splits, per,
-        float(scale), _DTYPE_CODES[q.dtype], stream,
+        float(scale), _DTYPE_CODES[q.dtype], dtype_code(k_layer.dtype), stream,
     )
-    _cuda.check(err, KERNEL)
-    _cuda.LAUNCHES[KERNEL] += 1
+    _cuda.check(err, counter)
+    _cuda.LAUNCHES[counter] += 1
     return out
 
 
@@ -214,24 +247,33 @@ def ragged_paged_attention(
     *,
     scale: float,
     n_rep: int,
-    k_scale=None,
-    v_scale=None,
+    k_scale: Optional[torch.Tensor] = None,  # (Hkv,) the layer's K factors scale / qmax
+    v_scale: Optional[torch.Tensor] = None,  # for int8/fp8 code blocks; None = plain cache
 ) -> torch.Tensor:
     """Mixed prefill-chunk and decode attention off the paged cache in one
-    launch. Returns (T, Hq, D). CUDA tensors launch the kernel (or raise on
-    what it does not take); CPU tensors take the plain version. Padded slots
-    are exact zeros from the kernel and finite from the plain version."""
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "ragged paged attention over int8/fp8 code blocks (k_scale/v_scale) is "
-            "not ported to PyTorch yet (ROADMAP A6 (quantization))"
-        )
+    launch. Returns (T, Hq, D) in q's dtype. CUDA tensors launch the kernel
+    (its code mode with ``k_scale``/``v_scale``) or raise on what it does
+    not take; CPU tensors take the plain version. Padded slots are exact
+    zeros from the kernel and finite from the plain version."""
     _check(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, n_rep)
-    if launches_kernel(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len):
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{KERNEL}: k_scale and v_scale come together")
+    Hkv = k_layer.shape[1]
+    if k_scale is not None and (tuple(k_scale.shape) != (Hkv,) or tuple(v_scale.shape) != (Hkv,)):
+        raise ValueError(f"{KERNEL}: k_scale/v_scale {tuple(k_scale.shape)}/{tuple(v_scale.shape)} != {(Hkv,)}")
+    if k_scale is not None and (k_layer.dtype not in CODE_DTYPES or v_layer.dtype != k_layer.dtype):
+        raise ValueError(f"{KERNEL}: k_scale/v_scale need int8/fp8 code blocks, got {k_layer.dtype}/{v_layer.dtype}")
+    scales = [k_scale, v_scale] if k_scale is not None else []
+    if not launches_kernel(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, *scales):
+        return ragged_paged_attention_plain(
+            q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale=scale, n_rep=n_rep,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    if k_scale is None:
         return _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale, n_rep)
-    return ragged_paged_attention_plain(
-        q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale=scale, n_rep=n_rep
-    )
+    qf = (q.float() * k_scale.float().repeat_interleave(n_rep)[:, None]).contiguous()
+    out = _launch(qf, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale, n_rep, CODE_KERNEL)
+    return (out * v_scale.float().repeat_interleave(n_rep)[:, None]).to(q.dtype)
 
 
 def ragged_attention(
@@ -247,13 +289,16 @@ def ragged_attention(
     aspec,
 ) -> torch.Tensor:
     """The decoder layer's dispatch for the mixed step: the B3 kernel's
-    wrapper on this layer of the cache unless ``use_flash_kernel`` is False,
-    then the plain version over the stacked cache. Returns (1, T, Hq, D)."""
+    wrapper on this layer of the cache (a QuantizedKV cache's code blocks
+    with the layer's factors) unless ``use_flash_kernel`` is False, then the
+    plain version over the stacked cache. Returns (1, T, Hq, D)."""
     q3 = q[0]
     if use_ragged(aspec):
+        k_l, v_l, ks, vs = layer_streams(k_cache, v_cache, layer_idx)
         out = ragged_paged_attention(
-            q3, k_cache[layer_idx], v_cache[layer_idx], block_table, row_start, row_len, ctx_len,
+            q3, k_l, v_l, block_table, row_start, row_len, ctx_len,
             scale=aspec.softmax_scale, n_rep=aspec.num_heads // aspec.num_kv_heads,
+            k_scale=ks, v_scale=vs,
         )
     else:
         out = ragged_attention_native(

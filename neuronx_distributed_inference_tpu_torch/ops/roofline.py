@@ -4,7 +4,8 @@ bound).
     python -m neuronx_distributed_inference_tpu_torch.ops.roofline
 
 prints the bounds of B8 and B9 at their timed points (:data:`FUSED_POINTS`),
-the bounds of B3's two timed points, B6's bound at every
+the bounds of B3's two timed points and B1's at the long-context decode
+buckets (:data:`KVQ_BUCKETS`), each over a bf16 and an int8/fp8 cache, B6's bound at every
 projection of the int4 rows (:data:`QMM_POINTS`) with the whole decode
 step's weight bytes, and B7's bound at its timed points
 (:data:`MOE_POINTS`) with the Qwen3-30B-A3B decode step's weight bytes. The bound is the larger of two times: the bytes the
@@ -19,7 +20,7 @@ of the kernels from its own inputs with :func:`bound_ms` (B3's with
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 HBM_BYTES_PER_S = 3.35e12  # HBM3
 BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
@@ -27,6 +28,7 @@ BF16_FLOP_PER_S = 989e12  # dense bf16 tensor-core peak
 BF16 = 2  # bytes
 F32 = 4
 I32 = 4
+CODE = 1  # an int8/fp8 KV code
 
 #: the two Llama widths the bench rows run (the reference's
 #: analysis/device_model.py LLAMA_1B / LLAMA_8B)
@@ -49,13 +51,26 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float = BF16_FLOP_PER_S) ->
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_work(q_tokens: int, kv_positions: int, pairs: int, m: Dict[str, int]) -> Tuple[int, int]:
-    """Bytes and FLOPs of attention in bf16: q read and out written per
-    query token, K and V read once per cache position, 4 * D FLOPs per
-    allowed (query, key) pair per q head."""
-    nbytes = 2 * q_tokens * m["Hq"] * m["D"] * BF16 + 2 * kv_positions * m["Hkv"] * m["D"] * BF16
-    return nbytes, 4 * m["D"] * m["Hq"] * pairs
+def kv_factor_bytes(m: Dict[str, int], kv_elt: int) -> int:
+    """The (Hkv,) fp32 K and V dequant factors a call over 1-byte code
+    blocks reads (none for a plain cache)."""
+    return 2 * m["Hkv"] * F32 if kv_elt == CODE else 0
 
+
+def attention_work(q_tokens: int, kv_positions: int, pairs: int, m: Dict[str, int],
+                   kv_elt: int = BF16) -> Tuple[int, int]:
+    """Bytes and FLOPs of attention with bf16 q and out: q read and out
+    written per query token, K and V read once per cache position at
+    ``kv_elt`` bytes an element (CODE for an int8/fp8 cache, with its
+    factors), 4 * D FLOPs per allowed (query, key) pair per q head."""
+    nbytes = 2 * q_tokens * m["Hq"] * m["D"] * BF16 + 2 * kv_positions * m["Hkv"] * m["D"] * kv_elt
+    return nbytes + kv_factor_bytes(m, kv_elt), 4 * m["D"] * m["Hq"] * pairs
+
+
+#: the decode buckets of the long-context rows bf16_1b_8k(_kvq8) and
+#: bf16_1b_16k(_kvq8): an 8192 / 16384-token prompt and 32 new tokens in a
+#: cache of 8704 / 16896 positions, where the K/V reads dominate a step
+KVQ_BUCKETS = {"bf16_1b_8k": 8704, "bf16_1b_16k": 16896}
 
 RAGGED_Q_TILE = 16  # packed slots per q tile (ops/ragged_paged_attention.py)
 
@@ -71,22 +86,24 @@ RAGGED_POINTS = {
 
 
 def ragged_work(row_len, ctx_len, width: int, block_size: int, m: Dict[str, int] = MODEL_1B,
-                elt: int = BF16) -> Tuple[int, int]:
+                elt: int = BF16, kv_elt: Optional[int] = None) -> Tuple[int, int]:
     """B3's bytes and FLOPs for one launch: q read over the rows' real
     tokens only (a padded slot's output is zeros whatever its q holds), out
     written over all T packed slots (each row's segment rounded up to 16;
     every element is written), K and V read once per context position of
     each row, the (row_start, row_len, ctx_len) descriptors and the block
-    tables (int32); 4 * D FLOPs per allowed (query, key) pair per q head,
-    where a row of n new tokens over a context of c has
-    n (c - n) + n (n + 1) / 2 pairs."""
+    tables (int32), and with ``kv_elt`` = CODE (K and V as int8/fp8 codes;
+    default: ``elt``) the layer's factors; 4 * D FLOPs per allowed (query,
+    key) pair per q head, where a row of n new tokens over a context of c
+    has n (c - n) + n (n + 1) / 2 pairs."""
+    kv_elt = elt if kv_elt is None else kv_elt
     T = sum(-(-int(n) // RAGGED_Q_TILE) * RAGGED_Q_TILE for n in row_len)
     R = len(row_len)
     q_tokens = sum(int(n) for n in row_len)
     kv_positions = sum(int(c) for n, c in zip(row_len, ctx_len) if n > 0)
     pairs = sum(int(n) * (int(c) - int(n)) + int(n) * (int(n) + 1) // 2 for n, c in zip(row_len, ctx_len))
-    nbytes = (q_tokens + T) * m["Hq"] * m["D"] * elt + 2 * kv_positions * m["Hkv"] * m["D"] * elt
-    nbytes += 3 * R * I32 + R * (width // block_size) * I32
+    nbytes = (q_tokens + T) * m["Hq"] * m["D"] * elt + 2 * kv_positions * m["Hkv"] * m["D"] * kv_elt
+    nbytes += 3 * R * I32 + R * (width // block_size) * I32 + kv_factor_bytes(m, kv_elt)
     return nbytes, 4 * m["D"] * m["Hq"] * pairs
 
 
@@ -245,12 +262,20 @@ def main() -> None:
     print(f"| B7 | `fused_moe_decode` | qwen3 whole decode step, batch 1 | every layer and the lm head | {step:,} | "
           f"| {bound_ms(step, 0)[0]:.5f} (bytes) |")
     for name, pt in RAGGED_POINTS.items():
-        nbytes, flops = ragged_work(**pt)
-        ms, by = bound_ms(nbytes, flops)
-        print(
-            f"| B3 | `ragged_paged_attention` | serving_1b_int8_ragged | {name} point: row_len "
-            f"{list(pt['row_len'])}, ctx_len {list(pt['ctx_len'])}, bf16 | {nbytes:,} | {flops:,} | {ms:.5f} ({by}) |"
-        )
+        for kv_elt, kind in ((BF16, "bf16"), (CODE, "int8/fp8 KV codes")):
+            nbytes, flops = ragged_work(**pt, kv_elt=kv_elt)
+            ms, by = bound_ms(nbytes, flops)
+            print(
+                f"| B3 | `ragged_paged_attention` | serving_1b_int8_ragged | {name} point: row_len "
+                f"{list(pt['row_len'])}, ctx_len {list(pt['ctx_len'])}, {kind} | {nbytes:,} | {flops:,} | "
+                f"{ms:.5f} ({by}) |"
+            )
+    for label, bucket in KVQ_BUCKETS.items():
+        for kv_elt, kind in ((BF16, "bf16"), (CODE, "int8/fp8 KV codes")):
+            nbytes, flops = attention_work(1, bucket, bucket, MODEL_1B, kv_elt)
+            ms, by = bound_ms(nbytes, flops)
+            print(f"| B1 | `tkg_decode_attention` | {label}, batch 1 | one layer, bucket {bucket}, {kind} | "
+                  f"{nbytes:,} | {flops:,} | {ms:.5f} ({by}) |")
 
 
 if __name__ == "__main__":

@@ -41,7 +41,12 @@ from neuronx_distributed_inference_tpu_torch.models.base import (
 from neuronx_distributed_inference_tpu_torch.modules import autobucketing
 from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import guard_enabled
 from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import BlockKVCache
-from neuronx_distributed_inference_tpu_torch.modules.kvcache import PAD_POSITION_SENTINEL, KVCache
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import (
+    PAD_POSITION_SENTINEL,
+    KVCache,
+    cache_nbytes,
+    zero_stream,
+)
 from neuronx_distributed_inference_tpu_torch.modules.sampling import (
     prepare_sampling_params,
     validate_sampling_params,
@@ -196,13 +201,19 @@ class ModelForCausalLM:
 
     def init_kv_cache(self):
         """A zeroed cache: contiguous, or the paged block pool. An existing
-        cache is zeroed in place, so the graphs captured against it stay
-        valid."""
+        cache is zeroed in place (a quantized one's scales too), so the
+        graphs captured against it stay valid."""
         if self.kv_cache is not None:
-            self.kv_cache.k.zero_()
-            self.kv_cache.v.zero_()
+            zero_stream(self.kv_cache.k)
+            zero_stream(self.kv_cache.v)
             return
         self.kv_cache = self.builder.init_kv_cache()
+
+    @property
+    def kv_cache_nbytes(self) -> int:
+        """Device bytes of the KV cache: codes plus scales for an int8/fp8
+        cache (``modules/kvcache.cache_nbytes``)."""
+        return cache_nbytes(self.kv_cache)
 
     def warmup(self):
         """Run, and so capture, every bucket of both runners (the decode

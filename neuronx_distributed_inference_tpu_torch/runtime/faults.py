@@ -210,12 +210,22 @@ class FaultInjector:
 def fill_kv_rows(cache, row_ids, value: float):
     """Overwrite whole dim-1 rows (paged: block ids; contiguous: cache
     lines) of both streams of a KV cache with ``value``, across all layers,
-    IN PLACE (the reference returns a new cache). Returns the cache."""
+    IN PLACE (the reference returns a new cache). Returns the cache.
+    Quantized streams take only ``value == 0`` (zero codes dequantize to
+    exactly 0; NaN has no int8 code), and raise ValueError otherwise, as
+    the reference's do: a poison fault needs a float cache."""
     import torch
 
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import QuantizedKV
+
     idx = torch.as_tensor(np.asarray(row_ids, np.int64), device=cache.k.device)
-    cache.k[:, idx] = value
-    cache.v[:, idx] = value
+    if isinstance(cache.k, QuantizedKV) and value != 0:
+        raise ValueError(
+            "cannot write non-zero fill into a quantized KV stream "
+            "(int8/fp8 codes; poison faults need a float cache)"
+        )
+    for stream in (cache.k, cache.v):
+        (stream.data if isinstance(stream, QuantizedKV) else stream)[:, idx] = value
     return cache
 
 

@@ -73,8 +73,11 @@ class Graph:
 
 
 def binding(params, cache) -> Tuple:
-    """What a graph is bound to: the params object and the cache buffers."""
-    return (id(params), cache.k.data_ptr(), cache.v.data_ptr())
+    """What a graph is bound to: the params object and the cache buffers
+    (a quantized stream's codes and scales both)."""
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import stream_ptrs
+
+    return (id(params), *stream_ptrs(cache.k), *stream_ptrs(cache.v))
 
 
 class GraphSet:

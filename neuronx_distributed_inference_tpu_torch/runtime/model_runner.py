@@ -458,10 +458,16 @@ class SubModelRunner(_SealMixin):
         return inputs
 
     def _warm_decode(self, params, cache: Cache, bucket: int, generator=None) -> None:
+        """Build the bucket's one-step decode program. The reference warms
+        each bucket's step only, so this program's write goes where no live
+        state is: invalid seq ids send it to the contiguous cache's garbage
+        line (kept out of a quantized cache's scales), a zero block table to
+        the paged pool's garbage block. Warmup then ends on the reference's
+        cache and scales."""
         B = self.batch_size
         table = np.zeros((B, bucket // self.block_size), np.int32) if self.block_kv else None
         self.decode_chunk(
-            params, cache, np.zeros((B, 1), np.int32), np.zeros((B, 1), np.int32), np.arange(B, dtype=np.int32),
+            params, cache, np.zeros((B, 1), np.int32), np.zeros((B, 1), np.int32), np.full(B, -1, np.int32),
             prepare_sampling_params(B), num_steps=1, bucket=bucket, block_table=table, generator=generator,
         )
 

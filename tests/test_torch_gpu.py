@@ -247,3 +247,122 @@ def test_graphs_match_eager_serving(cuda_card, mode):
     got, got_counts = _counted(lambda: _serve(graph, prompts))
     assert got == want
     assert got_counts == want_counts
+
+
+# ---------------------------------------------------------------------------
+# the quantized KV cache: the code modes of B1, B4, B5 and B3
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_kv_code_modes_match_plain_on_the_card(cuda_card):
+    """Each code mode (int8, e4m3, e5m2) against its plain version in fp32
+    on the same codes and scales (chip_smoke.phase_kvq_parity): B1 at the 1B
+    shape, buckets 512 and 8704, batch 1 and 4, q_len 1 and 4, at 16896,
+    and at Qwen3's; B4 at blocks of 32 and 16; B1 and B4 with an fp32 q at
+    four shapes each; B5 after a prefix; B3 at both RAGGED_POINTS. Each case
+    launches its code mode three times (the check and two bit-identical
+    repeats) and no other kernel."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
+    from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
+    from neuronx_distributed_inference_tpu_torch.ops import ragged_paged_attention as rp
+
+    _cuda.reset_launch_counts()
+    n = chip_smoke.phase_kvq_parity(torch, da, pf, rp)
+    counts = _cuda.launch_counts()
+    per_code = {"decode_attention_codes": 14, "paged_decode_attention_codes": 6, "paged_flash_attention_codes": 1,
+                "ragged_paged_attention_codes": 2}
+    assert n == 3 * sum(per_code.values())
+    # B3's cases launch once more for the padded-slot check
+    want = {name: 3 * k * (4 if name == "ragged_paged_attention_codes" else 3) for name, k in per_code.items()}
+    assert {name: counts[name] for name in want} == want, counts
+    assert all(counts[name] == 0 for name in counts if name not in want), counts
+
+
+@pytest.mark.gpu
+def test_long_context_shapes_match_plain_on_the_card(cuda_card):
+    """The bf16 twins' kernels at the long-context rows' shapes
+    (chip_smoke.phase_long_context_parity): B1's bf16 mode at buckets 8704
+    and 16896 and B2 at 8192- and 16384-token prompts against their plain
+    versions, each launched three times."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
+    from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
+
+    _cuda.reset_launch_counts()
+    assert chip_smoke.phase_long_context_parity(torch, da, fa) == 4
+    counts = _cuda.launch_counts()
+    assert {n: c for n, c in counts.items() if c} == {"decode_attention": 6, "flash_attention": 6}, counts
+
+
+@pytest.mark.gpu
+def test_kv_codes_on_the_card_match_the_cpu(cuda_card):
+    """The card's casts give the CPU's codes byte for byte, rounding ties
+    included; NaN gives code 0 in int8 and 0x7F in e4m3 (the same as the
+    CPU stacks of both packages), a NaN code in e5m2."""
+    import numpy as np
+
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import quantize_kv_codes
+
+    rng = np.random.RandomState(0)
+    for dt, qmax in ((torch.int8, 127.0), (torch.float8_e4m3fn, 448.0), (torch.float8_e5m2, 57344.0)):
+        x = rng.randn(64, 2, 64).astype(np.float32) * qmax / 3
+        x[0, 0, :6] = [0.5, 1.5, -2.5, 1.0625, 1.125, qmax * 2]
+        x[0, 1, :3] = [np.nan, np.inf, -np.inf]
+        s = torch.full((2,), qmax)
+        cpu = quantize_kv_codes(torch.from_numpy(x), s, dt)
+        gpu = quantize_kv_codes(torch.from_numpy(x).cuda(), s.cuda(), dt).cpu()
+        nan = torch.isnan(cpu.float())  # int8 codes are never NaN
+        assert torch.equal(nan, torch.isnan(gpu.float()))
+        assert torch.equal(cpu.view(torch.uint8)[~nan], gpu.view(torch.uint8)[~nan])
+        nan_code = gpu.view(torch.uint8)[0, 1, 0].item()
+        if dt == torch.int8:
+            assert nan_code == 0
+        elif dt == torch.float8_e4m3fn:
+            assert nan_code == 0x7F
+        else:
+            assert nan[0, 1, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["generate", "split_1ahead", "ragged_sync"])
+def test_graphs_match_eager_kv_int8(cuda_card, mode):
+    """An int8 KV cache through captured graphs: byte-identical greedy
+    tokens, equal launch counts (the code modes' among them) and
+    bit-identical final (L, Hkv) scales against the same programs run
+    eagerly; the scales live at fixed addresses and are updated in place."""
+    import numpy as np
+
+    kw = dict(kv_cache_dtype="int8")
+    if mode != "generate":
+        kw.update(
+            is_continuous_batching=True, batch_size=4, is_block_kv_layout=True, pa_block_size=16, pa_num_blocks=96,
+            is_chunked_prefill=True, chunked_prefill_config=dict(max_num_seqs=2, kernel_q_tile_size=32),
+            async_mode=mode.endswith("1ahead"), serving_ragged=mode.startswith("ragged"),
+        )
+    eager, graph = _pair(**kw)
+    ptrs = (graph.kv_cache.k.scale.data_ptr(), graph.kv_cache.v.scale.data_ptr())
+    if mode == "generate":
+        ids, mask = _prompt_batch()
+        run = lambda app: app.generate(ids, mask, max_new_tokens=100).sequences  # noqa: E731
+        code = "decode_attention_codes"
+    else:
+        rng = np.random.RandomState(5)
+        prompts = [rng.randint(1, 256, size=n).tolist() for n in (40, 9, 77, 20, 33, 5)]
+        run = lambda app: _serve(app, prompts)  # noqa: E731
+        code = "ragged_paged_attention_codes" if mode.startswith("ragged") else "paged_decode_attention_codes"
+    want, want_counts = _counted(lambda: run(eager))
+    got, got_counts = _counted(lambda: run(graph))
+    if mode == "generate":
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert got == want
+    assert got_counts == want_counts and got_counts[code] > 0, got_counts
+    for s in ("k", "v"):
+        assert torch.equal(getattr(graph.kv_cache, s).scale, getattr(eager.kv_cache, s).scale)
+    assert (graph.kv_cache.k.scale.data_ptr(), graph.kv_cache.v.scale.data_ptr()) == ptrs

@@ -89,9 +89,6 @@ def test_default_device_is_cuda_and_cuda_without_a_card_raises(monkeypatch):
         (dict(tp_degree=2), "A10"),
         (dict(quantized_checkpoints_path="ckpt"), "A11"),
         (dict(quantized=True, quantized_checkpoints_path="ckpt"), "A11"),
-        (dict(kv_cache_dtype="int8"), "A6"),
-        (dict(kv_cache_dtype="fp8"), "A6"),
-        (dict(is_block_kv_layout=True, kv_cache_dtype="int8"), "A6"),
         (dict(serving_spec_ragged=True), "A7"),
         (dict(speculation_length=4), "A7"),
         (dict(lora_config={"max_loras": 1}), "A9"),

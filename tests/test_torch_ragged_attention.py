@@ -151,8 +151,10 @@ def test_wrapper_refuses_what_the_slice_does_not_take():
         _t(c[n]) for n in ("bt", "row_start", "row_len", "ctx_len")
     ]
     kw = dict(scale=0.125, n_rep=HQ // HKV)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(ValueError, match="code blocks"):
         trp.ragged_paged_attention(*args, **kw, k_scale=torch.ones(HKV), v_scale=torch.ones(HKV))
+    with pytest.raises(ValueError, match="together"):
+        trp.ragged_paged_attention(*args, **kw, k_scale=torch.ones(HKV))
     with pytest.raises(ValueError, match="multiple of 16"):
         trp.ragged_paged_attention(args[0][:15], *args[1:], **kw)
     with pytest.raises(ValueError, match="n_rep"):
