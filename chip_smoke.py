@@ -202,6 +202,18 @@ def time_ms(torch, fn, iters=40, warmup=5, spin=SPIN_CYCLES):
     return sum(s.elapsed_time(e) for s, e in zip(starts, ends)) / iters
 
 
+def graphed_ms(torch, fn):
+    """time_ms of ``fn`` captured once into a CUDA graph and replayed: the
+    device time of its kernels without the host's cost of launching them
+    one by one (a yardstick made of many small launches)."""
+    fn()  # warm: allocations and library handles outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(torch, graph.replay)
+
+
 def bound(nbytes, flops):
     """The card's least time for bf16 work (ops/roofline.py)."""
     from neuronx_distributed_inference_tpu_torch.ops.roofline import bound_ms
@@ -808,7 +820,7 @@ B5_KV_TILE = 64
 P_FLIP_ULPS = 128
 
 
-def paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, *, scale, n_rep, tile):
+def paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, *, scale, n_rep, tile, k_scale=None, v_scale=None):
     """paged_flash_attention_plain in fp32 with the probabilities rounded
     to bf16 before P.V (the kernel's one extra rounding, and the TPU MXU's
     at default precision), computed as B5's online softmax computes them:
@@ -818,10 +830,13 @@ def paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, *, scale, n_rep, 
     and shrinks l and the accumulator by 2^((m_old - m_new) log2e) at each
     tile. So p is rounded to bf16 relative to the running max, not the
     final one. With ``tile`` at least the context, m is the final max, as
-    in the plain version. Returns (out, flip), both (B, Sq, Hq, D) fp32:
-    ``flip`` is what the output moves by if every probability within
-    P_FLIP_ULPS of a bf16 rounding midpoint rounds the other way (one bf16
-    ulp each, shrunk and normalized as its term of the output)."""
+    in the plain version. Code blocks (k, v int8/fp8) come with their
+    (Hkv,) factors, as the code mode uses them: the raw scores are over the
+    codes (each a bf16 value), K's factor multiplies the score scale in
+    fp32, V's the normalized output. Returns (out, flip), both (B, Sq, Hq,
+    D) fp32: ``flip`` is what the output moves by if every probability
+    within P_FLIP_ULPS of a bf16 rounding midpoint rounds the other way
+    (one bf16 ulp each, shrunk and normalized as its term of the output)."""
     from neuronx_distributed_inference_tpu_torch.modules.attention import repeat_kv
     from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
 
@@ -831,8 +846,11 @@ def paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, *, scale, n_rep, 
     kv_pos = torch.arange(kf.shape[1], device=q.device)[None, None, None, :]
     mask = (kv_pos <= pos.to(torch.int64)[:, None, :, None]) & (kv_pos < lim.to(torch.int64)[:, None, None, None])
     log2e = torch.tensor(1.4426950408889634, dtype=torch.float32, device=q.device)
-    scale_t = torch.tensor(scale, dtype=torch.float32, device=q.device)
-    scale2 = (scale_t * log2e).double()
+    ones = torch.ones(s.shape[1], dtype=torch.float32, device=q.device)
+    k_f = ones if k_scale is None else k_scale.float().repeat_interleave(n_rep)
+    v_f = ones if v_scale is None else v_scale.float().repeat_interleave(n_rep)
+    scale_t = (torch.tensor(scale, dtype=torch.float32, device=q.device) * k_f)[None, :, None]  # (1, Hq, 1)
+    scale2 = (scale_t * log2e).double()[..., None]
     m = torch.full(s.shape[:-1], pf.NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros((*s.shape[:-1], vt.shape[-1]), dtype=torch.float32, device=q.device)
@@ -853,7 +871,8 @@ def paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, *, scale, n_rep, 
         flip = flip * alpha[..., None] + torch.where(near, ulp, 0.0) @ vs.abs()
         m = m_new
     denom = torch.clamp(l, min=1e-30)[..., None]
-    return (acc / denom).transpose(1, 2), (flip / denom).transpose(1, 2)
+    v_f = v_f[None, :, None, None]
+    return (acc / denom * v_f).transpose(1, 2), (flip / denom * v_f).transpose(1, 2)
 
 
 def exact_score_inputs(torch, q, k):
@@ -867,8 +886,12 @@ def exact_score_inputs(torch, q, k):
     return qq, kq
 
 
-def check_paged_flash(torch, pf, q, k, v, bt, pos, lim, kw, case, exact_scores=False):
-    """One B5 launch against its plain versions on the same inputs. fp32:
+def check_paged_flash(torch, pf, q, k, v, bt, pos, lim, kw, case, exact_scores=False, codes=None, factors=None):
+    """One B5 launch against its plain versions on the same inputs, then two
+    more launches that must be bit-identical. Over code blocks, ``codes``
+    are the kernel's scale kwargs (the layer's running scales and qmax,
+    as the model passes them) and ``factors`` the plain versions' (scale /
+    qmax); the launch must count once under the code mode. fp32:
     within check_close's bound of paged_flash_attention_plain. bf16, two
     parts: (1) against the plain version that rounds P to bf16 at P.V as
     the kernel does, relative to the running max of its kv tiles
@@ -882,31 +905,36 @@ def check_paged_flash(torch, pf, q, k, v, bt, pos, lim, kw, case, exact_scores=F
     (flash_tolerances) of the unchanged plain version. Only rows with a
     valid key are compared; kv_limit-0 rows must be exactly zero. Returns
     the max abs error against the unchanged plain version."""
-    out = pf.paged_flash_attention(q, k, v, bt, pos, lim, **kw)
-    ref = pf.paged_flash_attention_plain(q.float(), k.float(), v.float(), bt, pos, lim, **kw)
+    counter = "paged_flash_attention_codes" if codes else "paged_flash_attention"
+    kernel_kw, plain_kw = {**kw, **(codes or {})}, {**kw, **(factors or {})}
+    out = _code_launch(torch, counter, lambda: pf.paged_flash_attention(q, k, v, bt, pos, lim, **kernel_kw))
+    ref = pf.paged_flash_attention_plain(q.float(), k.float(), v.float(), bt, pos, lim, **plain_kw)
     torch.cuda.synchronize()
     if (out[lim == 0] != 0).any():
         raise SystemExit(f"paged_flash_attention: a kv_limit-0 row is not zero: {case}")
+    check_repeat(torch, counter, lambda: pf.paged_flash_attention(q, k, v, bt, pos, lim, **kernel_kw), case)
     # a query row has a valid key when its position and the limit allow one
     rows = (pos >= 0) & (lim[:, None] > 0)
     if q.dtype != torch.bfloat16:
-        return check_close(torch, out, ref, case, "paged_flash_attention", rows)
+        return check_close(torch, out, ref, case, counter, rows)
     if not torch.isfinite(out.float()).all():
         raise SystemExit(f"paged_flash_attention returned non-finite values: {case}")
     o = out.float()[rows]
-    r, flip = (t[rows] for t in paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, **kw, tile=B5_KV_TILE))
+    r, flip = (t[rows] for t in paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, **plain_kw,
+                                                         tile=B5_KV_TILE))
     diff = (o - r).abs()
     one = DECODE_ATOL + DECODE_RTOL_BF16 * r.abs()
     share_one = (diff / one).max().item()
     use = share_one if exact_scores else (diff / (one + flip)).max().item()
-    r_final = paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, **kw, tile=k.shape[2] * bt.shape[1])[0]
+    r_final = paged_flash_plain_bf16_p(torch, pf, q, k, v, bt, pos, lim, **plain_kw,
+                                       tile=k.shape[2] * bt.shape[1])[0]
     share_final = ((o - r_final[rows]).abs() / one).max().item()
     err = (out.float() - ref.float()).abs()[rows].max().item()
     tol = flash_tolerances(torch, q.dtype, False)[0]
     ok = use <= 1.0 and err <= tol
     bound = "" if exact_scores else f" + the flips of the p within {P_FLIP_ULPS} fp32 ulps of a bf16 midpoint"
     log(
-        f"  paged_flash_attention {case}: vs plain with bf16 P (running max, {B5_KV_TILE}-position tiles) max abs "
+        f"  {counter} {case}: vs plain with bf16 P (running max, {B5_KV_TILE}-position tiles) max abs "
         f"err {diff.max().item():.3e}, share of (atol {DECODE_ATOL:.0e} + rtol {DECODE_RTOL_BF16:.2e} x |plain|{bound}) "
         f"{use:.3f} (check_close's alone {share_one:.3f}; P rounded against the final max: {share_final:.3f}); "
         f"vs plain max abs err {err:.3e} (tol {tol:.1e}) {'ok' if ok else 'FAIL'}"
@@ -916,16 +944,30 @@ def check_paged_flash(torch, pf, q, k, v, bt, pos, lim, kw, case, exact_scores=F
     return err
 
 
+def paged_flash_rows(torch, rng, B, Sq, MB, bs, NB):
+    """B5's parity rows on the card: prefix + causal (starts 70, 0, 200,
+    3, 300), a kv_limit that is not a block multiple, and at batch 8
+    kv_limit-0 rows (inactive), within the table's MB * bs positions.
+    Returns (table, pos, lim) on the card."""
+    starts = np.array([70, 0, 0, 200, 0, 3, 300, 0][:B])
+    news = np.array([Sq, Sq, 0, 41, 0, Sq - 9, 77, 0][:B])  # new tokens; 0 = inactive
+    limits = np.where(news > 0, starts + news, 0)
+    if (limits > MB * bs).any():
+        limits = np.minimum(limits, MB * bs)
+        starts = np.minimum(starts, np.maximum(limits - news, 0))
+    table = paged_tables(rng, limits, MB, bs, NB)
+    pos = starts[:, None] + np.arange(Sq)[None, :]
+    return tuple(torch.from_numpy(a.astype(np.int32)).cuda() for a in (table, pos, limits))
+
+
 def phase_paged_flash_parity(torch, pf):
     """B5 at batch 1 and 8, block size 16 and 32, D 64 and 128, Hq 32 / Hkv 8,
     bf16 and fp32, Sq 128 (the serving row's chunk): prefix + causal, a
     kv_limit that is not a block multiple, zero-table tails, NaN in block 0
-    and, at batch 8, kv_limit 0 rows, which must be exactly zero; bf16
-    checked in two parts (check_paged_flash), on the random inputs and
-    again on exact-score inputs (exact_score_inputs); each case launched
-    twice, bit-identical."""
-    from neuronx_distributed_inference_tpu_torch.ops import _cuda
-
+    and, at batch 8, kv_limit 0 rows, which must be exactly zero
+    (paged_flash_rows); bf16 checked in two parts (check_paged_flash), on
+    the random inputs and again on exact-score inputs (exact_score_inputs);
+    each case launched twice, bit-identical."""
     rng = np.random.RandomState(4)
     worst, n = 0.0, 0
     Hq, Hkv, MB, Sq = 32, 8, 16, 128
@@ -934,30 +976,17 @@ def phase_paged_flash_parity(torch, pf):
             for dtype in (torch.bfloat16, torch.float32):
                 for B in (1, 8):
                     NB = MB * B + 4
-                    starts = np.array([70, 0, 0, 200, 0, 3, 300, 0][:B])
-                    news = np.array([Sq, Sq, 0, 41, 0, Sq - 9, 77, 0][:B])  # new tokens; 0 = inactive
-                    limits = np.where(news > 0, starts + news, 0)
-                    if (limits > MB * bs).any():
-                        limits = np.minimum(limits, MB * bs)
-                        starts = np.minimum(starts, np.maximum(limits - news, 0))
-                    table = paged_tables(rng, limits, MB, bs, NB)
+                    bt, pos, lim = paged_flash_rows(torch, rng, B, Sq, MB, bs, NB)
                     k, v = paged_pool(torch, rng, 1, NB, Hkv, bs, D, dtype)
                     k, v = k[0], v[0]
                     q = torch.from_numpy(rng.randn(B, Sq, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", dtype)
-                    pos = torch.from_numpy((starts[:, None] + np.arange(Sq)[None, :]).astype(np.int32)).cuda()
-                    lim = torch.from_numpy(limits.astype(np.int32)).cuda()
-                    bt = torch.from_numpy(table).cuda()
                     kw = dict(scale=D ** -0.5, n_rep=Hq // Hkv)
+                    limits = lim.cpu().numpy()
                     case = f"B={B} Sq={Sq} bs={bs} D={D} {str(dtype)[6:]} kv_limit {limits.tolist()}"
                     for exact in (False, True) if dtype == torch.bfloat16 else (False,):
                         qc, kc = exact_score_inputs(torch, q, k) if exact else (q, k)
                         what = f"{case}{', exact scores' if exact else ''}"
-                        before = _cuda.launch_counts()["paged_flash_attention"]
                         worst = max(worst, check_paged_flash(torch, pf, qc, kc, v, bt, pos, lim, kw, what, exact))
-                        if _cuda.launch_counts()["paged_flash_attention"] != before + 1:
-                            raise SystemExit(f"paged flash case did not launch B5: {what}")
-                        check_repeat(torch, "paged_flash_attention",
-                                     lambda: pf.paged_flash_attention(qc, kc, v, bt, pos, lim, **kw), what)
                         n += 1
     log(f"paged_flash_attention: {n} cases agree with the plain version, each bit-identical twice "
         f"(largest abs err {worst:.3e})")
@@ -1094,33 +1123,36 @@ def ragged_case(torch, rng, row_len, ctx_len, Hq, Hkv, D, bs, MB, dtype, NB=None
     return (q, k[0], v[0], table, *desc, pos >= 0)
 
 
-def ragged_plain_bf16_p(torch, rp, q, k, v, table, rs, rl, cl, *, scale, n_rep):
+def ragged_plain_bf16_p(torch, rp, q, k, v, table, rs, rl, cl, *, scale, n_rep, k_scale=None, v_scale=None):
     """B3's plain version for the slots of its tensor-core tiles (bf16 rows
     of more than one new token, ops/ragged_paged_attention.py::tile_route):
     B5's paged_flash_plain_bf16_p on each such row (its segment's queries at
     their positions over its table row, ctx_len the limit), P rounded to
     bf16 relative to the running max of B5_KV_TILE-position tiles as the
-    kernel rounds it. Returns (out, flip), (T, Hq, D) fp32, zero on other
-    slots."""
+    kernel rounds it; code blocks with their (Hkv,) factors, as B5's.
+    Returns (out, flip), (T, Hq, D) fp32, zero on other slots."""
     from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
 
     positions, _ = rp.packed_positions(q.shape[0], rs, rl, cl)
     out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     flip = torch.zeros_like(out)
     for r, (s0, n) in enumerate(zip(rs.tolist(), rl.tolist())):
-        if rp.tile_route(n, q.dtype) != "prefill":
+        if rp.tile_route(n, q.dtype, k.dtype) != "prefill":
             continue
         o, f = paged_flash_plain_bf16_p(
             torch, pf, q[s0 : s0 + n][None], k, v, table[r : r + 1], positions[s0 : s0 + n][None], cl[r : r + 1],
-            scale=scale, n_rep=n_rep, tile=B5_KV_TILE,
+            scale=scale, n_rep=n_rep, tile=B5_KV_TILE, k_scale=k_scale, v_scale=v_scale,
         )
         out[s0 : s0 + n], flip[s0 : s0 + n] = o[0], f[0]
     return out, flip
 
 
-def check_ragged(torch, rp, case_inputs, case, atol, exact_scores=False):
+def check_ragged(torch, rp, case_inputs, case, atol, exact_scores=False, codes=None, factors=None):
     """One B3 launch against its plain versions on the same values, then two
-    more launches that must be bit-identical. The padded slots must be exact
+    more launches that must be bit-identical. Over code blocks, ``codes``
+    are the kernel's scale kwargs and ``factors`` the plain versions' (as
+    check_paged_flash's), and the launch must count once under the code
+    mode. The padded slots must be exact
     zeros. Slots of fp32 launches and of decode tiles (tile_route): within
     check_close's one-rounding bound of the plain version in fp32. Slots of
     bf16 tensor-core tiles, as B5's (check_paged_flash): within that bound
@@ -1129,30 +1161,26 @@ def check_ragged(torch, rp, case_inputs, case, atol, exact_scores=False):
     probabilities within P_FLIP_ULPS of a bf16 midpoint on others; and
     within B2's bf16 tolerance (flash_tolerances) of the plain version.
     Returns the max abs error against the plain version."""
-    from neuronx_distributed_inference_tpu_torch.ops import _cuda
-
     q, k, v, table, rs, rl, cl, valid = case_inputs
     kw = dict(scale=q.shape[-1] ** -0.5, n_rep=q.shape[1] // k.shape[1])
-    before = _cuda.launch_counts()["ragged_paged_attention"]
-    out = rp.ragged_paged_attention(q, k, v, table, rs, rl, cl, **kw)
-    torch.cuda.synchronize()
-    if _cuda.launch_counts()["ragged_paged_attention"] != before + 1:
-        raise SystemExit(f"ragged case did not launch B3: {case}")
+    counter = "ragged_paged_attention_codes" if codes else "ragged_paged_attention"
+    kernel_kw, plain_kw = {**kw, **(codes or {})}, {**kw, **(factors or {})}
+    out = _code_launch(torch, counter, lambda: rp.ragged_paged_attention(q, k, v, table, rs, rl, cl, **kernel_kw))
     if (out[~valid] != 0).any():
         raise SystemExit(f"ragged_paged_attention: a padded slot is not exact zeros: {case}")
-    ref = rp.ragged_paged_attention_plain(q.float(), k.float(), v.float(), table, rs, rl, cl, **kw)
+    ref = rp.ragged_paged_attention_plain(q.float(), k.float(), v.float(), table, rs, rl, cl, **plain_kw)
     _, row_id = rp.packed_positions(q.shape[0], rs, rl, cl)
     mma = valid & torch.tensor(
-        [rp.tile_route(n, q.dtype) == "prefill" for n in rl.tolist()], device=q.device
+        [rp.tile_route(n, q.dtype, k.dtype) == "prefill" for n in rl.tolist()], device=q.device
     )[row_id]
     err = 0.0
     if (valid & ~mma).any():
-        err = check_close(torch, out, ref, f"{case}, fp32 FMA slots", "ragged_paged_attention", valid & ~mma, atol=atol)
+        err = check_close(torch, out, ref, f"{case}, fp32 FMA slots", counter, valid & ~mma, atol=atol)
     if mma.any():
         if not torch.isfinite(out.float()).all():
             raise SystemExit(f"ragged_paged_attention returned non-finite values: {case}")
         o = out.float()[mma]
-        r, flip = (t[mma] for t in ragged_plain_bf16_p(torch, rp, q, k, v, table, rs, rl, cl, **kw))
+        r, flip = (t[mma] for t in ragged_plain_bf16_p(torch, rp, q, k, v, table, rs, rl, cl, **plain_kw))
         diff = (o - r).abs()
         one = atol + DECODE_RTOL_BF16 * r.abs()
         share_one = (diff / one).max().item()
@@ -1162,7 +1190,7 @@ def check_ragged(torch, rp, case_inputs, case, atol, exact_scores=False):
         ok = use <= 1.0 and err_mma <= tol
         extra = "" if exact_scores else f" + the flips of the p within {P_FLIP_ULPS} fp32 ulps of a bf16 midpoint"
         log(
-            f"  ragged_paged_attention {case}, tensor-core slots: vs plain with bf16 P ({B5_KV_TILE}-position tiles) "
+            f"  {counter} {case}, tensor-core slots: vs plain with bf16 P ({B5_KV_TILE}-position tiles) "
             f"max abs err {diff.max().item():.3e}, share of (atol {atol:.0e} + rtol {DECODE_RTOL_BF16:.2e} x "
             f"|plain|{extra}) {use:.3f} (check_close's alone {share_one:.3f}); vs plain max abs err {err_mma:.3e} "
             f"(tol {tol:.1e}) {'ok' if ok else 'FAIL'}"
@@ -1170,8 +1198,7 @@ def check_ragged(torch, rp, case_inputs, case, atol, exact_scores=False):
         if not ok:
             raise SystemExit(f"ragged_paged_attention disagrees with its plain version: {case}")
         err = max(err, err_mma)
-    check_repeat(torch, "ragged_paged_attention", lambda: rp.ragged_paged_attention(q, k, v, table, rs, rl, cl, **kw),
-                 case)
+    check_repeat(torch, counter, lambda: rp.ragged_paged_attention(q, k, v, table, rs, rl, cl, **kernel_kw), case)
     return err
 
 
@@ -1238,12 +1265,41 @@ def phase_ragged_parity(torch, rp):
     return n
 
 
+def sdpa_per_row(torch, q, k_r, v_r, rs, rl, cl, width, n_rep):
+    """B3's library yardstick's operands: for each active row, its packed
+    queries, its gathered K / V (R, W, Hkv, D) with the kv heads repeated,
+    and its causal mask over the context, built beforehand."""
+    cols = torch.arange(width, device="cuda")
+    per_row = []
+    for r, (s0, n, c) in enumerate(zip(rs.tolist(), rl.tolist(), cl.tolist())):
+        if n:
+            qpos = torch.arange(c - n, c, device="cuda")
+            per_row.append((
+                q[s0 : s0 + n].transpose(0, 1)[None],
+                k_r[r].transpose(0, 1).repeat_interleave(n_rep, dim=0)[None],
+                v_r[r].transpose(0, 1).repeat_interleave(n_rep, dim=0)[None],
+                ((cols[None, :] <= qpos[:, None]) & (cols[None, :] < c))[None, None],
+            ))
+    return per_row
+
+
+def sdpa_per_row_ms(torch, F, per_row):
+    """(eager, graphed) ms of one F.scaled_dot_product_attention per row:
+    eager, the host's launches bound it (a dozen calls); replayed from a
+    CUDA graph (graphed_ms), the device's work alone, the yardstick."""
+    def run():
+        return [F.scaled_dot_product_attention(a, b, c, attn_mask=m) for a, b, c, m in per_row]
+
+    return time_ms(torch, run), graphed_ms(torch, run)
+
+
 def phase_ragged_times(torch, rp):
     """B3 at the serving row's two points (roofline.RAGGED_POINTS), held to
     its plain version first, beside the plain version, the bound for this
     run's inputs, and a library yardstick: F.scaled_dot_product_attention
     per active row on K/V gathered beforehand with a mask built beforehand
-    (neither timed)."""
+    (neither timed), replayed from a CUDA graph (device time; the eager
+    loop's host-bound time printed beside it)."""
     import torch.nn.functional as F
 
     from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
@@ -1262,21 +1318,10 @@ def phase_ragged_times(torch, rp):
         err = check_ragged(torch, rp, inputs, f"timed serving {name} point, bf16", DECODE_ATOL)
         kw = dict(scale=0.125, n_rep=4)
         k_r, v_r = read_block_cache_at_layer(k[None], v[None], 0, table)
-        cols = torch.arange(width, device="cuda")
-        per_row = []
-        for r, (s0, n, c) in enumerate(zip(rs.tolist(), rl.tolist(), cl.tolist())):
-            if n == 0:
-                continue
-            qpos = torch.arange(c - n, c, device="cuda")
-            per_row.append((
-                q[s0 : s0 + n].transpose(0, 1)[None],
-                k_r[r].transpose(0, 1).repeat_interleave(4, dim=0)[None],
-                v_r[r].transpose(0, 1).repeat_interleave(4, dim=0)[None],
-                ((cols[None, :] <= qpos[:, None]) & (cols[None, :] < c))[None, None],
-            ))
+        per_row = sdpa_per_row(torch, q, k_r, v_r, rs, rl, cl, width, 4)
         ms = time_ms(torch, lambda: rp.ragged_paged_attention(q, k, v, table, rs, rl, cl, **kw))
         plain_ms = time_ms(torch, lambda: rp.ragged_paged_attention_plain(q, k, v, table, rs, rl, cl, **kw))
-        lib_ms = time_ms(torch, lambda: [F.scaled_dot_product_attention(a, b, c, attn_mask=m) for a, b, c, m in per_row])
+        eager_ms, lib_ms = sdpa_per_row_ms(torch, F, per_row)
         nbytes, flops = ragged_work(
             rl.tolist(), cl.tolist(), width, bs, dict(Hq=q.shape[1], Hkv=k.shape[1], D=q.shape[2]), q.element_size()
         )
@@ -1288,8 +1333,8 @@ def phase_ragged_times(torch, rp):
         log(
             f"ragged_paged_attention {name} point (row_len {list(pt['row_len'])}, ctx_len {list(pt['ctx_len'])}, "
             f"bs={bs} width={width} Hq=32 Hkv=8 D=64 bf16; decode tiles in {splits} splits of {per}): "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa per row {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}"
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa per row replayed from a graph {lib_ms:.4f} ms "
+            f"(eager, host-bound: {eager_ms:.4f}), bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}"
         )
         del k_r, v_r, per_row
     return rows
@@ -3441,7 +3486,8 @@ def graph_pair(torch, label, make_app, run, profile=None, warm_pass=False, profi
     )
     if profile is not None and not profile_off:
         line += (f"; graphed run: host {on['decode_step_ms']:.3f} ms/step, device busy {on['device_busy_ms']:.3f} "
-                 f"ms/step (share {on['device_busy_frac']:.3f}), {on['kernels_per_step']:.0f} kernels per step")
+                 f"ms/step (share {on['device_busy_frac']:.3f}), {on['kernels_per_step']:.0f} kernels per step, "
+                 f"cudaGraphLaunch {on['launch_api']['cudaGraphLaunch'][0]:.3f} ms/step")
     elif profile is not None:
         api = lambda r, n: r["launch_api"][n][0]  # noqa: E731
         line += (
@@ -3731,12 +3777,35 @@ def kvq_paged_decode_case(torch, rng, code, bs, ctx=192, B=8, Hq=32, Hkv=8, D=64
     return q, kq, vq, table, token_gen_mask(attn, K)
 
 
-def kvq_chunk_case(torch, rng, code, prefix=64, Sq=128, B=8, Hq=32, Hkv=8, D=64, bs=32, width=1024, NB=512):
-    """B5's inputs: B rows prefilling Sq new tokens after a ``prefix``-token
-    prefix (positions prefix .. prefix + Sq - 1, kv_limit prefix + Sq), one
-    layer of a quantized pool with 0x7F in block 0 and its factors."""
-    from neuronx_distributed_inference_tpu_torch.modules.kvcache import layer_dequant_factors
+def code_kwargs(kq, vq, layer=0):
+    """(codes, factors) of one layer of two QuantizedKV streams: the code
+    mode's scale kwargs as the model passes them (views of the layer's
+    running scales, the code type's qmax: the kernel divides on the device)
+    and the plain versions' factors scale / qmax."""
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import kv_qmax, layer_dequant_factors
 
+    codes = dict(k_scale=kq.scale[layer], v_scale=vq.scale[layer], kv_qmax=kv_qmax(kq.dtype))
+    return codes, dict(k_scale=layer_dequant_factors(kq, layer), v_scale=layer_dequant_factors(vq, layer))
+
+
+def code_exact_scores(torch, q, kc):
+    """exact_score_inputs over code blocks: q rounded to quarters (|q| <=
+    12); int8 codes as they are (integers, |k| <= 127), fp8 codes rounded to
+    eighths (|k| <= 24; the nearest fp8 value of an eighth is an eighth);
+    block 0 keeps 0x7F. Every product is a multiple of 2^-5 and every Q.K^T
+    sum stays below 2^24 of them, so the raw scores are exact in fp32 in any
+    order, the kernel's and the plain version's alike."""
+    qq = (q.float() * 4).round().clamp(-48, 48).div(4).to(q.dtype)
+    kq = kc.clone() if kc.dtype == torch.int8 else (kc.float() * 8).round().clamp(-24, 24).div(8).to(kc.dtype)
+    kq.view(torch.uint8)[0] = 0x7F
+    return qq, kq
+
+
+def kvq_chunk_case(torch, rng, code, prefix=64, Sq=128, B=8, Hq=32, Hkv=8, D=64, bs=32, width=1024, NB=512):
+    """B5's timed inputs: B rows prefilling Sq new tokens after a
+    ``prefix``-token prefix (positions prefix .. prefix + Sq - 1, kv_limit
+    prefix + Sq), one layer of a quantized pool with 0x7F in block 0, bf16
+    q, and code_kwargs."""
     MB = width // bs
     table = torch.from_numpy(paged_tables(rng, [prefix + Sq] * B, MB, bs, NB)).cuda()
     kq = code_stream(torch, rng, (1, NB + 1, Hkv, bs, D), 1, Hkv, code, garbage_block=True)
@@ -3744,21 +3813,33 @@ def kvq_chunk_case(torch, rng, code, prefix=64, Sq=128, B=8, Hq=32, Hkv=8, D=64,
     q = torch.from_numpy(rng.randn(B, Sq, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", torch.bfloat16)
     pos = (prefix + torch.arange(Sq, device="cuda", dtype=torch.int32))[None, :].expand(B, Sq).contiguous()
     lim = torch.full((B,), prefix + Sq, device="cuda", dtype=torch.int32)
-    return q, kq.data[0], vq.data[0], table, pos, lim, layer_dequant_factors(kq, 0), layer_dequant_factors(vq, 0)
+    return (q, kq.data[0], vq.data[0], table, pos, lim, *code_kwargs(kq, vq))
 
 
-def kvq_ragged_case(torch, rng, code, row_len, ctx_len, bs, width, Hq=32, Hkv=8, D=64, NB=512):
+def kvq_flash_case(torch, rng, code, D, bs, q_dtype, B=8, Sq=128, Hq=32, Hkv=8, MB=16):
+    """B5's parity inputs over code blocks: phase_paged_flash_parity's rows
+    (paged_flash_rows: prefix + causal, kv_limit-0 rows) over one layer of a
+    quantized pool with 0x7F in block 0, q in ``q_dtype``, and code_kwargs."""
+    NB = MB * B + 4
+    bt, pos, lim = paged_flash_rows(torch, rng, B, Sq, MB, bs, NB)
+    kq = code_stream(torch, rng, (1, NB + 1, Hkv, bs, D), 1, Hkv, code, garbage_block=True)
+    vq = code_stream(torch, rng, (1, NB + 1, Hkv, bs, D), 1, Hkv, code, garbage_block=True)
+    q = torch.from_numpy(rng.randn(B, Sq, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", q_dtype)
+    return (q, kq.data[0], vq.data[0], bt, pos, lim, *code_kwargs(kq, vq))
+
+
+def kvq_ragged_case(torch, rng, code, row_len, ctx_len, bs, width, Hq=32, Hkv=8, D=64, NB=512, q_dtype=None):
     """B3's inputs: ragged_case's packing over one layer of a quantized pool
-    with 0x7F in block 0, and its factors; bf16 q."""
-    from neuronx_distributed_inference_tpu_torch.modules.kvcache import layer_dequant_factors
-
+    with 0x7F in block 0, q in ``q_dtype`` (bf16 by default), and
+    code_kwargs: (q, k, v, table, row_start, row_len, ctx_len, valid
+    slots), codes, factors."""
+    NB = NB or sum(-(-c // bs) for c in ctx_len) + 4
     q, _, _, table, rs, rl, cl, valid = ragged_case(
         torch, rng, list(row_len), list(ctx_len), Hq, Hkv, D, bs, width // bs, torch.float32, NB=NB
     )
     kq = code_stream(torch, rng, (1, NB + 1, Hkv, bs, D), 1, Hkv, code, garbage_block=True)
     vq = code_stream(torch, rng, (1, NB + 1, Hkv, bs, D), 1, Hkv, code, garbage_block=True)
-    return (q.to(torch.bfloat16), kq.data[0], vq.data[0], table, rs, rl, cl, valid,
-            layer_dequant_factors(kq, 0), layer_dequant_factors(vq, 0))
+    return (q.to(q_dtype or torch.bfloat16), kq.data[0], vq.data[0], table, rs, rl, cl, valid), *code_kwargs(kq, vq)
 
 
 #: fp32 q over a code cache (an fp32 model with an int8/fp8 KV cache): B1
@@ -3773,9 +3854,17 @@ def phase_kvq_parity(torch, da, pf, rp):
     shape (Hq 32, Hkv 8, D 64) at buckets 512 and 8704, batch 1 and 4, q_len
     1 and 4, at 16896 (the 16k row's decode: batch 1, q_len 1), and at
     Qwen3's (Hkv 4, D 128) at 512; B4 at 8 rows 192 deep, blocks of 32 and
-    16; B1 and B4 with an fp32 q at KVQ_FP32_CASES; B5 at 8 x 128 new tokens
-    after a 64-token prefix; B3 at roofline.RAGGED_POINTS (mixed and
-    decode)."""
+    16; B1 and B4 with an fp32 q at KVQ_FP32_CASES. B5 and B3 at D 64 and
+    128, blocks of 16 and 32, bf16 and fp32 q, over pools with 0x7F in
+    block 0 and the kernel given the layer's running scales and qmax: B5 at
+    paged_flash_rows (kv_limit-0 rows), B3 at RAGGED_SPLIT_ROWS 1024 wide
+    (a chunk mid-context and decode rows 1 to 1024 deep: several live
+    splits), then at roofline.RAGGED_POINTS; every bf16 case again on
+    code_exact_scores inputs. Bounds: check_paged_flash / check_ragged
+    (bf16 q: the tensor-core tiles against the plain version that rounds P
+    as they do, the decode tiles within one bf16 rounding; fp32 q within
+    1e-4 / 1e-5)."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops.roofline import RAGGED_POINTS
 
     rng = np.random.RandomState(12)
@@ -3810,31 +3899,42 @@ def phase_kvq_parity(torch, da, pf, rp):
                 f"{code} B={B} K={K} Hq={Hq} Hkv={Hkv} D={D} ctx=192 bs={bs} width=1024 q {str(dt)[6:]}",
             ))
             n += 1
-        q, kc, vc, bt, pos, lim, ks, vs = kvq_chunk_case(torch, rng, code)
-        kw = dict(scale=0.125, n_rep=4, k_scale=ks, v_scale=vs)
-        worst = max(worst, check_codes(
-            torch, "paged_flash_attention", "paged_flash_attention_codes",
-            lambda: pf.paged_flash_attention(q, kc, vc, bt, pos, lim, **kw),
-            lambda: pf.paged_flash_attention_plain(q.float(), kc, vc, bt, pos, lim, **kw),
-            f"{code} B=8 Sq=128 after a 64-token prefix, bs=32 width=1024",
-        ))
-        n += 1
+        for D in (64, 128):
+            for bs in (16, 32):
+                for dt in (bf16, torch.float32):
+                    what = f"{code} D={D} bs={bs} q {str(dt)[6:]}"
+                    q, kc, vc, bt, pos, lim, codes, factors = kvq_flash_case(torch, rng, code, D, bs, dt)
+                    kw = dict(scale=D ** -0.5, n_rep=4)
+                    for exact in (False, True) if dt == bf16 else (False,):
+                        qc, kcc = code_exact_scores(torch, q, kc) if exact else (q, kc)
+                        case = f"{what} B=8 Sq=128 kv_limit {lim.tolist()}{', exact scores' if exact else ''}"
+                        worst = max(worst, check_paged_flash(torch, pf, qc, kcc, vc, bt, pos, lim, kw, case, exact,
+                                                             codes, factors))
+                        n += 1
+                    split_len, split_ctx = RAGGED_SPLIT_ROWS
+                    inputs, codes, factors = kvq_ragged_case(torch, rng, code, split_len, split_ctx, bs, 1024, D=D,
+                                                             NB=None, q_dtype=dt)
+                    T = inputs[0].shape[0]
+                    splits, per = rp.ragged_decode_split(T, 1024, 8, 4, _cuda.sm_count(inputs[0].device)) \
+                        if dt == bf16 else (1, 1024)
+                    atol = DECODE_ATOL if dt == bf16 else RAGGED_FP32_ATOL
+                    for exact in (False, True) if dt == bf16 else (False,):
+                        qc, kcc = code_exact_scores(torch, *inputs[:2]) if exact else inputs[:2]
+                        case = (f"{what} row_len {split_len} ctx_len {split_ctx} width 1024 ({splits} splits of {per})"
+                                f"{', exact scores' if exact else ''}")
+                        worst = max(worst, check_ragged(torch, rp, (qc, kcc, *inputs[2:]), case, atol, exact,
+                                                        codes, factors))
+                        n += 1
         for name, pt in RAGGED_POINTS.items():
-            q, kc, vc, bt, rs, rl, cl, valid, ks, vs = kvq_ragged_case(
+            inputs, codes, factors = kvq_ragged_case(
                 torch, rng, code, pt["row_len"], pt["ctx_len"], pt["block_size"], pt["width"]
             )
-            kw = dict(scale=0.125, n_rep=4, k_scale=ks, v_scale=vs)
-            out = _code_launch(torch, "ragged_paged_attention_codes",
-                               lambda: rp.ragged_paged_attention(q, kc, vc, bt, rs, rl, cl, **kw))
-            if (out[~valid] != 0).any():
-                raise SystemExit(f"ragged_paged_attention code mode: a padded slot is not exact zeros: {code} {name}")
-            worst = max(worst, check_codes(
-                torch, "ragged_paged_attention", "ragged_paged_attention_codes",
-                lambda: rp.ragged_paged_attention(q, kc, vc, bt, rs, rl, cl, **kw),
-                lambda: rp.ragged_paged_attention_plain(q.float(), kc, vc, bt, rs, rl, cl, **kw),
-                f"{code} {name} point", rows=valid,
-            ))
-            n += 1
+            for exact in (False, True):
+                qc, kcc = code_exact_scores(torch, *inputs[:2]) if exact else inputs[:2]
+                case = f"{code} {name} point{', exact scores' if exact else ''}"
+                worst = max(worst, check_ragged(torch, rp, (qc, kcc, *inputs[2:]), case, DECODE_ATOL, exact,
+                                                codes, factors))
+                n += 1
     log(f"code modes: {n} cases agree with their plain versions, each bit-identical twice (largest abs err {worst:.3e})")
     return n
 
@@ -3896,11 +3996,13 @@ def _sdpa_rows(torch, q, k_r, v_r, mask, n_rep):
 
 
 def phase_kvq_times(torch, da, pf, rp):
-    """Each code mode at the parity phase's points (B1 at buckets 512 and
-    8704 batch 1, B4 at blocks of 32, B5, B3 mixed and decode), beside the
-    bf16 mode at the same point, in this call: kernel ms (L2 flushed) per
-    code type, the int8 plain version's ms, SDPA on K/V dequantized
-    beforehand (the dequantization not timed), and the bound at code bytes
+    """Each code mode at its timed point (B1 at buckets 512 and 8704 batch
+    1, B4 at blocks of 32, B5 at 8 x 128 new tokens after a 64-token
+    prefix, B3 mixed and decode), held to its plain version first, beside
+    the bf16 mode at the same point, in this call: kernel ms (L2 flushed)
+    per code type, the int8 plain version's ms, SDPA on K/V dequantized
+    beforehand (the dequantization not timed; for B3 one call per row,
+    replayed from a CUDA graph), and the bound at code bytes
     (ops/roofline.py, each input read once: codes, the (Hkv,) factors, bf16
     q and out)."""
     import torch.nn.functional as F
@@ -3985,18 +4087,16 @@ def phase_kvq_times(torch, da, pf, rp):
     # B5, 8 rows x 128 new tokens after a 64-token prefix
     ms_by = {}
     for code in KV_CODES:
-        q, kc, vc, bt, pos, lim, ks, vs = kvq_chunk_case(torch, rng, code)
+        q, kc, vc, bt, pos, lim, codes, factors = kvq_chunk_case(torch, rng, code)
         kw = dict(scale=0.125, n_rep=4)
-        e = check_close(torch, pf.paged_flash_attention(q, kc, vc, bt, pos, lim, k_scale=ks, v_scale=vs, **kw),
-                        pf.paged_flash_attention_plain(q.float(), kc, vc, bt, pos, lim, k_scale=ks, v_scale=vs, **kw),
-                        f"timed {code} B=8 Sq=128 prefix 64", "paged_flash_attention")
-        ms_by[code] = time_ms(torch, lambda: pf.paged_flash_attention(q, kc, vc, bt, pos, lim, k_scale=ks, v_scale=vs, **kw))
+        e = check_paged_flash(torch, pf, q, kc, vc, bt, pos, lim, kw, f"timed {code} B=8 Sq=128 prefix 64", False,
+                              codes, factors)
+        ms_by[code] = time_ms(torch, lambda: pf.paged_flash_attention(q, kc, vc, bt, pos, lim, **codes, **kw))
         if code == "int8":
             err = e
-            plain_ms = time_ms(torch, lambda: pf.paged_flash_attention_plain(q, kc, vc, bt, pos, lim, k_scale=ks,
-                                                                               v_scale=vs, **kw))
+            plain_ms = time_ms(torch, lambda: pf.paged_flash_attention_plain(q, kc, vc, bt, pos, lim, **factors, **kw))
             k_r, v_r = read_block_cache_at_layer(kc[None], vc[None], 0, bt)
-            k_r, v_r = k_r.float() * ks[:, None], v_r.float() * vs[:, None]
+            k_r, v_r = k_r.float() * factors["k_scale"][:, None], v_r.float() * factors["v_scale"][:, None]
             cols = torch.arange(k_r.shape[1], device="cuda")[None, None, None, :]
             smask = (cols <= pos[:, None, :, None]) & (cols < lim[:, None, None, None])
             sd = _sdpa_rows(torch, q, k_r, v_r, smask, 4)
@@ -4011,39 +4111,27 @@ def phase_kvq_times(torch, da, pf, rp):
     record("paged_flash_attention_codes", "paged_flash_attention code mode B=8 Sq=128 after a 64-token prefix, bs=32",
            ms_by, bf16_ms, plain_ms, lib_ms, nbytes, flops, err)
 
-    # B3 at the serving row's two points
+    # B3 at the serving row's two points; the yardstick, a loop of SDPA
+    # calls per row, timed eagerly (host-bound) and replayed from a graph
     for name, pt in RAGGED_POINTS.items():
         ms_by = {}
         for code in KV_CODES:
-            q, kc, vc, bt, rs, rl, cl, valid, ks, vs = kvq_ragged_case(
+            inputs, codes, factors = kvq_ragged_case(
                 torch, rng, code, pt["row_len"], pt["ctx_len"], pt["block_size"], pt["width"]
             )
+            q, kc, vc, bt, rs, rl, cl, _ = inputs
             kw = dict(scale=0.125, n_rep=4)
-            e = check_close(torch, rp.ragged_paged_attention(q, kc, vc, bt, rs, rl, cl, k_scale=ks, v_scale=vs, **kw),
-                            rp.ragged_paged_attention_plain(q.float(), kc, vc, bt, rs, rl, cl, k_scale=ks, v_scale=vs,
-                                                            **kw),
-                            f"timed {code} {name} point", "ragged_paged_attention", valid)
-            ms_by[code] = time_ms(torch, lambda: rp.ragged_paged_attention(q, kc, vc, bt, rs, rl, cl, k_scale=ks,
-                                                                           v_scale=vs, **kw))
+            e = check_ragged(torch, rp, inputs, f"timed {code} {name} point", DECODE_ATOL, False, codes, factors)
+            ms_by[code] = time_ms(torch, lambda: rp.ragged_paged_attention(q, kc, vc, bt, rs, rl, cl, **codes, **kw))
             if code == "int8":
                 err = e
-                plain_ms = time_ms(torch, lambda: rp.ragged_paged_attention_plain(q, kc, vc, bt, rs, rl, cl, k_scale=ks,
-                                                                                  v_scale=vs, **kw))
+                plain_ms = time_ms(torch, lambda: rp.ragged_paged_attention_plain(q, kc, vc, bt, rs, rl, cl, **factors,
+                                                                                  **kw))
                 k_r, v_r = read_block_cache_at_layer(kc[None], vc[None], 0, bt)
-                k_r, v_r = (k_r.float() * ks[:, None]).to(q.dtype), (v_r.float() * vs[:, None]).to(q.dtype)
-                cols = torch.arange(pt["width"], device="cuda")
-                per_row = []
-                for r, (s0, nn, c) in enumerate(zip(rs.tolist(), rl.tolist(), cl.tolist())):
-                    if nn:
-                        qpos = torch.arange(c - nn, c, device="cuda")
-                        per_row.append((
-                            q[s0 : s0 + nn].transpose(0, 1)[None],
-                            k_r[r].transpose(0, 1).repeat_interleave(4, dim=0)[None],
-                            v_r[r].transpose(0, 1).repeat_interleave(4, dim=0)[None],
-                            ((cols[None, :] <= qpos[:, None]) & (cols[None, :] < c))[None, None],
-                        ))
-                lib_ms = time_ms(torch, lambda: [F.scaled_dot_product_attention(a, b, c, attn_mask=m)
-                                                 for a, b, c, m in per_row])
+                k_r = (k_r.float() * factors["k_scale"][:, None]).to(q.dtype)
+                v_r = (v_r.float() * factors["v_scale"][:, None]).to(q.dtype)
+                per_row = sdpa_per_row(torch, q, k_r, v_r, rs, rl, cl, pt["width"], 4)
+                eager_ms, lib_ms = sdpa_per_row_ms(torch, F, per_row)
                 kb, vb = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
                 bf16_ms = time_ms(torch, lambda: rp.ragged_paged_attention(q, kb, vb, bt, rs, rl, cl, **kw))
                 nbytes, flops = ragged_work(rl.tolist(), cl.tolist(), pt["width"], pt["block_size"],
@@ -4051,6 +4139,8 @@ def phase_kvq_times(torch, da, pf, rp):
                 del k_r, v_r, per_row, kb, vb
         record(("ragged_paged_attention_codes", name), f"ragged_paged_attention code mode {name} point",
                ms_by, bf16_ms, plain_ms, lib_ms, nbytes, flops, err)
+        log(f"  sdpa per row on dequantized K/V, {name} point: replayed from a graph {lib_ms:.4f} ms (the "
+            f"yardstick), eager {eager_ms:.4f} ms (host-bound)")
     return rows
 
 
@@ -4124,7 +4214,8 @@ def phase_kv_quant(torch, da, pf, rp, fa, params, forced_seq):
     twin's bf16 mode; the kv-int8 teacher-forced gate; the split and ragged
     serving drains, sync and 1-ahead, with an int8 cache through graph_pair
     (code launches of B4, B5, B3 > 0, no fault, tokens equal with graphs on
-    and off)."""
+    and off), the synchronous drains' graphed steps profiled (kernels a
+    step, device busy, cudaGraphLaunch host ms)."""
     from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_1B
     from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
     from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
@@ -4204,7 +4295,16 @@ def phase_kv_quant(torch, da, pf, rp, fa, params, forced_seq):
                     raise SystemExit(f"{label}: faults on clean traffic ({faults}) or an unfinished request")
                 return {rid: list(r.generated) for rid, r in sess.requests.items()}
 
-            res = graph_pair(torch, label, make, run, warm_pass=True)
+            # the synchronous drains' graphed steps profiled, beside the bf16
+            # drains' in phase_graphs
+            prof = None
+            if kind == "ragged" and not one_ahead:
+                def prof(app, _tokens, label=label):
+                    return phase_ragged_profile(torch, app, prompts, label)
+            elif not one_ahead:
+                def prof(app, _tokens):
+                    return phase_serving_profile(torch, app)
+            res = graph_pair(torch, label, make, run, prof, warm_pass=True, profile_off=False)
             counts = res[True]["counts"]
             need = ("ragged_paged_attention_codes",) if kind == "ragged" else (
                 "paged_decode_attention_codes", "paged_flash_attention_codes")

@@ -42,6 +42,14 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, like torch's .to(bf16)
 }
 
+// A code cache's dequant factor scale[i] / qmax (the layer's running absmax
+// of one kv head over the code type's largest magnitude; the reference's
+// k_scale / v_scale), read on the device at launch so a captured graph sees
+// each step's scales; 1 for a plain cache (scale null).
+__device__ __forceinline__ float dequant_factor(const float* scale, int i, float qmax) {
+  return scale != nullptr ? scale[i] / qmax : 1.f;
+}
+
 __device__ __forceinline__ float quiet_nan() { return __int_as_float(0x7FC00000); }
 
 // round an fp32 value to bf16 precision (the reference's bf16 softmax mode)
@@ -72,6 +80,14 @@ template <> struct Vec16<__nv_bfloat16> {
     }
   }
 };
+// Byte k (a constant) of a word of int8 codes as a float, exactly and
+// without I2F (a quarter-rate conversion): ``biased`` is the word XOR
+// 0x80808080 (each byte x + 128), placed as the low byte of 2^23 it gives
+// the float 2^23 + 128 + x, and one FADD takes 2^23 + 128 off.
+__device__ __forceinline__ float int8_byte_to_float(uint32_t biased, int k) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + k)) - 8388736.f;
+}
+
 // 16 KV codes (the lower address in the low byte)
 template <> struct Vec16<int8_t> {
   static constexpr int N = 16;
@@ -80,7 +96,7 @@ template <> struct Vec16<int8_t> {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) v[4 * i + k] = static_cast<float>(static_cast<int8_t>(w[i] >> (8 * k)));
+      for (int k = 0; k < 4; ++k) v[4 * i + k] = int8_byte_to_float(w[i] ^ 0x80808080u, k);
   }
 };
 __device__ __forceinline__ void unpack_fp8x16(uint4 r, __nv_fp8_interpretation_t kind, float* v) {

@@ -84,21 +84,19 @@
 //     one launch (and the combine), with no fold or rescale pass around it,
 //     and the scales are read on the device at launch (a captured graph
 //     sees each step's).
-//   - K and V tiles are staged as codes, one position's D bytes a row
-//     padded by 16 bytes (lane rows 80 or 144 bytes apart: the 16-byte reads
-//     of a quarter warp hit distinct banks). A 16-byte chunk is 16 codes of
-//     one position, so B4 still fetches each chunk through its block's
-//     entry and zero-fills block 0's. The codes become fp32 in registers
-//     (int8 exactly; e4m3 / e5m2 through half precision, also exactly);
-//     statistics and accumulators stay fp32. No dequantized cache is
-//     written anywhere, and a decode step reads half the bf16 bytes.
+//   - K and V tiles are staged as codes (kv_tile.cuh, which B3's decode
+//     tiles share): one position's D bytes a row padded by 16 bytes, 16
+//     codes a 16-byte chunk, so B4 still fetches each chunk through its
+//     block's entry and zero-fills block 0's; the codes become fp32 in
+//     registers. No dequantized cache is written anywhere, and a decode
+//     step reads half the bf16 bytes.
 //
 // Layout: q (B, K, Hq, D) contiguous; caches contiguous (B1: (L, R, S_max,
 // Hkv, D), 16-byte aligned); block_table (B, MB) int32 contiguous (paged);
 // mask bytes addressed as b * mask_sb + t * mask_st + s; sink (Hq,) fp32 or
 // null; out (B, K, Hq, D) contiguous.
 
-#include "common.cuh"
+#include "kv_tile.cuh"
 
 namespace nxdi {
 namespace {
@@ -111,7 +109,7 @@ constexpr int MAX_ROWS = 64;  // n_rep * K
 
 constexpr int SP_THREADS = 128;
 constexpr int SP_WARPS = SP_THREADS / 32;
-constexpr int SP_TILE = 64;     // positions per staged tile
+constexpr int SP_TILE = kv::TILE;  // positions per staged tile
 constexpr int MAX_SPLITS = 32;  // kv splits per (batch row, kv head)
 
 struct SplitParams {
@@ -139,14 +137,13 @@ struct SplitParams {
 
 // the layer's dequant factor scale / qmax of kv head g (1 for a plain cache)
 __device__ __forceinline__ float dequant_factor(const float* scale, const SplitParams& p, int g) {
-  return scale != nullptr ? scale[p.layer * p.Hkv + g] / p.qmax : 1.f;
+  return nxdi::dequant_factor(scale, p.layer * p.Hkv + g, p.qmax);
 }
 
 // T: q and out; C: the cache (T, or 1-byte codes)
 template <typename T, typename C, int D>
 struct SplitTile {
-  static constexpr int LD = D + 16 / (int)sizeof(C);  // staged row: 16 bytes of padding
-  static constexpr int KV = SP_TILE * LD;             // one K or V tile
+  static constexpr int KV = kv::Row<C, D>::KV;  // one K or V tile of padded rows
   // q rows, two stages of (K, V), a probability row per (warp, row), the
   // live-tile bits per (32 tiles, warp), B4's table entries of the split
   static __host__ __device__ int groups(int per) { return ((per + SP_TILE - 1) / SP_TILE + 31) / 32; }
@@ -177,11 +174,8 @@ __device__ __forceinline__ float finalize(float acc, float m, float l, const flo
 template <typename T, typename C, int D, int RW, bool PAGED>
 __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) {
   using Tile = SplitTile<T, C, D>;
-  constexpr int LD = Tile::LD;
   constexpr int EQ = Vec16<T>::N;  // q elements per 16 bytes
   constexpr int QPR = D / EQ;      // 16-byte vectors per q row
-  constexpr int EV = Vec16<C>::N;  // cache elements per 16 bytes
-  constexpr int VPR = D / EV;      // 16-byte vectors per position
   constexpr int DPL = D / 32;      // output dims per lane
   extern __shared__ __align__(16) unsigned char sp_smem[];
   const int n_rep = p.Hq / p.Hkv;
@@ -249,26 +243,16 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
   const long long pos_stride = (long long)p.Hkv * D;
   const int bs_mask = (1 << p.bs_lg) - 1;
   auto load_tile = [&](int j, int stage) {
-    const int s0 = lo + j * SP_TILE, n = min(SP_TILE, hi - s0);
+    const int s0 = lo + j * SP_TILE;
     C* Ks = KVs + 2 * stage * Tile::KV;
-    C* Vs = Ks + Tile::KV;
-    for (int i = tid; i < n * VPR; i += SP_THREADS) {
-      const int c = i / VPR, e = (i % VPR) * EV;
-      long long off;
-      bool full = true;
-      if (PAGED) {
-        // position s of head g in block blk; block 0 reads nothing
-        const int s = s0 + c;
-        const int blk = table_s[(s >> p.bs_lg) - blk0];
-        full = blk != 0;
-        off = full ? ((((long long)p.layer * p.NB1 + blk) * p.Hkv + g) << p.bs_lg) * D + (s & bs_mask) * D + e : 0;
-      } else {
-        off = (line + s0 + c) * pos_stride + (long long)g * D + e;
-      }
-      cp_async16(Ks + c * LD + e, kc + off, full);
-      cp_async16(Vs + c * LD + e, vc + off, full);
-    }
-    cp_async_commit();
+    kv::stage_tile<C, D>(Ks, Ks + Tile::KV, kc, vc, min(SP_TILE, hi - s0), [&](int c, int e) -> long long {
+      if (!PAGED) return (line + s0 + c) * pos_stride + (long long)g * D + e;
+      // position s of head g in block blk; block 0 reads nothing
+      const int s = s0 + c;
+      const int blk = table_s[(s >> p.bs_lg) - blk0];
+      return blk != 0 ? ((((long long)p.layer * p.NB1 + blk) * p.Hkv + g) << p.bs_lg) * D + (s & bs_mask) * D + e
+                      : -1;
+    }, tid, SP_THREADS);
   };
 
   const int nrw = (rows - warp + SP_WARPS - 1) / SP_WARPS;  // rows this warp owns
@@ -289,67 +273,11 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
     const int jn = next_live(j + 1);
     if (jn < nt) load_tile(jn, stage ^ 1);
 
-    const int s0 = lo + j * SP_TILE, n = min(SP_TILE, hi - s0);
+    const int s0 = lo + j * SP_TILE;
     const C* Ks = KVs + 2 * stage * Tile::KV;
-    const C* Vs = Ks + Tile::KV;
-    const bool two = n > 32;  // positions lane + 32 in use (warp-uniform)
-    float dot[RW][2];
-#pragma unroll
-    for (int i = 0; i < RW; ++i) dot[i][0] = dot[i][1] = 0.f;
-#pragma unroll 2
-    for (int e = 0; e < D; e += EV) {
-      float k0[EV], k1[EV];
-      Vec16<C>::unpack(*reinterpret_cast<const uint4*>(Ks + lane * LD + e), k0);
-      Vec16<C>::unpack(*reinterpret_cast<const uint4*>(Ks + (two ? lane + 32 : lane) * LD + e), k1);
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        if (i < nrw) {
-          float qv[EV];
-          load_floats<T, EV>(Qs + (warp + SP_WARPS * i) * D + e, qv);
-#pragma unroll
-          for (int u = 0; u < EV; ++u) {
-            dot[i][0] = fmaf(qv[u], k0[u], dot[i][0]);
-            dot[i][1] = fmaf(qv[u], k1[u], dot[i][1]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RW; ++i) {
-      if (i < nrw) {
-        const int t = (warp + SP_WARPS * i) % K;
-        const unsigned char* mt = mrow + t * p.mask_st + s0;
-        const bool ok0 = lane < n && mt[lane];
-        const bool ok1 = lane + 32 < n && mt[lane + 32];
-        const float sa = ok0 ? dot[i][0] * score_scale : NEG_INF;
-        const float sb = ok1 ? dot[i][1] * score_scale : NEG_INF;
-        const float m_new = fmaxf(m_r[i], group_max<32>(fmaxf(sa, sb)));
-        const float pa = ok0 ? expf(sa - m_new) : 0.f;
-        const float pb = ok1 ? expf(sb - m_new) : 0.f;
-        const float alpha = expf(m_r[i] - m_new);
-        l_r[i] = l_r[i] * alpha + group_sum<32>(pa + pb);
-        m_r[i] = m_new;
-#pragma unroll
-        for (int k = 0; k < DPL; ++k) acc[i][k] *= alpha;
-        Pw[i * SP_TILE + lane] = pa;
-        Pw[i * SP_TILE + lane + 32] = pb;
-      }
-    }
-    __syncwarp();
-#pragma unroll 4
-    for (int c = 0; c < n; ++c) {
-      float vv[DPL];
-#pragma unroll
-      for (int k = 0; k < DPL; ++k) vv[k] = to_float(Vs[c * LD + lane * DPL + k]);
-#pragma unroll
-      for (int i = 0; i < RW; ++i) {
-        if (i < nrw) {
-          const float pr = Pw[i * SP_TILE + c];
-#pragma unroll
-          for (int k = 0; k < DPL; ++k) acc[i][k] = fmaf(pr, vv[k], acc[i][k]);
-        }
-      }
-    }
+    kv::tile_rows<T, C, D, RW, SP_WARPS>(
+        Qs, Ks, Ks + Tile::KV, min(SP_TILE, hi - s0), nrw, score_scale,
+        [&](int i, int c) { return mrow[((warp + SP_WARPS * i) % K) * p.mask_st + s0 + c] != 0; }, Pw, m_r, l_r, acc);
     j = jn;
   }
   cp_async_wait<0>();  // (no live tile: the q copies)

@@ -1,8 +1,8 @@
 // The paged kv loops shared by the paged flash prefill kernel (B5,
 // paged_flash_attention.cu) and the ragged paged attention kernel (B3,
-// ragged_paged_attention.cu): attend(), the fp32 FMA loop both run at fp32,
-// and flash_mma(), the bf16 tensor-core body of B5 and of B3's prefill
-// tiles (below).
+// ragged_paged_attention.cu): attend(), the fp32 FMA loop both run for an
+// fp32 q, and flash_mma(), the tensor-core body of B5 and of B3's prefill
+// tiles for a bf16 q over a bf16 cache or 1-byte int8 / fp8 codes (below).
 //
 // A block of THREADS threads holds BQ query rows in shared memory, each with
 // its absolute position (-1 = no query), all of one kv head g and one row of
@@ -177,69 +177,125 @@ __device__ __forceinline__ void attend(const Smem<D>& sm, const T* kc, const T* 
 }
 
 // Write query row i's result (thread-local index i < ROWS_T) to `dst`, the
-// row's D outputs: acc / max(l, 1e-30), exact zeros for a row with no key.
+// row's D outputs: acc / max(l, 1e-30) times vf (a code cache's V factor,
+// else 1), exact zeros for a row with no key.
 template <typename T, int D>
-__device__ __forceinline__ void finalize_row(T* dst, float l, const float (&acc_row)[D / CG]) {
+__device__ __forceinline__ void finalize_row(T* dst, float l, const float (&acc_row)[D / CG], float vf) {
   const int c = threadIdx.x % CG;
   const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-  for (int j = 0; j < D / CG; ++j) dst[c + CG * j] = from_float<T>(acc_row[j] / denom);
+  for (int j = 0; j < D / CG; ++j) dst[c + CG * j] = from_float<T>(acc_row[j] / denom * vf);
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (B5, and B3's prefill tiles)
+// bf16 q: tensor cores (B5, and B3's prefill tiles)
 // ---------------------------------------------------------------------------
 
-template <int D>
+// Eight 1-byte codes (the lower address in the low byte) as eight bf16, the
+// lower address in the low half: exactly, since every int8 in [-127, 127]
+// and every finite e4m3 / e5m2 value is a bf16 value (fp8 through half
+// precision, which holds both formats).
+template <typename C>
+__device__ __forceinline__ uint4 codes_to_bf16(uint2 w);
+template <>
+__device__ __forceinline__ uint4 codes_to_bf16<int8_t>(uint2 w) {
+  const uint32_t in[2] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u};
+  uint32_t out[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = 2 * (i % 2);
+    out[i] = pack_bf16(int8_byte_to_float(in[i / 2], k), int8_byte_to_float(in[i / 2], k + 1));
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+__device__ __forceinline__ uint4 fp8_to_bf16(uint2 w, __nv_fp8_interpretation_t kind) {
+  const uint32_t in[2] = {w.x, w.y};
+  uint32_t out[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2 h(__nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(in[i / 2] >> (16 * (i % 2))), kind));
+    const float2 f = __half22float2(h);
+    out[i] = pack_bf16(f.x, f.y);
+  }
+  return make_uint4(out[0], out[1], out[2], out[3]);
+}
+template <>
+__device__ __forceinline__ uint4 codes_to_bf16<Fp8E4M3>(uint2 w) { return fp8_to_bf16(w, __NV_E4M3); }
+template <>
+__device__ __forceinline__ uint4 codes_to_bf16<Fp8E5M2>(uint2 w) { return fp8_to_bf16(w, __NV_E5M2); }
+
+// The shared memory of flash_mma over a cache of element type C: Q (bf16
+// rows padded by 16 bytes), then the K / V stages, then the query
+// positions. bf16: two stages of (K, V) bf16 tiles, read by ldmatrix as
+// they land. Codes: three stages of (K, V) code tiles (1-byte rows padded
+// by 16 bytes: half a bf16 stage, so a third fits) and one (K, V) pair of
+// bf16 tiles that each code tile is converted into before ldmatrix reads it.
+template <typename C, int D>
 struct MmaTile {
+  static constexpr bool CODES = sizeof(C) == 1;
   static constexpr int LD = D + 8;     // bf16 per shared row: 16 bytes of padding
-  static constexpr int KV = BKV * LD;  // one K or V tile
-  // Q, then two stages of (K, V), then the query positions
-  static constexpr size_t smem = sizeof(__nv_bfloat16) * (size_t)(BQ * LD + 4 * KV) + sizeof(int) * BQ;
+  static constexpr int KV = BKV * LD;  // one bf16 K or V tile
+  static constexpr int LDC = D + 16;   // bytes per code row: 16 bytes of padding
+  static constexpr int STAGES = CODES ? 3 : 2;
+  static constexpr int STAGE = CODES ? 2 * BKV * LDC : 2 * KV * 2;  // bytes of one stage's (K, V)
+  static constexpr size_t smem = sizeof(__nv_bfloat16) * (size_t)(BQ * LD + (CODES ? 2 * KV : 0)) +
+                                 (size_t)STAGES * STAGE + sizeof(int) * BQ;
 };
 
-// The bf16 tensor-core body of B5 (paged_flash_mma) and of B3's prefill
-// tiles (ragged_paged_attention.cu): the block's BQ query rows, 16 a warp,
-// over one block-table row of kv head hk, up to min(the rows' largest
-// position, limit - 1). row_off(r): the element offset of query row r in
-// q and out, or -1 for a row that is neither read nor written; row_pos(r):
-// its position (-1: no valid key; the row is written as zeros). The design
-// is paged_flash_attention.cu's (mma.sync m16n8k16, P in registers, K / V by
-// 16-byte cp.async through the table into two padded stages, the zero rule
-// as cp.async's zero fill). smem_raw: MmaTile<D>::smem bytes, 16-byte
-// aligned.
-template <int D, class RowOff, class RowPos>
+// The tensor-core body of B5 (paged_flash_mma) and of B3's prefill tiles
+// (ragged_paged_attention.cu): the block's BQ bf16 query rows, 16 a warp,
+// over one block-table row of kv head hk of a cache of C (bf16, or int8 /
+// fp8 codes), up to min(the rows' largest position, limit - 1). row_off(r):
+// the element offset of query row r in q and out, or -1 for a row that is
+// neither read nor written; row_pos(r): its position (-1: no valid key; the
+// row is written as zeros). scale: the score scale, a code cache's K factor
+// folded in; vf: the V factor the finalized output is multiplied by before
+// its one rounding to bf16 (1 for a bf16 cache). The design is
+// paged_flash_attention.cu's (mma.sync m16n8k16, P in registers, K / V by
+// 16-byte cp.async through the table into padded stages, the zero rule as
+// cp.async's zero fill; code tiles converted to bf16 in shared memory
+// first). smem_raw: MmaTile<C, D>::smem bytes, 16-byte aligned.
+template <typename C, int D, class RowOff, class RowPos>
 __device__ __forceinline__ void flash_mma(unsigned char* smem_raw, const __nv_bfloat16* qp, __nv_bfloat16* op,
-                                          RowOff row_off, RowPos row_pos, const __nv_bfloat16* k_layer,
-                                          const __nv_bfloat16* v_layer, const int* bt_row, int hk, int Hkv, int bs,
-                                          int NB1, int limit, float scale) {
-  using Tile = MmaTile<D>;
+                                          RowOff row_off, RowPos row_pos, const C* k_layer, const C* v_layer,
+                                          const int* bt_row, int hk, int Hkv, int bs, int NB1, int limit, float scale,
+                                          float vf) {
+  using Tile = MmaTile<C, D>;
   using bf16 = __nv_bfloat16;
+  constexpr bool CODES = Tile::CODES;
   constexpr int LD = Tile::LD;
-  constexpr int CH = D / 8;               // 16-byte chunks per row
-  constexpr int ROW_STEP = THREADS / CH;  // rows between one thread's chunks
-  constexpr int KS = D / 16;              // k steps of Q K^T
-  constexpr int NT = BKV / 8;             // n tiles of the score tile
-  constexpr int DT = D / 8;               // n tiles of the output
+  constexpr int STAGES = Tile::STAGES;
+  constexpr int QCH = D / 8;                       // 16-byte chunks per q row
+  constexpr int Q_STEP = THREADS / QCH;            // rows between one thread's q chunks
+  constexpr int EC = 16 / (int)sizeof(C);          // cache elements per 16-byte chunk
+  constexpr int KCH = D / EC;                      // 16-byte chunks per cache row
+  constexpr int ROW_STEP = THREADS / KCH;          // rows between one thread's cache chunks
+  constexpr int SLD = CODES ? Tile::LDC : LD;      // elements per staged row
+  constexpr int KS = D / 16;                       // k steps of Q K^T
+  constexpr int NT = BKV / 8;                      // n tiles of the score tile
+  constexpr int DT = D / 8;                        // n tiles of the output
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* KVs = Qs + BQ * LD;  // stage s: K at KVs + 2 s KV, V right after
-  int* pos_s = reinterpret_cast<int*>(KVs + 4 * Tile::KV);
+  bf16* Kb = Qs + BQ * LD;  // codes: the converted K tile, V right after
+  unsigned char* stages = reinterpret_cast<unsigned char*>(Kb + (CODES ? 2 * Tile::KV : 0));
+  int* pos_s = reinterpret_cast<int*>(stages + STAGES * Tile::STAGE);  // stage s: K at s STAGE, V half a stage on
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // thread tid copies chunk tid % CH of rows tid / CH + ROW_STEP u
-  const int cr = tid / CH, cc = (tid % CH) * 8;
+  // thread tid copies q chunk tid % QCH of rows tid / QCH + Q_STEP u, and
+  // cache chunk tid % KCH of tile rows tid / KCH + ROW_STEP u
+  const int qr = tid / QCH, qc = (tid % QCH) * 8;
+  const int cr = tid / KCH, cc = (tid % KCH) * EC;
 
   if (limit <= 0) {  // an inactive row: zeros, no cache read
-    for (int r = cr; r < BQ; r += ROW_STEP) {
+    for (int r = qr; r < BQ; r += Q_STEP) {
       const long long o = row_off(r);
-      if (o >= 0) *reinterpret_cast<uint4*>(op + o + cc) = make_uint4(0u, 0u, 0u, 0u);
+      if (o >= 0) *reinterpret_cast<uint4*>(op + o + qc) = make_uint4(0u, 0u, 0u, 0u);
     }
     return;
   }
 
-  for (int r = cr; r < BQ; r += ROW_STEP) {
+  for (int r = qr; r < BQ; r += Q_STEP) {
     const long long o = row_off(r);
-    cp_async16(Qs + r * LD + cc, qp + (o >= 0 ? o : 0) + cc, o >= 0);
+    cp_async16(Qs + r * LD + qc, qp + (o >= 0 ? o : 0) + qc, o >= 0);
   }
   cp_async_commit();
   if (tid < BQ) pos_s[tid] = row_off(tid) >= 0 ? row_pos(tid) : -1;
@@ -251,12 +307,13 @@ __device__ __forceinline__ void flash_mma(unsigned char* smem_raw, const __nv_bf
   last = min(last, limit - 1);
   const int n_tiles = last < 0 ? 0 : last / BKV + 1;
 
-  const bf16* kp = k_layer + cc;
-  const bf16* vp = v_layer + cc;
+  const C* kp = k_layer + cc;
+  const C* vp = v_layer + cc;
+  auto stage_k = [&](int stage) { return reinterpret_cast<C*>(stages + stage * Tile::STAGE); };
   auto load_tile = [&](int j, int stage) {
     const int kv0 = j * BKV;
-    bf16* Ks = KVs + 2 * stage * Tile::KV + cc;
-    bf16* Vs = Ks + Tile::KV;
+    C* Ks = stage_k(stage) + cc;
+    C* Vs = Ks + BKV * SLD;
 #pragma unroll
     for (int r = cr; r < BKV; r += ROW_STEP) {
       const int s = kv0 + r;
@@ -265,8 +322,8 @@ __device__ __forceinline__ void flash_mma(unsigned char* smem_raw, const __nv_bf
       // zero-filled, never read
       const bool ok = s < limit && blk > 0 && blk < NB1;
       const long long a = ok ? (((long long)blk * Hkv + hk) * bs + s % bs) * D : 0;
-      cp_async16(Ks + r * LD, kp + a, ok);
-      cp_async16(Vs + r * LD, vp + a, ok);
+      cp_async16(Ks + r * SLD, kp + a, ok);
+      cp_async16(Vs + r * SLD, vp + a, ok);
     }
     cp_async_commit();
   };
@@ -284,15 +341,16 @@ __device__ __forceinline__ void flash_mma(unsigned char* smem_raw, const __nv_bf
   for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   uint32_t qf[KS][4];
 
-  if (n_tiles > 0) load_tile(0, 0);
+  // tiles 0 .. STAGES - 2 in flight before the loop; tile j + STAGES - 1
+  // issued at the top of iteration j, into the stage that tile j - 1 left
+  for (int j = 0; j < STAGES - 1 && j < n_tiles; ++j) load_tile(j, j);
   for (int j = 0; j < n_tiles; ++j) {
-    const int stage = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile(j + 1, stage ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int stage = j % STAGES;
+    const int ahead = min(n_tiles - 1 - j, STAGES - 1);  // tiles after j in flight once this one is issued
+    if (j + STAGES - 1 < n_tiles) load_tile(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+    if (ahead >= 2) cp_async_wait<2>();
+    else if (ahead == 1) cp_async_wait<1>();
+    else cp_async_wait<0>();
     __syncthreads();
     if (j == 0) {
       // A fragments of the warp's 16 Q rows: matrices (rows 0-7 | 8-15) x
@@ -301,8 +359,26 @@ __device__ __forceinline__ void flash_mma(unsigned char* smem_raw, const __nv_bf
       for (int ks = 0; ks < KS; ++ks)
         ldmatrix_x4(qf[ks], Qs + (warp * 16 + (lane % 8) + 8 * ((lane / 8) % 2)) * LD + ks * 16 + 8 * (lane / 16));
     }
-    const bf16* Ks = KVs + 2 * stage * Tile::KV;
-    const bf16* Vs = Ks + Tile::KV;
+    const bf16* Ks;
+    if constexpr (CODES) {
+      // the code tile into the bf16 pair, 8 codes a thread at a time; the
+      // barrier at the top of this iteration saw every warp done with the
+      // previous tile's pair
+      const unsigned char* src = stages + stage * Tile::STAGE;
+      constexpr int UNITS = BKV * D / 8;  // 8-code units of one tile
+#pragma unroll
+      for (int i = 0; i < 2 * UNITS / THREADS; ++i) {
+        const int u = tid + i * THREADS;
+        const int kvi = u / UNITS, r = (u % UNITS) / (D / 8), c8 = (u % (D / 8)) * 8;
+        const uint2 w = *reinterpret_cast<const uint2*>(src + kvi * BKV * SLD + r * SLD + c8);
+        *reinterpret_cast<uint4*>(Kb + kvi * Tile::KV + r * LD + c8) = codes_to_bf16<C>(w);
+      }
+      __syncthreads();
+      Ks = Kb;
+    } else {
+      Ks = stage_k(stage);
+    }
+    const bf16* Vs = Ks + (CODES ? Tile::KV : BKV * SLD);
     const int kv0 = j * BKV;
 
     // S = Q K^T: K rows are the B operand's columns as stored (no transpose)
@@ -357,7 +433,10 @@ __device__ __forceinline__ void flash_mma(unsigned char* smem_raw, const __nv_bf
         mma_bf16(o[2 * qq + 1], a, vb[2], vb[3]);
       }
     }
-    __syncthreads();  // every warp is done with this stage before it is refilled
+    // bf16: every warp is done with this stage before it is refilled (codes:
+    // the next iteration's first barrier guards the converted pair, and the
+    // code stage was free once converted)
+    if constexpr (!CODES) __syncthreads();
   }
   cp_async_wait<0>();  // (no tile: the Q copy)
 
@@ -369,7 +448,7 @@ __device__ __forceinline__ void flash_mma(unsigned char* smem_raw, const __nv_bf
     __nv_bfloat162* orow = reinterpret_cast<__nv_bfloat162*>(op + off);
 #pragma unroll
     for (int n = 0; n < DT; ++n)
-      orow[(n * 8 + 2 * t4) / 2] = __floats2bfloat162_rn(o[n][2 * rr] / denom, o[n][2 * rr + 1] / denom);
+      orow[(n * 8 + 2 * t4) / 2] = __floats2bfloat162_rn(o[n][2 * rr] / denom * vf, o[n][2 * rr + 1] / denom * vf);
   }
 }
 

@@ -66,16 +66,31 @@
 //     per-element predicate.
 // fp32 design (paged_flash_kernel): the first version's FMA loop, the
 // paged::attend of paged_attention_tile.cuh that the ragged kernel B3
-// shares; fp32 runs only in the parity checks, and TF32 products would
-// break their bound.
+// shares; an fp32 q runs only in the parity checks, and TF32 products
+// would break their bound.
 //
-// Code mode (int8 / fp8 e4m3 / e5m2 code blocks): the wrapper folds the
-// layer's K factor scale / qmax into q in fp32 (the reference's k_scale)
-// and multiplies the fp32 output by the V factor (v_scale), so the kernel
-// is the fp32 path (paged_flash_kernel, paged::attend) over an fp32 q with
-// the cache read as 1-byte codes, each converted to fp32 in registers as
-// it is loaded into the block's fp32 K / V tile (exactly: int8 directly,
-// fp8 through half precision). No dequantized cache is written.
+// Code mode (int8 / fp8 e4m3 / e5m2 code blocks with the layer's (Hkv,)
+// running scales and the code type's qmax, read on the device at launch,
+// so a captured graph sees each step's): the kernel takes the caller's q
+// as it is, folds nothing into it and writes no dequantized cache; a call
+// is one launch with no pass around it. K's factor scale / qmax multiplies
+// the score scale (the reference folds it into an fp32 q: the same
+// product up to fp32 rounding), V's the finalized output before its one
+// rounding (the reference's v_scale).
+//   - bf16 q: paged_flash_mma<C>, the tensor-core body over code tiles.
+//     Code K / V tiles arrive by 16-byte cp.async (16 codes of one
+//     position a chunk, still through the table, block 0 still cp.async's
+//     zero fill: its 0x7F is NaN in e4m3) into three stages of 1-byte rows
+//     padded by 16 bytes (a code stage is half a bf16 stage). Each tile is
+//     converted once, by the whole block, into a padded bf16 (K, V) pair
+//     that the bf16 path's ldmatrix / ldmatrix.trans read unchanged: every
+//     int8 in [-127, 127] and every finite e4m3 / e5m2 value is a bf16
+//     value, so Q.K^T and P.V are the bf16 tiles' mma.sync and the only
+//     rounding beyond the reference's is P's to bf16 at P.V, as in bf16.
+//     (Converting in registers into the B-operand layout instead, with no
+//     bf16 copy, is slower: scripts/torch_attention_variants.py b5codes.)
+//   - fp32 q (parity checks only): paged_flash_kernel<float, C>, attend()
+//     with each code converted to fp32 as it is loaded.
 //
 // No atomics: every sum runs in a fixed order, so results repeat bit for bit.
 //
@@ -104,13 +119,18 @@ struct PagedFlashParams {
   void* out;
   int Sq, Hq, Hkv, NB1, bs, MB;
   float scale;
+  // code mode: the layer's (Hkv,) fp32 K / V running scales and the code
+  // type's qmax (null and 0 for a plain cache)
+  const float* k_scale;
+  const float* v_scale;
+  float qmax;
 };
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16 q: tensor cores, over a bf16 cache or code blocks C
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <typename C, int D>
 __global__ void __launch_bounds__(THREADS) paged_flash_mma(const PagedFlashParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int iq = blockIdx.x;
@@ -125,21 +145,22 @@ __global__ void __launch_bounds__(THREADS) paged_flash_mma(const PagedFlashParam
   };
   auto row_pos = [&](int r) { return row_t(r) < p.Sq ? p.positions[(long long)b * p.Sq + row_t(r)] : -1; };
   // a row's table covers MB * bs positions: nothing past them exists
-  paged::flash_mma<D>(smem_raw, static_cast<const __nv_bfloat16*>(p.q), static_cast<__nv_bfloat16*>(p.out),
-                      row_off, row_pos, static_cast<const __nv_bfloat16*>(p.k), static_cast<const __nv_bfloat16*>(p.v),
-                      p.block_table + (long long)b * p.MB, hk, p.Hkv, p.bs, p.NB1,
-                      min(p.kv_limit[b], p.MB * p.bs), p.scale);
+  paged::flash_mma<C, D>(smem_raw, static_cast<const __nv_bfloat16*>(p.q), static_cast<__nv_bfloat16*>(p.out),
+                         row_off, row_pos, static_cast<const C*>(p.k), static_cast<const C*>(p.v),
+                         p.block_table + (long long)b * p.MB, hk, p.Hkv, p.bs, p.NB1,
+                         min(p.kv_limit[b], p.MB * p.bs), p.scale * dequant_factor(p.k_scale, hk, p.qmax),
+                         dequant_factor(p.v_scale, hk, p.qmax));
 }
 
-template <int D>
+template <typename C, int D>
 cudaError_t launch_mma(const PagedFlashParams& p, int B, cudaStream_t stream) {
-  using Tile = paged::MmaTile<D>;
-  const cudaError_t err = cudaFuncSetAttribute(paged_flash_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  using Tile = paged::MmaTile<C, D>;
+  const cudaError_t err = cudaFuncSetAttribute(paged_flash_mma<C, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)Tile::smem);
   if (err != cudaSuccess) return err;
   const int tqp = BQ / (p.Hq / p.Hkv);
   const dim3 grid((p.Sq + tqp - 1) / tqp, p.Hkv, B);
-  paged_flash_mma<D><<<grid, THREADS, Tile::smem, stream>>>(p);
+  paged_flash_mma<C, D><<<grid, THREADS, Tile::smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -180,8 +201,9 @@ __global__ void __launch_bounds__(THREADS) paged_flash_kernel(const PagedFlashPa
 
   float l_i[ROWS_T], acc[ROWS_T][D / paged::CG];
   paged::attend<C, D>(sm, static_cast<const C*>(p.k), static_cast<const C*>(p.v),
-                      p.block_table + (long long)b * p.MB, g, p.Hkv, p.bs, p.NB1, limit, p.scale,
-                      l_i, acc);
+                      p.block_table + (long long)b * p.MB, g, p.Hkv, p.bs, p.NB1, limit,
+                      p.scale * dequant_factor(p.k_scale, g, p.qmax), l_i, acc);
+  const float vf = dequant_factor(p.v_scale, g, p.qmax);
 
   const int r = tid / paged::CG;
 #pragma unroll
@@ -190,7 +212,7 @@ __global__ void __launch_bounds__(THREADS) paged_flash_kernel(const PagedFlashPa
     const int t = iq * tqp + lrow % tqp;
     if (t >= p.Sq) continue;
     const int h = g * n_rep + lrow / tqp;
-    paged::finalize_row<T, D>(op + (((long long)b * p.Sq + t) * p.Hq + h) * D, l_i[i], acc[i]);
+    paged::finalize_row<T, D>(op + (((long long)b * p.Sq + t) * p.Hq + h) * D, l_i[i], acc[i], vf);
   }
 }
 
@@ -204,38 +226,43 @@ cudaError_t launch(const PagedFlashParams& p, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// a code cache C under a bf16 q (tensor cores) or an fp32 q (attend)
 template <typename C>
-cudaError_t launch_codes(const PagedFlashParams& p, int B, int D, cudaStream_t stream) {
-  if (D == 64) return launch<float, C, 64>(p, B, stream);
-  if (D == 128) return launch<float, C, 128>(p, B, stream);
+cudaError_t launch_codes(const PagedFlashParams& p, int B, int D, int dtype, cudaStream_t stream) {
+  if (!p.k_scale || !p.v_scale || !(p.qmax > 0.f)) return cudaErrorInvalidValue;
+  if (dtype == kBFloat16 && D == 64) return launch_mma<C, 64>(p, B, stream);
+  if (dtype == kBFloat16 && D == 128) return launch_mma<C, 128>(p, B, stream);
+  if (dtype == kFloat32 && D == 64) return launch<float, C, 64>(p, B, stream);
+  if (dtype == kFloat32 && D == 128) return launch<float, C, 128>(p, B, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace nxdi
 
+// dtype: q's and out's (bf16 or fp32); cache_dtype: dtype, or an int8/fp8
+// code type, whose layer's (Hkv,) fp32 running scales k_scale / v_scale
+// and qmax come with it (null and 0 for a plain cache).
 extern "C" int nxdi_paged_flash_attention(
     const void* q, const void* k, const void* v, const int* block_table,
     const int* positions, const int* kv_limit, void* out,
     int B, int Sq, int Hq, int Hkv, int D, int NB1, int bs, int MB,
-    float scale, int dtype, int cache_dtype, void* stream) {
+    float scale, int dtype, int cache_dtype, const float* k_scale, const float* v_scale, float qmax, void* stream) {
   using namespace nxdi;
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || BQ % (Hq / Hkv) != 0 ||
       NB1 <= 0 || bs <= 0 || MB <= 0)
     return (int)cudaErrorInvalidValue;
   PagedFlashParams p{q, k, v, block_table, positions, kv_limit, out,
-                     Sq, Hq, Hkv, NB1, bs, MB, scale};
+                     Sq, Hq, Hkv, NB1, bs, MB, scale, k_scale, v_scale, qmax};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (cache_dtype != dtype) {
-    // code mode: an fp32 (folded) q over 1-byte code blocks
-    if (dtype != kFloat32) err = cudaErrorInvalidValue;
-    else if (cache_dtype == kInt8) err = launch_codes<int8_t>(p, B, D, st);
-    else if (cache_dtype == kFp8E4M3) err = launch_codes<Fp8E4M3>(p, B, D, st);
-    else if (cache_dtype == kFp8E5M2) err = launch_codes<Fp8E5M2>(p, B, D, st);
-  } else if (dtype == kFloat32 && D == 64) err = launch<float, float, 64>(p, B, st);
+  if (cache_dtype == kInt8) err = launch_codes<int8_t>(p, B, D, dtype, st);
+  else if (cache_dtype == kFp8E4M3) err = launch_codes<Fp8E4M3>(p, B, D, dtype, st);
+  else if (cache_dtype == kFp8E5M2) err = launch_codes<Fp8E5M2>(p, B, D, dtype, st);
+  else if (cache_dtype != dtype) err = cudaErrorInvalidValue;
+  else if (dtype == kFloat32 && D == 64) err = launch<float, float, 64>(p, B, st);
   else if (dtype == kFloat32 && D == 128) err = launch<float, float, 128>(p, B, st);
-  else if (dtype == kBFloat16 && D == 64) err = launch_mma<64>(p, B, st);
-  else if (dtype == kBFloat16 && D == 128) err = launch_mma<128>(p, B, st);
+  else if (dtype == kBFloat16 && D == 64) err = launch_mma<__nv_bfloat16, 64>(p, B, st);
+  else if (dtype == kBFloat16 && D == 128) err = launch_mma<__nv_bfloat16, 128>(p, B, st);
   return (int)err;
 }

@@ -50,12 +50,18 @@
 //   head, head group) blocks: a function of the shapes and the card only.
 // - fp32 (parity checks only): the first version's FMA loop,
 //   paged_attention_tile.cuh attend (B5's fp32 path too), no split.
-// - Code mode (int8 / fp8 e4m3 / e5m2 code blocks): the wrapper folds the
-//   layer's K factor scale / qmax into q in fp32 (the reference's k_scale)
-//   and multiplies the fp32 output by the V factor (v_scale); the kernel is
-//   the fp32 route over that q with the cache read as 1-byte codes, each
-//   converted to fp32 in registers as attend() loads it into the block's
-//   fp32 K / V tile. No split, no dequantized cache written.
+// - Code mode (int8 / fp8 e4m3 / e5m2 code blocks with the layer's (Hkv,)
+//   running scales and the code type's qmax, read on the device at launch,
+//   so a captured graph sees each step's): the same routes over 1-byte
+//   code tiles, the caller's q taken as it is and nothing folded into it or
+//   written around the launch; K's factor scale / qmax multiplies the score
+//   scale, V's the finalized output (after the combine) before its one
+//   rounding. With a bf16 q, prefill tiles run flash_mma over code tiles
+//   (three 1-byte stages, each tile converted by the block into a padded
+//   bf16 pair: exactly, every code being a bf16 value) and decode tiles
+//   the split template over code tiles (kv_tile.cuh, B4's staging: 1-byte
+//   rows padded by 16 bytes, codes to fp32 in registers), split and
+//   combined in the launch as in bf16. An fp32 q takes attend, one split.
 // - A tile of no row writes zeros; so does a prefill tile's slot past its
 //   row's row_len. Block 0, any id outside [1, NB] and any position >=
 //   ctx_len[r] load as zeros (cp.async's zero fill in bf16): the fault
@@ -77,6 +83,7 @@
 
 #include <algorithm>
 
+#include "kv_tile.cuh"
 #include "paged_attention_tile.cuh"
 
 namespace nxdi {
@@ -88,7 +95,7 @@ using paged::ROWS_T;
 using paged::THREADS;
 
 constexpr int Q_TILE = 16;  // packed slots per tile (the reference's RAGGED_Q_TILE)
-constexpr int DS_TILE = 64;  // decode tiles: positions per staged tile
+constexpr int DS_TILE = kv::TILE;  // decode tiles: positions per staged tile
 constexpr int MAX_SPLITS = 32;
 
 struct RaggedParams {
@@ -106,6 +113,11 @@ struct RaggedParams {
   unsigned* counter;  // (T / 16, Hkv, head groups), 0 between launches
   int R, Hq, Hkv, HG, NB1, bs, MB, splits, per, tiles;
   float scale;
+  // code mode: the layer's (Hkv,) fp32 K / V running scales and the code
+  // type's qmax (null and 0 for a plain cache)
+  const float* k_scale;
+  const float* v_scale;
+  float qmax;
 };
 
 // The tile's row: the first active row whose segment holds slot t0, or R.
@@ -161,7 +173,8 @@ __global__ void __launch_bounds__(THREADS) ragged_paged_kernel(const RaggedParam
   float l_i[ROWS_T], acc[ROWS_T][D / paged::CG];
   paged::attend<C, D>(sm, static_cast<const C*>(p.k), static_cast<const C*>(p.v),
                       p.block_table + (long long)(has ? row : 0) * p.MB, g, p.Hkv, p.bs, p.NB1,
-                      limit, p.scale, l_i, acc);
+                      limit, p.scale * dequant_factor(p.k_scale, g, p.qmax), l_i, acc);
+  const float vf = dequant_factor(p.v_scale, g, p.qmax);
 
   // thread (r, c) holds the rows r + RG * i: slot r of the tile, local head i
   const int r = tid / paged::CG;
@@ -170,40 +183,39 @@ __global__ void __launch_bounds__(THREADS) ragged_paged_kernel(const RaggedParam
     const int qr = r + RG * i;
     const int lh = qr / Q_TILE;
     if (lh >= p.HG) continue;
-    paged::finalize_row<T, D>(op + ((long long)(t0 + qr % Q_TILE) * p.Hq + h0 + lh) * D, l_i[i], acc[i]);
+    paged::finalize_row<T, D>(op + ((long long)(t0 + qr % Q_TILE) * p.Hq + h0 + lh) * D, l_i[i], acc[i], vf);
   }
 }
 
 static_assert(RG == Q_TILE, "a thread's rows must be one slot's heads");
 
 // ---------------------------------------------------------------------------
-// bf16: prefill tiles on the tensor cores, decode tiles split over the grid
+// bf16 q: prefill tiles on the tensor cores, decode tiles split over the
+// grid; over a bf16 cache or code blocks C
 // ---------------------------------------------------------------------------
 
-// A decode tile's shared memory: the HG query rows, two stages of (K, V)
-// tiles padded by 16 bytes a row, a probability row per warp, the split's
-// table entries.
-template <int D>
+// A decode tile's shared memory: the HG bf16 query rows, two stages of (K,
+// V) tiles of C in padded rows (kv_tile.cuh), a probability row per warp,
+// the split's table entries.
+template <typename C, int D>
 struct DecodeTile {
-  static constexpr int LD = D + 8;
-  static constexpr int KV = DS_TILE * LD;
+  static constexpr int KV = kv::Row<C, D>::KV;
   static size_t smem(int per, int bs) {
-    return sizeof(__nv_bfloat16) * ((size_t)4 * D + 4 * KV) + sizeof(float) * 4 * DS_TILE +
+    return sizeof(__nv_bfloat16) * (size_t)4 * D + sizeof(C) * (size_t)4 * KV + sizeof(float) * 4 * DS_TILE +
            sizeof(int) * (per / bs + 2);
   }
 };
 
 // The decode tile `tile` (its live slot t0 = 16 tile, row `row`, limit
 // positions of context) for kv head g, q heads [h0, h0 + HG), kv split z.
-template <int D>
+template <typename C, int D>
 __device__ __forceinline__ void decode_tile(unsigned char* smem_raw, const RaggedParams& p, int tile, int g, int h0,
                                             int hgi, int z, int row, int limit) {
   using bf16 = __nv_bfloat16;
-  using Tile = DecodeTile<D>;
-  constexpr int LD = Tile::LD;
-  constexpr int EV = 8;         // bf16 per 16 bytes
-  constexpr int VPR = D / EV;   // 16-byte vectors per position
-  constexpr int DPL = D / 32;   // output dims per lane
+  using Tile = DecodeTile<C, D>;
+  constexpr int EQ = 8;        // bf16 per 16 bytes
+  constexpr int QPR = D / EQ;  // 16-byte vectors per q row
+  constexpr int DPL = D / 32;  // output dims per lane
   const int lo = z * p.per;
   if (lo >= limit) return;  // past the row's context: the combine counts live splits only
   const int hi = min(lo + p.per, limit);
@@ -212,15 +224,15 @@ __device__ __forceinline__ void decode_tile(unsigned char* smem_raw, const Ragge
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int t0 = tile * Q_TILE;
   bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // (4, D)
-  bf16* KVs = Qs + 4 * D;                        // stage s: K at 2 s KV, V right after
+  C* KVs = reinterpret_cast<C*>(Qs + 4 * D);     // stage s: K at 2 s KV, V right after
   float* Pw = reinterpret_cast<float*>(KVs + 4 * Tile::KV) + warp * DS_TILE;
   int* table_s = reinterpret_cast<int*>(reinterpret_cast<float*>(KVs + 4 * Tile::KV) + 4 * DS_TILE);
   const bf16* qp = static_cast<const bf16*>(p.q);
   bf16* op = static_cast<bf16*>(p.out);
 
   // warp w < HG owns the query row of head h0 + w at slot t0
-  for (int i = tid; i < p.HG * VPR; i += THREADS) {
-    const int r = i / VPR, e = (i % VPR) * EV;
+  for (int i = tid; i < p.HG * QPR; i += THREADS) {
+    const int r = i / QPR, e = (i % QPR) * EQ;
     cp_async16(Qs + r * D + e, qp + ((long long)t0 * p.Hq + h0 + r) * D + e, true);
   }
   cp_async_commit();
@@ -233,99 +245,62 @@ __device__ __forceinline__ void decode_tile(unsigned char* smem_raw, const Ragge
   }
   __syncthreads();
 
-  const bf16* kc = static_cast<const bf16*>(p.k);
-  const bf16* vc = static_cast<const bf16*>(p.v);
+  const C* kc = static_cast<const C*>(p.k);
+  const C* vc = static_cast<const C*>(p.v);
   auto load_tile = [&](int j, int stage) {
-    const int s0 = lo + j * DS_TILE, n = min(DS_TILE, hi - s0);
-    bf16* Ks = KVs + 2 * stage * Tile::KV;
-    bf16* Vs = Ks + Tile::KV;
-    for (int i = tid; i < n * VPR; i += THREADS) {
-      const int c = i / VPR, e = (i % VPR) * EV;
+    const int s0 = lo + j * DS_TILE;
+    C* Ks = KVs + 2 * stage * Tile::KV;
+    kv::stage_tile<C, D>(Ks, Ks + Tile::KV, kc, vc, min(DS_TILE, hi - s0), [&](int c, int e) -> long long {
       const int s = s0 + c;
-      const int blk = table_s[s / p.bs - blk0];
-      const bool full = blk != 0;  // block 0 reads nothing
-      const long long off = full ? (((long long)blk * p.Hkv + g) * p.bs + s % p.bs) * D + e : 0;
-      cp_async16(Ks + c * LD + e, kc + off, full);
-      cp_async16(Vs + c * LD + e, vc + off, full);
-    }
-    cp_async_commit();
+      const int blk = table_s[s / p.bs - blk0];  // block 0 reads nothing
+      return blk != 0 ? (((long long)blk * p.Hkv + g) * p.bs + s % p.bs) * D + e : -1;
+    }, tid, THREADS);
   };
 
+  const float score_scale = p.scale * dequant_factor(p.k_scale, g, p.qmax);
   const bool has_row = warp < p.HG;
-  float m_r = NEG_INF, l_r = 0.f, acc[DPL];
+  float m_r[1] = {NEG_INF}, l_r[1] = {0.f}, acc[1][DPL];
 #pragma unroll
-  for (int k = 0; k < DPL; ++k) acc[k] = 0.f;
+  for (int k = 0; k < DPL; ++k) acc[0][k] = 0.f;
   load_tile(0, 0);
   for (int j = 0, stage = 0; j < nt; ++j, stage ^= 1) {
     cp_async_wait<0>();
     __syncthreads();  // tile j landed for every thread; every warp is done with the other stage
     if (j + 1 < nt) load_tile(j + 1, stage ^ 1);
     if (!has_row) continue;
-    const int s0 = lo + j * DS_TILE, n = min(DS_TILE, hi - s0);
-    const bf16* Ks = KVs + 2 * stage * Tile::KV;
-    const bf16* Vs = Ks + Tile::KV;
-    const bool two = n > 32;  // positions lane + 32 in use (warp-uniform)
-    float d0 = 0.f, d1 = 0.f;
-#pragma unroll 2
-    for (int e = 0; e < D; e += EV) {
-      float k0[EV], k1[EV], qv[EV];
-      Vec16<bf16>::unpack(*reinterpret_cast<const uint4*>(Ks + lane * LD + e), k0);
-      Vec16<bf16>::unpack(*reinterpret_cast<const uint4*>(Ks + (two ? lane + 32 : lane) * LD + e), k1);
-      Vec16<bf16>::unpack(*reinterpret_cast<const uint4*>(Qs + warp * D + e), qv);
-#pragma unroll
-      for (int u = 0; u < EV; ++u) {
-        d0 = fmaf(qv[u], k0[u], d0);
-        d1 = fmaf(qv[u], k1[u], d1);
-      }
-    }
-    const bool ok0 = lane < n, ok1 = lane + 32 < n;  // every position < limit is allowed
-    const float sa = ok0 ? d0 * p.scale : NEG_INF;
-    const float sb = ok1 ? d1 * p.scale : NEG_INF;
-    const float m_new = fmaxf(m_r, group_max<32>(fmaxf(sa, sb)));
-    const float pa = ok0 ? expf(sa - m_new) : 0.f;
-    const float pb = ok1 ? expf(sb - m_new) : 0.f;
-    const float alpha = expf(m_r - m_new);
-    l_r = l_r * alpha + group_sum<32>(pa + pb);
-    m_r = m_new;
-#pragma unroll
-    for (int k = 0; k < DPL; ++k) acc[k] *= alpha;
-    Pw[lane] = pa;
-    Pw[lane + 32] = pb;
-    __syncwarp();
-#pragma unroll 4
-    for (int c = 0; c < n; ++c) {
-      const float pr = Pw[c];
-#pragma unroll
-      for (int k = 0; k < DPL; ++k) acc[k] = fmaf(pr, to_float(Vs[c * LD + lane * DPL + k]), acc[k]);
-    }
+    const C* Ks = KVs + 2 * stage * Tile::KV;
+    // every position < limit is allowed
+    kv::tile_rows<bf16, C, D, 1, THREADS / 32>(Qs, Ks, Ks + Tile::KV, min(DS_TILE, hi - lo - j * DS_TILE), 1,
+                                               score_scale, [](int, int) { return true; }, Pw, m_r, l_r, acc);
   }
   cp_async_wait<0>();
 
   // the tile's 15 other slots are no row's: exact zeros (split 0)
   if (z == 0) {
-    for (int i = tid; i < (Q_TILE - 1) * p.HG * VPR; i += THREADS) {
-      const int slot = t0 + 1 + i / (p.HG * VPR), r = (i / VPR) % p.HG, e = (i % VPR) * EV;
+    for (int i = tid; i < (Q_TILE - 1) * p.HG * QPR; i += THREADS) {
+      const int slot = t0 + 1 + i / (p.HG * QPR), r = (i / QPR) % p.HG, e = (i % QPR) * EQ;
       *reinterpret_cast<uint4*>(op + ((long long)slot * p.Hq + h0 + r) * D + e) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
+  const float vf = dequant_factor(p.v_scale, g, p.qmax);
   const long long TH = (long long)p.tiles * p.Hq;
   const long long rh = (long long)tile * p.Hq + h0 + warp;  // (tile, q head) of the warp's row
   bf16* orow = op + ((long long)t0 * p.Hq + h0 + warp) * D + lane * DPL;
   if (n_live == 1) {
     if (has_row) {
 #pragma unroll
-      for (int k = 0; k < DPL; ++k) orow[k] = from_float<bf16>(acc[k] / fmaxf(l_r, 1e-30f));
+      for (int k = 0; k < DPL; ++k) orow[k] = from_float<bf16>(acc[0][k] / fmaxf(l_r[0], 1e-30f) * vf);
     }
     return;
   }
   if (has_row) {
     const long long o = z * TH + rh;
     if (lane == 0) {
-      p.m_part[o] = m_r;
-      p.l_part[o] = l_r;
+      p.m_part[o] = m_r[0];
+      p.l_part[o] = l_r[0];
     }
 #pragma unroll
-    for (int k = 0; k < DPL; ++k) p.acc_part[o * D + lane * DPL + k] = acc[k];
+    for (int k = 0; k < DPL; ++k) p.acc_part[o * D + lane * DPL + k] = acc[0][k];
   }
   const int n_hg = (p.Hq / p.Hkv) / p.HG;
   if (!last_block(p.counter + ((long long)tile * p.Hkv + g) * n_hg + hgi, n_live) || !has_row) return;
@@ -361,10 +336,10 @@ __device__ __forceinline__ void decode_tile(unsigned char* smem_raw, const Ragge
     }
   }
 #pragma unroll
-  for (int k = 0; k < DPL; ++k) orow[k] = from_float<bf16>(num[k] / fmaxf(den, 1e-30f));
+  for (int k = 0; k < DPL; ++k) orow[k] = from_float<bf16>(num[k] / fmaxf(den, 1e-30f) * vf);
 }
 
-template <int D>
+template <typename C, int D>
 __global__ void __launch_bounds__(THREADS) ragged_bf16_kernel(const RaggedParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int tile = blockIdx.x, t0 = tile * Q_TILE;
@@ -380,7 +355,7 @@ __global__ void __launch_bounds__(THREADS) ragged_bf16_kernel(const RaggedParams
   // the row's table covers MB * bs positions: nothing past them exists
   const int limit = has ? min(cl, p.MB * p.bs) : 0;
   if (rl == 1) {
-    decode_tile<D>(smem_raw, p, tile, g, h0, hgi, z, row, limit);
+    decode_tile<C, D>(smem_raw, p, tile, g, h0, hgi, z, row, limit);
     return;
   }
   if (z > 0) return;  // a prefill tile, or a tile of no row: split 0 only
@@ -393,9 +368,10 @@ __global__ void __launch_bounds__(THREADS) ragged_bf16_kernel(const RaggedParams
     const int off = t0 + qr % Q_TILE - rs;
     return has && off < rl ? cl - rl + off : -1;
   };
-  paged::flash_mma<D>(smem_raw, static_cast<const __nv_bfloat16*>(p.q), static_cast<__nv_bfloat16*>(p.out), row_off,
-                      row_pos, static_cast<const __nv_bfloat16*>(p.k), static_cast<const __nv_bfloat16*>(p.v),
-                      p.block_table + (long long)(has ? row : 0) * p.MB, g, p.Hkv, p.bs, p.NB1, limit, p.scale);
+  paged::flash_mma<C, D>(smem_raw, static_cast<const __nv_bfloat16*>(p.q), static_cast<__nv_bfloat16*>(p.out),
+                         row_off, row_pos, static_cast<const C*>(p.k), static_cast<const C*>(p.v),
+                         p.block_table + (long long)(has ? row : 0) * p.MB, g, p.Hkv, p.bs, p.NB1, limit,
+                         p.scale * dequant_factor(p.k_scale, g, p.qmax), dequant_factor(p.v_scale, g, p.qmax));
 }
 
 template <typename T, typename C, int D>
@@ -407,35 +383,41 @@ cudaError_t launch(const RaggedParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename C>
-cudaError_t launch_codes(const RaggedParams& p, int D, cudaStream_t stream) {
-  if (D == 64) return launch<float, C, 64>(p, stream);
-  if (D == 128) return launch<float, C, 128>(p, stream);
-  return cudaErrorInvalidValue;
+template <typename C, int D>
+cudaError_t launch_bf16(const RaggedParams& p, cudaStream_t stream) {
+  const size_t smem = std::max(paged::MmaTile<C, D>::smem, DecodeTile<C, D>::smem(p.per, p.bs));
+  const dim3 grid(p.tiles, p.Hkv, (p.Hq / p.Hkv) / p.HG * p.splits);
+  return launch_ex(ragged_bf16_kernel<C, D>, grid, dim3(THREADS), smem, stream, false, p);
 }
 
-template <int D>
-cudaError_t launch_bf16(const RaggedParams& p, cudaStream_t stream) {
-  const size_t smem = std::max(paged::MmaTile<D>::smem, DecodeTile<D>::smem(p.per, p.bs));
-  const dim3 grid(p.tiles, p.Hkv, (p.Hq / p.Hkv) / p.HG * p.splits);
-  return launch_ex(ragged_bf16_kernel<D>, grid, dim3(THREADS), smem, stream, false, p);
+// a code cache C under a bf16 q (the split routes) or an fp32 q (attend,
+// one split)
+template <typename C>
+cudaError_t launch_codes(const RaggedParams& p, int D, int dtype, cudaStream_t stream) {
+  if (!p.k_scale || !p.v_scale || !(p.qmax > 0.f)) return cudaErrorInvalidValue;
+  if (dtype == kBFloat16 && D == 64) return launch_bf16<C, 64>(p, stream);
+  if (dtype == kBFloat16 && D == 128) return launch_bf16<C, 128>(p, stream);
+  if (dtype == kFloat32 && p.splits == 1 && D == 64) return launch<float, C, 64>(p, stream);
+  if (dtype == kFloat32 && p.splits == 1 && D == 128) return launch<float, C, 128>(p, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 }  // namespace nxdi
 
 // splits, per: the decode tiles' kv split (ops/ragged_paged_attention.py::
-// ragged_decode_split; bf16 only, fp32 takes 1); m_part / l_part /
+// ragged_decode_split; bf16 q only, fp32 takes 1); m_part / l_part /
 // acc_part: fp32 scratch of splits * T / 16 * Hq (* D) values, counters:
 // T / 16 * Hkv * (n_rep / HG) completion counters, zero on entry and left
 // zero; both unused (may be null) for one split. cache_dtype: dtype, or an
-// int8/fp8 code type with an fp32 (folded) q and one split.
+// int8/fp8 code type, whose layer's (Hkv,) fp32 running scales k_scale /
+// v_scale and qmax come with it (null and 0 for a plain cache).
 extern "C" int nxdi_ragged_paged_attention(
     const void* q, const void* k, const void* v, const int* block_table,
     const int* row_start, const int* row_len, const int* ctx_len, void* out,
     float* m_part, float* l_part, float* acc_part, void* counters,
     int T, int R, int Hq, int Hkv, int HG, int D, int NB1, int bs, int MB, int splits, int per,
-    float scale, int dtype, int cache_dtype, void* stream) {
+    float scale, int dtype, int cache_dtype, const float* k_scale, const float* v_scale, float qmax, void* stream) {
   using namespace nxdi;
   if (T <= 0 || T % Q_TILE != 0 || R <= 0 || Hkv <= 0 || Hq % Hkv != 0 || HG <= 0 ||
       (Hq / Hkv) % HG != 0 || HG * Q_TILE > BQ || NB1 <= 0 || bs <= 0 || MB <= 0 || splits < 1 ||
@@ -444,19 +426,16 @@ extern "C" int nxdi_ragged_paged_attention(
       (splits > 1 && (!m_part || !l_part || !acc_part || !counters)))
     return (int)cudaErrorInvalidValue;
   RaggedParams p{q, k, v, block_table, row_start, row_len, ctx_len, out, m_part, l_part, acc_part,
-                 static_cast<unsigned*>(counters), R, Hq, Hkv, HG, NB1, bs, MB, splits, per, T / Q_TILE, scale};
+                 static_cast<unsigned*>(counters), R, Hq, Hkv, HG, NB1, bs, MB, splits, per, T / Q_TILE, scale,
+                 k_scale, v_scale, qmax};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (cache_dtype != dtype) {
-    // code mode: an fp32 (folded) q over 1-byte code blocks, one split
-    if (dtype != kFloat32 || splits != 1) return (int)cudaErrorInvalidValue;
-    if (cache_dtype == kInt8) return (int)launch_codes<int8_t>(p, D, st);
-    if (cache_dtype == kFp8E4M3) return (int)launch_codes<Fp8E4M3>(p, D, st);
-    if (cache_dtype == kFp8E5M2) return (int)launch_codes<Fp8E5M2>(p, D, st);
-    return (int)cudaErrorInvalidValue;
-  }
+  if (cache_dtype == kInt8) return (int)launch_codes<int8_t>(p, D, dtype, st);
+  if (cache_dtype == kFp8E4M3) return (int)launch_codes<Fp8E4M3>(p, D, dtype, st);
+  if (cache_dtype == kFp8E5M2) return (int)launch_codes<Fp8E5M2>(p, D, dtype, st);
+  if (cache_dtype != dtype) return (int)cudaErrorInvalidValue;
   if (dtype == kFloat32 && splits == 1 && D == 64) return (int)launch<float, float, 64>(p, st);
   if (dtype == kFloat32 && splits == 1 && D == 128) return (int)launch<float, float, 128>(p, st);
-  if (dtype == kBFloat16 && D == 64) return (int)launch_bf16<64>(p, st);
-  if (dtype == kBFloat16 && D == 128) return (int)launch_bf16<128>(p, st);
+  if (dtype == kBFloat16 && D == 64) return (int)launch_bf16<__nv_bfloat16, 64>(p, st);
+  if (dtype == kBFloat16 && D == 128) return (int)launch_bf16<__nv_bfloat16, 128>(p, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -245,12 +245,11 @@ def paged_attend(
         )
 
         # a quantized cache hands the kernel this layer's code blocks and
-        # per-head factors (the reference's base.py:642-661)
-        k_l, v_l, ks, vs = layer_streams(k_cache, v_cache, layer_idx)
+        # views of its per-head scales (the reference's base.py:642-661)
+        k_l, v_l, codes = layer_streams(k_cache, v_cache, layer_idx)
         return paged_flash_attention(
             q, k_l, v_l, block_table, positions, kv_limit,
-            scale=aspec.softmax_scale, n_rep=aspec.num_heads // aspec.num_kv_heads,
-            k_scale=ks, v_scale=vs,
+            scale=aspec.softmax_scale, n_rep=aspec.num_heads // aspec.num_kv_heads, **codes,
         )
     if use_tkg(aspec):
         from neuronx_distributed_inference_tpu_torch.ops.decode_attention import (

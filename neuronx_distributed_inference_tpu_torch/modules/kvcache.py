@@ -14,8 +14,9 @@ decode step never re-reads the cache to rescale; earlier codes keep
 dequantizing as ``codes * scale / qmax`` with the grown scale. Codes AND
 scales are updated in place: a captured CUDA graph holds both addresses.
 Reads either dequantize after the slice (the plain paths) or hand the codes
-and the layer's factors to the decode kernels, which convert the codes in
-registers (``ops/decode_attention.py``).
+and the scales to the attention kernels, which read the scales on the
+device and convert the codes themselves (``ops/decode_attention.py``,
+:func:`layer_streams`).
 """
 
 from __future__ import annotations
@@ -97,19 +98,23 @@ def dequantize_kv(codes: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def layer_dequant_factors(stream: QuantizedKV, layer_idx: int) -> torch.Tensor:
-    """Per-head factors scale / qmax (H,) of one layer: what the kernels
-    fold into q (K stream) and the output (V stream)."""
+    """Per-head factors scale / qmax (H,) of one layer: what the reference
+    folds into q (K stream) and the output (V stream)."""
     return stream.scale[layer_idx] / kv_qmax(stream.data.dtype)
 
 
 def layer_streams(k_cache: Stream, v_cache: Stream, layer_idx: int):
     """One layer of both streams as the paged kernels take it: (k layer,
-    v layer, K factors, V factors), the factors (H,) scale / qmax for a
-    quantized cache and None for a plain one."""
+    v layer, code kwargs). A quantized cache's kwargs are ``k_scale`` /
+    ``v_scale``, views of the layer's (H,) running scales that the kernels
+    read on the device at launch (no op runs per layer), with ``kv_qmax``,
+    the code type's qmax that divides them into factors; a plain cache's
+    are empty."""
     if isinstance(k_cache, QuantizedKV):
         return (k_cache.data[layer_idx], v_cache.data[layer_idx],
-                layer_dequant_factors(k_cache, layer_idx), layer_dequant_factors(v_cache, layer_idx))
-    return k_cache[layer_idx], v_cache[layer_idx], None, None
+                dict(k_scale=k_cache.scale[layer_idx], v_scale=v_cache.scale[layer_idx],
+                     kv_qmax=kv_qmax(k_cache.data.dtype)))
+    return k_cache[layer_idx], v_cache[layer_idx], {}
 
 
 def _quantized_update(k_stream: QuantizedKV, v_stream: QuantizedKV, k_new: torch.Tensor, v_new: torch.Tensor,

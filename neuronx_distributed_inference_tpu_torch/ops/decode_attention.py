@@ -203,6 +203,20 @@ def _split_parts(q, S_kv, Hkv, stream):
     return splits, per, [base, base + 4 * n, base + 8 * n]
 
 
+def scale_args(name, k_scale, v_scale, qmax):
+    """The C entries' code-mode arguments: the K and V scales' device
+    pointers (contiguous fp32, read by the kernel at launch) and the qmax
+    that divides them into factors; (null, null, 0) for a plain cache."""
+    if k_scale is None:
+        return [None, None, 0.0]
+    for x in (k_scale, v_scale):
+        if x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name}: scales must be contiguous fp32, got {x.dtype} {tuple(x.shape)}")
+    if not qmax > 0:
+        raise ValueError(f"{name}: qmax {qmax} must be positive")
+    return [k_scale.data_ptr(), v_scale.data_ptr(), float(qmax)]
+
+
 def _code_args(name, streams, Hkv):
     """The C entry's code-mode arguments: the K and V streams' (L, Hkv)
     fp32 running scales and the code type's qmax (none for a plain cache)."""
@@ -210,9 +224,9 @@ def _code_args(name, streams, Hkv):
         return [None, None, 0.0]
     k, v = streams
     for x in (k.scale, v.scale):
-        if x.dtype != torch.float32 or not x.is_contiguous() or tuple(x.shape) != (k.shape[0], Hkv):
-            raise ValueError(f"{name}: scales {tuple(x.shape)} {x.dtype} != contiguous fp32 {(k.shape[0], Hkv)}")
-    return [k.scale.data_ptr(), v.scale.data_ptr(), kv_qmax(k.dtype)]
+        if tuple(x.shape) != (k.shape[0], Hkv):
+            raise ValueError(f"{name}: scales {tuple(x.shape)} != {(k.shape[0], Hkv)}")
+    return scale_args(name, k.scale, v.scale, kv_qmax(k.dtype))
 
 
 def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv, streams=None):

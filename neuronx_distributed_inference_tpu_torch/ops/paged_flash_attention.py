@@ -17,13 +17,16 @@ the P.V operand; fp32 keeps the FMA loop. The source says why.
 :func:`paged_flash_attention` launches the kernel for CUDA tensors and runs
 :func:`paged_flash_attention_plain` only for tensors on the CPU.
 
-An int8/fp8 cache layer comes with the layer's per-head factors
-``k_scale`` / ``v_scale`` (scale / qmax, (Hkv,)), as in the reference: the
-kernel's code mode takes q folded with ``k_scale`` in fp32, reads the
-1-byte code blocks and converts them in registers (its fp32 path), and
-``v_scale`` multiplies its fp32 output before the cast to q's dtype;
-launches count under :data:`CODE_KERNEL`. The plain version dequantizes
-after the gather.
+An int8/fp8 cache layer comes with the layer's per-head scales
+``k_scale`` / ``v_scale`` ((Hkv,) fp32) and ``kv_qmax``: the dequant
+factors are ``k_scale / kv_qmax`` (the reference's k_scale / v_scale):
+pass the factors themselves with ``kv_qmax`` 1, or the layer's running
+scales (views of the cache's (L, Hkv) scales) with the code type's qmax.
+The kernel's code mode takes the caller's q (bf16: the tensor-core body
+over code tiles; fp32: the FMA loop), reads the scales on the device and
+converts the 1-byte codes itself: one launch, nothing folded or rescaled
+around it. Launches count under :data:`CODE_KERNEL`. The plain version
+takes the factors and dequantizes after the gather.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from typing import Optional
 import torch
 
 from neuronx_distributed_inference_tpu_torch.ops import _cuda
-from neuronx_distributed_inference_tpu_torch.ops.decode_attention import CODE_DTYPES, dtype_code
+from neuronx_distributed_inference_tpu_torch.ops.decode_attention import CODE_DTYPES, dtype_code, scale_args
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import launches_kernel
 
 NEG_INF = -1e30
@@ -115,9 +118,9 @@ def _check(q, k_cache, v_cache, block_table, positions, kv_limit, n_rep, k_scale
         raise ValueError(f"{name}: dtypes {q.dtype}/{k_cache.dtype}/{v_cache.dtype} (bf16 or fp32, all equal)")
 
 
-def _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep, counter=KERNEL):
-    """One launch over plain cache blocks of q's dtype, or, with ``counter``
-    = CODE_KERNEL, over 1-byte code blocks with an fp32 (folded) q."""
+def _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep, code_args=(None, None, 0.0)):
+    """One launch over plain cache blocks of q's dtype, or, with the
+    ``code_args`` of a code cache, over its 1-byte code blocks."""
     B, Sq, Hq, D = q.shape
     NB1, Hkv, bs, _ = k_cache.shape
     if Q_ROWS % n_rep:
@@ -133,15 +136,16 @@ def _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep,
     pos = positions.to(torch.int32).contiguous()
     limit = kv_limit.to(torch.int32).contiguous()
     out = torch.empty_like(q)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function(KERNEL, "nxdi_paged_flash_attention", [P] * 7 + [I] * 8 + [ctypes.c_float, I, I, P])
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _cuda.function(KERNEL, "nxdi_paged_flash_attention", [P] * 7 + [I] * 8 + [F, I, I, P, P, F, P])
     err = fn(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), table.data_ptr(),
         pos.data_ptr(), limit.data_ptr(), out.data_ptr(),
         B, Sq, Hq, Hkv, D, NB1, bs, table.shape[1],
-        float(scale), _DTYPE_CODES[q.dtype], dtype_code(k_cache.dtype),
+        float(scale), _DTYPE_CODES[q.dtype], dtype_code(k_cache.dtype), *code_args,
         _cuda.stream_ptr(q.device),
     )
+    counter = KERNEL if code_args[0] is None else CODE_KERNEL
     _cuda.check(err, counter)
     _cuda.LAUNCHES[counter] += 1
     return out
@@ -157,22 +161,22 @@ def paged_flash_attention(
     *,
     scale: float,
     n_rep: int,
-    k_scale: Optional[torch.Tensor] = None,  # (Hkv,) the layer's K factors scale / qmax
+    k_scale: Optional[torch.Tensor] = None,  # (Hkv,) fp32: K factors k_scale / kv_qmax
     v_scale: Optional[torch.Tensor] = None,  # for int8/fp8 code blocks; None = plain cache
+    kv_qmax: float = 1.0,
 ) -> torch.Tensor:
     """Prefix/chunked-prefill attention straight off the paged cache.
     Returns (B, Sq, Hq, D) in q's dtype. CUDA tensors launch the kernel (its
-    code mode with ``k_scale``/``v_scale``) or raise on what it does not
-    take; CPU tensors take the plain version."""
+    code mode with ``k_scale``/``v_scale``, one launch) or raise on what it
+    does not take; CPU tensors take the plain version."""
     _check(q, k_cache, v_cache, block_table, positions, kv_limit, n_rep, k_scale, v_scale)
     scales = [k_scale, v_scale] if k_scale is not None else []
     if not launches_kernel(q, k_cache, v_cache, block_table, positions, kv_limit, *scales):
+        if k_scale is not None and kv_qmax != 1.0:
+            k_scale, v_scale = k_scale / kv_qmax, v_scale / kv_qmax
         return paged_flash_attention_plain(
             q, k_cache, v_cache, block_table, positions, kv_limit, scale=scale, n_rep=n_rep,
             k_scale=k_scale, v_scale=v_scale,
         )
-    if k_scale is None:
-        return _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep)
-    qf = (q.float() * k_scale.float().repeat_interleave(n_rep)[:, None]).contiguous()
-    out = _launch(qf, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep, CODE_KERNEL)
-    return (out * v_scale.float().repeat_interleave(n_rep)[:, None]).to(q.dtype)
+    return _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep,
+                   scale_args(KERNEL, k_scale, v_scale, kv_qmax))

@@ -24,15 +24,18 @@ for P.V as B5 does; a decode tile splits the row's kv axis over the grid
 (:func:`ragged_decode_split`) and combines the splits in the same launch.
 :func:`ragged_attention` is the decoder layer's dispatch.
 
-An int8/fp8 cache layer comes with the layer's per-head factors
-``k_scale`` / ``v_scale`` (scale / qmax, (Hkv,)), as in the reference: the
-kernel's code mode takes q folded with ``k_scale`` in fp32 and runs its
-fp32 route over the 1-byte code blocks (every tile through ``attend``, no
-split), converting the codes in registers; ``v_scale`` multiplies its fp32
-output before the cast to q's dtype. Launches count under
-:data:`CODE_KERNEL`. The plain version dequantizes after the gather. Not
-ported here: the tp>1 ``shard_map`` dispatch (``_dispatch_ragged_kernel``,
-ROADMAP A10).
+An int8/fp8 cache layer comes with the layer's per-head scales
+``k_scale`` / ``v_scale`` ((Hkv,) fp32) and ``kv_qmax``: the dequant
+factors are ``k_scale / kv_qmax`` (the reference's k_scale / v_scale;
+:func:`ragged_attention` passes the cache's running scales, views, with
+the code type's qmax). The kernel's code mode takes the caller's q and the
+same routes over the 1-byte code tiles (bf16: prefill tiles on the tensor
+cores, decode tiles split and combined in the launch; fp32: ``attend``, one
+split), reads the scales on the device and converts the codes itself: one
+launch, nothing folded or rescaled around it. Launches count under
+:data:`CODE_KERNEL`. The plain version takes the factors and dequantizes
+after the gather. Not ported here: the tp>1 ``shard_map`` dispatch
+(``_dispatch_ragged_kernel``, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -44,7 +47,12 @@ import torch
 
 from neuronx_distributed_inference_tpu_torch.modules.kvcache import layer_streams
 from neuronx_distributed_inference_tpu_torch.ops import _cuda
-from neuronx_distributed_inference_tpu_torch.ops.decode_attention import CODE_DTYPES, decode_kv_split, dtype_code
+from neuronx_distributed_inference_tpu_torch.ops.decode_attention import (
+    CODE_DTYPES,
+    decode_kv_split,
+    dtype_code,
+    scale_args,
+)
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import launches_kernel, use_ragged
 
 #: q-tile granularity of the packed layout: row starts align to it
@@ -164,12 +172,16 @@ def block_heads(n_rep: int) -> int:
     return next(h for h in range(_BLOCK_HEADS, 0, -1) if n_rep % h == 0)
 
 
-def tile_route(row_len: int, dtype: torch.dtype) -> str:
+def tile_route(row_len: int, dtype: torch.dtype, cache_dtype: Optional[torch.dtype] = None) -> str:
     """The kernel's route for a 16-slot tile whose row has ``row_len`` new
-    tokens (0: the tile is no row's): "zeros" for no row, "attend" (the
-    fp32 FMA loop) at fp32, else "decode" (the kv split, fp32 FMAs) for
-    one new token and "prefill" (tensor cores, P rounded to bf16 for P.V)
-    for more."""
+    tokens (0: the tile is no row's), by q's ``dtype`` over a cache of
+    ``cache_dtype`` (q's by default, or int8/fp8 codes): "zeros" for no
+    row, "attend" (the fp32 FMA loop) for an fp32 q, else "decode" (the kv
+    split, fp32 FMAs) for one new token and "prefill" (tensor cores, P
+    rounded to bf16 for P.V) for more. A code cache takes its q's routes,
+    over code tiles (prefill tiles convert each to bf16, exactly)."""
+    if cache_dtype is not None and cache_dtype != dtype and cache_dtype not in CODE_DTYPES:
+        raise ValueError(f"{KERNEL}: no route for a {dtype} q over a {cache_dtype} cache")
     if row_len <= 0:
         return "zeros"
     if dtype != torch.bfloat16:
@@ -180,27 +192,30 @@ def tile_route(row_len: int, dtype: torch.dtype) -> str:
 def ragged_decode_split(T: int, width: int, Hkv: int, n_rep: int, sms: int):
     """(splits, positions per split) of a bf16 launch's decode tiles: B4's
     rule (decode_kv_split) over the table's ``width`` = MB * bs positions
-    for the grid's T / 16 * Hkv * head-group blocks. A function of the
-    shapes and the card only, so the combine's order (and the result)
-    repeats from call to call. Split z covers positions [z * per, (z + 1) *
-    per); a decode row's splits past its context exit at once, and the
-    others are combined in split order in the same launch."""
+    for the grid's T / 16 * Hkv * head-group blocks, over a bf16 or a code
+    cache alike. A function of the shapes and the card only, so the
+    combine's order (and the result) repeats from call to call. Split z
+    covers positions [z * per, (z + 1) * per); a decode row's splits past
+    its context exit at once, and the others are combined in split order
+    in the same launch."""
     return decode_kv_split(width, (T // RAGGED_Q_TILE) * Hkv * (n_rep // block_heads(n_rep)), sms)
 
 
-def _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale, n_rep, counter=KERNEL):
-    """One launch over plain cache blocks of q's dtype, or, with ``counter``
-    = CODE_KERNEL, over 1-byte code blocks with an fp32 (folded) q."""
+def _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale, n_rep,
+            code_args=(None, None, 0.0)):
+    """One launch over plain cache blocks of q's dtype, or, with the
+    ``code_args`` of a code cache (decode_attention.scale_args), over its
+    1-byte code blocks."""
     T, Hq, D = q.shape
     NB1, Hkv, bs, _ = k_layer.shape
-    codes = counter == CODE_KERNEL
+    codes = code_args[0] is not None
     if D not in HEAD_DIMS:
         raise ValueError(f"{KERNEL}: head_dim {D} not in {HEAD_DIMS}")
-    if codes:
-        if q.dtype != torch.float32 or k_layer.dtype not in CODE_DTYPES or v_layer.dtype != k_layer.dtype:
-            raise ValueError(f"{KERNEL}: code mode dtypes {q.dtype}/{k_layer.dtype}/{v_layer.dtype}")
-    elif q.dtype not in _DTYPE_CODES or k_layer.dtype != q.dtype or v_layer.dtype != q.dtype:
-        raise ValueError(f"{KERNEL}: dtypes {q.dtype}/{k_layer.dtype}/{v_layer.dtype} (bf16 or fp32, all equal)")
+    if q.dtype not in _DTYPE_CODES or v_layer.dtype != k_layer.dtype or (
+        k_layer.dtype not in CODE_DTYPES if codes else k_layer.dtype != q.dtype
+    ):
+        raise ValueError(f"{KERNEL}: dtypes {q.dtype}/{k_layer.dtype}/{v_layer.dtype} (a bf16 or fp32 q over a "
+                         "cache of its dtype, or over int8/fp8 codes with their scales)")
     if Hkv > 65535 or n_rep // block_heads(n_rep) > 65535:
         raise ValueError(f"{KERNEL}: grid too large for {Hkv} kv heads, n_rep {n_rep}")
     for name, x in (("q", q), ("k_layer", k_layer), ("v_layer", v_layer)):
@@ -223,14 +238,15 @@ def _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale
         tiles = (T // RAGGED_Q_TILE) * Hkv * (n_rep // block_heads(n_rep))
         counters = _cuda.counters(tiles, q.device, stream).data_ptr()
     out = torch.empty_like(q)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    fn = _cuda.function(KERNEL, "nxdi_ragged_paged_attention", [P] * 12 + [I] * 11 + [ctypes.c_float, I, I, P])
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = _cuda.function(KERNEL, "nxdi_ragged_paged_attention", [P] * 12 + [I] * 11 + [F, I, I, P, P, F, P])
     err = fn(
         q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), table.data_ptr(),
         rs.data_ptr(), rl.data_ptr(), cl.data_ptr(), out.data_ptr(), *parts, counters,
         T, rs.shape[0], Hq, Hkv, block_heads(n_rep), D, NB1, bs, MB, splits, per,
-        float(scale), _DTYPE_CODES[q.dtype], dtype_code(k_layer.dtype), stream,
+        float(scale), _DTYPE_CODES[q.dtype], dtype_code(k_layer.dtype), *code_args, stream,
     )
+    counter = CODE_KERNEL if codes else KERNEL
     _cuda.check(err, counter)
     _cuda.LAUNCHES[counter] += 1
     return out
@@ -247,8 +263,9 @@ def ragged_paged_attention(
     *,
     scale: float,
     n_rep: int,
-    k_scale: Optional[torch.Tensor] = None,  # (Hkv,) the layer's K factors scale / qmax
+    k_scale: Optional[torch.Tensor] = None,  # (Hkv,) fp32: K factors k_scale / kv_qmax
     v_scale: Optional[torch.Tensor] = None,  # for int8/fp8 code blocks; None = plain cache
+    kv_qmax: float = 1.0,
 ) -> torch.Tensor:
     """Mixed prefill-chunk and decode attention off the paged cache in one
     launch. Returns (T, Hq, D) in q's dtype. CUDA tensors launch the kernel
@@ -265,15 +282,14 @@ def ragged_paged_attention(
         raise ValueError(f"{KERNEL}: k_scale/v_scale need int8/fp8 code blocks, got {k_layer.dtype}/{v_layer.dtype}")
     scales = [k_scale, v_scale] if k_scale is not None else []
     if not launches_kernel(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, *scales):
+        if k_scale is not None and kv_qmax != 1.0:
+            k_scale, v_scale = k_scale / kv_qmax, v_scale / kv_qmax
         return ragged_paged_attention_plain(
             q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale=scale, n_rep=n_rep,
             k_scale=k_scale, v_scale=v_scale,
         )
-    if k_scale is None:
-        return _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale, n_rep)
-    qf = (q.float() * k_scale.float().repeat_interleave(n_rep)[:, None]).contiguous()
-    out = _launch(qf, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale, n_rep, CODE_KERNEL)
-    return (out * v_scale.float().repeat_interleave(n_rep)[:, None]).to(q.dtype)
+    return _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale, n_rep,
+                   scale_args(KERNEL, k_scale, v_scale, kv_qmax))
 
 
 def ragged_attention(
@@ -290,15 +306,14 @@ def ragged_attention(
 ) -> torch.Tensor:
     """The decoder layer's dispatch for the mixed step: the B3 kernel's
     wrapper on this layer of the cache (a QuantizedKV cache's code blocks
-    with the layer's factors) unless ``use_flash_kernel`` is False, then the
-    plain version over the stacked cache. Returns (1, T, Hq, D)."""
+    with views of the layer's scales) unless ``use_flash_kernel`` is False,
+    then the plain version over the stacked cache. Returns (1, T, Hq, D)."""
     q3 = q[0]
     if use_ragged(aspec):
-        k_l, v_l, ks, vs = layer_streams(k_cache, v_cache, layer_idx)
+        k_l, v_l, codes = layer_streams(k_cache, v_cache, layer_idx)
         out = ragged_paged_attention(
             q3, k_l, v_l, block_table, row_start, row_len, ctx_len,
-            scale=aspec.softmax_scale, n_rep=aspec.num_heads // aspec.num_kv_heads,
-            k_scale=ks, v_scale=vs,
+            scale=aspec.softmax_scale, n_rep=aspec.num_heads // aspec.num_kv_heads, **codes,
         )
     else:
         out = ragged_attention_native(

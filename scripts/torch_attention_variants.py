@@ -6,9 +6,10 @@ and B4 (decode over the contiguous and the paged cache,
 and of the fused decode blocks B8 and B9 (``csrc/fused_attn_block.cu``,
 ``csrc/fused_mlp_block.cu``), on one H100, beside the kernels as built.
 
-    python3 scripts/torch_attention_variants.py [b2] [b1] [b4] [b6] [b7] [b8] [b9] [b3] [points] [b6host] [host] [tok]
+    python3 scripts/torch_attention_variants.py [b2] [b1] [b4] [b6] [b7] [b8] [b9] [b3] [b5codes] [points] [b6host]
+        [host] [tok] [tok10] [kvdrains]
 
-(no argument: b2, b1, b4, b6, b7, b8, b9 and b3)
+(no argument: b2, b1, b4, b6, b7, b8, b9, b3 and b5codes)
 
 Each alternative is the kernel's own source with one decision changed,
 compiled with the port's nvcc flags (``ops/_cuda.py``) into
@@ -107,6 +108,14 @@ B3, bf16, at the serving row's two points (``ops/roofline.RAGGED_POINTS``)
 and 8 decode rows 1000 deep (a 1024-wide table of blocks of 32): the decode
 tiles' split rule (``ops/ragged_paged_attention.py::ragged_decode_split``)
 against fixed splits of 64, 128 and 256 positions and no split.
+B5's code mode (int8 / e4m3 / e5m2 code blocks, a bf16 q) at its timed
+point (8 x 128 new tokens after a 64-token prefix, D 64, blocks of 32) and
+at D 128 (b5codes):
+  built      each code tile converted once by the block into a padded
+             bf16 (K, V) pair that ldmatrix / ldmatrix.trans read;
+  regs       the code fragments read from shared memory straight into the
+             B-operand layout and converted in registers (prmt / cvt; the
+             k and output columns permuted to match), no bf16 copy.
 host: B4's and B7's host cost, the wrapper's microseconds per call
   enqueued back to back (least and median of 7 runs of 200) at B4's timed
   shape and B7's Qwen3 batch 1, and B7's device time and us per launch
@@ -117,8 +126,11 @@ tok: the split serving drain (8 staggered requests of 128 + 128 tokens,
   Llama-3.2-1B shapes, bf16, random weights: aggregate tok/s) twice and
   Qwen3-30B-A3B generate() (batch 1, 128 + 256 tokens, random weights at
   full depth: decode tok/s) twice.
-host, tok and tok10, like b6host, use only what earlier trees also have: run
-  parent, change, change, parent in one call.
+kvdrains: the kv-int8 ragged sync step's profile (kernels a step, device
+  busy, cudaGraphLaunch host ms, B3's ms) and the whole split sync drain's
+  kernels and device busy, graphs on.
+host, tok, tok10 and kvdrains, like b6host, use only what earlier trees also
+  have: run parent, change, change, parent in one call.
 b6host: B6's host cost, the wrapper's microseconds per call enqueued back
   to back at the 8B o and down shapes (1 row; the least and the median of 7
   runs of 200 calls), and the int4 8B generate() (bf16_8b_int4, 256
@@ -898,6 +910,212 @@ def fused_points(torch, chip_smoke, db):
         torch.cuda.empty_cache()
 
 
+#: B5's code tiles converted in registers instead of in shared memory: the
+#: code fragments read straight into the B-operand layout. K: a lane's
+#: 4-code word of its position holds k indices 2t, 2t + 1, 2t + 8, 2t + 9
+#: of a k step (Q's A fragments read in the same permuted order, so Q.K^T
+#: sums every d once); V: a lane reads the words of its 4 positions at d =
+#: 32 m + 4 g .. + 3 and byte-permutes (prmt) one pair per n tile, the
+#: output columns permuted to match (each lane then writes 8 consecutive
+#: values). Three code stages, one barrier a tile, no bf16 copy; every warp
+#: converts the whole tile for itself.
+CODE_REGS = r"""
+template <typename C>
+__device__ __forceinline__ uint32_t code_pair_bf16(uint32_t two) {  // the low two codes, lower k low
+  if constexpr (sizeof(C) == 1 && !std::is_same<C, int8_t>::value) {
+    const __nv_fp8_interpretation_t kind = std::is_same<C, Fp8E4M3>::value ? __NV_E4M3 : __NV_E5M2;
+    const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(static_cast<__nv_fp8x2_storage_t>(two), kind)));
+    return pack_bf16(f.x, f.y);
+  } else {
+    return pack_bf16(int8_byte_to_float(two ^ 0x8080u, 0), int8_byte_to_float(two ^ 0x8080u, 1));
+  }
+}
+
+template <typename C, int D, class RowOff, class RowPos>
+__device__ __forceinline__ void flash_mma_regs(unsigned char* smem_raw, const __nv_bfloat16* qp, __nv_bfloat16* op,
+                                               RowOff row_off, RowPos row_pos, const C* k_layer, const C* v_layer,
+                                               const int* bt_row, int hk, int Hkv, int bs, int NB1, int limit,
+                                               float scale, float vf) {
+  if constexpr (sizeof(C) != 1) {
+    flash_mma<C, D>(smem_raw, qp, op, row_off, row_pos, k_layer, v_layer, bt_row, hk, Hkv, bs, NB1, limit, scale, vf);
+  } else {
+    using Tile = MmaTile<C, D>;
+    using bf16 = __nv_bfloat16;
+    constexpr int LD = Tile::LD, LDC = Tile::LDC, STAGES = 3;
+    constexpr int QCH = D / 8, Q_STEP = THREADS / QCH;
+    constexpr int KCH = D / 16, ROW_STEP = THREADS / KCH;
+    constexpr int KS = D / 16, NT = BKV / 8, DT = D / 8;
+    bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+    unsigned char* stages = reinterpret_cast<unsigned char*>(Qs + BQ * LD + 2 * Tile::KV);
+    int* pos_s = reinterpret_cast<int*>(stages + STAGES * Tile::STAGE);
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const int qr = tid / QCH, qc = (tid % QCH) * 8;
+    const int cr = tid / KCH, cc = (tid % KCH) * 16;
+    if (limit <= 0) {
+      for (int r = qr; r < BQ; r += Q_STEP) {
+        const long long o = row_off(r);
+        if (o >= 0) *reinterpret_cast<uint4*>(op + o + qc) = make_uint4(0u, 0u, 0u, 0u);
+      }
+      return;
+    }
+    for (int r = qr; r < BQ; r += Q_STEP) {
+      const long long o = row_off(r);
+      cp_async16(Qs + r * LD + qc, qp + (o >= 0 ? o : 0) + qc, o >= 0);
+    }
+    cp_async_commit();
+    if (tid < BQ) pos_s[tid] = row_off(tid) >= 0 ? row_pos(tid) : -1;
+    __syncthreads();
+    int last = -1;
+    for (int r = 0; r < BQ; ++r) last = max(last, pos_s[r]);
+    last = min(last, limit - 1);
+    const int n_tiles = last < 0 ? 0 : last / BKV + 1;
+    auto load_tile = [&](int j, int stage) {
+      unsigned char* Ks = stages + stage * Tile::STAGE + cc;
+      unsigned char* Vs = Ks + BKV * LDC;
+#pragma unroll
+      for (int r = cr; r < BKV; r += ROW_STEP) {
+        const int s = j * BKV + r;
+        const int blk = s < limit ? __ldg(bt_row + s / bs) : 0;
+        const bool ok = s < limit && blk > 0 && blk < NB1;
+        const long long a = ok ? (((long long)blk * Hkv + hk) * bs + s % bs) * D : 0;
+        cp_async16(Ks + r * LDC, k_layer + cc + a, ok);
+        cp_async16(Vs + r * LDC, v_layer + cc + a, ok);
+      }
+      cp_async_commit();
+    };
+    const int g = lane / 4, t4 = lane % 4;
+    const int row0 = warp * 16 + g;
+    const int col_hi[2] = {min(pos_s[row0], limit - 1), min(pos_s[row0 + 8], limit - 1)};
+    float m_i[2] = {NEG_INF, NEG_INF}, l_i[2] = {0.f, 0.f};
+    float o[DT][4];
+#pragma unroll
+    for (int n = 0; n < DT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    uint32_t qf[KS][4];
+    for (int j = 0; j < STAGES - 1 && j < n_tiles; ++j) load_tile(j, j);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int stage = j % STAGES;
+      if (j + 1 < n_tiles) cp_async_wait<1>();
+      else cp_async_wait<0>();
+      __syncthreads();  // tile j landed; every warp is done with tile j - 1's stage
+      if (j + STAGES - 1 < n_tiles) load_tile(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+      if (j == 0) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          const uint2 lo = *reinterpret_cast<const uint2*>(Qs + row0 * LD + ks * 16 + 4 * t4);
+          const uint2 hi = *reinterpret_cast<const uint2*>(Qs + (row0 + 8) * LD + ks * 16 + 4 * t4);
+          qf[ks][0] = lo.x;
+          qf[ks][1] = hi.x;
+          qf[ks][2] = lo.y;
+          qf[ks][3] = hi.y;
+        }
+      }
+      const unsigned char* Kc = stages + stage * Tile::STAGE;
+      const unsigned char* Vc = Kc + BKV * LDC;
+      const int kv0 = j * BKV;
+      float s[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(Kc + (n * 8 + g) * LDC + ks * 16 + 4 * t4);
+          mma_bf16(s[n], qf[ks], code_pair_bf16<C>(w & 0xFFFFu), code_pair_bf16<C>(w >> 16));
+        }
+      }
+      float alpha[2];
+      if (__all_sync(0xffffffffu, col_hi[0] >= kv0 + BKV - 1 && col_hi[1] >= kv0 + BKV - 1)) {
+        softmax_step<false, false>(s, 0u, scale, m_i, l_i, alpha);
+      } else {
+        uint32_t ok_bits = 0;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ok_bits |= (kv0 + n * 8 + 2 * t4 + (e & 1) <= col_hi[e >> 1] ? 1u : 0u) << (n * 4 + e);
+        softmax_step<true, false>(s, ok_bits, scale, m_i, l_i, alpha);
+      }
+#pragma unroll
+      for (int n = 0; n < DT; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+        const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const unsigned char* vrow = Vc + (kk * 16 + 2 * t4) * LDC + 4 * g;
+#pragma unroll
+        for (int m = 0; m < D / 32; ++m) {
+          const uint32_t w0 = *reinterpret_cast<const uint32_t*>(vrow + 32 * m);
+          const uint32_t w1 = *reinterpret_cast<const uint32_t*>(vrow + LDC + 32 * m);
+          const uint32_t w8 = *reinterpret_cast<const uint32_t*>(vrow + 8 * LDC + 32 * m);
+          const uint32_t w9 = *reinterpret_cast<const uint32_t*>(vrow + 9 * LDC + 32 * m);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const uint32_t sel = jj | ((4 + jj) << 4);
+            mma_bf16(o[4 * m + jj], a, code_pair_bf16<C>(__byte_perm(w0, w1, sel)),
+                     code_pair_bf16<C>(__byte_perm(w8, w9, sel)));
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const long long off = row_off(row0 + 8 * rr);
+      if (off < 0) continue;
+      const float denom = fmaxf(l_i[rr], 1e-30f);
+#pragma unroll
+      for (int m = 0; m < D / 32; ++m) {
+        const float* c0[4] = {o[4 * m], o[4 * m + 1], o[4 * m + 2], o[4 * m + 3]};
+        uint4 w;
+        w.x = pack_bf16(c0[0][2 * rr] / denom * vf, c0[1][2 * rr] / denom * vf);
+        w.y = pack_bf16(c0[2][2 * rr] / denom * vf, c0[3][2 * rr] / denom * vf);
+        w.z = pack_bf16(c0[0][2 * rr + 1] / denom * vf, c0[1][2 * rr + 1] / denom * vf);
+        w.w = pack_bf16(c0[2][2 * rr + 1] / denom * vf, c0[3][2 * rr + 1] / denom * vf);
+        *reinterpret_cast<uint4*>(op + off + 32 * m + 8 * t4) = w;
+      }
+    }
+  }
+}
+
+"""
+B5_CODE_VARIANTS = {
+    "built": [],
+    "regs": [
+        ("paged_attention_tile.cuh", "// Opt the kernel into its dynamic shared memory", CODE_REGS
+         + "// Opt the kernel into its dynamic shared memory"),
+        ("paged_attention_tile.cuh", '#include "mma.cuh"\n', '#include <type_traits>\n\n#include "mma.cuh"\n'),
+        ("paged::flash_mma<C, D>(smem_raw, static_cast<const __nv_bfloat16*>(p.q)",
+         "paged::flash_mma_regs<C, D>(smem_raw, static_cast<const __nv_bfloat16*>(p.q)"),
+    ],
+}
+
+
+def b5_code_times(torch, chip_smoke, _cuda, pf):
+    """B5's code mode for a bf16 q with the code tiles converted in shared
+    memory (as built) or in registers (CODE_REGS), each code type at the
+    timed point (8 x 128 new tokens after a 64-token prefix, D 64, blocks of
+    32) and at D 128, each held to check_paged_flash first."""
+    paths = build_variants(_cuda, "paged_flash_attention", B5_CODE_VARIANTS)
+    rng = np.random.RandomState(13)
+    cases = {(code, D): chip_smoke.kvq_chunk_case(torch, rng, code, D=D, Hkv=8 if D == 64 else 4)
+             for code in chip_smoke.KV_CODES for D in (64, 128)}
+    for name, path in paths.items():
+        use(_cuda, "paged_flash_attention", path)
+        for (code, D), (q, kc, vc, bt, pos, lim, codes, factors) in cases.items():
+            kw = dict(scale=D ** -0.5, n_rep=q.shape[2] // kc.shape[1])
+            label = f"{code} D={D} Hkv={kc.shape[1]} B=8 Sq=128 prefix 64 bs=32"
+            chip_smoke.check_paged_flash(torch, pf, q, kc, vc, bt, pos, lim, kw, f"{name} {label}", False, codes,
+                                         factors)
+            ms = chip_smoke.time_ms(torch, lambda: pf.paged_flash_attention(q, kc, vc, bt, pos, lim, **codes, **kw))
+            print(f"B5 codes {name} {label}: {ms:.4f} ms", flush=True)
+
+
 def ragged_times(torch, chip_smoke, _cuda, rp):
     """B3's decode-tile split rule against fixed splits and no split."""
     from neuronx_distributed_inference_tpu_torch.ops.roofline import RAGGED_POINTS
@@ -924,6 +1142,48 @@ def ragged_times(torch, chip_smoke, _cuda, rp):
                 print(f"B3 {case}: {ms:.4f} ms", flush=True)
     finally:
         rp.ragged_decode_split = rule
+
+
+def kv_drains(torch, chip_smoke):
+    """The kv-int8 serving drains of this tree with graphs on (the serving
+    row's 8 staggered requests, Llama-3.2-1B shapes, random weights): the
+    ragged sync step's profile (chip_smoke.phase_ragged_profile: kernels a
+    step, device busy, cudaGraphLaunch, B3's ms) and the whole split sync
+    drain under torch.profiler (kernels, device busy, the port's kernels by
+    name), each after a warm pass that captures every graph."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_1B
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    s = chip_smoke.SERVING
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, LLAMA_1B["vocab_size"] - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    params = None
+    for kind in ("ragged", "split"):
+        kw = dict(serving_ragged=True) if kind == "ragged" else {}
+        app = ModelForCausalLM(None, chip_smoke._serving_config(cuda_graphs=True, kv_cache_dtype="int8", **kw))
+        app = (app.load(random_weights=True) if params is None else app.load(params=params)).warmup()
+        params = app.params
+        chip_smoke._serve(torch, app, prompts, s["gen"], TelemetrySession())  # warm pass
+        if kind == "ragged":
+            chip_smoke.phase_ragged_profile(torch, app, prompts, f"kv-int8 ragged sync, {REPO}")
+        else:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, secs = chip_smoke._serve(torch, app, prompts, s["gen"], TelemetrySession())
+            kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = chip_smoke.union_ms((e.time_range.start, e.time_range.end) for e in kernels)
+            port = {}
+            for e in kernels:
+                if "nxdi::" in e.name:
+                    name = chip_smoke.port_kernel_name(e.name)
+                    port[name] = port.get(name, 0) + 1
+            print(f"kv-int8 split sync drain, {REPO}: {len(kernels)} kernels, device busy {busy:.3f} ms, wall "
+                  f"{secs * 1e3:.1f} ms; port kernels {dict(sorted(port.items()))}", flush=True)
+        del app
+        torch.cuda.empty_cache()
 
 
 def host_us(torch, fn, label):
@@ -1057,6 +1317,7 @@ def main():
     from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
     from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
     from neuronx_distributed_inference_tpu_torch.ops import moe_decode as md
+    from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
     from neuronx_distributed_inference_tpu_torch.ops import quant_matmul as qmm
     from neuronx_distributed_inference_tpu_torch.ops import ragged_paged_attention as rp
     from neuronx_distributed_inference_tpu_torch.ops import decode_block as db
@@ -1066,7 +1327,7 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
-    parts = set(sys.argv[1:]) or {"b2", "b1", "b4", "b6", "b7", "b8", "b9", "b3"}
+    parts = set(sys.argv[1:]) or {"b2", "b1", "b4", "b6", "b7", "b8", "b9", "b3", "b5codes"}
     print(f"tree: {REPO}", flush=True)
     if "b2" in parts:
         flash_times(torch, chip_smoke, _cuda, fa)
@@ -1090,6 +1351,8 @@ def main():
         fused_attn_timeline(torch, chip_smoke, _cuda, db)
     if "b3" in parts:
         ragged_times(torch, chip_smoke, _cuda, rp)
+    if "b5codes" in parts:
+        b5_code_times(torch, chip_smoke, _cuda, pf)
     if "b6host" in parts:
         b6_host(torch, chip_smoke, qmm)
     if "host" in parts:
@@ -1098,6 +1361,8 @@ def main():
         tok(torch, chip_smoke)
     if "tok10" in parts:
         tok_ragged_fused(torch, chip_smoke)
+    if "kvdrains" in parts:
+        kv_drains(torch, chip_smoke)
 
 
 if __name__ == "__main__":

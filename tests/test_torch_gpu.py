@@ -260,9 +260,11 @@ def test_kv_code_modes_match_plain_on_the_card(cuda_card):
     on the same codes and scales (chip_smoke.phase_kvq_parity): B1 at the 1B
     shape, buckets 512 and 8704, batch 1 and 4, q_len 1 and 4, at 16896,
     and at Qwen3's; B4 at blocks of 32 and 16; B1 and B4 with an fp32 q at
-    four shapes each; B5 after a prefix; B3 at both RAGGED_POINTS. Each case
-    launches its code mode three times (the check and two bit-identical
-    repeats) and no other kernel."""
+    four shapes each; B5 and B3 at D 64 and 128, blocks of 16 and 32, bf16
+    (random and exact-score inputs) and fp32 q, B3 with several live decode
+    splits, then at both RAGGED_POINTS. Each case launches its code mode
+    three times (the check and two bit-identical repeats) and no other
+    kernel."""
     sys.path.insert(0, REPO)
     import chip_smoke
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
@@ -273,13 +275,54 @@ def test_kv_code_modes_match_plain_on_the_card(cuda_card):
     _cuda.reset_launch_counts()
     n = chip_smoke.phase_kvq_parity(torch, da, pf, rp)
     counts = _cuda.launch_counts()
-    per_code = {"decode_attention_codes": 14, "paged_decode_attention_codes": 6, "paged_flash_attention_codes": 1,
-                "ragged_paged_attention_codes": 2}
+    per_code = {"decode_attention_codes": 14, "paged_decode_attention_codes": 6, "paged_flash_attention_codes": 12,
+                "ragged_paged_attention_codes": 16}
     assert n == 3 * sum(per_code.values())
-    # B3's cases launch once more for the padded-slot check
-    want = {name: 3 * k * (4 if name == "ragged_paged_attention_codes" else 3) for name, k in per_code.items()}
+    want = {name: 3 * k * 3 for name, k in per_code.items()}
     assert {name: counts[name] for name in want} == want, counts
     assert all(counts[name] == 0 for name in counts if name not in want), counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("code", ["int8", "float8_e4m3fn", "float8_e5m2"])
+def test_b5_b3_code_modes_are_one_launch(cuda_card, code):
+    """A bf16-q code-mode call of B5 (8 x 128 new tokens after a 64-token
+    prefix) and of B3 (the serving row's mixed point: a chunk and split
+    decode rows), given the layer's running scales and qmax as the model
+    passes them, agrees with its plain version on the card
+    (chip_smoke.check_paged_flash / check_ragged), and under torch.profiler
+    it is exactly its kernel's one launch (B3's split combine included): no
+    fold, rescale or factor division runs around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    import numpy as np
+    from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
+    from neuronx_distributed_inference_tpu_torch.ops import ragged_paged_attention as rp
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import RAGGED_POINTS
+
+    rng = np.random.RandomState(21)
+    q, kc, vc, bt, pos, lim, codes, factors = chip_smoke.kvq_chunk_case(torch, rng, code)
+    kw = dict(scale=0.125, n_rep=4)
+    chip_smoke.check_paged_flash(torch, pf, q, kc, vc, bt, pos, lim, kw, f"{code} one launch", False, codes, factors)
+    pt = RAGGED_POINTS["mixed"]
+    inputs, rcodes, rfactors = chip_smoke.kvq_ragged_case(torch, rng, code, pt["row_len"], pt["ctx_len"],
+                                                          pt["block_size"], pt["width"])
+    chip_smoke.check_ragged(torch, rp, inputs, f"{code} one launch", chip_smoke.DECODE_ATOL, False, rcodes, rfactors)
+    qr, kr, vr, table, rs, rl, cl, _ = inputs
+    calls = {
+        "paged_flash_mma": lambda: pf.paged_flash_attention(q, kc, vc, bt, pos, lim, **codes, **kw),
+        "ragged_bf16_kernel": lambda: rp.ragged_paged_attention(qr, kr, vr, table, rs, rl, cl, **rcodes, **kw),
+    }
+    for kernel, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 1 and kernel in names[0], names
 
 
 @pytest.mark.gpu

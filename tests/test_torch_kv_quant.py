@@ -346,10 +346,56 @@ def test_b4_plain_matches_jax_kernel(code):
 
 
 @pytest.mark.parametrize("code", sorted(CODES))
+def test_codes_convert_to_bf16_exactly(code):
+    """Every int8 code in [-127, 127] and every finite e4m3 / e5m2 byte is a
+    bf16 value, sign of zero included: the code modes' tensor-core tiles
+    (csrc/paged_attention_tile.cuh codes_to_bf16) convert the codes to bf16
+    for mma.sync without rounding, and JAX's fp32 values of the same codes
+    (what its kernels multiply) are the same numbers."""
+    jdt, tdt = CODES[code]
+    if tdt == torch.int8:
+        codes = torch.arange(-127, 128, dtype=torch.int16).to(torch.int8)
+    else:
+        codes = torch.arange(256, dtype=torch.int16).to(torch.uint8).view(tdt)
+    x = codes.float()
+    finite = torch.isfinite(x)
+    assert int(finite.sum()) == {"int8": 255, "e4m3": 254, "e5m2": 248}[code]
+    x = x[finite]
+    via_bf16 = x.to(torch.bfloat16).float()
+    np.testing.assert_array_equal(via_bf16.view(torch.int32).numpy(), x.view(torch.int32).numpy())
+    jx = np.asarray(jnp.asarray(codes.view(torch.uint8).numpy() if tdt != torch.int8 else codes.numpy())
+                    .view(jdt).astype(jnp.float32))
+    np.testing.assert_array_equal(jx[finite.numpy()].view(np.int32), x.view(torch.int32).numpy())
+
+
+def _code_tiles_b5(q, k_layer, v_layer, bt, qpos, lim, tks, tvs, n_rep):
+    """B5's code mode for a bf16 q as the card runs it (chip_smoke.
+    paged_flash_plain_bf16_p, which the card's checks hold the kernel to):
+    q unfolded, the raw scores over the codes, K's factor on the score
+    scale, P rounded to bf16 at P.V relative to the running max of
+    64-position tiles, V's factor on the finalized output."""
+    import chip_smoke
+
+    out, _ = chip_smoke.paged_flash_plain_bf16_p(
+        torch, tpf, q, k_layer, v_layer, bt, qpos, lim, scale=D ** -0.5, n_rep=n_rep, tile=chip_smoke.B5_KV_TILE,
+        k_scale=tks, v_scale=tvs,
+    )
+    return out
+
+
+def _p_rounding_bound(v_layer, tvs):
+    """What P's rounding to bf16 may move an output by: each p within 2^-9
+    of itself and the p summing to l, at most 2^-9 of the largest |V|
+    (dequantized; block 0 left out), plus ATOL for the fp32 sums."""
+    return 2.0 ** -9 * (v_layer[1:].float().abs().amax(dim=(0, 2, 3)) * tvs).max().item() + ATOL
+
+
+@pytest.mark.parametrize("code", sorted(CODES))
 def test_b5_plain_matches_jax_kernel(code):
     """Chunked / prefix prefill over code blocks: 16 new tokens after a
     prior context of 48 and 23 positions, the layer's factors as k_scale /
-    v_scale."""
+    v_scale; the wrapper given the layer's running scales and qmax (as the
+    model passes them) agrees too."""
     rng = np.random.RandomState(6)
     Sq, prior = 16, [48, 23]
     total = [p + Sq for p in prior]
@@ -370,14 +416,22 @@ def test_b5_plain_matches_jax_kernel(code):
         scale=D ** -0.5, n_rep=HQ // HKV, k_scale=tks, v_scale=tvs,
     )
     np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=RTOL)
-    # the code mode's algorithm: folded q over the raw codes, V factor after
-    n_rep = HQ // HKV
-    qf = _t(q).float() * tks.repeat_interleave(n_rep)[:, None]
-    raw = tpf.paged_flash_attention_plain(
-        qf, tb.k.data[layer].float(), tb.v.data[layer].float(), _t(bt), _t(qpos), _t(lim),
-        scale=D ** -0.5, n_rep=n_rep,
-    )
-    np.testing.assert_allclose((raw * tvs.repeat_interleave(n_rep)[:, None]).numpy(), ref, atol=ATOL, rtol=RTOL)
+    k_l, v_l, codes = tkv.layer_streams(tb.k, tb.v, layer)
+    by_scales = tpf.paged_flash_attention(_t(q), k_l, v_l, _t(bt), _t(qpos), _t(lim), scale=D ** -0.5,
+                                          n_rep=HQ // HKV, **codes)
+    np.testing.assert_array_equal(by_scales.numpy(), out.numpy())
+    # the code mode's algorithm for a bf16 q (unfolded q, the codes as bf16,
+    # K's factor on the score scale, P rounded to bf16 at P.V over
+    # 64-position tiles, V's factor after) against the JAX kernel on the same
+    # bf16-valued q, within what P's rounding may move the output
+    qb = _t(q).to(torch.bfloat16).float()
+    ref_b = np.asarray(jax_paged_flash(
+        jnp.asarray(qb.numpy()), jk.data[layer], jv.data[layer], jnp.asarray(bt), jnp.asarray(qpos), jnp.asarray(lim),
+        scale=D ** -0.5, n_rep=HQ // HKV, tq=16, k_scale=ks, v_scale=vs, interpret=True,
+    ))
+    model = _code_tiles_b5(qb, tb.k.data[layer], tb.v.data[layer], _t(bt), _t(qpos), _t(lim), tks, tvs, HQ // HKV)
+    err = np.abs(model.numpy() - ref_b).max()
+    assert 0 < err <= _p_rounding_bound(tb.v.data[layer], tvs), err
 
 
 @pytest.mark.parametrize("code", sorted(CODES))
@@ -406,6 +460,25 @@ def test_b3_plain_matches_jax_kernel(code):
     pos, _ = trp.packed_positions(T, _t(row_start), _t(row_len), _t(ctx))
     valid = (pos >= 0).numpy()
     np.testing.assert_allclose(out[valid], ref[valid], atol=ATOL, rtol=RTOL)
+    # the code mode's algorithm for a bf16 q (the kernel model of
+    # test_torch_ragged_attention over code blocks: the chunk's slots with P
+    # rounded to bf16, the decode row over its splits) against the JAX
+    # kernel on the same bf16-valued q
+    from test_torch_ragged_attention import _kernel_model
+
+    qb = _t(q).to(torch.bfloat16).float()
+    ref_b = np.asarray(jax_ragged(
+        jnp.asarray(qb.numpy()), jk.data[layer], jv.data[layer], jnp.asarray(bt), jnp.asarray(row_start),
+        jnp.asarray(row_len), jnp.asarray(ctx), scale=D ** -0.5, n_rep=HQ // HKV, k_scale=ks, v_scale=vs,
+        interpret=True,
+    ))
+    model, _ = _kernel_model(qb, tb.k.data[layer], tb.v.data[layer], _t(bt), _t(row_start), _t(row_len), _t(ctx),
+                             scale=D ** -0.5, n_rep=HQ // HKV, round_p=True, k_scale=tks, v_scale=tvs)
+    model = model.numpy()
+    chunk, decode = slice(0, 16), slice(16, 17)
+    err = np.abs(model[chunk] - ref_b[chunk]).max()
+    assert 0 < err <= _p_rounding_bound(tb.v.data[layer], tvs), err
+    np.testing.assert_allclose(model[decode], ref_b[decode], atol=ATOL, rtol=RTOL)
     # the layer dispatch hands the kernel's wrapper the layer's codes and factors
     from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec
 

@@ -1,7 +1,9 @@
 """The plain version of the port's ragged paged attention kernel (B3) held
 against the JAX package's Pallas kernel in interpret mode and against its
 native version, on the same inputs made by numpy from a seed, in fp32
-within 1e-5 on the valid packed slots.
+within 1e-5 on the valid packed slots; and a PyTorch model of the kernel's
+launch (its routes, splits and P's rounding, over bf16-valued or int8/fp8
+code blocks) against the same JAX kernel.
 
 Every case has GQA, zero-table tails and the garbage block 0 filled with
 NaN; padded slots (between segments, and past every segment) must be
@@ -170,30 +172,38 @@ H100_SMS = 132
 TILE = 64  # kv positions per staged tile of both bf16 routes
 
 
-def _kernel_model(q, k, v, bt, row_start, row_len, ctx_len, *, scale, n_rep, round_p):
-    """B3's bf16 launch in PyTorch, row by row as tile_route sends each
-    row's tiles: a prefill row's slots by the online softmax of the
+def _kernel_model(q, k, v, bt, row_start, row_len, ctx_len, *, scale, n_rep, round_p, k_scale=None, v_scale=None):
+    """B3's launch for a bf16 q in PyTorch, row by row as tile_route sends
+    each row's tiles: a prefill row's slots by the online softmax of the
     tensor-core body over 64-position tiles from position 0 (l sums the
     fp32 probabilities; with ``round_p`` P.V takes them rounded to bf16, as
     mma.sync does); a decode row over ragged_decode_split's splits of its
     table's positions, each split's (m, l, acc), the splits past its
     context taking no part, combined in split order (M = max m_z, weights
-    e^(m_z - M)); every other slot zero. k / v: one layer, block 0 NaN."""
+    e^(m_z - M)); every other slot zero. k / v: one layer, block 0 NaN
+    (fp32), or int8/fp8 code blocks (block 0 0x7F) with their (Hkv,)
+    factors ``k_scale`` / ``v_scale``: the code tiles' algorithm, the raw
+    scores over the codes with K's factor on the score scale and V's on
+    the finalized output."""
     from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
 
     T, Hq, D = q.shape
-    k_r, v_r = read_block_cache_at_layer(k[None], v[None], 0, bt)  # (R, W, Hkv, D), block 0 as zeros
+    k_r, v_r = read_block_cache_at_layer(k[None].float(), v[None].float(), 0, bt)  # (R, W, Hkv, D), block 0 as 0
     W = k_r.shape[1]
     splits, per = trp.ragged_decode_split(T, W, k.shape[1], n_rep, H100_SMS)
-    out = torch.zeros_like(q)
+    score_scale, v_fac = scale, 1.0
+    if k_scale is not None:
+        score_scale = (scale * k_scale.float().repeat_interleave(n_rep))[None, :, None]  # (1, Hq, 1)
+        v_fac = v_scale.float().repeat_interleave(n_rep)[None, :, None]
+    out = torch.zeros(q.shape)
     for r, (s0, n, c) in enumerate(zip(row_start.tolist(), row_len.tolist(), ctx_len.tolist())):
-        route = trp.tile_route(n, torch.bfloat16)
+        route = trp.tile_route(n, torch.bfloat16, k.dtype if k_scale is not None else None)
         if route == "zeros":
             continue
         kf = k_r[r].repeat_interleave(n_rep, dim=1)  # (W, Hq, D)
         vf = v_r[r].repeat_interleave(n_rep, dim=1)
         qpos = torch.arange(c - n, c)[:, None, None]  # (n, 1, 1)
-        s = torch.einsum("thd,shd->ths", q[s0 : s0 + n], kf) * scale  # (n, Hq, W)
+        s = torch.einsum("thd,shd->ths", q[s0 : s0 + n].float(), kf) * score_scale  # (n, Hq, W)
         cols = torch.arange(W)[None, None, :]
         ok = (cols <= qpos) & (cols < min(c, W))
         if route == "prefill":
@@ -210,7 +220,7 @@ def _kernel_model(q, k, v, bt, row_start, row_len, ctx_len, *, scale, n_rep, rou
                 pv = p.to(torch.bfloat16).float() if round_p else p
                 acc = acc * alpha[..., None] + torch.einsum("ths,shd->thd", pv, vf[t0 : t0 + TILE])
                 m = m_new
-            out[s0 : s0 + n] = acc / torch.clamp(l, min=1e-30)[..., None]
+            out[s0 : s0 + n] = acc / torch.clamp(l, min=1e-30)[..., None] * v_fac
         else:
             parts = []
             for z in range(-(-min(c, W) // per)):  # the live splits
@@ -226,7 +236,7 @@ def _kernel_model(q, k, v, bt, row_start, row_len, ctx_len, *, scale, n_rep, rou
                 w = torch.exp(mz - M)
                 den = den + lz * w
                 num = num + az * w[..., None]
-            out[s0 : s0 + n] = num / torch.clamp(den, min=1e-30)[..., None]
+            out[s0 : s0 + n] = num / torch.clamp(den, min=1e-30)[..., None] * v_fac
     return out, splits
 
 
@@ -289,6 +299,79 @@ def test_kernel_p_rounding_within_card_tolerance(D):
     assert (out[decode] - ref[decode]).abs().max().item() <= ATOL
 
 
+#: the int8/fp8 code types of a quantized KV cache: (torch dtype, JAX dtype)
+CODE_TYPES = {
+    "int8": (torch.int8, jnp.int8),
+    "e4m3": (torch.float8_e4m3fn, jnp.float8_e4m3fn),
+    "e5m2": (torch.float8_e5m2, jnp.float8_e5m2),
+}
+
+
+def _code_layer(rng, code, shape):
+    """One layer of random codes over the code type's range (normal, a
+    quarter of qmax wide, clipped, as the card checks draw them) with byte
+    0x7F in garbage block 0 (NaN for fp8: the kernels never read it), as a
+    torch tensor and the same bytes as a JAX array."""
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import kv_qmax
+
+    tdt, jdt = CODE_TYPES[code]
+    qmax = kv_qmax(tdt)
+    x = np.clip(rng.randn(*shape) * qmax / 4, -qmax, qmax)
+    t = torch.from_numpy(np.round(x) if tdt == torch.int8 else x).float().to(tdt)
+    t.view(torch.uint8)[0] = 0x7F
+    return t, jnp.asarray(t.view(torch.uint8).numpy()).view(jdt)
+
+
+@pytest.mark.parametrize("code", sorted(CODE_TYPES))
+@pytest.mark.parametrize("case", ["decode_beside_chunk", "deep_decode", "mixed_inactive_last"])
+def test_kernel_model_over_codes_matches_jax_kernel(case, code):
+    """The code mode's algorithm for a bf16 q (_kernel_model over code
+    blocks: the codes as exact bf16 / fp32 values, K's factor on the score
+    scale, V's on the finalized output, decode rows over the splits with
+    several live, P rounded to bf16 at P.V on the prefill rows) against the
+    JAX kernel in interpret mode given the layer's factors as k_scale /
+    v_scale (which it folds into q), on the same bf16-valued q. P's rounding
+    moves a prefill slot by at most 2^-9 of max |V| (each p within 2^-9 of
+    itself, the p summing to l); decode slots round nothing (1e-5);
+    padded slots are exact zeros."""
+    ctx, qlen = {**CASES, **SPLIT_CASES}[case]
+    D = 64
+    c = _build_case(ctx, qlen, D, seed=len(case) + len(code))
+    rng = np.random.RandomState(len(code))
+    kc, jk = _code_layer(rng, code, (NB + 1, HKV, BS, D))
+    vc, jv = _code_layer(rng, code, (NB + 1, HKV, BS, D))
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import kv_qmax
+
+    qmax = kv_qmax(kc.dtype)
+    ks = torch.from_numpy(rng.uniform(0.5, 2.0, HKV).astype(np.float32)) / qmax
+    vs = torch.from_numpy(rng.uniform(0.5, 2.0, HKV).astype(np.float32)) / qmax
+    q = torch.from_numpy(c["q"] * 20.0).to(torch.bfloat16).float()  # sharpened scores, bf16 values
+    scale = D ** -0.5
+    ref = np.asarray(jax_kernel(
+        jnp.asarray(q.numpy()), jk, jv, jnp.asarray(c["bt"]), jnp.asarray(c["row_start"]), jnp.asarray(c["row_len"]),
+        jnp.asarray(c["ctx_len"]), scale=scale, n_rep=HQ // HKV, k_scale=jnp.asarray(ks.numpy()),
+        v_scale=jnp.asarray(vs.numpy()), interpret=True,
+    ))
+    args = (_t(c["bt"]), _t(c["row_start"]), _t(c["row_len"]), _t(c["ctx_len"]))
+    kw = dict(scale=scale, n_rep=HQ // HKV, k_scale=ks, v_scale=vs)
+    out, splits = _kernel_model(q, kc, vc, *args, **kw, round_p=True)
+    out = out.numpy()
+    valid = c["positions"] >= 0
+    _, row_id = trp.packed_positions(q.shape[0], *args[1:])
+    prefill = valid & (np.asarray(qlen) > 1)[row_id.numpy()]
+    vmax = (vc[1:].float().abs().amax(dim=(0, 2, 3)) * vs).max().item()
+    if prefill.any():
+        err = np.abs(out[prefill] - ref[prefill]).max()
+        assert err <= 2.0 ** -9 * vmax + ATOL, (err, vmax)
+    np.testing.assert_allclose(out[valid & ~prefill], ref[valid & ~prefill], atol=ATOL, rtol=1e-5)
+    np.testing.assert_array_equal(out[~valid], 0.0)
+    if case in SPLIT_CASES:
+        assert splits > 1 and max(ctx) > MB * BS // splits  # a decode row spans several splits
+    # the plain version (factors after the gather) agrees without P's rounding
+    plain = trp.ragged_paged_attention_plain(q, kc, vc, *args, **kw).numpy()
+    np.testing.assert_allclose(plain[valid], ref[valid], atol=ATOL, rtol=1e-5)
+
+
 @pytest.mark.parametrize(
     "T, width, n_rep, want",
     [
@@ -312,17 +395,30 @@ def test_ragged_decode_split(T, width, n_rep, want):
 
 
 @pytest.mark.parametrize(
-    "row_len, dtype, want",
+    "row_len, dtype, cache_dtype, want",
     [
-        (0, torch.bfloat16, "zeros"),
-        (1, torch.bfloat16, "decode"),
-        (2, torch.bfloat16, "prefill"),
-        (128, torch.bfloat16, "prefill"),
-        (0, torch.float32, "zeros"),
-        (1, torch.float32, "attend"),
-        (41, torch.float32, "attend"),
+        (0, torch.bfloat16, None, "zeros"),
+        (1, torch.bfloat16, None, "decode"),
+        (2, torch.bfloat16, None, "prefill"),
+        (128, torch.bfloat16, None, "prefill"),
+        (0, torch.float32, None, "zeros"),
+        (1, torch.float32, None, "attend"),
+        (41, torch.float32, None, "attend"),
+        # code caches take their q's routes, over code tiles
+        (0, torch.bfloat16, torch.int8, "zeros"),
+        (1, torch.bfloat16, torch.int8, "decode"),
+        (16, torch.bfloat16, torch.float8_e4m3fn, "prefill"),
+        (1, torch.bfloat16, torch.float8_e5m2, "decode"),
+        (1, torch.float32, torch.int8, "attend"),
+        (37, torch.float32, torch.float8_e4m3fn, "attend"),
+        (2, torch.bfloat16, torch.bfloat16, "prefill"),
     ],
 )
-def test_tile_route(row_len, dtype, want):
-    """A tile's route by its row's new tokens and the dtype."""
-    assert trp.tile_route(row_len, dtype) == want
+def test_tile_route(row_len, dtype, cache_dtype, want):
+    """A tile's route by its row's new tokens, q's dtype and the cache's."""
+    assert trp.tile_route(row_len, dtype, cache_dtype) == want
+
+
+def test_tile_route_refuses_a_plain_cache_of_another_dtype():
+    with pytest.raises(ValueError, match="no route"):
+        trp.tile_route(1, torch.bfloat16, torch.float32)
