@@ -91,7 +91,21 @@ Phases, in order; any failure exits non-zero:
      twin's, cache bytes, peak memory, decode ms per token; the kv-int8
      teacher-forced gate; and the split and ragged drains, sync and
      1-ahead, with an int8 cache, graphs on and off (code-mode launches, no
-     fault, equal tokens).
+     fault, equal tokens);
+ 13. speculative decoding (run after the ragged serving phase): B3 on
+     verify rows of 2–4 tokens 196 and 1000 deep beside a chunk and decode
+     rows, and B1 with K = 4 queries a row, against their plain versions,
+     each bit-identical twice; B1 K = 4 timed (B3 at RAGGED_POINTS["spec"]
+     with the other points); serving_1b_int8_spec_ragged (the int8 1B
+     target with a random 4-layer draft (a) and with its own params as the
+     draft (b), 1-ahead and sync, graphs on and off: identical tokens and
+     launches, nothing captured after the seal, one mixed_step_spec
+     dispatch a step, B3 / B2 / B1 counts from the dispatches, no fault,
+     the teacher-forced token gate, with (b) every rejected draft at a near
+     tie and an fp32 twin accepting >= 0.9), profiled beside the plain
+     ragged 1-ahead drain; the split path with (b) (B1 K = 4 verify
+     launches); FusedSpecModelForCausalLM with (a) and (b) beside plain
+     generate().
 Each phase prints its seconds. The line before the card's name lists every
 kernel with its launches, times and bound; the last line of standard output
 is {"ok": true, "device": {...}}.
@@ -4318,6 +4332,592 @@ def phase_kv_quant(torch, da, pf, rp, fa, params, forced_seq):
     return dict(cases=n_cases, times=times, runs=runs, forced=forced, serving=serving, graphs=graphs)
 
 
+# ---------------------------------------------------------------------------
+# 13. speculative decoding (A7's first part)
+# ---------------------------------------------------------------------------
+
+#: serving_1b_int8_spec_ragged's speculation length (bench.py:1087-1097)
+SPEC_K = 4
+#: B3's verify-segment cases in one launch, a table 1024 wide: a chunk from
+#: mid-context, plain decode rows, and verify rows of 2, 3 and 4 tokens 196
+#: and 1000 deep: (row_len, ctx_len)
+SPEC_RAGGED_ROWS = ([40, 1, 2, 3, 4, 2, 3, 4, 1], [40 + 60, 196, 196, 196, 196, 1000, 1000, 1000, 1000])
+#: B1's verify cases: batch 8 (the split path's target), K = 4, rows of
+#: these depths
+SPEC_DECODE_VALID = [196, 200, 256, 100, 500, 197, 130, 260]
+
+
+def phase_spec_parity(torch, da, rp):
+    """B3 on verify segments (SPEC_RAGGED_ROWS) at D 64 and 128, blocks of
+    16 and 32, bf16 and fp32, n_rep 1, 4 and 8, each bf16 case again on
+    exact-score inputs, through check_ragged (verify rows take the
+    tensor-core prefill tiles: B5's P-rounding reference); the spec point
+    runs in phase_ragged_parity with the other RAGGED_POINTS. Then B1 with
+    K = 4 queries a row (the split path's verify and fused speculation's) at
+    batch 8, buckets 512 and 1024, bf16 and fp32, through check_decode.
+    Every case is bit-identical twice."""
+    rng = np.random.RandomState(15)
+    worst, n = 0.0, 0
+    Hkv, width = 8, 1024
+    row_len, ctx_len = (list(a) for a in SPEC_RAGGED_ROWS)
+    for D in (64, 128):
+        for bs in (16, 32):
+            for dtype in (torch.bfloat16, torch.float32):
+                atol = DECODE_ATOL if dtype == torch.bfloat16 else RAGGED_FP32_ATOL
+                for n_rep in (1, 4, 8):
+                    inputs = ragged_case(torch, rng, row_len, ctx_len, Hkv * n_rep, Hkv, D, bs, width // bs, dtype)
+                    for exact in (False, True) if dtype == torch.bfloat16 else (False,):
+                        q, k = exact_score_inputs(torch, inputs[0], inputs[1]) if exact else inputs[:2]
+                        case = (f"verify rows D={D} bs={bs} {str(dtype)[6:]} n_rep={n_rep} row_len {row_len} "
+                                f"ctx_len {ctx_len}{', exact scores' if exact else ''}")
+                        worst = max(worst, check_ragged(torch, rp, (q, k, *inputs[2:]), case, atol, exact))
+                        n += 1
+    log(f"ragged_paged_attention verify segments: {n} cases agree with the plain version, each bit-identical "
+        f"twice (largest abs err {worst:.3e})")
+    worst1, n1 = 0.0, 0
+    B, Hq, D, L = 8, 32, 64, 2
+    for dtype in (torch.bfloat16, torch.float32):
+        for bucket in (512, 1024):
+            q, kc, vc, mask = _decode_inputs(torch, rng, B, SPEC_K, Hq, Hkv, D, L, 1024, bucket, dtype, SPEC_DECODE_VALID)
+            kw = dict(scale=D ** -0.5, n_kv=Hkv)
+            case = f"verify B={B} K={SPEC_K} bucket={bucket} rows {SPEC_DECODE_VALID} deep {str(dtype)[6:]}"
+            worst1 = max(worst1, check_decode(torch, da, q, kc, vc, 1, mask, None, kw, case))
+            check_repeat(torch, "tkg_decode_attention",
+                         lambda: da.tkg_decode_attention(q, kc, vc, 1, mask, None, **kw), case)
+            n1 += 1
+    log(f"tkg_decode_attention K={SPEC_K}: {n1} cases agree with the plain version, each bit-identical twice "
+        f"(largest abs err {worst1:.3e})")
+    return n + n1
+
+
+def phase_spec_times(torch, da):
+    """B1 with K = 4 queries a row at batch 8, bucket 1024, rows 196 deep
+    (the split path's verify pass), held to its plain version, beside the
+    plain version, the bound for this run's inputs and SDPA over the cache
+    slice gathered beforehand (not timed). B3 at the spec point is timed in
+    phase_ragged_times."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(16)
+    B, Hq, Hkv, D, L, bucket = 8, 32, 8, 64, 16, 1024
+    valid = [196] * B
+    q, kc, vc, mask = _decode_inputs(torch, rng, B, SPEC_K, Hq, Hkv, D, L, 1024, bucket, torch.bfloat16, valid)
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    state = {"layer": 0}
+
+    def next_layer():
+        state["layer"] = (state["layer"] + 1) % L
+        return state["layer"]
+
+    case = f"timed verify B={B} K={SPEC_K} bucket={bucket} rows 196 deep D=64 bf16"
+    err = check_decode(torch, da, q, kc, vc, 0, mask, None, kw, case)
+    log_split(torch, da, B, Hkv, bucket)
+    qt = q.transpose(1, 2)
+    kt = kc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    vt = vc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kc, vc, next_layer(), mask, None, **kw))
+    plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_layer(), mask, None, **kw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    b_ms, b_by = bound(*decode_work(q, kc, mask))
+    log(f"tkg_decode_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+    del kc, vc
+    return {("decode_attention_verify", bucket): dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )}
+
+
+def _spec_target_config(graphs=True, one_ahead=True, **kw):
+    """serving_1b_int8_spec_ragged's target (bench.py:1087-1097): the
+    serving row's paged pool and chunked prefill, serving_ragged with
+    serving_spec_ragged and k = 4, int8 weights (fused QKV off, as the
+    bench builds int8 apps)."""
+    return _serving_config(
+        serving_ragged=True, serving_ragged_async=one_ahead, serving_spec_ragged=True, speculation_length=SPEC_K,
+        weight_dtype="int8", fused_qkv=False, cuda_graphs=graphs, **kw,
+    )
+
+
+def _spec_draft_config(graphs=True, model=None, seed=0, **kw):
+    """The row's draft app (bench.py:1436-1442): the contiguous cache at the
+    session's 8 slots and seq 1024, CTE and TKG buckets [1024], a context
+    batch of 1, int8 weights."""
+    s = SERVING
+    return _config(
+        s["slots"], model=model, is_continuous_batching=True, ctx_batch_size=1,
+        context_encoding_buckets=[s["seq"]], token_generation_buckets=[s["seq"]],
+        weight_dtype="int8", fused_qkv=False, cuda_graphs=graphs, seed=seed, **kw,
+    )
+
+
+class _SpecApps:
+    """A target and a draft app as one workload's app for graph_run."""
+
+    def __init__(self, target, draft):
+        self.target, self.draft = target, draft
+
+    def _all_runners(self):
+        return self.target._all_runners() + self.draft._all_runners()
+
+    @property
+    def graphs(self):
+        import types
+
+        return types.SimpleNamespace(captures=self.target.graphs.captures + self.draft.graphs.captures)
+
+
+def _serve_spec(torch, target, draft, prompts, gen, telemetry):
+    """measure_serving_spec's traffic (bench.py:494-525): two requests up
+    front, then one more per step() while slots are free, until every
+    request ends. Returns (session, seconds, steps); the session's
+    ``rounds`` lists each verify round's (request id, accepted drafts,
+    drafted, the position of its first rejected draft or None) as the
+    device counted them, before any cut at EOS or the budget."""
+    from neuronx_distributed_inference_tpu_torch.runtime.serving import SpeculativeServingSession
+
+    target.init_kv_cache()
+    draft.init_kv_cache()
+    sess = SpeculativeServingSession(target, draft, speculation_length=SPEC_K, telemetry=telemetry)
+    sess.rounds = []
+    note = sess._note_acceptance
+
+    def noted(req, accepted, drafted):
+        # the spec-ragged consume notes after advancing req.pos past the
+        # committed tokens, the split path before
+        rejected = None
+        if accepted < drafted:
+            rejected = req.pos if sess.spec_ragged else req.pos + accepted + 1
+        sess.rounds.append((req.req_id, accepted, drafted, rejected))
+        note(req, accepted, drafted)
+
+    sess._note_acceptance = noted
+    t0 = time.perf_counter()
+    nxt, steps = 0, 0
+    for _ in range(2):
+        if not sess.add_request(str(nxt), prompts[nxt], max_new_tokens=gen):
+            raise SystemExit(f"spec serving: request {nxt} refused")
+        nxt += 1
+    while True:
+        sess.step()
+        steps += 1
+        if nxt < len(prompts) and sess.free_slots:
+            if not sess.add_request(str(nxt), prompts[nxt], max_new_tokens=gen):
+                raise SystemExit(f"spec serving: request {nxt} refused")
+            nxt += 1
+            continue
+        if nxt >= len(prompts) and not (sess.active or sess._readmit):
+            break
+    torch.cuda.synchronize()
+    return sess, time.perf_counter() - t0, steps
+
+
+def spec_acceptance(sess, tel):
+    """(acceptance rate, the bench's rate, mean tokens committed per verify
+    round, verify rounds): the rate as the device counted it (accepted over
+    drafted, _serve_spec's rounds), and the bench's rule over the committed
+    tokens (measure_serving_spec: committed minus observations over drafted,
+    lower where EOS or the budget cut a round)."""
+    accepted = sum(r[1] for r in sess.rounds)
+    drafted = sum(r[2] for r in sess.rounds)
+    rounds = len(sess.rounds)
+    committed = max(0, sum(tel.spec_accept_len) - len(tel.spec_accept_len))
+    if not drafted:
+        return None, None, None, rounds
+    return accepted / drafted, committed / sum(tel.spec_draft_len), (committed + rounds) / rounds, rounds
+
+
+def _spec_checks(sess, tel, gen, n_requests, vocab, label):
+    """Every request complete, no fault, rejection or quarantine, tokens in
+    the vocab."""
+    counts = {rid: len(r.generated) for rid, r in sess.requests.items()}
+    faults = dict(rejected=sum(tel.rejected.values()), quarantined=tel.counters["quarantined"],
+                  preempted=tel.counters["preempted"])
+    if sorted(counts.values()) != [gen] * n_requests:
+        raise SystemExit(f"{label}: not every request completed: {counts}")
+    if any(faults.values()) or any(r.status != "finished" for r in sess.requests.values()):
+        raise SystemExit(f"{label}: faults on clean traffic: {faults}")
+    for rid, r in sess.requests.items():
+        if min(r.generated) < 0 or max(r.generated) >= vocab:
+            raise SystemExit(f"{label}: request {rid} has tokens outside the vocab")
+    return counts
+
+
+def spec_token_gate(torch, app, params, prompts, tokens, margin, label, rejections=None):
+    """The served tokens against ONE teacher-forced prefill of prompt +
+    committed tokens through the same weights (modules' decoder stack over a
+    fresh contiguous cache, B2): every committed token must be the prefill's
+    argmax at its position wherever the top-2 margin there exceeds
+    ``margin`` (twice the kernel path's largest logit error against fp32 in
+    the teacher-forced gate of the same width); the positions under the
+    margin are counted and printed. ``rejections`` ({request id: [position,
+    ...]}, the first rejected draft of each round) are sorted by the same
+    margin: with the target's own weights as the draft, a draft can only be
+    rejected where the two paths' rounding may flip the argmax, so every
+    rejection must sit at a position under the margin. Returns the counts,
+    and the rejections over the margin."""
+    from neuronx_distributed_inference_tpu_torch.models import base
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import init_cache
+
+    spec, mlp_fn = app.spec, app.builder.mlp_fn()
+    dev = params["embed_tokens"]["weight"].device
+    total = under = bad = 0
+    rej_total = rej_over = 0
+    for rid, gen in tokens.items():
+        seq = list(prompts[int(rid)]) + list(gen)
+        P, S = len(prompts[int(rid)]), len(seq)
+        cache = init_cache(spec.num_layers, 1, S, spec.attn.num_kv_heads, spec.attn.head_dim,
+                           dtype=torch.bfloat16, device=dev)
+        inputs = base.StepInputs(
+            input_ids=torch.tensor([seq], dtype=torch.int64, device=dev),
+            attention_mask=torch.ones((1, S), dtype=torch.int32, device=dev),
+            position_ids=torch.arange(S, dtype=torch.int32, device=dev)[None],
+            seq_ids=torch.zeros(1, dtype=torch.int32, device=dev),
+            sampling_params=torch.ones((1, 3), dtype=torch.float32, device=dev),
+        )
+        with torch.no_grad():
+            hidden, _ = base.run_decoder_layers(
+                params, base.embed(params, inputs.input_ids), cache, inputs, spec=spec,
+                phase=base.PHASE_CONTEXT_ENCODING, mlp_fn=mlp_fn,
+            )
+            logits = base.lm_head(params, hidden[:, P - 1 : S - 1], spec)[0, :, : spec.vocab_size].float()
+        top2 = torch.topk(logits, 2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > margin
+        wrong = logits.argmax(-1) != torch.tensor(gen, device=dev)
+        total += len(gen)
+        under += int((~decided).sum().item())
+        bad += int((wrong & decided).sum().item())
+        for pos in (rejections or {}).get(rid, ()):
+            if P <= pos < S:
+                rej_total += 1
+                rej_over += int(decided[pos - P].item())
+        del cache, logits
+    log(f"  {label} token gate: {total - under} of {total} committed tokens decided (top-2 margin > {margin:.4f}), "
+        f"{under} under the margin; {bad} decided tokens differ from the teacher-forced argmax"
+        + (f"; {rej_total} rejected drafts, {rej_over} of them at a decided position" if rejections else ""))
+    if bad:
+        raise SystemExit(f"{label}: {bad} committed tokens differ from the teacher-forced argmax past the margin")
+    return dict(decided=total - under, under_margin=under, rejections=rej_total, rejections_decided=rej_over)
+
+
+#: the least acceptance of a draft that is the target itself, every path
+#: in fp32 (phase_spec_serving's fp32 twin). In bf16 the draft and the
+#: target round differently, and on these random weights (top-2 margins
+#: about exponential with mean ~0.2 at vocab 128256) that flips the argmax
+#: at near ties: those rejections are held to the token gate's margin
+#: instead (_own_draft_faults)
+OWN_DRAFT_ACCEPTANCE = 0.9
+
+
+def _own_draft_faults(label, draft, gate):
+    """With the target's own weights as the draft (draft (b)), a rejection
+    at a decided position (a top-2 margin past the token gate's) is a
+    fault: only rounding at a near tie may reject such a draft."""
+    if draft != "b" or not gate["rejections_decided"]:
+        return []
+    return [f"{label}: {gate['rejections_decided']} of {gate['rejections']} rejected drafts sit at decided positions"]
+
+
+def _rejections(sess):
+    """{request id: [position of each round's first rejected draft]}."""
+    out = {}
+    for rid, _a, _d, pos in sess.rounds:
+        if pos is not None:
+            out.setdefault(rid, []).append(pos)
+    return out
+
+
+def phase_spec_profile(torch, target, draft, prompts, label, steps=16):
+    """Where a steady spec-ragged step's time goes: 8 requests decoding with
+    proposals in flight, ``steps`` step() calls per traced chunk."""
+    from neuronx_distributed_inference_tpu_torch.runtime.serving import SpeculativeServingSession
+
+    target.init_kv_cache()
+    draft.init_kv_cache()
+    sess = SpeculativeServingSession(target, draft, speculation_length=SPEC_K)
+    for i, p in enumerate(prompts):
+        # profile_chunk runs the chunk three times: room for 3 x steps full rounds
+        if not sess.add_request(f"p{i}", p, max_new_tokens=SPEC_K * (3 * steps + 8)):
+            raise SystemExit(f"spec profile: request {i} refused")
+    for _ in range(64):
+        if not sess.prefilling and sess._draft_prop is not None and (not sess.ragged_async or sess._pending is not None):
+            break
+        sess.step()
+    else:
+        raise SystemExit(f"spec profile ({label}): the session did not reach steady speculation")
+
+    def chunk():
+        for _ in range(steps):
+            sess.step()
+        torch.cuda.synchronize()
+
+    prof = profile_chunk(torch, chunk, steps, f"spec-ragged serving step (8 rows, {label}, {steps} steps)")
+    b3 = sum(ms for name, ms in prof["kernel_ms_per_step"].items() if any(k in name for k in B3_KERNELS))
+    log(f"  B3 ({' + '.join(B3_KERNELS)}) {b3:.4f} ms/step")
+    sess.run_to_completion()
+    return dict(prof, b3_ms_per_step=b3)
+
+
+def phase_spec_serving(torch, margin):
+    """serving_1b_int8_spec_ragged at full width: the int8 1B target (the
+    main path's seeded weights quantized at load) and two drafts: (a) the
+    4-layer 1B-width draft (LLAMA_1B_DRAFT4), random from its own seed
+    (the row's own, low acceptance), (b) the target's own params (every
+    draft accepted but at near ties, where the two paths' rounding may flip
+    the argmax). Each through graph_pair, 1-ahead and synchronous: graphs on
+    and off give identical tokens and launch counts, nothing is captured
+    after the warm pass and the seal, one mixed_step_spec dispatch per step
+    (B3 launches = 16 per dispatch, B2 = the draft's layers per draft
+    prefill, B1 = k x the draft's layers per chained propose, nothing
+    else), no fault, the token gate, with (b) no rejected draft at a
+    decided position; draft (b)'s fp32 twin accepting at least
+    OWN_DRAFT_ACCEPTANCE; then the plain ragged 1-ahead drain on the same
+    int8 weights, and profiles of 16 steady steps of each.
+    ``margin``: the token gate's margin (from the ragged teacher-forced
+    gate)."""
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_1B
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    s = SERVING
+    t0 = time.perf_counter()
+    base_target = ModelForCausalLM(None, _spec_target_config(graphs=False)).load(random_weights=True)
+    tparams = base_target.params
+    draft4 = dict(LLAMA_1B, num_hidden_layers=4)
+    dparams = ModelForCausalLM(None, _spec_draft_config(False, draft4, seed=1)).load(random_weights=True).params
+    del base_target
+    torch.cuda.synchronize()
+    log(f"spec serving: int8 target and draft weights {time.perf_counter() - t0:.2f} s")
+    L = len(tparams["layers"])
+    vocab = LLAMA_1B["vocab_size"]
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, vocab - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    drafts = {"a": (draft4, dparams), "b": (LLAMA_1B, tparams)}
+    out, failures = {}, []
+    for name, (dmodel, dp) in drafts.items():
+        Ld = dmodel["num_hidden_layers"]
+        for one_ahead in (True, False):
+            label = f"spec-ragged drain, draft ({name}), {'1-ahead' if one_ahead else 'sync'}"
+            state = {}
+
+            def make(graphs, one_ahead=one_ahead, dmodel=dmodel, dp=dp):
+                t = ModelForCausalLM(None, _spec_target_config(graphs, one_ahead)).load(params=tparams).warmup()
+                d = ModelForCausalLM(None, _spec_draft_config(graphs, dmodel)).load(params=dp).warmup()
+                return _SpecApps(t, d)
+
+            def run(apps, label=label, Ld=Ld, state=state):
+                before = all_counts()
+                tel = TelemetrySession()
+                sess, secs, steps = _serve_spec(torch, apps.target, apps.draft, prompts, s["gen"], tel)
+                after = all_counts()
+                counts = {k: after[k] - before[k] for k in after}
+                _spec_checks(sess, tel, s["gen"], len(prompts), vocab, label)
+                d = sess.dispatches
+                want = expect_launches(
+                    ragged_paged_attention=d["mixed_step_spec"] * L, flash_attention=d["prefill_draft"] * Ld,
+                    decode_attention=d["draft_chain"] * SPEC_K * Ld,
+                )
+                if counts != want or not want["ragged_paged_attention"]:
+                    raise SystemExit(f"{label}: launches {counts} != {want}, dispatches {dict(d)}")
+                if set(d) - {"mixed_step_spec", "draft_chain", "prefill_draft"}:
+                    raise SystemExit(f"{label}: dispatches other than the spec step's: {dict(d)}")
+                if tel.steps["mixed"] != d["mixed_step_spec"] or d["mixed_step_spec"] > steps:
+                    raise SystemExit(f"{label}: {d['mixed_step_spec']} mixed dispatches in {steps} steps")
+                state.update(sess=sess, tel=tel, secs=secs, steps=steps, counts=counts)
+                return {rid: list(r.generated) for rid, r in sess.requests.items()}
+
+            def prof(apps, _tokens, label=label):
+                return phase_spec_profile(torch, apps.target, apps.draft, prompts, label)
+
+            res = graph_pair(torch, label, make, run, prof if one_ahead else None, warm_pass=True, profile_off=False)
+            sess, tel = state["sess"], state["tel"]
+            rate, bench_rate, per_round, rounds = spec_acceptance(sess, tel)
+            tokens = {rid: list(r.generated) for rid, r in sess.requests.items()}
+            n_tok = sum(len(v) for v in tokens.values())
+            d = sess.dispatches
+            log(f"  {label}, graphs on: {state['steps']} steps, {d['mixed_step_spec']} mixed_step_spec dispatches, "
+                f"{d['draft_chain']} chained draft proposes, {d['prefill_draft']} draft prefills; acceptance "
+                f"{rate:.4f} over {rounds} verify rounds (the bench's rule over committed tokens: "
+                f"{bench_rate:.4f}), {per_round:.3f} tokens committed per verify round; "
+                f"aggregate {n_tok / state['secs']:.1f} tok/s (one run); launches {state['counts']}")
+            gate = spec_token_gate(torch, ModelForCausalLM(None, _spec_target_config()), tparams, prompts, tokens,
+                                   margin, label, _rejections(sess))
+            failures += _own_draft_faults(label, name, gate)
+            out[(name, one_ahead)] = dict(
+                res[True], acceptance=rate, per_round=per_round, rounds=rounds, tok_s=n_tok / state["secs"],
+                steps=state["steps"], dispatches=dict(d), gate=gate, spec_launches=state["counts"],
+            )
+
+    # the fp32 twin of draft (b): every path in fp32 (int8 weights quantized
+    # from the same seeded fp32 draws), sync, graphs on: with no rounding
+    # apart, a draft that is the target must be accepted
+    t32 = ModelForCausalLM(None, _spec_target_config(True, False, dtype="float32")).load(random_weights=True).warmup()
+    d32 = ModelForCausalLM(None, _spec_draft_config(dtype="float32")).load(params=t32.params).warmup()
+    _serve_spec(torch, t32, d32, prompts, s["gen"], TelemetrySession())  # warm pass: first-use captures
+    tel = TelemetrySession()
+    sess32, _secs, _steps = _serve_spec(torch, t32, d32, prompts, s["gen"], tel)
+    rate32, _b, per_round32, rounds32 = spec_acceptance(sess32, tel)
+    log(f"spec-ragged drain, draft (b), sync, fp32 twin: acceptance {rate32:.4f} over {rounds32} verify rounds, "
+        f"{per_round32:.3f} tokens committed per round")
+    if rate32 is None or rate32 < OWN_DRAFT_ACCEPTANCE:
+        failures.append(f"the fp32 twin's acceptance {rate32} with the target as its own draft "
+                        f"(want >= {OWN_DRAFT_ACCEPTANCE})")
+    del t32, d32, sess32
+
+    # the plain ragged 1-ahead drain of the same requests on the same weights
+    app = ModelForCausalLM(None, _serving_config(
+        serving_ragged=True, serving_ragged_async=True, weight_dtype="int8", fused_qkv=False,
+    )).load(params=tparams).warmup()
+    _serve(torch, app, prompts, s["gen"], TelemetrySession())  # warm pass
+    sess, secs = _serve(torch, app, prompts, s["gen"], TelemetrySession())
+    n_tok = sum(len(r.generated) for r in sess.requests.values())
+    log(f"plain ragged 1-ahead drain, int8, same requests: {secs * 1e3:.1f} ms, aggregate {n_tok / secs:.1f} tok/s "
+        f"(one run), {sess.dispatches['mixed_step']} mixed dispatches")
+    plain_prof = phase_ragged_profile(torch, app, prompts, "int8 plain 1-ahead")
+    del app, sess
+    for key, r in out.items():
+        if key[1]:
+            log(f"spec-ragged vs plain ragged, 1-ahead, int8, graphs on: draft ({key[0]}) host "
+                f"{r['decode_step_ms']:.3f} vs {plain_prof['decode_step_ms']:.3f} ms/step, device busy "
+                f"{r['device_busy_ms']:.3f} vs {plain_prof['device_busy_ms']:.3f} ms/step, kernels/step "
+                f"{r['kernels_per_step']:.0f} vs {plain_prof['kernels_per_step']:.0f}, cudaGraphLaunch "
+                f"{r['launch_api']['cudaGraphLaunch'][0]:.3f} vs {plain_prof['launch_api']['cudaGraphLaunch'][0]:.3f} "
+                f"ms/step; acceptance {r['acceptance']:.4f}, {r['per_round']:.3f} tokens per verify round; "
+                f"aggregate {r['tok_s']:.1f} vs {n_tok / secs:.1f} tok/s (one run each)")
+    if failures:
+        raise SystemExit("spec serving: " + "; ".join(failures))
+    return dict(runs=out, tparams=tparams, prompts=prompts, plain_tok_s=n_tok / secs,
+                launches={"ragged_paged_attention_spec": out[("a", True)]["spec_launches"]["ragged_paged_attention"]})
+
+
+def phase_split_spec(torch, tparams, prompts, margin):
+    """The same requests through SpeculativeServingSession's split path on
+    the contiguous cache (target batch 8, seq 1024, CTE and TKG buckets
+    [1024], int8) with draft (b), the target's params: a warm pass, then the
+    measured drain: B1 with K = 4 for the target's verify (one launch a
+    layer per speculate dispatch) and K = 1 for the draft's k steps, B2
+    for both prefills, nothing else; the token gate and the own-draft
+    checks (_own_draft_faults)."""
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    s = SERVING
+    L = len(tparams["layers"])
+    target = ModelForCausalLM(None, _spec_draft_config()).load(params=tparams).warmup()
+    draft = ModelForCausalLM(None, _spec_draft_config()).load(params=tparams).warmup()
+    _serve_spec(torch, target, draft, prompts, s["gen"], TelemetrySession())  # warm pass: first-use captures
+    before = all_counts()
+    tel = TelemetrySession()
+    sess, secs, steps = _serve_spec(torch, target, draft, prompts, s["gen"], tel)
+    after = all_counts()
+    counts = {k: after[k] - before[k] for k in after}
+    _spec_checks(sess, tel, s["gen"], len(prompts), target.spec.vocab_size, "split spec drain")
+    d = sess.dispatches
+    want = expect_launches(
+        flash_attention=(d["prefill"] + d["prefill_draft"]) * L,
+        decode_attention=d["speculate"] * L * SPEC_K + d["decode_steps"] * L,
+        decode_attention_verify=d["speculate"] * L,
+    )
+    if counts != want or not d["speculate"]:
+        raise SystemExit(f"split spec drain: launches {counts} != {want}, dispatches {dict(d)}")
+    rate, bench_rate, per_round, rounds = spec_acceptance(sess, tel)
+    tokens = {rid: list(r.generated) for rid, r in sess.requests.items()}
+    n_tok = sum(len(v) for v in tokens.values())
+    verify = counts["decode_attention_verify"]
+    log(f"split spec drain (contiguous, int8, draft (b)): {secs * 1e3:.1f} ms, aggregate {n_tok / secs:.1f} tok/s "
+        f"(one run), {steps} steps, dispatches {dict(d)}; B1 K={SPEC_K} verify launches {verify} beside "
+        f"{counts['decode_attention']} B1 K=1 launches; acceptance {rate:.4f} over {rounds} rounds (the bench's rule: "
+        f"{bench_rate:.4f}), {per_round:.3f} tokens committed per round")
+    gate = spec_token_gate(torch, target, tparams, prompts, tokens, margin, "split spec drain", _rejections(sess))
+    failures = _own_draft_faults("split spec drain", "b", gate)
+    if failures:
+        raise SystemExit("; ".join(failures))
+    del target, draft
+    return dict(launches={"decode_attention_verify": verify}, tok_s=n_tok / secs, acceptance=rate, gate=gate)
+
+
+def phase_fused_spec(torch, params, margin):
+    """FusedSpecModelForCausalLM with the 1B target (the main path's bf16
+    weights) and draft (a), the 4-layer draft random from its own seed, or
+    (b), the target itself: batch 1, a 128-token prompt, 128 new tokens,
+    greedy, a warm generate() then a measured one; exact B2 / B1 counts,
+    the token gate; with (b) no draft rejected at a decided position and
+    acceptance of at least OWN_DRAFT_ACCEPTANCE (the share of rounds
+    accepted in full printed); tok/s beside plain generate() (one run
+    each)."""
+    from neuronx_distributed_inference_tpu_torch.config import FusedSpecConfig
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_1B
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.runtime.fused_spec import FusedSpecModelForCausalLM
+
+    prompt_len, n_new = 128, 128
+    L = len(params["layers"])
+    prompt = np.random.RandomState(0).randint(0, LLAMA_1B["vocab_size"], size=(1, prompt_len))
+    plain = ModelForCausalLM(None, _config(1)).load(params=params).warmup()
+    plain.generate(prompt, max_new_tokens=n_new)
+    t0 = time.perf_counter()
+    ref = plain.generate(prompt, max_new_tokens=n_new).sequences
+    plain_s = time.perf_counter() - t0
+    del plain
+    out, failures = {}, []
+    for name, draft_model in (("a", dict(LLAMA_1B, num_hidden_layers=4)), ("b", LLAMA_1B)):
+        cfg = _config(1, speculation_length=SPEC_K, enable_fused_speculation=True)
+        cfg.fused_spec_config = FusedSpecConfig(draft_config=_config(1, model=draft_model, seed=1))
+        app = FusedSpecModelForCausalLM(None, cfg)
+        if name == "a":
+            app.load(target_params=params, random_weights=True)
+        else:
+            app.load(target_params=params, draft_params=params)
+        Ld = draft_model["num_hidden_layers"]
+        counts = []
+        call = app._call
+
+        def counted(prog, phase, arrs, bucket, fn, call=call, counts=counts):
+            tokens, c = call(prog, phase, arrs, bucket, fn)
+            if phase == "tkg":
+                counts.append(c.cpu().numpy())
+            return tokens, c
+
+        app._call = counted
+        app.generate(prompt, max_new_tokens=n_new)  # warm: first-use captures
+        app.seal()
+        counts.clear()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = app.generate(prompt, max_new_tokens=n_new).sequences
+        secs = time.perf_counter() - t0
+        launches = all_counts()
+        rounds = len(counts)
+        want = expect_launches(
+            flash_attention=L + Ld, decode_attention=rounds * SPEC_K * Ld, decode_attention_verify=rounds * L
+        )
+        if launches != want:
+            raise SystemExit(f"fused spec ({name}): launches {launches} != {want}")
+        c = np.concatenate(counts)
+        # every round but the last, which the budget may cut, commits its count
+        full = float((c[:-1] == SPEC_K).mean()) if rounds > 1 else 1.0
+        gen = got[0, prompt_len:]
+        same = int((gen == ref[0, prompt_len:]).sum())
+        log(f"fused spec generate, draft ({name}), batch 1, {prompt_len} + {n_new} tokens: {secs * 1e3:.1f} ms, "
+            f"{n_new / secs:.1f} tok/s beside plain generate() {n_new / plain_s:.1f} tok/s (generate() wall time, "
+            f"prefill included, one run each); {rounds} rounds, mean count {c.mean():.3f}, share of full rounds {full:.3f}; tokens equal to "
+            f"plain generate()'s at {same} of {n_new} positions (not a gate); launches {launches}")
+        rejections, pos = [], prompt_len  # pos: the position of each round's last token
+        for cnt in c.tolist():
+            if cnt < SPEC_K:
+                rejections.append(pos + cnt)
+            pos += cnt
+        gate = spec_token_gate(torch, ModelForCausalLM(None, _config(1)), params, [prompt[0].tolist()],
+                               {"0": gen.tolist()}, margin, f"fused spec ({name})", {"0": rejections})
+        failures += _own_draft_faults(f"fused spec ({name})", name, gate)
+        out[name] = dict(tok_s=n_new / secs, rounds=rounds, full=full, gate=gate, launches=launches)
+        del app
+    out["plain_tok_s"] = n_new / plain_s
+    if failures:
+        raise SystemExit("; ".join(failures))
+    return out
+
+
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
@@ -4375,6 +4975,13 @@ def main():
     params = main_path.pop("params")
     serving = timed("serving", phase_serving, torch, params)
     ragged = timed("ragged serving", phase_ragged_serving, torch, params, serving["tokens"])
+    timed("spec parity", phase_spec_parity, torch, da, rp)
+    times.update(timed("spec times", phase_spec_times, torch, da))
+    margin = 2 * ragged["forced"]["kernel_vs_fp32"]
+    spec = timed("spec-ragged serving", phase_spec_serving, torch, margin)
+    split_spec = timed("split spec serving", phase_split_spec, torch, spec.pop("tparams"), spec["prompts"], margin)
+    timed("fused spec generate", phase_fused_spec, torch, params, 2 * main_path["kernel_vs_fp32"])
+    torch.cuda.empty_cache()
     fused = timed("fused 1B generate", phase_fused_1b, torch, params, main_path)
     graphs = timed("graphs on and off", phase_graphs, torch, params)
     timed("sampled 1B generate", phase_sampled, torch, params)
@@ -4434,6 +5041,15 @@ def main():
          "neuronx_distributed_inference_tpu/ops/paged_flash_attention.py:200", kvq["serving"][("split", False)]),
         ("ragged_paged_attention_codes", ("ragged_paged_attention_codes", "mixed"), "csrc/ragged_paged_attention.cu",
          "neuronx_distributed_inference_tpu/ops/ragged_paged_attention.py:267", kvq["serving"][("ragged", False)]),
+        # speculation: B3 at the spec point (a chunk beside 7 verify rows of
+        # k = 4), launches of the spec-ragged drain with draft (a), 1-ahead,
+        # graphs on; B1 with K = 4 at batch 8, bucket 1024, launches of the
+        # split path's verify passes (the wrapper's own K > 1 counter in
+        # the split spec drain)
+        ("ragged_paged_attention_spec", ("ragged_paged_attention", "spec"), "csrc/ragged_paged_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/ragged_paged_attention.py:267", spec["launches"]),
+        ("decode_attention_verify", ("decode_attention_verify", 1024), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", split_spec["launches"]),
     ):
         t = times[key]
         entries.append({

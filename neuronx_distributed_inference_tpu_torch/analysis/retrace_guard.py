@@ -18,6 +18,10 @@ that point. Two consumers:
   (driven by ``Config.retrace_guard`` or ``NXDI_TPU_RETRACE_GUARD=1`` after
   ``warmup()``) arm the runner so that any later trace of a sealed program
   raises immediately, before the capture, even outside a guard scope.
+  The speculative programs note their traces the same way: the
+  ``mixed_step_spec`` family under its runner's seal, a draft's chained
+  propose (``spec_draft_chain``, first use allowed like a decode program)
+  and fused speculation's programs under ``FusedSpecModelForCausalLM.seal()``.
 """
 
 from __future__ import annotations

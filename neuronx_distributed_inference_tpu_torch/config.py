@@ -83,6 +83,16 @@ class OnDeviceSamplingConfig:
 
 
 @dataclass
+class FusedSpecConfig:
+    """Fused speculation: draft + target in one program per phase
+    (reference FusedSpecConfig); ``draft_config`` is the draft's
+    :class:`InferenceConfig`, set as ``config.fused_spec_config`` on the
+    target's (``runtime/fused_spec.py``)."""
+
+    draft_config: Optional["InferenceConfig"] = None
+
+
+@dataclass
 class ChunkedPrefillConfig:
     """Chunked prefill settings (reference ChunkedPrefillConfig): up to
     ``max_num_seqs`` requests advance by ``kernel_q_tile_size`` prompt
@@ -97,9 +107,11 @@ _NOT_PORTED: Dict[str, Tuple[Any, str]] = {
     "tp_degree": (1, "A10 (parallelism)"),
     "ep_degree": (1, "A10 (parallelism: expert parallelism)"),
     "quantized_checkpoints_path": (None, "A11 (quantized checkpoint artifacts)"),
-    "serving_spec_ragged": (False, "A7 (speculation)"),
-    "speculation_length": (0, "A7 (speculation)"),
-    "enable_fused_speculation": (False, "A7 (speculation)"),
+    "enable_eagle_speculation": (False, "A7 (EAGLE)"),
+    "is_eagle3": (False, "A7 (EAGLE)"),
+    "medusa_speculation_length": (0, "A7 (Medusa)"),
+    "num_medusa_heads": (0, "A7 (Medusa)"),
+    "token_tree_config": (None, "A7 (token tree)"),
     "lora_config": (None, "A9 (LoRA and other model families)"),
     "sliding_window": (None, "A9 (sliding-window attention)"),
     "attention_chunk_size": (None, "A9 (chunked attention)"),
@@ -181,6 +193,19 @@ class Config:
     # follows async_mode when serving_ragged_async is None
     serving_ragged: bool = False
     serving_ragged_async: Optional[bool] = None
+    # speculation inside the ragged mixed step (SpeculativeServingSession):
+    # spec-verify rows of up to speculation_length tokens ride the mixed
+    # dispatch (the mixed_step_spec family); needs serving_ragged + chunked
+    # prefill + 2 <= speculation_length <= 16, greedy
+    serving_spec_ragged: bool = False
+
+    # --- speculation -----------------------------------------------------
+    # draft length + 1: tokens a verify pass checks (assisted_generate, the
+    # speculative session, fused speculation)
+    speculation_length: int = 0
+    # draft + target in one program per phase (runtime/fused_spec.py); the
+    # draft's config rides as InferenceConfig.fused_spec_config
+    enable_fused_speculation: bool = False
 
     # --- serving fault containment (runtime/serving.py, runtime/faults.py)
     # malformed requests get a typed terminal REJECTED verdict at admission
@@ -196,9 +221,11 @@ class Config:
     tp_degree: int = 1
     ep_degree: int = 1
     quantized_checkpoints_path: Optional[str] = None
-    serving_spec_ragged: bool = False
-    speculation_length: int = 0
-    enable_fused_speculation: bool = False
+    enable_eagle_speculation: bool = False
+    is_eagle3: bool = False
+    medusa_speculation_length: int = 0
+    num_medusa_heads: int = 0
+    token_tree_config: Optional[dict] = None
     lora_config: Optional[Any] = None
     sliding_window: Optional[int] = None
     attention_chunk_size: Optional[int] = None
@@ -275,6 +302,9 @@ class Config:
         if self.batch_size < 1 or self.seq_len < 1:
             raise ValueError("batch_size and seq_len must be >= 1")
         self._validate_serving()
+        # EAGLE, Medusa and the token tree are refused here, before the
+        # reference's cross-checks of those fields (its config.py:797-808),
+        # which return with them
         for name, (inert, item) in _NOT_PORTED.items():
             if getattr(self, name) != inert:
                 raise NotImplementedError(
@@ -362,6 +392,35 @@ class Config:
                 "dispatch: set serving_ragged=True (the legacy split path "
                 "already pipelines via async_mode)"
             )
+        if self.serving_spec_ragged:
+            if not self.serving_ragged:
+                raise ValueError(
+                    "serving_spec_ragged packs spec-verify rows into the "
+                    "ragged mixed step: set serving_ragged=True (paged "
+                    "cache + continuous batching)"
+                )
+            if not self.is_chunked_prefill:
+                raise ValueError(
+                    "serving_spec_ragged requires is_chunked_prefill=True: "
+                    "prompt chunks must ride the same mixed dispatch as the "
+                    "spec-verify rows (one program identity per step)"
+                )
+            # 16 == ops/ragged_paged_attention.RAGGED_Q_TILE (kept literal:
+            # config validation must not import kernel modules)
+            if not 2 <= self.speculation_length <= 16:
+                raise ValueError(
+                    "serving_spec_ragged needs 2 <= speculation_length <= "
+                    "16: a spec-verify segment (last token + drafts) must "
+                    "fit one ragged q tile"
+                )
+            ods = self.on_device_sampling_config
+            if ods is not None and getattr(ods, "do_sample", False):
+                raise NotImplementedError(
+                    "serving_spec_ragged is greedy-only: the packed verify "
+                    "computes contiguous-match acceptance on device "
+                    "(sampled accept/reject stays on the split "
+                    "SpeculativeServingSession path)"
+                )
         if (
             self.is_block_kv_layout
             and self.pa_num_blocks is None

@@ -19,8 +19,11 @@ multi-token passes of 8 tokens or more (chunked and prefix prefill) go
 through the B5 paged flash kernel and shorter ones through the B4 paged
 decode kernel. The ragged mixed serving
 step (:func:`mixed_forward`) packs prefill chunks and decode rows on one
-token axis and runs its attention through the B3 ragged kernel. The config
-tri-states turn the kernels off.
+token axis and runs its attention through the B3 ragged kernel; its
+``spec_width > 1`` form also packs spec-verify rows and counts their
+accepted drafts on the device, and :func:`draft_chain_propose` runs a
+draft's next proposals from that output. The config tri-states turn the
+kernels off.
 
 An int8/fp8 ``kv_cache_dtype`` makes the cache's streams ``QuantizedKV``:
 the writes quantize in place, B1, B4, B5 and B3 run their code modes on
@@ -144,6 +147,13 @@ class MixedStepInputs:
     # inert values (all -1 / zeros); None skips the gather.
     chain_src: Optional[torch.Tensor] = None  # (1, T) int; -1 = host id
     chain_tokens: Optional[torch.Tensor] = None  # (R, 1) int
+    # speculative verification (the mixed_step_spec family, spec_width > 1):
+    # verify_len[r] is row r's verify-window width (1 for plain rows; a spec
+    # row's last token plus its drafts); draft_tokens is the draft's (R,
+    # spec_width - 1) proposal matrix, still on the device, which chain_src
+    # then indexes FLATTENED (r * (spec_width - 1) + j) instead of by row
+    verify_len: Optional[torch.Tensor] = None  # (R,) int
+    draft_tokens: Optional[torch.Tensor] = None  # (R, spec_width - 1) int
 
 
 Cache = Union[KVCache, BlockKVCache]
@@ -619,12 +629,20 @@ def mixed_forward(
     context/decode pair of the split path.
 
     Returns StepOutput with tokens (R, 1); inactive rows (row_len 0) carry
-    tokens the host ignores."""
-    if spec_width > 1:
-        raise NotImplementedError(
-            "speculative verification inside the mixed step (spec_width > 1) "
-            "is not ported to PyTorch yet (ROADMAP A7 (speculation))"
-        )
+    tokens the host ignores.
+
+    ``spec_width > 1`` is the speculative-verification program (the
+    ``mixed_step_spec`` family): a spec row's segment is its last committed
+    token followed by its drafts, gathered on the device from
+    ``inputs.draft_tokens``; to B3 it is one more multi-token row under the
+    causal mask. The program reads each row's last ``verify_len[r]``
+    positions, runs the lm head over the (R, spec_width) window and returns
+    tokens (R, spec_width + 1): columns [0, spec_width) are the greedy token
+    after each window position (column 0 is THE token of a plain row) and
+    column spec_width is the accepted count in [1, verify_len[r]], the
+    leading matches of the drafts plus one, computed on the device. Rejected
+    draft K/V needs no rollback: those positions are written again next
+    round before anything attends them."""
     if (
         getattr(spec, "layer_groups", None) is not None
         or getattr(spec, "bounded_window", None)
@@ -641,7 +659,16 @@ def mixed_forward(
         )
 
     input_ids = inputs.input_ids
-    if inputs.chain_tokens is not None and inputs.chain_src is not None:
+    if spec_width > 1 and inputs.draft_tokens is not None and inputs.chain_src is not None:
+        # device-side draft gather: packed slots whose chain_src >= 0 take
+        # their id from the flattened (R, spec_width - 1) proposal matrix. A
+        # draft's NON_FINITE sentinel (-1) clamps to token 0: a poisoned
+        # draft only costs acceptance, never output correctness
+        flat = torch.clamp(inputs.draft_tokens.reshape(-1), min=0)
+        src = inputs.chain_src.to(torch.int64)
+        gathered = flat[torch.clamp(src, 0, flat.shape[0] - 1)]
+        input_ids = torch.where(src >= 0, gathered.to(input_ids.dtype), input_ids)
+    elif inputs.chain_tokens is not None and inputs.chain_src is not None:
         # device-side chained-id gather: packed slots whose chain_src names a
         # row take that row's previous-step token straight off the device. A
         # previous-step NON_FINITE sentinel (-1) clamps to token 0: the
@@ -667,15 +694,76 @@ def mixed_forward(
         )
     hidden = apply_norm(hidden, params["norm"]["weight"], spec.rms_eps, spec.norm_type)
     T = hidden.shape[1]
-    # per-row last-token gather off the packed axis; inactive rows clamp to
-    # slot 0, which the host never reads
-    last_idx = torch.clamp(inputs.row_start.to(torch.int64) + inputs.row_len.to(torch.int64) - 1, 0, T - 1)
-    rows_h = hidden[0][last_idx][:, None, :]  # (R, 1, H)
-    logits = lm_head(params, rows_h, spec)[..., : spec.vocab_size]  # (R, 1, V)
-    tokens = _next_tokens(logits, inputs.sampling_params, spec)
-    return StepOutput(
-        tokens=tokens, logits=logits if spec.output_logits else None, cache=type(cache)(k=k_cache, v=v_cache)
-    )
+    new_cache = type(cache)(k=k_cache, v=v_cache)
+    row_start = inputs.row_start.to(torch.int64)
+    row_end = row_start + inputs.row_len.to(torch.int64)
+    if spec_width == 1:
+        # per-row last-token gather off the packed axis; inactive rows clamp
+        # to slot 0, which the host never reads
+        last_idx = torch.clamp(row_end - 1, 0, T - 1)
+        rows_h = hidden[0][last_idx][:, None, :]  # (R, 1, H)
+        logits = lm_head(params, rows_h, spec)[..., : spec.vocab_size]  # (R, 1, V)
+        tokens = _next_tokens(logits, inputs.sampling_params, spec)
+        return StepOutput(tokens=tokens, logits=logits if spec.output_logits else None, cache=new_cache)
+
+    # spec_width > 1: each row's verify window and greedy acceptance, on the
+    # device (the spec-ragged path is greedy by config)
+    R = row_start.shape[0]
+    verify_len = inputs.verify_len if inputs.verify_len is not None else torch.ones_like(inputs.row_len)
+    v = torch.clamp(verify_len.to(torch.int64), 1, spec_width)[:, None]  # (R, 1)
+    # column j reads window base + j, clamped to the row's last position
+    # past verify_len (duplicates the host never reads)
+    base = row_end - v[:, 0]
+    j = torch.arange(spec_width, device=hidden.device)[None, :]
+    win_idx = torch.clamp(base[:, None] + torch.minimum(j, v - 1), 0, T - 1)  # (R, S)
+    rows_h = hidden[0][win_idx.reshape(-1)].reshape(R, spec_width, -1)
+    logits = lm_head(params, rows_h, spec)[..., : spec.vocab_size]  # (R, S, V)
+    tokens = mark_non_finite_tokens(torch.argmax(logits, dim=-1).to(torch.int32), logits)
+    # count = 1 + the leading matches of the drafted ids (window position
+    # base + j + 1 holds draft j + 1) with the greedy tokens; a NON_FINITE
+    # token (-1) matches no id, so acceptance stops there
+    drafted = input_ids[0][torch.clamp(win_idx + 1, 0, T - 1).reshape(-1)].reshape(R, spec_width)
+    match = (drafted[:, :-1].to(torch.int32) == tokens[:, :-1]) & (j[:, :-1] + 1 < v)
+    counts = 1 + torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)  # (R,) in [1, verify_len]
+    tokens = torch.cat([tokens, counts[:, None].to(torch.int32)], dim=1)  # (R, spec_width + 1)
+    return StepOutput(tokens=tokens, logits=logits if spec.output_logits else None, cache=new_cache)
+
+
+def draft_chain_propose(
+    params: dict,
+    cache: Cache,
+    st: DecodeState,
+    prev_tokens: torch.Tensor,
+    fallback_last: torch.Tensor,
+    fallback_pos: torch.Tensor,
+    use_chain: torch.Tensor,
+    p0_base: torch.Tensor,
+    *,
+    spec: ModelSpec,
+    num_steps: int,
+    spec_width: int,
+    mlp_fn: Callable = gated_mlp,
+) -> torch.Tensor:
+    """Draft proposals chained on the previous spec mixed step's output (the
+    reference's ``draft_chain_propose``). Each row's frontier, its last
+    ACCEPTED token and the position after it, is derived on the device from
+    ``prev_tokens`` (R, spec_width + 1) where ``use_chain`` is set (else the
+    host's ``fallback_last`` / ``fallback_pos``), written into ``st``, and
+    ``num_steps`` greedy decode steps (:func:`decode_step`) run from it, so
+    the accepted-token frontier never visits the host between verify and
+    the next draft. A non-finite frontier (-1) clamps to token 0: the
+    poisoned row's proposals are discarded at its quarantine. ``st`` carries
+    the seq ids (-1: the garbage line), the sampling params and the
+    bucket's columns; ``p0_base`` (R, 1) is each row's verify-window base.
+    Returns the proposals (R, num_steps) int32; the cache is written in
+    place."""
+    counts = torch.clamp(prev_tokens[:, spec_width : spec_width + 1].to(torch.int64), 1, spec_width)
+    chained_last = torch.take_along_dim(prev_tokens[:, :spec_width].to(torch.int64), counts - 1, dim=1)
+    uc = use_chain.to(torch.bool)
+    st.last.copy_(torch.where(uc, torch.clamp(chained_last, min=0), fallback_last.to(torch.int64)))
+    st.pos.copy_(torch.where(uc, p0_base.to(torch.int64) + counts, fallback_pos.to(torch.int64)))
+    steps = [decode_step(params, cache, st, spec=spec, mlp_fn=mlp_fn)[0] for _ in range(num_steps)]
+    return torch.stack(steps, dim=1).to(torch.int32)
 
 
 def forward(

@@ -34,13 +34,16 @@ KERNEL_SOURCES = (
 #: the kernels whose launches are counted, by name: B4 (paged decode) is the
 #: paged address mode of decode_attention.cu, counted apart from B1, and the
 #: int8/fp8 code modes of B1, B4, B5 and B3 (a QuantizedKV cache) count
-#: apart from their bf16/fp32 modes, under ``<name>_codes``. An entry that
-#: makes several grid launches (B7, B8, B9) counts one.
+#: apart from their bf16/fp32 modes, under ``<name>_codes``. B1 with more
+#: than one query a row over a plain cache (a speculative verify pass, or
+#: a windowed prefill's window of up to 16 tokens) counts as
+#: ``decode_attention_verify``. An entry that makes several grid
+#: launches (B7, B8, B9) counts one.
 KERNELS = (
     "flash_attention", "decode_attention", "paged_decode_attention", "paged_flash_attention",
     "ragged_paged_attention", "quant_matmul", "moe_decode", "fused_attn_block", "fused_mlp_block",
     "decode_attention_codes", "paged_decode_attention_codes", "paged_flash_attention_codes",
-    "ragged_paged_attention_codes",
+    "ragged_paged_attention_codes", "decode_attention_verify",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -56,6 +56,7 @@ from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import launches_ker
 KERNEL = "decode_attention"
 PAGED_KERNEL = "paged_decode_attention"
 CODE_KERNEL = "decode_attention_codes"  # B1 over an int8/fp8 cache
+VERIFY_KERNEL = "decode_attention_verify"  # B1 with K > 1 queries a row over a plain cache
 PAGED_CODE_KERNEL = "paged_decode_attention_codes"  # B4 over int8/fp8 code blocks
 HEAD_DIMS = (64, 128)
 BLOCK_SIZES = (16, 32)  # B4: cache block sizes
@@ -254,7 +255,7 @@ def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv, streams=Non
         *_code_args("tkg_decode_attention", streams, Hkv),
         stream,
     )
-    counter = KERNEL if streams is None else CODE_KERNEL
+    counter = CODE_KERNEL if streams is not None else VERIFY_KERNEL if K > 1 else KERNEL
     _cuda.check(err, counter)
     _cuda.LAUNCHES[counter] += 1
     return out

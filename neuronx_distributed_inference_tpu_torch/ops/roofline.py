@@ -4,7 +4,7 @@ bound).
     python -m neuronx_distributed_inference_tpu_torch.ops.roofline
 
 prints the bounds of B8 and B9 at their timed points (:data:`FUSED_POINTS`),
-the bounds of B3's two timed points and B1's at the long-context decode
+the bounds of B3's three timed points and B1's at the long-context decode
 buckets (:data:`KVQ_BUCKETS`), each over a bf16 and an int8/fp8 cache, B6's bound at every
 projection of the int4 rows (:data:`QMM_POINTS`) with the whole decode
 step's weight bytes, and B7's bound at its timed points
@@ -77,11 +77,14 @@ RAGGED_Q_TILE = 16  # packed slots per q tile (ops/ragged_paged_attention.py)
 #: B3's timed points on the serving_1b_int8_ragged row (8 slots, a kv width
 #: of 1024 in blocks of 32), as each row's new tokens and context length
 #: (new tokens included): the mixed step (one 128-token chunk from position
-#: 0 and 7 decode rows 192 deep) and a decode-only step (8 rows 192 deep,
-#: each one token in its own tile of 16). chip_smoke.py times B3 at both.
+#: 0 and 7 decode rows 192 deep), a decode-only step (8 rows 192 deep,
+#: each one token in its own tile of 16), and a spec step of
+#: serving_1b_int8_spec_ragged (k = 4: the chunk beside 7 verify rows of 4
+#: tokens, 196 deep). chip_smoke.py times B3 at all three.
 RAGGED_POINTS = {
     "mixed": dict(row_len=(128,) + (1,) * 7, ctx_len=(128,) + (192,) * 7, width=1024, block_size=32),
     "decode": dict(row_len=(1,) * 8, ctx_len=(192,) * 8, width=1024, block_size=32),
+    "spec": dict(row_len=(128,) + (4,) * 7, ctx_len=(128,) + (196,) * 7, width=1024, block_size=32),
 }
 
 

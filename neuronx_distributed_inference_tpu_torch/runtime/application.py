@@ -8,7 +8,8 @@ context-encoding runner and one token-generation runner over a KV cache on
 the config's device (``"cuda"`` unless the caller asks for the CPU). The
 cache is contiguous, or the paged block pool with ``is_block_kv_layout``.
 With ``serving_ragged`` it also carries ``mixed_step_model``, the ragged
-mixed-step runner the serving session dispatches once per step.
+mixed-step runner the serving session dispatches once per step (its
+speculative-verification family with ``serving_spec_ragged``).
 ``generate`` keeps the reference's host loop over the contiguous cache: one
 prefill (in windows when the prompt is longer than ``max_context_length``),
 then decode chunks sized by :func:`_pick_chunk`, with tokens kept on the
@@ -149,8 +150,12 @@ class ModelForCausalLM:
                 mixed_buckets.append(b)
                 b *= 2
             mixed_buckets.append(b)
+            # serving_spec_ragged builds the spec-verify family: a spec row
+            # packs up to speculation_length tokens, still one q tile
+            # (validated), so the bucket ladder is the same
             self.mixed_step_model = MixedStepRunner(
                 self.spec, mixed_buckets, num_rows, self.device, mlp_fn, tc.pa_block_size, tkg_buckets,
+                spec_width=tc.speculation_length if tc.serving_spec_ragged else 1,
             )
         # the programs' CUDA graphs (bound at load) and the sampler's
         # generator, reseeded once per generate() call (_advance_rng)

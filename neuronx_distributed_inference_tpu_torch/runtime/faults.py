@@ -188,7 +188,10 @@ class FaultInjector:
 
     def corrupt_tokens(self, session, tokens: np.ndarray) -> np.ndarray:
         """Armed slots of a freshly fetched slot-indexed token array ((B,)
-        or (B, K)) read as the non-finite sentinel."""
+        or (B, K): a decode chunk, the split speculative path's (B, k)
+        verify tokens, the spec-ragged step's (R, k+1) tokens with the
+        accepted count) read as the non-finite sentinel in every column, so
+        a speculative row quarantines on its accepted window."""
         from neuronx_distributed_inference_tpu_torch.models.base import NON_FINITE_TOKEN
 
         step = session._step_index

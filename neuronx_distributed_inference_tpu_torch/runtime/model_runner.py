@@ -13,7 +13,10 @@ and replays it after (``runtime/graphs.py``). The keys:
   window is padded to the same length);
 - (bucket) of the one-step decode program that :meth:`decode_chunk`
   replays once per step;
-- (total-token bucket, kv width) of the ragged mixed step.
+- (bucket, steps) of a draft's chained propose
+  (:meth:`SubModelRunner.draft_chain`, the spec-ragged session's draft);
+- (total-token bucket, kv width) of the ragged mixed step, and of its
+  speculative-verification family (``spec_width > 1``).
 
 A program samples (a separate key) only when it is handed the app's
 generator and the spec samples. Each key's inputs live in static device
@@ -61,6 +64,7 @@ from neuronx_distributed_inference_tpu_torch.models.base import (
     StepInputs,
     StepOutput,
     decode_step,
+    draft_chain_propose,
     forward,
     mixed_forward,
 )
@@ -71,6 +75,8 @@ from neuronx_distributed_inference_tpu_torch.runtime.graphs import GraphSet, bin
 TAG_CONTEXT_ENCODING = "context_encoding_model"
 TAG_TOKEN_GENERATION = "token_generation_model"
 TAG_MIXED_STEP = "mixed_step_model"
+TAG_MIXED_STEP_SPEC = "mixed_step_spec_model"
+TAG_SPEC_DRAFT_CHAIN = "spec_draft_chain"
 
 log = logging.getLogger(__name__)
 
@@ -251,6 +257,13 @@ class SubModelRunner(_SealMixin):
         # session's bucket census reads it)
         self.last_bucket: Optional[int] = None
         self._prog = _Programs(tag, host_read_tokens)
+        # the chained draft proposals of a spec-ragged session's draft app:
+        # first use captures even when sealed (like a decode program)
+        self._chain_prog = _Programs(TAG_SPEC_DRAFT_CHAIN)
+
+    def bind_graphs(self, graphs: Optional[GraphSet]) -> None:
+        self._prog.bind(graphs)
+        self._chain_prog.bind(graphs)
 
     # ---- static inputs ----------------------------------------------------
 
@@ -432,6 +445,63 @@ class SubModelRunner(_SealMixin):
                 logits[:, j].copy_(lg)
         return tokens, logits, cache
 
+    @torch.no_grad()
+    def draft_chain(
+        self,
+        params,
+        cache: Cache,
+        prev_tokens: torch.Tensor,  # (R, spec_width + 1) device verify output
+        use_chain: np.ndarray,  # (R, 1)
+        p0_base: np.ndarray,  # (R, 1)
+        seq_ids: np.ndarray,  # (R,) -1 = not chained (the garbage line)
+        sampling_params: np.ndarray,
+        num_steps: int,
+        bucket: int,
+        spec_width: int,
+    ) -> torch.Tensor:
+        """``num_steps`` greedy draft steps per row chained on a spec mixed
+        step's output (``models.base.draft_chain_propose``; the speculative
+        session runs k and uses the first k-1 proposals): ONE program per
+        (bucket, steps), captured as one graph. The verify
+        output is copied into the program's static on the device, never
+        through the host; rows not chained propose from token 0 at position
+        0 into the garbage line. Returns the proposals (R, num_steps),
+        copied out of the graph's buffers."""
+        R = self.batch_size
+        skey = ("chain", bucket, spec_width)
+        ent = self._chain_prog.statics.get(skey)
+        if ent is None:
+            st = _Statics(
+                [
+                    ("prev", (R, spec_width + 1), False), ("rows", (3, R, 1), False),
+                    ("seq_ids", (R,), False), ("sampling_params", (R, 3), True),
+                    ("decode", (2, R, 1), False),
+                ],
+                self.device,
+            )
+            state = DecodeState(
+                last=st.t["decode"][0], pos=st.t["decode"][1], seq_ids=st.t["seq_ids"],
+                sampling_params=st.t["sampling_params"],
+                cols=torch.arange(bucket, dtype=torch.int32, device=self.device)[None, :],
+            )
+            ent = self._chain_prog.statics[skey] = (st, state)
+        st, state = ent
+        rows = np.zeros((3, R, 1), np.int32)  # fallback last and pos stay 0
+        rows[1], rows[2] = use_chain, p0_base
+        st.fill({"prev": prev_tokens, "rows": rows, "seq_ids": seq_ids, "sampling_params": sampling_params})
+        t = st.t["rows"]
+
+        def body():
+            return draft_chain_propose(
+                params, cache, state, st.t["prev"], t[0], t[0], t[1], t[2],
+                spec=self.spec, num_steps=num_steps, spec_width=spec_width, mlp_fn=self.mlp_fn,
+            )
+
+        self.last_bucket = bucket
+        pkey = ("chain", R, bucket, num_steps, spec_width)
+        out, replayed = self._chain_prog.run(pkey, body, binding(params, cache), 1, allow_sealed=True)
+        return out.clone() if replayed else out
+
     # ---- warmup ----------------------------------------------------------
 
     def example_inputs(self, bucket: int, q_len: Optional[int] = None) -> StepInputs:
@@ -515,10 +585,24 @@ class MixedStepRunner(_SealMixin):
         mlp_fn: Callable,
         block_size: int,
         kv_buckets: List[int],  # kv-width ladder (block-aligned decode buckets)
+        spec_width: int = 1,
     ):
+        """``spec_width`` > 1 builds the speculative-verification family
+        (``mixed_step_spec``, serving_spec_ragged): spec rows pack up to
+        ``spec_width`` query tokens (last committed token + drafts) in one
+        segment, and the tokens come back (R, spec_width + 1) with the
+        accepted count in the last column (``models.base.mixed_forward``).
+        ``verify_len`` and the draft matrix are statics of the same program
+        key, so a step's draft lengths change data, never the program."""
         from neuronx_distributed_inference_tpu_torch.ops.ragged_paged_attention import RAGGED_Q_TILE
 
-        self.tag = TAG_MIXED_STEP
+        if not 1 <= spec_width <= RAGGED_Q_TILE:
+            raise ValueError(
+                f"spec_width {spec_width} out of range [1, {RAGGED_Q_TILE}]: "
+                "a spec-verify segment must fit one ragged q tile"
+            )
+        self.spec_width = spec_width
+        self.tag = TAG_MIXED_STEP_SPEC if spec_width > 1 else TAG_MIXED_STEP
         self.spec = spec
         self.buckets = sorted(buckets)
         self.num_rows = num_rows
@@ -535,22 +619,24 @@ class MixedStepRunner(_SealMixin):
         st = self._prog.statics.get(skey)
         if st is None:
             R = self.num_rows
-            st = self._prog.statics[skey] = _Statics(
-                [
-                    ("packed", (4, 1, bucket), False), ("block_table", (R, mb), False),
-                    ("rows", (3, R), False), ("sampling_params", (R, 3), True),
-                    ("chain_tokens", (R, 1), False),
-                ],
-                self.device,
-            )
+            layout = [
+                ("packed", (4, 1, bucket), False), ("block_table", (R, mb), False),
+                ("rows", (4, R), False), ("sampling_params", (R, 3), True),
+                ("chain_tokens", (R, 1), False),
+            ]
+            if self.spec_width > 1:
+                layout.append(("draft_tokens", (R, self.spec_width - 1), False))
+            st = self._prog.statics[skey] = _Statics(layout, self.device)
         return st
 
     def _inputs_of(self, st: _Statics) -> MixedStepInputs:
         t = st.t
+        spec = self.spec_width > 1
         return MixedStepInputs(
             input_ids=t["packed"][0], position_ids=t["packed"][1], slot_mapping=t["packed"][2],
             block_table=t["block_table"], row_start=t["rows"][0], row_len=t["rows"][1], ctx_len=t["rows"][2],
             sampling_params=t["sampling_params"], chain_src=t["packed"][3], chain_tokens=t["chain_tokens"],
+            verify_len=t["rows"][3] if spec else None, draft_tokens=t.get("draft_tokens"),
         )
 
     def prepare(
@@ -566,12 +652,17 @@ class MixedStepRunner(_SealMixin):
         sampling_params: Optional[np.ndarray] = None,
         chain_src: Optional[np.ndarray] = None,  # (T,) int32; -1 = host id
         chain_tokens: Optional[torch.Tensor] = None,  # (R, 1) device tokens of the previous step
+        verify_len: Optional[np.ndarray] = None,  # (R,) spec_width > 1: window widths
+        draft_tokens: Optional[torch.Tensor] = None,  # (R, spec_width - 1) device proposals
     ) -> Tuple[MixedStepInputs, int]:
         """Pad the packed axis to its total-token bucket and the block table
         to ``width // block_size`` columns, into the key's static buffers.
         Returns (inputs, T_real). Without ``chain_src`` the chain sources
         are all -1 (every id as the host wrote it), so the synchronous and
-        the pipelined step run the same program."""
+        the pipelined step run the same program. On a ``spec_width > 1``
+        runner ``verify_len`` defaults to all ones and ``draft_tokens``,
+        which another program wrote, is copied into its static on the
+        device; ``chain_src`` then indexes the flattened draft matrix."""
         T = int(input_ids.shape[0])
         bucket = get_target_bucket(self.buckets, max(T, self.q_tile))
         R = self.num_rows
@@ -595,6 +686,7 @@ class MixedStepRunner(_SealMixin):
             packed[i, :T] = a
         v["block_table"][:, : block_table.shape[1]] = block_table
         v["rows"][0], v["rows"][1], v["rows"][2] = row_start, row_len, ctx_len
+        v["rows"][3] = 1 if verify_len is None else verify_len
         v["sampling_params"][:] = sampling_params
         t = torch.from_numpy(buf)
         if st.flat.is_cuda:
@@ -603,6 +695,8 @@ class MixedStepRunner(_SealMixin):
             st.flat.copy_(t)
         if chain_tokens is not None:
             st.t["chain_tokens"].copy_(chain_tokens)
+        if draft_tokens is not None:
+            st.t["draft_tokens"].copy_(draft_tokens)
         self.last_bucket = bucket
         return self._inputs_of(st), T
 
@@ -615,19 +709,24 @@ class MixedStepRunner(_SealMixin):
         if inputs.input_ids.data_ptr() != st.t["packed"].data_ptr():
             # inputs built outside prepare(): copy them into the key's buffers
             src = inputs.chain_src if inputs.chain_src is not None else torch.full_like(inputs.input_ids, -1)
+            vl = inputs.verify_len if inputs.verify_len is not None else torch.ones_like(inputs.row_len)
             fields = {
                 "packed": torch.stack([inputs.input_ids, inputs.position_ids, inputs.slot_mapping, src]).to(torch.int32),
                 "block_table": inputs.block_table,
-                "rows": torch.stack([inputs.row_start, inputs.row_len, inputs.ctx_len]).to(torch.int32),
+                "rows": torch.stack([inputs.row_start, inputs.row_len, inputs.ctx_len, vl]).to(torch.int32),
                 "sampling_params": inputs.sampling_params,
             }
             if inputs.chain_tokens is not None:
                 fields["chain_tokens"] = inputs.chain_tokens
+            if inputs.draft_tokens is not None and self.spec_width > 1:
+                fields["draft_tokens"] = inputs.draft_tokens
             st.load(fields)
         step_inputs = self._inputs_of(st)
 
         def body():
-            out = mixed_forward(params, cache, step_inputs, spec=self.spec, mlp_fn=self.mlp_fn)
+            out = mixed_forward(
+                params, cache, step_inputs, spec=self.spec, mlp_fn=self.mlp_fn, spec_width=self.spec_width
+            )
             return out.tokens, out.logits
 
         (tokens, logits), replayed = self._prog.run(("mixed", bucket, mb), body, binding(params, cache), 1)

@@ -28,10 +28,15 @@ typed admission verdicts, preemption on pool exhaustion with re-admission
 ahead of new arrivals, deadlines, bounded dispatch retry, row quarantine
 with a KV scrub, and a no-progress watchdog.
 
+:class:`SpeculativeServingSession` serves with a draft app: on the
+contiguous cache the draft proposes and the target verifies in two
+dispatches per step (the split path); with ``serving_spec_ragged`` the
+verification rides the one mixed dispatch as spec-verify rows and the
+draft's next proposals chain on its output on the device.
+
 The port updates the cache in place where the reference rebinds a new one.
-Outside this slice, and raising ``NotImplementedError`` with their ROADMAP
-item: the speculative session and speculation inside the mixed step (A7)
-and admission of a request prefilled elsewhere (A8). A prompt longer than
+Outside this slice, and raising ``NotImplementedError`` with its ROADMAP
+item: admission of a request prefilled elsewhere (A8). A prompt longer than
 the largest context bucket is admitted on the contiguous cache in windows
 (:meth:`ServingSession._windowed_admit`).
 
@@ -121,6 +126,14 @@ class Request:
     preemptions: int = 0  # pool-exhaustion evictions survived
     absorbed: int = 0  # generated tokens folded into input_ids (re-admission)
     epoch: int = 0  # bumped per eviction: stale in-flight rows are discarded
+    # spec-ragged speculation (SpeculativeServingSession): draft_ready once
+    # the draft's cache line holds the prompt (cleared by preemption: the
+    # line is prefilled again after re-admission); draft_len the current
+    # adaptive draft length, on the session's fixed ladder; accept_ewma the
+    # acceptance-rate EWMA the policy steers by
+    draft_ready: bool = False
+    draft_len: int = 0
+    accept_ewma: float = 1.0
 
     @property
     def prompt_len(self) -> int:
@@ -240,6 +253,14 @@ class ServingSession:
                     "serving_ragged=True but the application carries no "
                     "mixed_step program family (build the app with the same "
                     "config that constructs this session)"
+                )
+            if self.mixed_runner.spec_width > 1 and not isinstance(self, SpeculativeServingSession):
+                raise ValueError(
+                    "this app's mixed_step family is the SPEC-VERIFY "
+                    "variant (serving_spec_ragged): construct a "
+                    "SpeculativeServingSession with a draft app — a plain "
+                    "session would misread the (R, spec_width+1) token "
+                    "layout"
                 )
             # the split path's 1-ahead decode stays off: the ragged pipeline
             # has its own pending-step consume (_consume_ragged)
@@ -1230,13 +1251,26 @@ class ServingSession:
             slot_mapping[dst] = self._bt_matrix[dslot, dpos // bs] * bs + dpos % bs
             dchain = chain[dec]
             chain_src[dst[dchain]] = dslot[dchain]
+        verify_len = np.ones(R, np.int32)
+        n_spec = 0
+        spec_dw = self.mixed_runner.spec_width - 1
         for i in np.flatnonzero(~dec):
-            req, _kind, n, p0, _c = rows[i]
+            req, kind, n, p0, _c = rows[i]
             s0 = int(starts[i])
             pr = np.arange(p0, p0 + n)
             positions[s0 : s0 + n] = pr
             slot_mapping[s0 : s0 + n] = self._bt_matrix[req.slot, pr // bs] * bs + pr % bs
-            ids[s0 : s0 + n] = req.input_ids[p0 : p0 + n]
+            if kind == "spec":
+                # spec-verify segment [last committed token, draft_1..d]: the
+                # host writes the first id; the drafts are gathered on the
+                # device from the draft's proposal matrix (chain_src indexes
+                # its flattened (R, spec_width - 1) layout)
+                n_spec += 1
+                ids[s0] = req.last_token
+                chain_src[s0 + 1 : s0 + n] = req.slot * spec_dw + np.arange(n - 1, dtype=np.int32)
+                verify_len[req.slot] = n
+            else:
+                ids[s0 : s0 + n] = req.input_ids[p0 : p0 + n]
         width = get_target_bucket(self.app.token_generation_model.buckets, int((p0s + ns).max()))
         mb = max(1, width // bs)
         block_table = np.zeros((R, mb), np.int32)
@@ -1246,7 +1280,7 @@ class ServingSession:
             "T": T, "ids": ids, "positions": positions, "slot_mapping": slot_mapping,
             "row_start": row_start, "row_len": row_len, "ctx_len": ctx_len,
             "block_table": block_table, "width": width, "chain_src": chain_src,
-            "chained": bool(chain.any()),
+            "chained": bool(chain.any()), "verify_len": verify_len, "spec_rows": n_spec,
         }
 
     def _consume_ragged(self, pend, results: Dict[str, int]):
@@ -1556,11 +1590,527 @@ class _TokenFetch:
 
 
 class SpeculativeServingSession(ServingSession):
-    """Draft-assisted continuous batching (reference
-    ``SpeculativeServingSession``): not ported yet."""
+    """Draft-assisted continuous batching (the reference's
+    ``SpeculativeServingSession``): every step the DRAFT app proposes
+    tokens for each decoding request, the TARGET verifies them, and each
+    request advances by its own accepted count. Verification is greedy, so
+    the streams are byte-equal to the target's own greedy decoding; a weak
+    draft costs only speed. Both apps write then attend, so a rejected
+    candidate leaves a stale entry the next round writes again before
+    reading it. Two dispatch modes:
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SpeculativeServingSession (draft-assisted serving) is not ported to "
-            "PyTorch yet (ROADMAP A7 (speculation))"
+    - **split path** (default): contiguous caches; the draft proposes k-1
+      tokens in one decode chunk and the target verifies all k in one
+      k-token pass (B1 with k queries a row); acceptance on the host.
+    - **spec-ragged path** (``serving_spec_ragged``): verification rides
+      the ragged mixed dispatch over the paged cache: a spec row carries
+      its drafts as extra packed query positions, so ONE ``mixed_step_spec``
+      dispatch per step serves prefill chunks, plain decode rows and
+      spec-verify rows (one B3 launch a layer), and the accepted counts are
+      computed on the device. The draft app keeps its contiguous cache; its
+      next proposals chain on the verify output still on the device
+      (``models/base.draft_chain_propose``, one captured program per
+      bucket). Each request's draft length adapts to its acceptance EWMA on
+      the fixed ladder :attr:`draft_len_choices`, so it changes data, never
+      a program.
+    """
+
+    def __init__(
+        self,
+        app,
+        draft_app,
+        speculation_length: int = 4,
+        telemetry=None,
+        fault_injector=None,
+        clock=None,
+        sleep_fn=None,
+    ):
+        tc = app.config.torch_config
+        self.spec_ragged = bool(tc.serving_spec_ragged)
+        super().__init__(app, telemetry=telemetry, fault_injector=fault_injector, clock=clock, sleep_fn=sleep_fn)
+        tc_d = draft_app.config.torch_config
+        if self.spec_ragged:
+            width = self.mixed_runner.spec_width
+            if speculation_length != width:
+                raise ValueError(
+                    f"speculation_length {speculation_length} != the app's compiled "
+                    f"mixed_step_spec width {width} (Config.speculation_length sizes the "
+                    "program family)"
+                )
+            if tc_d.is_block_kv_layout:
+                raise NotImplementedError(
+                    "the spec-ragged DRAFT app runs the contiguous cache (row == slot; its "
+                    "proposals chain through draft_chain_propose, not the paged layout)"
+                )
+        elif self.block_mode or self.chunked:
+            raise NotImplementedError(
+                "speculative serving runs on the contiguous cache (no paged/chunked-prefill "
+                "layouts) — unless serving_spec_ragged packs verification into the ragged "
+                "mixed step"
+            )
+        if not tc_d.is_continuous_batching:
+            raise ValueError("the draft app needs is_continuous_batching=True")
+        if speculation_length < 2:
+            raise ValueError("speculation_length must be >= 2")
+        d_batch = tc_d.tkg_batch_size or tc_d.max_batch_size or tc_d.batch_size
+        if d_batch < self.num_slots:
+            raise ValueError(f"draft app batch ({d_batch}) smaller than the session's {self.num_slots} slots")
+        if draft_app.token_generation_model.buckets[-1] < app.token_generation_model.buckets[-1]:
+            raise ValueError("draft token_generation_buckets must reach at least as far as the target's")
+        self.draft = draft_app
+        self.k = speculation_length
+        self.async_decode = False  # accept/reject is a host decision per step
+        #: the draft-length ladder of the adaptive policy: powers of two up
+        #: to k-1, and k-1
+        self.draft_len_choices = tuple(
+            sorted({d for d in (1, 2, 4, 8) if d <= speculation_length - 1} | {speculation_length - 1})
         )
+        #: the draft proposals for the next verify round: (device (R, k-1)
+        #: tokens, {id(req): (slot, epoch)})
+        self._draft_prop = None
+        #: session-wide acceptance-rate EWMA (None until the first round)
+        self.acceptance_ewma: Optional[float] = None
+        #: optional draft-agreement gate: callable (req_id, drafted) -> the
+        #: most draft tokens to accept this round, or None for no cap.
+        #: Capping changes no output (the window holds the target's own
+        #: greedy tokens); only measured acceptance moves
+        self.draft_accept_cap = None
+
+    def add_prefilled_request(self, *args, **kwargs) -> AdmissionResult:
+        raise NotImplementedError(
+            "the disaggregated prefill tier does not support speculative "
+            "decode sessions: the hand-off carries TARGET KV only, and the "
+            "draft app's cache needs its own prompt prefill (draft_ready) "
+            "— route speculative traffic to non-tier replicas"
+        )
+
+    def _capped_accept(self, req: Request, count: int, drafted: int) -> int:
+        """One round's accepted count (bonus token included, in [1,
+        drafted + 1]) under the draft-agreement gate, if one is set."""
+        if self.draft_accept_cap is None or drafted <= 0:
+            return count
+        cap = self.draft_accept_cap(req.req_id, drafted)
+        if cap is None:
+            return count
+        return max(1, min(count, 1 + int(cap)))
+
+    def _max_admissible_prompt(self) -> int:
+        if self.spec_ragged:
+            # the target prefills in chunks, the draft in one context pass
+            # of prompt + first token
+            return min(
+                ServingSession._max_admissible_prompt(self),
+                self.draft.context_encoding_model.buckets[-1] - 1,
+            )
+        # the split path cannot admit in windows (the draft prefill is one
+        # context pass): cap at one context program of both apps
+        return min(
+            super()._max_admissible_prompt(),
+            self.app.config.torch_config.max_context_length,
+            self.draft.context_encoding_model.buckets[-1],
+        )
+
+    def _full_prefill(self, req: Request) -> bool:
+        if self.spec_ragged:
+            return super()._full_prefill(req)
+        # fail before any state changes: the draft prefill is one context pass
+        if self.app.validate_prefill_length(req.prompt_len) or (
+            req.prompt_len > self.draft.context_encoding_model.buckets[-1]
+        ):
+            raise NotImplementedError(
+                "speculative serving of prompts longer than one context program is not "
+                "implemented; raise max_context_length (both apps) to cover the prompt"
+            )
+        ok = super()._full_prefill(req)
+        if not ok or req.finished:
+            return ok
+        return self._draft_prefill(req)
+
+    def _draft_prefill(self, req: Request) -> bool:
+        """Prefill the draft's cache line for ``req`` in one context pass
+        (its first token is discarded: proposals chain from the target's
+        tokens). A dispatch failure past the retry budget fails the request
+        (slot released) and the session goes on."""
+        ids_row = req.input_ids
+        if self.spec_ragged and req.generated:
+            # the first generated token is committed when the spec-ragged
+            # draft prefill runs: include it, so the first chained propose
+            # writes the next frontier at prompt_len + 1 with no gap
+            ids_row = np.concatenate([ids_row, np.asarray(req.generated[-1:], np.int32)])
+        S = ids_row.shape[0]
+        cte = self.draft.context_encoding_model
+
+        def dispatch():
+            with self.tel.span("serving.prefill_draft", req_id=req.req_id, tokens=S):
+                inputs, _ = cte.prepare(
+                    ids_row[None, :], np.ones((1, S), np.int32), np.arange(S, dtype=np.int32)[None, :],
+                    np.array([req.slot], np.int32), prepare_sampling_params(1),
+                )
+                return cte(self.draft.params, self.draft.kv_cache, inputs)
+
+        out = self._guarded_dispatch("prefill_draft", [req], dispatch)
+        if out is None:
+            return True  # terminal FAILED(dispatch_error); slot released
+        self.draft.kv_cache = out.cache
+        self.dispatches["prefill_draft"] += 1
+        if self.spec_ragged:
+            req.draft_ready = True
+            req.draft_len = self.draft_len_choices[-1]
+        return True
+
+    # ---- the spec-ragged path ---------------------------------------------
+
+    def _preempt(self, req: Request):
+        # the draft's cache line goes with the slot: both apps prefill again
+        # after re-admission
+        req.draft_ready = False
+        super()._preempt(req)
+
+    def _finish_prefill(self, req: Request, first_token: int):
+        super()._finish_prefill(req, first_token)
+        if self.spec_ragged and not req.finished and req.status == STATUS_ACTIVE:
+            # decoding starts: bring the draft's cache up to date so the row
+            # joins the NEXT chained propose (this round it decodes plainly)
+            self._draft_prefill(req)
+
+    def _spec_ragged_step(self) -> Dict[str, int]:
+        """One spec-ragged step: consume the pending verify (its fetch was
+        started at dispatch; 1-ahead, epoch-guarded), schedule prefill
+        chunks, decode rows and spec-verify rows from the COMMITTED state
+        (positions follow the accepted counts, so the schedule follows the
+        consume), dispatch ONE ``mixed_step_spec`` program for all of them,
+        then the next round's draft propose chained on its output on the
+        device."""
+        results: Dict[str, int] = {}
+        t_step0 = self.tel.clock()
+        self._step_fetch_wait_s = 0.0
+        pend = self._pending
+        self._pending = None
+        if pend is not None:
+            self._consume_spec(pend, results)
+
+        rows = self._schedule_spec()
+        prop = self._draft_prop
+        self._draft_prop = None  # this round's pack consumes it
+        if not rows:
+            self._note_step_timing(t_step0)
+            return results
+        mr = self.mixed_runner
+        d = self._build_mixed_descriptors(rows)
+        draft_dev = prop[0][: self.num_slots] if (prop is not None and d["spec_rows"]) else None
+
+        def dispatch():
+            with self.tel.span("serving.mixed_step_spec", rows=len(rows), tokens=d["T"]):
+                inputs, _ = mr.prepare(
+                    d["ids"], d["positions"], d["slot_mapping"], d["row_start"], d["row_len"], d["ctx_len"],
+                    d["block_table"], d["width"], self._session_sampling_params(),
+                    chain_src=d["chain_src"], verify_len=d["verify_len"], draft_tokens=draft_dev,
+                )
+                return mr(self.app.params, self.app.kv_cache, inputs)
+
+        out = self._guarded_dispatch("mixed_step_spec", [t[0] for t in rows], dispatch)
+        if out is None:
+            # in-flight rows terminally FAILED(dispatch_error); the pending
+            # step was consumed at the top
+            self._note_step_timing(t_step0)
+            return results
+        self.app.kv_cache = out.cache
+        self.dispatches["mixed_step_spec"] += 1
+        self.tel.step("mixed")
+        self.tel.bucket_dispatch(mr.tag, mr.last_bucket)
+        n_prefill = sum(1 for t in rows if t[1] == "prefill")
+        real_tokens = int(sum(t[2] for t in rows))
+        self.tel.mixed_step(
+            prefill_rows=n_prefill, decode_rows=len(rows) - n_prefill - d["spec_rows"],
+            padded_slots=mr.last_bucket - real_tokens, query_tokens=real_tokens, spec_rows=d["spec_rows"],
+        )
+        for req, kind, n, _p0, _c in rows:
+            if kind == "prefill":
+                self._note_prefill(req, n)
+        self.tel.pool_gauges(len(self.active), self.kv_pool_bytes, self.kv_free_bytes)
+        snap = [(req, kind, n, p0, req.slot, req.epoch) for req, kind, n, p0, _c in rows]
+        step = (out.tokens, snap, _TokenFetch(out.tokens))
+        if self.ragged_async:
+            self._pending = step
+        else:
+            self._consume_spec(step, results)
+        # the next round's draft propose, chained on this verify's output on
+        # the device: the device runs verify then draft back to back
+        self._dispatch_chained_draft(out.tokens, snap)
+        self._note_step_timing(t_step0)
+        return results
+
+    def _schedule_spec(self) -> List[tuple]:
+        """The row list [(req, kind, n, p0, chained)]: prefill chunks as the
+        ragged scheduler builds them, then every decoding row: a spec-verify
+        segment of ``draft_len + 1`` tokens when a current proposal entry
+        exists (slot and epoch match, the row's draft cache is live,
+        headroom allows), else a plain one-token decode row."""
+        rows: List[tuple] = []
+        if self.chunked:
+            pref = [r for r in self.slots if r is not None and not r.finished and r.prefill_pos < r.prompt_len]
+            for req in pref[: self.max_prefill_seqs]:
+                n = min(self.chunk_size, req.prompt_len - req.prefill_pos)
+                try:
+                    self._alloc(req.slot, req.prefill_pos + n)
+                except RuntimeError:
+                    self._preempt(req)
+                    continue
+                rows.append((req, "prefill", n, req.prefill_pos, False))
+        scheduled = {id(t[0]) for t in rows}
+        pos_limit = self.app._pos_limit()
+        prop_map = self._draft_prop[1] if self._draft_prop is not None else {}
+        for r in list(self.slots):
+            if r is None or r.finished or id(r) in scheduled or r.prefilling:
+                continue
+            p0 = r.pos
+            room = r.max_new_tokens - len(r.generated)
+            v = 1
+            if prop_map.get(id(r)) == (r.slot, r.epoch) and r.draft_ready and r.draft_len > 0:
+                v = max(1, min(r.draft_len + 1, room, pos_limit - p0))
+            try:
+                self._alloc(r.slot, p0 + v)
+            except RuntimeError:
+                self._preempt(r)
+                continue
+            rows.append((r, "spec" if v > 1 else "decode", v, p0, False))
+        return rows
+
+    def _consume_spec(self, pend, results: Dict[str, int]):
+        """Commit one dispatched spec-ragged step: its one host fetch ((R,
+        k+1) verify tokens with the accepted counts). Per row: take the
+        accepted window, cut it at EOS or the budget as the split path
+        does, advance the position by the committed length (the rejected
+        tail's K/V is written again next round), feed the acceptance EWMA
+        and the draft-length policy, and quarantine on a sentinel inside the
+        window (only that row). Stale-epoch rows are discarded."""
+        t0 = self.tel.clock()
+        tokens = pend[2].wait()  # (R, k + 1)
+        self._step_fetch_wait_s += self.tel.clock() - t0
+        if self.faults is not None:
+            tokens = self.faults.corrupt_tokens(self, tokens)
+        k = self.k
+        for req, kind, n, p0, slot, epoch in pend[1]:
+            if req.finished or req.preempted or req.epoch != epoch:
+                continue
+            if kind == "prefill":
+                req.prefill_pos = p0 + n
+                if req.prefill_pos >= req.prompt_len:
+                    tok = int(tokens[slot, 0])
+                    self._finish_prefill(req, tok)
+                    if req.status != STATUS_FAILED:  # not quarantined
+                        results[req.req_id] = tok
+                continue
+            v = n  # the verify-window width this row was dispatched with
+            count = max(1, min(int(tokens[slot, k]), v))
+            count = self._capped_accept(req, count, v - 1)
+            window = tokens[slot, :count]
+            if (window < 0).any():
+                # a poisoned TARGET row (a poisoned draft only mis-proposes)
+                self._quarantine(req)
+                continue
+            row = [int(t) for t in window]
+            if req.eos_token_id is not None and req.eos_token_id in row:
+                row = row[: row.index(req.eos_token_id) + 1]
+            row = row[: req.max_new_tokens - len(req.generated)]
+            req.generated.extend(row)
+            # committed tokens this round (plain decode rows observe 1): the
+            # observations sum to the decode tokens delivered
+            self.tel.spec_accept(len(row))
+            self._commit_tokens(req, len(row))
+            req.pos = p0 + len(row)
+            if row:
+                results[req.req_id] = row[-1]
+            if v > 1:
+                self._note_acceptance(req, accepted=count - 1, drafted=v - 1)
+            if (
+                (req.eos_token_id is not None and row and row[-1] == req.eos_token_id)
+                or len(req.generated) >= req.max_new_tokens
+                or req.pos + 1 >= self.app.config.torch_config.seq_len
+            ):
+                self._finish(req)
+
+    #: per-request acceptance-EWMA smoothing (the policy reacts within a
+    #: few rounds when a request's text changes regime)
+    SPEC_EWMA_ALPHA = 0.5
+    #: session-level smoothing (the router's placement signal)
+    SESSION_EWMA_ALPHA = 0.2
+    #: grow the draft above this per-draft acceptance rate, shrink below
+    #: the lower bound (hysteresis)
+    SPEC_GROW_AT = 0.75
+    SPEC_SHRINK_AT = 0.4
+
+    def _note_acceptance(self, req: Request, accepted: int, drafted: int):
+        """Fold one round into the request's and the session's EWMAs and
+        move the request's next draft length one notch along
+        :attr:`draft_len_choices`. The telemetry observes the length THIS
+        round drafted, so the observations sum to the drafted tokens."""
+        rate = accepted / max(1, drafted)
+        a = self.SPEC_EWMA_ALPHA
+        req.accept_ewma = (1 - a) * req.accept_ewma + a * rate
+        b = self.SESSION_EWMA_ALPHA
+        self.acceptance_ewma = rate if self.acceptance_ewma is None else (1 - b) * self.acceptance_ewma + b * rate
+        choices = self.draft_len_choices
+        i = choices.index(req.draft_len) if req.draft_len in choices else 0
+        if req.accept_ewma >= self.SPEC_GROW_AT and i + 1 < len(choices):
+            req.draft_len = choices[i + 1]
+        elif req.accept_ewma < self.SPEC_SHRINK_AT and i > 0:
+            req.draft_len = choices[i - 1]
+        self.tel.spec_round(drafted, req.accept_ewma, req_id=req.req_id)
+
+    def _dispatch_chained_draft(self, verify_tokens, snap):
+        """Dispatch the draft propose for the NEXT round, chained on the
+        (R, k+1) verify output on the device: each row's frontier (last
+        accepted token, the position after it) is derived in the program,
+        so no host round trip sits between verify and draft. It runs k draft
+        steps for k-1 proposals: the k-th writes the last proposal's K/V,
+        which a fully accepted round commits (the reference runs k-1 and
+        leaves that position stale in the draft's cache). Rows that end at
+        consume leave their proposals unused. A failed draft dispatch is
+        not fatal: the next round runs plain decode rows."""
+        R = self.num_slots
+        use_chain = np.zeros((R, 1), np.int32)
+        p0_base = np.zeros((R, 1), np.int32)
+        seq_ids = np.full((R,), -1, np.int32)
+        prop_map: Dict[int, tuple] = {}
+        bases: List[int] = []
+        # near the limit: the chain writes draft positions up to base + 2k -
+        # 1 (a frontier up to base + k, then k steps: the k-th writes the
+        # last proposal's K/V, which a fully accepted round commits, as
+        # assisted.draft_propose's chunk does) and needs a bucket covering
+        # base + 2k; rows past the draft's reach decode plainly until they
+        # end at the bound
+        draft_limit = self.draft._pos_limit()
+        for req, kind, n, p0, slot, epoch in snap:
+            if req.finished or req.preempted or req.epoch != epoch or not req.draft_ready:
+                continue
+            if kind == "prefill":
+                if p0 + n < req.prompt_len:
+                    continue  # still mid-prompt: no frontier yet
+                base_pos = req.prompt_len - 1  # the window is the first token
+            else:
+                base_pos = p0
+            if base_pos + 2 * self.k > draft_limit:
+                continue
+            use_chain[slot, 0] = 1
+            p0_base[slot, 0] = base_pos
+            seq_ids[slot] = slot
+            prop_map[id(req)] = (slot, epoch)
+            bases.append(base_pos)
+        if not prop_map:
+            self._draft_prop = None
+            return
+        # the host's upper bound for the bucket (the true positions, base +
+        # accepted count, live on the device)
+        bucket = self.draft._decode_bucket(max(bases) + 2 * self.k)
+        runner = self.draft.token_generation_model
+
+        def dispatch():
+            with self.tel.span("serving.draft_chain", rows=len(prop_map)):
+                return runner.draft_chain(
+                    self.draft.params, self.draft.kv_cache, verify_tokens, use_chain, p0_base, seq_ids,
+                    self._session_sampling_params(), num_steps=self.k, bucket=bucket, spec_width=self.k,
+                )[:, : self.k - 1]
+
+        proposals = self._guarded_dispatch("draft_chain", [], dispatch)
+        if proposals is None:
+            self._draft_prop = None
+            return
+        self.dispatches["draft_chain"] += 1
+        self.tel.bucket_dispatch("spec_draft_chain", bucket)
+        self._draft_prop = (proposals, prop_map)
+
+    def _step_inner(self) -> Dict[str, int]:
+        """One speculation round for every decoding request; returns
+        {req_id: last accepted token} (the full stream is in
+        ``request.generated``). Deadlines, re-admission, the watchdog and the
+        fault hooks are the base class's :meth:`ServingSession.step`."""
+        if self.spec_ragged:
+            return self._spec_ragged_step()
+        from neuronx_distributed_inference_tpu_torch.runtime.assisted import (
+            draft_propose,
+            greedy_accept,
+            target_verify,
+        )
+
+        results: Dict[str, int] = {}
+        active = self.decoding
+        if not active:
+            return results
+        tc = self.app.config.torch_config
+        k = self.k
+        B = self.num_slots
+        pos_limit = self.app._pos_limit()
+        rows = [r for r in active if r.pos + k <= pos_limit]
+        tail = [r for r in active if r not in rows]
+        if tail:
+            # rows within k-1 positions of the limit decode one token at a
+            # time, emitting what the plain session would
+            out, snap = self._dispatch_decode([(r, r.pos) for r in tail])
+            if out is not None:
+                self._consume((out.tokens[:, -1:], snap), results)
+        if not rows:
+            return results
+
+        last = np.zeros((B, 1), np.int32)
+        pos = np.zeros((B, 1), np.int32)
+        seq_ids = np.full((B,), -1, np.int32)
+        for r in rows:
+            last[r.slot, 0] = r.last_token
+            pos[r.slot, 0] = r.pos
+            seq_ids[r.slot] = r.slot
+        sp = prepare_sampling_params(B)
+
+        def dispatch():
+            with self.tel.span("serving.speculate", rows=len(rows)):
+                proposals, _ = draft_propose(self.draft, last, pos, seq_ids, sp, k)
+                cand = np.concatenate([last, proposals], axis=1).astype(np.int32)
+                return cand, target_verify(self.app, cand, pos, seq_ids, sp)
+
+        res = self._guarded_dispatch("speculate", rows, dispatch)
+        if res is None:
+            return results  # in-flight rows terminally FAILED(dispatch_error)
+        cand, v_out = res
+        self.dispatches["speculate"] += 1
+        self.tel.step("speculate")
+        tkg = self.app.token_generation_model
+        self.tel.bucket_dispatch(tkg.tag, tkg.last_bucket)
+        self.tel.pool_gauges(len(rows), self.kv_pool_bytes, self.kv_free_bytes)
+        greedy = v_out.tokens[:B].cpu().numpy()  # (B, k)
+        if self.faults is not None:
+            greedy = self.faults.corrupt_tokens(self, greedy)
+
+        counts = greedy_accept(cand, greedy)
+        for r in rows:
+            s = r.slot
+            counts[s] = self._capped_accept(r, int(counts[s]), k - 1)
+            if (greedy[s, : counts[s]] < 0).any():
+                # a poisoned TARGET row: quarantine it (a poisoned draft only
+                # mis-proposes; the target's own tokens are emitted)
+                self._quarantine(r)
+                continue
+            row = greedy[s, : counts[s]].tolist()
+            if r.eos_token_id is not None and r.eos_token_id in row:
+                row = row[: row.index(r.eos_token_id) + 1]
+            row = row[: r.max_new_tokens - len(r.generated)]
+            r.generated.extend(row)
+            self.tel.spec_accept(len(row))
+            # the acceptance EWMAs on this path too (its draft length stays
+            # k-1: the snap inside is inert)
+            self._note_acceptance(r, accepted=int(counts[s]) - 1, drafted=k - 1)
+            self._commit_tokens(r, len(row))
+            r.pos += len(row)
+            if row:
+                results[r.req_id] = row[-1]
+            if (
+                (r.eos_token_id is not None and row and row[-1] == r.eos_token_id)
+                or len(r.generated) >= r.max_new_tokens
+                or r.pos + 1 >= tc.seq_len
+            ):
+                self._finish(r)
+        return results
+
+    def run_to_completion(self, decode_chunk_size: int = 16) -> Dict[str, List[int]]:
+        while self.active or self._readmit:
+            self.step()
+        return {rid: r.generated for rid, r in self.requests.items()}

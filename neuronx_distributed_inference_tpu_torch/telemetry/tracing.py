@@ -9,10 +9,13 @@ later token, finish), from which TTFT and ITL come
 :meth:`~TelemetrySession.percentile`), and keeps plain counters: requests
 submitted, admitted, dropped, rejected, preempted, quarantined and finished
 (by reason), dispatch retries, deadline overruns, watchdog preemptions and
-trips, model steps by kind and the bucket census, and for the ragged mixed
+trips, model steps by kind and the bucket census, for the ragged mixed
 step its composition (:meth:`TelemetrySession.mixed_step`) and the host /
-fetch-wait split of each step (:meth:`~TelemetrySession.step_timing`), as
-plain lists. Every hook the session
+fetch-wait split of each step (:meth:`~TelemetrySession.step_timing`), and
+for speculation the reference's three histograms (``nxdi_spec_accept_len``,
+``nxdi_spec_draft_len``, ``nxdi_spec_accept_ewma``) as plain lists of
+their observations, with each request's ``spec_round`` events on its
+trace. Every hook the session
 calls exists here with the reference's name and semantics, so the
 observation counts match the reference session's on the same traffic.
 
@@ -49,6 +52,9 @@ class RequestTrace:
     cached_prefix_tokens: int = 0
     finish_reason: Optional[str] = None
     itl_s: List[float] = field(default_factory=list)
+    # the request's timeline events of the speculative session:
+    # ("spec_round", t, draft_len, accept_ewma), one per verify round
+    events: List[tuple] = field(default_factory=list)
 
     @property
     def ttft_s(self) -> Optional[float]:
@@ -86,6 +92,14 @@ class TelemetrySession:
         # fetch wait ms
         self.step_host_ms: List[float] = []
         self.step_fetch_wait_ms: List[float] = []
+        # speculation, one entry per observation of the reference's
+        # histogram of the same name: tokens committed per verify round
+        # (nxdi_spec_accept_len; sums to the committed decode tokens), the
+        # draft length of each round (nxdi_spec_draft_len) and the request's
+        # acceptance EWMA after it (nxdi_spec_accept_ewma)
+        self.spec_accept_len: List[int] = []
+        self.spec_draft_len: List[int] = []
+        self.spec_accept_ewma: List[float] = []
 
     # ---- spans -----------------------------------------------------------
 
@@ -258,19 +272,41 @@ class TelemetrySession:
         decode_rows: int,
         padded_slots: int,
         query_tokens: int,
+        spec_rows: int = 0,
     ) -> None:
         """Composition of ONE ragged mixed dispatch: rows serving prefill
-        chunks and decode, padded packed slots and real query tokens in the
-        dispatched total-token bucket. Each label's entry count equals the
-        number of mixed dispatches; padded_slots / (padded_slots +
-        query_tokens) is the padded share."""
+        chunks, decode and spec-verify segments (serving_spec_ragged),
+        padded packed slots and real query tokens in the dispatched
+        total-token bucket. Each label's entry count equals the number of
+        mixed dispatches; padded_slots / (padded_slots + query_tokens) is
+        the padded share."""
         if not self.enabled:
             return
         for label, v in (
             ("prefill_rows", prefill_rows), ("decode_rows", decode_rows), ("padded_slots", padded_slots),
-            ("query_tokens", query_tokens),
+            ("query_tokens", query_tokens), ("spec_rows", spec_rows),
         ):
             self.mixed_steps.setdefault(label, []).append(int(v))
+
+    def spec_accept(self, committed: int) -> None:
+        """One speculation round committed ``committed`` tokens for one
+        request (after EOS/budget truncation: the observations sum to the
+        decode tokens speculation delivered)."""
+        if not self.enabled or committed <= 0:
+            return
+        self.spec_accept_len.append(int(committed))
+
+    def spec_round(self, draft_len: int, accept_ewma: float, req_id: Optional[str] = None) -> None:
+        """The adaptive-draft signals of one verify round: the length it
+        drafted and the request's acceptance EWMA after it; with ``req_id``
+        also a ``spec_round`` event on the request's trace."""
+        if not self.enabled:
+            return
+        self.spec_draft_len.append(int(draft_len))
+        self.spec_accept_ewma.append(float(accept_ewma))
+        tr = self.traces.get(req_id) if req_id is not None else None
+        if tr is not None:
+            tr.events.append(("spec_round", self.clock(), int(draft_len), round(float(accept_ewma), 6)))
 
     # ---- summaries ---------------------------------------------------------
 

@@ -89,8 +89,8 @@ def test_default_device_is_cuda_and_cuda_without_a_card_raises(monkeypatch):
         (dict(tp_degree=2), "A10"),
         (dict(quantized_checkpoints_path="ckpt"), "A11"),
         (dict(quantized=True, quantized_checkpoints_path="ckpt"), "A11"),
-        (dict(serving_spec_ragged=True), "A7"),
-        (dict(speculation_length=4), "A7"),
+        (dict(enable_eagle_speculation=True), "A7"),
+        (dict(medusa_speculation_length=2, num_medusa_heads=2), "A7"),
         (dict(lora_config={"max_loras": 1}), "A9"),
         (dict(sliding_window=128), "A9"),
     ],
@@ -184,24 +184,24 @@ def _serving_app(**tc):
 
 
 def test_serving_settings_outside_the_slice_raise():
-    """The serving surface outside this slice names its ROADMAP item:
-    speculation inside the mixed step and the speculative session (A7),
-    the disaggregated hand-off (A8); windowed admission (ported with A3b)
-    admits a prompt longer than the context bucket on the contiguous
-    cache."""
+    """The serving surface outside this slice names its ROADMAP item: the
+    disaggregated hand-off (A8). Speculation (A7's first part) is ported:
+    serving_spec_ragged is validated as the reference validates it (it
+    needs chunked prefill) and the speculative session builds; windowed
+    admission (ported with A3b) admits a prompt longer than the context
+    bucket on the contiguous cache."""
     from neuronx_distributed_inference_tpu_torch.runtime.serving import (
         ServingSession,
         SpeculativeServingSession,
     )
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+    with pytest.raises(ValueError, match="is_chunked_prefill"):
         Config(
             device="cpu", is_continuous_batching=True, is_block_kv_layout=True, serving_ragged=True,
-            serving_spec_ragged=True,
+            serving_spec_ragged=True, speculation_length=4,
         )
     app = _serving_app(context_encoding_buckets=[128], max_context_length=128)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        SpeculativeServingSession(app, app)
+    assert SpeculativeServingSession(app, app).k == 4
     sess = ServingSession(app)
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         sess.add_prefilled_request("h", [1, 2, 3], {}, first_token=4)

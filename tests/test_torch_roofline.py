@@ -105,7 +105,7 @@ def test_fused_points_mlp_bytes_counted_by_hand(point, rows, H, I, want_ms):
     assert by == "bytes" and ms == pytest.approx(want_ms, abs=5e-6)
 
 
-@pytest.mark.parametrize("point", ["mixed", "decode"])
+@pytest.mark.parametrize("point", ["mixed", "decode", "spec"])
 def test_ragged_points_count_the_packed_work(point):
     """B3's timed points: q over the real tokens, out over the 16-aligned
     packed slots, K and V once per context position, the descriptors and
@@ -116,6 +116,9 @@ def test_ragged_points_count_the_packed_work(point):
     nbytes, flops = roofline.ragged_work(**pt)
     if point == "mixed":
         q_tokens, T, kv, pairs = 128 + 7, 128 + 7 * 16, 128 + 7 * 192, 128 * 129 // 2 + 7 * 192
+    elif point == "spec":
+        # a verify row of 4 new tokens over 196 positions: 4 * 192 + 4 * 5 / 2
+        q_tokens, T, kv, pairs = 128 + 7 * 4, 128 + 7 * 16, 128 + 7 * 196, 128 * 129 // 2 + 7 * (4 * 192 + 10)
     else:
         q_tokens, T, kv, pairs = 8, 8 * 16, 8 * 192, 8 * 192
     tables = 8 * 3 * 4 + 8 * (1024 // 32) * 4
