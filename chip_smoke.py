@@ -106,6 +106,22 @@ Phases, in order; any failure exits non-zero:
      ragged 1-ahead drain; the split path with (b) (B1 K = 4 verify
      launches); FusedSpecModelForCausalLM with (a) and (b) beside plain
      generate().
+ 14. the multi-replica front-end (phase_router): bench.py's
+     serving_1b_int8_router, _router_threaded, _elastic and _disagg rows
+     (the int8 1B at full width and depth, 2 replicas sharing the card,
+     least_loaded, 8 requests of 128 + 128 tokens, each replica its own
+     weights): the sequential and the threaded router over the paged cache,
+     the elastic fleet (the highest-id replica retired at step 2, a fresh
+     session re-joining over its app), the disaggregated tier (a prefill
+     stage handing each prompt's KV line to 2 contiguous decode replicas)
+     and the same traffic with the tier off; every app warmed and sealed
+     first; every request finishes its budget, 0/0/0 rejected / failover /
+     re-admitted, threaded tokens equal sequential ones, 8 hand-offs and
+     tokens equal to the tier-off drain's, elastic attainment 1.0 with no
+     leaked block or thread, no capture after the seal, launches equal to
+     the dispatches times the layers; B1 and B2b timed at the row's
+     shapes; tok/s, host ms and device-busy share per router step, the
+     overlap, per-replica tokens and balance, the hand-off's ms and bytes.
 Each phase prints its seconds. The line before the card's name lists every
 kernel with its launches, times and bound; the last line of standard output
 is {"ok": true, "device": {...}}.
@@ -4918,6 +4934,435 @@ def phase_fused_spec(torch, params, margin):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. the multi-replica front-end (ROADMAP A8's first part)
+# ---------------------------------------------------------------------------
+
+#: bench.py::measure_router's drain (:581-700) on the rows' configuration
+#: (bench.py:990-991, 1105-1160): 2 replicas sharing the card, least_loaded,
+#: 8 requests of 128 + 128 tokens; the elastic row retires the highest-id
+#: replica at router step 2
+ROUTER = dict(replicas=2, policy="least_loaded", retire_step=2)
+#: steady router steps of each profiled window
+ROUTER_PROFILE_STEPS = 16
+
+
+def _router_config(paged, stage=None, **kw):
+    """A replica app of the router rows: the serving_1b_int8 row's int8
+    Llama-3.2-1B at full width and depth (fused QKV off, as the bench builds
+    int8 apps), 8 slots, seq 1024, CTE and TKG buckets [1024], seed 0; the
+    router, threaded and elastic rows over the paged pool of 512 blocks of
+    32 with chunked prefill, the disaggregated row over the contiguous cache
+    (bench.py:1306-1341: 9 lines of 1024, a context batch of 1), its prefill
+    stage with ``is_prefill_stage=True``."""
+    if paged:
+        return _serving_config(weight_dtype="int8", fused_qkv=False, **kw)
+    s = SERVING
+    return _config(
+        s["slots"], is_continuous_batching=True, ctx_batch_size=1, context_encoding_buckets=[s["seq"]],
+        token_generation_buckets=[s["seq"]], weight_dtype="int8", fused_qkv=False, is_prefill_stage=stage, **kw,
+    )
+
+
+def _router_apps(torch, paged, n, stage=None):
+    """``n`` warm apps, each with its own copy of the seed-0 int8 weights,
+    every runner sealed: a later capture raises RetraceError (a capture
+    fails while another replica's thread launches work)."""
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    apps = []
+    for _ in range(n):
+        app = ModelForCausalLM(None, _router_config(paged, stage)).load(random_weights=True).warmup()
+        apps.append(app)
+    return apps
+
+
+def _seal(apps):
+    for app in apps:
+        for runner in app._all_runners():
+            runner.seal()
+
+
+def _route(torch, apps, prompts, gen, threaded=False, tier_apps=(), elastic=False, profile_at=None):
+    """One drain of measure_router's traffic through a ServingRouter: 2
+    requests up front, one more after each router step, until every request
+    ends; ``elastic`` retires the highest-id replica at ROUTER's step and
+    re-joins a fresh session over the same app once its drain finalizes.
+    With ``profile_at``, router steps [profile_at, profile_at + 16) run
+    under torch.profiler (host ms and the device's busy share of them).
+    Returns the drain's record."""
+    import threading
+
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.runtime.replica import PrefillReplicaHandle
+    from neuronx_distributed_inference_tpu_torch.runtime.router import ServingRouter
+    from neuronx_distributed_inference_tpu_torch.runtime.serving import ServingSession
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    threads_before = threading.active_count()
+    for app in (*apps, *tier_apps):
+        app.init_kv_cache()
+    torch.cuda.synchronize()
+    tel = TelemetrySession()
+    base = tel.registry.snapshot()
+    tier = [PrefillReplicaHandle(app, i) for i, app in enumerate(tier_apps)]
+    sessions = [ServingSession(app, telemetry=tel) for app in apps]
+    all_sessions = list(sessions)
+    rec = dict(profile=None, retired=0, added=0)
+    _cuda.reset_launch_counts()
+    step_ms, prof = [], None
+    t0 = time.perf_counter()
+    with ServingRouter(sessions, policy=ROUTER["policy"], telemetry=tel, prefill_replicas=tier, threaded=threaded) as router:
+        nxt = steps = 0
+        retired_id = None
+        for _ in range(2):
+            if not router.add_request(str(nxt), prompts[nxt], max_new_tokens=gen):
+                raise SystemExit(f"router: request {nxt} refused")
+            nxt += 1
+        while True:
+            if profile_at is not None and steps == profile_at:
+                prof = _start_profile(torch)
+                t_prof = time.perf_counter()
+            ts = time.perf_counter()
+            router.step()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            steps += 1
+            if prof is not None and steps == profile_at + ROUTER_PROFILE_STEPS:
+                torch.cuda.synchronize()
+                rec["profile"] = _stop_profile(torch, prof, time.perf_counter() - t_prof, ROUTER_PROFILE_STEPS)
+                prof = None
+            if elastic:
+                if retired_id is None and steps >= ROUTER["retire_step"]:
+                    retired_id = max(router.replicas, key=lambda h: h.replica_id).replica_id
+                    router.retire_replica(retired_id, drain=True)
+                    rec["retired"] += 1
+                elif retired_id is not None and not rec["added"] and all(
+                    h.replica_id != retired_id for h in router.replicas
+                ):
+                    sess = ServingSession(apps[-1], telemetry=tel)
+                    all_sessions.append(sess)
+                    router.add_replica(sess)
+                    rec["added"] += 1
+            if nxt < len(prompts):
+                if not router.add_request(str(nxt), prompts[nxt], max_new_tokens=gen):
+                    raise SystemExit(f"router: request {nxt} refused")
+                nxt += 1
+                continue
+            if not router.has_live_work:
+                break
+        torch.cuda.synchronize()
+        if prof is not None:  # the drain ended inside the window
+            rec["profile"] = _stop_profile(torch, prof, time.perf_counter() - t_prof, steps - profile_at)
+        rec["secs"] = time.perf_counter() - t0
+        rec["launches"] = all_counts()
+        rec["tokens"] = {rid: list(r.tokens) for rid, r in router.requests.items()}
+        rec["status"] = {rid: r.status for rid, r in router.requests.items()}
+        rec["per_replica"] = [h.tokens_served for h in router.replicas]
+        rec["handoffs"] = sum(p.handoffs for p in router.prefill_replicas)
+        rec["steps"] = steps
+    rec["leaked_threads"] = threading.active_count() - threads_before
+    rec["leaked_blocks"] = sum(len(s.allocator.seq_blocks) for s in all_sessions if s.allocator is not None)
+    rec["dispatches"] = {k: sum(s.dispatches[k] for s in all_sessions) for k in ("prefill", "prefill_chunk", "decode_steps")}
+    rec["step_ms"] = step_ms
+    snap = tel.registry.snapshot()
+    tel.close()
+
+    def total(s, name, key="value"):
+        fam = s.get(name)
+        return float(sum(smp[key] for smp in fam["samples"])) if fam else 0.0
+
+    def delta(name, key="value"):
+        return total(snap, name, key) - total(base, name, key)
+
+    replica_ms, phase_ms = delta("nxdi_replica_step_ms", "sum"), delta("nxdi_router_step_ms", "sum")
+    rec["overlap_frac"] = max(0.0, 1.0 - phase_ms / replica_ms) if replica_ms > 0 else None
+    rec["faults"] = dict(
+        rejected=delta("nxdi_router_rejected_total") + delta("nxdi_requests_rejected_total"),
+        failover=delta("nxdi_router_failovers_total"), readmitted=delta("nxdi_requests_preempted_total"),
+        quarantined=delta("nxdi_rows_quarantined_total"), handoff_failures=delta("nxdi_handoff_failures_total"),
+        handoff_local_prefill=delta("nxdi_handoff_local_prefill_total"),
+    )
+    rec["elastic_events"] = {s_["labels"]["event"]: s_["value"] for s_ in snap.get("nxdi_router_elastic_total", {"samples": []})["samples"]}
+    rec["handoff_ms"] = (delta("nxdi_handoff_ms", "sum"), delta("nxdi_handoff_ms", "count"))
+    return rec
+
+
+def _start_profile(torch):
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.__enter__()
+    return prof
+
+
+def _stop_profile(torch, prof, wall_s, steps):
+    """Host ms per router step and the device's busy share (the union of
+    every kernel's interval, on every replica's stream) of the window, and
+    the host ms per router step inside the CUDA runtime's graph launches
+    and its synchronizing calls (summed over the replicas' threads)."""
+    prof.__exit__(None, None, None)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = union_ms((e.time_range.start, e.time_range.end) for e in kernels)
+    averages = prof.key_averages()
+
+    def api_ms(pred):
+        return sum(e.self_cpu_time_total for e in averages if pred(e.key)) / 1e3 / steps
+
+    return dict(
+        host_ms=wall_s * 1e3 / steps, device_busy_ms=busy_ms / steps, busy_frac=busy_ms / (wall_s * 1e3),
+        kernels=len(kernels) / steps, graph_launch_ms=api_ms(lambda k: k.startswith("cudaGraphLaunch")),
+        sync_ms=api_ms(lambda k: k.startswith("cuda") and "Synchronize" in k),
+    )
+
+
+def _check_router_run(label, rec, n_requests, gen, vocab, want):
+    """The row's gates: every request finished with its whole budget, in
+    the vocab; 0/0/0 rejected / failover / re-admitted and no quarantine;
+    the kernels counted are the dispatches times the layers."""
+    counts = sorted(len(v) for v in rec["tokens"].values())
+    if counts != [gen] * n_requests or any(s != "finished" for s in rec["status"].values()):
+        raise SystemExit(f"{label}: not every request finished its budget: {counts} {rec['status']}")
+    for rid, toks in rec["tokens"].items():
+        if min(toks) < 0 or max(toks) >= vocab:
+            raise SystemExit(f"{label}: request {rid} has tokens outside the vocab")
+    f = rec["faults"]
+    if f["rejected"] or f["failover"] or f["readmitted"] or f["quarantined"]:
+        raise SystemExit(f"{label}: containment events on clean traffic: {f}")
+    if rec["launches"] != want or not any(want.values()):
+        raise SystemExit(f"{label}: launches {rec['launches']} != expected {want}, dispatches {rec['dispatches']}")
+
+
+def _router_line(label, rec):
+    n = len(rec["per_replica"])
+    total = sum(len(v) for v in rec["tokens"].values())
+    even = total / n if n else 0
+    rec["tok_s"] = total / rec["secs"]
+    rec["balance_frac"] = min(rec["per_replica"]) / even if even else None
+    steps = np.array(rec["step_ms"])
+    p = rec["profile"]
+    prof = (
+        f"profiled {ROUTER_PROFILE_STEPS} steady steps: host {p['host_ms']:.3f} ms/step, device busy "
+        f"{p['device_busy_ms']:.3f} ms/step ({p['busy_frac']:.3f}), {p['kernels']:.0f} kernels/step, "
+        f"cudaGraphLaunch {p['graph_launch_ms']:.3f} and synchronizing calls {p['sync_ms']:.3f} host ms/step"
+        if p else "not profiled"
+    )
+    overlap = "None" if rec["overlap_frac"] is None else f"{rec['overlap_frac']:.4f}"
+    log(
+        f"{label}: {rec['secs'] * 1e3:.1f} ms, aggregate {rec['tok_s']:.1f} tok/s, {rec['steps']} router steps, "
+        f"host ms/router step mean {steps.mean():.3f} p50 {np.median(steps):.3f}; {prof}; "
+        f"router_step_overlap_frac {overlap}; per replica tokens {rec['per_replica']}, "
+        f"balance_frac {rec['balance_frac']:.4f}; dispatches {rec['dispatches']}; faults {rec['faults']}"
+    )
+
+
+def router_kernel_times(torch, fa, da):
+    """B1 and B2b at the disaggregated row's shapes (decode: 8 rows at
+    bucket 1024; prefill: batch 1, one 128-token prompt in the 1024
+    bucket), each held to its plain version first, then timed beside the
+    plain version, SDPA and the bound. B4 and B5 run at the serving row's
+    shapes, timed by phase_paged_times."""
+    import torch.nn.functional as F
+
+    rows = {}
+    rng = np.random.RandomState(16)
+    Hq, Hkv, D, L, S = 32, 8, 64, 16, SERVING["seq"]
+    prompt = SERVING["prompt"]
+    q, k, v = fused_qkv_inputs(torch, rng, 1, S, Hq, Hkv, D, torch.bfloat16)
+    key_valid = (torch.arange(S, device="cuda")[None, :] < prompt).to(torch.int32)
+    kw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=None, chunk=None)
+    err = check_flash(torch, fa, q, k, v, key_valid, kw, f"router prefill B=1 S={S} valid={prompt} D=64 bf16")
+    mask = fa.prefill_mask(key_valid, True, None, None)
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, key_valid, **kw))
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, key_valid, **kw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    b_ms, b_by = bound(*flash_work(q, k, key_valid, mask))
+    rows[("flash_attention", "router")] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )
+    log(
+        f"flash_attention router prefill B=1 S={S} valid={prompt} Hq=32 Hkv=8 D=64 bf16: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}"
+    )
+    B = SERVING["slots"]
+    valid = [prompt + 64 + 8 * i for i in range(B)]  # mid-drain depths
+    q, kc, vc, mask = _decode_inputs(torch, rng, B, 1, Hq, Hkv, D, L, S, S, torch.bfloat16, valid)
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    state = {"layer": 0}
+
+    def next_layer():
+        state["layer"] = (state["layer"] + 1) % L
+        return state["layer"]
+
+    err = check_decode(torch, da, q, kc, vc, 0, mask, None, kw, f"router decode B={B} K=1 bucket={S} D=64 bf16")
+    log_split(torch, da, B, Hkv, S)
+    qt = q.transpose(1, 2)
+    kt = kc[0, :B, :S].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    vt = vc[0, :B, :S].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kc, vc, next_layer(), mask, None, **kw))
+    plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_layer(), mask, None, **kw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    b_ms, b_by = bound(*decode_work(q, kc, mask))
+    rows[("decode_attention", "router")] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )
+    log(
+        f"tkg_decode_attention router decode B={B} K=1 bucket={S} valid {valid[0]}..{valid[-1]} Hq=32 Hkv=8 D=64 "
+        f"bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+        f"err vs plain {err:.3e}"
+    )
+    del kc, vc
+    return rows
+
+
+def _handoff_cost(torch, pre, dec, n=20):
+    """One request's hand-off on the card outside the drain: extract the
+    prefill stage's populated line 0 (the last prompt's 128 positions) and
+    inject it into the decode app's line 0. Host-clock ms per hand-off
+    (median of ``n``, each ended by a synchronize) and the device ms of the
+    two steps (CUDA events), and the payload's bytes."""
+    from neuronx_distributed_inference_tpu_torch.runtime.disaggregated import extract_request_kv, inject_request_kv
+
+    seq0 = np.zeros((1,), np.int32)
+    S = SERVING["prompt"]
+
+    def once():
+        kv = extract_request_kv(pre, seq0, upto=S)
+        inject_request_kv(dec, seq0, kv)
+        return kv
+
+    kv = once()
+    torch.cuda.synchronize()
+    nbytes = sum(kv[k].numel() * kv[k].element_size() for k in ("k", "v", "k_scale", "v_scale") if k in kv)
+    host = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        once()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        once()
+    end.record()
+    torch.cuda.synchronize()
+    return dict(host_ms=float(np.median(host)), device_ms=start.elapsed_time(end) / n, bytes=nbytes)
+
+
+def phase_router(torch, fa, da):
+    """The router rows at full width (bench.py::measure_router): the
+    sequential router, the threaded router, the elastic fleet (paged, split
+    path: B5 prefill chunks, B4 decode) and the disaggregated row (a
+    prefill stage and two contiguous decode replicas: B2b prefill, B1
+    decode), then the same disaggregated traffic with the tier off. Every
+    app is warmed, one drain of each kind warms the rest, and every runner
+    is sealed before the measured drains. Gates: every request finishes its
+    budget; rejected / failover / re-admitted 0/0/0; sequential and threaded
+    tokens identical; 8 hand-offs with no failure and no local prefill,
+    tokens equal to the tier-off drain's; elastic attainment 1.0 with one
+    retire and one add, no KV block or thread leaked; no graph captured
+    after the seal; the kernels counted equal the dispatches times the
+    layers. Prints each drain's tok/s, host ms and device-busy share per
+    router step, the overlap, tokens and balance per replica, and the
+    hand-off's ms and bytes."""
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_1B
+
+    s = SERVING
+    vocab, L = LLAMA_1B["vocab_size"], LLAMA_1B["num_hidden_layers"]
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, vocab - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    out = dict(times=router_kernel_times(torch, fa, da))
+    at = 12  # every request placed and prefilled: steady decode
+
+    t0 = time.perf_counter()
+    apps = _router_apps(torch, True, ROUTER["replicas"])
+    torch.cuda.synchronize()
+    log(f"router: 2 paged int8 apps loaded and warmed {time.perf_counter() - t0:.2f} s")
+    _route(torch, apps, prompts, s["gen"])  # warm pass: first-call costs
+    _seal(apps)
+    captures = sum(a.graphs.captures for a in apps)
+    runs = {}
+    with RetraceGuard():
+        for label, kw in (
+            ("router", {}), ("router_threaded", dict(threaded=True)), ("elastic", dict(elastic=True)),
+        ):
+            runs[label] = _route(torch, apps, prompts, s["gen"], **kw)
+            d = runs[label]["dispatches"]
+            want = expect_launches(
+                paged_flash_attention=d["prefill_chunk"] * L, paged_decode_attention=d["decode_steps"] * L
+            )
+            _check_router_run(label, runs[label], len(prompts), s["gen"], vocab, want)
+        for label, kw in (("router", {}), ("router_threaded", dict(threaded=True))):
+            runs[label]["profile"] = _route(torch, apps, prompts, s["gen"], profile_at=at, **kw)["profile"]
+    if sum(a.graphs.captures for a in apps) != captures:
+        raise SystemExit("router: a graph was captured after the seal")
+    if runs["router_threaded"]["tokens"] != runs["router"]["tokens"]:
+        raise SystemExit("router: the threaded drain's tokens differ from the sequential drain's")
+    e = runs["elastic"]
+    attainment = sum(st == "finished" for st in e["status"].values()) / len(prompts)
+    if (attainment, e["retired"], e["added"], e["leaked_blocks"], e["leaked_threads"]) != (1.0, 1, 1, 0, 0) or e[
+        "elastic_events"
+    ] != {"retire": 1.0, "retire_done": 1.0, "add": 1.0}:
+        raise SystemExit(
+            f"elastic: attainment {attainment}, retired {e['retired']}, added {e['added']}, leaked blocks "
+            f"{e['leaked_blocks']}, leaked threads {e['leaked_threads']}, events {e['elastic_events']}"
+        )
+    for label in ("router", "router_threaded"):
+        if runs[label]["leaked_blocks"] or runs[label]["leaked_threads"]:
+            raise SystemExit(f"{label}: leaked {runs[label]['leaked_blocks']} blocks, {runs[label]['leaked_threads']} threads")
+    del apps
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dec = _router_apps(torch, False, ROUTER["replicas"])
+    pre = _router_apps(torch, False, 1, stage=True)
+    torch.cuda.synchronize()
+    log(f"router: 2 contiguous int8 decode apps and 1 prefill stage loaded and warmed {time.perf_counter() - t0:.2f} s")
+    _route(torch, dec, prompts, s["gen"], tier_apps=pre)  # warm pass
+    _seal(dec + pre)
+    captures = sum(a.graphs.captures for a in dec + pre)
+    with RetraceGuard():
+        for label, tier in (("disagg", pre), ("disagg_tier_off", ())):
+            runs[label] = _route(torch, dec, prompts, s["gen"], tier_apps=tier)
+            d = runs[label]["dispatches"]
+            want = expect_launches(
+                flash_attention=(d["prefill"] + runs[label]["handoffs"]) * L, decode_attention=d["decode_steps"] * L
+            )
+            _check_router_run(label, runs[label], len(prompts), s["gen"], vocab, want)
+        runs["disagg"]["profile"] = _route(torch, dec, prompts, s["gen"], tier_apps=pre, profile_at=at)["profile"]
+    if sum(a.graphs.captures for a in dec + pre) != captures:
+        raise SystemExit("disagg: a graph was captured after the seal")
+    g = runs["disagg"]
+    if (g["handoffs"], g["faults"]["handoff_failures"], g["faults"]["handoff_local_prefill"], g["dispatches"]["prefill"]) != (
+        len(prompts), 0, 0, 0
+    ):
+        raise SystemExit(f"disagg: hand-offs {g['handoffs']}, faults {g['faults']}, local prefills {g['dispatches']['prefill']}")
+    if g["tokens"] != runs["disagg_tier_off"]["tokens"]:
+        raise SystemExit("disagg: the tier's tokens differ from the tier-off drain's")
+    cost = _handoff_cost(torch, pre[0], dec[0])
+    for label, rec in runs.items():
+        _router_line(label, rec)
+    h_sum, h_n = g["handoff_ms"]
+    log(
+        f"disagg hand-off: {h_n:.0f} in the drain, {h_sum / max(h_n, 1):.3f} ms each (prefill + extract + inject, "
+        f"host clock); extract + inject alone {cost['host_ms']:.3f} ms host clock, {cost['device_ms']:.4f} ms device, "
+        f"{cost['bytes']} bytes a request"
+    )
+    del dec, pre
+    torch.cuda.empty_cache()
+    out.update(runs=runs, handoff=cost)
+    out["launches"] = {
+        "flash_attention_router": runs["disagg"]["launches"]["flash_attention"],
+        "decode_attention_router": runs["disagg"]["launches"]["decode_attention"],
+        "paged_flash_attention_router": runs["router"]["launches"]["paged_flash_attention"],
+        "paged_decode_attention_router": runs["router"]["launches"]["paged_decode_attention"],
+    }
+    return out
+
+
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
@@ -4981,6 +5426,8 @@ def main():
     spec = timed("spec-ragged serving", phase_spec_serving, torch, margin)
     split_spec = timed("split spec serving", phase_split_spec, torch, spec.pop("tparams"), spec["prompts"], margin)
     timed("fused spec generate", phase_fused_spec, torch, params, 2 * main_path["kernel_vs_fp32"])
+    router = timed("router", phase_router, torch, fa, da)
+    times.update(router["times"])
     torch.cuda.empty_cache()
     fused = timed("fused 1B generate", phase_fused_1b, torch, params, main_path)
     graphs = timed("graphs on and off", phase_graphs, torch, params)
@@ -5050,6 +5497,19 @@ def main():
          "neuronx_distributed_inference_tpu/ops/ragged_paged_attention.py:267", spec["launches"]),
         ("decode_attention_verify", ("decode_attention_verify", 1024), "csrc/decode_attention.cu",
          "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", split_spec["launches"]),
+        # the router rows: B2b at the disaggregated prefill (batch 1, a
+        # 128-token prompt in the 1024 bucket) and B1 at its decode (8 rows,
+        # bucket 1024), launches of the disaggregated drain (the tier on);
+        # B5 and B4 at the serving row's points, launches of the sequential
+        # router drain
+        ("flash_attention_router", ("flash_attention", "router"), "csrc/flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/flash_attention.py:335", router["launches"]),
+        ("decode_attention_router", ("decode_attention", "router"), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", router["launches"]),
+        ("paged_flash_attention_router", "paged_flash_attention", "csrc/paged_flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/paged_flash_attention.py:200", router["launches"]),
+        ("paged_decode_attention_router", "paged_decode_attention", "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:284", router["launches"]),
     ):
         t = times[key]
         entries.append({

@@ -27,6 +27,7 @@ that point. Two consumers:
 from __future__ import annotations
 
 import os
+import threading
 from typing import List, Optional
 
 __all__ = [
@@ -42,17 +43,23 @@ _ACTIVE: List["RetraceGuard"] = []
 # listeners called as fn(tag, sealed) on EVERY observed trace, forbidden
 # post-seal ones included (counted before the RetraceError raises)
 _LISTENERS: List = []
+# both lists are process-wide and a router's replica threads may note a
+# trace while another thread opens a guard or a telemetry session: they
+# change and are read (copied) under this lock
+_GUARD_LOCK = threading.Lock()
 
 
 def add_trace_listener(fn) -> None:
     """Register ``fn(tag: str, sealed: bool)`` to observe every trace."""
-    if fn not in _LISTENERS:
-        _LISTENERS.append(fn)
+    with _GUARD_LOCK:
+        if fn not in _LISTENERS:
+            _LISTENERS.append(fn)
 
 
 def remove_trace_listener(fn) -> None:
-    if fn in _LISTENERS:
-        _LISTENERS.remove(fn)
+    with _GUARD_LOCK:
+        if fn in _LISTENERS:
+            _LISTENERS.remove(fn)
 
 
 class RetraceError(RuntimeError):
@@ -71,9 +78,11 @@ def note_trace(tag: str, sealed: bool = False) -> None:
     calls it once per new key, before the capture). Raises when the owning
     runner is sealed; otherwise the trace is recorded into every active
     :class:`RetraceGuard`."""
-    for g in _ACTIVE:
+    with _GUARD_LOCK:
+        guards, listeners = list(_ACTIVE), list(_LISTENERS)
+    for g in guards:
         g.traces.append(tag)
-    for listener in _LISTENERS:
+    for listener in listeners:
         listener(tag, sealed)
     if sealed:
         raise RetraceError(
@@ -96,11 +105,13 @@ class RetraceGuard:
         self.traces: List[str] = []
 
     def __enter__(self) -> "RetraceGuard":
-        _ACTIVE.append(self)
+        with _GUARD_LOCK:
+            _ACTIVE.append(self)
         return self
 
     def __exit__(self, exc_type, exc, tb) -> Optional[bool]:
-        _ACTIVE.remove(self)
+        with _GUARD_LOCK:
+            _ACTIVE.remove(self)
         if exc_type is None and self.fail and len(self.traces) > self.allowed:
             raise RetraceError(
                 f"{len(self.traces)} trace(s) inside a RetraceGuard scope "

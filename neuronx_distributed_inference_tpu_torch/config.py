@@ -44,6 +44,10 @@ KV_CACHE_DTYPES = (
 )
 KV_QUANT_DTYPE_NAMES = ("int8", "fp8", "float8_e4m3", "float8_e5m2")
 
+#: multi-replica router placement policies (runtime/router.py consumes this
+#: tuple; it lives here so validation needs no runtime import)
+ROUTER_POLICIES = ("round_robin", "least_loaded", "cache_aware")
+
 
 def to_dtype(name_or_dtype) -> torch.dtype:
     """Resolve a dtype name (or torch dtype) to a torch dtype."""
@@ -217,6 +221,26 @@ class Config:
     # consecutive zero-progress steps before the watchdog preempts (0 = off)
     watchdog_no_progress_steps: int = 256
 
+    # --- multi-replica serving (runtime/router.py, runtime/replica.py) -----
+    # replica sessions a ServingRouter serves over (1 = no router layer) and
+    # the placement policy binding requests to them (ROUTER_POLICIES)
+    serving_replicas: int = 1
+    router_policy: str = "least_loaded"
+    # disaggregated prefill tier: this many of serving_replicas are carved
+    # out as prefill-only replicas that context-encode and hand the KV line
+    # over to a decode replica (runtime/disaggregated.py); contiguous cache
+    router_prefill_replicas: int = 0
+    # a hand-off attempt failing in transit retries this many times with
+    # capped backoff; handoff_timeout_s bounds one attempt (None = no bound)
+    handoff_max_retries: int = 2
+    handoff_timeout_s: Optional[float] = None
+    # step every replica from its own persistent worker thread behind a
+    # per-step barrier (ServingRouter's thread-per-replica pool)
+    router_threading: bool = False
+    # disaggregated stage of this app: True warms the context-encoding
+    # runner only, False the token-generation runner only, None both
+    is_prefill_stage: Optional[bool] = None
+
     # --- not ported yet (validated, then refused) --------------------------
     tp_degree: int = 1
     ep_degree: int = 1
@@ -334,8 +358,57 @@ class Config:
                 "pick one (int8 via weight_dtype='int8' IS quantized=True)"
             )
 
+    def _validate_router(self):
+        """The reference's multi-replica checks (config.py:637-680), with
+        its messages, in its order."""
+        if self.serving_replicas < 1:
+            raise ValueError(
+                "serving_replicas must be >= 1 (1 = a single session, no "
+                "router layer)"
+            )
+        if self.router_policy not in ROUTER_POLICIES:
+            raise ValueError(
+                f"unknown router_policy {self.router_policy!r}; known "
+                f"placement policies: {ROUTER_POLICIES}"
+            )
+        if self.serving_replicas > 1 and not self.is_continuous_batching:
+            raise ValueError(
+                "serving_replicas > 1 routes over serving sessions: set "
+                "is_continuous_batching=True"
+            )
+        if self.router_prefill_replicas < 0:
+            raise ValueError(
+                "router_prefill_replicas must be >= 0 (0 = no disaggregated "
+                "prefill tier; every replica prefills locally)"
+            )
+        if self.router_prefill_replicas > 0:
+            if self.router_prefill_replicas >= self.serving_replicas:
+                raise ValueError(
+                    "router_prefill_replicas is carved OUT OF "
+                    "serving_replicas: at least one decode replica must "
+                    f"remain ({self.router_prefill_replicas} prefill of "
+                    f"{self.serving_replicas} total leaves none)"
+                )
+            if self.is_block_kv_layout:
+                raise ValueError(
+                    "the disaggregated prefill tier hands KV over into "
+                    "contiguous cache lines: router_prefill_replicas > 0 "
+                    "does not support is_block_kv_layout (decode replicas "
+                    "need the plain contiguous cache)"
+                )
+        if self.handoff_max_retries < 0:
+            raise ValueError(
+                "handoff_max_retries must be >= 0 (0 = a hand-off fails its "
+                "in-flight request on the first transient failure)"
+            )
+        if self.handoff_timeout_s is not None and not self.handoff_timeout_s > 0:
+            raise ValueError(
+                "handoff_timeout_s must be > 0 seconds (None disables the "
+                "per-attempt hand-off timeout)"
+            )
+
     def _validate_serving(self):
-        """The reference's serving checks (config.py:614-635, 720-759,
+        """The reference's serving checks (config.py:614-680, 720-759,
         789-796), in its order, then its default pool size."""
         if self.pa_pool_bytes is not None:
             if not self.is_block_kv_layout:
@@ -360,6 +433,7 @@ class Config:
                 "watchdog_no_progress_steps must be >= 0 (0 disables the "
                 "no-progress watchdog)"
             )
+        self._validate_router()
         if self.is_chunked_prefill and not self.is_block_kv_layout:
             raise ValueError("chunked prefill requires block KV layout")
         if self.is_chunked_prefill and self.chunked_prefill_config is None:

@@ -363,10 +363,10 @@ def moe_layer(params: dict, hidden: torch.Tensor, spec: MoESpec) -> torch.Tensor
         and spec.top_k < spec.num_experts
     )
     if sparse_ok and spec.capacity_factor is not None:
-        _cuda.ROUTES["moe_capacity"] += 1
+        _cuda.count("moe_capacity")
         out = expert_mlps_capacity(experts, x, affinities, spec)
     elif sparse_ok:
-        _cuda.ROUTES["moe_grouped"] += 1
+        _cuda.count("moe_grouped")
         out = expert_mlps_grouped(experts, x, affinities, spec)
     elif not prefill_sized and use_moe_tkg(spec, experts, x.shape[0]):
         # decode: only the selected experts' weights are read
@@ -377,6 +377,6 @@ def moe_layer(params: dict, hidden: torch.Tensor, spec: MoESpec) -> torch.Tensor
             act=spec.act, act_scale=spec.act_scale, act_bias=spec.act_bias, swiglu_limit=spec.swiglu_limit,
         )
     else:
-        _cuda.ROUTES["moe_dense"] += 1
+        _cuda.count("moe_dense")
         out = expert_mlps_dense(experts, x, affinities, spec, selected)
     return out.reshape(B, S, H).to(hidden.dtype)

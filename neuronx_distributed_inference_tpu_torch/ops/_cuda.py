@@ -69,11 +69,26 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 ROUTES: Dict[str, int] = {"int4_dense": 0, "moe_dense": 0, "moe_grouped": 0, "moe_capacity": 0}
 
 
+#: guards LAUNCHES and ROUTES: a router's replica threads count at once
+#: (``count``, a graph replay's ``add_counts``), and ``+=`` on a dict entry
+#: is a read-modify-write. Not ``_lock``, which a build holds for seconds.
+_count_lock = threading.Lock()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to kernel ``name``'s launch count (or route ``name``'s call
+    count): a wrapper calls it where it launches its kernel, and nowhere
+    else."""
+    with _count_lock:
+        (LAUNCHES if name in LAUNCHES else ROUTES)[name] += n
+
+
 def reset_launch_counts() -> None:
     """Zero every kernel's launch count and every route's call count."""
-    for counts in (LAUNCHES, ROUTES):
-        for name in counts:
-            counts[name] = 0
+    with _count_lock:
+        for counts in (LAUNCHES, ROUTES):
+            for name in counts:
+                counts[name] = 0
 
 
 @contextmanager
@@ -82,32 +97,40 @@ def census():
     inside, and take them back out of the counts: a CUDA graph capture
     enqueues nothing. Yields the dict {name: count} it fills on exit; each
     replay of the graph adds it back (:func:`add_counts`), so a graphed run
-    counts what the same run counts eagerly."""
-    before = {**LAUNCHES, **ROUTES}
+    counts what the same run counts eagerly. A capture runs while no other
+    thread counts (a capture fails while another thread launches work; the
+    router's threaded stepping needs every replica's programs captured and
+    sealed first), so the counts that change inside are the capture's."""
+    with _count_lock:
+        before = {**LAUNCHES, **ROUTES}
     recorded: Dict[str, int] = {}
     try:
         yield recorded
     finally:
-        for counts in (LAUNCHES, ROUTES):
-            for name in counts:
-                n = counts[name] - before[name]
-                if n:
-                    recorded[name] = n
-                counts[name] = before[name]
+        with _count_lock:
+            for counts in (LAUNCHES, ROUTES):
+                for name in counts:
+                    n = counts[name] - before[name]
+                    if n:
+                        recorded[name] = n
+                    counts[name] = before[name]
 
 
 def add_counts(recorded: Dict[str, int], times: int = 1) -> None:
     """Add a recorded census ``times`` times (a graph's replays)."""
-    for name, n in recorded.items():
-        (LAUNCHES if name in LAUNCHES else ROUTES)[name] += n * times
+    with _count_lock:
+        for name, n in recorded.items():
+            (LAUNCHES if name in LAUNCHES else ROUTES)[name] += n * times
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    with _count_lock:
+        return dict(LAUNCHES)
 
 
 def route_counts() -> Dict[str, int]:
-    return dict(ROUTES)
+    with _count_lock:
+        return dict(ROUTES)
 
 
 def nvcc() -> str:

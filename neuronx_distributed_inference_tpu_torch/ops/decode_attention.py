@@ -257,7 +257,7 @@ def _launch(q, k_cache, v_cache, layer_idx, mask, sink, scale, n_kv, streams=Non
     )
     counter = CODE_KERNEL if streams is not None else VERIFY_KERNEL if K > 1 else KERNEL
     _cuda.check(err, counter)
-    _cuda.LAUNCHES[counter] += 1
+    _cuda.count(counter)
     return out
 
 
@@ -367,7 +367,7 @@ def _launch_paged(q, k_cache, v_cache, layer_idx, block_table, mask, sink, scale
     )
     counter = PAGED_KERNEL if streams is None else PAGED_CODE_KERNEL
     _cuda.check(err, counter)
-    _cuda.LAUNCHES[counter] += 1
+    _cuda.count(counter)
     return out
 
 

@@ -315,7 +315,7 @@ def _launch_attn(x, gamma, wqkv, wout, cos, sin, k_cache, v_cache, layer_idx, sl
         float(scale), float(eps), stream,
     )
     _cuda.check(err, ATTN_KERNEL)
-    _cuda.LAUNCHES[ATTN_KERNEL] += 1
+    _cuda.count(ATTN_KERNEL)
     return out, k_new, v_new
 
 
@@ -360,7 +360,7 @@ def _launch_mlp(x, gamma, w_gate, w_up, w_down, eps, act):
         float(eps), stream,
     )
     _cuda.check(err, MLP_KERNEL)
-    _cuda.LAUNCHES[MLP_KERNEL] += 1
+    _cuda.count(MLP_KERNEL)
     return out
 
 

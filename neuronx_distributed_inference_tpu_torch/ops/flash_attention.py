@@ -162,7 +162,7 @@ def _launch(q, k, v, key_valid, scale, causal, window, chunk, softmax_bf16):
         _cuda.stream_ptr(q.device),
     )
     _cuda.check(err, KERNEL)
-    _cuda.LAUNCHES[KERNEL] += 1
+    _cuda.count(KERNEL)
     return out, m, l
 
 

@@ -243,7 +243,7 @@ def _launch(x, topk_idx, topk_w, w_gate, w_up, w_down, act, act_scale, act_bias,
         stream,
     )
     _cuda.check(err, KERNEL)
-    _cuda.LAUNCHES[KERNEL] += 1
+    _cuda.count(KERNEL)
     return out
 
 

@@ -147,7 +147,7 @@ def _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep,
     )
     counter = KERNEL if code_args[0] is None else CODE_KERNEL
     _cuda.check(err, counter)
-    _cuda.LAUNCHES[counter] += 1
+    _cuda.count(counter)
     return out
 
 

@@ -185,7 +185,7 @@ def int4_matmul_dense(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor
     if not launches_kernel(x, packed, scale):
         return quant_matmul_plain(x, packed, scale)
     w = dequantize_int4(packed, scale, x.shape[-1], x.dtype)
-    _cuda.ROUTES["int4_dense"] += 1
+    _cuda.count("int4_dense")
     return torch.matmul(x, w)
 
 
@@ -241,7 +241,7 @@ def _launch(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch
         rows, k, k2, n, splits, per, row_tile, _DTYPE_CODES[x.dtype], stream,
     )
     _cuda.check(err, KERNEL)
-    _cuda.LAUNCHES[KERNEL] += 1
+    _cuda.count(KERNEL)
     return out
 
 

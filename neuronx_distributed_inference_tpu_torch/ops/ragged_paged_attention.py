@@ -248,7 +248,7 @@ def _launch(q, k_layer, v_layer, block_table, row_start, row_len, ctx_len, scale
     )
     counter = CODE_KERNEL if codes else KERNEL
     _cuda.check(err, counter)
-    _cuda.LAUNCHES[counter] += 1
+    _cuda.count(counter)
     return out
 
 

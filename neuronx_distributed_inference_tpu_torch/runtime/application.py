@@ -230,7 +230,12 @@ class ModelForCausalLM:
         reference, a config with multi-token passes stays unsealed (their
         smaller-width programs are built at first use), and so does the
         mixed-step runner (callers that pin zero captures warm their mix and
-        seal it)."""
+        seal it).
+
+        A disaggregated stage app (``is_prefill_stage``, the reference's
+        rule) warms and seals only its stage's runner: True the
+        context-encoding runner, False the token-generation runner (and no
+        mixed-step family); None both."""
         tc = self.config.torch_config
         chunk_q = None
         if tc.is_chunked_prefill or tc.is_prefix_caching:
@@ -238,16 +243,21 @@ class ModelForCausalLM:
         elif tc.max_context_length < tc.seq_len:
             # windowed prefill passes one window length
             chunk_q = [self.context_encoding_model.buckets[-1]]
-        for runner in self.runners:
+        runners = self.runners
+        if tc.is_prefill_stage is True:
+            runners = [self.context_encoding_model]
+        elif tc.is_prefill_stage is False:
+            runners = [self.token_generation_model]
+        for runner in runners:
             self.kv_cache = runner.warmup(
                 self.params, self.kv_cache,
                 chunk_q_lens=chunk_q if runner is self.token_generation_model else None,
                 generator=self._rng,
             )
-        if self.mixed_step_model is not None:
+        if self.mixed_step_model is not None and tc.is_prefill_stage is None:
             self.kv_cache = self.mixed_step_model.warmup(self.params, self.kv_cache)
         if guard_enabled(tc) and chunk_q is None:
-            for runner in self.runners:
+            for runner in runners:
                 runner.seal()
         return self
 

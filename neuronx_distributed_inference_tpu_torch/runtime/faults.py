@@ -1,7 +1,5 @@
 """Serving fault containment: typed faults and a deterministic
-FaultInjector (counterpart of the reference's ``runtime/faults.py``; the
-session-step faults — the disaggregated hand-off faults wait for ROADMAP
-A8).
+FaultInjector (counterpart of the reference's ``runtime/faults.py``).
 
 - :class:`TransientDispatchError` / :data:`RETRYABLE_DISPATCH_ERRORS`: what
   the session's bounded-backoff dispatch retry treats as transient.
@@ -10,10 +8,16 @@ A8).
   leaves the CUDA context unusable and a retry would only hide it.
 - :class:`WatchdogError`: raised, with a diagnostic snapshot, when the
   no-forward-progress watchdog trips twice.
+- :class:`HandoffTransitError` / :data:`RETRYABLE_HANDOFF_ERRORS`: a KV
+  hand-off attempt of the disaggregated prefill tier that failed in
+  transit (payload lost, stalled, past its timeout); the router retries it
+  with capped backoff, as it does a transient dispatch error on the tier
+  member (``runtime/router.py``).
 - :class:`FaultInjector`: a seedable fault source armed per session step —
   NaN-poisoned KV rows, a NaN garbage block, corrupted token fetches,
-  forced pool exhaustion, raised dispatch errors, injected latency, stalls.
-  Faults fire at the session's host boundaries, so the same serving code
+  forced pool exhaustion, raised dispatch errors, injected latency, stalls
+  — and per router hand-off (:data:`HANDOFF_FAULT_KINDS`). Faults fire at
+  the session's and the router's host boundaries, so the same serving code
   runs with and without them, and an armed-but-idle injector is
   byte-identical to none.
 """
@@ -39,7 +43,46 @@ class WatchdogError(RuntimeError):
         self.snapshot = snapshot or {}
 
 
+class HandoffTransitError(RuntimeError):
+    """One KV hand-off attempt failed IN TRANSIT (payload lost, transfer
+    stalled or past the operator timeout): the payload never reached the
+    decode replica, so the attempt is retryable. A corrupt or truncated
+    payload DID arrive; the decode side's inject validation fails it as a
+    terminal FAILED(handoff)."""
+
+
 RETRYABLE_DISPATCH_ERRORS: Tuple[type, ...] = (TransientDispatchError,)
+
+#: what a hand-off attempt may fail with and still be retried: the transit
+#: faults and a transient dispatch error of the prefill pass (a CUDA error
+#: is not among them, as for the session's dispatch retry)
+RETRYABLE_HANDOFF_ERRORS: Tuple[type, ...] = (HandoffTransitError,) + RETRYABLE_DISPATCH_ERRORS
+
+#: every fault kind random_schedule can draw (also the session-hook names)
+FAULT_KINDS = (
+    "nan_tokens",
+    "poison_kv_row",
+    "poison_garbage_block",
+    "exhaust_pool",
+    "dispatch_error",
+    "latency",
+    "stall",
+)
+
+#: KV hand-off fault kinds (the disaggregated prefill tier): armed by
+#: HAND-OFF INDEX (the router's monotone hand-off counter; the attempts of
+#: one hand-off share it), not by session step, since hand-offs happen at
+#: placement time. drop / latency / stall are transit faults (retryable,
+#: bounded by handoff_max_retries); corrupt / truncate change the delivered
+#: payload, which the decode side's validation fails (FAILED(handoff)).
+HANDOFF_FAULT_KINDS = (
+    "handoff_drop",
+    "handoff_corrupt",
+    "handoff_truncate",
+    "handoff_latency",
+    "handoff_stall",
+)
+
 
 class FaultInjector:
     """Deterministic, seedable fault source for serving sessions.
@@ -59,6 +102,12 @@ class FaultInjector:
         self._nan_tokens: Dict[int, List[int]] = {}
         self._poison_rows: Dict[int, List[int]] = {}
         self._poison_garbage: Set[int] = set()
+        # hand-off faults by hand-off index
+        self._handoff_drop: Dict[int, int] = {}  # index -> attempts to drop
+        self._handoff_latency: Dict[int, float] = {}
+        self._handoff_stall: Set[int] = set()
+        self._handoff_corrupt: Set[int] = set()
+        self._handoff_truncate: Set[int] = set()
 
     # ---- arming ----------------------------------------------------------
 
@@ -100,6 +149,43 @@ class FaultInjector:
         """Write NaN over the shared garbage sink (paged block 0 / the
         contiguous garbage line) at ``step``."""
         self._poison_garbage.add(int(step))
+        return self
+
+    # ---- KV hand-off faults (disaggregated prefill tier) -----------------
+
+    def handoff_drop(self, handoff: int, attempts: int = 1) -> "FaultInjector":
+        """Lose hand-off ``handoff``'s payload in transit for its first
+        ``attempts`` attempts (:class:`HandoffTransitError`): up to
+        handoff_max_retries the retry recovers, past it the request fails
+        FAILED(handoff)."""
+        self._handoff_drop[int(handoff)] = int(attempts)
+        return self
+
+    def handoff_latency(self, handoff: int, seconds: float) -> "FaultInjector":
+        """Sleep ``seconds`` (through the router's injectable sleep) inside
+        the FIRST attempt of hand-off ``handoff``; with handoff_timeout_s
+        set, the router sees the overrun and retries latency-free."""
+        self._handoff_latency[int(handoff)] = float(seconds)
+        return self
+
+    def handoff_stall(self, handoff: int) -> "FaultInjector":
+        """Stall hand-off ``handoff``'s transfer on every attempt: each one
+        reads as timed out (retryable), so the bounded retry exhausts."""
+        self._handoff_stall.add(int(handoff))
+        return self
+
+    def handoff_corrupt(self, handoff: int) -> "FaultInjector":
+        """Write NaN into hand-off ``handoff``'s delivered K stream (into
+        the running-absmax scales of a quantized payload): the decode
+        side's validation fails ONE request FAILED(handoff) and scrubs the
+        line."""
+        self._handoff_corrupt.add(int(handoff))
+        return self
+
+    def handoff_truncate(self, handoff: int) -> "FaultInjector":
+        """Deliver half of hand-off ``handoff``'s positions: the decode
+        side's length check fails the request FAILED(handoff)."""
+        self._handoff_truncate.add(int(handoff))
         return self
 
     def random_schedule(
@@ -203,6 +289,57 @@ class FaultInjector:
             tokens[slot] = NON_FINITE_TOKEN
             self._fired(step, "nan_tokens", slot=slot)
         return tokens
+
+
+    # ---- hand-off hooks (the router's hand-off boundary) ------------------
+
+    def _fired_handoff(self, handoff: int, kind: str, **detail) -> None:
+        self.log.append({"handoff": handoff, "kind": kind, **detail})
+
+    def handoff_transit(self, handoff: int, sleep_fn) -> None:
+        """Called once per hand-off ATTEMPT, between extract and inject:
+        injected latency (through ``sleep_fn``), then
+        :class:`HandoffTransitError` for an armed stall (every attempt) or
+        drop (its first n attempts)."""
+        idx = int(handoff)
+        delay = self._handoff_latency.pop(idx, None)
+        if delay is not None:
+            sleep_fn(delay)
+            self._fired_handoff(idx, "handoff_latency", seconds=delay)
+        if idx in self._handoff_stall:
+            self._fired_handoff(idx, "handoff_stall")
+            raise HandoffTransitError(
+                f"injected hand-off stall (hand-off {idx}: transfer never "
+                f"completed; observed as a timed-out attempt)"
+            )
+        remaining = self._handoff_drop.get(idx, 0)
+        if remaining > 0:
+            self._handoff_drop[idx] = remaining - 1
+            self._fired_handoff(idx, "handoff_drop")
+            raise HandoffTransitError(f"injected hand-off payload loss (hand-off {idx})")
+
+    def corrupt_handoff_payload(self, handoff: int, kv: Dict) -> Dict:
+        """Hand-off ``handoff``'s delivered payload, truncated on the
+        position axis and/or with a NaN in its K stream (the fp32 scales of
+        a quantized payload: int8 codes have no NaN); a new dict, the
+        payload's tensors untouched. Fires once per armed hand-off."""
+        idx = int(handoff)
+        if idx in self._handoff_truncate:
+            self._handoff_truncate.discard(idx)
+            kv = dict(kv)
+            S = int(kv["k"].shape[2])
+            keep = max(1, S // 2)
+            kv["k"] = kv["k"][:, :, :keep]
+            kv["v"] = kv["v"][:, :, :keep]
+            self._fired_handoff(idx, "handoff_truncate", kept=keep, of=S)
+        if idx in self._handoff_corrupt:
+            self._handoff_corrupt.discard(idx)
+            kv = dict(kv)
+            key, at = ("k_scale", (0, 0)) if kv.get("quantized") else ("k", (0, 0, 0, 0, 0))
+            kv[key] = kv[key].clone()
+            kv[key][at] = float("nan")
+            self._fired_handoff(idx, "handoff_corrupt")
+        return kv
 
 
 # ---------------------------------------------------------------------------

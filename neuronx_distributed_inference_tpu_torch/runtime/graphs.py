@@ -31,6 +31,13 @@ as eager PyTorch and captures each key's program as one CUDA graph
   PyTorch cannot register a generator, capturing a sampling program
   raises: a replay would repeat the draws of its capture.
 
+- **Threads**: a capture fails while another thread launches work, so a
+  router's replica worker threads (``runtime/router.py``) never capture:
+  :meth:`GraphSet.capture` raises on a thread marked by
+  :func:`mark_worker_thread`. Every replica's programs are captured and
+  sealed before threaded stepping; replays and launch counts are safe from
+  any thread (``ops/_cuda.py`` counts under a lock).
+
 With ``cuda_graphs=False``, and always on the CPU, :class:`GraphSet` is
 disabled and the runners run every program eagerly on the current stream.
 """
@@ -38,6 +45,7 @@ disabled and the runners run every program eagerly on the current stream.
 from __future__ import annotations
 
 import itertools
+import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -45,6 +53,13 @@ import torch
 from neuronx_distributed_inference_tpu_torch.ops import _cuda
 
 _IDS = itertools.count()
+_THREAD = threading.local()
+
+
+def mark_worker_thread() -> None:
+    """Mark the calling thread as a router replica worker: a graph capture
+    on it raises (another replica's thread launches work meanwhile)."""
+    _THREAD.worker = True
 
 
 class Graph:
@@ -115,6 +130,15 @@ class GraphSet:
         scope) as a graph; pins the scope's pools. ``generator``: the
         generator the program draws from, registered so that replays draw
         afresh."""
+        if getattr(_THREAD, "worker", False):
+            from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceError
+
+            raise RetraceError(
+                "a CUDA graph capture on a router replica thread: another replica's thread "
+                "launches work meanwhile and the capture would fail. Warm every replica's "
+                "programs (one sequential drain of the traffic) and seal the runners before "
+                "threaded stepping"
+            )
         g = torch.cuda.CUDAGraph()
         if generator is not None:
             register = getattr(g, "register_generator_state", None)

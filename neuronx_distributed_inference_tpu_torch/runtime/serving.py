@@ -35,10 +35,12 @@ verification rides the one mixed dispatch as spec-verify rows and the
 draft's next proposals chain on its output on the device.
 
 The port updates the cache in place where the reference rebinds a new one.
-Outside this slice, and raising ``NotImplementedError`` with its ROADMAP
-item: admission of a request prefilled elsewhere (A8). A prompt longer than
-the largest context bucket is admitted on the contiguous cache in windows
-(:meth:`ServingSession._windowed_admit`).
+A prompt longer than the largest context bucket is admitted on the
+contiguous cache in windows (:meth:`ServingSession._windowed_admit`). A
+request context-encoded on a disaggregated prefill replica is admitted
+with its handed-over KV line (:meth:`ServingSession.add_prefilled_request`,
+``runtime/disaggregated.py``); the router (``runtime/router.py``) serves
+over several sessions.
 
 The runners replay captured CUDA graphs (``runtime/model_runner.py``);
 every step's tokens are copied out of the graph's buffers when it returns,
@@ -78,7 +80,7 @@ STATUS_FAILED = "failed"
 STATUS_REJECTED = "rejected"
 
 #: finish reasons that mark a request FAILED rather than FINISHED
-FAILURE_REASONS = frozenset({"non_finite", "dispatch_error", "deadline_exceeded", "preempted"})
+FAILURE_REASONS = frozenset({"non_finite", "dispatch_error", "deadline_exceeded", "preempted", "handoff"})
 
 #: capped exponential backoff for transient dispatch retries
 DISPATCH_BACKOFF_BASE_S = 0.02
@@ -149,6 +151,10 @@ class Request:
 
 
 class ServingSession:
+    #: this session admits requests prefilled elsewhere (the router's
+    #: disaggregated prefill tier reads it); the speculative session cannot
+    prefilled_admission = True
+
     def __init__(
         self,
         app,
@@ -187,6 +193,10 @@ class ServingSession:
         self._committed_total = 0  # monotone: tokens committed to requests
         self._terminal_total = 0  # monotone: requests reaching a terminal state
         self._last_dispatch_error: Optional[str] = None
+        # a router-managed session carries its replica id (set by
+        # ReplicaHandle), so its step-timing and watchdog records land on
+        # the replica's timeline track; a standalone session keeps None
+        self._tel_replica: Optional[int] = None
         #: device passes this session ran, by kind: "prefill" (context
         #: encoding), "prefill_chunk" (chunked/prefix prefill passes),
         #: "decode_steps" (decode iterations, one per layer stack, chunked
@@ -313,11 +323,78 @@ class ServingSession:
             return bounce
         return self._admit(req, self.free_slots[0])
 
-    def add_prefilled_request(self, *args, **kwargs) -> AdmissionResult:
-        raise NotImplementedError(
-            "admission of a request prefilled on another replica (the "
-            "disaggregated KV hand-off) is not ported to PyTorch yet (ROADMAP A8)"
+    def admission_capacity(self) -> Optional[str]:
+        """Capacity pre-check for callers that pay for work BEFORE admitting
+        (the router's hand-off runs a whole prefill pass before
+        :meth:`add_prefilled_request`): the aging and capacity legs of
+        :meth:`_front_door` without a request, ``"backlog"`` / ``"no_slot"``
+        / None (would admit). Advisory: the admission re-runs the gate."""
+        self._readmit_preempted()
+        if self._readmit:
+            return "backlog"
+        if not self.free_slots:
+            return "no_slot"
+        return None
+
+    def add_prefilled_request(
+        self,
+        req_id: str,
+        input_ids: np.ndarray,
+        kv_payload: Dict,
+        first_token: int,
+        max_new_tokens: int = 64,
+        eos_token_id: Optional[int] = None,
+        deadline_s: Optional[float] = None,
+    ) -> AdmissionResult:
+        """Admit a request whose prompt was context-encoded on a
+        disaggregated prefill replica: validate the handed-over KV payload,
+        write it into a free cache line (:func:`~.disaggregated.
+        inject_request_kv`) and commit ``first_token`` as the first
+        generated token; decode then runs as after a local prefill.
+
+        A payload that fails validation (corrupt, truncated, wrong format:
+        :func:`~.disaggregated.validate_handoff_payload`) admits and then
+        terminally fails ONLY this request, typed ``FAILED(handoff)``, its
+        line zero-scrubbed; co-batched rows are untouched, and the truthy
+        return carries a request whose verdict is readable in
+        ``session.requests``. Capacity refusals and validation rejects are
+        :meth:`add_request`'s."""
+        from neuronx_distributed_inference_tpu_torch.runtime.disaggregated import (
+            inject_request_kv,
+            validate_handoff_payload,
         )
+
+        if self.block_mode:
+            raise ValueError(
+                "add_prefilled_request scatters whole contiguous cache "
+                "lines: the paged cache is not supported (config validation "
+                "forbids router_prefill_replicas with is_block_kv_layout)"
+            )
+        req = self._new_request(req_id, input_ids, max_new_tokens, eos_token_id, deadline_s)
+        bounce = self._front_door(req)
+        if bounce is not None:
+            return bounce
+        slot = self.free_slots[0]
+        req.slot = slot
+        req.status = STATUS_ACTIVE
+        self.slots[slot] = req
+        self.requests[req.req_id] = req
+        self.tel.request_admitted(req.req_id)
+        bad = validate_handoff_payload(self.app, kv_payload, 1, req.prompt_len)
+        if bad is not None:
+            # ONE request dies, typed; its line (never written) is scrubbed
+            # before it recycles. The validator's cause labels the failure
+            # counter; the request keeps the verdict "handoff"
+            self.tel.handoff_failure(req.req_id, bad)
+            self._finish(req, "handoff", scrub=True)
+            return ADMITTED
+        inject_request_kv(self.app, np.array([slot], np.int32), kv_payload)
+        req.prefill_pos = req.prompt_len
+        self._note_prefill(req, req.prompt_len)
+        self.tel.step("prefill")
+        self.tel.pool_gauges(len(self.active), self.kv_pool_bytes, self.kv_free_bytes)
+        self._finish_prefill(req, first_token)
+        return ADMITTED
 
     def _new_request(self, req_id, input_ids, max_new_tokens, eos_token_id, deadline_s) -> Request:
         self.tel.request_submitted(req_id)
@@ -557,7 +634,7 @@ class ServingSession:
             self.tel.watchdog_preempted(victim.req_id)
             self._preempt(victim)
             return
-        self.tel.watchdog_tripped(window)
+        self.tel.watchdog_tripped(window, replica=self._tel_replica)
         snap = self.diagnostic_snapshot()
         raise WatchdogError(
             f"serving session made no forward progress for {window} consecutive "
@@ -1326,7 +1403,7 @@ class ServingSession:
             return
         total_s = self.tel.clock() - t_step0
         wait_s = min(self._step_fetch_wait_s, total_s)
-        self.tel.step_timing((total_s - wait_s) * 1e3, wait_s * 1e3)
+        self.tel.step_timing((total_s - wait_s) * 1e3, wait_s * 1e3, replica=self._tel_replica)
 
     # ---- drain ---------------------------------------------------------------
 
@@ -1675,6 +1752,8 @@ class SpeculativeServingSession(ServingSession):
         #: Capping changes no output (the window holds the target's own
         #: greedy tokens); only measured acceptance moves
         self.draft_accept_cap = None
+
+    prefilled_admission = False  # see ServingSession.prefilled_admission
 
     def add_prefilled_request(self, *args, **kwargs) -> AdmissionResult:
         raise NotImplementedError(

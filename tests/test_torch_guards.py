@@ -185,7 +185,9 @@ def _serving_app(**tc):
 
 def test_serving_settings_outside_the_slice_raise():
     """The serving surface outside this slice names its ROADMAP item: the
-    disaggregated hand-off (A8). Speculation (A7's first part) is ported:
+    telemetry hooks of the workload engine and the SLO monitor (A8's
+    rest). The disaggregated hand-off is ported: a malformed payload fails
+    its one request typed FAILED(handoff). Speculation (A7's first part) is ported:
     serving_spec_ragged is validated as the reference validates it (it
     needs chunked prefill) and the speculative session builds; windowed
     admission (ported with A3b) admits a prompt longer than the context
@@ -203,8 +205,12 @@ def test_serving_settings_outside_the_slice_raise():
     app = _serving_app(context_encoding_buckets=[128], max_context_length=128)
     assert SpeculativeServingSession(app, app).k == 4
     sess = ServingSession(app)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        sess.add_prefilled_request("h", [1, 2, 3], {}, first_token=4)
+    assert sess.add_prefilled_request("h", [1, 2, 3], {}, first_token=4)
+    assert (sess.requests["h"].status, sess.requests["h"].fail_reason) == ("failed", "handoff")
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A8 \(workload and SLO\)"):
+        TelemetrySession().set_tenants({})
     assert sess.add_request("long", list(range(1, 60)) * 3, max_new_tokens=2)
 
 
