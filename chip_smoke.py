@@ -17,12 +17,14 @@ Phases, in order; any failure exits non-zero:
      entry inside a row, the serving decode shape), B2 at
      lengths no block divides and on D=128 fused-QKV views, and every B5
      case (bf16 held also to a plain version that rounds P to bf16), each
-     launched twice and required bit-identical;
+     launched twice and required bit-identical; B4, B5 and B3 also at
+     Qwen3-30B-A3B's head shape (32 q / 4 kv heads of 128, blocks of 32);
   4. kernel times at the main paths' shapes and layouts (CUDA events, L2
      flushed before each launch), each held to its plain version first,
      beside the plain version, one PyTorch library call, and the card's
      bound for the same work (B1 and B4 with their split counts and grids,
-     B7 with its grids and each of its launches' device time);
+     B7 with its grids and each of its launches' device time; B4, B5 and
+     B3 also at the Qwen3 serving shape);
   5. the generate() path at full width: Llama-3.2-1B shapes with seeded
      random weights, bf16, greedy generate() of 256 tokens after a 128-token
      prompt at batch 1 (launch counts asserted), a right-padded batch-2
@@ -38,7 +40,7 @@ Phases, in order; any failure exits non-zero:
      through ServingSession(serving_ragged=True), synchronous and 1-ahead
      (launch counts asserted: B3 16 times per mixed dispatch, nothing else),
      a short run admitting through the context program, a teacher-forced
-     check of mixed_forward, and a profile of 16 steady-state steps;
+     check of mixed_forward, and a profile of PROFILE_STEPS steady-state steps;
   8. the quantized paths: B6 (int4 fused-dequant matmul) against its plain
      version at rows 1 to 64 (each case launched twice, bit-identical, with
      its split-K count and grid printed) and timed, then the bf16_8b_int4,
@@ -52,7 +54,15 @@ Phases, in order; any failure exits non-zero:
      batch 1 with exact B2 / B1 / B7 / moe_grouped counts and no dense MoE
      call, a batch-8 generate() (64 rows for B7), a profile, and the
      teacher-forced gate on its first 4 layers with the router's top-k flips
-     counted. B1 and B2 also run at its GQA 8:1 shape in phases 3 and 4;
+     counted. B1 and B2 also run at its GQA 8:1 shape in phases 3 and 4.
+     Then Qwen3-30B-A3B through the serving sessions (phase_qwen3_serving):
+     the serving row's paged configuration and traffic, split and ragged,
+     sync and 1-ahead, graphs on, one parameter set: exact B4 / B5 / B3 /
+     B7 and moe_grouped / moe_dense counts, the grouped-route steps run
+     eagerly (no capture of a ragged step of 64 packed tokens or more, the
+     split decode step captured), nothing captured after the seal, each
+     request its 128 tokens, host ms and device-busy share a step, peak
+     memory, and the paged teacher-forced gate with routing pinned;
  10. the fused decode layer: B8 (the attention block) and B9 (the MLP
      block) against their plain versions (B8: D 64 and 128, GQA 4:1 and
      8:1, batch 1 and 4, K 1 and 4, buckets 512 and 1024, rows on the
@@ -122,6 +132,15 @@ Phases, in order; any failure exits non-zero:
      the dispatches times the layers; B1 and B2b timed at the row's
      shapes; tok/s, host ms and device-busy share per router step, the
      overlap, per-replica tokens and balance, the hand-off's ms and bytes.
+ 15. the open-loop goodput rows (phase_workload, on phase 14's warm apps):
+     serving_1b_int8_goodput, _goodput_burst, _goodput_chaos and
+     _disagg_chaos at bench.py's hardware-scale traces through the workload
+     driver on a virtual clock, scored by the SLO scorer with a live
+     SloMonitor: bench.py's goodput fields; clean attainment 1.0, burst
+     backlog refusals, 0 rejected outside the backlog and 0 quarantined, the
+     chaos kill landing with a finite recovery, the tier kill's local
+     prefills with every request finished, launches equal to the
+     dispatches times the layers, nothing captured.
 Each phase prints its seconds. The line before the card's name lists every
 kernel with its launches, times and bound; the last line of standard output
 is {"ok": true, "device": {...}}.
@@ -135,6 +154,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -739,7 +759,8 @@ def phase_paged_decode_parity(torch, da):
     bf16 and fp32, q_len 1 and (through the routing rule) 4: every case has
     NaN in block 0, zero-table tails, lengths that are not block multiples
     and, at batch 8, inactive rows (zero table, mask true only at position
-    0, as the session's decode pass builds them). Then the split cases
+    0, as the session's decode pass builds them); the Qwen3 head-shape
+    cases (qwen3_paged_decode_parity). Then the split cases
     (phase_paged_decode_split_parity). Returns the number of cases of each
     part: each launches B4 once, each split case twice more."""
     from neuronx_distributed_inference_tpu_torch.models.base import paged_attend
@@ -784,6 +805,7 @@ def phase_paged_decode_parity(torch, da):
                         rows = torch.from_numpy(act).cuda()
                         worst = max(worst, check_close(torch, out, ref, case, "paged_tkg_decode_attention", rows))
                         n += 1
+    n += qwen3_paged_decode_parity(torch, da)
     log(f"paged_tkg_decode_attention: {n} cases agree with the plain version (largest abs err {worst:.3e})")
     return n, phase_paged_decode_split_parity(torch, da)
 
@@ -997,7 +1019,8 @@ def phase_paged_flash_parity(torch, pf):
     and, at batch 8, kv_limit 0 rows, which must be exactly zero
     (paged_flash_rows); bf16 checked in two parts (check_paged_flash), on
     the random inputs and again on exact-score inputs (exact_score_inputs);
-    each case launched twice, bit-identical."""
+    each case launched twice, bit-identical; then the Qwen3 head-shape
+    cases (qwen3_paged_flash_parity)."""
     rng = np.random.RandomState(4)
     worst, n = 0.0, 0
     Hq, Hkv, MB, Sq = 32, 8, 16, 128
@@ -1018,6 +1041,7 @@ def phase_paged_flash_parity(torch, pf):
                         what = f"{case}{', exact scores' if exact else ''}"
                         worst = max(worst, check_paged_flash(torch, pf, qc, kc, v, bt, pos, lim, kw, what, exact))
                         n += 1
+    n += qwen3_paged_flash_parity(torch, pf)
     log(f"paged_flash_attention: {n} cases agree with the plain version, each bit-identical twice "
         f"(largest abs err {worst:.3e})")
 
@@ -1038,25 +1062,30 @@ def serving_decode_inputs(torch, rng, ctx, B=8, Hq=32, Hkv=8, D=64, bs=32, width
 
 
 def phase_paged_times(torch, da, pf):
-    """B4 and B5 at the serving row's shapes, each held to its plain version
-    first, beside the plain version, F.scaled_dot_product_attention on K/V
-    gathered beforehand (the gather not timed; a yardstick only), and the
-    bound for the same work."""
+    """B4 and B5 at the serving row's shapes (paged_times at the 1B heads)."""
+    return paged_times(torch, da, pf, np.random.RandomState(5), 32, 8, 64)
+
+
+def paged_times(torch, da, pf, rng, Hq, Hkv, D, tag=None):
+    """B4 and B5 at the serving row's shapes with Hq / Hkv heads of D, each
+    held to its plain version first, beside the plain version,
+    F.scaled_dot_product_attention on K/V gathered beforehand (the gather
+    not timed; a yardstick only), and the bound for the same work. Rows are
+    keyed by kernel name, or (name, ``tag``) with a tag."""
     import torch.nn.functional as F
 
     from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
 
     rows = {}
-    rng = np.random.RandomState(5)
-    Hq, Hkv, D = 32, 8, 64
+    heads = f"Hq={Hq} Hkv={Hkv} D={D}"
     # decode: 8 rows, mid-stream at 128 prompt + 64 generated tokens
     ctx = 192
-    q, k, v, bt, mask = serving_decode_inputs(torch, rng, ctx)
+    q, k, v, bt, mask = serving_decode_inputs(torch, rng, ctx, Hq=Hq, Hkv=Hkv, D=D)
     kw = dict(scale=D ** -0.5, n_kv=Hkv)
     out = da.paged_tkg_decode_attention(q, k, v, 0, bt, mask, None, **kw)
     ref = da.paged_tkg_decode_attention_plain(q.float(), k.float(), v.float(), 0, bt, mask, None, **kw)
-    err = check_close(torch, out, ref, f"timed B=8 ctx={ctx} bs=32 bucket=1024 D=64 bf16", "paged_tkg_decode_attention")
+    err = check_close(torch, out, ref, f"timed B=8 ctx={ctx} bs=32 bucket=1024 {heads} bf16", "paged_tkg_decode_attention")
     state = {"layer": 0}
 
     def next_layer():
@@ -1074,12 +1103,14 @@ def phase_paged_times(torch, da, pf):
     nbytes = 2 * B * ctx * Hkv * D * k.element_size() + 2 * q.numel() * q.element_size() + mask.numel() + bt.numel() * 4
     flops = 4 * D * Hq * int(mask.sum().item())
     b_ms, b_by = bound(nbytes, flops)
-    rows["paged_decode_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    rows["paged_decode_attention" if tag is None else ("paged_decode_attention", tag)] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )
     splits, per = da.decode_kv_split(bt.shape[1] * k.shape[3], B * Hkv, _cuda.sm_count(q.device))
     parts = launch_breakdown(torch, lambda: da.paged_tkg_decode_attention(q, k, v, 0, bt, mask, None, **kw),
                              ("split", "combine") if splits > 1 else ("split",))
     log(
-        f"paged_tkg_decode_attention B=8 ctx={ctx} bs=32 bucket=1024 Hq=32 Hkv=8 D=64 bf16: kernel {ms:.4f} ms, "
+        f"paged_tkg_decode_attention B=8 ctx={ctx} bs=32 bucket=1024 {heads} bf16: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}; "
         f"{splits} splits of {per} positions, grid ({Hkv}, {B}, {splits}) = {Hkv * B * splits} blocks; device us "
         "per launch: " + ", ".join(f"{name} {us:.2f}" for name, us in parts.items())
@@ -1098,7 +1129,7 @@ def phase_paged_times(torch, da, pf):
     pos = torch.arange(Sq, device="cuda", dtype=torch.int32)[None, :].expand(B, Sq).contiguous()
     lim = torch.full((B,), Sq, device="cuda", dtype=torch.int32)
     kw = dict(scale=D ** -0.5, n_rep=Hq // Hkv)
-    err = check_paged_flash(torch, pf, q, k, v, bt, pos, lim, kw, "timed B=8 Sq=128 kv_limit=128 bs=32 bucket=1024 D=64 bf16")
+    err = check_paged_flash(torch, pf, q, k, v, bt, pos, lim, kw, f"timed B=8 Sq=128 kv_limit=128 bs=32 bucket=1024 {heads} bf16")
     k_r, v_r = read_block_cache_at_layer(k[None], v[None], 0, bt)
     kt = k_r.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
     vt = v_r.permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
@@ -1111,9 +1142,11 @@ def phase_paged_times(torch, da, pf):
     nbytes = (2 * q.numel() + 2 * B * Sq * Hkv * D) * q.element_size() + (pos.numel() + lim.numel() + bt.numel()) * 4
     flops = 4 * D * Hq * int(smask.sum().item())
     b_ms, b_by = bound(nbytes, flops)
-    rows["paged_flash_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    rows["paged_flash_attention" if tag is None else ("paged_flash_attention", tag)] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )
     log(
-        f"paged_flash_attention B=8 Sq=128 kv_limit=128 bs=32 bucket=1024 Hq=32 Hkv=8 D=64 bf16: kernel {ms:.4f} ms, "
+        f"paged_flash_attention B=8 Sq=128 kv_limit=128 bs=32 bucket=1024 {heads} bf16: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}"
     )
     return rows
@@ -1245,7 +1278,8 @@ def phase_ragged_parity(torch, rp):
     past the packed end), NaN in block 0 and zero-table tails; then
     RAGGED_SPLIT_ROWS at a table 1024 wide (decode rows whose kv axis splits
     over the grid, each split count printed); then the serving row's two
-    timed points (roofline.RAGGED_POINTS) at their shapes. Every bf16 case
+    timed points (roofline.RAGGED_POINTS) at their shapes, and at Qwen3's
+    heads (qwen3_ragged_parity). Every bf16 case
     runs again on exact-score inputs (exact_score_inputs). Tolerances:
     check_ragged (one bf16 rounding, 1e-5 at fp32; B5's P-rounding
     reference for tensor-core tiles); every case bit-identical twice."""
@@ -1290,6 +1324,7 @@ def phase_ragged_parity(torch, rp):
             torch.bfloat16, NB=512,
         )
         run(inputs, f"serving {name} point, bf16", DECODE_ATOL)
+    n += qwen3_ragged_parity(torch, rp)
     log(f"ragged_paged_attention: {n} cases agree with the plain version, each bit-identical twice "
         f"(largest abs err {worst:.3e})")
     return n
@@ -1324,12 +1359,18 @@ def sdpa_per_row_ms(torch, F, per_row):
 
 
 def phase_ragged_times(torch, rp):
-    """B3 at the serving row's two points (roofline.RAGGED_POINTS), held to
-    its plain version first, beside the plain version, the bound for this
-    run's inputs, and a library yardstick: F.scaled_dot_product_attention
-    per active row on K/V gathered beforehand with a mask built beforehand
-    (neither timed), replayed from a CUDA graph (device time; the eager
-    loop's host-bound time printed beside it)."""
+    """B3 at the serving row's points (ragged_times at the 1B heads)."""
+    return ragged_times(torch, rp, np.random.RandomState(8), 32, 8, 64)
+
+
+def ragged_times(torch, rp, rng, Hq, Hkv, D, tag=None):
+    """B3 at the serving row's points (roofline.RAGGED_POINTS) with Hq / Hkv
+    heads of D, held to its plain version first, beside the plain version,
+    the bound for this run's inputs, and a library yardstick:
+    F.scaled_dot_product_attention per active row on K/V gathered
+    beforehand with a mask built beforehand (neither timed), replayed from
+    a CUDA graph (device time; the eager loop's host-bound time printed
+    beside it). Rows are keyed (kernel name, point), or (name, point, tag)."""
     import torch.nn.functional as F
 
     from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
@@ -1337,18 +1378,18 @@ def phase_ragged_times(torch, rp):
     from neuronx_distributed_inference_tpu_torch.ops.roofline import RAGGED_POINTS, ragged_work
 
     rows = {}
-    rng = np.random.RandomState(8)
+    n_rep = Hq // Hkv
     for name, pt in RAGGED_POINTS.items():
         bs, width = pt["block_size"], pt["width"]
         inputs = ragged_case(
-            torch, rng, list(pt["row_len"]), list(pt["ctx_len"]), 32, 8, 64, bs, width // bs, torch.bfloat16,
+            torch, rng, list(pt["row_len"]), list(pt["ctx_len"]), Hq, Hkv, D, bs, width // bs, torch.bfloat16,
             NB=512,
         )
         q, k, v, table, rs, rl, cl, _ = inputs
-        err = check_ragged(torch, rp, inputs, f"timed serving {name} point, bf16", DECODE_ATOL)
-        kw = dict(scale=0.125, n_rep=4)
+        err = check_ragged(torch, rp, inputs, f"timed serving {name} point, Hq={Hq} Hkv={Hkv} D={D} bf16", DECODE_ATOL)
+        kw = dict(scale=D ** -0.5, n_rep=n_rep)
         k_r, v_r = read_block_cache_at_layer(k[None], v[None], 0, table)
-        per_row = sdpa_per_row(torch, q, k_r, v_r, rs, rl, cl, width, 4)
+        per_row = sdpa_per_row(torch, q, k_r, v_r, rs, rl, cl, width, n_rep)
         ms = time_ms(torch, lambda: rp.ragged_paged_attention(q, k, v, table, rs, rl, cl, **kw))
         plain_ms = time_ms(torch, lambda: rp.ragged_paged_attention_plain(q, k, v, table, rs, rl, cl, **kw))
         eager_ms, lib_ms = sdpa_per_row_ms(torch, F, per_row)
@@ -1356,17 +1397,121 @@ def phase_ragged_times(torch, rp):
             rl.tolist(), cl.tolist(), width, bs, dict(Hq=q.shape[1], Hkv=k.shape[1], D=q.shape[2]), q.element_size()
         )
         b_ms, b_by = bound(nbytes, flops)
-        rows[("ragged_paged_attention", name)] = dict(
+        rows[("ragged_paged_attention", name) + ((tag,) if tag else ())] = dict(
             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
         )
-        splits, per = rp.ragged_decode_split(q.shape[0], width, k.shape[1], 4, _cuda.sm_count(q.device))
+        splits, per = rp.ragged_decode_split(q.shape[0], width, k.shape[1], n_rep, _cuda.sm_count(q.device))
         log(
             f"ragged_paged_attention {name} point (row_len {list(pt['row_len'])}, ctx_len {list(pt['ctx_len'])}, "
-            f"bs={bs} width={width} Hq=32 Hkv=8 D=64 bf16; decode tiles in {splits} splits of {per}): "
+            f"bs={bs} width={width} Hq={Hq} Hkv={Hkv} D={D} bf16; decode tiles in {splits} splits of {per}): "
             f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa per row replayed from a graph {lib_ms:.4f} ms "
             f"(eager, host-bound: {eager_ms:.4f}), bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}"
         )
         del k_r, v_r, per_row
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# 3c'. B4, B5 and B3 at Qwen3-30B-A3B's head shape
+# ---------------------------------------------------------------------------
+
+#: Qwen3-30B-A3B's attention heads (models/mixtral.QWEN3_30B_A3B): 32 q and
+#: 4 kv heads of 128, n_rep 8
+QWEN3_HEADS = dict(Hq=32, Hkv=4, D=128)
+
+
+def qwen3_paged_decode_parity(torch, da):
+    """B4 at Qwen3's head shape, block size 32, bf16, q_len 1: batch 1 and
+    the serving decode step's 8 rows over a 1024-wide table (mid-stream
+    depths, one inactive row), NaN in block 0 and zero-table tails; active
+    rows within check_close's bound of the plain version. Returns the number
+    of cases (each launches B4 once)."""
+    from neuronx_distributed_inference_tpu_torch.modules.masks import spec_token_gen_mask
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    rng = np.random.RandomState(23)
+    Hq, Hkv, D = QWEN3_HEADS["Hq"], QWEN3_HEADS["Hkv"], QWEN3_HEADS["D"]
+    bs, MB, L, n = 32, 32, 2, 0
+    for lens in ([412], [192, 1000, 0, 33, 192, 64, 511, 129]):
+        B = len(lens)
+        NB = MB * B + 4
+        bt = torch.from_numpy(paged_tables(rng, lens, MB, bs, NB)).cuda()
+        k, v = paged_pool(torch, rng, L, NB, Hkv, bs, D, torch.bfloat16)
+        q = torch.from_numpy(rng.randn(B, 1, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", torch.bfloat16)
+        lens_a = np.array(lens)
+        pos = np.where(lens_a[:, None] > 0, lens_a[:, None] - 1, 0)
+        attn = (np.arange(MB * bs)[None, :] < np.maximum(lens_a, 1)[:, None]).astype(np.int32)
+        mask = spec_token_gen_mask(torch.from_numpy(attn).cuda(), torch.from_numpy(pos).cuda())
+        kw = dict(scale=D ** -0.5, n_kv=Hkv)
+        case = f"qwen3 heads B={B} bs={bs} bucket={MB * bs} Hq={Hq} Hkv={Hkv} D={D} bf16"
+        before = _cuda.launch_counts()["paged_decode_attention"]
+        out = da.paged_tkg_decode_attention(q, k, v, 1, bt, mask, None, **kw)
+        torch.cuda.synchronize()
+        if _cuda.launch_counts()["paged_decode_attention"] != before + 1:
+            raise SystemExit(f"paged decode case did not launch B4: {case}")
+        ref = da.paged_tkg_decode_attention_plain(q.float(), k.float(), v.float(), 1, bt, mask, None, **kw)
+        check_close(torch, out, ref, case, "paged_tkg_decode_attention", torch.from_numpy(lens_a > 0).cuda())
+        n += 1
+    return n
+
+
+def qwen3_paged_flash_parity(torch, pf):
+    """B5 at Qwen3's head shape, block size 32, bf16, the serving chunk of
+    128 queries at batch 1 and 8 over a 1024-wide table (paged_flash_rows:
+    prefix + causal rows, kv_limit-0 rows), on random and on exact-score
+    inputs (check_paged_flash, each launched twice more, bit-identical).
+    Returns the number of cases."""
+    rng = np.random.RandomState(24)
+    Hq, Hkv, D = QWEN3_HEADS["Hq"], QWEN3_HEADS["Hkv"], QWEN3_HEADS["D"]
+    bs, MB, Sq, n = 32, 32, 128, 0
+    for B in (1, 8):
+        NB = MB * B + 4
+        bt, pos, lim = paged_flash_rows(torch, rng, B, Sq, MB, bs, NB)
+        k, v = paged_pool(torch, rng, 1, NB, Hkv, bs, D, torch.bfloat16)
+        k, v = k[0], v[0]
+        q = torch.from_numpy(rng.randn(B, Sq, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", torch.bfloat16)
+        kw = dict(scale=D ** -0.5, n_rep=Hq // Hkv)
+        case = f"qwen3 heads B={B} Sq={Sq} bs={bs} Hq={Hq} Hkv={Hkv} D={D} bf16 kv_limit {lim.tolist()}"
+        for exact in (False, True):
+            qc, kc = exact_score_inputs(torch, q, k) if exact else (q, k)
+            check_paged_flash(torch, pf, qc, kc, v, bt, pos, lim, kw, f"{case}{', exact scores' if exact else ''}", exact)
+            n += 1
+    return n
+
+
+def qwen3_ragged_parity(torch, rp):
+    """B3 at Qwen3's head shape, bf16, at the serving row's points
+    (roofline.RAGGED_POINTS: a 128-token chunk beside 7 decode rows, 8
+    decode rows, a chunk beside 7 verify rows) over a 1024-wide table, on
+    random and on exact-score inputs (check_ragged, each launched twice
+    more, bit-identical). Returns the number of cases."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import RAGGED_POINTS
+
+    rng = np.random.RandomState(25)
+    Hq, Hkv, D = QWEN3_HEADS["Hq"], QWEN3_HEADS["Hkv"], QWEN3_HEADS["D"]
+    n = 0
+    for name, pt in RAGGED_POINTS.items():
+        bs = pt["block_size"]
+        inputs = ragged_case(
+            torch, rng, list(pt["row_len"]), list(pt["ctx_len"]), Hq, Hkv, D, bs, pt["width"] // bs, torch.bfloat16,
+            NB=512,
+        )
+        for exact in (False, True):
+            q, k = exact_score_inputs(torch, inputs[0], inputs[1]) if exact else inputs[:2]
+            what = f"qwen3 heads serving {name} point, Hq={Hq} Hkv={Hkv} D={D} bf16{', exact scores' if exact else ''}"
+            check_ragged(torch, rp, (q, k, *inputs[2:]), what, DECODE_ATOL, exact)
+            n += 1
+    return n
+
+
+def phase_qwen3_shape_times(torch, da, pf, rp):
+    """B4, B5 and B3 at the Qwen3 serving row's shapes (8 rows at bucket
+    1024, block size 32, Qwen3's heads): paged_times and ragged_times, each
+    beside its plain version, SDPA on gathered K/V (B3: per row, replayed
+    from a graph) and the bound. Rows keyed with the tag "qwen3"."""
+    h = QWEN3_HEADS
+    rows = paged_times(torch, da, pf, np.random.RandomState(26), h["Hq"], h["Hkv"], h["D"], tag="qwen3")
+    rows.update(ragged_times(torch, rp, np.random.RandomState(27), h["Hq"], h["Hkv"], h["D"], tag="qwen3"))
     return rows
 
 
@@ -1584,7 +1729,12 @@ def phase_main_path(torch):
     )
 
 
-def phase_profile(torch, app, seq, prompt_len, steps=16, label="decode step", bucket=512):
+#: steps of each traced chunk (reading a trace costs the host a fraction of
+#: a ms for every kernel in it: ~1000 a 1B step)
+PROFILE_STEPS = 8
+
+
+def phase_profile(torch, app, seq, prompt_len, steps=PROFILE_STEPS, label="decode step", bucket=512):
     """Where a decode step's time goes: one ``steps``-step decode chunk in
     ``bucket`` over every row of ``seq`` ((S,) or (B, S) tokens; it
     re-decodes from the first generated token, rewriting cache positions
@@ -1704,7 +1854,7 @@ def b6_per_step(profile):
     return ms, calls, combine
 
 
-def phase_serving_profile(torch, app, ctx=192, steps=16):
+def phase_serving_profile(torch, app, ctx=192, steps=PROFILE_STEPS):
     """Where a serving decode step's time goes: a ``steps``-step decode
     chunk over the paged cache at the session's 8 rows, each ``ctx`` tokens
     deep (random tokens; the cache holds whatever the serving run left)."""
@@ -2077,8 +2227,8 @@ def phase_ragged_serving(torch, params, split_tokens):
     synchronous (the row pins serving_ragged_async=False) and 1-ahead, each
     warmed by one pass, then measured in turns (sync, 1-ahead, 1-ahead,
     sync: host-clock metrics drift on a shared host); a short run without
-    chunked prefill; the ragged teacher-forced check and a profile of 16
-    steady-state steps."""
+    chunked prefill; the ragged teacher-forced check and a profile of
+    PROFILE_STEPS steady-state steps."""
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
     from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
@@ -2134,7 +2284,7 @@ def phase_ragged_serving(torch, params, split_tokens):
 B3_KERNELS = ("ragged_paged_kernel", "ragged_bf16_kernel")
 
 
-def phase_ragged_profile(torch, app, prompts, label, steps=16):
+def phase_ragged_profile(torch, app, prompts, label, steps=PROFILE_STEPS):
     """Where a steady-state ragged step's time goes: 8 requests decoding,
     ``steps`` step() calls per traced chunk, on the app of one form (sync
     or 1-ahead)."""
@@ -2636,6 +2786,10 @@ def phase_moe_times(torch, md):
 #: the 48 layers (with the embedding and lm head) is ~12 GB beside the 57
 #: GiB of bf16 params
 QWEN3_FORCED_LAYERS = 4
+#: steps of the Qwen3 profiles: ~5300 kernels a decode step (22700 an eager
+#: ragged step), and torch.profiler spends ~0.6 ms of host time on each
+#: kernel it traced when the trace is read
+QWEN3_PROFILE_STEPS = 4
 
 
 def _config_qwen3(batch_size=1, model=None, **kw):
@@ -2679,12 +2833,13 @@ class _Recorder:
         setattr(moe, self.name, self.real)
 
 
-def _selections(torch, cfg, params, seq, prompt_len, plain=False):
-    """Teacher-forced logits over ``seq`` and the router's top-k selection
-    of each call: (logits, [(T, E) bool per call, prefill first, in layer
-    order])."""
-    fn = (lambda *a: plain_run("qwen3 teacher-forced plain", _forced_logits, *a)) if plain else \
-        (lambda *a: _forced_logits(*a))
+def _selections(torch, cfg, params, seq, prompt_len, plain=False, logits_fn=None):
+    """Teacher-forced logits over ``seq`` (``logits_fn``, default
+    _forced_logits) and the router's top-k selection of each call:
+    (logits, [(T, E) bool per call, prefill first, in layer order])."""
+    logits_fn = logits_fn or _forced_logits
+    fn = (lambda *a: plain_run("qwen3 teacher-forced plain", logits_fn, *a)) if plain else \
+        (lambda *a: logits_fn(*a))
     with _Recorder("router_top_k", lambda args, out: out[1].clone()) as rec:
         logits = fn(torch, cfg, params, seq, prompt_len)
     return logits, rec.calls
@@ -2734,22 +2889,25 @@ class _PinnedRouting:
         moe.router_top_k = self.real
 
 
-def qwen3_teacher_forced(torch, params, seq, prompt_len, L):
+def qwen3_teacher_forced(torch, params, seq, prompt_len, L, logits_fn=None, cfg_fn=None, what=None):
     """The teacher-forced gate on the first QWEN3_FORCED_LAYERS layers: the
     kernel path (B2, B1, B7, the grouped prefill) against the plain path
     (attention kernels off, moe_fused_kernel_enabled False: the dense
     all-experts decode) on the same bf16 weights, and an fp32 run of the
     plain path. A near-flat random router lets a top-k set flip between two
     paths on a near-tie; a flip moves that position's logits, and through
-    the cache later ones, far more than bf16 rounding does. The flips of
-    each pair of runs are counted and printed, and a failure of the gate
-    with each run routing on its own passes only where such flips exist.
-    Then the kernel and plain paths run again with every call routed as the
-    fp32 run routed (each run weighing those experts by its own scores):
-    that gate sees the paths' arithmetic alone, and its failure fails the
-    phase."""
+    the cache later ones, far more than bf16 rounding does. The kernel and
+    plain paths first run routing on their own: the flips of each pair of
+    runs are counted and printed, and a failure of that gate passes only
+    where such flips exist. Then the kernel and plain paths run
+    with every call routed as the fp32 run routed (each run weighing those
+    experts by its own scores): that gate sees the paths' arithmetic alone,
+    and its failure fails the phase. ``logits_fn`` and ``cfg_fn`` run
+    another path the same way (default: _forced_logits over _config_qwen3,
+    the generate() path). Each run's seconds are printed."""
     from neuronx_distributed_inference_tpu_torch.models.mixtral import QWEN3_30B_A3B
 
+    logits_fn, cfg_fn = logits_fn or _forced_logits, cfg_fn or _config_qwen3
     n = QWEN3_FORCED_LAYERS
     model = {**QWEN3_30B_A3B, "num_hidden_layers": n}
     sub = dict(params, layers=params["layers"][:n])
@@ -2759,20 +2917,29 @@ def qwen3_teacher_forced(torch, params, seq, prompt_len, L):
         attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False, moe_fused_kernel_enabled=False,
         cuda_graphs=False,
     )
-    cfg_k = _config_qwen3(model=model, output_logits=True, cuda_graphs=False)
-    cfg_p = _config_qwen3(model=model, output_logits=True, **off)
-    k, sel_k = _selections(torch, cfg_k, sub, seq, prompt_len)
-    pl, sel_p = _selections(torch, cfg_p, sub, seq, prompt_len, True)
+    cfg_k = cfg_fn(model=model, output_logits=True, cuda_graphs=False)
+    cfg_p = cfg_fn(model=model, output_logits=True, **off)
+    label = f"{what or 'qwen3 teacher-forced logits'} (first {n} of {L} layers)"
+    secs = {}
+
+    def timed_run(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        secs[name] = time.perf_counter() - t0
+        return out
+
     sub32 = _map_tree(sub, lambda t: t.float())
-    f32, sel_f = _selections(
-        torch, _config_qwen3(model=model, output_logits=True, dtype="float32", **off), sub32, seq, prompt_len, True
-    )
+    f32, sel_f = timed_run("fp32", lambda: _selections(
+        torch, cfg_fn(model=model, output_logits=True, dtype="float32", **off), sub32, seq, prompt_len, True,
+        logits_fn=logits_fn,
+    ))
     del sub32
     torch.cuda.empty_cache()
+    k, sel_k = timed_run("kernel", lambda: _selections(torch, cfg_k, sub, seq, prompt_len, logits_fn=logits_fn))
+    pl, sel_p = timed_run("plain", lambda: _selections(torch, cfg_p, sub, seq, prompt_len, True, logits_fn=logits_fn))
     kp_rows, kp = _flipped_positions(sel_k, sel_p, n)
     kf_rows, kf = _flipped_positions(sel_k, sel_f, n)
     pf_rows, pf = _flipped_positions(sel_p, sel_f, n)
-    label = f"qwen3 teacher-forced logits (first {n} of {L} layers)"
     log(
         f"{label}: top-k sets differ at {kp} (position, layer) pairs of {len(kp_rows) * n} between the kernel "
         f"and the plain bf16 paths ({int(kp_rows.sum())} positions); kernel vs fp32 {kf} ({int(kf_rows.sum())}), "
@@ -2787,11 +2954,13 @@ def qwen3_teacher_forced(torch, params, seq, prompt_len, L):
     # every run routed as the fp32 run routed: no discontinuity left, so the
     # gate compares the paths' arithmetic alone, and must pass
     with _PinnedRouting(sel_f):
-        k_pin = _forced_logits(torch, cfg_k, sub, seq, prompt_len)
+        k_pin = timed_run("kernel, pinned", lambda: logits_fn(torch, cfg_k, sub, seq, prompt_len))
     with _PinnedRouting(sel_f):
-        pl_pin = plain_run("qwen3 teacher-forced plain, pinned routing", _forced_logits, torch, cfg_p, sub, seq,
-                           prompt_len)
+        pl_pin = timed_run("plain, pinned", lambda: plain_run(
+            "qwen3 teacher-forced plain, pinned routing", logits_fn, torch, cfg_p, sub, seq, prompt_len
+        ))
     forced["pinned"] = _forced_gate(k_pin, pl_pin, f32, f"{label}, routing pinned to the fp32 run's")
+    log(f"  {label}: seconds per run " + ", ".join(f"{k_} {v:.1f}" for k_, v in secs.items()))
     return forced
 
 
@@ -2802,7 +2971,8 @@ def phase_qwen3_moe(torch):
     counts (B2 once per layer; B1 and B7 once per layer and decode step;
     the 128-token prefill through the grouped route; no dense MoE call), a
     batch-8 generate() (64 rows for B7) with its distinct experts per layer,
-    a profile of 16 decode steps, and the teacher-forced gate."""
+    a profile of QWEN3_PROFILE_STEPS decode steps, and the teacher-forced
+    gate."""
     from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_QWEN3_MOE, bound_ms, moe_decode
@@ -2873,7 +3043,7 @@ def phase_qwen3_moe(torch):
     del app8
     torch.cuda.empty_cache()
 
-    profile = phase_profile(torch, app, out.sequences[0], prompt_len)
+    profile = phase_profile(torch, app, out.sequences[0], prompt_len, steps=QWEN3_PROFILE_STEPS)
     b7 = profile["busy_ms_per_step"](lambda name: "moe_" in name)
     busy = profile["device_busy_ms"]
     b7_bound = L * bound_ms(*moe_decode(MODEL_QWEN3_MOE, 1, 8))[0]
@@ -2884,7 +3054,8 @@ def phase_qwen3_moe(torch):
         f"{profile['kernels_per_step']:.0f} kernels per step; host clock {profile['decode_step_ms']:.3f} ms/step"
     )
     eager = eager_twin(
-        torch, "qwen3-30b-a3b generate()", _config_qwen3(cuda_graphs=False), app, out, run, prompt_len, n_new
+        torch, "qwen3-30b-a3b generate()", _config_qwen3(cuda_graphs=False), app, out, run, prompt_len, n_new,
+        profile_steps=QWEN3_PROFILE_STEPS,
     )
     forced = qwen3_teacher_forced(torch, app.params, out.sequences[0], prompt_len, L)
     del app
@@ -2895,6 +3066,252 @@ def phase_qwen3_moe(torch):
         b7_step_bound_ms=b7_bound, eager=eager, **forced,
     )
 
+
+
+# ---------------------------------------------------------------------------
+# 9b. Qwen3-30B-A3B through the serving sessions
+# ---------------------------------------------------------------------------
+
+
+def _config_qwen3_serving(model=None, **kw):
+    """Qwen3-30B-A3B (full width and depth unless ``model`` gives others) on
+    the serving row's paged configuration: 8 slots, 512 blocks of 32
+    (1,610,612,736 bytes of bf16 K/V over 48 layers), chunked prefill of up
+    to 8 rows in 128-token tiles, CTE bucket [128], TKG bucket [1024], seq
+    1024; ``kw`` overrides MoEConfig fields."""
+    from neuronx_distributed_inference_tpu_torch.config import ChunkedPrefillConfig
+
+    s = SERVING
+    return _config_qwen3(
+        s["slots"], model=model, is_continuous_batching=True, ctx_batch_size=1, is_block_kv_layout=True,
+        pa_num_blocks=s["blocks"], pa_block_size=s["block_size"], context_encoding_buckets=[128],
+        token_generation_buckets=[s["seq"]], is_chunked_prefill=True,
+        chunked_prefill_config=ChunkedPrefillConfig(max_num_seqs=s["slots"], kernel_q_tile_size=128), **kw,
+    )
+
+
+#: the Qwen3 serving drains: (path, form) -> MoEConfig fields
+QWEN3_SERVING_FORMS = {
+    ("split", "sync"): dict(async_mode=False),
+    ("split", "1-ahead"): dict(async_mode=True),
+    ("ragged", "sync"): dict(serving_ragged=True, serving_ragged_async=False),
+    ("ragged", "1-ahead"): dict(serving_ragged=True, serving_ragged_async=True),
+}
+
+
+def _qwen3_drain(torch, app, prompts, gen, host_read, label):
+    """One drain of _serve's traffic on a Qwen3 serving app, the launch and
+    route counts read around it and held to the sessions' dispatch counters
+    (split: B5 and the grouped route once a layer and chunk pass, B4 and B7
+    once a layer and decode step; ragged: B3 once a layer and mixed step,
+    the grouped route on steps of ``host_read`` packed tokens or more, the
+    dense route on the rest, from the bucket census). Every request must
+    get its tokens, with no fault. Returns the drain's record."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    L, vocab = app.spec.num_layers, app.spec.vocab_size
+    tel = TelemetrySession()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launch_counts()
+    sess, total_s = _serve(torch, app, prompts, gen, tel)
+    launches = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    counts = sorted(len(r.generated) for r in sess.requests.values())
+    faults = dict(
+        rejected=sum(tel.rejected.values()), quarantined=tel.counters["quarantined"],
+        preempted=tel.counters["preempted"],
+    )
+    d = dict(sess.dispatches)
+    if sess.ragged:
+        from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import MOE_TKG_MAX_ROWS
+
+        mr = app.mixed_step_model
+        buckets = {b: n for (tag, b), n in tel.buckets.items() if tag == mr.tag}
+        eager = sum(n for b, n in buckets.items() if b >= host_read)
+        # a smaller step routes its packed tokens as decode rows: B7 where
+        # they fit its 64 rows (never at Qwen3's top-8), else dense
+        k = app.builder.moe_spec().top_k
+        b7 = sum(n for b, n in buckets.items() if b < host_read and b * k <= MOE_TKG_MAX_ROWS)
+        steps = d["mixed_step"]
+        want = expect_launches(
+            ragged_paged_attention=steps * L, moe_grouped=eager * L, moe_decode=b7 * L,
+            moe_dense=(steps - eager - b7) * L,
+        )
+    else:
+        buckets = {b: n for (tag, b), n in tel.buckets.items()}
+        eager = d.get("prefill_chunk", 0)
+        steps = eager + d.get("decode_steps", 0)
+        want = expect_launches(
+            paged_flash_attention=eager * L, moe_grouped=eager * L,
+            paged_decode_attention=d["decode_steps"] * L, moe_decode=d["decode_steps"] * L,
+        )
+    ttft = [t * 1e3 for t in tel.ttft_values_s()]
+    itl = [t * 1e3 for t in tel.itl_values_s()]
+    pct = tel.percentile
+    tok_s = sum(counts) / total_s
+    log(
+        f"qwen3-30b-a3b serving {label} (bf16, 8 slots, 512 blocks x 32, chunked prefill 8 x 128, "
+        f"{len(prompts)} requests of {len(prompts[0])} + {gen} tokens, staggered): {total_s * 1e3:.1f} ms, "
+        f"aggregate {tok_s:.1f} tok/s, TTFT p50 {pct(ttft, 0.5):.2f} ms p99 {pct(ttft, 0.99):.2f} ms, ITL p50 "
+        f"{pct(itl, 0.5):.3f} ms p99 {pct(itl, 0.99):.3f} ms, peak memory {peak / 2**30:.3f} GiB, {faults}"
+    )
+    log(
+        f"  dispatches {d}, {eager} of {steps} dispatches eager (the grouped route's host read), "
+        f"{(total_s * 1e3 / steps):.2f} ms a dispatch on the host clock; buckets {buckets}; launches {launches}"
+    )
+    if counts != [gen] * len(prompts) or any(faults.values()):
+        raise SystemExit(f"qwen3 serving {label}: tokens per request {counts}, faults {faults}")
+    if any(r.status != "finished" for r in sess.requests.values()):
+        raise SystemExit(f"qwen3 serving {label}: a request did not finish")
+    for rid, r in sess.requests.items():
+        if min(r.generated) < 0 or max(r.generated) >= vocab:
+            raise SystemExit(f"qwen3 serving {label}: request {rid} has tokens outside the vocab")
+    if launches != want:
+        raise SystemExit(f"qwen3 serving {label}: launches {launches} != expected {want}")
+    return dict(
+        tokens={rid: list(r.generated) for rid, r in sess.requests.items()}, launches=launches, tok_s=tok_s,
+        total_ms=total_s * 1e3, peak_bytes=peak, eager_steps=eager, steps=steps, dispatches=d, buckets=buckets,
+        ttft_p50_ms=pct(ttft, 0.5), itl_p50_ms=pct(itl, 0.5),
+    )
+
+
+def _qwen3_step_profile(torch, app, prompts, label, steps):
+    """Host ms and the device's busy share of ``steps`` steady-state
+    step() calls, 8 requests decoding (1-ahead: a step in flight); the
+    session is dropped after them."""
+    from neuronx_distributed_inference_tpu_torch.runtime.serving import ServingSession
+
+    app.init_kv_cache()
+    sess = ServingSession(app)
+    for i, p in enumerate(prompts):
+        if not sess.add_request(f"p{i}", p, max_new_tokens=steps + 8):
+            raise SystemExit(f"qwen3 profile: request {i} refused")
+    for _ in range(64):
+        if not (sess.prefilling or (sess.ragged_async and sess._pending is None)):
+            break
+        sess.step()
+    else:
+        raise SystemExit(f"qwen3 profile ({label}): the session did not reach steady decode")
+    torch.cuda.synchronize()
+    prof = _start_profile(torch)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sess.step()
+    torch.cuda.synchronize()
+    rec = _stop_profile(torch, prof, time.perf_counter() - t0, steps)
+    log(
+        f"  qwen3 serving {label}, {steps} steady steps (8 rows decoding) profiled: host {rec['host_ms']:.3f} "
+        f"ms/step, device busy {rec['device_busy_ms']:.3f} ms/step ({rec['busy_frac']:.3f} of the wall), "
+        f"{rec['kernels']:.0f} kernels/step, cudaGraphLaunch {rec['graph_launch_ms']:.3f} and synchronizing "
+        f"calls {rec['sync_ms']:.3f} host ms/step"
+    )
+    return rec
+
+
+def phase_qwen3_serving(torch):
+    """Qwen3-30B-A3B served at full width and depth (48 layers, 128 experts,
+    top-8; seeded random bf16 weights made on the card, one parameter set
+    shared by every app) on the serving row's paged configuration
+    (_config_qwen3_serving) and traffic (8 staggered requests of 128 + 128
+    tokens): the split drain (B5 chunks through the grouped route, run
+    eagerly; the 8-row decode step through B4 and B7, captured) and the
+    ragged drain (B3; mixed steps of 64 packed tokens or more through the
+    grouped route, run eagerly; smaller ones through the dense route,
+    captured), each sync and 1-ahead with graphs on, every runner warmed
+    and sealed first. Gates: every request gets its 128 tokens with 0
+    rejected / quarantined / preempted; nothing captured after the seal; no
+    ragged step of the grouped route's size captured and the split decode
+    step captured; exact B4 / B5 / B3 / B7 launches and moe_grouped /
+    moe_dense routes (_qwen3_drain); the paged teacher-forced gate on
+    QWEN3_FORCED_LAYERS layers with routing pinned to the fp32 run's, over
+    request 0's served tokens.
+    Prints the captured graphs, the eager dispatches, host ms and
+    device-busy share a step (profiled), peak memory, and how many tokens
+    the split and ragged drains share (not a gate: bf16 top-k flips)."""
+    import gc
+
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    s = SERVING
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    apps, params = {}, None
+    for key, kw in QWEN3_SERVING_FORMS.items():
+        app = ModelForCausalLM(None, _config_qwen3_serving(**kw))
+        apps[key] = app.load(params=params) if params is not None else app.load(random_weights=True)
+        params = apps[key].params
+    torch.cuda.synchronize()
+    load_s, load_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    for app in apps.values():
+        app.warmup()
+    _seal(apps.values())
+    torch.cuda.synchronize()
+    first = next(iter(apps.values()))
+    L, vocab = first.spec.num_layers, first.spec.vocab_size
+    host_read = first.builder.host_read_tokens()
+    log(
+        f"qwen3-30b-a3b serving: 4 apps over one parameter set ({_tree_bytes(params) / 2**30:.3f} GiB), load "
+        f"{load_s:.2f} s, peak {load_peak / 2**30:.3f} GiB, KV cache {first.kv_cache_nbytes} bytes an app; warmup "
+        f"and seal {time.perf_counter() - t0:.2f} s; mixed buckets "
+        f"{apps[('ragged', 'sync')].mixed_step_model.buckets}, eager from {host_read} packed tokens"
+    )
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, vocab - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    captures = {key: app.graphs.captures for key, app in apps.items()}
+    runs = {}
+    with RetraceGuard():
+        for key, app in apps.items():
+            runs[key] = _qwen3_drain(torch, app, prompts, s["gen"], host_read, "/".join(key))
+    if {key: app.graphs.captures for key, app in apps.items()} != captures:
+        raise SystemExit("qwen3 serving: a graph was captured after the seal")
+    for key, app in apps.items():
+        if key[0] == "ragged":
+            big = sorted(k for k in app.mixed_step_model._prog.captured if k[1] >= host_read)
+            if big:
+                raise SystemExit(f"qwen3 serving {key}: grouped-route mixed steps captured: {big}")
+        elif not any(k[0] == "decode" for k in app.token_generation_model._prog.captured):
+            raise SystemExit(f"qwen3 serving {key}: the decode step was not captured")
+    log(
+        "qwen3 serving graphs captured per app: "
+        + ", ".join(f"{'/'.join(k)} {n}" for k, n in captures.items())
+    )
+    for form in ("sync", "1-ahead"):
+        a, b = runs[("split", form)]["tokens"], runs[("ragged", form)]["tokens"]
+        same = sum(sum(x == y for x, y in zip(a[rid], b[rid])) for rid in a)
+        log(f"  {form}: ragged tokens equal to the split drain's at {same} of {sum(len(v) for v in a.values())} "
+            "positions (not a gate: bf16 top-k flips)")
+    # the synchronous forms (the drains above give every form's host ms a
+    # dispatch); an eager ragged step launches ~4x a decode step's kernels
+    profiles = {
+        key: _qwen3_step_profile(torch, app, prompts, "/".join(key), QWEN3_PROFILE_STEPS // (1 + (key[0] == "ragged")))
+        for key, app in apps.items() if key[1] == "sync"
+    }
+    del apps, app, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq = prompts[0] + runs[("split", "sync")]["tokens"]["0"]
+    forced = qwen3_teacher_forced(
+        torch, params, np.array(seq), s["prompt"], L, logits_fn=_paged_forced_logits, cfg_fn=_config_qwen3_serving,
+        what="qwen3 paged teacher-forced logits (one 128-token chunk through B5 and the grouped route, then B4 "
+        "and B7 steps)",
+    )
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    split = runs[("split", "sync")]["launches"]
+    return dict(
+        runs=runs, profiles=profiles, forced=forced,
+        launches={
+            "paged_decode_attention_qwen3": split["paged_decode_attention"],
+            "paged_flash_attention_qwen3": split["paged_flash_attention"],
+            "ragged_paged_attention_qwen3": runs[("ragged", "sync")]["launches"]["ragged_paged_attention"],
+            "moe_decode_qwen3_serving": split["moe_decode"],
+        },
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -3593,7 +4010,7 @@ def phase_graphs(torch, params):
     return out
 
 
-def eager_twin(torch, label, cfg, app, out, run, prompt_len, n_new):
+def eager_twin(torch, label, cfg, app, out, run, prompt_len, n_new, profile_steps=PROFILE_STEPS):
     """The generate() ``out``/``run`` of ``app`` (graphs, sealed) against an
     eager twin (``cfg``, cuda_graphs=False) over the same params: identical
     greedy tokens and launch counts; the twin's profile and peak memory
@@ -3611,7 +4028,7 @@ def eager_twin(torch, label, cfg, app, out, run, prompt_len, n_new):
     peak = torch.cuda.max_memory_allocated()
     if not np.array_equal(got.sequences, out.sequences) or counts != run["launches"]:
         raise SystemExit(f"{label}: eager twin tokens or counts differ (counts {counts} vs {run['launches']})")
-    prof = phase_profile(torch, twin, got.sequences[0], prompt_len, label=f"{label}, graphs off")
+    prof = phase_profile(torch, twin, got.sequences[0], prompt_len, steps=profile_steps, label=f"{label}, graphs off")
     del twin
     torch.cuda.empty_cache()
     log(f"graphs on vs off, {label}: tokens identical, launch counts equal; peak memory {run['peak_bytes'] / 2**30:.3f} vs {peak / 2**30:.3f} GiB")
@@ -4354,6 +4771,9 @@ def phase_kv_quant(torch, da, pf, rp, fa, params, forced_seq):
 
 #: serving_1b_int8_spec_ragged's speculation length (bench.py:1087-1097)
 SPEC_K = 4
+#: steps of the spec-ragged profiles (3000 to 7200 kernels a step; reading
+#: a trace costs the host ~0.5 ms a kernel)
+SPEC_PROFILE_STEPS = 4
 #: B3's verify-segment cases in one launch, a table 1024 wide: a chunk from
 #: mid-context, plain decode rows, and verify rows of 2, 3 and 4 tokens 196
 #: and 1000 deep: (row_len, ctx_len)
@@ -4642,7 +5062,7 @@ def _rejections(sess):
     return out
 
 
-def phase_spec_profile(torch, target, draft, prompts, label, steps=16):
+def phase_spec_profile(torch, target, draft, prompts, label, steps=PROFILE_STEPS):
     """Where a steady spec-ragged step's time goes: 8 requests decoding with
     proposals in flight, ``steps`` step() calls per traced chunk."""
     from neuronx_distributed_inference_tpu_torch.runtime.serving import SpeculativeServingSession
@@ -4687,7 +5107,7 @@ def phase_spec_serving(torch, margin):
     else), no fault, the token gate, with (b) no rejected draft at a
     decided position; draft (b)'s fp32 twin accepting at least
     OWN_DRAFT_ACCEPTANCE; then the plain ragged 1-ahead drain on the same
-    int8 weights, and profiles of 16 steady steps of each.
+    int8 weights, and profiles of SPEC_PROFILE_STEPS steady steps of each.
     ``margin``: the token gate's margin (from the ragged teacher-forced
     gate)."""
     from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_1B
@@ -4742,7 +5162,7 @@ def phase_spec_serving(torch, margin):
                 return {rid: list(r.generated) for rid, r in sess.requests.items()}
 
             def prof(apps, _tokens, label=label):
-                return phase_spec_profile(torch, apps.target, apps.draft, prompts, label)
+                return phase_spec_profile(torch, apps.target, apps.draft, prompts, label, steps=SPEC_PROFILE_STEPS)
 
             res = graph_pair(torch, label, make, run, prof if one_ahead else None, warm_pass=True, profile_off=False)
             sess, tel = state["sess"], state["tel"]
@@ -4944,7 +5364,7 @@ def phase_fused_spec(torch, params, margin):
 #: replica at router step 2
 ROUTER = dict(replicas=2, policy="least_loaded", retire_step=2)
 #: steady router steps of each profiled window
-ROUTER_PROFILE_STEPS = 16
+ROUTER_PROFILE_STEPS = 8
 
 
 def _router_config(paged, stage=None, **kw):
@@ -4988,7 +5408,8 @@ def _route(torch, apps, prompts, gen, threaded=False, tier_apps=(), elastic=Fals
     requests up front, one more after each router step, until every request
     ends; ``elastic`` retires the highest-id replica at ROUTER's step and
     re-joins a fresh session over the same app once its drain finalizes.
-    With ``profile_at``, router steps [profile_at, profile_at + 16) run
+    With ``profile_at``, router steps [profile_at, profile_at +
+    ROUTER_PROFILE_STEPS) run
     under torch.profiler (host ms and the device's busy share of them).
     Returns the drain's record."""
     import threading
@@ -5313,8 +5734,6 @@ def phase_router(torch, fa, da):
     for label in ("router", "router_threaded"):
         if runs[label]["leaked_blocks"] or runs[label]["leaked_threads"]:
             raise SystemExit(f"{label}: leaked {runs[label]['leaked_blocks']} blocks, {runs[label]['leaked_threads']} threads")
-    del apps
-    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     dec = _router_apps(torch, False, ROUTER["replicas"])
@@ -5351,9 +5770,8 @@ def phase_router(torch, fa, da):
         f"host clock); extract + inject alone {cost['host_ms']:.3f} ms host clock, {cost['device_ms']:.4f} ms device, "
         f"{cost['bytes']} bytes a request"
     )
-    del dec, pre
-    torch.cuda.empty_cache()
-    out.update(runs=runs, handoff=cost)
+    # the warm, sealed apps serve the goodput rows next (phase_workload)
+    out.update(runs=runs, handoff=cost, apps=dict(paged=apps, dec=dec, pre=pre))
     out["launches"] = {
         "flash_attention_router": runs["disagg"]["launches"]["flash_attention"],
         "decode_attention_router": runs["disagg"]["launches"]["decode_attention"],
@@ -5361,6 +5779,193 @@ def phase_router(torch, fa, da):
         "paged_decode_attention_router": runs["router"]["launches"]["paged_decode_attention"],
     }
     return out
+
+
+# ---------------------------------------------------------------------------
+# 12. the open-loop goodput rows (workload driver, SLO scorer)
+# ---------------------------------------------------------------------------
+
+#: bench.py's hardware-scale traces of the goodput rows (bench.py:1003-1019)
+#: and their setups (bench.py:1176-1205): the clean and burst rows on one
+#: paged replica, the chaos row on two with a decode replica killed at step
+#: 16, the disaggregated chaos row on two contiguous decode replicas and one
+#: prefill stage with the kill aimed at the tier
+_WL_CHAOS = dict(
+    seed=14, n_requests=32, rate=2.0, arrival_kind="poisson", shared_prefix_len=32, max_prompt_len=128,
+    min_output_len=64, max_output_len=128, ttft_slo_s=1e4, itl_slo_s=1e3,
+)
+WORKLOAD_ROWS = {
+    "serving_1b_int8_goodput": dict(workload=dict(
+        seed=14, n_requests=24, rate=2.0, arrival_kind="poisson", shared_prefix_len=32, max_prompt_len=128,
+        min_output_len=32, max_output_len=128, ttft_slo_s=1e4, itl_slo_s=1e3,
+    )),
+    "serving_1b_int8_goodput_burst": dict(workload=dict(
+        seed=14, n_requests=32, rate=8.0, arrival_kind="onoff", shared_prefix_len=32, max_prompt_len=128,
+        min_output_len=32, max_output_len=128, ttft_slo_s=1e4, itl_slo_s=1e3,
+    )),
+    "serving_1b_int8_goodput_chaos": dict(workload=_WL_CHAOS, replicas=2, kill_step=16),
+    "serving_1b_int8_disagg_chaos": dict(workload=_WL_CHAOS, replicas=2, kill_step=16, tier="prefill", prefill=1),
+}
+
+
+def measure_goodput(torch, apps, *, workload, kill_step=None, tier="decode", prefill_apps=(), bucket_steps=4):
+    """One open-loop run of a seeded trace (bench.py::measure_goodput's
+    fields): the workload driver on a virtual clock over one session or a
+    router of ``apps`` (and the prefill tier of ``prefill_apps``), a live
+    SloMonitor attached, scored by the SLO scorer. The apps come warm and
+    sealed; the run's own registry gives the counter values. Returns the
+    fields, the launches and the dispatches of the run."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.runtime.replica import PrefillReplicaHandle, ReplicaHandle
+    from neuronx_distributed_inference_tpu_torch.runtime.router import ServingRouter
+    from neuronx_distributed_inference_tpu_torch.runtime.serving import ServingSession
+    from neuronx_distributed_inference_tpu_torch.telemetry import SloMonitor, TelemetrySession
+    from neuronx_distributed_inference_tpu_torch.workload import (
+        ChaosPlan,
+        VirtualClock,
+        WorkloadDriver,
+        generate,
+        score,
+        standard_spec,
+    )
+
+    trace = generate(standard_spec(vocab_size=apps[0].spec.vocab_size - 10, **workload))
+    chaos = ChaosPlan(kill_step=kill_step, tier=tier) if kill_step is not None else None
+    for app in (*apps, *prefill_apps):
+        app.init_kv_cache()
+    torch.cuda.synchronize()
+    vc = VirtualClock()
+    tel = TelemetrySession(clock=vc.now)
+    mon = SloMonitor()
+    tel.attach_slo_monitor(mon)
+    sessions = [ServingSession(app, telemetry=tel, clock=vc.now) for app in apps]
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    if len(apps) > 1:
+        handles = [ReplicaHandle(sess, i, clock=vc.now) for i, sess in enumerate(sessions)]
+        tier_handles = [PrefillReplicaHandle(app, i) for i, app in enumerate(prefill_apps)]
+        with ServingRouter(handles, policy="least_loaded", telemetry=tel, clock=vc.now,
+                           prefill_replicas=tier_handles) as router:
+            with warnings.catch_warnings():
+                # the tier's death is announced by one warning: the behaviour
+                # under test
+                warnings.filterwarnings("ignore", message="disaggregated prefill tier is DEAD")
+                result = WorkloadDriver(router, trace, clock=vc, telemetry=tel, chaos=chaos).run()
+            handoffs = sum(p.handoffs for p in router.prefill_replicas)
+    else:
+        result = WorkloadDriver(sessions[0], trace, clock=vc, telemetry=tel).run()
+        handoffs = 0
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = all_counts()
+    report = score(result, tel, bucket_steps=bucket_steps)
+    snap = tel.registry.snapshot()
+    tel.close()
+
+    def total(name, exclude=()):
+        fam = snap.get(name)
+        return float(sum(
+            smp["value"] for smp in (fam["samples"] if fam else ()) if smp["labels"].get("reason") not in exclude
+        ))
+
+    res = dict(
+        decode_tok_s=report.total_tokens / total_s, goodput_tok_s=report.slo_met_tokens / total_s,
+        slo_attainment=report.attainment, slo_attainment_by_tenant=report.attainment_by_tenant,
+        slo_misses=report.misses_by_kind, slo_met_tokens=report.slo_met_tokens, total_tokens=report.total_tokens,
+        n_requests=len(trace.arrivals), n_replicas=len(apps), virtual_steps=result.steps,
+        backlog_refusals=result.backlog_refusals, goodput_series=report.series, workload_digest=trace.digest(),
+        rejected=total("nxdi_requests_rejected_total", exclude=("backlog",)) + total("nxdi_router_rejected_total"),
+        backlog_rejected=total("nxdi_requests_rejected_total") - total("nxdi_requests_rejected_total", ("backlog",)),
+        quarantined=total("nxdi_rows_quarantined_total"), preempted=total("nxdi_requests_preempted_total"),
+        wall_s=total_s,
+    )
+    if prefill_apps:
+        res.update(
+            n_prefill_replicas=len(prefill_apps), handoff_failures=total("nxdi_handoff_failures_total"),
+            handoff_local_prefill=total("nxdi_handoff_local_prefill_total"),
+        )
+    if chaos is not None:
+        dip = report.dip
+        res.update(
+            chaos=result.chaos, failover=total("nxdi_router_failovers_total"),
+            goodput_dip_frac=dip.dip_frac if dip else None, goodput_recovery_steps=dip.recovery_steps if dip else None,
+        )
+    dispatches = {k: sum(s.dispatches[k] for s in sessions) for k in ("prefill", "prefill_chunk", "decode_steps")}
+    burn = {s_["labels"]["window"]: s_["value"] for s_ in snap["nxdi_slo_burn_rate"]["samples"]
+            if s_["labels"]["tenant"] == "_all"}
+    return dict(
+        res=res, launches=launches, dispatches=dispatches, handoffs=handoffs, statuses=result.statuses,
+        monitor=mon.snapshot(), burn_rate=burn,
+    )
+
+
+def phase_workload(torch, router_apps):
+    """The four open-loop goodput rows of bench.py at hardware scale on
+    phase_router's int8 Llama-3.2-1B apps (warm and sealed; a capture
+    raises): the clean and burst rows on one paged replica (split path: B5
+    chunks, B4 decode), the chaos row on both paged replicas, the
+    disaggregated chaos row on the two contiguous decode replicas and the
+    prefill stage (B2b prefill, B1 decode). Prints bench.py's fields for
+    each. Gates: clean slo_attainment 1.0; burst backlog refusals > 0; on
+    every row 0 rejected outside the backlog and 0 quarantined; the chaos
+    row's kill lands and its recovery is finite; the disaggregated row
+    counts local prefills > 0 and every request finishes; nothing captured;
+    the kernels counted equal the dispatches times the layers."""
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+
+    paged, dec, pre = router_apps["paged"], router_apps["dec"], router_apps["pre"]
+    L = paged[0].spec.num_layers
+    every = paged + dec + pre
+    captures = sum(a.graphs.captures for a in every)
+    rows = {}
+    with RetraceGuard():
+        for name, row in WORKLOAD_ROWS.items():
+            n = row.get("replicas", 1)
+            apps, tier = (dec[:n], pre[: row["prefill"]]) if row.get("prefill") else (paged[:n], [])
+            rec = measure_goodput(
+                torch, apps, workload=row["workload"], kill_step=row.get("kill_step"),
+                tier=row.get("tier", "decode"), prefill_apps=tier,
+            )
+            r, d = rec["res"], rec["dispatches"]
+            log(f"{name}: {json.dumps(r, sort_keys=True)}")
+            log(
+                f"  {r['wall_s']:.2f} s wall for {r['virtual_steps']} virtual steps "
+                f"({r['wall_s'] * 1e3 / r['virtual_steps']:.2f} ms a step); dispatches {d}, hand-offs "
+                f"{rec['handoffs']}, launches {rec['launches']}; live SloMonitor: {rec['monitor']['met']} of "
+                f"{rec['monitor']['judged']} judged met, burn rate by window {rec['burn_rate']}"
+            )
+            if tier:
+                want = expect_launches(
+                    flash_attention=(d["prefill"] + rec["handoffs"]) * L, decode_attention=d["decode_steps"] * L
+                )
+            else:
+                want = expect_launches(
+                    paged_flash_attention=d["prefill_chunk"] * L, paged_decode_attention=d["decode_steps"] * L
+                )
+            if rec["launches"] != want:
+                raise SystemExit(f"{name}: launches {rec['launches']} != expected {want}")
+            if r["rejected"] or r["quarantined"]:
+                raise SystemExit(f"{name}: {r['rejected']} rejected outside the backlog, {r['quarantined']} quarantined")
+            rows[name] = rec
+    if sum(a.graphs.captures for a in every) != captures:
+        raise SystemExit("workload: a graph was captured after the seal")
+    clean, burst = rows["serving_1b_int8_goodput"]["res"], rows["serving_1b_int8_goodput_burst"]["res"]
+    if clean["slo_attainment"] != 1.0:
+        raise SystemExit(f"serving_1b_int8_goodput: slo_attainment {clean['slo_attainment']} != 1.0")
+    if burst["backlog_refusals"] <= 0:
+        raise SystemExit("serving_1b_int8_goodput_burst: no backlog refusal: the burst never overran the slots")
+    chaos = rows["serving_1b_int8_goodput_chaos"]["res"]
+    if "replica" not in (chaos["chaos"] or {}) or chaos["goodput_recovery_steps"] is None:
+        raise SystemExit(
+            f"serving_1b_int8_goodput_chaos: kill {chaos['chaos']}, recovery {chaos['goodput_recovery_steps']}"
+        )
+    disagg = rows["serving_1b_int8_disagg_chaos"]
+    if disagg["res"]["handoff_local_prefill"] <= 0 or any(s != "finished" for s in disagg["statuses"].values()):
+        raise SystemExit(
+            f"serving_1b_int8_disagg_chaos: local prefills {disagg['res']['handoff_local_prefill']}, statuses "
+            f"{sorted(set(disagg['statuses'].values()))}"
+        )
+    return {name: rec["res"] for name, rec in rows.items()}
 
 
 def _map_tree(tree, fn):
@@ -5410,6 +6015,7 @@ def main():
     times = timed("times", phase_times, torch, fa, da)
     times.update(timed("paged times", phase_paged_times, torch, da, pf))
     times.update(timed("ragged times", phase_ragged_times, torch, rp))
+    times.update(timed("qwen3 shape times", phase_qwen3_shape_times, torch, da, pf, rp))
     timed("quant_matmul parity", phase_quant_matmul_parity, torch, qmm)
     times.update(timed("quant_matmul times", phase_quant_matmul_times, torch, qmm))
     timed("moe_decode parity", phase_moe_parity, torch, md)
@@ -5428,6 +6034,7 @@ def main():
     timed("fused spec generate", phase_fused_spec, torch, params, 2 * main_path["kernel_vs_fp32"])
     router = timed("router", phase_router, torch, fa, da)
     times.update(router["times"])
+    timed("workload", phase_workload, torch, router.pop("apps"))
     torch.cuda.empty_cache()
     fused = timed("fused 1B generate", phase_fused_1b, torch, params, main_path)
     graphs = timed("graphs on and off", phase_graphs, torch, params)
@@ -5443,6 +6050,7 @@ def main():
     timed("int8 1B generate", phase_int8_1b, torch)
     timed("int4 ragged serving", phase_int4_ragged, torch)
     qwen3 = timed("qwen3-30b-a3b generate", phase_qwen3_moe, torch)
+    qwen3_serving = timed("qwen3-30b-a3b serving", phase_qwen3_serving, torch)
 
     entries = []
     for name, key, source, replaces, launches in (
@@ -5510,6 +6118,19 @@ def main():
          "neuronx_distributed_inference_tpu/ops/paged_flash_attention.py:200", router["launches"]),
         ("paged_decode_attention_router", "paged_decode_attention", "csrc/decode_attention.cu",
          "neuronx_distributed_inference_tpu/ops/decode_attention.py:284", router["launches"]),
+        # Qwen3-30B-A3B served: B4, B5 and B3 at its head shape (32 q / 4 kv
+        # heads of 128) at the serving row's points, launches of the sync
+        # split drain (B4, B5) and the sync ragged drain (B3); B7 at one
+        # layer, 8 rows x top-8, launches of the sync split drain
+        ("paged_decode_attention_qwen3", ("paged_decode_attention", "qwen3"), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:284", qwen3_serving["launches"]),
+        ("paged_flash_attention_qwen3", ("paged_flash_attention", "qwen3"), "csrc/paged_flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/paged_flash_attention.py:200", qwen3_serving["launches"]),
+        ("ragged_paged_attention_qwen3", ("ragged_paged_attention", "mixed", "qwen3"),
+         "csrc/ragged_paged_attention.cu", "neuronx_distributed_inference_tpu/ops/ragged_paged_attention.py:267",
+         qwen3_serving["launches"]),
+        ("moe_decode_qwen3_serving", ("moe_decode", "qwen3 bs8"), "csrc/moe_decode.cu",
+         "neuronx_distributed_inference_tpu/ops/moe_decode.py:159", qwen3_serving["launches"]),
     ):
         t = times[key]
         entries.append({

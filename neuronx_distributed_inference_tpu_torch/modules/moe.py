@@ -219,7 +219,8 @@ def _grouped_mm(entry: dict, x_rows: torch.Tensor, row_expert: torch.Tensor, gro
     start = 0
     for e, n in enumerate(group_sizes):
         if n:
-            y[start : start + n] = x_rows[start : start + n] @ w[e].to(x_rows.dtype)
+            # the product lands in y's rows directly: one kernel an expert
+            torch.matmul(x_rows[start : start + n], w[e].to(x_rows.dtype), out=y[start : start + n])
             start += n
     if "bias" in entry:
         y = y + entry["bias"].to(y.dtype)[row_expert]

@@ -129,11 +129,6 @@ class ModelForCausalLM:
         # step covers prefill chunks AND decode rows; its bucket axis is the
         # TOTAL packed query-token count, not a per-phase shape
         self.mixed_step_model = None
-        if tc.serving_ragged and self.builder.is_moe:
-            raise NotImplementedError(
-                "the ragged mixed step (MixedStepRunner) of an MoE model is not ported "
-                "to PyTorch yet (ROADMAP A9: MoE serving); use generate()"
-            )
         if tc.serving_ragged:
             from neuronx_distributed_inference_tpu_torch.ops.ragged_paged_attention import RAGGED_Q_TILE
 
@@ -156,6 +151,7 @@ class ModelForCausalLM:
             self.mixed_step_model = MixedStepRunner(
                 self.spec, mixed_buckets, num_rows, self.device, mlp_fn, tc.pa_block_size, tkg_buckets,
                 spec_width=tc.speculation_length if tc.serving_spec_ragged else 1,
+                host_read_tokens=self.builder.host_read_tokens(),
             )
         # the programs' CUDA graphs (bound at load) and the sampler's
         # generator, reseeded once per generate() call (_advance_rng)

@@ -44,6 +44,7 @@ disabled and the runners run every program eagerly on the current stream.
 
 from __future__ import annotations
 
+import gc
 import itertools
 import threading
 from typing import Callable, Dict, List, Optional, Tuple
@@ -152,9 +153,18 @@ class GraphSet:
             register(generator)
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
-        with _cuda.census() as counts, _cuda.pool_scope(scope):
-            with torch.cuda.graph(g, pool=self.pool, stream=self.stream):
-                out = fn()
+        # a garbage collection inside the capture could free a dropped app's
+        # graphs, and destroying a graph while a stream captures is an error
+        # that invalidates the capture: no collection runs until it ends
+        collect = gc.isenabled()
+        gc.disable()
+        try:
+            with _cuda.census() as counts, _cuda.pool_scope(scope):
+                with torch.cuda.graph(g, pool=self.pool, stream=self.stream):
+                    out = fn()
+        finally:
+            if collect:
+                gc.enable()
         cur.wait_stream(self.stream)
         key = (self.index, scope)
         _cuda.pin_pools(key)

@@ -27,9 +27,13 @@ replay overwrites them.
 **What stays eager.** A step whose MoE layers take the grouped route reads
 the experts' group sizes on the host once a layer (``modules/moe.py``), so
 it cannot be captured: the programs of ``host_read_tokens`` tokens or more
-per row (Qwen3-MoE's and Mixtral's context encoding and long windows) run
-eagerly on every call, and the runner logs that once. Their decode steps
-(B7, no host read) are captured. With ``cuda_graphs=False``, and always on
+per row (Qwen3-MoE's context encoding, chunked-prefill passes and long
+windows) run eagerly on every call, and the runner logs that once. Their
+decode steps (B7, no host read) are captured. The ragged mixed step routes
+its MoE layers by the PACKED token count (its hidden state is (1, T, H),
+pad slots included), so a mixed-step bucket of ``host_read_tokens`` or more
+runs eagerly: with 16-slot q tiles, four decode rows already pack 64
+tokens. With ``cuda_graphs=False``, and always on
 the CPU, every program runs eagerly; the runners still record their keys,
 so the seal behaves the same.
 
@@ -586,6 +590,7 @@ class MixedStepRunner(_SealMixin):
         block_size: int,
         kv_buckets: List[int],  # kv-width ladder (block-aligned decode buckets)
         spec_width: int = 1,
+        host_read_tokens: Optional[int] = None,
     ):
         """``spec_width`` > 1 builds the speculative-verification family
         (``mixed_step_spec``, serving_spec_ragged): spec rows pack up to
@@ -593,7 +598,10 @@ class MixedStepRunner(_SealMixin):
         segment, and the tokens come back (R, spec_width + 1) with the
         accepted count in the last column (``models.base.mixed_forward``).
         ``verify_len`` and the draft matrix are statics of the same program
-        key, so a step's draft lengths change data, never the program."""
+        key, so a step's draft lengths change data, never the program.
+        ``host_read_tokens`` (the builder's): total-token buckets of at least
+        this many packed tokens run eagerly (their MoE layers read group
+        sizes on the host); their keys are still recorded."""
         from neuronx_distributed_inference_tpu_torch.ops.ragged_paged_attention import RAGGED_Q_TILE
 
         if not 1 <= spec_width <= RAGGED_Q_TILE:
@@ -612,7 +620,7 @@ class MixedStepRunner(_SealMixin):
         self.kv_buckets = sorted(kv_buckets)
         self.q_tile = RAGGED_Q_TILE
         self.last_bucket: Optional[int] = None
-        self._prog = _Programs(self.tag)
+        self._prog = _Programs(self.tag, host_read_tokens)
 
     def _statics(self, bucket: int, mb: int) -> _Statics:
         skey = (bucket, mb)
@@ -729,7 +737,8 @@ class MixedStepRunner(_SealMixin):
             )
             return out.tokens, out.logits
 
-        (tokens, logits), replayed = self._prog.run(("mixed", bucket, mb), body, binding(params, cache), 1)
+        # the MoE route reads the packed axis as one row of `bucket` tokens
+        (tokens, logits), replayed = self._prog.run(("mixed", bucket, mb), body, binding(params, cache), bucket)
         if replayed:
             tokens = tokens.clone()
             logits = logits.clone() if logits is not None else None

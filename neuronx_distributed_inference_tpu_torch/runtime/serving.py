@@ -169,11 +169,6 @@ class ServingSession:
         session's host boundaries (tests). ``clock``/``sleep_fn``: the
         wall-clock source for deadlines and backoff (default
         ``time.monotonic`` / ``time.sleep``)."""
-        if app.builder.is_moe:
-            raise NotImplementedError(
-                "serving an MoE model (ServingSession, split or ragged) is not ported "
-                "to PyTorch yet (ROADMAP A9: MoE serving); use generate()"
-            )
         self.app = app
         self.tel = telemetry if telemetry is not None else default_session()
         tc = app.config.torch_config
@@ -1702,6 +1697,12 @@ class SpeculativeServingSession(ServingSession):
         clock=None,
         sleep_fn=None,
     ):
+        if app.builder.is_moe or draft_app.builder.is_moe:
+            raise NotImplementedError(
+                "speculative serving with an MoE target or draft is not ported to "
+                "PyTorch yet (ROADMAP A9 (MoE speculation)); serve the MoE model "
+                "through ServingSession"
+            )
         tc = app.config.torch_config
         self.spec_ragged = bool(tc.serving_spec_ragged)
         super().__init__(app, telemetry=telemetry, fault_injector=fault_injector, clock=clock, sleep_fn=sleep_fn)

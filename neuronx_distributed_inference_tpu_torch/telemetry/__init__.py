@@ -1,7 +1,6 @@
 """Serving telemetry of the port (counterpart of the reference's
 ``telemetry/``): the metric registry, the span timeline and the
-request-lifecycle session. The SLO monitor and the ops server wait for
-ROADMAP A8 (workload and SLO)."""
+request-lifecycle session, the live SLO monitor and the ops server."""
 
 from neuronx_distributed_inference_tpu_torch.telemetry.metrics import (  # noqa: F401
     ACCEPT_LEN_BUCKETS,
@@ -13,6 +12,11 @@ from neuronx_distributed_inference_tpu_torch.telemetry.metrics import (  # noqa:
     Histogram,
     MetricsRegistry,
     default_registry,
+)
+from neuronx_distributed_inference_tpu_torch.telemetry.ops_server import OpsServer  # noqa: F401
+from neuronx_distributed_inference_tpu_torch.telemetry.slo_monitor import (  # noqa: F401
+    SloMonitor,
+    judge,
 )
 from neuronx_distributed_inference_tpu_torch.telemetry.spans import (  # noqa: F401
     SpanStore,

@@ -34,7 +34,7 @@ import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 #: the Content-Type the Prometheus text exposition is served under
-#: (the ops server's /metrics route, ROADMAP A8)
+#: (the ops server's /metrics route, telemetry/ops_server.py)
 PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
 
 # default latency bounds (milliseconds): spans admission→TTFT on one chip to

@@ -34,12 +34,11 @@ The accessors earlier slices read stay as views: ``counters``,
 ``dropped``, ``rejected``, ``finished``, ``steps`` and ``buckets`` read the
 registry; ``mixed_steps``, ``step_host_ms`` / ``step_fetch_wait_ms`` and
 the three ``spec_*`` lists keep each observation of their histogram
-(bounded like the event ring). The workload and SLO hooks of the
-reference (``attach_slo_monitor``, ``set_tenants``, ``chaos_kill``,
+(bounded like the event ring). The workload and SLO hooks
+(``attach_slo_monitor``, ``set_tenants``, ``chaos_kill``,
 ``workload_step``, ``slo_missed``, ``workload_backlog``,
-``workload_refused``) raise ``NotImplementedError``: ROADMAP A8 (workload
-and SLO). Their metric families are registered all the same, so the
-exposition's family list is the reference's.
+``workload_refused``) serve ``workload/`` and
+:class:`~.slo_monitor.SloMonitor`, as the reference's do.
 
 A disabled session (``enabled=False``, what :func:`default_session`
 returns until :func:`enable_default_session`) records nothing: every hook
@@ -419,8 +418,7 @@ class TelemetrySession:
         # open-loop traffic bookkeeping: the driver's arrival backlog and
         # admission refusals, and the post-hoc SLO scorer's miss census —
         # all host-side (recorded on the driver/router thread or offline
-        # after the run); registered so the family list is the
-        # reference's, recorded once the workload engine is ported
+        # after the run)
         self._slo_missed = r.counter(
             "nxdi_slo_missed_total",
             "requests that missed their SLO, by miss kind (ttft / itl / "
@@ -493,14 +491,25 @@ class TelemetrySession:
     # ---- span timeline + SLO monitor plumbing ----------------------------
 
     def set_tenants(self, tenant_of: Dict[str, str]) -> None:
-        """Map base request ids to tenant names (the workload trace's): not
-        ported yet."""
-        _workload_not_ported("set_tenants")
+        """Map base request ids to tenant names (WorkloadTrace.tenants_of)
+        so request spans land on the right ``tenant:*`` track. Without it
+        the tenant is parsed from the workload id convention
+        ``{tenant}-{NNNN}`` (non-workload ids land on tenant 'default')."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._tenant_of.update(tenant_of)
 
     def attach_slo_monitor(self, monitor) -> "TelemetrySession":
-        """Route first-token / token / terminal records into a live SLO
-        monitor: not ported yet."""
-        _workload_not_ported("attach_slo_monitor")
+        """Route first-token / token / terminal records into a live
+        :class:`~.slo_monitor.SloMonitor` and bind its gauges to this
+        session's registry."""
+        if not self.enabled:
+            return self
+        monitor.bind(self.registry)
+        with self._lock:
+            self.slo_monitor = monitor
+        return self
 
     def _tenant_track(self, base: str) -> str:
         tenant = self._tenant_of.get(base)
@@ -1215,22 +1224,68 @@ class TelemetrySession:
                         round(float(accept_ewma), 6),
                     ))
 
-    # ---- workload engine (not ported yet) --------------------------------
+    # ---- workload engine (workload/driver.py + workload/slo.py) ----------
 
     def chaos_kill(self, replica_id: int, tier: str, step: int) -> None:
-        _workload_not_ported("chaos_kill")
+        """The chaos plan killed a replica at driver step ``step``: the
+        timeline's kill marker (the instant a recovery window anchors on)."""
+        if not self.enabled:
+            return
+        track = (
+            f"prefill:{int(replica_id)}" if tier == "prefill"
+            else f"replica:{int(replica_id)}"
+        )
+        with self._lock:
+            self.spans.instant(
+                "chaos_kill", track, self.clock(), tier=tier, step=int(step)
+            )
+        self.event("chaos_kill", replica=int(replica_id), tier=tier,
+                   step=int(step))
 
-    def workload_step(self, step: int, commits: Dict[str, int], dt_s: float) -> None:
-        _workload_not_ported("workload_step")
+    def workload_step(self, step: int, commits: Dict[str, int],
+                      dt_s: float) -> None:
+        """One open-loop driver step: per-request decode commits observed
+        this step. Lands as a ``driver`` track span carrying the commit
+        total, the goodput series a trace viewer reads off the timeline."""
+        if not self.enabled:
+            return
+        total = int(sum(commits.values()))
+        with self._lock:
+            now = self.clock()
+            sid = f"driver/step{int(step)}"
+            self.spans.begin(
+                sid, f"step {int(step)}", "driver", now,
+                lane="steps", commit_tokens=total,
+            )
+            # the virtual clock advances AFTER _record_step: stamp the
+            # step's nominal width so the timeline shows contiguous steps
+            self.spans.end(sid, now + max(0.0, float(dt_s)))
+        self.event("workload_step", step=int(step), commit_tokens=total,
+                   commits=dict(commits))
 
     def slo_missed(self, kind: str, tenant: str) -> None:
-        _workload_not_ported("slo_missed")
+        """One request missed its SLO (scored post-hoc by workload/slo.py):
+        ``kind`` is ttft / itl / failed / never_served."""
+        if not self.enabled:
+            return
+        self._slo_missed.child((kind, tenant)).inc()
+        self.event("slo_missed", kind=kind, tenant=tenant)
 
     def workload_backlog(self, depth: int) -> None:
-        _workload_not_ported("workload_backlog")
+        """Arrivals currently waiting in the open-loop driver's retry
+        backlog (observed once per driver step)."""
+        if not self.enabled:
+            return
+        self._wl_backlog.set(depth)
 
     def workload_refused(self, reason: str) -> None:
-        _workload_not_ported("workload_refused")
+        """One open-loop admission attempt refused for capacity; the
+        arrival stays in the backlog and retries (NON-terminal: terminal
+        give-ups ride request_rejected(reason='backlog'))."""
+        if not self.enabled:
+            return
+        self._wl_refused.child((reason,)).inc()
+        self.event("workload_refused", reason=reason)
 
     # ---- retrace-guard bridge --------------------------------------------
 
@@ -1324,14 +1379,6 @@ class TelemetrySession:
             (smp["labels"]["model"], int(smp["labels"]["bucket"])): smp["value"]
             for smp in self._samples("nxdi_bucket_dispatch_total")
         })
-
-
-def _workload_not_ported(hook: str) -> None:
-    raise NotImplementedError(
-        f"TelemetrySession.{hook} serves the workload engine and the SLO "
-        "monitor, which are not ported to PyTorch yet (ROADMAP A8 (workload "
-        "and SLO))"
-    )
 
 
 def load_events(jsonl_path: str) -> List[dict]:

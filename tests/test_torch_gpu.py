@@ -47,6 +47,32 @@ def test_kernels_match_plain_on_the_card(cuda_card):
 
 
 @pytest.mark.gpu
+def test_qwen3_head_shape_kernels_match_plain_on_the_card(cuda_card):
+    """B4, B5 and B3 at Qwen3-30B-A3B's head shape (32 q / 4 kv heads of
+    128, n_rep 8, blocks of 32, bf16) against their plain versions: B4 at
+    batch 1 and the serving decode step's 8 rows, B5 on the 128-token
+    chunk at batch 1 and 8, B3 at the serving row's three points, the last
+    two on random and exact-score inputs and each launched twice more,
+    bit-identical (chip_smoke.qwen3_*_parity)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
+    from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
+    from neuronx_distributed_inference_tpu_torch.ops import ragged_paged_attention as rp
+
+    _cuda.reset_launch_counts()
+    n_b4 = chip_smoke.qwen3_paged_decode_parity(torch, da)
+    n_b5 = chip_smoke.qwen3_paged_flash_parity(torch, pf)
+    n_b3 = chip_smoke.qwen3_ragged_parity(torch, rp)
+    assert (n_b4, n_b5, n_b3) == (2, 4, 6)
+    counts = _cuda.launch_counts()
+    assert counts["paged_decode_attention"] == n_b4, counts
+    assert counts["paged_flash_attention"] == 3 * n_b5, counts
+    assert counts["ragged_paged_attention"] == 3 * n_b3, counts
+
+
+@pytest.mark.gpu
 def test_quant_matmul_matches_plain_on_the_card(cuda_card):
     """B6 against its plain version at rows 1 to 64 (chip_smoke.QMM_PARITY_ROWS),
     bf16 and fp32, every int4 projection of the 8B and 1B rows and a padded

@@ -42,6 +42,11 @@ def _imported_modules(path: Path):
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 15
+    scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {
+        "workload/__init__.py", "workload/generator.py", "workload/driver.py", "workload/slo.py",
+        "telemetry/slo_monitor.py", "telemetry/ops_server.py",
+    } <= scanned
     bad = [
         (str(f.relative_to(REPO)), mod)
         for f in files
@@ -184,9 +189,9 @@ def _serving_app(**tc):
 
 
 def test_serving_settings_outside_the_slice_raise():
-    """The serving surface outside this slice names its ROADMAP item: the
-    telemetry hooks of the workload engine and the SLO monitor (A8's
-    rest). The disaggregated hand-off is ported: a malformed payload fails
+    """The serving surface of the port: the telemetry hooks of the workload
+    engine and the SLO monitor (A8's rest) record on an enabled session and
+    return at once on a disabled one. The disaggregated hand-off is ported: a malformed payload fails
     its one request typed FAILED(handoff). Speculation (A7's first part) is ported:
     serving_spec_ragged is validated as the reference validates it (it
     needs chunked prefill) and the speculative session builds; windowed
@@ -207,10 +212,29 @@ def test_serving_settings_outside_the_slice_raise():
     sess = ServingSession(app)
     assert sess.add_prefilled_request("h", [1, 2, 3], {}, first_token=4)
     assert (sess.requests["h"].status, sess.requests["h"].fail_reason) == ("failed", "handoff")
-    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+    from neuronx_distributed_inference_tpu_torch.telemetry import SloMonitor, TelemetrySession
 
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A8 \(workload and SLO\)"):
-        TelemetrySession().set_tenants({})
+    off = TelemetrySession(enabled=False)
+    off.set_tenants({"a-0000": "a"})
+    off.workload_refused("no_slot")
+    assert off.attach_slo_monitor(SloMonitor()).slo_monitor is None
+    with TelemetrySession() as tel:
+        tel.set_tenants({"r-0001": "prose0"})
+        assert tel._tenant_track("r-0001") == "tenant:prose0"
+        mon = SloMonitor()
+        assert tel.attach_slo_monitor(mon).slo_monitor is mon
+        tel.chaos_kill(1, "decode", 4)
+        tel.workload_step(4, {"r-0001": 2}, 1.0)
+        tel.slo_missed("ttft", "prose0")
+        tel.workload_backlog(3)
+        tel.workload_refused("no_slot")
+        snap = tel.registry.snapshot()
+    assert snap["nxdi_workload_backlog_depth"]["samples"][0]["value"] == 3
+    assert snap["nxdi_workload_refusals_total"]["samples"][0]["labels"] == {"reason": "no_slot"}
+    assert snap["nxdi_slo_missed_total"]["samples"][0]["labels"] == {"kind": "ttft", "tenant": "prose0"}
+    assert [e["type"] for e in tel.events if e["type"] in ("chaos_kill", "workload_step")] == [
+        "chaos_kill", "workload_step",
+    ]
     assert sess.add_request("long", list(range(1, 60)) * 3, max_new_tokens=2)
 
 
@@ -316,15 +340,23 @@ def test_quantized_moe_raises_naming_a9(kw):
 
 
 def test_serving_an_moe_model_raises_naming_a9():
-    """generate() runs an MoE model; the serving session (split) and the
-    ragged mixed-step runner refuse it."""
-    from neuronx_distributed_inference_tpu_torch.runtime.serving import ServingSession
+    """generate() and the serving sessions (split and ragged) run an MoE
+    model; speculative serving with an MoE target or draft raises naming
+    ROADMAP A9 (MoE speculation)."""
+    from neuronx_distributed_inference_tpu_torch.runtime.serving import (
+        ServingSession,
+        SpeculativeServingSession,
+    )
 
     serve = dict(is_continuous_batching=True, batch_size=2, ctx_batch_size=1, is_block_kv_layout=True)
     app = _moe_app(**serve).load(random_weights=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        ServingSession(app)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        _moe_app(**serve, serving_ragged=True)
+    assert ServingSession(app).num_slots == 2
+    assert _moe_app(**serve, serving_ragged=True).load(random_weights=True).mixed_step_model is not None
+    plain = dict(is_continuous_batching=True, batch_size=2, ctx_batch_size=1)
+    moe = _moe_app(**plain).load(random_weights=True)
+    dense = _serving_app()
+    for target, draft in ((moe, moe), (moe, dense), (dense, moe)):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(MoE speculation\)"):
+            SpeculativeServingSession(target, draft, speculation_length=3)
     out = _moe_app().load(random_weights=True).generate(np.array([[1, 2, 3]]), max_new_tokens=3)
     assert out.sequences.shape == (1, 6)

@@ -11,8 +11,8 @@
 - the event log (JSONL round trip, a corrupt tail skipped, the bounded
   ring and its dropped counter), the chrome trace exported during a
   concurrent drain, the retrace-guard bridge, exact counts under threads, a
-  disabled session that records nothing, and the workload / SLO hooks that
-  raise naming ROADMAP A8.
+  disabled session that records nothing, and the workload / SLO hooks,
+  which record what the JAX session's record.
 
 The pins are the reference's ``tests/test_telemetry.py``'s."""
 
@@ -321,11 +321,30 @@ def test_default_session_switches():
 @pytest.mark.parametrize(
     "hook,args",
     [
-        ("set_tenants", ({},)), ("attach_slo_monitor", (None,)), ("chaos_kill", (0, "decode", 1)),
-        ("workload_step", (1, {}, 0.1)), ("slo_missed", ("ttft", "t")), ("workload_backlog", (3,)),
-        ("workload_refused", ("no_slot",)),
+        ("set_tenants", ({"prose0-0001": "prose0"},)), ("attach_slo_monitor", (None,)),
+        ("chaos_kill", (0, "decode", 1)), ("workload_step", (1, {"prose0-0001": 2}, 0.1)),
+        ("slo_missed", ("ttft", "t")), ("workload_backlog", (3,)), ("workload_refused", ("no_slot",)),
     ],
 )
 def test_workload_and_slo_hooks_raise(hook, args):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A8 \(workload and SLO\)"):
-        getattr(TelemetrySession(), hook)(*args)
+    """The hooks of the workload engine and the SLO monitor (they raised
+    until A8's rest was ported; the name is kept): each records on an
+    enabled session what the JAX session records (registry families,
+    event types, span tree), and nothing on a disabled one."""
+    from neuronx_distributed_inference_tpu.telemetry import SloMonitor as JaxMonitor
+    from neuronx_distributed_inference_tpu_torch.telemetry import SloMonitor
+
+    seen = {}
+    for pkg, monitor in (("port", SloMonitor), ("jax", JaxMonitor)):
+        with ns(pkg).Telemetry(clock=lambda: 5.0) as tel:
+            getattr(tel, hook)(*((monitor(),) if hook == "attach_slo_monitor" else args))
+            if hook == "set_tenants":
+                tel.request_submitted("prose0-0001")
+            seen[pkg] = (
+                family_counts(tel.registry.snapshot()), [e["type"] for e in tel.events], tel.span_tree(),
+                tel.slo_monitor is not None,
+            )
+    assert seen["port"] == seen["jax"]
+    off = TelemetrySession(enabled=False)
+    getattr(off, hook)(*((SloMonitor(),) if hook == "attach_slo_monitor" else args))
+    assert off.registry.family_names() == [] and not off.events and off.slo_monitor is None
