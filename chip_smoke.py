@@ -45,13 +45,18 @@ Phases, in order; any failure exits non-zero:
      version at rows 1 to 64 (each case launched twice, bit-identical, with
      its split-K count and grid printed) and timed, then the bf16_8b_int4,
      int8_1b_bs1 and serving_1b_int4_ragged rows (exact B6 / int4_dense
-     counts; profiles of the 8B decode step and the int4 ragged step);
+     counts; profiles of the 8B decode step and the int4 ragged step); B6
+     also at Qwen3-30B-A3B's fused QKV, o and lm head at 1 and 8 rows, held
+     and timed, and the quantized moe_layer (int8 / fp8 / blockwise / int4
+     experts) on the card against the CPU on the dense, grouped and
+     capacity routes;
   9. the MoE path: B7 (selected-experts MoE decode) against its plain
      version at Qwen3-30B-A3B and Mixtral-8x7B widths and widths no tile
      divides, timed at one layer beside the dense all-experts route, then
      Qwen3-30B-A3B at full width and depth (48 layers, 128 experts, top-8,
-     57 GiB of seeded random bf16 weights made on the card): generate() at
-     batch 1 with exact B2 / B1 / B7 / moe_grouped counts and no dense MoE
+     57 GiB of seeded random bf16 weights made on the card): generate() of
+     QWEN3_NEW tokens at batch 1 with exact B2 / B1 / B7 / moe_grouped
+     counts and no dense MoE
      call, a batch-8 generate() (64 rows for B7), a profile, and the
      teacher-forced gate on its first 4 layers with the router's top-k flips
      counted. B1 and B2 also run at its GQA 8:1 shape in phases 3 and 4.
@@ -61,8 +66,16 @@ Phases, in order; any failure exits non-zero:
      B7 and moe_grouped / moe_dense counts, the grouped-route steps run
      eagerly (no capture of a ragged step of 64 packed tokens or more, the
      split decode step captured), nothing captured after the seal, each
-     request its 128 tokens, host ms and device-busy share a step, peak
-     memory, and the paged teacher-forced gate with routing pinned;
+     request its QWEN3_SERVING_GEN tokens, host ms and device-busy share a step, peak
+     memory, and the paged teacher-forced gate with routing pinned. Then
+     the same weights speculatively served, the target as its own draft, k
+     = 4 (phase_qwen3_spec_serving: the split path and the spec-ragged path
+     1-ahead, 8 requests of 128 + 64 tokens: exact counts, acceptance,
+     tok/s, the token gate, a profiled steady step; B1 at K = 4 and B3's
+     verify rows held and timed at Qwen3's heads before), and Qwen3-30B-A3B
+     int8 and then grouped int4, quantized at load on the card
+     (phase_qwen3_quant: load seconds and peak, params bytes, a 64-token
+     generate() with exact counts, a profile, the teacher-forced gate);
  10. the fused decode layer: B8 (the attention block) and B9 (the MLP
      block) against their plain versions (B8: D 64 and 128, GQA 4:1 and
      8:1, batch 1 and 4, K 1 and 4, buckets 512 and 1024, rows on the
@@ -149,6 +162,7 @@ is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -1730,8 +1744,9 @@ def phase_main_path(torch):
 
 
 #: steps of each traced chunk (reading a trace costs the host a fraction of
-#: a ms for every kernel in it: ~1000 a 1B step)
-PROFILE_STEPS = 8
+#: a ms for every kernel in it: ~1000 a 1B step; cut from 8 to fit the
+#: script's time limit)
+PROFILE_STEPS = 4
 
 
 def phase_profile(torch, app, seq, prompt_len, steps=PROFILE_STEPS, label="decode step", bucket=512):
@@ -1961,6 +1976,12 @@ def _forced_gate(k, pl, f32, what, exit_on_fail=True):
 # ---------------------------------------------------------------------------
 
 SERVING = dict(n_requests=8, prompt=128, gen=128, slots=8, blocks=512, block_size=32, seq=1024)
+#: new tokens a request in the drains run with graphs on and off in turns
+#: (graph_pair: phase_graphs, phase_kv_quant, the 1B speculation phases),
+#: and of the 1B generate() pairs of phase_graphs: cut from SERVING's 128
+#: and 256 to fit the script's time limit (their eager twins are
+#: host-bound)
+PAIRED_GEN = 64
 
 
 def _serving_config(chunked=True, **kw):
@@ -2379,6 +2400,9 @@ def ragged_teacher_forced(torch, params, seq, prompt_len=128):
 #: bf16_8b_int4's teacher-forced gate runs the first layers of the 8B model:
 #: an fp32 copy of all 32 (~32 GB) would crowd the 80 GB card
 INT4_8B_FORCED_LAYERS = 8
+#: new tokens of the int4 8B generate() (cut from 256 to fit the script's
+#: time limit)
+INT4_8B_NEW = 128
 #: int4 projections per layer: fused QKV, o, gate, up, down
 INT4_PROJ_PER_LAYER = 5
 
@@ -2484,8 +2508,8 @@ def _generate_run(torch, app, prompt_len, n_new, label, batch=1):
 
 def phase_int4_8b(torch):
     """The bf16_8b_int4 row at full width and depth: seeded random bf16
-    weights quantized to int4 at load on the card, greedy generate() of 256
-    tokens after a 128-token prompt with exact counts, a profile of one
+    weights quantized to int4 at load on the card, greedy generate() of
+    INT4_8B_NEW tokens after a 128-token prompt with exact counts, a profile of one
     16-step decode chunk, and the teacher-forced gate on the first
     INT4_8B_FORCED_LAYERS layers."""
     from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
@@ -2493,7 +2517,7 @@ def phase_int4_8b(torch):
     from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_8B, bound_ms, int4_step_bytes
     from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
 
-    prompt_len, n_new = 128, 256
+    prompt_len, n_new = 128, INT4_8B_NEW
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     app = ModelForCausalLM(None, _config_8b_int4(retrace_guard=True)).load(random_weights=True)
@@ -2510,12 +2534,12 @@ def phase_int4_8b(torch):
     with RetraceGuard():  # warmed and sealed: nothing is captured
         out, run = _generate_run(torch, app, prompt_len, n_new, "int4 8B generate()")
     # the prefill's projections have 128 rows (dense route), its lm head one
-    # (B6); each of the 256 decode steps runs every projection and the lm
+    # (B6); each of the n_new decode steps runs every projection and the lm
     # head at one row (B6)
     per_step = INT4_PROJ_PER_LAYER * L + 1
     want = expect_launches(
-        quant_matmul=1 + 256 * per_step, int4_dense=INT4_PROJ_PER_LAYER * L,
-        flash_attention=L, decode_attention=L * 256,
+        quant_matmul=1 + n_new * per_step, int4_dense=INT4_PROJ_PER_LAYER * L,
+        flash_attention=L, decode_attention=L * n_new,
     )
     if run["launches"] != want:
         raise SystemExit(f"int4 8B launch counts {run['launches']} != expected {want}")
@@ -2786,10 +2810,13 @@ def phase_moe_times(torch, md):
 #: the 48 layers (with the embedding and lm head) is ~12 GB beside the 57
 #: GiB of bf16 params
 QWEN3_FORCED_LAYERS = 4
-#: steps of the Qwen3 profiles: ~5300 kernels a decode step (22700 an eager
-#: ragged step), and torch.profiler spends ~0.6 ms of host time on each
-#: kernel it traced when the trace is read
-QWEN3_PROFILE_STEPS = 4
+#: steps of the Qwen3 profiles: ~5300 kernels a decode step (14800 an
+#: eager ragged step, profiled for one step), and torch.profiler spends
+#: ~0.5 ms of host time on each kernel it traced when the trace is read
+QWEN3_PROFILE_STEPS = 2
+#: new tokens of the bf16 Qwen3 generate() (cut from 256 to fit the
+#: script's time limit beside the quantized and speculative Qwen3 phases)
+QWEN3_NEW = 64
 
 
 def _config_qwen3(batch_size=1, model=None, **kw):
@@ -2928,7 +2955,9 @@ def qwen3_teacher_forced(torch, params, seq, prompt_len, L, logits_fn=None, cfg_
         secs[name] = time.perf_counter() - t0
         return out
 
-    sub32 = _map_tree(sub, lambda t: t.float())
+    # quantized params keep their codes (a uint8 int4 entry must stay
+    # packed); every floating leaf goes to fp32
+    sub32 = _map_tree(sub, lambda t: t.float() if t.is_floating_point() else t)
     f32, sel_f = timed_run("fp32", lambda: _selections(
         torch, cfg_fn(model=model, output_logits=True, dtype="float32", **off), sub32, seq, prompt_len, True,
         logits_fn=logits_fn,
@@ -2967,7 +2996,7 @@ def qwen3_teacher_forced(torch, params, seq, prompt_len, L, logits_fn=None, cfg_
 def phase_qwen3_moe(torch):
     """Qwen3-30B-A3B at full width and depth with seeded random bf16
     weights made on the card: load (time, peak, params bytes), greedy
-    generate() of 256 tokens after a 128-token prompt at batch 1 with exact
+    generate() of QWEN3_NEW tokens after a 128-token prompt at batch 1 with exact
     counts (B2 once per layer; B1 and B7 once per layer and decode step;
     the 128-token prefill through the grouped route; no dense MoE call), a
     batch-8 generate() (64 rows for B7) with its distinct experts per layer,
@@ -2978,7 +3007,7 @@ def phase_qwen3_moe(torch):
     from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_QWEN3_MOE, bound_ms, moe_decode
     from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
 
-    prompt_len, n_new = 128, 256
+    prompt_len, n_new = 128, QWEN3_NEW
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2996,9 +3025,9 @@ def phase_qwen3_moe(torch):
     L = app.spec.num_layers
     with RetraceGuard():  # warmed and sealed: nothing is captured
         out, run = _generate_run(torch, app, prompt_len, n_new, "qwen3-30b-a3b generate()")
-    # 255 remaining tokens run as one 256-step chunk in bucket 512
+    # the n_new - 1 remaining tokens run as one n_new-step chunk in bucket 512
     want = expect_launches(
-        flash_attention=L, decode_attention=L * 256, moe_decode=L * 256, moe_grouped=L,
+        flash_attention=L, decode_attention=L * n_new, moe_decode=L * n_new, moe_grouped=L,
     )
     if run["launches"] != want:
         raise SystemExit(f"qwen3 launch counts {run['launches']} != expected {want}")
@@ -3090,6 +3119,10 @@ def _config_qwen3_serving(model=None, **kw):
     )
 
 
+#: new tokens a request in the Qwen3 serving drains (cut from SERVING's
+#: 128 to fit the script's time limit: an eager ragged step costs 0.3-0.8
+#: host s)
+QWEN3_SERVING_GEN = 32
 #: the Qwen3 serving drains: (path, form) -> MoEConfig fields
 QWEN3_SERVING_FORMS = {
     ("split", "sync"): dict(async_mode=False),
@@ -3213,13 +3246,14 @@ def phase_qwen3_serving(torch):
     """Qwen3-30B-A3B served at full width and depth (48 layers, 128 experts,
     top-8; seeded random bf16 weights made on the card, one parameter set
     shared by every app) on the serving row's paged configuration
-    (_config_qwen3_serving) and traffic (8 staggered requests of 128 + 128
-    tokens): the split drain (B5 chunks through the grouped route, run
+    (_config_qwen3_serving) and traffic (8 staggered requests of 128 +
+    QWEN3_SERVING_GEN tokens): the split drain (B5 chunks through the
+    grouped route, run
     eagerly; the 8-row decode step through B4 and B7, captured) and the
     ragged drain (B3; mixed steps of 64 packed tokens or more through the
     grouped route, run eagerly; smaller ones through the dense route,
     captured), each sync and 1-ahead with graphs on, every runner warmed
-    and sealed first. Gates: every request gets its 128 tokens with 0
+    and sealed first. Gates: every request gets its tokens with 0
     rejected / quarantined / preempted; nothing captured after the seal; no
     ragged step of the grouped route's size captured and the split decode
     step captured; exact B4 / B5 / B3 / B7 launches and moe_grouped /
@@ -3265,7 +3299,7 @@ def phase_qwen3_serving(torch):
     runs = {}
     with RetraceGuard():
         for key, app in apps.items():
-            runs[key] = _qwen3_drain(torch, app, prompts, s["gen"], host_read, "/".join(key))
+            runs[key] = _qwen3_drain(torch, app, prompts, QWEN3_SERVING_GEN, host_read, "/".join(key))
     if {key: app.graphs.captures for key, app in apps.items()} != captures:
         raise SystemExit("qwen3 serving: a graph was captured after the seal")
     for key, app in apps.items():
@@ -3287,7 +3321,7 @@ def phase_qwen3_serving(torch):
     # the synchronous forms (the drains above give every form's host ms a
     # dispatch); an eager ragged step launches ~4x a decode step's kernels
     profiles = {
-        key: _qwen3_step_profile(torch, app, prompts, "/".join(key), QWEN3_PROFILE_STEPS // (1 + (key[0] == "ragged")))
+        key: _qwen3_step_profile(torch, app, prompts, "/".join(key), 1 if key[0] == "ragged" else QWEN3_PROFILE_STEPS)
         for key, app in apps.items() if key[1] == "sync"
     }
     del apps, app, first
@@ -3299,17 +3333,492 @@ def phase_qwen3_serving(torch):
         what="qwen3 paged teacher-forced logits (one 128-token chunk through B5 and the grouped route, then B4 "
         "and B7 steps)",
     )
-    del params
     gc.collect()
     torch.cuda.empty_cache()
     split = runs[("split", "sync")]["launches"]
     return dict(
-        runs=runs, profiles=profiles, forced=forced,
+        runs=runs, profiles=profiles, forced=forced, params=params,
         launches={
             "paged_decode_attention_qwen3": split["paged_decode_attention"],
             "paged_flash_attention_qwen3": split["paged_flash_attention"],
             "ragged_paged_attention_qwen3": runs[("ragged", "sync")]["launches"]["ragged_paged_attention"],
             "moe_decode_qwen3_serving": split["moe_decode"],
+        },
+    )
+
+
+# ---------------------------------------------------------------------------
+# 9c. Qwen3-30B-A3B with quantized experts (int8, grouped int4), B6 at its
+#     projections, and MoE speculation
+# ---------------------------------------------------------------------------
+
+#: Qwen3-30B-A3B's 2D int4 projections: (name, K, N): the fused QKV
+#: (32 + 2 x 4 heads of 128), the o projection and the lm head
+QWEN3_QMM_SHAPES = [("qkv", 2048, 5120), ("o", 4096, 2048), ("lm head", 2048, 151936)]
+#: B6's rows at these shapes: a batch-1 decode step and the serving row's 8
+QWEN3_QMM_ROWS = (1, 8)
+
+
+def qwen3_qmm_parity(torch, qmm):
+    """B6 at QWEN3_QMM_SHAPES, QWEN3_QMM_ROWS rows, bf16 and fp32, against
+    its plain version (check_qmm), each case launched twice more,
+    bit-identical. Returns the number of cases."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    worst, n = 0.0, 0
+    for name, K, N in QWEN3_QMM_SHAPES:
+        packed, scale = qmm_inputs(torch, gen, K, N)
+        for rows in QWEN3_QMM_ROWS:
+            for dtype in (torch.bfloat16, torch.float32):
+                x = torch.randn((rows, K), generator=gen, device="cuda").to(dtype)
+                case = (f"qwen3 {name} rows={rows} K={K} N={N} {str(dtype)[6:]}: "
+                        f"{qmm_grid_text(torch, qmm, rows, K, N, dtype)}")
+                worst = max(worst, check_qmm(torch, qmm, x, packed, scale, case))
+                check_repeat(torch, "quant_matmul", lambda: qmm.quant_matmul(x, packed, scale), case)
+                n += 1
+        del packed, scale
+    log(f"quant_matmul at Qwen3-30B-A3B's projections: {n} cases agree with the plain version, each bit-identical "
+        f"twice (largest abs err {worst:.3e})")
+    return n
+
+
+def phase_qwen3_qmm(torch, qmm):
+    """B6 at Qwen3-30B-A3B's int4 projections (qwen3_qmm_parity), then
+    timed at 1 and 8 rows in bf16: held to its plain version, beside the
+    plain version, torch.matmul of x by the weight dequantized to bf16
+    beforehand (not timed) and the bound of ops/roofline.int4_matmul. Rows
+    keyed ("quant_matmul", "qwen3", name, rows)."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import int4_matmul
+
+    qwen3_qmm_parity(torch, qmm)
+    rows_out = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(32)
+    for name, K, N in QWEN3_QMM_SHAPES:
+        packed, scale = qmm_inputs(torch, gen, K, N)
+        w = qmm.dequantize_int4(packed, scale, K, torch.bfloat16)
+        for rows in QWEN3_QMM_ROWS:
+            x = torch.randn((rows, K), generator=gen, device="cuda").to(torch.bfloat16)
+            case = f"timed qwen3 {name} rows={rows} K={K} N={N} bf16"
+            err = check_qmm(torch, qmm, x, packed, scale, case)
+            ms = time_ms(torch, lambda: qmm.quant_matmul(x, packed, scale))
+            plain_ms = time_ms(torch, lambda: qmm.quant_matmul_plain(x, packed, scale), iters=10)
+            lib_ms = time_ms(torch, lambda: torch.matmul(x, w))
+            b_ms, b_by = bound(*int4_matmul(rows, K, N))
+            rows_out[("quant_matmul", "qwen3", name, rows)] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            )
+            log(
+                f"quant_matmul qwen3 {name} rows={rows} K={K} N={N} bf16 "
+                f"({qmm_grid_text(torch, qmm, rows, K, N, torch.bfloat16)}): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, matmul on the bf16 weight {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+                f"{b_ms / ms:.3f} of the bound, err vs plain {err:.3e}"
+            )
+        del packed, scale, w
+    return rows_out
+
+
+#: quantized expert formats of quant_moe_parity: ops/quant.quantize_params
+#: arguments (quant dtype, block size, per channel)
+QUANT_MOE_FORMATS = {
+    "int8 per channel": ("int8", 0, True),
+    "int8 per tensor": ("int8", 0, False),
+    "fp8 e4m3 per channel": ("fp8", 0, True),
+    "int8 blockwise": ("int8", 128, True),
+    "int4 grouped": ("int4", 128, True),
+}
+#: quant_moe_parity's routes: (spec kwargs, B, S, route counted)
+QUANT_MOE_ROUTES = {
+    "dense (decode, 8 rows)": (dict(num_experts=64, top_k=4), 8, 1, "moe_dense"),
+    "grouped (prefill 128)": (dict(num_experts=64, top_k=4), 1, 128, "moe_grouped"),
+    "capacity (prefill 128)": (dict(num_experts=16, top_k=2, capacity_factor=1.0), 1, 128, "moe_capacity"),
+}
+#: the card against the CPU at fp32 (the CPU tests' bound against JAX)
+QUANT_MOE_TOL = 2e-5
+
+
+def quant_moe_parity(torch):
+    """modules/moe.moe_layer on quantized experts (QUANT_MOE_FORMATS, made
+    by ops/quant.quantize_params from seeded fp32 weights at Qwen3's
+    hidden width 2048, 64 experts of width 256, top-4, on the dense and
+    grouped routes, 16 top-2 on the capacity route) on the card against the same
+    call on the CPU, fp32, every route of QUANT_MOE_ROUTES (blockwise:
+    dense on each, never the capacity route, which the config refuses):
+    within QUANT_MOE_TOL (absolute and relative), the same route counted on
+    both devices, no kernel launched (scaled experts never take B7).
+    Returns the number of cases."""
+    from neuronx_distributed_inference_tpu_torch.modules import moe
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops.quant import quantize_params
+
+    H, I, n = 2048, 256, 0
+    gen = torch.Generator()
+    gen.manual_seed(33)
+    for route, (kw, B, S, counted) in QUANT_MOE_ROUTES.items():
+        E = kw["num_experts"]
+        base = {
+            "router": {"weight": torch.randn((H, E), generator=gen) * 0.05},
+            "experts": {
+                "gate_proj": {"weight": torch.randn((E, H, I), generator=gen) * 0.02},
+                "up_proj": {"weight": torch.randn((E, H, I), generator=gen) * 0.02},
+                "down_proj": {"weight": torch.randn((E, I, H), generator=gen) * 0.05},
+            },
+        }
+        x = torch.randn((B, S, H), generator=gen)
+        spec = moe.MoESpec(**kw)
+        for fmt, (qdt, block, per_channel) in QUANT_MOE_FORMATS.items():
+            if block and qdt != "int4" and "capacity_factor" in kw:
+                continue
+            cpu = quantize_params(_map_tree(base, lambda t: t.clone()), qdt, block_size=block, per_channel=per_channel)
+            card = _map_tree(cpu, lambda t: t.to("cuda"))
+            want = {"moe_dense": 0, "moe_grouped": 0, "moe_capacity": 0}
+            want["moe_dense" if block and qdt != "int4" else counted] = 1
+            outs = {}
+            for dev, params in (("cpu", cpu), ("cuda", card)):
+                _cuda.reset_launch_counts()
+                outs[dev] = moe.moe_layer(params, x.to(dev), spec).cpu()
+                got = {k: v for k, v in _cuda.route_counts().items() if k != "int4_dense"}
+                if got != want or any(_cuda.launch_counts().values()):
+                    raise SystemExit(f"quantized moe_layer {fmt}, {route}, {dev}: routes {got} != {want} "
+                                     f"or kernels launched {_cuda.launch_counts()}")
+            diff = (outs["cuda"] - outs["cpu"]).abs()
+            bound_ = QUANT_MOE_TOL * (1 + outs["cpu"].abs())
+            use = (diff / bound_).max().item()
+            log(f"  quantized moe_layer {fmt}, {route}: card vs CPU max abs err {diff.max().item():.3e}, largest "
+                f"share of the bound {use:.3f} (|out| up to {outs['cpu'].abs().max().item():.3f})")
+            if not torch.isfinite(outs["cuda"]).all() or use > 1.0:
+                raise SystemExit(f"quantized moe_layer {fmt}, {route}: the card disagrees with the CPU")
+            n += 1
+            del cpu, card
+    log(f"quantized moe_layer: {n} cases on the card agree with the CPU (fp32, {QUANT_MOE_TOL} abs + rel)")
+    return n
+
+
+#: the quantized Qwen3-30B-A3B forms: label -> MoEConfig fields
+QWEN3_QUANT_FORMS = {"int8": dict(quantized=True), "int4": dict(weight_dtype="int4")}
+#: new tokens of the quantized Qwen3 generate()
+QWEN3_QUANT_NEW = 64
+#: Qwen3-30B-A3B's int4 2D projections a layer (fused QKV, o)
+QWEN3_INT4_PROJ_PER_LAYER = 2
+
+
+def _expert_bytes(params):
+    return sum(_tree_bytes(layer["mlp"]["experts"]) for layer in params["layers"])
+
+
+def qwen3_quant_run(torch, label, qkw):
+    """One quantized form of Qwen3-30B-A3B at full width and depth:
+    seeded random bf16 weights made on the card and quantized at load in
+    place (ops/quant.quantize_params, in slices), load seconds, peak and
+    params bytes; a batch-1 greedy generate() of QWEN3_QUANT_NEW tokens
+    after a 128-token prompt under graphs, warmed and sealed, with exact
+    counts (B2 once a layer; B1 once a layer and decode step; the grouped
+    route once a layer at prefill; the dense route once a layer and decode
+    step, as scaled experts never take B7; int4: B6 on every 2D projection
+    and the lm head of a decode step and on the prefill's lm head row, the
+    int4 dense route on the prefill's projections); a profile of
+    QWEN3_PROFILE_STEPS decode steps; and the teacher-forced gate
+    (qwen3_teacher_forced) on the same quantized params."""
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_QWEN3_MOE, bound_ms
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    prompt_len, n_new = 128, QWEN3_QUANT_NEW
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    app = ModelForCausalLM(None, _config_qwen3(retrace_guard=True, **qkw)).load(random_weights=True)
+    torch.cuda.synchronize()
+    load_s, load_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    params_bytes, expert_bytes = _tree_bytes(app.params), _expert_bytes(app.params)
+    t0 = time.perf_counter()
+    app.warmup()
+    torch.cuda.synchronize()
+    log(
+        f"qwen3-30b-a3b {label}: load (random bf16 weights on the card, {label} at load in slices) {load_s:.2f} s, "
+        f"peak {load_peak / 2**30:.3f} GiB; params {params_bytes / 2**30:.3f} GiB (experts "
+        f"{expert_bytes / 2**30:.3f}); warmup {time.perf_counter() - t0:.2f} s"
+    )
+    L = app.spec.num_layers
+    with RetraceGuard():  # warmed and sealed: nothing is captured
+        out, run = _generate_run(torch, app, prompt_len, n_new, f"qwen3-30b-a3b {label} generate()")
+    want = dict(flash_attention=L, decode_attention=L * n_new, moe_grouped=L, moe_dense=L * n_new)
+    if "weight_dtype" in qkw:
+        per_step = QWEN3_INT4_PROJ_PER_LAYER * L + 1
+        want.update(quant_matmul=1 + n_new * per_step, int4_dense=QWEN3_INT4_PROJ_PER_LAYER * L)
+    want = expect_launches(**want)
+    if run["launches"] != want:
+        raise SystemExit(f"qwen3 {label} launch counts {run['launches']} != expected {want}")
+    profile = phase_profile(torch, app, out.sequences[0], prompt_len, steps=QWEN3_PROFILE_STEPS)
+    busy = profile["device_busy_ms"]
+    step_bound = bound_ms(expert_bytes, 0)[0]
+    b6 = b6_per_step(profile)[0]
+    log(
+        f"  qwen3 {label} decode: {run['decode_tok_s']:.1f} tok/s, device busy {busy:.3f} ms/step, "
+        f"{profile['kernels_per_step']:.0f} kernels/step, host clock {profile['decode_step_ms']:.3f} ms/step; the "
+        f"dense route reads every expert's codes each step: {expert_bytes / 2**30:.3f} GiB, bound "
+        f"{step_bound:.3f} ms ({step_bound / busy:.3f} of the busy time); B6 {b6:.4f} ms/step"
+    )
+    forced = qwen3_teacher_forced(
+        torch, app.params, out.sequences[0], prompt_len, L,
+        cfg_fn=lambda model=None, **kw: _config_qwen3(model=model, **qkw, **kw),
+        what=f"qwen3 {label} teacher-forced logits",
+    )
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        run, **profile, load_s=load_s, load_peak=load_peak, params_bytes=params_bytes, expert_bytes=expert_bytes,
+        expert_bound_ms=step_bound, b6_ms_per_step=b6, forced=forced,
+    )
+
+
+def phase_qwen3_quant(torch):
+    """Qwen3-30B-A3B int8 per channel (a) and grouped int4 (b), each through
+    qwen3_quant_run, one after the other: each is dropped before the next
+    loads (the bf16 source and two quantized copies do not fit together)."""
+    return {label: qwen3_quant_run(torch, label, qkw) for label, qkw in QWEN3_QUANT_FORMS.items()}
+
+
+def qwen3_spec_kernels(torch, da, rp):
+    """B1 with K = 4 queries a row and B3's verify segments at Qwen3's head
+    shape (32 q / 4 kv heads of 128, n_rep 8): B1 at batch 8, buckets 512
+    and 1024, rows SPEC_DECODE_VALID deep, bf16 and fp32 (check_decode);
+    B3 on SPEC_RAGGED_ROWS, blocks of 32, bf16 (random and exact-score
+    inputs) and fp32 (check_ragged); every case twice more, bit-identical.
+    Then B1 timed at batch 8, bucket 1024, rows 196 deep, beside its plain
+    version, SDPA on the cache slice gathered beforehand and the bound
+    (B3's spec point at this shape: phase_qwen3_shape_times). Rows keyed
+    ("decode_attention_verify", 1024, "qwen3")."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(34)
+    Hq, Hkv, D = QWEN3_HEADS["Hq"], QWEN3_HEADS["Hkv"], QWEN3_HEADS["D"]
+    B, L, n, worst = 8, 2, 0, 0.0
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    for dtype in (torch.bfloat16, torch.float32):
+        for bucket in (512, 1024):
+            q, kc, vc, mask = _decode_inputs(torch, rng, B, SPEC_K, Hq, Hkv, D, L, 1024, bucket, dtype,
+                                             SPEC_DECODE_VALID)
+            case = f"qwen3 heads verify B={B} K={SPEC_K} bucket={bucket} rows {SPEC_DECODE_VALID} deep {str(dtype)[6:]}"
+            worst = max(worst, check_decode(torch, da, q, kc, vc, 1, mask, None, kw, case))
+            check_repeat(torch, "tkg_decode_attention", lambda: da.tkg_decode_attention(q, kc, vc, 1, mask, None, **kw),
+                         case)
+            n += 1
+    row_len, ctx_len = (list(a) for a in SPEC_RAGGED_ROWS)
+    bs, width = 32, 1024
+    for dtype in (torch.bfloat16, torch.float32):
+        atol = DECODE_ATOL if dtype == torch.bfloat16 else RAGGED_FP32_ATOL
+        inputs = ragged_case(torch, rng, row_len, ctx_len, Hq, Hkv, D, bs, width // bs, dtype)
+        for exact in (False, True) if dtype == torch.bfloat16 else (False,):
+            q, k = exact_score_inputs(torch, inputs[0], inputs[1]) if exact else inputs[:2]
+            case = (f"qwen3 heads verify rows bs={bs} {str(dtype)[6:]} row_len {row_len} ctx_len {ctx_len}"
+                    f"{', exact scores' if exact else ''}")
+            worst = max(worst, check_ragged(torch, rp, (q, k, *inputs[2:]), case, atol, exact))
+            n += 1
+    log(f"B1 K={SPEC_K} and B3 verify rows at Qwen3's heads: {n} cases agree with the plain version, each "
+        f"bit-identical twice (largest abs err {worst:.3e})")
+    Ltimed, bucket = 16, 1024
+    q, kc, vc, mask = _decode_inputs(torch, rng, B, SPEC_K, Hq, Hkv, D, Ltimed, 1024, bucket, torch.bfloat16,
+                                     [196] * B)
+    state = {"layer": 0}
+
+    def next_layer():
+        state["layer"] = (state["layer"] + 1) % Ltimed
+        return state["layer"]
+
+    case = f"timed qwen3 heads verify B={B} K={SPEC_K} bucket={bucket} rows 196 deep D={D} bf16"
+    err = check_decode(torch, da, q, kc, vc, 0, mask, None, kw, case)
+    log_split(torch, da, B, Hkv, bucket)
+    qt = q.transpose(1, 2)
+    kt = kc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    vt = vc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kc, vc, next_layer(), mask, None, **kw))
+    plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_layer(), mask, None, **kw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    b_ms, b_by = bound(*decode_work(q, kc, mask))
+    log(f"tkg_decode_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+    del kc, vc, kt, vt
+    return {("decode_attention_verify", bucket, "qwen3"): dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+    )}
+
+
+#: the MoE speculation drains: new tokens a request
+QWEN3_SPEC_GEN = 64
+
+
+def _config_qwen3_spec(kind, **kw):
+    """Qwen3-30B-A3B (full width and depth) for the speculation drains:
+    ``"ragged"`` the serving row's paged configuration
+    (_config_qwen3_serving) with serving_spec_ragged and k = SPEC_K;
+    ``"contiguous"`` the split path's target and every draft: the
+    contiguous cache at the row's 8 slots and seq 1024, CTE buckets [128,
+    256] (the split path prefills the 128-token prompt, the spec-ragged
+    draft the prompt and its first token), TKG bucket [1024]."""
+    s = SERVING
+    if kind == "ragged":
+        return _config_qwen3_serving(serving_ragged=True, serving_spec_ragged=True, speculation_length=SPEC_K, **kw)
+    return _config_qwen3(
+        s["slots"], is_continuous_batching=True, ctx_batch_size=1, context_encoding_buckets=[128, 256],
+        token_generation_buckets=[s["seq"]], **kw,
+    )
+
+
+def _qwen3_spec_want(sess, tel, app, host_read):
+    """The exact counts of a Qwen3 speculation drain, from the session's
+    dispatch counters (every app Qwen3-30B-A3B, the draft the target's
+    params; 8 rows, top-8, so a K = 1 step's 64 selections take B7, a
+    verify's 256 the dense route; prefills of 128 or more tokens the
+    grouped route). Split path: B2 and the grouped route once a layer per
+    target and draft prefill; per speculate dispatch, the draft's SPEC_K
+    steps (B1 and B7 once a layer each) and the target's verify (B1 with K
+    = SPEC_K under decode_attention_verify, the dense route, once a layer);
+    a single decode step (B1, B7) per decode_steps dispatch. Spec-ragged:
+    B3 once a layer per mixed_step_spec dispatch, its steps of
+    ``host_read`` packed tokens or more on the grouped route (run
+    eagerly), the rest dense; the draft's prefills (B2, grouped) and its
+    chained proposals (SPEC_K steps of B1 and B7 a layer each)."""
+    L = app.spec.num_layers
+    d = sess.dispatches
+    pre = d.get("prefill_draft", 0)
+    if sess.spec_ragged:
+        buckets = {b: n for (tag, b), n in tel.buckets.items() if tag == app.mixed_step_model.tag}
+        eager = sum(n for b, n in buckets.items() if b >= host_read)
+        steps = d["mixed_step_spec"]
+        chain = d.get("draft_chain", 0)
+        return expect_launches(
+            ragged_paged_attention=steps * L, flash_attention=pre * L, decode_attention=chain * SPEC_K * L,
+            moe_decode=chain * SPEC_K * L, moe_grouped=(eager + pre) * L, moe_dense=(steps - eager) * L,
+        ), dict(buckets=buckets, eager=eager)
+    spec, tail, prefill = d.get("speculate", 0), d.get("decode_steps", 0), d.get("prefill", 0)
+    return expect_launches(
+        flash_attention=(prefill + pre) * L, moe_grouped=(prefill + pre) * L,
+        decode_attention=spec * SPEC_K * L + tail * L, moe_decode=spec * SPEC_K * L + tail * L,
+        decode_attention_verify=spec * L, moe_dense=spec * L,
+    ), {}
+
+
+def _spec_step_profile(torch, target, draft, prompts, label, steps):
+    """Host ms and the device's busy share of ``steps`` steady speculative
+    step() calls (8 requests decoding with proposals in flight), traced by
+    torch.profiler; the session is dropped after them."""
+    from neuronx_distributed_inference_tpu_torch.runtime.serving import SpeculativeServingSession
+
+    target.init_kv_cache()
+    draft.init_kv_cache()
+    sess = SpeculativeServingSession(target, draft, speculation_length=SPEC_K)
+    for i, p in enumerate(prompts):
+        if not sess.add_request(f"p{i}", p, max_new_tokens=SPEC_K * (steps + 8)):
+            raise SystemExit(f"qwen3 spec profile: request {i} refused")
+    for _ in range(64):
+        if not sess.prefilling and sess.decoding and (not sess.spec_ragged or sess._draft_prop is not None):
+            break
+        sess.step()
+    else:
+        raise SystemExit(f"qwen3 spec profile ({label}): the session did not reach steady speculation")
+    torch.cuda.synchronize()
+    prof = _start_profile(torch)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sess.step()
+    torch.cuda.synchronize()
+    rec = _stop_profile(torch, prof, time.perf_counter() - t0, steps)
+    log(
+        f"  qwen3 spec {label}, {steps} steady steps (8 rows speculating) profiled: host {rec['host_ms']:.3f} "
+        f"ms/step, device busy {rec['device_busy_ms']:.3f} ms/step ({rec['busy_frac']:.3f} of the wall), "
+        f"{rec['kernels']:.0f} kernels/step, cudaGraphLaunch {rec['graph_launch_ms']:.3f} host ms/step"
+    )
+    return rec
+
+
+#: the MoE speculation drains: label -> (target kind, MoEConfig fields)
+QWEN3_SPEC_FORMS = {
+    "split": ("contiguous", {}),
+    "spec-ragged 1-ahead": ("ragged", dict(serving_ragged_async=True)),
+}
+
+
+def phase_qwen3_spec_serving(torch, params, margin):
+    """Qwen3-30B-A3B speculatively served, k = SPEC_K, the draft being the
+    target's own params (``params``, seeded random bf16, the same tensors;
+    the draft app has its own contiguous cache): SpeculativeServingSession
+    on the split path (contiguous target; always synchronous: acceptance is
+    a host decision a step, in both packages) and the spec-ragged path
+    1-ahead (the serving row's paged target), each over a short drain of 8
+    staggered requests of 128 + QWEN3_SPEC_GEN tokens with graphs on, the
+    programs captured at first use. Gates: every request gets its tokens,
+    no fault; exact launch and route counts (_qwen3_spec_want: spec-ragged
+    steps of 64 or more packed tokens eager); the token gate over the
+    committed tokens with ``margin`` and no rejected draft at a decided
+    position (_own_draft_faults). Prints tok/s, acceptance, and a profile
+    of steady steps (host ms, device busy share)."""
+    import gc
+
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    s = SERVING
+    t0 = time.perf_counter()
+    draft = ModelForCausalLM(None, _config_qwen3_spec("contiguous")).load(params=params).warmup()
+    targets = {
+        label: ModelForCausalLM(None, _config_qwen3_spec(kind, **kw)).load(params=params).warmup()
+        for label, (kind, kw) in QWEN3_SPEC_FORMS.items()
+    }
+    torch.cuda.synchronize()
+    vocab, L = draft.spec.vocab_size, draft.spec.num_layers
+    host_read = targets["spec-ragged 1-ahead"].builder.host_read_tokens()
+    log(f"qwen3-30b-a3b speculation: draft and {len(targets)} targets over one parameter set, load and warmup "
+        f"{time.perf_counter() - t0:.2f} s; spec-ragged eager from {host_read} packed tokens")
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, vocab - 10, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    runs, failures = {}, []
+    for label, target in targets.items():
+        torch.cuda.reset_peak_memory_stats()
+        before = all_counts()
+        tel = TelemetrySession()
+        sess, secs, steps = _serve_spec(torch, target, draft, prompts, QWEN3_SPEC_GEN, tel)
+        after = all_counts()
+        counts = {k: after[k] - before[k] for k in after}
+        peak = torch.cuda.max_memory_allocated()
+        _spec_checks(sess, tel, QWEN3_SPEC_GEN, len(prompts), vocab, f"qwen3 {label} drain")
+        want, extra = _qwen3_spec_want(sess, tel, target, host_read)
+        d = dict(sess.dispatches)
+        rate, bench_rate, per_round, rounds = spec_acceptance(sess, tel)
+        tokens = {rid: list(r.generated) for rid, r in sess.requests.items()}
+        n_tok = sum(len(v) for v in tokens.values())
+        log(
+            f"qwen3-30b-a3b spec {label} drain (bf16, k = {SPEC_K}, the target as its own draft, 8 requests of "
+            f"{s['prompt']} + {QWEN3_SPEC_GEN} tokens): {secs * 1e3:.1f} ms, aggregate {n_tok / secs:.1f} tok/s (one "
+            f"run, first-use captures included), {steps} steps, dispatches {d}; acceptance {rate:.4f} over {rounds} "
+            f"verify rounds (the bench's rule: {bench_rate:.4f}), {per_round:.3f} tokens committed per round; peak "
+            f"{peak / 2**30:.3f} GiB; graphs captured {target.graphs.captures} + draft {draft.graphs.captures}"
+        )
+        log(f"  launches {counts}" + (f"; mixed buckets {extra['buckets']}, {extra['eager']} eager" if extra else ""))
+        if counts != want:
+            raise SystemExit(f"qwen3 spec {label}: launches {counts} != expected {want}")
+        gate = spec_token_gate(torch, ModelForCausalLM(None, _config_qwen3_spec("contiguous")), params, prompts,
+                               tokens, margin, f"qwen3 spec {label}", _rejections(sess))
+        failures += _own_draft_faults(f"qwen3 spec {label}", "b", gate)
+        runs[label] = dict(
+            tok_s=n_tok / secs, acceptance=rate, per_round=per_round, rounds=rounds, steps=steps, dispatches=d,
+            launches=counts, gate=gate, peak_bytes=peak,
+        )
+        del sess
+    # one steady step each: 27,000 (split) and 37,000 (spec-ragged) kernels
+    for label, target in targets.items():
+        runs[label]["profile"] = _spec_step_profile(torch, target, draft, prompts, label, 1)
+    del targets, draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("qwen3 spec serving: " + "; ".join(failures))
+    return dict(
+        runs=runs,
+        launches={
+            "decode_attention_verify_qwen3": runs["split"]["launches"]["decode_attention_verify"],
+            "ragged_paged_attention_spec_qwen3": runs["spec-ragged 1-ahead"]["launches"]["ragged_paged_attention"],
         },
     )
 
@@ -3960,7 +4469,7 @@ def phase_graphs(torch, params):
     from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
     from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
 
-    prompt_len, n_new = 128, 256
+    prompt_len, n_new = 128, PAIRED_GEN
     vocab = LLAMA_1B["vocab_size"]
     out = {}
     for batch in (1, 4):
@@ -3994,7 +4503,7 @@ def phase_graphs(torch, params):
                 return ModelForCausalLM(None, _serving_config(cuda_graphs=graphs, **kw)).load(params=params).warmup()
 
             def run(app):
-                sess, _ = _serve(torch, app, prompts, s["gen"], TelemetrySession())
+                sess, _ = _serve(torch, app, prompts, PAIRED_GEN, TelemetrySession())
                 if any(r.status != "finished" for r in sess.requests.values()):
                     raise SystemExit(f"graphs, {label}: a request did not finish")
                 return {rid: list(r.generated) for rid, r in sess.requests.items()}
@@ -4736,7 +5245,7 @@ def phase_kv_quant(torch, da, pf, rp, fa, params, forced_seq):
 
             def run(app, label=label):
                 tel = TelemetrySession()
-                sess, _ = _serve(torch, app, prompts, s["gen"], tel)
+                sess, _ = _serve(torch, app, prompts, PAIRED_GEN, tel)
                 faults = sum(tel.rejected.values()) + tel.counters["quarantined"] + tel.counters["preempted"]
                 if faults or any(r.status != "finished" for r in sess.requests.values()):
                     raise SystemExit(f"{label}: faults on clean traffic ({faults}) or an unfinished request")
@@ -4773,7 +5282,7 @@ def phase_kv_quant(torch, da, pf, rp, fa, params, forced_seq):
 SPEC_K = 4
 #: steps of the spec-ragged profiles (3000 to 7200 kernels a step; reading
 #: a trace costs the host ~0.5 ms a kernel)
-SPEC_PROFILE_STEPS = 4
+SPEC_PROFILE_STEPS = 2
 #: B3's verify-segment cases in one launch, a table 1024 wide: a chunk from
 #: mid-context, plain decode rows, and verify rows of 2, 3 and 4 tokens 196
 #: and 1000 deep: (row_len, ctx_len)
@@ -5143,10 +5652,10 @@ def phase_spec_serving(torch, margin):
             def run(apps, label=label, Ld=Ld, state=state):
                 before = all_counts()
                 tel = TelemetrySession()
-                sess, secs, steps = _serve_spec(torch, apps.target, apps.draft, prompts, s["gen"], tel)
+                sess, secs, steps = _serve_spec(torch, apps.target, apps.draft, prompts, PAIRED_GEN, tel)
                 after = all_counts()
                 counts = {k: after[k] - before[k] for k in after}
-                _spec_checks(sess, tel, s["gen"], len(prompts), vocab, label)
+                _spec_checks(sess, tel, PAIRED_GEN, len(prompts), vocab, label)
                 d = sess.dispatches
                 want = expect_launches(
                     ragged_paged_attention=d["mixed_step_spec"] * L, flash_attention=d["prefill_draft"] * Ld,
@@ -5188,9 +5697,9 @@ def phase_spec_serving(torch, margin):
     # apart, a draft that is the target must be accepted
     t32 = ModelForCausalLM(None, _spec_target_config(True, False, dtype="float32")).load(random_weights=True).warmup()
     d32 = ModelForCausalLM(None, _spec_draft_config(dtype="float32")).load(params=t32.params).warmup()
-    _serve_spec(torch, t32, d32, prompts, s["gen"], TelemetrySession())  # warm pass: first-use captures
+    _serve_spec(torch, t32, d32, prompts, PAIRED_GEN, TelemetrySession())  # warm pass: first-use captures
     tel = TelemetrySession()
-    sess32, _secs, _steps = _serve_spec(torch, t32, d32, prompts, s["gen"], tel)
+    sess32, _secs, _steps = _serve_spec(torch, t32, d32, prompts, PAIRED_GEN, tel)
     rate32, _b, per_round32, rounds32 = spec_acceptance(sess32, tel)
     log(f"spec-ragged drain, draft (b), sync, fp32 twin: acceptance {rate32:.4f} over {rounds32} verify rounds, "
         f"{per_round32:.3f} tokens committed per round")
@@ -5203,8 +5712,8 @@ def phase_spec_serving(torch, margin):
     app = ModelForCausalLM(None, _serving_config(
         serving_ragged=True, serving_ragged_async=True, weight_dtype="int8", fused_qkv=False,
     )).load(params=tparams).warmup()
-    _serve(torch, app, prompts, s["gen"], TelemetrySession())  # warm pass
-    sess, secs = _serve(torch, app, prompts, s["gen"], TelemetrySession())
+    _serve(torch, app, prompts, PAIRED_GEN, TelemetrySession())  # warm pass
+    sess, secs = _serve(torch, app, prompts, PAIRED_GEN, TelemetrySession())
     n_tok = sum(len(r.generated) for r in sess.requests.values())
     log(f"plain ragged 1-ahead drain, int8, same requests: {secs * 1e3:.1f} ms, aggregate {n_tok / secs:.1f} tok/s "
         f"(one run), {sess.dispatches['mixed_step']} mixed dispatches")
@@ -5240,13 +5749,13 @@ def phase_split_spec(torch, tparams, prompts, margin):
     L = len(tparams["layers"])
     target = ModelForCausalLM(None, _spec_draft_config()).load(params=tparams).warmup()
     draft = ModelForCausalLM(None, _spec_draft_config()).load(params=tparams).warmup()
-    _serve_spec(torch, target, draft, prompts, s["gen"], TelemetrySession())  # warm pass: first-use captures
+    _serve_spec(torch, target, draft, prompts, PAIRED_GEN, TelemetrySession())  # warm pass: first-use captures
     before = all_counts()
     tel = TelemetrySession()
-    sess, secs, steps = _serve_spec(torch, target, draft, prompts, s["gen"], tel)
+    sess, secs, steps = _serve_spec(torch, target, draft, prompts, PAIRED_GEN, tel)
     after = all_counts()
     counts = {k: after[k] - before[k] for k in after}
-    _spec_checks(sess, tel, s["gen"], len(prompts), target.spec.vocab_size, "split spec drain")
+    _spec_checks(sess, tel, PAIRED_GEN, len(prompts), target.spec.vocab_size, "split spec drain")
     d = sess.dispatches
     want = expect_launches(
         flash_attention=(d["prefill"] + d["prefill_draft"]) * L,
@@ -5364,7 +5873,7 @@ def phase_fused_spec(torch, params, margin):
 #: replica at router step 2
 ROUTER = dict(replicas=2, policy="least_loaded", retire_step=2)
 #: steady router steps of each profiled window
-ROUTER_PROFILE_STEPS = 8
+ROUTER_PROFILE_STEPS = 4
 
 
 def _router_config(paged, stage=None, **kw):
@@ -6018,6 +6527,8 @@ def main():
     times.update(timed("qwen3 shape times", phase_qwen3_shape_times, torch, da, pf, rp))
     timed("quant_matmul parity", phase_quant_matmul_parity, torch, qmm)
     times.update(timed("quant_matmul times", phase_quant_matmul_times, torch, qmm))
+    times.update(timed("qwen3 quant_matmul", phase_qwen3_qmm, torch, qmm))
+    timed("quantized moe_layer parity", quant_moe_parity, torch)
     timed("moe_decode parity", phase_moe_parity, torch, md)
     times.update(timed("moe_decode times", phase_moe_times, torch, md))
     timed("fused block parity", phase_fused_parity, torch, db)
@@ -6028,6 +6539,7 @@ def main():
     ragged = timed("ragged serving", phase_ragged_serving, torch, params, serving["tokens"])
     timed("spec parity", phase_spec_parity, torch, da, rp)
     times.update(timed("spec times", phase_spec_times, torch, da))
+    times.update(timed("qwen3 spec kernels", qwen3_spec_kernels, torch, da, rp))
     margin = 2 * ragged["forced"]["kernel_vs_fp32"]
     spec = timed("spec-ragged serving", phase_spec_serving, torch, margin)
     split_spec = timed("split spec serving", phase_split_spec, torch, spec.pop("tparams"), spec["prompts"], margin)
@@ -6051,6 +6563,14 @@ def main():
     timed("int4 ragged serving", phase_int4_ragged, torch)
     qwen3 = timed("qwen3-30b-a3b generate", phase_qwen3_moe, torch)
     qwen3_serving = timed("qwen3-30b-a3b serving", phase_qwen3_serving, torch)
+    # the served weights again, the draft being the target itself
+    qwen3_spec = timed(
+        "qwen3-30b-a3b speculation", phase_qwen3_spec_serving, torch, qwen3_serving.pop("params"),
+        2 * qwen3_serving["forced"]["kernel_vs_fp32"],
+    )
+    gc.collect()
+    torch.cuda.empty_cache()
+    qwen3_quant = timed("qwen3-30b-a3b int8 and int4", phase_qwen3_quant, torch)
 
     entries = []
     for name, key, source, replaces, launches in (
@@ -6131,6 +6651,19 @@ def main():
          qwen3_serving["launches"]),
         ("moe_decode_qwen3_serving", ("moe_decode", "qwen3 bs8"), "csrc/moe_decode.cu",
          "neuronx_distributed_inference_tpu/ops/moe_decode.py:159", qwen3_serving["launches"]),
+        # B6 at Qwen3-30B-A3B's fused QKV, one row; launches of the int4
+        # Qwen3 generate() (its 2D projections and lm head)
+        ("quant_matmul_qwen3", ("quant_matmul", "qwen3", "qkv", 1), "csrc/quant_matmul.cu",
+         "neuronx_distributed_inference_tpu/ops/quant_matmul.py:231",
+         {"quant_matmul_qwen3": qwen3_quant["int4"]["launches"]["quant_matmul"]}),
+        # MoE speculation at Qwen3's heads: B1 with K = 4 at batch 8, bucket
+        # 1024, launches of the split drain's verify passes; B3 at the spec
+        # point, launches of the spec-ragged 1-ahead drain
+        ("decode_attention_verify_qwen3", ("decode_attention_verify", 1024, "qwen3"), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", qwen3_spec["launches"]),
+        ("ragged_paged_attention_spec_qwen3", ("ragged_paged_attention", "spec", "qwen3"),
+         "csrc/ragged_paged_attention.cu", "neuronx_distributed_inference_tpu/ops/ragged_paged_attention.py:267",
+         qwen3_spec["launches"]),
     ):
         t = times[key]
         entries.append({

@@ -543,6 +543,13 @@ class MoEConfig(Config):
                 "fused_shared_experts (shared experts) is not ported to "
                 "PyTorch yet (ROADMAP A9 (shared experts))"
             )
+        # capacity_factor with ep_degree > 1 is refused earlier, with
+        # ep_degree itself (ROADMAP A10)
+        if self.capacity_factor is not None and self.quantized and self.quantization_type == "blockwise":
+            raise NotImplementedError(
+                "capacity_factor with blockwise-quantized experts is not "
+                "implemented"
+            )
 
 
 class InferenceConfig:

@@ -94,8 +94,7 @@ class DecoderModelBuilder:
 
     qk_norm = False
     norm_type = "rmsnorm"
-    #: True for the MoE builders (models/mixtral.py); the serving paths
-    #: refuse them
+    #: True for the MoE builders (models/mixtral.py)
     is_moe = False
 
     def __init__(self, config: InferenceConfig):

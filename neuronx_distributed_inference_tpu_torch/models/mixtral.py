@@ -12,6 +12,7 @@ from neuronx_distributed_inference_tpu_torch.config import InferenceConfig
 from neuronx_distributed_inference_tpu_torch.models.builder import DecoderModelBuilder, _to_torch, hf_array
 from neuronx_distributed_inference_tpu_torch.models.registry import register_model
 from neuronx_distributed_inference_tpu_torch.modules.moe import MoESpec, grouped_route_tokens, moe_layer
+from neuronx_distributed_inference_tpu_torch.ops.quant import skip_keys
 
 #: Qwen3-30B-A3B (the public ``Qwen/Qwen3-30B-A3B`` config.json): 30.53 B
 #: parameters, 61.06 GB in bf16, the MoE model of the family that fits one
@@ -73,8 +74,10 @@ class MoEInferenceConfig(InferenceConfig):
 
 class MoEDecoderModelBuilder(DecoderModelBuilder):
     """Shared MoE builder: llama attention plus the MoE block. Quantized
-    experts (int8 or int4) need the reference's blockwise expert scales and
-    ``maybe_dequantize_int4``, which wait for ROADMAP A9."""
+    weights (``quantized=True``: int8 / fp8 per channel, per tensor or
+    blockwise; ``weight_dtype="int4"``) quantize the experts with every
+    other linear the config does not skip; ``modules/moe.py`` takes each
+    format on every route."""
 
     config_cls = MoEInferenceConfig
     is_moe = True
@@ -86,12 +89,6 @@ class MoEDecoderModelBuilder(DecoderModelBuilder):
     HF_EXPERT_UP = "block_sparse_moe.experts.{e}.w3.weight"
 
     def __init__(self, config):
-        tc = config.torch_config
-        if tc.quantized or tc.weight_int4:
-            raise NotImplementedError(
-                "quantized MoE weights (int8 / int4 experts, blockwise expert scales, "
-                "maybe_dequantize_int4) are not ported to PyTorch yet (ROADMAP A9)"
-            )
         super().__init__(config)
         # the base shapes read intermediate_size; checkpoints that declare
         # only moe_intermediate_size alias it
@@ -194,7 +191,16 @@ class MoEDecoderModelBuilder(DecoderModelBuilder):
 
     def host_read_tokens(self):
         """Prefill-sized steps of this model may take the grouped MoE route,
-        which reads its group sizes on the host (``modules/moe.py``)."""
+        which reads its group sizes on the host (``modules/moe.py``).
+        Blockwise-quantized experts (``quantization_type="blockwise"``, an
+        expert projection not in ``modules_to_not_convert``) never take it,
+        so their steps are all captured."""
+        tc = self.config.torch_config
+        if tc.quantized and tc.quantization_type == "blockwise":
+            skip = skip_keys(tc)
+            if any(not any(k in ("layers", "mlp", "experts", name) for k in skip)
+                   for name in ("gate_proj", "up_proj", "down_proj")):
+                return None
         return grouped_route_tokens(self.moe_spec())
 
     def mlp_fn(self):

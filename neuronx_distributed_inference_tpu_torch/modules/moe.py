@@ -22,12 +22,20 @@ reference's ``modules/moe.py``).
   with one matmul each, which costs one host read of the group sizes per
   layer at prefill.
 
-Experts are plain weights, with an optional bias (GPT-OSS's form). Top-k
-follows ``jax.lax.top_k``: a stable descending sort, so among equal values
-the lower index comes first, and the expert sort is stable, as
-``jnp.argsort`` is. Outside the port for now: shared experts, quantized
-expert entries (int8/fp8 scales, blockwise scales, int4) and DBRX (ROADMAP
-A9), expert parallelism and hybrid sharding (A10).
+Expert entries are plain weights, with an optional bias (GPT-OSS's form),
+or quantized as ``ops/quant.py`` makes them, and every route takes them as
+the reference's do: int8 / fp8 codes with per-channel ``(E, out)`` or
+per-tensor ``(E, 1)`` scales applied after the product; blockwise
+``(E, in / block, out)`` scales applied per block's partial product (the
+dense route only: a blockwise app never takes the grouped or capacity
+route); packed int4 entries dequantized to the activation dtype before the
+product (:func:`_expert_entry`; the grouped route one non-empty expert at a
+time, the same bits). B7 takes plain experts only
+(``kernel_mode.use_moe_tkg``), so scaled experts decode on the dense route.
+Top-k follows ``jax.lax.top_k``: a stable descending sort, so among equal
+values the lower index comes first, and the expert sort is stable, as
+``jnp.argsort`` is. Outside the port for now: shared experts and DBRX
+(ROADMAP A9), expert parallelism and hybrid sharding (A10).
 """
 
 from __future__ import annotations
@@ -42,6 +50,11 @@ from neuronx_distributed_inference_tpu_torch.config import to_dtype
 from neuronx_distributed_inference_tpu_torch.ops import _cuda
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import use_moe_tkg
 from neuronx_distributed_inference_tpu_torch.ops.moe_decode import fused_moe_decode
+from neuronx_distributed_inference_tpu_torch.ops.quant_matmul import (
+    dequantize_int4,
+    is_int4_entry,
+    maybe_dequantize_int4,
+)
 
 
 @dataclass(frozen=True)
@@ -158,16 +171,25 @@ def _glu_fn(spec: MoESpec):
     return glu
 
 
-def _plain_entry(entry: dict) -> dict:
-    """Expert entries the port runs: plain weights, optionally with a bias.
-    Quantized experts (int8 or fp8 codes with per-channel or blockwise
-    scales, packed int4 with ``maybe_dequantize_int4``) wait for ROADMAP A9."""
-    if "scale" in entry:
-        raise NotImplementedError(
-            "quantized MoE experts (scaled codes, blockwise scales, maybe_dequantize_int4) are not "
-            "ported to PyTorch yet (ROADMAP A9)"
-        )
-    return entry
+def _has_blockwise_scales(experts: dict) -> bool:
+    """True when an int8 / fp8 expert entry carries blockwise scales (a
+    scale of the weight's rank). Packed int4 entries are dequantized before
+    any product, so they never count."""
+    for name in ("gate_proj", "up_proj", "down_proj"):
+        entry = experts[name]
+        if is_int4_entry(entry):
+            continue
+        s = entry.get("scale")
+        if s is not None and s.dim() == entry["weight"].dim():
+            return True
+    return False
+
+
+def _expert_entry(entry: dict, x_in: torch.Tensor) -> dict:
+    """A packed int4 expert entry as a plain entry dequantized to
+    ``x_in``'s dtype over its ``x_in.shape[-1]`` input rows; any other entry
+    as it is."""
+    return maybe_dequantize_int4(entry, x_in.shape[-1], x_in.dtype)
 
 
 def _sorted_dispatch(affinities: torch.Tensor, k: int):
@@ -212,16 +234,24 @@ def _grouped_mm(entry: dict, x_rows: torch.Tensor, row_expert: torch.Tensor, gro
     """Grouped matmul over expert-sorted rows (the reference's ragged_dot):
     x_rows (R, in) sorted by expert, weight (E, in, out), ``group_sizes``
     the rows per expert as host ints -> (R, out); one matmul per non-empty
-    expert."""
-    entry = _plain_entry(entry)
+    expert. A packed int4 entry is dequantized one non-empty expert at a
+    time (the whole stack's bits, a slice of its memory); a per-channel or
+    per-tensor scale multiplies the rows after the product, then the bias
+    is added, as in the reference."""
     w = entry["weight"]
+    int4 = is_int4_entry(entry)
+    k = x_rows.shape[-1]
     y = x_rows.new_empty((x_rows.shape[0], w.shape[-1]))
     start = 0
     for e, n in enumerate(group_sizes):
         if n:
+            w_e = dequantize_int4(w[e], entry["scale"][e], k, x_rows.dtype) if int4 else w[e].to(x_rows.dtype)
             # the product lands in y's rows directly: one kernel an expert
-            torch.matmul(x_rows[start : start + n], w[e].to(x_rows.dtype), out=y[start : start + n])
+            torch.matmul(x_rows[start : start + n], w_e, out=y[start : start + n])
             start += n
+    s = entry.get("scale")
+    if s is not None and not int4:
+        y = y * s.to(y.dtype)[row_expert]
     if "bias" in entry:
         y = y + entry["bias"].to(y.dtype)[row_expert]
     return y
@@ -267,8 +297,11 @@ def expert_mlps_capacity(params: dict, x: torch.Tensor, affinities: torch.Tensor
     sww = sw.to(x.dtype)[:, None]
 
     def mm(entry, x_in, eq):
-        entry = _plain_entry(entry)
+        entry = _expert_entry(entry, x_in)
         y = torch.einsum(eq, x_in, entry["weight"].to(x_in.dtype))
+        s = entry.get("scale")
+        if s is not None:
+            y = y * s.to(y.dtype)[:, None, :]
         if "bias" in entry:
             y = y + entry["bias"].to(y.dtype)[:, None, :]
         return y
@@ -298,8 +331,27 @@ def expert_mlps_dense(
     affinities (zero outside the top-k)."""
 
     def expert_mm(entry, x_in, eq):
-        entry = _plain_entry(entry)
-        y = torch.einsum(eq, x_in, entry["weight"].to(x_in.dtype))
+        """The batched expert product with its scale and bias: blockwise
+        scales (the weight's rank) weigh each input block's partial product
+        before the sum over blocks; per-channel / per-tensor scales the
+        whole product."""
+        entry = _expert_entry(entry, x_in)
+        w = entry["weight"]
+        s = entry.get("scale")
+        if s is not None and s.dim() == w.dim():
+            G = s.shape[-2]
+            bs = w.shape[-2] // G
+            wb = w.reshape(w.shape[0], G, bs, w.shape[-1]).to(x_in.dtype)
+            xb = x_in.reshape(*x_in.shape[:-1], G, bs)
+            if x_in.dim() == 2:  # (T, in)
+                y = torch.einsum("tgb,egbo->egto", xb, wb)
+            else:  # (E, T, in)
+                y = torch.einsum("etgb,egbo->egto", xb, wb)
+            y = torch.einsum("egto,ego->eto", y, s.to(x_in.dtype))
+        else:
+            y = torch.einsum(eq, x_in, w.to(x_in.dtype))
+            if s is not None:
+                y = y * s.to(y.dtype)[:, None, :]
         if "bias" in entry:
             y = y + entry["bias"].to(y.dtype)[:, None, :]
         return y
@@ -341,9 +393,9 @@ def moe_layer(params: dict, hidden: torch.Tensor, spec: MoESpec) -> torch.Tensor
     reference chooses (``modules/moe.py:369-472``). Prefill (S at least
     ``sparse_dispatch_threshold``) takes a sparse route when E >= 16 k (or
     a capacity factor is set) and there is one expert-parallel rank; a
-    decode-sized call takes B7 where ``use_moe_tkg`` allows; the rest go
-    dense. (The reference's blockwise-scale condition waits for quantized
-    experts, ROADMAP A9.)"""
+    decode-sized call takes B7 where ``use_moe_tkg`` allows (plain experts
+    only); the rest go dense. Blockwise-scaled experts never take a sparse
+    route, as in the reference."""
     B, S, H = hidden.shape
     x = hidden.reshape(B * S, H)
     rdt = to_dtype(spec.router_dtype)
@@ -362,6 +414,7 @@ def moe_layer(params: dict, hidden: torch.Tensor, spec: MoESpec) -> torch.Tensor
         and big_ratio
         and spec.ep_degree == 1
         and spec.top_k < spec.num_experts
+        and not _has_blockwise_scales(experts)
     )
     if sparse_ok and spec.capacity_factor is not None:
         _cuda.count("moe_capacity")

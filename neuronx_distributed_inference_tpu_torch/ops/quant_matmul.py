@@ -141,16 +141,35 @@ def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor, k: int = None,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Unpack ``(..., Kp/2, N)`` codes and ``(..., Kp/G, N)`` scales back to
     the logical ``(..., k, N)`` weight (pad rows sliced off when ``k`` is
-    given); leading dims pass through."""
+    given); leading dims pass through.
+
+    Each value is the fp32 product of its code and its group's scale,
+    rounded once to ``dtype``, as the reference's fp32 dequantize and cast:
+    the signed codes stay one byte each and the product is stored straight
+    into ``dtype``, so no fp32 copy of the weight exists (a stacked expert
+    leaf dequantized per call)."""
     k2, n = packed.shape[-2], packed.shape[-1]
     kp = 2 * k2
     n_g = scale.shape[-2]
-    w = _codes(packed)
-    lead = w.shape[:-2]
-    w = (w.reshape(*lead, n_g, kp // n_g, n) * scale[..., None, :]).reshape(*lead, kp, n)
+    lead = packed.shape[:-2]
+    codes = torch.cat([packed & 15, packed >> 4], dim=-2).view(torch.int8).sub_(8)  # (..., Kp, N) in [-8, 7]
+    w = torch.empty((*lead, kp, n), dtype=dtype, device=packed.device)
+    torch.mul(codes.view(*lead, n_g, kp // n_g, n), scale[..., None, :], out=w.view(*lead, n_g, kp // n_g, n))
     if k is not None and k != kp:
         w = w[..., :k, :]
-    return w.to(dtype)
+    return w
+
+
+def maybe_dequantize_int4(entry: dict, k: int, dtype: torch.dtype) -> dict:
+    """A packed int4 entry as a plain dequantized ``(..., k, N)`` entry in
+    ``dtype`` (its bias kept), for the paths that do not read the packed
+    format (the MoE expert products); any other entry passes through."""
+    if not is_int4_entry(entry):
+        return entry
+    out = {"weight": dequantize_int4(entry["weight"], entry["scale"], k, dtype)}
+    if "bias" in entry:
+        out["bias"] = entry["bias"]
+    return out
 
 
 def quant_matmul_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -83,7 +83,11 @@ class FusedSpecModelForCausalLM:
             draft_spec=self.draft_spec, target_spec=self.target_spec,
             draft_mlp_fn=self.draft_builder.mlp_fn(), target_mlp_fn=self.target_builder.mlp_fn(),
         )
-        self._cte = _Programs(TAG_FUSED_CTE)
+        # a prefill that reaches an MoE grouped route reads group sizes on
+        # the host: such programs run eagerly (model_runner._Programs)
+        reads = [n for n in (self.target_builder.host_read_tokens(), self.draft_builder.host_read_tokens())
+                 if n is not None]
+        self._cte = _Programs(TAG_FUSED_CTE, min(reads) if reads else None)
         self._tkg = _Programs(TAG_FUSED_TKG)
         self.graphs: Optional[GraphSet] = None
         self._rng = torch.Generator(device=self.device)

@@ -1685,6 +1685,13 @@ class SpeculativeServingSession(ServingSession):
       bucket). Each request's draft length adapts to its acceptance EWMA on
       the fixed ladder :attr:`draft_len_choices`, so it changes data, never
       a program.
+
+    Either app may be an MoE model. Each MoE layer routes by its call's
+    rows and tokens per row (``modules/moe.moe_layer``): a k-token verify
+    of 8 rows takes the dense route at Qwen3's top-8 (256 selections) and
+    B7 at Mixtral's top-2 (64); the spec family's runner runs mixed steps
+    of the builder's ``host_read_tokens`` packed tokens or more eagerly, as
+    the plain ragged step does.
     """
 
     def __init__(
@@ -1697,12 +1704,6 @@ class SpeculativeServingSession(ServingSession):
         clock=None,
         sleep_fn=None,
     ):
-        if app.builder.is_moe or draft_app.builder.is_moe:
-            raise NotImplementedError(
-                "speculative serving with an MoE target or draft is not ported to "
-                "PyTorch yet (ROADMAP A9 (MoE speculation)); serve the MoE model "
-                "through ServingSession"
-            )
         tc = app.config.torch_config
         self.spec_ragged = bool(tc.serving_spec_ragged)
         super().__init__(app, telemetry=telemetry, fault_injector=fault_injector, clock=clock, sleep_fn=sleep_fn)

@@ -47,6 +47,28 @@ def test_kernels_match_plain_on_the_card(cuda_card):
 
 
 @pytest.mark.gpu
+def test_qwen3_int4_projections_and_quantized_experts_on_the_card(cuda_card):
+    """B6 at Qwen3-30B-A3B's 2D int4 projections (fused QKV 2048 -> 5120,
+    o 4096 -> 2048, lm head 2048 -> 151936) at 1 and 8 rows, bf16 and fp32,
+    against its plain version, each case launched twice more,
+    bit-identical (chip_smoke.qwen3_qmm_parity); and modules/moe.moe_layer
+    on int8 (per channel, per tensor, blockwise), fp8 and grouped int4
+    experts on the card against the same call on the CPU, fp32, on the
+    dense, grouped and capacity routes, the same route counted on both and
+    no kernel launched (chip_smoke.quant_moe_parity)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops import quant_matmul as qmm
+
+    _cuda.reset_launch_counts()
+    n = chip_smoke.qwen3_qmm_parity(torch, qmm)
+    assert n == len(chip_smoke.QWEN3_QMM_SHAPES) * len(chip_smoke.QWEN3_QMM_ROWS) * 2
+    assert _cuda.launch_counts()["quant_matmul"] == 3 * n
+    assert chip_smoke.quant_moe_parity(torch) == 14
+
+
+@pytest.mark.gpu
 def test_qwen3_head_shape_kernels_match_plain_on_the_card(cuda_card):
     """B4, B5 and B3 at Qwen3-30B-A3B's head shape (32 q / 4 kv heads of
     128, n_rep 8, blocks of 32, bf16) against their plain versions: B4 at

@@ -40,13 +40,16 @@ def _imported_modules(path: Path):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    scripts = sorted((REPO / "scripts").glob("torch_*.py"))
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"] + scripts
     assert len(files) > 15
     scanned = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
     assert {
         "workload/__init__.py", "workload/generator.py", "workload/driver.py", "workload/slo.py",
-        "telemetry/slo_monitor.py", "telemetry/ops_server.py",
+        "telemetry/slo_monitor.py", "telemetry/ops_server.py", "ops/quant.py", "ops/quant_matmul.py",
+        "modules/moe.py", "models/mixtral.py", "runtime/fused_spec.py",
     } <= scanned
+    assert {f.name for f in scripts} >= {"torch_build_times.py", "torch_router_times.py"}
     bad = [
         (str(f.relative_to(REPO)), mod)
         for f in files
@@ -331,18 +334,28 @@ def test_moe_config_matches_reference():
 
 @pytest.mark.parametrize("kw", [dict(weight_dtype="int8"), dict(quantized=True), dict(weight_dtype="int4")])
 def test_quantized_moe_raises_naming_a9(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        _moe_app(**kw)
+    """Quantized MoE weights load and generate under MoEConfig and the
+    plain Config (their experts quantized with the other linears, the
+    router not); what stays refused names its ROADMAP item: shared experts
+    (A9)."""
     from neuronx_distributed_inference_tpu_torch.config import Config
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        _moe_app(Config, **kw)
+    for cls in (None, Config):
+        app = _moe_app(cls, **kw).load(random_weights=True)
+        experts = app.params["layers"][0]["mlp"]["experts"]
+        want = torch.uint8 if kw.get("weight_dtype") == "int4" else torch.int8
+        assert all(experts[k]["weight"].dtype == want and "scale" in experts[k] for k in experts)
+        assert "scale" not in app.params["layers"][0]["mlp"]["router"]
+        out = app.generate(np.array([[1, 2, 3]]), max_new_tokens=3)
+        assert out.sequences.shape == (1, 6)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(shared experts\)"):
+        _moe_app(fused_shared_experts=True, **kw)
 
 
 def test_serving_an_moe_model_raises_naming_a9():
     """generate() and the serving sessions (split and ragged) run an MoE
-    model; speculative serving with an MoE target or draft raises naming
-    ROADMAP A9 (MoE speculation)."""
+    model, and speculative serving builds with an MoE target, draft or
+    both (no "ROADMAP A9 (MoE speculation)" refusal is left)."""
     from neuronx_distributed_inference_tpu_torch.runtime.serving import (
         ServingSession,
         SpeculativeServingSession,
@@ -354,9 +367,9 @@ def test_serving_an_moe_model_raises_naming_a9():
     assert _moe_app(**serve, serving_ragged=True).load(random_weights=True).mixed_step_model is not None
     plain = dict(is_continuous_batching=True, batch_size=2, ctx_batch_size=1)
     moe = _moe_app(**plain).load(random_weights=True)
-    dense = _serving_app()
+    dense = _serving_app(token_generation_buckets=[128])
     for target, draft in ((moe, moe), (moe, dense), (dense, moe)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(MoE speculation\)"):
-            SpeculativeServingSession(target, draft, speculation_length=3)
+        sess = SpeculativeServingSession(target, draft, speculation_length=3)
+        assert sess.k == 3 and sess.num_slots == 2 and not sess.spec_ragged
     out = _moe_app().load(random_weights=True).generate(np.array([[1, 2, 3]]), max_new_tokens=3)
     assert out.sequences.shape == (1, 6)

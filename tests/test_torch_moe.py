@@ -445,20 +445,35 @@ def test_use_moe_tkg_gates():
     assert jax_use_moe_tkg(forced, jparams, 32) and not jax_use_moe_tkg(forced, jparams, 33)
 
 
-@pytest.mark.parametrize(
-    "entry",
-    [
-        {"weight": torch.zeros(8, H // 2, I, dtype=torch.uint8), "scale": torch.ones(8, 1, I)},  # int4
-        {"weight": torch.zeros(8, H, I, dtype=torch.int8), "scale": torch.ones(8, I)},  # int8 per channel
-        {"weight": torch.zeros(8, H, I, dtype=torch.int8), "scale": torch.ones(8, H // 16, I)},  # blockwise
-    ],
-    ids=["int4", "int8", "blockwise"],
-)
+def _quantized_gate(kind, w):
+    """The gate projection's (E, H, I) weight quantized by the JAX
+    package's quantizer (numpy in, numpy out): int4 grouped (groups of 16),
+    int8 per channel, int8 blockwise (blocks of 16)."""
+    from neuronx_distributed_inference_tpu.ops import quant as jquant
+    from neuronx_distributed_inference_tpu.ops.quant_matmul import quantize_tensor_int4
+
+    if kind == "int4":
+        return quantize_tensor_int4(w, 16)
+    if kind == "int8":
+        return jquant.quantize_tensor(w, "int8")
+    return jquant.quantize_tensor_blockwise(w, "int8", 16)
+
+
+@pytest.mark.parametrize("kind", ["int4", "int8", "blockwise"])
 @pytest.mark.parametrize("S", [1, 64])
-def test_quantized_experts_are_refused_naming_a9(entry, S):
+def test_quantized_experts_match_jax(kind, S):
+    """A quantized gate projection beside plain up / down ones (each
+    format in its own case) runs as JAX's moe_layer runs it: S = 1 on the
+    dense route (B7 takes plain experts only), S = 64 on the grouped route,
+    or the dense one for blockwise scales, at fp32 within 2e-5."""
     rng = np.random.RandomState(9)
-    _, tp = _layer(rng, 32)
-    tp["experts"]["gate_proj"] = entry
-    spec = tmoe.MoESpec(num_experts=32, top_k=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tmoe.moe_layer(tp, torch.zeros(1, S, H), spec)
+    p = {"router": {"weight": rng.randn(H, 32).astype(np.float32)}, "experts": _experts(rng, 32)}
+    p["experts"]["gate_proj"] = _quantized_gate(kind, p["experts"]["gate_proj"]["weight"])
+    jp, tp = _tree(p, jnp.asarray), _tree(p, _t)
+    x = rng.randn(1, S, H).astype(np.float32) * 0.3
+    ref = jmoe.moe_layer(jp, jnp.asarray(x), jmoe.MoESpec(num_experts=32, top_k=2))
+    _cuda.reset_launch_counts()
+    out = tmoe.moe_layer(tp, _t(x), tmoe.MoESpec(num_experts=32, top_k=2))
+    np.testing.assert_allclose(_np(out), np.asarray(ref), atol=ATOL, rtol=ATOL)
+    route = "moe_grouped" if S == 64 and kind != "blockwise" else "moe_dense"
+    assert _cuda.route_counts() == {"int4_dense": 0, "moe_dense": 0, "moe_grouped": 0, "moe_capacity": 0, route: 1}
