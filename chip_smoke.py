@@ -129,6 +129,23 @@ Phases, in order; any failure exits non-zero:
      ragged 1-ahead drain; the split path with (b) (B1 K = 4 verify
      launches); FusedSpecModelForCausalLM with (a) and (b) beside plain
      generate().
+13b. EAGLE, EAGLE3, token trees and Medusa (ROADMAP A7's rest): B1 under
+     tree ancestry masks at Llama-3.1-8B's heads (eagle_tree_parity: both
+     trees' verify masks, K = 16 and 13, and a draft level of each, batch 1
+     and 4, buckets 512 and 1024, a tree across a kv split boundary, dead
+     splits; bf16 and fp32; each bit-identical twice), B1 at the static
+     tree's verify point and B2a at the 8B prefill timed
+     (eagle_kernel_times), and, after the int4 8B row, phase_eagle_8b:
+     Llama-3.1-8B in bf16 at full width and depth, loaded once, its plain
+     generate() and teacher-forced gate, then the EAGLE chain (k = 5, the
+     reference's correlated draft), EAGLE3 (a random draft of vocab 32000
+     with d2t), the static tree (16 nodes) and the dynamic tree (13) with
+     the fused decode layer on (no B8 / B9 launch under a tree), Medusa (k
+     = 6, 5 random heads) and the sampled chain (reproduced by a second app
+     of its seed), each at batch 1, 128 + 64 tokens, with exact B2 / B1
+     counts, no capture after the seal and the token gate; then the chain
+     and both trees on the target cut to one layer in fp32 with an exact
+     draft (that layer): acceptance >= 0.9.
  14. the multi-replica front-end (phase_router): bench.py's
      serving_1b_int8_router, _router_threaded, _elastic and _disagg rows
      (the int8 1B at full width and depth, 2 replicas sharing the card,
@@ -3645,8 +3662,9 @@ def qwen3_spec_kernels(torch, da, rp):
     )}
 
 
-#: the MoE speculation drains: new tokens a request
-QWEN3_SPEC_GEN = 64
+#: the MoE speculation drains: new tokens a request (cut from 64 to fit
+#: the script's time limit)
+QWEN3_SPEC_GEN = 32
 
 
 def _config_qwen3_spec(kind, **kw):
@@ -4464,7 +4482,9 @@ def phase_graphs(torch, params):
     """Graphs on and off, in turns, on the 1B weights: generate() with the
     fused decode layer off and on at batch 1 and 4 (sealed by warmup), and
     the split and ragged serving drains of _serve's traffic, synchronous and
-    1-ahead (sealed after a warm pass), each through graph_pair."""
+    1-ahead (sealed after a warm pass), each through graph_pair, which
+    profiles the graphed run only (the eager runs' profiles were cut to fit
+    the script's time limit; PERF.md §5 keeps earlier ones)."""
     from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_1B
     from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
     from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
@@ -4487,7 +4507,7 @@ def phase_graphs(torch, params):
             def prof(app, seq, label=label):
                 return phase_profile(torch, app, seq, prompt_len, label=label)
 
-            out[("generate", batch, fused)] = graph_pair(torch, label, make, run, prof)
+            out[("generate", batch, fused)] = graph_pair(torch, label, make, run, prof, profile_off=False)
 
     s = SERVING
     rng = np.random.RandomState(0)  # phase_serving's prompts
@@ -4515,7 +4535,7 @@ def phase_graphs(torch, params):
             elif not one_ahead:
                 def prof(app, _tokens):
                     return phase_serving_profile(torch, app)
-            out[(kind, one_ahead)] = graph_pair(torch, label, make, run, prof, warm_pass=True)
+            out[(kind, one_ahead)] = graph_pair(torch, label, make, run, prof, warm_pass=True, profile_off=False)
     return out
 
 
@@ -5864,6 +5884,457 @@ def phase_fused_spec(torch, params, margin):
 
 
 # ---------------------------------------------------------------------------
+# 13b. EAGLE, token trees and Medusa (ROADMAP A7's rest) on Llama-3.1-8B
+# ---------------------------------------------------------------------------
+
+#: phase_eagle_8b's static tree: 16 nodes, depth 4, levels of 1, 4, 6, 4, 1
+EAGLE_TREE = {0: [1, 2, 3, 4], 1: [5, 6, 7], 2: [8, 9], 3: [10], 5: [11, 12], 6: [13], 8: [14], 11: [15]}
+#: its dynamic tree: levels of 1, 3, 3, 3, 3 (13 nodes)
+EAGLE_DYN = {"step": 4, "branching_factor": 3, "num_inputs": 1}
+#: the EAGLE chains' speculation length, Medusa's verify length and heads
+#: (FasterDecoding/medusa-vicuna-7b-v1.3: medusa_num_heads=5), EAGLE3's
+#: draft vocab (yuhuili/EAGLE3-LLaMA3.1-Instruct-8B)
+EAGLE_K, MEDUSA_K, MEDUSA_HEADS, EAGLE3_DRAFT_VOCAB = 5, 6, 5, 32000
+EAGLE_PROMPT, EAGLE_NEW = 128, 64
+#: Llama-3.1-8B's attention heads
+HEADS_8B = dict(Hq=32, Hkv=8, D=128)
+
+
+def _dynamic_ancestry(rng, dyn):
+    """One dynamic-tree round's (N, N) ancestry: at each level the frontier
+    (num_inputs nodes, the root at step 0) drawn at random, expanding
+    branching_factor children each, as dynamic_tree_token_gen lays them out."""
+    N = dyn.num_nodes
+    parent = np.zeros(N, np.int64)
+    for s in range(dyn.steps):
+        off, w = dyn.level_offsets[s], dyn.level_widths[s]
+        sel = off + np.sort(rng.choice(w, size=min(dyn.ni, w) if s else 1, replace=False))
+        o, nw = dyn.level_offsets[s + 1], dyn.level_widths[s + 1]
+        parent[o : o + nw] = np.repeat(sel, dyn.bf)[:nw]
+    anc = np.eye(N, dtype=bool)
+    for n in range(1, N):  # a parent's row is complete before its children's
+        anc[n] |= anc[parent[n]]
+    return anc
+
+
+def tree_masks(torch, B, bucket, roots):
+    """{case: (B, 1, K, bucket) mask} of the 8B phase's trees with their
+    roots at ``roots`` (B,): both verify passes (the static tree's 16 nodes,
+    the dynamic tree's 13) and a draft level of each (K = 4 and 3)."""
+    from neuronx_distributed_inference_tpu_torch.modules.token_tree import (
+        DynamicTokenTree,
+        TokenTree,
+        _place_dynamic_mask,
+        place_tree_mask,
+    )
+
+    tree, dyn = TokenTree(EAGLE_TREE), DynamicTokenTree(EAGLE_DYN)
+    anc = torch.from_numpy(_dynamic_ancestry(np.random.RandomState(B * bucket), dyn)).cuda()
+    p = torch.tensor(roots, dtype=torch.int32, device="cuda")[:, None]
+    t = tree.tensors("cuda")
+    lvl = slice(dyn.level_offsets[2], dyn.level_offsets[2] + dyn.level_widths[2])
+    return {
+        "static verify K=16": place_tree_mask(t["anc_mask"], p, bucket),
+        "static level 1 K=4": place_tree_mask(t["anc_levels"][1], p, bucket),
+        "dynamic verify K=13": _place_dynamic_mask(anc[None].expand(B, -1, -1), p, bucket),
+        "dynamic level 2 K=3": _place_dynamic_mask(anc[None, lvl].expand(B, -1, -1), p, bucket),
+    }
+
+
+def eagle_tree_parity(torch, da):
+    """B1 under token-tree ancestry masks (modules/token_tree.place_tree_mask
+    and _place_dynamic_mask: non-causal over the K rows, at the cache tail,
+    a K stride of one bucket row) at Llama-3.1-8B's heads (32 q / 8 kv of
+    128): tree_masks' four cases, batch 1 and 4, buckets 512 and 1024, bf16
+    and fp32; the roots put a tree across a kv split boundary (batch 1: the
+    only row), one shallow enough that its later splits are all masked
+    (dead), one at the bucket's end and one mid-way. Against the plain
+    version within check_close's bound; each case twice more,
+    bit-identical. Returns the case count."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    rng = np.random.RandomState(19)
+    sms = _cuda.sm_count(torch.device("cuda"))
+    Hq, Hkv, D = HEADS_8B["Hq"], HEADS_8B["Hkv"], HEADS_8B["D"]
+    n, worst = 0, 0.0
+    for B in (1, 4):
+        for bucket in (512, 1024):
+            splits, per = da.decode_kv_split(bucket, B * Hkv, sms)
+            straddle = 3 * per - 5  # its 16 nodes cross the boundary at 3 * per
+            roots = [straddle, 7, bucket - 17, bucket // 2 + 3][:B]
+            masks = tree_masks(torch, B, bucket, roots)
+            for dtype in (torch.bfloat16, torch.float32):
+                kc = torch.from_numpy(rng.randn(2, B + 1, 1024, Hkv, D).astype(np.float32) * 0.5).to("cuda", dtype)
+                vc = torch.from_numpy(rng.randn(2, B + 1, 1024, Hkv, D).astype(np.float32) * 0.5).to("cuda", dtype)
+                for name, mask in masks.items():
+                    K = mask.shape[2]
+                    q = torch.from_numpy(rng.randn(B, K, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", dtype)
+                    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+                    case = (f"tree {name} B={B} bucket={bucket} roots {roots} {str(dtype)[6:]} "
+                            f"splits={splits}x{per}")
+                    worst = max(worst, check_decode(torch, da, q, kc, vc, 1, mask, None, kw, case))
+                    check_repeat(torch, "tkg_decode_attention",
+                                 lambda: da.tkg_decode_attention(q, kc, vc, 1, mask, None, **kw), case)
+                    n += 1
+            del kc, vc
+    log(f"tkg_decode_attention under tree masks: {n} cases agree with the plain version, each bit-identical "
+        f"twice (largest abs err {worst:.3e})")
+    return n
+
+
+def eagle_kernel_times(torch, fa, da):
+    """B1 at the static tree's verify point (K = 16 under its ancestry mask,
+    batch 1, bucket 1024, the root 200 deep) and B2a at the 8B EAGLE prefill
+    (batch 1, 128 tokens, D = 128), 8B heads, bf16: each held to its plain
+    version, then timed beside the plain version, SDPA (B1: over the cache
+    slice gathered beforehand, under the same mask) and the bound."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(20)
+    Hq, Hkv, D = HEADS_8B["Hq"], HEADS_8B["Hkv"], HEADS_8B["D"]
+    B, L, bucket = 1, 16, 1024
+    mask = tree_masks(torch, B, bucket, [200])["static verify K=16"]
+    K = mask.shape[2]
+    q = torch.from_numpy(rng.randn(B, K, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", torch.bfloat16)
+    kc = torch.from_numpy(rng.randn(L, B + 1, bucket, Hkv, D).astype(np.float32) * 0.5).to("cuda", torch.bfloat16)
+    vc = torch.from_numpy(rng.randn(L, B + 1, bucket, Hkv, D).astype(np.float32) * 0.5).to("cuda", torch.bfloat16)
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    state = {"layer": 0}
+
+    def next_layer():
+        state["layer"] = (state["layer"] + 1) % L
+        return state["layer"]
+
+    case = f"timed tree verify B=1 K={K} bucket={bucket} root 200 deep 8B heads bf16"
+    err = check_decode(torch, da, q, kc, vc, 0, mask, None, kw, case)
+    log_split(torch, da, B, Hkv, bucket)
+    qt = q.transpose(1, 2)
+    kt = kc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    vt = vc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kc, vc, next_layer(), mask, None, **kw))
+    plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_layer(), mask, None, **kw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    b_ms, b_by = bound(*decode_work(q, kc, mask))
+    log(f"tkg_decode_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+    rows = {("decode_attention_tree", bucket): dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )}
+    del kc, vc
+    S = EAGLE_PROMPT
+    q, k, v = fused_qkv_inputs(torch, rng, B, S, Hq, Hkv, D, torch.bfloat16, hidden=4096)
+    key_valid = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    fkw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=None, chunk=None)
+    case = f"timed 8B prefill B=1 S={S} Hq={Hq} Hkv={Hkv} D={D} bf16"
+    err = check_flash(torch, fa, q, k, v, key_valid, fkw, case)
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw))
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, key_valid, **fkw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    b_ms, b_by = bound(*flash_work(q, k, key_valid, fa.prefill_mask(key_valid)))
+    log(f"flash_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+    rows[("flash_attention", "eagle")] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )
+    return rows
+
+
+def _config_8b(layers=None, **kw):
+    """Llama-3.1-8B in bf16 at the bf16_8b_int4 row's shape (batch 1, seq
+    1024, CTE bucket [128], TKG bucket [512], fused QKV); ``layers`` cuts
+    the depth."""
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_8B
+
+    model = dict(LLAMA_8B, num_hidden_layers=layers or LLAMA_8B["num_hidden_layers"])
+    return _config(1, model=model, context_encoding_buckets=[128], token_generation_buckets=[512], **kw)
+
+
+def _config_8b_draft(kind, **attrs):
+    """An EAGLE draft at the 8B widths: one layer, ``kind`` (llama-eagle or
+    llama-eagle3), seed 1."""
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_8B
+
+    model = dict(LLAMA_8B, num_hidden_layers=1, model_type=kind, **attrs)
+    return _config(1, model=model, context_encoding_buckets=[128], token_generation_buckets=[512], seed=1)
+
+
+def correlated_eagle_draft(torch, params, half="feature"):
+    """The reference's spec_bench draft (scripts/spec_bench.py:78-119) in the
+    port's terms: the target's embedding, lm head, final norm, rope and layer
+    0 (the same tensors), and a pass-through fc: [embed | feature] ->
+    feature. ``half="embed"`` passes the embedding through instead: then
+    the draft is exactly a one-layer target of the same weights."""
+    emb = params["embed_tokens"]["weight"]
+    H = emb.shape[1]
+    fc = torch.zeros((2 * H, H), dtype=emb.dtype, device=emb.device)
+    rows = slice(H, None) if half == "feature" else slice(None, H)
+    fc[rows] = torch.eye(H, dtype=emb.dtype, device=emb.device)
+    keep = ("embed_tokens", "lm_head", "norm", "rope")
+    return dict({k: params[k] for k in keep}, layers=[params["layers"][0]], fc={"weight": fc})
+
+
+def _unique_bytes(*trees):
+    """Device bytes of the tensors in ``trees``, each storage counted once
+    (a draft shares the target's embedding and layer)."""
+    seen, total = set(), 0
+
+    def walk(t):
+        nonlocal total
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        elif t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            total += t.numel() * t.element_size()
+
+    for tree in trees:
+        walk(tree)
+    return total
+
+
+def _eagle_apps(torch, params, exact_params=None):
+    """The apps of phase_eagle_8b: (label, make(), per round: B1 K = 1
+    launches, B1 K > 1 draft launches, B2 launches of the prefill, tokens a
+    round at most, exact). Over the 8B ``params``: the EAGLE chain, EAGLE3,
+    both trees, Medusa and the sampled chain; with ``exact_params`` (the
+    first layer, fp32) instead, the chain and both trees on the exact
+    draft."""
+    from neuronx_distributed_inference_tpu_torch.config import FusedSpecConfig
+    from neuronx_distributed_inference_tpu_torch.modules.token_tree import DynamicTokenTree, TokenTree
+    from neuronx_distributed_inference_tpu_torch.runtime.fused_spec import EagleSpecModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.runtime.medusa import MedusaModelForCausalLM
+
+    L = len(params["layers"])
+    spec = dict(speculation_length=EAGLE_K, enable_fused_speculation=True, enable_eagle_speculation=True)
+    # the fused decode layer is on under the trees: B8 and B9 must stay off
+    fused = dict(fused_attn_block_kernel_enabled=True, fused_mlp_kernel_enabled=True)
+    exact32 = dict(layers=1, dtype="float32")
+
+    def eagle(draft_kind, draft=None, target=params, cfg=None, draft_attrs=None, **kw):
+        def make():
+            c = _config_8b(**spec, **(cfg or {}), **kw)
+            dcfg = _config_8b_draft(draft_kind, **(draft_attrs or {}))
+            dcfg.torch_config.dtype = c.torch_config.dtype
+            c.fused_spec_config = FusedSpecConfig(draft_config=dcfg)
+            app = EagleSpecModelForCausalLM(None, c)
+            if draft is None:  # EAGLE3: random at the published widths, seeded
+                return app.load(target_params=target, random_weights=True)
+            return app.load(target_params=target, draft_params=draft)
+        return make
+
+    def medusa():
+        app = MedusaModelForCausalLM(None, _config_8b(medusa_speculation_length=MEDUSA_K, num_medusa_heads=MEDUSA_HEADS))
+        return app.load(params=dict(params, medusa_heads=app.random_heads()))
+
+    def passes(levels):  # a draft's passes a round by K: (K = 1, K > 1)
+        return sum(w == 1 for w in levels), sum(w > 1 for w in levels)
+
+    static = [len(lv) for lv in TokenTree(EAGLE_TREE).levels]
+    dyn = DynamicTokenTree(EAGLE_DYN)
+    chain = (EAGLE_K, 0)
+    if exact_params is not None:
+        exact = correlated_eagle_draft(torch, exact_params, half="embed")
+        ex = dict(target=exact_params, cfg=exact32)
+        return [
+            ("exact draft: eagle chain", eagle("llama-eagle", exact, **ex), *chain, 2, EAGLE_K, True),
+            ("exact draft: static tree", eagle("llama-eagle", exact, token_tree_config=EAGLE_TREE, **ex, **fused),
+             *passes(static), 2, len(static), True),
+            ("exact draft: dynamic tree", eagle("llama-eagle", exact, token_tree_config=EAGLE_DYN, **ex, **fused),
+             *passes(dyn.level_widths), 2, dyn.k_out, True),
+        ]
+    draft = correlated_eagle_draft(torch, params)
+    sampled = dict(on_device_sampling_config=dict(do_sample=True, top_k=SAMPLED_PARAMS["top_k"]))
+    return [
+        ("eagle chain", eagle("llama-eagle", draft), *chain, L + 1, EAGLE_K, False),
+        ("eagle3 chain", eagle("llama-eagle3", draft_attrs=dict(draft_vocab_size=EAGLE3_DRAFT_VOCAB), is_eagle3=True),
+         *chain, L + 1, EAGLE_K, False),
+        ("static tree", eagle("llama-eagle", draft, token_tree_config=EAGLE_TREE, **fused),
+         *passes(static), L + 1, len(static), False),
+        ("dynamic tree", eagle("llama-eagle", draft, token_tree_config=EAGLE_DYN, **fused),
+         *passes(dyn.level_widths), L + 1, dyn.k_out, False),
+        ("medusa", medusa, 0, 0, L, MEDUSA_K, False),
+        ("sampled eagle chain", eagle("llama-eagle", draft, **sampled), *chain, L + 1, EAGLE_K, False),
+    ]
+
+
+def _eagle_run(torch, label, make, prompt, sample_kw):
+    """A warm generate() (first-use captures), the seal, then the measured
+    one with the counts read around it and each round's accepted count
+    recorded. Returns (app, sequences, seconds, launches, counts, captures
+    after the warm run, peak bytes)."""
+    app = make()
+    counts = []
+    call = app._call
+
+    def counted(prog, phase, arrs, bucket, fn):
+        tokens, c = call(prog, phase, arrs, bucket, fn)
+        if phase == "tkg":
+            counts.append(c.cpu().numpy())
+        return tokens, c
+
+    app._call = counted
+    app.generate(prompt, max_new_tokens=EAGLE_NEW, **sample_kw)
+    app.seal()
+    captures = app.graphs.captures
+    counts.clear()
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    _cuda.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seq = app.generate(prompt, max_new_tokens=EAGLE_NEW, **sample_kw).sequences
+    secs = time.perf_counter() - t0
+    launches, peak = all_counts(), torch.cuda.max_memory_allocated()
+    if app.graphs.captures != captures:
+        raise SystemExit(f"{label}: {app.graphs.captures - captures} captures after the seal")
+    return app, seq, secs, launches, np.concatenate(counts), captures, peak
+
+
+def _eagle_check(torch, label, make, prompt, k_out, want, plain, params, margin, exact=False, sample_kw=None):
+    """One app of phase_eagle_8b: _eagle_run, its counts against ``want``
+    (rounds -> expected counts), the tokens in the vocab, the token gate
+    (greedy; with ``exact``, the draft being its target, acceptance of at
+    least OWN_DRAFT_ACCEPTANCE), the round's device ms (its graph replayed)
+    and the printed line. A sampled app (``sample_kw``) must draw the same
+    tokens in a second app of its seed instead of the token gate."""
+    t_app = time.perf_counter()
+    app, seq, secs, launches, counts, captures, peak = _eagle_run(torch, label, make, prompt, sample_kw or {})
+    rounds, P = len(counts), prompt.shape[1]
+    if launches != want(rounds):
+        raise SystemExit(f"{label}: launches {launches} != {want(rounds)}")
+    gen = seq[0, P:]
+    if gen.shape != (EAGLE_NEW,) or gen.min() < 0 or gen.max() >= plain.spec.vocab_size:
+        raise SystemExit(f"{label}: bad tokens: shape {gen.shape}, range [{gen.min()}, {gen.max()}]")
+    round_ms = time_ms(torch, next(iter(app._tkg.captured.values())).replay, iters=10, warmup=2)
+    p_bytes = _unique_bytes(params, getattr(app, "draft_params", {}), getattr(app, "params", {}))
+    accept = (counts.mean() - 1) / (k_out - 1)
+    log(f"{label}, batch 1, {P} + {EAGLE_NEW} tokens: {secs * 1e3:.1f} ms, {EAGLE_NEW / secs:.1f} tok/s (generate() "
+        f"wall time, prefill included, one run); {rounds} rounds, {counts.mean():.3f} tokens a round of at most "
+        f"{k_out} (acceptance {accept:.4f}); device {round_ms:.3f} ms a round (its graph replayed); params "
+        f"{p_bytes / 2**30:.3f} GiB, peak {peak / 2**30:.3f} GiB; {captures} captures, none after the seal; "
+        f"launches {launches}")
+    res = dict(tok_s=EAGLE_NEW / secs, rounds=rounds, tokens_a_round=float(counts.mean()), acceptance=accept,
+               round_ms=round_ms, params_bytes=p_bytes, peak_bytes=peak, launches=launches)
+    if sample_kw:
+        twin = _eagle_run(torch, label, make, prompt, sample_kw)
+        if not np.array_equal(seq, twin[1]):
+            raise SystemExit(f"{label}: two apps of one seed drew different tokens")
+        log(f"  {label}: a second app of the same seed drew the same {EAGLE_NEW} tokens")
+        del twin
+    else:
+        rejections, pos = [], P  # pos: each round's first position
+        for c in counts.tolist():
+            if c < k_out:
+                rejections.append(pos + c)
+            pos += c
+        res["gate"] = spec_token_gate(torch, plain, params, [prompt[0].tolist()], {"0": gen.tolist()}, margin,
+                                      label, {"0": rejections})
+    if exact and accept < OWN_DRAFT_ACCEPTANCE:
+        raise SystemExit(f"{label}: acceptance {accept:.4f} < {OWN_DRAFT_ACCEPTANCE}, the draft being the target")
+    del app
+    gc.collect()  # the counting wrapper holds the app in a cycle
+    torch.cuda.empty_cache()
+    log(f"  {label}: {time.perf_counter() - t_app:.1f} s")
+    return res
+
+
+def phase_eagle_8b(torch):
+    """A7's rest on Llama-3.1-8B at full width and depth, bf16, seeded random
+    weights loaded once: plain generate() (its tok/s and the teacher-forced
+    gate of the kernel path against fp32, whose largest error sets the token
+    gate's margin), then, each sharing the target's params, the EAGLE chain
+    (k = 5, the correlated draft), EAGLE3 (k = 5, a random one-layer draft
+    of vocab 32000 with d2t), the static tree (16 nodes) and the dynamic
+    tree (13) on the correlated draft with the fused decode layer turned on
+    (B8 and B9 must not run under a tree), Medusa (k = 6, 5 random heads)
+    and the sampled EAGLE chain: batch 1, a 128-token prompt, 64 new tokens.
+    Each: exact B2 / B1 counts (K > 1 passes on decode_attention_verify, the
+    rest 0), no capture after the seal, the token gate (greedy: every
+    committed token is the teacher-forced argmax where the top-2 margin
+    exceeds twice the kernel path's largest error against fp32; rejections
+    at decided positions counted), acceptance, tokens a round, tok/s beside
+    plain generate(), device ms a round, params bytes and peak memory; the
+    sampled chain reproduces its tokens in a second app of the same seed.
+
+    The correlated draft proposes the token it was handed again (its fc
+    passes the feature through: the hidden that produced that token), so it
+    is accepted only where the target repeats a token. So the chain and
+    both trees run again on an EXACT draft: the target cut to its first
+    layer, in fp32 (bf16 rounds a draft pass of a few rows and the verify
+    pass of 16 apart), and its draft that layer with fc passing the
+    embedding through, which computes what the target computes: acceptance
+    must reach OWN_DRAFT_ACCEPTANCE (the fp32 twin's bar of the earlier
+    speculation phases). Its token gate's margin is twice the kernel path's
+    largest logit difference from the plain path, both fp32."""
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_8B
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = ModelForCausalLM(None, _config_8b()).load(random_weights=True).params
+    torch.cuda.synchronize()
+    L = len(params["layers"])
+    log(f"eagle 8B: bf16 target load {time.perf_counter() - t0:.2f} s, params "
+        f"{_unique_bytes(params) / 2**30:.3f} GiB, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    prompt = np.random.RandomState(0).randint(0, LLAMA_8B["vocab_size"], size=(1, EAGLE_PROMPT))
+
+    def plain_run_8b(cfg_fn, p):
+        app = ModelForCausalLM(None, cfg_fn()).load(params=p).warmup()
+        app.generate(prompt, max_new_tokens=EAGLE_NEW)
+        t0 = time.perf_counter()
+        ref = app.generate(prompt, max_new_tokens=EAGLE_NEW).sequences
+        return app, ref, EAGLE_NEW / (time.perf_counter() - t0)
+
+    plain, ref, plain_tok_s = plain_run_8b(_config_8b, params)
+    steps = ref.shape[1] - 1 - EAGLE_PROMPT
+    forced = quantized_teacher_forced(
+        torch, _config_8b, params, ref[0], EAGLE_PROMPT,
+        expect_launches(flash_attention=L, decode_attention=L * steps), "bf16 8B teacher-forced logits",
+    )
+    margin = 2 * forced["kernel_vs_fp32"]
+    log(f"eagle 8B: plain generate() {plain_tok_s:.1f} tok/s (wall time, prefill included, one run); token gate "
+        f"margin {margin:.4f}")
+    out = dict(plain_tok_s=plain_tok_s, forced=forced, apps={})
+
+    def check(apps, plain_app, p, gate_margin, layers):
+        for label, make, b1_one, b1_multi, b2, k_out, exact in apps:
+            def want(rounds, b1_one=b1_one, b1_multi=b1_multi, b2=b2):
+                return expect_launches(flash_attention=b2, decode_attention=rounds * b1_one,
+                                       decode_attention_verify=rounds * (b1_multi + layers))
+
+            sample_kw = SAMPLED_PARAMS if label.startswith("sampled") else None
+            out["apps"][label] = _eagle_check(torch, label, make, prompt, k_out, want, plain_app, p, gate_margin,
+                                              exact=exact, sample_kw=sample_kw)
+
+    check(_eagle_apps(torch, params), plain, params, margin, L)
+    exact_params = _dequantized(dict(params, layers=params["layers"][:1]), torch.float32)
+    cfg32 = lambda **kw: _config_8b(layers=1, dtype="float32", **kw)  # noqa: E731
+    plain32, ref32, tok_s32 = plain_run_8b(cfg32, exact_params)
+    k32 = _forced_logits(torch, cfg32(output_logits=True), exact_params, ref32[0], EAGLE_PROMPT)
+    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
+    pl32 = plain_run("fp32 1-layer teacher-forced", _forced_logits, torch, cfg32(output_logits=True, **off),
+                     exact_params, ref32[0], EAGLE_PROMPT)
+    margin32 = 2 * float(np.abs(k32 - pl32).max())
+    log(f"eagle 8B exact draft: the first layer in fp32, plain generate() {tok_s32:.1f} tok/s; kernel vs plain "
+        f"path max {margin32 / 2:.3e} (token gate margin {margin32:.3e})")
+    check(_eagle_apps(torch, params, exact_params), plain32, exact_params, margin32, 1)
+    del plain, plain32, params, exact_params
+    torch.cuda.empty_cache()
+    out["launches"] = {
+        "decode_attention_tree": sum(out["apps"]["static tree"]["launches"][n]
+                                     for n in ("decode_attention", "decode_attention_verify")),
+        "flash_attention_eagle": out["apps"]["eagle chain"]["launches"]["flash_attention"],
+    }
+    return out
+
+
+# ---------------------------------------------------------------------------
 # 14. the multi-replica front-end (ROADMAP A8's first part)
 # ---------------------------------------------------------------------------
 
@@ -6538,7 +7009,9 @@ def main():
     serving = timed("serving", phase_serving, torch, params)
     ragged = timed("ragged serving", phase_ragged_serving, torch, params, serving["tokens"])
     timed("spec parity", phase_spec_parity, torch, da, rp)
+    timed("eagle tree parity", eagle_tree_parity, torch, da)
     times.update(timed("spec times", phase_spec_times, torch, da))
+    times.update(timed("eagle kernel times", eagle_kernel_times, torch, fa, da))
     times.update(timed("qwen3 spec kernels", qwen3_spec_kernels, torch, da, rp))
     margin = 2 * ragged["forced"]["kernel_vs_fp32"]
     spec = timed("spec-ragged serving", phase_spec_serving, torch, margin)
@@ -6559,6 +7032,7 @@ def main():
     del params
     torch.cuda.empty_cache()
     int4_8b = timed("int4 8B generate", phase_int4_8b, torch)
+    eagle = timed("eagle, trees and medusa on 8B", phase_eagle_8b, torch)
     timed("int8 1B generate", phase_int8_1b, torch)
     timed("int4 ragged serving", phase_int4_ragged, torch)
     qwen3 = timed("qwen3-30b-a3b generate", phase_qwen3_moe, torch)
@@ -6664,6 +7138,14 @@ def main():
         ("ragged_paged_attention_spec_qwen3", ("ragged_paged_attention", "spec", "qwen3"),
          "csrc/ragged_paged_attention.cu", "neuronx_distributed_inference_tpu/ops/ragged_paged_attention.py:267",
          qwen3_spec["launches"]),
+        # A7's rest on Llama-3.1-8B: B1 at the static tree's verify point
+        # (K = 16 under its ancestry mask, batch 1, bucket 1024), launches of
+        # the static-tree generate() (every pass of it under a tree mask);
+        # B2a at the 8B prefill, launches of the EAGLE chain's generate()
+        ("decode_attention_tree", ("decode_attention_tree", 1024), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", eagle["launches"]),
+        ("flash_attention_eagle", ("flash_attention", "eagle"), "csrc/flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", eagle["launches"]),
     ):
         t = times[key]
         entries.append({

@@ -111,14 +111,20 @@ _NOT_PORTED: Dict[str, Tuple[Any, str]] = {
     "tp_degree": (1, "A10 (parallelism)"),
     "ep_degree": (1, "A10 (parallelism: expert parallelism)"),
     "quantized_checkpoints_path": (None, "A11 (quantized checkpoint artifacts)"),
-    "enable_eagle_speculation": (False, "A7 (EAGLE)"),
-    "is_eagle3": (False, "A7 (EAGLE)"),
-    "medusa_speculation_length": (0, "A7 (Medusa)"),
-    "num_medusa_heads": (0, "A7 (Medusa)"),
-    "token_tree_config": (None, "A7 (token tree)"),
     "lora_config": (None, "A9 (LoRA and other model families)"),
     "sliding_window": (None, "A9 (sliding-window attention)"),
     "attention_chunk_size": (None, "A9 (chunked attention)"),
+}
+
+#: the reference's role flags that it accepts for API parity and refuses
+#: (its ``UNIMPLEMENTED_FLAGS``) -> (inert value, its reason)
+_UNIMPLEMENTED_FLAGS: Dict[str, Tuple[Any, str]] = {
+    name: (
+        False,
+        "per-submodel role flags are internal to the reference's config "
+        "specialization; use runtime/fused_spec.EagleSpecModelForCausalLM",
+    )
+    for name in ("is_eagle_target", "is_eagle_draft")
 }
 
 
@@ -210,6 +216,23 @@ class Config:
     # draft + target in one program per phase (runtime/fused_spec.py); the
     # draft's config rides as InferenceConfig.fused_spec_config
     enable_fused_speculation: bool = False
+    # EAGLE: a feature-level draft chained with the target's hidden states
+    # (runtime/fused_spec.EagleSpecModelForCausalLM); the draft's embedding
+    # takes an rms norm first with enable_eagle_draft_input_norm
+    enable_eagle_speculation: bool = False
+    enable_eagle_draft_input_norm: bool = False
+    # EAGLE3: the target's three-layer hidden capture and the fused 2H-qkv
+    # draft layer (modules/eagle.py)
+    is_eagle3: bool = False
+    # the reference's role flags, refused as it refuses them
+    is_eagle_target: bool = False
+    is_eagle_draft: bool = False
+    # Medusa (runtime/medusa.py): verify length and prediction heads
+    medusa_speculation_length: int = 0
+    num_medusa_heads: int = 0
+    # a static token tree ({node: [children]}) or a dynamic one ({"step",
+    # "branching_factor", "num_inputs"}) of EAGLE drafts (modules/token_tree.py)
+    token_tree_config: Optional[dict] = None
 
     # --- serving fault containment (runtime/serving.py, runtime/faults.py)
     # malformed requests get a typed terminal REJECTED verdict at admission
@@ -245,11 +268,6 @@ class Config:
     tp_degree: int = 1
     ep_degree: int = 1
     quantized_checkpoints_path: Optional[str] = None
-    enable_eagle_speculation: bool = False
-    is_eagle3: bool = False
-    medusa_speculation_length: int = 0
-    num_medusa_heads: int = 0
-    token_tree_config: Optional[dict] = None
     lora_config: Optional[Any] = None
     sliding_window: Optional[int] = None
     attention_chunk_size: Optional[int] = None
@@ -326,16 +344,35 @@ class Config:
         if self.batch_size < 1 or self.seq_len < 1:
             raise ValueError("batch_size and seq_len must be >= 1")
         self._validate_serving()
-        # EAGLE, Medusa and the token tree are refused here, before the
-        # reference's cross-checks of those fields (its config.py:797-808),
-        # which return with them
+        self._validate_speculation()
         for name, (inert, item) in _NOT_PORTED.items():
             if getattr(self, name) != inert:
                 raise NotImplementedError(
                     f"Config.{name}={getattr(self, name)!r} is not ported to "
                     f"PyTorch yet (ROADMAP {item})"
                 )
+        for name, (inert, reason) in _UNIMPLEMENTED_FLAGS.items():
+            if getattr(self, name) != inert:
+                raise NotImplementedError(
+                    f"Config.{name} is accepted for reference API parity but not "
+                    f"implemented yet ({reason}); refusing to silently ignore it"
+                )
         resolve_device(self.device)
+
+    def _validate_speculation(self):
+        """The reference's cross-checks of the EAGLE, token-tree and Medusa
+        fields (config.py:797-808)."""
+        if self.enable_eagle_speculation and not self.enable_fused_speculation:
+            raise ValueError("EAGLE speculation requires fused speculation")
+        if self.is_eagle3 and not self.enable_eagle_speculation:
+            raise ValueError("is_eagle3 requires enable_eagle_speculation")
+        if self.token_tree_config is not None and not self.enable_eagle_speculation:
+            raise ValueError(
+                "token_tree_config requires enable_eagle_speculation "
+                "(trees expand the EAGLE draft; reference eagle/token_tree.py)"
+            )
+        if self.medusa_speculation_length and self.num_medusa_heads <= 0:
+            raise ValueError("medusa requires num_medusa_heads > 0")
 
     def _validate_quantization(self):
         """The reference's weight-quantization checks (config.py:811-835)."""

@@ -118,6 +118,12 @@ class StepInputs:
     sampling_params: torch.Tensor  # (B, 3) float32
     slot_mapping: Optional[torch.Tensor] = None  # (B, S) paged-cache flat write slots
     block_table: Optional[torch.Tensor] = None  # (B, MB) paged-cache block ids
+    # token trees (modules/token_tree.py): tree nodes write distinct cache
+    # slots (position_ids) at rope positions of their depth (these)
+    rope_position_ids: Optional[torch.Tensor] = None  # (B, S)
+    # a whole attention mask (B, 1, S, bucket), used as it is: a tree's
+    # ancestry mask placed at the cache tail
+    mask_override: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -417,9 +423,12 @@ def decoder_layer(
 
 
 def build_mask(inputs: StepInputs, spec: ModelSpec, phase: str) -> torch.Tensor:
-    """Causal mask for prefill; for token generation the cache-validity
-    mask, per token (causal among the new tokens) when a pass carries more
-    than one (chunked or prefix prefill on the paged cache)."""
+    """``inputs.mask_override`` when it is set; else the causal mask for
+    prefill, and for token generation the cache-validity mask, per token
+    (causal among the new tokens) when a pass carries more than one
+    (chunked or prefix prefill on the paged cache, speculation)."""
+    if inputs.mask_override is not None:
+        return inputs.mask_override
     n_active = inputs.input_ids.shape[1]
     if phase == PHASE_CONTEXT_ENCODING:
         return masks.causal_mask(inputs.attention_mask)
@@ -488,10 +497,18 @@ def run_decoder_layers(
     spec: ModelSpec,
     phase: str,
     mlp_fn: Callable = gated_mlp,
-) -> Tuple[torch.Tensor, Cache]:
+    capture_layers: Optional[Tuple[int, ...]] = None,
+):
     """Layer stack + final norm over an embedded hidden state (uniform stack:
-    one Python loop over the layers, the cache updated in place)."""
-    cos, sin = rope_cos_sin(inputs.position_ids, params["rope"]["inv_freq"], spec.attention_scaling)
+    one Python loop over the layers, the cache updated in place). Returns
+    (hidden, cache).
+
+    RoPE takes ``inputs.rope_position_ids`` when it is set (tree nodes at
+    their depth) and the cache is written at ``inputs.position_ids``.
+    ``capture_layers`` (EAGLE3): a third value, the (B, S, C*H) concat of
+    the named layers' outputs (before the final norm), in tap order."""
+    rope_pos = inputs.rope_position_ids if inputs.rope_position_ids is not None else inputs.position_ids
+    cos, sin = rope_cos_sin(rope_pos, params["rope"]["inv_freq"], spec.attention_scaling)
     positions = inputs.position_ids
     is_block = inputs.slot_mapping is not None or inputs.block_table is not None
     block_inputs = None
@@ -519,12 +536,20 @@ def run_decoder_layers(
     )
     mask = None if (flash or paged_flash) else build_mask(inputs, spec, phase)
     # the step-level conditions of the fused decode kernels (the reference's
-    # fused_eligible): decode over the contiguous cache; the mixed step
-    # (mixed_forward) never reaches here
-    fused_ok = phase != PHASE_CONTEXT_ENCODING and not is_block
+    # fused_eligible): decode over the contiguous cache at contiguous write
+    # positions (B8 builds its own causal mask and ropes at the write
+    # position: no tree's rope or mask); the mixed step (mixed_forward)
+    # never reaches here
+    fused_ok = (
+        phase != PHASE_CONTEXT_ENCODING
+        and not is_block
+        and inputs.rope_position_ids is None
+        and inputs.mask_override is None
+    )
     layers: Union[Dict, List[Dict]] = params["layers"]
     if isinstance(layers, dict):
         layers = unstack_layers(layers)
+    captured = [None] * len(capture_layers) if capture_layers is not None else None
     k_cache, v_cache = cache.k, cache.v
     for li, layer_params in enumerate(layers):
         hidden, k_cache, v_cache = decoder_layer(
@@ -532,8 +557,15 @@ def run_decoder_layers(
             positions, spec, phase, mlp_fn, key_valid=key_valid, block_inputs=block_inputs,
             fused_ok=fused_ok,
         )
+        if captured is not None:
+            for j, tap in enumerate(capture_layers):
+                if tap == li:
+                    captured[j] = hidden
     hidden = apply_norm(hidden, params["norm"]["weight"], spec.rms_eps, spec.norm_type)
-    return hidden, type(cache)(k=k_cache, v=v_cache)
+    new_cache = type(cache)(k=k_cache, v=v_cache)
+    if captured is not None:
+        return hidden, new_cache, torch.cat(captured, dim=-1)
+    return hidden, new_cache
 
 
 def model_logits(
@@ -544,15 +576,24 @@ def model_logits(
     spec: ModelSpec,
     phase: str,
     mlp_fn: Callable = gated_mlp,
-) -> Tuple[torch.Tensor, Cache]:
-    """Backbone + lm head, no sampling: (logits (B, K, V), cache)."""
+    return_hidden: bool = False,
+    capture_layers: Optional[Tuple[int, ...]] = None,
+):
+    """Backbone + lm head, no sampling: (logits (B, K, V), cache), and with
+    ``return_hidden`` the full-sequence hidden states after the final norm
+    as a third value, or with ``capture_layers`` too (EAGLE3) the (B, S,
+    C*H) capture concat in their place."""
     hidden = embed(params, inputs.input_ids)
-    hidden, new_cache = run_decoder_layers(
-        params, hidden, cache, inputs, spec=spec, phase=phase, mlp_fn=mlp_fn
+    out = run_decoder_layers(
+        params, hidden, cache, inputs, spec=spec, phase=phase, mlp_fn=mlp_fn, capture_layers=capture_layers
     )
+    hidden, new_cache = out[:2]
+    full_hidden = out[2] if capture_layers is not None else hidden
     if phase == PHASE_CONTEXT_ENCODING:
         hidden = gather_last_token(hidden, inputs.attention_mask)
     logits = lm_head(params, hidden, spec)[..., : spec.vocab_size]
+    if return_hidden:
+        return logits, new_cache, full_hidden
     return logits, new_cache
 
 

@@ -68,7 +68,11 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
     port's params: the layouts are the same, so this only converts leaves.
     Quantized entries cross unchanged: int8, uint8 (packed int4) and fp8
     codes keep their bytes and ``scale`` leaves stay fp32, as does
-    ``rope.inv_freq``; every other leaf takes ``dtype``."""
+    ``rope.inv_freq``; integer tables (an EAGLE3 draft's ``d2t``) keep
+    their integer type; every other leaf takes ``dtype``. The EAGLE
+    drafts' ``fc``, ``input_norm``, ``hidden_norm`` and 2H-wide qkv and the
+    Medusa heads (``medusa_heads``: ``res`` weight and bias, ``lm_head``,
+    stacked by head) have the reference's layout too."""
 
     def conv(t, path):
         if isinstance(t, dict):
@@ -79,14 +83,17 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
             # every code dtype is one byte; fp8 has no numpy dtype torch
             # reads, so all of them cross as bytes and are viewed back
             return torch.from_numpy(np.array(a).view(np.uint8)).view(code).to(device)
+        if a.dtype.kind in "iu":
+            return torch.from_numpy(np.array(a)).to(device)
         fp32 = path == ("rope", "inv_freq") or path[-1] == "scale"
         return _to_torch(a, torch.float32 if fp32 else dtype, device)
 
     return conv(tree, ())
 
 
-#: param-tree keys of norm weights: random weights set them to ones
-NORM_KEYS = ("input_layernorm", "post_attention_layernorm", "norm", "q_norm", "k_norm")
+#: param-tree keys of norm weights: random weights set them to ones (the
+#: EAGLE drafts' input_norm and hidden_norm too)
+NORM_KEYS = ("input_layernorm", "post_attention_layernorm", "norm", "q_norm", "k_norm", "input_norm", "hidden_norm")
 
 
 class DecoderModelBuilder:
@@ -293,6 +300,11 @@ class DecoderModelBuilder:
 
     def mlp_fn(self):
         return gated_mlp
+
+    def layer_fn(self):
+        """A custom decoder layer (the reference's MLA and Llama4 layers);
+        None: the shared ``models/base.decoder_layer``."""
+        return None
 
     def init_kv_cache(self) -> Union[KVCache, BlockKVCache]:
         """The contiguous cache, or the paged block pool when

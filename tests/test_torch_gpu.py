@@ -457,3 +457,23 @@ def test_graphs_match_eager_kv_int8(cuda_card, mode):
     for s in ("k", "v"):
         assert torch.equal(getattr(graph.kv_cache, s).scale, getattr(eager.kv_cache, s).scale)
     assert (graph.kv_cache.k.scale.data_ptr(), graph.kv_cache.v.scale.data_ptr()) == ptrs
+
+
+@pytest.mark.gpu
+def test_decode_attention_under_tree_masks_on_the_card(cuda_card):
+    """B1 under token-tree ancestry masks (non-causal over the K rows, at
+    the cache tail) at Llama-3.1-8B's heads: both trees' verify masks (K =
+    16 and 13) and a draft level of each (K = 4 and 3), batch 1 and 4,
+    buckets 512 and 1024, bf16 and fp32, a tree across a kv split boundary
+    and rows whose later splits are all masked, against the plain version,
+    each case launched twice more, bit-identical
+    (chip_smoke.eagle_tree_parity)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
+
+    _cuda.reset_launch_counts()
+    n = chip_smoke.eagle_tree_parity(torch, da)
+    assert n == 32
+    assert _cuda.launch_counts()["decode_attention_verify"] == 3 * n

@@ -47,7 +47,8 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {
         "workload/__init__.py", "workload/generator.py", "workload/driver.py", "workload/slo.py",
         "telemetry/slo_monitor.py", "telemetry/ops_server.py", "ops/quant.py", "ops/quant_matmul.py",
-        "modules/moe.py", "models/mixtral.py", "runtime/fused_spec.py",
+        "modules/moe.py", "models/mixtral.py", "runtime/fused_spec.py", "models/eagle_draft.py",
+        "modules/eagle.py", "modules/token_tree.py", "modules/medusa.py", "runtime/medusa.py",
     } <= scanned
     assert {f.name for f in scripts} >= {"torch_build_times.py", "torch_router_times.py"}
     bad = [
@@ -97,8 +98,6 @@ def test_default_device_is_cuda_and_cuda_without_a_card_raises(monkeypatch):
         (dict(tp_degree=2), "A10"),
         (dict(quantized_checkpoints_path="ckpt"), "A11"),
         (dict(quantized=True, quantized_checkpoints_path="ckpt"), "A11"),
-        (dict(enable_eagle_speculation=True), "A7"),
-        (dict(medusa_speculation_length=2, num_medusa_heads=2), "A7"),
         (dict(lora_config={"max_loras": 1}), "A9"),
         (dict(sliding_window=128), "A9"),
     ],
@@ -118,6 +117,22 @@ def test_a3b_settings_are_accepted(kw):
     for name, value in kw.items():
         got = getattr(c, name)
         assert (got.do_sample and got.top_k == 5) if name == "on_device_sampling_config" else got == value
+
+
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(enable_fused_speculation=True, enable_eagle_speculation=True, speculation_length=4),
+        dict(medusa_speculation_length=2, num_medusa_heads=2),
+    ],
+    ids=["eagle", "medusa"],
+)
+def test_a7_settings_are_accepted(kw):
+    """EAGLE and Medusa are ported (they were refused naming A7 until it
+    landed)."""
+    c = Config(device="cpu", **kw)
+    for name, value in kw.items():
+        assert getattr(c, name) == value
 
 
 def test_config_validation_matches_reference():
