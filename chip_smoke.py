@@ -171,6 +171,30 @@ Phases, in order; any failure exits non-zero:
      chaos kill landing with a finite recovery, the tier kill's local
      prefills with every request finished, launches equal to the
      dispatches times the layers, nothing captured.
+ 16. sliding windows, sinks and biases (phase_gpt_oss_20b, phase_mistral):
+     B2b with the window 128 and a sink folded through (m, l) (S 128, the
+     path's, and 256), B1 with the sink on the global layers' decode (batch
+     1 and 8, bucket 512) and B4 with the window mask and the sink (8 rows,
+     bucket 512) at GPT-OSS-20B's heads (64 q / 8 kv of 64), each held to
+     its plain version, twice bit-identical, and timed beside SDPA under
+     the same mask; B1 and B4 at n_rep 8 with 9-16 queries a row (row
+     chunks) held to their plain versions; then
+     GPT-OSS-20B at full width and depth from a seeded MXFP4-packed state
+     dict dequantized on the card a tensor at a time (load seconds, host
+     and device peaks, the device peak held to the bf16 params + cache +
+     one layer's fp32 gate_up), the interleaved cache at 0.625 of a
+     full-length one, sealed greedy generate() of 256 + 64 tokens at batch
+     1 and 8 (exact counts: B2 24 a prefill, B1 12 a decode step, the dense
+     MoE route, nothing else), an eager twin, a profiled decode step beside
+     its byte bound, the teacher-forced gate on 4 layers (the ring wrapped,
+     routing pinned to the fp32 run's, weights rescaled so that bf16
+     follows fp32) and its control (the sink dropped from the kernels)
+     failing it, the paged split drain (8 x (256 +
+     32), B4 with the window and sinks, chunk passes on the plain gather)
+     and a drain of 2 on the ring cache; then B2a with Mistral's 4096
+     window (S 6144 and 4096) and Mistral-7B's widths, 2 layers, on the
+     4096-slot ring: a 4352-token prompt + 32 tokens gated against
+     full-length paged lines with the window as a mask.
 Each phase prints its seconds. The line before the card's name lists every
 kernel with its launches, times and bound; the last line of standard output
 is {"ok": true, "device": {...}}.
@@ -2904,8 +2928,9 @@ def _flipped_positions(a, b, n_layers):
 class _PinnedRouting:
     """Replays recorded top-k selections in modules/moe.router_top_k for
     the length of a ``with`` block: each call takes the next recorded (T, E)
-    selection and weighs it by this run's own softmax scores, renormalized
-    over the selection (the Qwen3-MoE router: softmax, norm_topk_prob)."""
+    selection and weighs it by this run's own scores: softmax renormalized
+    over the selection (the Qwen3-MoE router: softmax, norm_topk_prob), or
+    the softmax of the selected logits (GPT-OSS: softmax_topk)."""
 
     def __init__(self, selections):
         self.selections, self.i = selections, 0
@@ -2913,10 +2938,14 @@ class _PinnedRouting:
     def route(self, router_logits, spec, correction_bias=None):
         import torch
 
-        if spec.scoring_func != "softmax" or not spec.normalize_top_k_affinities or correction_bias is not None:
-            raise SystemExit("pinned routing replays the softmax router with renormalized weights only")
         sel = self.selections[self.i].to(router_logits.device)
         self.i += 1
+        if spec.scoring_func == "softmax_topk" and correction_bias is None:
+            # GPT-OSS: the softmax over the selected logits only
+            w = torch.softmax(torch.where(sel, router_logits, torch.full_like(router_logits, -torch.inf)), dim=-1)
+            return w * spec.routed_scaling_factor, sel
+        if spec.scoring_func != "softmax" or not spec.normalize_top_k_affinities or correction_bias is not None:
+            raise SystemExit("pinned routing replays the softmax and softmax_topk routers only")
         w = torch.where(sel, torch.softmax(router_logits, dim=-1), torch.zeros_like(router_logits))
         return w / (w.sum(dim=-1, keepdim=True) + 1e-20) * spec.routed_scaling_factor, sel
 
@@ -6948,6 +6977,666 @@ def phase_workload(torch, router_apps):
     return {name: rec["res"] for name, rec in rows.items()}
 
 
+# ---------------------------------------------------------------------------
+# 16. GPT-OSS-20B and Mistral: sliding windows, sinks, biases, MXFP4
+# ---------------------------------------------------------------------------
+
+#: GPT-OSS-20B's generate() rows: prompts of two 128-token windows, new tokens
+GPT_OSS_PROMPT, GPT_OSS_NEW = 256, 64
+#: layers of the teacher-forced gate (2 sliding, 2 global) and its decode steps
+GPT_OSS_FORCED_LAYERS, GPT_OSS_FORCED_STEPS = 4, 32
+#: the paged drain: 8 staggered requests of 256 + 32 tokens
+GPT_OSS_SERVING = dict(n_requests=8, prompt=256, gen=32, slots=8, block_size=32, seq=512)
+#: e8m0 exponents [lo, hi) of the seeded MXFP4 experts: |values| <= 6 * 2^-5
+GPT_OSS_EXPONENTS = (120, 123)
+#: the teacher-forced gate's weights (_gpt_oss_gate_params): the experts
+#: times 2^-1 (exact in bf16), the sinks drawn at this std
+GPT_OSS_GATE_EXPERT_SCALE, GPT_OSS_GATE_SINK_STD = 0.5, 4.0
+#: Mistral-7B's widths, two layers: a prompt one chunk past the 4096 window
+MISTRAL_PROMPT, MISTRAL_NEW, MISTRAL_LAYERS = 4352, 32, 2
+
+
+def _config_gpt_oss(batch_size=1, model=None, **kw):
+    """GPT-OSS-20B (models/gpt_oss.GPT_OSS_20B) at full width and depth:
+    bf16, seq_len 512 (W = 128 < 512: the ring layout, its 12 sliding
+    layers on 128 slots), CTE bucket [128], TKG bucket [512], fused QKV,
+    the contiguous cache; ``kw`` overrides MoEConfig fields."""
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+    from neuronx_distributed_inference_tpu_torch.models.gpt_oss import GPT_OSS_20B, GptOssInferenceConfig
+
+    base = dict(
+        batch_size=batch_size, seq_len=512, dtype="bfloat16", context_encoding_buckets=[128],
+        token_generation_buckets=[512], fused_qkv=True, seed=0, device="cuda",
+    )
+    attrs = model or GPT_OSS_20B
+    return GptOssInferenceConfig(
+        MoEConfig(**{**base, **kw}), load_config=lambda c: [setattr(c, k, v) for k, v in attrs.items()]
+    )
+
+
+def _gpt_oss_cut(n_layers):
+    """GPT-OSS-20B's config cut to its first ``n_layers`` layers."""
+    from neuronx_distributed_inference_tpu_torch.models.gpt_oss import GPT_OSS_20B
+
+    return {**GPT_OSS_20B, "num_hidden_layers": n_layers, "layer_types": GPT_OSS_20B["layer_types"][:n_layers]}
+
+
+def gpt_oss_packed_state_dict(torch, seed=0):
+    """GPT-OSS-20B's HF state dict as an MXFP4 checkpoint holds it, made
+    from a seed: the experts as uint8 ``*_blocks`` (random e2m1 pairs) and
+    e8m0 ``*_scales`` in GPT_OSS_EXPONENTS, every other tensor as the
+    reference's random_params makes it (std 0.05, norms ones), bf16. Drawn
+    on the card a tensor at a time and kept in host memory, as a loaded
+    checkpoint is. Returns (state dict, its bytes)."""
+    from neuronx_distributed_inference_tpu_torch.models.gpt_oss import GPT_OSS_20B as m
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    H, I, E, D = m["hidden_size"], m["intermediate_size"], m["num_local_experts"], m["head_dim"]
+    Hq, Hkv, V = m["num_attention_heads"], m["num_key_value_heads"], m["vocab_size"]
+
+    def dense(*shape):
+        return (torch.randn(shape, generator=g, device="cuda") * 0.05).to(torch.bfloat16).cpu()
+
+    def packed(rows, cols):
+        shape = (E, rows, cols // 32)
+        blocks = torch.randint(0, 256, (*shape, 16), generator=g, device="cuda", dtype=torch.uint8)
+        scales = torch.randint(*GPT_OSS_EXPONENTS, shape, generator=g, device="cuda", dtype=torch.uint8)
+        return blocks.cpu(), scales.cpu()
+
+    ones = torch.ones(H, dtype=torch.bfloat16)
+    sd = {"model.embed_tokens.weight": dense(V, H), "model.norm.weight": ones, "lm_head.weight": dense(V, H)}
+    for i in range(m["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        sd[p + "input_layernorm.weight"] = sd[p + "post_attention_layernorm.weight"] = ones
+        for name, rows, cols in (("q_proj", Hq * D, H), ("k_proj", Hkv * D, H), ("v_proj", Hkv * D, H),
+                                 ("o_proj", H, Hq * D)):
+            sd[p + f"self_attn.{name}.weight"] = dense(rows, cols)
+            sd[p + f"self_attn.{name}.bias"] = dense(rows)
+        sd[p + "self_attn.sinks"] = dense(Hq)
+        sd[p + "mlp.router.weight"], sd[p + "mlp.router.bias"] = dense(E, H), dense(E)
+        for name, rows, cols in (("gate_up_proj", 2 * I, H), ("down_proj", H, I)):
+            sd[p + f"mlp.experts.{name}_blocks"], sd[p + f"mlp.experts.{name}_scales"] = packed(rows, cols)
+        sd[p + "mlp.experts.gate_up_proj_bias"] = dense(E, 2 * I)
+        sd[p + "mlp.experts.down_proj_bias"] = dense(E, H)
+    torch.cuda.synchronize()
+    return sd, sum(t.numel() * t.element_size() for t in {id(t): t for t in sd.values()}.values())
+
+
+def gpt_oss_kernel_times(torch, fa, da):
+    """The kernel modes GPT-OSS-20B's path runs, at its heads (64 q / 8 kv
+    heads of 64, n_rep 8), bf16, each held to its plain version (and
+    launched twice, bit-identical), then timed beside the plain version,
+    SDPA under the same boolean mask (SDPA has no sink: its time is of the
+    masked softmax alone) and the bound:
+
+    - B2b at the 20B prefill, the window 128 and a sink folded through
+      (m, l), checked against the plain masked softmax with the sink: at
+      S = 128, the window-0 program generate() runs (the row's shape; the
+      window does not bite there), and at S = 256, where it bites;
+    - B1 at the global layers' decode: batch 1 and 8, bucket 512, 288
+      positions, the sink;
+    - B4 at the paged drain's decode: 8 rows, blocks of 32, bucket 512, the
+      window mask (128 of 288 positions) and the sink."""
+    import torch.nn.functional as F
+
+    from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec, _masked_softmax_attention
+
+    rng = np.random.RandomState(21)
+    Hq, Hkv, D, W = 64, 8, 64, 128
+    rows = {}
+    # --- B2b: window 128, sink; S = 128 (the path's) and 256 (the window bites)
+    sink = torch.from_numpy(rng.randn(Hq).astype(np.float32)).cuda()
+    n_rep = Hq // Hkv
+    for B, S in ((1, 128), (1, 256)):
+        q, k, v = fused_qkv_inputs(torch, rng, B, S, Hq, Hkv, D, torch.bfloat16, hidden=2880, theta=150000.0)
+        key_valid = torch.ones((B, S), dtype=torch.int32, device="cuda")
+        fkw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=W, chunk=None)
+        case = f"gpt-oss prefill B=1 S={S} window={W} Hq={Hq} Hkv={Hkv} D={D} bf16"
+        err = check_flash(torch, fa, q, k, v, key_valid, fkw, case)
+        check_repeat(torch, "flash_attention", lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw), case)
+        spec = AttnSpec(num_heads=Hq, num_kv_heads=Hkv, head_dim=D)
+        mask = fa.prefill_mask(key_valid, True, W)
+        with_sink = fa.flash_attention(q, k, v, key_valid, spec, window=W, sink=sink)
+        ref = _masked_softmax_attention(
+            q.float(), k.float().repeat_interleave(n_rep, dim=2), v.float().repeat_interleave(n_rep, dim=2), mask, spec, sink,
+        )
+        sink_err = (with_sink.float() - ref).abs().max().item()
+        tol = flash_tolerances(torch, q.dtype, False)[0]
+        log(f"  flash with the sink folded through (m, l) {case}: err vs the plain masked softmax with the sink "
+            f"{sink_err:.3e} (tol {tol:.1e}) {'ok' if sink_err <= tol else 'FAIL'}")
+        if sink_err > tol:
+            raise SystemExit(f"flash_attention with a sink disagrees with the plain softmax: {case}")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        kt, vt = kt.repeat_interleave(n_rep, dim=1), vt.repeat_interleave(n_rep, dim=1)
+        ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw))
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, key_valid, **fkw))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        b_ms, b_by = bound(*flash_work(q, k, key_valid, mask))
+        log(f"flash_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (no sink) {lib_ms:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+        rows[("flash_attention", "gpt_oss") if S == 128 else ("flash_attention", "gpt_oss", S)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+        )
+    # --- B1: the global layers' decode, batch 1 and 8, bucket 512, sink
+    L, bucket, ctx = 12, 512, 288
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    for B in (1, 8):
+        q, kc, vc, mask = _decode_inputs(torch, rng, B, 1, Hq, Hkv, D, L, bucket, bucket, torch.bfloat16,
+                                         [ctx - 3 * b for b in range(B)])
+        case = f"gpt-oss global decode B={B} bucket={bucket} Hq={Hq} Hkv={Hkv} D={D} sink bf16"
+        err = check_decode(torch, da, q, kc, vc, 3, mask, sink, kw, case)
+        check_repeat(torch, "tkg_decode_attention", lambda: da.tkg_decode_attention(q, kc, vc, 3, mask, sink, **kw), case)
+        state = {"layer": 0}
+
+        def next_layer():
+            state["layer"] = (state["layer"] + 1) % L
+            return state["layer"]
+
+        qt = q.transpose(1, 2)
+        kt = kc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+        vt = vc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+        ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kc, vc, next_layer(), mask, sink, **kw))
+        plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_layer(), mask, sink, **kw))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        b_ms, b_by = bound(*decode_work(q, kc, mask))
+        log(f"tkg_decode_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (no sink) "
+            f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+        rows[("decode_attention", "gpt_oss", B)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+        )
+        del kc, vc
+    # --- B4: the paged drain's decode, 8 rows, window mask + sink
+    from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
+
+    B, bs = 8, 32
+    q, kp, vp, bt, mask = serving_decode_inputs(torch, rng, ctx, B=B, Hq=Hq, Hkv=Hkv, D=D, bs=bs, width=bucket, L=24)
+    cols = torch.arange(bucket, device="cuda")[None, None, None, :]
+    mask = mask & (cols > ctx - 1 - W)
+    case = f"gpt-oss paged decode B={B} ctx={ctx} bs={bs} bucket={bucket} window={W} Hq={Hq} Hkv={Hkv} D={D} sink bf16"
+    out = da.paged_tkg_decode_attention(q, kp, vp, 0, bt, mask, sink, **kw)
+    ref = da.paged_tkg_decode_attention_plain(q.float(), kp.float(), vp.float(), 0, bt, mask, sink, **kw)
+    err = check_close(torch, out, ref, case, "paged_tkg_decode_attention")
+    check_repeat(torch, "paged_tkg_decode_attention",
+                 lambda: da.paged_tkg_decode_attention(q, kp, vp, 0, bt, mask, sink, **kw), case)
+    state = {"layer": 0}
+
+    def next_paged():
+        state["layer"] = (state["layer"] + 1) % kp.shape[0]
+        return state["layer"]
+
+    k_r, v_r = read_block_cache_at_layer(kp, vp, 0, bt)
+    qt = q.transpose(1, 2)
+    kt = k_r.permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+    vt = v_r.permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+    ms = time_ms(torch, lambda: da.paged_tkg_decode_attention(q, kp, vp, next_paged(), bt, mask, sink, **kw))
+    plain_ms = time_ms(torch, lambda: da.paged_tkg_decode_attention_plain(q, kp, vp, next_paged(), bt, mask, sink, **kw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    positions = int(mask[:, 0].any(dim=1).sum().item())
+    nbytes = 2 * positions * Hkv * D * kp.element_size() + 2 * q.numel() * q.element_size() + mask.numel() + bt.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * D * Hq * int(mask.sum().item()))
+    log(f"paged_tkg_decode_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (no sink) "
+        f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+    rows[("paged_decode_attention", "gpt_oss")] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )
+    return rows
+
+
+#: queries a row of the row-chunk cases: more than 64 / n_rep at n_rep 8
+ROW_CHUNK_K = (9, 12, 16)
+
+
+def row_chunk_parity(torch, da):
+    """B1 and B4 where a kv head's n_rep * K query rows pass one block's 64
+    (row chunks: n_rep 8 at K = 9, 12, 16), at GPT-OSS's heads (64 q / 8 kv
+    of 64) with the window mask 128 and the sink and at Qwen3's (32 q / 4 kv
+    of 128) without, batch 1 and 8, bf16 and fp32, against the plain
+    version within check_close's bound; each case twice more,
+    bit-identical. B4 reads blocks of 32 with NaN in the garbage block.
+    Returns the case count."""
+    from neuronx_distributed_inference_tpu_torch.modules.masks import spec_token_gen_mask
+
+    rng = np.random.RandomState(23)
+    n, W, bucket, bs = 0, 128, 512, 32
+    for Hq, Hkv, D, windowed in ((64, 8, 64, True), (32, 4, 128, False)):
+        kw = dict(scale=D ** -0.5, n_kv=Hkv)
+        sink = torch.from_numpy(rng.randn(Hq).astype(np.float32)).cuda() if windowed else None
+        for dtype in (torch.bfloat16, torch.float32):
+            for B in (1, 8):
+                valid = [300 - 23 * b for b in range(B)]
+                for K in ROW_CHUNK_K:
+                    q, kc, vc, mask = _decode_inputs(torch, rng, B, K, Hq, Hkv, D, 2, bucket, bucket, dtype,
+                                                     valid, W if windowed else None)
+                    case = (f"row chunks Hq={Hq} Hkv={Hkv} D={D} B={B} K={K} ({da.row_chunks(Hq // Hkv, K)} chunks) "
+                            f"bucket={bucket} window={W if windowed else None} sink={windowed} {str(dtype)[6:]}")
+                    check_decode(torch, da, q, kc, vc, 1, mask, sink, kw, case)
+                    check_repeat(torch, "tkg_decode_attention",
+                                 lambda: da.tkg_decode_attention(q, kc, vc, 1, mask, sink, **kw), case)
+                    del kc, vc
+                    # B4: the same rows over a pool of blocks of 32
+                    MB, NB = bucket // bs, 8 * bucket // bs
+                    table = torch.from_numpy(paged_tables(rng, valid, MB, bs, NB)).cuda()
+                    kp = torch.from_numpy(rng.randn(2, NB + 1, Hkv, bs, D).astype(np.float32) * 0.5).to("cuda", dtype)
+                    vp = torch.from_numpy(rng.randn(2, NB + 1, Hkv, bs, D).astype(np.float32) * 0.5).to("cuda", dtype)
+                    kp[:, 0], vp[:, 0] = float("nan"), float("nan")
+                    attn = (torch.arange(bucket, device="cuda")[None, :] < torch.tensor(valid, device="cuda")[:, None])
+                    pos = torch.tensor(valid, device="cuda")[:, None] - K + torch.arange(K, device="cuda")[None, :]
+                    pmask = spec_token_gen_mask(attn.to(torch.int32), pos)
+                    if windowed:
+                        pmask = pmask & (torch.arange(bucket, device="cuda")[None, None, None, :] > pos[:, None, :, None] - W)
+                    out = da.paged_tkg_decode_attention(q, kp, vp, 1, table, pmask, sink, **kw)
+                    ref = da.paged_tkg_decode_attention_plain(q.float(), kp.float(), vp.float(), 1, table, pmask, sink, **kw)
+                    check_close(torch, out, ref, case + " paged bs=32", "paged_tkg_decode_attention")
+                    check_repeat(torch, "paged_tkg_decode_attention",
+                                 lambda: da.paged_tkg_decode_attention(q, kp, vp, 1, table, pmask, sink, **kw), case)
+                    del kp, vp
+                    n += 1
+    return n
+
+
+def _gpt_oss_forced_logits(torch, cfg, params, seq, prompt_len):
+    """Teacher-forced logits through the generate() path's programs: the
+    prompt prefilled in windows of the ring (the context program, then a
+    128-token pass over the ring), then one forward() decode step per
+    recorded token."""
+    from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    a = ModelForCausalLM(None, cfg).load(params=params)
+    seq_ids = np.zeros(1, np.int32)
+    ids = seq[None, :prompt_len]
+    _, first = a._windowed_prefill(ids, np.ones_like(ids), seq_ids, prepare_sampling_params(1))
+    steps = [first[:, -1].float().cpu().numpy()]
+    for p in range(prompt_len, len(seq) - 1):
+        steps.append(a.forward(seq[None, p : p + 1], np.array([[p]]), seq_ids)[1][:, -1])
+    return np.concatenate(steps, axis=0)
+
+
+def _gpt_oss_gate_params(torch, params, n):
+    """The teacher-forced gate's weights: GPT-OSS-20B's first ``n`` layers
+    (and its embedding and head) with the attention and router projections
+    rescaled to std 1 / sqrt(fan in), the experts by
+    GPT_OSS_GATE_EXPERT_SCALE and the sinks redrawn at GPT_OSS_GATE_SINK_STD.
+    At the 20B's seeded std 0.05, q and k reach std 2.7 and every softmax
+    is one-hot: bf16 rounding alone decides the logits, and a path that
+    dropped the sink would pass as well as a right one. Here bf16 follows
+    fp32, and the sinks hold a real share of each row's softmax."""
+    g = torch.Generator(device=params["embed_tokens"]["weight"].device)
+    g.manual_seed(20)
+
+    def rescale(entry):
+        w = entry["weight"]
+        return dict(entry, weight=(w.float() / (w.float().std() * w.shape[-2] ** 0.5)).to(w.dtype))
+
+    layers = []
+    for lp in params["layers"][:n]:
+        sa = dict(lp["self_attn"])
+        for name, entry in sa.items():
+            if name == "sink":
+                w = entry["weight"]
+                sa[name] = {"weight": (torch.randn(w.shape, generator=g, device=w.device) * GPT_OSS_GATE_SINK_STD).to(w.dtype)}
+            elif isinstance(entry, dict) and "weight" in entry:
+                sa[name] = rescale(entry)
+        mlp = dict(lp["mlp"], router=rescale(lp["mlp"]["router"]))
+        mlp["experts"] = {k: dict(e, weight=e["weight"] * GPT_OSS_GATE_EXPERT_SCALE) for k, e in mlp["experts"].items()}
+        layers.append(dict(lp, self_attn=sa, mlp=mlp))
+    return dict(params, layers=layers)
+
+
+class _DroppedSink:
+    """For the length of a ``with`` block, the kernels the path hands a
+    sink (B2's fold through (m, l), B1) run without it: the control that
+    the teacher-forced gate must fail."""
+
+    def __enter__(self):
+        from neuronx_distributed_inference_tpu_torch.ops import decode_attention, flash_attention
+
+        self.mods = [(flash_attention, "flash_attention"), (decode_attention, "tkg_decode_attention")]
+        self.real = [getattr(m, n) for m, n in self.mods]
+        for (m, n), fn in zip(self.mods, self.real):
+            if n == "flash_attention":
+                setattr(m, n, lambda *a, _fn=fn, **kw: _fn(*a, **dict(kw, sink=None)))
+            else:
+                setattr(m, n, lambda q, kc, vc, layer, mask, sink=None, _fn=fn, **kw: _fn(q, kc, vc, layer, mask, None, **kw))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n), fn in zip(self.mods, self.real):
+            setattr(m, n, fn)
+
+
+def gpt_oss_teacher_forced(torch, params, seq, prompt_len):
+    """The teacher-forced gate on GPT-OSS-20B's first 4 layers (2 sliding,
+    2 global; the 256-token prompt wraps the 128-slot rings), on the 20B's
+    weights rescaled so that bf16 follows fp32 (_gpt_oss_gate_params): the
+    kernel path (B2 with the window and sinks, B1 on the global layers)
+    against the plain path (attention kernels off) on the same bf16
+    weights and an fp32 run of the plain path, every run routed as the
+    fp32 run routed (_PinnedRouting: GPT-OSS's softmax over the selected
+    logits). Then the control: the kernel path with the sink dropped from
+    its kernels (_DroppedSink) must fail the gate."""
+    n = GPT_OSS_FORCED_LAYERS
+    model = _gpt_oss_cut(n)
+    sub = _gpt_oss_gate_params(torch, params, n)
+    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False, cuda_graphs=False)
+    label = f"gpt-oss-20b teacher-forced logits (first {n} of 24 layers, gate weights, routing pinned to the fp32 run's)"
+    t0 = time.perf_counter()
+    sub32 = _map_tree(sub, lambda t: t.float() if t.is_floating_point() else t)
+    f32, sel_f = _selections(
+        torch, _config_gpt_oss(model=model, output_logits=True, dtype="float32", **off), sub32, seq, prompt_len,
+        True, logits_fn=_gpt_oss_forced_logits,
+    )
+    del sub32
+    torch.cuda.empty_cache()
+    kernel_cfg = _config_gpt_oss(model=model, output_logits=True, cuda_graphs=False)
+    with _PinnedRouting(sel_f):
+        k = _gpt_oss_forced_logits(torch, kernel_cfg, sub, seq, prompt_len)
+    with _PinnedRouting(sel_f):
+        pl = plain_run("gpt-oss teacher-forced plain", _gpt_oss_forced_logits, torch,
+                       _config_gpt_oss(model=model, output_logits=True, **off), sub, seq, prompt_len)
+    forced = _forced_gate(k, pl, f32, label)
+    with _PinnedRouting(sel_f), _DroppedSink():
+        dropped = _gpt_oss_forced_logits(torch, kernel_cfg, sub, seq, prompt_len)
+    control = _forced_gate(dropped, pl, f32, "  control: the kernel path with the sink dropped", exit_on_fail=False)
+    if control["passed"]:
+        raise SystemExit("gpt-oss-20b teacher-forced gate: the kernel path without its sinks passes it too")
+    log(f"  {label}: the sink-dropped control fails it (ratios max "
+        f"{control['kernel_vs_fp32'] / control['plain_vs_fp32']:.3f} rms "
+        f"{control['kernel_vs_fp32_rms'] / control['plain_vs_fp32_rms']:.3f}); "
+        f"{time.perf_counter() - t0:.1f} s for the four runs")
+    forced["control"] = control
+    return forced
+
+
+def _gpt_oss_drain(torch, app, label, gen, n_requests, layers, n_full):
+    """The serving traffic (_serve: staggered arrivals, then chunked
+    drains) on ``app``: a warm pass, then a measured one with the counts
+    read around it; gated as phase_serving gates the 1B drain (every
+    request its budget, no fault, exact counts from the session's
+    dispatches)."""
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    vocab = app.spec.vocab_size
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, vocab, size=(GPT_OSS_SERVING["prompt"],)).tolist() for _ in range(n_requests)]
+    _serve(torch, app, prompts, gen, TelemetrySession())
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    tel = TelemetrySession()
+    _cuda.reset_launch_counts()
+    sess, total_s = _serve(torch, app, prompts, gen, tel)
+    launches = all_counts()
+    d = sess.dispatches
+    counts = {rid: len(r.generated) for rid, r in sess.requests.items()}
+    ttft = [t * 1e3 for t in tel.ttft_values_s()]
+    faults = dict(rejected=sum(tel.rejected.values()), quarantined=tel.counters["quarantined"],
+                  preempted=tel.counters["preempted"])
+    log(f"{label}: {n_requests} requests of {GPT_OSS_SERVING['prompt']} + {gen} tokens in {total_s * 1e3:.1f} ms, "
+        f"{sum(counts.values()) / total_s:.1f} tok/s, TTFT p50 {tel.percentile(ttft, 0.5):.1f} ms; "
+        f"dispatches {dict(d)}, launches {launches}, {faults}")
+    if sorted(counts.values()) != [gen] * n_requests or any(faults.values()) or any(
+        r.status != "finished" or min(r.generated) < 0 or max(r.generated) >= vocab for r in sess.requests.values()
+    ):
+        raise SystemExit(f"{label}: not every request finished cleanly: {counts}, {faults}")
+    passes = d["prefill"] + d["prefill_chunk"] + d["decode_steps"]
+    if app.config.torch_config.is_block_kv_layout:
+        # every layer full-length: B4 with the window mask / sink, chunk
+        # passes of 128 rows on the plain gather (no B5: windows and sinks)
+        want = expect_launches(paged_decode_attention=d["decode_steps"] * layers, moe_dense=passes * layers)
+    else:
+        # ring cache: B2 per window-0 program, B1 on the global layers
+        want = expect_launches(flash_attention=d["prefill"] * layers, decode_attention=d["decode_steps"] * n_full,
+                               moe_dense=passes * layers)
+    if launches != want:
+        raise SystemExit(f"{label}: launch counts {launches} != expected {want}")
+    return dict(launches=launches, tok_s=sum(counts.values()) / total_s, dispatches=dict(d))
+
+
+def phase_gpt_oss_20b(torch, fa, da):
+    """GPT-OSS-20B at full width and depth (24 layers alternating sliding
+    / global, 64 q / 8 kv heads of 64, 32 experts top-4, vocab 201088),
+    bf16, loaded from a seeded MXFP4-packed state dict whose experts the
+    port dequantizes on the card a tensor at a time: load seconds, host and
+    device peaks (the device peak held to the bf16 params plus the cache
+    plus one layer's fp32 gate_up); the interleaved cache's bytes (0.625 of
+    a full-length cache); greedy generate() of GPT_OSS_NEW tokens after a
+    256-token prompt at batch 1 and 8, sealed, with exact counts (B2 once
+    a layer a prefill, B1 on the 12 global layers a decode step, the dense
+    MoE route everywhere, no B5 / B7 / B8 / B9); graphs on against an eager
+    twin; a profile of the graphed decode step beside its byte bound; the
+    teacher-forced gate on 4 layers; the paged split drain and a short
+    drain on the contiguous ring cache."""
+    import resource
+
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+    from neuronx_distributed_inference_tpu_torch.config import ChunkedPrefillConfig
+    from neuronx_distributed_inference_tpu_torch.models.gpt_oss import GPT_OSS_20B as m
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import InterleavedKVCache
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import bound_ms
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    times = gpt_oss_kernel_times(torch, fa, da)
+    n_chunked = row_chunk_parity(torch, da)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sd, sd_bytes = gpt_oss_packed_state_dict(torch)
+    make_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    app = ModelForCausalLM(None, _config_gpt_oss(retrace_guard=True)).load(state_dict=sd)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() - base
+    host_peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    del sd
+    gc.collect()
+    H, I, E, L = m["hidden_size"], m["intermediate_size"], m["num_local_experts"], m["num_hidden_layers"]
+    n_full = m["layer_types"].count("full_attention")
+    params_bytes = _tree_bytes(app.params)
+    cache_bytes = app.kv_cache_nbytes
+    layer_fp32 = E * H * 2 * I * 4
+    limit = params_bytes + cache_bytes + layer_fp32
+    log(
+        f"gpt-oss-20b: packed state dict ({sd_bytes / 2**30:.3f} GiB on the host, experts MXFP4) made in "
+        f"{make_s:.1f} s; load {load_s:.2f} s; host peak (ru_maxrss) {host_peak / 2**30:.3f} GiB; device peak of "
+        f"the load {load_peak / 2**30:.3f} GiB against params {params_bytes / 2**30:.3f} GiB + cache "
+        f"{cache_bytes / 2**30:.4f} GiB + one layer's fp32 gate_up {layer_fp32 / 2**30:.3f} GiB = "
+        f"{limit / 2**30:.3f} GiB"
+    )
+    if load_peak > limit:
+        raise SystemExit("gpt-oss-20b: the MXFP4 load's device peak passes the bf16 model plus one layer's fp32 experts")
+    cache = app.kv_cache
+    full_bytes = 2 * L * cache.k_full.shape[1] * cache.k_full.shape[2] * cache.k_full.shape[3] * cache.k_full.shape[4] * 2
+    ratio = cache_bytes / full_bytes
+    log(f"gpt-oss-20b kv_cache_nbytes {cache_bytes} (interleaved: 12 x 512 + 12 x 128 slots a line) against a "
+        f"full-length cache's {full_bytes}: {ratio:.4f}")
+    if not isinstance(cache, InterleavedKVCache) or abs(ratio - 0.625) > 1e-12:
+        raise SystemExit(f"gpt-oss-20b: the interleaved cache is {ratio:.4f} of a full-length one, not 0.625")
+    t0 = time.perf_counter()
+    app.warmup()
+    for runner in app.runners:
+        runner.seal()
+    torch.cuda.synchronize()
+    log(f"gpt-oss-20b warmup (captures, then sealed) {time.perf_counter() - t0:.2f} s")
+    P, N = GPT_OSS_PROMPT, GPT_OSS_NEW
+    with RetraceGuard():
+        out, run = _generate_run(torch, app, P, N, "gpt-oss-20b generate()")
+    # the N - 1 tokens after the first run as one N-step chunk; the MoE runs
+    # dense in the window-0 program, the 128-token pass and every step
+    want = expect_launches(flash_attention=L, decode_attention=n_full * N, moe_dense=L * (N + 2))
+    if run["launches"] != want:
+        raise SystemExit(f"gpt-oss-20b launch counts {run['launches']} != expected {want}")
+    embed_bytes = app.params["embed_tokens"]["weight"].numel() * 2
+    expert_bytes = 3 * L * E * H * I * 2
+    step_bytes = params_bytes - embed_bytes  # one embedding row is read
+    n_params = step_bytes // 2
+    b_dense = bound_ms(step_bytes, 2 * n_params)[0]
+    b_sel = bound_ms(step_bytes - expert_bytes * (E - m["num_experts_per_tok"]) / E, 0)[0]
+    profile = phase_profile(torch, app, out.sequences[0], P)
+    log(f"  gpt-oss-20b decode step at batch 1: the dense route reads every expert, {step_bytes / 1e9:.2f} GB a "
+        f"step, bound {b_dense:.3f} ms; a selected-experts route would read 4 of 32, bound {b_sel:.3f} ms; "
+        f"device busy {profile['device_busy_ms']:.3f} ms a step")
+    app8 = ModelForCausalLM(None, _config_gpt_oss(8, retrace_guard=True)).load(params=app.params).warmup()
+    for runner in app8.runners:
+        runner.seal()
+    with RetraceGuard():
+        _, run8 = _generate_run(torch, app8, P, N, "gpt-oss-20b generate()", batch=8)
+    if run8["launches"] != want:
+        raise SystemExit(f"gpt-oss-20b batch-8 launch counts {run8['launches']} != expected {want}")
+    del app8
+    torch.cuda.empty_cache()
+    eager = eager_twin(torch, "gpt-oss-20b generate()", _config_gpt_oss(cuda_graphs=False), app, out, run, P, N)
+    forced = gpt_oss_teacher_forced(torch, app.params, out.sequences[0][: P + GPT_OSS_FORCED_STEPS], P)
+    params = app.params
+    del app
+    torch.cuda.empty_cache()
+
+    s = GPT_OSS_SERVING
+    paged_cfg = _config_gpt_oss(
+        s["slots"], is_continuous_batching=True, ctx_batch_size=1, is_block_kv_layout=True,
+        pa_block_size=s["block_size"], pa_num_blocks=s["slots"] * s["seq"] // s["block_size"],
+        is_chunked_prefill=True, chunked_prefill_config=ChunkedPrefillConfig(max_num_seqs=s["slots"], kernel_q_tile_size=128),
+        token_generation_buckets=[s["seq"]], retrace_guard=True,
+    )
+    paged = ModelForCausalLM(None, paged_cfg).load(params=params).warmup()
+    if paged.spec.ring_window is not None or paged.spec.layer_groups is None:
+        raise SystemExit("gpt-oss-20b on the paged pool: expected full-length lines with layer-group masks")
+    paged_run = _gpt_oss_drain(torch, paged, "gpt-oss-20b paged split drain", s["gen"], s["n_requests"], L, n_full)
+    del paged
+    torch.cuda.empty_cache()
+    ring = ModelForCausalLM(None, _config_gpt_oss(2, is_continuous_batching=True, ctx_batch_size=1)).load(params=params)
+    ring.warmup()
+    ring_run = _gpt_oss_drain(torch, ring, "gpt-oss-20b contiguous ring drain", s["gen"], 2, L, n_full)
+    del ring, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {
+        "flash_attention_gpt_oss": run["launches"]["flash_attention"],
+        "decode_attention_gpt_oss": run["launches"]["decode_attention"],
+        "paged_decode_attention_gpt_oss": paged_run["launches"]["paged_decode_attention"],
+    }
+    return dict(
+        run, times=times, launches=launches, load_s=load_s, load_peak=load_peak, host_peak=host_peak,
+        params_bytes=params_bytes, cache_ratio=ratio, run8=run8, eager=eager, forced=forced,
+        profile={k: v for k, v in profile.items() if k != "busy_ms_per_step"}, paged=paged_run, ring=ring_run,
+        step_bound_ms=b_dense, selected_bound_ms=b_sel, row_chunk_cases=n_chunked,
+    )
+
+
+def _config_mistral(paged=False, **kw):
+    """Mistral-7B-v0.1's widths (models/llama.MISTRAL_7B: 32 q / 8 kv heads
+    of 128, window 4096), cut to MISTRAL_LAYERS layers, bf16, seq 4608,
+    the CTE bucket [4096]; ``paged``: the paged pool (blocks of 32, every
+    line full length with the window as a mask), else the ring of 4096
+    slots."""
+    from neuronx_distributed_inference_tpu_torch.models.llama import MISTRAL_7B
+
+    model = {**MISTRAL_7B, "num_hidden_layers": MISTRAL_LAYERS}
+    extra = dict(seq_len=4608, context_encoding_buckets=[4096], token_generation_buckets=[4608], fused_qkv=True,
+                 output_logits=True)
+    if paged:
+        extra.update(is_block_kv_layout=True, pa_block_size=32, pa_num_blocks=4608 // 32)
+    return _config(1, model=model, **{**extra, **kw})
+
+
+def _mistral_paged_logits(torch, cfg, params, seq, prompt_len):
+    """Teacher-forced logits over the paged pool through forward() (the
+    external scheduler's entry): the first 4096 tokens by the context
+    program, the rest of the prompt as one multi-token pass, then one
+    decode step per recorded token; full-length lines, the window as a
+    mask."""
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    a = ModelForCausalLM(None, cfg).load(params=params)
+    bs, width = 32, 4608
+    table = np.arange(1, width // bs + 1, dtype=np.int32)[None, :]
+    seq_ids = np.zeros(1, np.int32)
+    C = 4096
+    pos = np.arange(C)[None, :]
+    a.forward(seq[None, :C], pos, seq_ids, slot_mapping=(bs + pos).astype(np.int32))
+    pos = np.arange(C, prompt_len)[None, :]
+    mask = (np.arange(width)[None, :] < prompt_len).astype(np.int32)
+    steps = [a.forward(seq[None, C:prompt_len], pos, seq_ids, attention_mask=mask, slot_mapping=(bs + pos).astype(np.int32),
+                       block_table=table, phase="tkg")[1][:, -1]]
+    for p in range(prompt_len, len(seq) - 1):
+        mask = (np.arange(width)[None, :] <= p).astype(np.int32)
+        steps.append(a.forward(seq[None, p : p + 1], np.array([[p]]), seq_ids, attention_mask=mask, block_table=table)[1][:, -1])
+    return np.concatenate(steps, axis=0)
+
+
+def phase_mistral(torch, fa):
+    """Mistral at Mistral-7B-v0.1's widths, two layers, seeded random bf16
+    weights: B2a with the window held to its plain version and timed at the
+    ring's prefill program (S = 4096, window 4096) and where the window
+    bites (S = 6144); then generate() of MISTRAL_NEW tokens after a
+    4352-token prompt on the bounded ring of 4096 slots (window 0 by the
+    context program, the last 256 tokens as one pass over the ring, decode
+    on the ring; exact counts: B2 once a layer), gated against the same
+    weights on full-length paged lines with the window as a mask (the
+    reference's own check, tests/test_long_context.py): the ring's logits
+    no farther from the paged path's fp32 run than FORCED_RATIO times the
+    paged bf16 path's."""
+    import torch.nn.functional as F
+
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    rng = np.random.RandomState(22)
+    Hq, Hkv, D, W = 32, 8, 128, 4096
+    n_rep = Hq // Hkv
+    rows = {}
+    for S in (6144, 4096):
+        q, k, v = fused_qkv_inputs(torch, rng, 1, S, Hq, Hkv, D, torch.bfloat16, hidden=4096, theta=10000.0)
+        key_valid = torch.ones((1, S), dtype=torch.int32, device="cuda")
+        fkw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=W, chunk=None)
+        case = f"mistral prefill B=1 S={S} window={W} Hq={Hq} Hkv={Hkv} D={D} bf16"
+        err = check_flash(torch, fa, q, k, v, key_valid, fkw, case)
+        check_repeat(torch, "flash_attention", lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw), case)
+    mask = fa.prefill_mask(key_valid, True, W)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kt, vt = kt.repeat_interleave(n_rep, dim=1), vt.repeat_interleave(n_rep, dim=1)
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw))
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, key_valid, **fkw), iters=10)
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    b_ms, b_by = bound(*flash_work(q, k, key_valid, mask))
+    log(f"flash_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+    rows[("flash_attention", "mistral")] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+
+    app = ModelForCausalLM(None, _config_mistral(retrace_guard=True)).load(random_weights=True)
+    if app.spec.bounded_window != W or app.kv_cache.k.shape[2] != W:
+        raise SystemExit(f"mistral: expected a ring of {W} slots, got {tuple(app.kv_cache.k.shape)}")
+    app.warmup()
+    for runner in app.runners:
+        runner.seal()
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+
+    with RetraceGuard():
+        out, run = _generate_run(torch, app, MISTRAL_PROMPT, MISTRAL_NEW, "mistral generate() on the ring")
+    want = expect_launches(flash_attention=MISTRAL_LAYERS)
+    if run["launches"] != want:
+        raise SystemExit(f"mistral launch counts {run['launches']} != expected {want}")
+    ring_logits = out.logits[0]  # (MISTRAL_NEW, V): the prompt's last token, then each step
+    seq = out.sequences[0]
+    params = app.params
+    del app
+    torch.cuda.empty_cache()
+    paged = _mistral_paged_logits(torch, _config_mistral(True), params, seq, MISTRAL_PROMPT)
+    params32 = _map_tree(params, lambda t: t.float())
+    f32 = _mistral_paged_logits(torch, _config_mistral(True, dtype="float32"), params32, seq, MISTRAL_PROMPT)
+    del params32, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    forced = _forced_gate(ring_logits, paged, f32, "mistral: ring logits against full-length lines with the window as a mask")
+    return dict(run, times=rows, launches={"flash_attention_mistral": run["launches"]["flash_attention"]}, forced=forced)
+
+
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
@@ -7045,6 +7734,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     qwen3_quant = timed("qwen3-30b-a3b int8 and int4", phase_qwen3_quant, torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpt_oss = timed("gpt-oss-20b", phase_gpt_oss_20b, torch, fa, da)
+    times.update(gpt_oss.pop("times"))
+    mistral = timed("mistral ring", phase_mistral, torch, fa)
+    times.update(mistral.pop("times"))
 
     entries = []
     for name, key, source, replaces, launches in (
@@ -7146,6 +7841,22 @@ def main():
          "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", eagle["launches"]),
         ("flash_attention_eagle", ("flash_attention", "eagle"), "csrc/flash_attention.cu",
          "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", eagle["launches"]),
+        # GPT-OSS-20B (heads 64 / 8 of 64, sinks): B2b with the window 128
+        # and the sink at S = 128, the window-0 program generate() runs (S =
+        # 256, where the window bites, is checked and logged only), and B1
+        # at the global layers' decode (batch 1, bucket 512), launches of
+        # the batch-1 generate(); B4 with the window mask
+        # at 8 rows, launches of the paged drain. Mistral's B2a with the
+        # window 4096 at the ring's 4096-token prefill program, launches of
+        # its generate()
+        ("flash_attention_gpt_oss", ("flash_attention", "gpt_oss"), "csrc/flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/flash_attention.py:335", gpt_oss["launches"]),
+        ("decode_attention_gpt_oss", ("decode_attention", "gpt_oss", 1), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", gpt_oss["launches"]),
+        ("paged_decode_attention_gpt_oss", ("paged_decode_attention", "gpt_oss"), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:284", gpt_oss["launches"]),
+        ("flash_attention_mistral", ("flash_attention", "mistral"), "csrc/flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", mistral["launches"]),
     ):
         t = times[key]
         entries.append({

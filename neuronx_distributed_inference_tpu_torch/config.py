@@ -112,7 +112,6 @@ _NOT_PORTED: Dict[str, Tuple[Any, str]] = {
     "ep_degree": (1, "A10 (parallelism: expert parallelism)"),
     "quantized_checkpoints_path": (None, "A11 (quantized checkpoint artifacts)"),
     "lora_config": (None, "A9 (LoRA and other model families)"),
-    "sliding_window": (None, "A9 (sliding-window attention)"),
     "attention_chunk_size": (None, "A9 (chunked attention)"),
 }
 
@@ -264,12 +263,18 @@ class Config:
     # runner only, False the token-generation runner only, None both
     is_prefill_stage: Optional[bool] = None
 
+    # --- attention flavor ---------------------------------------------------
+    # sliding-window attention for every layer (a model's own HF
+    # sliding_window, Mistral's, takes its place when this is None): the
+    # contiguous cache becomes a ring of W slots where the layout allows it
+    # (models/builder.ring_layout_ok), else windowed masks over full lines
+    sliding_window: Optional[int] = None
+
     # --- not ported yet (validated, then refused) --------------------------
     tp_degree: int = 1
     ep_degree: int = 1
     quantized_checkpoints_path: Optional[str] = None
     lora_config: Optional[Any] = None
-    sliding_window: Optional[int] = None
     attention_chunk_size: Optional[int] = None
 
     # --- misc ------------------------------------------------------------

@@ -11,7 +11,7 @@
 // What both compute: for batch row b and kv head g, the n_rep * K query
 // rows of that group (row hl * K + t is local q head hl = h - g * n_rep at
 // token t, the reference's rep-major _prep_q order, so GQA needs no
-// repeat_kv) attend the row's cache over positions [0, S_kv) under the
+// repeat_kv; K <= 16) attend the row's cache over positions [0, S_kv) under the
 // (B, 1, K, S_kv) boolean decode mask, with an online softmax over kv
 // tiles. Tiles whose mask is all false for the batch row are skipped.
 // Without a sink, out = acc / max(l, 1e-30); with one, the sink logit joins
@@ -26,7 +26,10 @@
 // call costs in practice is its chain of dependent round trips to memory.
 //
 // B1, contiguous (split_kernel + split_combine_kernel; flash-decoding):
-//   - Grid (kv head, batch row, split): split z takes positions
+//   - Grid (kv head x row chunk, batch row, split): a block holds at most
+//     MAX_ROWS = 64 of the group's rows, so a group of more (n_rep 8 at
+//     K > 8: GPT-OSS's and Qwen3's 9-16-query passes) is split into
+//     row chunks of 64 that read the same tiles. Split z takes positions
 //     [z * per, (z + 1) * per), per a multiple of 16. The wrapper picks the
 //     split from the shapes alone (ops/decode_attention.py::
 //     decode_kv_split): at least one block per SM, one 64-position tile a
@@ -101,7 +104,8 @@
 namespace nxdi {
 namespace {
 
-constexpr int MAX_ROWS = 64;  // n_rep * K
+constexpr int MAX_ROWS = 64;  // query rows a block holds (a row chunk)
+constexpr int MAX_Q = 16;     // K: queries a batch row
 
 // ---------------------------------------------------------------------------
 // B1 and B4: the kv axis split over blocks
@@ -134,6 +138,11 @@ struct SplitParams {
   const float* v_scale;
   float qmax;
 };
+
+// blocks a kv head's n_rep * K query rows take, MAX_ROWS rows each
+__host__ __device__ __forceinline__ int row_chunks(const SplitParams& p) {
+  return ((p.Hq / p.Hkv) * p.K + MAX_ROWS - 1) / MAX_ROWS;
+}
 
 // the layer's dequant factor scale / qmax of kv head g (1 for a plain cache)
 __device__ __forceinline__ float dequant_factor(const float* scale, const SplitParams& p, int g) {
@@ -180,7 +189,10 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
   extern __shared__ __align__(16) unsigned char sp_smem[];
   const int n_rep = p.Hq / p.Hkv;
   const int K = p.K;
-  const int rows = n_rep * K;
+  // this block's row chunk: rows [r0, r0 + rows) of kv head g's group
+  const int chunks = row_chunks(p);
+  const int g = blockIdx.x / chunks, r0 = (blockIdx.x % chunks) * MAX_ROWS;
+  const int rows = min(MAX_ROWS, n_rep * K - r0);
   T* Qs = reinterpret_cast<T*>(sp_smem);
   C* KVs = reinterpret_cast<C*>(Qs + rows * D);  // stage s: K at KVs + 2 s KV, V right after
   float* Pw = reinterpret_cast<float*>(KVs + 4 * Tile::KV) + (threadIdx.x / 32) * RW * SP_TILE;
@@ -189,7 +201,7 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
   int* table_s = reinterpret_cast<int*>(bits_s + SP_WARPS * Tile::groups(p.per));
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = blockIdx.x, b = blockIdx.y, z = blockIdx.z;
+  const int b = blockIdx.y, z = blockIdx.z;
   const int lo = z * p.per, hi = min(lo + p.per, p.S_kv);
   const float score_scale = p.scale * dequant_factor(p.k_scale, p, g);
   const int nt = (hi - lo + SP_TILE - 1) / SP_TILE;
@@ -199,7 +211,7 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
   const T* q = static_cast<const T*>(p.q);
   for (int i = tid; i < rows * QPR; i += SP_THREADS) {
     const int r = i / QPR, e = (i % QPR) * EQ;
-    const int hl = r / K, t = r % K;
+    const int hl = (r0 + r) / K, t = (r0 + r) % K;
     cp_async16(Qs + r * D + e, q + (((long long)b * K + t) * p.Hq + g * n_rep + hl) * D + e, true);
   }
   cp_async_commit();
@@ -277,7 +289,7 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
     const C* Ks = KVs + 2 * stage * Tile::KV;
     kv::tile_rows<T, C, D, RW, SP_WARPS>(
         Qs, Ks, Ks + Tile::KV, min(SP_TILE, hi - s0), nrw, score_scale,
-        [&](int i, int c) { return mrow[((warp + SP_WARPS * i) % K) * p.mask_st + s0 + c] != 0; }, Pw, m_r, l_r, acc);
+        [&](int i, int c) { return mrow[((r0 + warp + SP_WARPS * i) % K) * p.mask_st + s0 + c] != 0; }, Pw, m_r, l_r, acc);
     j = jn;
   }
   cp_async_wait<0>();  // (no live tile: the q copies)
@@ -287,7 +299,7 @@ __global__ void __launch_bounds__(SP_THREADS) split_kernel(const SplitParams p) 
 #pragma unroll
   for (int i = 0; i < RW; ++i) {
     if (i >= nrw) continue;
-    const int r = warp + SP_WARPS * i;
+    const int r = r0 + warp + SP_WARPS * i;
     const int h = g * n_rep + r / K;
     const long long rh = ((long long)b * K + r % K) * p.Hq + h;  // (row, q head)
     if (p.splits == 1) {
@@ -347,14 +359,14 @@ __global__ void split_combine_kernel(const SplitParams p) {
 
 template <typename T, typename C, int D, int RW, bool PAGED>
 cudaError_t split_launch(const SplitParams& p, cudaStream_t st) {
-  const int rows = (p.Hq / p.Hkv) * p.K;
+  const int rows = min(MAX_ROWS, (p.Hq / p.Hkv) * p.K);  // a block's
   const size_t smem = SplitTile<T, C, D>::smem(rows, RW, p.per, PAGED);
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(split_kernel<T, C, D, RW, PAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  split_kernel<T, C, D, RW, PAGED><<<dim3(p.Hkv, p.B, p.splits), SP_THREADS, smem, st>>>(p);
+  split_kernel<T, C, D, RW, PAGED><<<dim3(p.Hkv * row_chunks(p), p.B, p.splits), SP_THREADS, smem, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
   constexpr int PAIRS = 2;  // (row, q head) pairs per combine block, a warp each
@@ -364,7 +376,7 @@ cudaError_t split_launch(const SplitParams& p, cudaStream_t st) {
 
 template <typename T, typename C, int D, bool PAGED>
 cudaError_t split_dispatch(const SplitParams& p, cudaStream_t st) {
-  const int per_warp = ((p.Hq / p.Hkv) * p.K + SP_WARPS - 1) / SP_WARPS;
+  const int per_warp = (min(MAX_ROWS, (p.Hq / p.Hkv) * p.K) + SP_WARPS - 1) / SP_WARPS;
   return per_warp <= 2 ? split_launch<T, C, D, 2, PAGED>(p, st)
                        : split_launch<T, C, D, MAX_ROWS / SP_WARPS, PAGED>(p, st);
 }
@@ -416,7 +428,7 @@ extern "C" int nxdi_tkg_decode_attention(
     float scale, int dtype, int cache_dtype, const float* k_scale, const float* v_scale, float qmax,
     void* stream) {
   using namespace nxdi;
-  if (B <= 0 || K <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * K > MAX_ROWS ||
+  if (B <= 0 || K <= 0 || Hkv <= 0 || Hq % Hkv != 0 || K > MAX_Q ||
       S_kv <= 0 || S_kv > S_max || B > R || layer < 0 || layer >= L)
     return (int)cudaErrorInvalidValue;
   SplitParams p{q, k_cache, v_cache, static_cast<const unsigned char*>(mask), sink, out, m_part, l_part, acc_part,
@@ -435,7 +447,7 @@ extern "C" int nxdi_paged_decode_attention(
     float scale, int dtype, int cache_dtype, const float* k_scale, const float* v_scale, float qmax,
     void* stream) {
   using namespace nxdi;
-  if (B <= 0 || K <= 0 || Hkv <= 0 || Hq % Hkv != 0 || (Hq / Hkv) * K > MAX_ROWS ||
+  if (B <= 0 || K <= 0 || Hkv <= 0 || Hq % Hkv != 0 || K > MAX_Q ||
       MB <= 0 || NB1 <= 0 || layer < 0 || layer >= L || (bs != 16 && bs != 32))
     return (int)cudaErrorInvalidValue;
   SplitParams p{q, k_cache, v_cache, static_cast<const unsigned char*>(mask), sink, out, m_part, l_part, acc_part,

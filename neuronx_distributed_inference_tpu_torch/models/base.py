@@ -25,6 +25,22 @@ accepted drafts on the device, and :func:`draft_chain_propose` runs a
 draft's next proposals from that output. The config tri-states turn the
 kernels off.
 
+Sliding-window attention (Mistral, GPT-OSS's sliding layers) runs as the
+reference runs it. A layer's window bounds its masks and its B2 prefill; on
+a ring cache (``ModelSpec.bounded_window``: every layer rings W slots;
+``ModelSpec.ring_window``: the :class:`InterleavedKVCache` of an
+interleaved sliding/global stack, described by ``layer_groups``) a ring
+layer's decode and multi-token passes attend the W prior ring slots plus
+the in-flight chunk (:func:`ring_attention`, plain PyTorch, as in the
+reference), and the writes go to slot ``position mod W``. The reference
+picks a layer's flavor inside its ``lax.scan``; here the layer loop knows
+each layer's flavor in Python, so a captured step is one static sequence.
+An interleaved stack's global layers decode through B1 over their
+full-length lines, with the model's learned sinks. Over the paged cache
+only a model with no window and no sink anywhere takes B5; the others send
+passes of at most 16 tokens to B4 with their masks and sinks, and longer
+ones to the plain block gather.
+
 An int8/fp8 ``kv_cache_dtype`` makes the cache's streams ``QuantizedKV``:
 the writes quantize in place, B1, B4, B5 and B3 run their code modes on
 the codes and the layer's scales, and B8 is not taken (it streams the cache
@@ -55,11 +71,13 @@ from neuronx_distributed_inference_tpu_torch.modules.attention import (
     qkv_project,
 )
 from neuronx_distributed_inference_tpu_torch.modules.kvcache import (
+    InterleavedKVCache,
     KVCache,
     QuantizedKV,
     kv_batch_size,
     layer_streams,
     read_cache_at_layer,
+    ring_positions,
     slot_ids_from_seq_ids,
     update_cache_at_layer,
 )
@@ -84,6 +102,17 @@ PHASE_MIXED = "mixed"
 
 
 @dataclass(frozen=True)
+class LayerGroupSpec:
+    """One contiguous run of layers of one attention flavor (the
+    reference's ``LayerGroupSpec``): GPT-OSS's alternating sliding / global
+    layers are a sequence of these. The reference's chunked-attention flavor
+    and per-group layer functions are not ported (ROADMAP A9)."""
+
+    num_layers: int
+    sliding_window: Optional[int] = None
+
+
+@dataclass(frozen=True)
 class ModelSpec:
     """Static model hyperparams (counterpart of the reference ModelSpec;
     the fields the ported path reads)."""
@@ -105,6 +134,35 @@ class ModelSpec:
     # is also handed a generator (the serving session's steps are greedy)
     do_sample: bool = False
     max_topk: int = 256
+    # sliding-window attention of every layer (Mistral)
+    sliding_window: Optional[int] = None
+    # the contiguous cache is a ring of this many slots a line (the window;
+    # builder._finalize_bounded)
+    bounded_window: Optional[int] = None
+    # interleaved per-layer cache (GPT-OSS): the sliding layers ring-bound
+    # to this window, the global layers on full-length lines
+    ring_window: Optional[int] = None
+    # the attention flavor of each run of layers; None = one uniform group
+    # with the spec-level sliding_window
+    layer_groups: Optional[Tuple[LayerGroupSpec, ...]] = None
+
+
+def layer_windows(spec: ModelSpec, num_layers: int) -> List[Optional[int]]:
+    """The sliding window of each layer (None: global attention)."""
+    if spec.layer_groups is None:
+        return [spec.sliding_window] * num_layers
+    wins = [g.sliding_window for g in spec.layer_groups for _ in range(g.num_layers)]
+    if len(wins) != num_layers:
+        raise ValueError(f"layer_groups mismatch: spec says {len(wins)} layers, params carry {num_layers}")
+    return wins
+
+
+def plain_attention(spec: ModelSpec) -> bool:
+    """No sliding window in the model or in any of its layer groups, and no
+    learned sink: the masks the B5 and B3 kernels build are the whole mask
+    (the reference's ``plain_model`` gate)."""
+    groups = spec.layer_groups or ()
+    return not (spec.sliding_window or spec.attn.has_sink or any(g.sliding_window for g in groups))
 
 
 @dataclass
@@ -201,6 +259,40 @@ def gated_mlp(params: dict, hidden: torch.Tensor, spec: ModelSpec) -> torch.Tens
     return linear(params["down_proj"], gate * up)
 
 
+def ring_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    k_prior: torch.Tensor,
+    v_prior: torch.Tensor,
+    positions: torch.Tensor,
+    W: int,
+    aspec: AttnSpec,
+    sink: Optional[torch.Tensor],
+) -> torch.Tensor:
+    """Decode / multi-token attention of a ring layer (the reference's
+    ``ring_attention``): one softmax over [the W prior ring slots | the
+    in-flight chunk], masked from absolute positions. ``k_prior`` /
+    ``v_prior`` (B, W, Hkv, D) are the ring as it was BEFORE this chunk's
+    writes (the caller attends before it writes); ``positions`` (B, S) are
+    absolute, negative for padded tokens."""
+    p = positions.to(torch.int64)
+    head = p[:, :1] - 1  # (B, 1) the last position before the chunk
+    slots = torch.arange(W, device=p.device)[None, :]
+    # the position ring slot s held before the chunk wrote anything
+    slot_pos = head - torch.remainder(head - slots, W)  # (B, W)
+    # a slot before the chunk lies below every valid query's position, and a
+    # padded query's is below every filled slot's
+    prior_ok = masks.windowed_token_gen_mask(slot_pos, p, slot_pos >= 0, W)  # (B, 1, S, W)
+    qp = p[:, None, :, None]  # (B, 1, S, 1)
+    kp = p[:, None, None, :]  # (B, 1, 1, S)
+    active_ok = (kp >= 0) & (kp <= qp) & (kp > qp - W)
+    mask = torch.cat([prior_ok, active_ok], dim=-1)
+    keys = torch.cat([k_prior.to(k.dtype), k], dim=1)
+    vals = torch.cat([v_prior.to(v.dtype), v], dim=1)
+    return attention_decode(q, keys, vals, mask, aspec, sink=sink)
+
+
 def contiguous_decode_attend(
     q: torch.Tensor,
     k_cache: torch.Tensor,
@@ -213,10 +305,10 @@ def contiguous_decode_attend(
 ) -> torch.Tensor:
     """Token-gen attention over one layer of the stacked contiguous cache:
     the B1 kernel's wrapper reads the FULL stacked cache at ``layer_idx``
-    (no bucket-slice copy). A pass of more than ``MAX_Q_LEN`` tokens (a
-    window of a windowed prefill) and ``use_tkg_kernel=False`` take the
-    bucket slice and the plain masked softmax, as the reference's gate
-    sends them to its native path."""
+    (no bucket-slice copy). A pass of more than MAX_Q_LEN (16) queries a
+    row (a window of a windowed prefill) and ``use_tkg_kernel=False`` take
+    the bucket slice and the plain masked softmax, as the reference's gate
+    (``use_tkg``: q_len <= 16) sends them to its native path."""
     from neuronx_distributed_inference_tpu_torch.ops.decode_attention import MAX_Q_LEN
 
     if use_tkg(aspec) and q.shape[1] <= MAX_Q_LEN:
@@ -243,19 +335,21 @@ def paged_attend(
     kv_limit: torch.Tensor,
     aspec: AttnSpec,
     sink: Optional[torch.Tensor] = None,
+    plain_model: bool = True,
 ) -> torch.Tensor:
     """Attention of a token-generation pass over one layer of the paged
-    cache (the reference's ``decoder_layer`` block branch, ``base.py:619-703``):
-    passes of 8 tokens or more go to the B5 paged flash kernel's wrapper,
-    shorter ones to the B4 paged decode kernel's wrapper; with both
-    tri-states off, the plain block gather and masked softmax."""
+    cache (the reference's ``decoder_layer`` block branch, ``base.py:619-703``).
+    B5 implements the causal + prefix mask only, so it takes a pass (of 8
+    tokens or more) only for a ``plain_model`` (:func:`plain_attention`: no
+    window and no sink anywhere). Other passes of at most 16 tokens go to
+    the B4 paged decode kernel's wrapper with the layer's mask and sink;
+    longer ones of a windowed or sink model, and every pass with the
+    tri-states off, take the plain block gather and masked softmax, as
+    the reference's ``use_tkg`` gate (q_len <= 16) sends them."""
+    from neuronx_distributed_inference_tpu_torch.ops.decode_attention import MAX_Q_LEN
+
     Sq = q.shape[1]
-    if use_paged_flash(aspec, Sq):
-        if sink is not None:
-            raise NotImplementedError(
-                "learned attention sinks in a multi-token pass over the paged cache "
-                "are not ported to PyTorch yet (ROADMAP A9 (sinks))"
-            )
+    if plain_model and use_paged_flash(aspec, Sq):
         from neuronx_distributed_inference_tpu_torch.ops.paged_flash_attention import (
             paged_flash_attention,
         )
@@ -267,7 +361,7 @@ def paged_attend(
             q, k_l, v_l, block_table, positions, kv_limit,
             scale=aspec.softmax_scale, n_rep=aspec.num_heads // aspec.num_kv_heads, **codes,
         )
-    if use_tkg(aspec):
+    if use_tkg(aspec) and Sq <= MAX_Q_LEN:
         from neuronx_distributed_inference_tpu_torch.ops.decode_attention import (
             paged_tkg_decode_attention,
         )
@@ -291,17 +385,20 @@ def _plain_weight(entry) -> bool:
     )
 
 
-def _fused_attn_eligible(layer_params: dict, mask, spec: ModelSpec, cos, k_cache) -> bool:
+def _fused_attn_eligible(layer_params: dict, mask, spec: ModelSpec, cos, k_cache, window) -> bool:
     """The layer-level conditions of the fused attention block B8 (the
     reference's ``_fused_attn_eligible``; the step-level ones, the
-    contiguous cache among them, come from :func:`run_decoder_layers`): a
-    plain cache (a quantized one takes B1's code mode: B8 streams the cache
-    in its storage dtype), rmsnorm, a plain fused ``qkv_proj`` and
-    ``o_proj``, full rotary, and the gate of
+    contiguous full-length cache among them, come from
+    :func:`run_decoder_layers`): a plain cache (a quantized one takes B1's
+    code mode: B8 streams the cache in its storage dtype), rmsnorm, a plain
+    fused ``qkv_proj`` and ``o_proj``, full rotary, one new token a row for
+    a windowed layer (B8's in-flight part is purely causal; the window
+    bounds its prior part through the mask), and the gate of
     ``kernel_mode.use_fused_attn_block``."""
     sa = layer_params.get("self_attn", {})
     return (
         not isinstance(k_cache, QuantizedKV)
+        and (window is None or mask.shape[-2] == 1)
         and spec.norm_type == "rmsnorm"
         and "qkv_proj" in sa
         and _plain_weight(sa["qkv_proj"])
@@ -359,17 +456,29 @@ def decoder_layer(
     # run_decoder_layers certifies the step-level conditions of the fused
     # decode kernels (decode over the contiguous cache)
     fused_ok: bool = False,
+    # this layer's sliding window (None: global attention)
+    window: Optional[int] = None,
+    # W when (k_cache, v_cache) holds this layer as a ring of W slots a line
+    ring: Optional[int] = None,
+    # False when the model has a window or a sink anywhere (plain_attention)
+    plain_model: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder layer, write-then-attend: this layer's new K/V go into the
     full stacked cache first (in place; through ``slot_mapping`` on the
     paged cache), then prefill attends the in-flight K/V and decode attends
     the cache. Returns (hidden, k_cache, v_cache).
 
+    A ring layer (``ring``: the bounded cache, or an interleaved stack's
+    ring) writes slot ``position mod W``; its decode and multi-token passes
+    attend the W prior slots and the chunk (:func:`ring_attention`), BEFORE
+    the chunk's writes land, since a write may overwrite a slot an earlier
+    query of the chunk still reads.
+
     A decode step that qualifies runs the attention half as the fused block
     B8, which returns the new K/V for the scatter after it, and the MLP half
     as the fused block B9 (:func:`_decoder_layer_mlp`)."""
     aspec = spec.attn
-    if fused_ok and _fused_attn_eligible(layer_params, mask, spec, cos, k_cache):
+    if fused_ok and _fused_attn_eligible(layer_params, mask, spec, cos, k_cache, window):
         from neuronx_distributed_inference_tpu_torch.ops.decode_block import fused_attn_block
 
         sa = layer_params["self_attn"]
@@ -387,17 +496,26 @@ def decoder_layer(
         hidden, layer_params["input_layernorm"]["weight"], spec.rms_eps, spec.norm_type
     )
     q, k, v = qkv_project(layer_params["self_attn"], hidden, cos, sin, aspec)
+    sink = layer_params["self_attn"].get("sink", {}).get("weight") if aspec.has_sink else None
+    if ring is not None and phase != PHASE_CONTEXT_ENCODING:
+        # attend the prior ring (views of the cache) before the writes land
+        k_prior, v_prior = read_cache_at_layer(k_cache, v_cache, layer_idx, q.shape[0], ring)
+        attn_out = ring_attention(q, k, v, k_prior, v_prior, positions, ring, aspec, sink)
+        k_cache, v_cache = update_cache_at_layer(
+            k_cache, v_cache, k, v, layer_idx, slot_ids, ring_positions(positions, ring)
+        )
+        return _finish_layer(layer_params, residual, attn_out, spec, mlp_fn, fused_ok), k_cache, v_cache
     if block_inputs is not None:
         k_cache, v_cache = update_block_cache_at_layer(
             k_cache, v_cache, k, v, layer_idx, block_inputs[0]
         )
     else:
+        write_pos = positions if ring is None else ring_positions(positions, ring)
         k_cache, v_cache = update_cache_at_layer(
-            k_cache, v_cache, k, v, layer_idx, slot_ids, positions
+            k_cache, v_cache, k, v, layer_idx, slot_ids, write_pos
         )
-    sink = layer_params["self_attn"].get("sink", {}).get("weight") if aspec.has_sink else None
     if phase == PHASE_CONTEXT_ENCODING:
-        attn_out = attention_prefill(q, k, v, mask, aspec, sink=sink, key_valid=key_valid)
+        attn_out = attention_prefill(q, k, v, mask, aspec, sink=sink, key_valid=key_valid, window=window)
     elif ragged_rows is not None:
         # ragged mixed step: prefill-chunk AND decode rows in ONE attention
         # launch off the paged cache, the masks derived from the descriptors
@@ -412,29 +530,44 @@ def decoder_layer(
     elif block_inputs is not None:
         _, block_table, kv_limit = block_inputs
         attn_out = paged_attend(
-            q, k_cache, v_cache, layer_idx, mask, positions, block_table, kv_limit, aspec, sink
+            q, k_cache, v_cache, layer_idx, mask, positions, block_table, kv_limit, aspec, sink,
+            plain_model=plain_model,
         )
     else:
         attn_out = contiguous_decode_attend(
             q, k_cache, v_cache, layer_idx, mask, spec, aspec, sink
         )
-    hidden = residual + o_project(layer_params["self_attn"], attn_out)
-    return _decoder_layer_mlp(layer_params, hidden, spec, mlp_fn, fused_ok), k_cache, v_cache
+    return _finish_layer(layer_params, residual, attn_out, spec, mlp_fn, fused_ok), k_cache, v_cache
 
 
-def build_mask(inputs: StepInputs, spec: ModelSpec, phase: str) -> torch.Tensor:
+def _finish_layer(layer_params: dict, residual, attn_out, spec: ModelSpec, mlp_fn: Callable, fused_ok: bool):
+    """o projection and residual, then the MLP half."""
+    hidden = residual + o_project(layer_params["self_attn"], attn_out, spec.attn)
+    return _decoder_layer_mlp(layer_params, hidden, spec, mlp_fn, fused_ok)
+
+
+def build_mask(inputs: StepInputs, spec: ModelSpec, phase: str, window: Optional[int] = None) -> torch.Tensor:
     """``inputs.mask_override`` when it is set; else the causal mask for
-    prefill, and for token generation the cache-validity mask, per token
-    (causal among the new tokens) when a pass carries more than one
-    (chunked or prefix prefill on the paged cache, speculation)."""
+    prefill (windowed when ``window`` is set), and for token generation the
+    cache-validity mask, per token (causal among the new tokens) when a
+    pass carries more than one, bounded to (pos - window, pos] when
+    ``window`` is set."""
     if inputs.mask_override is not None:
         return inputs.mask_override
     n_active = inputs.input_ids.shape[1]
     if phase == PHASE_CONTEXT_ENCODING:
+        if window:
+            return masks.windowed_mask(inputs.attention_mask, inputs.position_ids, window)
         return masks.causal_mask(inputs.attention_mask)
     if n_active > 1:
-        return masks.spec_token_gen_mask(inputs.attention_mask, inputs.position_ids)
-    return masks.token_gen_mask(inputs.attention_mask, n_active)
+        mask = masks.spec_token_gen_mask(inputs.attention_mask, inputs.position_ids)
+    else:
+        mask = masks.token_gen_mask(inputs.attention_mask, n_active)
+    if window:
+        cols = torch.arange(mask.shape[-1], device=mask.device)[None, None, None, :]
+        pos = inputs.position_ids[:, None, :, None]  # (B, 1, K, 1)
+        mask = mask & (cols > pos - window)
+    return mask
 
 
 def embed(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
@@ -499,9 +632,16 @@ def run_decoder_layers(
     mlp_fn: Callable = gated_mlp,
     capture_layers: Optional[Tuple[int, ...]] = None,
 ):
-    """Layer stack + final norm over an embedded hidden state (uniform stack:
-    one Python loop over the layers, the cache updated in place). Returns
-    (hidden, cache).
+    """Layer stack + final norm over an embedded hidden state (one Python
+    loop over the layers, the cache updated in place). Returns (hidden,
+    cache).
+
+    Each layer takes its flavor's mask (:func:`layer_windows`: one mask per
+    distinct window, built once a step) and its cache: a ring layer of the
+    bounded cache or of an :class:`InterleavedKVCache` its ring stack at its
+    ring index, a global layer of an interleaved cache the full stack at its
+    full index. Ring layers build their decode masks from positions
+    (:func:`ring_attention`), so no dense mask is built for them.
 
     RoPE takes ``inputs.rope_position_ids`` when it is set (tree nodes at
     their depth) and the cache is written at ``inputs.position_ids``.
@@ -527,42 +667,75 @@ def run_decoder_layers(
     else:
         slot_ids = slot_ids_from_seq_ids(inputs.seq_ids, kv_batch_size(cache))
     key_valid = inputs.attention_mask if phase == PHASE_CONTEXT_ENCODING else None
+    plain_model = plain_attention(spec)
     # the flash kernels mask from key_valid / kv_limit themselves: only the
     # plain paths need the dense masks
     flash = key_valid is not None and use_flash(spec.attn)
     paged_flash = (
-        is_block and phase != PHASE_CONTEXT_ENCODING
+        is_block and phase != PHASE_CONTEXT_ENCODING and plain_model
         and use_paged_flash(spec.attn, inputs.input_ids.shape[1])
-    )
-    mask = None if (flash or paged_flash) else build_mask(inputs, spec, phase)
-    # the step-level conditions of the fused decode kernels (the reference's
-    # fused_eligible): decode over the contiguous cache at contiguous write
-    # positions (B8 builds its own causal mask and ropes at the write
-    # position: no tree's rope or mask); the mixed step (mixed_forward)
-    # never reaches here
-    fused_ok = (
-        phase != PHASE_CONTEXT_ENCODING
-        and not is_block
-        and inputs.rope_position_ids is None
-        and inputs.mask_override is None
     )
     layers: Union[Dict, List[Dict]] = params["layers"]
     if isinstance(layers, dict):
         layers = unstack_layers(layers)
+    windows = layer_windows(spec, len(layers))
+    interleaved = isinstance(cache, InterleavedKVCache)
+    bounded = spec.bounded_window if not is_block else None
+    # ring layers decode from positions; every other layer reads its
+    # flavor's mask
+    ring_decode = phase != PHASE_CONTEXT_ENCODING and (bounded or interleaved)
+    flavor_masks: Dict[Optional[int], Optional[torch.Tensor]] = {}
+    for w in windows:
+        if w not in flavor_masks:
+            skip = flash or paged_flash or (ring_decode and (bounded or w is not None))
+            flavor_masks[w] = None if skip else build_mask(inputs, spec, phase, window=w)
+    # the step-level conditions of the fused decode kernels (the reference's
+    # fused_eligible): decode over the contiguous full-length cache at
+    # contiguous write positions (B8 builds its own causal mask and ropes at
+    # the write position: no tree's rope or mask); the mixed step
+    # (mixed_forward) never reaches here
+    fused_ok = (
+        phase != PHASE_CONTEXT_ENCODING
+        and not is_block
+        and not bounded
+        and not interleaved
+        and inputs.rope_position_ids is None
+        and inputs.mask_override is None
+    )
     captured = [None] * len(capture_layers) if capture_layers is not None else None
-    k_cache, v_cache = cache.k, cache.v
-    for li, layer_params in enumerate(layers):
+    if interleaved:
+        streams = {
+            False: (cache.k_full, cache.v_full), True: (cache.k_ring, cache.v_ring),
+        }
+        n_seen = {False: 0, True: 0}
+    else:
+        k_cache, v_cache = cache.k, cache.v
+    for li, (layer_params, w) in enumerate(zip(layers, windows)):
+        ring = bounded
+        idx = li
+        if interleaved:
+            sliding = w is not None
+            ring = spec.ring_window if sliding else None
+            k_cache, v_cache = streams[sliding]
+            idx = n_seen[sliding]
+            n_seen[sliding] += 1
         hidden, k_cache, v_cache = decoder_layer(
-            layer_params, hidden, cos, sin, k_cache, v_cache, li, mask, slot_ids,
+            layer_params, hidden, cos, sin, k_cache, v_cache, idx, flavor_masks[w], slot_ids,
             positions, spec, phase, mlp_fn, key_valid=key_valid, block_inputs=block_inputs,
-            fused_ok=fused_ok,
+            fused_ok=fused_ok, window=w, ring=ring, plain_model=plain_model,
         )
+        if interleaved:
+            streams[w is not None] = (k_cache, v_cache)
         if captured is not None:
             for j, tap in enumerate(capture_layers):
                 if tap == li:
                     captured[j] = hidden
     hidden = apply_norm(hidden, params["norm"]["weight"], spec.rms_eps, spec.norm_type)
-    new_cache = type(cache)(k=k_cache, v=v_cache)
+    if interleaved:
+        (k_full, v_full), (k_ring, v_ring) = streams[False], streams[True]
+        new_cache = InterleavedKVCache(k_full=k_full, v_full=v_full, k_ring=k_ring, v_ring=v_ring)
+    else:
+        new_cache = type(cache)(k=k_cache, v=v_cache)
     if captured is not None:
         return hidden, new_cache, torch.cat(captured, dim=-1)
     return hidden, new_cache
@@ -684,16 +857,12 @@ def mixed_forward(
     leading matches of the drafts plus one, computed on the device. Rejected
     draft K/V needs no rollback: those positions are written again next
     round before anything attends them."""
-    if (
-        getattr(spec, "layer_groups", None) is not None
-        or getattr(spec, "bounded_window", None)
-        or getattr(spec, "ring_window", None)
-    ):
+    if spec.layer_groups is not None or spec.bounded_window or spec.ring_window:
         raise NotImplementedError(
             "the ragged mixed step supports uniform full-length layer stacks "
             "only (no ring-bounded/interleaved caches or layer groups)"
         )
-    if getattr(spec, "sliding_window", None) or getattr(spec, "attention_chunk_size", None) or spec.attn.has_sink:
+    if spec.sliding_window or spec.attn.has_sink:
         raise NotImplementedError(
             "the ragged paged kernel implements the plain causal+prefix mask "
             "only (no sliding-window/chunked attention, no sinks)"

@@ -4,13 +4,20 @@ shard, so the reference's GQA padding/replication is the identity here).
 
 Params are a nested dict with the reference's pytree layout: stacked layer
 weights ``(L, ...)`` in (in, out) orientation, ``qkv_proj`` fused as
-``[q|k|v]`` when ``fused_qkv`` is set, per-head ``q_norm``/``k_norm``
-weights ``(L, D)`` for qk-norm models (Qwen3), a padded vocab, and a
-materialized ``(H, Vpad)`` lm head for tied embeddings.
+``[q|k|v]`` when ``fused_qkv`` is set, q/k/v ``bias`` leaves ``(L, N)``
+for biased models (Qwen2, GPT-OSS), per-head ``q_norm``/``k_norm`` weights
+``(L, D)`` for qk-norm models (Qwen3), a padded vocab, and a materialized
+``(H, Vpad)`` lm head for tied embeddings.
+
+A sliding window (``Config.sliding_window``, or a model's own, Mistral's)
+bounds the contiguous cache to a ring of W slots when
+:func:`ring_layout_ok` allows it (``ModelSpec.bounded_window``); the paged
+pool and fused speculation keep full-length lines with windowed masks.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Dict, Optional, Union
 
@@ -34,6 +41,15 @@ from neuronx_distributed_inference_tpu_torch.modules.rope import (
 
 def pad_vocab(vocab_size: int, degree: int) -> int:
     return math.ceil(vocab_size / degree) * degree
+
+
+def ring_layout_ok(tc) -> bool:
+    """Layout gate of the ring-bounded caches (slot = position mod W), the
+    uniform one (``bounded_window``) and the interleaved one
+    (``ring_window``): the paged pool and fused speculation assume position
+    == slot and keep full-length lines (the reference's rule, less its
+    context / attention / data parallel degrees, which the port refuses)."""
+    return not tc.is_block_kv_layout and not tc.enable_fused_speculation
 
 
 def _to_torch(x, dtype: torch.dtype, device) -> torch.Tensor:
@@ -99,10 +115,15 @@ NORM_KEYS = ("input_layernorm", "post_attention_layernorm", "norm", "q_norm", "k
 class DecoderModelBuilder:
     """Builder for llama-family decoder-only models."""
 
+    qkv_bias = False
+    o_bias = False
     qk_norm = False
     norm_type = "rmsnorm"
     #: True for the MoE builders (models/mixtral.py)
     is_moe = False
+    #: True where the HF config's ``sliding_window`` is the model's window
+    #: (Mistral); elsewhere only ``Config.sliding_window`` sets one
+    hf_sliding_window = False
 
     def __init__(self, config: InferenceConfig):
         self.config = config
@@ -124,6 +145,8 @@ class DecoderModelBuilder:
             head_dim=self.head_dim,
             scale=getattr(self.config, "attention_scale", None),
             qk_norm=self.qk_norm,
+            qkv_bias=self.qkv_bias,
+            o_bias=self.o_bias,
             softmax_fp32=tc.attention_softmax_fp32,
             has_sink=bool(getattr(self.config, "attention_sink", False)),
             rms_norm_eps=getattr(self.config, "rms_norm_eps", 1e-6),
@@ -135,7 +158,7 @@ class DecoderModelBuilder:
     def model_spec(self) -> ModelSpec:
         cfg = self.config
         tc = cfg.torch_config
-        return ModelSpec(
+        spec = ModelSpec(
             num_layers=cfg.num_hidden_layers,
             vocab_size=cfg.vocab_size,
             attn=self.attn_spec(),
@@ -148,7 +171,31 @@ class DecoderModelBuilder:
             use_fused_mlp=tc.fused_mlp_kernel_enabled,
             do_sample=bool(tc.on_device_sampling_config and tc.on_device_sampling_config.do_sample),
             max_topk=tc.max_topk,
+            sliding_window=self.sliding_window(),
         )
+        return self._finalize_bounded(spec)
+
+    def sliding_window(self) -> Optional[int]:
+        """``Config.sliding_window``; unset, the HF config's own for a
+        model whose class sets ``hf_sliding_window`` (Mistral)."""
+        window = self.config.torch_config.sliding_window
+        if window is None and self.hf_sliding_window:
+            window = getattr(self.config, "sliding_window", None) or None
+        return window
+
+    def _finalize_bounded(self, spec: ModelSpec) -> ModelSpec:
+        """Bound the contiguous cache to a ring of W = ``sliding_window``
+        slots when the layout allows it (:func:`ring_layout_ok`) and W is
+        shorter than ``seq_len``; otherwise the full-length cache, masked."""
+        tc = self.config.torch_config
+        if (
+            spec.sliding_window
+            and spec.layer_groups is None
+            and spec.sliding_window < tc.seq_len
+            and ring_layout_ok(tc)
+        ):
+            return dataclasses.replace(spec, bounded_window=spec.sliding_window)
+        return spec
 
     def host_read_tokens(self) -> Optional[int]:
         """The fewest tokens per row at which a step of this model reads on
@@ -188,6 +235,14 @@ class DecoderModelBuilder:
             },
             "norm": {"weight": (H,)},
         }
+        if self.qkv_bias:
+            if "qkv_proj" in attn:
+                attn["qkv_proj"]["bias"] = (L, (Hq + 2 * Hkv) * D)
+            else:
+                for p, n in (("q_proj", Hq), ("k_proj", Hkv), ("v_proj", Hkv)):
+                    attn[p]["bias"] = (L, n * D)
+        if self.o_bias:
+            attn["o_proj"]["bias"] = (L, H)
         if self.qk_norm:
             attn["q_norm"] = {"weight": (L, D)}
             attn["k_norm"] = {"weight": (L, D)}
@@ -275,9 +330,12 @@ class DecoderModelBuilder:
             },
             "norm": {"weight": _to_torch(get(self.HF_NORM), dtype, self.device)},
         }
+        sa = params["layers"]["self_attn"]
+        for p in (("q_proj", "k_proj", "v_proj") if self.qkv_bias else ()) + (("o_proj",) if self.o_bias else ()):
+            sa[p]["bias"] = stack(f"self_attn.{p}.bias", False)
         if self.qk_norm:
             for p in ("q_norm", "k_norm"):
-                params["layers"]["self_attn"][p] = {"weight": stack(f"self_attn.{p}.weight", False)}
+                sa[p] = {"weight": stack(f"self_attn.{p}.weight", False)}
         if getattr(cfg, "tie_word_embeddings", False):
             params["lm_head"] = {"weight": params["embed_tokens"]["weight"].t().contiguous()}
         else:
@@ -290,12 +348,14 @@ class DecoderModelBuilder:
         return params
 
     def _fuse_qkv(self, params: Dict) -> Dict:
-        """Concat q/k/v into one projection. The reference lays the fused
-        axis out rank-interleaved; with one model-parallel rank that is the
-        plain ``[q|k|v]`` concatenation."""
+        """Concat q/k/v (and their biases) into one projection. The
+        reference lays the fused axis out rank-interleaved; with one
+        model-parallel rank that is the plain ``[q|k|v]`` concatenation."""
         sa = params["layers"]["self_attn"]
-        parts = [sa.pop("q_proj")["weight"], sa.pop("k_proj")["weight"], sa.pop("v_proj")["weight"]]
-        sa["qkv_proj"] = {"weight": torch.cat(parts, dim=-1)}
+        parts = [sa.pop("q_proj"), sa.pop("k_proj"), sa.pop("v_proj")]
+        sa["qkv_proj"] = {"weight": torch.cat([p["weight"] for p in parts], dim=-1)}
+        if self.qkv_bias:
+            sa["qkv_proj"]["bias"] = torch.cat([p["bias"] for p in parts], dim=-1)
         return params
 
     def mlp_fn(self):
@@ -330,10 +390,11 @@ class DecoderModelBuilder:
                 dtype=tc.kv_dtype,
                 device=self.device,
             )
+        # a ring-bounded cache holds W slots a line (_finalize_bounded)
         return init_cache(
             self.config.num_hidden_layers,
             tc.max_batch_size,
-            tc.seq_len,
+            self.model_spec().bounded_window or tc.seq_len,
             self.num_kv_heads,
             self.head_dim,
             dtype=tc.kv_dtype,

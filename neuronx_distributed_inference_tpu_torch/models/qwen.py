@@ -1,6 +1,7 @@
-"""Qwen3 model plugin (counterpart of ``neuronx_distributed_inference_tpu/
-models/qwen.py``): the llama decoder graph with a per-head RMSNorm on q and
-k before RoPE. Qwen2's qkv bias waits for ROADMAP A9."""
+"""Qwen2 and Qwen3 model plugins (counterpart of
+``neuronx_distributed_inference_tpu/models/qwen.py``): the llama decoder
+graph with q/k/v projection biases (Qwen2) or a per-head RMSNorm on q and k
+before RoPE (Qwen3)."""
 
 from __future__ import annotations
 
@@ -20,6 +21,13 @@ class QwenInferenceConfig(InferenceConfig):
         "vocab_size",
         "intermediate_size",
     )
+
+
+@register_model("qwen2")
+class Qwen2ModelBuilder(DecoderModelBuilder):
+    """Qwen2: the attention projections carry biases (reference modeling_qwen2.py)."""
+
+    qkv_bias = True
 
 
 @register_model("qwen3")

@@ -3,10 +3,13 @@
 
 - :func:`qkv_project` / :func:`o_project` — projections with RoPE applied,
   through ``ops/quant.linear`` (plain, int8/fp8 or packed int4 weights),
-  with the per-head q/k RMSNorm of Qwen3 (``AttnSpec.qk_norm``) before RoPE.
+  with the q/k/v and o biases of Qwen2 and GPT-OSS (``AttnSpec.qkv_bias``
+  / ``o_bias``) and the per-head q/k RMSNorm of Qwen3 (``AttnSpec.qk_norm``)
+  before RoPE.
 - :func:`attention_prefill` — context-encoding attention: the B2 flash
-  kernel (``ops/flash_attention.py``) unless ``use_flash_kernel`` is
-  False, then the plain masked softmax.
+  kernel (``ops/flash_attention.py``), with a layer's sliding ``window``
+  and learned sink, unless ``use_flash_kernel`` is False, then the plain
+  masked softmax.
 - :func:`attention_decode` — the plain decode attention over a bucket
   slice; the decode kernel dispatch lives in
   ``models/base.contiguous_decode_attend``.
@@ -34,6 +37,8 @@ class AttnSpec:
     head_dim: int
     scale: Optional[float] = None
     qk_norm: bool = False  # rmsnorm on per-head q/k before rope (qwen3)
+    qkv_bias: bool = False  # q/k/v projection biases (qwen2, gpt-oss)
+    o_bias: bool = False  # o projection bias (gpt-oss)
     softmax_fp32: bool = True
     has_sink: bool = False
     rms_norm_eps: float = 1e-6
@@ -78,11 +83,17 @@ def qkv_project(
     kv_sz = spec.num_kv_heads * spec.head_dim
     if "qkv_proj" in params:
         fused = linear(params["qkv_proj"], hidden)
+        if spec.qkv_bias:
+            fused = fused + params["qkv_proj"]["bias"]
         q, k, v = torch.split(fused, [q_sz, kv_sz, kv_sz], dim=-1)
     else:
         q = linear(params["q_proj"], hidden)
         k = linear(params["k_proj"], hidden)
         v = linear(params["v_proj"], hidden)
+        if spec.qkv_bias:
+            q = q + params["q_proj"]["bias"]
+            k = k + params["k_proj"]["bias"]
+            v = v + params["v_proj"]["bias"]
     q = q.reshape(B, S, spec.num_heads, spec.head_dim)
     k = k.reshape(B, S, spec.num_kv_heads, spec.head_dim)
     v = v.reshape(B, S, spec.num_kv_heads, spec.head_dim)
@@ -92,10 +103,13 @@ def qkv_project(
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def o_project(params: dict, attn_out: torch.Tensor) -> torch.Tensor:
-    """(B,S,Hq,D) -> (B,S,H)."""
+def o_project(params: dict, attn_out: torch.Tensor, spec: Optional[AttnSpec] = None) -> torch.Tensor:
+    """(B,S,Hq,D) -> (B,S,H), plus the o bias when ``spec.o_bias``."""
     B, S, Hq, D = attn_out.shape
-    return linear(params["o_proj"], attn_out.reshape(B, S, Hq * D))
+    out = linear(params["o_proj"], attn_out.reshape(B, S, Hq * D))
+    if spec is not None and spec.o_bias:
+        out = out + params["o_proj"]["bias"]
+    return out
 
 
 def _masked_softmax_attention(
@@ -141,9 +155,11 @@ def attention_prefill(
 ) -> torch.Tensor:
     """Context-encoding attention. With ``key_valid`` (B, S) the B2 flash
     kernel's wrapper runs on the UN-repeated K/V (the kernel reads kv head
-    ``h // n_rep`` itself and masks from ``key_valid``, so ``mask`` may be
-    None); ``use_flash_kernel=False`` takes the plain masked softmax over
-    the dense (B, 1, S, S) ``mask``."""
+    ``h // n_rep`` itself and masks from ``key_valid`` and the layer's
+    sliding ``window``, so ``mask`` may be None; a learned ``sink`` folds in
+    through the emitted softmax stats); ``use_flash_kernel=False`` takes
+    the plain masked softmax over the dense (B, 1, S, S) ``mask``, which
+    carries the window then."""
     if key_valid is not None and causal and use_flash(spec):
         from neuronx_distributed_inference_tpu_torch.ops.flash_attention import (
             flash_attention,

@@ -17,6 +17,15 @@ Reads either dequantize after the slice (the plain paths) or hand the codes
 and the scales to the attention kernels, which read the scales on the
 device and convert the codes themselves (``ops/decode_attention.py``,
 :func:`layer_streams`).
+
+Ring caches (sliding-window attention) keep W slots a line: position p
+lives in slot ``p mod W`` (:func:`ring_positions`), and a negative
+(sentinel) position maps to slot W, out of range, so its write lands in the
+garbage line like every other out-of-range write. A uniform stack rings
+every layer in the plain :class:`KVCache` (``ModelSpec.bounded_window``);
+an interleaved sliding/global stack (GPT-OSS) sizes the cache per layer,
+:class:`InterleavedKVCache`: full-length lines for the global layers, rings
+for the sliding ones.
 """
 
 from __future__ import annotations
@@ -141,10 +150,19 @@ def _quantized_update(k_stream: QuantizedKV, v_stream: QuantizedKV, k_new: torch
     return codes[0], codes[1]
 
 
+def cache_streams(cache) -> tuple:
+    """Every stream of a cache: (k, v), or an interleaved cache's full and
+    ring stacks."""
+    if isinstance(cache, InterleavedKVCache):
+        return (cache.k_full, cache.v_full, cache.k_ring, cache.v_ring)
+    return (cache.k, cache.v)
+
+
 def cache_nbytes(cache) -> int:
-    """Bytes of a cache's streams, codes plus scales for a quantized one."""
+    """Bytes of a cache's streams, codes plus scales for a quantized one
+    (both stacks of an interleaved cache)."""
     total = 0
-    for stream in (cache.k, cache.v):
+    for stream in cache_streams(cache):
         for t in (stream.data, stream.scale) if isinstance(stream, QuantizedKV) else (stream,):
             total += t.numel() * t.element_size()
     return int(total)
@@ -186,9 +204,59 @@ class KVCache:
     v: Stream
 
 
-def kv_batch_size(cache: KVCache) -> int:
-    """Real (non-garbage) cache lines."""
-    return cache.k.shape[1] - GARBAGE_LINES
+@dataclass
+class InterleavedKVCache:
+    """Per-layer-sized cache of an interleaved sliding/global stack
+    (GPT-OSS; the reference's ``InterleavedKVCache``): the global layers
+    keep full-length lines, the sliding layers rings of W slots, so the
+    cache holds the sum of the per-layer sizes.
+
+    k_full/v_full: (L_global, B+1, S_max, H_kv, D)
+    k_ring/v_ring: (L_sliding, B+1, W, H_kv, D)
+
+    It has no ``k`` / ``v``: whole-cache operations go through
+    :func:`cache_streams`, shape probes through :func:`kv_batch_size`.
+    """
+
+    k_full: torch.Tensor
+    v_full: torch.Tensor
+    k_ring: torch.Tensor
+    v_ring: torch.Tensor
+
+
+def init_interleaved_cache(
+    num_global_layers: int,
+    num_sliding_layers: int,
+    batch_size: int,
+    max_len: int,
+    window: int,
+    num_kv_heads: int,
+    head_dim: int,
+    dtype=torch.bfloat16,
+    *,
+    device,
+) -> InterleavedKVCache:
+    """Zeroed full and ring stacks on ``device``."""
+    rows = batch_size + GARBAGE_LINES
+    full = (num_global_layers, rows, max_len, num_kv_heads, head_dim)
+    ring = (num_sliding_layers, rows, window, num_kv_heads, head_dim)
+    return InterleavedKVCache(
+        k_full=torch.zeros(full, dtype=dtype, device=device),
+        v_full=torch.zeros(full, dtype=dtype, device=device),
+        k_ring=torch.zeros(ring, dtype=dtype, device=device),
+        v_ring=torch.zeros(ring, dtype=dtype, device=device),
+    )
+
+
+def ring_positions(positions: torch.Tensor, window: int) -> torch.Tensor:
+    """Ring slots of positions: ``p mod W``, and W (out of range: the write
+    goes to the garbage line) for a negative sentinel position."""
+    return torch.where(positions >= 0, positions % window, torch.full_like(positions, window))
+
+
+def kv_batch_size(cache) -> int:
+    """Real (non-garbage) cache lines (every stream of a cache has them)."""
+    return cache_streams(cache)[0].shape[1] - GARBAGE_LINES
 
 
 def init_cache(

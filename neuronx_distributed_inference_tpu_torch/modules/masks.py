@@ -1,5 +1,6 @@
 """Attention masks (counterpart of the reference's ``modules/masks.py``;
-the main-path subset). Masks are boolean, True = attend."""
+the causal, decode and sliding-window flavors). Masks are boolean,
+True = attend."""
 
 from __future__ import annotations
 
@@ -33,3 +34,24 @@ def spec_token_gen_mask(attention_mask: torch.Tensor, position_ids: torch.Tensor
     cols = torch.arange(S_cache, device=attention_mask.device)[None, None, :]
     per_tok = cols <= position_ids[:, :, None]
     return (per_tok & attention_mask.bool()[:, None, :])[:, None, :, :]
+
+
+def windowed_mask(attention_mask: torch.Tensor, position_ids: torch.Tensor, window: int) -> torch.Tensor:
+    """Sliding-window causal prefill mask: the query at position p attends
+    valid keys in (p - window, p]. Returns (B, 1, S, S)."""
+    q_pos = position_ids[:, :, None]
+    k_pos = position_ids[:, None, :]
+    in_window = (k_pos <= q_pos) & (k_pos > q_pos - window)
+    return (in_window & attention_mask.bool()[:, None, :])[:, None, :, :]
+
+
+def windowed_token_gen_mask(
+    cache_positions: torch.Tensor, position_ids: torch.Tensor, valid: torch.Tensor, window: int
+) -> torch.Tensor:
+    """Decode mask over a ring cache: cache_positions (B, W) is the absolute
+    position each slot holds, position_ids (B, K) the queries', valid (B, W)
+    the populated slots. Returns (B, 1, K, W)."""
+    q = position_ids[:, :, None]
+    k = cache_positions[:, None, :]
+    ok = (k <= q) & (k > q - window) & valid.bool()[:, None, :]
+    return ok[:, None, :, :]

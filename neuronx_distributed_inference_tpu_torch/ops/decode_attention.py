@@ -8,8 +8,9 @@ B1 reads the FULL stacked cache ``(L, R, S_max, Hkv, D)`` at
 ``layer_idx`` (batch row b reads cache line b) and never materializes a
 bucket slice or a ``repeat_kv`` copy. Its kv axis is split over blocks
 (flash-decoding): each (kv head, batch row, split) block runs the online
-softmax for its ``n_rep * K`` query rows, grouped rep-major as the
-reference's ``_prep_q`` groups them, over its split's live tiles (tiles
+softmax for its ``n_rep * K`` query rows (K <= 16), grouped rep-major as the
+reference's ``_prep_q`` groups them, in row chunks of at most
+:data:`MAX_ROWS` (a block each), over its split's live tiles (tiles
 whose mask is all false are skipped), and a second launch from the same
 call combines the splits in split order and folds a learned sink into the
 denominator once (the reference's ``_finalize``). :func:`decode_kv_split`
@@ -60,8 +61,8 @@ VERIFY_KERNEL = "decode_attention_verify"  # B1 with K > 1 queries a row over a 
 PAGED_CODE_KERNEL = "paged_decode_attention_codes"  # B4 over int8/fp8 code blocks
 HEAD_DIMS = (64, 128)
 BLOCK_SIZES = (16, 32)  # B4: cache block sizes
-MAX_ROWS = 64  # n_rep * K query rows one block holds
-MAX_Q_LEN = 16
+MAX_ROWS = 64  # n_rep * K query rows one block holds; more take row chunks
+MAX_Q_LEN = 16  # queries a batch row (the reference's use_tkg gate)
 MAX_KV_SPLITS = 32  # kv splits per (batch row, kv head)
 SPLIT_ALIGN = 16  # positions per split are a multiple of this
 KV_TILE = 64  # positions per staged tile
@@ -134,9 +135,14 @@ def tkg_decode_attention_plain(
     return attention_decode(q, k_r, v_r, mask, spec, sink)
 
 
+def row_chunks(n_rep: int, q_len: int) -> int:
+    """Blocks a kv head's ``n_rep * q_len`` query rows take (MAX_ROWS each)."""
+    return -(-n_rep * q_len // MAX_ROWS)
+
+
 def _check_shared(name, q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink, codes=False):
-    """The checks B1 and B4 share: the caches' last dim is D, the query
-    rows fit one block, the layer exists, head_dim, dtypes (the caches'
+    """The checks B1 and B4 share: the caches' last dim is D, at most
+    MAX_Q_LEN queries a row, the layer exists, head_dim, dtypes (the caches'
     equal to q's, or ``codes``) and the sink."""
     B, K, Hq, D = q.shape
     L = k_cache.shape[0]
@@ -144,10 +150,8 @@ def _check_shared(name, q, k_cache, v_cache, n_kv, Hkv, layer_idx, mask, sink, c
         raise ValueError(
             f"{name}: q {tuple(q.shape)}, caches {tuple(k_cache.shape)}/{tuple(v_cache.shape)}, n_kv {n_kv}"
         )
-    if Hq % Hkv or (Hq // Hkv) * K > MAX_ROWS or K > MAX_Q_LEN:
-        raise ValueError(
-            f"{name}: n_rep*K = {(Hq // max(Hkv, 1)) * K} rows (max {MAX_ROWS}), K = {K} (max {MAX_Q_LEN})"
-        )
+    if Hq % Hkv or K > MAX_Q_LEN:
+        raise ValueError(f"{name}: {K} query rows a batch row (max {MAX_Q_LEN}), {Hq} q heads over {Hkv} kv heads")
     if mask.dim() != 4 or mask.shape[:3] != (B, 1, K) or mask.dtype != torch.bool:
         raise ValueError(f"{name}: mask {tuple(mask.shape)} {mask.dtype} != bool {(B, 1, K, '*')}")
     if not 0 <= int(layer_idx) < L:
@@ -194,9 +198,10 @@ def _split_plan(S_kv: int, blocks: int, device: int):
 def _split_parts(q, S_kv, Hkv, stream):
     """The kv split of a call and the three fp32 partial arrays the kernel
     combines, (m, l, acc) per split and (row, q head), as pointers into the
-    stream's scratch; None for one split."""
+    stream's scratch; None for one split. The split counts a group's row
+    chunks as blocks."""
     B, K, Hq, D = q.shape
-    splits, per = _split_plan(S_kv, B * Hkv, q.device.index)
+    splits, per = _split_plan(S_kv, B * Hkv * row_chunks(Hq // Hkv, K), q.device.index)
     if splits == 1:
         return splits, per, [None] * 3
     n = splits * B * K * Hq

@@ -11,7 +11,8 @@ With ``serving_ragged`` it also carries ``mixed_step_model``, the ragged
 mixed-step runner the serving session dispatches once per step (its
 speculative-verification family with ``serving_spec_ragged``).
 ``generate`` keeps the reference's host loop over the contiguous cache: one
-prefill (in windows when the prompt is longer than ``max_context_length``),
+prefill (in windows when the prompt is longer than ``max_context_length``
+or than a ring cache's window),
 then decode chunks sized by :func:`_pick_chunk`, with tokens kept on the
 device and fetched once at the end when no EOS is given, and fetched once
 per chunk to test for EOS otherwise. The paged cache is driven through
@@ -46,6 +47,7 @@ from neuronx_distributed_inference_tpu_torch.modules.kvcache import (
     PAD_POSITION_SENTINEL,
     KVCache,
     cache_nbytes,
+    cache_streams,
     zero_stream,
 )
 from neuronx_distributed_inference_tpu_torch.modules.sampling import (
@@ -106,6 +108,9 @@ class ModelForCausalLM:
         self.kv_cache: Optional[Union[KVCache, BlockKVCache]] = None
         mlp_fn = self.builder.mlp_fn()
         tkg_buckets = autobucketing.generate_token_generation_buckets(tc)
+        if self.spec.bounded_window:
+            # ring cache: one decode shape, the W-slot window
+            tkg_buckets = [self.spec.bounded_window]
         if tc.is_block_kv_layout:
             # block-table reads need bucket % block_size == 0
             tkg_buckets = sorted(
@@ -205,15 +210,16 @@ class ModelForCausalLM:
         cache is zeroed in place (a quantized one's scales too), so the
         graphs captured against it stay valid."""
         if self.kv_cache is not None:
-            zero_stream(self.kv_cache.k)
-            zero_stream(self.kv_cache.v)
+            for stream in cache_streams(self.kv_cache):
+                zero_stream(stream)
             return
         self.kv_cache = self.builder.init_kv_cache()
 
     @property
     def kv_cache_nbytes(self) -> int:
         """Device bytes of the KV cache: codes plus scales for an int8/fp8
-        cache (``modules/kvcache.cache_nbytes``)."""
+        cache, both stacks of an interleaved one
+        (``modules/kvcache.cache_nbytes``)."""
         return cache_nbytes(self.kv_cache)
 
     def warmup(self):
@@ -236,9 +242,9 @@ class ModelForCausalLM:
         chunk_q = None
         if tc.is_chunked_prefill or tc.is_prefix_caching:
             chunk_q = autobucketing.generate_chunk_q_buckets(tc)
-        elif tc.max_context_length < tc.seq_len:
-            # windowed prefill passes one window length
-            chunk_q = [self.context_encoding_model.buckets[-1]]
+        elif tc.max_context_length < tc.seq_len or self.spec.bounded_window or self.spec.ring_window:
+            # windowed prefill passes one window length (at most a ring's W)
+            chunk_q = [self._prefill_window()]
         runners = self.runners
         if tc.is_prefill_stage is True:
             runners = [self.context_encoding_model]
@@ -314,10 +320,24 @@ class ModelForCausalLM:
         return tokens, logits
 
     def _pos_limit(self) -> int:
+        """Largest writable position: a ring cache bounds slots, not
+        positions; otherwise the largest decode bucket bounds it."""
+        if self.spec.bounded_window:
+            return self.config.torch_config.seq_len
         return min(self.config.torch_config.seq_len, self.token_generation_model.buckets[-1])
 
     def _decode_bucket(self, needed: int) -> int:
+        if self.spec.bounded_window:
+            return self.spec.bounded_window
         return autobucketing.get_target_bucket(self.token_generation_model.buckets, needed)
+
+    def _prefill_window(self) -> int:
+        """The window length of a windowed prefill: the largest context
+        bucket, at most a ring's W (ring slots must stay distinct within
+        one window)."""
+        C = self.context_encoding_model.buckets[-1]
+        ring = self.spec.bounded_window or self.spec.ring_window
+        return min(C, ring) if ring else C
 
     def _advance_rng(self):
         """Reseed the sampler's generator for the next generate() call: the
@@ -334,8 +354,11 @@ class ModelForCausalLM:
         tc = self.config.torch_config
         if S > tc.seq_len:
             raise ValueError(f"prompt length {S} exceeds seq_len {tc.seq_len}")
-        windowed = S > tc.max_context_length
-        if windowed and S > self.token_generation_model.buckets[-1]:
+        ring = self.spec.bounded_window or self.spec.ring_window
+        # a prompt longer than a ring's window prefills in windows of at
+        # most W, so the ring slots of one window stay distinct
+        windowed = S > tc.max_context_length or bool(ring and S > ring)
+        if windowed and not self.spec.bounded_window and S > self.token_generation_model.buckets[-1]:
             raise ValueError(
                 f"prompt length {S} exceeds the largest token-generation "
                 f"bucket ({self.token_generation_model.buckets[-1]}) needed "
@@ -351,10 +374,11 @@ class ModelForCausalLM:
         contiguous cache: longer than B1's 16 query tokens). Every window is
         padded to the same length C, so one program per kv bucket; padded
         tokens carry sentinel positions that drop their writes and mask
-        their reads. Returns (first tokens (B, 1) int32 on the device, first
-        logits (B, 1, V) | None)."""
+        their reads. On a ring cache the windows are at most W long and the
+        width carrier of the bounded cache is its W slots. Returns (first
+        tokens (B, 1) int32 on the device, first logits (B, 1, V) | None)."""
         B, S_in = input_ids.shape
-        C = self.context_encoding_model.buckets[-1]
+        C = self._prefill_window()
         ctx_lens = attention_mask.sum(axis=1).astype(np.int64)
         first_tok = np.zeros((B,), np.int64)
         first_logits = np.zeros((B, 1, self.spec.vocab_size), np.float32) if self.spec.output_logits else None
@@ -383,7 +407,7 @@ class ModelForCausalLM:
             pos = np.where(pos < ctx_lens[:, None], pos, PAD_POSITION_SENTINEL)
             # full-width carrier: the per-token causal bounds keep valid
             # queries off the junk columns
-            width = autobucketing.get_target_bucket(tkg.buckets, end)
+            width = self.spec.bounded_window or autobucketing.get_target_bucket(tkg.buckets, end)
             mask = np.ones((B, width), np.int32)
             inputs, _ = tkg.prepare(ids, mask, pos, seq_ids, sampling_params)
             out = tkg(self.params, self.kv_cache, inputs, self._rng)

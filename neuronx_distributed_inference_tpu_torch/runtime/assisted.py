@@ -19,9 +19,11 @@ Verification (the reference's ``_speculative_token_selection`` family):
   generators and an accept generator seeded from the target's seed.
 
 Both caches take write-then-attend writes, so a rejected candidate leaves
-only a stale entry that a later round writes again before reading it.
-Ring-bounded caches are not ported (no sliding-window attention yet), so
-the reference's :class:`RingSnapshotGuard` is a refusal here.
+only a stale entry that a later round writes again before reading it. On a
+ring cache (sliding-window models) that does not hold: a round's writes at
+slots (p + j) mod W overwrite the live K/V of positions p + j - W, so
+:class:`RingSnapshotGuard` saves those slots before a round and puts the
+rejected ones back after it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import InterleavedKVCache, QuantizedKV
 from neuronx_distributed_inference_tpu_torch.modules.sampling import (
     prepare_sampling_params,
     validate_sampling_params,
@@ -41,15 +44,69 @@ from neuronx_distributed_inference_tpu_torch.runtime.application import Generati
 
 
 class RingSnapshotGuard:
-    """The reference's snapshot/restore of ring-cache slots around a
-    speculation round. The port has no ring-bounded cache yet, so building
-    one raises."""
+    """Snapshot and restore of the at-risk ring slots around one
+    speculation round (the reference's ``RingSnapshotGuard``).
+
+    A round writes candidate K/V at positions p .. p + n - 1; on a ring
+    cache (``spec.bounded_window``, or the ring stack of an interleaved
+    cache, ``spec.ring_window``) they land in slots (p + j) mod W and
+    overwrite the still-live K/V of positions p + j - W. The guard copies
+    those n slots of every ring layer before the round (:meth:`snapshot`)
+    and writes the rejected ones back after acceptance (:meth:`restore`:
+    slot j of row b survives iff j < counts[b]). A quantized ring moves its
+    codes, as the reference does. Apps without a ring make both a no-op."""
 
     def __init__(self, app, n_slots: int):
-        raise NotImplementedError(
-            "speculation over ring-bounded caches (RingSnapshotGuard) is not ported to "
-            "PyTorch yet (ROADMAP A9 (sliding-window attention))"
-        )
+        spec = app.spec
+        self.W = spec.bounded_window or spec.ring_window
+        self.app = app
+        self.n = int(n_slots)
+        if self.W is not None and self.n > self.W:
+            raise ValueError(
+                f"speculation writes {self.n} positions but the ring window "
+                f"holds only {self.W}: one round would wrap over its own "
+                "writes; lower speculation_length"
+            )
+        self._snap = None
+        self._slots = None
+
+    def _ring_arrays(self):
+        cache = self.app.kv_cache
+        if isinstance(cache, InterleavedKVCache):
+            return cache.k_ring, cache.v_ring
+        if isinstance(cache.k, QuantizedKV):
+            return cache.k.data, cache.v.data
+        return cache.k, cache.v
+
+    def snapshot(self, pos: np.ndarray) -> None:
+        """Copy the ring slots that positions pos .. pos + n - 1 will write
+        (rows 0 .. B - 1 are cache lines 0 .. B - 1)."""
+        if self.W is None:
+            return
+        pos = np.asarray(pos, np.int64).reshape(-1)
+        self._slots = (pos[:, None] + np.arange(self.n)) % self.W  # (B, n)
+        arrays = self._ring_arrays()
+        dev = arrays[0].device
+        rows = torch.arange(pos.shape[0], device=dev)[:, None]
+        slots = torch.from_numpy(self._slots).to(dev)
+        self._snap = tuple(a[:, rows, slots].clone() for a in arrays)  # (L, B, n, H, D)
+
+    def restore(self, counts: np.ndarray) -> None:
+        """Write the snapshot back at the slots whose writes were rejected."""
+        if self.W is None or self._snap is None:
+            return
+        rejected = np.arange(self.n)[None, :] >= np.asarray(counts)[:, None]  # (B, n)
+        slots, snaps = self._slots, self._snap
+        self._snap = self._slots = None
+        b, j = np.nonzero(rejected)
+        if b.size == 0:
+            return
+        arrays = self._ring_arrays()
+        dev = arrays[0].device
+        bt, jt = torch.from_numpy(b).to(dev), torch.from_numpy(j).to(dev)
+        st = torch.from_numpy(slots[b, j]).to(dev)
+        for a, snap in zip(arrays, snaps):
+            a[:, bt, st] = snap[:, bt, jt]
 
 
 def draft_propose(draft, last, pos, seq_ids, sp, k: int, generator=None):
@@ -113,13 +170,17 @@ def assisted_generate(
 ) -> GenerationOutput:
     """Draft-assisted generation (the reference's ``assisted_generate``).
 
-    ``target`` and ``draft`` are loaded apps over contiguous caches sharing
-    a vocabulary. Rows whose budget or EOS ends early stop collecting; the
+    ``target`` and ``draft`` are loaded apps over contiguous caches (ring
+    caches too, under :class:`RingSnapshotGuard`) sharing a vocabulary. Rows whose budget or EOS ends early stop collecting; the
     loop runs while a round of k positions still fits ``seq_len``."""
     tc = target.config.torch_config
     k = speculation_length or max(tc.speculation_length, 2)
     if k < 2:
         raise ValueError("speculation_length must be >= 2")
+    # ring caches: rejected writes at (p + j) mod W would destroy the live
+    # K/V of position p + j - W; the draft's chunk writes k positions too
+    t_guard = RingSnapshotGuard(target, k)
+    d_guard = RingSnapshotGuard(draft, k)
     do_sample = bool(target.spec.do_sample)
     if do_sample:
         if not (target.spec.output_logits and draft.spec.output_logits):
@@ -170,6 +231,8 @@ def assisted_generate(
     while not done.all() and int(pos.max()) + k <= tc.seq_len and not all(
         len(c) >= max_new_tokens for c in collected
     ):
+        t_guard.snapshot(pos)
+        d_guard.snapshot(pos)
         proposals, d_logits = draft_propose(draft, last[:, None], pos[:, None], seq_ids, sp, k, d_gen)
         cand = np.concatenate([last[:, None], proposals], axis=1).astype(np.int32)
         v_out = target_verify(target, cand, pos[:, None], seq_ids, sp)
@@ -186,6 +249,8 @@ def assisted_generate(
         else:
             toks = v_out.tokens[:B].cpu().numpy()  # (B, k)
             counts = greedy_accept(cand, toks)
+        t_guard.restore(counts)
+        d_guard.restore(counts)
         for b in range(B):
             if done[b]:
                 continue

@@ -47,7 +47,11 @@ def kv_layout(app) -> KVLayout:
 
 def _plain_cache(app) -> KVCache:
     cache = app.kv_cache
-    if type(cache) is not KVCache or app.config.torch_config.is_block_kv_layout:
+    if (
+        type(cache) is not KVCache
+        or app.config.torch_config.is_block_kv_layout
+        or app.spec.bounded_window is not None
+    ):
         raise NotImplementedError(
             "disaggregated serving supports the plain contiguous KV cache "
             "(no ring/interleaved/paged layouts)"

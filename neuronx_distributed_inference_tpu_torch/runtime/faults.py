@@ -356,15 +356,16 @@ def fill_kv_rows(cache, row_ids, value: float):
     the reference's do: a poison fault needs a float cache."""
     import torch
 
-    from neuronx_distributed_inference_tpu_torch.modules.kvcache import QuantizedKV
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import QuantizedKV, cache_streams
 
-    idx = torch.as_tensor(np.asarray(row_ids, np.int64), device=cache.k.device)
-    if isinstance(cache.k, QuantizedKV) and value != 0:
+    streams = cache_streams(cache)
+    idx = torch.as_tensor(np.asarray(row_ids, np.int64), device=streams[0].device)
+    if isinstance(streams[0], QuantizedKV) and value != 0:
         raise ValueError(
             "cannot write non-zero fill into a quantized KV stream "
             "(int8/fp8 codes; poison faults need a float cache)"
         )
-    for stream in (cache.k, cache.v):
+    for stream in streams:
         (stream.data if isinstance(stream, QuantizedKV) else stream)[:, idx] = value
     return cache
 

@@ -47,7 +47,7 @@ from neuronx_distributed_inference_tpu_torch.modules.eagle import (
     eagle_token_gen,
     init_hidden_buffer,
 )
-from neuronx_distributed_inference_tpu_torch.modules.kvcache import init_cache, zero_stream
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import cache_streams, init_cache, zero_stream
 from neuronx_distributed_inference_tpu_torch.modules.sampling import (
     prepare_sampling_params,
     validate_sampling_params,
@@ -324,8 +324,8 @@ class FusedSpecModelForCausalLM(_SpecAppBase):
     def init_kv_cache(self):
         """Zero both caches in place (the graphs keep their addresses)."""
         for cache in (self.target_cache, self.draft_cache):
-            zero_stream(cache.k)
-            zero_stream(cache.v)
+            for stream in cache_streams(cache):
+                zero_stream(stream)
 
     def _binding(self):
         return binding(self.target_params, self.target_cache) + binding(self.draft_params, self.draft_cache)

@@ -90,10 +90,11 @@ class Graph:
 
 def binding(params, cache) -> Tuple:
     """What a graph is bound to: the params object and the cache buffers
-    (a quantized stream's codes and scales both)."""
-    from neuronx_distributed_inference_tpu_torch.modules.kvcache import stream_ptrs
+    (a quantized stream's codes and scales both; an interleaved cache's
+    full and ring stacks)."""
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import cache_streams, stream_ptrs
 
-    return (id(params), *stream_ptrs(cache.k), *stream_ptrs(cache.v))
+    return (id(params), *(p for s in cache_streams(cache) for p in stream_ptrs(s)))
 
 
 class GraphSet:

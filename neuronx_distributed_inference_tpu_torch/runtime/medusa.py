@@ -21,7 +21,7 @@ from neuronx_distributed_inference_tpu_torch.models import get_model_builder
 from neuronx_distributed_inference_tpu_torch.models.base import prepare_params, unstack_layers
 from neuronx_distributed_inference_tpu_torch.models.builder import _to_torch, hf_array
 from neuronx_distributed_inference_tpu_torch.modules.eagle import init_hidden_buffer
-from neuronx_distributed_inference_tpu_torch.modules.kvcache import init_cache, zero_stream
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import cache_streams, init_cache, zero_stream
 from neuronx_distributed_inference_tpu_torch.modules.medusa import medusa_context_encoding, medusa_token_gen
 from neuronx_distributed_inference_tpu_torch.ops.quant import prepare_int4_params, prepare_quantized_params
 from neuronx_distributed_inference_tpu_torch.runtime.fused_spec import _SpecAppBase
@@ -163,8 +163,8 @@ class MedusaModelForCausalLM(_SpecAppBase):
 
     def init_kv_cache(self):
         """Zero the cache and the hidden buffer in place."""
-        zero_stream(self.kv_cache.k)
-        zero_stream(self.kv_cache.v)
+        for stream in cache_streams(self.kv_cache):
+            zero_stream(stream)
         self.hidden_buffer.zero_()
 
     def _binding(self):

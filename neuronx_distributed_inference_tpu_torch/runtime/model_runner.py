@@ -73,6 +73,7 @@ from neuronx_distributed_inference_tpu_torch.models.base import (
     mixed_forward,
 )
 from neuronx_distributed_inference_tpu_torch.modules.autobucketing import get_target_bucket
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import PAD_POSITION_SENTINEL
 from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
 from neuronx_distributed_inference_tpu_torch.runtime.graphs import GraphSet, binding
 
@@ -344,13 +345,23 @@ class SubModelRunner(_SealMixin):
             if pad_s:
                 input_ids = np.pad(input_ids, ((0, 0), (0, pad_s)))
                 attention_mask = np.pad(attention_mask, ((0, 0), (0, pad_s)))
-                # pad positions continue the sequence so padded K/V lands in
-                # the masked tail, not on real slots
-                tail = position_ids[:, -1:] + 1 + np.arange(pad_s)[None, :]
+                if self.spec.bounded_window or self.spec.ring_window:
+                    # ring cache: sentinel positions send padded writes to
+                    # the garbage line instead of wrapping onto live slots
+                    tail = np.full((position_ids.shape[0], pad_s), PAD_POSITION_SENTINEL)
+                else:
+                    # pad positions continue the sequence so padded K/V
+                    # lands in the masked tail, not on real slots
+                    tail = position_ids[:, -1:] + 1 + np.arange(pad_s)[None, :]
                 position_ids = np.concatenate([position_ids, tail], axis=1)
                 if slot_mapping is not None:
                     # padded tokens write to the garbage block
                     slot_mapping = np.pad(slot_mapping, ((0, 0), (0, pad_s)), constant_values=-1)
+        elif self.spec.bounded_window:
+            # ring cache: its layers mask from positions; the mask is only
+            # the (B, W) width carrier
+            bucket = self.spec.bounded_window
+            attention_mask = np.ones((B, bucket), np.int32)
         else:
             # token generation (one token, or a multi-token chunked/prefix
             # prefill pass or prefill window): bucket over the cache width

@@ -35,8 +35,9 @@ verification rides the one mixed dispatch as spec-verify rows and the
 draft's next proposals chain on its output on the device.
 
 The port updates the cache in place where the reference rebinds a new one.
-A prompt longer than the largest context bucket is admitted on the
-contiguous cache in windows (:meth:`ServingSession._windowed_admit`). A
+A prompt longer than the largest context bucket, or than a ring cache's
+window (sliding-window models), is admitted on the contiguous cache in
+windows (:meth:`ServingSession._windowed_admit`). A
 request context-encoded on a disaggregated prefill replica is admitted
 with its handed-over KV line (:meth:`ServingSession.add_prefilled_request`,
 ``runtime/disaggregated.py``); the router (``runtime/router.py``) serves
@@ -717,7 +718,8 @@ class ServingSession:
                 f"({cte_max}) on a paged cache: enable chunked prefill "
                 "(is_chunked_prefill) to admit long prompts"
             )
-        if S > cte_max:
+        if S > self.app._prefill_window():
+            # longer than one context program, or than a ring's window
             self.app.validate_prefill_length(S)
             return self._windowed_admit(req)
         ids = req.input_ids[None, :]
@@ -764,7 +766,7 @@ class ServingSession:
         app = self.app
         S = req.prompt_len
         s = req.slot
-        C = app.context_encoding_model.buckets[-1]
+        C = app._prefill_window()
         n0 = min(C, S)
         ids0 = req.input_ids[None, :n0]
         pos0 = np.arange(n0, dtype=np.int32)[None, :]
@@ -797,7 +799,9 @@ class ServingSession:
             ids[s, :n] = req.input_ids[start:end]
             pos = np.full((B, C), PAD_POSITION_SENTINEL, np.int32)
             pos[s, :n] = np.arange(start, end, dtype=np.int32)
-            width = get_target_bucket(tkg.buckets, end)
+            # width carrier: a bounded ring holds W slots; an interleaved
+            # cache's global layers keep full-length lines
+            width = app.spec.bounded_window or get_target_bucket(tkg.buckets, end)
             mask = np.ones((B, width), np.int32)
             seq_ids = np.full((B,), -1, np.int32)
             seq_ids[s] = s
@@ -1409,17 +1413,21 @@ class ServingSession:
         request has an EOS), on the contiguous and the paged cache. Requests
         that hit EOS mid-chunk overshoot by up to a chunk of discarded
         tokens. On the ragged path every step is one mixed dispatch: the
-        multi-step decode chunks would bring back the split."""
+        multi-step decode chunks would bring back the split. A ring cache
+        decodes one step at a time."""
         if self.ragged:
             while self.active or self._readmit:
                 self.step()
             return {rid: r.generated for rid, r in self.requests.items()}
+        # a ring cache stays per step: the surplus steps of a multi-step chunk
+        # would overwrite live ring slots (slot = position mod W) mid-stream
+        ring_cache = bool(self.app.spec.bounded_window or self.app.spec.ring_window)
         while self.active or self._readmit:
             self._expire_deadlines()
             if not self.active:
                 self.step()  # only evicted requests remain: step() re-admits
                 continue
-            if self.prefilling or decode_chunk_size <= 1 or not self.decoding:
+            if self.prefilling or ring_cache or decode_chunk_size <= 1 or not self.decoding:
                 self.step()
                 continue
             if all(r.eos_token_id is None for r in self.decoding):
@@ -1726,6 +1734,14 @@ class SpeculativeServingSession(ServingSession):
                 "speculative serving runs on the contiguous cache (no paged/chunked-prefill "
                 "layouts) — unless serving_spec_ragged packs verification into the ragged "
                 "mixed step"
+            )
+        if app.spec.bounded_window or app.spec.ring_window or (
+            draft_app.spec.bounded_window or draft_app.spec.ring_window
+        ):
+            raise NotImplementedError(
+                "speculative serving over ring-bounded caches is not "
+                "implemented (rejected speculative writes would corrupt live "
+                "ring slots)"
             )
         if not tc_d.is_continuous_batching:
             raise ValueError("the draft app needs is_continuous_batching=True")

@@ -366,7 +366,8 @@ def test_eagle_app_refusals(targets, monkeypatch):
     plain_spec = LlamaModelBuilder.model_spec
     def windowed(self):
         spec = plain_spec(self)
-        return WindowedSpec(**{f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)})
+        # every field but the window, whose None would override the default
+        return WindowedSpec(**{f.name: getattr(spec, f.name) for f in dataclasses.fields(spec) if f.name != "sliding_window"})
 
     monkeypatch.setattr(LlamaModelBuilder, "model_spec", windowed)
     cfg.torch_config.enable_eagle_speculation = True

@@ -324,7 +324,7 @@ def test_kv_code_modes_match_plain_on_the_card(cuda_card):
     n = chip_smoke.phase_kvq_parity(torch, da, pf, rp)
     counts = _cuda.launch_counts()
     per_code = {"decode_attention_codes": 14, "paged_decode_attention_codes": 6, "paged_flash_attention_codes": 12,
-                "ragged_paged_attention_codes": 16}
+                "ragged_paged_attention_codes": 18}
     assert n == 3 * sum(per_code.values())
     want = {name: 3 * k * 3 for name, k in per_code.items()}
     assert {name: counts[name] for name in want} == want, counts
@@ -477,3 +477,21 @@ def test_decode_attention_under_tree_masks_on_the_card(cuda_card):
     n = chip_smoke.eagle_tree_parity(torch, da)
     assert n == 32
     assert _cuda.launch_counts()["decode_attention_verify"] == 3 * n
+
+
+@pytest.mark.gpu
+def test_decode_attention_row_chunks_on_the_card(cuda_card):
+    """B1 and B4 at n_rep 8 with K = 9, 12 and 16 queries a row (two row
+    chunks of at most 64 query rows a kv head), GPT-OSS's heads with the
+    window mask and the sink and Qwen3's without, against the plain version,
+    each case twice more, bit-identical (chip_smoke.row_chunk_parity)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
+
+    _cuda.reset_launch_counts()
+    n = chip_smoke.row_chunk_parity(torch, da)
+    assert n == 2 * 2 * 2 * len(chip_smoke.ROW_CHUNK_K)
+    counts = _cuda.launch_counts()
+    assert counts["decode_attention_verify"] == counts["paged_decode_attention"] == 3 * n

@@ -271,5 +271,11 @@ def test_assisted_generate_sampled(apps):
         assisted_generate(apps("gen", 0, **sampling)[1], td, PROMPTS, MASK, max_new_tokens=4)
     with pytest.raises(ValueError, match="do_sample"):
         assisted_generate(tt, apps("gen", 7, output_logits=True)[1], PROMPTS, MASK, max_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        RingSnapshotGuard(tt, K)
+    # on a cache without a ring the guard is a no-op (ring caches:
+    # tests/test_torch_assisted_ring.py)
+    guard = RingSnapshotGuard(tt, K)
+    before = tt.kv_cache.k.clone()
+    guard.snapshot(np.array([3, 5]))
+    tt.kv_cache.k.add_(1.0)
+    guard.restore(np.array([1, 1]))
+    assert guard.W is None and torch.equal(tt.kv_cache.k, before + 1.0)
