@@ -53,8 +53,8 @@ Phases, in order; any failure exits non-zero:
   9. the MoE path: B7 (selected-experts MoE decode) against its plain
      version at Qwen3-30B-A3B and Mixtral-8x7B widths and widths no tile
      divides, timed at one layer beside the dense all-experts route, then
-     Qwen3-30B-A3B at full width and depth (48 layers, 128 experts, top-8,
-     57 GiB of seeded random bf16 weights made on the card): generate() of
+     Qwen3-30B-A3B at full width, QWEN3_LAYERS of its 48 layers (128
+     experts, top-8, seeded random bf16 weights made on the card): generate() of
      QWEN3_NEW tokens at batch 1 with exact B2 / B1 / B7 / moe_grouped
      counts and no dense MoE
      call, a batch-8 generate() (64 rows for B7), a profile, and the
@@ -186,15 +186,34 @@ Phases, in order; any failure exits non-zero:
      full-length one, sealed greedy generate() of 256 + 64 tokens at batch
      1 and 8 (exact counts: B2 24 a prefill, B1 12 a decode step, the dense
      MoE route, nothing else), an eager twin, a profiled decode step beside
-     its byte bound, the teacher-forced gate on 4 layers (the ring wrapped,
-     routing pinned to the fp32 run's, weights rescaled so that bf16
-     follows fp32) and its control (the sink dropped from the kernels)
-     failing it, the paged split drain (8 x (256 +
-     32), B4 with the window and sinks, chunk passes on the plain gather)
-     and a drain of 2 on the ring cache; then B2a with Mistral's 4096
+     its byte bound, the teacher-forced gates on 4 layers (the ring
+     wrapped, routing pinned to the fp32 run's, weights rescaled so that
+     bf16 follows fp32: the layers' writes whole, and scaled down beside a
+     boosted head) and their controls (the sink dropped from the kernels,
+     K / V read from the wrong kv head) failing them, the paged split
+     drain (8 x (256 + 32), B4 with the window and sinks, chunk passes on
+     the plain gather) and a drain of 2 on the ring cache; then B2a with Mistral's 4096
      window (S 6144 and 4096) and Mistral-7B's widths, 2 layers, on the
      4096-slot ring: a 4352-token prompt + 32 tokens gated against
-     full-length paged lines with the window as a mask.
+     full-length paged lines with the window as a mask. The 20B's
+     "decided" gate must decide at least GPT_OSS_MIN_DECIDED of its 32
+     positions.
+ 17. DBRX and DeepSeek-V3 (phase_dbrx, phase_deepseek_v3), at their
+     published widths with seeded random bf16 weights made on the card:
+     B2a, B1, B4 and B5 at DBRX's heads (48 q / 8 kv of 128, n_rep 6) held
+     to their plain versions, twice bit-identical, and timed; DBRX cut to 8
+     of 40 layers: B7 on a layer's leaves (batch 1 and 8), sealed generate()
+     of 256 + 64 tokens at batch 1 and 8 (exact counts: B2a 8 a prefill, B1
+     and B7 8 a decode step, the dense MoE route at the prefill; no B8 /
+     B9), a profiled decode step beside its byte bound, an eager twin, the
+     paged split drain 8 x (256 + 32) and the teacher-forced gate on 2
+     layers (its control, the p-norm dropped, failing it); DeepSeek-V3 cut
+     to 3 dense + 2 MoE of 61 layers: the latent cache at exactly 576 /
+     40960 of a full K/V cache, B7 on a MoE layer's leaves at 8 and 64
+     rows, the same generate() runs (the grouped route 2 a prefill, B7 2 a
+     decode step, no attention kernel: MLA is plain PyTorch), the profile,
+     the eager twin and the gate on 1 dense + 1 MoE layer (its control, the
+     shared expert dropped, failing it).
 Each phase prints its seconds. The line before the card's name lists every
 kernel with its launches, times and bound; the last line of standard output
 is {"ok": true, "device": {...}}.
@@ -817,7 +836,8 @@ def phase_paged_decode_parity(torch, da):
     0, as the session's decode pass builds them); the Qwen3 head-shape
     cases (qwen3_paged_decode_parity). Then the split cases
     (phase_paged_decode_split_parity). Returns the number of cases of each
-    part: each launches B4 once, each split case twice more."""
+    part: each launches B4 once; each split case and each of the 2 Qwen3
+    head-shape cases twice more."""
     from neuronx_distributed_inference_tpu_torch.models.base import paged_attend
     from neuronx_distributed_inference_tpu_torch.modules.attention import AttnSpec
     from neuronx_distributed_inference_tpu_torch.modules.masks import spec_token_gen_mask
@@ -1475,17 +1495,17 @@ def ragged_times(torch, rp, rng, Hq, Hkv, D, tag=None):
 QWEN3_HEADS = dict(Hq=32, Hkv=4, D=128)
 
 
-def qwen3_paged_decode_parity(torch, da):
-    """B4 at Qwen3's head shape, block size 32, bf16, q_len 1: batch 1 and
-    the serving decode step's 8 rows over a 1024-wide table (mid-stream
-    depths, one inactive row), NaN in block 0 and zero-table tails; active
-    rows within check_close's bound of the plain version. Returns the number
-    of cases (each launches B4 once)."""
+def qwen3_paged_decode_parity(torch, da, heads=QWEN3_HEADS, tag="qwen3"):
+    """B4 at Qwen3's head shape (or ``heads``), block size 32, bf16, q_len
+    1: batch 1 and the serving decode step's 8 rows over a 1024-wide table
+    (mid-stream depths, one inactive row), NaN in block 0 and zero-table
+    tails; active rows within check_close's bound of the plain version, and
+    the launch repeated bit for bit. Returns the number of cases."""
     from neuronx_distributed_inference_tpu_torch.modules.masks import spec_token_gen_mask
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
 
     rng = np.random.RandomState(23)
-    Hq, Hkv, D = QWEN3_HEADS["Hq"], QWEN3_HEADS["Hkv"], QWEN3_HEADS["D"]
+    Hq, Hkv, D = heads["Hq"], heads["Hkv"], heads["D"]
     bs, MB, L, n = 32, 32, 2, 0
     for lens in ([412], [192, 1000, 0, 33, 192, 64, 511, 129]):
         B = len(lens)
@@ -1498,7 +1518,7 @@ def qwen3_paged_decode_parity(torch, da):
         attn = (np.arange(MB * bs)[None, :] < np.maximum(lens_a, 1)[:, None]).astype(np.int32)
         mask = spec_token_gen_mask(torch.from_numpy(attn).cuda(), torch.from_numpy(pos).cuda())
         kw = dict(scale=D ** -0.5, n_kv=Hkv)
-        case = f"qwen3 heads B={B} bs={bs} bucket={MB * bs} Hq={Hq} Hkv={Hkv} D={D} bf16"
+        case = f"{tag} heads B={B} bs={bs} bucket={MB * bs} Hq={Hq} Hkv={Hkv} D={D} bf16"
         before = _cuda.launch_counts()["paged_decode_attention"]
         out = da.paged_tkg_decode_attention(q, k, v, 1, bt, mask, None, **kw)
         torch.cuda.synchronize()
@@ -1506,18 +1526,20 @@ def qwen3_paged_decode_parity(torch, da):
             raise SystemExit(f"paged decode case did not launch B4: {case}")
         ref = da.paged_tkg_decode_attention_plain(q.float(), k.float(), v.float(), 1, bt, mask, None, **kw)
         check_close(torch, out, ref, case, "paged_tkg_decode_attention", torch.from_numpy(lens_a > 0).cuda())
+        check_repeat(torch, "paged_tkg_decode_attention",
+                     lambda: da.paged_tkg_decode_attention(q, k, v, 1, bt, mask, None, **kw), case)
         n += 1
     return n
 
 
-def qwen3_paged_flash_parity(torch, pf):
-    """B5 at Qwen3's head shape, block size 32, bf16, the serving chunk of
-    128 queries at batch 1 and 8 over a 1024-wide table (paged_flash_rows:
-    prefix + causal rows, kv_limit-0 rows), on random and on exact-score
-    inputs (check_paged_flash, each launched twice more, bit-identical).
-    Returns the number of cases."""
+def qwen3_paged_flash_parity(torch, pf, heads=QWEN3_HEADS, tag="qwen3"):
+    """B5 at Qwen3's head shape (or ``heads``), block size 32, bf16, the
+    serving chunk of 128 queries at batch 1 and 8 over a 1024-wide table
+    (paged_flash_rows: prefix + causal rows, kv_limit-0 rows), on random and
+    on exact-score inputs (check_paged_flash, each launched twice more,
+    bit-identical). Returns the number of cases."""
     rng = np.random.RandomState(24)
-    Hq, Hkv, D = QWEN3_HEADS["Hq"], QWEN3_HEADS["Hkv"], QWEN3_HEADS["D"]
+    Hq, Hkv, D = heads["Hq"], heads["Hkv"], heads["D"]
     bs, MB, Sq, n = 32, 32, 128, 0
     for B in (1, 8):
         NB = MB * B + 4
@@ -1526,7 +1548,7 @@ def qwen3_paged_flash_parity(torch, pf):
         k, v = k[0], v[0]
         q = torch.from_numpy(rng.randn(B, Sq, Hq, D).astype(np.float32) * DECODE_Q_STD).to("cuda", torch.bfloat16)
         kw = dict(scale=D ** -0.5, n_rep=Hq // Hkv)
-        case = f"qwen3 heads B={B} Sq={Sq} bs={bs} Hq={Hq} Hkv={Hkv} D={D} bf16 kv_limit {lim.tolist()}"
+        case = f"{tag} heads B={B} Sq={Sq} bs={bs} Hq={Hq} Hkv={Hkv} D={D} bf16 kv_limit {lim.tolist()}"
         for exact in (False, True):
             qc, kc = exact_score_inputs(torch, q, k) if exact else (q, k)
             check_paged_flash(torch, pf, qc, kc, v, bt, pos, lim, kw, f"{case}{', exact scores' if exact else ''}", exact)
@@ -2009,6 +2031,7 @@ def _forced_gate(k, pl, f32, what, exit_on_fail=True):
     return dict(
         kernel_vs_plain=err, kernel_vs_fp32=max_k32, plain_vs_fp32=max_p32,
         kernel_vs_fp32_rms=rms_k32, plain_vs_fp32_rms=rms_p32, passed=passed,
+        decided=int(decided.sum()), positions=int(k.shape[0]),
     )
 
 
@@ -2847,9 +2870,12 @@ def phase_moe_times(torch, md):
     return rows
 
 
-#: Qwen3-30B-A3B layers the teacher-forced gate runs: an fp32 copy of 4 of
-#: the 48 layers (with the embedding and lm head) is ~12 GB beside the 57
-#: GiB of bf16 params
+#: Qwen3-30B-A3B's layers on the card, of its 48 (every Qwen3 phase runs
+#: them; cut from 48 to keep the script within its time limit beside the
+#: DBRX and DeepSeek-V3 phases: the phases' seconds scale with it)
+QWEN3_LAYERS = 16
+#: Qwen3-30B-A3B layers the teacher-forced gate runs: an fp32 copy of 4
+#: layers (with the embedding and lm head) is ~12 GB beside the bf16 params
 QWEN3_FORCED_LAYERS = 4
 #: steps of the Qwen3 profiles: ~5300 kernels a decode step (14800 an
 #: eager ragged step, profiled for one step), and torch.profiler spends
@@ -2862,7 +2888,7 @@ QWEN3_NEW = 64
 
 def _config_qwen3(batch_size=1, model=None, **kw):
     """Qwen3-30B-A3B (models/mixtral.QWEN3_30B_A3B) at full width and
-    depth: bf16, seq_len 1024, CTE bucket [128], TKG bucket [512], fused
+    QWEN3_LAYERS layers unless ``model`` gives others: bf16, seq_len 1024, CTE bucket [128], TKG bucket [512], fused
     QKV, contiguous cache; ``kw`` overrides MoEConfig fields."""
     from neuronx_distributed_inference_tpu_torch.config import MoEConfig
     from neuronx_distributed_inference_tpu_torch.models.mixtral import QWEN3_30B_A3B, MoEInferenceConfig
@@ -2871,7 +2897,7 @@ def _config_qwen3(batch_size=1, model=None, **kw):
         batch_size=batch_size, seq_len=1024, dtype="bfloat16", context_encoding_buckets=[128],
         token_generation_buckets=[512], fused_qkv=True, seed=0, device="cuda",
     )
-    attrs = model or QWEN3_30B_A3B
+    attrs = model or {**QWEN3_30B_A3B, "num_hidden_layers": QWEN3_LAYERS}
     return MoEInferenceConfig(MoEConfig(**{**base, **kw}), load_config=lambda c: [setattr(c, k, v) for k, v in attrs.items()])
 
 
@@ -2926,40 +2952,37 @@ def _flipped_positions(a, b, n_layers):
 
 
 class _PinnedRouting:
-    """Replays recorded top-k selections in modules/moe.router_top_k for
-    the length of a ``with`` block: each call takes the next recorded (T, E)
-    selection and weighs it by this run's own scores: softmax renormalized
-    over the selection (the Qwen3-MoE router: softmax, norm_topk_prob), or
-    the softmax of the selected logits (GPT-OSS: softmax_topk)."""
+    """Replays recorded top-k selections for the length of a ``with``
+    block: each call of modules/moe.select_experts returns the experts of
+    the next recorded (T, E) selection, and router_top_k weighs them by this
+    run's own scores as it weighs its own choice. ``weighing`` overrides
+    fields of the router's MoESpec for the weighing alone (DBRX's
+    teacher-forced control drops the p-norm)."""
 
-    def __init__(self, selections):
-        self.selections, self.i = selections, 0
+    def __init__(self, selections, **weighing):
+        self.selections, self.i, self.weighing = selections, 0, weighing
 
-    def route(self, router_logits, spec, correction_bias=None):
-        import torch
-
+    def select(self, router_logits, spec, correction_bias=None):
         sel = self.selections[self.i].to(router_logits.device)
         self.i += 1
-        if spec.scoring_func == "softmax_topk" and correction_bias is None:
-            # GPT-OSS: the softmax over the selected logits only
-            w = torch.softmax(torch.where(sel, router_logits, torch.full_like(router_logits, -torch.inf)), dim=-1)
-            return w * spec.routed_scaling_factor, sel
-        if spec.scoring_func != "softmax" or not spec.normalize_top_k_affinities or correction_bias is not None:
-            raise SystemExit("pinned routing replays the softmax and softmax_topk routers only")
-        w = torch.where(sel, torch.softmax(router_logits, dim=-1), torch.zeros_like(router_logits))
-        return w / (w.sum(dim=-1, keepdim=True) + 1e-20) * spec.routed_scaling_factor, sel
+        return sel.nonzero()[:, 1].view(sel.shape[0], -1)
+
+    def weigh(self, router_logits, spec, top_idx):
+        import dataclasses
+
+        return self.real[1](router_logits, dataclasses.replace(spec, **self.weighing), top_idx)
 
     def __enter__(self):
         from neuronx_distributed_inference_tpu_torch.modules import moe
 
-        self.real = moe.router_top_k
-        moe.router_top_k = self.route
+        self.real = moe.select_experts, moe.weigh_experts
+        moe.select_experts, moe.weigh_experts = self.select, self.weigh
         return self
 
     def __exit__(self, *exc):
         from neuronx_distributed_inference_tpu_torch.modules import moe
 
-        moe.router_top_k = self.real
+        moe.select_experts, moe.weigh_experts = self.real
 
 
 def qwen3_teacher_forced(torch, params, seq, prompt_len, L, logits_fn=None, cfg_fn=None, what=None):
@@ -3040,7 +3063,7 @@ def qwen3_teacher_forced(torch, params, seq, prompt_len, L, logits_fn=None, cfg_
 
 
 def phase_qwen3_moe(torch):
-    """Qwen3-30B-A3B at full width and depth with seeded random bf16
+    """Qwen3-30B-A3B at full width (QWEN3_LAYERS layers) with seeded random bf16
     weights made on the card: load (time, peak, params bytes), greedy
     generate() of QWEN3_NEW tokens after a 128-token prompt at batch 1 with exact
     counts (B2 once per layer; B1 and B7 once per layer and decode step;
@@ -3149,9 +3172,9 @@ def phase_qwen3_moe(torch):
 
 
 def _config_qwen3_serving(model=None, **kw):
-    """Qwen3-30B-A3B (full width and depth unless ``model`` gives others) on
-    the serving row's paged configuration: 8 slots, 512 blocks of 32
-    (1,610,612,736 bytes of bf16 K/V over 48 layers), chunked prefill of up
+    """Qwen3-30B-A3B (_config_qwen3's layers unless ``model`` gives others)
+    on the serving row's paged configuration: 8 slots, 512 blocks of 32
+    (33,554,432 bytes of bf16 K/V a layer), chunked prefill of up
     to 8 rows in 128-token tiles, CTE bucket [128], TKG bucket [1024], seq
     1024; ``kw`` overrides MoEConfig fields."""
     from neuronx_distributed_inference_tpu_torch.config import ChunkedPrefillConfig
@@ -3289,7 +3312,7 @@ def _qwen3_step_profile(torch, app, prompts, label, steps):
 
 
 def phase_qwen3_serving(torch):
-    """Qwen3-30B-A3B served at full width and depth (48 layers, 128 experts,
+    """Qwen3-30B-A3B served at full width (QWEN3_LAYERS layers, 128 experts,
     top-8; seeded random bf16 weights made on the card, one parameter set
     shared by every app) on the serving row's paged configuration
     (_config_qwen3_serving) and traffic (8 staggered requests of 128 +
@@ -3553,7 +3576,7 @@ def _expert_bytes(params):
 
 
 def qwen3_quant_run(torch, label, qkw):
-    """One quantized form of Qwen3-30B-A3B at full width and depth:
+    """One quantized form of Qwen3-30B-A3B at full width (QWEN3_LAYERS layers):
     seeded random bf16 weights made on the card and quantized at load in
     place (ops/quant.quantize_params, in slices), load seconds, peak and
     params bytes; a batch-1 greedy generate() of QWEN3_QUANT_NEW tokens
@@ -3697,7 +3720,7 @@ QWEN3_SPEC_GEN = 32
 
 
 def _config_qwen3_spec(kind, **kw):
-    """Qwen3-30B-A3B (full width and depth) for the speculation drains:
+    """Qwen3-30B-A3B (full width, QWEN3_LAYERS layers) for the speculation drains:
     ``"ragged"`` the serving row's paged configuration
     (_config_qwen3_serving) with serving_spec_ragged and k = SPEC_K;
     ``"contiguous"`` the split path's target and every draft: the
@@ -6989,9 +7012,24 @@ GPT_OSS_FORCED_LAYERS, GPT_OSS_FORCED_STEPS = 4, 32
 GPT_OSS_SERVING = dict(n_requests=8, prompt=256, gen=32, slots=8, block_size=32, seq=512)
 #: e8m0 exponents [lo, hi) of the seeded MXFP4 experts: |values| <= 6 * 2^-5
 GPT_OSS_EXPONENTS = (120, 123)
-#: the teacher-forced gate's weights (_gpt_oss_gate_params): the experts
-#: times 2^-1 (exact in bf16), the sinks drawn at this std
-GPT_OSS_GATE_EXPERT_SCALE, GPT_OSS_GATE_SINK_STD = 0.5, 4.0
+#: the teacher-forced gates on GPT-OSS-20B's weights (_gpt_oss_gate_params),
+#: each (residual scale, sink mean, sink std, boosted head). "whole" keeps
+#: the layers' writes to the residual stream whole, so that a fault in
+#: attention moves the logits far past bf16's rounding, but fp32 decides
+#: few positions by twice the kernel path's error. "decided" scales the
+#: writes (o_proj, the experts' down_proj, with their biases) by 2^-8, lets
+#: the sinks take most of each softmax and boosts the head (_boosted_head),
+#: so that fp32 decides most positions.
+GPT_OSS_GATES = dict(whole=(1.0, 0.0, 4.0, False), decided=(2.0 ** -8, 8.0, 1.0, True))
+#: the gates' experts times 2^-1 (exact in bf16)
+GPT_OSS_GATE_EXPERT_SCALE = 0.5
+#: the gates' lm heads: this many seeded columns of the vocab times
+#: GATE_HEAD_BOOST (_boosted_head)
+GATE_HEAD_COLUMNS, GATE_HEAD_BOOST = 32, 16.0
+#: positions of the 32 the "decided" gate must decide (fp32's top-2 margin
+#: over twice the kernel path's max error): 2 under the 28 measured on the
+#: H100 (PERF.md, section 6)
+GPT_OSS_MIN_DECIDED = 26
 #: Mistral-7B's widths, two layers: a prompt one chunk past the 4096 window
 MISTRAL_PROMPT, MISTRAL_NEW, MISTRAL_LAYERS = 4352, 32, 2
 
@@ -7253,21 +7291,46 @@ def _gpt_oss_forced_logits(torch, cfg, params, seq, prompt_len):
     return np.concatenate(steps, axis=0)
 
 
-def _gpt_oss_gate_params(torch, params, n):
-    """The teacher-forced gate's weights: GPT-OSS-20B's first ``n`` layers
-    (and its embedding and head) with the attention and router projections
-    rescaled to std 1 / sqrt(fan in), the experts by
-    GPT_OSS_GATE_EXPERT_SCALE and the sinks redrawn at GPT_OSS_GATE_SINK_STD.
-    At the 20B's seeded std 0.05, q and k reach std 2.7 and every softmax
-    is one-hot: bf16 rounding alone decides the logits, and a path that
-    dropped the sink would pass as well as a right one. Here bf16 follows
-    fp32, and the sinks hold a real share of each row's softmax."""
+def _boosted_head(torch, lm, vocab, seed=21):
+    """A gate's lm head entry with GATE_HEAD_COLUMNS seeded columns of the
+    vocab times GATE_HEAD_BOOST (a copy; ``lm`` is left as it is). A bf16
+    path's logits round at 2^-9 of their size, and among V Gaussian logits
+    the top-2 margin is ~1 / (2 ln V) of the largest (1/24 at GPT-OSS's
+    201088): however small the path's other errors, fp32 decides only ~3/4
+    of the positions by more than twice the kernel path's largest error
+    (GPT-OSS-20B's gate: 24 of 32 with its unboosted head). With the
+    boosted columns the choice is among 32 candidates whose margins are ~1
+    / (2 ln 32) = 1/7 of the largest, and the path's hidden state still
+    makes it."""
+    w = lm["weight"]
+    g = torch.Generator(device=w.device)
+    g.manual_seed(seed)
+    cols = torch.randperm(vocab, generator=g, device=w.device)[:GATE_HEAD_COLUMNS]
+    w = w.clone()
+    w[:, cols] *= GATE_HEAD_BOOST
+    return dict(lm, weight=w)
+
+
+def _gpt_oss_gate_params(torch, params, n, gate):
+    """The weights of teacher-forced gate ``gate`` (GPT_OSS_GATES):
+    GPT-OSS-20B's first ``n`` layers (and its embedding and head) with the
+    attention and router projections rescaled to std 1 / sqrt(fan in), the
+    experts by GPT_OSS_GATE_EXPERT_SCALE, the sinks redrawn at the gate's
+    mean and std, o_proj and the experts' down_proj (with their biases)
+    times its residual scale, and the head boosted where it asks. At the
+    20B's seeded std 0.05, q and k reach std 2.7 and every softmax is
+    one-hot: bf16 rounding alone decides the logits, and a path that dropped
+    the sink would pass as well as a right one. Here bf16 follows fp32."""
+    residual, sink_mean, sink_std, boost = GPT_OSS_GATES[gate]
     g = torch.Generator(device=params["embed_tokens"]["weight"].device)
     g.manual_seed(20)
 
-    def rescale(entry):
+    def rescale(entry, extra=1.0):
         w = entry["weight"]
-        return dict(entry, weight=(w.float() / (w.float().std() * w.shape[-2] ** 0.5)).to(w.dtype))
+        out = dict(entry, weight=(w.float() * (extra / (w.float().std() * w.shape[-2] ** 0.5))).to(w.dtype))
+        if extra != 1.0 and "bias" in entry:
+            out["bias"] = entry["bias"] * extra
+        return out
 
     layers = []
     for lp in params["layers"][:n]:
@@ -7275,78 +7338,117 @@ def _gpt_oss_gate_params(torch, params, n):
         for name, entry in sa.items():
             if name == "sink":
                 w = entry["weight"]
-                sa[name] = {"weight": (torch.randn(w.shape, generator=g, device=w.device) * GPT_OSS_GATE_SINK_STD).to(w.dtype)}
+                sink = torch.randn(w.shape, generator=g, device=w.device) * sink_std + sink_mean
+                sa[name] = {"weight": sink.to(w.dtype)}
             elif isinstance(entry, dict) and "weight" in entry:
-                sa[name] = rescale(entry)
+                sa[name] = rescale(entry, residual if name == "o_proj" else 1.0)
         mlp = dict(lp["mlp"], router=rescale(lp["mlp"]["router"]))
-        mlp["experts"] = {k: dict(e, weight=e["weight"] * GPT_OSS_GATE_EXPERT_SCALE) for k, e in mlp["experts"].items()}
+        experts = {}
+        for k, e in mlp["experts"].items():
+            scale = GPT_OSS_GATE_EXPERT_SCALE * (residual if k == "down_proj" else 1.0)
+            experts[k] = dict(e, weight=e["weight"] * scale)
+            if k == "down_proj" and "bias" in e:
+                experts[k]["bias"] = e["bias"] * residual
+        mlp["experts"] = experts
         layers.append(dict(lp, self_attn=sa, mlp=mlp))
-    return dict(params, layers=layers)
+    from neuronx_distributed_inference_tpu_torch.models.gpt_oss import GPT_OSS_20B
+
+    lm_head = _boosted_head(torch, params["lm_head"], GPT_OSS_20B["vocab_size"]) if boost else params["lm_head"]
+    return dict(params, layers=layers, lm_head=lm_head)
 
 
-class _DroppedSink:
-    """For the length of a ``with`` block, the kernels the path hands a
-    sink (B2's fold through (m, l), B1) run without it: the control that
-    the teacher-forced gate must fail."""
+class _AttentionFault:
+    """For the length of a ``with`` block, the attention kernels the path
+    reaches (B2's entry, B1) run with one fault: ``"sink"`` drops the sink
+    (B2's fold through (m, l), B1's); ``"kv_head"`` hands them K and V with
+    the kv heads rolled by one, so that each q head reads the wrong kv
+    head. The controls the teacher-forced gates must fail."""
+
+    def __init__(self, fault):
+        self.fault = fault
+
+    def _flash(self, fn):
+        if self.fault == "sink":
+            return lambda *a, **kw: fn(*a, **dict(kw, sink=None))
+        return lambda q, k, v, *a, **kw: fn(q, k.roll(1, dims=2), v.roll(1, dims=2), *a, **kw)
+
+    def _decode(self, fn):
+        if self.fault == "sink":
+            return lambda q, kc, vc, layer, mask, sink=None, **kw: fn(q, kc, vc, layer, mask, None, **kw)
+        # the stacked cache (L, R, S_max, Hkv, D)
+        return lambda q, kc, vc, *a, **kw: fn(q, kc.roll(1, dims=3), vc.roll(1, dims=3), *a, **kw)
 
     def __enter__(self):
         from neuronx_distributed_inference_tpu_torch.ops import decode_attention, flash_attention
 
-        self.mods = [(flash_attention, "flash_attention"), (decode_attention, "tkg_decode_attention")]
-        self.real = [getattr(m, n) for m, n in self.mods]
-        for (m, n), fn in zip(self.mods, self.real):
-            if n == "flash_attention":
-                setattr(m, n, lambda *a, _fn=fn, **kw: _fn(*a, **dict(kw, sink=None)))
-            else:
-                setattr(m, n, lambda q, kc, vc, layer, mask, sink=None, _fn=fn, **kw: _fn(q, kc, vc, layer, mask, None, **kw))
+        self.real = flash_attention.flash_attention, decode_attention.tkg_decode_attention
+        flash_attention.flash_attention = self._flash(self.real[0])
+        decode_attention.tkg_decode_attention = self._decode(self.real[1])
         return self
 
     def __exit__(self, *exc):
-        for (m, n), fn in zip(self.mods, self.real):
-            setattr(m, n, fn)
+        from neuronx_distributed_inference_tpu_torch.ops import decode_attention, flash_attention
+
+        flash_attention.flash_attention, decode_attention.tkg_decode_attention = self.real
+
+
+#: the gates' controls: the fault each puts in the kernel path
+GPT_OSS_CONTROLS = dict(sink="the sink dropped", kv_head="K / V read from the wrong kv head")
 
 
 def gpt_oss_teacher_forced(torch, params, seq, prompt_len):
-    """The teacher-forced gate on GPT-OSS-20B's first 4 layers (2 sliding,
-    2 global; the 256-token prompt wraps the 128-slot rings), on the 20B's
-    weights rescaled so that bf16 follows fp32 (_gpt_oss_gate_params): the
+    """The teacher-forced gates on GPT-OSS-20B's first 4 layers (2 sliding,
+    2 global; the 256-token prompt wraps the 128-slot rings), each on the
+    20B's weights rescaled as GPT_OSS_GATES says (_gpt_oss_gate_params): the
     kernel path (B2 with the window and sinks, B1 on the global layers)
     against the plain path (attention kernels off) on the same bf16
     weights and an fp32 run of the plain path, every run routed as the
     fp32 run routed (_PinnedRouting: GPT-OSS's softmax over the selected
-    logits). Then the control: the kernel path with the sink dropped from
-    its kernels (_DroppedSink) must fail the gate."""
+    logits). Then the controls (_AttentionFault): the kernel path with each
+    of GPT_OSS_CONTROLS' faults must fail each gate. The "decided" gate
+    must also decide at least GPT_OSS_MIN_DECIDED positions; the "whole"
+    gate sees a fault in the layers about ten times as large (the wrong kv
+    head's ratios: 11.4 there, 3.2 here; PERF.md, section 6)."""
     n = GPT_OSS_FORCED_LAYERS
     model = _gpt_oss_cut(n)
-    sub = _gpt_oss_gate_params(torch, params, n)
     off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False, cuda_graphs=False)
-    label = f"gpt-oss-20b teacher-forced logits (first {n} of 24 layers, gate weights, routing pinned to the fp32 run's)"
-    t0 = time.perf_counter()
-    sub32 = _map_tree(sub, lambda t: t.float() if t.is_floating_point() else t)
-    f32, sel_f = _selections(
-        torch, _config_gpt_oss(model=model, output_logits=True, dtype="float32", **off), sub32, seq, prompt_len,
-        True, logits_fn=_gpt_oss_forced_logits,
-    )
-    del sub32
-    torch.cuda.empty_cache()
     kernel_cfg = _config_gpt_oss(model=model, output_logits=True, cuda_graphs=False)
-    with _PinnedRouting(sel_f):
-        k = _gpt_oss_forced_logits(torch, kernel_cfg, sub, seq, prompt_len)
-    with _PinnedRouting(sel_f):
-        pl = plain_run("gpt-oss teacher-forced plain", _gpt_oss_forced_logits, torch,
-                       _config_gpt_oss(model=model, output_logits=True, **off), sub, seq, prompt_len)
-    forced = _forced_gate(k, pl, f32, label)
-    with _PinnedRouting(sel_f), _DroppedSink():
-        dropped = _gpt_oss_forced_logits(torch, kernel_cfg, sub, seq, prompt_len)
-    control = _forced_gate(dropped, pl, f32, "  control: the kernel path with the sink dropped", exit_on_fail=False)
-    if control["passed"]:
-        raise SystemExit("gpt-oss-20b teacher-forced gate: the kernel path without its sinks passes it too")
-    log(f"  {label}: the sink-dropped control fails it (ratios max "
-        f"{control['kernel_vs_fp32'] / control['plain_vs_fp32']:.3f} rms "
-        f"{control['kernel_vs_fp32_rms'] / control['plain_vs_fp32_rms']:.3f}); "
-        f"{time.perf_counter() - t0:.1f} s for the four runs")
-    forced["control"] = control
-    return forced
+    out = {}
+    for gate in GPT_OSS_GATES:
+        t0 = time.perf_counter()
+        sub = _gpt_oss_gate_params(torch, params, n, gate)
+        label = f"gpt-oss-20b teacher-forced logits, {gate!r} gate (first {n} of 24 layers, routing pinned to fp32's)"
+        sub32 = _map_tree(sub, lambda t: t.float() if t.is_floating_point() else t)
+        f32, sel_f = _selections(
+            torch, _config_gpt_oss(model=model, output_logits=True, dtype="float32", **off), sub32, seq,
+            prompt_len, True, logits_fn=_gpt_oss_forced_logits,
+        )
+        del sub32
+        torch.cuda.empty_cache()
+        with _PinnedRouting(sel_f):
+            k = _gpt_oss_forced_logits(torch, kernel_cfg, sub, seq, prompt_len)
+        with _PinnedRouting(sel_f):
+            pl = plain_run("gpt-oss teacher-forced plain", _gpt_oss_forced_logits, torch,
+                           _config_gpt_oss(model=model, output_logits=True, **off), sub, seq, prompt_len)
+        forced = _forced_gate(k, pl, f32, label)
+        log(f"  {label}: fp32 decides {forced['decided']} of {forced['positions']} positions")
+        if gate == "decided" and forced["decided"] < GPT_OSS_MIN_DECIDED:
+            raise SystemExit(f"gpt-oss-20b {gate!r} gate decides only {forced['decided']} positions "
+                             f"(at least {GPT_OSS_MIN_DECIDED} asked)")
+        forced["controls"] = {}
+        for fault, what in GPT_OSS_CONTROLS.items():
+            with _PinnedRouting(sel_f), _AttentionFault(fault):
+                faulty = _gpt_oss_forced_logits(torch, kernel_cfg, sub, seq, prompt_len)
+            c = _forced_gate(faulty, pl, f32, f"  control: the kernel path with {what}", exit_on_fail=False)
+            log(f"  {label}: the control with {what} {'passes' if c['passed'] else 'fails'} it (ratios max "
+                f"{c['kernel_vs_fp32'] / c['plain_vs_fp32']:.3f} rms "
+                f"{c['kernel_vs_fp32_rms'] / c['plain_vs_fp32_rms']:.3f})")
+            if c["passed"]:
+                raise SystemExit(f"gpt-oss-20b {gate!r} gate: the kernel path with {what} passes it too")
+            forced["controls"][fault] = c
+        log(f"  {label}: {time.perf_counter() - t0:.1f} s for the {3 + len(GPT_OSS_CONTROLS)} runs")
+        out[gate] = forced
+    return out
 
 
 def _gpt_oss_drain(torch, app, label, gen, n_requests, layers, n_full):
@@ -7637,6 +7739,570 @@ def phase_mistral(torch, fa):
     return dict(run, times=rows, launches={"flash_attention_mistral": run["launches"]["flash_attention"]}, forced=forced)
 
 
+# ---------------------------------------------------------------------------
+# 14. DBRX and DeepSeek-V3 (A9)
+# ---------------------------------------------------------------------------
+
+#: DBRX (databricks/dbrx-base) cut from 40 layers to DBRX_LAYERS (54.6 GB
+#: in bf16); its teacher-forced gate runs DBRX_FORCED_LAYERS (an fp32 twin
+#: of 2 layers is ~31 GB)
+DBRX_LAYERS, DBRX_FORCED_LAYERS = 8, 2
+#: DeepSeek-V3 cut from 61 layers to 3 dense + 2 MoE (53.2 GB in bf16); its
+#: gate runs 1 dense + 1 MoE layer, the experts kept in bf16 in the fp32 run
+DEEPSEEK_LAYERS, DEEPSEEK_DENSE = 5, 3
+#: both phases: a 256-token prompt, 64 new tokens; the gates' decode steps
+A9_PROMPT, A9_NEW, A9_FORCED_STEPS = 256, 64, 32
+#: DBRX's paged drain: 8 staggered requests of 256 + 32 tokens
+DBRX_SERVING = dict(n_requests=8, prompt=256, gen=32, slots=8, block_size=32, seq=512)
+DBRX_HEADS = dict(Hq=48, Hkv=8, D=128)
+#: the gates' weights (_a9_gate_params): projections at std 1 / sqrt(fan
+#: in), those that write the residual stream times this
+A9_GATE_RESIDUAL_SCALE = 2.0 ** -7
+
+
+def _dbrx_cut(n_layers):
+    from neuronx_distributed_inference_tpu_torch.models.dbrx import DBRX_BASE
+
+    return {**DBRX_BASE, "n_layers": n_layers}
+
+
+def _config_dbrx(batch_size=1, model=None, **kw):
+    """DBRX (models/dbrx.DBRX_BASE) at full width, DBRX_LAYERS layers: bf16,
+    seq_len 512, CTE bucket [256], TKG bucket [512], fused QKV, the
+    contiguous cache; ``kw`` overrides MoEConfig fields."""
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+    from neuronx_distributed_inference_tpu_torch.models.dbrx import DbrxInferenceConfig
+
+    base = dict(
+        batch_size=batch_size, seq_len=512, dtype="bfloat16", context_encoding_buckets=[256],
+        token_generation_buckets=[512], fused_qkv=True, seed=0, device="cuda",
+    )
+    attrs = model or _dbrx_cut(DBRX_LAYERS)
+    return DbrxInferenceConfig(MoEConfig(**{**base, **kw}), load_config=lambda c: [setattr(c, k, v) for k, v in attrs.items()])
+
+
+def _deepseek_cut(n_layers, n_dense):
+    from neuronx_distributed_inference_tpu_torch.models.deepseek import DEEPSEEK_V3
+
+    return {**DEEPSEEK_V3, "num_hidden_layers": n_layers, "first_k_dense_replace": n_dense}
+
+
+def _config_deepseek(batch_size=1, model=None, **kw):
+    """DeepSeek-V3 (models/deepseek.DEEPSEEK_V3) at full width, 3 dense + 2
+    MoE layers: bf16, seq_len 512, CTE bucket [256], TKG bucket [512], the
+    latent cache; ``kw`` overrides MoEConfig fields."""
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+    from neuronx_distributed_inference_tpu_torch.models.deepseek import DeepseekV3InferenceConfig
+
+    base = dict(
+        batch_size=batch_size, seq_len=512, dtype="bfloat16", context_encoding_buckets=[256],
+        token_generation_buckets=[512], seed=0, device="cuda",
+    )
+    attrs = model or _deepseek_cut(DEEPSEEK_LAYERS, DEEPSEEK_DENSE)
+    return DeepseekV3InferenceConfig(
+        MoEConfig(**{**base, **kw}), load_config=lambda c: [setattr(c, k, v) for k, v in attrs.items()]
+    )
+
+
+def dbrx_kernel_parity(torch, fa, da, pf):
+    """The attention kernels DBRX's path runs, at its heads (48 q / 8 kv of
+    128, n_rep 6: every earlier shape had a power-of-two group), each
+    against its plain version and launched twice more, bit-identical: B2a
+    at S = 256 (batch 1 and 8) and S = 77 with a padded row; B1 at batch 1
+    and 8, K = 1, 4 and 11 (n_rep x K = 66: two row chunks), bf16 and fp32;
+    B4 and B5 at the serving shapes (qwen3_paged_*_parity at these heads).
+    Returns the case count."""
+    rng = np.random.RandomState(31)
+    Hq, Hkv, D = DBRX_HEADS["Hq"], DBRX_HEADS["Hkv"], DBRX_HEADS["D"]
+    n = 0
+    for B, S, dtype in ((1, 256, torch.bfloat16), (8, 256, torch.bfloat16), (2, 77, torch.bfloat16),
+                        (2, 77, torch.float32)):
+        q, k, v = fused_qkv_inputs(torch, rng, B, S, Hq, Hkv, D, dtype, hidden=6144)
+        key_valid = torch.ones((B, S), dtype=torch.int32, device="cuda")
+        key_valid[B - 1, S - 20 :] = 0
+        fkw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=None, chunk=None)
+        case = f"dbrx heads B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} {str(dtype)[6:]}"
+        check_flash(torch, fa, q, k, v, key_valid, fkw, case)
+        check_repeat(torch, "flash_attention", lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw), case)
+        n += 1
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    for dtype in (torch.bfloat16, torch.float32):
+        for B in (1, 8):
+            for K in (1, 4, 11):
+                valid = [288 - 23 * b for b in range(B)]
+                q, kc, vc, mask = _decode_inputs(torch, rng, B, K, Hq, Hkv, D, 2, 512, 512, dtype, valid)
+                case = f"dbrx heads B={B} K={K} ({da.row_chunks(Hq // Hkv, K)} row chunks) bucket=512 {str(dtype)[6:]}"
+                check_decode(torch, da, q, kc, vc, 1, mask, None, kw, case)
+                check_repeat(torch, "tkg_decode_attention",
+                             lambda: da.tkg_decode_attention(q, kc, vc, 1, mask, None, **kw), case)
+                n += 1
+                del kc, vc
+    n += qwen3_paged_decode_parity(torch, da, DBRX_HEADS, "dbrx")
+    n += qwen3_paged_flash_parity(torch, pf, DBRX_HEADS, "dbrx")
+    log(f"dbrx heads: {n} B2a / B1 / B4 / B5 cases agree with their plain versions, each twice bit-identical")
+    return n
+
+
+def dbrx_kernel_times(torch, fa, da, pf):
+    """B2a at DBRX's prefill (batch 1, S = 256) and B1 at its decode (batch
+    1 and 8, bucket 512, 288 deep), bf16, beside the plain version, SDPA on
+    the repeated K/V and the bound; B4 and B5 at the serving shapes
+    (paged_times). Rows keyed with the tag "dbrx"."""
+    import torch.nn.functional as F
+
+    rng = np.random.RandomState(32)
+    Hq, Hkv, D = DBRX_HEADS["Hq"], DBRX_HEADS["Hkv"], DBRX_HEADS["D"]
+    n_rep = Hq // Hkv
+    rows = {}
+    q, k, v = fused_qkv_inputs(torch, rng, 1, 256, Hq, Hkv, D, torch.bfloat16, hidden=6144)
+    key_valid = torch.ones((1, 256), dtype=torch.int32, device="cuda")
+    fkw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=None, chunk=None)
+    case = f"dbrx prefill B=1 S=256 Hq={Hq} Hkv={Hkv} D={D} bf16"
+    err = check_flash(torch, fa, q, k, v, key_valid, fkw, case)
+    mask = fa.prefill_mask(key_valid, True, None)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    kt, vt = kt.repeat_interleave(n_rep, dim=1), vt.repeat_interleave(n_rep, dim=1)
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw))
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, key_valid, **fkw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    b_ms, b_by = bound(*flash_work(q, k, key_valid, mask))
+    log(f"flash_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+    rows[("flash_attention", "dbrx")] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )
+    L, bucket, ctx = DBRX_LAYERS, 512, 288
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    for B in (1, 8):
+        q, kc, vc, mask = _decode_inputs(torch, rng, B, 1, Hq, Hkv, D, L, bucket, bucket, torch.bfloat16,
+                                         [ctx - 3 * b for b in range(B)])
+        case = f"dbrx decode B={B} bucket={bucket} Hq={Hq} Hkv={Hkv} D={D} bf16"
+        err = check_decode(torch, da, q, kc, vc, 3, mask, None, kw, case)
+        state = {"layer": 0}
+
+        def next_layer():
+            state["layer"] = (state["layer"] + 1) % L
+            return state["layer"]
+
+        qt = q.transpose(1, 2)
+        kt = kc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+        vt = vc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+        ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kc, vc, next_layer(), mask, None, **kw))
+        plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_layer(), mask, None, **kw))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        b_ms, b_by = bound(*decode_work(q, kc, mask))
+        log(f"tkg_decode_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+        rows[("decode_attention", "dbrx", B)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+        )
+        del kc, vc
+    rows.update(paged_times(torch, da, pf, rng, Hq, Hkv, D, tag="dbrx"))
+    return rows
+
+
+def a9_moe_times(torch, md, experts, m, tag, dense=True):
+    """B7 on one MoE layer's full-width leaves of the loaded model, at batch
+    1 and 8 (T x k = k and 8 k rows), bf16, each top-k of distinct experts
+    drawn from all E: held to its plain version (check_moe) and launched
+    twice more, bit-identical; then timed beside the plain version, the
+    dense all-experts route (``dense``; not run for DeepSeek-V3: its
+    permuted copy of one expert leaf alone is 22.5 GB) and the bound of the
+    distinct experts drawn. Rows ("moe_decode", f"{tag} bs{T}")."""
+    from neuronx_distributed_inference_tpu_torch.modules.moe import MoESpec, expert_mlps_dense
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import moe_decode
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(33)
+    wg, wu, wd = (experts[name]["weight"] for name in ("gate_proj", "up_proj", "down_proj"))
+    E, H, I = wg.shape
+    k = m["k"]
+    rows = {}
+    for T in (1, 8):
+        x = torch.randn((T, H), generator=gen, device="cuda").to(torch.bfloat16)
+        idx = torch.rand((T, E), generator=gen, device="cuda").argsort(dim=1)[:, :k].to(torch.int32)
+        w = torch.softmax(torch.randn((T, k), generator=gen, device="cuda"), dim=-1)
+        args = (x, idx, w, wg, wu, wd)
+        case = f"{tag} layer leaves T={T} k={k} ({T * k} rows) E={E} H={H} I={I} bf16"
+        err = check_moe(torch, md, args, {}, case)
+        check_repeat(torch, "fused_moe_decode", lambda: md.fused_moe_decode(*args), case)
+        distinct = int(torch.unique(idx).numel())
+        ms = time_ms(torch, lambda: md.fused_moe_decode(*args))
+        plain_ms = time_ms(torch, lambda: md.fused_moe_decode_plain(*args), iters=5, warmup=1)
+        dense_ms = None
+        if dense:
+            aff = torch.zeros((T, E), device="cuda").scatter(1, idx.long(), w)
+            spec = MoESpec(num_experts=E, top_k=k)
+            dense_ms = time_ms(torch, lambda: expert_mlps_dense(experts, x, aff, spec), iters=5, warmup=1)
+        b_ms, b_by = bound(*moe_decode(m, T, distinct))
+        parts = launch_breakdown(torch, lambda: md.fused_moe_decode(*args), B7_LAUNCHES)
+        rows[("moe_decode", f"{tag} bs{T}")] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            dense_ms=dense_ms, distinct=distinct, launches_us=parts,
+        )
+        log(
+            f"fused_moe_decode {tag} bs{T} (one layer's leaves, top-{k} of {E}, {distinct} distinct experts, "
+            f"{md.moe_grid_text(T, k, H, I, x.dtype, x.device)}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"dense all-experts route {'not run' if dense_ms is None else f'{dense_ms:.4f} ms'}, bound {b_ms:.5f} "
+            f"ms ({b_by}), {b_ms / ms:.3f} of the bound, err vs plain {err:.3e}; device us per launch: "
+            + ", ".join(f"{name} {us:.2f}" for name, us in parts.items())
+        )
+        del args, x
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _a9_gate_params(torch, params, std, vocab):
+    """The gates' weights, rescaled in place from seeded random weights of
+    std ``std``: every projection of the layers (attention, MLA's low-rank
+    and absorption tensors, router, experts, shared and dense MLPs) to std 1
+    / sqrt(fan in), and those that write the residual stream (o_proj and
+    every down_proj) times A9_GATE_RESIDUAL_SCALE;
+    norms, the correction bias and the embedding as they are; the head's
+    columns boosted (_boosted_head). At the seeded std the softmaxes are
+    one-hot and bf16 rounding alone decides the logits (as on GPT-OSS-20B's
+    seeded weights); here bf16 follows fp32, and the small residual writes
+    keep the layers' rounding near bf16's floor."""
+    params["lm_head"] = _boosted_head(torch, params["lm_head"], vocab)
+    layers = params["layers"]
+    for group in (layers if isinstance(layers, list) else [layers]):
+        entries = [(name, e) for name, e in group["self_attn"].items() if not name.endswith("norm")]
+        mlp = group["mlp"]
+        entries += [(name, mlp[name]) for name in ("gate_proj", "up_proj", "down_proj", "router") if name in mlp]
+        for sub in ("experts", "shared_experts"):
+            entries += list(mlp.get(sub, {}).items())
+        for name, e in entries:
+            w = e["weight"]
+            w.mul_((A9_GATE_RESIDUAL_SCALE if name in ("o_proj", "down_proj") else 1.0) / (std * w.shape[-2] ** 0.5))
+    return params
+
+
+def _fp32_but_experts(tree, key=None):
+    """Every floating leaf in fp32 but the routed experts' (kept bf16: the
+    routes cast them to the activations' dtype one expert or one leaf at a
+    time, exactly)."""
+    if key == "experts":
+        return tree
+    if isinstance(tree, dict):
+        return {k: _fp32_but_experts(v, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_fp32_but_experts(v, key) for v in tree]
+    return tree.float() if tree.is_floating_point() else tree
+
+
+def _a9_gate(torch, label, cfg_fn, params32, params, seq, prompt_len, control, control_label):
+    """The teacher-forced gate of the A9 phases: fp32 (the plain path,
+    every kernel off) records its routing; the kernel path and the plain
+    bf16 path run with every call routed as the fp32 run routed
+    (_PinnedRouting); both held to fp32 by _forced_gate. Then the control,
+    the kernel path with ``control`` (a context manager) in force, must
+    fail the same gate."""
+    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False, moe_fused_kernel_enabled=False)
+    t0 = time.perf_counter()
+    f32, sel_f = _selections(torch, cfg_fn(dtype="float32", **off), params32, seq, prompt_len, True)
+    params32.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with _PinnedRouting(sel_f):
+        k = _forced_logits(torch, cfg_fn(), params, seq, prompt_len)
+    with _PinnedRouting(sel_f):
+        pl = plain_run(f"{label} plain", _forced_logits, torch, cfg_fn(**off), params, seq, prompt_len)
+    forced = _forced_gate(k, pl, f32, label)
+    log(f"  {label}: fp32 decides {forced['decided']} of {forced['positions']} positions")
+    with control(sel_f) as pinned:
+        ctl = _forced_logits(torch, cfg_fn(), params, seq, prompt_len)
+    del pinned
+    forced["control"] = _forced_gate(ctl, pl, f32, f"  control: {control_label}", exit_on_fail=False)
+    if forced["control"]["passed"]:
+        raise SystemExit(f"{label}: the control ({control_label}) passes the gate too")
+    c = forced["control"]
+    log(f"  {label}: the control fails it (ratios max {c['kernel_vs_fp32'] / c['plain_vs_fp32']:.3f} rms "
+        f"{c['kernel_vs_fp32_rms'] / c['plain_vs_fp32_rms']:.3f}); {time.perf_counter() - t0:.1f} s for the four runs")
+    return forced
+
+
+def dbrx_teacher_forced(torch, seq, prompt_len):
+    """The teacher-forced gate on DBRX_FORCED_LAYERS layers of DBRX at full
+    width (an fp32 twin of the 8-layer model would not fit beside it):
+    seeded gate weights (_a9_gate_params), the kernel path (B2a, B1, B7)
+    against the plain path and fp32, routing pinned to the fp32 run's.
+    Control: the kernel path with the router's p-norm dropped."""
+    from neuronx_distributed_inference_tpu_torch.models import get_model_builder
+
+    model = _dbrx_cut(DBRX_FORCED_LAYERS)
+
+    def cfg_fn(**kw):
+        return _config_dbrx(model=model, output_logits=True, cuda_graphs=False, **kw)
+
+    params = _a9_gate_params(torch, get_model_builder("dbrx")(cfg_fn()).random_params(), 0.02, model["vocab_size"])
+    params32 = dict(_map_tree(params, lambda t: t.float()))
+    label = f"dbrx teacher-forced logits (gate weights, {DBRX_FORCED_LAYERS} of 40 layers, routing pinned to the fp32 run's)"
+    no_p_norm = dict(norm_weights_p=None, normalize_top_k_affinities=False)
+    return _a9_gate(torch, label, cfg_fn, params32, params, seq, prompt_len,
+                    lambda sel: _PinnedRouting(sel, **no_p_norm), "the kernel path without the p-norm")
+
+
+class _DroppedShared(_PinnedRouting):
+    """Pinned routing with DeepSeek-V3's shared experts dropped (their MLP
+    returns zeros): DeepSeek-V3's teacher-forced control."""
+
+    def __enter__(self):
+        from neuronx_distributed_inference_tpu_torch.models import deepseek
+
+        self.shared = deepseek.shared_expert_mlp
+        deepseek.shared_expert_mlp = lambda p, x, act="silu": x.new_zeros(x.shape)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from neuronx_distributed_inference_tpu_torch.models import deepseek
+
+        deepseek.shared_expert_mlp = self.shared
+        return super().__exit__(*exc)
+
+
+def deepseek_teacher_forced(torch, seq, prompt_len):
+    """The teacher-forced gate on 1 dense + 1 MoE layer of DeepSeek-V3 at
+    full width: an fp32 twin of even these two layers is ~56 GB, so the
+    fp32 run keeps the routed experts in bf16 (exact values; the grouped
+    route casts one expert at a time, the dense route one leaf) beside
+    fp32 everything else (~38 GB with the bf16 weights, ~68 GB at the
+    dense route's fp32 peak). The kernel path (the grouped prefill, B7
+    decode, MLA) against the plain path (B7 off: the dense route) and fp32,
+    routing pinned to the fp32 run's. Control: the shared expert dropped."""
+    from neuronx_distributed_inference_tpu_torch.models import get_model_builder
+
+    model = _deepseek_cut(2, 1)
+
+    def cfg_fn(**kw):
+        return _config_deepseek(model=model, output_logits=True, cuda_graphs=False, **kw)
+
+    params = _a9_gate_params(torch, get_model_builder("deepseek_v3")(cfg_fn()).random_params(), 0.05,
+                             model["vocab_size"])
+    params32 = dict(_fp32_but_experts(params))
+    label = "deepseek-v3 teacher-forced logits (gate weights, 1 dense + 1 MoE of 61 layers, routing pinned to the fp32 run's)"
+    return _a9_gate(torch, label, cfg_fn, params32, params, seq, prompt_len, _DroppedShared,
+                    "the kernel path without the shared expert")
+
+
+def _step_bound(params_bytes, embed_bytes, expert_bytes, E, distinct):
+    """The byte bound of one decode step: every weight read once but the
+    embedding (one row) and the experts no token chose."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import bound_ms
+
+    return bound_ms(params_bytes - embed_bytes - expert_bytes * (E - distinct) / E, 0)[0]
+
+
+def _dbrx_drain(torch, app, label):
+    """DBRX_SERVING's traffic on the paged split path (_serve: staggered
+    arrivals, chunked prefill, then the drain): a warm pass, then a
+    measured one; every request its tokens, no fault, exact counts (B5 and
+    the dense route once a layer a chunk pass, B4 and B7 once a layer a
+    decode step)."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    s, L, vocab = DBRX_SERVING, app.spec.num_layers, app.spec.vocab_size
+    rng = np.random.RandomState(5)
+    prompts = [rng.randint(0, vocab, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    _serve(torch, app, prompts, s["gen"], TelemetrySession())
+    tel = TelemetrySession()
+    _cuda.reset_launch_counts()
+    sess, total_s = _serve(torch, app, prompts, s["gen"], tel)
+    launches = all_counts()
+    d = dict(sess.dispatches)
+    counts = sorted(len(r.generated) for r in sess.requests.values())
+    faults = dict(rejected=sum(tel.rejected.values()), quarantined=tel.counters["quarantined"],
+                  preempted=tel.counters["preempted"])
+    ttft = [t * 1e3 for t in tel.ttft_values_s()]
+    tok_s = sum(counts) / total_s
+    log(f"{label}: {s['n_requests']} requests of {s['prompt']} + {s['gen']} tokens in {total_s * 1e3:.1f} ms, "
+        f"{tok_s:.1f} tok/s, TTFT p50 {tel.percentile(ttft, 0.5):.1f} ms; dispatches {d}, launches {launches}, {faults}")
+    if counts != [s["gen"]] * s["n_requests"] or any(faults.values()) or any(
+        r.status != "finished" or min(r.generated) < 0 or max(r.generated) >= vocab for r in sess.requests.values()
+    ):
+        raise SystemExit(f"{label}: not every request finished cleanly: {counts}, {faults}")
+    chunks, steps = d.get("prefill_chunk", 0), d.get("decode_steps", 0)
+    want = expect_launches(paged_flash_attention=chunks * L, moe_dense=chunks * L,
+                           paged_decode_attention=steps * L, moe_decode=steps * L)
+    if launches != want:
+        raise SystemExit(f"{label}: launch counts {launches} != expected {want}")
+    return dict(launches=launches, tok_s=tok_s, dispatches=d, total_ms=total_s * 1e3)
+
+
+def _a9_load(torch, cfg, label):
+    """A random-weight load on the card: seconds, the device peak above
+    what was allocated before, params and cache bytes."""
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    app = ModelForCausalLM(None, cfg).load(random_weights=True)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    params_bytes, cache_bytes = _tree_bytes(app.params), app.kv_cache_nbytes
+    log(f"{label}: load (seeded random bf16 weights made on the card) {load_s:.2f} s, device peak of the load "
+        f"{peak / 2**30:.3f} GiB against params {params_bytes / 2**30:.3f} GiB + cache {cache_bytes / 2**30:.4f} GiB")
+    return app, dict(load_s=load_s, load_peak=peak, params_bytes=params_bytes, cache_bytes=cache_bytes)
+
+
+def _a9_generate(torch, app, cfg8, label, want, L):
+    """Warm and seal ``app``, then the sealed generate() at batch 1 and (an
+    app of ``cfg8`` over the same params) batch 8, each with exact counts
+    ``want``. Returns (batch-1 output, batch-1 run, batch-8 run)."""
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    t0 = time.perf_counter()
+    app.warmup()
+    for runner in app.runners:
+        runner.seal()
+    torch.cuda.synchronize()
+    log(f"{label} warmup (captures, then sealed) {time.perf_counter() - t0:.2f} s")
+    P, N = A9_PROMPT, A9_NEW
+    with RetraceGuard():
+        out, run = _generate_run(torch, app, P, N, f"{label} generate()")
+    if run["launches"] != want:
+        raise SystemExit(f"{label} launch counts {run['launches']} != expected {want}")
+    app8 = ModelForCausalLM(None, cfg8).load(params=app.params).warmup()
+    for runner in app8.runners:
+        runner.seal()
+    with RetraceGuard():
+        _, run8 = _generate_run(torch, app8, P, N, f"{label} generate()", batch=8)
+    if run8["launches"] != want:
+        raise SystemExit(f"{label} batch-8 launch counts {run8['launches']} != expected {want}")
+    del app8
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, run, run8
+
+
+def phase_dbrx(torch, fa, da, pf, md):
+    """DBRX at databricks/dbrx-base's widths (6144 hidden, 48 q / 8 kv heads
+    of 128, 16 experts top-4 of width 10752, vocab 100352, clip_qkv 8,
+    LayerNorm), DBRX_LAYERS of its 40 layers, seeded random bf16 weights
+    made on the card: the attention kernels held at its heads
+    (dbrx_kernel_parity) and timed; load; B7 on a layer's leaves at batch 1
+    and 8; greedy generate() of A9_NEW tokens after a 256-token prompt at
+    batch 1 and 8, sealed, exact counts (B2a once a layer a prefill, B1 and
+    B7 once a layer a decode step, the dense MoE route at the prefill: 16
+    experts < 16 x 4, no B8 / B9: LayerNorm and the clip); a profiled decode
+    step beside its byte bound; graphs on against an eager twin; the paged
+    split drain; the teacher-forced gate on 2 layers with its control."""
+    from neuronx_distributed_inference_tpu_torch.config import ChunkedPrefillConfig
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_DBRX
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    n_cases = dbrx_kernel_parity(torch, fa, da, pf)
+    times = dbrx_kernel_times(torch, fa, da, pf)
+    app, load = _a9_load(torch, _config_dbrx(retrace_guard=True), "dbrx (8 of 40 layers)")
+    spec, mspec = app.spec, app.builder.moe_spec()
+    if spec.norm_type != "layernorm" or spec.attn.qkv_clip != 8.0 or mspec.norm_weights_p != 1.0:
+        raise SystemExit(f"dbrx: spec {spec.norm_type}, clip {spec.attn.qkv_clip}, p {mspec.norm_weights_p}")
+    times.update(a9_moe_times(torch, md, app.params["layers"][0]["mlp"]["experts"], MODEL_DBRX, "dbrx"))
+    L, N = DBRX_LAYERS, A9_NEW
+    want = expect_launches(flash_attention=L, decode_attention=L * N, moe_decode=L * N, moe_dense=L)
+    out, run, run8 = _a9_generate(torch, app, _config_dbrx(8, retrace_guard=True), "dbrx", want, L)
+    profile = phase_profile(torch, app, out.sequences[0], A9_PROMPT)
+    m = MODEL_DBRX
+    embed_bytes = app.params["embed_tokens"]["weight"].numel() * 2
+    expert_bytes = 3 * L * m["E"] * m["H"] * m["I"] * 2
+    b_step = _step_bound(load["params_bytes"], embed_bytes, expert_bytes, m["E"], m["k"])
+    log(f"  dbrx decode step at batch 1: device busy {profile['device_busy_ms']:.3f} ms against a {b_step:.3f} ms "
+        f"byte bound (every weight but the embedding and the 12 unchosen experts a layer); "
+        f"{profile['kernels_per_step']:.0f} kernels a step")
+    eager = eager_twin(torch, "dbrx generate()", _config_dbrx(cuda_graphs=False), app, out, run, A9_PROMPT, N)
+    s = DBRX_SERVING
+    paged_cfg = _config_dbrx(
+        s["slots"], is_continuous_batching=True, ctx_batch_size=1, is_block_kv_layout=True,
+        pa_block_size=s["block_size"], pa_num_blocks=s["slots"] * s["seq"] // s["block_size"],
+        is_chunked_prefill=True, chunked_prefill_config=ChunkedPrefillConfig(max_num_seqs=s["slots"], kernel_q_tile_size=128),
+        token_generation_buckets=[s["seq"]], retrace_guard=True,
+    )
+    paged = ModelForCausalLM(None, paged_cfg).load(params=app.params).warmup()
+    paged_run = _dbrx_drain(torch, paged, "dbrx paged split drain")
+    del paged
+    seq = out.sequences[0][: A9_PROMPT + A9_FORCED_STEPS]
+    del app
+    forced = dbrx_teacher_forced(torch, seq, A9_PROMPT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {
+        "flash_attention_dbrx": run["launches"]["flash_attention"],
+        "decode_attention_dbrx": run["launches"]["decode_attention"],
+        "moe_decode_dbrx": run["launches"]["moe_decode"],
+        "moe_decode_dbrx_bs8": run8["launches"]["moe_decode"],
+        "paged_decode_attention_dbrx": paged_run["launches"]["paged_decode_attention"],
+        "paged_flash_attention_dbrx": paged_run["launches"]["paged_flash_attention"],
+    }
+    return dict(run, times=times, launches=launches, **load, run8=run8, eager=eager, forced=forced, cases=n_cases,
+                profile={k: v for k, v in profile.items() if k != "busy_ms_per_step"}, paged=paged_run,
+                step_bound_ms=b_step)
+
+
+def phase_deepseek_v3(torch, md):
+    """DeepSeek-V3 at deepseek-ai/DeepSeek-V3's widths (7168 hidden, 128
+    heads, MLA with q_lora_rank 1536, kv_lora_rank 512, head dims 128 / 64
+    / 128, 256 routed experts top-8 in 8 groups of which 4 are kept, 1
+    shared, routed_scaling_factor 2.5, YaRN factor 40, vocab 129280), 3
+    dense + 2 MoE of its 61 layers, seeded random bf16 weights made on the
+    card: load; the latent cache's bytes against a full K/V cache of 128
+    heads x (192 + 128), exactly 576 / 40960; B7 on the first MoE layer's
+    leaves at batch 1 and 8 (8 and 64 rows); greedy generate() at batch 1
+    and 8, sealed, exact counts (the grouped route once a MoE layer a
+    prefill, B7 once a MoE layer a decode step; no attention kernel: MLA is
+    plain PyTorch; no dense-route launch); a profiled decode step beside its
+    byte bound; graphs on against an eager twin; the teacher-forced gate on
+    1 dense + 1 MoE layer with its control."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_DEEPSEEK_V3
+
+    app, load = _a9_load(torch, _config_deepseek(retrace_guard=True), "deepseek-v3 (3 dense + 2 MoE of 61 layers)")
+    nd, nm = DEEPSEEK_DENSE, DEEPSEEK_LAYERS - DEEPSEEK_DENSE
+    cfg = app.config
+    cache = app.kv_cache
+    L, rows, S = cache.k.shape[:3]
+    # a token a layer: the latent and the rope key, against K (nope + rope)
+    # and V of every head: 576 / 40960 at the published widths
+    latent = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    per_head = cfg.num_attention_heads * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim)
+    full = L * rows * S * per_head * 2
+    ratio = load["cache_bytes"] / full
+    log(f"deepseek-v3 latent cache: {load['cache_bytes']} bytes (K {tuple(cache.k.shape)}, V {tuple(cache.v.shape)}) "
+        f"against a full K/V cache of {cfg.num_attention_heads} heads x ({cfg.qk_nope_head_dim + cfg.qk_rope_head_dim}"
+        f" + {cfg.v_head_dim}) at the same lines, {full} bytes: {ratio:.5f} ({latent} / {per_head})")
+    if load["cache_bytes"] * per_head != full * latent:
+        raise SystemExit(f"deepseek-v3: the latent cache is {ratio:.6f} of a full one, not {latent} / {per_head}")
+    times = a9_moe_times(torch, md, app.params["layers"][nd]["mlp"]["experts"], MODEL_DEEPSEEK_V3, "deepseek",
+                         dense=False)
+    N = A9_NEW
+    want = expect_launches(moe_grouped=nm, moe_decode=nm * N)
+    out, run, run8 = _a9_generate(torch, app, _config_deepseek(8, retrace_guard=True), "deepseek-v3", want,
+                                  DEEPSEEK_LAYERS)
+    profile = phase_profile(torch, app, out.sequences[0], A9_PROMPT)
+    m = MODEL_DEEPSEEK_V3
+    embed_bytes = app.params["embed_tokens"]["weight"].numel() * 2
+    expert_bytes = 3 * nm * m["E"] * m["H"] * m["I"] * 2
+    b_step = _step_bound(load["params_bytes"], embed_bytes, expert_bytes, m["E"], m["k"])
+    log(f"  deepseek-v3 decode step at batch 1: device busy {profile['device_busy_ms']:.3f} ms against a "
+        f"{b_step:.3f} ms byte bound (every weight but the embedding and the 248 unchosen experts a MoE layer); "
+        f"{profile['kernels_per_step']:.0f} kernels a step")
+    eager = eager_twin(torch, "deepseek-v3 generate()", _config_deepseek(cuda_graphs=False), app, out, run,
+                       A9_PROMPT, N)
+    seq = out.sequences[0][: A9_PROMPT + A9_FORCED_STEPS]
+    del app
+    forced = deepseek_teacher_forced(torch, seq, A9_PROMPT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"moe_decode_deepseek": run["launches"]["moe_decode"],
+                "moe_decode_deepseek_bs8": run8["launches"]["moe_decode"]}
+    return dict(run, times=times, launches=launches, **load, cache_ratio=ratio, run8=run8, eager=eager,
+                forced=forced, profile={k: v for k, v in profile.items() if k != "busy_ms_per_step"},
+                step_bound_ms=b_step)
+
+
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
@@ -7740,6 +8406,12 @@ def main():
     times.update(gpt_oss.pop("times"))
     mistral = timed("mistral ring", phase_mistral, torch, fa)
     times.update(mistral.pop("times"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    dbrx = timed("dbrx", phase_dbrx, torch, fa, da, pf, md)
+    times.update(dbrx.pop("times"))
+    deepseek = timed("deepseek-v3", phase_deepseek_v3, torch, md)
+    times.update(deepseek.pop("times"))
 
     entries = []
     for name, key, source, replaces, launches in (
@@ -7857,6 +8529,29 @@ def main():
          "neuronx_distributed_inference_tpu/ops/decode_attention.py:284", gpt_oss["launches"]),
         ("flash_attention_mistral", ("flash_attention", "mistral"), "csrc/flash_attention.cu",
          "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", mistral["launches"]),
+        # DBRX (48 q / 8 kv heads of 128, n_rep 6): B2a at its 256-token
+        # prefill and B1 at its decode (batch 1, bucket 512), launches of
+        # the batch-1 generate(); B4 and B5 at the serving shapes, launches
+        # of the paged drain; B7 on one layer's leaves at batch 1 (4 rows)
+        # and 8 (32), launches of the batch-1 and batch-8 generate()
+        ("flash_attention_dbrx", ("flash_attention", "dbrx"), "csrc/flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", dbrx["launches"]),
+        ("decode_attention_dbrx", ("decode_attention", "dbrx", 1), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", dbrx["launches"]),
+        ("paged_decode_attention_dbrx", ("paged_decode_attention", "dbrx"), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:284", dbrx["launches"]),
+        ("paged_flash_attention_dbrx", ("paged_flash_attention", "dbrx"), "csrc/paged_flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/paged_flash_attention.py:200", dbrx["launches"]),
+        ("moe_decode_dbrx", ("moe_decode", "dbrx bs1"), "csrc/moe_decode.cu",
+         "neuronx_distributed_inference_tpu/ops/moe_decode.py:159", dbrx["launches"]),
+        ("moe_decode_dbrx_bs8", ("moe_decode", "dbrx bs8"), "csrc/moe_decode.cu",
+         "neuronx_distributed_inference_tpu/ops/moe_decode.py:159", dbrx["launches"]),
+        # DeepSeek-V3: B7 on its first MoE layer's leaves at batch 1 (8
+        # rows) and 8 (64), launches of the batch-1 and batch-8 generate()
+        ("moe_decode_deepseek", ("moe_decode", "deepseek bs1"), "csrc/moe_decode.cu",
+         "neuronx_distributed_inference_tpu/ops/moe_decode.py:159", deepseek["launches"]),
+        ("moe_decode_deepseek_bs8", ("moe_decode", "deepseek bs8"), "csrc/moe_decode.cu",
+         "neuronx_distributed_inference_tpu/ops/moe_decode.py:159", deepseek["launches"]),
     ):
         t = times[key]
         entries.append({

@@ -580,11 +580,6 @@ class MoEConfig(Config):
                 "hybrid_sharding_config (per-phase expert sharding) is not "
                 "ported to PyTorch yet (ROADMAP A10 (parallelism))"
             )
-        if self.fused_shared_experts:
-            raise NotImplementedError(
-                "fused_shared_experts (shared experts) is not ported to "
-                "PyTorch yet (ROADMAP A9 (shared experts))"
-            )
         # capacity_factor with ep_degree > 1 is refused earlier, with
         # ep_degree itself (ROADMAP A10)
         if self.capacity_factor is not None and self.quantized and self.quantization_type == "blockwise":
@@ -607,6 +602,11 @@ class InferenceConfig:
             load_config(self)
         for k, v in kwargs.items():
             setattr(self, k, v)
+        self.add_derived_config()
         missing = [a for a in self._REQUIRED_ATTRS if not hasattr(self, a)]
         if missing:
             raise ValueError(f"Config missing required attributes: {missing}")
+
+    def add_derived_config(self):
+        """Hook for model plugins to derive attributes (DBRX flattens its
+        nested configs, DeepSeek-V3 sets the rope dimension)."""

@@ -15,10 +15,12 @@
 // zeros, as the reference's finalize does.
 //
 // The block: one block per (q tile, kv head, row). Its 64 query rows are
-// the n_rep q heads of kv head g times 64 / n_rep query positions (row r =
-// local head r / TQP, position iq * TQP + r % TQP), so the n_rep heads share
-// every K/V tile and no repeat_kv exists; a 128-token chunk runs 8 blocks per
-// (row, kv head) at n_rep 4: 512 blocks at batch 8. The TPU grid (B, Hq,
+// the n_rep q heads of kv head g times TQP = 64 / n_rep (rounded down) query
+// positions (row r = local head r / TQP, position iq * TQP + r % TQP), so
+// the n_rep heads share every K/V tile and no repeat_kv exists; a 128-token
+// chunk runs 8 blocks per (row, kv head) at n_rep 4: 512 blocks at batch 8.
+// Where n_rep does not divide 64 (DBRX's 6: 10 positions, 60 rows) the last
+// 64 mod n_rep rows hold no query: no read, no write, no valid key. The TPU grid (B, Hq,
 // q_tiles, MB) ran its kv axis in order; here the kv loop lives inside the
 // block and stops at min(the block's largest query position, kv_limit - 1).
 // A row with kv_limit == 0 (an inactive slot of a chunk pass, which runs at
@@ -138,12 +140,14 @@ __global__ void __launch_bounds__(THREADS) paged_flash_mma(const PagedFlashParam
   const int b = blockIdx.z;
   const int n_rep = p.Hq / p.Hkv;
   const int tqp = BQ / n_rep;  // query positions per block
+  const int used = tqp * n_rep;  // rows that hold a query
   // query row r -> position index t and q head h
   auto row_t = [&](int r) { return iq * tqp + r % tqp; };
+  auto live = [&](int r) { return r < used && row_t(r) < p.Sq; };
   auto row_off = [&](int r) -> long long {  // (b, t, h) element offset of row r in q / out
-    return row_t(r) < p.Sq ? (((long long)b * p.Sq + row_t(r)) * p.Hq + hk * n_rep + r / tqp) * D : -1;
+    return live(r) ? (((long long)b * p.Sq + row_t(r)) * p.Hq + hk * n_rep + r / tqp) * D : -1;
   };
-  auto row_pos = [&](int r) { return row_t(r) < p.Sq ? p.positions[(long long)b * p.Sq + row_t(r)] : -1; };
+  auto row_pos = [&](int r) { return live(r) ? p.positions[(long long)b * p.Sq + row_t(r)] : -1; };
   // a row's table covers MB * bs positions: nothing past them exists
   paged::flash_mma<C, D>(smem_raw, static_cast<const __nv_bfloat16*>(p.q), static_cast<__nv_bfloat16*>(p.out),
                          row_off, row_pos, static_cast<const C*>(p.k), static_cast<const C*>(p.v),
@@ -181,21 +185,23 @@ __global__ void __launch_bounds__(THREADS) paged_flash_kernel(const PagedFlashPa
   const int b = blockIdx.z;
   const int n_rep = p.Hq / p.Hkv;
   const int tqp = BQ / n_rep;  // query positions per block
+  const int used = tqp * n_rep;  // rows that hold a query
   // a row's table covers MB * bs positions: nothing past them exists
   const int limit = min(p.kv_limit[b], p.MB * p.bs);
   const T* qp = static_cast<const T*>(p.q);
   T* op = static_cast<T*>(p.out);
 
-  // query row -> (position index t, head h); rows past Sq carry position -1
+  // query row -> (position index t, head h); rows past Sq or past the used
+  // rows carry position -1
   for (int row = tid; row < BQ; row += THREADS) {
     const int t = iq * tqp + row % tqp;
-    sm.pos[row] = t < p.Sq ? p.positions[(long long)b * p.Sq + t] : -1;
+    sm.pos[row] = row < used && t < p.Sq ? p.positions[(long long)b * p.Sq + t] : -1;
   }
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int row = idx / D, d = idx % D;
     const int t = iq * tqp + row % tqp;
     const int h = g * n_rep + row / tqp;
-    sm.Qs[row * LD + d] = t < p.Sq ? to_float(qp[(((long long)b * p.Sq + t) * p.Hq + h) * D + d]) : 0.f;
+    sm.Qs[row * LD + d] = row < used && t < p.Sq ? to_float(qp[(((long long)b * p.Sq + t) * p.Hq + h) * D + d]) : 0.f;
   }
   __syncthreads();
 
@@ -210,7 +216,7 @@ __global__ void __launch_bounds__(THREADS) paged_flash_kernel(const PagedFlashPa
   for (int i = 0; i < ROWS_T; ++i) {
     const int lrow = r + RG * i;
     const int t = iq * tqp + lrow % tqp;
-    if (t >= p.Sq) continue;
+    if (lrow >= used || t >= p.Sq) continue;
     const int h = g * n_rep + lrow / tqp;
     paged::finalize_row<T, D>(op + (((long long)b * p.Sq + t) * p.Hq + h) * D, l_i[i], acc[i], vf);
   }
@@ -249,7 +255,7 @@ extern "C" int nxdi_paged_flash_attention(
     int B, int Sq, int Hq, int Hkv, int D, int NB1, int bs, int MB,
     float scale, int dtype, int cache_dtype, const float* k_scale, const float* v_scale, float qmax, void* stream) {
   using namespace nxdi;
-  if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || BQ % (Hq / Hkv) != 0 ||
+  if (B <= 0 || Sq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || Hq / Hkv > BQ ||
       NB1 <= 0 || bs <= 0 || MB <= 0)
     return (int)cudaErrorInvalidValue;
   PagedFlashParams p{q, k, v, block_table, positions, kv_limit, out,

@@ -41,6 +41,11 @@ only a model with no window and no sink anywhere takes B5; the others send
 passes of at most 16 tokens to B4 with their masks and sinks, and longer
 ones to the plain block gather.
 
+A builder's ``layer_fn()`` / ``mlp_fn()`` may be lists that the layer loop
+indexes by each layer group's ``LayerGroupSpec.fn_idx`` (DeepSeek-V3: MLA
+layers, a dense MLP on the first group and the MoE block on the next); the
+params' ``layers`` is then a list of the groups' stacks (:func:`flat_layers`).
+
 An int8/fp8 ``kv_cache_dtype`` makes the cache's streams ``QuantizedKV``:
 the writes quantize in place, B1, B4, B5 and B3 run their code modes on
 the codes and the layer's scales, and B8 is not taken (it streams the cache
@@ -103,13 +108,17 @@ PHASE_MIXED = "mixed"
 
 @dataclass(frozen=True)
 class LayerGroupSpec:
-    """One contiguous run of layers of one attention flavor (the
-    reference's ``LayerGroupSpec``): GPT-OSS's alternating sliding / global
-    layers are a sequence of these. The reference's chunked-attention flavor
-    and per-group layer functions are not ported (ROADMAP A9)."""
+    """One contiguous run of layers of one attention flavor and one pair of
+    layer functions (the reference's ``LayerGroupSpec``): GPT-OSS's
+    alternating sliding / global layers are a sequence of these, and so are
+    DeepSeek-V3's dense-first and MoE layers, whose ``fn_idx`` picks each
+    group's entry of the builder's ``layer_fn()`` / ``mlp_fn()`` lists. The
+    reference's chunked-attention flavor is not ported (ROADMAP A9)."""
 
     num_layers: int
     sliding_window: Optional[int] = None
+    # index into the layer_fn / mlp_fn lists the builder provides
+    fn_idx: int = 0
 
 
 @dataclass(frozen=True)
@@ -155,6 +164,19 @@ def layer_windows(spec: ModelSpec, num_layers: int) -> List[Optional[int]]:
     if len(wins) != num_layers:
         raise ValueError(f"layer_groups mismatch: spec says {len(wins)} layers, params carry {num_layers}")
     return wins
+
+
+def layer_fn_indices(spec: ModelSpec, num_layers: int) -> List[int]:
+    """The ``fn_idx`` of each layer (0 for a uniform stack)."""
+    if spec.layer_groups is None:
+        return [0] * num_layers
+    return [g.fn_idx for g in spec.layer_groups for _ in range(g.num_layers)]
+
+
+def _pick(fns, idx: int):
+    """A group's entry of a ``layer_fn`` / ``mlp_fn`` list; a single
+    function (or None) serves every group."""
+    return fns[idx] if isinstance(fns, (list, tuple)) else fns
 
 
 def plain_attention(spec: ModelSpec) -> bool:
@@ -390,7 +412,9 @@ def _fused_attn_eligible(layer_params: dict, mask, spec: ModelSpec, cos, k_cache
     reference's ``_fused_attn_eligible``; the step-level ones, the
     contiguous full-length cache among them, come from
     :func:`run_decoder_layers`): a plain cache (a quantized one takes B1's
-    code mode: B8 streams the cache in its storage dtype), rmsnorm, a plain
+    code mode: B8 streams the cache in its storage dtype), rmsnorm (DBRX's
+    LayerNorm stays off B8, as its ``qkv_clip`` does through
+    ``use_fused_attn_block``), a plain
     fused ``qkv_proj`` and ``o_proj``, full rotary, one new token a row for
     a windowed layer (B8's in-flight part is purely causal; the window
     bounds its prior part through the mask), and the gate of
@@ -400,6 +424,7 @@ def _fused_attn_eligible(layer_params: dict, mask, spec: ModelSpec, cos, k_cache
         not isinstance(k_cache, QuantizedKV)
         and (window is None or mask.shape[-2] == 1)
         and spec.norm_type == "rmsnorm"
+        and spec.attn.qkv_clip is None
         and "qkv_proj" in sa
         and _plain_weight(sa["qkv_proj"])
         and _plain_weight(sa.get("o_proj"))
@@ -592,6 +617,12 @@ def gather_last_token(hidden: torch.Tensor, attention_mask: torch.Tensor) -> tor
     return torch.take_along_dim(hidden, idx[:, None, None], dim=1)
 
 
+def _is_group_stack(tree) -> bool:
+    """True for a stacked (L, ...) layer group: its norm weight has a layer
+    axis ((L, H)), a prepared layer's has none ((H,))."""
+    return isinstance(tree, dict) and tree["input_layernorm"]["weight"].dim() == 2
+
+
 def unstack_layers(layers: Dict) -> List[Dict]:
     """Stacked (L, ...) layer params -> a list of per-layer dicts of views."""
     n = next(iter(_leaves(layers))).shape[0]
@@ -612,12 +643,23 @@ def _leaves(tree):
         yield tree
 
 
+def flat_layers(layers: Union[Dict, List[Dict]]) -> List[Dict]:
+    """The per-layer list of a layer tree: one stacked (L, ...) dict, a list
+    of stacked groups with different leaves (the reference's per-group
+    stacks, DeepSeek-V3's dense-first and MoE layers), or a list of
+    prepared layers, returned as it is."""
+    if isinstance(layers, dict):
+        return unstack_layers(layers)
+    if layers and _is_group_stack(layers[0]):
+        return [lp for group in layers for lp in unstack_layers(group)]
+    return layers
+
+
 def prepare_params(params: Dict) -> Dict:
     """A shallow copy whose ``layers`` is the per-layer list the layer loop
     walks (views; no weight is copied). Loaded apps run on this form."""
     out = dict(params)
-    if isinstance(out["layers"], dict):
-        out["layers"] = unstack_layers(out["layers"])
+    out["layers"] = flat_layers(out["layers"])
     return out
 
 
@@ -631,10 +673,17 @@ def run_decoder_layers(
     phase: str,
     mlp_fn: Callable = gated_mlp,
     capture_layers: Optional[Tuple[int, ...]] = None,
+    layer_fn: Optional[Callable] = None,
 ):
     """Layer stack + final norm over an embedded hidden state (one Python
     loop over the layers, the cache updated in place). Returns (hidden,
     cache).
+
+    ``mlp_fn`` and ``layer_fn`` (None: :func:`decoder_layer`) may be lists
+    indexed by each layer group's ``fn_idx`` (DeepSeek-V3: a dense MLP on
+    the first layers, the MoE block on the rest, every layer MLA); the loop
+    stays one static sequence of Python calls, so a captured step holds
+    each layer's own functions.
 
     Each layer takes its flavor's mask (:func:`layer_windows`: one mask per
     distinct window, built once a step) and its cache: a ring layer of the
@@ -675,10 +724,11 @@ def run_decoder_layers(
         is_block and phase != PHASE_CONTEXT_ENCODING and plain_model
         and use_paged_flash(spec.attn, inputs.input_ids.shape[1])
     )
-    layers: Union[Dict, List[Dict]] = params["layers"]
-    if isinstance(layers, dict):
-        layers = unstack_layers(layers)
+    layers = flat_layers(params["layers"])
     windows = layer_windows(spec, len(layers))
+    fn_idx = layer_fn_indices(spec, len(layers))
+    # a custom layer (MLA) computes its attention from the dense mask
+    custom = any(_pick(layer_fn, i) is not None for i in set(fn_idx))
     interleaved = isinstance(cache, InterleavedKVCache)
     bounded = spec.bounded_window if not is_block else None
     # ring layers decode from positions; every other layer reads its
@@ -687,7 +737,7 @@ def run_decoder_layers(
     flavor_masks: Dict[Optional[int], Optional[torch.Tensor]] = {}
     for w in windows:
         if w not in flavor_masks:
-            skip = flash or paged_flash or (ring_decode and (bounded or w is not None))
+            skip = not custom and (flash or paged_flash or (ring_decode and (bounded or w is not None)))
             flavor_masks[w] = None if skip else build_mask(inputs, spec, phase, window=w)
     # the step-level conditions of the fused decode kernels (the reference's
     # fused_eligible): decode over the contiguous full-length cache at
@@ -719,10 +769,11 @@ def run_decoder_layers(
             k_cache, v_cache = streams[sliding]
             idx = n_seen[sliding]
             n_seen[sliding] += 1
-        hidden, k_cache, v_cache = decoder_layer(
+        layer = _pick(layer_fn, fn_idx[li]) or decoder_layer
+        hidden, k_cache, v_cache = layer(
             layer_params, hidden, cos, sin, k_cache, v_cache, idx, flavor_masks[w], slot_ids,
-            positions, spec, phase, mlp_fn, key_valid=key_valid, block_inputs=block_inputs,
-            fused_ok=fused_ok, window=w, ring=ring, plain_model=plain_model,
+            positions, spec, phase, _pick(mlp_fn, fn_idx[li]), key_valid=key_valid,
+            block_inputs=block_inputs, fused_ok=fused_ok, window=w, ring=ring, plain_model=plain_model,
         )
         if interleaved:
             streams[w is not None] = (k_cache, v_cache)
@@ -751,6 +802,7 @@ def model_logits(
     mlp_fn: Callable = gated_mlp,
     return_hidden: bool = False,
     capture_layers: Optional[Tuple[int, ...]] = None,
+    layer_fn: Optional[Callable] = None,
 ):
     """Backbone + lm head, no sampling: (logits (B, K, V), cache), and with
     ``return_hidden`` the full-sequence hidden states after the final norm
@@ -758,7 +810,8 @@ def model_logits(
     C*H) capture concat in their place."""
     hidden = embed(params, inputs.input_ids)
     out = run_decoder_layers(
-        params, hidden, cache, inputs, spec=spec, phase=phase, mlp_fn=mlp_fn, capture_layers=capture_layers
+        params, hidden, cache, inputs, spec=spec, phase=phase, mlp_fn=mlp_fn, capture_layers=capture_layers,
+        layer_fn=layer_fn,
     )
     hidden, new_cache = out[:2]
     full_hidden = out[2] if capture_layers is not None else hidden
@@ -803,6 +856,7 @@ def decode_step(
     spec: ModelSpec,
     mlp_fn: Callable = gated_mlp,
     generator=None,
+    layer_fn: Optional[Callable] = None,
 ):
     """One whole decode iteration with no host read: the mask is built on
     the device from ``cols <= pos``, and ``st.last`` / ``st.pos`` advance in
@@ -817,7 +871,9 @@ def decode_step(
         sampling_params=st.sampling_params,
         block_table=st.block_table,
     )
-    logits, _ = model_logits(params, cache, inputs, spec=spec, phase=PHASE_TOKEN_GENERATION, mlp_fn=mlp_fn)
+    logits, _ = model_logits(
+        params, cache, inputs, spec=spec, phase=PHASE_TOKEN_GENERATION, mlp_fn=mlp_fn, layer_fn=layer_fn
+    )
     tok = _next_tokens(logits, st.sampling_params, spec, generator)
     st.last.copy_(tok)
     st.pos.add_(1)
@@ -893,9 +949,7 @@ def mixed_forward(
     cos, sin = rope_cos_sin(positions, params["rope"]["inv_freq"], spec.attention_scaling)
     block_inputs = (inputs.slot_mapping, inputs.block_table, inputs.ctx_len)
     ragged = (inputs.row_start, inputs.row_len, inputs.ctx_len)
-    layers = params["layers"]
-    if isinstance(layers, dict):
-        layers = unstack_layers(layers)
+    layers = flat_layers(params["layers"])
     k_cache, v_cache = cache.k, cache.v
     for li, layer_params in enumerate(layers):
         hidden, k_cache, v_cache = decoder_layer(
@@ -985,10 +1039,13 @@ def forward(
     phase: str,
     mlp_fn: Callable = gated_mlp,
     generator=None,
+    layer_fn: Optional[Callable] = None,
 ) -> StepOutput:
     """One step (counterpart of the reference ``forward``); ``generator``
     draws the tokens when the spec samples."""
-    logits, new_cache = model_logits(params, cache, inputs, spec=spec, phase=phase, mlp_fn=mlp_fn)
+    logits, new_cache = model_logits(
+        params, cache, inputs, spec=spec, phase=phase, mlp_fn=mlp_fn, layer_fn=layer_fn
+    )
     tokens = _next_tokens(logits, inputs.sampling_params, spec, generator)
     return StepOutput(
         tokens=tokens, logits=logits if spec.output_logits else None, cache=new_cache

@@ -88,11 +88,18 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
     their integer type; every other leaf takes ``dtype``. The EAGLE
     drafts' ``fc``, ``input_norm``, ``hidden_norm`` and 2H-wide qkv and the
     Medusa heads (``medusa_heads``: ``res`` weight and bias, ``lm_head``,
-    stacked by head) have the reference's layout too."""
+    stacked by head) have the reference's layout too, and so do
+    DeepSeek-V3's per-group stacks (``layers`` a list: the dense-first
+    group, then the MoE group) with MLA's ``q_a_proj`` / ``q_a_layernorm``
+    / ``q_b_proj`` (or ``q_proj``), ``kv_a_proj``, ``kv_a_layernorm``,
+    ``k_absorb``, ``v_absorb``, the router's ``e_score_correction_bias``
+    and the ``shared_experts`` (separate or fused ``gate_up_proj``)."""
 
     def conv(t, path):
         if isinstance(t, dict):
             return {k: conv(v, path + (k,)) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v, path + (i,)) for i, v in enumerate(t)]
         a = np.asarray(t)
         code = _CODE_DTYPES.get(a.dtype.name)
         if code is not None:
@@ -108,8 +115,11 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
 
 
 #: param-tree keys of norm weights: random weights set them to ones (the
-#: EAGLE drafts' input_norm and hidden_norm too)
-NORM_KEYS = ("input_layernorm", "post_attention_layernorm", "norm", "q_norm", "k_norm", "input_norm", "hidden_norm")
+#: EAGLE drafts' input_norm and hidden_norm, MLA's q_a / kv_a norms too)
+NORM_KEYS = (
+    "input_layernorm", "post_attention_layernorm", "norm", "q_norm", "k_norm", "input_norm", "hidden_norm",
+    "q_a_layernorm", "kv_a_layernorm",
+)
 
 
 class DecoderModelBuilder:
@@ -255,7 +265,9 @@ class DecoderModelBuilder:
     def random_params(self, std: float = 0.02) -> Dict:
         """Random weights generated on the target device from a
         ``torch.Generator`` seeded with the config's ``seed`` (std 0.02,
-        norms 1, like the reference; the numbers differ from JAX's).
+        norms 1, like the reference; the numbers differ from JAX's). A
+        ``layers`` list of per-group stacks (shapes that differ by group)
+        is filled group by group.
 
         Each leaf is allocated once in the target dtype and filled in place,
         a stacked ``(L, ...)`` leaf one layer's slice at a time, so the fp32
@@ -278,6 +290,8 @@ class DecoderModelBuilder:
         def rand(tree, key, stacked):
             if isinstance(tree, dict):
                 return {k: rand(v, k if k != "weight" else key, stacked or k == "layers") for k, v in tree.items()}
+            if isinstance(tree, list):  # per-group stacks (DeepSeek-V3)
+                return [rand(t, key, stacked) for t in tree]
             return fill(tree, key, stacked)
 
         params = rand(self.param_shapes(), None, False)
@@ -359,11 +373,13 @@ class DecoderModelBuilder:
         return params
 
     def mlp_fn(self):
+        """The MLP of every layer, or a list indexed by each layer group's
+        ``fn_idx`` (DeepSeek-V3: dense, then MoE)."""
         return gated_mlp
 
     def layer_fn(self):
-        """A custom decoder layer (the reference's MLA and Llama4 layers);
-        None: the shared ``models/base.decoder_layer``."""
+        """A custom decoder layer (DeepSeek-V3's MLA layer), or a list
+        indexed by ``fn_idx``; None: the shared ``models/base.decoder_layer``."""
         return None
 
     def init_kv_cache(self) -> Union[KVCache, BlockKVCache]:

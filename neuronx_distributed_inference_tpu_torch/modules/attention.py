@@ -4,8 +4,8 @@
 - :func:`qkv_project` / :func:`o_project` — projections with RoPE applied,
   through ``ops/quant.linear`` (plain, int8/fp8 or packed int4 weights),
   with the q/k/v and o biases of Qwen2 and GPT-OSS (``AttnSpec.qkv_bias``
-  / ``o_bias``) and the per-head q/k RMSNorm of Qwen3 (``AttnSpec.qk_norm``)
-  before RoPE.
+  / ``o_bias``), DBRX's clamp of q, k and v (``AttnSpec.qkv_clip``) and the
+  per-head q/k RMSNorm of Qwen3 (``AttnSpec.qk_norm``) before RoPE.
 - :func:`attention_prefill` — context-encoding attention: the B2 flash
   kernel (``ops/flash_attention.py``), with a layer's sliding ``window``
   and learned sink, unless ``use_flash_kernel`` is False, then the plain
@@ -51,6 +51,8 @@ class AttnSpec:
     # fused decode attention block B8 (config
     # fused_attn_block_kernel_enabled): only True takes it
     use_fused_block: Optional[bool] = None
+    # clamp the q/k/v projection outputs to [-clip, clip] (DBRX clip_qkv)
+    qkv_clip: Optional[float] = None
 
     @property
     def softmax_scale(self) -> float:
@@ -77,7 +79,9 @@ def qkv_project(
     ``qkv_proj`` (fused_qkv) is one matmul split after: with one shard the
     reference's rank-interleaved layout is a plain [q|k|v] split. With
     ``spec.qk_norm`` q and k take a per-head RMSNorm (weights ``q_norm`` /
-    ``k_norm``, shape (D,)) before RoPE, on either layout."""
+    ``k_norm``, shape (D,)) before RoPE, on either layout. ``spec.qkv_clip``
+    clamps q, k and v after the projection (and its bias), on either
+    layout, as the reference does."""
     B, S, _ = hidden.shape
     q_sz = spec.num_heads * spec.head_dim
     kv_sz = spec.num_kv_heads * spec.head_dim
@@ -94,6 +98,9 @@ def qkv_project(
             q = q + params["q_proj"]["bias"]
             k = k + params["k_proj"]["bias"]
             v = v + params["v_proj"]["bias"]
+    if spec.qkv_clip is not None:
+        c = spec.qkv_clip
+        q, k, v = torch.clamp(q, -c, c), torch.clamp(k, -c, c), torch.clamp(v, -c, c)
     q = q.reshape(B, S, spec.num_heads, spec.head_dim)
     k = k.reshape(B, S, spec.num_kv_heads, spec.head_dim)
     v = v.reshape(B, S, spec.num_kv_heads, spec.head_dim)

@@ -31,7 +31,7 @@ for the sliding ones.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -268,15 +268,20 @@ def init_cache(
     dtype=torch.bfloat16,
     *,
     device,
+    v_heads: Optional[int] = None,
+    v_head_dim: Optional[int] = None,
 ) -> KVCache:
     """Zeroed stacked caches on ``device`` (no default: the caller names the
     card or the CPU); a quantized ``dtype`` builds QuantizedKV streams with
-    zero scales."""
+    zero scales. ``v_heads`` / ``v_head_dim`` size the V stream apart from
+    K: DeepSeek-V3's MLA caches its latent (one head of kv_lora_rank) in K
+    and its rope keys (one head of qk_rope_head_dim) in V."""
     rows = batch_size + GARBAGE_LINES
-    shape = (num_layers, rows, max_len, num_kv_heads, head_dim)
+    k_shape = (num_layers, rows, max_len, num_kv_heads, head_dim)
+    v_shape = (num_layers, rows, max_len, v_heads or num_kv_heads, v_head_dim or head_dim)
     return KVCache(
-        k=new_stream(shape, dtype, device, num_layers, num_kv_heads),
-        v=new_stream(shape, dtype, device, num_layers, num_kv_heads),
+        k=new_stream(k_shape, dtype, device, num_layers, k_shape[3]),
+        v=new_stream(v_shape, dtype, device, num_layers, v_shape[3]),
     )
 
 

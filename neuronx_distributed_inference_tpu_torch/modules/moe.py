@@ -34,8 +34,10 @@ time, the same bits). B7 takes plain experts only
 (``kernel_mode.use_moe_tkg``), so scaled experts decode on the dense route.
 Top-k follows ``jax.lax.top_k``: a stable descending sort, so among equal
 values the lower index comes first, and the expert sort is stable, as
-``jnp.argsort`` is. Outside the port for now: shared experts and DBRX
-(ROADMAP A9), expert parallelism and hybrid sharding (A10).
+``jnp.argsort`` is. Shared experts (DeepSeek-V3: :func:`shared_expert_mlp`,
+separate gate / up or the fused ``gate_up_proj``) add their GLU MLP after
+whichever route ran; DBRX's p-norm renormalization is ``norm_weights_p``.
+Outside the port for now: expert parallelism and hybrid sharding (A10).
 """
 
 from __future__ import annotations
@@ -115,23 +117,27 @@ def router_top_k(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The (T, E) affinity matrix, zero outside the top-k, and the (T, E)
     bool selection mask of the top-k indices (selection is never inferred
-    from a nonzero affinity; an underflowed weight still selects)."""
-    T, E = router_logits.shape
-    if spec.scoring_func in ("softmax_topk", "sigmoid_topk"):
-        # top-k over raw logits, then weight the selected values (GPT-OSS,
-        # Llama4), no renormalization
-        top_vals, top_idx = _top_k(router_logits, spec.top_k)
-        if spec.scoring_func == "sigmoid_topk":
-            weights = torch.sigmoid(top_vals)
-        else:
-            weights = torch.softmax(top_vals, dim=-1)
-        return _scatter(T, E, top_idx, weights * spec.routed_scaling_factor)
-    if spec.scoring_func == "sigmoid":
-        scores = torch.sigmoid(router_logits)
-    else:
-        scores = torch.softmax(router_logits, dim=-1)
-    choice = scores if correction_bias is None else scores + correction_bias[None, :]
+    from a nonzero affinity; an underflowed weight still selects): the
+    experts :func:`select_experts` chooses, weighed by :func:`weigh_experts`."""
+    return weigh_experts(router_logits, spec, select_experts(router_logits, spec, correction_bias))
 
+
+def _scores(router_logits: torch.Tensor, spec: MoESpec) -> torch.Tensor:
+    if spec.scoring_func == "sigmoid":
+        return torch.sigmoid(router_logits)
+    return torch.softmax(router_logits, dim=-1)
+
+
+def select_experts(
+    router_logits: torch.Tensor, spec: MoESpec, correction_bias: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The (T, top_k) indices of each token's chosen experts."""
+    if spec.scoring_func in ("softmax_topk", "sigmoid_topk"):
+        # top-k over raw logits (GPT-OSS, Llama4)
+        return _top_k(router_logits, spec.top_k)[1]
+    scores = _scores(router_logits, spec)
+    choice = scores if correction_bias is None else scores + correction_bias[None, :]
+    T, E = router_logits.shape
     if spec.n_group > 1:
         # keep the topk_group groups ranked by the sum of each group's top-2
         # choice scores, mask the rest
@@ -143,10 +149,24 @@ def router_top_k(
         choice = torch.where(
             group_mask.repeat_interleave(E // g, dim=1), choice, torch.full_like(choice, -math.inf)
         )
+    return _top_k(choice, spec.top_k)[1]  # ranked by choice
 
-    _, top_idx = _top_k(choice, spec.top_k)  # ranked by choice
+
+def weigh_experts(
+    router_logits: torch.Tensor, spec: MoESpec, top_idx: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The affinities and selection mask of the experts ``top_idx``."""
+    T, E = router_logits.shape
+    if spec.scoring_func in ("softmax_topk", "sigmoid_topk"):
+        # weight the selected logits, no renormalization
+        top_vals = torch.take_along_dim(router_logits, top_idx, dim=1)
+        if spec.scoring_func == "sigmoid_topk":
+            weights = torch.sigmoid(top_vals)
+        else:
+            weights = torch.softmax(top_vals, dim=-1)
+        return _scatter(T, E, top_idx, weights * spec.routed_scaling_factor)
     # combine weights use the UNCORRECTED scores of the selected experts
-    weights = torch.take_along_dim(scores, top_idx, dim=1)
+    weights = torch.take_along_dim(_scores(router_logits, spec), top_idx, dim=1)
     if spec.norm_weights_p is not None:
         p = spec.norm_weights_p
         norm = torch.sum(torch.abs(weights) ** p, dim=-1, keepdim=True) ** (1.0 / p)
@@ -388,14 +408,15 @@ def grouped_route_tokens(spec: MoESpec) -> Optional[int]:
     return None
 
 
-def moe_layer(params: dict, hidden: torch.Tensor, spec: MoESpec) -> torch.Tensor:
+def moe_layer(params: dict, hidden: torch.Tensor, spec: MoESpec, shared_mlp_fn=None) -> torch.Tensor:
     """The MoE block on (B, S, H): the router, then one route chosen as the
     reference chooses (``modules/moe.py:369-472``). Prefill (S at least
     ``sparse_dispatch_threshold``) takes a sparse route when E >= 16 k (or
     a capacity factor is set) and there is one expert-parallel rank; a
     decode-sized call takes B7 where ``use_moe_tkg`` allows (plain experts
     only); the rest go dense. Blockwise-scaled experts never take a sparse
-    route, as in the reference."""
+    route, as in the reference. ``shared_mlp_fn(params["shared_experts"],
+    x)`` (DeepSeek-V3's shared experts) is added after the route."""
     B, S, H = hidden.shape
     x = hidden.reshape(B * S, H)
     rdt = to_dtype(spec.router_dtype)
@@ -433,4 +454,42 @@ def moe_layer(params: dict, hidden: torch.Tensor, spec: MoESpec) -> torch.Tensor
     else:
         _cuda.count("moe_dense")
         out = expert_mlps_dense(experts, x, affinities, spec, selected)
+    if shared_mlp_fn is not None:
+        out = out + shared_mlp_fn(params["shared_experts"], x)
     return out.reshape(B, S, H).to(hidden.dtype)
+
+
+def shared_expert_shapes(L: int, H: int, I: int, fused: bool) -> dict:
+    """Shape tree of the shared expert under either layout
+    (``fused_shared_experts``: one ``gate_up_proj`` (L, H, 2 I))."""
+    if fused:
+        return {"gate_up_proj": {"weight": (L, H, 2 * I)}, "down_proj": {"weight": (L, I, H)}}
+    return {
+        "gate_proj": {"weight": (L, H, I)},
+        "up_proj": {"weight": (L, H, I)},
+        "down_proj": {"weight": (L, I, H)},
+    }
+
+
+def fuse_shared_expert_params(node: dict) -> dict:
+    """Separate gate / up -> the fused ``gate_up_proj`` ([gate | up] on the
+    output axis), as the reference's conversion fuses them."""
+    return {
+        "gate_up_proj": {"weight": torch.cat([node["gate_proj"]["weight"], node["up_proj"]["weight"]], dim=-1)},
+        "down_proj": node["down_proj"],
+    }
+
+
+def shared_expert_mlp(params: dict, x: torch.Tensor, act_name: str = "silu") -> torch.Tensor:
+    """The shared expert's GLU MLP on (T, H), each projection through
+    ``ops/quant.linear``: separate gate / up, or the fused ``gate_up_proj``
+    split in halves after one product."""
+    from neuronx_distributed_inference_tpu_torch.models.base import act_fn
+    from neuronx_distributed_inference_tpu_torch.ops.quant import linear
+
+    if "gate_up_proj" in params:
+        g, u = torch.chunk(linear(params["gate_up_proj"], x), 2, dim=-1)
+    else:
+        g = linear(params["gate_proj"], x)
+        u = linear(params["up_proj"], x)
+    return linear(params["down_proj"], act_fn(act_name)(g) * u)

@@ -13,9 +13,23 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.
     return (out * weight.float()).to(x.dtype)
 
 
-def apply_norm(x, weight, eps: float, kind: str = "rmsnorm"):
-    """Norm dispatch. Only the llama-family rmsnorm is ported (LayerNorm
-    belongs to DBRX, ROADMAP A9)."""
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias=None, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm computed in fp32 (biased variance, as ``jnp.var``), an
+    optional bias, cast back to ``x``'s dtype."""
+    xf = x.float()
+    mean = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+    out = (xf - mean) * torch.reciprocal(torch.sqrt(var + eps))
+    out = out * weight.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(x.dtype)
+
+
+def apply_norm(x, weight, eps: float, kind: str = "rmsnorm", bias=None):
+    """Norm dispatch: the llama-family rmsnorm or DBRX's LayerNorm."""
+    if kind == "layernorm":
+        return layer_norm(x, weight, bias=bias, eps=eps)
     if kind != "rmsnorm":
-        raise NotImplementedError(f"norm kind {kind!r} is not ported yet (ROADMAP A9)")
+        raise ValueError(f"unknown norm kind {kind!r} (rmsnorm or layernorm)")
     return rms_norm(x, weight, eps)

@@ -153,9 +153,9 @@ FUSED_BLOCK_MAX_Q = 16
 def use_fused_attn_block(spec, q_len: int) -> bool:
     """The fused decode attention block B8 (``spec`` is an AttnSpec): the
     reference's structural conditions (``ops/decode_block.py:60-86``) of
-    at most :data:`FUSED_BLOCK_MAX_Q` new tokens, no qk-norm and no sinks
-    (its qkv/o bias and qkv clip, which the port does not build, are
-    refused where the weights are checked, ``models/base._plain_weight``).
+    at most :data:`FUSED_BLOCK_MAX_Q` new tokens, no qk-norm, no qkv clip
+    (DBRX) and no sinks (its qkv/o bias conditions are checked where the
+    weights are, ``models/base._plain_weight``).
     Its TPU tile conditions on the kv width do not carry over: the wrapper
     masks the ragged edge and raises on a head_dim it does not take. Only
     ``use_fused_block=True`` turns it on."""
@@ -163,6 +163,7 @@ def use_fused_attn_block(spec, q_len: int) -> bool:
         spec.use_fused_block is True
         and q_len <= FUSED_BLOCK_MAX_Q
         and not spec.qk_norm
+        and spec.qkv_clip is None
         and not spec.has_sink
     )
 

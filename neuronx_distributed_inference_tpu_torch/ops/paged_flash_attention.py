@@ -8,8 +8,9 @@ causal attention among the new tokens, whose K/V are already written
 (write-then-attend). The CUDA C++ kernel (``csrc/paged_flash_attention.cu``)
 reads the cache blocks through the block table, shares each K/V tile among
 the n_rep q heads of a kv head, and stops its kv loop at the block's causal
-frontier or ``kv_limit``. Its q tile is 64 query rows (64 / n_rep positions
-of the n_rep heads of one kv head). In bf16 both products run on the tensor
+frontier or ``kv_limit``. Its q tile is 64 query rows (64 / n_rep positions,
+rounded down, of the n_rep heads of one kv head; where n_rep does not
+divide 64, DBRX's 6, the last rows stay idle). In bf16 both products run on the tensor
 cores, with K/V tiles copied by 16-byte ``cp.async`` (16-byte aligned
 bases, which the wrapper checks) and the probabilities rounded to bf16 as
 the P.V operand; fp32 keeps the FMA loop. The source says why.
@@ -44,7 +45,7 @@ NEG_INF = -1e30
 KERNEL = "paged_flash_attention"
 CODE_KERNEL = "paged_flash_attention_codes"  # over int8/fp8 code blocks
 HEAD_DIMS = (64, 128)
-Q_ROWS = 64  # query rows per kernel block: n_rep must divide it
+Q_ROWS = 64  # query rows per kernel block: n_rep may be at most this
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -123,8 +124,8 @@ def _launch(q, k_cache, v_cache, block_table, positions, kv_limit, scale, n_rep,
     ``code_args`` of a code cache, over its 1-byte code blocks."""
     B, Sq, Hq, D = q.shape
     NB1, Hkv, bs, _ = k_cache.shape
-    if Q_ROWS % n_rep:
-        raise ValueError(f"paged_flash_attention: n_rep {n_rep} does not divide the kernel's {Q_ROWS} query rows")
+    if n_rep > Q_ROWS:
+        raise ValueError(f"paged_flash_attention: n_rep {n_rep} passes the kernel's {Q_ROWS} query rows")
     if q.shape[0] > 65535 or Hkv > 65535:
         raise ValueError(f"paged_flash_attention: grid too large for q {tuple(q.shape)}")
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):

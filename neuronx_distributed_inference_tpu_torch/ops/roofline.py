@@ -39,6 +39,11 @@ MODEL_8B = dict(H=4096, I=14336, Hq=32, Hkv=8, D=128, L=32)
 #: experts, k selected per token, I the expert intermediate size, V the vocab
 MODEL_QWEN3_MOE = dict(H=2048, I=768, Hq=32, Hkv=4, D=128, L=48, E=128, k=8, V=151936)
 MODEL_MIXTRAL = dict(H=4096, I=14336, Hq=32, Hkv=8, D=128, L=32, E=8, k=2, V=32000)
+#: DBRX (models/dbrx.DBRX_BASE) and DeepSeek-V3's MoE layers
+#: (models/deepseek.DEEPSEEK_V3, I the routed experts' width; its attention
+#: is MLA, with no Hkv / D)
+MODEL_DBRX = dict(H=6144, I=10752, Hq=48, Hkv=8, D=128, L=40, E=16, k=4, V=100352)
+MODEL_DEEPSEEK_V3 = dict(H=7168, I=2048, L=61, E=256, k=8, V=129280)
 
 INT4_GROUP = 128  # rows of K per scale (the reference's quant_matmul.INT4_GROUP)
 

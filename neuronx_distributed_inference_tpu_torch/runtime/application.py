@@ -2,8 +2,9 @@
 the reference's ``runtime/application.py``).
 
 :class:`ModelForCausalLM` is the port's ``TpuModelForCausalLM`` for every
-registered builder (llama, qwen3, mixtral, qwen3_moe; the MoE models run
-``generate()`` and ``forward()``, not the serving session yet): one
+registered builder (the llama family, the MoE family, GPT-OSS, DBRX and
+DeepSeek-V3, whose MLA layers the runners take from the builder's
+``layer_fn()``): one
 context-encoding runner and one token-generation runner over a KV cache on
 the config's device (``"cuda"`` unless the caller asks for the CPU). The
 cache is contiguous, or the paged block pool with ``is_block_kv_layout``.
@@ -107,6 +108,7 @@ class ModelForCausalLM:
         self.params = None
         self.kv_cache: Optional[Union[KVCache, BlockKVCache]] = None
         mlp_fn = self.builder.mlp_fn()
+        layer_fn = self.builder.layer_fn()
         tkg_buckets = autobucketing.generate_token_generation_buckets(tc)
         if self.spec.bounded_window:
             # ring cache: one decode shape, the W-slot window
@@ -118,7 +120,7 @@ class ModelForCausalLM:
             )
         block_kwargs = dict(
             block_kv=tc.is_block_kv_layout, block_size=tc.pa_block_size,
-            host_read_tokens=self.builder.host_read_tokens(),
+            host_read_tokens=self.builder.host_read_tokens(), layer_fn=layer_fn,
         )
         self.context_encoding_model = SubModelRunner(
             TAG_CONTEXT_ENCODING, PHASE_CONTEXT_ENCODING, self.spec,

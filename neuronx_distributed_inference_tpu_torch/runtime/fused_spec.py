@@ -283,6 +283,11 @@ class FusedSpecModelForCausalLM(_SpecAppBase):
         self.reserve_slots = tc.speculation_length
         self.target_builder = get_model_builder(getattr(config, "model_type", "llama"))(config)
         self.draft_builder = get_model_builder(getattr(draft_config, "model_type", "llama"))(draft_config)
+        if self.target_builder.layer_fn() is not None or self.draft_builder.layer_fn() is not None:
+            raise NotImplementedError(
+                "fused speculation with an MLA target or draft is not ported to PyTorch yet "
+                "(ROADMAP A9 (MLA speculation))"
+            )
         self.target_spec = self.target_builder.model_spec()
         self.draft_spec = self.draft_builder.model_spec()
         self._common = dict(

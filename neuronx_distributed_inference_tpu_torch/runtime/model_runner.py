@@ -248,7 +248,11 @@ class SubModelRunner(_SealMixin):
         block_kv: bool = False,
         block_size: int = 16,
         host_read_tokens: Optional[int] = None,
+        layer_fn: Optional[Callable] = None,
     ):
+        """``mlp_fn`` / ``layer_fn`` are the builder's: a function, or a
+        list indexed by each layer group's ``fn_idx`` (``layer_fn`` None:
+        the shared decoder layer)."""
         self.tag = tag
         self.phase = phase
         self.spec = spec
@@ -256,6 +260,7 @@ class SubModelRunner(_SealMixin):
         self.batch_size = batch_size
         self.device = device
         self.mlp_fn = mlp_fn
+        self.layer_fn = layer_fn
         self.block_kv = block_kv
         self.block_size = block_size
         # the bucket the last prepare()/decode_chunk resolved to (the serving
@@ -403,7 +408,10 @@ class SubModelRunner(_SealMixin):
         step_inputs = self._inputs_of(st)
 
         def body():
-            out = forward(params, cache, step_inputs, spec=self.spec, phase=self.phase, mlp_fn=self.mlp_fn, generator=gen)
+            out = forward(
+                params, cache, step_inputs, spec=self.spec, phase=self.phase, mlp_fn=self.mlp_fn, generator=gen,
+                layer_fn=self.layer_fn,
+            )
             return out.tokens, out.logits
 
         pkey = (self.phase, self.batch_size, q, width, fields, sampled)
@@ -444,7 +452,9 @@ class SubModelRunner(_SealMixin):
         gen = generator if sampled else None
 
         def body():
-            return decode_step(params, cache, state, spec=self.spec, mlp_fn=self.mlp_fn, generator=gen)
+            return decode_step(
+                params, cache, state, spec=self.spec, mlp_fn=self.mlp_fn, generator=gen, layer_fn=self.layer_fn
+            )
 
         B = self.batch_size
         tokens = torch.empty((B, num_steps), dtype=torch.int32, device=self.device)

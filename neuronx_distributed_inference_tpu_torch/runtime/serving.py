@@ -1716,6 +1716,11 @@ class SpeculativeServingSession(ServingSession):
         self.spec_ragged = bool(tc.serving_spec_ragged)
         super().__init__(app, telemetry=telemetry, fault_injector=fault_injector, clock=clock, sleep_fn=sleep_fn)
         tc_d = draft_app.config.torch_config
+        if app.builder.layer_fn() is not None or draft_app.builder.layer_fn() is not None:
+            raise NotImplementedError(
+                "speculative serving with an MLA target or draft is not ported to PyTorch yet "
+                "(ROADMAP A9 (MLA speculation))"
+            )
         if self.spec_ragged:
             width = self.mixed_runner.spec_width
             if speculation_length != width:

@@ -40,7 +40,8 @@ def test_kernels_match_plain_on_the_card(cuda_card):
     chip_smoke.phase_paged_flash_parity(torch, pf)
     chip_smoke.phase_ragged_parity(torch, rp)
     counts = _cuda.launch_counts()
-    assert counts["paged_decode_attention"] == n_paged + 3 * n_paged_split, counts
+    # the 2 Qwen3 head-shape cases among n_paged repeat their launch twice
+    assert counts["paged_decode_attention"] == n_paged + 2 * 2 + 3 * n_paged_split, counts
     attention = ("flash_attention", "decode_attention", "paged_decode_attention", "paged_flash_attention",
                  "ragged_paged_attention")
     assert all(counts[name] > 0 for name in attention), counts
@@ -75,7 +76,8 @@ def test_qwen3_head_shape_kernels_match_plain_on_the_card(cuda_card):
     batch 1 and the serving decode step's 8 rows, B5 on the 128-token
     chunk at batch 1 and 8, B3 at the serving row's three points, the last
     two on random and exact-score inputs and each launched twice more,
-    bit-identical (chip_smoke.qwen3_*_parity)."""
+    bit-identical (chip_smoke.qwen3_*_parity; B4's check launches it once
+    and its repeat twice)."""
     sys.path.insert(0, REPO)
     import chip_smoke
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
@@ -89,7 +91,7 @@ def test_qwen3_head_shape_kernels_match_plain_on_the_card(cuda_card):
     n_b3 = chip_smoke.qwen3_ragged_parity(torch, rp)
     assert (n_b4, n_b5, n_b3) == (2, 4, 6)
     counts = _cuda.launch_counts()
-    assert counts["paged_decode_attention"] == n_b4, counts
+    assert counts["paged_decode_attention"] == 3 * n_b4, counts
     assert counts["paged_flash_attention"] == 3 * n_b5, counts
     assert counts["ragged_paged_attention"] == 3 * n_b3, counts
 
@@ -495,3 +497,99 @@ def test_decode_attention_row_chunks_on_the_card(cuda_card):
     assert n == 2 * 2 * 2 * len(chip_smoke.ROW_CHUNK_K)
     counts = _cuda.launch_counts()
     assert counts["decode_attention_verify"] == counts["paged_decode_attention"] == 3 * n
+
+
+@pytest.mark.gpu
+def test_dbrx_head_shape_kernels_match_plain_on_the_card(cuda_card):
+    """B2a, B1, B4 and B5 at DBRX's heads (48 q / 8 kv of 128, n_rep 6, no
+    power of two): B2a at S 256 (batch 1 and 8) and 77 with a padded row,
+    B1 at batch 1 and 8 with 1, 4 and 11 queries a row (11: two row
+    chunks), bf16 and fp32, B4 and B5 at the serving shapes, each against
+    its plain version and launched twice more, bit-identical
+    (chip_smoke.dbrx_kernel_parity)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
+    from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
+    from neuronx_distributed_inference_tpu_torch.ops import paged_flash_attention as pf
+
+    _cuda.reset_launch_counts()
+    assert chip_smoke.dbrx_kernel_parity(torch, fa, da, pf) == 4 + 12 + 2 + 4
+    counts = _cuda.launch_counts()
+    assert counts["paged_decode_attention"] == 3 * 2 and counts["paged_flash_attention"] == 3 * 4, counts
+    assert all(counts[name] > 0 for name in ("flash_attention", "decode_attention", "decode_attention_verify")), counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["dbrx", "deepseek"])
+def test_moe_decode_at_a9_widths_on_the_card(cuda_card, model):
+    """B7 against its plain version at DBRX's widths (H 6144, I 10752, 16
+    experts top-4: 4 and 32 rows) and DeepSeek-V3's (H 7168, I 2048, 256
+    experts top-8: 8 and 64 rows, the kernel's limit), bf16, on seeded
+    full-width leaves, each case launched twice more, bit-identical
+    (chip_smoke.check_moe)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops import moe_decode as md
+
+    E, k, H, I = {"dbrx": (16, 4, 6144, 10752), "deepseek": (256, 8, 7168, 2048)}[model]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(34)
+    _, _, _, wg, wu, wd = chip_smoke.moe_inputs(torch, gen, 1, k, E, H, I, torch.bfloat16)
+    for T in (1, 8):
+        x, idx, w = chip_smoke.moe_inputs(torch, gen, T, k, E, 8, 8, torch.bfloat16)[:3]
+        x = torch.randn((T, H), generator=gen, device="cuda").to(torch.bfloat16)
+        args = (x, idx, w, wg, wu, wd)
+        case = f"{model} widths T={T} k={k} ({T * k} rows) E={E} H={H} I={I} bf16"
+        chip_smoke.check_moe(torch, md, args, {}, case)
+        _cuda.reset_launch_counts()
+        chip_smoke.check_repeat(torch, "fused_moe_decode", lambda: md.fused_moe_decode(*args), case)
+        assert _cuda.launch_counts()["moe_decode"] == 2
+
+
+@pytest.mark.gpu
+def test_qkv_clip_on_the_card(cuda_card):
+    """DBRX's qkv clip through the kernels: a 2-layer DBRX of head_dim 128 at
+    fp32 on the card (B2a, B1, B7 launched) against the same weights on the
+    CPU (their plain versions) with a clip of 0.05 that changes the logits
+    on the card: the same greedy tokens, logits within 2e-3."""
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+    from neuronx_distributed_inference_tpu_torch.models.dbrx import DbrxInferenceConfig
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    def app(device, clip, params=None):
+        attrs = dict(model_type="dbrx", d_model=256, n_heads=2, n_layers=2, max_seq_len=256, vocab_size=512,
+                     attn_config=dict(kv_n_heads=1, clip_qkv=clip, rope_theta=10000.0),
+                     ffn_config=dict(ffn_hidden_size=128, moe_num_experts=16, moe_top_k=4))
+        cfg = DbrxInferenceConfig(
+            MoEConfig(batch_size=2, seq_len=128, dtype="float32", output_logits=True, device=device, seed=3,
+                      context_encoding_buckets=[32], token_generation_buckets=[128]),
+            load_config=lambda c: [setattr(c, name, v) for name, v in attrs.items()],
+        )
+        a = ModelForCausalLM(None, cfg)
+        return a.load(params=params) if params is not None else a.load(random_weights=True)
+
+    ids = torch.randint(0, 512, (2, 24), generator=torch.Generator().manual_seed(5)).numpy()
+    outs = {}
+    for clip in (None, 0.05):
+        card = app("cuda", clip)
+        host_params = _to(card.params, "cpu")
+        _cuda.reset_launch_counts()
+        outs[clip] = card.generate(ids, max_new_tokens=8)
+        counts = _cuda.launch_counts()
+        assert counts["flash_attention"] == 2 and counts["decode_attention"] > 0 and counts["moe_decode"] > 0, counts
+        host = app("cpu", clip, host_params).generate(ids, max_new_tokens=8)
+        assert (host.sequences == outs[clip].sequences).all()
+        assert abs(host.logits - outs[clip].logits).max() < 2e-3
+    assert abs(outs[None].logits - outs[0.05].logits).max() > 1e-2
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)

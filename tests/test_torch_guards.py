@@ -49,7 +49,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "telemetry/slo_monitor.py", "telemetry/ops_server.py", "ops/quant.py", "ops/quant_matmul.py",
         "modules/moe.py", "models/mixtral.py", "runtime/fused_spec.py", "models/eagle_draft.py",
         "modules/eagle.py", "modules/token_tree.py", "modules/medusa.py", "runtime/medusa.py",
-        "models/gpt_oss.py", "ops/mxfp4.py",
+        "models/gpt_oss.py", "ops/mxfp4.py", "models/dbrx.py", "models/deepseek.py", "modules/norm.py",
     } <= scanned
     assert {f.name for f in scripts} >= {"torch_build_times.py", "torch_router_times.py"}
     bad = [
@@ -328,7 +328,7 @@ def _moe_app(tc_cls=None, **tc):
     [
         (dict(ep_degree=2), "A10"),
         (dict(hybrid_sharding_config=dict(moe_cte_tp_degree=1, moe_cte_ep_degree=1)), "A10"),
-        (dict(fused_shared_experts=True), "A9"),
+        (dict(attention_chunk_size=8), "A9"),
     ],
 )
 def test_moe_settings_outside_the_slice_raise(kw, item):
@@ -361,8 +361,8 @@ def test_moe_config_matches_reference():
 def test_quantized_moe_raises_naming_a9(kw):
     """Quantized MoE weights load and generate under MoEConfig and the
     plain Config (their experts quantized with the other linears, the
-    router not); what stays refused names its ROADMAP item: shared experts
-    (A9)."""
+    router not), fused shared experts too; what stays refused names its
+    ROADMAP item: quantized weights on an MLA model (A9)."""
     from neuronx_distributed_inference_tpu_torch.config import Config
 
     for cls in (None, Config):
@@ -373,8 +373,19 @@ def test_quantized_moe_raises_naming_a9(kw):
         assert "scale" not in app.params["layers"][0]["mlp"]["router"]
         out = app.generate(np.array([[1, 2, 3]]), max_new_tokens=3)
         assert out.sequences.shape == (1, 6)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(shared experts\)"):
-        _moe_app(fused_shared_experts=True, **kw)
+    assert _moe_app(fused_shared_experts=True, **kw).load(random_weights=True).params is not None
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+    from neuronx_distributed_inference_tpu_torch.models.deepseek import DeepseekV3InferenceConfig
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    mla = dict(model_type="deepseek_v3", hidden_size=64, intermediate_size=96, moe_intermediate_size=32,
+               num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=4, n_routed_experts=4,
+               num_experts_per_tok=2, kv_lora_rank=16, q_lora_rank=None, qk_rope_head_dim=8, v_head_dim=16,
+               qk_nope_head_dim=16, first_k_dense_replace=1, vocab_size=64)
+    cfg = DeepseekV3InferenceConfig(MoEConfig(device="cpu", dtype="float32", seq_len=128, **kw),
+                                    load_config=lambda c: [setattr(c, k, v) for k, v in mla.items()])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(MLA with quantized weights\)"):
+        ModelForCausalLM(None, cfg)
 
 
 def test_serving_an_moe_model_raises_naming_a9():
