@@ -8303,6 +8303,471 @@ def phase_deepseek_v3(torch, md):
                 step_bound_ms=b_step)
 
 
+# ---------------------------------------------------------------------------
+# 15. Llama-4-Scout and chunked attention (A9)
+# ---------------------------------------------------------------------------
+
+#: Llama-4-Scout-17B-16E cut from 48 layers to its first LLAMA4_LAYERS (six
+#: chunked-rope layers and the NoPE layers 3 and 7; 39.4 GB in bf16); its
+#: gate runs the first LLAMA4_FORCED_LAYERS (three rope, one NoPE)
+LLAMA4_LAYERS, LLAMA4_FORCED_LAYERS = 8, 4
+LLAMA4_HEADS = dict(Hq=40, Hkv=8, D=128)
+LLAMA4_CHUNK = 8192
+#: the long-context run: a prompt just under the first chunk boundary and
+#: new tokens past it, in a 8448-position cache; its gate's forced window
+#: (LLAMA4_FORCED_STEPS positions from the prompt's last) spans 8191 -> 8192
+LLAMA4_LONG_PROMPT, LLAMA4_LONG_NEW, LLAMA4_LONG_SEQ, LLAMA4_LONG_CTE = 8160, 64, 8448, 8192
+LLAMA4_FORCED_STEPS = 48
+#: the contiguous ServingSession's traffic: 4 staggered requests of 256 + 32
+LLAMA4_SERVING = dict(n_requests=4, prompt=256, gen=32)
+
+
+def _llama4_cut(n_layers):
+    from neuronx_distributed_inference_tpu_torch.models.llama4 import LLAMA4_SCOUT
+
+    return {**LLAMA4_SCOUT, "num_hidden_layers": n_layers}
+
+
+def _config_llama4(batch_size=1, model=None, long=False, **kw):
+    """Llama-4-Scout (models/llama4.LLAMA4_SCOUT) at full width,
+    LLAMA4_LAYERS layers: bf16, the contiguous cache, seq_len 512 with CTE
+    bucket [256] and TKG bucket [512], or (``long``) seq_len 8448 with
+    [8192] and [8448]; ``kw`` overrides MoEConfig fields."""
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+    from neuronx_distributed_inference_tpu_torch.models.llama4 import Llama4TextInferenceConfig
+
+    base = dict(
+        batch_size=batch_size, seq_len=512, dtype="bfloat16", context_encoding_buckets=[256],
+        token_generation_buckets=[512], seed=0, device="cuda",
+    )
+    if long:
+        base.update(
+            seq_len=LLAMA4_LONG_SEQ, context_encoding_buckets=[LLAMA4_LONG_CTE], token_generation_buckets=[LLAMA4_LONG_SEQ]
+        )
+    attrs = model or _llama4_cut(LLAMA4_LAYERS)
+    return Llama4TextInferenceConfig(
+        MoEConfig(**{**base, **kw}), load_config=lambda c: [setattr(c, k, v) for k, v in attrs.items()]
+    )
+
+
+def _device_randn(torch, gen, shape, std, dtype):
+    """Seeded normal values made on the card (the long caches' host draws
+    would take seconds each)."""
+    return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+
+
+def _chunk_decode_inputs(torch, gen, B, K, L, bucket, dtype, valid, chunk):
+    """_decode_inputs' values (q of std DECODE_Q_STD, the cache's of 0.5)
+    at Scout's heads over a ``bucket``-wide cache, drawn on the card from
+    ``gen``; the mask of each row's K queries (positions valid - K .. valid
+    - 1) causal, cut to their own block of ``chunk`` positions (None: the
+    NoPE layers' global mask)."""
+    Hq, Hkv, D = LLAMA4_HEADS["Hq"], LLAMA4_HEADS["Hkv"], LLAMA4_HEADS["D"]
+    q = _device_randn(torch, gen, (B, K, Hq, D), DECODE_Q_STD, dtype)
+    kc = _device_randn(torch, gen, (L, B + 1, bucket, Hkv, D), 0.5, dtype)
+    vc = _device_randn(torch, gen, (L, B + 1, bucket, Hkv, D), 0.5, dtype)
+    pos = torch.tensor(np.stack([np.arange(v - K, v) for v in valid]), device="cuda")
+    cols = torch.arange(bucket, device="cuda")[None, None, None, :]
+    mask = cols <= pos[:, None, :, None]
+    if chunk:
+        mask = mask & ((cols // chunk) == (pos[:, None, :, None] // chunk))
+    return q, kc, vc, mask
+
+
+def _chunk_paged_inputs(torch, rng, gen, lens, K, chunk, L=2, bs=32, width=LLAMA4_LONG_SEQ):
+    """B4's inputs at Scout's heads: a head-major pool drawn on the card
+    with NaN in block 0, tables over ``width`` positions, each row's K
+    queries at its last positions, the chunk mask (spec_token_gen_mask cut
+    to the queries' blocks of ``chunk``)."""
+    from neuronx_distributed_inference_tpu_torch.modules.masks import spec_token_gen_mask
+
+    h = LLAMA4_HEADS
+    B, MB = len(lens), width // bs
+    NB = MB * B + 4
+    bt = torch.from_numpy(paged_tables(rng, lens, MB, bs, NB)).cuda()
+    k = _device_randn(torch, gen, (L, NB + 1, h["Hkv"], bs, h["D"]), 0.5, torch.bfloat16)
+    v = _device_randn(torch, gen, (L, NB + 1, h["Hkv"], bs, h["D"]), 0.5, torch.bfloat16)
+    k[:, 0] = float("nan")
+    v[:, 0] = float("nan")
+    q = _device_randn(torch, gen, (B, K, h["Hq"], h["D"]), DECODE_Q_STD, torch.bfloat16)
+    lens_a = np.array(lens)
+    pos = torch.from_numpy(np.stack([np.arange(n - K, n) for n in lens_a])).cuda()
+    attn = torch.from_numpy((np.arange(MB * bs)[None, :] < lens_a[:, None]).astype(np.int32)).cuda()
+    mask = spec_token_gen_mask(attn, pos)
+    cols = torch.arange(MB * bs, device="cuda")
+    mask = mask & ((cols[None, None, None, :] // chunk) == (pos[:, None, :, None] // chunk))
+    return q, k, v, bt, mask
+
+
+#: B1's and B4's rows near the first chunk boundary: a row 8192 deep in
+#: chunk 0 (positions ..8191), rows 1-9 deep into chunk 1 (8192..), one in
+#: chunk 0's middle and one at the bucket's end
+LLAMA4_B1_VALID = [8192, 8195, 8193, 8200, 4000, 8448, 8191, 8210]
+
+
+def llama4_kernel_parity(torch, fa, da):
+    """The attention kernels of Scout's path at its heads (40 q / 8 kv of
+    128, n_rep 5) under the chunk masks, each against its plain version and
+    launched twice more, bit-identical: B2a at S = 8448 with the chunk
+    boundary between tiles (chunk 8192) and inside a tile (chunk 8232, with
+    a padded tail); B1 over an 8448-position cache at batch 1 and 8, 1 and 4
+    queries a row, at positions just before and just past 8192 (past it, the
+    chunk mask empties every kv split of chunk 0), bf16 and fp32, and the
+    NoPE layers' global mask at the same positions; B4 on a paged pool at
+    the same positions. Returns the case count."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    rng = np.random.RandomState(41)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    Hq, Hkv, D = LLAMA4_HEADS["Hq"], LLAMA4_HEADS["Hkv"], LLAMA4_HEADS["D"]
+    n = 0
+    for S, chunk, pad in ((8448, LLAMA4_CHUNK, 0), (8448, LLAMA4_CHUNK + 40, 100)):
+        q, k, v = fused_qkv_inputs(torch, rng, 1, S, Hq, Hkv, D, torch.bfloat16, hidden=1024)
+        key_valid = torch.ones((1, S), dtype=torch.int32, device="cuda")
+        if pad:
+            key_valid[0, S - pad :] = 0
+        fkw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=None, chunk=chunk)
+        case = f"llama4 heads B=1 S={S} chunk={chunk} padded tail {pad} Hq={Hq} Hkv={Hkv} D={D} bf16"
+        check_flash(torch, fa, q, k, v, key_valid, fkw, case)
+        check_repeat(torch, "flash_attention", lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw), case)
+        n += 1
+        del q, k, v
+        torch.cuda.empty_cache()
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    bucket = LLAMA4_LONG_SEQ
+    cases = [(dtype, B, K, LLAMA4_CHUNK) for dtype in (torch.bfloat16, torch.float32) for B in (1, 8) for K in (1, 4)]
+    cases += [(torch.bfloat16, B, 1, None) for B in (1, 8)]
+    for dtype, B, K, chunk in cases:
+        for valid in ([[8192], [8195]] if B == 1 else [LLAMA4_B1_VALID]):
+            q, kc, vc, mask = _chunk_decode_inputs(torch, gen, B, K, 2, bucket, dtype, valid, chunk)
+            splits, per = da.decode_kv_split(bucket, B * Hkv, _cuda.sm_count(q.device))
+            case = (f"llama4 heads B={B} K={K} positions {[p - K for p in valid]}..{[p - 1 for p in valid]} "
+                    f"bucket={bucket} chunk={chunk} ({splits} splits of {per}) {str(dtype)[6:]}")
+            check_decode(torch, da, q, kc, vc, 1, mask, None, kw, case)
+            check_repeat(torch, "tkg_decode_attention",
+                         lambda: da.tkg_decode_attention(q, kc, vc, 1, mask, None, **kw), case)
+            n += 1
+            del kc, vc
+    for B in (1, 8):
+        for K in (1, 4):
+            lens = [8195] if B == 1 else LLAMA4_B1_VALID
+            q, k, v, bt, mask = _chunk_paged_inputs(torch, rng, gen, lens, K, LLAMA4_CHUNK)
+            case = f"llama4 heads paged B={B} K={K} lens {lens} bs=32 bucket={bt.shape[1] * 32} chunk={LLAMA4_CHUNK} bf16"
+            out = da.paged_tkg_decode_attention(q, k, v, 1, bt, mask, None, **kw)
+            ref = da.paged_tkg_decode_attention_plain(q.float(), k.float(), v.float(), 1, bt, mask, None, **kw)
+            check_close(torch, out, ref, case, "paged_tkg_decode_attention")
+            check_repeat(torch, "paged_tkg_decode_attention",
+                         lambda: da.paged_tkg_decode_attention(q, k, v, 1, bt, mask, None, **kw), case)
+            n += 1
+            del k, v
+    torch.cuda.empty_cache()
+    log(f"llama4 heads: {n} B2a / B1 / B4 cases under chunk masks agree with their plain versions, each twice "
+        "bit-identical")
+    return n
+
+
+def _sdpa_ms(torch, q, k, v, mask, n_rep):
+    """SDPA on (B, S, H, D) q and K/V repeated to q's heads beforehand,
+    under the same boolean mask."""
+    import torch.nn.functional as F
+
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(n_rep, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(n_rep, dim=1)
+    ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    del qt, kt, vt
+    return ms
+
+
+def llama4_kernel_times(torch, fa, da):
+    """B2a at Scout's prefills (batch 1: S = 256, the generate() prompt's
+    bucket; S = 8192, the long run's, where the chunk does not bite; S =
+    8448, where it does), B1 at its decodes (batch 1 and 8 in the 512
+    bucket; batch 1 in the 8448 bucket just before and just past 8192,
+    beside the NoPE layers' global mask and a row 8 positions deep) and B4
+    just past 8192, bf16, each held to its plain version first and timed
+    beside the plain version, SDPA under the same boolean mask and the
+    bound. Rows keyed with the tag "llama4"."""
+    from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    rng = np.random.RandomState(42)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(42)
+    Hq, Hkv, D = LLAMA4_HEADS["Hq"], LLAMA4_HEADS["Hkv"], LLAMA4_HEADS["D"]
+    n_rep = Hq // Hkv
+    rows = {}
+    for S, tag in ((256, "llama4"), (8192, "llama4 long"), (8448, "llama4 past the chunk")):
+        q, k, v = fused_qkv_inputs(torch, rng, 1, S, Hq, Hkv, D, torch.bfloat16, hidden=1024)
+        key_valid = torch.ones((1, S), dtype=torch.int32, device="cuda")
+        fkw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=None, chunk=LLAMA4_CHUNK)
+        case = f"{tag} prefill B=1 S={S} chunk={LLAMA4_CHUNK} Hq={Hq} Hkv={Hkv} D={D} bf16"
+        err = check_flash(torch, fa, q, k, v, key_valid, fkw, case)
+        mask = fa.prefill_mask(key_valid, True, None, LLAMA4_CHUNK)
+        ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw), iters=20 if S > 256 else 40)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, key_valid, **fkw), iters=3, warmup=1)
+        lib_ms = _sdpa_ms(torch, q, k, v, mask, n_rep)
+        b_ms, b_by = bound(*flash_work(q, k, key_valid, mask))
+        log(f"flash_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa under the same mask "
+            f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+        rows[("flash_attention", tag)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+        )
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    L = 4
+    points = [
+        ("llama4", 1, 512, [288], LLAMA4_CHUNK),
+        ("llama4 bs8", 8, 512, [288 - 3 * b for b in range(8)], LLAMA4_CHUNK),
+        ("llama4 long", 1, LLAMA4_LONG_SEQ, [8195], LLAMA4_CHUNK),
+        ("llama4 before the chunk", 1, LLAMA4_LONG_SEQ, [8192], LLAMA4_CHUNK),
+        ("llama4 global past the chunk", 1, LLAMA4_LONG_SEQ, [8195], None),
+        ("llama4 8 deep", 1, LLAMA4_LONG_SEQ, [8], None),
+    ]
+    for tag, B, bucket, valid, chunk in points:
+        q, kc, vc, mask = _chunk_decode_inputs(torch, gen, B, 1, L, bucket, torch.bfloat16, valid, chunk)
+        splits, per = da.decode_kv_split(bucket, B * Hkv, _cuda.sm_count(q.device))
+        case = f"{tag} decode B={B} bucket={bucket} positions {[p - 1 for p in valid]} chunk={chunk} bf16"
+        err = check_decode(torch, da, q, kc, vc, 3, mask, None, kw, case)
+        state = {"layer": 0}
+
+        def next_layer():
+            state["layer"] = (state["layer"] + 1) % L
+            return state["layer"]
+
+        ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kc, vc, next_layer(), mask, None, **kw))
+        plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_layer(), mask, None, **kw))
+        lib_ms = _sdpa_ms(torch, q, kc[0, :B, :bucket], vc[0, :B, :bucket], mask, n_rep)
+        b_ms, b_by = bound(*decode_work(q, kc, mask))
+        log(f"tkg_decode_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa under the same mask "
+            f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}; {splits} splits of {per}")
+        rows[("decode_attention", tag)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+        )
+        del kc, vc
+    lens = LLAMA4_B1_VALID
+    q, k, v, bt, mask = _chunk_paged_inputs(torch, rng, gen, lens, 1, LLAMA4_CHUNK)
+    case = f"llama4 paged decode B=8 lens {lens} bs=32 bucket={bt.shape[1] * 32} chunk={LLAMA4_CHUNK} bf16"
+    out = da.paged_tkg_decode_attention(q, k, v, 0, bt, mask, None, **kw)
+    ref = da.paged_tkg_decode_attention_plain(q.float(), k.float(), v.float(), 0, bt, mask, None, **kw)
+    err = check_close(torch, out, ref, case, "paged_tkg_decode_attention")
+    ms = time_ms(torch, lambda: da.paged_tkg_decode_attention(q, k, v, 1, bt, mask, None, **kw))
+    plain_ms = time_ms(torch, lambda: da.paged_tkg_decode_attention_plain(q, k, v, 1, bt, mask, None, **kw), iters=5,
+                       warmup=1)
+    k_r, v_r = read_block_cache_at_layer(k, v, 0, bt)
+    lib_ms = _sdpa_ms(torch, q, k_r, v_r, mask, n_rep)
+    # the cache positions the mask reads, K and V, plus q, out, mask, table
+    nbytes = 2 * int(mask[:, 0].any(dim=1).sum().item()) * Hkv * D * 2 + 2 * q.numel() * 2 + mask.numel() + bt.numel() * 4
+    b_ms, b_by = bound(nbytes, 4 * D * Hq * int(mask.sum().item()))
+    log(f"paged_tkg_decode_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa under the same mask "
+        f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+    rows[("paged_decode_attention", "llama4")] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )
+    del k, v, k_r, v_r
+    torch.cuda.empty_cache()
+    return rows
+
+
+class _DroppedChunk(_PinnedRouting):
+    """Pinned routing with the chunk dropped from Llama4's rope layers (their
+    masks and B2's predicate global): Scout's teacher-forced control."""
+
+    def __enter__(self):
+        import dataclasses
+
+        from neuronx_distributed_inference_tpu_torch.models import llama4
+
+        self.spec_fn = llama4.Llama4TextModelBuilder.model_spec
+
+        def no_chunk(builder):
+            spec = self.spec_fn(builder)
+            groups = tuple(dataclasses.replace(g, attention_chunk_size=None) for g in spec.layer_groups)
+            return dataclasses.replace(spec, layer_groups=groups)
+
+        llama4.Llama4TextModelBuilder.model_spec = no_chunk
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from neuronx_distributed_inference_tpu_torch.models import llama4
+
+        llama4.Llama4TextModelBuilder.model_spec = self.spec_fn
+        return super().__exit__(*exc)
+
+
+def llama4_teacher_forced(torch, seq, prompt_len):
+    """The teacher-forced gate on the first LLAMA4_FORCED_LAYERS layers of
+    Scout at full width over the long run's tokens (prefill 8160, then
+    LLAMA4_FORCED_STEPS forced positions through 8192, where the chunk and
+    the NoPE temperature bite): seeded gate weights (_a9_gate_params), the
+    fp32 run with the routed experts in bf16; the kernel path (B2a, B1, the
+    grouped and dense MoE routes) against the plain path and fp32, routing
+    pinned to the fp32 run's. Peak: the plain prefill's fp32 scores, 40
+    heads x 8192^2 x 4 B = 10.7 GB a layer, twice at the softmax, beside
+    21.8 GB of bf16 gate weights and 11.3 GB of their fp32 copies: ~55 GB.
+    Control: the kernel path with the chunk dropped from the rope layers."""
+    from neuronx_distributed_inference_tpu_torch.models import get_model_builder
+
+    model = _llama4_cut(LLAMA4_FORCED_LAYERS)
+
+    def cfg_fn(**kw):
+        return _config_llama4(model=model, long=True, output_logits=True, cuda_graphs=False, **kw)
+
+    params = _a9_gate_params(torch, get_model_builder("llama4_text")(cfg_fn()).random_params(), 0.05,
+                             model["vocab_size"])
+    params32 = dict(_fp32_but_experts(params))
+    label = (f"llama-4-scout teacher-forced logits (gate weights, {LLAMA4_FORCED_LAYERS} of 48 layers, positions "
+             f"{prompt_len - 1}..{len(seq) - 2}, routing pinned to the fp32 run's)")
+    return _a9_gate(torch, label, cfg_fn, params32, params, seq, prompt_len, _DroppedChunk,
+                    "the kernel path without the rope layers' chunk")
+
+
+def _llama4_drain(torch, app, gen_app, label):
+    """LLAMA4_SERVING's traffic through the contiguous ServingSession (_serve:
+    staggered arrivals, then the drain; the paged pool is refused for
+    Llama4): a warm pass, then a measured one; every request its tokens, no
+    fault, each stream equal to the request's isolated generate() on
+    ``gen_app``, exact counts (B2a and the grouped MoE route once a layer a
+    prefill, B1 and the dense route once a layer a decode step).
+    ``gen_app`` compiles the session's shapes (prefill batch 1, decode
+    batch n_requests, the lone request's row padded): the card's bf16 GEMMs
+    round by the row count they are given, and on random weights a greedy
+    token then flips at a near tie, so a batch-1 decode is no oracle of a
+    batch-4 one."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    s, L, vocab = LLAMA4_SERVING, app.spec.num_layers, app.spec.vocab_size
+    rng = np.random.RandomState(6)
+    prompts = [rng.randint(0, vocab, size=(s["prompt"],)).tolist() for _ in range(s["n_requests"])]
+    _serve(torch, app, prompts, s["gen"], TelemetrySession())
+    tel = TelemetrySession()
+    _cuda.reset_launch_counts()
+    sess, total_s = _serve(torch, app, prompts, s["gen"], tel)
+    launches = all_counts()
+    d = dict(sess.dispatches)
+    faults = dict(rejected=sum(tel.rejected.values()), quarantined=tel.counters["quarantined"],
+                  preempted=tel.counters["preempted"])
+    ttft = [t * 1e3 for t in tel.ttft_values_s()]
+    n_tok = sum(len(r.generated) for r in sess.requests.values())
+    log(f"{label}: {s['n_requests']} requests of {s['prompt']} + {s['gen']} tokens in {total_s * 1e3:.1f} ms, "
+        f"{n_tok / total_s:.1f} tok/s, TTFT p50 {tel.percentile(ttft, 0.5):.1f} ms; dispatches {d}, launches "
+        f"{launches}, {faults}")
+    if any(faults.values()) or any(r.status != "finished" for r in sess.requests.values()):
+        raise SystemExit(f"{label}: not every request finished cleanly: {faults}")
+    for i, p in enumerate(prompts):
+        want = gen_app.generate(np.array([p]), max_new_tokens=s["gen"]).sequences[0, len(p):].tolist()
+        if list(sess.requests[str(i)].generated) != want:
+            raise SystemExit(f"{label}: request {i}'s stream differs from its isolated generate()")
+    want = expect_launches(flash_attention=d["prefill"] * L, moe_grouped=d["prefill"] * L,
+                           decode_attention=d["decode_steps"] * L, moe_dense=d["decode_steps"] * L)
+    if launches != want:
+        raise SystemExit(f"{label}: launch counts {launches} != expected {want}")
+    log(f"  {label}: every stream equals its isolated generate()")
+    return dict(launches=launches, tok_s=n_tok / total_s, dispatches=d, total_ms=total_s * 1e3)
+
+
+def phase_llama4_scout(torch, fa, da):
+    """Llama-4-Scout-17B-16E at its published text widths (5120 hidden, 40 q /
+    8 kv heads of 128, 16 experts top-1 of width 8192 and a shared expert,
+    vocab 202048, chunked attention of 8192 on the rope layers, every 4th
+    layer NoPE with attention temperature tuning, the L2 qk-norm),
+    LLAMA4_LAYERS of its 48 layers, seeded random bf16 weights made on the
+    card: the attention kernels held under chunk masks at its heads
+    (llama4_kernel_parity) and timed; load; greedy generate() of A9_NEW
+    tokens after a 256-token prompt at batch 1 and 8, sealed, exact counts
+    (B2a and the grouped MoE route once a layer a prefill, B1 and the dense
+    MoE route once a layer a decode step: early affinity modulation keeps
+    B7 off; no B8 / B9: its own layer function); a profiled decode step
+    beside its byte bound and the dense route's share; graphs on against an
+    eager twin; the contiguous ServingSession drain; the long-context
+    generate() of 8160 + 64 tokens across position 8192 with exact counts;
+    the teacher-forced gate on 4 layers across 8191 -> 8192 with its
+    control."""
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+    from neuronx_distributed_inference_tpu_torch.models.base import LayerGroupSpec
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_LLAMA4_SCOUT
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    n_cases = timed("llama-4-scout kernel parity", llama4_kernel_parity, torch, fa, da)
+    times = timed("llama-4-scout kernel times", llama4_kernel_times, torch, fa, da)
+    t0 = time.perf_counter()
+    app, load = _a9_load(torch, _config_llama4(retrace_guard=True), "llama-4-scout (8 of 48 layers)")
+    C = app.config.attention_chunk_size
+    want_groups = (LayerGroupSpec(3, None, C, 2), LayerGroupSpec(1, None, None, 3),
+                   LayerGroupSpec(3, None, C, 2), LayerGroupSpec(1, None, None, 3))
+    if app.spec.layer_groups != want_groups:
+        raise SystemExit(f"llama-4-scout: layer groups {app.spec.layer_groups} != {want_groups}")
+    L, N, m = LLAMA4_LAYERS, A9_NEW, MODEL_LLAMA4_SCOUT
+    want = expect_launches(flash_attention=L, moe_grouped=L, decode_attention=L * N, moe_dense=L * N)
+    out, run, run8 = _a9_generate(torch, app, _config_llama4(8, retrace_guard=True), "llama-4-scout", want, L)
+    log(f"phase llama-4-scout load and generate(): {time.perf_counter() - t0:.1f} s")
+    profile = phase_profile(torch, app, out.sequences[0], A9_PROMPT)
+    embed_bytes = app.params["embed_tokens"]["weight"].numel() * 2
+    expert_bytes = 3 * L * m["E"] * m["H"] * m["I"] * 2
+    b_step = _step_bound(load["params_bytes"], embed_bytes, expert_bytes, m["E"], m["k"])
+    # the dense MoE route of one layer (every expert, the shared expert) at
+    # one token, times the layers: its share of the step
+    moe_fn = app.builder.mlp_fn()[2]
+    mlp = app.params["layers"][0]["mlp"]
+    x = torch.randn((1, 1, app.config.hidden_size), device=DEV).to(torch.bfloat16)
+    dense_ms = time_ms(torch, lambda: moe_fn(mlp, x, app.spec), iters=20, spin=4 * SPIN_CYCLES)
+    log(f"  llama-4-scout decode step at batch 1: device busy {profile['device_busy_ms']:.3f} ms against a "
+        f"{b_step:.3f} ms byte bound (every weight but the embedding and the 15 unchosen experts a layer); "
+        f"{profile['kernels_per_step']:.0f} kernels a step; the dense MoE route (16 experts and the shared "
+        f"expert) {dense_ms:.3f} ms a layer alone, {L * dense_ms:.3f} ms a step "
+        f"({L * dense_ms / profile['device_busy_ms']:.3f} of the busy time)")
+    eager = timed("llama-4-scout eager twin", eager_twin, torch, "llama-4-scout generate()",
+                  _config_llama4(cuda_graphs=False), app, out, run, A9_PROMPT, N)
+    t0 = time.perf_counter()
+    serve_cfg = _config_llama4(LLAMA4_SERVING["n_requests"], is_continuous_batching=True, ctx_batch_size=1,
+                               retrace_guard=True)
+    served = ModelForCausalLM(None, serve_cfg).load(params=app.params).warmup()
+    isolated = ModelForCausalLM(None, _config_llama4(LLAMA4_SERVING["n_requests"], ctx_batch_size=1))
+    isolated.load(params=app.params).warmup()
+    drain = _llama4_drain(torch, served, isolated, "llama-4-scout contiguous drain")
+    del served, isolated
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase llama-4-scout contiguous drain: {time.perf_counter() - t0:.1f} s")
+    # the long-context run: decode crosses position 8192, where the rope
+    # layers' chunk and the NoPE layers' temperature both bite
+    t0 = time.perf_counter()
+    long_app = ModelForCausalLM(None, _config_llama4(long=True, retrace_guard=True)).load(params=app.params)
+    long_app.warmup()
+    for runner in long_app.runners:
+        runner.seal()
+    torch.cuda.synchronize()
+    log(f"llama-4-scout long-context warmup (captures, then sealed) {time.perf_counter() - t0:.2f} s")
+    P, NL = LLAMA4_LONG_PROMPT, LLAMA4_LONG_NEW
+    with RetraceGuard():
+        out_long, run_long = _generate_run(torch, long_app, P, NL, "llama-4-scout long-context generate()")
+    want_long = expect_launches(flash_attention=L, moe_grouped=L, decode_attention=L * NL, moe_dense=L * NL)
+    if run_long["launches"] != want_long:
+        raise SystemExit(f"llama-4-scout long-context launch counts {run_long['launches']} != expected {want_long}")
+    log(f"  llama-4-scout long-context: decode positions {P}..{P + NL - 1} cross {C}; the rope layers' chunk and "
+        f"the NoPE temperature (floor((pos + 1) / {C}) >= 1 from {C - 1}) bite there")
+    seq = out_long.sequences[0][: P + LLAMA4_FORCED_STEPS]
+    del app, long_app
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase llama-4-scout long-context run: {time.perf_counter() - t0:.1f} s")
+    forced = timed("llama-4-scout teacher-forced gate", llama4_teacher_forced, torch, seq, P)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {
+        "flash_attention_llama4": run["launches"]["flash_attention"],
+        "decode_attention_llama4": run["launches"]["decode_attention"],
+        "flash_attention_llama4_long": run_long["launches"]["flash_attention"],
+        "decode_attention_llama4_long": run_long["launches"]["decode_attention"],
+    }
+    return dict(run, times=times, launches=launches, **load, run8=run8, eager=eager, forced=forced, cases=n_cases,
+                profile={k: v for k, v in profile.items() if k != "busy_ms_per_step"}, drain=drain, long=run_long,
+                step_bound_ms=b_step, dense_moe_ms=dense_ms)
+
+
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
@@ -8412,6 +8877,10 @@ def main():
     times.update(dbrx.pop("times"))
     deepseek = timed("deepseek-v3", phase_deepseek_v3, torch, md)
     times.update(deepseek.pop("times"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    scout = timed("llama-4-scout", phase_llama4_scout, torch, fa, da)
+    times.update(scout.pop("times"))
 
     entries = []
     for name, key, source, replaces, launches in (
@@ -8552,6 +9021,20 @@ def main():
          "neuronx_distributed_inference_tpu/ops/moe_decode.py:159", deepseek["launches"]),
         ("moe_decode_deepseek_bs8", ("moe_decode", "deepseek bs8"), "csrc/moe_decode.cu",
          "neuronx_distributed_inference_tpu/ops/moe_decode.py:159", deepseek["launches"]),
+        # Llama-4-Scout (40 q / 8 kv heads of 128, n_rep 5, chunk 8192 on
+        # the rope layers): B2a at its 256-token prefill and B1 at its decode
+        # (batch 1, bucket 512), launches of the batch-1 generate(); B2a at
+        # the long run's 8192-token prefill and B1 at its decode just past
+        # position 8192 (bucket 8448, the chunk mask), launches of the
+        # long-context generate()
+        ("flash_attention_llama4", ("flash_attention", "llama4"), "csrc/flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", scout["launches"]),
+        ("decode_attention_llama4", ("decode_attention", "llama4"), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", scout["launches"]),
+        ("flash_attention_llama4_long", ("flash_attention", "llama4 long"), "csrc/flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", scout["launches"]),
+        ("decode_attention_llama4_long", ("decode_attention", "llama4 long"), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", scout["launches"]),
     ):
         t = times[key]
         entries.append({

@@ -112,7 +112,6 @@ _NOT_PORTED: Dict[str, Tuple[Any, str]] = {
     "ep_degree": (1, "A10 (parallelism: expert parallelism)"),
     "quantized_checkpoints_path": (None, "A11 (quantized checkpoint artifacts)"),
     "lora_config": (None, "A9 (LoRA and other model families)"),
-    "attention_chunk_size": (None, "A9 (chunked attention)"),
 }
 
 #: the reference's role flags that it accepts for API parity and refuses
@@ -269,13 +268,15 @@ class Config:
     # contiguous cache becomes a ring of W slots where the layout allows it
     # (models/builder.ring_layout_ok), else windowed masks over full lines
     sliding_window: Optional[int] = None
+    # chunked attention (Llama4's flavor): a query attends causally within
+    # its own block of this many positions; the cache keeps full lines
+    attention_chunk_size: Optional[int] = None
 
     # --- not ported yet (validated, then refused) --------------------------
     tp_degree: int = 1
     ep_degree: int = 1
     quantized_checkpoints_path: Optional[str] = None
     lora_config: Optional[Any] = None
-    attention_chunk_size: Optional[int] = None
 
     # --- misc ------------------------------------------------------------
     # seal the warmed programs after warmup(): a later graph capture raises

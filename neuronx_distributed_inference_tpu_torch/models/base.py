@@ -37,9 +37,14 @@ picks a layer's flavor inside its ``lax.scan``; here the layer loop knows
 each layer's flavor in Python, so a captured step is one static sequence.
 An interleaved stack's global layers decode through B1 over their
 full-length lines, with the model's learned sinks. Over the paged cache
-only a model with no window and no sink anywhere takes B5; the others send
-passes of at most 16 tokens to B4 with their masks and sinks, and longer
-ones to the plain block gather.
+only a model with no window, no chunk and no sink anywhere takes B5; the
+others send passes of at most 16 tokens to B4 with their masks and sinks,
+and longer ones to the plain block gather.
+
+Chunked attention (``attention_chunk_size``, Llama4's rope layers) keeps
+full-length cache lines: a query attends causally within its own block of
+``chunk`` positions. Its prefill is B2 with the chunk predicate, its decode
+B1 / B4 under the chunk mask (:func:`build_mask`), as the reference runs it.
 
 A builder's ``layer_fn()`` / ``mlp_fn()`` may be lists that the layer loop
 indexes by each layer group's ``LayerGroupSpec.fn_idx`` (DeepSeek-V3: MLA
@@ -111,12 +116,13 @@ class LayerGroupSpec:
     """One contiguous run of layers of one attention flavor and one pair of
     layer functions (the reference's ``LayerGroupSpec``): GPT-OSS's
     alternating sliding / global layers are a sequence of these, and so are
-    DeepSeek-V3's dense-first and MoE layers, whose ``fn_idx`` picks each
-    group's entry of the builder's ``layer_fn()`` / ``mlp_fn()`` lists. The
-    reference's chunked-attention flavor is not ported (ROADMAP A9)."""
+    DeepSeek-V3's dense-first and MoE layers and Llama4's chunked-rope and
+    global NoPE runs, whose ``fn_idx`` picks each group's entry of the
+    builder's ``layer_fn()`` / ``mlp_fn()`` lists."""
 
     num_layers: int
     sliding_window: Optional[int] = None
+    attention_chunk_size: Optional[int] = None
     # index into the layer_fn / mlp_fn lists the builder provides
     fn_idx: int = 0
 
@@ -145,6 +151,8 @@ class ModelSpec:
     max_topk: int = 256
     # sliding-window attention of every layer (Mistral)
     sliding_window: Optional[int] = None
+    # chunked attention of every layer (Config.attention_chunk_size)
+    attention_chunk_size: Optional[int] = None
     # the contiguous cache is a ring of this many slots a line (the window;
     # builder._finalize_bounded)
     bounded_window: Optional[int] = None
@@ -152,18 +160,25 @@ class ModelSpec:
     # to this window, the global layers on full-length lines
     ring_window: Optional[int] = None
     # the attention flavor of each run of layers; None = one uniform group
-    # with the spec-level sliding_window
+    # with the spec-level sliding_window and attention_chunk_size
     layer_groups: Optional[Tuple[LayerGroupSpec, ...]] = None
 
 
-def layer_windows(spec: ModelSpec, num_layers: int) -> List[Optional[int]]:
-    """The sliding window of each layer (None: global attention)."""
+#: a layer's attention flavor: (sliding window, chunk), None where unset
+Flavor = Tuple[Optional[int], Optional[int]]
+
+
+def layer_flavors(spec: ModelSpec, num_layers: int) -> List[Flavor]:
+    """The (sliding window, attention chunk) of each layer; (None, None) is
+    global attention."""
     if spec.layer_groups is None:
-        return [spec.sliding_window] * num_layers
-    wins = [g.sliding_window for g in spec.layer_groups for _ in range(g.num_layers)]
-    if len(wins) != num_layers:
-        raise ValueError(f"layer_groups mismatch: spec says {len(wins)} layers, params carry {num_layers}")
-    return wins
+        return [(spec.sliding_window, spec.attention_chunk_size)] * num_layers
+    flavors = [
+        (g.sliding_window, g.attention_chunk_size) for g in spec.layer_groups for _ in range(g.num_layers)
+    ]
+    if len(flavors) != num_layers:
+        raise ValueError(f"layer_groups mismatch: spec says {len(flavors)} layers, params carry {num_layers}")
+    return flavors
 
 
 def layer_fn_indices(spec: ModelSpec, num_layers: int) -> List[int]:
@@ -180,11 +195,16 @@ def _pick(fns, idx: int):
 
 
 def plain_attention(spec: ModelSpec) -> bool:
-    """No sliding window in the model or in any of its layer groups, and no
-    learned sink: the masks the B5 and B3 kernels build are the whole mask
-    (the reference's ``plain_model`` gate)."""
+    """No sliding window and no attention chunk in the model or in any of
+    its layer groups, and no learned sink: the masks the B5 and B3 kernels
+    build are the whole mask (the reference's ``plain_model`` gate)."""
     groups = spec.layer_groups or ()
-    return not (spec.sliding_window or spec.attn.has_sink or any(g.sliding_window for g in groups))
+    return not (
+        spec.sliding_window
+        or spec.attention_chunk_size
+        or spec.attn.has_sink
+        or any(g.sliding_window or g.attention_chunk_size for g in groups)
+    )
 
 
 @dataclass
@@ -363,11 +383,11 @@ def paged_attend(
     cache (the reference's ``decoder_layer`` block branch, ``base.py:619-703``).
     B5 implements the causal + prefix mask only, so it takes a pass (of 8
     tokens or more) only for a ``plain_model`` (:func:`plain_attention`: no
-    window and no sink anywhere). Other passes of at most 16 tokens go to
-    the B4 paged decode kernel's wrapper with the layer's mask and sink;
-    longer ones of a windowed or sink model, and every pass with the
-    tri-states off, take the plain block gather and masked softmax, as
-    the reference's ``use_tkg`` gate (q_len <= 16) sends them."""
+    window, no chunk and no sink anywhere). Other passes of at most 16
+    tokens go to the B4 paged decode kernel's wrapper with the layer's mask
+    and sink; longer ones of a windowed, chunked or sink model, and every
+    pass with the tri-states off, take the plain block gather and masked
+    softmax, as the reference's ``use_tkg`` gate (q_len <= 16) sends them."""
     from neuronx_distributed_inference_tpu_torch.ops.decode_attention import MAX_Q_LEN
 
     Sq = q.shape[1]
@@ -407,7 +427,7 @@ def _plain_weight(entry) -> bool:
     )
 
 
-def _fused_attn_eligible(layer_params: dict, mask, spec: ModelSpec, cos, k_cache, window) -> bool:
+def _fused_attn_eligible(layer_params: dict, mask, spec: ModelSpec, cos, k_cache, window, chunk) -> bool:
     """The layer-level conditions of the fused attention block B8 (the
     reference's ``_fused_attn_eligible``; the step-level ones, the
     contiguous full-length cache among them, come from
@@ -416,13 +436,13 @@ def _fused_attn_eligible(layer_params: dict, mask, spec: ModelSpec, cos, k_cache
     LayerNorm stays off B8, as its ``qkv_clip`` does through
     ``use_fused_attn_block``), a plain
     fused ``qkv_proj`` and ``o_proj``, full rotary, one new token a row for
-    a windowed layer (B8's in-flight part is purely causal; the window
-    bounds its prior part through the mask), and the gate of
-    ``kernel_mode.use_fused_attn_block``."""
+    a windowed or chunked layer (B8's in-flight part is purely causal; the
+    window or chunk bounds its prior part through the mask), and the gate
+    of ``kernel_mode.use_fused_attn_block``."""
     sa = layer_params.get("self_attn", {})
     return (
         not isinstance(k_cache, QuantizedKV)
-        and (window is None or mask.shape[-2] == 1)
+        and ((window is None and chunk is None) or mask.shape[-2] == 1)
         and spec.norm_type == "rmsnorm"
         and spec.attn.qkv_clip is None
         and "qkv_proj" in sa
@@ -481,11 +501,13 @@ def decoder_layer(
     # run_decoder_layers certifies the step-level conditions of the fused
     # decode kernels (decode over the contiguous cache)
     fused_ok: bool = False,
-    # this layer's sliding window (None: global attention)
+    # this layer's sliding window and attention chunk (None: unbounded)
     window: Optional[int] = None,
+    chunk: Optional[int] = None,
     # W when (k_cache, v_cache) holds this layer as a ring of W slots a line
     ring: Optional[int] = None,
-    # False when the model has a window or a sink anywhere (plain_attention)
+    # False when the model has a window, a chunk or a sink anywhere
+    # (plain_attention)
     plain_model: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder layer, write-then-attend: this layer's new K/V go into the
@@ -503,7 +525,7 @@ def decoder_layer(
     B8, which returns the new K/V for the scatter after it, and the MLP half
     as the fused block B9 (:func:`_decoder_layer_mlp`)."""
     aspec = spec.attn
-    if fused_ok and _fused_attn_eligible(layer_params, mask, spec, cos, k_cache, window):
+    if fused_ok and _fused_attn_eligible(layer_params, mask, spec, cos, k_cache, window, chunk):
         from neuronx_distributed_inference_tpu_torch.ops.decode_block import fused_attn_block
 
         sa = layer_params["self_attn"]
@@ -540,7 +562,9 @@ def decoder_layer(
             k_cache, v_cache, k, v, layer_idx, slot_ids, write_pos
         )
     if phase == PHASE_CONTEXT_ENCODING:
-        attn_out = attention_prefill(q, k, v, mask, aspec, sink=sink, key_valid=key_valid, window=window)
+        attn_out = attention_prefill(
+            q, k, v, mask, aspec, sink=sink, key_valid=key_valid, window=window, chunk=chunk
+        )
     elif ragged_rows is not None:
         # ragged mixed step: prefill-chunk AND decode rows in ONE attention
         # launch off the paged cache, the masks derived from the descriptors
@@ -571,16 +595,25 @@ def _finish_layer(layer_params: dict, residual, attn_out, spec: ModelSpec, mlp_f
     return _decoder_layer_mlp(layer_params, hidden, spec, mlp_fn, fused_ok)
 
 
-def build_mask(inputs: StepInputs, spec: ModelSpec, phase: str, window: Optional[int] = None) -> torch.Tensor:
+def build_mask(
+    inputs: StepInputs,
+    spec: ModelSpec,
+    phase: str,
+    window: Optional[int] = None,
+    chunk: Optional[int] = None,
+) -> torch.Tensor:
     """``inputs.mask_override`` when it is set; else the causal mask for
-    prefill (windowed when ``window`` is set), and for token generation the
-    cache-validity mask, per token (causal among the new tokens) when a
-    pass carries more than one, bounded to (pos - window, pos] when
-    ``window`` is set."""
+    prefill (chunked when ``chunk`` is set, else windowed when ``window``
+    is), and for token generation the cache-validity mask, per token
+    (causal among the new tokens) when a pass carries more than one,
+    bounded to (pos - window, pos] when ``window`` is set and to the
+    query's own block of ``chunk`` positions when ``chunk`` is."""
     if inputs.mask_override is not None:
         return inputs.mask_override
     n_active = inputs.input_ids.shape[1]
     if phase == PHASE_CONTEXT_ENCODING:
+        if chunk:
+            return masks.chunked_mask(inputs.attention_mask, inputs.position_ids, chunk)
         if window:
             return masks.windowed_mask(inputs.attention_mask, inputs.position_ids, window)
         return masks.causal_mask(inputs.attention_mask)
@@ -588,10 +621,13 @@ def build_mask(inputs: StepInputs, spec: ModelSpec, phase: str, window: Optional
         mask = masks.spec_token_gen_mask(inputs.attention_mask, inputs.position_ids)
     else:
         mask = masks.token_gen_mask(inputs.attention_mask, n_active)
-    if window:
+    if window or chunk:
         cols = torch.arange(mask.shape[-1], device=mask.device)[None, None, None, :]
         pos = inputs.position_ids[:, None, :, None]  # (B, 1, K, 1)
-        mask = mask & (cols > pos - window)
+        if window:
+            mask = mask & (cols > pos - window)
+        if chunk:
+            mask = mask & (torch.div(cols, chunk, rounding_mode="floor") == torch.div(pos, chunk, rounding_mode="floor"))
     return mask
 
 
@@ -685,12 +721,13 @@ def run_decoder_layers(
     stays one static sequence of Python calls, so a captured step holds
     each layer's own functions.
 
-    Each layer takes its flavor's mask (:func:`layer_windows`: one mask per
-    distinct window, built once a step) and its cache: a ring layer of the
-    bounded cache or of an :class:`InterleavedKVCache` its ring stack at its
-    ring index, a global layer of an interleaved cache the full stack at its
-    full index. Ring layers build their decode masks from positions
-    (:func:`ring_attention`), so no dense mask is built for them.
+    Each layer takes its flavor's mask (:func:`layer_flavors`: one mask per
+    distinct (window, chunk), built once a step) and its cache: a ring
+    layer of the bounded cache or of an :class:`InterleavedKVCache` its
+    ring stack at its ring index, a global layer of an interleaved cache
+    the full stack at its full index. Ring layers build their decode masks
+    from positions (:func:`ring_attention`), so no dense mask is built for
+    them.
 
     RoPE takes ``inputs.rope_position_ids`` when it is set (tree nodes at
     their depth) and the cache is written at ``inputs.position_ids``.
@@ -725,7 +762,7 @@ def run_decoder_layers(
         and use_paged_flash(spec.attn, inputs.input_ids.shape[1])
     )
     layers = flat_layers(params["layers"])
-    windows = layer_windows(spec, len(layers))
+    flavors = layer_flavors(spec, len(layers))
     fn_idx = layer_fn_indices(spec, len(layers))
     # a custom layer (MLA) computes its attention from the dense mask
     custom = any(_pick(layer_fn, i) is not None for i in set(fn_idx))
@@ -734,11 +771,11 @@ def run_decoder_layers(
     # ring layers decode from positions; every other layer reads its
     # flavor's mask
     ring_decode = phase != PHASE_CONTEXT_ENCODING and (bounded or interleaved)
-    flavor_masks: Dict[Optional[int], Optional[torch.Tensor]] = {}
-    for w in windows:
-        if w not in flavor_masks:
+    flavor_masks: Dict[Flavor, Optional[torch.Tensor]] = {}
+    for w, c in flavors:
+        if (w, c) not in flavor_masks:
             skip = not custom and (flash or paged_flash or (ring_decode and (bounded or w is not None)))
-            flavor_masks[w] = None if skip else build_mask(inputs, spec, phase, window=w)
+            flavor_masks[w, c] = None if skip else build_mask(inputs, spec, phase, window=w, chunk=c)
     # the step-level conditions of the fused decode kernels (the reference's
     # fused_eligible): decode over the contiguous full-length cache at
     # contiguous write positions (B8 builds its own causal mask and ropes at
@@ -760,7 +797,7 @@ def run_decoder_layers(
         n_seen = {False: 0, True: 0}
     else:
         k_cache, v_cache = cache.k, cache.v
-    for li, (layer_params, w) in enumerate(zip(layers, windows)):
+    for li, (layer_params, (w, c)) in enumerate(zip(layers, flavors)):
         ring = bounded
         idx = li
         if interleaved:
@@ -771,9 +808,9 @@ def run_decoder_layers(
             n_seen[sliding] += 1
         layer = _pick(layer_fn, fn_idx[li]) or decoder_layer
         hidden, k_cache, v_cache = layer(
-            layer_params, hidden, cos, sin, k_cache, v_cache, idx, flavor_masks[w], slot_ids,
+            layer_params, hidden, cos, sin, k_cache, v_cache, idx, flavor_masks[w, c], slot_ids,
             positions, spec, phase, _pick(mlp_fn, fn_idx[li]), key_valid=key_valid,
-            block_inputs=block_inputs, fused_ok=fused_ok, window=w, ring=ring, plain_model=plain_model,
+            block_inputs=block_inputs, fused_ok=fused_ok, window=w, chunk=c, ring=ring, plain_model=plain_model,
         )
         if interleaved:
             streams[w is not None] = (k_cache, v_cache)
@@ -918,7 +955,7 @@ def mixed_forward(
             "the ragged mixed step supports uniform full-length layer stacks "
             "only (no ring-bounded/interleaved caches or layer groups)"
         )
-    if spec.sliding_window or spec.attn.has_sink:
+    if spec.sliding_window or spec.attention_chunk_size or spec.attn.has_sink:
         raise NotImplementedError(
             "the ragged paged kernel implements the plain causal+prefix mask "
             "only (no sliding-window/chunked attention, no sinks)"

@@ -13,6 +13,9 @@ A sliding window (``Config.sliding_window``, or a model's own, Mistral's)
 bounds the contiguous cache to a ring of W slots when
 :func:`ring_layout_ok` allows it (``ModelSpec.bounded_window``); the paged
 pool and fused speculation keep full-length lines with windowed masks.
+Chunked attention (``Config.attention_chunk_size``) never bounds the cache:
+its layers keep full-length lines under the chunk masks, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -93,7 +96,8 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
     group, then the MoE group) with MLA's ``q_a_proj`` / ``q_a_layernorm``
     / ``q_b_proj`` (or ``q_proj``), ``kv_a_proj``, ``kv_a_layernorm``,
     ``k_absorb``, ``v_absorb``, the router's ``e_score_correction_bias``
-    and the ``shared_experts`` (separate or fused ``gate_up_proj``)."""
+    and the ``shared_experts`` (separate or fused ``gate_up_proj``), and
+    Llama4's per-run stacks (a run of rope or NoPE layers, dense or MoE)."""
 
     def conv(t, path):
         if isinstance(t, dict):
@@ -182,6 +186,7 @@ class DecoderModelBuilder:
             do_sample=bool(tc.on_device_sampling_config and tc.on_device_sampling_config.do_sample),
             max_topk=tc.max_topk,
             sliding_window=self.sliding_window(),
+            attention_chunk_size=tc.attention_chunk_size,
         )
         return self._finalize_bounded(spec)
 

@@ -1,5 +1,5 @@
 """Attention masks (counterpart of the reference's ``modules/masks.py``;
-the causal, decode and sliding-window flavors). Masks are boolean,
+the causal, decode, sliding-window and chunked flavors). Masks are boolean,
 True = attend."""
 
 from __future__ import annotations
@@ -43,6 +43,16 @@ def windowed_mask(attention_mask: torch.Tensor, position_ids: torch.Tensor, wind
     k_pos = position_ids[:, None, :]
     in_window = (k_pos <= q_pos) & (k_pos > q_pos - window)
     return (in_window & attention_mask.bool()[:, None, :])[:, None, :, :]
+
+
+def chunked_mask(attention_mask: torch.Tensor, position_ids: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Chunked-attention causal prefill mask (Llama4): the query at position
+    p attends valid keys at positions <= p in its own block of ``chunk``
+    positions. Returns (B, 1, S, S)."""
+    q_pos = position_ids[:, :, None]
+    k_pos = position_ids[:, None, :]
+    same_chunk = torch.div(q_pos, chunk, rounding_mode="floor") == torch.div(k_pos, chunk, rounding_mode="floor")
+    return (same_chunk & (k_pos <= q_pos) & attention_mask.bool()[:, None, :])[:, None, :, :]
 
 
 def windowed_token_gen_mask(

@@ -1,6 +1,7 @@
 """Rotary position embeddings (counterpart of the reference's
 ``modules/rope.py``): the default, llama3-scaled and YaRN ``inv_freq``
-variants, fp32 cos/sin tables and the HF half-rotation convention."""
+variants, fp32 cos/sin tables, the HF half-rotation convention and
+Llama4's complex-pair one."""
 
 from __future__ import annotations
 
@@ -145,3 +146,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     out1 = xf1 * cos - xf2 * sin
     out2 = xf2 * cos + xf1 * sin
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Complex-pair rope in fp32 (Llama4's ``view_as_complex`` convention):
+    adjacent pairs (x[2i], x[2i+1]) rotate by angle i. x (B, S, H, D);
+    cos/sin (B, S, D/2)."""
+    x0 = x[..., 0::2].float()
+    x1 = x[..., 1::2].float()
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    out = torch.stack([x0 * c - x1 * s, x0 * s + x1 * c], dim=-1).reshape(x.shape)
+    return out.to(x.dtype)

@@ -44,6 +44,9 @@ MODEL_MIXTRAL = dict(H=4096, I=14336, Hq=32, Hkv=8, D=128, L=32, E=8, k=2, V=320
 #: is MLA, with no Hkv / D)
 MODEL_DBRX = dict(H=6144, I=10752, Hq=48, Hkv=8, D=128, L=40, E=16, k=4, V=100352)
 MODEL_DEEPSEEK_V3 = dict(H=7168, I=2048, L=61, E=256, k=8, V=129280)
+# Llama-4-Scout-17B-16E's text widths: I is an expert's (and the shared
+# expert's) width, I_mlp a dense layer's
+MODEL_LLAMA4_SCOUT = dict(H=5120, I=8192, I_mlp=16384, Hq=40, Hkv=8, D=128, L=48, E=16, k=1, V=202048)
 
 INT4_GROUP = 128  # rows of K per scale (the reference's quant_matmul.INT4_GROUP)
 

@@ -593,3 +593,68 @@ def _to(tree, device):
     if isinstance(tree, list):
         return [_to(v, device) for v in tree]
     return tree.to(device)
+
+
+@pytest.mark.gpu
+def test_chunked_masks_at_llama4_heads_on_the_card(cuda_card):
+    """B2a, B1 and B4 under Llama4's chunk masks at Llama-4-Scout's heads (40
+    q / 8 kv of 128, n_rep 5): B2a at S 8448 with the chunk boundary between
+    tiles and inside one, B1 over an 8448-position cache at batch 1 and 8
+    with 1 and 4 queries a row at positions just before and just past 8192
+    (past it the chunk mask empties every kv split of chunk 0), bf16 and
+    fp32, and the NoPE layers' global mask there, B4 on a paged pool at the
+    same positions, each against its plain version and launched twice
+    more, bit-identical (chip_smoke.llama4_kernel_parity)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
+    from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
+
+    _cuda.reset_launch_counts()
+    # B2a 2; B1 chunked: (bf16, fp32) x (batch 1 at two depths, batch 8) x
+    # K (1, 4), global: batch 1 at two depths and batch 8; B4 4
+    assert chip_smoke.llama4_kernel_parity(torch, fa, da) == 2 + 2 * 3 * 2 + 3 + 4
+    counts = _cuda.launch_counts()
+    assert counts["flash_attention"] == 3 * 2, counts
+    assert counts["decode_attention"] == 3 * (2 * 3 + 3) and counts["decode_attention_verify"] == 3 * 2 * 3, counts
+    assert counts["paged_decode_attention"] == 3 * 4, counts
+
+
+@pytest.mark.gpu
+def test_llama4_generate_on_the_card_matches_the_cpu(cuda_card):
+    """A tiny Llama4 (head_dim 64, chunk 8 and floor_scale 8, so both bite
+    inside 24 + 8 tokens; dense and MoE layers interleaved) through B2 and
+    B1 on the card: the same greedy tokens as the plain versions on the
+    CPU, logits within 2e-3 at fp32, every attention call launched."""
+    from neuronx_distributed_inference_tpu_torch.config import Config
+    from neuronx_distributed_inference_tpu_torch.models.llama4 import Llama4TextInferenceConfig
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    attrs = dict(model_type="llama4_text", hidden_size=128, intermediate_size=64, intermediate_size_mlp=128,
+                 num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+                 num_local_experts=4, num_experts_per_tok=1, interleave_moe_layer_step=2, vocab_size=512,
+                 attention_chunk_size=8, use_qk_norm=True, attn_temperature_tuning=True, floor_scale=8,
+                 attn_scale=0.1, rms_norm_eps=1e-5, rope_theta=500000.0, hidden_act="silu",
+                 tie_word_embeddings=False)
+
+    def app(device, params=None):
+        cfg = Llama4TextInferenceConfig(
+            Config(batch_size=2, seq_len=64, dtype="float32", output_logits=True, device=device, seed=3,
+                   context_encoding_buckets=[32], token_generation_buckets=[64]),
+            load_config=lambda c: [setattr(c, name, v) for name, v in attrs.items()],
+        )
+        a = ModelForCausalLM(None, cfg)
+        return a.load(params=params) if params is not None else a.load(random_weights=True)
+
+    ids = torch.randint(0, 512, (2, 24), generator=torch.Generator().manual_seed(5)).numpy()
+    card = app("cuda")
+    host_params = _to(card.params, "cpu")
+    _cuda.reset_launch_counts()
+    out = card.generate(ids, max_new_tokens=8)
+    counts = _cuda.launch_counts()
+    assert counts["flash_attention"] == 4 and counts["decode_attention"] == 4 * 8, counts
+    host = app("cpu", host_params).generate(ids, max_new_tokens=8)
+    assert (host.sequences == out.sequences).all()
+    assert abs(host.logits - out.logits).max() < 2e-3

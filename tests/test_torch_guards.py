@@ -100,7 +100,6 @@ def test_default_device_is_cuda_and_cuda_without_a_card_raises(monkeypatch):
         (dict(quantized_checkpoints_path="ckpt"), "A11"),
         (dict(quantized=True, quantized_checkpoints_path="ckpt"), "A11"),
         (dict(lora_config={"max_loras": 1}), "A9"),
-        (dict(attention_chunk_size=128), "A9"),
     ],
 )
 def test_settings_outside_the_slice_raise(kw, item):
@@ -120,10 +119,10 @@ def test_a3b_settings_are_accepted(kw):
         assert (got.do_sample and got.top_k == 5) if name == "on_device_sampling_config" else got == value
 
 
-@pytest.mark.parametrize("kw", [dict(sliding_window=128)])
+@pytest.mark.parametrize("kw", [dict(sliding_window=128), dict(attention_chunk_size=128)])
 def test_a9_settings_are_accepted(kw):
-    """Sliding-window attention is ported (it was refused naming A9 until
-    it landed); chunked attention still raises (above)."""
+    """Sliding-window and chunked attention are ported (each was refused
+    naming A9 until it landed)."""
     c = Config(device="cpu", **kw)
     for name, value in kw.items():
         assert getattr(c, name) == value
@@ -328,7 +327,6 @@ def _moe_app(tc_cls=None, **tc):
     [
         (dict(ep_degree=2), "A10"),
         (dict(hybrid_sharding_config=dict(moe_cte_tp_degree=1, moe_cte_ep_degree=1)), "A10"),
-        (dict(attention_chunk_size=8), "A9"),
     ],
 )
 def test_moe_settings_outside_the_slice_raise(kw, item):
@@ -336,6 +334,14 @@ def test_moe_settings_outside_the_slice_raise(kw, item):
 
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         MoEConfig(device="cpu", **kw)
+
+
+def test_moe_chunked_attention_is_accepted():
+    """Chunked attention on an MoE config is ported (it was refused naming
+    A9 until it landed)."""
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+
+    assert MoEConfig(device="cpu", attention_chunk_size=8).attention_chunk_size == 8
 
 
 def test_moe_config_matches_reference():
