@@ -146,6 +146,22 @@ Phases, in order; any failure exits non-zero:
      counts, no capture after the seal and the token gate; then the chain
      and both trees on the target cut to one layer in fp32 with an exact
      draft (that layer): acceptance >= 0.9.
+13c. multi-adapter LoRA (phase_lora_8b, on phase 13b's 8B params): B2a at
+     the batch-8 prefill and B1 at the batch-8 decode step held to their
+     plain versions and timed (lora_kernel_times); 8 seeded adapters of
+     ranks 8-64 on q / k / v / o (every second rsLoRA); the static slots at
+     batch 8 (rows [base, ad1 .. ad7], 128 + 64 tokens, sealed): exact B2a /
+     B1 counts with the fused decode layer asked for and no B8 / B9, no
+     capture after the seal, every row equal to the row alone, each adapter
+     turning its row within 16 tokens; the merged-weight oracle (the LoRA
+     row's teacher-forced logits against q / k / v / o merged as W + s A B,
+     both against fp32, and its control, another adapter's id, failing);
+     an eager twin, tok/s beside the base-only batch and the plain 8B app,
+     profiled decode steps beside the byte bound with LoRA's device ms a
+     projection; the dynamic cache (4 slots, 8 adapters on the host, 24
+     calls of 4 rows from a seeded schedule, sealed): tokens equal to the
+     static app's, swaps and slots equal to the manager's logic on the
+     schedule, the host ms a swap takes.
  14. the multi-replica front-end (phase_router): bench.py's
      serving_1b_int8_router, _router_threaded, _elastic and _disagg rows
      (the int8 1B at full width and depth, 2 replicas sharing the card,
@@ -1812,11 +1828,12 @@ def phase_main_path(torch):
 PROFILE_STEPS = 4
 
 
-def phase_profile(torch, app, seq, prompt_len, steps=PROFILE_STEPS, label="decode step", bucket=512):
+def phase_profile(torch, app, seq, prompt_len, steps=PROFILE_STEPS, label="decode step", bucket=512, adapter_ids=None):
     """Where a decode step's time goes: one ``steps``-step decode chunk in
     ``bucket`` over every row of ``seq`` ((S,) or (B, S) tokens; it
     re-decodes from the first generated token, rewriting cache positions
-    the generate() run already wrote)."""
+    the generate() run already wrote), with each row's LoRA ``adapter_ids``
+    when given."""
     from neuronx_distributed_inference_tpu_torch.modules.sampling import prepare_sampling_params
 
     seq = np.atleast_2d(seq)
@@ -1827,7 +1844,9 @@ def phase_profile(torch, app, seq, prompt_len, steps=PROFILE_STEPS, label="decod
     )
 
     def chunk():
-        app.token_generation_model.decode_chunk(app.params, app.kv_cache, *args, num_steps=steps, bucket=bucket)
+        app.token_generation_model.decode_chunk(
+            app.params, app.kv_cache, *args, num_steps=steps, bucket=bucket, adapter_ids=adapter_ids
+        )
         torch.cuda.synchronize()
 
     return profile_chunk(torch, chunk, steps, f"{label} (batch {B}, bucket {bucket})")
@@ -2043,9 +2062,9 @@ SERVING = dict(n_requests=8, prompt=128, gen=128, slots=8, blocks=512, block_siz
 #: new tokens a request in the drains run with graphs on and off in turns
 #: (graph_pair: phase_graphs, phase_kv_quant, the 1B speculation phases),
 #: and of the 1B generate() pairs of phase_graphs: cut from SERVING's 128
-#: and 256 to fit the script's time limit (their eager twins are
-#: host-bound)
-PAIRED_GEN = 64
+#: and 256 to 64, then to 32, to fit the script's time limit (their eager
+#: twins are host-bound)
+PAIRED_GEN = 32
 
 
 def _serving_config(chunked=True, **kw):
@@ -2464,9 +2483,9 @@ def ragged_teacher_forced(torch, params, seq, prompt_len=128):
 #: bf16_8b_int4's teacher-forced gate runs the first layers of the 8B model:
 #: an fp32 copy of all 32 (~32 GB) would crowd the 80 GB card
 INT4_8B_FORCED_LAYERS = 8
-#: new tokens of the int4 8B generate() (cut from 256 to fit the script's
-#: time limit)
-INT4_8B_NEW = 128
+#: new tokens of the int4 8B generate() (cut from 256 to 128, then to 64,
+#: to fit the script's time limit)
+INT4_8B_NEW = 64
 #: int4 projections per layer: fused QKV, o, gate, up, down
 INT4_PROJ_PER_LAYER = 5
 
@@ -6376,13 +6395,509 @@ def phase_eagle_8b(torch):
     log(f"eagle 8B exact draft: the first layer in fp32, plain generate() {tok_s32:.1f} tok/s; kernel vs plain "
         f"path max {margin32 / 2:.3e} (token gate margin {margin32:.3e})")
     check(_eagle_apps(torch, params, exact_params), plain32, exact_params, margin32, 1)
-    del plain, plain32, params, exact_params
+    del plain, plain32, exact_params
     torch.cuda.empty_cache()
+    # the LoRA phase runs next on the same params
+    out["params"] = params
     out["launches"] = {
         "decode_attention_tree": sum(out["apps"]["static tree"]["launches"][n]
                                      for n in ("decode_attention", "decode_attention_verify")),
         "flash_attention_eagle": out["apps"]["eagle chain"]["launches"]["flash_attention"],
     }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 13c. multi-adapter LoRA on Llama-3.1-8B (ROADMAP A9's LoRA)
+# ---------------------------------------------------------------------------
+
+#: the 8 adapters of phase_lora_8b: their ranks (max_lora_rank LORA_RMAX),
+#: every second one rsLoRA, lora_alpha = r, on q / k / v / o
+LORA_RANKS = (8, 8, 16, 16, 32, 32, 64, 64)
+LORA_RMAX = 64
+LORA_PROMPT, LORA_NEW = 128, 64
+#: each adapter's delta, rms over its base projection's output (the random
+#: weights' std 0.02): every adapter must turn its row's greedy stream
+#: within the first LORA_TURN tokens
+LORA_DELTA, LORA_TURN = 0.25, 16
+#: the dynamic cache: device slots, and generate() calls of LORA_DYN_ROWS
+#: rows and LORA_DYN_NEW new tokens drawn from lora_schedule()
+LORA_DYN_SLOTS, LORA_DYN_CALLS, LORA_DYN_ROWS, LORA_DYN_NEW = 4, 24, 4, 32
+#: the merged-weight oracle's adapters (rank 16 rsLoRA, rank 64), held to
+#: FORCED_RATIO against the bf16 merged app
+LORA_ORACLE = ("ad4", "ad7")
+
+
+def lora_names():
+    return [f"ad{i + 1}" for i in range(len(LORA_RANKS))]
+
+
+def lora_schedule(seed=29):
+    """The dynamic drain's adapter sets: LORA_DYN_CALLS calls of
+    LORA_DYN_ROWS rows, each row one of a window of 6 adapters that slides
+    by one a call (or the base model, None), no adapter twice in a call.
+    Six adapters over LORA_DYN_SLOTS slots force swaps and LRU evictions."""
+    rng = np.random.RandomState(seed)
+    names = lora_names()
+    out = []
+    for c in range(LORA_DYN_CALLS):
+        window = [names[(c + j) % len(names)] for j in range(6)] + [None]
+        out.append([window[i] for i in rng.choice(len(window), size=LORA_DYN_ROWS, replace=False)])
+    return out
+
+
+def lora_schedule_swaps(schedule, slots):
+    """The dynamic manager's own slot logic run over ``schedule`` with no
+    device writes: (swaps, slot table) after each call."""
+    from neuronx_distributed_inference_tpu_torch.config import LoraServingConfig
+    from neuronx_distributed_inference_tpu_torch.modules.lora import DynamicLoraManager
+
+    sim = DynamicLoraManager(LoraServingConfig(max_loras=slots, max_lora_rank=LORA_RMAX))
+    sim.cpu_cache.update({n: {} for n in lora_names()})
+    sim._write_slot = lambda params, slot, arrays: params
+    out = []
+    for names in schedule:
+        sim.ensure_on_device(None, names)
+        out.append((sim.swaps, dict(sim.slot_of)))
+    return out
+
+
+def lora_adapters(torch, L, H, widths, seed=23):
+    """The 8 seeded PEFT-layout adapters (state dict, adapter config), made
+    on the card: A of std 1 / sqrt(H), B scaled so that the delta's rms is
+    LORA_DELTA times the base projection's (0.02 sqrt(H) times its input's)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    out = {}
+    for name, r, rs in zip(lora_names(), LORA_RANKS, [i % 2 == 1 for i in range(len(LORA_RANKS))]):
+        scaling = r ** 0.5 if rs else 1.0  # alpha = r
+        std_b = LORA_DELTA * 0.02 * H ** 0.5 / (r ** 0.5 * scaling)
+        sd = {}
+        for layer in range(L):
+            for mod, width in widths.items():
+                p = f"base_model.model.model.layers.{layer}.self_attn.{mod}."
+                sd[p + "lora_A.weight"] = torch.randn((r, H), generator=gen, device="cuda").mul_(H ** -0.5)
+                sd[p + "lora_B.weight"] = torch.randn((width, r), generator=gen, device="cuda").mul_(std_b)
+        out[name] = (sd, {"lora_alpha": r, "use_rslora": rs})
+    return out
+
+
+def lora_tree(params, q_sz, kv_sz):
+    """The 8B params for a LoRA app: new dicts over the same tensors (an
+    attach adds leaves to the dicts), q / k / v as column views of the fused
+    qkv_proj (LoRA refuses fused_qkv)."""
+    layers = []
+    for lp in params["layers"]:
+        sa = {k: dict(v) for k, v in lp["self_attn"].items()}
+        w = sa.pop("qkv_proj")["weight"]
+        sa.update(q_proj={"weight": w[:, :q_sz]}, k_proj={"weight": w[:, q_sz : q_sz + kv_sz]},
+                  v_proj={"weight": w[:, q_sz + kv_sz :]})
+        layers.append(dict(lp, self_attn=sa, mlp=dict(lp["mlp"])))
+    return dict(params, layers=layers)
+
+
+def _config_lora(batch_size=8, **kw):
+    """Llama-3.1-8B in bf16 for the LoRA apps: batch 8, seq 1024, CTE bucket
+    [128], TKG bucket [512], unfused q / k / v, the static cache of 8
+    adapters, and the fused decode layer asked for (adapters keep B8 and B9
+    off)."""
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_8B
+
+    base = dict(
+        fused_qkv=False, context_encoding_buckets=[128], token_generation_buckets=[512],
+        lora_config=dict(max_loras=len(LORA_RANKS), max_lora_rank=LORA_RMAX, max_loras_on_cpu=len(LORA_RANKS)),
+        fused_attn_block_kernel_enabled=True, fused_mlp_kernel_enabled=True,
+    )
+    return _config(batch_size, model=LLAMA_8B, **{**base, **kw})
+
+
+def _lora_generate(torch, app, prompts, names, n_new):
+    """One generate() with the counts read around it: (sequences, seconds,
+    counts)."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    seq = app.generate(prompts, max_new_tokens=n_new, lora_adapter_names=names).sequences
+    return seq, time.perf_counter() - t0, all_counts()
+
+
+def _lora_forced_logits(torch, app, seq, prompt_len, slot):
+    """_forced_logits through ``app``'s runners with every step's adapter
+    id ``slot`` (forward() takes no adapter ids, as in the reference)."""
+    ids, seq_ids = np.array([slot], np.int32), np.zeros(1, np.int32)
+    cte, tkg = app.context_encoding_model, app.token_generation_model
+    pos0 = np.arange(prompt_len, dtype=np.int32)[None, :]
+    inputs, _ = cte.prepare(seq[None, :prompt_len], np.ones((1, prompt_len), np.int32), pos0, seq_ids,
+                            adapter_ids=ids)
+    steps = [cte(app.params, app.kv_cache, inputs).logits[:1, -1].float().cpu().numpy()]
+    for p in range(prompt_len, len(seq) - 1):
+        mask = (np.arange(app._decode_bucket(p + 1))[None, :] <= p).astype(np.int32)
+        inputs, _ = tkg.prepare(seq[None, p : p + 1], mask, np.array([[p]], np.int32), seq_ids, adapter_ids=ids)
+        steps.append(tkg(app.params, app.kv_cache, inputs).logits[:1, -1].float().cpu().numpy())
+    return np.concatenate(steps, axis=0)
+
+
+def _lora_merged(torch, params, slot, dtype, shared=None):
+    """``params`` with q / k / v / o merged as W + s A B in fp32 from the
+    slot's stored rows, in ``dtype``; every other tensor from ``shared``
+    (the same layout) or from ``params``."""
+    base = shared or params
+    layers = []
+    for lp, src in zip(params["layers"], base["layers"]):
+        sa = {}
+        for mod, e in lp["self_attn"].items():
+            w = e["weight"].float() + e["lora_scaling"][slot].float() * (e["lora_A"][slot].float() @ e["lora_B"][slot].float())
+            sa[mod] = {"weight": w.to(dtype)}
+        layers.append(dict(src, self_attn=sa))
+    return dict(base, layers=layers)
+
+
+def lora_kernel_times(torch, fa, da):
+    """B2a at the LoRA phase's prefill (batch 8, 128 tokens) and B1 at its
+    decode step (batch 8, bucket 512, rows 128–191 deep), 8B heads, bf16:
+    each held to its plain version, then timed beside the plain version,
+    SDPA and the bound."""
+    import torch.nn.functional as F
+
+    from neuronx_distributed_inference_tpu_torch.modules.masks import token_gen_mask
+
+    rng = np.random.RandomState(24)
+    Hq, Hkv, D = HEADS_8B["Hq"], HEADS_8B["Hkv"], HEADS_8B["D"]
+    B, S = 8, LORA_PROMPT
+    q, k, v = fused_qkv_inputs(torch, rng, B, S, Hq, Hkv, D, torch.bfloat16, hidden=4096)
+    key_valid = torch.ones((B, S), dtype=torch.int32, device="cuda")
+    fkw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=None, chunk=None)
+    case = f"timed LoRA prefill B={B} S={S} Hq={Hq} Hkv={Hkv} D={D} bf16"
+    err = check_flash(torch, fa, q, k, v, key_valid, fkw, case)
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+    vt = v.transpose(1, 2).repeat_interleave(Hq // Hkv, dim=1)
+    ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw))
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, key_valid, **fkw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    b_ms, b_by = bound(*flash_work(q, k, key_valid, fa.prefill_mask(key_valid)))
+    log(f"flash_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+    rows = {("flash_attention", "lora"): dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )}
+    L, bucket = 16, 512
+    valid = [LORA_PROMPT + 1 + 9 * b for b in range(B)]  # 129..192 valid keys
+    q, kc, vc, _ = _decode_inputs(torch, rng, B, 1, Hq, Hkv, D, L, bucket, bucket, torch.bfloat16, valid)
+    cols = torch.arange(bucket, device="cuda")[None, :]
+    lim = torch.tensor(valid, device="cuda")[:, None]
+    mask = token_gen_mask((cols < lim).to(torch.int32), 1)
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    state = {"layer": 0}
+
+    def next_layer():
+        state["layer"] = (state["layer"] + 1) % L
+        return state["layer"]
+
+    case = f"timed LoRA decode B={B} K=1 bucket={bucket} {valid[0]}-{valid[-1]} valid 8B heads bf16"
+    err = check_decode(torch, da, q, kc, vc, 0, mask, None, kw, case)
+    log_split(torch, da, B, Hkv, bucket)
+    qt = q.transpose(1, 2)
+    kt = kc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    vt = vc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(Hq // Hkv, dim=1)
+    ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kc, vc, next_layer(), mask, None, **kw))
+    plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_layer(), mask, None, **kw))
+    lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+    b_ms, b_by = bound(*decode_work(q, kc, mask))
+    log(f"tkg_decode_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+    rows[("decode_attention", "lora")] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+    )
+    return rows
+
+
+def lora_delta_times(torch, params, slots):
+    """One layer's LoRA delta of each projection at batch 8 (the gathers of
+    A, B and the scalings by ``slots``, the two products, the scaling),
+    each timed alone by time_ms (L2 evicted before every call, so an upper
+    figure: in a step the projections share a warm L2), beside the byte
+    bound of the rows those slots need (their true ranks, not the zero
+    padding to LORA_RMAX). Returns {projection: (ms, bound ms)}."""
+    from neuronx_distributed_inference_tpu_torch.modules.lora import lora_delta
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import bound_ms
+
+    layers = params["layers"]
+    dev = layers[0]["self_attn"]["q_proj"]["weight"].device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(25)
+    ids = torch.tensor(slots, dtype=torch.int32, device=dev)
+    ranks = [LORA_RANKS[s - 1] for s in slots if s > 0]
+    out = {}
+    for mod, e in layers[0]["self_attn"].items():
+        d_in, d_out = e["weight"].shape
+        x = torch.randn((len(slots), 1, d_in), generator=gen, device=dev).to(torch.bfloat16)
+        ms = time_ms(torch, lambda e=e, x=x: lora_delta(e, x, ids))
+        nbytes = sum(r * (d_in + d_out) for r in ranks) * 2 + x.numel() * 2 * (1 + d_out / d_in)
+        flops = 2 * sum(r * (d_in + d_out) for r in ranks)
+        out[mod] = (ms, bound_ms(nbytes, flops)[0])
+    return out
+
+
+def lora_step_share(prof, busy_key="8 adapters", without_key="unfused, no LoRA"):
+    """LoRA's device ms a decode step, read from two profiles of the same
+    step: the LoRA app's busy time less that of an app on the same unfused
+    q / k / v tree without adapters (so the split projections, which LoRA
+    forces, are not counted as the delta's), and the kernels by name whose
+    summed ms a step grew, largest first."""
+    on, off = prof[busy_key], prof[without_key]
+    grown = {n: ms - off["kernel_ms_per_step"].get(n, 0.0) for n, ms in on["kernel_ms_per_step"].items()}
+    grown = sorted(((n, d) for n, d in grown.items() if d > 0), key=lambda kv: -kv[1])
+    return on["device_busy_ms"] - off["device_busy_ms"], grown
+
+
+def phase_lora_8b(torch, fa, da, params):
+    """Multi-adapter LoRA on Llama-3.1-8B at full width and depth, bf16, on
+    phase_eagle_8b's seeded params (new dicts, the same tensors; q / k / v
+    as views of its fused qkv_proj), 8 seeded adapters on q / k / v / o of
+    ranks LORA_RANKS (every second rsLoRA), the fused decode layer asked
+    for:
+
+    1. static slots (max_loras 8): generate() at batch 8, rows [base, ad1 …
+       ad7], 128 + 64 tokens, warmed and sealed under the retrace guard:
+       exact counts (B2a once a layer a prefill, B1 once a layer a decode
+       step, no B8 or B9), no capture after the seal; each row equal to the
+       row alone on the same app (its compiled batch: the same shapes); each
+       adapter turning its row's greedy stream within LORA_TURN tokens;
+    2. the merged-weight oracle for LORA_ORACLE: teacher-forced logits of
+       the LoRA row against an app of q / k / v / o merged (W + s A B),
+       both against the fp32 merged run, within FORCED_RATIO; the
+       control (the row given another adapter's id) must fail it;
+    3. an eager twin of the batch-8 run (same tokens and counts), tok/s
+       beside the same app's base-only batch and the plain 8B app, and
+       profiled decode steps (8 distinct adapters, base-only, an app on the
+       same unfused tree without adapters, the plain fused-QKV app) beside
+       the step's byte bound: LoRA's device ms a step and share from the
+       profiles (lora_step_share), and each projection's delta timed
+       alone;
+    4. the dynamic cache (LORA_DYN_SLOTS slots, 8 adapters on the host):
+       LORA_DYN_CALLS calls of lora_schedule(), sealed: each call's tokens
+       equal the static app's for the same rows, the swaps and the slot
+       table equal lora_schedule_swaps() after every call, nothing
+       captured, the host ms a swap takes."""
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+    from neuronx_distributed_inference_tpu_torch.models.llama import LLAMA_8B
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import bound_ms
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    t_phase = time.perf_counter()
+    H, Hq, Hkv, D = LLAMA_8B["hidden_size"], HEADS_8B["Hq"], HEADS_8B["Hkv"], HEADS_8B["D"]
+    L, V = len(params["layers"]), LLAMA_8B["vocab_size"]
+    widths = dict(q_proj=Hq * D, k_proj=Hkv * D, v_proj=Hkv * D, o_proj=H)
+    t0 = time.perf_counter()
+    adapters = lora_adapters(torch, L, H, widths)
+    torch.cuda.synchronize()
+    log(f"lora 8B: 8 seeded adapters (ranks {LORA_RANKS}, rsLoRA every second) made on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    names = lora_names()
+    prompts = np.random.RandomState(31).randint(0, V, size=(8, LORA_PROMPT))
+    out = {}
+
+    # 1. static slots
+    static = ModelForCausalLM(None, _config_lora()).load(params=lora_tree(params, Hq * D, Hkv * D))
+    t0 = time.perf_counter()
+    static.load_lora_adapters(adapters)
+    torch.cuda.synchronize()
+    attach_s = time.perf_counter() - t0
+    leaves = [e[k] for lp in static.params["layers"] for e in lp["self_attn"].values()
+              for k in ("lora_A", "lora_B", "lora_scaling")]
+    lora_bytes = _unique_bytes(leaves)
+    slot_bytes = lora_bytes / (len(LORA_RANKS) + 1)
+    log(f"lora 8B static: attach of 8 adapters {attach_s:.2f} s; adapter leaves {lora_bytes / 2**30:.3f} GiB "
+        f"({len(LORA_RANKS) + 1} slots of {slot_bytes / 1e6:.1f} MB, rank {LORA_RMAX} padded)")
+    rows = [None] + names[:7]
+    t0 = time.perf_counter()
+    static.warmup()
+    static.generate(prompts, max_new_tokens=LORA_NEW, lora_adapter_names=rows)  # the adapter keys' first use
+    for runner in static.runners:
+        runner.seal()
+    captures = static.graphs.captures
+    log(f"lora 8B static: warmup and a warm call {time.perf_counter() - t0:.2f} s, {captures} captures, sealed")
+    want = expect_launches(flash_attention=L, decode_attention=L * LORA_NEW)
+    with RetraceGuard():
+        seq, secs, counts = _lora_generate(torch, static, prompts, rows, LORA_NEW)
+        base_seq, base_secs, _ = _lora_generate(torch, static, prompts, [None] * 8, LORA_NEW)
+        alone = [_lora_generate(torch, static, prompts[i : i + 1], [rows[i]], LORA_NEW)[0][0] for i in range(8)]
+        ad8 = _lora_generate(torch, static, prompts[:1], [names[7]], LORA_NEW)[0][0]
+    if counts != want:
+        raise SystemExit(f"lora 8B static: launches {counts} != {want}")
+    if static.graphs.captures != captures:
+        raise SystemExit(f"lora 8B static: {static.graphs.captures - captures} captures after the seal")
+    gen = seq[:, LORA_PROMPT:]
+    if gen.shape != (8, LORA_NEW) or gen.min() < 0 or gen.max() >= V:
+        raise SystemExit(f"lora 8B static: bad tokens: shape {gen.shape}, range [{gen.min()}, {gen.max()}]")
+    for i in range(8):
+        if not np.array_equal(seq[i], alone[i]):
+            raise SystemExit(f"lora 8B static: row {i} ({rows[i]}) differs from the row alone")
+    turned = {}
+    for name, got, ref in [(rows[i], seq[i], base_seq[i]) for i in range(1, 8)] + [(names[7], ad8, base_seq[0])]:
+        diff = np.nonzero(got[LORA_PROMPT:] != ref[LORA_PROMPT:])[0]
+        if not len(diff) or diff[0] >= LORA_TURN:
+            raise SystemExit(f"lora 8B static: {name} does not turn its row within {LORA_TURN} tokens")
+        turned[name] = int(diff[0])
+    if not np.array_equal(seq[0], base_seq[0]):
+        raise SystemExit("lora 8B static: the base row differs from the base-only batch")
+    tok_s, base_tok_s = 8 * LORA_NEW / secs, 8 * LORA_NEW / base_secs
+    log(f"lora 8B static, batch 8 [base, ad1..ad7], {LORA_PROMPT} + {LORA_NEW} tokens: {secs * 1e3:.1f} ms, "
+        f"{tok_s:.1f} tok/s (generate() wall time, prefill included); base-only batch {base_tok_s:.1f} tok/s; "
+        f"launches {counts}; no capture after the seal; every row equals the row alone; each adapter turns "
+        f"its row at new token {turned}")
+    out.update(static_tok_s=tok_s, base_tok_s=base_tok_s, turned=turned, lora_bytes=lora_bytes,
+               attach_s=attach_s, launches={"flash_attention_lora": counts["flash_attention"],
+                                            "decode_attention_lora": counts["decode_attention"]})
+
+    # 2. the merged-weight oracle
+    t0 = time.perf_counter()
+    one = ModelForCausalLM(None, _config_lora(1, output_logits=True)).load(params=static.params)
+    one.lora_manager = static.lora_manager
+    ids = static.lora_manager.adapter_ids
+    plain_cfg = lambda **kw: _config(1, model=LLAMA_8B, fused_qkv=False, context_encoding_buckets=[128],  # noqa: E731
+                                     token_generation_buckets=[512], output_logits=True, **kw)
+    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
+    shared32 = dict(_map_tree({k: v for k, v in static.params.items() if k != "layers"}, lambda t: t.float()),
+                    layers=[{k: _map_tree(v, lambda t: t.float()) for k, v in lp.items() if k != "self_attn"}
+                            for lp in static.params["layers"]])
+    out["oracle"] = {}
+    for name in LORA_ORACLE:
+        row = rows.index(name)
+        s, other = ids[name], ids[names[names.index(name) - 1]]
+        k = _lora_forced_logits(torch, one, seq[row], LORA_PROMPT, s)
+        merged = _lora_merged(torch, static.params, s, torch.bfloat16)
+        pl = _forced_logits(torch, plain_cfg(), merged, seq[row], LORA_PROMPT)
+        del merged
+        merged32 = _lora_merged(torch, static.params, s, torch.float32, shared32)
+        f32 = plain_run(f"lora {name} fp32 merged", _forced_logits, torch, plain_cfg(dtype="float32", **off), merged32,
+                        seq[row], LORA_PROMPT)
+        del merged32
+        torch.cuda.empty_cache()
+        gate = _forced_gate(k, pl, f32, f"lora 8B {name} (rank {LORA_RANKS[s - 1]}) against its merged weights")
+        ctl = _lora_forced_logits(torch, one, seq[row], LORA_PROMPT, other)
+        gate["control"] = _forced_gate(ctl, pl, f32, f"  control: {name}'s row given slot {other}",
+                                       exit_on_fail=False)
+        if gate["control"]["passed"]:
+            raise SystemExit(f"lora 8B {name}: the control (another adapter's id) passes the oracle too")
+        c = gate["control"]
+        log(f"  lora 8B {name}: the control fails it (ratios max {c['kernel_vs_fp32'] / c['plain_vs_fp32']:.3f} "
+            f"rms {c['kernel_vs_fp32_rms'] / c['plain_vs_fp32_rms']:.3f})")
+        out["oracle"][name] = gate
+    del one, shared32
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lora 8B merged-weight oracle: {time.perf_counter() - t0:.1f} s")
+
+    # 3. the eager twin, the plain app, profiles
+    t0 = time.perf_counter()
+    twin = ModelForCausalLM(None, _config_lora(cuda_graphs=False)).load(params=static.params)
+    twin.lora_manager = static.lora_manager
+    twin_seq, twin_secs, twin_counts = _lora_generate(torch, twin, prompts, rows, LORA_NEW)
+    if not np.array_equal(twin_seq, seq) or twin_counts != counts:
+        raise SystemExit(f"lora 8B: the eager twin differs (counts {twin_counts} vs {counts})")
+    plain = ModelForCausalLM(None, _config(8, model=LLAMA_8B, context_encoding_buckets=[128],
+                                           token_generation_buckets=[512])).load(params=params).warmup()
+    plain.generate(prompts, max_new_tokens=LORA_NEW)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plain.generate(prompts, max_new_tokens=LORA_NEW)
+    plain_tok_s = 8 * LORA_NEW / (time.perf_counter() - t1)
+    unfused = ModelForCausalLM(None, _config(8, model=LLAMA_8B, fused_qkv=False, context_encoding_buckets=[128],
+                                             token_generation_buckets=[512])).load(
+        params=lora_tree(params, Hq * D, Hkv * D)).warmup()
+    unfused.generate(prompts, max_new_tokens=LORA_NEW)
+    all8 = np.arange(1, 9, dtype=np.int32)
+    prof = {
+        "8 adapters": phase_profile(torch, static, seq, LORA_PROMPT, label="lora 8B decode step, 8 distinct adapters",
+                                    adapter_ids=all8),
+        "base-only": phase_profile(torch, static, seq, LORA_PROMPT, label="lora 8B decode step, every row slot 0",
+                                   adapter_ids=np.zeros(8, np.int32)),
+        "unfused, no LoRA": phase_profile(torch, unfused, seq, LORA_PROMPT,
+                                          label="8B decode step, unfused q / k / v, no LoRA"),
+        "plain app": phase_profile(torch, plain, seq, LORA_PROMPT, label="plain 8B decode step (fused QKV, no LoRA)"),
+    }
+    lora_ms, grown = lora_step_share(prof)
+    per_proj = lora_delta_times(torch, static.params, list(range(1, 9)))
+    base_bytes = _unique_bytes({k: v for k, v in params.items() if k != "embed_tokens"}) + H * 2 * 8
+    kv_bytes = sum(2 * L * Hkv * D * 2 * (LORA_PROMPT + 2 + PROFILE_STEPS) for _ in range(8))
+    ad_bytes = L * sum(r * sum(widths[m] + (H if m != "o_proj" else Hq * D) for m in widths) for r in LORA_RANKS) * 2
+    step_bound = bound_ms(base_bytes + kv_bytes + ad_bytes, 0)[0]
+    busy = prof["8 adapters"]["device_busy_ms"]
+    log(f"lora 8B: graphs on vs off: tokens identical, launch counts equal; eager {8 * LORA_NEW / twin_secs:.1f} "
+        f"tok/s; plain 8B app (fused QKV, no LoRA) {plain_tok_s:.1f} tok/s (generate() wall time, batch 8)")
+    unfused_busy = prof["unfused, no LoRA"]["device_busy_ms"]
+    log(f"lora 8B decode step, batch 8, 8 distinct adapters: device busy {busy:.3f} ms (base-only "
+        f"{prof['base-only']['device_busy_ms']:.3f}, unfused q / k / v without LoRA {unfused_busy:.3f}, plain app "
+        f"{prof['plain app']['device_busy_ms']:.3f}); byte bound {step_bound:.3f} ms (base weights "
+        f"{base_bytes / 2**30:.3f} GiB, KV {kv_bytes / 2**20:.1f} MiB, adapters at their ranks {ad_bytes / 2**20:.1f} "
+        f"MiB)")
+    log(f"  LoRA's delta from the profiles: {lora_ms:.3f} ms a step ({lora_ms / busy:.3f} of the busy time; busy "
+        f"less the unfused app's); the unfused q / k / v {unfused_busy - prof['plain app']['device_busy_ms']:.3f} ms "
+        f"a step over the fused app; kernels grown, ms a step: " + ", ".join(
+            f"{n[:60]} {d:.4f}" for n, d in grown[:8]) + f" (all grown {sum(d for _, d in grown):.3f})")
+    log("  each projection's delta timed alone, L2 evicted before each call, one layer: " + ", ".join(
+        f"{m} {ms:.4f} ms (bound {b:.5f})" for m, (ms, b) in per_proj.items()))
+    out.update(plain_tok_s=plain_tok_s, eager_tok_s=8 * LORA_NEW / twin_secs, step_bound_ms=step_bound,
+               lora_ms_per_step=lora_ms, lora_share=lora_ms / busy, per_projection=per_proj,
+               profiles={k: {n: v for n, v in p.items() if n != "busy_ms_per_step"} for k, p in prof.items()})
+    del twin, plain, unfused
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lora 8B eager twin, plain app and profiles: {time.perf_counter() - t0:.1f} s")
+
+    # 4. the dynamic cache
+    t0 = time.perf_counter()
+    dyn_cfg = dict(max_loras=LORA_DYN_SLOTS, max_lora_rank=LORA_RMAX, max_loras_on_cpu=len(LORA_RANKS))
+    dyn = ModelForCausalLM(None, _config_lora(lora_config=dyn_cfg)).load(params=lora_tree(params, Hq * D, Hkv * D))
+    dyn.load_lora_adapters(adapters, dynamic=True)
+    del adapters
+    dyn.warmup()
+    p4 = prompts[:LORA_DYN_ROWS]
+    dyn.generate(p4, max_new_tokens=LORA_DYN_NEW, lora_adapter_names=[None] * LORA_DYN_ROWS)  # first use
+    for runner in dyn.runners:
+        runner.seal()
+    captures = dyn.graphs.captures
+    schedule = lora_schedule()
+    expected = lora_schedule_swaps(schedule, LORA_DYN_SLOTS)
+    mgr = dyn.lora_manager
+    swap_ms, dyn_secs = [], 0.0
+    with RetraceGuard():
+        for c, (call, (n_swaps, table)) in enumerate(zip(schedule, expected)):
+            before = mgr.swaps
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            mgr.ensure_on_device(dyn.params, call)
+            torch.cuda.synchronize()
+            if mgr.swaps > before:
+                swap_ms.append((time.perf_counter() - t1) * 1e3 / (mgr.swaps - before))
+            got, secs_c, dyn_counts = _lora_generate(torch, dyn, p4, call, LORA_DYN_NEW)
+            dyn_secs += secs_c
+            ref = static.generate(p4, max_new_tokens=LORA_DYN_NEW, lora_adapter_names=call).sequences
+            if not np.array_equal(got, ref):
+                raise SystemExit(f"lora 8B dynamic: call {c} {call}: tokens differ from the static app's")
+            if mgr.swaps != n_swaps or mgr.slot_of != table:
+                raise SystemExit(f"lora 8B dynamic: call {c}: swaps {mgr.swaps} / slots {mgr.slot_of} != "
+                                 f"{n_swaps} / {table}")
+            if dyn_counts != expect_launches(flash_attention=L, decode_attention=L * LORA_DYN_NEW):
+                raise SystemExit(f"lora 8B dynamic: call {c}: launches {dyn_counts}")
+    if dyn.graphs.captures != captures:
+        raise SystemExit(f"lora 8B dynamic: {dyn.graphs.captures - captures} captures after the seal")
+    log(f"lora 8B dynamic ({LORA_DYN_SLOTS} slots, 8 adapters on the host): {LORA_DYN_CALLS} calls of "
+        f"{LORA_DYN_ROWS} rows, {LORA_PROMPT} + {LORA_DYN_NEW} tokens, each equal to the static app's rows; "
+        f"{mgr.swaps} swaps (the manager's logic on the schedule: {expected[-1][0]}); no capture after the seal; "
+        f"a swap {np.mean(swap_ms):.1f} ms on the host (median {np.median(swap_ms):.1f}, {len(swap_ms)} calls "
+        f"swapped; {slot_bytes / 1e6:.1f} MB a slot from fp32 host stacks); "
+        f"{LORA_DYN_CALLS * LORA_DYN_ROWS * LORA_DYN_NEW / dyn_secs:.1f} tok/s over the calls; "
+        f"{time.perf_counter() - t0:.1f} s")
+    out.update(swaps=mgr.swaps, swap_ms=float(np.mean(swap_ms)))
+    del dyn, static
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"lora 8B: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -8853,6 +9368,10 @@ def main():
     torch.cuda.empty_cache()
     int4_8b = timed("int4 8B generate", phase_int4_8b, torch)
     eagle = timed("eagle, trees and medusa on 8B", phase_eagle_8b, torch)
+    times.update(timed("lora kernel times", lora_kernel_times, torch, fa, da))
+    lora = timed("lora on 8B", phase_lora_8b, torch, fa, da, eagle.pop("params"))
+    gc.collect()
+    torch.cuda.empty_cache()
     timed("int8 1B generate", phase_int8_1b, torch)
     timed("int4 ragged serving", phase_int4_ragged, torch)
     qwen3 = timed("qwen3-30b-a3b generate", phase_qwen3_moe, torch)
@@ -8982,6 +9501,13 @@ def main():
          "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", eagle["launches"]),
         ("flash_attention_eagle", ("flash_attention", "eagle"), "csrc/flash_attention.cu",
          "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", eagle["launches"]),
+        # multi-adapter LoRA on Llama-3.1-8B: B2a at the batch-8 prefill (128
+        # tokens) and B1 at its decode (batch 8, bucket 512), launches of the
+        # static batch-8 generate() with 7 adapters and the base row
+        ("flash_attention_lora", ("flash_attention", "lora"), "csrc/flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", lora["launches"]),
+        ("decode_attention_lora", ("decode_attention", "lora"), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", lora["launches"]),
         # GPT-OSS-20B (heads 64 / 8 of 64, sinks): B2b with the window 128
         # and the sink at S = 128, the window-0 program generate() runs (S =
         # 256, where the window bites, is checked and logged only), and B1

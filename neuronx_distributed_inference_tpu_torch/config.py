@@ -17,6 +17,7 @@ comparison). On the CPU the runners run eagerly whatever it says.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -106,12 +107,50 @@ class ChunkedPrefillConfig:
     kernel_q_tile_size: int = 128
 
 
+#: the gated MLP's projections: LoRA targets the port refuses (no MLP of
+#: the reference applies an adapter attached to them)
+LORA_MLP_MODULES = ("gate_proj", "up_proj", "down_proj")
+
+
+@dataclass
+class LoraServingConfig:
+    """Multi-adapter LoRA serving (reference LoraServingConfig;
+    ``modules/lora.py``). ``max_loras`` device slots (slot 0 is the zero
+    adapter besides them), ranks up to ``max_lora_rank``; the dynamic cache
+    keeps ``max_loras_on_cpu`` adapters on the host beyond the resident
+    ones. Adapters are stored in ``Config.dtype``, as in the reference,
+    which reads its ``lora_dtype`` nowhere: the port keeps the name and
+    refuses any value but its default or ``Config.dtype``. The reference's
+    ``lora_ckpt_paths`` (read only by its demo CLI) has no counterpart:
+    adapters are given to ``load_lora_adapters``."""
+
+    max_loras: int = 1
+    max_lora_rank: int = 16
+    max_loras_on_cpu: int = 2
+    lora_dtype: str = "bfloat16"
+    target_modules: Tuple[str, ...] = ("q_proj", "k_proj", "v_proj", "o_proj")
+
+    def to_dict(self):
+        d = dataclasses.asdict(self)
+        d["target_modules"] = list(self.target_modules)
+        return d
+
+    @classmethod
+    def from_dict(cls, d):
+        d = dict(d)
+        unknown = sorted(set(d) - {f.name for f in dataclasses.fields(cls)})
+        if unknown:
+            raise ValueError(f"Unknown {cls.__name__} key(s): {unknown}")
+        if "target_modules" in d:
+            d["target_modules"] = tuple(d["target_modules"])
+        return cls(**d)
+
+
 #: settings outside the ported slice -> (inert value, ROADMAP item)
 _NOT_PORTED: Dict[str, Tuple[Any, str]] = {
     "tp_degree": (1, "A10 (parallelism)"),
     "ep_degree": (1, "A10 (parallelism: expert parallelism)"),
     "quantized_checkpoints_path": (None, "A11 (quantized checkpoint artifacts)"),
-    "lora_config": (None, "A9 (LoRA and other model families)"),
 }
 
 #: the reference's role flags that it accepts for API parity and refuses
@@ -272,11 +311,13 @@ class Config:
     # its own block of this many positions; the cache keeps full lines
     attention_chunk_size: Optional[int] = None
 
+    # --- LoRA (modules/lora.py); a dict is read by LoraServingConfig.from_dict
+    lora_config: Optional[LoraServingConfig] = None
+
     # --- not ported yet (validated, then refused) --------------------------
     tp_degree: int = 1
     ep_degree: int = 1
     quantized_checkpoints_path: Optional[str] = None
-    lora_config: Optional[Any] = None
 
     # --- misc ------------------------------------------------------------
     # seal the warmed programs after warmup(): a later graph capture raises
@@ -315,6 +356,8 @@ class Config:
             )
         if isinstance(self.chunked_prefill_config, dict):
             self.chunked_prefill_config = ChunkedPrefillConfig(**self.chunked_prefill_config)
+        if isinstance(self.lora_config, dict):
+            self.lora_config = LoraServingConfig.from_dict(self.lora_config)
         self.validate()
 
     @property
@@ -351,6 +394,7 @@ class Config:
             raise ValueError("batch_size and seq_len must be >= 1")
         self._validate_serving()
         self._validate_speculation()
+        self._validate_lora()
         for name, (inert, item) in _NOT_PORTED.items():
             if getattr(self, name) != inert:
                 raise NotImplementedError(
@@ -364,6 +408,34 @@ class Config:
                     f"implemented yet ({reason}); refusing to silently ignore it"
                 )
         resolve_device(self.device)
+
+    def _validate_lora(self):
+        """The reference's refusal of fused_qkv with LoRA (config.py:856-858),
+        word for word, then the port's of MLP targets (the reference
+        attaches them and no MLP applies them) and of a ``lora_dtype`` that
+        would be ignored (adapters are stored in ``dtype``)."""
+        if self.lora_config is None:
+            return
+        if self.fused_qkv:
+            raise NotImplementedError(
+                "fused_qkv with LoRA serving is not supported: adapters "
+                "target q/k/v projections individually"
+            )
+        mlp = [m for m in self.lora_config.target_modules if m in LORA_MLP_MODULES]
+        if mlp:
+            raise NotImplementedError(
+                f"LoRA target_modules {mlp}: no MLP applies an adapter in the reference, which "
+                "attaches them and serves the base MLP; refused, not skipped (ROADMAP C (LoRA on "
+                "MLP modules))"
+            )
+        lora_dtype = self.lora_config.lora_dtype
+        default = LoraServingConfig.lora_dtype
+        if to_dtype(lora_dtype) not in (to_dtype(default), to_dtype(self.dtype)):
+            raise NotImplementedError(
+                f"LoraServingConfig.lora_dtype={lora_dtype!r}: adapters are stored in "
+                f"Config.dtype ({self.dtype!r}) as in the reference, which reads lora_dtype "
+                "nowhere; refused, not ignored (ROADMAP C (LoraServingConfig.lora_dtype))"
+            )
 
     def _validate_speculation(self):
         """The reference's cross-checks of the EAGLE, token-tree and Medusa

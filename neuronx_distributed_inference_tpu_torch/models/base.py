@@ -224,6 +224,8 @@ class StepInputs:
     # a whole attention mask (B, 1, S, bucket), used as it is: a tree's
     # ancestry mask placed at the cache tail
     mask_override: Optional[torch.Tensor] = None
+    # (B,) LoRA adapter slot of each row (modules/lora.py; 0 = the base model)
+    adapter_ids: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -417,12 +419,14 @@ def paged_attend(
 
 
 def _plain_weight(entry) -> bool:
-    """True when a projection entry is a plain unquantized, bias-free
-    weight the fused kernels can stream directly."""
+    """True when a projection entry is a plain unquantized, un-LoRA'd,
+    bias-free weight the fused kernels can stream directly (an entry with
+    adapters attached is not, whether a step passes adapter ids or not)."""
     return (
         isinstance(entry, dict)
         and "weight" in entry
         and "scale" not in entry
+        and "lora_A" not in entry
         and "bias" not in entry
     )
 
@@ -453,15 +457,18 @@ def _fused_attn_eligible(layer_params: dict, mask, spec: ModelSpec, cos, k_cache
     )
 
 
-def _decoder_layer_mlp(layer_params: dict, hidden, spec: ModelSpec, mlp_fn: Callable, fused_ok: bool):
+def _decoder_layer_mlp(
+    layer_params: dict, hidden, spec: ModelSpec, mlp_fn: Callable, fused_ok: bool, adapter_ids=None
+):
     """Post-attention norm, MLP and residual; through the fused MLP block B9
-    when the step, the MLP (a gated MLP of plain weights) and
-    ``kernel_mode.use_fused_mlp`` allow it (the reference's
+    when the step (no adapter ids), the MLP (a gated MLP of plain weights)
+    and ``kernel_mode.use_fused_mlp`` allow it (the reference's
     ``_decoder_layer_mlp``)."""
     mp = layer_params["mlp"]
     if (
         fused_ok
         and mlp_fn is gated_mlp
+        and adapter_ids is None
         and use_fused_mlp(spec)
         and all(_plain_weight(mp.get(k)) for k in ("gate_proj", "up_proj", "down_proj"))
     ):
@@ -509,6 +516,9 @@ def decoder_layer(
     # False when the model has a window, a chunk or a sink anywhere
     # (plain_attention)
     plain_model: bool = True,
+    # (B,) LoRA adapter slot of each row: the attention projections add
+    # its delta (modules/lora.py)
+    adapter_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One decoder layer, write-then-attend: this layer's new K/V go into the
     full stacked cache first (in place; through ``slot_mapping`` on the
@@ -537,12 +547,12 @@ def decoder_layer(
         k_cache, v_cache = update_cache_at_layer(
             k_cache, v_cache, k_new, v_new, layer_idx, slot_ids, positions
         )
-        return _decoder_layer_mlp(layer_params, hidden, spec, mlp_fn, fused_ok), k_cache, v_cache
+        return _decoder_layer_mlp(layer_params, hidden, spec, mlp_fn, fused_ok, adapter_ids), k_cache, v_cache
     residual = hidden
     hidden = apply_norm(
         hidden, layer_params["input_layernorm"]["weight"], spec.rms_eps, spec.norm_type
     )
-    q, k, v = qkv_project(layer_params["self_attn"], hidden, cos, sin, aspec)
+    q, k, v = qkv_project(layer_params["self_attn"], hidden, cos, sin, aspec, adapter_ids)
     sink = layer_params["self_attn"].get("sink", {}).get("weight") if aspec.has_sink else None
     if ring is not None and phase != PHASE_CONTEXT_ENCODING:
         # attend the prior ring (views of the cache) before the writes land
@@ -551,7 +561,7 @@ def decoder_layer(
         k_cache, v_cache = update_cache_at_layer(
             k_cache, v_cache, k, v, layer_idx, slot_ids, ring_positions(positions, ring)
         )
-        return _finish_layer(layer_params, residual, attn_out, spec, mlp_fn, fused_ok), k_cache, v_cache
+        return _finish_layer(layer_params, residual, attn_out, spec, mlp_fn, fused_ok, adapter_ids), k_cache, v_cache
     if block_inputs is not None:
         k_cache, v_cache = update_block_cache_at_layer(
             k_cache, v_cache, k, v, layer_idx, block_inputs[0]
@@ -586,13 +596,15 @@ def decoder_layer(
         attn_out = contiguous_decode_attend(
             q, k_cache, v_cache, layer_idx, mask, spec, aspec, sink
         )
-    return _finish_layer(layer_params, residual, attn_out, spec, mlp_fn, fused_ok), k_cache, v_cache
+    return _finish_layer(layer_params, residual, attn_out, spec, mlp_fn, fused_ok, adapter_ids), k_cache, v_cache
 
 
-def _finish_layer(layer_params: dict, residual, attn_out, spec: ModelSpec, mlp_fn: Callable, fused_ok: bool):
+def _finish_layer(
+    layer_params: dict, residual, attn_out, spec: ModelSpec, mlp_fn: Callable, fused_ok: bool, adapter_ids=None
+):
     """o projection and residual, then the MLP half."""
-    hidden = residual + o_project(layer_params["self_attn"], attn_out, spec.attn)
-    return _decoder_layer_mlp(layer_params, hidden, spec, mlp_fn, fused_ok)
+    hidden = residual + o_project(layer_params["self_attn"], attn_out, spec.attn, adapter_ids)
+    return _decoder_layer_mlp(layer_params, hidden, spec, mlp_fn, fused_ok, adapter_ids)
 
 
 def build_mask(
@@ -779,8 +791,8 @@ def run_decoder_layers(
     # the step-level conditions of the fused decode kernels (the reference's
     # fused_eligible): decode over the contiguous full-length cache at
     # contiguous write positions (B8 builds its own causal mask and ropes at
-    # the write position: no tree's rope or mask); the mixed step
-    # (mixed_forward) never reaches here
+    # the write position: no tree's rope or mask), no adapter ids; the mixed
+    # step (mixed_forward) never reaches here
     fused_ok = (
         phase != PHASE_CONTEXT_ENCODING
         and not is_block
@@ -788,7 +800,11 @@ def run_decoder_layers(
         and not interleaved
         and inputs.rope_position_ids is None
         and inputs.mask_override is None
+        and inputs.adapter_ids is None
     )
+    # the adapter ids reach the layers that take them (the shared decoder
+    # layer; the custom layers belong to families that refuse LoRA)
+    lora_kw = {} if inputs.adapter_ids is None else {"adapter_ids": inputs.adapter_ids}
     captured = [None] * len(capture_layers) if capture_layers is not None else None
     if interleaved:
         streams = {
@@ -811,6 +827,7 @@ def run_decoder_layers(
             layer_params, hidden, cos, sin, k_cache, v_cache, idx, flavor_masks[w, c], slot_ids,
             positions, spec, phase, _pick(mlp_fn, fn_idx[li]), key_valid=key_valid,
             block_inputs=block_inputs, fused_ok=fused_ok, window=w, chunk=c, ring=ring, plain_model=plain_model,
+            **lora_kw,
         )
         if interleaved:
             streams[w is not None] = (k_cache, v_cache)
@@ -883,6 +900,7 @@ class DecodeState:
     sampling_params: torch.Tensor  # (B, 3) float32
     cols: torch.Tensor  # (1, bucket) int32 arange: the mask is cols <= pos
     block_table: Optional[torch.Tensor] = None  # (B, MB) on the paged cache
+    adapter_ids: Optional[torch.Tensor] = None  # (B,) LoRA slots
 
 
 def decode_step(
@@ -907,6 +925,7 @@ def decode_step(
         seq_ids=st.seq_ids,
         sampling_params=st.sampling_params,
         block_table=st.block_table,
+        adapter_ids=st.adapter_ids,
     )
     logits, _ = model_logits(
         params, cache, inputs, spec=spec, phase=PHASE_TOKEN_GENERATION, mlp_fn=mlp_fn, layer_fn=layer_fn

@@ -97,7 +97,10 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
     / ``q_b_proj`` (or ``q_proj``), ``kv_a_proj``, ``kv_a_layernorm``,
     ``k_absorb``, ``v_absorb``, the router's ``e_score_correction_bias``
     and the ``shared_experts`` (separate or fused ``gate_up_proj``), and
-    Llama4's per-run stacks (a run of rope or NoPE layers, dense or MoE)."""
+    Llama4's per-run stacks (a run of rope or NoPE layers, dense or MoE).
+    A LoRA-attached tree's ``lora_A`` (L, N, in, r) and ``lora_B`` (L, N,
+    r, out) take ``dtype`` and its ``lora_scaling`` (L, N) stays fp32, as
+    ``modules/lora.attach_lora_params`` stores them."""
 
     def conv(t, path):
         if isinstance(t, dict):
@@ -112,7 +115,7 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
             return torch.from_numpy(np.array(a).view(np.uint8)).view(code).to(device)
         if a.dtype.kind in "iu":
             return torch.from_numpy(np.array(a)).to(device)
-        fp32 = path == ("rope", "inv_freq") or path[-1] == "scale"
+        fp32 = path == ("rope", "inv_freq") or path[-1] in ("scale", "lora_scaling")
         return _to_torch(a, torch.float32 if fp32 else dtype, device)
 
     return conv(tree, ())

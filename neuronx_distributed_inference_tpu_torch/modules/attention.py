@@ -3,7 +3,8 @@
 
 - :func:`qkv_project` / :func:`o_project` — projections with RoPE applied,
   through ``ops/quant.linear`` (plain, int8/fp8 or packed int4 weights),
-  with the q/k/v and o biases of Qwen2 and GPT-OSS (``AttnSpec.qkv_bias``
+  each row's LoRA delta added first when ``adapter_ids`` is given
+  (``modules/lora.apply_lora``), then the q/k/v and o biases of Qwen2 and GPT-OSS (``AttnSpec.qkv_bias``
   / ``o_bias``), DBRX's clamp of q, k and v (``AttnSpec.qkv_clip``) and the
   per-head q/k RMSNorm of Qwen3 (``AttnSpec.qk_norm``) before RoPE.
 - :func:`attention_prefill` — context-encoding attention: the B2 flash
@@ -22,6 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from neuronx_distributed_inference_tpu_torch.modules.lora import apply_lora
 from neuronx_distributed_inference_tpu_torch.modules.norm import rms_norm
 from neuronx_distributed_inference_tpu_torch.modules.rope import apply_rope
 from neuronx_distributed_inference_tpu_torch.ops.kernel_mode import use_flash
@@ -73,6 +75,7 @@ def qkv_project(
     cos: torch.Tensor,
     sin: torch.Tensor,
     spec: AttnSpec,
+    adapter_ids: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """hidden (B,S,H) -> q (B,S,Hq,D), k,v (B,S,Hkv,D), with RoPE applied.
 
@@ -81,7 +84,8 @@ def qkv_project(
     ``spec.qk_norm`` q and k take a per-head RMSNorm (weights ``q_norm`` /
     ``k_norm``, shape (D,)) before RoPE, on either layout. ``spec.qkv_clip``
     clamps q, k and v after the projection (and its bias), on either
-    layout, as the reference does."""
+    layout, as the reference does. ``adapter_ids`` (B,) adds each row's LoRA
+    delta to q, k and v before all of these (LoRA refuses fused_qkv)."""
     B, S, _ = hidden.shape
     q_sz = spec.num_heads * spec.head_dim
     kv_sz = spec.num_kv_heads * spec.head_dim
@@ -91,9 +95,9 @@ def qkv_project(
             fused = fused + params["qkv_proj"]["bias"]
         q, k, v = torch.split(fused, [q_sz, kv_sz, kv_sz], dim=-1)
     else:
-        q = linear(params["q_proj"], hidden)
-        k = linear(params["k_proj"], hidden)
-        v = linear(params["v_proj"], hidden)
+        q = apply_lora(params["q_proj"], hidden, linear(params["q_proj"], hidden), adapter_ids)
+        k = apply_lora(params["k_proj"], hidden, linear(params["k_proj"], hidden), adapter_ids)
+        v = apply_lora(params["v_proj"], hidden, linear(params["v_proj"], hidden), adapter_ids)
         if spec.qkv_bias:
             q = q + params["q_proj"]["bias"]
             k = k + params["k_proj"]["bias"]
@@ -110,10 +114,14 @@ def qkv_project(
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def o_project(params: dict, attn_out: torch.Tensor, spec: Optional[AttnSpec] = None) -> torch.Tensor:
-    """(B,S,Hq,D) -> (B,S,H), plus the o bias when ``spec.o_bias``."""
+def o_project(
+    params: dict, attn_out: torch.Tensor, spec: Optional[AttnSpec] = None, adapter_ids: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """(B,S,Hq,D) -> (B,S,H): each row's LoRA delta with ``adapter_ids``,
+    then the o bias when ``spec.o_bias``."""
     B, S, Hq, D = attn_out.shape
-    out = linear(params["o_proj"], attn_out.reshape(B, S, Hq * D))
+    flat = attn_out.reshape(B, S, Hq * D)
+    out = apply_lora(params["o_proj"], flat, linear(params["o_proj"], flat), adapter_ids)
     if spec is not None and spec.o_bias:
         out = out + params["o_proj"]["bias"]
     return out

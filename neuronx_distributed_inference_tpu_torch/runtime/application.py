@@ -24,6 +24,17 @@ key's program is captured as a CUDA graph at first use (``warmup()``
 captures every bucket) and replayed after; ``cuda_graphs=False`` runs them
 eagerly. Sampling (``do_sample``) draws from the app's ``torch.Generator``,
 seeded from ``Config.seed`` and advanced once per ``generate()`` call.
+
+Multi-adapter LoRA (``lora_config``; ``modules/lora.py``):
+:meth:`ModelForCausalLM.load_lora_adapters` attaches adapter slots to the
+loaded params (static, or the dynamic host cache), and ``generate(...,
+lora_adapter_names=[...])`` serves one adapter (or None, the base model) a
+row. A step with adapter ids is a runner key of its own. Attaching changes
+the programs the params define, so it drops every graph captured before
+it, and refuses once the runners are sealed; a dynamic swap writes slots in
+place and keeps every graph valid. The serving sessions and speculation
+take no adapter ids, as in the reference: on a LoRA app they serve the base
+model.
 """
 
 from __future__ import annotations
@@ -34,7 +45,7 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from neuronx_distributed_inference_tpu_torch.config import InferenceConfig
+from neuronx_distributed_inference_tpu_torch.config import InferenceConfig, to_dtype
 from neuronx_distributed_inference_tpu_torch.models import get_model_builder
 from neuronx_distributed_inference_tpu_torch.models.base import (
     PHASE_CONTEXT_ENCODING,
@@ -44,6 +55,11 @@ from neuronx_distributed_inference_tpu_torch.models.base import (
 from neuronx_distributed_inference_tpu_torch.modules import autobucketing
 from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import guard_enabled
 from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import BlockKVCache
+from neuronx_distributed_inference_tpu_torch.modules.lora import (
+    DynamicLoraManager,
+    LoraWeightManager,
+    attach_lora_params,
+)
 from neuronx_distributed_inference_tpu_torch.modules.kvcache import (
     PAD_POSITION_SENTINEL,
     KVCache,
@@ -165,6 +181,7 @@ class ModelForCausalLM:
         self.graphs: Optional[GraphSet] = None
         self._rng = torch.Generator(device=self.device)
         self._rng_calls = 0
+        self.lora_manager: Optional[LoraWeightManager] = None
 
     # ---- weights / cache -------------------------------------------------
 
@@ -195,14 +212,79 @@ class ModelForCausalLM:
                 params = prepare_int4_params(params, tc)
         self.params = prepare_params(params)
         self.kv_cache = None
+        self.lora_manager = None
         self.init_kv_cache()
-        # new params: every program is captured anew, against them
+        self._new_graphs()
+        return self
+
+    def _new_graphs(self):
+        """New params, or new programs over them: every runner takes a new
+        graph set, so each program is captured anew, and the seal waits for
+        the next warmup()."""
         if self.graphs is not None:
             self.graphs.close()
         self.graphs = GraphSet(self.device, self.config.torch_config.cuda_graphs)
         for runner in self._all_runners():
             runner.bind_graphs(self.graphs)
+
+    # ---- LoRA adapters -----------------------------------------------------
+
+    def load_lora_adapters(self, adapters=None, dynamic: bool = False):
+        """Attach multi-adapter LoRA weights (the reference's
+        ``load_lora_adapters``).
+
+        ``adapters``: {adapter_name: PEFT-format state dict | directory path
+        | (state dict, adapter config)}, stored in ``Config.dtype``.
+        ``dynamic``: serve MORE adapters than device slots, through a host
+        cache with LRU slot eviction (:class:`~..modules.lora.DynamicLoraManager`);
+        register more with :meth:`register_lora_adapter` at any time.
+
+        The attach adds leaves to the params the graphs were captured over:
+        a graph captured before it would replay the program without them, so
+        every graph is dropped (and captured anew at first use), and a
+        sealed app refuses."""
+        tc = self.config.torch_config
+        if tc.lora_config is None:
+            raise ValueError("lora_config must be set to serve LoRA adapters")
+        if self.params is None:
+            raise RuntimeError("call load() before load_lora_adapters()")
+        if any(runner.sealed for runner in self._all_runners()):
+            raise RuntimeError(
+                "load_lora_adapters() on a sealed app: attaching adapters changes the captured "
+                "programs; attach them before warmup() and the seal"
+            )
+        adapters = adapters or {}
+        dtype = to_dtype(tc.dtype)
+        if dynamic:
+            self.lora_manager = DynamicLoraManager(tc.lora_config)
+            attach_lora_params(self.params, {}, self.lora_manager, self.spec.num_layers, dtype=dtype, init_all=True)
+        else:
+            self.lora_manager = LoraWeightManager(tc.lora_config)
+            attach_lora_params(self.params, adapters, self.lora_manager, self.spec.num_layers, dtype=dtype)
+        self._new_graphs()
+        if dynamic:
+            for name, value in adapters.items():
+                self.register_lora_adapter(name, value)
         return self
+
+    def register_lora_adapter(self, name: str, value):
+        """Host-register an adapter for dynamic serving (preprocessed into
+        the host cache; written into a device slot on first use)."""
+        if not isinstance(self.lora_manager, DynamicLoraManager):
+            raise RuntimeError("register_lora_adapter needs load_lora_adapters(dynamic=True)")
+        self.lora_manager.register_cpu(name, value, self.params, self.spec.num_layers)
+        return self
+
+    def resolve_adapter_ids(self, adapter_names) -> Optional[np.ndarray]:
+        """Adapter names (None = the base model) -> slot ids (B,) int32; the
+        dynamic cache first writes any missing adapter into a slot, in place."""
+        if adapter_names is None:
+            return None
+        if self.lora_manager is None:
+            raise RuntimeError("no LoRA adapters loaded (call load_lora_adapters)")
+        if isinstance(self.lora_manager, DynamicLoraManager):
+            self.params = self.lora_manager.ensure_on_device(self.params, adapter_names)
+        return self.lora_manager.resolve(adapter_names)
 
     def _all_runners(self):
         return self.runners + ([self.mixed_step_model] if self.mixed_step_model is not None else [])
@@ -368,7 +450,7 @@ class ModelForCausalLM:
             )
         return windowed
 
-    def _windowed_prefill(self, input_ids, attention_mask, seq_ids, sampling_params):
+    def _windowed_prefill(self, input_ids, attention_mask, seq_ids, sampling_params, adapter_ids=None):
         """Prefill a prompt LONGER than one context program in windows (the
         reference's ``_windowed_prefill``): window 0 through the context
         program, every later window as a multi-token token-generation pass
@@ -378,7 +460,8 @@ class ModelForCausalLM:
         tokens carry sentinel positions that drop their writes and mask
         their reads. On a ring cache the windows are at most W long and the
         width carrier of the bounded cache is its W slots. Returns (first
-        tokens (B, 1) int32 on the device, first logits (B, 1, V) | None)."""
+        tokens (B, 1) int32 on the device, first logits (B, 1, V) | None).
+        ``adapter_ids`` (B,) ride every window."""
         B, S_in = input_ids.shape
         C = self._prefill_window()
         ctx_lens = attention_mask.sum(axis=1).astype(np.int64)
@@ -388,7 +471,7 @@ class ModelForCausalLM:
         n0 = min(C, S_in)
         pos0 = np.tile(np.arange(n0, dtype=np.int32), (B, 1))
         inputs, _ = self.context_encoding_model.prepare(
-            input_ids[:, :n0], attention_mask[:, :n0], pos0, seq_ids, sampling_params
+            input_ids[:, :n0], attention_mask[:, :n0], pos0, seq_ids, sampling_params, adapter_ids=adapter_ids
         )
         out = self.context_encoding_model(self.params, self.kv_cache, inputs, self._rng)
         rows = ctx_lens <= n0
@@ -411,7 +494,7 @@ class ModelForCausalLM:
             # queries off the junk columns
             width = self.spec.bounded_window or autobucketing.get_target_bucket(tkg.buckets, end)
             mask = np.ones((B, width), np.int32)
-            inputs, _ = tkg.prepare(ids, mask, pos, seq_ids, sampling_params)
+            inputs, _ = tkg.prepare(ids, mask, pos, seq_ids, sampling_params, adapter_ids=adapter_ids)
             out = tkg(self.params, self.kv_cache, inputs, self._rng)
             rows = (ctx_lens > start) & (ctx_lens <= end)
             if rows.any():
@@ -437,10 +520,13 @@ class ModelForCausalLM:
         top_p=None,
         temperature=None,
         seq_ids: Optional[np.ndarray] = None,
+        lora_adapter_names=None,
     ) -> GenerationOutput:
         """Greedy or sampled generation. input_ids (B, S); attention_mask
         (B, S) 1 = valid (the prompt is read through it, right- or
-        left-padded alike, as in the reference)."""
+        left-padded alike, as in the reference). ``lora_adapter_names`` (B,)
+        names each row's adapter (None: the base model); they resolve to
+        slot ids once, before the prefill, and ride every step."""
         tc = self.config.torch_config
         if tc.is_block_kv_layout:
             raise NotImplementedError(
@@ -460,16 +546,19 @@ class ModelForCausalLM:
         n_new = min(tc.seq_len, S_in + max_new_tokens) - S_in
         if n_new <= 0:
             return GenerationOutput(sequences=input_ids, num_generated=0)
+        adapter_ids = self.resolve_adapter_ids(lora_adapter_names)
         ctx_lens = attention_mask.sum(axis=1).astype(np.int32)
 
         if windowed:
-            first_tokens, first_logits = self._windowed_prefill(input_ids, attention_mask, seq_ids, sampling_params)
+            first_tokens, first_logits = self._windowed_prefill(
+                input_ids, attention_mask, seq_ids, sampling_params, adapter_ids
+            )
         else:
             # prefill: positions are slot indices [0, S); padded slots write
             # into the masked tail
             position_ids = np.tile(np.arange(S_in, dtype=np.int32), (B, 1))
             inputs, _ = self.context_encoding_model.prepare(
-                input_ids, attention_mask, position_ids, seq_ids, sampling_params
+                input_ids, attention_mask, position_ids, seq_ids, sampling_params, adapter_ids=adapter_ids
             )
             out = self.context_encoding_model(self.params, self.kv_cache, inputs, gen_rng)
             first_tokens = out.tokens[:B]  # device (B, 1)
@@ -497,7 +586,7 @@ class ModelForCausalLM:
                 chunk, take, bucket = next_chunk(False)
                 tokens_c, logits_c, self.kv_cache = self.token_generation_model.decode_chunk(
                     self.params, self.kv_cache, last, pos[:, None], seq_ids, sampling_params,
-                    num_steps=chunk, bucket=bucket, generator=gen_rng,
+                    num_steps=chunk, bucket=bucket, generator=gen_rng, adapter_ids=adapter_ids,
                 )
                 token_chunks.append(tokens_c[:B, :take])
                 if self.spec.output_logits:
@@ -526,7 +615,7 @@ class ModelForCausalLM:
             chunk, take, bucket = next_chunk(True)
             tokens_c, logits_c, self.kv_cache = self.token_generation_model.decode_chunk(
                 self.params, self.kv_cache, last, pos[:, None], seq_ids, sampling_params,
-                num_steps=chunk, bucket=bucket, generator=gen_rng,
+                num_steps=chunk, bucket=bucket, generator=gen_rng, adapter_ids=adapter_ids,
             )
             # one fetch per chunk: the EOS test needs the tokens on the host
             tokens_c = tokens_c[:B].cpu().numpy()

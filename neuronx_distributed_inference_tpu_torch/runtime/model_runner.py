@@ -85,8 +85,10 @@ TAG_SPEC_DRAFT_CHAIN = "spec_draft_chain"
 
 log = logging.getLogger(__name__)
 
-#: StepInputs fields a step may carry beside the five every step has
-_OPTIONAL_FIELDS = ("slot_mapping", "block_table")
+#: StepInputs fields a step may carry beside the five every step has; each
+#: set of them is a key of its own (a step with LoRA adapter ids has its own
+#: program and graph)
+_OPTIONAL_FIELDS = ("slot_mapping", "block_table", "adapter_ids")
 #: batch rows past the caller's pad with -1 here (the garbage line / slot)
 _PAD_MINUS_ONE = ("seq_ids", "slot_mapping")
 
@@ -291,11 +293,13 @@ class SubModelRunner(_SealMixin):
                 layout.append(("slot_mapping", (B, q), False))
             if "block_table" in fields:
                 layout.append(("block_table", (B, max(1, width // self.block_size)), False))
+            if "adapter_ids" in fields:
+                layout.append(("adapter_ids", (B,), False))
             st = self._prog.statics[skey] = _Statics(layout, self.device)
         return st
 
-    def _decode_statics(self, bucket: int, paged: bool) -> Tuple[_Statics, DecodeState]:
-        skey = ("decode", bucket, paged)
+    def _decode_statics(self, bucket: int, paged: bool, adapters: bool = False) -> Tuple[_Statics, DecodeState]:
+        skey = ("decode", bucket, paged, adapters)
         ent = self._prog.statics.get(skey)
         if ent is None:
             B = self.batch_size
@@ -305,12 +309,14 @@ class SubModelRunner(_SealMixin):
             ]
             if paged:
                 layout.append(("block_table", (B, bucket // self.block_size), False))
+            if adapters:
+                layout.append(("adapter_ids", (B,), False))
             st = _Statics(layout, self.device)
             state = DecodeState(
                 last=st.t["last"], pos=st.t["pos"], seq_ids=st.t["seq_ids"],
                 sampling_params=st.t["sampling_params"],
                 cols=torch.arange(bucket, dtype=torch.int32, device=self.device)[None, :],
-                block_table=st.t.get("block_table"),
+                block_table=st.t.get("block_table"), adapter_ids=st.t.get("adapter_ids"),
             )
             ent = self._prog.statics[skey] = (st, state)
         return ent
@@ -325,7 +331,7 @@ class SubModelRunner(_SealMixin):
         return StepInputs(
             input_ids=t["input_ids"], attention_mask=t["attention_mask"], position_ids=t["position_ids"],
             seq_ids=t["seq_ids"], sampling_params=t["sampling_params"],
-            slot_mapping=t.get("slot_mapping"), block_table=t.get("block_table"),
+            slot_mapping=t.get("slot_mapping"), block_table=t.get("block_table"), adapter_ids=t.get("adapter_ids"),
         )
 
     # ---- host-side padding ------------------------------------------------
@@ -339,10 +345,12 @@ class SubModelRunner(_SealMixin):
         sampling_params: Optional[np.ndarray] = None,
         slot_mapping: Optional[np.ndarray] = None,
         block_table: Optional[np.ndarray] = None,
+        adapter_ids: Optional[np.ndarray] = None,
     ) -> Tuple[StepInputs, int]:
         """Pad to (compiled batch, bucket) into the key's static buffers and
         return them as StepInputs. ``input_ids`` may be a device tensor (an
-        async decode step chained on the previous step's tokens)."""
+        async decode step chained on the previous step's tokens).
+        ``adapter_ids`` (B,) LoRA slots; padded rows take slot 0."""
         B, S = input_ids.shape
         if self.phase == PHASE_CONTEXT_ENCODING:
             bucket = get_target_bucket(self.buckets, S)
@@ -378,7 +386,8 @@ class SubModelRunner(_SealMixin):
         if sampling_params is None:
             sampling_params = prepare_sampling_params(B)
         fields = tuple(
-            f for f, a in (("slot_mapping", slot_mapping), ("block_table", block_table)) if a is not None
+            f for f, a in (("slot_mapping", slot_mapping), ("block_table", block_table), ("adapter_ids", adapter_ids))
+            if a is not None
         )
         st = self._step_statics(input_ids.shape[1], bucket, fields)
         arrs = {
@@ -389,6 +398,8 @@ class SubModelRunner(_SealMixin):
             arrs["slot_mapping"] = slot_mapping
         if block_table is not None:
             arrs["block_table"] = block_table
+        if adapter_ids is not None:
+            arrs["adapter_ids"] = np.asarray(adapter_ids, np.int32)
         st.fill(arrs)
         return self._inputs_of(st), B
 
@@ -434,19 +445,24 @@ class SubModelRunner(_SealMixin):
         bucket: int,
         block_table: Optional[np.ndarray] = None,
         generator=None,
+        adapter_ids: Optional[np.ndarray] = None,
     ):
         """``num_steps`` decode steps with device-resident tokens: the
         bucket's one-step program (``models.base.decode_step``), replayed
         once a step, each step's tokens (and logits) copied into the chunk's
         buffers. ``block_table`` (B, bucket // block_size) runs the chunk
         over the PAGED cache; blocks must be allocated for pos + num_steps.
+        ``adapter_ids`` (B,) LoRA slots (a program of its own).
         Returns (tokens (Bc, num_steps), logits | None, cache)."""
         self.last_bucket = bucket
         paged = block_table is not None
-        st, state = self._decode_statics(bucket, paged)
+        adapters = adapter_ids is not None
+        st, state = self._decode_statics(bucket, paged, adapters)
         arrs = {"last": last, "pos": pos, "seq_ids": seq_ids, "sampling_params": sampling_params}
         if paged:
             arrs["block_table"] = block_table
+        if adapters:
+            arrs["adapter_ids"] = np.asarray(adapter_ids, np.int32)
         st.fill(arrs)
         sampled = bool(self.spec.do_sample and generator is not None)
         gen = generator if sampled else None
@@ -459,7 +475,7 @@ class SubModelRunner(_SealMixin):
         B = self.batch_size
         tokens = torch.empty((B, num_steps), dtype=torch.int32, device=self.device)
         logits = None
-        pkey = ("decode", B, bucket, paged, sampled)
+        pkey = ("decode", B, bucket, paged, sampled, adapters)
         bind = binding(params, cache)
         for j in range(num_steps):
             (tok, lg), _ = self._prog.run(pkey, body, bind, 1, gen, allow_sealed=True)

@@ -658,3 +658,76 @@ def test_llama4_generate_on_the_card_matches_the_cpu(cuda_card):
     host = app("cpu", host_params).generate(ids, max_new_tokens=8)
     assert (host.sequences == out.sequences).all()
     assert abs(host.logits - out.logits).max() < 2e-3
+
+
+def _lora_state_dicts(n, r=16, seed=0):
+    """``n`` seeded PEFT-layout adapters on q/k/v/o of the TINY model."""
+    gen = torch.Generator().manual_seed(seed)
+    H, D = TINY["hidden_size"], TINY["hidden_size"] // TINY["num_attention_heads"]
+    out = dict(q_proj=H, k_proj=TINY["num_key_value_heads"] * D, v_proj=TINY["num_key_value_heads"] * D, o_proj=H)
+    adapters = {}
+    for a in range(n):
+        sd = {}
+        for i in range(TINY["num_hidden_layers"]):
+            for mod, width in out.items():
+                p = f"base_model.model.model.layers.{i}.self_attn.{mod}."
+                sd[p + "lora_A.weight"] = torch.randn((r, H), generator=gen) * 0.1
+                sd[p + "lora_B.weight"] = torch.randn((width, r), generator=gen) * 0.1
+        adapters[f"ad{a}"] = (sd, {"lora_alpha": 2 * r, "use_rslora": a % 2 == 1})
+    return adapters
+
+
+@pytest.mark.gpu
+def test_lora_rows_on_the_card(cuda_card):
+    """Multi-adapter LoRA on the card, bf16, the fused decode layer asked
+    for: (1) a batch of 4 rows with 4 distinct adapters equals each row
+    alone on the same app (the compiled batch, so the same shapes); (2) B2
+    launches once a layer a prefill and B1 once a layer a decode step, and
+    neither B8 nor B9 launches (adapter ids keep them off); (3) with the
+    dynamic cache (1 slot), graphs captured while adapter ad0 held the
+    slot replay after ad1 is swapped in, in place: no new capture, and the
+    tokens of an eager app with ad1."""
+    import numpy as np
+
+    from neuronx_distributed_inference_tpu_torch.runtime.application import _pick_chunk
+
+    lora = dict(lora_config=dict(max_loras=4, max_lora_rank=16, max_loras_on_cpu=4), fused_qkv=False,
+                fused_attn_block_kernel_enabled=True, fused_mlp_kernel_enabled=True, batch_size=4)
+    adapters = _lora_state_dicts(4)
+    app = _tiny_app(**lora).load_lora_adapters(adapters)
+    ids = np.random.RandomState(3).randint(1, 256, size=(4, 12))
+    names = list(adapters)
+    L, n_new = TINY["num_hidden_layers"], 24
+    out, counts = _counted(lambda: app.generate(ids, max_new_tokens=n_new, lora_adapter_names=names))
+    # the decode chunk runs _pick_chunk's steps (surplus ones discarded)
+    steps = _pick_chunk(n_new - 1, False, 1 << 20)
+    assert counts["flash_attention"] == L and counts["decode_attention"] == L * steps, counts
+    assert counts["fused_attn_block"] == 0 and counts["fused_mlp_block"] == 0, counts
+    base = app.generate(ids, max_new_tokens=n_new, lora_adapter_names=[None] * 4).sequences
+    for i, name in enumerate(names):
+        alone = app.generate(ids[i : i + 1], max_new_tokens=n_new, lora_adapter_names=[name]).sequences[0]
+        np.testing.assert_array_equal(out.sequences[i], alone)
+    assert (out.sequences != base).any()
+
+    dyn = dict(lora, lora_config=dict(max_loras=1, max_lora_rank=16, max_loras_on_cpu=4), batch_size=1)
+    graph = _tiny_app(params=app.params, **dyn)
+    eager = _tiny_app(params=app.params, cuda_graphs=False, **dyn)
+    # the apps share the base tensors; each attaches its own slots
+    for a in (graph, eager):
+        a.params = dict(a.params, layers=[_copy_dicts(lp) for lp in a.params["layers"]])
+        a.load_lora_adapters(adapters, dynamic=True)
+    first = graph.generate(ids[:1], max_new_tokens=n_new, lora_adapter_names=["ad0"]).sequences
+    np.testing.assert_array_equal(first[0], eager.generate(ids[:1], max_new_tokens=n_new,
+                                                            lora_adapter_names=["ad0"]).sequences[0])
+    captures = graph.graphs.captures
+    assert captures > 0
+    got = graph.generate(ids[:1], max_new_tokens=n_new, lora_adapter_names=["ad1"]).sequences
+    assert graph.graphs.captures == captures and graph.lora_manager.swaps == 2
+    want = eager.generate(ids[:1], max_new_tokens=n_new, lora_adapter_names=["ad1"]).sequences
+    np.testing.assert_array_equal(got, want)
+    assert (got != first).any()
+
+
+def _copy_dicts(tree):
+    """New dicts over the same tensors."""
+    return {k: _copy_dicts(v) for k, v in tree.items()} if isinstance(tree, dict) else tree

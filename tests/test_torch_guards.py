@@ -17,7 +17,7 @@ import torch
 
 from neuronx_distributed_inference_tpu.runtime.application import _pick_chunk as jax_pick_chunk
 from neuronx_distributed_inference_tpu_torch import config as tconfig
-from neuronx_distributed_inference_tpu_torch.config import Config
+from neuronx_distributed_inference_tpu_torch.config import Config, LoraServingConfig
 from neuronx_distributed_inference_tpu_torch.ops import kernel_mode
 from neuronx_distributed_inference_tpu_torch.runtime.application import _pick_chunk
 
@@ -99,7 +99,6 @@ def test_default_device_is_cuda_and_cuda_without_a_card_raises(monkeypatch):
         (dict(tp_degree=2), "A10"),
         (dict(quantized_checkpoints_path="ckpt"), "A11"),
         (dict(quantized=True, quantized_checkpoints_path="ckpt"), "A11"),
-        (dict(lora_config={"max_loras": 1}), "A9"),
     ],
 )
 def test_settings_outside_the_slice_raise(kw, item):
@@ -119,13 +118,17 @@ def test_a3b_settings_are_accepted(kw):
         assert (got.do_sample and got.top_k == 5) if name == "on_device_sampling_config" else got == value
 
 
-@pytest.mark.parametrize("kw", [dict(sliding_window=128), dict(attention_chunk_size=128)])
+@pytest.mark.parametrize(
+    "kw", [dict(sliding_window=128), dict(attention_chunk_size=128), dict(lora_config={"max_loras": 1})]
+)
 def test_a9_settings_are_accepted(kw):
-    """Sliding-window and chunked attention are ported (each was refused
-    naming A9 until it landed)."""
+    """Sliding-window and chunked attention and LoRA serving are ported
+    (each was refused naming A9 until it landed; a LoRA dict is read as
+    LoraServingConfig.from_dict reads it)."""
     c = Config(device="cpu", **kw)
     for name, value in kw.items():
-        assert getattr(c, name) == value
+        got = getattr(c, name)
+        assert got == (LoraServingConfig.from_dict(value) if name == "lora_config" else value)
 
 
 @pytest.mark.parametrize(
