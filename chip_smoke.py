@@ -230,6 +230,26 @@ Phases, in order; any failure exits non-zero:
      decode step, no attention kernel: MLA is plain PyTorch), the profile,
      the eager twin and the gate on 1 dense + 1 MoE layer (its control, the
      shared expert dropped, failing it).
+ 18. the vision-language stacks (phase_pixtral_12b, phase_mllama_11b, and
+     llama4_vision_run inside phase_llama4_scout), seeded random weights
+     made on the card: B2a and B1 at their text shapes (32 q / 8 kv of
+     128) held to their plain versions, twice bit-identical, and timed;
+     Pixtral-12B at full width and depth through ImageToTextModel (the
+     inputs_embeds CTE program captured at warmup, sealed): generate() of
+     64 tokens at batch 1 (a 1024 x 1024 image, 4096 tokens) and 4 (512 x
+     512 a row) with exact counts (B2a 40, B1 40 a step), the tower's
+     device ms, TTFT, tok/s, peak memory, a profiled decode step beside
+     its byte bound, no image equal to a plain text app bit for bit, and
+     the gate on 4 of 40 text layers with the whole tower against an fp32
+     twin, its two controls (transposed features, the placeholders' own
+     embeddings) failing it; Llama-3.2-11B-Vision at full width and depth
+     (every gate tanh ~ 0.5): generate() at batch 1 and 4 (a 2 x 2-tile
+     image a row; B2a 32, B1 32 a step, the decode step one graph a
+     batch), the same figures, the cross-KV stream's bytes, and the gate on
+     text layers 0-4 with its controls (another row's cross-KV line, the
+     taps concatenated); the Llama4 tower at Scout's vision_config against
+     its fp32 twin, then a generate() from its embeddings on Scout's 8
+     layers and the gate with the transposed-features control.
 Each phase prints its seconds. The line before the card's name lists every
 kernel with its launches, times and bound; the last line of standard output
 is {"ok": true, "device": {...}}.
@@ -1823,9 +1843,9 @@ def phase_main_path(torch):
 
 
 #: steps of each traced chunk (reading a trace costs the host a fraction of
-#: a ms for every kernel in it: ~1000 a 1B step; cut from 8 to fit the
-#: script's time limit)
-PROFILE_STEPS = 4
+#: a ms for every kernel in it: ~1000 a 1B step; cut from 8 to 4, then to 2,
+#: to fit the script's time limit)
+PROFILE_STEPS = 2
 
 
 def phase_profile(torch, app, seq, prompt_len, steps=PROFILE_STEPS, label="decode step", bucket=512, adapter_ids=None):
@@ -2062,9 +2082,9 @@ SERVING = dict(n_requests=8, prompt=128, gen=128, slots=8, blocks=512, block_siz
 #: new tokens a request in the drains run with graphs on and off in turns
 #: (graph_pair: phase_graphs, phase_kv_quant, the 1B speculation phases),
 #: and of the 1B generate() pairs of phase_graphs: cut from SERVING's 128
-#: and 256 to 64, then to 32, to fit the script's time limit (their eager
-#: twins are host-bound)
-PAIRED_GEN = 32
+#: and 256 to 64, then to 32, then to 16, to fit the script's time limit
+#: (their eager twins are host-bound)
+PAIRED_GEN = 16
 
 
 def _serving_config(chunked=True, **kw):
@@ -2890,9 +2910,10 @@ def phase_moe_times(torch, md):
 
 
 #: Qwen3-30B-A3B's layers on the card, of its 48 (every Qwen3 phase runs
-#: them; cut from 48 to keep the script within its time limit beside the
-#: DBRX and DeepSeek-V3 phases: the phases' seconds scale with it)
-QWEN3_LAYERS = 16
+#: them; cut from 48 to 16 to keep the script within its time limit beside
+#: the DBRX and DeepSeek-V3 phases, then to 8 beside the vision-language
+#: phases: the phases' seconds scale with it)
+QWEN3_LAYERS = 8
 #: Qwen3-30B-A3B layers the teacher-forced gate runs: an fp32 copy of 4
 #: layers (with the embedding and lm head) is ~12 GB beside the bf16 params
 QWEN3_FORCED_LAYERS = 4
@@ -3172,7 +3193,6 @@ def phase_qwen3_moe(torch):
     )
     eager = eager_twin(
         torch, "qwen3-30b-a3b generate()", _config_qwen3(cuda_graphs=False), app, out, run, prompt_len, n_new,
-        profile_steps=QWEN3_PROFILE_STEPS,
     )
     forced = qwen3_teacher_forced(torch, app.params, out.sequences[0], prompt_len, L)
     del app
@@ -4610,11 +4630,13 @@ def phase_graphs(torch, params):
     return out
 
 
-def eager_twin(torch, label, cfg, app, out, run, prompt_len, n_new, profile_steps=PROFILE_STEPS):
+def eager_twin(torch, label, cfg, app, out, run, prompt_len, n_new, profile_steps=0):
     """The generate() ``out``/``run`` of ``app`` (graphs, sealed) against an
     eager twin (``cfg``, cuda_graphs=False) over the same params: identical
-    greedy tokens and launch counts; the twin's profile and peak memory
-    printed beside the graph run's."""
+    greedy tokens and launch counts; the twin's peak memory printed beside
+    the graph run's, and its profile of ``profile_steps`` steps (0, the
+    default since the vision-language phases needed the time: none;
+    phase_graphs profiles graphs off against on)."""
     from neuronx_distributed_inference_tpu_torch.ops import _cuda
     from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
 
@@ -4628,7 +4650,9 @@ def eager_twin(torch, label, cfg, app, out, run, prompt_len, n_new, profile_step
     peak = torch.cuda.max_memory_allocated()
     if not np.array_equal(got.sequences, out.sequences) or counts != run["launches"]:
         raise SystemExit(f"{label}: eager twin tokens or counts differ (counts {counts} vs {run['launches']})")
-    prof = phase_profile(torch, twin, got.sequences[0], prompt_len, steps=profile_steps, label=f"{label}, graphs off")
+    prof = {}
+    if profile_steps:
+        prof = phase_profile(torch, twin, got.sequences[0], prompt_len, steps=profile_steps, label=f"{label}, graphs off")
     del twin
     torch.cuda.empty_cache()
     log(f"graphs on vs off, {label}: tokens identical, launch counts equal; peak memory {run['peak_bytes'] / 2**30:.3f} vs {peak / 2**30:.3f} GiB")
@@ -5966,7 +5990,9 @@ EAGLE_DYN = {"step": 4, "branching_factor": 3, "num_inputs": 1}
 #: (FasterDecoding/medusa-vicuna-7b-v1.3: medusa_num_heads=5), EAGLE3's
 #: draft vocab (yuhuili/EAGLE3-LLaMA3.1-Instruct-8B)
 EAGLE_K, MEDUSA_K, MEDUSA_HEADS, EAGLE3_DRAFT_VOCAB = 5, 6, 5, 32000
-EAGLE_PROMPT, EAGLE_NEW = 128, 64
+#: the EAGLE / tree / Medusa runs' prompt and new tokens (64 until the
+#: vision-language phases needed the time)
+EAGLE_PROMPT, EAGLE_NEW = 128, 32
 #: Llama-3.1-8B's attention heads
 HEADS_8B = dict(Hq=32, Hkv=8, D=128)
 
@@ -6324,7 +6350,7 @@ def phase_eagle_8b(torch):
     of vocab 32000 with d2t), the static tree (16 nodes) and the dynamic
     tree (13) on the correlated draft with the fused decode layer turned on
     (B8 and B9 must not run under a tree), Medusa (k = 6, 5 random heads)
-    and the sampled EAGLE chain: batch 1, a 128-token prompt, 64 new tokens.
+    and the sampled EAGLE chain: batch 1, a 128-token prompt, EAGLE_NEW new tokens.
     Each: exact B2 / B1 counts (K > 1 passes on decode_attention_verify, the
     rest 0), no capture after the seal, the token gate (greedy: every
     committed token is the teacher-forced argmax where the top-2 margin
@@ -6422,7 +6448,7 @@ LORA_PROMPT, LORA_NEW = 128, 64
 LORA_DELTA, LORA_TURN = 0.25, 16
 #: the dynamic cache: device slots, and generate() calls of LORA_DYN_ROWS
 #: rows and LORA_DYN_NEW new tokens drawn from lora_schedule()
-LORA_DYN_SLOTS, LORA_DYN_CALLS, LORA_DYN_ROWS, LORA_DYN_NEW = 4, 24, 4, 32
+LORA_DYN_SLOTS, LORA_DYN_CALLS, LORA_DYN_ROWS, LORA_DYN_NEW = 4, 12, 4, 32
 #: the merged-weight oracle's adapters (rank 16 rsLoRA, rank 64), held to
 #: FORCED_RATIO against the bf16 merged app
 LORA_ORACLE = ("ad4", "ad7")
@@ -6910,8 +6936,12 @@ def phase_lora_8b(torch, fa, da, params):
 #: 8 requests of 128 + 128 tokens; the elastic row retires the highest-id
 #: replica at router step 2
 ROUTER = dict(replicas=2, policy="least_loaded", retire_step=2)
+#: new tokens a request in the router drains (bench.py's rows: SERVING's
+#: 128; cut to 64 to fit the script's time limit beside the vision-language
+#: phases)
+ROUTER_GEN = 64
 #: steady router steps of each profiled window
-ROUTER_PROFILE_STEPS = 4
+ROUTER_PROFILE_STEPS = 2
 
 
 def _router_config(paged, stage=None, **kw):
@@ -7249,7 +7279,7 @@ def phase_router(torch, fa, da):
     apps = _router_apps(torch, True, ROUTER["replicas"])
     torch.cuda.synchronize()
     log(f"router: 2 paged int8 apps loaded and warmed {time.perf_counter() - t0:.2f} s")
-    _route(torch, apps, prompts, s["gen"])  # warm pass: first-call costs
+    _route(torch, apps, prompts, ROUTER_GEN)  # warm pass: first-call costs
     _seal(apps)
     captures = sum(a.graphs.captures for a in apps)
     runs = {}
@@ -7257,14 +7287,14 @@ def phase_router(torch, fa, da):
         for label, kw in (
             ("router", {}), ("router_threaded", dict(threaded=True)), ("elastic", dict(elastic=True)),
         ):
-            runs[label] = _route(torch, apps, prompts, s["gen"], **kw)
+            runs[label] = _route(torch, apps, prompts, ROUTER_GEN, **kw)
             d = runs[label]["dispatches"]
             want = expect_launches(
                 paged_flash_attention=d["prefill_chunk"] * L, paged_decode_attention=d["decode_steps"] * L
             )
-            _check_router_run(label, runs[label], len(prompts), s["gen"], vocab, want)
+            _check_router_run(label, runs[label], len(prompts), ROUTER_GEN, vocab, want)
         for label, kw in (("router", {}), ("router_threaded", dict(threaded=True))):
-            runs[label]["profile"] = _route(torch, apps, prompts, s["gen"], profile_at=at, **kw)["profile"]
+            runs[label]["profile"] = _route(torch, apps, prompts, ROUTER_GEN, profile_at=at, **kw)["profile"]
     if sum(a.graphs.captures for a in apps) != captures:
         raise SystemExit("router: a graph was captured after the seal")
     if runs["router_threaded"]["tokens"] != runs["router"]["tokens"]:
@@ -7287,18 +7317,18 @@ def phase_router(torch, fa, da):
     pre = _router_apps(torch, False, 1, stage=True)
     torch.cuda.synchronize()
     log(f"router: 2 contiguous int8 decode apps and 1 prefill stage loaded and warmed {time.perf_counter() - t0:.2f} s")
-    _route(torch, dec, prompts, s["gen"], tier_apps=pre)  # warm pass
+    _route(torch, dec, prompts, ROUTER_GEN, tier_apps=pre)  # warm pass
     _seal(dec + pre)
     captures = sum(a.graphs.captures for a in dec + pre)
     with RetraceGuard():
         for label, tier in (("disagg", pre), ("disagg_tier_off", ())):
-            runs[label] = _route(torch, dec, prompts, s["gen"], tier_apps=tier)
+            runs[label] = _route(torch, dec, prompts, ROUTER_GEN, tier_apps=tier)
             d = runs[label]["dispatches"]
             want = expect_launches(
                 flash_attention=(d["prefill"] + runs[label]["handoffs"]) * L, decode_attention=d["decode_steps"] * L
             )
-            _check_router_run(label, runs[label], len(prompts), s["gen"], vocab, want)
-        runs["disagg"]["profile"] = _route(torch, dec, prompts, s["gen"], tier_apps=pre, profile_at=at)["profile"]
+            _check_router_run(label, runs[label], len(prompts), ROUTER_GEN, vocab, want)
+        runs["disagg"]["profile"] = _route(torch, dec, prompts, ROUTER_GEN, tier_apps=pre, profile_at=at)["profile"]
     if sum(a.graphs.captures for a in dec + pre) != captures:
         raise SystemExit("disagg: a graph was captured after the seal")
     g = runs["disagg"]
@@ -7524,7 +7554,7 @@ GPT_OSS_PROMPT, GPT_OSS_NEW = 256, 64
 #: layers of the teacher-forced gate (2 sliding, 2 global) and its decode steps
 GPT_OSS_FORCED_LAYERS, GPT_OSS_FORCED_STEPS = 4, 32
 #: the paged drain: 8 staggered requests of 256 + 32 tokens
-GPT_OSS_SERVING = dict(n_requests=8, prompt=256, gen=32, slots=8, block_size=32, seq=512)
+GPT_OSS_SERVING = dict(n_requests=8, prompt=256, gen=16, slots=8, block_size=32, seq=512)
 #: e8m0 exponents [lo, hi) of the seeded MXFP4 experts: |values| <= 6 * 2^-5
 GPT_OSS_EXPONENTS = (120, 123)
 #: the teacher-forced gates on GPT-OSS-20B's weights (_gpt_oss_gate_params),
@@ -8258,17 +8288,18 @@ def phase_mistral(torch, fa):
 # 14. DBRX and DeepSeek-V3 (A9)
 # ---------------------------------------------------------------------------
 
-#: DBRX (databricks/dbrx-base) cut from 40 layers to DBRX_LAYERS (54.6 GB
-#: in bf16); its teacher-forced gate runs DBRX_FORCED_LAYERS (an fp32 twin
-#: of 2 layers is ~31 GB)
-DBRX_LAYERS, DBRX_FORCED_LAYERS = 8, 2
+#: DBRX (databricks/dbrx-base) cut from 40 layers to DBRX_LAYERS (27.3 GB
+#: in bf16; 8 until the vision-language phases needed the time); its
+#: teacher-forced gate runs DBRX_FORCED_LAYERS (an fp32 twin of 2 layers is
+#: ~31 GB)
+DBRX_LAYERS, DBRX_FORCED_LAYERS = 4, 2
 #: DeepSeek-V3 cut from 61 layers to 3 dense + 2 MoE (53.2 GB in bf16); its
 #: gate runs 1 dense + 1 MoE layer, the experts kept in bf16 in the fp32 run
 DEEPSEEK_LAYERS, DEEPSEEK_DENSE = 5, 3
 #: both phases: a 256-token prompt, 64 new tokens; the gates' decode steps
 A9_PROMPT, A9_NEW, A9_FORCED_STEPS = 256, 64, 32
 #: DBRX's paged drain: 8 staggered requests of 256 + 32 tokens
-DBRX_SERVING = dict(n_requests=8, prompt=256, gen=32, slots=8, block_size=32, seq=512)
+DBRX_SERVING = dict(n_requests=8, prompt=256, gen=16, slots=8, block_size=32, seq=512)
 DBRX_HEADS = dict(Hq=48, Hkv=8, D=128)
 #: the gates' weights (_a9_gate_params): projections at std 1 / sqrt(fan
 #: in), those that write the residual stream times this
@@ -8713,7 +8744,7 @@ def phase_dbrx(torch, fa, da, pf, md):
 
     n_cases = dbrx_kernel_parity(torch, fa, da, pf)
     times = dbrx_kernel_times(torch, fa, da, pf)
-    app, load = _a9_load(torch, _config_dbrx(retrace_guard=True), "dbrx (8 of 40 layers)")
+    app, load = _a9_load(torch, _config_dbrx(retrace_guard=True), f"dbrx ({DBRX_LAYERS} of 40 layers)")
     spec, mspec = app.spec, app.builder.moe_spec()
     if spec.norm_type != "layernorm" or spec.attn.qkv_clip != 8.0 or mspec.norm_weights_p != 1.0:
         raise SystemExit(f"dbrx: spec {spec.norm_type}, clip {spec.attn.qkv_clip}, p {mspec.norm_weights_p}")
@@ -8868,7 +8899,7 @@ def _config_llama4(batch_size=1, model=None, long=False, **kw):
 def _device_randn(torch, gen, shape, std, dtype):
     """Seeded normal values made on the card (the long caches' host draws
     would take seconds each)."""
-    return (torch.randn(shape, generator=gen, device="cuda") * std).to(dtype)
+    return (torch.randn(shape, generator=gen, device=DEV) * std).to(dtype)
 
 
 def _chunk_decode_inputs(torch, gen, B, K, L, bucket, dtype, valid, chunk):
@@ -9265,10 +9296,16 @@ def phase_llama4_scout(torch, fa, da):
     log(f"  llama-4-scout long-context: decode positions {P}..{P + NL - 1} cross {C}; the rope layers' chunk and "
         f"the NoPE temperature (floor((pos + 1) / {C}) >= 1 from {C - 1}) bite there")
     seq = out_long.sequences[0][: P + LLAMA4_FORCED_STEPS]
+    scout_params = app.params
     del app, long_app
     gc.collect()
     torch.cuda.empty_cache()
     log(f"phase llama-4-scout long-context run: {time.perf_counter() - t0:.1f} s")
+    # the Llama4 tower at Scout's published vision_config on these params
+    vision = timed("llama-4-scout vision tower and generate()", llama4_vision_run, torch, scout_params)
+    del scout_params
+    gc.collect()
+    torch.cuda.empty_cache()
     forced = timed("llama-4-scout teacher-forced gate", llama4_teacher_forced, torch, seq, P)
     gc.collect()
     torch.cuda.empty_cache()
@@ -9280,7 +9317,998 @@ def phase_llama4_scout(torch, fa, da):
     }
     return dict(run, times=times, launches=launches, **load, run8=run8, eager=eager, forced=forced, cases=n_cases,
                 profile={k: v for k, v in profile.items() if k != "busy_ms_per_step"}, drain=drain, long=run_long,
-                step_bound_ms=b_step, dense_moe_ms=dense_ms)
+                step_bound_ms=b_step, dense_moe_ms=dense_ms, vision=vision)
+
+
+# ---------------------------------------------------------------------------
+# 18. the vision-language stacks: Pixtral-12B, Llama-3.2-11B-Vision, and
+# the Llama4 tower on Scout's text
+# ---------------------------------------------------------------------------
+
+#: the text heads of Pixtral-12B (Mistral-Nemo) and of Llama-3.2-11B-Vision's
+#: self layers: 32 q / 8 kv of 128
+VLM_HEADS = dict(Hq=32, Hkv=8, D=128)
+#: text tokens of every vision-language prompt (after BOS and the image) and
+#: the new tokens of its generate() runs
+VLM_TEXT, VLM_NEW = 63, 64
+#: Pixtral-12B's runs by batch: the image side, then the prompt (BOS + the
+#: image's patches + VLM_TEXT) in the CTE bucket and the cache
+PIXTRAL_RUNS = {1: dict(side=1024, cte=4224, seq=4288), 4: dict(side=512, cte=1152, seq=1216)}
+#: the gates: text layers kept, forced decode steps, and the stride of the
+#: image positions whose prefill logits enter them (every text position
+#: does)
+PIXTRAL_FORCED_LAYERS, VLM_FORCED_STEPS, VLM_IMAGE_STRIDE = 4, 32, 32
+#: Llama-3.2-11B-Vision: a 64-token prompt (BOS, the image token, 62 text
+#: tokens) with one 2 x 2-tile image (aspect ratio id 6, [2, 2]) a row
+MLLAMA_PROMPT, MLLAMA_SEQ, MLLAMA_ASPECT, MLLAMA_TILES = 64, 128, 6, 4
+#: the Mllama gate: text layers 0-4 (cross layer 3), 2 rows with their own images
+MLLAMA_FORCED_LAYERS, MLLAMA_GATE_ROWS = 5, 2
+#: every gate of the Mllama tower and cross layers: tanh(0.55) ~ 0.5 (HF
+#: initialises them to zero, where an image cannot move a logit)
+VLM_GATE_VALUE = 0.55
+#: the bf16 Llama4 tower against its fp32 twin: root-mean-square error over
+#: the twin's root-mean-square value at most this
+LLAMA4_TOWER_RMS_RTOL = 2.0 ** -4
+#: B2a / B1 at the vision-language paths' shapes: (tag, batch, S or bucket,
+#: valid length of each row)
+VLM_FLASH_POINTS = (
+    ("pixtral", 1, 4224, [4160]), ("pixtral bs4", 4, 1152, [1088] * 4),
+    ("mllama", 1, 64, [64]), ("mllama bs4", 4, 64, [64] * 4),
+)
+VLM_DECODE_POINTS = (
+    ("pixtral", 1, 4288, [4161]), ("pixtral bs4", 4, 1216, [1089] * 4),
+    ("mllama", 1, 128, [65]), ("mllama bs4", 4, 128, [65] * 4),
+)
+
+
+def _vlm_decode_inputs(torch, gen, B, L, bucket, valid, dtype):
+    """q (B, 1, Hq, D) and an L-layer cache at VLM_HEADS over ``bucket``
+    positions drawn on the device, the mask reading positions < valid."""
+    Hq, Hkv, D = VLM_HEADS["Hq"], VLM_HEADS["Hkv"], VLM_HEADS["D"]
+    q = (torch.randn((B, 1, Hq, D), generator=gen, device=DEV) * DECODE_Q_STD).to(dtype)
+    kc = (torch.randn((L, B + 1, bucket, Hkv, D), generator=gen, device=DEV) * 0.5).to(dtype)
+    vc = (torch.randn((L, B + 1, bucket, Hkv, D), generator=gen, device=DEV) * 0.5).to(dtype)
+    pos = torch.tensor([[v - 1] for v in valid], device=DEV)
+    mask = torch.arange(bucket, device=DEV)[None, None, None, :] <= pos[:, None, :, None]
+    return q, kc, vc, mask
+
+
+def _vlm_flash_inputs(torch, rng, B, S, valid):
+    Hq, Hkv, D = VLM_HEADS["Hq"], VLM_HEADS["Hkv"], VLM_HEADS["D"]
+    q, k, v = fused_qkv_inputs(torch, rng, B, S, Hq, Hkv, D, torch.bfloat16, hidden=1024)
+    key_valid = (torch.arange(S, device=DEV)[None, :] < torch.tensor(valid, device=DEV)[:, None]).to(torch.int32)
+    return q, k, v, key_valid
+
+
+def vlm_kernel_parity(torch, fa, da):
+    """B2a and B1 at the vision-language paths' shapes (VLM_HEADS; Pixtral's
+    4224-token prefill and 4288 cache, its batch-4 1152 / 1216, Mllama's
+    64-token prefill and 128 cache at batch 1 and 4), each against its plain
+    version (B1 in bf16 and fp32) and launched twice more, bit-identical.
+    Returns the case count."""
+    rng = np.random.RandomState(43)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(43)
+    D = VLM_HEADS["D"]
+    n = 0
+    for tag, B, S, valid in VLM_FLASH_POINTS:
+        q, k, v, key_valid = _vlm_flash_inputs(torch, rng, B, S, valid)
+        fkw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=None, chunk=None)
+        case = f"{tag} prefill B={B} S={S} valid {valid[0]} Hq=32 Hkv=8 D=128 bf16"
+        check_flash(torch, fa, q, k, v, key_valid, fkw, case)
+        check_repeat(torch, "flash_attention", lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw), case)
+        n += 1
+        del q, k, v
+    kw = dict(scale=D ** -0.5, n_kv=VLM_HEADS["Hkv"])
+    for tag, B, bucket, valid in VLM_DECODE_POINTS:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kc, vc, mask = _vlm_decode_inputs(torch, gen, B, 2, bucket, valid, dtype)
+            case = f"{tag} decode B={B} bucket={bucket} position {valid[0] - 1} {str(dtype)[6:]}"
+            check_decode(torch, da, q, kc, vc, 1, mask, None, kw, case)
+            check_repeat(torch, "tkg_decode_attention", lambda: da.tkg_decode_attention(q, kc, vc, 1, mask, None, **kw),
+                         case)
+            n += 1
+            del kc, vc
+    torch.cuda.empty_cache()
+    log(f"vision-language text shapes: {n} B2a / B1 cases agree with their plain versions, each twice bit-identical")
+    return n
+
+
+def vlm_kernel_times(torch, fa, da):
+    """B2a and B1 at every VLM point, bf16, held to the plain version and
+    timed (L2 flushed) beside it, SDPA under the same mask and the bound.
+    Rows keyed ("flash_attention" | "decode_attention", tag)."""
+    rng = np.random.RandomState(44)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(44)
+    D, n_rep = VLM_HEADS["D"], VLM_HEADS["Hq"] // VLM_HEADS["Hkv"]
+    rows = {}
+    for tag, B, S, valid in VLM_FLASH_POINTS:
+        q, k, v, key_valid = _vlm_flash_inputs(torch, rng, B, S, valid)
+        fkw = dict(scale=D ** -0.5, causal=True, softmax_bf16=False, window=None, chunk=None)
+        case = f"{tag} prefill B={B} S={S} valid {valid[0]} bf16"
+        err = check_flash(torch, fa, q, k, v, key_valid, fkw, case)
+        mask = fa.prefill_mask(key_valid, True, None, None)
+        ms = time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v, key_valid, **fkw), iters=20)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_plain(q, k, v, key_valid, **fkw), iters=3, warmup=1)
+        lib_ms = _sdpa_ms(torch, q, k, v, mask, n_rep)
+        b_ms, b_by = bound(*flash_work(q, k, key_valid, mask))
+        log(f"flash_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa under the same mask "
+            f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+        rows[("flash_attention", tag)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+        )
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    kw = dict(scale=D ** -0.5, n_kv=VLM_HEADS["Hkv"])
+    L = 4
+    for tag, B, bucket, valid in VLM_DECODE_POINTS:
+        q, kc, vc, mask = _vlm_decode_inputs(torch, gen, B, L, bucket, valid, torch.bfloat16)
+        case = f"{tag} decode B={B} bucket={bucket} position {valid[0] - 1} bf16"
+        err = check_decode(torch, da, q, kc, vc, 3, mask, None, kw, case)
+        state = {"layer": 0}
+
+        def next_layer():
+            state["layer"] = (state["layer"] + 1) % L
+            return state["layer"]
+
+        ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kc, vc, next_layer(), mask, None, **kw))
+        plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_layer(), mask, None, **kw))
+        lib_ms = _sdpa_ms(torch, q, kc[0, :B, :bucket], vc[0, :B, :bucket], mask, n_rep)
+        b_ms, b_by = bound(*decode_work(q, kc, mask))
+        log(f"tkg_decode_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa under the same mask "
+            f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+        rows[("decode_attention", tag)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+        )
+        del kc, vc
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _ones(torch, shape, dtype):
+    return torch.ones(shape, dtype=dtype, device=DEV)
+
+
+def _tree_to(tree, dtype):
+    """Every floating leaf of ``tree`` in ``dtype`` but the fp32 tables
+    (rope), which stay fp32."""
+    if isinstance(tree, dict):
+        return {k: (v if k in ("rope", "inv_freq") else _tree_to(v, dtype)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def _vlm_prompt(rng, B, n_image, image_token, vocab, text=None, bos=1):
+    """(B, 1 + n_image + text) ids: BOS, the image's placeholders, then text
+    ids drawn on the side of the image token that leaves the larger range
+    of the vocabulary (never the image token)."""
+    low, high = (image_token + 1, vocab) if image_token < vocab // 2 else (2, min(image_token, vocab))
+    ids = rng.randint(low, high, size=(B, 1 + n_image + (VLM_TEXT if text is None else text)))
+    ids[:, 0] = bos
+    ids[:, 1 : 1 + n_image] = image_token
+    return ids
+
+
+def _device_ms(torch, fn, reps=2):
+    """Mean device time of ``fn`` (warm: it ran before) by CUDA events (an
+    eager call of many launches: the spin keeps the card ahead of the
+    host)."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(8 * SPIN_CYCLES)
+    ev[0].record()
+    for _ in range(reps):
+        fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / reps
+
+
+def _vlm_run(torch, label, generate, prompt_len, batch, want):
+    """TTFT (a one-token generate(), the tower included), then a timed
+    VLM_NEW-token generate() with the counts read around it: exact counts
+    ``want``, tokens in range, the first token equal in both. ``generate(n)``
+    runs the app. Returns (output, metrics)."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    first = generate(1)
+    ttft_ms = (time.perf_counter() - t0) * 1e3
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = generate(VLM_NEW)
+    total_s = time.perf_counter() - t0
+    launches = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    tok_s = batch * (VLM_NEW - 1) / (total_s - ttft_ms / 1e3)
+    log(f"{label} (batch {batch}, prompt {prompt_len}, {VLM_NEW} new tokens): TTFT {ttft_ms:.2f} ms (tower, "
+        f"projector, splice and prefill), generate {total_s * 1e3:.1f} ms, decode {tok_s:.1f} tok/s, peak memory "
+        f"{peak / 2**30:.3f} GiB; launches {launches}")
+    gen = out.sequences[:, prompt_len:]
+    if gen.shape != (batch, VLM_NEW) or gen.min() < 0:
+        raise SystemExit(f"{label}: bad generated tokens: shape {gen.shape}, min {gen.min()}")
+    if (first.sequences[:, prompt_len] != out.sequences[:, prompt_len]).any():
+        raise SystemExit(f"{label}: first token differs between two generate() calls")
+    if launches != want:
+        raise SystemExit(f"{label} launch counts {launches} != expected {want}")
+    return out, dict(ttft_ms=ttft_ms, decode_tok_s=tok_s, peak_bytes=peak, launches=launches)
+
+
+def _vlm_gate(torch, label, logits_of, controls):
+    """The teacher-forced gate of a vision-language path: ``logits_of(path,
+    control)`` -> (positions, V) logits for path "fp32" (every leaf fp32,
+    kernels off), "kernel" or "plain" (bf16, kernels on or off), with
+    ``control`` None or a key of ``controls`` (the kernel path with that
+    fault). The fp32 run's MoE selections (if any) are pinned in the others;
+    kernel and plain are held to fp32 by _forced_gate, and every control must
+    fail the same gate."""
+    t0 = time.perf_counter()
+    with _Recorder("router_top_k", lambda args, out: out[1].clone()) as rec:
+        f32 = plain_run(f"{label} fp32", logits_of, "fp32", None)
+    sel = rec.calls
+    with _PinnedRouting(sel):
+        k = logits_of("kernel", None)
+    with _PinnedRouting(sel):
+        pl = plain_run(f"{label} plain", logits_of, "plain", None)
+    forced = _forced_gate(k, pl, f32, label)
+    log(f"  {label}: fp32 decides {forced['decided']} of {forced['positions']} positions")
+    for name, what in controls.items():
+        with _PinnedRouting(sel):
+            c = logits_of("kernel", name)
+        res = _forced_gate(c, pl, f32, f"  control: {what}", exit_on_fail=False)
+        if res["passed"]:
+            raise SystemExit(f"{label}: the control ({what}) passes the gate too")
+        log(f"  {label}: the control ({what}) fails it (ratios max {res['kernel_vs_fp32'] / res['plain_vs_fp32']:.3f} "
+            f"rms {res['kernel_vs_fp32_rms'] / res['plain_vs_fp32_rms']:.3f})")
+        forced[f"control {name}"] = res
+    log(f"  {label}: {time.perf_counter() - t0:.1f} s for {3 + len(controls)} runs")
+    return forced
+
+
+def _i2t_forced_logits(torch, cfg, params, embeds, seq, prompt_len, positions):
+    """An image-to-text prompt's teacher-forced logits through the text
+    app's own code: the prefill from ``embeds`` (B2a on the kernel path)
+    read at ``positions``, then every decode step fed the recorded token
+    (B1), as _forced_logits. Returns (positions + steps, V)."""
+    from neuronx_distributed_inference_tpu_torch.models.base import PHASE_CONTEXT_ENCODING, lm_head, run_decoder_layers
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    a = ModelForCausalLM(None, cfg).load(params=params)
+    S = prompt_len
+    inputs, _ = a.context_encoding_model.prepare(
+        seq[None, :S], np.ones((1, S), np.int64), np.arange(S, dtype=np.int32)[None], np.zeros(1, np.int32),
+        inputs_embeds=embeds,
+    )
+    with torch.no_grad():
+        hidden, _ = run_decoder_layers(
+            a.params, inputs.inputs_embeds, a.kv_cache, inputs, spec=a.spec, phase=PHASE_CONTEXT_ENCODING,
+            mlp_fn=a.builder.mlp_fn(), layer_fn=a.builder.layer_fn(),
+        )
+        pre = lm_head(a.params, hidden[:1, positions], a.spec)[0, :, : a.spec.vocab_size].float().cpu().numpy()
+    steps = [pre]
+    seq_ids = np.zeros(1, np.int32)
+    for p in range(S, len(seq) - 1):
+        steps.append(a.forward(seq[None, p : p + 1], np.array([[p]]), seq_ids)[1][:, -1])
+    del a
+    return np.concatenate(steps, axis=0)
+
+
+def _splice(torch, params, ids, feats, image_token):
+    """The prompt's token embeddings (B = 1) with ``feats`` (N, H) at its
+    image placeholders, in raster order."""
+    from neuronx_distributed_inference_tpu_torch.models.base import embed
+
+    e = embed(params, torch.as_tensor(ids, device=DEV)).clone()
+    if feats is not None:
+        e[0, torch.as_tensor(np.nonzero(ids[0] == image_token)[0], device=DEV)] = feats.reshape(-1, e.shape[-1]).to(e.dtype)
+    return e
+
+
+def _i2t_gate(torch, label, cfg_fn, params, tower, encode, ids, seq, image_token, grid, controls):
+    """The image-to-text gate (_vlm_gate): ``params`` the cut text's bf16
+    gate weights, ``tower`` the whole tower with its projector, ``encode(tower)``
+    the features (N, H); the fp32 twin runs the text's and the tower's
+    weights upcast. Logits at every VLM_IMAGE_STRIDE-th image position, every
+    text position, then the forced decode steps. Controls: "transposed" (the
+    features spliced in transposed raster order over the ``grid`` x
+    ``grid`` image) and "placeholders" (the placeholders' own embeddings)."""
+    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
+    if hasattr(cfg_fn().torch_config, "moe_fused_kernel_enabled"):
+        off["moe_fused_kernel_enabled"] = False
+    prompt_len = ids.shape[1]
+    img = np.nonzero(ids[0] == image_token)[0]
+    positions = torch.as_tensor(np.concatenate([img[::VLM_IMAGE_STRIDE], np.arange(img[-1] + 1, prompt_len)]),
+                                device=DEV)
+    params32 = _fp32_but_experts(params)
+    tower32 = _tree_to(tower, torch.float32)
+    with torch.no_grad():
+        feats = {"bf16": encode(tower), "fp32": encode(tower32)}
+    del tower32
+    H = feats["bf16"].shape[-1]
+
+    def logits_of(path, control):
+        f = feats["fp32" if path == "fp32" else "bf16"]
+        if control == "transposed":
+            f = f.reshape(1, grid, grid, H).transpose(1, 2)
+        p = params32 if path == "fp32" else params
+        e = _splice(torch, p, ids, None if control == "placeholders" else f, image_token)
+        kw = dict(dtype="float32", **off) if path == "fp32" else (off if path == "plain" else {})
+        return _i2t_forced_logits(torch, cfg_fn(**kw), p, e, seq, prompt_len, positions)
+
+    out = _vlm_gate(torch, label, logits_of, controls)
+    del params32, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _config_pixtral(batch, model=None, **kw):
+    """Pixtral-12B (models/pixtral.PIXTRAL_12B, or ``model``) at
+    PIXTRAL_RUNS[batch]'s buckets: bf16, the contiguous cache; ``kw``
+    overrides Config fields."""
+    from neuronx_distributed_inference_tpu_torch.config import Config, InferenceConfig
+    from neuronx_distributed_inference_tpu_torch.models.pixtral import PIXTRAL_12B
+
+    r = PIXTRAL_RUNS[batch]
+    base = dict(batch_size=batch, seq_len=r["seq"], dtype="bfloat16", context_encoding_buckets=[r["cte"]],
+                token_generation_buckets=[r["seq"]], seed=0, device=DEV)
+    attrs = model or PIXTRAL_12B
+    return InferenceConfig(Config(**{**base, **kw}), load_config=lambda c: [setattr(c, k, v) for k, v in attrs.items()])
+
+
+def pixtral_teacher_forced(torch, tower, projector, ids, seq, px):
+    """The gate on PIXTRAL_FORCED_LAYERS of Pixtral-12B's 40 text layers at
+    full width (gate weights: _a9_gate_params) with the whole tower (24
+    layers at the published widths) and its projector, on the batch-1 run's
+    prompt (BOS, 4096 image tokens, 63 text) and VLM_FORCED_STEPS of its
+    tokens; controls: the features transposed, the placeholders' own
+    embeddings."""
+    from neuronx_distributed_inference_tpu_torch.models import get_model_builder
+    from neuronx_distributed_inference_tpu_torch.models.pixtral import PIXTRAL_12B
+    from neuronx_distributed_inference_tpu_torch.runtime.image_to_text import ImageToTextModel
+
+    model = dict(PIXTRAL_12B, text_config=dict(PIXTRAL_12B["text_config"], num_hidden_layers=PIXTRAL_FORCED_LAYERS))
+
+    def cfg_fn(**kw):
+        app = ImageToTextModel(None, _config_pixtral(1, model=model, output_logits=True, cuda_graphs=False, **kw))
+        return app.text.config
+
+    text_cfg = cfg_fn()
+    vocab = text_cfg.vocab_size
+    params = _a9_gate_params(torch, get_model_builder("mistral")(text_cfg).random_params(), 0.02, vocab)
+
+    shell = ImageToTextModel(None, _config_pixtral(1, model=model))
+
+    def encode(t):
+        shell.vision_params, shell.projector = t["vision"], t["projector"]
+        return shell.encode_images(px)[0]
+
+    side = PIXTRAL_RUNS[1]["side"] // shell.vision_spec.patch_size
+    label = (f"pixtral-12b teacher-forced logits ({PIXTRAL_FORCED_LAYERS} of 40 text layers, the whole tower, "
+             f"{VLM_FORCED_STEPS} forced steps)")
+    return _i2t_gate(torch, label, cfg_fn, params, dict(vision=tower, projector=projector), encode, ids, seq,
+                     PIXTRAL_12B["image_token_index"], side,
+                     {"transposed": "the features spliced in transposed raster order",
+                      "placeholders": "the placeholders' own embeddings in place of the features"})
+
+
+def phase_pixtral_12b(torch, fa, da):
+    """Pixtral-12B at its published widths and depth (text: Mistral-Nemo,
+    5120 hidden, 40 layers, 32 q / 8 kv heads of 128 (q 4096 wide), MLP
+    14336, vocab 131072, rope theta 1e9; tower: 24 layers of 1024, 16 heads
+    of 64, MLP 4096, patches of 16; projector 1024 -> 5120 -> 5120 GELU),
+    seeded random bf16 weights made on the card and loaded through
+    ``ImageToTextModel.load(params=)``: B2a / B1 at its shapes held and timed
+    (vlm_kernel_parity / vlm_kernel_times); warmup (the embeds CTE programs
+    captured under seal_suspended), sealed; generate() of VLM_NEW tokens at
+    batch 1 (one 1024 x 1024 image, 4096 image tokens, 63 text) and batch 4
+    (one 512 x 512 image a row) with exact counts (B2a 40 a prefill, B1 40 a
+    decode step), the tower's device ms, TTFT, tok/s and peak memory; a
+    profiled decode step beside its byte bound; without an image,
+    generate() equal to a plain text app's bit for bit; then the gate."""
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+    from neuronx_distributed_inference_tpu_torch.models.pixtral import PIXTRAL_12B, random_projector, random_vision_params
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import bound_ms
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.runtime.image_to_text import ImageToTextModel
+
+    n_cases = timed("pixtral-12b kernel parity", vlm_kernel_parity, torch, fa, da)
+    times = timed("vision-language kernel times", vlm_kernel_times, torch, fa, da)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    app = ImageToTextModel(None, _config_pixtral(1, retrace_guard=True))
+    dt = torch.bfloat16
+    # the published tower MLP (the port's random_weights keeps the
+    # reference's 2 x hidden)
+    tower = random_vision_params(app.vision_spec, dt, DEV, PIXTRAL_12B["vision_config"]["intermediate_size"])
+    projector = random_projector(app.vision_spec.hidden_size, app.text.config.hidden_size, dt, DEV)
+    app.load(params=dict(text=app.text.builder.random_params(), vision=tower, projector=projector))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    params_bytes = _tree_bytes(app.text.params)
+    tower_bytes = _tree_bytes(tower) + _tree_bytes(projector)
+    log(f"pixtral-12b: load (seeded random bf16 weights made on the card) {load_s:.2f} s, text params "
+        f"{params_bytes / 2**30:.3f} GiB, tower and projector {tower_bytes / 2**30:.3f} GiB, cache "
+        f"{app.text.kv_cache_nbytes / 2**30:.3f} GiB, device peak of the load "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
+    tcfg, aspec = PIXTRAL_12B["text_config"], app.text.spec.attn
+    q_shape = tuple(app.text.params["layers"][0]["self_attn"]["q_proj"]["weight"].shape)
+    if aspec.head_dim != tcfg["head_dim"] or q_shape != (tcfg["hidden_size"], aspec.num_heads * tcfg["head_dim"]):
+        raise SystemExit(f"pixtral-12b: text heads {aspec}, q_proj {q_shape}: the explicit head_dim not taken")
+    log(f"  pixtral-12b text: q_proj {q_shape} ({aspec.num_heads} heads of {aspec.head_dim} beside a "
+        f"{tcfg['hidden_size']} hidden), the Mistral path's B2a and B1 at D = {aspec.head_dim}")
+    t0 = time.perf_counter()
+    app.warmup()
+    cte = app.text.context_encoding_model
+    for runner in app.text.runners:
+        runner.seal()
+    if not cte.sealed or not any(k[5] is not None for k in cte._prog.seen):
+        raise SystemExit("pixtral-12b: the embeds CTE program was not warmed before the seal")
+    torch.cuda.synchronize()
+    log(f"pixtral-12b warmup (captures, the embeds CTE included, then sealed) {time.perf_counter() - t0:.2f} s")
+    L = app.text.spec.num_layers
+    want = expect_launches(flash_attention=L, decode_attention=L * VLM_NEW)
+    rng = np.random.RandomState(12)
+    runs = {}
+    for B in (1, 4):
+        side = PIXTRAL_RUNS[B]["side"]
+        n_img = (side // app.vision_spec.patch_size) ** 2
+        ids = _vlm_prompt(rng, B, n_img, PIXTRAL_12B["image_token_index"], app.text.spec.vocab_size)
+        px = torch.randn((B, 3, side, side), generator=torch.Generator(device=DEV).manual_seed(B), device=DEV)
+        a = app if B == 1 else ImageToTextModel(None, _config_pixtral(B, retrace_guard=True)).load(
+            params=dict(text=app.text.params, vision=tower, projector=projector)).warmup()
+        for runner in a.text.runners:
+            runner.seal()
+        with RetraceGuard():
+            out, run = _vlm_run(torch, f"pixtral-12b generate() with {B} image(s) of {side}",
+                                lambda n: a.generate(ids, pixel_values=px, max_new_tokens=n), ids.shape[1], B, want)
+        run["tower_ms"] = tower_ms = _device_ms(torch, lambda: a.encode_images(px))
+        log(f"  pixtral-12b tower and projector ({B} image(s) of {side} x {side}, {n_img} patches each; the tower "
+            f"computes in fp32, the pixels' dtype, as the reference promotes): {tower_ms:.2f} ms of device time")
+        if B == 1:
+            seq1, ids1, px1 = out.sequences[0], ids, px
+            # decode-step device time beside its byte bound (every weight
+            # but the embedding, and the cache positions it reads)
+            prof = phase_profile(torch, app.text, out.sequences[0], ids.shape[1], bucket=PIXTRAL_RUNS[1]["seq"])
+            embed_bytes = app.text.params["embed_tokens"]["weight"].numel() * 2
+            kv_bytes = 2 * L * VLM_HEADS["Hkv"] * VLM_HEADS["D"] * 2 * (ids.shape[1] + 1)
+            b_step = bound_ms(params_bytes - embed_bytes + kv_bytes, 0)[0]
+            run.update(step_ms=prof["device_busy_ms"], step_bound_ms=b_step, kernels_per_step=prof["kernels_per_step"])
+            log(f"  pixtral-12b decode step at batch 1: device busy {prof['device_busy_ms']:.3f} ms against a "
+                f"{b_step:.3f} ms byte bound ({(params_bytes - embed_bytes) / 1e9:.2f} GB of weights, "
+                f"{kv_bytes / 1e6:.1f} MB of cache)")
+            # without an image: the app's generate() is the text app's, bit for bit
+            text_ids = np.concatenate([ids[:, :1], ids[:, 1 + n_img :]], axis=1)
+            with RetraceGuard():
+                no_img = app.generate(text_ids, max_new_tokens=16)
+            plain = ModelForCausalLM(None, app.text.config).load(params=app.text.params)
+            ref = plain.generate(text_ids, max_new_tokens=16)
+            if not np.array_equal(no_img.sequences, ref.sequences):
+                raise SystemExit("pixtral-12b: generate() without an image differs from the text app's")
+            log("  pixtral-12b without an image: generate() equals a plain text app's on the same weights, bit for bit")
+            del plain
+        else:
+            del a
+        runs[B] = run
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase pixtral-12b load and generate(): {time.perf_counter() - t0:.1f} s")
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    forced = timed("pixtral-12b teacher-forced gate", pixtral_teacher_forced, torch, tower, projector, ids1,
+                   seq1[: ids1.shape[1] + VLM_FORCED_STEPS], px1)
+    del tower, projector, px1
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"flash_attention_pixtral": runs[1]["launches"]["flash_attention"],
+                "decode_attention_pixtral": runs[1]["launches"]["decode_attention"]}
+    return dict(times=times, cases=n_cases, runs=runs, forced=forced, launches=launches, load_s=load_s,
+                params_bytes=params_bytes)
+
+
+# ---- Llama-3.2-11B-Vision -------------------------------------------------
+
+
+def _mllama_model(n_layers=None, cross=None):
+    from neuronx_distributed_inference_tpu_torch.models.mllama import LLAMA32_11B_VISION
+
+    text = dict(LLAMA32_11B_VISION["text_config"])
+    if n_layers is not None:
+        text.update(num_hidden_layers=n_layers, cross_attention_layers=cross)
+    return dict(LLAMA32_11B_VISION, text_config=text)
+
+
+def _config_mllama(batch, model=None, **kw):
+    from neuronx_distributed_inference_tpu_torch.config import Config
+    from neuronx_distributed_inference_tpu_torch.models.mllama import MllamaInferenceConfig
+
+    base = dict(batch_size=batch, seq_len=MLLAMA_SEQ, dtype="bfloat16", seed=0, device=DEV)
+    attrs = model or _mllama_model()
+    return MllamaInferenceConfig(Config(**{**base, **kw}),
+                                 load_config=lambda c: [setattr(c, k, v) for k, v in attrs.items()])
+
+
+def _mllama_vision_params(torch, vc, dtype, seed):
+    """Seeded Mllama tower weights at ``vc``'s widths (std 0.02, norms 1,
+    every gate VLM_GATE_VALUE), made on the device."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    hs, I, ps, T = vc["hidden_size"], vc["intermediate_size"], vc["patch_size"], vc["max_num_tiles"]
+    n_ar = len(vc["supported_aspect_ratios"]) + 1
+    npatch = (vc["image_size"] // ps) ** 2 + 1
+
+    def w(*shape):
+        return _device_randn(torch, gen, shape, 0.02, dtype)
+
+    def gate(*shape):
+        return torch.full(shape or (1,), VLM_GATE_VALUE, dtype=dtype, device=DEV)
+
+    def stack(L, gated):
+        d = {
+            "input_layernorm": {"weight": _ones(torch, (L, hs), dtype), "bias": w(L, hs)},
+            "post_attention_layernorm": {"weight": _ones(torch, (L, hs), dtype), "bias": w(L, hs)},
+            "self_attn": {n: {"weight": w(L, hs, hs)} for n in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            "mlp": {"fc1": {"weight": w(L, hs, I), "bias": w(L, I)}, "fc2": {"weight": w(L, I, hs), "bias": w(L, hs)}},
+        }
+        if gated:
+            d["gate_attn"], d["gate_ffn"] = gate(L, 1), gate(L, 1)
+        return d
+
+    return {
+        "patch_embedding": {"weight": w(hs, 3, ps, ps)},
+        "class_embedding": w(hs),
+        "gated_positional_embedding": {"embedding": w(npatch, hs), "gate": gate(),
+                                       "tile_embedding": {"weight": w(n_ar, T * npatch * hs)}},
+        "pre_tile_positional_embedding": {"embedding": {"weight": w(n_ar, T * hs)}, "gate": gate()},
+        "post_tile_positional_embedding": {"embedding": {"weight": w(n_ar, T * hs)}, "gate": gate()},
+        "layernorm_pre": {"weight": _ones(torch, (hs,), dtype), "bias": w(hs)},
+        "layernorm_post": {"weight": _ones(torch, (hs,), dtype), "bias": w(hs)},
+        "transformer": {"layers": stack(vc["num_hidden_layers"], False)},
+        "global_transformer": {"layers": stack(vc["num_global_layers"], True)},
+    }
+
+
+def _mllama_text_params(torch, app, dtype, seed, gate_weights=False):
+    """Seeded text weights of ``app``'s schedule (its runs of self layers and
+    its cross layers; every cross gate VLM_GATE_VALUE) and a projector, made
+    on the device. Default std 0.02; ``gate_weights``: every projection of
+    the layers std 1 / sqrt(fan in), those that write the residual stream
+    (o_proj, down_proj) times A9_GATE_RESIDUAL_SCALE, and the head boosted
+    (_a9_gate_params' recipe)."""
+    from types import SimpleNamespace
+
+    from neuronx_distributed_inference_tpu_torch.modules.rope import compute_inv_freq
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    tc = app._tg
+    H, I, V = app.hidden_size, tc("intermediate_size"), tc("vocab_size")
+    q, kv, D = app.spec.attn.num_heads * app.head_dim, app.spec.attn.num_kv_heads * app.head_dim, app.head_dim
+
+    def w(*shape, name=""):
+        if not gate_weights:
+            return _device_randn(torch, gen, shape, 0.02, dtype)
+        scale = A9_GATE_RESIDUAL_SCALE if name in ("o_proj", "down_proj") else 1.0
+        return _device_randn(torch, gen, shape, scale / shape[-2] ** 0.5, dtype)
+
+    def attn(n, names):
+        lead = (n,) if n else ()
+        shapes = dict(q_proj=(H, q), k_proj=(H, kv), v_proj=(H, kv), o_proj=(q, H))
+        return {m: {"weight": w(*lead, *shapes[m], name=m)} for m in names}
+
+    def mlp(n):
+        lead = (n,) if n else ()
+        return {"gate_proj": {"weight": w(*lead, H, I)}, "up_proj": {"weight": w(*lead, H, I)},
+                "down_proj": {"weight": w(*lead, I, H, name="down_proj")}}
+
+    self_runs, cross = [], []
+    for kind, n in app.runs:
+        if kind == "self":
+            self_runs.append({"input_layernorm": {"weight": _ones(torch, (n, H), dtype)},
+                              "post_attention_layernorm": {"weight": _ones(torch, (n, H), dtype)},
+                              "self_attn": attn(n, ("q_proj", "k_proj", "v_proj", "o_proj")), "mlp": mlp(n)})
+        else:
+            ca = attn(0, ("q_proj", "k_proj", "v_proj", "o_proj"))
+            ca["q_norm"], ca["k_norm"] = {"weight": _ones(torch, (D,), dtype)}, {"weight": _ones(torch, (D,), dtype)}
+            g = torch.full((1,), VLM_GATE_VALUE, dtype=dtype, device=DEV)
+            cross.append({"input_layernorm": {"weight": _ones(torch, (H,), dtype)},
+                          "post_attention_layernorm": {"weight": _ones(torch, (H,), dtype)}, "cross_attn": ca,
+                          "cross_attn_attn_gate": g, "cross_attn_mlp_gate": g.clone(), "mlp": mlp(0)})
+    rope_cfg = SimpleNamespace(hidden_size=H, num_attention_heads=app.spec.attn.num_heads, head_dim=D,
+                                     rope_theta=tc("rope_theta"), rope_scaling=tc("rope_scaling"))
+    lm = {"weight": _device_randn(torch, gen, (H, V), 0.02, dtype)}
+    if gate_weights:
+        lm = _boosted_head(torch, lm, V)
+    return {
+        "projector": {"weight": _device_randn(torch, gen, (app.vision_spec.output_dim, H), 0.02, dtype),
+                      "bias": torch.zeros(H, dtype=dtype, device=DEV)},
+        "embed_tokens": {"weight": _device_randn(torch, gen, (V + 8, H), 0.02, dtype)},
+        "rope": {"inv_freq": compute_inv_freq(rope_cfg).float().to(DEV)},
+        "self_runs": self_runs,
+        "cross_layers": cross,
+        "norm": {"weight": _ones(torch, (H,), dtype)},
+        "lm_head": lm,
+    }
+
+
+def _mllama_inputs(rng, B, app):
+    """B rows of MLLAMA_PROMPT tokens (BOS, the image token, text) and one
+    MLLAMA_TILES-tile image a row (aspect ratio MLLAMA_ASPECT: 2 x 2); the
+    cross mask as HF's processor makes it: BOS sees no tile (its row is
+    fully masked), every later token sees all four."""
+    vocab = app.spec.vocab_size
+    ids = rng.randint(2, vocab, size=(B, MLLAMA_PROMPT))
+    ids[:, 0], ids[:, 1] = min(128000, vocab - 1), app.config.image_token_index
+    xmask = np.ones((B, MLLAMA_PROMPT, 1, MLLAMA_TILES), np.int64)
+    xmask[:, 0] = 0
+    return ids, np.full((B, 1), MLLAMA_ASPECT), np.ones((B, 1, MLLAMA_TILES), np.int64), xmask
+
+
+def _mllama_pixels(torch, app, B, seed):
+    side = app.vision_spec.image_size
+    return torch.randn((B, 1, MLLAMA_TILES, 3, side, side), generator=torch.Generator(device=DEV).manual_seed(seed),
+                       device=DEV)
+
+
+def _mllama_cross(torch, app, px, ar, am, taps_concatenated=False):
+    """``app``'s cross states of the rows' images: the tower (per row) and
+    the projector. ``taps_concatenated``: the control with the tower's taps
+    concatenated instead of interleaved."""
+    from neuronx_distributed_inference_tpu_torch.models import mllama as mm
+
+    B = px.shape[0]
+    dev = app.device
+    with torch.no_grad():
+        if taps_concatenated:
+            vs = app.vision_spec
+            hs, n = vs.hidden_size, len(vs.intermediate_layers_indices)
+            out = torch.cat([mm.mllama_vision_encoder(app.params["vision"], px[b : b + 1],
+                                                      torch.as_tensor(ar[b : b + 1], device=dev),
+                                                      torch.as_tensor(am[b : b + 1], device=dev), vs)
+                             for b in range(B)])
+            taps = out[..., hs:].reshape(*out.shape[:-1], hs, n).transpose(-1, -2).reshape(*out.shape[:-1], n * hs)
+            out = torch.cat([out[..., :hs], taps], dim=-1)
+            proj = app.params["projector"]
+            cross = (out @ proj["weight"] + proj["bias"]).reshape(B, -1, app.hidden_size)
+        else:
+            cross = app.encode(px, ar, am)
+    return cross
+
+
+def _mllama_forced_logits(torch, app, cross, xmask, seq, prompt_len):
+    """Teacher-forced logits of ``app`` over ``seq`` (B, len) from the rows'
+    ``cross`` states through its own functions: the prefill's last
+    position (B2a on the kernel path), then every decode step fed the
+    recorded token (B1), all rows."""
+    from neuronx_distributed_inference_tpu_torch.models import mllama as mm
+    from neuronx_distributed_inference_tpu_torch.models.base import (
+        PHASE_CONTEXT_ENCODING,
+        PHASE_TOKEN_GENERATION,
+        StepInputs,
+    )
+
+    B = seq.shape[0]
+    dev = app.device
+    with torch.no_grad():
+        cross = torch.nn.functional.pad(cross, (0, 0, 0, app.max_sv - cross.shape[1]))
+        add, full = mm.prepare_cross_attention_mask(xmask.astype(np.float32), app.num_vision_tokens)
+        add = np.pad(add, ((0, 0), (0, 0), (0, 0), (0, app.max_sv - add.shape[-1])), constant_values=mm.NEG_INF)
+        add_t, full_t = torch.as_tensor(add, device=dev), torch.as_tensor(full, device=dev)
+        S = prompt_len
+        sp = torch.zeros((B, 3), device=dev)
+        seq_ids = torch.arange(B, dtype=torch.int32, device=dev)
+        inputs = StepInputs(
+            input_ids=torch.as_tensor(seq[:, :S], device=dev), attention_mask=torch.ones((B, S), dtype=torch.int32, device=dev),
+            position_ids=torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S).contiguous(),
+            seq_ids=seq_ids, sampling_params=sp,
+        )
+        logits, _ = mm.mllama_text_forward(app.params, app.cache, inputs, add_t, full_t, cross, spec=app.spec,
+                                           runs=app.runs, phase=PHASE_CONTEXT_ENCODING)
+        steps = [logits[:, -1].float().cpu().numpy()]
+        cols = torch.arange(app.config.torch_config.seq_len, device=dev)[None]
+        for p in range(S, seq.shape[1] - 1):
+            pos = torch.full((B, 1), p, dtype=torch.int32, device=dev)
+            inputs = StepInputs(input_ids=torch.as_tensor(seq[:, p : p + 1], device=dev),
+                                attention_mask=(cols <= p).to(torch.int32).expand(B, -1).contiguous(),
+                                position_ids=pos, seq_ids=seq_ids, sampling_params=sp)
+            logits, _ = mm.mllama_text_forward(app.params, app.cache, inputs, add_t[:, :, -1:], full_t[:, -1:], None,
+                                               spec=app.spec, runs=app.runs, phase=PHASE_TOKEN_GENERATION)
+            steps.append(logits[:, -1].float().cpu().numpy())
+    return np.concatenate(steps, axis=0)
+
+
+class _OtherRowsCrossKV:
+    """Every row reads the next row's cross-KV line (models/mllama.cross_rows
+    rolled): the Mllama gate's control."""
+
+    def __enter__(self):
+        from neuronx_distributed_inference_tpu_torch.models import mllama as mm
+
+        self.real = mm.cross_rows
+        mm.cross_rows = lambda slot_ids: slot_ids.roll(1)
+        return self
+
+    def __exit__(self, *exc):
+        from neuronx_distributed_inference_tpu_torch.models import mllama as mm
+
+        mm.cross_rows = self.real
+
+
+def mllama_teacher_forced(torch, vision, seq, px, ar, am, xmask):
+    """The gate on Llama-3.2-11B-Vision's text layers 0-4 (cross layer 3) at
+    full width (gate weights: _mllama_text_params(gate_weights=True)) with
+    the whole tower (32 + 8 layers at the published widths, gates
+    VLM_GATE_VALUE), MLLAMA_GATE_ROWS rows with their own images; controls:
+    each row reading another row's cross-KV line, the taps concatenated."""
+    from neuronx_distributed_inference_tpu_torch.runtime.mllama import MllamaForConditionalGeneration
+
+    model = _mllama_model(MLLAMA_FORCED_LAYERS, [3])
+    off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False)
+    B = seq.shape[0]
+
+    def app_of(**kw):
+        return MllamaForConditionalGeneration(None, _config_mllama(B, model=model, cuda_graphs=False, **kw))
+
+    shell = app_of()
+    text = _mllama_text_params(torch, shell, torch.bfloat16, 31, gate_weights=True)
+    params = dict(text, vision=vision)
+    params32 = _tree_to(params, torch.float32)
+    del shell
+
+    # the tower runs no kernel: its cross states, once for each weight dtype
+    # and tap layout, serve every path
+    crosses = {}
+
+    def logits_of(path, control):
+        kw = dict(dtype="float32", **off) if path == "fp32" else (off if path == "plain" else {})
+        app = app_of(**kw).load(params=params32 if path == "fp32" else params)
+        key = (path == "fp32", control == "taps")
+        if key not in crosses:
+            crosses[key] = _mllama_cross(torch, app, px, ar, am, taps_concatenated=key[1])
+        if control == "other_row":
+            with _OtherRowsCrossKV():
+                return _mllama_forced_logits(torch, app, crosses[key], xmask, seq, MLLAMA_PROMPT)
+        return _mllama_forced_logits(torch, app, crosses[key], xmask, seq, MLLAMA_PROMPT)
+
+    label = (f"llama-3.2-11b-vision teacher-forced logits (text layers 0-{MLLAMA_FORCED_LAYERS - 1}, cross layer 3, "
+             f"the whole tower, {B} rows, {seq.shape[1] - MLLAMA_PROMPT - 1} forced steps)")
+    out = _vlm_gate(torch, label, logits_of, {"other_row": "each row reading another row's cross-KV line",
+                                              "taps": "the tower's taps concatenated instead of interleaved"})
+    del params32, params, crosses
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mllama_11b(torch, fa, da):
+    """Llama-3.2-11B-Vision at its published widths and depth (40 text layers
+    of 4096 with cross layers at 3, 8, ..., 38, 32 q / 8 kv heads of 128,
+    MLP 14336, vocab 128256 + 8, llama3 rope; the tower 32 local and 8
+    global layers of 1280 over 4 tiles of 560, taps [3, 7, 15, 23, 30]),
+    seeded random bf16 weights made on the card (every gate tanh ~ 0.5),
+    through ``MllamaForConditionalGeneration.load(params=)``: generate() of
+    VLM_NEW tokens after MLLAMA_PROMPT at batch 1 and 4 (one 2 x 2-tile
+    image a row), the tower and prefill eager, each decode step a graph
+    replay: exact counts (B2a 32 a prefill, B1 32 a decode step), the
+    tower's device ms, TTFT, tok/s, peak memory, the cross-KV stream's
+    bytes; a profiled decode step beside its byte bound; then the gate."""
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import bound_ms
+    from neuronx_distributed_inference_tpu_torch.runtime.mllama import MllamaForConditionalGeneration
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    app = MllamaForConditionalGeneration(None, _config_mllama(1))
+    vision = _mllama_vision_params(torch, app.config.vision_config, torch.bfloat16, 21)
+    text = _mllama_text_params(torch, app, torch.bfloat16, 22)
+    app.load(params=dict(text, vision=vision))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    params_bytes = _tree_bytes(app.params)
+    vision_bytes = _tree_bytes(vision)
+    log(f"llama-3.2-11b-vision: load (seeded random bf16 weights made on the card) {load_s:.2f} s, params "
+        f"{params_bytes / 2**30:.3f} GiB (the tower {vision_bytes / 2**30:.3f}), self-attention cache "
+        f"{(app.cache.k.numel() * 4) / 2**30:.4f} GiB, cross-KV stream {app.cross_kv_nbytes / 2**20:.1f} MiB "
+        f"({len(app.cross_layers)} cross layers x {app.cache.cross_k.shape[1]} lines x {app.max_sv} vision tokens), "
+        f"device peak of the load {(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
+    L = app.num_self
+    rng = np.random.RandomState(13)
+    runs = {}
+    for B in (1, 4):
+        a = app if B == 1 else MllamaForConditionalGeneration(None, _config_mllama(B)).load(params=app.params)
+        ids, ar, am, xmask = _mllama_inputs(rng, B, a)
+        px = _mllama_pixels(torch, a, B, B)
+        want = expect_launches(flash_attention=L, decode_attention=L * (VLM_NEW - 1))
+        out, run = _vlm_run(torch, f"llama-3.2-11b-vision generate() with {B} image(s) of 2 x 2 tiles",
+                            lambda n: a.generate(ids, None, px, ar, am, xmask, max_new_tokens=n), MLLAMA_PROMPT, B,
+                            want)
+        tower_ms = _device_ms(torch, lambda: a.encode(px, ar, am), reps=1)
+        captured = a.graphs.captures
+        run.update(tower_ms=tower_ms, captures=captured, cross_kv_bytes=a.cross_kv_nbytes)
+        log(f"  llama-3.2-11b-vision tower and projector ({B} image(s), {MLLAMA_TILES} tiles of "
+            f"{a.vision_spec.num_patches} patches each, "
+            f"one row a call): {tower_ms:.2f} ms of device time; {captured} decode graph(s) captured")
+        if captured != int(a.graphs.enabled):
+            raise SystemExit(f"llama-3.2-11b-vision: {captured} decode graphs captured at batch {B} (one expected)")
+        # the decode step's device time: graph replays from position MLLAMA_PROMPT
+        st, body, graph = a._decode[B]
+        step = graph.replay if graph is not None else body
+
+        def chunk(steps=4):
+            st.pos.fill_(MLLAMA_PROMPT)
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+
+        prof = profile_chunk(torch, chunk, 4, f"llama-3.2-11b-vision decode step (batch {B}, graph replays)")
+        embed_bytes = app.params["embed_tokens"]["weight"].numel() * 2
+        kv_row = a.spec.attn.num_kv_heads * a.spec.attn.head_dim * 2
+        kv_bytes = a.cross_kv_nbytes * B // a.cache.cross_k.shape[1] + 2 * L * B * (MLLAMA_PROMPT + 1) * kv_row
+        b_step = bound_ms(params_bytes - vision_bytes - embed_bytes + kv_bytes, 0)[0]
+        run.update(step_ms=prof["device_busy_ms"], step_bound_ms=b_step, kernels_per_step=prof["kernels_per_step"])
+        log(f"  llama-3.2-11b-vision decode step at batch {B}: device busy {prof['device_busy_ms']:.3f} ms against a "
+            f"{b_step:.3f} ms byte bound (text weights but the embedding, and the rows' cross and self K / V)")
+        if B == 1:
+            seq1 = out.sequences
+        else:
+            gate_in = (out.sequences[:MLLAMA_GATE_ROWS], px[:MLLAMA_GATE_ROWS], ar[:MLLAMA_GATE_ROWS],
+                       am[:MLLAMA_GATE_ROWS], xmask[:MLLAMA_GATE_ROWS])
+            del a
+        runs[B] = run
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phase llama-3.2-11b-vision load and generate(): {time.perf_counter() - t0:.1f} s")
+    app.params = None
+    del app, text
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq, px, ar, am, xmask = gate_in
+    forced = timed("llama-3.2-11b-vision teacher-forced gate", mllama_teacher_forced, torch, vision,
+                   seq[:, : MLLAMA_PROMPT + VLM_FORCED_STEPS], px, ar, am, xmask)
+    del vision, seq1
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = {"flash_attention_mllama": runs[1]["launches"]["flash_attention"],
+                "decode_attention_mllama": runs[1]["launches"]["decode_attention"]}
+    return dict(runs=runs, forced=forced, launches=launches, load_s=load_s, params_bytes=params_bytes)
+
+
+# ---- the Llama4 tower on Scout's text ---------------------------------------
+
+
+def _llama4_tower(torch, spec, dtype, seed, H_text):
+    """Seeded Llama4 tower weights at ``spec``'s widths (std 0.02, norms 1)
+    with its projector to ``H_text``, made on the device."""
+    from neuronx_distributed_inference_tpu_torch.models.llama4_vision import llama4_vision_rope
+
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    L, H, I, P = spec.num_layers, spec.hidden_size, spec.intermediate_size, spec.patch_size
+
+    def w(*shape):
+        return _device_randn(torch, gen, shape, 0.02, dtype)
+
+    def affine(i, o):
+        return {"weight": w(L, i, o), "bias": w(L, o)}
+
+    def norm(*lead):
+        return {"weight": _ones(torch, (*lead, H), dtype), "bias": w(*lead, H)}
+
+    cos, sin = llama4_vision_rope(spec)
+    shuffled = int(H / spec.pixel_shuffle_ratio ** 2)
+    vision = {
+        "patch_embedding": {"weight": w(3 * P * P, H)},
+        "class_embedding": w(H),
+        "positional_embedding_vlm": w(spec.num_patches, H),
+        "layernorm_pre": norm(), "layernorm_post": norm(),
+        "layers": {
+            "input_layernorm": norm(L), "post_attention_layernorm": norm(L),
+            "self_attn": {n: affine(H, H) for n in ("q_proj", "k_proj", "v_proj", "o_proj")},
+            "mlp": {"fc1": affine(H, I), "fc2": affine(I, H)},
+        },
+        "rope": {"cos": torch.as_tensor(cos, device=DEV), "sin": torch.as_tensor(sin, device=DEV)},
+        "vision_adapter": {"fc1": {"weight": w(shuffled, spec.projector_input_dim)},
+                           "fc2": {"weight": w(spec.projector_input_dim, spec.projector_output_dim)}},
+    }
+    return vision, {"linear_1": {"weight": w(spec.projector_output_dim, H_text)}}
+
+
+def _config_scout_vlm(text_model, **kw):
+    """Scout's text (``text_model``) with the Llama4 tower at its published
+    vision_config, as an image-to-text config (Scout's buckets)."""
+    from neuronx_distributed_inference_tpu_torch.models.llama4_vision import LLAMA4_SCOUT_IMAGE_TOKEN, LLAMA4_SCOUT_VISION
+
+    cfg = _config_llama4(model=text_model, **kw)
+    cfg.text_config = dict(text_model, model_type="llama4_text")
+    cfg.vision_config = dict(LLAMA4_SCOUT_VISION)
+    cfg.image_token_index = LLAMA4_SCOUT_IMAGE_TOKEN
+    return cfg
+
+
+def llama4_vision_run(torch, scout_params):
+    """The Llama4 tower at Scout's published vision_config (34 layers of
+    1408, 16 heads, MLP 5632, a 336 x 336 image in patches of 14, pixel
+    shuffle 0.5: 144 tokens) with its projector to Scout's 5120, seeded on
+    the card: the bf16 tower against its fp32 twin (LLAMA4_TOWER_RMS_RTOL),
+    its device ms; a sealed batch-1 generate() of A9_NEW tokens from a
+    256-token prompt (BOS, 144 image tokens, 111 text) on Scout's
+    LLAMA4_LAYERS-layer params through B2a and B1 with exact counts; then the
+    gate on LLAMA4_FORCED_LAYERS layers with the tower, routing pinned to the
+    fp32 run's, and its transposed-features control."""
+    from neuronx_distributed_inference_tpu_torch.analysis.retrace_guard import RetraceGuard
+    from neuronx_distributed_inference_tpu_torch.models import get_model_builder
+    from neuronx_distributed_inference_tpu_torch.models.llama4_vision import LLAMA4_SCOUT_IMAGE_TOKEN, llama4_vision_encoder
+    from neuronx_distributed_inference_tpu_torch.runtime.image_to_text import ImageToTextModel
+
+    t0 = time.perf_counter()
+    app = ImageToTextModel(None, _config_scout_vlm(_llama4_cut(LLAMA4_LAYERS), retrace_guard=True))
+    spec = app.vision_spec
+    tower, projector = _llama4_tower(torch, spec, torch.bfloat16, 17, app.text.config.hidden_size)
+    app.load(params=dict(text=scout_params, vision=tower, projector=projector))
+    px = torch.randn((1, 3, spec.image_size, spec.image_size), generator=torch.Generator(device=DEV).manual_seed(5),
+                     device=DEV)
+    with torch.no_grad():
+        f16 = llama4_vision_encoder(tower, px, spec).float()
+        f32 = llama4_vision_encoder(_tree_to(tower, torch.float32), px, spec)
+    rel = float(((f16 - f32) ** 2).mean().sqrt() / (f32 ** 2).mean().sqrt())
+    n_img = f16.shape[1]
+    log(f"llama4 tower (Scout's vision_config, {spec.grid}^2 patches -> {n_img} tokens of "
+        f"{f16.shape[-1]}): bf16 against its fp32 twin: max abs err {float((f16 - f32).abs().max()):.4e}, rms "
+        f"err / rms {rel:.4e} (limit {LLAMA4_TOWER_RMS_RTOL:.4f})")
+    if n_img != int(spec.grid ** 2 * spec.pixel_shuffle_ratio ** 2) or not torch.isfinite(f16).all() or \
+            rel > LLAMA4_TOWER_RMS_RTOL:
+        raise SystemExit(f"llama4 tower: {n_img} tokens, rms error {rel:.4e} against its fp32 twin")
+    del f16, f32
+    app.warmup()
+    for runner in app.text.runners:
+        runner.seal()
+    L = LLAMA4_LAYERS
+    want = expect_launches(flash_attention=L, moe_grouped=L, decode_attention=L * VLM_NEW, moe_dense=L * VLM_NEW)
+    rng = np.random.RandomState(14)
+    ids = _vlm_prompt(rng, 1, n_img, LLAMA4_SCOUT_IMAGE_TOKEN, app.text.spec.vocab_size, text=A9_PROMPT - 1 - n_img)
+    with RetraceGuard():
+        out, run = _vlm_run(torch, "llama-4-scout generate() from the tower's embeddings",
+                            lambda n: app.generate(ids, pixel_values=px, max_new_tokens=n), A9_PROMPT, 1, want)
+    tower_ms = _device_ms(torch, lambda: app.encode_images(px))
+    log(f"  llama4 tower and projector: {tower_ms:.2f} ms of device time")
+    run["tower_ms"], run["tower_rms_rel"] = tower_ms, rel
+    seq = out.sequences[0][: A9_PROMPT + VLM_FORCED_STEPS]
+    del app
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase llama-4-scout vision load and generate(): {time.perf_counter() - t0:.1f} s")
+
+    model = _llama4_cut(LLAMA4_FORCED_LAYERS)
+
+    def cfg_fn(**kw):
+        return _config_llama4(model=model, output_logits=True, cuda_graphs=False, **kw)
+
+    params = _a9_gate_params(torch, get_model_builder("llama4_text")(cfg_fn()).random_params(), 0.05,
+                             model["vocab_size"])
+    shell = ImageToTextModel(None, _config_scout_vlm(model))
+
+    def encode(t):
+        shell.vision_params, shell.projector = t["vision"], t["projector"]
+        return shell.encode_images(px)[0]
+
+    forced = _i2t_gate(torch, f"llama-4-scout teacher-forced logits from the tower ({LLAMA4_FORCED_LAYERS} of 48 "
+                       f"layers, routing pinned to the fp32 run's)", cfg_fn, params,
+                       dict(vision=tower, projector=projector), encode, ids, seq, LLAMA4_SCOUT_IMAGE_TOKEN,
+                       int(n_img ** 0.5), {"transposed": "the features spliced in transposed raster order"})
+    del tower, projector, params, shell
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(run, forced=forced)
 
 
 def _map_tree(tree, fn):
@@ -9400,6 +10428,11 @@ def main():
     torch.cuda.empty_cache()
     scout = timed("llama-4-scout", phase_llama4_scout, torch, fa, da)
     times.update(scout.pop("times"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    pixtral = timed("pixtral-12b", phase_pixtral_12b, torch, fa, da)
+    times.update(pixtral.pop("times"))
+    mllama = timed("llama-3.2-11b-vision", phase_mllama_11b, torch, fa, da)
 
     entries = []
     for name, key, source, replaces, launches in (
@@ -9561,6 +10594,20 @@ def main():
          "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", scout["launches"]),
         ("decode_attention_llama4_long", ("decode_attention", "llama4 long"), "csrc/decode_attention.cu",
          "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", scout["launches"]),
+        # the vision-language stacks (32 q / 8 kv heads of 128): B2a at
+        # Pixtral-12B's 4224-token prefill program (4160 valid: BOS, a 1024 x
+        # 1024 image's 4096 patches, 63 text) and B1 at its decode (bucket
+        # 4288), launches of the batch-1 generate(); B2a at
+        # Llama-3.2-11B-Vision's 64-token prefill and B1 at its decode
+        # (bucket 128), launches of its batch-1 generate()
+        ("flash_attention_pixtral", ("flash_attention", "pixtral"), "csrc/flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", pixtral["launches"]),
+        ("decode_attention_pixtral", ("decode_attention", "pixtral"), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", pixtral["launches"]),
+        ("flash_attention_mllama", ("flash_attention", "mllama"), "csrc/flash_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", mllama["launches"]),
+        ("decode_attention_mllama", ("decode_attention", "mllama"), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", mllama["launches"]),
     ):
         t = times[key]
         entries.append({

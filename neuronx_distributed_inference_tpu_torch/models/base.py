@@ -226,6 +226,11 @@ class StepInputs:
     mask_override: Optional[torch.Tensor] = None
     # (B,) LoRA adapter slot of each row (modules/lora.py; 0 = the base model)
     adapter_ids: Optional[torch.Tensor] = None
+    # (B, S, H) input embeddings that replace embed(input_ids): a multimodal
+    # prefill's text embeddings with the image features spliced in at the
+    # placeholder positions (runtime/image_to_text.py); input_ids still
+    # carries the shapes
+    inputs_embeds: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -861,8 +866,9 @@ def model_logits(
     """Backbone + lm head, no sampling: (logits (B, K, V), cache), and with
     ``return_hidden`` the full-sequence hidden states after the final norm
     as a third value, or with ``capture_layers`` too (EAGLE3) the (B, S,
-    C*H) capture concat in their place."""
-    hidden = embed(params, inputs.input_ids)
+    C*H) capture concat in their place. ``inputs.inputs_embeds`` replaces
+    the token embeddings when it is set."""
+    hidden = inputs.inputs_embeds if inputs.inputs_embeds is not None else embed(params, inputs.input_ids)
     out = run_decoder_layers(
         params, hidden, cache, inputs, spec=spec, phase=phase, mlp_fn=mlp_fn, capture_layers=capture_layers,
         layer_fn=layer_fn,

@@ -82,6 +82,11 @@ _CODE_DTYPES = {
 }
 
 
+#: (parent, leaf) names of the fp32 tables: rope frequencies and the
+#: vision towers' rope angles, cosines and sines
+_FP32_TABLES = (("rope", "inv_freq"), ("rope", "table"), ("rope", "cos"), ("rope", "sin"))
+
+
 def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
     """The JAX package's param pytree, fetched as numpy arrays, as the
     port's params: the layouts are the same, so this only converts leaves.
@@ -100,7 +105,11 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
     Llama4's per-run stacks (a run of rope or NoPE layers, dense or MoE).
     A LoRA-attached tree's ``lora_A`` (L, N, in, r) and ``lora_B`` (L, N,
     r, out) take ``dtype`` and its ``lora_scaling`` (L, N) stays fp32, as
-    ``modules/lora.attach_lora_params`` stores them."""
+    ``modules/lora.attach_lora_params`` stores them. The multimodal trees
+    carry across too: the Pixtral and Llama4 towers (``rope.table``,
+    ``rope.cos`` / ``rope.sin`` stay fp32) with their projectors, and
+    Mllama's whole tree (``vision``, ``projector``, the ``self_runs`` stacks
+    and the ``cross_layers`` list)."""
 
     def conv(t, path):
         if isinstance(t, dict):
@@ -115,7 +124,7 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
             return torch.from_numpy(np.array(a).view(np.uint8)).view(code).to(device)
         if a.dtype.kind in "iu":
             return torch.from_numpy(np.array(a)).to(device)
-        fp32 = path == ("rope", "inv_freq") or path[-1] in ("scale", "lora_scaling")
+        fp32 = path[-2:] in _FP32_TABLES or path[-1] in ("scale", "lora_scaling")
         return _to_torch(a, torch.float32 if fp32 else dtype, device)
 
     return conv(tree, ())

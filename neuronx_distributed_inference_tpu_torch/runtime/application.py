@@ -521,12 +521,16 @@ class ModelForCausalLM:
         temperature=None,
         seq_ids: Optional[np.ndarray] = None,
         lora_adapter_names=None,
+        inputs_embeds=None,
     ) -> GenerationOutput:
         """Greedy or sampled generation. input_ids (B, S); attention_mask
         (B, S) 1 = valid (the prompt is read through it, right- or
         left-padded alike, as in the reference). ``lora_adapter_names`` (B,)
         names each row's adapter (None: the base model); they resolve to
-        slot ids once, before the prefill, and ride every step."""
+        slot ids once, before the prefill, and ride every step.
+        ``inputs_embeds`` (B, S, H) replaces the prompt's token embeddings at
+        the prefill (a multimodal prompt, ``runtime/image_to_text.py``);
+        decode goes on from the sampled token ids."""
         tc = self.config.torch_config
         if tc.is_block_kv_layout:
             raise NotImplementedError(
@@ -550,6 +554,11 @@ class ModelForCausalLM:
         ctx_lens = attention_mask.sum(axis=1).astype(np.int32)
 
         if windowed:
+            if inputs_embeds is not None:
+                raise NotImplementedError(
+                    "inputs_embeds with windowed prefill is not implemented; raise max_context_length "
+                    "to cover the multimodal prompt (ROADMAP C (inputs_embeds with windowed prefill))"
+                )
             first_tokens, first_logits = self._windowed_prefill(
                 input_ids, attention_mask, seq_ids, sampling_params, adapter_ids
             )
@@ -558,7 +567,8 @@ class ModelForCausalLM:
             # into the masked tail
             position_ids = np.tile(np.arange(S_in, dtype=np.int32), (B, 1))
             inputs, _ = self.context_encoding_model.prepare(
-                input_ids, attention_mask, position_ids, seq_ids, sampling_params, adapter_ids=adapter_ids
+                input_ids, attention_mask, position_ids, seq_ids, sampling_params, adapter_ids=adapter_ids,
+                inputs_embeds=inputs_embeds,
             )
             out = self.context_encoding_model(self.params, self.kv_cache, inputs, gen_rng)
             first_tokens = out.tokens[:B]  # device (B, 1)

@@ -7,7 +7,9 @@ use; the port captures each key's program as one CUDA graph at first use
 and replays it after (``runtime/graphs.py``). The keys:
 
 - (phase, compiled batch, bucket) of a context-encoding step and of a
-  one-token decode step;
+  one-token decode step; a context-encoding step from input embeddings
+  (a multimodal prefill) is a key of its own, its embeddings a static
+  input of their own;
 - (pass length, bucket) of a multi-token pass: a chunked or prefix prefill
   pass on the paged cache, or one window of a windowed prefill (every
   window is padded to the same length);
@@ -87,8 +89,8 @@ log = logging.getLogger(__name__)
 
 #: StepInputs fields a step may carry beside the five every step has; each
 #: set of them is a key of its own (a step with LoRA adapter ids has its own
-#: program and graph)
-_OPTIONAL_FIELDS = ("slot_mapping", "block_table", "adapter_ids")
+#: program and graph, and so has a prefill from input embeddings)
+_OPTIONAL_FIELDS = ("slot_mapping", "block_table", "adapter_ids", "inputs_embeds")
 #: batch rows past the caller's pad with -1 here (the garbage line / slot)
 _PAD_MINUS_ONE = ("seq_ids", "slot_mapping")
 
@@ -96,16 +98,22 @@ _PAD_MINUS_ONE = ("seq_ids", "slot_mapping")
 class _Statics:
     """The fixed-address device inputs of one key: one int32 buffer (float
     fields ride in it as float32 bits), filled from one host buffer a call
-    (pinned on a card, so the copy does not wait for the step in flight)."""
+    (pinned on a card, so the copy does not wait for the step in flight). A
+    field whose kind is a torch dtype (input embeddings) is a tensor of its
+    own, filled by a device copy."""
 
-    def __init__(self, fields: List[Tuple[str, tuple, bool]], device: torch.device):
+    def __init__(self, fields: List[Tuple[str, tuple, object]], device: torch.device):
         self.spans: Dict[str, Tuple[int, tuple, bool]] = {}
+        self.t: Dict[str, torch.Tensor] = {}
+        self.own: Dict[str, torch.Tensor] = {}
         off = 0
-        for name, shape, is_float in fields:
-            self.spans[name] = (off, shape, is_float)
+        for name, shape, kind in fields:
+            if isinstance(kind, torch.dtype):
+                self.own[name] = self.t[name] = torch.zeros(shape, dtype=kind, device=device)
+                continue
+            self.spans[name] = (off, shape, kind)
             off += int(np.prod(shape))
         self.flat = torch.zeros(off, dtype=torch.int32, device=device)
-        self.t: Dict[str, torch.Tensor] = {}
         for name, (o, shape, is_float) in self.spans.items():
             v = self.flat[o : o + int(np.prod(shape))]
             self.t[name] = (v.view(torch.float32) if is_float else v).view(shape)
@@ -127,6 +135,15 @@ class _Statics:
         buf, views = self.host()
         dev = {}
         for name, a in arrs.items():
+            if name in self.own:
+                # zeros past the caller's rows and positions
+                dst = self.own[name]
+                a = as_device_tensor(a, dst.device)
+                if any(n > m for n, m in zip(a.shape, dst.shape)):
+                    raise ValueError(f"{name} {tuple(a.shape)} exceeds the compiled {tuple(dst.shape)}")
+                dst.zero_()
+                dst[tuple(slice(0, s) for s in a.shape)].copy_(a)
+                continue
             v = views[name]
             if not isinstance(a, torch.Tensor):
                 a = np.asarray(a)
@@ -153,6 +170,17 @@ class _Statics:
         for name, a in tensors.items():
             if a.data_ptr() != self.t[name].data_ptr():
                 self.t[name].copy_(a)
+
+
+def as_device_tensor(a, device: torch.device) -> torch.Tensor:
+    """A tensor, or a numpy array (ml_dtypes bfloat16 included), on
+    ``device``, its dtype kept."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
 class _Programs:
@@ -279,8 +307,9 @@ class SubModelRunner(_SealMixin):
 
     # ---- static inputs ----------------------------------------------------
 
-    def _step_statics(self, q: int, width: int, fields: Tuple[str, ...]) -> _Statics:
-        skey = ("step", q, width, fields)
+    def _step_statics(self, q: int, width: int, fields: Tuple[str, ...], embeds: Optional[tuple] = None) -> _Statics:
+        """``embeds`` (hidden size, dtype) of an ``inputs_embeds`` field."""
+        skey = ("step", q, width, fields, embeds)
         st = self._prog.statics.get(skey)
         if st is None:
             B = self.batch_size
@@ -295,6 +324,8 @@ class SubModelRunner(_SealMixin):
                 layout.append(("block_table", (B, max(1, width // self.block_size)), False))
             if "adapter_ids" in fields:
                 layout.append(("adapter_ids", (B,), False))
+            if "inputs_embeds" in fields:
+                layout.append(("inputs_embeds", (B, q, embeds[0]), embeds[1]))
             st = self._prog.statics[skey] = _Statics(layout, self.device)
         return st
 
@@ -322,9 +353,13 @@ class SubModelRunner(_SealMixin):
         return ent
 
     @staticmethod
-    def _step_key(inputs: StepInputs) -> Tuple[int, int, Tuple[str, ...]]:
+    def _step_key(inputs: StepInputs) -> Tuple[int, int, Tuple[str, ...], Optional[tuple]]:
+        """(q, width, optional fields, (hidden, dtype) of the embeddings)."""
         fields = tuple(f for f in _OPTIONAL_FIELDS if getattr(inputs, f) is not None)
-        return inputs.input_ids.shape[1], inputs.attention_mask.shape[1], fields
+        e = inputs.inputs_embeds
+        return inputs.input_ids.shape[1], inputs.attention_mask.shape[1], fields, (
+            None if e is None else (e.shape[-1], e.dtype)
+        )
 
     def _inputs_of(self, st: _Statics) -> StepInputs:
         t = st.t
@@ -332,6 +367,7 @@ class SubModelRunner(_SealMixin):
             input_ids=t["input_ids"], attention_mask=t["attention_mask"], position_ids=t["position_ids"],
             seq_ids=t["seq_ids"], sampling_params=t["sampling_params"],
             slot_mapping=t.get("slot_mapping"), block_table=t.get("block_table"), adapter_ids=t.get("adapter_ids"),
+            inputs_embeds=t.get("inputs_embeds"),
         )
 
     # ---- host-side padding ------------------------------------------------
@@ -346,11 +382,16 @@ class SubModelRunner(_SealMixin):
         slot_mapping: Optional[np.ndarray] = None,
         block_table: Optional[np.ndarray] = None,
         adapter_ids: Optional[np.ndarray] = None,
+        inputs_embeds=None,
     ) -> Tuple[StepInputs, int]:
         """Pad to (compiled batch, bucket) into the key's static buffers and
         return them as StepInputs. ``input_ids`` may be a device tensor (an
         async decode step chained on the previous step's tokens).
-        ``adapter_ids`` (B,) LoRA slots; padded rows take slot 0."""
+        ``adapter_ids`` (B,) LoRA slots; padded rows take slot 0.
+        ``inputs_embeds`` (B, S, H), a tensor or an array, replaces the
+        token embeddings; it keeps its dtype, is padded with zeros to the
+        bucket (and the compiled batch), and makes the step a key of its
+        own."""
         B, S = input_ids.shape
         if self.phase == PHASE_CONTEXT_ENCODING:
             bucket = get_target_bucket(self.buckets, S)
@@ -385,11 +426,18 @@ class SubModelRunner(_SealMixin):
         self.last_bucket = bucket
         if sampling_params is None:
             sampling_params = prepare_sampling_params(B)
+        embeds = None
+        if inputs_embeds is not None:
+            inputs_embeds = as_device_tensor(inputs_embeds, self.device)
+            embeds = (inputs_embeds.shape[-1], inputs_embeds.dtype)
         fields = tuple(
-            f for f, a in (("slot_mapping", slot_mapping), ("block_table", block_table), ("adapter_ids", adapter_ids))
+            f for f, a in (
+                ("slot_mapping", slot_mapping), ("block_table", block_table), ("adapter_ids", adapter_ids),
+                ("inputs_embeds", inputs_embeds),
+            )
             if a is not None
         )
-        st = self._step_statics(input_ids.shape[1], bucket, fields)
+        st = self._step_statics(input_ids.shape[1], bucket, fields, embeds)
         arrs = {
             "input_ids": input_ids, "attention_mask": attention_mask, "position_ids": position_ids,
             "seq_ids": seq_ids, "sampling_params": sampling_params,
@@ -400,6 +448,8 @@ class SubModelRunner(_SealMixin):
             arrs["block_table"] = block_table
         if adapter_ids is not None:
             arrs["adapter_ids"] = np.asarray(adapter_ids, np.int32)
+        if inputs_embeds is not None:
+            arrs["inputs_embeds"] = inputs_embeds
         st.fill(arrs)
         return self._inputs_of(st), B
 
@@ -408,8 +458,8 @@ class SubModelRunner(_SealMixin):
         """Run one step (its graph's replay, or its first, eager run); the
         cache is updated in place. ``generator`` draws the tokens when the
         spec samples."""
-        q, width, fields = self._step_key(inputs)
-        st = self._step_statics(q, width, fields)
+        q, width, fields, embeds = self._step_key(inputs)
+        st = self._step_statics(q, width, fields, embeds)
         st.load({
             name: getattr(inputs, name)
             for name in ("input_ids", "attention_mask", "position_ids", "seq_ids", "sampling_params", *fields)
@@ -425,7 +475,7 @@ class SubModelRunner(_SealMixin):
             )
             return out.tokens, out.logits
 
-        pkey = (self.phase, self.batch_size, q, width, fields, sampled)
+        pkey = (self.phase, self.batch_size, q, width, fields, embeds, sampled)
         (tokens, logits), replayed = self._prog.run(pkey, body, binding(params, cache), q, gen)
         if replayed:
             tokens = tokens.clone()

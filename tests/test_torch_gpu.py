@@ -731,3 +731,78 @@ def test_lora_rows_on_the_card(cuda_card):
 def _copy_dicts(tree):
     """New dicts over the same tensors."""
     return {k: _copy_dicts(v) for k, v in tree.items()} if isinstance(tree, dict) else tree
+
+
+@pytest.mark.gpu
+def test_vision_text_kernels_match_plain_on_the_card(cuda_card):
+    """B2a and B1 at the vision-language paths' text shapes (32 q / 8 kv
+    heads of 128): Pixtral-12B's 4224-token prefill program and 4288 cache
+    at batch 1, its 1152 / 1216 at batch 4, Llama-3.2-11B-Vision's 64-token
+    prefill and 128 cache at batch 1 and 4; each against its plain version
+    (B1 in bf16 and fp32) and launched twice more, bit-identical
+    (chip_smoke.vlm_kernel_parity)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
+    from neuronx_distributed_inference_tpu_torch.ops import flash_attention as fa
+
+    _cuda.reset_launch_counts()
+    n = chip_smoke.vlm_kernel_parity(torch, fa, da)
+    n_flash, n_decode = len(chip_smoke.VLM_FLASH_POINTS), 2 * len(chip_smoke.VLM_DECODE_POINTS)
+    assert n == n_flash + n_decode
+    counts = _cuda.launch_counts()
+    assert counts["flash_attention"] == 3 * n_flash and counts["decode_attention"] == 3 * n_decode, counts
+
+
+@pytest.mark.gpu
+def test_embeds_cte_graph_replays_bit_identically(cuda_card):
+    """A tiny Pixtral app (text heads of 128, seeded random weights) on the
+    card: the first image request runs the inputs_embeds context program
+    eagerly and captures it; the second replays it, with the same tokens
+    and logits bit for bit, as an app with graphs off gives them; a
+    text-only call between them takes its own program and leaves the
+    embeds graph as it was."""
+    import numpy as np
+
+    from neuronx_distributed_inference_tpu_torch.config import Config, InferenceConfig
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.runtime.image_to_text import ImageToTextModel
+
+    attrs = dict(
+        text_config=dict(model_type="mistral", hidden_size=256, head_dim=128, intermediate_size=256,
+                         num_attention_heads=2, num_key_value_heads=1, num_hidden_layers=2, vocab_size=256,
+                         rms_norm_eps=1e-5, rope_theta=1e9, sliding_window=None, tie_word_embeddings=False),
+        vision_config=dict(model_type="pixtral", hidden_size=64, head_dim=16, image_size=64, intermediate_size=128,
+                           num_attention_heads=4, num_hidden_layers=2, patch_size=16),
+        image_token_index=10, projector_hidden_act="gelu",
+    )
+
+    def app(graphs, params=None):
+        cfg = InferenceConfig(
+            Config(batch_size=1, seq_len=64, dtype="bfloat16", output_logits=True, device="cuda", seed=4,
+                   cuda_graphs=graphs, context_encoding_buckets=[32]),
+            load_config=lambda c: [setattr(c, k, v) for k, v in attrs.items()],
+        )
+        a = ImageToTextModel(None, cfg)
+        return a.load(params=params) if params is not None else a.load(random_weights=True)
+
+    on = app(True)
+    off = app(False, params=dict(text=on.text.params, vision=on.vision_params, projector=on.projector))
+    ids = np.array([[1] + [10] * 16 + [20, 30, 40]])
+    px = np.random.RandomState(2).randn(1, 3, 64, 64).astype(np.float32)
+    first = on.generate(ids, pixel_values=px, max_new_tokens=6)
+    captures = on.text.graphs.captures
+    assert captures > 0
+    on.generate(ids[:, -3:], max_new_tokens=6)
+    text_captures = on.text.graphs.captures
+    assert text_captures > captures
+    _cuda.reset_launch_counts()
+    again = on.generate(ids, pixel_values=px, max_new_tokens=6)
+    assert on.text.graphs.captures == text_captures
+    assert _cuda.launch_counts()["flash_attention"] == 2
+    ref = off.generate(ids, pixel_values=px, max_new_tokens=6)
+    np.testing.assert_array_equal(again.sequences, first.sequences)
+    np.testing.assert_array_equal(again.logits, first.logits)
+    np.testing.assert_array_equal(ref.sequences, first.sequences)
+    np.testing.assert_array_equal(ref.logits, first.logits)

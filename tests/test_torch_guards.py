@@ -418,3 +418,80 @@ def test_serving_an_moe_model_raises_naming_a9():
         assert sess.k == 3 and sess.num_slots == 2 and not sess.spec_ragged
     out = _moe_app().load(random_weights=True).generate(np.array([[1, 2, 3]]), max_new_tokens=3)
     assert out.sequences.shape == (1, 6)
+
+
+#: the vision-language slice's modules
+VLM_MODULES = (
+    "models/pixtral.py", "models/llama4_vision.py", "models/mllama.py", "runtime/image_to_text.py",
+    "runtime/encoder.py", "runtime/mllama.py",
+)
+
+
+@pytest.mark.parametrize("rel", VLM_MODULES)
+def test_vision_language_modules_import_no_jax(rel):
+    """Each module of the vision-language slice exists and imports neither
+    jax nor the JAX package (nor a module of it that does not import jax)."""
+    path = PORT / rel
+    assert path.is_file()
+    assert [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN] == []
+
+
+def _tiny_llama_app(**kw):
+    from neuronx_distributed_inference_tpu_torch.models.llama import LlamaInferenceConfig
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    hf = dict(model_type="llama", hidden_size=128, intermediate_size=128, num_attention_heads=2,
+              num_key_value_heads=1, num_hidden_layers=1, vocab_size=64, rms_norm_eps=1e-5)
+    cfg = LlamaInferenceConfig(Config(device="cpu", dtype="float32", **kw),
+                               load_config=lambda c: [setattr(c, k, v) for k, v in hf.items()])
+    return ModelForCausalLM(None, cfg).load(random_weights=True)
+
+
+def _mllama_app(**kw):
+    from neuronx_distributed_inference_tpu_torch.models.mllama import MllamaInferenceConfig
+    from neuronx_distributed_inference_tpu_torch.runtime.mllama import MllamaForConditionalGeneration
+
+    text = dict(hidden_size=128, num_attention_heads=2, num_key_value_heads=1, num_hidden_layers=3,
+                cross_attention_layers=[1], vocab_size=64, intermediate_size=128)
+    vision = dict(hidden_size=32, attention_heads=2, intermediate_size=64, num_hidden_layers=2, num_global_layers=1,
+                  image_size=16, patch_size=8, max_num_tiles=2, intermediate_layers_indices=[0])
+    cfg = MllamaInferenceConfig(Config(device="cpu", dtype="float32", **kw), text_config=text, vision_config=vision)
+    return MllamaForConditionalGeneration(None, cfg)
+
+
+def _refuse_embeds_window():
+    app = _tiny_llama_app(seq_len=128, max_context_length=4)
+    app.generate(np.ones((1, 8), np.int64), max_new_tokens=2, inputs_embeds=torch.zeros((1, 8, 128)))
+
+
+def _refuse_mllama_kv_int8():
+    _mllama_app(kv_cache_dtype="int8").load(params={})
+
+
+def _refuse_whisper_encoder():
+    from neuronx_distributed_inference_tpu_torch.runtime.encoder import get_encoder_factory
+
+    get_encoder_factory("whisper_encoder")(None)
+
+
+@pytest.mark.parametrize("refuse, item", [
+    (_refuse_embeds_window, r"ROADMAP C \(inputs_embeds with windowed prefill\)"),
+    (_refuse_mllama_kv_int8, r"ROADMAP C \(Mllama's quantized KV cache\)"),
+    (_refuse_whisper_encoder, r"ROADMAP A9 \(Whisper\)"),
+])
+def test_vision_language_refusals_name_their_roadmap_items(refuse, item):
+    with pytest.raises(NotImplementedError, match=item):
+        refuse()
+
+
+def test_vision_language_entry_points_default_to_the_card(monkeypatch):
+    """The Mllama app takes the config's device: the CPU only when asked,
+    else the card, which raises where torch sees none."""
+    assert _mllama_app().device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    app = _mllama_app()
+    app.config.torch_config.device = "cuda"
+    from neuronx_distributed_inference_tpu_torch.runtime.mllama import MllamaForConditionalGeneration
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MllamaForConditionalGeneration(None, app.config)
