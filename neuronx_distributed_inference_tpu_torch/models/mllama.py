@@ -267,11 +267,6 @@ def init_mllama_cache(n_self: int, n_cross: int, batch: int, seq_len: int, max_s
 _SILU = SimpleNamespace(act="silu")
 
 
-def cross_rows(slot_ids: torch.Tensor) -> torch.Tensor:
-    """The cross-KV lines each row reads: its own."""
-    return slot_ids
-
-
 def _cross_layer(
     p: dict,
     hidden: torch.Tensor,  # (B, S, H)
@@ -361,9 +356,8 @@ def mllama_text_forward(
             self_run += 1
             self_offset += n
         else:
-            rows = cross_rows(slot_ids)
             hidden = _cross_layer(
-                params["cross_layers"][n], hidden, cache.cross_k[n][rows], cache.cross_v[n][rows], cross_mask,
+                params["cross_layers"][n], hidden, cache.cross_k[n][slot_ids], cache.cross_v[n][slot_ids], cross_mask,
                 full_row, spec.attn, spec.rms_eps,
             )
     hidden = rms_norm(hidden, params["norm"]["weight"], spec.rms_eps)

@@ -806,3 +806,57 @@ def test_embeds_cte_graph_replays_bit_identically(cuda_card):
     np.testing.assert_array_equal(again.logits, first.logits)
     np.testing.assert_array_equal(ref.sequences, first.sequences)
     np.testing.assert_array_equal(ref.logits, first.logits)
+
+
+@pytest.mark.gpu
+def test_mllama_graphed_decode_matches_eager_on_the_card(cuda_card):
+    """A small Mllama app on the card (text heads of 128 with cross layers 1
+    and 3, a 4-tile tower of 64, seeded random bf16 weights, every gate
+    tanh ~ 0.5), two rows each with its own 2 x 2-tile image: the graphed
+    decode (the first step eager, then one graph replayed) against an app
+    with graphs off on the same params and inputs gives the same tokens and
+    launch counts, and leaves the self and cross K / V streams equal bit for
+    bit; a second call replays with no new capture and the same tokens."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.models.mllama import LLAMA32_11B_VISION
+    from neuronx_distributed_inference_tpu_torch.runtime.mllama import MllamaForConditionalGeneration
+
+    text = dict(LLAMA32_11B_VISION["text_config"], hidden_size=256, num_hidden_layers=5, cross_attention_layers=[1, 3],
+                num_attention_heads=2, num_key_value_heads=1, intermediate_size=256, vocab_size=512)
+    vision = dict(LLAMA32_11B_VISION["vision_config"], hidden_size=64, attention_heads=4, intermediate_size=128,
+                  num_hidden_layers=3, num_global_layers=2, image_size=28, intermediate_layers_indices=[0, 2],
+                  vision_output_dim=64 * 3)
+    model = dict(LLAMA32_11B_VISION, text_config=text, vision_config=vision, image_token_index=512)
+
+    def app(graphs):
+        return MllamaForConditionalGeneration(None, chip_smoke._config_mllama(2, model=model, cuda_graphs=graphs))
+
+    on = app(True)
+    text_params = chip_smoke._mllama_text_params(torch, on, torch.bfloat16, 3)
+    on.load(params=dict(text_params, vision=chip_smoke._mllama_vision_params(torch, vision, torch.bfloat16, 4)))
+    off = app(False).load(params=on.params)
+    ids, ar, am, xmask = chip_smoke._mllama_inputs(np.random.RandomState(0), 2, on)
+    px = chip_smoke._mllama_pixels(torch, on, 2, 5)
+
+    def generate(a):
+        return a.generate(ids, None, px, ar, am, xmask, max_new_tokens=8)
+
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    _cuda.reset_launch_counts()
+    graphed = generate(on)
+    counts = chip_smoke.all_counts()
+    assert on.graphs.captures == 1
+    assert counts["flash_attention"] == 3 and counts["decode_attention"] == 3 * 7, counts
+    _cuda.reset_launch_counts()
+    eager = generate(off)
+    assert chip_smoke.all_counts() == counts
+    np.testing.assert_array_equal(graphed.sequences, eager.sequences)
+    for name in ("k", "v", "cross_k", "cross_v"):
+        assert torch.equal(getattr(on.cache, name), getattr(off.cache, name)), name
+    again = generate(on)
+    assert on.graphs.captures == 1
+    np.testing.assert_array_equal(again.sequences, eager.sequences)

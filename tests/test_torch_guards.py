@@ -447,16 +447,20 @@ def _tiny_llama_app(**kw):
     return ModelForCausalLM(None, cfg).load(random_weights=True)
 
 
-def _mllama_app(**kw):
+def _mllama_config(**kw):
     from neuronx_distributed_inference_tpu_torch.models.mllama import MllamaInferenceConfig
-    from neuronx_distributed_inference_tpu_torch.runtime.mllama import MllamaForConditionalGeneration
 
     text = dict(hidden_size=128, num_attention_heads=2, num_key_value_heads=1, num_hidden_layers=3,
                 cross_attention_layers=[1], vocab_size=64, intermediate_size=128)
     vision = dict(hidden_size=32, attention_heads=2, intermediate_size=64, num_hidden_layers=2, num_global_layers=1,
                   image_size=16, patch_size=8, max_num_tiles=2, intermediate_layers_indices=[0])
-    cfg = MllamaInferenceConfig(Config(device="cpu", dtype="float32", **kw), text_config=text, vision_config=vision)
-    return MllamaForConditionalGeneration(None, cfg)
+    return MllamaInferenceConfig(Config(dtype="float32", **kw), text_config=text, vision_config=vision)
+
+
+def _mllama_app(**kw):
+    from neuronx_distributed_inference_tpu_torch.runtime.mllama import MllamaForConditionalGeneration
+
+    return MllamaForConditionalGeneration(None, _mllama_config(device="cpu", **kw))
 
 
 def _refuse_embeds_window():
@@ -486,12 +490,10 @@ def test_vision_language_refusals_name_their_roadmap_items(refuse, item):
 
 def test_vision_language_entry_points_default_to_the_card(monkeypatch):
     """The Mllama app takes the config's device: the CPU only when asked,
-    else the card, which raises where torch sees none."""
-    assert _mllama_app().device.type == "cpu"
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    app = _mllama_app()
-    app.config.torch_config.device = "cuda"
+    else the card by default, which raises where torch sees none."""
     from neuronx_distributed_inference_tpu_torch.runtime.mllama import MllamaForConditionalGeneration
 
+    assert _mllama_app().device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        MllamaForConditionalGeneration(None, app.config)
+        MllamaForConditionalGeneration(None, _mllama_config())
