@@ -2084,7 +2084,7 @@ SERVING = dict(n_requests=8, prompt=128, gen=128, slots=8, blocks=512, block_siz
 #: and of the 1B generate() pairs of phase_graphs: cut from SERVING's 128
 #: and 256 to 64, then to 32, then to 16, to fit the script's time limit
 #: (their eager twins are host-bound)
-PAIRED_GEN = 16
+PAIRED_GEN = 8
 
 
 def _serving_config(chunked=True, **kw):
@@ -5213,7 +5213,7 @@ def phase_kvq_times(torch, da, pf, rp):
 #: batch 1, an 8192- or 16384-token prompt, 32 new tokens, one CTE bucket
 #: at the prompt and one TKG bucket at 8704 / 16896 positions
 KVQ_ROWS = {"8k": dict(prompt=8192, seq=8704), "16k": dict(prompt=16384, seq=16896)}
-KVQ_NEW = 32
+KVQ_NEW = 16
 
 
 def _config_kvq(row, **kw):
@@ -5986,7 +5986,7 @@ EAGLE_DYN = {"step": 4, "branching_factor": 3, "num_inputs": 1}
 EAGLE_K, MEDUSA_K, MEDUSA_HEADS, EAGLE3_DRAFT_VOCAB = 5, 6, 5, 32000
 #: the EAGLE / tree / Medusa runs' prompt and new tokens (64 until the
 #: vision-language phases needed the time)
-EAGLE_PROMPT, EAGLE_NEW = 128, 32
+EAGLE_PROMPT, EAGLE_NEW = 128, 16
 #: Llama-3.1-8B's attention heads
 HEADS_8B = dict(Hq=32, Hkv=8, D=128)
 
@@ -6442,7 +6442,7 @@ LORA_PROMPT, LORA_NEW = 128, 64
 LORA_DELTA, LORA_TURN = 0.25, 16
 #: the dynamic cache: device slots, and generate() calls of LORA_DYN_ROWS
 #: rows and LORA_DYN_NEW new tokens drawn from lora_schedule()
-LORA_DYN_SLOTS, LORA_DYN_CALLS, LORA_DYN_ROWS, LORA_DYN_NEW = 4, 12, 4, 32
+LORA_DYN_SLOTS, LORA_DYN_CALLS, LORA_DYN_ROWS, LORA_DYN_NEW = 4, 6, 4, 32
 #: the merged-weight oracle's adapters (rank 16 rsLoRA, rank 64), held to
 #: FORCED_RATIO against the bf16 merged app
 LORA_ORACLE = ("ad4", "ad7")
@@ -6933,7 +6933,7 @@ ROUTER = dict(replicas=2, policy="least_loaded", retire_step=2)
 #: new tokens a request in the router drains (bench.py's rows: SERVING's
 #: 128; cut to 64 to fit the script's time limit beside the vision-language
 #: phases)
-ROUTER_GEN = 64
+ROUTER_GEN = 32
 #: steady router steps of each profiled window
 ROUTER_PROFILE_STEPS = 2
 
@@ -7544,11 +7544,11 @@ def phase_workload(torch, router_apps):
 # ---------------------------------------------------------------------------
 
 #: GPT-OSS-20B's generate() rows: prompts of two 128-token windows, new tokens
-GPT_OSS_PROMPT, GPT_OSS_NEW = 256, 64
+GPT_OSS_PROMPT, GPT_OSS_NEW = 256, 32
 #: layers of the teacher-forced gate (2 sliding, 2 global) and its decode steps
 GPT_OSS_FORCED_LAYERS, GPT_OSS_FORCED_STEPS = 4, 32
 #: the paged drain: 8 staggered requests of 256 + 32 tokens
-GPT_OSS_SERVING = dict(n_requests=8, prompt=256, gen=16, slots=8, block_size=32, seq=512)
+GPT_OSS_SERVING = dict(n_requests=8, prompt=256, gen=8, slots=8, block_size=32, seq=512)
 #: e8m0 exponents [lo, hi) of the seeded MXFP4 experts: |values| <= 6 * 2^-5
 GPT_OSS_EXPONENTS = (120, 123)
 #: the teacher-forced gates on GPT-OSS-20B's weights (_gpt_oss_gate_params),
@@ -7812,6 +7812,146 @@ def row_chunk_parity(torch, da):
     return n
 
 
+#: the timed row-chunk point: K = 16 queries a row at n_rep 8 (128 rows a
+#: kv head, two chunks of 64), bucket 1024, rows about 200 deep
+ROW_CHUNK_TIMED = dict(K=16, bucket=1024, depth=200)
+
+
+def row_chunk_times(torch, da):
+    """B1 and B4 in row chunks at GPT-OSS-20B's heads (64 q / 8 kv of 64,
+    the sink; a global layer's mask, no window), K = 16, batch 1 and 8,
+    bucket 1024, rows 200 deep and less: each held to its plain version,
+    then timed (L2 flushed) beside the plain version, SDPA under the same
+    boolean mask (no sink) and the bound. B4 reads blocks of 32."""
+    import torch.nn.functional as F
+
+    from neuronx_distributed_inference_tpu_torch.modules.block_kvcache import read_block_cache_at_layer
+
+    rng = np.random.RandomState(24)
+    Hq, Hkv, D, L = 64, 8, 64, 4
+    K, bucket, depth, bs = ROW_CHUNK_TIMED["K"], ROW_CHUNK_TIMED["bucket"], ROW_CHUNK_TIMED["depth"], 32
+    n_rep = Hq // Hkv
+    kw = dict(scale=D ** -0.5, n_kv=Hkv)
+    sink = torch.from_numpy(rng.randn(Hq).astype(np.float32)).cuda()
+    rows = {}
+    for B in (1, 8):
+        valid = [depth - 4 * b for b in range(B)]
+        q, kc, vc, mask = _decode_inputs(torch, rng, B, K, Hq, Hkv, D, L, bucket, bucket, torch.bfloat16, valid)
+        case = (f"row chunks B={B} K={K} ({da.row_chunks(n_rep, K)} chunks) bucket={bucket} depth<={depth} "
+                f"Hq={Hq} Hkv={Hkv} D={D} sink bf16")
+        err = check_decode(torch, da, q, kc, vc, 1, mask, sink, kw, case)
+        state = {"layer": 0}
+
+        def next_layer():
+            state["layer"] = (state["layer"] + 1) % L
+            return state["layer"]
+
+        qt = q.transpose(1, 2)
+        kt = kc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+        vt = vc[0, :B, :bucket].permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+        ms = time_ms(torch, lambda: da.tkg_decode_attention(q, kc, vc, next_layer(), mask, sink, **kw))
+        plain_ms = time_ms(torch, lambda: da.tkg_decode_attention_plain(q, kc, vc, next_layer(), mask, sink, **kw))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        b_ms, b_by = bound(*decode_work(q, kc, mask))
+        log(f"tkg_decode_attention {case}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (no sink) "
+            f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+        rows[("decode_attention_row_chunks", B)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+        )
+        del kc, vc
+        MB, NB = bucket // bs, B * bucket // bs + 8
+        bt = torch.from_numpy(paged_tables(rng, valid, MB, bs, NB)).cuda()
+        kp = torch.from_numpy(rng.randn(L, NB + 1, Hkv, bs, D).astype(np.float32) * 0.5).to("cuda", torch.bfloat16)
+        vp = torch.from_numpy(rng.randn(L, NB + 1, Hkv, bs, D).astype(np.float32) * 0.5).to("cuda", torch.bfloat16)
+        kp[:, 0], vp[:, 0] = float("nan"), float("nan")
+        out = da.paged_tkg_decode_attention(q, kp, vp, 1, bt, mask, sink, **kw)
+        ref = da.paged_tkg_decode_attention_plain(q.float(), kp.float(), vp.float(), 1, bt, mask, sink, **kw)
+        err = check_close(torch, out, ref, case + " paged bs=32", "paged_tkg_decode_attention")
+        check_repeat(torch, "paged_tkg_decode_attention",
+                     lambda: da.paged_tkg_decode_attention(q, kp, vp, 1, bt, mask, sink, **kw), case)
+        k_r, v_r = read_block_cache_at_layer(kp, vp, 0, bt)
+        kt = torch.nan_to_num(k_r).permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+        vt = torch.nan_to_num(v_r).permute(0, 2, 1, 3).repeat_interleave(n_rep, dim=1)
+        ms = time_ms(torch, lambda: da.paged_tkg_decode_attention(q, kp, vp, next_layer(), bt, mask, sink, **kw))
+        plain_ms = time_ms(torch, lambda: da.paged_tkg_decode_attention_plain(q, kp, vp, next_layer(), bt, mask, sink,
+                                                                              **kw))
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask))
+        positions = int(mask[:, 0].any(dim=1).sum().item())
+        nbytes = (2 * positions * Hkv * D * kp.element_size() + 2 * q.numel() * q.element_size() + mask.numel()
+                  + bt.numel() * 4)
+        b_ms, b_by = bound(nbytes, 4 * D * Hq * int(mask.sum().item()))
+        log(f"paged_tkg_decode_attention {case} bs={bs}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa (no sink) "
+            f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), err vs plain {err:.3e}")
+        rows[("paged_decode_attention_row_chunks", B)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err
+        )
+        del kp, vp
+    return rows
+
+
+#: the runs that launch B1 / B4 in row chunks at GPT-OSS-20B's heads: a
+#: 16-token context program (later prompt windows are 16-query passes) and
+#: 16-token prefill chunks on the paged pool
+GPT_OSS_ROW_CHUNK = dict(window=16, prompt=64, new=4, n_requests=2, gen=4, block_size=32)
+
+
+def gpt_oss_row_chunk_runs(torch, params, L, n_full):
+    """The paths that launch B1 and B4 in row chunks at GPT-OSS-20B's heads
+    (n_rep 8, K = 16: two chunks of 64 rows a kv head), eager:
+
+    - generate() with a 16-token context program: a 64-token prompt
+      prefills its first window through B2b and each later window as a
+      16-query pass, B1 on the 12 global layers (its K > 1 counter);
+    - the paged split drain with 16-token prefill chunks: each chunk is a
+      16-query pass on every layer through B4 (sink model: no B5), each
+      decode step a 1-query one.
+
+    Exact counts; returns each mode's launches."""
+    from neuronx_distributed_inference_tpu_torch.config import ChunkedPrefillConfig
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+    from neuronx_distributed_inference_tpu_torch.telemetry import TelemetrySession
+
+    c = GPT_OSS_ROW_CHUNK
+    app = ModelForCausalLM(None, _config_gpt_oss(context_encoding_buckets=[c["window"]], max_context_length=c["window"],
+                                                 cuda_graphs=False))
+    app.load(params=params)
+    rng = np.random.RandomState(6)
+    ids = rng.randint(0, app.spec.vocab_size, size=(1, c["prompt"]))
+    _cuda.reset_launch_counts()
+    out = app.generate(ids, max_new_tokens=c["new"])
+    torch.cuda.synchronize()
+    gen_counts = all_counts()
+    windows = c["prompt"] // c["window"] - 1
+    if out.sequences.shape != (1, c["prompt"] + c["new"]) or gen_counts["decode_attention_verify"] != n_full * windows \
+            or gen_counts["flash_attention"] != L:
+        raise SystemExit(f"gpt-oss-20b row chunks, windowed generate(): {out.sequences.shape}, counts {gen_counts}")
+    del app
+    n = c["n_requests"]
+    paged = ModelForCausalLM(None, _config_gpt_oss(
+        n, is_continuous_batching=True, ctx_batch_size=1, is_block_kv_layout=True, pa_block_size=c["block_size"],
+        pa_num_blocks=n * 512 // c["block_size"], is_chunked_prefill=True,
+        chunked_prefill_config=ChunkedPrefillConfig(max_num_seqs=n, kernel_q_tile_size=c["window"]),
+        token_generation_buckets=[512], cuda_graphs=False,
+    )).load(params=params)
+    prompts = [rng.randint(0, paged.spec.vocab_size, size=(3 * c["window"],)).tolist() for _ in range(n)]
+    _cuda.reset_launch_counts()
+    sess, total_s = _serve(torch, paged, prompts, c["gen"], TelemetrySession())
+    paged_counts = all_counts()
+    d = sess.dispatches
+    chunk_passes = d["prefill"] + d["prefill_chunk"]
+    done = sorted(len(r.generated) for r in sess.requests.values()) == [c["gen"]] * n
+    if not done or paged_counts["paged_decode_attention"] != (chunk_passes + d["decode_steps"]) * L \
+            or paged_counts["paged_flash_attention"] != 0:
+        raise SystemExit(f"gpt-oss-20b row chunks, paged drain: dispatches {dict(d)}, counts {paged_counts}")
+    log(f"gpt-oss-20b row-chunk paths: windowed generate() ({windows} 16-query windows): B1 row-chunk launches "
+        f"{gen_counts['decode_attention_verify']}; paged drain with 16-token chunks in {total_s * 1e3:.1f} ms: "
+        f"dispatches {dict(d)}, B4 launches {paged_counts['paged_decode_attention']} "
+        f"({chunk_passes * L} of them 16-query)")
+    return {"decode_attention_row_chunks": gen_counts["decode_attention_verify"],
+            "paged_decode_attention_row_chunks": chunk_passes * L}
+
+
 def _gpt_oss_forced_logits(torch, cfg, params, seq, prompt_len):
     """Teacher-forced logits through the generate() path's programs: the
     prompt prefilled in windows of the ring (the context program, then a
@@ -8059,6 +8199,7 @@ def phase_gpt_oss_20b(torch, fa, da):
 
     times = gpt_oss_kernel_times(torch, fa, da)
     n_chunked = row_chunk_parity(torch, da)
+    times.update(row_chunk_times(torch, da))
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -8151,13 +8292,17 @@ def phase_gpt_oss_20b(torch, fa, da):
     ring = ModelForCausalLM(None, _config_gpt_oss(2, is_continuous_batching=True, ctx_batch_size=1)).load(params=params)
     ring.warmup()
     ring_run = _gpt_oss_drain(torch, ring, "gpt-oss-20b contiguous ring drain", s["gen"], 2, L, n_full)
-    del ring, params
+    del ring
+    torch.cuda.empty_cache()
+    row_chunk_launches = gpt_oss_row_chunk_runs(torch, params, L, n_full)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     launches = {
         "flash_attention_gpt_oss": run["launches"]["flash_attention"],
         "decode_attention_gpt_oss": run["launches"]["decode_attention"],
         "paged_decode_attention_gpt_oss": paged_run["launches"]["paged_decode_attention"],
+        **row_chunk_launches,
     }
     return dict(
         run, times=times, launches=launches, load_s=load_s, load_peak=load_peak, host_peak=host_peak,
@@ -8291,9 +8436,9 @@ DBRX_LAYERS, DBRX_FORCED_LAYERS = 4, 2
 #: gate runs 1 dense + 1 MoE layer, the experts kept in bf16 in the fp32 run
 DEEPSEEK_LAYERS, DEEPSEEK_DENSE = 5, 3
 #: both phases: a 256-token prompt, 64 new tokens; the gates' decode steps
-A9_PROMPT, A9_NEW, A9_FORCED_STEPS = 256, 64, 32
+A9_PROMPT, A9_NEW, A9_FORCED_STEPS = 256, 32, 32
 #: DBRX's paged drain: 8 staggered requests of 256 + 32 tokens
-DBRX_SERVING = dict(n_requests=8, prompt=256, gen=16, slots=8, block_size=32, seq=512)
+DBRX_SERVING = dict(n_requests=8, prompt=256, gen=8, slots=8, block_size=32, seq=512)
 DBRX_HEADS = dict(Hq=48, Hkv=8, D=128)
 #: the gates' weights (_a9_gate_params): projections at std 1 / sqrt(fan
 #: in), those that write the residual stream times this
@@ -8530,13 +8675,14 @@ def _fp32_but_experts(tree, key=None):
     return tree.float() if tree.is_floating_point() else tree
 
 
-def _a9_gate(torch, label, cfg_fn, params32, params, seq, prompt_len, control, control_label):
+def _a9_gate(torch, label, cfg_fn, params32, params, seq, prompt_len, control, control_label, more_controls=()):
     """The teacher-forced gate of the A9 phases: fp32 (the plain path,
     every kernel off) records its routing; the kernel path and the plain
     bf16 path run with every call routed as the fp32 run routed
     (_PinnedRouting); both held to fp32 by _forced_gate. Then the control,
     the kernel path with ``control`` (a context manager) in force, must
-    fail the same gate."""
+    fail the same gate, and so must each (control, label) of
+    ``more_controls``."""
     off = dict(attn_kernel_enabled=False, attn_block_tkg_kernel_enabled=False, moe_fused_kernel_enabled=False)
     t0 = time.perf_counter()
     f32, sel_f = _selections(torch, cfg_fn(dtype="float32", **off), params32, seq, prompt_len, True)
@@ -8549,15 +8695,18 @@ def _a9_gate(torch, label, cfg_fn, params32, params, seq, prompt_len, control, c
         pl = plain_run(f"{label} plain", _forced_logits, torch, cfg_fn(**off), params, seq, prompt_len)
     forced = _forced_gate(k, pl, f32, label)
     log(f"  {label}: fp32 decides {forced['decided']} of {forced['positions']} positions")
-    with control(sel_f) as pinned:
-        ctl = _forced_logits(torch, cfg_fn(), params, seq, prompt_len)
-    del pinned
-    forced["control"] = _forced_gate(ctl, pl, f32, f"  control: {control_label}", exit_on_fail=False)
-    if forced["control"]["passed"]:
-        raise SystemExit(f"{label}: the control ({control_label}) passes the gate too")
-    c = forced["control"]
-    log(f"  {label}: the control fails it (ratios max {c['kernel_vs_fp32'] / c['plain_vs_fp32']:.3f} rms "
-        f"{c['kernel_vs_fp32_rms'] / c['plain_vs_fp32_rms']:.3f}); {time.perf_counter() - t0:.1f} s for the four runs")
+    forced["controls"] = {}
+    for ctl_fn, ctl_label in ((control, control_label), *more_controls):
+        with ctl_fn(sel_f) as pinned:
+            ctl = _forced_logits(torch, cfg_fn(), params, seq, prompt_len)
+        del pinned
+        c = _forced_gate(ctl, pl, f32, f"  control: {ctl_label}", exit_on_fail=False)
+        if c["passed"]:
+            raise SystemExit(f"{label}: the control ({ctl_label}) passes the gate too")
+        log(f"  {label}: the control ({ctl_label}) fails it (ratios max {c['kernel_vs_fp32'] / c['plain_vs_fp32']:.3f} "
+            f"rms {c['kernel_vs_fp32_rms'] / c['plain_vs_fp32_rms']:.3f})")
+        forced["controls"][ctl_label] = c
+    log(f"  {label}: {time.perf_counter() - t0:.1f} s for the runs and the controls")
     return forced
 
 
@@ -8622,6 +8771,133 @@ def deepseek_teacher_forced(torch, seq, prompt_len):
     label = "deepseek-v3 teacher-forced logits (gate weights, 1 dense + 1 MoE of 61 layers, routing pinned to the fp32 run's)"
     return _a9_gate(torch, label, cfg_fn, params32, params, seq, prompt_len, _DroppedShared,
                     "the kernel path without the shared expert")
+
+
+class _RopeByLatentFactor(_PinnedRouting):
+    """Pinned routing with MLA's rope stream dequantized by the latent
+    stream's factor (each layer dequantizes the latent, then the rope
+    keys): a control of the quantized-latent gate."""
+
+    def __enter__(self):
+        from neuronx_distributed_inference_tpu_torch.models import deepseek
+
+        self.deq = real = deepseek.dequantize_kv
+        state = {"n": 0}
+
+        def deq(codes, scale):
+            if state["n"] % 2 == 0:
+                state["latent"] = scale
+            state["n"] += 1
+            return real(codes, state["latent"])
+
+        deepseek.dequantize_kv = deq
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from neuronx_distributed_inference_tpu_torch.models import deepseek
+
+        deepseek.dequantize_kv = self.deq
+        return super().__exit__(*exc)
+
+
+class _FrozenScales(_PinnedRouting):
+    """Pinned routing with the quantized cache's scales never raised past a
+    layer's first write: later writes quantize with (and clip at) the first
+    write's scales. A control of the quantized-latent gate."""
+
+    def __enter__(self):
+        from neuronx_distributed_inference_tpu_torch.modules import kvcache
+
+        self.update = real = kvcache._quantized_update
+
+        def frozen(k_stream, v_stream, k_new, v_new, layer_idx, valid):
+            if float(k_stream.scale[layer_idx].min()) > 0:
+                return tuple(kvcache.quantize_kv_codes(x.float(), st.scale[layer_idx], st.data.dtype)
+                             for st, x in ((k_stream, k_new), (v_stream, v_new)))
+            return real(k_stream, v_stream, k_new, v_new, layer_idx, valid)
+
+        kvcache._quantized_update = frozen
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        from neuronx_distributed_inference_tpu_torch.modules import kvcache
+
+        kvcache._quantized_update = self.update
+        return super().__exit__(*exc)
+
+
+#: the quantized-latent gate: a short prefill, then teacher-forced decode
+#: steps that raise the running scales step by step
+MLA_KV_GATE_PROMPT, MLA_KV_GATE_STEPS = 8, 56
+
+
+def deepseek_kv_teacher_forced(torch, seq, kvd):
+    """The teacher-forced gate of MLA on the ``kvd`` latent cache (PERF.md
+    section 2's kv-int8 rule): on 1 dense + 1 MoE layer at full width with
+    the gate weights, the kernel path and the plain path, both bf16 on the
+    quantized cache, against an fp32 run on the same quantized cache,
+    routing pinned to the fp32 run's. The prefill is MLA_KV_GATE_PROMPT
+    tokens, so the MLA_KV_GATE_STEPS decode writes raise the scales.
+    Controls: the rope stream dequantized with the latent stream's factor;
+    the scales never raised past their first write."""
+    from neuronx_distributed_inference_tpu_torch.models import get_model_builder
+
+    model = _deepseek_cut(2, 1)
+
+    def cfg_fn(**kw):
+        return _config_deepseek(model=model, output_logits=True, cuda_graphs=False, kv_cache_dtype=kvd, **kw)
+
+    params = _a9_gate_params(torch, get_model_builder("deepseek_v3")(cfg_fn()).random_params(), 0.05,
+                             model["vocab_size"])
+    params32 = dict(_fp32_but_experts(params))
+    label = (f"deepseek-v3 teacher-forced logits on the {kvd} latent cache (gate weights, 1 dense + 1 MoE of 61 "
+             f"layers, an fp32 run on the same cache, routing pinned to its)")
+    return _a9_gate(torch, label, cfg_fn, params32, params, seq, MLA_KV_GATE_PROMPT, _RopeByLatentFactor,
+                    "the rope stream dequantized by the latent stream's factor",
+                    more_controls=((_FrozenScales, "the scales never raised past their first write"),))
+
+
+def deepseek_kv_runs(torch, params, load, b_step):
+    """DeepSeek-V3 (3 dense + 2 MoE of 61 layers) on the int8 and e4m3
+    latent caches over the bf16 app's params: the cache's bytes (codes and
+    (L, 1) scales of each stream) beside bf16's, sealed generate() at batch
+    1 and 8 with the bf16 app's exact counts, and a profiled decode step
+    beside the byte bound. Returns each code type's run."""
+    from neuronx_distributed_inference_tpu_torch.models.deepseek import DEEPSEEK_V3
+    from neuronx_distributed_inference_tpu_torch.modules.kvcache import QuantizedKV
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    nm = DEEPSEEK_LAYERS - DEEPSEEK_DENSE
+    want = expect_launches(moe_grouped=nm, moe_decode=nm * A9_NEW)
+    runs = {}
+    for kvd in ("int8", "fp8"):
+        cfg = _config_deepseek(retrace_guard=True, kv_cache_dtype=kvd)
+        app = ModelForCausalLM(None, cfg).load(params=params)
+        cache = app.kv_cache
+        L, rows, S = cache.k.shape[:3]
+        latent = DEEPSEEK_V3["kv_lora_rank"] + DEEPSEEK_V3["qk_rope_head_dim"]
+        want_bytes = L * rows * S * latent + 2 * L * 4
+        if not (isinstance(cache.k, QuantizedKV) and tuple(cache.k.scale.shape) == tuple(cache.v.scale.shape) == (L, 1)
+                and app.kv_cache_nbytes == want_bytes):
+            raise SystemExit(f"deepseek-v3 {kvd} latent cache: {app.kv_cache_nbytes} bytes, scales "
+                             f"{tuple(cache.k.scale.shape)}, expected {want_bytes} and (L, 1)")
+        log(f"deepseek-v3 {kvd} latent cache: {app.kv_cache_nbytes} bytes (codes {L * rows * S * latent}, scales "
+            f"{2 * L * 4}) against bf16's {load['cache_bytes']}: {app.kv_cache_nbytes / load['cache_bytes']:.5f}; "
+            f"{latent} bytes a token a layer against bf16's {2 * latent}")
+        out, run, run8 = _a9_generate(torch, app, _config_deepseek(8, retrace_guard=True, kv_cache_dtype=kvd),
+                                      f"deepseek-v3 {kvd} cache", want, DEEPSEEK_LAYERS)
+        profile = phase_profile(torch, app, out.sequences[0], A9_PROMPT)
+        log(f"  deepseek-v3 {kvd} cache decode step at batch 1: device busy {profile['device_busy_ms']:.3f} ms against "
+            f"the {b_step:.3f} ms byte bound; {profile['kernels_per_step']:.0f} kernels a step")
+        if not (np.isfinite(profile["device_busy_ms"]) and float(cache.k.scale.min()) > 0
+                and float(cache.v.scale.min()) > 0):
+            raise SystemExit(f"deepseek-v3 {kvd} cache: a stream's scales were never raised")
+        runs[kvd] = dict(run, run8=run8, cache_bytes=app.kv_cache_nbytes,
+                         profile={k: v for k, v in profile.items() if k != "busy_ms_per_step"})
+        del app
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
 
 
 def _step_bound(params_bytes, embed_bytes, expert_bytes, E, distinct):
@@ -8831,16 +9107,21 @@ def phase_deepseek_v3(torch, md):
         f"{profile['kernels_per_step']:.0f} kernels a step")
     eager_twin(torch, "deepseek-v3 generate()", _config_deepseek(cuda_graphs=False), app, out, run,
                A9_PROMPT, N)
+    kv_runs = deepseek_kv_runs(torch, app.params, load, b_step)
     seq = out.sequences[0][: A9_PROMPT + A9_FORCED_STEPS]
     del app
     forced = deepseek_teacher_forced(torch, seq, A9_PROMPT)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kv_forced = deepseek_kv_teacher_forced(torch, out.sequences[0][: MLA_KV_GATE_PROMPT + MLA_KV_GATE_STEPS + 1],
+                                           "int8")
     gc.collect()
     torch.cuda.empty_cache()
     launches = {"moe_decode_deepseek": run["launches"]["moe_decode"],
                 "moe_decode_deepseek_bs8": run8["launches"]["moe_decode"]}
     return dict(run, times=times, launches=launches, **load, cache_ratio=ratio, run8=run8,
                 forced=forced, profile={k: v for k, v in profile.items() if k != "busy_ms_per_step"},
-                step_bound_ms=b_step)
+                step_bound_ms=b_step, kv_runs=kv_runs, kv_forced=kv_forced)
 
 
 # ---------------------------------------------------------------------------
@@ -10361,6 +10642,588 @@ def llama4_vision_run(torch, scout_params):
     return dict(run, forced=forced)
 
 
+# ---------------------------------------------------------------------------
+# 19. speech to text and text to image: Whisper-large-v3 and FLUX.1-dev (A9)
+# ---------------------------------------------------------------------------
+
+#: a Whisper request: 3000 frames of seeded log-mel a row (1500 encoder
+#: states), the four forced ids of an English transcription without
+#: timestamps, then WHISPER_NEW tokens with no EOS
+WHISPER_FRAMES, WHISPER_NEW = 3000, 64
+WHISPER_FORCED = (50258, 50259, 50360, 50364)
+WHISPER_BATCHES = (1, 8)
+#: the Whisper gate: bf16 teacher-forced decoder logits within this rms of
+#: the fp32 twin's, relative to the fp32 logits' rms (the seeded readings:
+#: sound 0.0134, another row's encoder states 0.0524; PERF.md section 6)
+WHISPER_GATE_RMS = 0.025
+#: the self-attention's out_proj and fc2 scaled down in the seeded weights,
+#: so 32 + 32 layers keep the residual stream near unit scale (the
+#: cross-attention's writes are not, so the encoder states weigh in)
+WHISPER_RESIDUAL_SCALE = 0.25
+
+
+def _config_whisper(batch, **kw):
+    """openai/whisper-large-v3 (models/whisper.WHISPER_LARGE_V3): bf16,
+    seq_len 448 (max_target_positions), on the card."""
+    from neuronx_distributed_inference_tpu_torch.config import Config, InferenceConfig
+    from neuronx_distributed_inference_tpu_torch.models.whisper import WHISPER_LARGE_V3
+
+    base = dict(batch_size=batch, seq_len=448, dtype="bfloat16", seed=0, device=DEV)
+    return InferenceConfig(Config(**{**base, **kw}),
+                           load_config=lambda c: [setattr(c, k, v) for k, v in WHISPER_LARGE_V3.items()])
+
+
+def _seeded_leaves(torch, shapes, seed, leaf_std, dtype):
+    """A params tree (dicts and lists) of seeded normal leaves made on the
+    card: ``leaf_std(path, shape)`` gives a leaf's std, or "ones" /
+    "zeros"."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(node[k], path + (k,)) for k in sorted(node)}
+        if isinstance(node, list):
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
+        std = leaf_std(path, node)
+        if std in ("ones", "zeros"):
+            return (torch.ones if std == "ones" else torch.zeros)(node, dtype=dtype, device=DEV)
+        return (torch.randn(node, generator=gen, device=DEV) * std).to(dtype)
+
+    return walk(shapes, ())
+
+
+def whisper_params(torch, spec, ffn=None):
+    """Seeded Whisper-large-v3 weights on the card: projections and convs of
+    std 1 / sqrt(fan in) (the self-attention's out_proj and fc2 times
+    WHISPER_RESIDUAL_SCALE),
+    embeddings and positions of std 1, LayerNorms ones and zeros, biases
+    zero."""
+    from neuronx_distributed_inference_tpu_torch.models.whisper import WHISPER_LARGE_V3, whisper_param_shapes
+
+    def std(path, shape):
+        name, parent = path[-1], path[-2]
+        if "layer_norm" in parent:
+            return "ones" if name == "weight" else "zeros"
+        if name == "bias":
+            return "zeros"
+        if parent in ("embed_tokens", "embed_positions"):
+            return 1.0
+        fan_in = shape[-2] * shape[-1] if parent.startswith("conv") else shape[-2]
+        residual = parent == "fc2" or (parent == "out_proj" and path[-3] == "self_attn")
+        return (WHISPER_RESIDUAL_SCALE if residual else 1.0) / fan_in ** 0.5
+
+    return _seeded_leaves(torch, whisper_param_shapes(spec, ffn or WHISPER_LARGE_V3["decoder_ffn_dim"]), 41, std,
+                          torch.bfloat16)
+
+
+def _whisper_feats(torch, B, mel_bins, seed=43):
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    return torch.randn((B, mel_bins, WHISPER_FRAMES), generator=gen, device=DEV)
+
+
+def _whisper_forced_logits(torch, app, feats, seq, S0, shift=0, roll=0):
+    """Teacher-forced decoder logits over ``seq`` (B, S): the encoder, the
+    forced ids' prefill in one pass, then one decode step (the graph body's
+    function, eager) a recorded token. ``shift`` moves every position by
+    one (a control); ``roll`` hands row b the encoder states of row b - 1
+    (a control). Returns (B, S - S0, V) fp32 numpy."""
+    from neuronx_distributed_inference_tpu_torch.models.whisper import whisper_decoder_step
+
+    dev, W = app.device, app.max_len
+    with torch.no_grad():
+        enc = app.encode(feats.to(app.dtype))
+        if roll:
+            enc = enc.roll(roll, dims=0)
+        cache = app._fresh_cache()
+        toks = torch.as_tensor(seq, dtype=torch.int32, device=dev)
+        B = toks.shape[0]
+        cols = torch.arange(W, device=dev)[None, :]
+
+        def step(t, p0, n):
+            pos = (torch.arange(p0, p0 + n, dtype=torch.int32, device=dev) + shift)[None, :].expand(B, n)
+            mask = (cols < p0 + n + shift).to(torch.int32).expand(B, W)
+            return whisper_decoder_step(app.params["decoder"], cache, t, pos, mask, enc, app.spec)[:, -1]
+
+        out = [step(toks[:, :S0], 0, S0)]
+        for p in range(S0, seq.shape[1] - 1):
+            out.append(step(toks[:, p : p + 1], p, 1))
+    return torch.stack(out, dim=1).float().cpu().numpy()
+
+
+def _rel_gate(label, got, f32, limit):
+    """``got`` against the fp32 twin ``f32``: rms of the difference over
+    the fp32 rms, and the max difference over the fp32 max |value|.
+    Returns (rel rms, rel max, passed)."""
+    if not np.isfinite(got).all():
+        return float("inf"), float("inf"), False
+    d = got.astype(np.float64) - f32
+    rel_rms = float(np.sqrt(np.mean(d ** 2)) / np.sqrt(np.mean(f32.astype(np.float64) ** 2)))
+    rel_max = float(np.abs(d).max() / np.abs(f32).max())
+    passed = rel_rms <= limit
+    log(f"  {label} vs the fp32 twin: rel rms {rel_rms:.5f}, rel max {rel_max:.5f} (limit rel rms {limit}) "
+        f"{'pass' if passed else 'FAIL'}")
+    return rel_rms, rel_max, passed
+
+
+def whisper_teacher_forced(torch, app, feats, seq):
+    """The Whisper gate at full depth: the bf16 app's teacher-forced decoder
+    logits against its fp32 twin's (the same seeded weights in fp32), rel
+    rms within WHISPER_GATE_RMS, and the argmax equal to fp32's wherever
+    fp32's top-2 margin passes twice the max error. Controls, each must
+    fail: every row's cross-attention reading another row's encoder states;
+    the decoder's positions shifted by one."""
+    from neuronx_distributed_inference_tpu_torch.runtime.encoder_decoder import WhisperModel
+
+    t0 = time.perf_counter()
+    S0 = len(WHISPER_FORCED)
+    twin = WhisperModel(None, _config_whisper(seq.shape[0], dtype="float32")).load(
+        params=_map_tree(app.params, lambda t: t.float()))
+    f32 = _whisper_forced_logits(torch, twin, feats, seq, S0)
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = _whisper_forced_logits(torch, app, feats, seq, S0)
+    label = (f"whisper-large-v3 teacher-forced decoder logits ({seq.shape[0]} rows x {f32.shape[1]} positions, "
+             f"{app.spec.encoder_layers} + {app.spec.decoder_layers} layers)")
+    rel_rms, rel_max, passed = _rel_gate(label, got, f32, WHISPER_GATE_RMS)
+    err = np.abs(got - f32).max()
+    top2 = np.sort(f32, axis=-1)[..., -2:]
+    decided = (top2[..., 1] - top2[..., 0]) > 2 * err
+    agree = (got.argmax(-1) == f32.argmax(-1))[decided]
+    log(f"  argmax equal to fp32's at {int(agree.sum())}/{int(decided.sum())} decided positions")
+    if not passed or not agree.all():
+        raise SystemExit(f"{label}: bf16 sits farther from fp32 than the gate allows")
+    controls = {}
+    for name, kw in (("another row's encoder states", dict(roll=1)), ("positions shifted by one", dict(shift=1))):
+        ctl = _whisper_forced_logits(torch, app, feats, seq, S0, **kw)
+        c_rms, c_max, c_pass = _rel_gate(f"control: {name}", ctl, f32, WHISPER_GATE_RMS)
+        if c_pass:
+            raise SystemExit(f"{label}: the control ({name}) passes the gate too")
+        controls[name] = dict(rel_rms=c_rms, rel_max=c_max)
+    log(f"  whisper gate: {time.perf_counter() - t0:.1f} s for the fp32 twin, the bf16 run and the controls")
+    return dict(rel_rms=rel_rms, rel_max=rel_max, decided=int(decided.sum()), controls=controls)
+
+
+def whisper_eager_twin(torch, app, out, feats, forced):
+    """The graphed generate() ``out`` against an app with cuda_graphs=False
+    over the same params and inputs: identical tokens, equal launch counts,
+    and the self-attention K / V streams equal bit for bit afterwards."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.runtime.encoder_decoder import WhisperModel
+
+    t0 = time.perf_counter()
+    B = out.sequences.shape[0]
+    _cuda.reset_launch_counts()
+    again = app.generate(feats, decoder_input_ids=forced, max_new_tokens=WHISPER_NEW)
+    graphed = all_counts()
+    twin = WhisperModel(None, _config_whisper(B, cuda_graphs=False)).load(params=app.params)
+    _cuda.reset_launch_counts()
+    got = twin.generate(feats, decoder_input_ids=forced, max_new_tokens=WHISPER_NEW)
+    counts = all_counts()
+    streams = [n for n in ("k", "v") if not torch.equal(getattr(app.kv_cache, n), getattr(twin.kv_cache, n))]
+    same = np.array_equal(got.sequences, out.sequences) and np.array_equal(again.sequences, out.sequences)
+    if not same or counts != graphed or streams:
+        raise SystemExit(f"whisper-large-v3 batch {B}: the eager twin differs from the graphed decode (tokens equal "
+                         f"{same}, counts {counts} vs {graphed}, streams that differ {streams})")
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"graphs on vs off, whisper-large-v3 generate() at batch {B}: tokens identical, launch counts equal, self K / V "
+        f"streams bit-identical ({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_whisper_large_v3(torch):
+    """Whisper-large-v3 at its published widths and depth (d_model 1280, 32
+    encoder and 32 decoder layers, 20 heads of 64, FFN 5120, 128 mel bins,
+    vocab 51866, 1500 source and 448 target positions), seeded bf16 weights
+    made on the card: at batch 1 and 8, 3000 frames a row, the 4 forced
+    ids, 64 new tokens with no EOS: the encoder's device ms, TTFT, decode
+    tok/s, a decode step's device ms (its graph replayed, profiled) beside
+    the bound (the decoder's weight bytes against the per-step cross K / V
+    recompute's FLOPs over 1500 states), the peak memory and the captures
+    (one a batch); the graphed decode against an eager twin; then the gate
+    at full depth with its two controls. No port kernel runs (the reference
+    computes every attention here plainly): every launch count stays 0."""
+    from neuronx_distributed_inference_tpu_torch.models.whisper import WHISPER_LARGE_V3, whisper_spec
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_WHISPER_LARGE_V3, bound_ms, whisper_decode_step
+    from neuronx_distributed_inference_tpu_torch.runtime.encoder_decoder import WhisperModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    spec = whisper_spec(WHISPER_LARGE_V3)
+    params = whisper_params(torch, spec)
+    torch.cuda.synchronize()
+    params_bytes = _tree_bytes(params)
+    log(f"whisper-large-v3: seeded bf16 weights made on the card in {time.perf_counter() - t0:.2f} s, "
+        f"{params_bytes / 2**30:.3f} GiB")
+    runs = {}
+    for B in WHISPER_BATCHES:
+        app = WhisperModel(None, _config_whisper(B)).load(params=params)
+        feats = _whisper_feats(torch, B, app.spec.num_mel_bins)
+        forced = np.tile(np.array(WHISPER_FORCED), (B, 1))
+        app.encode(feats)
+        enc_ms = _device_ms(torch, lambda: app.encode(feats))
+        # warm: the prefill's shapes and the decode graph's capture
+        app.generate(feats, decoder_input_ids=forced, max_new_tokens=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = app.generate(feats, decoder_input_ids=forced, max_new_tokens=1)
+        ttft_ms = (time.perf_counter() - t0) * 1e3
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = app.generate(feats, decoder_input_ids=forced, max_new_tokens=WHISPER_NEW)
+        total_s = time.perf_counter() - t0
+        counts = all_counts()
+        gen = out.sequences[:, len(WHISPER_FORCED):]
+        if gen.shape != (B, WHISPER_NEW) or gen.min() < 0 or gen.max() >= app.spec.vocab_size or any(counts.values()) \
+                or not np.array_equal(first.sequences[:, -1], out.sequences[:, len(WHISPER_FORCED)]):
+            raise SystemExit(f"whisper-large-v3 batch {B}: bad tokens {gen.shape} or launch counts {counts}")
+        tok_s = B * (WHISPER_NEW - 1) / (total_s - ttft_ms / 1e3)
+        captures = app.graphs.captures
+        if captures != 1:
+            raise SystemExit(f"whisper-large-v3 batch {B}: {captures} decode captures, expected 1")
+        ent = next(iter(app._decode.values()))
+
+        def chunk():
+            for _ in range(PROFILE_STEPS):
+                app._decode_step(ent)
+            torch.cuda.synchronize()
+
+        profile = profile_chunk(torch, chunk, PROFILE_STEPS, f"whisper-large-v3 decode step (batch {B}, graph replays)")
+        b_ms, b_by = bound_ms(*whisper_decode_step(MODEL_WHISPER_LARGE_V3, B, 1500, len(WHISPER_FORCED) + WHISPER_NEW))
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"whisper-large-v3 batch {B}: encoder {enc_ms:.2f} device ms ({WHISPER_FRAMES} frames a row), TTFT "
+            f"{ttft_ms:.1f} ms, "
+            f"decode {tok_s:.1f} tok/s, a decode step {profile['device_busy_ms']:.3f} device ms against a {b_ms:.3f} "
+            f"ms bound ({b_by}), peak {peak / 2**30:.3f} GiB, {captures} capture")
+        whisper_eager_twin(torch, app, out, feats, forced)
+        runs[B] = dict(encoder_ms=enc_ms, ttft_ms=ttft_ms, decode_tok_s=tok_s, step_ms=profile["device_busy_ms"],
+                       bound_ms=b_ms, bound_by=b_by, peak_bytes=peak, captures=captures,
+                       kernels_per_step=profile["kernels_per_step"], seq=out.sequences)
+        del app
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the gate on two rows of the batch-8 run (two rows: another row's states exist)
+    app = WhisperModel(None, _config_whisper(2)).load(params=params)
+    seq = runs[max(WHISPER_BATCHES)].pop("seq")[:2]
+    gate = whisper_teacher_forced(torch, app, _whisper_feats(torch, max(WHISPER_BATCHES), app.spec.num_mel_bins)[:2], seq)
+    for r in runs.values():
+        r.pop("seq", None)
+    del app, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, gate=gate, params_bytes=params_bytes)
+
+
+#: FLUX.1-dev's runs: batch 1 at 1024 x 1024 (4096 image tokens) and batch 4
+#: at 512 x 512 (1024), 512 T5 and 77 CLIP tokens, FLUX_STEPS denoise steps
+#: (the reference's default num_inference_steps)
+FLUX_RUNS = ((1, 1024), (4, 512))
+FLUX_STEPS = 4
+FLUX_T5_TOKENS, FLUX_CLIP_TOKENS = 512, 77
+#: the DiT gate: one velocity at full width on FLUX_GATE_BLOCKS (dual,
+#: single) blocks, a non-square FLUX_GATE_GRID latent grid; the bf16
+#: velocity within FLUX_GATE_RMS of its fp32 twin's (rel rms); T5 and the
+#: VAE each whole within FLUX_T5_RMS / FLUX_VAE_RMS (the seeded readings:
+#: DiT 0.0088, its rope control 0.0516; T5 0.0217; VAE 0.0049; PERF.md
+#: section 6)
+FLUX_GATE_BLOCKS = (2, 4)
+FLUX_GATE_GRID = (32, 48)
+FLUX_GATE_RMS = 0.025
+FLUX_T5_RMS = 0.05
+FLUX_VAE_RMS = 0.02
+
+
+def _flux_config(**kw):
+    from neuronx_distributed_inference_tpu_torch.models.flux import FLUX_1_DEV, FluxSpec
+    from neuronx_distributed_inference_tpu_torch.models.flux_text import (
+        CLIP_VIT_L14_TEXT,
+        T5_V1_1_XXL,
+        ClipTextSpec,
+        T5EncoderSpec,
+    )
+    from neuronx_distributed_inference_tpu_torch.models.flux_vae import VaeDecoderSpec
+    from neuronx_distributed_inference_tpu_torch.runtime.flux import FluxPipelineConfig
+
+    return FluxPipelineConfig(backbone=FluxSpec(**FLUX_1_DEV), clip=ClipTextSpec(**CLIP_VIT_L14_TEXT),
+                              t5=T5EncoderSpec(**T5_V1_1_XXL), vae=VaeDecoderSpec(), device=DEV, **kw)
+
+
+#: FLUX's norm leaves (seeded ones, their biases zeros)
+FLUX_NORMS = {"layer_norm1", "layer_norm2", "final_layer_norm", "ln1", "ln2", "final_norm", "norm1", "norm2",
+              "group_norm", "norm_out", "norm_q", "norm_k", "norm_added_q", "norm_added_k"}
+
+
+def flux_param_std(cfg):
+    """The seeded FLUX weights' std of a leaf (path, shape): linear and conv
+    weights 1 / sqrt(fan in) (T5's q and k also times d_kv ** -1/4: its
+    attention is unscaled), embeddings and T5's relative bias 1, norm
+    weights ones, biases zeros."""
+
+    def std(path, shape):
+        parent = path[-2]
+        if parent in FLUX_NORMS:  # a norm's own leaf (the DiT's modulation linears sit under "linear")
+            return "ones" if path[-1] == "weight" else "zeros"
+        if path[-1] == "bias":
+            return "zeros"
+        if parent in ("token_embedding", "position_embedding", "embed_tokens", "rel_bias"):
+            return 1.0
+        if len(shape) == 4:  # an OIHW conv
+            return 1.0 / (shape[1] * shape[2] * shape[3]) ** 0.5
+        s = 1.0 / shape[-2] ** 0.5
+        return s * cfg.t5.d_kv ** -0.25 if parent in ("q", "k") else s
+
+    return std
+
+
+def flux_params(torch, cfg):
+    """Seeded FLUX.1-dev weights on the card, every sub-model, of
+    flux_param_std's scales."""
+    from neuronx_distributed_inference_tpu_torch.models.flux import flux_param_shapes
+    from neuronx_distributed_inference_tpu_torch.runtime.flux import clip_param_shapes, t5_param_shapes, vae_param_shapes
+
+    std, dtype = flux_param_std(cfg), torch.bfloat16
+    return dict(
+        backbone=_seeded_leaves(torch, flux_param_shapes(cfg.backbone), 51, std, dtype),
+        clip=_seeded_leaves(torch, clip_param_shapes(cfg.clip), 52, std, dtype),
+        t5=_seeded_leaves(torch, t5_param_shapes(cfg.t5), 53, std, dtype),
+        vae=_seeded_leaves(torch, vae_param_shapes(cfg.vae), 54, std, dtype),
+    )
+
+
+def _flux_ids(rng, B, cfg):
+    """CLIP ids of FLUX_CLIP_TOKENS (BOS, text, the end token (the vocab's
+    last), padding 0: the legacy eos_token_id 2 pools at the argmax) and T5
+    ids of FLUX_T5_TOKENS (text, EOS 1, padding 0) with their mask: the rows
+    fill 4/8 of T5's tokens and more."""
+    Vc, Vt = cfg.clip.vocab_size, cfg.t5.vocab_size
+    clip = np.zeros((B, FLUX_CLIP_TOKENS), np.int64)
+    t5 = np.zeros((B, FLUX_T5_TOKENS), np.int64)
+    mask = np.zeros((B, FLUX_T5_TOKENS), np.int64)
+    for b in range(B):
+        n = FLUX_CLIP_TOKENS // 4 + b
+        clip[b, 0], clip[b, 1 : n + 1], clip[b, n + 1] = Vc - 2, rng.randint(3, Vc - 3, n), Vc - 1
+        m = FLUX_T5_TOKENS * (4 + b) // 8
+        t5[b, : m - 1], t5[b, m - 1] = rng.randint(2, Vt, m - 1), 1
+        mask[b, :m] = 1
+    return clip, t5, mask
+
+
+class _NormOutShiftScale:
+    """The DiT's norm_out modulation split [shift, scale] (every block's
+    order) instead of diffusers' [scale, shift]: a control of the DiT gate."""
+
+    def __enter__(self):
+        from neuronx_distributed_inference_tpu_torch.models import flux
+
+        self.real = real = flux._modulation
+        flux._modulation = lambda p, temb, chunks: real(p, temb, chunks)[::-1] if chunks == 2 else real(p, temb, chunks)
+        return self
+
+    def __exit__(self, *exc):
+        from neuronx_distributed_inference_tpu_torch.models import flux
+
+        flux._modulation = self.real
+
+
+def flux_gates(torch, cfg, params):
+    """The FLUX gates, each a bf16 run against its fp32 twin (the same
+    seeded weights in fp32), by relative rms:
+
+    - the DiT: one velocity at full width on the first FLUX_GATE_BLOCKS
+      (dual, single) blocks, a non-square FLUX_GATE_GRID latent grid with
+      512 T5 tokens, within FLUX_GATE_RMS. Controls, each must fail:
+      norm_out split [shift, scale]; the rope's row and column ids swapped;
+    - T5-XXL whole, 512 tokens with padding, within FLUX_T5_RMS. Control:
+      the relative attention bias left out;
+    - the VAE decoder whole, a 64 x 64 latent, within FLUX_VAE_RMS; it
+      computes in fp32 (the reference's), so its twin holds the fp32 draws
+      the bf16 weights were rounded from. Control: the latents not
+      unnormalised."""
+    import dataclasses
+
+    from neuronx_distributed_inference_tpu_torch.models.flux import flux_forward, latent_image_ids
+    from neuronx_distributed_inference_tpu_torch.models.flux_text import t5_encode
+    from neuronx_distributed_inference_tpu_torch.models.flux_vae import vae_decode
+    from neuronx_distributed_inference_tpu_torch.runtime.flux import vae_param_shapes
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(61)
+    nd, ns = FLUX_GATE_BLOCKS
+    spec = dataclasses.replace(cfg.backbone, num_dual=nd, num_single=ns)
+    bb = params["backbone"]
+    cut = {k: v for k, v in bb.items() if k not in ("dual_blocks", "single_blocks")}
+    cut["dual_blocks"] = _map_tree(bb["dual_blocks"], lambda t: t[:nd])
+    cut["single_blocks"] = _map_tree(bb["single_blocks"], lambda t: t[:ns])
+    cut32 = _map_tree(cut, lambda t: t.float())
+    h2, w2 = FLUX_GATE_GRID
+    hidden = torch.randn((1, h2 * w2, spec.in_channels), generator=gen, device=DEV)
+    txt = torch.randn((1, FLUX_T5_TOKENS, spec.joint_dim), generator=gen, device=DEV)
+    pooled = torch.randn((1, spec.pooled_dim), generator=gen, device=DEV)
+    t = torch.full((1,), 0.7, device=DEV)
+    img_ids = torch.as_tensor(latent_image_ids(h2, w2), device=DEV)
+    txt_ids = torch.zeros((FLUX_T5_TOKENS, 3), device=DEV)
+    g = torch.full((1,), 3.5, device=DEV)
+
+    def velocity(tree, dt, ids=img_ids):
+        with torch.no_grad():
+            v = flux_forward(tree, hidden.to(dt), txt.to(dt), pooled.to(dt), t, ids, txt_ids, g, spec=spec)
+        return v.float().cpu().numpy()
+
+    gates = {}
+    f32 = velocity(cut32, torch.float32)
+    label = f"flux.1-dev velocity ({nd} dual + {ns} single blocks, a {h2} x {w2} grid + {FLUX_T5_TOKENS} T5 tokens)"
+    rel_rms, rel_max, ok = _rel_gate(label, velocity(cut, torch.bfloat16), f32, FLUX_GATE_RMS)
+    if not ok:
+        raise SystemExit(f"{label}: bf16 sits farther from fp32 than the gate allows")
+    controls = {}
+    with _NormOutShiftScale():
+        ctl = velocity(cut, torch.bfloat16)
+    controls["norm_out split [shift, scale]"] = ctl
+    controls["the rope's row and column ids swapped"] = velocity(cut, torch.bfloat16, img_ids[:, [0, 2, 1]])
+    gates["dit"] = dict(rel_rms=rel_rms, rel_max=rel_max, controls={})
+    for name, ctl in controls.items():
+        c_rms, c_max, c_ok = _rel_gate(f"control: {name}", ctl, f32, FLUX_GATE_RMS)
+        if c_ok:
+            raise SystemExit(f"{label}: the control ({name}) passes the gate too")
+        gates["dit"]["controls"][name] = dict(rel_rms=c_rms, rel_max=c_max)
+    del cut32, controls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # T5-XXL whole: the bf16 encoder against its fp32 twin
+    _, t5_ids, t5_mask = _flux_ids(np.random.RandomState(62), 1, cfg)
+    ids, mask = torch.as_tensor(t5_ids, device=DEV), torch.as_tensor(t5_mask, device=DEV)
+    n = int(t5_mask.sum())
+
+    def t5(tree):
+        with torch.no_grad():
+            return t5_encode(tree, ids, mask, spec=cfg.t5)[:, :n].float().cpu().numpy()
+
+    t5_32 = _map_tree(params["t5"], lambda t: t.float())
+    f32 = t5(t5_32)
+    del t5_32
+    gc.collect()
+    torch.cuda.empty_cache()
+    label = f"t5-v1.1-xxl encoder (24 layers, {n} of {FLUX_T5_TOKENS} tokens valid)"
+    rel_rms, rel_max, ok = _rel_gate(label, t5(params["t5"]), f32, FLUX_T5_RMS)
+    if not ok:
+        raise SystemExit(f"{label}: bf16 sits farther from fp32 than the gate allows")
+    no_bias = dict(params["t5"], rel_bias={"weight": torch.zeros_like(params["t5"]["rel_bias"]["weight"])})
+    c_rms, c_max, c_ok = _rel_gate("control: the relative attention bias left out", t5(no_bias), f32, FLUX_T5_RMS)
+    if c_ok:
+        raise SystemExit(f"{label}: the control (no relative bias) passes the gate too")
+    gates["t5"] = dict(rel_rms=rel_rms, rel_max=rel_max, controls={"no relative bias": dict(rel_rms=c_rms, rel_max=c_max)})
+
+    # the VAE decoder whole
+    z = torch.randn((1, 64, 64, cfg.vae.latent_channels), generator=gen, device=DEV)
+
+    def vae(tree, vspec=cfg.vae):
+        with torch.no_grad():
+            return vae_decode(tree, z, spec=vspec).float().cpu().numpy()
+
+    # the VAE computes in fp32 from its weights, as the reference does: its
+    # twin takes the seeded fp32 draws the bf16 weights were rounded from
+    f32 = vae(_seeded_leaves(torch, vae_param_shapes(cfg.vae), 54, flux_param_std(cfg), torch.float32))
+    label = "vae decoder (a 64 x 64 x 16 latent -> a 512 x 512 image; bf16 weights against their fp32 draws)"
+    rel_rms, rel_max, ok = _rel_gate(label, vae(params["vae"]), f32, FLUX_VAE_RMS)
+    if not ok:
+        raise SystemExit(f"{label}: bf16 weights sit farther from fp32 than the gate allows")
+    raw = dataclasses.replace(cfg.vae, scaling_factor=1.0, shift_factor=0.0)
+    c_rms, c_max, c_ok = _rel_gate("control: the latents not unnormalised", vae(params["vae"], raw), f32, FLUX_VAE_RMS)
+    if c_ok:
+        raise SystemExit(f"{label}: the control (latents not unnormalised) passes the gate too")
+    gates["vae"] = dict(rel_rms=rel_rms, rel_max=rel_max,
+                        controls={"latents not unnormalised": dict(rel_rms=c_rms, rel_max=c_max)})
+    log(f"  flux gates: {time.perf_counter() - t0:.1f} s")
+    return gates
+
+
+def phase_flux_dev(torch):
+    """FLUX.1-dev at its published widths and depth (the DiT: dim 3072, 24
+    heads of 128, 19 dual and 38 single blocks, guidance; CLIP ViT-L/14's
+    text tower; T5-v1.1-XXL's encoder; the VAE decoder), seeded bf16
+    weights made on the card (~34 GB): batch 1 at 1024 x 1024 and batch 4
+    at 512 x 512, FLUX_STEPS denoise steps, 512 T5 and 77 CLIP tokens: each
+    text encoder's device ms, a denoise step's device ms beside its FLOP
+    bound, the VAE's ms, the image's end-to-end latency and the peak
+    memory; no port kernel launches (every count 0); the same seed gives
+    the same image bit for bit and another seed another; then the gates
+    (flux_gates)."""
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+    from neuronx_distributed_inference_tpu_torch.ops.roofline import MODEL_FLUX_DEV, bound_ms, flux_step
+    from neuronx_distributed_inference_tpu_torch.runtime.flux import FluxPipeline, initial_noise, pack_latents
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    cfg = _flux_config()
+    t0 = time.perf_counter()
+    params = flux_params(torch, cfg)
+    torch.cuda.synchronize()
+    sizes = {k: _tree_bytes(v) for k, v in params.items()}
+    log(f"flux.1-dev: seeded bf16 weights made on the card in {time.perf_counter() - t0:.2f} s: "
+        + ", ".join(f"{k} {b / 2**30:.3f} GiB" for k, b in sizes.items()))
+    pipe = FluxPipeline(cfg).load(params=params)
+    rng = np.random.RandomState(63)
+    runs = {}
+    for B, res in FLUX_RUNS:
+        clip_ids, t5_ids, t5_mask = _flux_ids(rng, B, cfg)
+        kw = dict(num_inference_steps=FLUX_STEPS, height=res, width=res)
+        pipe.generate(clip_ids, t5_ids, t5_mask, seed=0, **kw)  # warm: the shapes' first calls
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        img = pipe.generate(clip_ids, t5_ids, t5_mask, seed=0, **kw)
+        e2e_ms = (time.perf_counter() - t0) * 1e3
+        counts = all_counts()
+        if img.shape != (B, res, res, 3) or not np.isfinite(img).all() or img.min() < 0 or img.max() > 1 \
+                or any(counts.values()):
+            raise SystemExit(f"flux.1-dev {B} x {res}^2: image {img.shape} [{img.min()}, {img.max()}], counts {counts}")
+        h = res // cfg.vae_scale
+        h2 = h // 2
+        with torch.no_grad():
+            clip_ms = _device_ms(torch, lambda: pipe.clip_app(clip_ids))
+            t5_ms = _device_ms(torch, lambda: pipe.t5_app(t5_ids, t5_mask))
+            pooled, txt = pipe.encode_text(clip_ids, t5_ids, t5_mask)
+            packed = pack_latents(initial_noise((B, h, h, cfg.backbone.in_channels // 4), 0, DEV)).to(pipe.dtype)
+            step_ms = _device_ms(torch, lambda: pipe.denoise(packed, txt, pooled, h2, h2, 1), reps=1)
+            lat = torch.randn((B, h, h, cfg.vae.latent_channels), device=DEV)
+            vae_ms = _device_ms(torch, lambda: pipe.vae_app(lat), reps=1)
+        b_ms, b_by = bound_ms(*flux_step(MODEL_FLUX_DEV, B, h2 * h2, FLUX_T5_TOKENS))
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"flux.1-dev batch {B} at {res} x {res} ({h2 * h2} image + {FLUX_T5_TOKENS} text tokens, {FLUX_STEPS} "
+            f"steps): image in {e2e_ms:.1f} ms end to end; clip {clip_ms:.3f} device ms, t5 {t5_ms:.3f}, a denoise "
+            f"step {step_ms:.2f} against a {b_ms:.2f} ms bound ({b_by}), vae {vae_ms:.2f}; peak {peak / 2**30:.3f} GiB")
+        runs[(B, res)] = dict(e2e_ms=e2e_ms, clip_ms=clip_ms, t5_ms=t5_ms, step_ms=step_ms, bound_ms=b_ms,
+                              bound_by=b_by, vae_ms=vae_ms, peak_bytes=peak)
+        if (B, res) == FLUX_RUNS[-1]:
+            again = pipe.generate(clip_ids, t5_ids, t5_mask, seed=0, **kw)
+            other = pipe.generate(clip_ids, t5_ids, t5_mask, seed=1, **kw)
+            if not np.array_equal(img, again) or np.array_equal(img, other):
+                raise SystemExit(f"flux.1-dev: seed 0 twice equal {np.array_equal(img, again)}, seed 1 equal to seed 0 "
+                                 f"{np.array_equal(img, other)}")
+            log(f"flux.1-dev batch {B}: seed 0 twice bit-identical, seed 1 another image "
+                f"(mean |diff| {np.abs(img - other).mean():.4f})")
+        del img
+        gc.collect()
+        torch.cuda.empty_cache()
+    del pipe
+    gates = flux_gates(torch, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(runs=runs, gates=gates, sizes=sizes)
+
+
 def _map_tree(tree, fn):
     if isinstance(tree, dict):
         return {k: _map_tree(v, fn) for k, v in tree.items()}
@@ -10483,6 +11346,10 @@ def main():
     pixtral = timed("pixtral-12b", phase_pixtral_12b, torch, fa, da)
     times.update(pixtral.pop("times"))
     mllama = timed("llama-3.2-11b-vision", phase_mllama_11b, torch, fa, da)
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed("whisper-large-v3", phase_whisper_large_v3, torch)
+    timed("flux.1-dev", phase_flux_dev, torch)
 
     entries = []
     for name, key, source, replaces, launches in (
@@ -10604,6 +11471,14 @@ def main():
         ("decode_attention_gpt_oss", ("decode_attention", "gpt_oss", 1), "csrc/decode_attention.cu",
          "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", gpt_oss["launches"]),
         ("paged_decode_attention_gpt_oss", ("paged_decode_attention", "gpt_oss"), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:284", gpt_oss["launches"]),
+        # B1 and B4 in row chunks (n_rep 8 x K 16 = 128 rows a kv head, two
+        # chunks of 64) at GPT-OSS-20B's heads with the sink, batch 8,
+        # bucket 1024, ~200 deep; launches of the windowed generate() (a
+        # 16-token context program) and the paged drain's 16-token chunks
+        ("decode_attention_row_chunks", ("decode_attention_row_chunks", 8), "csrc/decode_attention.cu",
+         "neuronx_distributed_inference_tpu/ops/decode_attention.py:195", gpt_oss["launches"]),
+        ("paged_decode_attention_row_chunks", ("paged_decode_attention_row_chunks", 8), "csrc/decode_attention.cu",
          "neuronx_distributed_inference_tpu/ops/decode_attention.py:284", gpt_oss["launches"]),
         ("flash_attention_mistral", ("flash_attention", "mistral"), "csrc/flash_attention.cu",
          "neuronx_distributed_inference_tpu/ops/flash_attention.py:460", mistral["launches"]),

@@ -109,7 +109,11 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
     carry across too: the Pixtral and Llama4 towers (``rope.table``,
     ``rope.cos`` / ``rope.sin`` stay fp32) with their projectors, and
     Mllama's whole tree (``vision``, ``projector``, the ``self_runs`` stacks
-    and the ``cross_layers`` list)."""
+    and the ``cross_layers`` list). So do Whisper's ``encoder`` /
+    ``decoder`` trees (their ``layers`` stacks; the convs keep torch's (out,
+    in, 3)) and FLUX's backbone (``dual_blocks`` / ``single_blocks``
+    stacks), CLIP and T5 trees; the VAE decoder's convs change layout, so
+    its tree crosses through :func:`vae_params_from_jax`."""
 
     def conv(t, path):
         if isinstance(t, dict):
@@ -128,6 +132,22 @@ def params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
         return _to_torch(a, torch.float32 if fp32 else dtype, device)
 
     return conv(tree, ())
+
+
+def vae_params_from_jax(tree: Dict, dtype: torch.dtype, device) -> Dict:
+    """The JAX package's FLUX VAE decoder tree (its ``up`` list of blocks
+    included) as the port's: :func:`params_from_jax`, then every conv
+    weight from the reference's HWIO to torch's OIHW (the tree's only 4-D
+    leaves)."""
+
+    def oihw(t):
+        if isinstance(t, dict):
+            return {k: oihw(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [oihw(v) for v in t]
+        return t.permute(3, 2, 0, 1).contiguous() if t.dim() == 4 else t
+
+    return oihw(params_from_jax(tree, dtype, device))
 
 
 #: param-tree keys of norm weights: random weights set them to ones (the

@@ -38,6 +38,8 @@ from neuronx_distributed_inference_tpu_torch.models.builder import DecoderModelB
 from neuronx_distributed_inference_tpu_torch.models.registry import register_model
 from neuronx_distributed_inference_tpu_torch.modules.kvcache import (
     KVCache,
+    QuantizedKV,
+    dequantize_kv,
     init_cache,
     update_cache_at_layer,
 )
@@ -182,14 +184,20 @@ def mla_decoder_layer(
 
     k_cache, v_cache = update_cache_at_layer(k_cache, v_cache, c[:, :, None, :], k_pe, layer_idx, slot_ids, positions)
     # each row reads its own cache line (the reference reads lines 0..B-1,
-    # the same lines wherever seq_ids is arange(B), as in generate())
+    # the same lines wherever seq_ids is arange(B), as in generate()); a
+    # quantized stream dequantizes by its own (1,) scale after the slice, to
+    # fp32, as the reference's read_cache_at_layer does
     W = mask.shape[-1]
-    c_all = k_cache[layer_idx, slot_ids, :W, 0].to(q.dtype)  # (B, W, r)
-    pe_all = v_cache[layer_idx, slot_ids, :W, 0].to(q.dtype)  # (B, W, d_rope)
+    if isinstance(k_cache, QuantizedKV):
+        c_all = dequantize_kv(k_cache.data[layer_idx, slot_ids, :W], k_cache.scale[layer_idx])[:, :, 0]
+        pe_all = dequantize_kv(v_cache.data[layer_idx, slot_ids, :W], v_cache.scale[layer_idx])[:, :, 0]
+    else:
+        c_all = k_cache[layer_idx, slot_ids, :W, 0]  # (B, W, r)
+        pe_all = v_cache[layer_idx, slot_ids, :W, 0]  # (B, W, d_rope)
 
     scores = (
-        torch.einsum("bshr,bwr->bhsw", q_c.float(), c_all.float())
-        + torch.einsum("bshd,bwd->bhsw", q_pe.float(), pe_all.float())
+        torch.einsum("bshr,bwr->bhsw", q_c.float(), c_all.to(q.dtype).float())
+        + torch.einsum("bshd,bwd->bhsw", q_pe.float(), pe_all.to(q.dtype).float())
     ) * mla.scale
     scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
@@ -222,14 +230,11 @@ class DeepseekV3ModelBuilder(DecoderModelBuilder):
         ):
             if flag:
                 raise NotImplementedError(f"DeepSeek-V3 MLA with {why} is not implemented")
-        for flag, what, item in (
-            (tc.kv_quantized, f"kv_cache_dtype={tc.kv_cache_dtype!r}", "A9 (MLA on the quantized cache)"),
-            (tc.quantized or tc.weight_int4, "quantized weights", "A9 (MLA with quantized weights)"),
-        ):
-            if flag:
-                raise NotImplementedError(
-                    f"DeepSeek-V3 MLA with {what} is not ported to PyTorch yet (ROADMAP {item})"
-                )
+        if tc.quantized or tc.weight_int4:
+            raise NotImplementedError(
+                "DeepSeek-V3 MLA with quantized weights is not ported to PyTorch yet "
+                "(ROADMAP A9 (MLA with quantized weights))"
+            )
         # one model-parallel shard: the reference's head padding is the
         # identity here
         self.q_heads = config.num_attention_heads
@@ -307,7 +312,8 @@ class DeepseekV3ModelBuilder(DecoderModelBuilder):
 
     def init_kv_cache(self) -> KVCache:
         """The latent cache: K one head of kv_lora_rank, V one head of
-        qk_rope_head_dim."""
+        qk_rope_head_dim; an int8/fp8 ``kv_cache_dtype`` makes each a
+        QuantizedKV stream with its own (L, 1) scales."""
         cfg = self.config
         tc = cfg.torch_config
         return init_cache(

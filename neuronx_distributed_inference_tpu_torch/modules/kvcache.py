@@ -135,19 +135,30 @@ def _quantized_update(k_stream: QuantizedKV, v_stream: QuantizedKV, k_new: torch
     ``valid`` (B, S) marks the writes that may raise the scale. Padded and
     garbage writes and non-finite elements stay out of it: the scale is
     shared by every row of the (layer, head) and only grows, so one
-    poisoned row's NaN would otherwise reach every row. Both streams go
-    through each step at once (stacked), which halves the step's kernels;
-    each keeps its own scale. ``scale[layer_idx]`` of each stream is updated
-    IN PLACE; returns the K and V codes, quantized with the updated scales."""
-    x = torch.stack([k_new, v_new]).float()  # (2, B, S, H, D)
-    # |x| over the valid, finite elements: masked and non-finite ones read 0
-    kept = torch.nan_to_num(x * valid[None, :, :, None, None], nan=0.0, posinf=0.0, neginf=0.0)
-    amax_new = torch.linalg.vector_norm(kept, ord=float("inf"), dim=(1, 2, 4))  # (2, H)
-    s = torch.maximum(torch.stack([k_stream.scale[layer_idx], v_stream.scale[layer_idx]]), amax_new)
-    codes = quantize_kv_codes(x, s[:, None, None], k_stream.data.dtype)
-    k_stream.scale[layer_idx].copy_(s[0])
-    v_stream.scale[layer_idx].copy_(s[1])
-    return codes[0], codes[1]
+    poisoned row's NaN would otherwise reach every row. Streams of one
+    shape go through each step at once (stacked), which halves the step's
+    kernels; streams of unequal widths (MLA's latent and rope keys) each on
+    their own. Either way each keeps its own scale. ``scale[layer_idx]`` of
+    each stream is updated IN PLACE; returns the K and V codes, quantized
+    with the updated scales."""
+    if k_new.shape == v_new.shape:
+        x = torch.stack([k_new, v_new]).float()  # (2, B, S, H, D)
+        # |x| over the valid, finite elements: masked and non-finite ones read 0
+        kept = torch.nan_to_num(x * valid[None, :, :, None, None], nan=0.0, posinf=0.0, neginf=0.0)
+        amax_new = torch.linalg.vector_norm(kept, ord=float("inf"), dim=(1, 2, 4))  # (2, H)
+        s = torch.maximum(torch.stack([k_stream.scale[layer_idx], v_stream.scale[layer_idx]]), amax_new)
+        codes = quantize_kv_codes(x, s[:, None, None], k_stream.data.dtype)
+        k_stream.scale[layer_idx].copy_(s[0])
+        v_stream.scale[layer_idx].copy_(s[1])
+        return codes[0], codes[1]
+    out = []
+    for stream, new in ((k_stream, k_new), (v_stream, v_new)):
+        x = new.float()
+        kept = torch.nan_to_num(x * valid[:, :, None, None], nan=0.0, posinf=0.0, neginf=0.0)
+        s = torch.maximum(stream.scale[layer_idx], torch.linalg.vector_norm(kept, ord=float("inf"), dim=(0, 1, 3)))
+        out.append(quantize_kv_codes(x, s, stream.data.dtype))
+        stream.scale[layer_idx].copy_(s)
+    return out[0], out[1]
 
 
 def cache_streams(cache) -> tuple:

@@ -48,6 +48,44 @@ MODEL_DEEPSEEK_V3 = dict(H=7168, I=2048, L=61, E=256, k=8, V=129280)
 # expert's) width, I_mlp a dense layer's
 MODEL_LLAMA4_SCOUT = dict(H=5120, I=8192, I_mlp=16384, Hq=40, Hkv=8, D=128, L=48, E=16, k=1, V=202048)
 
+#: openai/whisper-large-v3's decoder (d model, F the FFN width, V the tied
+#: vocab) and FLUX.1-dev's DiT (dim, 24 heads of 128, 19 dual and 38 single
+#: blocks, the MLP 4 x dim)
+MODEL_WHISPER_LARGE_V3 = dict(d=1280, F=5120, L=32, H=20, V=51866)
+MODEL_FLUX_DEV = dict(dim=3072, H=24, D=128, dual=19, single=38, mlp=12288)
+
+
+def whisper_decode_step(m: Dict[str, int], batch: int, enc_states: int, cache_len: int) -> Tuple[int, int]:
+    """(bytes, FLOPs) of one Whisper decode step, one token a row: every
+    decoder weight read once (the tied vocab matrix included), the encoder
+    states and the self-attention cache read; FLOPs of the projections and
+    of the cross K / V recomputed from ``enc_states`` states a row at every
+    step, as the reference computes them."""
+    d, F, L, V = m["d"], m["F"], m["L"], m["V"]
+    per_layer = 8 * d * d + 2 * d * F  # self and cross q / k / v / o, fc1 / fc2
+    weights = L * per_layer + V * d
+    nbytes = weights * BF16 + batch * enc_states * d * BF16 + 2 * L * batch * cache_len * d * BF16
+    flops = 2 * batch * weights + L * 2 * 2 * batch * enc_states * d * d + L * 4 * batch * (enc_states + cache_len) * d
+    return nbytes, flops
+
+
+def flux_step(m: Dict[str, int], batch: int, img_tokens: int, txt_tokens: int) -> Tuple[int, int]:
+    """(bytes, FLOPs) of one FLUX DiT forward: the block weights read once;
+    2 FLOPs a weight a token (each dual block's weights see their stream's
+    tokens, a single block's all of them) and the joint attention's QK and
+    PV products over every block."""
+    dim, mlp = m["dim"], m["mlp"]
+    inner = m["H"] * m["D"]
+    dual_stream = 6 * dim * dim + 3 * dim * inner + inner * dim + 2 * dim * mlp  # one stream's
+    single = dim * 3 * dim + 3 * dim * inner + dim * mlp + inner * dim + mlp * dim
+    L = img_tokens + txt_tokens
+    weights = m["dual"] * 2 * dual_stream + m["single"] * single
+    nbytes = weights * BF16
+    flops = 2 * batch * (m["dual"] * dual_stream * L + m["single"] * single * L)
+    flops += (m["dual"] + m["single"]) * 4 * batch * L * L * inner
+    return nbytes, flops
+
+
 INT4_GROUP = 128  # rows of K per scale (the reference's quant_matmul.INT4_GROUP)
 
 

@@ -7,8 +7,8 @@ checkpoint converter and its static keyword arguments; the application
 loads the weights on the config's device and runs the function eagerly (no
 graph: a tower runs once a request). Concrete towers register through
 :func:`register_encoder`: ``pixtral``, ``llama4_vision`` and
-``mllama_vision``; ``whisper_encoder`` is registered and refuses, naming
-its ROADMAP item.
+``mllama_vision``, ``whisper_encoder``, and FLUX's ``flux_clip_text``,
+``flux_t5`` and ``flux_vae_decoder`` (registered by ``runtime/flux.py``).
 """
 
 from __future__ import annotations
@@ -46,23 +46,26 @@ class EncoderApplication:
 
     ``encode_fn(params, *tensors) -> tensor``; ``convert_fn(state_dict,
     dtype, device) -> params`` maps an HF checkpoint onto the params tree.
-    The device is the config's ``torch_config.device`` (the card unless
-    the caller asks for the CPU)."""
+    The device is ``device`` where given (a FLUX spec carries none), else
+    the config's ``torch_config.device``: the card unless the caller asks
+    for the CPU."""
 
     def __init__(self, encode_fn: Callable, convert_fn: Optional[Callable] = None, config=None,
-                 static_kwargs: Optional[dict] = None):
+                 static_kwargs: Optional[dict] = None, device=None):
         self.config = config
         self.convert_fn = convert_fn
         self.encode_fn = encode_fn
         self.static_kwargs = static_kwargs or {}
-        tc = getattr(config, "torch_config", None)
-        self.device = resolve_device(tc.device if tc is not None else "cuda")
+        if device is None:
+            tc = getattr(config, "torch_config", None)
+            device = tc.device if tc is not None else "cuda"
+        self.device = resolve_device(device)
         self.params = None
 
     @classmethod
-    def from_registry(cls, name: str, config):
+    def from_registry(cls, name: str, config, device=None):
         encode_fn, convert_fn, static_kwargs = get_encoder_factory(name)(config)
-        return cls(encode_fn, convert_fn, config=config, static_kwargs=static_kwargs)
+        return cls(encode_fn, convert_fn, config=config, static_kwargs=static_kwargs, device=device)
 
     def load(self, state_dict=None, params=None, model_path=None, dtype=None):
         """``params`` as they are, or ``state_dict`` converted in the
@@ -148,7 +151,15 @@ def _mllama_vision_factory(config):
 
 @register_encoder("whisper_encoder")
 def _whisper_encoder_factory(config):
-    raise NotImplementedError(
-        "the Whisper encoder is not ported to PyTorch yet (ROADMAP A9 (Whisper)); "
-        "its encoder-decoder app comes with it"
+    from neuronx_distributed_inference_tpu_torch.models.whisper import (
+        convert_whisper_state_dict,
+        whisper_encoder,
+        whisper_spec,
     )
+
+    spec = whisper_spec(config)
+
+    def convert(sd, dt, device):
+        return convert_whisper_state_dict(sd, spec, dt, device)["encoder"]
+
+    return whisper_encoder, convert, {"spec": spec}

@@ -15,7 +15,12 @@ ATOL of JAX's.
   a generate() past a decode chunk, the MoE route counts per group;
 - the latent cache's shapes and bytes, the contiguous ``ServingSession``,
   random params, the weight carry from the JAX package, and each refusal's
-  message."""
+  message;
+- MLA on the int8 and e4m3 latent caches: ``generate()`` on the oracle
+  config (both ``rope_interleave`` cases) and the contiguous
+  ``ServingSession`` against JAX's, the streams' (L, 1) scales within
+  SCALE_RTOL and their codes byte for byte from one write of the same
+  values, the rope keys seeded on ten times the latent's range."""
 
 import jax
 import numpy as np
@@ -30,7 +35,8 @@ from neuronx_distributed_inference_tpu_torch.config import MoEConfig
 from neuronx_distributed_inference_tpu_torch.models.base import LayerGroupSpec, gated_mlp
 from neuronx_distributed_inference_tpu_torch.models.builder import params_from_jax
 from neuronx_distributed_inference_tpu_torch.models.deepseek import DeepseekV3InferenceConfig
-from neuronx_distributed_inference_tpu_torch.modules.kvcache import KVCache
+from neuronx_distributed_inference_tpu_torch.modules import kvcache as tkv
+from neuronx_distributed_inference_tpu_torch.modules.kvcache import KVCache, QuantizedKV
 from neuronx_distributed_inference_tpu_torch.modules.moe import router_top_k
 from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
 from neuronx_distributed_inference_tpu_torch.runtime.serving import ServingSession, SpeculativeServingSession
@@ -59,6 +65,14 @@ SHARED2 = dict(
     n_group=1, topk_group=1, first_k_dense_replace=0, rope_interleave=False,
 )
 #: the published config's rope_scaling
+#: the quantized streams' scales against JAX's: the two frameworks' fp32
+#: latents differ in the last bits (ROADMAP C), as on the Llama cache
+SCALE_RTOL = 1e-5
+#: codes of a whole generate() against JAX's: a code may differ by one step
+#: where the two frameworks' fp32 values straddle a rounding midpoint, at
+#: most this share of them (one write of the same values matches byte for
+#: byte, test_quantized_latent_write_matches_jax)
+CODE_FLIP_SHARE = 1e-3
 YARN = dict(type="yarn", factor=40, mscale=1.0, mscale_all_dim=1.0, original_max_position_embeddings=4096,
             beta_fast=32, beta_slow=1)
 
@@ -309,7 +323,6 @@ def test_weight_carry_and_random_params():
     [
         (dict(is_block_kv_layout=True, is_continuous_batching=True), "DeepSeek-V3 MLA with paged cache is not implemented"),
         (dict(fused_qkv=True), "DeepSeek-V3 MLA with fused_qkv is not implemented"),
-        (dict(kv_cache_dtype="int8"), r"ROADMAP A9 \(MLA on the quantized cache\)"),
         (dict(quantized=True), r"ROADMAP A9 \(MLA with quantized weights\)"),
         (dict(weight_dtype="int4"), r"ROADMAP A9 \(MLA with quantized weights\)"),
     ],
@@ -339,3 +352,105 @@ def test_speculation_refusals():
         FusedSpecModelForCausalLM(None, cfg)
     with pytest.raises(NotImplementedError, match="medusa over models with custom decoder layers"):
         MedusaModelForCausalLM(None, _port_cfg(hf, medusa_speculation_length=4, num_medusa_heads=3))
+
+
+# ---------------------------------------------------------------------------
+# MLA on the int8 / e4m3 latent cache
+# ---------------------------------------------------------------------------
+
+
+def _code_bytes(t):
+    if isinstance(t, torch.Tensor):
+        return t.view(torch.uint8).numpy().astype(np.int16)
+    return np.asarray(t).view(np.uint8).astype(np.int16)
+
+
+def _assert_streams_close(port_cache, jax_cache, lines):
+    """Each stream's (L, 1) scales within SCALE_RTOL of JAX's; its codes on
+    the real lines equal but for one-step flips at rounding midpoints."""
+    for ts, js in ((port_cache.k, jax_cache.k), (port_cache.v, jax_cache.v)):
+        assert isinstance(ts, QuantizedKV) and tuple(ts.scale.shape) == tuple(js.scale.shape)
+        np.testing.assert_allclose(ts.scale.numpy(), np.asarray(js.scale), rtol=SCALE_RTOL, atol=0)
+        tb, jb = _code_bytes(ts.data[:, :lines]), _code_bytes(js.data[:, :lines])
+        diff = np.abs(tb - jb)
+        assert diff.max() <= 1 and (diff > 0).mean() <= CODE_FLIP_SHARE
+
+
+@pytest.mark.parametrize("rope_interleave", [False, True])
+@pytest.mark.parametrize("kvd", ["int8", "fp8"])
+def test_quantized_latent_cache_matches_jax(kvd, rope_interleave):
+    """generate() on the int8 / e4m3 latent cache: tokens equal to JAX's,
+    logits within ATOL, both streams as JAX leaves them."""
+    hf, sd = _hf(dict(ORACLE, rope_interleave=rope_interleave))
+    port = _port_app(hf, sd, kv_cache_dtype=kvd)
+    jax_app = _jax_app(hf, sd, kv_cache_dtype=kvd)
+    _same(port.generate(PROMPT, MASK, max_new_tokens=N_NEW), jax_app.generate(PROMPT, MASK, max_new_tokens=N_NEW))
+    _assert_streams_close(port.kv_cache, jax_app.kv_cache, PROMPT.shape[0])
+    assert float(port.kv_cache.k.scale.min()) > 0 and float(port.kv_cache.v.scale.min()) > 0
+
+
+@pytest.mark.parametrize("kvd", ["int8", "fp8"])
+def test_quantized_latent_write_matches_jax(kvd):
+    """One write of the same fp32 latent (width 16) and rope keys (width 8,
+    on ten times the latent's range) at layer 1: each stream's codes byte
+    for byte and its own (1,) scale equal to JAX's; the rope stream's scale
+    is about ten times the latent's, so a shared absmax would show."""
+    import jax.numpy as jnp
+    from neuronx_distributed_inference_tpu.modules import kvcache as jkv
+
+    rng = np.random.RandomState(3)
+    B, S, L = 2, 5, 3
+    c = rng.randn(B, S, 1, 16).astype(np.float32)
+    pe = (rng.randn(B, S, 1, 8) * 10).astype(np.float32)
+    slots, pos = np.array([0, 1], np.int32), np.tile(np.arange(S, dtype=np.int32), (B, 1))
+    pos[1, -1] = 64  # out of range: kept out of the scales
+    dt = {"int8": (torch.int8, jnp.int8), "fp8": (torch.float8_e4m3fn, jnp.float8_e4m3fn)}[kvd]
+    port = tkv.init_cache(L, B, 64, 1, 16, dt[0], device="cpu", v_heads=1, v_head_dim=8)
+    jc = jkv.init_cache(L, B, 64, 1, 16, dtype=dt[1], v_heads=1, v_head_dim=8)
+    tkv.update_cache_at_layer(port.k, port.v, torch.from_numpy(c), torch.from_numpy(pe), 1,
+                              torch.from_numpy(slots), torch.from_numpy(pos))
+    jk, jv = jkv.update_cache_at_layer(jc.k, jc.v, jnp.asarray(c), jnp.asarray(pe), 1, jnp.asarray(slots),
+                                       jnp.asarray(pos))
+    for ts, js in ((port.k, jk), (port.v, jv)):
+        np.testing.assert_array_equal(_code_bytes(ts.data[:, :B]), _code_bytes(js.data[:, :B]))
+        np.testing.assert_array_equal(ts.scale.numpy(), np.asarray(js.scale))
+    valid = pos < 64
+    ks, vs = float(port.k.scale[1, 0]), float(port.v.scale[1, 0])
+    assert ks == float(np.abs(c[valid]).max()) and vs == float(np.abs(pe[valid]).max())
+    assert vs > 5 * ks and float(port.k.scale[0].abs().sum() + port.k.scale[2].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("kvd", ["int8", "fp8"])
+def test_quantized_latent_serving_session_matches_jax(kvd):
+    """The contiguous ServingSession on one slot (both packages' MLA layers
+    then read the same line) over the quantized latent cache: each
+    request's stream equal to JAX's, and the scales the requests leave
+    (they grow over all three: the scales are never reset)."""
+    from neuronx_distributed_inference_tpu.runtime.serving import ServingSession as JaxSession
+
+    hf, sd = _hf(ORACLE, seed=8)
+    kw = dict(is_continuous_batching=True, batch_size=1, ctx_batch_size=1, output_logits=False,
+              kv_cache_dtype=kvd)
+    port, jax_app = _port_app(hf, sd, **kw), _jax_app(hf, sd, **kw)
+    reqs = {"a": [5, 17, 92, 41], "b": list(range(30, 44)), "c": [64, 3, 27, 9, 14, 33]}
+    got = {ServingSession: {}, JaxSession: {}}
+    for app, sess_cls in ((port, ServingSession), (jax_app, JaxSession)):
+        sess = sess_cls(app)
+        for rid, p in reqs.items():  # one slot: each request in turn
+            assert sess.add_request(rid, p, max_new_tokens=6)
+            got[sess_cls].update(sess.run_to_completion())
+    assert got[ServingSession] == got[JaxSession]
+    for ts, js in ((port.kv_cache.k, jax_app.kv_cache.k), (port.kv_cache.v, jax_app.kv_cache.v)):
+        np.testing.assert_allclose(ts.scale.numpy(), np.asarray(js.scale), rtol=SCALE_RTOL, atol=0)
+
+
+@pytest.mark.parametrize("kvd", ["int8", "fp8", "float8_e5m2"])
+def test_quantized_latent_cache_bytes(kvd):
+    """One byte a latent and a rope value, plus each stream's (L, 1) fp32
+    scales: (16 + 8) bytes a token a layer against fp32's 96."""
+    hf, sd = _hf(ORACLE, seed=7)
+    port = _port_app(hf, sd, kv_cache_dtype=kvd)
+    cache = port.kv_cache
+    assert tuple(cache.k.shape) == (3, 3, 64, 1, 16) and tuple(cache.v.shape) == (3, 3, 64, 1, 8)
+    assert tuple(cache.k.scale.shape) == tuple(cache.v.scale.shape) == (3, 1)
+    assert port.kv_cache_nbytes == 3 * 3 * 64 * (16 + 8) + 2 * 3 * 4

@@ -860,3 +860,155 @@ def test_mllama_graphed_decode_matches_eager_on_the_card(cuda_card):
     again = generate(on)
     assert on.graphs.captures == 1
     np.testing.assert_array_equal(again.sequences, eager.sequences)
+
+
+@pytest.mark.gpu
+def test_decode_attention_row_chunks_timed_points_on_the_card(cuda_card):
+    """B1 and B4 at the timed row-chunk points (GPT-OSS-20B's heads with
+    the sink, K = 16, batch 1 and 8, bucket 1024, ~200 deep) against their
+    plain versions (chip_smoke.row_chunk_times), each with its time, plain
+    time, SDPA time and bound."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import decode_attention as da
+
+    rows = chip_smoke.row_chunk_times(torch, da)
+    assert set(rows) == {(n, B) for n in ("decode_attention_row_chunks", "paged_decode_attention_row_chunks")
+                         for B in (1, 8)}
+    for row in rows.values():
+        assert row["ms"] > 0 and row["plain_ms"] > 0 and row["library_ms"] > 0 and row["bound_ms"] > 0
+        assert row["max_abs_err"] < 0.05
+
+
+def _small_whisper(graphs, batch=2):
+    from neuronx_distributed_inference_tpu_torch.config import Config, InferenceConfig
+    from neuronx_distributed_inference_tpu_torch.runtime.encoder_decoder import WhisperModel
+
+    hf = dict(d_model=256, encoder_layers=2, decoder_layers=3, encoder_attention_heads=4, decoder_attention_heads=4,
+              encoder_ffn_dim=512, decoder_ffn_dim=512, num_mel_bins=32, vocab_size=512, max_source_positions=64,
+              max_target_positions=96, decoder_start_token_id=1)
+    cfg = InferenceConfig(Config(batch_size=batch, seq_len=96, dtype="bfloat16", device="cuda", cuda_graphs=graphs),
+                          load_config=lambda c: [setattr(c, k, v) for k, v in hf.items()])
+    return WhisperModel(None, cfg)
+
+
+@pytest.mark.gpu
+def test_whisper_graphed_decode_matches_eager_on_the_card(cuda_card):
+    """A small Whisper on the card (seeded bf16 weights, heads of 64): the
+    graphed decode (one graph a batch) against an app with graphs off on
+    the same params and inputs: the same tokens and launch counts (none),
+    the self-attention K / V streams equal bit for bit; with an EOS list
+    whose first id one row emits early, the finished row's fill matches
+    too; a second call replays with no new capture."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    import chip_smoke
+    from neuronx_distributed_inference_tpu_torch.ops import _cuda
+
+    on = _small_whisper(True)
+    params = chip_smoke.whisper_params(torch, on.spec, ffn=512)
+    on.load(params=params)
+    off = _small_whisper(False).load(params=params)
+    feats = torch.randn((2, 32, 128), generator=torch.Generator("cuda").manual_seed(3), device="cuda")
+    forced = np.array([[1, 7, 9], [1, 8, 10]])
+    _cuda.reset_launch_counts()
+    graphed = on.generate(feats, decoder_input_ids=forced, max_new_tokens=24)
+    counts = chip_smoke.all_counts()
+    eager = off.generate(feats, decoder_input_ids=forced, max_new_tokens=24)
+    assert chip_smoke.all_counts() == counts and not any(counts.values())
+    assert on.graphs.captures == 1 and off.graphs.captures == 0
+    np.testing.assert_array_equal(graphed.sequences, eager.sequences)
+    for name in ("k", "v"):
+        assert torch.equal(getattr(on.kv_cache, name), getattr(off.kv_cache, name)), name
+    eos = [int(graphed.sequences[0, 6]), 3]
+    a = on.generate(feats, decoder_input_ids=forced, max_new_tokens=24, eos_token_id=eos)
+    b = off.generate(feats, decoder_input_ids=forced, max_new_tokens=24, eos_token_id=eos)
+    np.testing.assert_array_equal(a.sequences, b.sequences)
+    assert (a.sequences[0, 7:] == eos[0]).all()
+    again = on.generate(feats, decoder_input_ids=forced, max_new_tokens=24)
+    assert on.graphs.captures == 2  # the EOS list's key, then no new one
+    np.testing.assert_array_equal(again.sequences, graphed.sequences)
+
+
+@pytest.mark.gpu
+def test_flux_step_on_the_card_against_its_fp32_twin(cuda_card):
+    """One velocity of a small FLUX DiT (heads of 128, 1 dual and 2 single
+    blocks, a non-square 6 x 10 grid) on the card in bf16 within 5% rel rms
+    of its fp32 twin, the fp32 twin within 1e-4 of the same call on the
+    CPU, and one pipeline step's image finite in [0, 1]."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+
+    from neuronx_distributed_inference_tpu_torch.models.flux import FluxSpec, flux_forward, flux_random_params, latent_image_ids
+
+    spec = FluxSpec(dim=256, num_heads=2, head_dim=128, num_dual=1, num_single=2, in_channels=64, joint_dim=128,
+                    pooled_dim=64, axes_dims_rope=(16, 56, 56))
+    p32 = flux_random_params(spec, seed=3)
+    rng = np.random.RandomState(0)
+    args = [torch.from_numpy(a) for a in (
+        rng.randn(1, 60, 64).astype(np.float32), rng.randn(1, 12, 128).astype(np.float32),
+        rng.randn(1, 64).astype(np.float32), np.full(1, 0.6, np.float32), latent_image_ids(6, 10),
+        np.zeros((12, 3), np.float32))]
+
+    def run(tree, dt, dev):
+        on = [a.to(dev) for a in args]
+        for i in range(3):
+            on[i] = on[i].to(dt)
+        with torch.no_grad():
+            return flux_forward(_cast_tree(tree, dt, dev), *on, spec=spec).float().cpu().numpy()
+
+    cpu = run(p32, torch.float32, "cpu")
+    f32 = run(p32, torch.float32, "cuda")
+    bf16 = run(p32, torch.bfloat16, "cuda")
+    np.testing.assert_allclose(f32, cpu, atol=1e-4, rtol=0)
+    assert np.sqrt(np.mean((bf16 - f32) ** 2)) / np.sqrt(np.mean(f32 ** 2)) < 0.05
+
+
+def _cast_tree(tree, dt, dev):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dt, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_tree(v, dt, dev) for v in tree]
+    return tree.to(device=dev, dtype=dt) if tree.is_floating_point() else tree.to(dev)
+
+
+@pytest.mark.gpu
+def test_mla_int8_latent_cache_on_the_card_against_its_fp32_twin(cuda_card):
+    """A small DeepSeek-V3 (MLA, 1 dense + 2 MoE layers) on the int8 latent
+    cache on the card: bf16 logits of a 6-token generate() within 5% rel
+    rms of the fp32 app's on the same int8 cache and the same params, the
+    fp32 app's tokens equal to the same app's on the CPU, each stream's
+    (L, 1) scales raised."""
+    import numpy as np
+
+    from neuronx_distributed_inference_tpu_torch.config import MoEConfig
+    from neuronx_distributed_inference_tpu_torch.models.deepseek import DeepseekV3InferenceConfig
+    from neuronx_distributed_inference_tpu_torch.runtime.application import ModelForCausalLM
+
+    hf = dict(model_type="deepseek_v3", vocab_size=512, hidden_size=256, intermediate_size=384,
+              moe_intermediate_size=64, num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=4,
+              n_shared_experts=1, n_routed_experts=8, routed_scaling_factor=2.5, kv_lora_rank=64, q_lora_rank=96,
+              qk_rope_head_dim=32, v_head_dim=32, qk_nope_head_dim=32, n_group=2, topk_group=1,
+              num_experts_per_tok=2, first_k_dense_replace=1, norm_topk_prob=True, rms_norm_eps=1e-5,
+              max_position_embeddings=256, tie_word_embeddings=False)
+
+    def app(dtype, device):
+        cfg = DeepseekV3InferenceConfig(
+            MoEConfig(batch_size=2, seq_len=64, dtype=dtype, device=device, kv_cache_dtype="int8", output_logits=True,
+                      moe_fused_kernel_enabled=False),
+            load_config=lambda c: [setattr(c, k, v) for k, v in hf.items()])
+        return ModelForCausalLM(None, cfg)
+
+    a32 = app("float32", "cuda").load(random_weights=True)
+    params = a32.params
+    a16 = app("bfloat16", "cuda").load(params=_cast_tree(params, torch.bfloat16, "cuda"))
+    cpu = app("float32", "cpu").load(params=_cast_tree(params, torch.float32, "cpu"))
+    ids = np.random.RandomState(1).randint(0, 512, size=(2, 10))
+    o32, o16, oc = (x.generate(ids, max_new_tokens=6) for x in (a32, a16, cpu))
+    np.testing.assert_array_equal(o32.sequences, oc.sequences)
+    rel = np.sqrt(np.mean((o16.logits - o32.logits) ** 2)) / np.sqrt(np.mean(o32.logits ** 2))
+    assert rel < 0.05, rel
+    for x in (a32, a16):
+        for stream in (x.kv_cache.k, x.kv_cache.v):
+            assert tuple(stream.scale.shape) == (3, 1) and float(stream.scale.min()) > 0

@@ -472,16 +472,16 @@ def _refuse_mllama_kv_int8():
     _mllama_app(kv_cache_dtype="int8").load(params={})
 
 
-def _refuse_whisper_encoder():
-    from neuronx_distributed_inference_tpu_torch.runtime.encoder import get_encoder_factory
+def _refuse_whisper_checkpoint_path():
+    from neuronx_distributed_inference_tpu_torch.runtime.encoder_decoder import WhisperModel
 
-    get_encoder_factory("whisper_encoder")(None)
+    WhisperModel(None, _whisper_config(device="cpu")).load(model_path="openai/whisper-large-v3")
 
 
 @pytest.mark.parametrize("refuse, item", [
     (_refuse_embeds_window, r"ROADMAP C \(inputs_embeds with windowed prefill\)"),
     (_refuse_mllama_kv_int8, r"ROADMAP C \(Mllama's quantized KV cache\)"),
-    (_refuse_whisper_encoder, r"ROADMAP A9 \(Whisper\)"),
+    (_refuse_whisper_checkpoint_path, r"ROADMAP A11"),
 ])
 def test_vision_language_refusals_name_their_roadmap_items(refuse, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -497,3 +497,72 @@ def test_vision_language_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         MllamaForConditionalGeneration(None, _mllama_config())
+
+
+#: the speech-to-text and text-to-image slice's modules
+A9_REST_MODULES = (
+    "models/whisper.py", "runtime/encoder_decoder.py", "models/flux.py", "models/flux_text.py", "models/flux_vae.py",
+    "runtime/flux.py", "modules/kvcache.py", "models/deepseek.py", "models/builder.py",
+)
+
+
+@pytest.mark.parametrize("rel", A9_REST_MODULES)
+def test_speech_and_image_modules_import_no_jax(rel):
+    """Each module of the Whisper / FLUX / quantized-MLA slice exists and
+    imports neither jax nor the JAX package."""
+    path = PORT / rel
+    assert path.is_file()
+    assert [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN] == []
+
+
+def _whisper_config(**kw):
+    from neuronx_distributed_inference_tpu_torch.config import InferenceConfig
+
+    hf = dict(d_model=64, encoder_layers=1, decoder_layers=1, decoder_attention_heads=2, num_mel_bins=8,
+              vocab_size=32, max_source_positions=8, max_target_positions=16)
+    return InferenceConfig(Config(batch_size=1, seq_len=16, dtype="float32", **kw),
+                           load_config=lambda c: [setattr(c, k, v) for k, v in hf.items()])
+
+
+def _flux_config(**kw):
+    from neuronx_distributed_inference_tpu_torch.models.flux import FluxSpec
+    from neuronx_distributed_inference_tpu_torch.models.flux_text import ClipTextSpec, T5EncoderSpec
+    from neuronx_distributed_inference_tpu_torch.runtime.flux import FluxPipelineConfig
+
+    return FluxPipelineConfig(
+        backbone=FluxSpec(dim=32, num_heads=2, head_dim=16, num_dual=1, num_single=1, joint_dim=16, pooled_dim=8,
+                          axes_dims_rope=(4, 6, 6)),
+        clip=ClipTextSpec(hidden_size=8, num_heads=2, num_layers=1, intermediate_size=16, vocab_size=16,
+                          max_positions=8),
+        t5=T5EncoderSpec(d_model=16, num_heads=2, d_kv=8, num_layers=1, d_ff=16, vocab_size=16), **kw,
+    )
+
+
+def test_whisper_and_flux_default_to_the_card(monkeypatch):
+    """Built without a device, WhisperModel and FluxPipeline take the card,
+    which raises where torch sees none; the CPU only when asked."""
+    from neuronx_distributed_inference_tpu_torch.runtime.encoder_decoder import WhisperModel
+    from neuronx_distributed_inference_tpu_torch.runtime.flux import FluxPipeline, FluxPipelineConfig
+
+    assert WhisperModel(None, _whisper_config(device="cpu")).device.type == "cpu"
+    assert FluxPipeline(_flux_config(device="cpu")).device.type == "cpu"
+    assert {f.name: f.default for f in dataclasses.fields(FluxPipelineConfig)}["device"] == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WhisperModel(None, _whisper_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FluxPipeline(_flux_config())
+
+
+@pytest.mark.parametrize("case", ["flux_checkpoint", "flux_mesh"])
+def test_speech_and_image_refusals_name_their_roadmap_items(case):
+    """A FLUX checkpoint path names A11 (Whisper's is in the refusals
+    above); FLUX over a mesh of two devices names A10."""
+    from neuronx_distributed_inference_tpu_torch.runtime.flux import FluxPipeline
+
+    if case == "flux_checkpoint":
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            FluxPipeline(_flux_config(device="cpu")).load()
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            FluxPipeline(_flux_config(device="cpu"), mesh=["cuda:0", "cuda:1"])

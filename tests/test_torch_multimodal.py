@@ -565,11 +565,28 @@ def test_encoder_app_params_and_dtype(llava):
 
 
 def test_encoder_registry_unknown_and_whisper():
+    """An unknown name raises; ``whisper_encoder`` builds the Whisper
+    encoder, equal to the JAX package's on a tiny seeded HF Whisper."""
+    from transformers import WhisperConfig, WhisperForConditionalGeneration
+
+    from neuronx_distributed_inference_tpu.models.whisper import whisper_encoder as jax_whisper_encoder
+    from neuronx_distributed_inference_tpu.models.whisper import convert_whisper_state_dict, whisper_spec
+
     with pytest.raises(KeyError, match="unknown encoder"):
         get_encoder_factory("nope")
-    factory = get_encoder_factory("whisper_encoder")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A9 \(Whisper\)"):
-        factory(_EncCfg({}))
+    hf_cfg = WhisperConfig(vocab_size=64, d_model=64, encoder_layers=2, decoder_layers=1, encoder_attention_heads=4,
+                           decoder_attention_heads=4, encoder_ffn_dim=96, decoder_ffn_dim=96, num_mel_bins=8,
+                           max_source_positions=16, max_target_positions=16, pad_token_id=0, bos_token_id=1,
+                           eos_token_id=2, decoder_start_token_id=1)
+    torch.manual_seed(3)
+    sd = {k: v.float().numpy() for k, v in WhisperForConditionalGeneration(hf_cfg).state_dict().items()}
+    cfg = InferenceConfig(Config(batch_size=1, seq_len=16, dtype="float32", device="cpu"),
+                          load_config=lambda c: [setattr(c, k, v) for k, v in hf_cfg.to_dict().items()])
+    app = EncoderApplication.from_registry("whisper_encoder", cfg).load(state_dict=sd)
+    feats = np.random.RandomState(0).randn(2, 8, 32).astype(np.float32)
+    spec = whisper_spec(hf_cfg.to_dict())
+    want = jax_whisper_encoder(convert_whisper_state_dict(sd, spec, jnp.float32)["encoder"], jnp.asarray(feats), spec)
+    np.testing.assert_allclose(app(feats).numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
 def test_encoder_app_defaults_to_the_card(llava):
